@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by a hash of its source
-and flags (a changed source rebuilds, an unchanged one is reused), and
-loaded with ``ctypes``. Every C entry returns ``cudaGetLastError()`` and
-the Python wrapper raises when it is not 0.
+``build/kernels/`` at the repository root, named by a hash of its source,
+of every header in ``csrc/`` and of the flags (a changed source or header
+rebuilds, an unchanged one is reused), and loaded with ``ctypes``. Every C
+entry returns ``cudaGetLastError()`` and the Python wrapper raises when it
+is not 0.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine without ``nvcc``.
@@ -27,7 +28,7 @@ from .base import MXNetError
 __all__ = ["KERNEL_SOURCES", "build_all", "load", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("flash_attention_fwd",)
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,8 +51,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 

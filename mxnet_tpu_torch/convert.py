@@ -1,11 +1,13 @@
-"""Move the JAX package's parameters into a port block.
+"""Move parameters between the JAX package and a port block.
 
 ``load_jax_params(block, params)`` takes ``{name: numpy array}`` keyed by
 the JAX package's ``collect_params()`` names (for instance what
 ``{k: p.data().asnumpy() for k, p in net.collect_params().items()}`` gives
 there, or weights made from a seed with numpy) and copies each into the
 port parameter of the same name. It is strict: a missing, extra or
-mis-shaped name raises.
+mis-shaped name raises. ``export_params(block)`` is its inverse: the
+block's parameters as f32 numpy arrays under the same names, so that
+weights after training steps compare with the JAX package's.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from .base import MXNetError
 from .gluon.parameter import to_torch_dtype
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_params"]
 
 
 def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
@@ -44,3 +46,10 @@ def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
     if dtype is not None:
         block.to(to_torch_dtype(dtype))
     return block
+
+
+def export_params(block: Any) -> Dict[str, _np.ndarray]:
+    """``{name: f32 numpy array}`` of every parameter of ``block``, keyed
+    by the names :func:`load_jax_params` takes."""
+    return {k: p.detach().float().cpu().numpy()
+            for k, p in block.collect_params().items()}

@@ -1,0 +1,745 @@
+// Flash-attention backward for Hopper (sm_90a), bound through a plain C entry.
+//
+// Replaces: mxnet_tpu/ops/pallas/attention.py, the three kernels that
+// _flash_backward launches through pl.pallas_call:
+//   _flash_bwd_fused_kernel (single pass when Tk fits one k-block),
+//   _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (the two-pass pair).
+// All three compute, from q, k, v, dout, the forward's lse and
+// delta = rowsum(dout * out) (f32, computed by the caller):
+//   p   = exp(q k^T * scale + bias - lse), 0 where masked
+//   p_d = keep ? p / (1 - rate) : 0          (probability dropout)
+//   dp  = keep ? (dout v^T) / (1 - rate) : 0
+//   ds0 = p * (dp - delta)                   (emitted in f32 when the bias
+//                                             is learned, for its gradient)
+//   dv  = p_d^T dout,  dk = (ds0 * scale)^T q,  dq = (ds0 * scale) k
+// with the causal mask top-left (col <= row), keys past Tk and rows past Tq
+// masked in the kernel (the caller pads nothing), the additive f32 bias
+// broadcast through its strides, and the dropout keep bit of philox.cuh,
+// the same pure function of (seed, batch, head, row, col) as the forward's.
+// q, k, v, dout, dq, dk and dv are addressed through (batch, head, time)
+// strides with a unit stride on the head dimension, so the q, k, v views of
+// a fused QKV projection are read where they lie.
+//
+// What bounds it on an H100: the five products are 10*T*T*D flops against
+// about 8*T*D*2 bytes per (batch, head) in 16 bits; at BERT shapes (T = 512,
+// D = 64) that is ~320 flops a byte, near the card's ~295, so operations
+// and bytes bound it about equally (PERF.md). The design keeps every T x T
+// quantity (s, p, dp, ds) in registers and shared memory, never in device
+// memory unless the bias gradient asks for ds:
+//
+// - dkv (and fused): one block of 4 warps per (batch, head, 64-key tile);
+//   each warp owns 16 keys and holds their dk and dv rows in registers while
+//   the block walks over 64-row tiles of q and dout, double-buffered through
+//   cp.async. Each warp computes s^T = k q^T and dp^T = v dout^T on the
+//   tensor cores (mma.sync m16n8k16, f32 accumulate), so p_d^T and ds^T come
+//   out of the accumulators already as the A operands of dv += p_d^T dout
+//   and dk += ds^T q, whose B operands come out of the row-major q and dout
+//   tiles through ldmatrix.trans. Causal blocks start at the diagonal tile.
+// - fused: the same block also writes ds (16-bit, scaled) to shared memory
+//   and each warp multiplies 16 of its rows by the resident k tile; the
+//   partial dq goes to an f32 (B, H, Tq, D) buffer by atomicAdd, which the
+//   caller casts to q's dtype. One pass over q, k, v and dout, at the price
+//   of a dq summation order that changes from run to run.
+// - dq (two-pass): one block per (batch, head, 64-row q tile), laid out as
+//   the forward: it walks over 64-key tiles of k and v and keeps dq in
+//   registers; ds comes out of the s accumulators as the A operand of
+//   dq += ds k. Deterministic, with the dkv kernel as its pair.
+//
+// f32 inputs take FMA kernels with the same structure (D/16 threads per row,
+// 16 columns each) and expf, so f32 stays at f32 accuracy. TMA, wgmma and
+// warp specialisation are left for later.
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using mxt::BM;
+using mxt::BN;
+using mxt::Half;
+using mxt::PAD;
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* bias;
+  const float* lse;    // (B, H, Tq) f32
+  const float* delta;  // (B, H, Tq) f32
+  const int* seed;     // (2,) int32 Philox key on the device, or null
+  void* dq;            // q's dtype (dq kernel) or f32 accumulator (fused)
+  void* dk;
+  void* dv;
+  float* ds;           // (B, H, Tq, Tk) f32, or null
+  int B, H, Tq, Tk, D;
+  long long q_sb, q_sh, q_st;
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+  long long o_sb, o_sh, o_st;  // dout
+  long long dq_sb, dq_sh, dq_st;
+  long long dk_sb, dk_sh, dk_st;
+  long long dv_sb, dv_sh, dv_st;
+  long long b_sb, b_sh, b_sq, b_sk;
+  float scale;
+  int causal;
+  int vec;  // 16-byte loads allowed (aligned pointers, strides % 8, D % 8)
+  int dropout;
+  uint32_t drop_threshold;
+  float drop_scale;
+};
+
+// One score's share of the backward: p_d (for dv) and ds0 = p (dp - delta)
+// (unscaled; for dk, dq and the bias gradient).
+template <bool FAST>
+__device__ __forceinline__ void score_grad(const BwdArgs& a, const float* bp,
+                                           float s, float dp, int row, int col,
+                                           float lse, float delta, bool keep,
+                                           float& pd, float& ds0) {
+  float p = 0.f;
+  if (row < a.Tq && col < a.Tk && !(a.causal && col > row)) {
+    float x = s * a.scale;
+    if (bp) x += bp[row * a.b_sq + col * a.b_sk];
+    p = FAST ? __expf(x - lse) : expf(x - lse);
+  }
+  pd = p;
+  if (a.dropout) {
+    pd = keep ? p * a.drop_scale : 0.f;
+    dp = keep ? dp * a.drop_scale : 0.f;
+  }
+  ds0 = p * (dp - delta);
+}
+
+__device__ __forceinline__ float* ds_row(const BwdArgs& a, int b, int h,
+                                         int row) {
+  return a.ds + ((static_cast<long long>(b) * a.H + h) * a.Tq + row) *
+                    static_cast<long long>(a.Tk);
+}
+
+// Store a warp's 16 x DP accumulator (mma C fragments; this thread's rows
+// r0 and r0 + 8) as 16-bit values into rows below n of a strided matrix.
+template <typename T, int DP>
+__device__ __forceinline__ void store_c(uint16_t* base, long long st,
+                                        float (*c)[4], int r0, int n,
+                                        int D, int t4) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int col = nd * 8 + t4 * 2;
+      const uint32_t pk = Half<T>::pack(c[nd][2 * i], c[nd][2 * i + 1]);
+      if (col < D) base[r * st + col] = static_cast<uint16_t>(pk & 0xffffu);
+      if (col + 1 < D) base[r * st + col + 1] = static_cast<uint16_t>(pk >> 16);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dq (16-bit)
+template <typename T, int DP>
+__global__ void __launch_bounds__(128) bwd_dq_mma(BwdArgs a) {
+  constexpr int QS = DP + PAD;
+  constexpr int TILE = BN * QS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* sO = sQ + BM * QS;   // dout tile
+  uint16_t* sK = sO + BM * QS;   // two K tiles
+  uint16_t* sV = sK + 2 * TILE;  // two V tiles
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool vec = a.vec != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+
+  const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const uint16_t* kp = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const uint16_t* vp = static_cast<const uint16_t*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const uint16_t* op = static_cast<const uint16_t*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + BM);
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  mxt::load_rows<BM, DP, QS>(sQ, qp, a.q_st, q0, a.Tq, a.D, vec);
+  mxt::load_rows<BM, DP, QS>(sO, op, a.o_st, q0, a.Tq, a.D, vec);
+  mxt::stage_rows<BN, DP, QS>(sK, kp, a.k_st, 0, a.Tk, a.D, vec);
+  mxt::stage_rows<BN, DP, QS>(sV, vp, a.v_st, 0, a.Tk, a.D, vec);
+  mxt::cp_async_commit();
+  __syncthreads();
+
+  const int wr = warp * 16;
+  uint32_t qf[DP / 16][4], of[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    mxt::load_a<QS>(qf[kk], sQ, wr, kk * 16, g, t4);
+    mxt::load_a<QS>(of[kk], sO, wr, kk * 16, g, t4);
+  }
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse[i] = row[i] < a.Tq ? a.lse[bh * a.Tq + row[i]] : 0.f;
+    delta[i] = row[i] < a.Tq ? a.delta[bh * a.Tq + row[i]] : 0.f;
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BN;
+    const uint16_t* cK = sK + (it & 1) * TILE;
+    const uint16_t* cV = sV + (it & 1) * TILE;
+    if (it + 1 < n_tiles) {
+      mxt::stage_rows<BN, DP, QS>(sK + ((it + 1) & 1) * TILE, kp, a.k_st,
+                                  k0 + BN, a.Tk, a.D, vec);
+      mxt::stage_rows<BN, DP, QS>(sV + ((it + 1) & 1) * TILE, vp, a.v_st,
+                                  k0 + BN, a.Tk, a.D, vec);
+    }
+    mxt::cp_async_commit();
+    mxt::cp_async_wait<1>();
+    __syncthreads();
+
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        uint32_t bf[2];
+        mxt::load_b<QS>(bf, cK, nt * 8, kk * 16, g, t4);
+        Half<T>::mma(s[nt], qf[kk], bf);
+        mxt::load_b<QS>(bf, cV, nt * 8, kk * 16, g, t4);
+        Half<T>::mma(dp[nt], of[kk], bf);
+      }
+    }
+
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const int col0 = k0 + nt * 8 + t4 * 2;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint4 w = make_uint4(0, 0, 0, 0);
+        if (a.dropout) w = mxt::dropout_words(key, b, h, row[i], col0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j, col = col0 + j;
+          const bool keep = mxt::dropout_word(w, row[i], col) >= a.drop_threshold;
+          float pd, ds0;
+          score_grad<true>(a, bp, s[nt][e], dp[nt][e], row[i], col, lse[i],
+                           delta[i], keep, pd, ds0);
+          if (a.ds && row[i] < a.Tq && col < a.Tk) ds_row(a, b, h, row[i])[col] = ds0;
+          s[nt][e] = ds0 * a.scale;
+        }
+      }
+    }
+
+    // dq += ds k: ds comes out of the accumulators as the A operand, k's B
+    // operand out of the row-major K tile through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t af[4] = {Half<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+                        Half<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+                        Half<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                        Half<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; nd += 2) {
+        uint32_t bf[4];
+        mxt::ldmatrix_b_trans<QS>(bf, cK, kk * 16, nd * 8, lane);
+        Half<T>::mma(acc[nd], af, bf);
+        Half<T>::mma(acc[nd + 1], af, bf + 2);
+      }
+    }
+    __syncthreads();  // buffer it & 1 is refilled with tile it + 2
+  }
+
+  uint16_t* dqp = static_cast<uint16_t*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  store_c<T, DP>(dqp, a.dq_st, acc, row[0], a.Tq, a.D, t4);
+}
+
+// ------------------------------------------------- dk, dv (+ dq) (16-bit)
+template <typename T, int DP, bool FUSED>
+__global__ void __launch_bounds__(128) bwd_dkv_mma(BwdArgs a) {
+  constexpr int QS = DP + PAD;
+  constexpr int TILE = BM * QS;
+  constexpr int SS = BN + PAD;  // row stride of the ds tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* sV = sK + BN * QS;
+  uint16_t* sQ = sV + BN * QS;   // two Q tiles
+  uint16_t* sO = sQ + 2 * TILE;  // two dout tiles
+  uint16_t* sS = sO + 2 * TILE;  // ds (scaled) as [q][key], fused only
+  float* sL = reinterpret_cast<float*>(sS + (FUSED ? BM * SS : 0));  // 2 x BM
+  float* sD = sL + 2 * BM;                                          // 2 x BM
+
+  const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool vec = a.vec != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+
+  const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const uint16_t* kp = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const uint16_t* vp = static_cast<const uint16_t*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const uint16_t* op = static_cast<const uint16_t*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const float* lsep = a.lse + bh * a.Tq;
+  const float* deltap = a.delta + bh * a.Tq;
+
+  // rows above the causal diagonal see none of these keys
+  const int iq0 = a.causal ? k0 / BM : 0;
+  const int n_q = (a.Tq + BM - 1) / BM;
+
+  auto stage = [&](int iq, int buf) {
+    const int q0 = iq * BM;
+    mxt::stage_rows<BM, DP, QS>(sQ + buf * TILE, qp, a.q_st, q0, a.Tq, a.D, vec);
+    mxt::stage_rows<BM, DP, QS>(sO + buf * TILE, op, a.o_st, q0, a.Tq, a.D, vec);
+    for (int i = tid; i < BM; i += blockDim.x) {
+      const bool in = q0 + i < a.Tq;
+      sL[buf * BM + i] = in ? lsep[q0 + i] : 0.f;
+      sD[buf * BM + i] = in ? deltap[q0 + i] : 0.f;
+    }
+  };
+
+  mxt::load_rows<BN, DP, QS>(sK, kp, a.k_st, k0, a.Tk, a.D, vec);
+  mxt::load_rows<BN, DP, QS>(sV, vp, a.v_st, k0, a.Tk, a.D, vec);
+  if (iq0 < n_q) stage(iq0, 0);
+  mxt::cp_async_commit();
+
+  const int wk = warp * 16;  // this warp's keys within the tile
+  const int krow[2] = {k0 + wk + g, k0 + wk + g + 8};
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+
+  for (int iq = iq0; iq < n_q; ++iq) {
+    const int buf = (iq - iq0) & 1, q0 = iq * BM;
+    const uint16_t* cQ = sQ + buf * TILE;
+    const uint16_t* cO = sO + buf * TILE;
+    const float* cL = sL + buf * BM;
+    const float* cD = sD + buf * BM;
+    if (iq + 1 < n_q) stage(iq + 1, buf ^ 1);
+    mxt::cp_async_commit();
+    mxt::cp_async_wait<1>();
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v dout^T for this warp's 16 keys
+    float s[BM / 8][4], dp[BM / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      mxt::load_a<QS>(ka, sK, wk, kk * 16, g, t4);
+      mxt::load_a<QS>(va, sV, wk, kk * 16, g, t4);
+#pragma unroll
+      for (int nt = 0; nt < BM / 8; ++nt) {
+        uint32_t bf[2];
+        mxt::load_b<QS>(bf, cQ, nt * 8, kk * 16, g, t4);
+        Half<T>::mma(s[nt], ka, bf);
+        mxt::load_b<QS>(bf, cO, nt * 8, kk * 16, g, t4);
+        Half<T>::mma(dp[nt], va, bf);
+      }
+    }
+
+    // element (key krow[i], query q0 + nt*8 + t4*2 + j); s <- p_d and
+    // dp <- ds0 * scale, both transposed (keys are the rows)
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+      const int ql = nt * 8 + t4 * 2;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint4 w = make_uint4(0, 0, 0, 0);
+        if (a.dropout) w = mxt::dropout_words(key, b, h, q0 + ql, krow[i]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j, qr = q0 + ql + j;
+          const bool keep = mxt::dropout_word(w, qr, krow[i]) >= a.drop_threshold;
+          float pd, ds0;
+          score_grad<true>(a, bp, s[nt][e], dp[nt][e], qr, krow[i],
+                           cL[ql + j], cD[ql + j], keep, pd, ds0);
+          if (FUSED && a.ds && qr < a.Tq && krow[i] < a.Tk)
+            ds_row(a, b, h, qr)[krow[i]] = ds0;
+          s[nt][e] = pd;
+          dp[nt][e] = ds0 * a.scale;
+        }
+      }
+    }
+
+    // dv += p_d^T dout and dk += ds^T q over this tile's 64 queries
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t pf[4] = {Half<T>::pack(s[2 * kk][0], s[2 * kk][1]),
+                        Half<T>::pack(s[2 * kk][2], s[2 * kk][3]),
+                        Half<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                        Half<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t df[4] = {Half<T>::pack(dp[2 * kk][0], dp[2 * kk][1]),
+                        Half<T>::pack(dp[2 * kk][2], dp[2 * kk][3]),
+                        Half<T>::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                        Half<T>::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; nd += 2) {
+        uint32_t bf[4];
+        mxt::ldmatrix_b_trans<QS>(bf, cO, kk * 16, nd * 8, lane);
+        Half<T>::mma(dv[nd], pf, bf);
+        Half<T>::mma(dv[nd + 1], pf, bf + 2);
+        mxt::ldmatrix_b_trans<QS>(bf, cQ, kk * 16, nd * 8, lane);
+        Half<T>::mma(dk[nd], df, bf);
+        Half<T>::mma(dk[nd + 1], df, bf + 2);
+      }
+    }
+
+    if (FUSED) {
+      // ds as [q][key] in shared memory; then each warp multiplies 16 of its
+      // rows by the resident K tile and adds them into the f32 dq buffer
+#pragma unroll
+      for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sS[(nt * 8 + t4 * 2 + (e & 1)) * SS + wk + g + 8 * (e >> 1)] =
+              Half<T>::bits(dp[nt][e]);
+      __syncthreads();
+      float c[DP / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[nd][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t af[4];
+        mxt::load_a<SS>(af, sS, warp * 16, kk * 16, g, t4);
+#pragma unroll
+        for (int nd = 0; nd < DP / 8; nd += 2) {
+          uint32_t bf[4];
+          mxt::ldmatrix_b_trans<QS>(bf, sK, kk * 16, nd * 8, lane);
+          Half<T>::mma(c[nd], af, bf);
+          Half<T>::mma(c[nd + 1], af, bf + 2);
+        }
+      }
+      float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = q0 + warp * 16 + g + 8 * i;
+        if (r >= a.Tq) continue;
+#pragma unroll
+        for (int nd = 0; nd < DP / 8; ++nd) {
+          const int col = nd * 8 + t4 * 2;
+          if (col < a.D) atomicAdd(dqp + r * a.dq_st + col, c[nd][2 * i]);
+          if (col + 1 < a.D) atomicAdd(dqp + r * a.dq_st + col + 1, c[nd][2 * i + 1]);
+        }
+      }
+    }
+    __syncthreads();  // buffer buf (and the ds tile) are refilled next
+  }
+
+  uint16_t* dkp = static_cast<uint16_t*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
+  uint16_t* dvp = static_cast<uint16_t*>(a.dv) + b * a.dv_sb + h * a.dv_sh;
+  store_c<T, DP>(dkp + k0 * a.dk_st, a.dk_st, dk, wk + g, a.Tk - k0, a.D, t4);
+  store_c<T, DP>(dvp + k0 * a.dv_st, a.dv_st, dv, wk + g, a.Tk - k0, a.D, t4);
+}
+
+// ------------------------------------------------------------ dq (f32, FMA)
+// DP / 16 threads per query row, 16 head columns each; K and V tiles in
+// shared memory; one key at a time.
+template <int DP>
+__global__ void __launch_bounds__(BM * DP / 16) bwd_dq_f32(BwdArgs a) {
+  constexpr int TPR = DP / 16, HD = 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [BN][DP]
+  float* sV = sK + BN * DP;
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, part = tid % TPR;
+  const int r = q0 + tid / TPR, d0 = part * HD;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* op = static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+
+  float qr[HD], orow[HD], acc[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) {
+    const bool in = r < a.Tq && d0 + d < a.D;
+    qr[d] = in ? qp[r * a.q_st + d0 + d] : 0.f;
+    orow[d] = in ? op[r * a.o_st + d0 + d] : 0.f;
+    acc[d] = 0.f;
+  }
+  const float lse = r < a.Tq ? a.lse[bh * a.Tq + r] : 0.f;
+  const float delta = r < a.Tq ? a.delta[bh * a.Tq + r] : 0.f;
+
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + BM);
+  for (int k0 = 0; k0 < k_end; k0 += BN) {
+    __syncthreads();
+    for (int i = tid; i < BN * DP; i += blockDim.x) {
+      const int kr = i / DP, c = i % DP;
+      const bool in = k0 + kr < a.Tk && c < a.D;
+      sK[i] = in ? kp[(k0 + kr) * a.k_st + c] : 0.f;
+      sV[i] = in ? vp[(k0 + kr) * a.v_st + c] : 0.f;
+    }
+    __syncthreads();
+    const int n = min(BN, a.Tk - k0);
+    for (int j = 0; j < n; ++j) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        s += qr[d] * sK[j * DP + d0 + d];
+        dp += orow[d] * sV[j * DP + d0 + d];
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        dp += __shfl_xor_sync(0xffffffffu, dp, off);
+      }
+      const int col = k0 + j;
+      const bool keep =
+          !a.dropout || mxt::dropout_keep(key, b, h, r, col, a.drop_threshold);
+      float pd, ds0;
+      score_grad<false>(a, bp, s, dp, r, col, lse, delta, keep, pd, ds0);
+      if (a.ds && part == 0 && r < a.Tq) ds_row(a, b, h, r)[col] = ds0;
+      const float dsc = ds0 * a.scale;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[d] += dsc * sK[j * DP + d0 + d];
+    }
+  }
+  if (r < a.Tq) {
+    float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+    for (int d = 0; d < HD; ++d)
+      if (d0 + d < a.D) dqp[r * a.dq_st + d0 + d] = acc[d];
+  }
+}
+
+// ---------------------------------------------- dk, dv (+ dq) (f32, FMA)
+template <int DP, bool FUSED>
+__global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
+  constexpr int TPR = DP / 16, HD = 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BM][DP]
+  float* sO = sQ + BM * DP;                        // [BM][DP]
+  float* sL = sO + BM * DP;                        // [BM]
+  float* sD = sL + BM;                             // [BM]
+  float* sK = sD + BM;                             // [BN][DP], fused only
+  float* sS = sK + (FUSED ? BN * DP : 0);          // [BM][BN], fused only
+
+  const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, part = tid % TPR, kl = tid / TPR;
+  const int kc = k0 + kl, d0 = part * HD;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* op = static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+
+  float kr[HD], vr[HD], dk[HD], dv[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) {
+    const bool in = kc < a.Tk && d0 + d < a.D;
+    kr[d] = in ? kp[kc * a.k_st + d0 + d] : 0.f;
+    vr[d] = in ? vp[kc * a.v_st + d0 + d] : 0.f;
+    dk[d] = dv[d] = 0.f;
+  }
+  if (FUSED) {
+    for (int i = tid; i < BN * DP; i += blockDim.x) {
+      const int r = i / DP, c = i % DP;
+      sK[i] = (k0 + r < a.Tk && c < a.D) ? kp[(k0 + r) * a.k_st + c] : 0.f;
+    }
+  }
+
+  const int iq0 = a.causal ? k0 / BM : 0;
+  for (int q0 = iq0 * BM; q0 < a.Tq; q0 += BM) {
+    __syncthreads();
+    for (int i = tid; i < BM * DP; i += blockDim.x) {
+      const int r = i / DP, c = i % DP;
+      const bool in = q0 + r < a.Tq && c < a.D;
+      sQ[i] = in ? qp[(q0 + r) * a.q_st + c] : 0.f;
+      sO[i] = in ? op[(q0 + r) * a.o_st + c] : 0.f;
+    }
+    for (int i = tid; i < BM; i += blockDim.x) {
+      const bool in = q0 + i < a.Tq;
+      sL[i] = in ? a.lse[bh * a.Tq + q0 + i] : 0.f;
+      sD[i] = in ? a.delta[bh * a.Tq + q0 + i] : 0.f;
+    }
+    __syncthreads();
+    const int n = min(BM, a.Tq - q0);
+    for (int j = 0; j < n; ++j) {
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        s += kr[d] * sQ[j * DP + d0 + d];
+        dp += vr[d] * sO[j * DP + d0 + d];
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        dp += __shfl_xor_sync(0xffffffffu, dp, off);
+      }
+      const int qr = q0 + j;
+      const bool keep =
+          !a.dropout || mxt::dropout_keep(key, b, h, qr, kc, a.drop_threshold);
+      float pd, ds0;
+      score_grad<false>(a, bp, s, dp, qr, kc, sL[j], sD[j], keep, pd, ds0);
+      const float dsc = ds0 * a.scale;
+      if (FUSED && part == 0) {
+        sS[j * BN + kl] = dsc;
+        if (a.ds && kc < a.Tk) ds_row(a, b, h, qr)[kc] = ds0;
+      }
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        dv[d] += pd * sO[j * DP + d0 + d];
+        dk[d] += dsc * sQ[j * DP + d0 + d];
+      }
+    }
+    if (FUSED) {
+      __syncthreads();
+      // thread (row kl, part) adds ds[kl, :] k[:, d0:d0+16] into dq
+      if (kl < n) {
+        float c[HD];
+#pragma unroll
+        for (int d = 0; d < HD; ++d) c[d] = 0.f;
+        for (int j = 0; j < BN; ++j) {
+          const float x = sS[kl * BN + j];
+#pragma unroll
+          for (int d = 0; d < HD; ++d) c[d] += x * sK[j * DP + d0 + d];
+        }
+        float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh +
+                     (q0 + kl) * a.dq_st;
+#pragma unroll
+        for (int d = 0; d < HD; ++d)
+          if (d0 + d < a.D) atomicAdd(dqp + d0 + d, c[d]);
+      }
+    }
+  }
+  if (kc < a.Tk) {
+    float* dkp = static_cast<float*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
+    float* dvp = static_cast<float*>(a.dv) + b * a.dv_sb + h * a.dv_sh;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      if (d0 + d < a.D) {
+        dkp[kc * a.dk_st + d0 + d] = dk[d];
+        dvp[kc * a.dv_st + d0 + d] = dv[d];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+enum Kind { FUSED = 0, DQ = 1, DKV = 2 };
+
+template <typename K>
+cudaError_t launch(K kern, dim3 grid, int threads, size_t smem,
+                   const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t e = mxt::set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_half(int kind, const BwdArgs& a, cudaStream_t st) {
+  constexpr size_t QS = DP + PAD, E = sizeof(uint16_t);
+  if (kind == DQ) {
+    dim3 grid((a.Tq + BM - 1) / BM, a.H, a.B);
+    return launch(bwd_dq_mma<T, DP>, grid, 128, (2 * BM + 4 * BN) * QS * E,
+                  a, st);
+  }
+  dim3 grid((a.Tk + BN - 1) / BN, a.H, a.B);
+  const size_t base = (2 * BN + 4 * BM) * QS * E + 4 * BM * sizeof(float);
+  if (kind == FUSED)
+    return launch(bwd_dkv_mma<T, DP, true>, grid, 128,
+                  base + BM * (BN + PAD) * E, a, st);
+  return launch(bwd_dkv_mma<T, DP, false>, grid, 128, base, a, st);
+}
+
+template <int DP>
+cudaError_t launch_f32(int kind, const BwdArgs& a, cudaStream_t st) {
+  constexpr int threads = BM * DP / 16;
+  if (kind == DQ) {
+    dim3 grid((a.Tq + BM - 1) / BM, a.H, a.B);
+    return launch(bwd_dq_f32<DP>, grid, threads, 2 * BN * DP * sizeof(float),
+                  a, st);
+  }
+  dim3 grid((a.Tk + BN - 1) / BN, a.H, a.B);
+  const size_t base = (2 * BM * DP + 2 * BM) * sizeof(float);
+  if (kind == FUSED)
+    return launch(bwd_dkv_f32<DP, true>, grid, threads,
+                  base + (BN * DP + BM * BN) * sizeof(float), a, st);
+  return launch(bwd_dkv_f32<DP, false>, grid, threads, base, a, st);
+}
+
+template <typename T>
+cudaError_t dispatch_half(int kind, const BwdArgs& a, cudaStream_t st) {
+  if (a.D <= 32) return launch_half<T, 32>(kind, a, st);
+  if (a.D <= 64) return launch_half<T, 64>(kind, a, st);
+  return launch_half<T, 128>(kind, a, st);
+}
+
+}  // namespace
+
+// kind: 0 = fused single pass (dq into an f32 accumulator that the caller
+// zeroes, dk, dv), 1 = dq of the two-pass pair (dq in q's dtype), 2 = dk, dv
+// of the two-pass pair. dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+// strides (in elements): q, k, v, dout, dq, dk, dv as (b, h, t) each, then
+// bias (b, h, q, k); the head dimension has unit stride everywhere. lse and
+// delta are (B, H, Tq) contiguous f32. bias is f32 or null. ds, when not
+// null, is a zeroed (B, H, Tq, Tk) f32 buffer that kernels 0 and 1 fill with
+// p * (dp - delta). seed/dropout/drop_threshold/drop_scale as in
+// mxt_flash_attention_fwd. Returns cudaGetLastError().
+extern "C" int mxt_flash_attention_bwd(
+    int kind, int dtype, const void* q, const void* k, const void* v,
+    const void* dout, const float* bias, const float* lse, const float* delta,
+    void* dq, void* dk, void* dv, float* ds, int B, int H, int Tq, int Tk,
+    int D, const long long* strides, float scale, int causal, int vec,
+    const int* seed, int dropout, unsigned int drop_threshold,
+    float drop_scale, void* stream) {
+  if (D < 1 || D > 128 || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 ||
+      H > 65535 || kind < 0 || kind > 2 || (dropout && !seed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.bias = bias; a.lse = lse;
+  a.delta = delta; a.seed = seed; a.dq = dq; a.dk = dk; a.dv = dv; a.ds = ds;
+  a.B = B; a.H = H; a.Tq = Tq; a.Tk = Tk; a.D = D;
+  long long* dst[25] = {&a.q_sb,  &a.q_sh,  &a.q_st,  &a.k_sb,  &a.k_sh,
+                        &a.k_st,  &a.v_sb,  &a.v_sh,  &a.v_st,  &a.o_sb,
+                        &a.o_sh,  &a.o_st,  &a.dq_sb, &a.dq_sh, &a.dq_st,
+                        &a.dk_sb, &a.dk_sh, &a.dk_st, &a.dv_sb, &a.dv_sh,
+                        &a.dv_st, &a.b_sb,  &a.b_sh,  &a.b_sq,  &a.b_sk};
+  for (int i = 0; i < 25; ++i) *dst[i] = strides[i];
+  a.scale = scale; a.causal = causal; a.vec = vec;
+  a.dropout = dropout != 0;
+  a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      if (D <= 32) return static_cast<int>(launch_f32<32>(kind, a, st));
+      if (D <= 64) return static_cast<int>(launch_f32<64>(kind, a, st));
+      return static_cast<int>(launch_f32<128>(kind, a, st));
+    case 1:
+      return static_cast<int>(dispatch_half<__nv_bfloat16>(kind, a, st));
+    case 2:
+      return static_cast<int>(dispatch_half<__half>(kind, a, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -27,18 +27,25 @@
 // Causal blocks stop at the diagonal tile. f32 inputs take a plain FMA
 // kernel with the same online-softmax recurrence. TMA, wgmma, warp
 // specialisation and skipping fully masked key tiles are left for later.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+//
+// Probability dropout (training): the running denominator l sums the
+// undropped probabilities, and the kept ones are scaled by 1 / (1 - rate)
+// before p v, as in the TPU kernel; the keep bit of score (row, col) comes
+// from philox.cuh, a pure function of (seed, batch, head, row, col) that the
+// backward kernels and the plain version draw identically.
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "philox.cuh"
+
 namespace {
 
-constexpr int BM = 64;            // query rows per block
-constexpr int BN = 64;            // keys per tile
-constexpr int PAD = 8;            // shared-memory row padding (elements)
-constexpr float NEG_BIG = -1e30f; // the TPU kernel's _NEG_INF
+using mxt::BM;
+using mxt::BN;
+using mxt::Half;
+using mxt::NEG_BIG;
+using mxt::PAD;
 
 struct Args {
   const void* q;
@@ -47,6 +54,7 @@ struct Args {
   const float* bias;
   void* o;
   float* lse;
+  const int* seed;  // (2,) int32 Philox key on the device, or null
   int B, H, Tq, Tk, D;
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
@@ -56,98 +64,10 @@ struct Args {
   float scale;
   int causal;
   int vec;  // 16-byte loads allowed (aligned pointers, strides % 8, D % 8)
+  int dropout;              // probability dropout on
+  uint32_t drop_threshold;  // keep iff Philox word >= this
+  float drop_scale;         // 1 / (1 - rate)
 };
-
-template <typename T> struct Half;
-
-template <> struct Half<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-template <> struct Half<__half> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-// Copy rows [r0, r0 + R) x [0, DP) of a 16-bit (rows x D) matrix with row
-// stride st into shared memory (row stride S); rows past n and columns past
-// D read as zero. vec: whole 16-byte chunks (D % 8 == 0, aligned).
-template <int R, int DP, int S>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
-                                          long long st, int r0, int n, int D,
-                                          bool vec) {
-  if (vec) {
-    constexpr int CH = DP / 8;
-    for (int i = threadIdx.x; i < R * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < n && c < D)
-        val = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + c);
-      *reinterpret_cast<uint4*>(dst + r * S + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      dst[r * S + c] = (r0 + r < n && c < D) ? src[(r0 + r) * st + c] : 0;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The same copy started asynchronously: with vec, 16-byte cp.async copies
-// (zero-filled past n rows / D columns) left in flight until the caller's
-// cp_async_wait; otherwise plain loads.
-template <int R, int DP, int S>
-__device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* src,
-                                           long long st, int r0, int n, int D,
-                                           bool vec) {
-  if (!vec) {
-    load_rows<R, DP, S>(dst, src, st, r0, n, D, false);
-    return;
-  }
-  constexpr int CH = DP / 8;
-  for (int i = threadIdx.x; i < R * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = r0 + r < n && c < D;
-    const uint16_t* g = in ? src + (r0 + r) * st + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst + r * S + c)), "l"(g), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
@@ -162,6 +82,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const bool vec = a.vec != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
 
   const uint16_t* qp = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
   const uint16_t* kp = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -172,10 +93,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
   if (a.causal) k_end = min(k_end, q0 + BM);  // tiles past the diagonal add nothing
   const int n_tiles = (k_end + BN - 1) / BN;
 
-  load_rows<BM, DP, QS>(sQ, qp, a.q_st, q0, a.Tq, a.D, vec);
-  stage_rows<BN, DP, QS>(sK, kp, a.k_st, 0, a.Tk, a.D, vec);
-  stage_rows<BN, DP, QS>(sV, vp, a.v_st, 0, a.Tk, a.D, vec);
-  cp_async_commit();
+  mxt::load_rows<BM, DP, QS>(sQ, qp, a.q_st, q0, a.Tq, a.D, vec);
+  mxt::stage_rows<BN, DP, QS>(sK, kp, a.k_st, 0, a.Tk, a.D, vec);
+  mxt::stage_rows<BN, DP, QS>(sV, vp, a.v_st, 0, a.Tk, a.D, vec);
+  mxt::cp_async_commit();
   __syncthreads();
 
   // this warp's 16 query rows as mma A fragments, for every 16-wide d step
@@ -204,14 +125,14 @@ __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
     const uint16_t* cV = sV + (it & 1) * TILE;
     // the next tile streams in while this one is computed
     if (it + 1 < n_tiles) {
-      stage_rows<BN, DP, QS>(sK + ((it + 1) & 1) * TILE, kp, a.k_st, k0 + BN,
-                             a.Tk, a.D, vec);
-      stage_rows<BN, DP, QS>(sV + ((it + 1) & 1) * TILE, vp, a.v_st, k0 + BN,
-                             a.Tk, a.D, vec);
+      mxt::stage_rows<BN, DP, QS>(sK + ((it + 1) & 1) * TILE, kp, a.k_st,
+                                  k0 + BN, a.Tk, a.D, vec);
+      mxt::stage_rows<BN, DP, QS>(sV + ((it + 1) & 1) * TILE, vp, a.v_st,
+                                  k0 + BN, a.Tk, a.D, vec);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's copies of tile `it` have landed
-    __syncthreads();     // and everyone's
+    mxt::cp_async_commit();
+    mxt::cp_async_wait<1>();  // this thread's copies of tile `it` have landed
+    __syncthreads();          // and everyone's
 
     float s[BN / 8][4];
 #pragma unroll
@@ -265,6 +186,22 @@ __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
         l[e >> 1] += p;
       }
     }
+    // probability dropout after l took the undropped p, as the TPU kernel
+    if (a.dropout) {
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const int col = k0 + nt * 8 + t4 * 2;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint4 w = mxt::dropout_words(key, b, h, row[i], col);
+          s[nt][2 * i] = mxt::dropout_word(w, row[i], col) >= a.drop_threshold
+                             ? s[nt][2 * i] * a.drop_scale : 0.f;
+          s[nt][2 * i + 1] =
+              mxt::dropout_word(w, row[i], col + 1) >= a.drop_threshold
+                  ? s[nt][2 * i + 1] * a.drop_scale : 0.f;
+        }
+      }
+    }
 #pragma unroll
     for (int nd = 0; nd < DP / 8; ++nd) {
       o[nd][0] *= alpha[0];
@@ -282,18 +219,11 @@ __global__ void __launch_bounds__(128) flash_fwd_mma(Args a) {
                         Half<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                         Half<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       // B operands of two 8-wide d tiles at once, transposed out of the
-      // row-major V tile: lanes 0-15 address keys kk*16 + 0..15 at column
-      // nd*8, lanes 16-31 the same keys at column nd*8 + 8
-      const int key = kk * 16 + (lane & 15);
+      // row-major V tile
 #pragma unroll
       for (int nd = 0; nd < DP / 8; nd += 2) {
         uint32_t bf[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(bf[0]), "=r"(bf[1]), "=r"(bf[2]), "=r"(bf[3])
-            : "r"(smem_addr(cV + key * QS + nd * 8 + (lane >> 4) * 8))
-            : "memory");
+        mxt::ldmatrix_b_trans<QS>(bf, cV, kk * 16, nd * 8, lane);
         Half<T>::mma(o[nd], pf, bf);
         Half<T>::mma(o[nd + 1], pf, bf + 2);
       }
@@ -337,6 +267,7 @@ __global__ void __launch_bounds__(2 * BM) flash_fwd_f32(Args a) {
   const int tid = threadIdx.x, half = tid & 1;
   const int r = q0 + (tid >> 1);
   const int d0 = half * HD;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
 
   const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -373,9 +304,12 @@ __global__ void __launch_bounds__(2 * BM) flash_fwd_f32(Args a) {
       if (a.causal && col > r) x = NEG_BIG;
       const float m_new = fmaxf(m, x);
       const float alpha = expf(m - m_new);
-      const float p = expf(x - m_new);
+      float p = expf(x - m_new);
       l = l * alpha + p;
       m = m_new;
+      if (a.dropout)
+        p = mxt::dropout_keep(key, b, h, r, col, a.drop_threshold)
+                ? p * a.drop_scale : 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc[d] = acc[d] * alpha + p * sV[j * DP + d0 + d];
     }
@@ -393,8 +327,7 @@ __global__ void __launch_bounds__(2 * BM) flash_fwd_f32(Args a) {
 template <typename K>
 cudaError_t launch(K kern, const Args& a, int threads, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t e = mxt::set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.Tq + BM - 1) / BM, a.H, a.B);
   kern<<<grid, threads, smem, stream>>>(a);
@@ -425,13 +358,18 @@ cudaError_t dispatch_half(const Args& a, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides (in elements):
 // q (b, h, t), k (b, h, t), v (b, h, t), out (b, h, t), bias (b, h, q, k);
 // the head dimension has unit stride everywhere. lse is (B, H, Tq)
-// contiguous f32. bias is f32 or null. Returns cudaGetLastError().
+// contiguous f32. bias is f32 or null. seed is the (2,) int32 dropout key
+// on the device, read only when dropout != 0 (keep iff the score's Philox
+// word >= drop_threshold; kept probabilities are scaled by drop_scale).
+// Returns cudaGetLastError().
 extern "C" int mxt_flash_attention_fwd(int dtype, const void* q, const void* k,
                                        const void* v, const float* bias,
                                        void* out, float* lse, int B, int H,
                                        int Tq, int Tk, int D,
                                        const long long* strides, float scale,
-                                       int causal, int vec, void* stream) {
+                                       int causal, int vec, const int* seed,
+                                       int dropout, unsigned int drop_threshold,
+                                       float drop_scale, void* stream) {
   if (D < 1 || D > 128 || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 ||
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -445,6 +383,9 @@ extern "C" int mxt_flash_attention_fwd(int dtype, const void* q, const void* k,
   a.b_sb = strides[12]; a.b_sh = strides[13]; a.b_sq = strides[14];
   a.b_sk = strides[15];
   a.scale = scale; a.causal = causal; a.vec = vec;
+  a.seed = seed; a.dropout = dropout != 0 && seed != nullptr;
+  a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
+  if (dropout && !seed) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

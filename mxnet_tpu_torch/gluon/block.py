@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/gluon/block.py`` (``Block``, ``HybridBlock``,
 ``remat_stack``). ``collect_params()`` returns the JAX package's dotted
 names (``encoder.layers.0.attn_qkv.weight``), which are the attribute
 paths ``named_parameters`` gives when children and parameters are
-assigned as attributes. Blocks start in predict mode (``training`` is
-False) as JAX-package blocks do outside ``autograd.record``.
+assigned as attributes. Training behaviour (dropout) follows the
+framework flag of ``autograd.record()`` / ``autograd.train_mode()``, as
+in the JAX package, not torch's per-module ``training`` attribute.
 ``hybridize()`` is accepted and does nothing: PyTorch runs eagerly.
 """
 from __future__ import annotations
@@ -23,8 +24,9 @@ __all__ = ["Block", "HybridBlock", "remat_stack"]
 
 
 def remat_stack(layers, x, *extra, dropout: float = 0.0):
-    """Apply ``layers`` in order, passing ``extra`` to each (a plain
-    loop; activation checkpointing comes with training)."""
+    """Apply ``layers`` in order, passing ``extra`` to each. A plain loop:
+    the JAX package's ``MXNET_REMAT`` activation checkpointing is not
+    ported yet."""
     for layer in layers:
         x = layer(x, *extra)
     return x

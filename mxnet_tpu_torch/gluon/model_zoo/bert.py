@@ -6,7 +6,9 @@ type, layer norm, dropout), N post-LN transformer layers with an exact-GELU
 FFN, a tanh pooler, the MLM head whose decoder is tied to the word
 embedding, and the NSP classifier. Attention goes through
 ``npx.multi_head_attention`` with the key-padding mask from
-``valid_length`` — the Hopper flash kernel on CUDA tensors.
+``valid_length`` — the Hopper flash kernels on CUDA tensors. Dropout
+(embeddings, attention probabilities, attention output, FFN) is active in
+training, that is under ``autograd.record()``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,13 +48,11 @@ class BERTEncoderLayer(HybridBlock):
         qkv = self.attn_qkv(x)  # (B, T, 3C)
         q, k, v = torch.split(qkv, self._units, dim=-1)
         att = npx.multi_head_attention(q, k, v, self._num_heads, mask=mask,
-                                       dropout=self._dropout,
-                                       training=self.training)
-        att = npx.dropout(self.attn_out(att), self._dropout,
-                          training=self.training)
+                                       dropout=self._dropout)
+        att = npx.dropout(self.attn_out(att), self._dropout)
         x = self.ln1(x + att)
         ffn = self.ffn2(npx.gelu(self.ffn1(x)))
-        ffn = npx.dropout(ffn, self._dropout, training=self.training)
+        ffn = npx.dropout(ffn, self._dropout)
         return self.ln2(x + ffn)
 
 
@@ -78,7 +78,7 @@ class BERTEncoder(HybridBlock):
     def forward(self, x, mask=None):
         T = x.shape[1]
         x = self.ln(x + self.position_weight[:T][None])
-        x = npx.dropout(x, self._dropout, training=self.training)
+        x = npx.dropout(x, self._dropout)
         return remat_stack(list(self.layers), x, mask, dropout=self._dropout)
 
 

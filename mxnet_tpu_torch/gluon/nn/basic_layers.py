@@ -60,14 +60,14 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout (identity outside training)."""
+    """Dropout, active in training (``autograd.record()``)."""
 
     def __init__(self, rate: float, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._rate = rate
 
     def forward(self, x):
-        return npx.dropout(x, self._rate, training=self.training)
+        return npx.dropout(x, self._rate)
 
 
 class LayerNorm(HybridBlock):

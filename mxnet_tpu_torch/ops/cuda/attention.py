@@ -1,16 +1,25 @@
-"""Flash attention forward: the Hopper kernel, its plain version, routing.
+"""Flash attention: the Hopper kernels, their plain versions, routing, autograd.
 
 Counterpart of ``mxnet_tpu/ops/pallas/attention.py`` (``flash_attention``,
-``_flash_forward``, ``_dense_reference``). The kernel is
-``mxnet_tpu_torch/csrc/flash_attention_fwd.cu`` (CUDA C++ for ``sm_90a``,
-built and loaded by :mod:`mxnet_tpu_torch._kernels`); it replaces the
-Pallas ``_flash_fwd_kernel``.
+``_flash2`` and its custom VJP, ``_flash_forward``, ``_flash_backward``,
+``_dropout_keep``). The kernels are CUDA C++ for ``sm_90a``, built and loaded
+by :mod:`mxnet_tpu_torch._kernels`:
 
-Routing: a tensor on the CPU takes :func:`flash_attention_reference`; a
-CUDA tensor launches the kernel or raises. Nothing falls back. Each launch
-adds one to :data:`launches`.
+- ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
+- ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
+- ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
+  a pure function of (seed, batch, head, row, col), never of tile shape, so
+  every kernel and :func:`dropout_keep_reference` draw the same mask.
 
-Probability dropout is not in this kernel yet: ``dropout > 0`` raises.
+Routing: a tensor on the CPU takes the plain versions
+(:func:`flash_attention_reference`, :func:`flash_attention_backward_reference`);
+a CUDA tensor launches the kernels or raises :class:`MXNetError`. Nothing
+falls back. Each launch adds one to its kernel's entry in :data:`launches`.
+The backward takes the fused single pass when Tk fits one k-block
+(``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule.
+The fused kernel adds dq across key tiles with f32 atomics, so its dq is
+not bitwise reproducible from run to run; the two-pass pair is.
 """
 from __future__ import annotations
 
@@ -23,43 +32,158 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_reference", "launches"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward_reference", "dropout_keep_reference",
+           "launches", "KERNELS", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K"]
 
 _NEG_INF = -1e30
 
-# plain-integer launch counter: +1 per kernel launch, nowhere else
-launches = 0
+# the JAX entry point's defaults; the kernels tile by 64, so block_k only
+# routes fused vs two-pass and block_q is accepted and unused
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_K = 1024
+
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# per-kernel launch counters: +1 per kernel launch, nowhere else
+launches = {name: 0 for name in KERNELS}
 _COUNT_LOCK = threading.Lock()
-_FN = None
+_FNS = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BWD_KIND = {"flash_attention_bwd_fused": 0, "flash_attention_bwd_dq": 1,
+             "flash_attention_bwd_dkv": 2}
+
+# ---------------------------------------------------------------- dropout
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
 
 
-def flash_attention_reference(q, k, v, bias=None, scale: Optional[float] = None,
-                              causal: bool = False
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel over (B, H, T, D) operands:
-    returns ``(out (B, H, Tq, D) in q's dtype, lse (B, H, Tq, 1) f32)``.
+def dropout_threshold(rate: float) -> int:
+    """Keep iff a Philox word >= this (``_dropout_keep``'s threshold)."""
+    return min(_U32, int(rate * 4294967296.0))
 
-    Same recurrence-free math as the kernel's result: f32 scores, bias
-    added, causal-masked scores set to -1e30 (top-left, ``col <= row``),
-    the row max floored at -1e30 as the kernel's running max starts
-    there, and the denominator guarded by ``max(l, 1e-30)``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(lo, hi) words of the 64-bit product of the constant ``m`` and the
+    uint32 values held in int64 ``x``, without int64 overflow: x is split
+    into 16-bit halves so every partial product stays below 2**49."""
+    t1 = m * (x & 0xFFFF)
+    t2 = m * (x >> 16)
+    mid = t1 + ((t2 & 0xFFFF) << 16)
+    return mid & _U32, (t2 >> 16) + (mid >> 32)
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding uint32 values (broadcast
+    together); the same rounds as ``csrc/philox.cuh``."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _U32
+            k1 = (k1 + _W1) & _U32
+        lo0, hi0 = _mulhilo(_M0, c0)
+        lo1, hi1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_keep_reference(seed: torch.Tensor, B: int, H: int, Tq: int,
+                           Tk: int, rate: float) -> torch.Tensor:
+    """The kernels' keep mask, (B, H, Tq, Tk) bool on ``seed``'s device.
+
+    ``seed`` is the (2,) int32 key. One Philox call per 2 x 2 block of
+    scores: counter (col >> 1, row >> 1, head, batch), word
+    ``((row & 1) << 1) | (col & 1)``; keep iff word >= rate * 2**32."""
+    dev = seed.device
+    key = seed.to(torch.int64) & _U32
+    R, C = (Tq + 1) // 2, (Tk + 1) // 2
+    i64 = dict(dtype=torch.int64, device=dev)
+    words = philox4x32_10(
+        torch.arange(C, **i64)[None, None, None, :],
+        torch.arange(R, **i64)[None, None, :, None],
+        torch.arange(H, **i64)[None, :, None, None],
+        torch.arange(B, **i64)[:, None, None, None],
+        key[0], key[1])
+    w = torch.stack([x.expand(B, H, R, C) for x in words], dim=-1)
+    # word ((row & 1) << 1) | (col & 1) of block (row >> 1, col >> 1)
+    w = w.reshape(B, H, R, C, 2, 2).permute(0, 1, 2, 4, 3, 5)
+    w = w.reshape(B, H, 2 * R, 2 * C)[:, :, :Tq, :Tk]
+    return w >= dropout_threshold(rate)
+
+
+# ---------------------------------------------------------- plain versions
+def _scores(q, k, bias, scale, causal):
+    """f32 scaled scores with the bias, and the causal keep mask or None."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
+    keep = None
     if causal:
         Tq, Tk = s.shape[-2], s.shape[-1]
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=s.device).tril()
+    return s, keep
+
+
+def flash_attention_reference(q, k, v, bias=None, scale: Optional[float] = None,
+                              causal: bool = False, seed=None,
+                              rate: float = 0.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel over (B, H, T, D)
+    operands: returns ``(out (B, H, Tq, D) in q's dtype, lse (B, H, Tq, 1)
+    f32)``.
+
+    Same math as the kernel's result: f32 scores, bias added, causal-masked
+    scores set to -1e30 (top-left, ``col <= row``), the row max floored at
+    -1e30 as the kernel's running max starts there, the denominator over
+    the undropped probabilities guarded by ``max(l, 1e-30)``, and with
+    ``rate > 0`` the kept probabilities scaled by ``1 / (1 - rate)``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s, keep = _scores(q, k, bias, scale, causal)
+    if keep is not None:
         s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if rate > 0:
+        B, H, Tq, Tk = p.shape
+        drop = dropout_keep_reference(seed, B, H, Tq, Tk, rate)
+        p = torch.where(drop, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
     out = torch.matmul(p, v.float()) / denom
     return out.to(q.dtype), m + torch.log(denom)
 
 
+def flash_attention_backward_reference(q, k, v, bias, seed, rate: float, out,
+                                       lse, do, scale: float, causal: bool,
+                                       want_ds: bool):
+    """Plain PyTorch version of the backward kernels over (B, H, T, D):
+    ``(dq, dk, dv, ds or None)`` in f32, from the same formulas as the
+    kernels (``_flash_backward``): p = exp(s - lse) masked, the dropout
+    mask of :func:`dropout_keep_reference`, delta = rowsum(do * out),
+    ds = p * (dp - delta); ds is returned unscaled when ``want_ds``."""
+    s, keep = _scores(q, k, bias, scale, causal)
+    p = torch.exp(s - lse.float())
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dof = do.float()
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    pd = p
+    if rate > 0:
+        B, H, Tq, Tk = p.shape
+        drop = dropout_keep_reference(seed, B, H, Tq, Tk, rate)
+        inv = 1.0 / (1.0 - rate)
+        zero = torch.zeros_like(p)
+        pd = torch.where(drop, p * inv, zero)
+        dp = torch.where(drop, dp * inv, zero)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dv = torch.matmul(pd.transpose(-1, -2), dof)
+    dq = torch.matmul(ds * scale, k.float())
+    dk = torch.matmul((ds * scale).transpose(-1, -2), q.float())
+    return dq, dk, dv, (ds if want_ds else None)
+
+
+# ------------------------------------------------------------- the kernels
 def _check_bias(bias, B, H, Tq, Tk):
     if bias.ndim != 4 or bias.shape[2] not in (1, Tq) \
             or bias.shape[3] != Tk or bias.shape[0] not in (1, B) \
@@ -69,28 +193,38 @@ def _check_bias(bias, B, H, Tq, Tk):
             f"{tuple(bias.shape)} for B={B}, H={H}, Tq={Tq}, Tk={Tk}")
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        from ... import _kernels
-        fn = _kernels.load("flash_attention_fwd").mxt_flash_attention_fwd
-        p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _kernel(name: str):
+    """The ctypes entry of kernel ``name``, its library built on first use."""
+    fn = _FNS.get(name)
+    if fn is not None:
+        return fn
+    from ... import _kernels
+    p, i = ctypes.c_void_p, ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    if name == "flash_attention_fwd":
+        fn = _kernels.load(name).mxt_flash_attention_fwd
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, strides,
+                       ctypes.c_float, i, i, p, i, ctypes.c_uint,
+                       ctypes.c_float, p]
+    else:
+        fn = _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                       strides, ctypes.c_float, i, i, p, i, ctypes.c_uint,
+                       ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    _FNS[name] = fn
+    return fn
 
 
-def _launch(q, k, v, bias, out, lse, scale: float, causal: bool,
-            layout_bthd: bool) -> None:
-    """Launch the kernel on q/k/v/out laid out as (B, T, H, D) when
-    ``layout_bthd`` else (B, H, T, D), each with a unit stride on D."""
-    global launches
-    ts = (q, k, v, out)
+def _bht(t):
+    """(batch, head, time) strides of a (B, H, T, D) view."""
+    return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _check_operands(q, k, v, extra=()):
+    """q/k/v (and ``extra``, read or written with them) as (B, H, T, D)
+    views on one CUDA device in one dtype with a contiguous head dim."""
+    ts = (q, k, v) + tuple(extra)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise MXNetError("flash_attention: q, k, v and out must lie on one "
                          "CUDA device")
@@ -101,86 +235,237 @@ def _launch(q, k, v, bias, out, lse, scale: float, causal: bool,
     if not all(t.stride(-1) == 1 for t in ts):
         raise MXNetError("flash_attention: the head dimension must be "
                          "contiguous (stride 1) in q, k, v")
-    if layout_bthd:
-        B, Tq, H, D = q.shape
-        Tk = k.shape[1]
-        kv_shape = (B, Tk, H, D)
-        strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in ts]
-    else:
-        B, H, Tq, D = q.shape
-        Tk = k.shape[2]
-        kv_shape = (B, H, Tk, D)
-        strides = [(t.stride(0), t.stride(1), t.stride(2)) for t in ts]
-    if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
         raise MXNetError(f"flash_attention: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if D > 128:
         raise MXNetError(f"flash_attention kernel takes head_dim <= 128, "
                          f"got {D}")
-    flat = [s for st in strides for s in st]
-    if bias is not None:
-        _check_bias(bias, B, H, Tq, Tk)
-        if not bias.is_cuda or bias.device != q.device:
-            raise MXNetError("flash_attention: bias must lie on q's device")
-        bias = bias.float()
-        flat += [bias.stride(i) if bias.shape[i] > 1 else 0
-                 for i in range(4)]
-        bias_ptr = bias.data_ptr()
-    else:
-        flat += [0, 0, 0, 0]
-        bias_ptr = None
-    vec = int(D % 8 == 0 and q.dtype != torch.float32
-              and all(t.data_ptr() % 16 == 0 for t in ts)
-              and all(s % 8 == 0 for s in flat[:12]))
-    fn = _kernel()
-    arr = (ctypes.c_longlong * 16)(*flat)
+    return B, H, Tq, Tk, D
+
+
+def _bias_args(bias, q, B, H, Tq, Tk):
+    """(f32 bias or None, its 4 broadcast strides)."""
+    if bias is None:
+        return None, [0, 0, 0, 0]
+    _check_bias(bias, B, H, Tq, Tk)
+    if not bias.is_cuda or bias.device != q.device:
+        raise MXNetError("flash_attention: bias must lie on q's device")
+    bias = bias.float()
+    return bias, [bias.stride(i) if bias.shape[i] > 1 else 0
+                  for i in range(4)]
+
+
+def _seed_args(seed, rate, q):
+    if rate <= 0:
+        return None, 0, 0, 1.0
+    if seed is None or not seed.is_cuda or seed.device != q.device \
+            or seed.dtype != torch.int32 or seed.numel() != 2:
+        raise MXNetError("flash_attention: dropout needs a (2,) int32 seed "
+                         "tensor on q's device")
+    seed = seed.contiguous()
+    return seed, 1, dropout_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _vec(ts, flat) -> int:
+    """16-byte loads: 16-bit data, D % 8 == 0, aligned pointers, strides
+    that are multiples of 8 elements."""
+    q = ts[0]
+    return int(q.shape[-1] % 8 == 0 and q.dtype != torch.float32
+               and all(t.data_ptr() % 16 == 0 for t in ts)
+               and all(s % 8 == 0 for s in flat))
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
+                causal: bool) -> None:
+    """The forward kernel on (B, H, T, D) views; ``out`` is written in
+    place, ``lse`` is (B, H, Tq, 1) contiguous f32."""
+    B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
+    ts = (q, k, v, out)
+    flat = [s for t in ts for s in _bht(t)]
+    vec = _vec(ts, flat)
+    bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
+    seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
+    fn = _kernel("flash_attention_fwd")
+    arr = (ctypes.c_longlong * 16)(*(flat + bstrides))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), bias_ptr, out.data_ptr(), lse.data_ptr(),
+                 v.data_ptr(), _ptr(bias), out.data_ptr(), lse.data_ptr(),
                  B, H, Tq, Tk, D, arr, float(scale), int(bool(causal)), vec,
-                 stream)
+                 _ptr(seed), drop, thresh, drop_scale, stream)
     if err != 0:
         raise MXNetError(f"flash_attention_fwd kernel launch failed: CUDA "
                          f"error {err}")
-    with _COUNT_LOCK:
-        launches += 1
+    _count("flash_attention_fwd")
 
 
-def _flash_forward(q, k, v, bias, scale: float, causal: bool
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q/k/v: (B, H, T, D). Returns ((B, H, Tq, D), lse (B, H, Tq, 1))."""
+def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
+                ds, scale: float, causal: bool) -> None:
+    """One backward kernel on (B, H, T, D) views. ``dq`` is an f32
+    accumulator for the fused kernel, q's dtype for the dq kernel; kernels
+    that do not write an output get None for it."""
+    B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
+    ts = (q, k, v, do)
+    flat = [s for t in ts for s in _bht(t)]
+    vec = _vec(ts, flat)
+    outs = [_bht(t) if t is not None else [0, 0, 0] for t in (dq, dk, dv)]
+    bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
+    seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
+    fn = _kernel(name)
+    arr = (ctypes.c_longlong * 25)(
+        *(flat + [s for o in outs for s in o] + bstrides))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_BWD_KIND[name], _DTYPE_CODE[q.dtype], q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(bias),
+                 lse.data_ptr(), delta.data_ptr(), _ptr(dq), _ptr(dk),
+                 _ptr(dv), _ptr(ds), B, H, Tq, Tk, D, arr, float(scale),
+                 int(bool(causal)), vec, _ptr(seed), drop, thresh,
+                 drop_scale, stream)
+    if err != 0:
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
+    _count(name)
+
+
+def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
+                   rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k/v: (B, H, T, D). Returns (out (B, H, Tq, D), lse (B, H, Tq, 1)).
+    On the card ``out`` is a view of a (B, Tq, H, D) buffer, the layout the
+    model merges heads from without a copy."""
     if not q.is_cuda:
-        return flash_attention_reference(q, k, v, bias, scale, causal)
+        return flash_attention_reference(q, k, v, bias, scale, causal, seed,
+                                         rate)
     B, H, Tq, D = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, bias, out, lse, scale, causal, layout_bthd=False)
+    _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale, causal)
     return out, lse
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None,
-                    causal: bool = False, bias=None, dropout: float = 0.0):
-    """Flash attention over (B, T, H, D) inputs (the JAX package's layout).
+def _reduce_ds(ds, bias):
+    """The bias gradient: ds summed over the bias's broadcast dims."""
+    red = tuple(ax for ax, size in enumerate(bias.shape[:3]) if size == 1)
+    d_bias = ds.sum(dim=red, keepdim=True) if red else ds
+    return d_bias.to(bias.dtype)
 
-    ``bias``: additive score bias of shape (1|B, 1|H, 1|Tq, Tk).
-    ``dropout > 0`` raises: in-kernel dropout is not ported yet."""
-    if dropout > 0:
-        raise MXNetError("flash_attention: dropout > 0 is not supported by "
-                         "the port's forward-only kernel yet (inference "
-                         "path); call it with dropout=0.0")
+
+def _flash_backward(q, k, v, bias, seed, o, lse, g, scale: float,
+                    causal: bool, block_k: int, rate: float,
+                    bias_grad: bool = True):
+    """Gradients of attention over (B, H, T, D): ``(dq, dk, dv, d_bias)``,
+    d_bias reduced to the bias's shape, or None without a bias or with
+    ``bias_grad=False`` (a mask: its O(B*H*T^2) ds is never formed).
+    ``o`` and ``lse`` are the forward's (global) output and log-sum-exp."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    want_ds = bias is not None and bias_grad
+    if not q.is_cuda:
+        dq, dk, dv, ds = flash_attention_backward_reference(
+            q, k, v, bias, seed, rate, o, lse, g, scale, causal, want_ds)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                _reduce_ds(ds, bias) if want_ds else None)
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    dev = q.device
+    delta = (g.float() * o.float()).sum(dim=-1).contiguous()   # (B, H, Tq)
+    lse = lse.reshape(B, H, Tq).contiguous()
+    ds = (torch.zeros((B, H, Tq, Tk), dtype=torch.float32, device=dev)
+          if want_ds else None)
+    # gradients in the (B, T, H, D) layout of the model's projections
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=dev).transpose(1, 2)
+    common = (q, k, v, g, bias, seed, rate, lse, delta)
+    if Tk <= block_k:
+        # Tk fits one k-block: the fused single pass
+        dq_acc = torch.zeros((B, Tq, H, D), dtype=torch.float32,
+                             device=dev).transpose(1, 2)
+        _launch_bwd("flash_attention_bwd_fused", *common, dq_acc, dk, dv, ds,
+                    scale, causal)
+        dq = dq_acc.to(q.dtype)
+    else:
+        dq = torch.empty((B, Tq, H, D), dtype=q.dtype,
+                         device=dev).transpose(1, 2)
+        _launch_bwd("flash_attention_bwd_dq", *common, dq, None, None, ds,
+                    scale, causal)
+        _launch_bwd("flash_attention_bwd_dkv", *common, None, dk, dv, None,
+                    scale, causal)
+    return dq, dk, dv, (_reduce_ds(ds, bias) if want_ds else None)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash2`` with its custom VJP: the forward kernel, and the
+    backward kernels on the saved (q, k, v, bias, seed, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate, scale, causal, block_k,
+                bias_grad):
+        out, lse = _flash_forward(q, k, v, bias, scale, causal, seed, rate)
+        ctx.save_for_backward(q, k, v, bias, seed, out, lse)
+        ctx.cfg = (rate, scale, causal, block_k, bias_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, seed, out, lse = ctx.saved_tensors
+        rate, scale, causal, block_k, bias_grad = ctx.cfg
+        # a bias nobody differentiates needs no ds either
+        bias_grad = bias_grad and ctx.needs_input_grad[3]
+        dq, dk, dv, d_bias = _flash_backward(
+            q, k, v, bias, seed, out, lse, g, scale, causal, block_k, rate,
+            bias_grad=bias_grad)
+        if d_bias is None and bias is not None and ctx.needs_input_grad[3]:
+            d_bias = torch.zeros_like(bias)
+        return dq, dk, dv, d_bias, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None,
+                    causal: bool = False, block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K, bias=None,
+                    dropout: float = 0.0, dropout_seed=None,
+                    bias_grad: bool = True):
+    """Flash attention over (B, T, H, D) inputs (the JAX package's layout),
+    differentiable.
+
+    ``bias``: additive score bias of shape (1|B, 1|H, 1|Tq, Tk);
+    ``bias_grad=False`` marks a mask that is not learned: its gradient is
+    zero and the O(B*H*T^2) softmax cotangent is never formed.
+    ``dropout``: probability-dropout rate on the attention weights, drawn
+    in the kernels; ``dropout_seed``: (2,) int32 key, required when
+    ``dropout > 0``. ``block_k`` routes the backward: the fused single pass
+    when Tk <= block_k, the two-pass dq/dkv kernels otherwise. ``block_q``
+    keeps the JAX signature; the kernels tile by 64 and do not read it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     if bias is not None:
         _check_bias(bias, B, H, Tq, Tk)
-    if not q.is_cuda:
-        out, _ = flash_attention_reference(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,
-            scale, causal)
-        return out.transpose(1, 2)
-    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, bias, out, lse, scale, causal, layout_bthd=True)
-    return out
+    rate = float(dropout)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"flash_attention: dropout must be in [0, 1), got "
+                         f"{rate}")
+    seed = None
+    if rate > 0:
+        if dropout_seed is None:
+            raise ValueError("flash_attention: dropout > 0 needs "
+                             "dropout_seed")
+        seed = torch.as_tensor(dropout_seed, dtype=torch.int32,
+                               device=q.device).reshape(2)
+    block_k = min(block_k, max(Tk, 8))
+    out = _FlashAttention.apply(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, seed,
+        rate, float(scale), bool(causal), int(block_k), bool(bias_grad))
+    return out.transpose(1, 2)

@@ -14,7 +14,6 @@ import torch
 
 from mxnet_tpu.ops.pallas.attention import (_flash_forward as jax_flash_fwd,
                                             flash_attention as jax_flash)
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as port
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -90,9 +89,12 @@ def test_reference_returns_lse_of_its_softmax():
 
 
 def test_dropout_raises():
+    """Dropout needs its (2,) int32 seed, and a rate in [0, 1)."""
     x = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(MXNetError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         port.flash_attention(x, x, x, dropout=0.1)
+    with pytest.raises(ValueError, match="dropout"):
+        port.flash_attention(x, x, x, dropout=1.0, dropout_seed=[1, 2])
 
 
 def test_bad_bias_shape_raises():
@@ -102,7 +104,8 @@ def test_bad_bias_shape_raises():
 
 
 def test_cpu_tensors_never_count_a_launch():
-    before = port.launches
-    x = torch.zeros(1, 8, 2, 16)
-    port.flash_attention(x, x, x)
+    before = dict(port.launches)
+    x = torch.zeros(1, 8, 2, 16, requires_grad=True)
+    port.flash_attention(x, x, x, dropout=0.1, dropout_seed=[3, 4]).sum() \
+        .backward()
     assert port.launches == before

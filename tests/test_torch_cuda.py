@@ -8,10 +8,13 @@ no ``nvcc`` and no card). On a machine with an H100:
 (``--noconftest``: the suite's conftest configures JAX, which that machine
 need not have; this file imports only torch and the port.)
 
-Tolerances: 16-bit inputs against the plain version in f32 on the same
-inputs, atol=rtol=2e-2 (the kernel rounds p to 16 bits before p.v and
+Tolerances: forward, 16-bit inputs against the plain version in f32 on the
+same inputs, atol=rtol=2e-2 (the kernel rounds p to 16 bits before p.v and
 rounds out once); f32 inputs atol=rtol=1e-4 (summation order); lse
-atol=1e-3, rtol=1e-4.
+atol=1e-3, rtol=1e-4. Backward, relative Frobenius error of each of dq, dk,
+dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
+bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics).
+Dropout masks are compared bit for bit through the outputs they make.
 """
 import math
 
@@ -22,6 +25,8 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as attn
 
 pytestmark = pytest.mark.cuda
+
+HALF = (torch.bfloat16, torch.float16)
 
 
 @pytest.fixture
@@ -38,6 +43,24 @@ def _close(got, want, atol, rtol, what):
         f"{what}: max abs err {err.max().item():.3e}"
 
 
+def _rel(got, want):
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _bias(kind, B, H, Tq, Tk, dtype, dev, g):
+    if kind == "keypad":
+        keep = torch.arange(Tk)[None, :] < torch.tensor([Tk, 5])[:B, None]
+        bias = torch.where(keep, 0.0, torch.finfo(dtype).min)
+        return bias[:, None, None, :].to(dev, dtype)
+    if kind == "full":
+        return torch.randn((1, H, Tq, Tk), generator=g).to(dev, dtype)
+    if kind is not None:
+        full = kind[:2] + (Tq, Tk)
+        return torch.randn(full, generator=g).to(dev, dtype)
+    return None
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("D", [32, 40, 64, 128])
@@ -50,24 +73,168 @@ def test_kernel_matches_plain(dev, dtype, D, causal, bias_shape):
     q = torch.randn(B, H, Tq, D, generator=g).to(dev, dtype)
     k = torch.randn(B, H, Tk, D, generator=g).to(dev, dtype)
     v = torch.randn(B, H, Tk, D, generator=g).to(dev, dtype)
-    bias = None
-    if bias_shape == "keypad":
-        keep = torch.arange(Tk)[None, :] < torch.tensor([Tk, 5])[:, None]
-        bias = torch.where(keep, 0.0, torch.finfo(dtype).min)
-        bias = bias[:, None, None, :].to(dev, dtype)
-    elif bias_shape is not None:
-        full = bias_shape[:2] + (Tq, Tk)
-        bias = torch.randn(full, generator=g).to(dev, dtype)
+    bias = _bias(bias_shape, B, H, Tq, Tk, dtype, dev, g)
     scale = 1.0 / math.sqrt(D)
-    before = attn.launches
+    before = attn.launches["flash_attention_fwd"]
     out, lse = attn._flash_forward(q, k, v, bias, scale, causal)
     torch.cuda.synchronize()
-    assert attn.launches == before + 1
+    assert attn.launches["flash_attention_fwd"] == before + 1
     ref, ref_lse = attn.flash_attention_reference(
         q.float(), k.float(), v.float(), bias, scale, causal)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     _close(out, ref, tol, tol, "out")
     _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_dropout_mask_is_the_plain_mask(dev, dtype, causal):
+    """Dropout 0.1 in the kernel against the plain version with the same
+    seed: any differing keep bit would move ``out`` far past the
+    tolerance; lse does not see dropout."""
+    g = torch.Generator().manual_seed(5)
+    B, H, Tq, Tk, D = 2, 3, 77, 131, 64
+    q, k, v = (torch.randn(B, H, T, D, generator=g).to(dev, dtype)
+               for T in (Tq, Tk, Tk))
+    seed = torch.tensor([1234, -99], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, None, scale, causal, seed, 0.1)
+    ref, ref_lse = attn.flash_attention_reference(
+        q.float(), k.float(), v.float(), None, scale, causal, seed, 0.1)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    _close(out, ref, tol, tol, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+    nodrop, _ = attn._flash_forward(q, k, v, None, scale, causal)
+    assert (out.float() - nodrop.float()).abs().max() > 0.1
+
+
+def _backward_case(dev, dtype, D, causal, bias_kind, rate, Tq=77, Tk=131,
+                   B=2, H=3, seed_val=7):
+    g = torch.Generator().manual_seed(seed_val + D)
+    q = torch.randn(B, H, Tq, D, generator=g).to(dev, dtype)
+    k = torch.randn(B, H, Tk, D, generator=g).to(dev, dtype)
+    v = torch.randn(B, H, Tk, D, generator=g).to(dev, dtype)
+    do = torch.randn(B, H, Tq, D, generator=g).to(dev, dtype)
+    bias = _bias(bias_kind, B, H, Tq, Tk, dtype, dev, g)
+    seed = torch.tensor([seed_val, 31337], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, bias, scale, causal, seed, rate)
+    return q, k, v, do, bias, seed, scale, out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [40, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+@pytest.mark.parametrize("route", ["fused", "two_pass"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_kernels_match_plain(dev, dtype, D, causal, bias_kind,
+                                      route, rate):
+    """dq, dk, dv (and dbias for the learned full bias) of the fused
+    kernel (block_k >= Tk) or the dq/dkv pair (block_k < Tk) against the
+    plain backward on the same inputs and the same dropout mask."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, D, causal, bias_kind, rate)
+    block_k = 1024 if route == "fused" else 64
+    names = (["flash_attention_bwd_fused"] if route == "fused" else
+             ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    before = {n: attn.launches[n] for n in attn.KERNELS}
+    bias_grad = bias_kind == "full"
+    dq, dk, dv, db = attn._flash_backward(
+        q, k, v, bias, seed, out, lse, do, scale, causal, block_k, rate,
+        bias_grad=bias_grad)
+    torch.cuda.synchronize()
+    for n in attn.KERNELS:
+        assert attn.launches[n] == before[n] + (n in names), n
+    rq, rk, rv, rds = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, bias_grad)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        assert _rel(got, want) <= tol, f"{name}: {_rel(got, want):.3e}"
+    if bias_grad:
+        want = rds.sum(dim=0, keepdim=True)
+        assert db.shape == bias.shape
+        assert _rel(db, want) <= tol, f"dbias: {_rel(db, want):.3e}"
+    else:
+        assert db is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_and_two_pass_agree(dev, dtype):
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, 64, False, "keypad", 0.1, Tq=200, Tk=200)
+    fused = attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 False, 1024, 0.1)
+    two = attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                               False, 64, 0.1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(fused[:3], two[:3]):
+        assert _rel(a, b) <= tol
+
+
+def test_fully_masked_rows_give_zero_dq(dev):
+    """A key-padding length of 0 masks whole rows: p = 0 there, and their
+    dq rows are 0, not NaN."""
+    B, H, T, D = 2, 2, 96, 64
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    keep = torch.arange(T)[None, :] < torch.tensor([T, 0])[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min)
+    bias = bias[:, None, None, :].to(dev, torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, bias, scale, False)
+    for block_k in (1024, 32):
+        dq, dk, dv, _ = attn._flash_backward(q, k, v, bias, None, out, lse,
+                                             do, scale, False, block_k, 0.0,
+                                             bias_grad=False)
+        for t in (dq, dk, dv):
+            assert torch.isfinite(t).all()
+        assert dq[1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_through_kernels_equals_plain(dev, dtype):
+    """q/k/v gradients of flash_attention on the card, through the
+    autograd Function and the backward kernels, equal torch autograd
+    through the plain forward on the same inputs."""
+    g = torch.Generator().manual_seed(11)
+    B, T, H, D = 2, 100, 4, 64
+    qkv = torch.randn(B, T, 3 * H * D, generator=g).to(dev, dtype)
+    w = torch.randn(B, T, H, D, generator=g).to(dev)
+    keep = torch.arange(T)[None, :] < torch.tensor([T, 61])[:, None]
+    mask = torch.where(keep, 0.0, torch.finfo(dtype).min)
+    bias = mask[:, None, None, :].to(dev, dtype)
+
+    def grads(fn, x):
+        x = x.detach().requires_grad_(True)
+        q, k, v = (t.reshape(B, T, H, D) for t in x.split(H * D, dim=-1))
+        out = fn(q, k, v)
+        (out.float() * w).sum().backward()
+        return x.grad
+
+    before = dict(attn.launches)
+    got = grads(lambda q, k, v: attn.flash_attention(q, k, v, bias=bias,
+                                                     bias_grad=False), qkv)
+    assert attn.launches["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    assert attn.launches["flash_attention_bwd_fused"] == \
+        before["flash_attention_bwd_fused"] + 1
+
+    def plain(q, k, v):
+        out, _ = attn.flash_attention_reference(
+            *(t.transpose(1, 2) for t in (q, k, v)), bias)
+        return out.transpose(1, 2)
+
+    want = grads(plain, qkv.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for i in range(3):   # the q, k and v thirds of the fused projection
+        sl = slice(i * H * D, (i + 1) * H * D)
+        assert got[..., sl].abs().max() > 0
+        assert _rel(got[..., sl], want[..., sl]) <= tol, i
 
 
 def test_kernel_reads_strided_bthd_views(dev):
@@ -95,3 +262,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         attn.flash_attention(z, z, z)
     with pytest.raises(MXNetError, match="one CUDA device"):
         attn.flash_attention(x, x, x.cpu())
+    with pytest.raises(MXNetError, match="seed"):
+        xs = x.transpose(1, 2)
+        attn._flash_forward(xs, xs, xs, None, 0.25, False,
+                            torch.zeros(2, dtype=torch.int32), 0.1)
