@@ -16,7 +16,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shape and at T=2048 causal), a learned (1, H, T, T) bias with its
    reduced gradient, f32 for each, and fused against two-pass on the same
    inputs; each timed with CUDA events beside its bound, its plain version
-   and a PyTorch library call (yardstick only);
+   and a PyTorch library call (yardstick only). Then the three
+   prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
+   versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
+   beside its bound, its plain version and cuDNN: ``F.conv2d``,
+   ``torch.nn.grad.conv2d_input``, ``conv2d_weight``), the same shapes in
+   f32 at N=8 with the other affine/bias variant, a ragged small shape
+   with relu off, and an M > 4096 wgrad case;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
    length buckets: 16 concurrent requests; the forward kernel must launch
@@ -30,7 +36,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    each, and the loss must fall; step time, tokens/s and a profiler
    breakdown; then one f32 step on the card against the same step on the
    CPU (plain path);
-6. one ``{"kernels": [...]}`` line, the card line, and as the last line
+6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
+   from a seed, bf16 with f32 masters (``multi_precision``), B=128,
+   224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
+   0.9, ``MXNET_FUSE_BN_CONV=1``: 10 steps of ``autograd.record`` ->
+   ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``Trainer.step(128)``;
+   every step must launch each conv kernel 28 times (16 BatchNorm-relu-conv
+   triples, 12 deferred relu-conv junctions) and the loss must fall; step
+   time, img/s and a profiler breakdown; the same 10 steps with
+   ``MXNET_FUSE_BN_CONV=0`` (cuDNN only) from the same weights; an
+   eval-mode forward with the kernels against the unfused one; one f32 SGD
+   step on the card (TF32 off) against the same step on the CPU;
+7. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
@@ -71,6 +88,33 @@ TOL_BERT_REL = 5e-2
 # phase 5, f32 on the card (TF32 off) against f32 on the CPU
 TOL_TRAIN_LOSS_REL = 1e-4
 TOL_TRAIN_GRAD_REL = 1e-3
+# phase 3, the conv kernels: relative Frobenius error of each output against
+# its plain version on the same inputs. bf16: fwd and wgrad round f(x) and
+# their output to bf16 once each (the plain version rounds f(x) the same
+# way, so only the output's rounding and the sum order differ); dgrad
+# writes f32 sums of exact products of bf16 values. f32: sum order only
+# (wgrad sums up to N*M = 401,408 products per output)
+REL_CONV = {"bfloat16": {"conv1x1_fwd": 1e-2, "conv1x1_dgrad": 1e-4,
+                         "conv1x1_wgrad": 1e-2},
+            "float32": {"conv1x1_fwd": 1e-5, "conv1x1_dgrad": 1e-5,
+                        "conv1x1_wgrad": 1e-4}}
+# phase 6: eval-mode ResNet-50 logits in bf16, fused against unfused on the
+# card (the fused apply rounds once in f32, the unfused BatchNorm computes
+# in bf16; 53 layers of such rounding)
+TOL_RESNET_EVAL_REL = 5e-2
+# phase 6, the f32 step card vs CPU: the loss as phase 5. The gradients are
+# looser: the port's own f32 step on the CPU is off a float64 evaluation
+# of the same step by ~1.2e-2 (median over tensors) and ~1.7e-2 (worst),
+# with or without the fused kernels (B=8, 112x112, random weights; phase 6
+# measures it in every run): the stage-4 BatchNorms (8 samples x 4x4
+# positions) project out most of the average pool's per-sample-constant
+# gradient and amplify f32 rounding. About three times the worst of that
+# is allowed per tensor.
+TOL_RESNET_GRAD_REL = 5e-2
+# the gradients of the conv biases that feed a BatchNorm are 0 in exact
+# arithmetic (the BatchNorm subtracts the mean) and rounding noise in both
+# runs: they are held to an absolute bound
+TOL_RESNET_NOISE_ABS = 1e-4
 
 KERNEL_INFO = {
     "flash_attention_fwd": ("mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -83,9 +127,26 @@ KERNEL_INFO = {
     "flash_attention_bwd_dkv": (
         "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "mxnet_tpu/ops/pallas/attention.py:524"),
+    "conv1x1_fwd": ("mxnet_tpu_torch/csrc/conv_fused.cu",
+                    "mxnet_tpu/ops/pallas/conv_fused.py:122"),
+    "conv1x1_dgrad": ("mxnet_tpu_torch/csrc/conv_fused.cu",
+                      "mxnet_tpu/ops/pallas/conv_fused.py:217"),
+    "conv1x1_wgrad": ("mxnet_tpu_torch/csrc/conv_fused.cu",
+                      "mxnet_tpu/ops/pallas/conv_fused.py:306"),
 }
+ATTN_KERNELS = tuple(KERNEL_INFO)[:4]
+CONV_KERNELS = tuple(KERNEL_INFO)[4:]
 # BERT-base attention at the trained and served shapes
 B_MAIN, H, D, T_MAIN = 8, 12, 64, 512
+# ResNet-50's 1x1 junctions at b128, 224x224: (kind, Ci, Co, M); "triple"
+# is (bn2, relu, conv3) of a bottleneck (affine prologue), "relu_conv" the
+# deferred epilogue ReLU into the next block's conv1 (relu-only); both
+# convs carry a bias
+CONV_JUNCTIONS = [("triple", 64, 256, 3136), ("triple", 128, 512, 784),
+                  ("triple", 256, 1024, 196), ("triple", 512, 2048, 49),
+                  ("relu_conv", 256, 64, 3136), ("relu_conv", 512, 128, 784),
+                  ("relu_conv", 1024, 256, 196), ("relu_conv", 2048, 512, 49)]
+B_RESNET, IMG_RESNET = 128, 224
 
 
 def fail(msg: str) -> None:
@@ -604,12 +665,169 @@ def agree(torch, name, fused, two, dtn):
           f"{', '.join(parts)} (limit {REL_AGREE[dtn]})", flush=True)
 
 
+def conv_bound_ms(name, N, Ci, Co, M, dtn, elem, affine, bias):
+    """Least time for one conv kernel: x (and dy) read once, W, the scale
+    and shift and the bias read once, the output written once (y in x's
+    dtype, da in f32, dW in W's dtype); 2*N*Co*Ci*M flops."""
+    x, dy_or_y, w = elem * N * Ci * M, elem * N * Co * M, elem * Co * Ci
+    nbytes = x + dy_or_y + w + (8 * Ci if affine else 0)
+    if name == "conv1x1_fwd":
+        nbytes += 4 * Co if bias else 0
+    elif name == "conv1x1_dgrad":
+        nbytes += 4 * N * Ci * M
+    return bound(2.0 * N * Co * Ci * M, nbytes, dtn)
+
+
+def conv_case(torch, dev, gen, N, Ci, Co, M, dt, affine, bias):
+    """x, W, dy in ``dt`` and f32 scale, shift, bias, drawn on the card from
+    ``gen``, scale and shift as a BatchNorm gives them (about half of f(x)
+    > 0)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(N, Ci, M).to(dt)
+    w = (randn(Co, Ci) / math.sqrt(Ci)).to(dt)
+    dy = randn(N, Co, M).to(dt)
+    scale = shift = b = None
+    if affine:
+        scale = torch.rand((Ci,), generator=gen, device=dev) + 0.5
+        shift = 0.2 * randn(Ci)
+    if bias:
+        b = 0.1 * randn(Co)
+    return x, w, dy, scale, shift, b
+
+
+def library_conv_ms(torch, name, x, w, dy, scale, shift, relu, b, hw):
+    """cuDNN at the same shape, by CUDA events (a yardstick, never used by
+    the port): F.conv2d on the already-activated input, conv2d_input,
+    conv2d_weight."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda.conv_fused import _prologue
+    N, Ci, M = x.shape
+    Co = w.shape[0]
+    h4 = _prologue(x, scale, shift, relu).to(x.dtype).reshape(N, Ci, *hw)
+    w4 = w.reshape(Co, Ci, 1, 1)
+    dy4 = dy.reshape(N, Co, *hw)
+    try:
+        if name == "conv1x1_fwd":
+            return cuda_time_ms(lambda: F.conv2d(h4, w4, b.to(x.dtype)
+                                                 if b is not None else None))
+        if name == "conv1x1_dgrad":
+            return cuda_time_ms(lambda: torch.nn.grad.conv2d_input(
+                h4.shape, w4, dy4))
+        return cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(
+            h4, w4.shape, dy4))
+    except Exception as e:  # noqa: BLE001 - a yardstick only: reported
+        print(f"phase 3:   library call unavailable here ({e!r:.120})",
+              flush=True)
+        return None
+
+
+def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None):
+    """The three conv kernels on one case against their plain versions;
+    each launch must move its counter by one. Returns {kernel: row} when
+    ``timed``."""
+    x, w, dy, scale, shift, b = case
+    N, Ci, M = x.shape
+    Co = w.shape[0]
+    dtn = str(x.dtype).split(".")[-1]
+    calls = {
+        "conv1x1_fwd": (lambda: cf._fwd(x, scale, shift, w, relu, b),
+                        lambda: cf.conv1x1_fwd_reference(x, scale, shift, w,
+                                                         relu, b)),
+        "conv1x1_dgrad": (lambda: cf._dgrad(x, scale, shift, w, dy, relu),
+                          lambda: cf.conv1x1_dgrad_reference(
+                              x, scale, shift, w, dy, relu)),
+        "conv1x1_wgrad": (lambda: cf._wgrad(x, scale, shift, dy, relu,
+                                            w.dtype),
+                          lambda: cf.conv1x1_wgrad_reference(
+                              x, scale, shift, dy, relu, w.dtype)),
+    }
+    rows, parts = {}, []
+    for name, (kern, plain) in calls.items():
+        before = cf.launches[name]
+        got = kern()
+        torch.cuda.synchronize()
+        if cf.launches[name] != before + 1:
+            fail(f"{label}: {name} counter moved by "
+                 f"{cf.launches[name] - before}, expected 1")
+        want = plain()
+        want_dtype = torch.float32 if name == "conv1x1_dgrad" else x.dtype
+        if got.dtype != want_dtype or got.shape != want.shape \
+                or not bool(got.isfinite().all()):
+            fail(f"{label}: {name} gave {got.dtype} {tuple(got.shape)} or "
+                 "non-finite values")
+        r = rel(got, want)
+        lim = REL_CONV[dtn][name]
+        if r > lim:
+            fail(f"{label}: {name} relative error {r:.3e} > {lim}")
+        errs[name] = max(errs.get(name, 0.0),
+                         (got.float() - want.float()).abs().max().item())
+        parts.append(f"{name.split('_')[1]} {r:.2e}")
+        if timed:
+            ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+            lib_ms = library_conv_ms(torch, name, x, w, dy, scale, shift,
+                                     relu, b, hw)
+            bnd, by = conv_bound_ms(name, N, Ci, Co, M, dtn, x.dtype.itemsize,
+                                    scale is not None, b is not None)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=bnd, bound_by=by)
+            print(f"phase 3: {name} {label}: kernel {ms:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, cuDNN "
+                  f"{fmt_ms(lib_ms)}", flush=True)
+    print(f"phase 3: conv {label}: relative error {', '.join(parts)}",
+          flush=True)
+    return rows
+
+
+def conv_checks(torch, dev):
+    """The conv kernels at ResNet-50's junctions and the edge cases."""
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs, rows = {}, {}
+    for kind, Ci, Co, M in CONV_JUNCTIONS:
+        side = int(round(math.sqrt(M)))
+        affine = kind == "triple"
+        label = (f"bf16 {kind} N={B_RESNET} {Ci}->{Co} M={M} "
+                 f"({'affine' if affine else 'relu-only'}, bias)")
+        case = conv_case(torch, dev, gen, B_RESNET, Ci, Co, M,
+                         torch.bfloat16, affine, True)
+        got = conv_check(torch, cf, label, case, True, errs, timed=True,
+                         hw=(side, side))
+        if (kind, Ci, Co, M) == CONV_JUNCTIONS[0]:
+            rows = got          # the result line's row: the stage-1 triple
+        del case
+    for kind, Ci, Co, M in CONV_JUNCTIONS:
+        affine = kind != "triple"     # the other variant, without bias
+        conv_check(torch, cf, f"f32 N=8 {Ci}->{Co} M={M} "
+                   f"({'affine' if affine else 'relu-only'}, no bias)",
+                   conv_case(torch, dev, gen, 8, Ci, Co, M, torch.float32,
+                             affine, False), True, errs)
+    for dt in (torch.bfloat16, torch.float32):
+        dtn = str(dt).split(".")[-1]
+        conv_check(torch, cf, f"{dtn} ragged N=3 45->77 M=53 (affine, "
+                   "bias, relu off)",
+                   conv_case(torch, dev, gen, 3, 45, 77, 53, dt, True, True),
+                   False, errs)
+        conv_check(torch, cf, f"{dtn} ragged N=3 45->77 M=53 (relu-only)",
+                   conv_case(torch, dev, gen, 3, 45, 77, 53, dt, False,
+                             False), True, errs)
+        conv_check(torch, cf, f"{dtn} M=4100 > 4096 N=2 72->40 (affine)",
+                   conv_case(torch, dev, gen, 2, 72, 40, 4100, dt, True,
+                             False), True, errs)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, dev):
     """Phase 3: every kernel against its plain version."""
     from mxnet_tpu_torch.ops.cuda import attention as attn
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = {"flash_attention_fwd": forward_checks(torch, dev, gen, attn)}
     rows.update(backward_checks(torch, dev, gen, attn))
+    rows.update(conv_checks(torch, dev))
     print(f"phase 3: every kernel agrees with its plain version; card: "
           f"{smi_line()}", flush=True)
     return rows
@@ -631,24 +849,31 @@ def random_bert_params(block, seed: int):
     return out
 
 
-def reset_counts(attn) -> None:
-    for name in attn.KERNELS:
-        attn.launches[name] = 0
+def reset_counts(mod) -> None:
+    for name in mod.KERNELS:
+        mod.launches[name] = 0
 
 
-def device_breakdown(prof, wall_ms, label):
+# kernel-name patterns (re.search) of each group of a breakdown
+ATTN_GROUPS = {"flash forward": r"flash_fwd", "flash backward": r"bwd_"}
+CONV_GROUPS = {"conv1x1 fwd": r"(?<!flash_)fwd_(mma<|f32\b)",
+               "conv1x1 dgrad": r"dgrad_(mma<|f32\b)",
+               "conv1x1 wgrad": r"wgrad_(mma<|f32\b|reduce<)"}
+
+
+def device_breakdown(prof, wall_ms, label, groups=None):
     """Device time per kernel from a torch.profiler run, the device's idle
-    share over ``wall_ms`` and the flash kernels' share."""
+    share over ``wall_ms`` and the share of each group of kernels (names
+    matching the group's pattern). Returns (busy ms, idle share)."""
     per_kernel = kernel_times(prof)
     busy = sum(per_kernel.values())
     if busy <= 0:
         print(f"{label}: per-kernel device time: not measured (the profiler "
               "recorded no device time)", flush=True)
-        return
-    groups = {"flash forward": "flash_fwd", "flash backward": "bwd_"}
+        return None, None
     shares = []
-    for g, pat in groups.items():
-        t = sum(v for k, v in per_kernel.items() if pat in k)
+    for g, pat in (groups or ATTN_GROUPS).items():
+        t = sum(v for k, v in per_kernel.items() if re.search(pat, k))
         shares.append(f"{g} {t:.3f} ms = {t / busy:.3f}")
     print(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (idle "
           f"share {max(0.0, 1 - busy / wall_ms):.3f}); "
@@ -656,6 +881,7 @@ def device_breakdown(prof, wall_ms, label):
     for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{label}:   {v:8.3f} ms  {v / busy:6.3f}  {name[:90]}",
               flush=True)
+    return busy, max(0.0, 1 - busy / wall_ms)
 
 
 def forward_breakdown(torch, net, dev, B=8, T=512):
@@ -992,6 +1218,273 @@ def train_parity(torch, dev, params, cfg):
           flush=True)
 
 
+# ------------------------------------------------------------------ phase 6
+def random_resnet_params(block, seed: int, zero_last_gamma: bool = True):
+    """numpy weights for every parameter of ``block``, from ``seed``: conv
+    weights He-normal (std sqrt(2 / fan_in)), the classifier N(0, 0.01),
+    biases 0; BatchNorm gamma 1, except (``zero_last_gamma``) the last
+    BatchNorm of each residual body (gamma 0: each block starts as its
+    shortcut, Goyal et al. 2017,
+    the initialization under which SGD at lr 0.1 and momentum 0.9 trains
+    from the first step; with gamma 1 everywhere the loss of phase 6
+    diverged after three steps), beta 0, running mean 0, var 1, and a zero
+    stat-shift buffer (the first training step takes centered
+    statistics)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, p in block.collect_params().items():
+        shape = tuple(p.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" and len(shape) == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
+            arr = rng.standard_normal(shape).astype(np.float32) \
+                * np.float32(math.sqrt(2.0 / fan_in))
+        elif leaf == "weight":
+            arr = rng.standard_normal(shape).astype(np.float32) * 0.01
+        elif zero_last_gamma and name.endswith("body.7.gamma"):
+            arr = np.zeros(shape, np.float32)
+        elif leaf in ("gamma", "running_var"):
+            arr = np.ones(shape, np.float32)
+        else:
+            arr = np.zeros(shape, np.float32)
+        out[name] = arr
+    return out
+
+
+def resnet_step(autograd, net, loss_fn, trainer, x, y):
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    autograd.backward(loss)
+    trainer.step(x.shape[0])
+    return loss
+
+
+def resnet_steps(torch, autograd, net, loss_fn, trainer, x, y, n, want,
+                 label):
+    """``n`` training steps; every step must launch each kernel of
+    ``want`` as often as it says, and nothing else. Returns (losses,
+    seconds per step)."""
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    counters = [attn.launches, cf.launches]
+    losses, times = [], []
+    for step in range(n):
+        before = [dict(c) for c in counters]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = resnet_step(autograd, net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        moved = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c}
+        if moved != {k: want.get(k, 0) for k in moved}:
+            fail(f"{label} step {step}: kernel launches {moved}, expected "
+                 f"{want}")
+        lval = loss.float().mean().item()
+        if not math.isfinite(lval) or tuple(loss.shape) != (x.shape[0],):
+            fail(f"{label} step {step}: loss {lval} of shape "
+                 f"{tuple(loss.shape)}")
+        losses.append(lval)
+    return losses, times
+
+
+def phase_resnet(torch, dev):
+    """Phase 6: ResNet-50 v1 training on the card with the fused conv
+    kernels, then without them, an eval forward both ways, and an f32 step
+    against the CPU. Returns the conv kernels' launches of the main
+    (fused) run."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+
+    t0 = time.perf_counter()
+    params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
+                                  seed=0)
+    net = load_jax_params(get_model("resnet50_v1", device=dev), params,
+                          dtype="bfloat16")
+    loss_fn = SoftmaxCrossEntropyLoss()
+    B = B_RESNET
+    rng = np.random.RandomState(0)      # bench.py's synthetic batch
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, 3, IMG_RESNET, IMG_RESNET))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 1000, (B,)).astype(np.int64)).to(dev)
+    n_params = sum(p.numel() for k, p in net.collect_params().items()
+                   if p.grad_req != "null")
+    print(f"phase 6: ResNet-50 v1 bf16 on {dev} built in "
+          f"{time.perf_counter() - t0:.1f} s ({n_params} trained "
+          f"parameters); B={B}, {IMG_RESNET}x{IMG_RESNET}; SGD lr 0.1 momentum 0.9, "
+          "multi_precision (f32 masters)", flush=True)
+
+    def trainer():
+        return Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9,
+                        "multi_precision": True})
+
+    fused_want = {k: 28 for k in CONV_KERNELS}
+    os.environ["MXNET_FUSE_BN_CONV"] = "1"
+    tr = trainer()
+    reset_counts(attn)
+    reset_counts(cf)                    # the main path starts here
+    losses, times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y, 10,
+                                 fused_want, "fused")
+    counts = {k: cf.launches[k] for k in CONV_KERNELS}   # ... and ends here
+    if any(attn.launches[k] for k in ATTN_KERNELS):
+        fail(f"ResNet-50 launched attention kernels: {attn.launches}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall over 10 steps: {losses}")
+    fused_ms = 1e3 * sum(times[2:]) / len(times[2:])
+    print(f"phase 6: losses (fused) {[round(v, 4) for v in losses]}",
+          flush=True)
+    print(f"phase 6: launches in the training run {counts} (28 per step "
+          "each: 16 triples + 12 deferred junctions)", flush=True)
+    print(f"phase 6: fused step {fused_ms:.3f} ms (mean of steps 3-10, "
+          f"host clock to synchronize), {B / fused_ms * 1e3:.1f} img/s; "
+          f"card: {smi_line()}", flush=True)
+
+    # where the time goes in one fused step (counters restored after)
+    from torch.profiler import ProfilerActivity, profile
+    saved = dict(cf.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        resnet_step(autograd, net, loss_fn, tr, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    device_breakdown(prof, wall_ms, "phase 6: profiled fused step",
+                     CONV_GROUPS)
+    cf.launches.update(saved)
+
+    # the same 10 steps from the same weights on the cuDNN-only chain
+    os.environ["MXNET_FUSE_BN_CONV"] = "0"
+    load_jax_params(net, params)
+    tr = trainer()
+    u_losses, u_times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y,
+                                     10, {}, "unfused")
+    unfused_ms = 1e3 * sum(u_times[2:]) / len(u_times[2:])
+    drift = max(abs(a - b) for a, b in zip(losses, u_losses))
+    print(f"phase 6: losses (unfused) {[round(v, 4) for v in u_losses]}; "
+          f"largest difference from the fused run's {drift:.4f}", flush=True)
+    print(f"phase 6: unfused step {unfused_ms:.3f} ms, "
+          f"{B / unfused_ms * 1e3:.1f} img/s; fused / unfused step time "
+          f"{fused_ms / unfused_ms:.3f}; card: {smi_line()}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        resnet_step(autograd, net, loss_fn, tr, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    device_breakdown(prof, wall_ms, "phase 6: profiled unfused step",
+                     CONV_GROUPS)
+
+    # eval mode (running statistics): the kernels against the unfused chain
+    outs = {}
+    with torch.no_grad():
+        for knob in ("1", "0"):
+            os.environ["MXNET_FUSE_BN_CONV"] = knob
+            before = dict(cf.launches)
+            outs[knob] = net(x).float()
+            torch.cuda.synchronize()
+            moved = {k: cf.launches[k] - before[k] for k in CONV_KERNELS}
+            want = {"conv1x1_fwd": 28 if knob == "1" else 0,
+                    "conv1x1_dgrad": 0, "conv1x1_wgrad": 0}
+            if moved != want:
+                fail(f"eval forward (fusion {knob}): launches {moved}, "
+                     f"expected {want}")
+    if not bool(outs["1"].isfinite().all()):
+        fail("eval forward with the kernels: non-finite logits")
+    r = rel(outs["1"], outs["0"])
+    if r > TOL_RESNET_EVAL_REL:
+        fail(f"eval forward: fused logits off the unfused ones by {r:.3e} "
+             f"> {TOL_RESNET_EVAL_REL}")
+    print(f"phase 6: eval forward B={B} bf16, fused vs unfused logits: "
+          f"relative Frobenius {r:.3e} (limit {TOL_RESNET_EVAL_REL})",
+          flush=True)
+    del net, tr, outs, x
+    torch.cuda.empty_cache()
+    resnet_parity(torch, dev)
+    os.environ.pop("MXNET_FUSE_BN_CONV", None)
+    return counts
+
+
+def resnet_parity(torch, dev):
+    """One f32 SGD step, B=8, 112x112, fusion on: the card (kernels, TF32
+    off) against the CPU (plain versions); loss and every gradient. Every
+    gamma starts at 1 here, so every junction has a gradient to check. The
+    same step in float64 on the CPU measures how far f32 rounding alone
+    moves the gradients."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+
+    os.environ["MXNET_FUSE_BN_CONV"] = "1"
+    params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
+                                  seed=1, zero_last_gamma=False)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (8, 3, 112, 112))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, (8,)).astype(np.int64))
+    def step(where, f64=False):
+        net = load_jax_params(get_model("resnet50_v1", device=where), params)
+        tr = Trainer(net.collect_params(), "sgd",
+                     {"learning_rate": 0.1, "momentum": 0.9})
+        before = dict(cf.launches)
+        xs = x.to(where)
+        float_ = torch.Tensor.float
+        if f64:
+            # the port computes in f32 through Tensor.float(); rebound here,
+            # every op of this step runs in float64
+            net.to(torch.float64)
+            xs = xs.double()
+            torch.Tensor.float = lambda t: t.to(torch.float64)
+        try:
+            loss = resnet_step(autograd, net, SoftmaxCrossEntropyLoss(), tr,
+                               xs, y.to(where))
+        finally:
+            torch.Tensor.float = float_
+        moved = {k: cf.launches[k] - before[k] for k in CONV_KERNELS}
+        if moved != {k: (0 if where == "cpu" else 28) for k in CONV_KERNELS}:
+            fail(f"f32 parity step on {where}: conv launches {moved}")
+        return (loss.detach().cpu(),
+                {k: p.grad.detach().cpu().double() for k, p in
+                 net.collect_params().items() if p.grad_req != "null"})
+
+    out = {"cpu": step("cpu"), "card": step(dev), "f64": step("cpu", True)}
+    (lc, gc), (lg, gg), (_, g64) = out["cpu"], out["card"], out["f64"]
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    if loss_rel > TOL_TRAIN_LOSS_REL:
+        fail(f"ResNet f32 step: loss on the card {lg.tolist()} vs the CPU "
+             f"{lc.tolist()}: relative {loss_rel:.3e} > {TOL_TRAIN_LOSS_REL}")
+    noise = [k for k in gc if k.endswith(("body.0.bias", "body.6.bias"))]
+    rels = sorted((rel(gg[k], gc[k]), k) for k in gc if k not in noise)
+    grad_rel, median = rels[-1], rels[len(rels) // 2][0]
+    if grad_rel[0] > TOL_RESNET_GRAD_REL:
+        fail(f"ResNet f32 step: gradient of {grad_rel[1]} off the CPU's by "
+             f"{grad_rel[0]:.3e} > {TOL_RESNET_GRAD_REL}")
+    ref = sorted(rel(gc[k], g64[k]) for k in gc if k not in noise)
+    noise_abs = max((gg[k] - gc[k]).abs().max().item() for k in noise)
+    if noise_abs > TOL_RESNET_NOISE_ABS:
+        fail(f"ResNet f32 step: a pre-BatchNorm conv bias gradient differs "
+             f"by {noise_abs:.3e} > {TOL_RESNET_NOISE_ABS}")
+    print(f"phase 6: f32 step B=8 112x112 card vs CPU: loss relative "
+          f"{loss_rel:.3e} (limit {TOL_TRAIN_LOSS_REL}), gradient relative "
+          f"Frobenius median {median:.3e}, worst {grad_rel[0]:.3e} "
+          f"({grad_rel[1]}; limit {TOL_RESNET_GRAD_REL}), classifier "
+          f"{rel(gg['output.weight'], gc['output.weight']):.3e}, "
+          f"pre-BatchNorm conv bias gradients within "
+          f"{noise_abs:.3e} (limit {TOL_RESNET_NOISE_ABS}); the CPU's f32 "
+          f"gradients against the same step in float64: median "
+          f"{ref[len(ref) // 2]:.3e}, worst {ref[-1]:.3e}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -1034,10 +1527,15 @@ def main() -> int:
     if args.only is None:
         serve = phase_bert(torch, dev)
         train, _ = phase_train(torch, dev)
-        launches = {n: serve[n] + train[n] for n in KERNEL_INFO}
-        missing = [n for n, v in train.items() if not v]
+        launches.update({n: serve[n] + train[n] for n in ATTN_KERNELS})
+        missing = [n for n in ATTN_KERNELS if not train[n]]
         if missing:
             fail(f"kernels never launched on the training path: {missing}")
+        resnet = phase_resnet(torch, dev)
+        launches.update(resnet)
+        missing = [n for n in CONV_KERNELS if not resnet[n]]
+        if missing:
+            fail(f"kernels never launched on the ResNet-50 path: {missing}")
 
     print(json.dumps({"kernels": [{
         "name": n,

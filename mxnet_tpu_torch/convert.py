@@ -8,6 +8,16 @@ port parameter of the same name. It is strict: a missing, extra or
 mis-shaped name raises. ``export_params(block)`` is its inverse: the
 block's parameters as f32 numpy arrays under the same names, so that
 weights after training steps compare with the JAX package's.
+
+BatchNorm: ``running_mean`` and ``running_var`` are parameters with
+``grad_req='null'`` and are carried like any other. ``stat_shift`` (the
+previous batch's mean, about which the one-pass training statistics are
+taken) is runtime-only state in both packages (``persistent=False``): it is
+carried when ``params`` has it, as the JAX package's ``collect_params()``
+gives it, so both packages continue from the same state; when ``params``
+lacks it, as a parameter file does, it is rebuilt: set to zeros, so the
+layer's next training forward is its first (centered) one, as in the JAX
+package after a load.
 """
 from __future__ import annotations
 
@@ -27,18 +37,25 @@ def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
     """Copy ``params`` into ``block`` in place (on its device); with
     ``dtype`` the parameters are also cast to it. Returns ``block``."""
     own = block.collect_params()
-    missing = sorted(set(own) - set(params))
+    rebuilt = [k for k, p in own.items()
+               if k not in params and not getattr(p, "persistent", True)]
+    missing = sorted(set(own) - set(params) - set(rebuilt))
     extra = sorted(set(params) - set(own))
     if missing or extra:
         raise MXNetError(f"load_jax_params: names do not match; missing "
                          f"{missing}, extra {extra}")
     bad = [f"{k}: {tuple(_np.shape(params[k]))} vs {tuple(p.shape)}"
            for k, p in own.items()
-           if tuple(_np.shape(params[k])) != tuple(p.shape)]
+           if k in params and tuple(_np.shape(params[k])) != tuple(p.shape)]
     if bad:
         raise MXNetError(f"load_jax_params: shape mismatch: {bad}")
     with torch.no_grad():
+        for k in rebuilt:
+            own[k].zero_()
+            own[k].initialized = True
         for k, p in own.items():
+            if k in rebuilt:
+                continue
             src = torch.from_numpy(_np.ascontiguousarray(
                 _np.asarray(params[k], dtype=_np.float32)))
             p.copy_(src.to(device=p.device, dtype=p.dtype))

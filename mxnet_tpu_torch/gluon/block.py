@@ -1,8 +1,8 @@
 """Block / HybridBlock as ``torch.nn.Module`` subclasses.
 
 Counterpart of ``mxnet_tpu/gluon/block.py`` (``Block``, ``HybridBlock``,
-``remat_stack``). ``collect_params()`` returns the JAX package's dotted
-names (``encoder.layers.0.attn_qkv.weight``), which are the attribute
+``remat_stack``, ``PreActivation``). ``collect_params()`` returns the JAX
+package's dotted names (``encoder.layers.0.attn_qkv.weight``), which are the attribute
 paths ``named_parameters`` gives when children and parameters are
 assigned as attributes. Training behaviour (dropout) follows the
 framework flag of ``autograd.record()`` / ``autograd.train_mode()``, as
@@ -20,7 +20,23 @@ from .. import initializer as _init_mod
 from ..context import as_device
 from .parameter import Parameter, to_torch_dtype
 
-__all__ = ["Block", "HybridBlock", "remat_stack"]
+__all__ = ["Block", "HybridBlock", "remat_stack", "PreActivation"]
+
+
+class PreActivation:
+    """A residual block's output BEFORE its epilogue ReLU, deferred so that
+    a consuming 1x1 conv takes the ReLU as its kernel's prologue
+    (``ops/cuda/conv_fused.py``). Blocks that understand the deferral set
+    ``_consumes_preactivation = True``; every other ``Block.__call__``
+    materializes it, so the box never reaches user code."""
+
+    __slots__ = ("z",)
+
+    def __init__(self, z) -> None:
+        self.z = z
+
+    def materialize(self):
+        return torch.relu(self.z)
 
 
 def remat_stack(layers, x, *extra, dropout: float = 0.0):
@@ -38,6 +54,12 @@ class Block(torch.nn.Module):
     def __init__(self, prefix: Optional[str] = None, params: Any = None) -> None:
         super().__init__()
         self.training = False
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        if args and isinstance(args[0], PreActivation) \
+                and not getattr(type(self), "_consumes_preactivation", False):
+            args = (args[0].materialize(),) + args[1:]
+        return super().__call__(*args, **kwargs)
 
     def register_child(self, block: "Block", name: Optional[str] = None) -> None:
         self.add_module(name or str(len(self._modules)), block)

@@ -1,2 +1,4 @@
 """Neural-network layers."""
+from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403

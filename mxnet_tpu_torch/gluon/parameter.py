@@ -12,7 +12,9 @@ attribute (the JAX package's ``p.grad()`` is ``p.grad`` here, and
 :func:`mxnet_tpu_torch.autograd.backward`: ``'write'`` replaces the
 gradient on each backward, ``'add'`` accumulates until ``zero_grad()``,
 ``'null'`` turns the gradient off. ``_fresh_grad`` says a backward wrote
-the gradient since the trainer last used it.
+the gradient since the trainer last used it. ``persistent=False`` marks
+runtime-only state (BatchNorm's ``stat_shift``) that a parameter file need
+not carry (see :func:`mxnet_tpu_torch.convert.load_jax_params`).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class Parameter(torch.nn.Parameter):
                 shape: Optional[Union[int, Tuple[int, ...]]] = None,
                 dtype: Any = "float32", init: Any = None,
                 grad_req: str = "write", lr_mult: float = 1.0,
-                wd_mult: float = 1.0) -> "Parameter":
+                wd_mult: float = 1.0, persistent: bool = True) -> "Parameter":
         if isinstance(shape, int):
             shape = (shape,)
         if shape is None or any(int(s) <= 0 for s in shape):
@@ -59,6 +61,7 @@ class Parameter(torch.nn.Parameter):
         self.grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        self.persistent = persistent
         self.initialized = False
         self._fresh_grad = False
         return self

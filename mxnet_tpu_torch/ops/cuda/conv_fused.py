@@ -1,0 +1,271 @@
+"""Prologue-fused 1x1 convolution: the Hopper kernels, their plain versions,
+autograd.
+
+Counterpart of ``mxnet_tpu/ops/pallas/conv_fused.py``
+(``fused_prologue_conv1x1``, ``_fused_core`` and its custom VJP, ``_fwd``,
+``_dgrad``, ``_wgrad``). ``csrc/conv_fused.cu`` replaces ``_fwd_kernel``,
+``_dgrad_kernel`` and ``_wgrad_kernel``; it is built and loaded by
+:mod:`mxnet_tpu_torch._kernels`. Over x flattened to (N, Ci, M), M = H*W, and
+``f(x) = relu(x * scale + shift)`` per input channel (the affine part and the
+ReLU each optional):
+
+- fwd: ``y[n] = W @ f(x[n]) + bias``, in x's dtype;
+- dgrad: ``da[n] = (W^T @ dy[n]) * [x * scale + shift > 0]``, in f32;
+- wgrad: ``dW = sum_n dy[n] @ f(x[n])^T``, in W's dtype, with both operands
+  rounded to bf16 first when dy is bf16.
+
+Routing: a tensor on the CPU takes the plain versions
+(:func:`conv1x1_fwd_reference`, :func:`conv1x1_dgrad_reference`,
+:func:`conv1x1_wgrad_reference`); a CUDA tensor launches the kernels or
+raises :class:`MXNetError`. Nothing falls back. Each launch adds one to its
+kernel's entry in :data:`launches`. The JAX package's ``fusion_profitable``
+(a TPU traffic rule) and block chooser have no counterpart: the kernels tile
+by 64 whatever the shape. wgrad's split partial sums are added in a fixed
+order, so dW is the same from run to run. The fp16 kernels round f(x) to
+fp16 for wgrad, where the JAX kernel keeps it in f32.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from ...base import MXNetError
+
+__all__ = ["fused_prologue_conv1x1", "conv1x1_fwd_reference",
+           "conv1x1_dgrad_reference", "conv1x1_wgrad_reference",
+           "wgrad_splits", "launches", "KERNELS"]
+
+KERNELS = ("conv1x1_fwd", "conv1x1_dgrad", "conv1x1_wgrad")
+# per-kernel launch counters: +1 per kernel launch, nowhere else
+launches = {name: 0 for name in KERNELS}
+_COUNT_LOCK = threading.Lock()
+_FNS = {}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TILE = 64
+# wgrad splits its N*M reduction until about this many blocks are in
+# flight: four per SM of an H100's 132
+_WGRAD_BLOCKS = 4 * 132
+
+
+# ---------------------------------------------------------- plain versions
+def _prologue(x3, scale, shift, relu: bool):
+    """f(x) in f32: ``x * scale + shift`` per channel, then the ReLU."""
+    a = x3.float()
+    if scale is not None:
+        a = a * scale.float().reshape(1, -1, 1) + shift.float().reshape(1, -1, 1)
+    return torch.relu(a) if relu else a
+
+
+def conv1x1_fwd_reference(x3, scale, shift, w, relu: bool, bias=None):
+    """Plain version of the fwd kernel: ``W @ f(x) + bias`` over x3 (N, Ci,
+    M), W (Co, Ci); f(x) rounded to W's dtype, f32 products and sums, the
+    result in x's dtype."""
+    h = _prologue(x3, scale, shift, relu).to(w.dtype).float()
+    y = torch.matmul(w.float(), h)
+    if bias is not None:
+        y = y + bias.float().reshape(1, -1, 1)
+    return y.to(x3.dtype)
+
+
+def conv1x1_dgrad_reference(x3, scale, shift, w, dy3, relu: bool):
+    """Plain version of the dgrad kernel: ``W^T @ dy``, zero where
+    ``x * scale + shift <= 0`` when ``relu``; f32 (N, Ci, M)."""
+    da = torch.matmul(w.float().t(), dy3.float())
+    if relu:
+        a = _prologue(x3, scale, shift, False)
+        da = torch.where(a > 0, da, torch.zeros_like(da))
+    return da
+
+
+def conv1x1_wgrad_reference(x3, scale, shift, dy3, relu: bool, out_dtype):
+    """Plain version of the wgrad kernel: ``sum_n dy[n] @ f(x[n])^T`` in
+    ``out_dtype``; both operands rounded to bf16 first when dy is bf16."""
+    h = _prologue(x3, scale, shift, relu)
+    cd = torch.bfloat16 if dy3.dtype == torch.bfloat16 else torch.float32
+    dw = torch.einsum("nom,ncm->oc", dy3.to(cd).float(), h.to(cd).float())
+    return dw.to(out_dtype)
+
+
+# ------------------------------------------------------------- the kernels
+def _kernel(name: str):
+    """The ctypes entry of kernel ``name``, its library built on first use."""
+    fn = _FNS.get(name)
+    if fn is not None:
+        return fn
+    from ... import _kernels
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _kernels.load("conv_fused")
+    if name == "conv1x1_fwd":
+        fn = lib.mxt_conv1x1_fwd
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    elif name == "conv1x1_dgrad":
+        fn = lib.mxt_conv1x1_dgrad
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    else:
+        fn = lib.mxt_conv1x1_wgrad
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    _FNS[name] = fn
+    return fn
+
+
+def _check_operands(x3, w=None, dy3=None, scale=None, shift=None, bias=None):
+    """x3 (N, Ci, M), w (Co, Ci) and dy3 (N, Co, M) contiguous on one CUDA
+    device in one dtype; scale, shift (Ci,) and bias (Co,) contiguous f32
+    there. Returns (N, Ci, Co, M)."""
+    ts = [t for t in (x3, w, dy3) if t is not None]
+    vecs = [t for t in (scale, shift, bias) if t is not None]
+    if not all(t.is_cuda and t.device == x3.device for t in ts + vecs):
+        raise MXNetError("conv1x1: every operand must lie on one CUDA device")
+    if x3.dtype not in _DTYPE_CODE or not all(t.dtype == x3.dtype for t in ts):
+        raise MXNetError(f"conv1x1: x, w and dy must share one dtype of "
+                         f"float32/bfloat16/float16; got "
+                         f"{[t.dtype for t in ts]}")
+    if not all(t.dtype == torch.float32 for t in vecs):
+        raise MXNetError("conv1x1: scale, shift and bias must be float32")
+    if not all(t.is_contiguous() for t in ts + vecs):
+        raise MXNetError("conv1x1: operands must be contiguous")
+    if (scale is None) != (shift is None):
+        raise MXNetError("conv1x1: scale and shift come together")
+    N, Ci, M = x3.shape
+    Co = w.shape[0] if w is not None else dy3.shape[1]
+    if (w is not None and tuple(w.shape) != (Co, Ci)) or \
+            (dy3 is not None and tuple(dy3.shape) != (N, Co, M)) or \
+            (scale is not None and (scale.numel() != Ci
+                                    or shift.numel() != Ci)) or \
+            (bias is not None and bias.numel() != Co):
+        raise MXNetError(
+            f"conv1x1: shapes do not match: x {tuple(x3.shape)}, w "
+            f"{None if w is None else tuple(w.shape)}, dy "
+            f"{None if dy3 is None else tuple(dy3.shape)}")
+    return N, Ci, Co, M
+
+
+def _vec(t, row: int) -> int:
+    """16-byte loads of ``t``'s rows: 16-bit data, rows a multiple of 8
+    elements, an aligned pointer."""
+    return int(t.dtype != torch.float32 and row % 8 == 0
+               and t.data_ptr() % 16 == 0)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run(name, *args, device) -> None:
+    fn = _kernel(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        launches[name] += 1
+
+
+def wgrad_splits(N: int, Ci: int, Co: int, M: int, dtype) -> int:
+    """Blocks along wgrad's N*M reduction: enough for about
+    ``_WGRAD_BLOCKS`` blocks in all, never more than the reduction has
+    steps (32 positions a step, 16 in f32). Fixed by the shape, so the sum
+    order is too."""
+    step = 16 if dtype == torch.float32 else 32
+    steps = N * math.ceil(M / step)
+    tiles = math.ceil(Co / _TILE) * math.ceil(Ci / _TILE)
+    return max(1, min(steps, math.ceil(_WGRAD_BLOCKS / tiles), 65535))
+
+
+def _fwd(x3, scale, shift, w, relu: bool, bias=None):
+    if not x3.is_cuda:
+        return conv1x1_fwd_reference(x3, scale, shift, w, relu, bias)
+    N, Ci, Co, M = _check_operands(x3, w, None, scale, shift, bias)
+    y = torch.empty((N, Co, M), dtype=x3.dtype, device=x3.device)
+    _run("conv1x1_fwd", _DTYPE_CODE[x3.dtype], x3.data_ptr(), w.data_ptr(),
+         _ptr(scale), _ptr(shift), _ptr(bias), y.data_ptr(), N, Ci, Co, M,
+         int(relu), _vec(x3, M), _vec(w, Ci), device=x3.device)
+    return y
+
+
+def _dgrad(x3, scale, shift, w, dy3, relu: bool):
+    if not x3.is_cuda:
+        return conv1x1_dgrad_reference(x3, scale, shift, w, dy3, relu)
+    N, Ci, Co, M = _check_operands(x3, w, dy3, scale, shift)
+    da = torch.empty((N, Ci, M), dtype=torch.float32, device=x3.device)
+    _run("conv1x1_dgrad", _DTYPE_CODE[x3.dtype], x3.data_ptr(), w.data_ptr(),
+         dy3.data_ptr(), _ptr(scale), _ptr(shift), da.data_ptr(), N, Ci, Co,
+         M, int(relu), _vec(w, Ci), _vec(dy3, M), device=x3.device)
+    return da
+
+
+def _wgrad(x3, scale, shift, dy3, relu: bool, out_dtype):
+    if not x3.is_cuda:
+        return conv1x1_wgrad_reference(x3, scale, shift, dy3, relu, out_dtype)
+    N, Ci, Co, M = _check_operands(x3, None, dy3, scale, shift)
+    if out_dtype != x3.dtype:
+        raise MXNetError(f"conv1x1: wgrad writes x's dtype {x3.dtype}, not "
+                         f"{out_dtype}")
+    splits = wgrad_splits(N, Ci, Co, M, x3.dtype)
+    ws = torch.empty((splits, Co, Ci), dtype=torch.float32, device=x3.device)
+    dw = torch.empty((Co, Ci), dtype=out_dtype, device=x3.device)
+    _run("conv1x1_wgrad", _DTYPE_CODE[x3.dtype], x3.data_ptr(),
+         dy3.data_ptr(), _ptr(scale), _ptr(shift), dw.data_ptr(),
+         ws.data_ptr(), N, Ci, Co, M, int(relu), _vec(x3, M), _vec(dy3, M),
+         splits, device=x3.device)
+    return dw
+
+
+class _FusedConv1x1(torch.autograd.Function):
+    """``_fused_core`` with its custom VJP: the fwd kernel, then the dgrad
+    and wgrad kernels on the saved x (not f(x)); the per-channel sums of
+    the backward in plain torch, as the JAX package leaves them to XLA."""
+
+    @staticmethod
+    def forward(ctx, x3, scale, shift, bias, w, relu):
+        ctx.save_for_backward(x3, scale, shift, bias, w)
+        ctx.relu = relu
+        return _fwd(x3, scale, shift, w, relu, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, scale, shift, bias, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        da = _dgrad(x3, scale, shift, w, dy, ctx.relu)
+        dw = _wgrad(x3, scale, shift, dy, ctx.relu, w.dtype)
+        dscale = dshift = dbias = None
+        if scale is not None:
+            dx = (da * scale.reshape(1, -1, 1)).to(x3.dtype)
+            dscale = (da * x3.float()).sum(dim=(0, 2)).to(scale.dtype)
+            dshift = da.sum(dim=(0, 2)).to(shift.dtype)
+        else:
+            dx = da.to(x3.dtype)
+        if bias is not None:
+            dbias = dy.float().sum(dim=(0, 2)).to(bias.dtype)
+        return dx, dscale, dshift, dbias, dw, None
+
+
+def fused_prologue_conv1x1(x, w, scale: Optional[torch.Tensor] = None,
+                           shift: Optional[torch.Tensor] = None,
+                           relu: bool = True,
+                           bias: Optional[torch.Tensor] = None):
+    """``y = w @ relu(x * scale + shift) + bias`` as one kernel, NCHW.
+
+    x: (N, Ci, H, W); w: (Co, Ci) or (Co, Ci, 1, 1) in x's dtype;
+    scale/shift: (Ci,) per-channel affine (the BN apply), or None for a
+    plain-ReLU prologue; bias: (Co,) conv bias or None. Returns (N, Co, H,
+    W) in x's dtype. Differentiable in x, w, scale, shift and bias."""
+    N, Ci, H, W_ = x.shape
+    if w.ndim == 4:
+        w = w.reshape(w.shape[0], w.shape[1])
+    Co = w.shape[0]
+    x3 = x.reshape(N, Ci, H * W_).contiguous()
+    if scale is not None:
+        scale = scale.float().reshape(Ci).contiguous()
+        shift = shift.float().reshape(Ci).contiguous()
+    if bias is not None:
+        bias = bias.float().reshape(Co).contiguous()
+    y3 = _FusedConv1x1.apply(x3, scale, shift, bias, w.contiguous(),
+                             bool(relu))
+    return y3.reshape(N, Co, H, W_)

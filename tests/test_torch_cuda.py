@@ -15,6 +15,11 @@ atol=1e-3, rtol=1e-4. Backward, relative Frobenius error of each of dq, dk,
 dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
 bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics).
 Dropout masks are compared bit for bit through the outputs they make.
+
+The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
+versions, relative Frobenius error of each output: bf16 fwd and wgrad 1e-2
+(f(x) and the output rounded to bf16 once each), bf16 dgrad 1e-4 (f32 sums
+of exact products), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long sums).
 """
 import math
 
@@ -23,6 +28,7 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as attn
+from mxnet_tpu_torch.ops.cuda import conv_fused as cf
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +272,124 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         xs = x.transpose(1, 2)
         attn._flash_forward(xs, xs, xs, None, 0.25, False,
                             torch.zeros(2, dtype=torch.int32), 0.1)
+
+
+# ------------------------------------------------------- conv1x1 kernels
+CONV_REL = {torch.bfloat16: {"fwd": 1e-2, "dgrad": 1e-4, "wgrad": 1e-2},
+            torch.float32: {"fwd": 1e-5, "dgrad": 1e-5, "wgrad": 1e-4}}
+
+
+def _conv_case(dev, dtype, N, Ci, Co, M, affine, bias, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(N, Ci, M, generator=g).to(dev, dtype)
+    w = (torch.randn(Co, Ci, generator=g) / math.sqrt(Ci)).to(dev, dtype)
+    dy = torch.randn(N, Co, M, generator=g).to(dev, dtype)
+    s = (torch.rand(Ci, generator=g) + 0.5).to(dev) if affine else None
+    t = (0.2 * torch.randn(Ci, generator=g)).to(dev) if affine else None
+    b = (0.1 * torch.randn(Co, generator=g)).to(dev) if bias else None
+    return x, w, dy, s, t, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Ci,Co,M", [
+    (64, 256, 3136), (128, 512, 784), (256, 1024, 196), (512, 2048, 49),
+    (256, 64, 3136), (512, 128, 784), (1024, 256, 196), (2048, 512, 49),
+    (45, 77, 53), (72, 40, 4100)])
+@pytest.mark.parametrize("affine,relu,bias", [
+    (True, True, True), (False, True, True), (True, False, False),
+    (False, True, False)])
+def test_conv_kernels_match_plain(dev, dtype, Ci, Co, M, affine, relu, bias):
+    """ResNet-50's eight junction shapes at N=2, a ragged one and an M >
+    4096 one; affine or relu-only, relu off, with and without bias."""
+    x, w, dy, s, t, b = _conv_case(dev, dtype, 2, Ci, Co, M, affine, bias)
+    before = dict(cf.launches)
+    got = {"fwd": cf._fwd(x, s, t, w, relu, b),
+           "dgrad": cf._dgrad(x, s, t, w, dy, relu),
+           "wgrad": cf._wgrad(x, s, t, dy, relu, dtype)}
+    torch.cuda.synchronize()
+    assert all(cf.launches[k] == before[k] + 1 for k in cf.KERNELS)
+    want = {"fwd": cf.conv1x1_fwd_reference(x, s, t, w, relu, b),
+            "dgrad": cf.conv1x1_dgrad_reference(x, s, t, w, dy, relu),
+            "wgrad": cf.conv1x1_wgrad_reference(x, s, t, dy, relu, dtype)}
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.isfinite(got[k]).all()
+        assert _rel(got[k], want[k]) <= CONV_REL[dtype][k], \
+            f"{k}: {_rel(got[k], want[k]):.3e}"
+
+
+def test_conv_dgrad_mask_is_the_plain_mask(dev):
+    """Where x * scale + shift is exactly 0 the ReLU mask is 0, as
+    jnp.where(a > 0, ...) gives; dgrad equals the plain version there."""
+    x, w, dy, s, t, _ = _conv_case(dev, torch.bfloat16, 2, 64, 64, 128,
+                                   True, False)
+    t = -s * x[0, :, 0].float()          # a == 0 at m = 0 of sample 0
+    da = cf._dgrad(x, s, t, w, dy, True)
+    assert (da[0, :, 0] == 0).all()
+    want = cf.conv1x1_dgrad_reference(x, s, t, w, dy, True)
+    assert _rel(da, want) <= 1e-4
+
+
+def test_conv_wgrad_is_the_same_from_run_to_run(dev):
+    x, _, dy, s, t, _ = _conv_case(dev, torch.bfloat16, 16, 64, 256, 3136,
+                                   True, False)
+    a = cf._wgrad(x, s, t, dy, True, torch.bfloat16)
+    b = cf._wgrad(x, s, t, dy, True, torch.bfloat16)
+    assert torch.equal(a, b)
+
+
+def test_conv_autograd_through_kernels_equals_plain(dev):
+    """fused_prologue_conv1x1's gradients on the card equal torch autograd
+    through the plain forward on the CPU (f32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, _, s, t, b = _conv_case(dev, torch.float32, 2, 48, 40, 36, True,
+                                  True)
+
+    def grads(where):
+        leaves = [v.detach().to(where).requires_grad_(True)
+                  for v in (x.reshape(2, 48, 6, 6), w, s, t, b)]
+        y = cf.fused_prologue_conv1x1(*leaves[:4], True, leaves[4])
+        (torch.sin(y) * 2).sum().backward()
+        return [v.grad.cpu() for v in leaves]
+
+    for got, want in zip(grads(dev), grads("cpu")):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_conv_kernels_reject_what_they_do_not_take(dev):
+    x, w, dy, s, t, b = _conv_case(dev, torch.bfloat16, 2, 16, 8, 20, True,
+                                   True)
+    with pytest.raises(MXNetError, match="dtype"):
+        cf._fwd(x, s, t, w.float(), True, b)
+    with pytest.raises(MXNetError, match="float32"):
+        cf._fwd(x, s.half(), t, w, True, b)
+    with pytest.raises(MXNetError, match="contiguous"):
+        cf._dgrad(x, s, t, w, dy.transpose(1, 2).contiguous()
+                  .transpose(1, 2), True)
+    with pytest.raises(MXNetError, match="one CUDA device"):
+        cf._wgrad(x, s.cpu(), t, dy, True, torch.bfloat16)
+    with pytest.raises(MXNetError, match="shapes"):
+        cf._fwd(x, s, t, w[:, :8].contiguous(), True, b)
+
+
+@pytest.mark.parametrize("fuse,want", [("1", 28), ("0", 0)])
+def test_resnet50_step_launches_each_conv_kernel_28_times(dev, fuse, want,
+                                                          monkeypatch):
+    """One ResNet-50 v1 forward and backward (B=2, 64x64, bf16): with the
+    knob on, 16 triples and 12 deferred junctions, each one fwd, one dgrad
+    and one wgrad launch; with it off, none."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    monkeypatch.setenv("MXNET_FUSE_BN_CONV", fuse)
+    net = get_model("resnet50_v1", device=dev)
+    net.initialize(generator=torch.Generator().manual_seed(0), device=dev)
+    net.cast("bfloat16")
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    before = dict(cf.launches)
+    with autograd.record():
+        out = net(x.to(dev, torch.bfloat16))
+    autograd.backward(out.float().square().mean())
+    torch.cuda.synchronize()
+    assert {k: cf.launches[k] - before[k] for k in cf.KERNELS} == \
+        {k: want for k in cf.KERNELS}
+    assert all(torch.isfinite(p.grad).all()
+               for p in net.collect_params().values() if p.grad is not None)
