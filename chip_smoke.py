@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, one GPU
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernel checks)
+    python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -47,7 +48,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``MXNET_FUSE_BN_CONV=0`` (cuDNN only) from the same weights; an
    eval-mode forward with the kernels against the unfused one; one f32 SGD
    step on the card (TF32 off) against the same step on the CPU;
-7. one ``{"kernels": [...]}`` line, the card line, and as the last line
+7. the imperative path and mx.rtc: NVRTC's and the driver's versions; the
+   user kernel sources of ``RTC_SOURCES`` compiled by NVRTC for sm_90a
+   (each timed); a handful of ``mx.np`` ops on (4096, 3072) arrays on
+   ``cuda:0`` against the same ops on the CPU; the main path (launch counts
+   from 0): ``x.attach_grad()``, ``autograd.record()``, ``rtc_bias_gelu``
+   (GELU(x + b) over BERT-base's FFN activation, bf16 and f32), ``sum``,
+   ``backward`` (its vjp launches ``rtc_bias_gelu_grad``), ``x.grad``
+   against torch autograd of the plain version and the same object as
+   before; ``rtc_axpy`` in place; test_rtc.py's axpy, scale and square
+   through ``bind``; then each kernel against its plain version, timed
+   beside its bound, its plain version and a library call; the errors that
+   must raise (a CPU NDArray, a non-contiguous argument, a wrong dtype, a
+   source that does not compile); and BERT-base bf16
+   ``save_parameters`` -> ``load_parameters`` into a fresh ``get_bert``
+   answering bit-identically;
+8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
@@ -147,6 +163,186 @@ CONV_JUNCTIONS = [("triple", 64, 256, 3136), ("triple", 128, 512, 784),
                   ("relu_conv", 256, 64, 3136), ("relu_conv", 512, 128, 784),
                   ("relu_conv", 1024, 256, 196), ("relu_conv", 2048, 512, 49)]
 B_RESNET, IMG_RESNET = 128, 224
+
+# ----------------------------------------------------------- mx.rtc (phase 7)
+# User kernels for mx.rtc: CUDA C++ that NVRTC compiles for sm_90a at run
+# time, each with its plain PyTorch version below (tests/test_torch_rtc.py
+# and tests/test_torch_cuda.py use both). axpy, scale and square transcribe
+# the three PallasModule kernels of tests/test_rtc.py; rtc_axpy is upstream
+# MXNet's canonical mx.rtc example (y += alpha * x, in place); rtc_bias_gelu
+# is GELU(x + b) in the erf form (mxnet_tpu/ops/nn.py:124) over BERT-base's
+# FFN activation, and rtc_bias_gelu_grad its gradient dy * (Phi(u) + u *
+# phi(u)). f32 arithmetic is written with __fmul_rn / __fadd_rn, which are
+# never contracted into an FMA, in the order the plain version computes it.
+RTC_SOURCES = {
+    "axpy": r'''
+extern "C" __global__ void axpy(const float* x, const float* y, float* o,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = __fadd_rn(__fmul_rn(2.0f, x[i]), y[i]);
+}
+''',
+    "scale": r'''
+// 128 columns; each block takes 8 rows: blockDim (128, 8)
+extern "C" __global__ void scale(const float* x, float* o) {
+  int row = blockIdx.x * blockDim.y + threadIdx.y;
+  int i = row * blockDim.x + threadIdx.x;
+  o[i] = __fmul_rn(x[i], 3.0f);
+}
+''',
+    "square": r'''
+extern "C" __global__ void square(const float* x, float* o, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = __fmul_rn(x[i], x[i]);
+}
+''',
+    "rtc_axpy": r'''
+extern "C" __global__ void rtc_axpy(const float* x, float* y, float alpha,
+                                    int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    y[i] = __fadd_rn(y[i], __fmul_rn(alpha, x[i]));
+}
+''',
+    "rtc_bias_gelu": r'''
+#include <cuda_bf16.h>
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);
+}
+// u = x + b, rounded to T as the plain version's (x + b) is
+template <typename T> __device__ __forceinline__ float bias_add(T x, T b) {
+  return to_f(from_f<T>(__fadd_rn(to_f(x), to_f(b))));
+}
+__device__ __forceinline__ float erf_term(float u) {  // 1 + erf(u / sqrt 2)
+  return __fadd_rn(1.0f, erff(__fmul_rn(u, 0.70710678118654752f)));
+}
+// rows x cols, b over the columns; grid-stride over the n elements
+template <typename T>
+__global__ void rtc_bias_gelu(const T* x, const T* b, T* y, int n,
+                              int cols) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float u = bias_add(x[i], b[i % cols]);
+    y[i] = from_f<T>(__fmul_rn(__fmul_rn(0.5f, u), erf_term(u)));
+  }
+}
+template <typename T>
+__global__ void rtc_bias_gelu_grad(const T* x, const T* b, const T* dy,
+                                   T* dx, int n, int cols) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float u = bias_add(x[i], b[i % cols]);
+    float cdf = __fmul_rn(0.5f, erf_term(u));
+    float pdf = __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, u), u)),
+                          0.3989422804014327f);
+    dx[i] = from_f<T>(__fmul_rn(to_f(dy[i]),
+                                __fadd_rn(cdf, __fmul_rn(u, pdf))));
+  }
+}
+''',
+}
+GELU_TYPES = {"bfloat16": "__nv_bfloat16", "float32": "float"}
+RTC_EXPORTS = {"rtc_bias_gelu": tuple(
+    f"{k}<{c}>" for k in ("rtc_bias_gelu", "rtc_bias_gelu_grad")
+    for c in GELU_TYPES.values())}
+RTC_SIGNATURES = {
+    "axpy": "const float *x, const float *y, float *o, int n",
+    "scale": "const float *x, float *o",
+    "square": "const float *x, float *o, int n",
+    "rtc_axpy": "const float *x, float *y, float alpha, int n",
+}
+for _t in GELU_TYPES.values():
+    RTC_SIGNATURES[f"rtc_bias_gelu<{_t}>"] = (
+        f"const {_t} *x, const {_t} *b, {_t} *y, int n, int cols")
+    RTC_SIGNATURES[f"rtc_bias_gelu_grad<{_t}>"] = (
+        f"const {_t} *x, const {_t} *b, const {_t} *dy, {_t} *dx, int n, "
+        "int cols")
+RTC_KERNELS = ("axpy", "scale", "square", "rtc_axpy", "rtc_bias_gelu",
+               "rtc_bias_gelu_grad")
+SQRT1_2, INV_SQRT_2PI = 0.7071067811865476, 0.3989422804014327
+# BERT-base's FFN activation in phase 7: B*T = 8*512 rows, 3072 columns
+RTC_ROWS, RTC_COLS = 8 * 512, 3072
+RTC_THREADS = 256
+
+
+def plain_axpy(x, y):
+    return 2.0 * x + y
+
+
+def plain_scale(x):
+    return x * 3.0
+
+
+def plain_square(x):
+    return x * x
+
+
+def plain_rtc_axpy(x, y, alpha):
+    return y + alpha * x
+
+
+def plain_bias_gelu(x, b):
+    import torch
+    u = (x + b).float()
+    return (0.5 * u * (1 + torch.erf(u * SQRT1_2))).to(x.dtype)
+
+
+def plain_bias_gelu_grad(x, b, dy):
+    import torch
+    u = (x + b).float()
+    cdf = 0.5 * (1 + torch.erf(u * SQRT1_2))
+    pdf = torch.exp(-0.5 * u * u) * INV_SQRT_2PI
+    return (dy.float() * (cdf + u * pdf)).to(x.dtype)
+
+
+def rtc_blocks(n: int) -> int:
+    """Blocks of a grid-stride launch over n elements: enough for 16
+    blocks of 256 threads on each of the card's 132 SMs."""
+    return max(1, min((n + RTC_THREADS - 1) // RTC_THREADS, 132 * 16))
+
+
+def rtc_kernels(rtc):
+    """Compile the user sources (one NVRTC program each). Returns
+    ({kernel name: CudaKernel}, {source: compile seconds})."""
+    kernels, seconds = {}, {}
+    for src, code in RTC_SOURCES.items():
+        t0 = time.perf_counter()
+        mod = rtc.CudaModule(code, exports=RTC_EXPORTS.get(src, ()))
+        seconds[src] = time.perf_counter() - t0
+        for name, sig in RTC_SIGNATURES.items():
+            if name.split("<")[0] in (src, src + "_grad"):
+                kernels[name] = mod.get_kernel(name, sig)
+    return kernels, seconds
+
+
+def rtc_bias_gelu(kernels, x, b):
+    """GELU(x + b) of NDArrays x (rows, cols) and b (cols,) through the
+    bound rtc_bias_gelu kernel; its vjp launches rtc_bias_gelu_grad for dx
+    and sums dx over the rows for db."""
+    import torch
+    ctype = GELU_TYPES[str(x.dtype)]
+    fwd = kernels[f"rtc_bias_gelu<{ctype}>"]
+    bwd = kernels[f"rtc_bias_gelu_grad<{ctype}>"]
+    n, cols = x.size, x.shape[-1]
+    grid, block = (rtc_blocks(n), 1, 1), (RTC_THREADS, 1, 1)
+
+    def vjp(cot, xt, bt):
+        dx = torch.empty_like(xt)
+        bwd.launch([xt, bt, cot.contiguous(), dx, n, cols], xt.device, grid,
+                   block)
+        return [dx, dx.float().reshape(-1, cols).sum(0).to(bt.dtype)]
+
+    return fwd.bind([(x.shape, str(x.dtype))], grid, block, vjp=vjp, n=n,
+                    cols=cols)(x, b)
 
 
 def fail(msg: str) -> None:
@@ -282,6 +478,13 @@ def rel(got, want) -> float:
     want = want.float()
     return ((got.float() - want).norm()
             / want.norm().clamp_min(1e-30)).item()
+
+
+def rel_np(got, want) -> float:
+    """Relative Frobenius error of numpy arrays."""
+    import numpy as np
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want)
+                 / max(float(np.linalg.norm(want)), 1e-30))
 
 
 def qkv_views(torch, dev, B, T, dt, gen):
@@ -1485,10 +1688,373 @@ def resnet_parity(torch, dev):
           f"{ref[len(ref) // 2]:.3e}, worst {ref[-1]:.3e}", flush=True)
 
 
+# ------------------------------------------------------------------ phase 7
+# phase 7 tolerances: the mx.np ops on the card against the same ops on the
+# CPU (elementwise and moves: one f32 rounding each way; sums: order)
+TOL_NP_REL = 1e-5
+# x.grad through rtc_bias_gelu's vjp against torch autograd of the plain
+# forward on the card: bf16 rounds u, y and dx to bf16 in both, in other
+# places; f32 differs by erff/expf against torch's erf/exp (<= 1 ulp) and
+# the order of db's sum
+TOL_RTC_GRAD = {"bfloat16": 2e-2, "float32": 1e-5}
+# the kernels against their plain versions: axpy and scale exact; square,
+# rtc_axpy and the f32 GELU kernels within 1 ulp; the bf16 GELU kernels
+# relative 2e-2 (one bf16 rounding of u and of the output)
+RTC_ULPS = 1
+TOL_RTC_BF16 = 2e-2
+
+
+def ulps(got, want) -> float:
+    """Largest |got - want| in ulps of want (f32 tensors)."""
+    import numpy as np
+    g = got.float().cpu().numpy().astype(np.float64)
+    w = want.float().cpu().numpy()
+    return float((np.abs(g - w) / np.spacing(np.abs(w))).max())
+
+
+def rtc_counts(rtc):
+    """Launches per phase-7 kernel name (template instances summed)."""
+    return {k: sum(v for n, v in rtc.launches.items()
+                   if n.split("<")[0] == k) for k in RTC_KERNELS}
+
+
+def np_ops_check(torch, mx, dev):
+    """A handful of mx.np ops on (4096, 3072) arrays on the card against
+    the same ops on the CPU."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    a_np = rng.standard_normal((RTC_ROWS, RTC_COLS)).astype(np.float32)
+    b_np = rng.standard_normal((RTC_ROWS, RTC_COLS)).astype(np.float32)
+    ops = {
+        "a*2+b": lambda np_, a, b: a * 2 + b,
+        "exp(a).mean(1)": lambda np_, a, b: np_.exp(a).mean(axis=1),
+        "sum(a*b, 0)": lambda np_, a, b: np_.sum(a * b, axis=0),
+        "matmul": lambda np_, a, b: np_.matmul(a[:512], b[:512].T),
+        "a[::2, 5:9]": lambda np_, a, b: a[::2, 5:9],
+        "argmax(a, 1)": lambda np_, a, b: np_.argmax(a, axis=1),
+        "where(a>0, a, b)": lambda np_, a, b: np_.where(a > 0, a, b),
+        "transpose+reshape": lambda np_, a, b: np_.transpose(a).reshape(
+            -1, 1024),
+    }
+    worst = 0.0
+    for name, fn in ops.items():
+        outs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                a, b = mx.np.array(a_np), mx.np.array(b_np)
+                outs.append(fn(mx.np, a, b))
+        got, want = outs
+        torch.cuda.synchronize()
+        if got.context != mx.gpu(0) or want.context != mx.cpu():
+            fail(f"phase 7: mx.np {name} ran on {got.context}/{want.context}")
+        if str(got.dtype) != str(want.dtype) or got.shape != want.shape:
+            fail(f"phase 7: mx.np {name}: {got.dtype}{got.shape} on the card "
+                 f"vs {want.dtype}{want.shape} on the CPU")
+        r = rel_np(got.asnumpy(), want.asnumpy())
+        worst = max(worst, r)
+        if r > TOL_NP_REL:
+            fail(f"phase 7: mx.np {name} off the CPU by {r:.3e} "
+                 f"> {TOL_NP_REL}")
+    print(f"phase 7: {len(ops)} mx.np ops at ({RTC_ROWS}, {RTC_COLS}) on "
+          f"{dev} agree with the CPU (worst relative {worst:.3e})",
+          flush=True)
+
+
+def rtc_main_path(torch, mx, rtc, kernels, dev):
+    """The imperative path through the rtc kernels: a GELU(x + b) layer of
+    BERT-base's FFN under autograd (bf16 and f32), MXNet's canonical
+    y += alpha * x in place, and test_rtc.py's three kernels through
+    bind, the square one with a vjp. Synchronizes after each step, so
+    that a fault is pinned to its kernel."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    x_np = rng.standard_normal((RTC_ROWS, RTC_COLS)).astype(np.float32)
+    b_np = rng.standard_normal((RTC_COLS,)).astype(np.float32)
+    for dtype in ("bfloat16", "float32"):
+        with mx.gpu(0):
+            x = mx.np.array(x_np, dtype=dtype)
+            b = mx.np.array(b_np, dtype=dtype)
+        x.attach_grad()
+        b.attach_grad()
+        grad_obj = x.grad
+        with mx.autograd.record():
+            y = rtc_bias_gelu(kernels, x, b)
+            s = y.sum()
+        s.backward()
+        torch.cuda.synchronize()
+        if x.grad is not grad_obj:
+            fail("phase 7: x.grad is not the same object after backward")
+        xt = x._data.detach().clone().requires_grad_()
+        bt = b._data.detach().clone().requires_grad_()
+        plain_bias_gelu(xt, bt).sum().backward()
+        rx, rb = rel(x.grad._data, xt.grad), rel(b.grad._data, bt.grad)
+        if not (rx <= TOL_RTC_GRAD[dtype] and rb <= TOL_RTC_GRAD[dtype]):
+            fail(f"phase 7: rtc_bias_gelu {dtype} gradients off torch "
+                 f"autograd of the plain version: x {rx:.3e}, b {rb:.3e} "
+                 f"(limit {TOL_RTC_GRAD[dtype]})")
+        print(f"phase 7: record -> rtc_bias_gelu {dtype} ({RTC_ROWS}, "
+              f"{RTC_COLS}) -> sum -> backward: x.grad relative error "
+              f"{rx:.3e}, b.grad {rb:.3e} against torch autograd (limit "
+              f"{TOL_RTC_GRAD[dtype]}); x.grad is the same object", flush=True)
+    with mx.gpu(0):
+        xa, ya = mx.np.array(x_np), mx.np.array(x_np[::-1])
+    want = plain_rtc_axpy(xa._data, ya._data, 0.5)
+    kernels["rtc_axpy"].launch([xa, ya, 0.5, xa.size], mx.gpu(0),
+                               (rtc_blocks(xa.size), 1, 1),
+                               (RTC_THREADS, 1, 1))
+    torch.cuda.synchronize()
+    if not torch.equal(ya._data, want):
+        fail("phase 7: rtc_axpy (in place) differs from y + alpha * x")
+    # test_rtc.py's three kernels, at its shapes
+    with mx.gpu(0):
+        v = mx.np.array(rng.uniform(-1, 1, (64,)).astype(np.float32))
+        w = mx.np.array(rng.uniform(-1, 1, (64,)).astype(np.float32))
+        m = mx.np.array(rng.uniform(-1, 1, (16, 128)).astype(np.float32))
+        q = mx.np.array(np.linspace(-1, 1, 16).astype(np.float32))
+    out = kernels["axpy"].bind([((64,), "float32")], (1,), (64,), n=64)(v, w)
+    torch.cuda.synchronize()
+    sc = kernels["scale"].bind([((16, 128), "float32")], (2, 1, 1),
+                               (128, 8, 1))(m)
+    torch.cuda.synchronize()
+    sq = kernels["square"].bind([((16,), "float32")], (1,), (16,), n=16,
+                                vjp=lambda cot, t: [cot * 2.0 * t])
+    q.attach_grad()
+    with mx.autograd.record():
+        r = sq(q)
+    r.backward()
+    torch.cuda.synchronize()
+    if not (torch.equal(out._data, plain_axpy(v._data, w._data))
+            and torch.equal(sc._data, plain_scale(m._data))
+            and torch.equal(r._data, plain_square(q._data))
+            and torch.equal(q.grad._data, 2.0 * q._data)):
+        fail("phase 7: a test_rtc.py kernel differs from its plain version")
+    print("phase 7: rtc_axpy in place, axpy, scale (2 blocks of 8x128) and "
+          "square (with vjp, backward) equal their plain versions",
+          flush=True)
+
+
+def rtc_kernel_rows(torch, rtc, kernels, dev):
+    """Each phase-7 kernel against its plain version at the main path's
+    shapes, its device time (CUDA events, L2 flushed before each call)
+    beside its bound, its plain version's and a PyTorch library call's (a
+    yardstick the port never calls). Launches made here are not
+    counted."""
+    import torch.nn.functional as F
+    saved = dict(rtc.launches)
+    g = torch.Generator().manual_seed(5)
+    rows = {}
+
+    def row(name, got, want, exact, run, plain, library, nbytes, flops,
+            dtn):
+        if exact and not torch.equal(got, want):
+            fail(f"phase 7: {name} is not equal to its plain version")
+        if not exact and dtn == "float32" and ulps(got, want) > RTC_ULPS:
+            fail(f"phase 7: {name} is {ulps(got, want):.1f} ulp off its "
+                 f"plain version (limit {RTC_ULPS})")
+        if dtn == "bfloat16" and rel(got, want) > TOL_RTC_BF16:
+            fail(f"phase 7: {name} relative error {rel(got, want):.3e} > "
+                 f"{TOL_RTC_BF16}")
+        err = (got.float() - want.float()).abs().max().item()
+        b_ms, b_by = bound(flops, nbytes, "float32")
+        rows[name] = dict(max_abs_err=err, ms=dev_ms(run),
+                          plain_ms=dev_ms(plain), library_ms=dev_ms(library),
+                          bound_ms=b_ms, bound_by=b_by)
+        print(f"phase 7: {name}: max abs err {err:.3e}; device time, L2 "
+              f"flushed: kernel "
+              f"{rows[name]['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {rows[name]['plain_ms']:.4f} ms, library "
+              f"{rows[name]['library_ms']:.4f} ms; back-to-back launches "
+              f"{cuda_time_ms(run):.4f} ms each (CUDA events: the host's "
+              f"launch path where it is the longer); card: {smi_line()}",
+              flush=True)
+
+    flush = torch.empty(256 * 2 ** 20, device=dev)    # 1 GiB, 20x the L2
+
+    def dev_ms(fn, iters=10):
+        """Device time per call with the L2 cache flushed before each:
+        these kernels stream tensors of 25-50 MB, which back-to-back calls
+        would find partly in L2. Each call is enqueued behind the flush
+        (~0.3 ms of device work, longer than the host takes to launch the
+        call), so its CUDA events bracket its device work, not the host's
+        launch path."""
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(iters):
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+    def launcher(name, args, n, grid=None, block=None):
+        k = kernels[name]
+        grid = grid or (rtc_blocks(n), 1, 1)
+        block = block or (RTC_THREADS, 1, 1)
+        return lambda: k.launch(args, dev, grid, block)
+
+    # test_rtc.py's kernels at their shapes
+    v, w = (torch.rand(64, generator=g).to(dev) for _ in range(2))
+    o = torch.empty_like(v)
+    run = launcher("axpy", [v, w, o, 64], 64, (1,), (64,))
+    run()
+    row("axpy", o, plain_axpy(v, w), True, run, lambda: plain_axpy(v, w),
+        lambda: torch.add(w, v, alpha=2.0), 3 * 4 * 64, 2 * 64, "float32")
+    m = torch.rand(16, 128, generator=g).to(dev)
+    o = torch.empty_like(m)
+    run = launcher("scale", [m, o], 0, (2, 1, 1), (128, 8, 1))
+    run()
+    row("scale", o, plain_scale(m), True, run, lambda: plain_scale(m),
+        lambda: torch.mul(m, 3.0), 2 * 4 * m.numel(), m.numel(), "float32")
+    q = torch.rand(16, generator=g).to(dev)
+    o = torch.empty_like(q)
+    run = launcher("square", [q, o, 16], 16, (1,), (16,))
+    run()
+    row("square", o, plain_square(q), False, run, lambda: plain_square(q),
+        lambda: torch.square(q), 2 * 4 * 16, 16, "float32")
+    # the (4096, 3072) kernels of the main path
+    n = RTC_ROWS * RTC_COLS
+    x = torch.randn(RTC_ROWS, RTC_COLS, generator=g).to(dev)
+    y0 = torch.randn(RTC_ROWS, RTC_COLS, generator=g).to(dev)
+    y = y0.clone()
+    kernels["rtc_axpy"].launch([x, y, 0.5, n], dev, (rtc_blocks(n), 1, 1),
+                               (RTC_THREADS, 1, 1))
+    ya = y0.clone()
+    row("rtc_axpy", y, plain_rtc_axpy(x, y0, 0.5), False,
+        launcher("rtc_axpy", [x, ya, 0.5, n], n),
+        lambda: plain_rtc_axpy(x, ya, 0.5),
+        lambda: torch.add(ya, x, alpha=0.5), 3 * 4 * n, 2 * n, "float32")
+    for dtn in ("float32", "bfloat16"):
+        dt = getattr(torch, dtn)
+        t = GELU_TYPES[dtn]
+        xg = (torch.randn(RTC_ROWS, RTC_COLS, generator=g) * 2).to(dev, dt)
+        bg = torch.randn(RTC_COLS, generator=g).to(dev, dt)
+        dy = torch.randn(RTC_ROWS, RTC_COLS, generator=g).to(dev, dt)
+        yg, dx = torch.empty_like(xg), torch.empty_like(xg)
+        fwd = launcher(f"rtc_bias_gelu<{t}>", [xg, bg, yg, n, RTC_COLS], n)
+        bwd = launcher(f"rtc_bias_gelu_grad<{t}>",
+                       [xg, bg, dy, dx, n, RTC_COLS], n)
+        fwd()
+        bwd()
+        esz = xg.element_size()
+        u = xg + bg
+        suffix = "" if dtn == "bfloat16" else " f32"
+        row("rtc_bias_gelu" + suffix, yg, plain_bias_gelu(xg, bg), False,
+            fwd, lambda: plain_bias_gelu(xg, bg), lambda: F.gelu(xg + bg),
+            2 * esz * n + esz * RTC_COLS, 6 * n, dtn)
+        row("rtc_bias_gelu_grad" + suffix, dx, plain_bias_gelu_grad(
+            xg, bg, dy), False, bwd, lambda: plain_bias_gelu_grad(xg, bg, dy),
+            lambda: torch.ops.aten.gelu_backward(dy, u),
+            3 * esz * n + esz * RTC_COLS, 11 * n, dtn)
+    torch.cuda.synchronize()
+    rtc.launches.clear()
+    rtc.launches.update(saved)
+    return rows
+
+
+def rtc_negative_checks(torch, mx, rtc, kernels, dev):
+    """Each of these must raise MXNetError."""
+    from mxnet_tpu_torch.base import MXNetError
+    k = kernels["rtc_axpy"]
+    x = torch.rand(256, device=dev)
+    with mx.cpu():
+        cpu_x = mx.np.ones((256,))
+    cases = {
+        "a CPU NDArray": lambda: k.launch([cpu_x, x, 1.0, 256], mx.gpu(0),
+                                          (1,), (256,)),
+        "a non-contiguous argument": lambda: k.launch(
+            [torch.rand(256, 2, device=dev)[:, 0], x, 1.0, 256], dev, (1,),
+            (256,)),
+        "a dtype that does not match": lambda: k.launch(
+            [x.double(), x, 1.0, 256], dev, (1,), (256,)),
+        "a source that does not compile": lambda: rtc.CudaModule(
+            'extern "C" __global__ void k(float* x) { x[0] = nope; }'),
+    }
+    for what, fn in cases.items():
+        try:
+            fn()
+        except MXNetError as e:
+            if what.startswith("a source") and "nope" not in str(e):
+                fail(f"phase 7: {what}: the message lacks NVRTC's log: {e}")
+            continue
+        fail(f"phase 7: {what} did not raise MXNetError")
+    print(f"phase 7: {len(cases)} negative checks raise MXNetError "
+          f"({', '.join(cases)})", flush=True)
+
+
+def params_round_trip(torch, dev):
+    """BERT-base with phase 4's seeded weights, bf16 on the card:
+    save_parameters, load_parameters into a fresh get_bert, and the eval
+    forward must be bit-identical."""
+    import tempfile
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
+
+    def fresh():
+        return get_bert("bert_12_768_12", vocab_size=30522, max_length=512,
+                        dropout=0.1, device=dev)
+    net = fresh()
+    load_jax_params(net, random_bert_params(net, seed=0)).cast(torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, 30522, (4, 512), generator=gen).to(dev)
+    vl = torch.tensor([512, 300, 77, 1], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert_base.params")
+        t0 = time.perf_counter()
+        net.save_parameters(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        other = fresh()
+        t0 = time.perf_counter()
+        other.load_parameters(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        a, b = net(tok, None, vl), other(tok, None, vl)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(a, b)):
+        fail("phase 7: BERT-base after save_parameters -> load_parameters "
+             "does not answer bit-identically")
+    print(f"phase 7: BERT-base bf16 save_parameters -> load_parameters: "
+          f"{size} bytes, save {save_s:.3f} s, load {load_s:.3f} s; eval "
+          f"forward B=4 T=512 bit-identical", flush=True)
+
+
+def phase_rtc(torch, dev):
+    """Phase 7: the imperative path and mx.rtc. Returns (kernel rows,
+    launches on the main path)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _nvrtc, rtc
+    print(f"phase 7: NVRTC {'.'.join(map(str, _nvrtc.nvrtc_version()))}, "
+          f"CUDA driver {_nvrtc.driver_version()}, -I "
+          f"{_nvrtc.include_dirs()}", flush=True)
+    kernels, seconds = rtc_kernels(rtc)
+    print("phase 7: NVRTC compiled " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in seconds.items()), flush=True)
+    np_ops_check(torch, mx, dev)
+    rtc.launches.update({k: 0 for k in rtc.launches})
+    rtc_main_path(torch, mx, rtc, kernels, dev)
+    counts = rtc_counts(rtc)
+    print(f"phase 7: launches on the main path {counts}", flush=True)
+    missing = [k for k, v in counts.items() if not v]
+    if missing:
+        fail(f"phase 7: kernels never launched on the main path: {missing}")
+    rows = rtc_kernel_rows(torch, rtc, kernels, dev)
+    rtc_negative_checks(torch, mx, rtc, kernels, dev)
+    params_round_trip(torch, dev)
+    print(f"phase 7: every rtc kernel agrees with its plain version; card: "
+          f"{smi_line()}", flush=True)
+    return rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--only", choices=["kernels", "rtc"], default=None,
+                    help="kernels: stop after the kernel checks (phases "
+                    "1-3); rtc: phases 1 and 7 only")
     args = ap.parse_args()
 
     import torch
@@ -1510,46 +2076,53 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda:0")
 
-    # phase 2
-    t0 = time.perf_counter()
-    built = _kernels.build_all()
-    print(f"phase 2: built {sorted(built)} in "
-          f"{time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
-          flush=True)
-    for kname in built:
-        print_ptxas(kname, _kernels._target(kname).with_suffix(".log"))
+    entries = []
+    if args.only != "rtc":
+        # phase 2
+        t0 = time.perf_counter()
+        built = _kernels.build_all()
+        print(f"phase 2: built {sorted(built)} in "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
+              flush=True)
+        for kname in built:
+            print_ptxas(kname, _kernels._target(kname).with_suffix(".log"))
 
-    # phase 3
-    rows = phase_kernels(torch, dev)
+        # phase 3
+        rows = phase_kernels(torch, dev)
 
-    launches = {n: None for n in KERNEL_INFO}
-    if args.only is None:
-        serve = phase_bert(torch, dev)
-        train, _ = phase_train(torch, dev)
-        launches.update({n: serve[n] + train[n] for n in ATTN_KERNELS})
-        missing = [n for n in ATTN_KERNELS if not train[n]]
-        if missing:
-            fail(f"kernels never launched on the training path: {missing}")
-        resnet = phase_resnet(torch, dev)
-        launches.update(resnet)
-        missing = [n for n in CONV_KERNELS if not resnet[n]]
-        if missing:
-            fail(f"kernels never launched on the ResNet-50 path: {missing}")
+        launches = {n: None for n in KERNEL_INFO}
+        if args.only is None:
+            serve = phase_bert(torch, dev)
+            train, _ = phase_train(torch, dev)
+            launches.update({n: serve[n] + train[n] for n in ATTN_KERNELS})
+            missing = [n for n in ATTN_KERNELS if not train[n]]
+            if missing:
+                fail(f"kernels never launched on the training path: "
+                     f"{missing}")
+            resnet = phase_resnet(torch, dev)
+            launches.update(resnet)
+            missing = [n for n in CONV_KERNELS if not resnet[n]]
+            if missing:
+                fail(f"kernels never launched on the ResNet-50 path: "
+                     f"{missing}")
+        entries += [dict(name=n, route="cuda", source=KERNEL_INFO[n][0],
+                         replaces=KERNEL_INFO[n][1], launches=launches[n],
+                         **rows[n]) for n in KERNEL_INFO]
 
-    print(json.dumps({"kernels": [{
-        "name": n,
-        "route": "cuda",
-        "source": KERNEL_INFO[n][0],
-        "replaces": KERNEL_INFO[n][1],
-        "launches": launches[n],
-        "max_abs_err": rows[n]["max_abs_err"],
-        "ms": rows[n]["ms"],
-        "plain_ms": rows[n]["plain_ms"],
-        "bound_ms": rows[n]["bound_ms"],
-        "bound_by": rows[n]["bound_by"],
-        "library_ms": rows[n]["library_ms"],
-    } for n in KERNEL_INFO]}), flush=True)
+    if args.only in (None, "rtc"):
+        # phase 7
+        rtc_rows, rtc_launches = phase_rtc(torch, dev)
+        entries += [dict(name=n, route="cuda-nvrtc",
+                         source="chip_smoke.py (user source)",
+                         replaces="mxnet_tpu/rtc.py:89 PallasModule.get_kernel",
+                         launches=rtc_launches[n], **rtc_rows[n])
+                    for n in RTC_KERNELS]
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in entries]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

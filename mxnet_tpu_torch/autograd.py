@@ -17,6 +17,13 @@ dropout active.
   the trainer's stale-gradient check.
 
 A head computed outside ``record()`` has no graph, and ``backward`` raises.
+
+Heads, head gradients and variables may be NDArrays (``mxnet_tpu_torch.nd``)
+as well as tensors. An NDArray variable (``attach_grad`` /
+:func:`mark_variables`) is a torch leaf that names its owner: after
+``torch.autograd.backward`` its gradient is written into the owner's
+``grad`` buffer by the owner's ``grad_req`` (the buffer stays the same
+NDArray object) and cleared from the leaf.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training", "backward"]
+           "is_training", "set_recording", "set_training", "backward",
+           "mark_variables", "grad"]
 
 
 class _ModeState(threading.local):
@@ -128,31 +136,93 @@ def _leaves(heads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(out.values())
 
 
-def backward(heads: Union[torch.Tensor, Sequence[torch.Tensor]],
-             head_grads: Optional[Union[torch.Tensor,
-                                        Sequence[Optional[torch.Tensor]]]] = None,
-             retain_graph: bool = False, train_mode: bool = True) -> None:
-    """Compute the gradients of ``heads`` into the parameters they reach,
-    by each parameter's ``grad_req`` (``autograd.backward``)."""
-    heads = _as_list(heads)
-    grads = _as_list(head_grads) if head_grads is not None \
-        else [None] * len(heads)
-    if len(grads) != len(heads):
-        raise MXNetError(f"backward: {len(heads)} heads but {len(grads)} "
-                         "head gradients")
-    for h in heads:
+def _tensor(x: Any) -> Any:
+    """The tensor of an NDArray (anything else as it is)."""
+    from .ndarray.ndarray import NDArray
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _heads(heads: Any) -> List[torch.Tensor]:
+    out = [_tensor(h) for h in _as_list(heads)]
+    for h in out:
         if not isinstance(h, torch.Tensor) or h.grad_fn is None:
             raise MXNetError(
                 "backward: a head was not computed under autograd.record() "
                 "(it has no graph) — run the forward inside "
                 "`with autograd.record():`")
-    grads = [torch.ones_like(h) if g is None else g
-             for h, g in zip(heads, grads)]
+    return out
+
+
+def _head_grads(heads: List[torch.Tensor], head_grads: Any
+                ) -> List[torch.Tensor]:
+    grads = _as_list(head_grads) if head_grads is not None \
+        else [None] * len(heads)
+    if len(grads) != len(heads):
+        raise MXNetError(f"backward: {len(heads)} heads but {len(grads)} "
+                         "head gradients")
+    return [torch.ones_like(h) if g is None else _tensor(g)
+            for h, g in zip(heads, grads)]
+
+
+def _owner(leaf: torch.Tensor) -> Any:
+    ref = getattr(leaf, "_mx_owner", None)
+    return ref() if ref is not None else None
+
+
+def backward(heads: Any, head_grads: Any = None, retain_graph: bool = False,
+             train_mode: bool = True) -> None:
+    """Compute the gradients of ``heads`` into the parameters and
+    variables they reach, by each one's ``grad_req``
+    (``autograd.backward``)."""
+    heads = _heads(heads)
+    grads = _head_grads(heads, head_grads)
     leaves = _leaves(heads)
     for p in leaves:
-        if getattr(p, "grad_req", "write") == "write":
+        if getattr(p, "grad_req", "write") == "write" \
+                or _owner(p) is not None:
             p.grad = None
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
     for p in leaves:
         if hasattr(p, "grad_req"):
             p._fresh_grad = True
+        owner = _owner(p)
+        if owner is not None:
+            owner._write_grad(p.grad)
+            p.grad = None
+
+
+def mark_variables(variables: Any, gradients: Any,
+                   grad_reqs: Union[str, Sequence[str]] = "write") -> None:
+    """Make NDArrays variables with the given gradient buffers
+    (``MXAutogradMarkVariables``)."""
+    from .ndarray.ndarray import _make_leaf
+    variables, gradients = _as_list(variables), _as_list(gradients)
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"invalid grad_req {req!r}")
+        v._grad_req, v._grad = req, g
+        v._data = v._data.detach()
+        if req != "null":
+            _make_leaf(v, v._data)
+
+
+def grad(heads: Any, variables: Any, head_grads: Any = None,
+         retain_graph: Optional[bool] = None, create_graph: bool = False,
+         train_mode: bool = True) -> Any:
+    """The gradients of ``heads`` with respect to ``variables``, returned
+    as new NDArrays; no gradient buffer is written (``autograd.grad``)."""
+    from .ndarray.ndarray import NDArray
+    if create_graph:
+        raise MXNetError("create_graph=True (higher-order imperative "
+                         "autograd) is not supported")
+    single = not isinstance(variables, (list, tuple))
+    vars_l = _as_list(variables)
+    heads_t = _heads(heads)
+    outs = torch.autograd.grad(
+        heads_t, [_tensor(v) for v in vars_l], _head_grads(heads_t, head_grads),
+        retain_graph=bool(retain_graph), allow_unused=True)
+    res = [NDArray(torch.zeros_like(_tensor(v)) if g is None else g.detach(),
+                   ctx=v.context, _wrap=True) for v, g in zip(vars_l, outs)]
+    return res[0] if single else res

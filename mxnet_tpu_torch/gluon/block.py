@@ -8,6 +8,8 @@ assigned as attributes. Training behaviour (dropout) follows the
 framework flag of ``autograd.record()`` / ``autograd.train_mode()``, as
 in the JAX package, not torch's per-module ``training`` attribute.
 ``hybridize()`` is accepted and does nothing: PyTorch runs eagerly.
+``save_parameters`` / ``load_parameters`` read and write the JAX package's
+``.params`` files (``ndarray_io.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Optional
 import torch
 
 from .. import initializer as _init_mod
+from ..base import MXNetError
 from ..context import as_device
 from .parameter import Parameter, to_torch_dtype
 
@@ -90,6 +93,57 @@ class Block(torch.nn.Module):
 
     def hybridize(self, active: bool = True, **kwargs: Any) -> None:
         """Accepted for API parity; the port runs eagerly."""
+
+    def save_parameters(self, filename: str, deduplicate: bool = False
+                        ) -> None:
+        """Save every initialized persistent parameter, by its
+        ``collect_params()`` name, in the parameter's dtype."""
+        from ..ndarray_io import save_params
+        save_params(filename, {
+            k: p.detach() for k, p in self.collect_params().items()
+            if getattr(p, "initialized", True)
+            and getattr(p, "persistent", True)})
+
+    def load_parameters(self, filename: str, ctx: Any = None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False,
+                        cast_dtype: bool = False) -> "Block":
+        """Load a ``.params`` file written by either package. Strict
+        unless told otherwise: a persistent parameter missing from the
+        file, or a name in the file that the block lacks, raises. Each
+        parameter takes the file's value and dtype on its own device
+        (the JAX package's ``set_data``). Non-persistent state is not in
+        a file: BatchNorm's ``stat_shift`` is rebuilt as zeros, as
+        ``convert.load_jax_params`` does, so the next training forward
+        takes centered statistics."""
+        from ..ndarray_io import read_tensors
+        loaded = read_tensors(filename)
+        own = self.collect_params()
+        persistent = {k for k, p in own.items()
+                      if getattr(p, "persistent", True)}
+        missing = sorted(persistent - set(loaded))
+        if missing and not allow_missing:
+            raise MXNetError(f"Parameters {missing} missing in file "
+                             f"{filename}")
+        extra = sorted(set(loaded) - set(own))
+        if extra and not ignore_extra:
+            raise MXNetError(f"File {filename} contains extra parameters: "
+                             f"{extra}")
+        bad = [f"{k}: {tuple(loaded[k].shape)} vs {tuple(p.shape)}"
+               for k, p in own.items()
+               if k in loaded and tuple(loaded[k].shape) != tuple(p.shape)]
+        if bad:
+            raise MXNetError(f"load_parameters: shape mismatch: {bad}")
+        with torch.no_grad():
+            for k, p in own.items():
+                if k in loaded:
+                    p.data = loaded[k].to(p.device)
+                elif k not in persistent:
+                    p.zero_()
+                else:
+                    continue
+                p.initialized = True
+        return self if ctx is None else self.to(as_device(ctx))
 
 
 class HybridBlock(Block):

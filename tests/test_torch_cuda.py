@@ -20,12 +20,26 @@ The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: bf16 fwd and wgrad 1e-2
 (f(x) and the output rounded to bf16 once each), bf16 dgrad 1e-4 (f32 sums
 of exact products), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long sums).
+
+mx.rtc: the user kernels of ``chip_smoke.py`` compiled by NVRTC for sm_90a
+against their plain versions: axpy, scale, square and rtc_axpy equal to the
+bit (their f32 arithmetic is written with __fmul_rn / __fadd_rn in the
+plain version's order); rtc_bias_gelu and rtc_bias_gelu_grad within 1 ulp
+in f32 (erff and expf against torch's erf and exp) and relative 2e-2 in
+bf16; x.grad through the vjp against torch autograd of the plain forward
+(relative 1e-5 in f32, 2e-2 in bf16). Also a launch from a fresh thread,
+launches on two streams, more than 48 KB of dynamic shared memory, and
+the errors: a CPU NDArray, a non-contiguous or wrongly typed argument, and
+a source that does not compile.
 """
 import math
 
 import pytest
 import torch
 
+import chip_smoke as cs
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import rtc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as attn
 from mxnet_tpu_torch.ops.cuda import conv_fused as cf
@@ -393,3 +407,164 @@ def test_resnet50_step_launches_each_conv_kernel_28_times(dev, fuse, want,
         {k: want for k in cf.KERNELS}
     assert all(torch.isfinite(p.grad).all()
                for p in net.collect_params().values() if p.grad is not None)
+
+
+# ---------------------------------------------------------------------------
+# mx.rtc: NVRTC user kernels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rtc_k():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return cs.rtc_kernels(rtc)[0]
+
+
+def _ulps(got, want):
+    """Largest |got - want| in ulps of want (f32)."""
+    import numpy as np
+    g = got.float().cpu().numpy().astype(np.float64)
+    w = want.float().cpu().numpy()
+    return float((np.abs(g - w) / np.spacing(np.abs(w))).max())
+
+
+def _grid(n):
+    return (cs.rtc_blocks(n), 1, 1), (cs.RTC_THREADS, 1, 1)
+
+
+def test_rtc_axpy_scale_square_are_exact(dev, rtc_k):
+    g = torch.Generator().manual_seed(0)
+    x, y = (torch.rand(1000, generator=g).to(dev) * 2 - 1 for _ in range(2))
+    with tmx.gpu(0):
+        X, Y = tmx.nd.array(x), tmx.nd.array(y)
+    n = x.numel()
+    out = rtc_k["axpy"].bind([((n,), "float32")], ((n + 127) // 128,),
+                             (128,), n=n)(X, Y)
+    assert torch.equal(out._data, cs.plain_axpy(x, y))
+    sq = rtc_k["square"].bind([((n,), "float32")], ((n + 127) // 128,),
+                              (128,), n=n)(X)
+    assert torch.equal(sq._data, cs.plain_square(x))
+    m = torch.rand(16, 128, generator=g).to(dev)
+    sc = rtc_k["scale"].bind([((16, 128), "float32")], (2, 1, 1),
+                             (128, 8, 1))(m)
+    assert torch.equal(sc._data, cs.plain_scale(m))
+    yy = y.clone()
+    rtc_k["rtc_axpy"].launch([x, yy, 0.75, n], dev, *_grid(n))
+    assert torch.equal(yy, cs.plain_rtc_axpy(x, y, 0.75))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 3072), (37, 129)])
+def test_rtc_bias_gelu_matches_plain(dev, rtc_k, dtype, shape):
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(shape, generator=g) * 2).to(dev, dtype)
+    b = torch.randn(shape[1], generator=g).to(dev, dtype)
+    dy = torch.randn(shape, generator=g).to(dev, dtype)
+    t = cs.GELU_TYPES[str(dtype).split(".")[-1]]
+    n, cols = x.numel(), shape[1]
+    y = torch.empty_like(x)
+    rtc_k[f"rtc_bias_gelu<{t}>"].launch([x, b, y, n, cols], dev, *_grid(n))
+    dx = torch.empty_like(x)
+    rtc_k[f"rtc_bias_gelu_grad<{t}>"].launch([x, b, dy, dx, n, cols], dev,
+                                              *_grid(n))
+    want_y, want_dx = cs.plain_bias_gelu(x, b), cs.plain_bias_gelu_grad(
+        x, b, dy)
+    if dtype == torch.float32:
+        assert _ulps(y, want_y) <= 1 and _ulps(dx, want_dx) <= 1
+    else:
+        assert _rel(y, want_y) <= 2e-2 and _rel(dx, want_dx) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rtc_bias_gelu_vjp_matches_torch_autograd(dev, rtc_k, dtype, tol):
+    g = torch.Generator().manual_seed(2)
+    x0 = torch.randn(64, 96, generator=g).to(dev, dtype)
+    b0 = torch.randn(96, generator=g).to(dev, dtype)
+    with tmx.gpu(0):
+        x, b = tmx.nd.array(x0), tmx.nd.array(b0)
+    x.attach_grad()
+    b.attach_grad()
+    gx = x.grad
+    with tmx.autograd.record():
+        s = cs.rtc_bias_gelu(rtc_k, x, b).sum()
+    s.backward()
+    assert x.grad is gx
+    xt, bt = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+    cs.plain_bias_gelu(xt, bt).float().sum().backward()
+    assert _rel(x.grad._data, xt.grad) <= tol
+    assert _rel(b.grad._data, bt.grad) <= tol
+
+
+def test_rtc_launch_from_a_fresh_thread(dev, rtc_k):
+    import threading
+    x = torch.rand(4096, device=dev)
+    y = torch.zeros_like(x)
+    errors = []
+
+    def work():
+        try:
+            rtc_k["rtc_axpy"].launch([x, y, 2.0, x.numel()], dev,
+                                     *_grid(x.numel()))
+            torch.cuda.synchronize(dev)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    th = threading.Thread(target=work)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive() and not errors
+    assert torch.equal(y, cs.plain_rtc_axpy(x, torch.zeros_like(x), 2.0))
+
+
+def test_rtc_launches_on_two_streams(dev, rtc_k):
+    x = torch.rand(1 << 20, device=dev)
+    y = torch.zeros_like(x)
+    n = x.numel()
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    with torch.cuda.stream(s1):
+        rtc_k["rtc_axpy"].launch([x, y, 1.0, n], dev, *_grid(n))
+        done = torch.cuda.Event()
+        done.record(s1)
+    s2.wait_event(done)
+    with torch.cuda.stream(s2):
+        rtc_k["rtc_axpy"].launch([x, y, 1.0, n], dev, *_grid(n))
+    torch.cuda.synchronize(dev)
+    assert torch.equal(y, x + x)
+
+
+def test_rtc_large_dynamic_shared_memory(dev):
+    src = r'''
+extern "C" __global__ void rev(const float* x, float* o, int n) {
+  extern __shared__ float buf[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = buf[n - 1 - i];
+}
+'''
+    k = rtc.CudaModule(src).get_kernel("rev", "const float *x, float *o, "
+                                       "int n")
+    n = 24 * 1024                  # 96 KB of shared memory
+    x = torch.rand(n, device=dev)
+    o = torch.empty_like(x)
+    k.launch([x, o, n], dev, (1,), (1024,), shared_mem=4 * n)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(o, x.flip(0))
+
+
+def test_rtc_errors(dev, rtc_k):
+    k = rtc_k["rtc_axpy"]
+    x = torch.rand(64, device=dev)
+    before = rtc.launches["rtc_axpy"]
+    with tmx.cpu():
+        cpu_x = tmx.nd.ones((64,))
+    with pytest.raises(MXNetError, match="lies on cpu"):
+        k.launch([cpu_x, x, 1.0, 64], dev, (1,), (64,))
+    with pytest.raises(MXNetError, match="contiguous"):
+        k.launch([torch.rand(64, 2, device=dev)[:, 0], x, 1.0, 64], dev,
+                 (1,), (64,))
+    with pytest.raises(MXNetError, match="wants"):
+        k.launch([x.half(), x, 1.0, 64], dev, (1,), (64,))
+    assert rtc.launches["rtc_axpy"] == before
+    with pytest.raises(MXNetError, match="error"):
+        rtc.CudaModule("extern \"C\" __global__ void k(float* x) "
+                       "{ x[0] = undefined_name; }")
