@@ -21,9 +21,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    beside its bound, its plain version and cuDNN: ``F.conv2d``,
-   ``torch.nn.grad.conv2d_input``, ``conv2d_weight``), the same shapes in
-   f32 at N=8 with the other affine/bias variant, a ragged small shape
-   with relu off, and an M > 4096 wgrad case;
+   ``torch.nn.grad.conv2d_input``, ``conv2d_weight``; dgrad's ReLU mask
+   compared bit for bit through a launch with W = dy = 1, wgrad run twice and compared to the bit, each
+   junction's dgrad and wgrad plan printed, and the three kernels' totals
+   per ResNet-50 step, the junctions weighted by how often they occur),
+   the same shapes in f32 at N=8 with the other affine/bias variant, a
+   ragged small shape with relu off, and an M > 4096 wgrad case;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
    length buckets: 16 concurrent requests; the forward kernel must launch
@@ -162,6 +165,9 @@ CONV_JUNCTIONS = [("triple", 64, 256, 3136), ("triple", 128, 512, 784),
                   ("triple", 256, 1024, 196), ("triple", 512, 2048, 49),
                   ("relu_conv", 256, 64, 3136), ("relu_conv", 512, 128, 784),
                   ("relu_conv", 1024, 256, 196), ("relu_conv", 2048, 512, 49)]
+# how often each junction occurs in one ResNet-50 v1 step (3/4/6/3
+# bottlenecks; the first block of a stage has no deferred ReLU before it)
+CONV_COUNTS = (3, 4, 6, 3, 2, 3, 5, 2)
 B_RESNET, IMG_RESNET = 128, 224
 
 # ----------------------------------------------------------- mx.rtc (phase 7)
@@ -538,7 +544,8 @@ def library_backward_ms(torch, q, k, v, bias, do, scale, causal, rate,
 
 # ------------------------------------------------------------------ phase 2
 def print_ptxas(kname, log_path) -> None:
-    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output."""
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output,
+    and ptxas's notes of lost performance (serialized wgmma)."""
     if not log_path.exists():
         return
     entries, cur = {}, None
@@ -549,6 +556,8 @@ def print_ptxas(kname, log_path) -> None:
             entries.setdefault(cur, {})
         elif cur and "spill stores" in line:
             entries[cur]["spills"] = line.strip()
+        elif "Performance Loss" in line:
+            print(f"phase 2: {kname}: {line.strip()}", flush=True)
         elif cur and "Used" in line and "registers" in line:
             entries[cur]["regs"] = re.search(r"Used (\d+) registers",
                                              line).group(1)
@@ -964,6 +973,10 @@ def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None):
         lim = REL_CONV[dtn][name]
         if r > lim:
             fail(f"{label}: {name} relative error {r:.3e} > {lim}")
+        if name == "conv1x1_dgrad" and relu:
+            dgrad_mask_check(torch, cf, label, case, got, want)
+        if name == "conv1x1_wgrad" and timed and not torch.equal(got, kern()):
+            fail(f"{label}: wgrad differs from run to run")
         errs[name] = max(errs.get(name, 0.0),
                          (got.float() - want.float()).abs().max().item())
         parts.append(f"{name.split('_')[1]} {r:.2e}")
@@ -983,23 +996,76 @@ def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None):
     return rows
 
 
+def dgrad_mask_check(torch, cf, label, case, got, want):
+    """dgrad's ReLU mask against the plain mask ``x * scale + shift > 0``,
+    bit for bit: with W and dy all ones every sum is Co, exact in f32, so
+    the kernel must give exactly Co where the mask keeps and 0 where it
+    does not. On the random operands the output must be 0 wherever the
+    mask is 0; where it keeps, a sum of exact products can be exactly 0 in
+    one order of summation and not in another, so such zeros are counted
+    and printed with the plain version's values there."""
+    x, w, dy, scale, shift, _ = case
+    keep = cf._prologue(x, scale, shift, False) > 0
+    ones = cf._dgrad(x, scale, shift, torch.ones_like(w), torch.ones_like(dy),
+                     True)
+    torch.cuda.synchronize()
+    bad = int((ones != keep.float() * w.shape[0]).sum())
+    off = int((~keep & (got != 0)).sum())
+    if bad or off:
+        fail(f"{label}: dgrad's ReLU mask differs from the plain version's: "
+             f"{bad} elements with W = dy = 1, {off} non-zero where the "
+             "mask is 0")
+    zeros = keep & (got == 0)
+    nz = int(zeros.sum())
+    there = (f" (|plain| there at most {want[zeros].abs().max().item():.3e}, "
+             f"largest |plain| {want.abs().max().item():.3e})") if nz else ""
+    print(f"phase 3: dgrad {label}: ReLU mask = plain mask bit for bit over "
+          f"{keep.numel()} elements ({keep.float().mean().item():.4f} kept); "
+          f"kept sums exactly 0 on random operands: {nz}{there}", flush=True)
+
+
+def conv_step_totals(per_junction):
+    """Per-step totals of each conv kernel: the junction rows weighted by
+    how often each junction occurs in one ResNet-50 v1 step."""
+    for name in CONV_KERNELS:
+        tot = {}
+        for key in ("ms", "library_ms", "bound_ms"):
+            vals = [r[name][key] for r in per_junction]
+            tot[key] = None if None in vals else sum(
+                c * v for c, v in zip(CONV_COUNTS, vals))
+        print(f"phase 3: {name} per ResNet-50 step (junctions weighted "
+              f"{'/'.join(map(str, CONV_COUNTS))}): kernel "
+              f"{fmt_ms(tot['ms'])}, cuDNN {fmt_ms(tot['library_ms'])}, "
+              f"bound {fmt_ms(tot['bound_ms'])}", flush=True)
+
+
 def conv_checks(torch, dev):
     """The conv kernels at ResNet-50's junctions and the edge cases."""
     from mxnet_tpu_torch.ops.cuda import conv_fused as cf
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs, rows = {}, {}
+    errs, rows, per_junction = {}, {}, []
     for kind, Ci, Co, M in CONV_JUNCTIONS:
         side = int(round(math.sqrt(M)))
         affine = kind == "triple"
         label = (f"bf16 {kind} N={B_RESNET} {Ci}->{Co} M={M} "
                  f"({'affine' if affine else 'relu-only'}, bias)")
+        for k in ("dgrad", "wgrad"):
+            plan = cf.conv1x1_plan(k, B_RESNET, Ci, Co, M, torch.bfloat16)
+            print(f"phase 3: {k} plan {label}: {plan['mode']} (vec "
+                  f"{plan['vec']}, W {plan['wvec']}), tile {plan['tile']} "
+                  f"x {plan['bk']} deep, {plan['tiles']} tiles x "
+                  f"{plan['splits']} splits = {plan['blocks']} blocks, "
+                  f"{plan['steps']} steps a block, {plan['slots']} ring "
+                  "slots", flush=True)
         case = conv_case(torch, dev, gen, B_RESNET, Ci, Co, M,
                          torch.bfloat16, affine, True)
         got = conv_check(torch, cf, label, case, True, errs, timed=True,
                          hw=(side, side))
+        per_junction.append(got)
         if (kind, Ci, Co, M) == CONV_JUNCTIONS[0]:
             rows = got          # the result line's row: the stage-1 triple
         del case
+    conv_step_totals(per_junction)
     for kind, Ci, Co, M in CONV_JUNCTIONS:
         affine = kind != "triple"     # the other variant, without bias
         conv_check(torch, cf, f"f32 N=8 {Ci}->{Co} M={M} "
@@ -1060,8 +1126,8 @@ def reset_counts(mod) -> None:
 # kernel-name patterns (re.search) of each group of a breakdown
 ATTN_GROUPS = {"flash forward": r"flash_fwd", "flash backward": r"bwd_"}
 CONV_GROUPS = {"conv1x1 fwd": r"(?<!flash_)fwd_(mma<|f32\b)",
-               "conv1x1 dgrad": r"dgrad_(mma<|f32\b)",
-               "conv1x1 wgrad": r"wgrad_(mma<|f32\b|reduce<)"}
+               "conv1x1 dgrad": r"dgrad_(rows<|runs<|f32\b)",
+               "conv1x1 wgrad": r"wgrad_(rows<|runs<|f32\b|reduce<)"}
 
 
 def device_breakdown(prof, wall_ms, label, groups=None):

@@ -19,15 +19,16 @@ Routing: a tensor on the CPU takes the plain versions
 :func:`conv1x1_wgrad_reference`); a CUDA tensor launches the kernels or
 raises :class:`MXNetError`. Nothing falls back. Each launch adds one to its
 kernel's entry in :data:`launches`. The JAX package's ``fusion_profitable``
-(a TPU traffic rule) and block chooser have no counterpart: the kernels tile
-by 64 whatever the shape. wgrad's split partial sums are added in a fixed
-order, so dW is the same from run to run. The fp16 kernels round f(x) to
-fp16 for wgrad, where the JAX kernel keeps it in f32.
+(a TPU traffic rule) and block chooser have no counterpart: the Hopper
+kernels tile by the plan of :func:`conv1x1_plan`, a pure function of the
+shape, the dtype and the operands' alignment. wgrad's split partial sums
+are added in a fixed order, so dW is the same from run to run. The fp16
+kernels round f(x) to fp16 for wgrad, where the JAX kernel keeps it in
+f32.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from typing import Optional
 
@@ -37,7 +38,7 @@ from ...base import MXNetError
 
 __all__ = ["fused_prologue_conv1x1", "conv1x1_fwd_reference",
            "conv1x1_dgrad_reference", "conv1x1_wgrad_reference",
-           "wgrad_splits", "launches", "KERNELS"]
+           "conv1x1_plan", "launches", "KERNELS"]
 
 KERNELS = ("conv1x1_fwd", "conv1x1_dgrad", "conv1x1_wgrad")
 # per-kernel launch counters: +1 per kernel launch, nowhere else
@@ -46,9 +47,18 @@ _COUNT_LOCK = threading.Lock()
 _FNS = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE = 64
-# wgrad splits its N*M reduction until about this many blocks are in
-# flight: four per SM of an H100's 132
+# the f32 wgrad splits its N*M reduction until about this many blocks are
+# in flight: four per SM of an H100's 132
 _WGRAD_BLOCKS = 4 * 132
+SMS = 132                    # an H100's streaming multiprocessors
+# the 16-bit dgrad / wgrad (csrc/conv_fused.cu, namespace wg): 128 x 128
+# output tiles, 64 deep a step; wgrad's runs keep as many image slots as
+# fit beside its barriers and two 16 KB tiles (the C entry derives the
+# shared memory from the plan and refuses a plan that does not fit);
+# wgrad splits its reduction until about two blocks per SM are in flight
+_WG_TILE, _WG_BK, _TILE_BYTES = 128, 64, 128 * 64 * 2
+_BARS, _MAX_SLOTS, SMEM_MAX = 256, 16, 232448
+_WGRAD_TARGET = 2 * SMS
 
 
 # ---------------------------------------------------------- plain versions
@@ -104,10 +114,10 @@ def _kernel(name: str):
         fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     elif name == "conv1x1_dgrad":
         fn = lib.mxt_conv1x1_dgrad
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     else:
         fn = lib.mxt_conv1x1_wgrad
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     _FNS[name] = fn
     return fn
@@ -167,15 +177,83 @@ def _run(name, *args, device) -> None:
         launches[name] += 1
 
 
-def wgrad_splits(N: int, Ci: int, Co: int, M: int, dtype) -> int:
-    """Blocks along wgrad's N*M reduction: enough for about
-    ``_WGRAD_BLOCKS`` blocks in all, never more than the reduction has
-    steps (32 positions a step, 16 in f32). Fixed by the shape, so the sum
-    order is too."""
-    step = 16 if dtype == torch.float32 else 32
-    steps = N * math.ceil(M / step)
-    tiles = math.ceil(Co / _TILE) * math.ceil(Ci / _TILE)
-    return max(1, min(steps, math.ceil(_WGRAD_BLOCKS / tiles), 65535))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align(*ts) -> int:
+    """The largest power of two up to 16 that divides every tensor's
+    address."""
+    a = 16
+    for t in ts:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def conv1x1_plan(kind: str, N: int, Ci: int, Co: int, M: int, dtype,
+                 align: int = 16) -> dict:
+    """How the ``dgrad`` or ``wgrad`` kernel runs at a shape: a pure
+    function of the shape, the dtype and ``align`` (the largest power of
+    two up to 16 dividing the operands' addresses), so the split of wgrad's
+    reduction, and with it the order of its sums, is too.
+
+    16-bit keys: ``mode`` how x and dy reach shared memory, ``rows16`` /
+    ``rows8`` (16- / 8-byte cp.async of rows whose length is a multiple of
+    8 / 4 elements), ``runs`` (cp.async.bulk of each image's contiguous
+    channel-tile run, 8 <= M < 64 not a multiple of 4) or ``general`` (element
+    loads, any shape); ``vec`` / ``wvec`` elements per copy of x and dy /
+    of W; ``tile`` (rows, columns) of the output per block, ``bk`` the
+    contraction per step; wgrad's ``splits`` blocks along the reduction,
+    ``per`` images each, ``slots`` images in its ring (runs); ``tiles``,
+    ``blocks`` (tiles x splits) and ``steps`` (contraction steps of a
+    block). dgrad's output tile runs along ci and the flattened
+    N*M axis, wgrad's along co and ci. f32 (``mode`` ``f32``): the FMA
+    kernels' 64 x 64 tiles; wgrad's splits in steps of 16 positions."""
+    if kind not in ("dgrad", "wgrad"):
+        raise MXNetError(f"conv1x1_plan: kind must be dgrad or wgrad, not "
+                         f"{kind!r}")
+    if dtype == torch.float32:
+        plan = dict(kind=kind, mode="f32", vec=1, wvec=1, tile=(64, 64),
+                    bk=16, splits=1, per=0, slots=0)
+        if kind == "dgrad":
+            plan["tiles"] = _cdiv(M, 64) * _cdiv(Ci, 64) * N
+            plan["steps"] = _cdiv(Co, 16)
+        else:
+            steps = N * _cdiv(M, 16)
+            plan["tiles"] = _cdiv(Co, 64) * _cdiv(Ci, 64)
+            splits = max(1, min(steps, _cdiv(_WGRAD_BLOCKS, plan["tiles"]),
+                                65535))
+            plan.update(splits=splits, per=_cdiv(steps, splits),
+                        steps=_cdiv(steps, splits))
+        plan["blocks"] = plan["tiles"] * plan["splits"]
+        return plan
+    vec = 8 if M % 8 == 0 and align >= 16 else \
+        4 if M % 4 == 0 and align >= 8 else 1
+    wvec = 8 if Ci % 8 == 0 and align >= 16 else \
+        4 if Ci % 4 == 0 and align >= 8 else 1
+    mode = {8: "rows16", 4: "rows8", 1: "general"}[vec]
+    slots = 0
+    if vec == 1 and align >= 16 and Ci % 8 == 0 and Co % 8 == 0 and \
+            8 <= M < 64:
+        slots = min(_MAX_SLOTS,
+                    (SMEM_MAX - _BARS - 2 * _TILE_BYTES) // (512 * M))
+        if kind == "dgrad" or slots >= _cdiv(_WG_BK - 1, M) + 3:
+            mode = "runs"
+    if mode != "runs" or kind == "dgrad":
+        slots = 0
+    plan = dict(kind=kind, mode=mode, vec=vec, wvec=wvec,
+                tile=(_WG_TILE, _WG_TILE), bk=_WG_BK, slots=slots)
+    if kind == "dgrad":
+        plan.update(splits=1, per=0, steps=_cdiv(Co, _WG_BK),
+                    tiles=_cdiv(N * M, _WG_TILE) * _cdiv(Ci, _WG_TILE))
+    else:
+        tiles = _cdiv(Co, _WG_TILE) * _cdiv(Ci, _WG_TILE)
+        per = _cdiv(N, max(1, min(N, _cdiv(_WGRAD_TARGET, tiles))))
+        plan.update(splits=_cdiv(N, per), per=per,
+                    steps=_cdiv(per * M, _WG_BK), tiles=tiles)
+    plan["blocks"] = plan["tiles"] * plan["splits"]
+    return plan
 
 
 def _fwd(x3, scale, shift, w, relu: bool, bias=None):
@@ -193,10 +271,12 @@ def _dgrad(x3, scale, shift, w, dy3, relu: bool):
     if not x3.is_cuda:
         return conv1x1_dgrad_reference(x3, scale, shift, w, dy3, relu)
     N, Ci, Co, M = _check_operands(x3, w, dy3, scale, shift)
+    plan = conv1x1_plan("dgrad", N, Ci, Co, M, x3.dtype, _align(x3, w, dy3))
     da = torch.empty((N, Ci, M), dtype=torch.float32, device=x3.device)
     _run("conv1x1_dgrad", _DTYPE_CODE[x3.dtype], x3.data_ptr(), w.data_ptr(),
          dy3.data_ptr(), _ptr(scale), _ptr(shift), da.data_ptr(), N, Ci, Co,
-         M, int(relu), _vec(w, Ci), _vec(dy3, M), device=x3.device)
+         M, int(relu), int(plan["mode"] == "runs"), plan["vec"],
+         plan["wvec"], device=x3.device)
     return da
 
 
@@ -207,13 +287,15 @@ def _wgrad(x3, scale, shift, dy3, relu: bool, out_dtype):
     if out_dtype != x3.dtype:
         raise MXNetError(f"conv1x1: wgrad writes x's dtype {x3.dtype}, not "
                          f"{out_dtype}")
-    splits = wgrad_splits(N, Ci, Co, M, x3.dtype)
-    ws = torch.empty((splits, Co, Ci), dtype=torch.float32, device=x3.device)
+    plan = conv1x1_plan("wgrad", N, Ci, Co, M, x3.dtype, _align(x3, dy3))
+    ws = torch.empty((plan["splits"], Co, Ci), dtype=torch.float32,
+                     device=x3.device)
     dw = torch.empty((Co, Ci), dtype=out_dtype, device=x3.device)
     _run("conv1x1_wgrad", _DTYPE_CODE[x3.dtype], x3.data_ptr(),
          dy3.data_ptr(), _ptr(scale), _ptr(shift), dw.data_ptr(),
-         ws.data_ptr(), N, Ci, Co, M, int(relu), _vec(x3, M), _vec(dy3, M),
-         splits, device=x3.device)
+         ws.data_ptr(), N, Ci, Co, M, int(relu), int(plan["mode"] == "runs"),
+         plan["vec"], plan["splits"], plan["per"], plan["slots"],
+         device=x3.device)
     return dw
 
 

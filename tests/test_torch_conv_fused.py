@@ -197,19 +197,206 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(y.detach().reshape(2, 8, 9), want)
 
 
-@pytest.mark.parametrize("ci,co,m", [(64, 256, 3136), (128, 512, 784),
-                                     (256, 1024, 196), (512, 2048, 49),
-                                     (256, 64, 3136), (512, 128, 784),
-                                     (1024, 256, 196), (2048, 512, 49)])
-def test_wgrad_splits_fill_the_card(ci, co, m):
-    """At ResNet-50's b128 junctions wgrad's split count puts about 528
-    blocks in flight (never more splits than reduction steps), and is a
-    pure function of the shape, so the partial sums add in one order."""
+# ResNet-50's eight 1x1 junctions at batch 128 (Ci, Co, M), then ragged ones
+JUNCTIONS = [(64, 256, 3136), (128, 512, 784), (256, 1024, 196),
+             (512, 2048, 49), (256, 64, 3136), (512, 128, 784),
+             (1024, 256, 196), (2048, 512, 49)]
+SHAPES = [(128,) + j for j in JUNCTIONS] + [(3, 45, 77, 53), (2, 72, 40, 4100)]
+
+
+@pytest.mark.parametrize("ci,co,m", JUNCTIONS)
+def test_plan_fills_the_card_with_async_copies(ci, co, m):
+    """At every b128 junction both 16-bit kernels put at least 132 blocks
+    in flight, stage by async copies (16- or 8-byte cp.async of aligned
+    rows, or cp.async.bulk of whole runs at M=49), and are planned by a
+    pure function of the shape."""
     n = 128
-    tiles = -(-co // 64) * -(-ci // 64)
-    for dtype, step in ((torch.bfloat16, 32), (torch.float32, 16)):
-        s = cf.wgrad_splits(n, ci, co, m, dtype)
-        assert s == cf.wgrad_splits(n, ci, co, m, dtype)
-        assert 1 <= s <= n * -(-m // step)
-        assert s * tiles >= min(528, n * -(-m // step) * tiles)
-        assert (s - 1) * tiles < 528
+    for kind in ("dgrad", "wgrad"):
+        for dtype in (torch.bfloat16, torch.float16):
+            plan = cf.conv1x1_plan(kind, n, ci, co, m, dtype)
+            assert plan == cf.conv1x1_plan(kind, n, ci, co, m, dtype)
+            assert plan["mode"] == ("rows16" if m % 8 == 0 else
+                                    "rows8" if m % 4 == 0 else "runs")
+            assert plan["blocks"] >= cf.SMS
+            assert plan["tile"] == (128, 128) and plan["bk"] == 64
+        if kind == "wgrad":
+            # whole images per split, every split non-empty
+            assert plan["splits"] * plan["per"] >= n
+            assert (plan["splits"] - 1) * plan["per"] < n
+
+
+@pytest.mark.parametrize("shape,mode", [((3, 45, 77, 53), "general"),
+                                        ((2, 72, 40, 4100), "rows8"),
+                                        ((2, 64, 72, 67), "general")])
+def test_plan_of_ragged_shapes(shape, mode):
+    """Channels that are not multiples of 8 and rows that are not 8-byte
+    aligned take the general path (element loads) in the same kernels;
+    M=4100's rows are 8 bytes aligned and take 8-byte copies. An operand
+    address that is not 16-byte aligned sends every junction to it."""
+    for kind in ("dgrad", "wgrad"):
+        assert cf.conv1x1_plan(kind, *shape, torch.bfloat16)["mode"] == mode
+        for j in JUNCTIONS:
+            assert cf.conv1x1_plan(kind, 128, *j, torch.bfloat16,
+                                   align=2)["mode"] == "general"
+
+
+def _k_groups():
+    """wgrad's K-major tile: thread group i -> (row, k chunk, 16-byte
+    unit), as conv_fused.cu's k_row / k_chunk."""
+    i = onp.arange(1024)
+    r, kc = (i >> 6) * 8 + (i & 7), (i >> 3) & 7
+    return r, kc, kc * 128 + r
+
+
+def _mn_groups():
+    """dgrad's MN-major tile: group i -> (k row, MN chunk, unit), as
+    mn_k / mn_chunk / mn_unit."""
+    i = onp.arange(1024)
+    k, mc = (i >> 7) * 8 + (i & 7), (i >> 3) & 15
+    return k, mc, (k >> 3) * 128 + mc * 8 + (k & 7)
+
+
+def _load8(C, M, c, p, pb):
+    """load8's element offsets into a (., C, M) tensor for channel c and
+    positions p .. p + 7 (arrays broadcast), and which are read."""
+    q = p[..., None] + onp.arange(8)
+    ok = (c[..., None] < C) & (q < pb)
+    n = q // M
+    return (n * C + c[..., None]) * M + (q - n * M), ok
+
+
+@pytest.mark.parametrize("N,Ci,Co,M", SHAPES)
+def test_wgrad_walk_covers_each_position_once(N, Ci, Co, M):
+    """A walk of the wgrad kernel's index arithmetic: the 1024 groups of a
+    tile fill its 1024 units once; over the splits and their 64-position
+    steps every (n, m) of the reduction is read once per row, at the
+    offset of (n, c, m); in runs mode the ring holds each image in its slot
+    when a step reads it, waited with the parity of that fill."""
+    plan = cf.conv1x1_plan("wgrad", N, Ci, Co, M, torch.bfloat16)
+    r, kc, unit = _k_groups()
+    assert sorted(unit) == list(range(1024))
+    assert sorted(zip(r, kc)) == [(a, b) for a in range(128) for b in range(8)]
+    seen = onp.zeros(N * M, onp.int64)
+    c = onp.array([Ci - 1])           # the last row of the tensor
+    for s in range(plan["splits"]):
+        na, nb = s * plan["per"], min(N, (s + 1) * plan["per"])
+        pa, pb = na * M, nb * M
+        steps = -(-(pb - pa) // 64)
+        assert steps <= plan["steps"]
+        p = pa + 64 * onp.arange(steps)[:, None] + 8 * onp.arange(8)
+        off, ok = _load8(Ci, M, c, p, pb)
+        q = (p[..., None] + onp.arange(8))[ok]
+        onp.add.at(seen, q, 1)
+        n, m = q // M, q % M
+        assert (off[ok] == (n * Ci + Ci - 1) * M + m).all()
+        if plan["mode"] == "runs":
+            _walk_ring(plan["slots"], nb - na, M, steps)
+    assert (seen == 1).all()
+
+
+def _walk_ring(S, nimg, M, steps):
+    """wgrad_runs' ring of S image slots, as its loop issues and waits."""
+    slot, fills = [None] * S, [0] * S
+    def issue(n):
+        slot[n % S] = n
+        fills[n % S] += 1
+    issued, waited = min(S, nimg), 0
+    for n in range(issued):
+        issue(n)
+    P = nimg * M
+    for t in range(steps):
+        p0 = 64 * t
+        hi = min(P - 1, p0 + 63) // M
+        while waited <= hi:
+            assert waited < issued and slot[waited % S] == waited
+            assert (fills[waited % S] - 1) % 2 == (waited // S) & 1
+            waited += 1
+        for p in range(p0, min(P, p0 + 64)):
+            assert slot[(p // M) % S] == p // M
+        lo = min(P, p0 + 64) // M
+        while issued < nimg and issued < lo + S:
+            issue(issued)
+            issued += 1
+
+
+@pytest.mark.parametrize("N,Ci,Co,M", SHAPES)
+def test_dgrad_walk_covers_each_output_once(N, Ci, Co, M):
+    """A walk of the dgrad kernel's index arithmetic: the tile's groups
+    fill its units once; the tiles along the flattened N*M axis and along
+    ci, and the epilogue's accumulator positions, cover each output
+    element once; W and dy are read at the offsets of their elements; in
+    runs mode every staged run stays inside its stage."""
+    plan = cf.conv1x1_plan("dgrad", N, Ci, Co, M, torch.bfloat16)
+    k, mc, unit = _mn_groups()
+    assert sorted(unit) == list(range(1024))
+    NM = N * M
+    qtiles, citiles = -(-NM // 128), -(-Ci // 128)
+    assert plan["tiles"] == qtiles * citiles
+    # the epilogue: rows 64 w + 16 warp + g + 8 h, columns 8 j + 2 t4 + e
+    w, warp, g, h = onp.meshgrid(*map(onp.arange, (2, 4, 8, 2)),
+                                 indexing="ij")
+    rows = (64 * w + 16 * warp + g + 8 * h).ravel()
+    j, t4, e = onp.meshgrid(*map(onp.arange, (16, 4, 2)), indexing="ij")
+    cols = (8 * j + 2 * t4 + e).ravel()
+    assert sorted(rows) == list(range(128)) == sorted(cols)
+    ci = (128 * onp.arange(citiles)[:, None] + rows).ravel()
+    assert onp.bincount(ci[ci < Ci], minlength=Ci).tolist() == [1] * Ci
+    q = (128 * onp.arange(qtiles)[:, None] + cols).ravel()
+    assert (onp.bincount(q[q < NM], minlength=NM) == 1).all()
+    # the loaders: W^T as (1, Co, Ci), dy along positions, every step
+    for t in range(plan["steps"]):
+        co = 64 * t + k
+        off, ok = _load8(Co, Ci, co, onp.zeros_like(k) + 8 * mc, Ci)
+        ci_ = 8 * mc[:, None] + onp.arange(8)
+        assert (off[ok] == (co[:, None] * Ci + ci_)[ok]).all()
+    q0 = 128 * onp.arange(qtiles)
+    p = q0[:, None] + 8 * mc
+    off, ok = _load8(Co, M, onp.broadcast_to(k, p.shape) + 0, p, NM)
+    qq = p[..., None] + onp.arange(8)
+    assert (off[ok] == (((qq // M) * Co + k[None, :, None]) * M
+                        + qq % M)[ok]).all()
+    if plan["mode"] == "runs":
+        img = 1 + -(-127 // M)
+        n_first = q0 // M
+        n_last = onp.minimum(NM - 1, q0 + 127) // M
+        assert (n_last - n_first + 1 <= img).all()
+        # repack_mn reads run (n - n_first) at row k, column m
+        li = qq // M - n_first[:, None, None]
+        idx = li * 64 * M + k[None, :, None] * M + qq % M
+        assert (idx[qq < NM] < img * 64 * M).all() and (li >= 0).all()
+        # the epilogue's x runs: 128 rows per image in the same stages
+        assert img * 128 * M <= 4 * img * 64 * M
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_split_partials_in_plan_order_match_the_plain_sum(dtype):
+    """dW as the kernels form it: each split's partial sum over its share
+    of the reduction (whole images in the 16-bit plan, 16-position steps
+    in the f32 plan), the partials then added in split order, in f32,
+    against conv1x1_wgrad_reference."""
+    N, Ci, Co, M = 7, 24, 40, 50
+    x, _, dy, s, t, _ = _case(13, N, Ci, Co, M, True)
+    h = cf._prologue(_t(x), _t(s), _t(t), True)
+    d = _t(dy)
+    plan = cf.conv1x1_plan("wgrad", N, Ci, Co, M, dtype)
+    if dtype == torch.float32:
+        spn = -(-M // 16)
+        steps = [(n, m0) for n in range(N) for m0 in range(0, M, 16)]
+        assert len(steps) == N * spn
+        shares = [steps[i * plan["per"]:(i + 1) * plan["per"]]
+                  for i in range(plan["splits"])]
+    else:
+        shares = [[(n, 0) for n in range(i * plan["per"],
+                                         min(N, (i + 1) * plan["per"]))]
+                  for i in range(plan["splits"])]
+    total = torch.zeros(Co, Ci)
+    for share in shares:
+        part = torch.zeros(Co, Ci)
+        for n, m0 in share:
+            m1 = m0 + 16 if dtype == torch.float32 else M
+            part += d[n, :, m0:m1] @ h[n, :, m0:m1].t()
+        total += part
+    want = cf.conv1x1_wgrad_reference(_t(x), _t(s), _t(t), d, True,
+                                      torch.float32)
+    onp.testing.assert_allclose(total.numpy(), want.numpy(), rtol=1e-5,
+                                atol=1e-5)

@@ -331,6 +331,66 @@ def test_conv_kernels_match_plain(dev, dtype, Ci, Co, M, affine, relu, bias):
             f"{k}: {_rel(got[k], want[k]):.3e}"
 
 
+def _backward_match(x, w, dy, s, t, relu, dtype):
+    """dgrad and wgrad on the card against their plain versions at the
+    bf16 limits (fp16 has more mantissa bits than bf16)."""
+    before = dict(cf.launches)
+    got = {"dgrad": cf._dgrad(x, s, t, w, dy, relu),
+           "wgrad": cf._wgrad(x, s, t, dy, relu, dtype)}
+    torch.cuda.synchronize()
+    assert {k: cf.launches[f"conv1x1_{k}"] - before[f"conv1x1_{k}"]
+            for k in got} == {"dgrad": 1, "wgrad": 1}
+    want = {"dgrad": cf.conv1x1_dgrad_reference(x, s, t, w, dy, relu),
+            "wgrad": cf.conv1x1_wgrad_reference(x, s, t, dy, relu, dtype)}
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.isfinite(got[k]).all()
+        lim = CONV_REL[torch.bfloat16][k]
+        assert _rel(got[k], want[k]) <= lim, f"{k}: {_rel(got[k], want[k]):.3e}"
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("Ci,Co,M", [(256, 1024, 196), (512, 2048, 49),
+                                     (1024, 256, 196), (2048, 512, 49)])
+def test_conv_backward_kernels_at_resnet_batch(dev, dtype, Ci, Co, M):
+    """dgrad and wgrad at N=128 on the junctions whose rows are not 16-byte
+    aligned (M=196: the 8-byte cp.async path; M=49: cp.async.bulk runs)."""
+    affine = Ci < Co
+    x, w, dy, s, t, _ = _conv_case(dev, dtype, 128, Ci, Co, M, affine, False)
+    mode = cf.conv1x1_plan("dgrad", 128, Ci, Co, M, dtype)["mode"]
+    assert mode == ("rows8" if M == 196 else "runs")
+    _backward_match(x, w, dy, s, t, True, dtype)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("N,Ci,Co,M,mode", [
+    (3, 64, 128, 50, "runs"),          # 4-byte rows
+    (2, 64, 72, 67, "general"),        # 2-byte rows, M > 64
+    (5, 48, 40, 12, "rows8"),          # 8-byte rows
+    (4, 72, 136, 23, "runs"),          # runs with ragged channel tiles
+    (3, 45, 77, 53, "general"),        # channels not multiples of 8
+    (2, 130, 24, 64, "rows16")])       # a second channel tile of 2
+def test_conv_backward_kernels_on_every_staging_path(dev, dtype, N, Ci, Co,
+                                                     M, mode):
+    x, w, dy, s, t, _ = _conv_case(dev, dtype, N, Ci, Co, M, True, False)
+    assert cf.conv1x1_plan("wgrad", N, Ci, Co, M, dtype)["mode"] == mode
+    for relu in (True, False):
+        _backward_match(x, w, dy, s, t, relu, dtype)
+
+
+def test_conv_backward_kernels_take_an_unaligned_x(dev):
+    """x a contiguous slice at an odd storage offset: the general path."""
+    N, Ci, Co, M = 2, 64, 128, 196
+    x, w, dy, s, t, _ = _conv_case(dev, torch.bfloat16, N, Ci, Co, M, True,
+                                   False)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xu = flat[1:].view(N, Ci, M)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    assert cf.conv1x1_plan("dgrad", N, Ci, Co, M, x.dtype,
+                           cf._align(xu, w, dy))["mode"] == "general"
+    _backward_match(xu, w, dy, s, t, True, torch.bfloat16)
+
+
 def test_conv_dgrad_mask_is_the_plain_mask(dev):
     """Where x * scale + shift is exactly 0 the ReLU mask is 0, as
     jnp.where(a > 0, ...) gives; dgrad equals the plain version there."""
@@ -343,8 +403,25 @@ def test_conv_dgrad_mask_is_the_plain_mask(dev):
     assert _rel(da, want) <= 1e-4
 
 
-def test_conv_wgrad_is_the_same_from_run_to_run(dev):
-    x, _, dy, s, t, _ = _conv_case(dev, torch.bfloat16, 16, 64, 256, 3136,
+@pytest.mark.parametrize("N,Ci,Co,M", [(2, 64, 256, 3136), (2, 128, 64, 784),
+                                       (4, 256, 128, 196), (8, 128, 256, 49),
+                                       (3, 45, 77, 53)])
+def test_conv_dgrad_mask_is_bit_exact_on_every_staging_path(dev, N, Ci, Co,
+                                                            M):
+    """With W = dy = 1 every kept sum is Co, exact in f32: dgrad must give
+    Co * [x * scale + shift > 0] to the bit (rows16, rows8, runs, general)."""
+    x, w, dy, s, t, _ = _conv_case(dev, torch.bfloat16, N, Ci, Co, M, True,
+                                   False)
+    da = cf._dgrad(x, s, t, torch.ones_like(w), torch.ones_like(dy), True)
+    keep = cf._prologue(x, s, t, False) > 0
+    assert torch.equal(da, keep.float() * Co)
+
+
+@pytest.mark.parametrize("N,Ci,Co,M", [(16, 64, 256, 3136),
+                                       (128, 256, 1024, 196),
+                                       (128, 512, 2048, 49)])
+def test_conv_wgrad_is_the_same_from_run_to_run(dev, N, Ci, Co, M):
+    x, _, dy, s, t, _ = _conv_case(dev, torch.bfloat16, N, Ci, Co, M,
                                    True, False)
     a = cf._wgrad(x, s, t, dy, True, torch.bfloat16)
     b = cf._wgrad(x, s, t, dy, True, torch.bfloat16)
