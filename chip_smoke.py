@@ -4,16 +4,23 @@
     python3 chip_smoke.py                  # every phase, one GPU
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernel checks)
     python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
+    python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. device: the card's name and ``nvidia-smi`` name and power limit;
+1. device: the card's name and ``nvidia-smi`` name and power limit, and
+   MXNet's ``Dense(...).initialize()`` with no arguments landing on
+   ``cuda:0``;
 2. build: every CUDA source of the port from ``mxnet_tpu_torch/csrc``, one
    ``nvcc`` each, all started together; registers and spills per kernel;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the served and the trained BERT-base give it: the forward with
-   and without dropout (its dropout mask read back and compared bit for
-   bit), the fused backward, the two-pass dq/dkv pair (at the training
+   shapes the served and the trained BERT-base give it: the forward at
+   head dims 64, 128 and 256, ragged and cross-length (Tq != Tk) shapes,
+   causal, each bias broadcast, bf16, fp16 and f32, the fused-QKV strided
+   layout and one layout TMA cannot address (its operands copied and
+   counted), with and without dropout (its dropout mask read back and
+   compared bit for bit in bf16, fp16 and f32), timed by device time
+   beside the mma.sync kernel it replaced; the fused backward, the two-pass dq/dkv pair (at the training
    shape and at T=2048 causal), a learned (1, H, T, T) bias with its
    reduced gradient, f32 for each, and fused against two-pass on the same
    inputs; each timed with CUDA events beside its bound, its plain version
@@ -25,19 +32,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    compared bit for bit through a launch with W = dy = 1, wgrad run twice and compared to the bit, each
    junction's dgrad and wgrad plan printed, and the three kernels' totals
    per ResNet-50 step, the junctions weighted by how often they occur),
-   the same shapes in f32 at N=8 with the other affine/bias variant, a
-   ragged small shape with relu off, and an M > 4096 wgrad case;
+   the same shapes in f32 at N=8 with the other affine/bias variant, two
+   fp16 junctions (wgrad at the f32 limit: f(x) kept as two fp16 terms), a
+   ragged small shape with relu off, and an M > 4096 wgrad case; with
+   ``--probe-fwd``, the flash forward against builds of it with the
+   softmax, the copies or the P V product cut out;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
    length buckets: 16 concurrent requests; the forward kernel must launch
-   12 times per executed batch, and answers must match the same weights
-   run in f32 on the CPU through the plain path;
+   12 times per executed batch with no operand copied for TMA, and answers
+   must match the same weights run in f32 on the CPU through the plain
+   path;
 5. BERT-base MLM training through ``autograd.record`` / ``backward`` /
    ``Trainer.step`` with AdamW (multi-precision), bf16, B=8, T=512, 76
    masked positions, dropout 0.1: 10 steps on the fused backward, then 2
    with ``MXNET_FLASH_BLOCK_K=256`` on the two-pass pair; every step must
    launch the forward kernel 12 times and the backward kernels 12 times
-   each, and the loss must fall; step time, tokens/s and a profiler
+   each, no operand may be copied for TMA, and the loss must fall; step time, tokens/s and a profiler
    breakdown; then one f32 step on the card against the same step on the
    CPU (plain path);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
@@ -115,6 +126,10 @@ TOL_TRAIN_GRAD_REL = 1e-3
 # (wgrad sums up to N*M = 401,408 products per output)
 REL_CONV = {"bfloat16": {"conv1x1_fwd": 1e-2, "conv1x1_dgrad": 1e-4,
                          "conv1x1_wgrad": 1e-2},
+            # fp16 wgrad carries f(x) as fp16 hi + lo, about f32, like
+            # the JAX kernel's f32 f(x); fwd rounds f(x) once as bf16 does
+            "float16": {"conv1x1_fwd": 1e-2, "conv1x1_dgrad": 1e-4,
+                        "conv1x1_wgrad": 1e-4},
             "float32": {"conv1x1_fwd": 1e-5, "conv1x1_dgrad": 1e-5,
                         "conv1x1_wgrad": 1e-4}}
 # phase 6: eval-mode ResNet-50 logits in bf16, fused against unfused on the
@@ -154,6 +169,14 @@ KERNEL_INFO = {
                       "mxnet_tpu/ops/pallas/conv_fused.py:306"),
 }
 ATTN_KERNELS = tuple(KERNEL_INFO)[:4]
+# the mma.sync forward this redesign replaced, at the same shapes (PERF.md
+# section 6, row 1, PRs 1-2): printed beside the new kernel's times
+OLD_FWD_MS = {"bf16 T=512 key-padding": 0.1247,
+              "bf16 T=512 key-padding dropout 0.1": 0.1527}
+# --probe-fwd: the forward rebuilt with one part cut out
+FWD_CUTS = {"softmax cut": "MXT_FWD_CUT=1", "copies cut": "MXT_FWD_CUT=2",
+            "P.V cut": "MXT_FWD_CUT=3"}
+FWD_KERNEL = r"flash_fwd_(wgmma|f32)"   # the forward's kernel names
 CONV_KERNELS = tuple(KERNEL_INFO)[4:]
 # BERT-base attention at the trained and served shapes
 B_MAIN, H, D, T_MAIN = 8, 12, 64, 512
@@ -398,16 +421,38 @@ def device_ms(fn, iters: int = 10):
     device time. A library call such as ``torch.autograd.grad`` spends
     more time dispatching on the host than its kernels take, so
     back-to-back CUDA events would time the host."""
+    fn()
+    return profiled_ms(fn, iters, lambda name: True)
+
+
+def profiled_ms(fn, iters, keep):
+    """Device time per call of ``fn``'s kernels whose names ``keep``
+    accepts, summed by torch.profiler over ``iters`` calls; a session that
+    records no device time (one in ~20 does) is repeated once; None when
+    both record none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    total = sum(kernel_times(prof).values())
-    return total / iters if total > 0 else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(v for k, v in kernel_times(prof).items() if keep(k))
+        if total > 0:
+            return total / iters
+    return None
+
+
+def kernel_ms(fn, pattern: str, iters: int = 20):
+    """Device time per call of the kernels of ``fn`` whose names match
+    ``pattern`` (re.search), summed by torch.profiler over ``iters``
+    calls after a warm-up; None when the profiler saw none. Unlike CUDA
+    events over back-to-back calls this does not read the host's launch
+    path when that is slower than the kernel."""
+    for _ in range(3):
+        fn()
+    return profiled_ms(fn, iters, lambda name: re.search(pattern, name))
 
 
 def kernel_times(prof):
@@ -493,12 +538,12 @@ def rel_np(got, want) -> float:
                  / max(float(np.linalg.norm(want)), 1e-30))
 
 
-def qkv_views(torch, dev, B, T, dt, gen):
-    """q, k, v as (B, H, T, D) views of one (B, T, 3 * H * D) tensor, the
+def qkv_views(torch, dev, B, T, dt, gen, d=D):
+    """q, k, v as (B, H, T, d) views of one (B, T, 3 * H * d) tensor, the
     layout BERT's fused projection gives the kernels."""
-    qkv = torch.randn((B, T, 3 * H * D), generator=gen).to(dev, dt)
-    return tuple(t.reshape(B, T, H, D).transpose(1, 2)
-                 for t in qkv.split(H * D, dim=-1))
+    qkv = torch.randn((B, T, 3 * H * d), generator=gen).to(dev, dt)
+    return tuple(t.reshape(B, T, H, d).transpose(1, 2)
+                 for t in qkv.split(H * d, dim=-1))
 
 
 def keypad_bias(torch, dev, valid, T, dt):
@@ -577,86 +622,191 @@ def print_ptxas(kname, log_path) -> None:
 
 
 # ------------------------------------------------------------------ phase 3
+def fwd_inputs(torch, dev, gen, c):
+    """q, k, v (B, H, T, D) of a forward case: views of one fused
+    (B, T, 3 H D) projection, BERT's layout (the default), or separate
+    contiguous tensors with Tq = ``T`` != Tk (``cross``)."""
+    B, T, d, dt = c["B"], c["T"], c.get("D", D), c["dt"]
+    if c.get("cross"):
+        return tuple(torch.randn((B, H, t, d), generator=gen).to(dev, dt)
+                     for t in (T, c["Tk"], c["Tk"]))
+    return qkv_views(torch, dev, B, T, dt, gen, d)
+
+
+def fwd_bias(torch, dev, gen, c, Tq, Tk, valid):
+    """None, the key-padding bias of ``valid``, or a random f32 bias
+    broadcast as (B|1, H|1, Tq|1, Tk) by the case's (batch, head, query)
+    flags."""
+    kind = c.get("bias")
+    if kind is None:
+        return None
+    if kind == "keypad":
+        return keypad_bias(torch, dev, valid, Tk, c["dt"])
+    b, h, q = kind
+    shape = (c["B"] if b else 1, H if h else 1, Tq if q else 1, Tk)
+    return torch.randn(shape, generator=gen).to(dev, c["dt"])
+
+
 def forward_checks(torch, dev, gen, attn):
-    """Forward kernel against its plain version; dropout mask read back."""
+    """Forward kernel against its plain version at every head dim, ragged
+    and cross-length shapes, causal, each bias broadcast, dropout, bf16,
+    fp16 and f32, the fused-QKV strided layout and one layout TMA cannot
+    address (its operands copied, counted); timed at the served and
+    trained shapes. Dropout masks read back bit for bit."""
     import torch.nn.functional as F
+    bf, fp, f32 = torch.bfloat16, torch.float16, torch.float32
+    main = dict(T=512, B=B_MAIN, causal=False, bias="keypad", rate=0.0,
+                timed=True)
     cases = [
-        dict(name="bf16 T=128 key-padding", T=128, dt=torch.bfloat16,
-             causal=False, bias="keypad", B=B_MAIN, rate=0.0),
-        dict(name="bf16 T=512 key-padding", T=512, dt=torch.bfloat16,
-             causal=False, bias="keypad", B=B_MAIN, rate=0.0),
-        dict(name="bf16 T=250 causal ragged", T=250, dt=torch.bfloat16,
-             causal=True, bias=None, B=B_MAIN, rate=0.0),
-        dict(name="f32 T=200 full bias", T=200, dt=torch.float32,
-             causal=False, bias="full", B=2, rate=0.0),
-        dict(name="bf16 T=512 key-padding dropout 0.1", T=512,
-             dt=torch.bfloat16, causal=False, bias="keypad", B=B_MAIN,
+        dict(main, name="bf16 T=512 key-padding", dt=bf),
+        dict(main, name="bf16 T=512 key-padding dropout 0.1", dt=bf,
              rate=0.1),
-        dict(name="f32 T=512 key-padding dropout 0.1", T=512,
-             dt=torch.float32, causal=False, bias="keypad", B=2, rate=0.1),
+        dict(main, name="fp16 T=512 key-padding", dt=fp),
+        dict(main, name="bf16 T=128 key-padding", dt=bf, T=128),
+        dict(main, name="bf16 D=128 T=512 key-padding", dt=bf, D=128),
+        dict(main, name="bf16 D=256 T=512 key-padding", dt=bf, D=256),
+        dict(name="bf16 T=250 causal ragged", T=250, dt=bf, causal=True,
+             B=B_MAIN),
+        dict(name="fp16 D=256 T=300 causal dropout 0.1", T=300, D=256,
+             dt=fp, causal=True, B=2, rate=0.1),
+        dict(name="bf16 D=128 Tq=77 Tk=333 cross key-padding", T=77,
+             Tk=333, cross=True, D=128, dt=bf, B=2, bias="keypad"),
+        dict(name="fp16 D=40 Tq=200 Tk=131 cross causal", T=200, Tk=131,
+             cross=True, D=40, dt=fp, B=2, causal=True),
+        dict(name="bf16 D=36 T=100 key-padding (padded copies)", T=100,
+             D=36, dt=bf, B=2, bias="keypad", copies=3),
+        dict(name="f32 T=200 full bias", T=200, dt=f32,
+             bias=(False, True, True), B=2),
+        dict(name="f32 T=512 key-padding dropout 0.1", T=512, dt=f32,
+             bias="keypad", B=2, rate=0.1),
+        dict(name="f32 D=256 T=100 causal", T=100, D=256, dt=f32, B=2,
+             causal=True),
     ]
+    for flags in ((False, False, False), (True, False, False),
+                  (False, True, False), (True, True, False),
+                  (False, False, True), (True, False, True),
+                  (False, True, True), (True, True, True)):
+        shape = "x".join(n if f else "1" for n, f in zip("BHT", flags))
+        cases.append(dict(name=f"bf16 T=200 bias ({shape}, T)", T=200, dt=bf,
+                          B=2, bias=flags))
     res, worst = {}, 0.0
     seed = torch.tensor([20240, -17], dtype=torch.int32, device=dev)
     for c in cases:
         Bc, T, dt = c["B"], c["T"], c["dt"]
-        valid = [T, T // 2, T // 3, 1, T - 7, T // 4, 17, T][:Bc] \
-            if c["bias"] == "keypad" else [T] * Bc
-        qh, kh, vh = qkv_views(torch, dev, Bc, T, dt, gen)
-        bias = None
-        if c["bias"] == "keypad":
-            bias = keypad_bias(torch, dev, valid, T, dt)
-        elif c["bias"] == "full":
-            bias = torch.randn((1, H, T, T), generator=gen).to(dev, dt)
-        rate = c["rate"]
+        d, Tk = c.get("D", D), c.get("Tk", T)
+        causal, rate = c.get("causal", False), c.get("rate", 0.0)
+        valid = [Tk, Tk // 2, Tk // 3, 1, Tk - 7, Tk // 4, 17, Tk][:Bc] \
+            if c.get("bias") == "keypad" else [Tk] * Bc
+        qh, kh, vh = fwd_inputs(torch, dev, gen, c)
+        bias = fwd_bias(torch, dev, gen, c, T, Tk, valid)
         sd = seed if rate > 0 else None
-        scale = 1.0 / math.sqrt(D)
-        before = dict(attn.launches)
-        out, lse = attn._flash_forward(qh, kh, vh, bias, scale, c["causal"],
+        scale = 1.0 / math.sqrt(d)
+        before = (attn.launches["flash_attention_fwd"], attn.padded_copies)
+        out, lse = attn._flash_forward(qh, kh, vh, bias, scale, causal,
                                        sd, rate)
         out_bthd = attn.flash_attention(
             qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
-            scale=scale, causal=c["causal"], bias=bias, dropout=rate,
+            scale=scale, causal=causal, bias=bias, dropout=rate,
             dropout_seed=sd)
         torch.cuda.synchronize()
-        moved = attn.launches["flash_attention_fwd"] - \
-            before["flash_attention_fwd"]
+        moved = attn.launches["flash_attention_fwd"] - before[0]
         if moved != 2:
             fail(f"{c['name']}: forward counter moved by {moved}, expected 2")
+        copies = attn.padded_copies - before[1]
+        if copies != 2 * c.get("copies", 0):
+            fail(f"{c['name']}: {copies} padded copies, expected "
+                 f"{2 * c.get('copies', 0)}")
         ref, ref_lse = attn.flash_attention_reference(
-            qh.float(), kh.float(), vh.float(), bias, scale, c["causal"],
-            sd, rate)
-        tol = TOL_F32 if dt == torch.float32 else TOL_HALF
+            qh.float(), kh.float(), vh.float(), bias, scale, causal, sd,
+            rate)
+        tol = TOL_F32 if dt == f32 else TOL_HALF
         err = check_close(c["name"], "out", out, ref, tol)
         check_close(c["name"], "out (B,T,H,D)", out_bthd.transpose(1, 2),
                     ref, tol)
         check_close(c["name"], "lse", lse, ref_lse, TOL_LSE)
         worst = max(worst, err)
-        ms = cuda_time_ms(lambda: attn._flash_forward(
-            qh, kh, vh, bias, scale, c["causal"], sd, rate))
+        if not c.get("timed"):
+            note = f", {copies} padded copies" if copies else ""
+            print(f"phase 3: forward {c['name']}: max abs err {err:.3e} "
+                  f"(out), lse ok{note}", flush=True)
+            continue
+        def call():
+            return attn._flash_forward(qh, kh, vh, bias, scale, causal, sd,
+                                       rate)
+        ms = kernel_ms(call, FWD_KERNEL)
+        host_ms = cuda_time_ms(call, iters=100)
         plain_ms = cuda_time_ms(lambda: attn.flash_attention_reference(
-            qh, kh, vh, bias, scale, c["causal"], sd, rate))
+            qh, kh, vh, bias, scale, causal, sd, rate))
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias, scale=scale, is_causal=c["causal"],
+            qh, kh, vh, attn_mask=bias, scale=scale, is_causal=causal,
             dropout_p=rate))
         dtn = str(dt).split(".")[-1]
-        bnd, by = attention_bound_ms(Bc, H, T, D, valid, dtn,
-                                     dt.itemsize, c["causal"], bias)
+        bnd, by = attention_bound_ms(Bc, H, T, d, valid, dtn, dt.itemsize,
+                                     causal, bias)
+        old = OLD_FWD_MS.get(c["name"])
         print(f"phase 3: forward {c['name']}: max abs err {err:.3e} (out), "
-              f"lse ok; kernel {ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms, sdpa {fmt_ms(lib_ms)} (device)", flush=True)
+              f"lse ok; kernel {fmt_ms(ms)} (device)"
+              f"{f' [PRs 1-2 mma.sync kernel: {old} ms]' if old else ''}, "
+              f"{host_ms:.4f} ms a call back to back (CUDA events: the "
+              f"host's launch path), bound {bnd:.6f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, sdpa {fmt_ms(lib_ms)} (device)",
+              flush=True)
         if c["name"] == "bf16 T=512 key-padding":
             # the served path's shape: the kernel's row of the result line
             res = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bnd, bound_by=by)
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (bf, fp, f32):
         dropout_mask_probe(torch, dev, attn, dt, seed)
     res["max_abs_err"] = worst
     return res
 
 
+def forward_probe(torch, dev, attn):
+    """Where the forward's time goes (``--probe-fwd``): the kernel rebuilt
+    with its softmax, its copies after the first ring of stages, or its
+    P V product cut out (``-DMXT_FWD_CUT=1/2/3``, wrong results), timed
+    in turns with the full kernel at the served shape, with and without
+    dropout. Variant launches are not counted."""
+    import ctypes
+    from mxnet_tpu_torch import _kernels
+    argtypes = attn._kernel("flash_attention_fwd").argtypes
+    fns = {}
+    for label, define in FWD_CUTS.items():
+        fn = _kernels.load("flash_attention_fwd",
+                           (define,)).mxt_flash_attention_fwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[label] = fn
+    gen = torch.Generator().manual_seed(7)
+    T = T_MAIN
+    valid = [T, T // 2, T // 3, 1, T - 7, T // 4, 17, T]
+    seed = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    for dt in (torch.bfloat16,):
+        qh, kh, vh = qkv_views(torch, dev, B_MAIN, T, dt, gen)
+        bias = keypad_bias(torch, dev, valid, T, dt)
+        out = torch.empty((B_MAIN, T, H, D), dtype=dt,
+                          device=dev).transpose(1, 2)
+        lse = torch.empty((B_MAIN, H, T, 1), device=dev)
+        for rate in (0.0, 0.1):
+            sd = seed if rate > 0 else None
+
+            def run(fn):
+                return lambda: attn._launch_fwd(qh, kh, vh, bias, sd, rate,
+                                                out, lse, 0.125, False, fn)
+            times = [("full", kernel_ms(run(None), FWD_KERNEL))]
+            times += [(k, kernel_ms(run(f), FWD_KERNEL))
+                      for k, f in fns.items()]
+            times.append(("full again", kernel_ms(run(None), FWD_KERNEL)))
+            print(f"phase 3: probe forward B={B_MAIN} H={H} T={T} D={D} "
+                  f"{str(dt).split('.')[-1]} key-padding dropout {rate} "
+                  "(device time a launch): "
+                  + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times)
+                  + f"; card: {smi_line()}", flush=True)
+
+
 def dropout_mask_probe(torch, dev, attn, dt, seed, rate=0.1):
     """Read the forward kernel's dropout mask back bit for bit: with q = k
-    = 0 every unmasked key has p = 1/128, and v = one-hot(key % 128) puts
+    = 0 every unmasked key has p = 1/128, and v = one-hot(key % 128) (head
+    dim 128) puts
     key j's kept-or-dropped probability alone into column j % 128. A
     key-padding bias leaves 128 keys unmasked per call; four calls cover
     512 keys. The mask must equal dropout_keep_reference's exactly."""
@@ -1072,6 +1222,10 @@ def conv_checks(torch, dev):
                    f"({'affine' if affine else 'relu-only'}, no bias)",
                    conv_case(torch, dev, gen, 8, Ci, Co, M, torch.float32,
                              affine, False), True, errs)
+    for Ci, Co, M in ((64, 256, 3136), (512, 2048, 49)):
+        conv_check(torch, cf, f"fp16 N={B_RESNET} {Ci}->{Co} M={M} (affine, "
+                   "bias)", conv_case(torch, dev, gen, B_RESNET, Ci, Co, M,
+                                      torch.float16, True, True), True, errs)
     for dt in (torch.bfloat16, torch.float32):
         dtn = str(dt).split(".")[-1]
         conv_check(torch, cf, f"{dtn} ragged N=3 45->77 M=53 (affine, "
@@ -1121,6 +1275,8 @@ def random_bert_params(block, seed: int):
 def reset_counts(mod) -> None:
     for name in mod.KERNELS:
         mod.launches[name] = 0
+    if hasattr(mod, "padded_copies"):
+        mod.padded_copies = 0
 
 
 # kernel-name patterns (re.search) of each group of a breakdown
@@ -1258,6 +1414,9 @@ def phase_bert(torch, dev):
              "batches; expected 12 per batch")
     if any(counts[n] for n in attn.KERNELS[1:]):
         fail(f"serving launched a backward kernel: {counts}")
+    if attn.padded_copies:
+        fail(f"serving copied {attn.padded_copies} attention operands that "
+             "TMA could not address; expected none")
     for (tok, L), res in zip(samples, results):
         seq, pooled = res
         if seq.shape != (L, 768) or pooled.shape != (768,) \
@@ -1287,7 +1446,8 @@ def phase_bert(torch, dev):
     p99 = lat_ms[min(len(lat_ms) - 1, int(math.ceil(0.99 * len(lat_ms))) - 1)]
     print(f"phase 4: {len(samples)} requests in {wall:.3f} s "
           f"({len(samples) / wall:.2f} req/s), {batches} batches, "
-          f"{launches} forward launches, latency p50 {p50:.1f} ms p99 "
+          f"{launches} forward launches (0 padded copies), latency p50 "
+          f"{p50:.1f} ms p99 "
           f"{p99:.1f} ms; {len(check)} answers vs CPU f32: worst relative "
           f"error {worst:.3e}; card: {smi_line()}", flush=True)
     return counts
@@ -1379,6 +1539,9 @@ def phase_train(torch, dev):
             losses[route].append(lval)
     os.environ.pop("MXNET_FLASH_BLOCK_K", None)
     counts = dict(attn.launches)            # ... and ends here
+    if attn.padded_copies:
+        fail(f"training copied {attn.padded_copies} attention operands that "
+             "TMA could not address; expected none")
     first, last = losses["fused"][0], losses["fused"][-1]
     if not last < first:
         fail(f"the loss did not fall over 10 steps: {losses['fused']}")
@@ -1387,7 +1550,8 @@ def phase_train(torch, dev):
     print(f"phase 5: losses (fused) {[round(x, 4) for x in losses['fused']]}"
           f", (two-pass) {[round(x, 4) for x in losses['two-pass']]}",
           flush=True)
-    print(f"phase 5: launches in the training run {counts}", flush=True)
+    print(f"phase 5: launches in the training run {counts}, 0 padded "
+          "copies", flush=True)
     print(f"phase 5: step {fused_ms:.3f} ms (mean of steps 3-10, host "
           f"clock to synchronize), {B * T / fused_ms * 1e3:.0f} tokens/s "
           f"({valid_tokens / fused_ms * 1e3:.0f} valid tokens/s); two-pass "
@@ -1461,14 +1625,14 @@ def train_parity(torch, dev, params, cfg):
         before = dict(attn.launches)
         loss = train_step(torch, autograd, net, SoftmaxCrossEntropyLoss(),
                           trainer, [x.to(where) for x in batch])
-        grads = {k: p.grad.detach().cpu() for k, p in
+        grads = {k: p.grad().detach().cpu() for k, p in
                  net.collect_params().items()}
         moved = attn.launches["flash_attention_bwd_fused"] - \
             before["flash_attention_bwd_fused"]
         if (where != "cpu") != (moved == 12):
             fail(f"parity step on {where}: {moved} fused backward launches")
         out[str(where)] = (loss.detach().cpu(), grads,
-                           {k: p.detach().cpu() for k, p in
+                           {k: p.data().detach().cpu() for k, p in
                             net.collect_params().items()})
     (lc, gc, wc), (lg, gg, wg) = out["cpu"], out[str(dev)]
     loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
@@ -1582,7 +1746,7 @@ def phase_resnet(torch, dev):
     x = torch.from_numpy(rng.uniform(-1, 1, (B, 3, IMG_RESNET, IMG_RESNET))
                          .astype(np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.randint(0, 1000, (B,)).astype(np.int64)).to(dev)
-    n_params = sum(p.numel() for k, p in net.collect_params().items()
+    n_params = sum(p.data().numel() for p in net.collect_params().values()
                    if p.grad_req != "null")
     print(f"phase 6: ResNet-50 v1 bf16 on {dev} built in "
           f"{time.perf_counter() - t0:.1f} s ({n_params} trained "
@@ -1723,7 +1887,7 @@ def resnet_parity(torch, dev):
         if moved != {k: (0 if where == "cpu" else 28) for k in CONV_KERNELS}:
             fail(f"f32 parity step on {where}: conv launches {moved}")
         return (loss.detach().cpu(),
-                {k: p.grad.detach().cpu().double() for k, p in
+                {k: p.grad().detach().cpu().double() for k, p in
                  net.collect_params().items() if p.grad_req != "null"})
 
     out = {"cpu": step("cpu"), "card": step(dev), "f64": step("cpu", True)}
@@ -2116,11 +2280,28 @@ def phase_rtc(torch, dev):
     return rows, counts
 
 
+def initialize_check(torch) -> None:
+    """Phase 1: MXNet's ``initialize()`` with no arguments puts a block's
+    parameters on the current context, ``cuda:0``."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.Dense(4, in_units=3)
+    net.initialize()
+    where = {str(p.data().device) for p in net.collect_params().values()}
+    if where != {"cuda:0"}:
+        fail(f"Dense(4, in_units=3).initialize() put its parameters on "
+             f"{where}, not cuda:0")
+    print("phase 1: Dense(4, in_units=3).initialize() with no arguments "
+          "put its parameters on cuda:0", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "rtc"], default=None,
                     help="kernels: stop after the kernel checks (phases "
                     "1-3); rtc: phases 1 and 7 only")
+    ap.add_argument("--probe-fwd", action="store_true",
+                    help="after phase 3, time the flash forward against "
+                    "builds of it with one part cut out")
     args = ap.parse_args()
 
     import torch
@@ -2141,21 +2322,27 @@ def main() -> int:
     print(f"phase 1: device {name}; nvidia-smi: {smi}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda:0")
+    initialize_check(torch)
 
     entries = []
     if args.only != "rtc":
         # phase 2
         t0 = time.perf_counter()
-        built = _kernels.build_all()
+        built = _kernels.build_all(variants=[
+            ("flash_attention_fwd", (d,)) for d in FWD_CUTS.values()]
+            if args.probe_fwd else ())
         print(f"phase 2: built {sorted(built)} in "
               f"{time.perf_counter() - t0:.1f} s "
               f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
               flush=True)
-        for kname in built:
+        for kname in _kernels.KERNEL_SOURCES:
             print_ptxas(kname, _kernels._target(kname).with_suffix(".log"))
 
         # phase 3
         rows = phase_kernels(torch, dev)
+        if args.probe_fwd:
+            from mxnet_tpu_torch.ops.cuda import attention as attn
+            forward_probe(torch, dev, attn)
 
         launches = {n: None for n in KERNEL_INFO}
         if args.only is None:

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root, named by a hash of its source,
 of every header in ``csrc/`` and of the flags (a changed source or header
-rebuilds, an unchanged one is reused), and loaded with ``ctypes``. Every C
+rebuilds, an unchanged one is reused), and loaded with ``ctypes``. A build
+may add preprocessor ``defines`` (``("MXT_FWD_CUT=1",)``): an experiment's
+variant, built and loaded beside the kernel, never instead of it. Every C
 entry returns ``cudaGetLastError()`` and the Python wrapper raises when it
 is not 0.
 
@@ -21,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Tuple
 
 from .base import MXNetError
 
@@ -50,34 +52,47 @@ def _nvcc() -> str:
                      "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _flags(defines: Tuple[str, ...] = ()) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _target(name: str, defines: Tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: List[str] = None) -> Dict[str, float]:
-    """Compile every kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns seconds per name (0.0 when the
+def _key(name: str, defines: Tuple[str, ...]) -> str:
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def build_all(names: List[str] = None,
+              variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()
+              ) -> Dict[str, float]:
+    """Compile every kernel that is not built yet, and each variant
+    ``(name, defines)``, one ``nvcc`` per library, all started together.
+    Returns seconds per name (``name[defines]`` for a variant; 0.0 when the
     library was already there); ``nvcc``'s output (``-Xptxas -v``:
     registers, shared memory, spills) lands beside each library as
     ``.log``. Raises if any build fails."""
-    names = list(names or KERNEL_SOURCES)
+    jobs = [(n, ()) for n in (KERNEL_SOURCES if names is None else names)]
+    jobs += [(n, tuple(d)) for n, d in variants]
     build_dir().mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     with _LOCK:
-        for name in names:
-            target = _target(name)
+        for name, defines in jobs:
+            key = _key(name, defines)
+            target = _target(name, defines)
             if target.exists():
-                out[name] = 0.0
+                out[key] = 0.0
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
+            procs[key] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, target, time.perf_counter())
         failed = []
@@ -94,17 +109,19 @@ def build_all(names: List[str] = None) -> Dict[str, float]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LOADED.get(name)
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built with ``defines``),
+    built first if needed."""
+    key = _key(name, tuple(defines))
+    lib = _LOADED.get(key)
     if lib is not None:
         return lib
-    target = _target(name)
+    target = _target(name, tuple(defines))
     if not target.exists():
-        build_all([name])
+        build_all([], [(name, tuple(defines))])
     with _LOCK:
-        lib = _LOADED.get(name)
+        lib = _LOADED.get(key)
         if lib is None:
             lib = ctypes.CDLL(str(target))
-            _LOADED[name] = lib
+            _LOADED[key] = lib
     return lib

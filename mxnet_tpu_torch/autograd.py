@@ -178,13 +178,15 @@ def backward(heads: Any, head_grads: Any = None, retain_graph: bool = False,
     grads = _head_grads(heads, head_grads)
     leaves = _leaves(heads)
     for p in leaves:
-        if getattr(p, "grad_req", "write") == "write" \
+        param = getattr(p, "_mx_param", None)   # a gluon Parameter's tensor
+        if (param is None or param.grad_req == "write") \
                 or _owner(p) is not None:
             p.grad = None
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
     for p in leaves:
-        if hasattr(p, "grad_req"):
-            p._fresh_grad = True
+        param = getattr(p, "_mx_param", None)
+        if param is not None:
+            param._fresh_grad = True
         owner = _owner(p)
         if owner is not None:
             owner._write_grad(p.grad)

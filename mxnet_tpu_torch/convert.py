@@ -38,7 +38,7 @@ def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
     ``dtype`` the parameters are also cast to it. Returns ``block``."""
     own = block.collect_params()
     rebuilt = [k for k, p in own.items()
-               if k not in params and not getattr(p, "persistent", True)]
+               if k not in params and not p.persistent]
     missing = sorted(set(own) - set(params) - set(rebuilt))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -50,15 +50,13 @@ def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
     if bad:
         raise MXNetError(f"load_jax_params: shape mismatch: {bad}")
     with torch.no_grad():
-        for k in rebuilt:
-            own[k].zero_()
-            own[k].initialized = True
         for k, p in own.items():
             if k in rebuilt:
-                continue
-            src = torch.from_numpy(_np.ascontiguousarray(
-                _np.asarray(params[k], dtype=_np.float32)))
-            p.copy_(src.to(device=p.device, dtype=p.dtype))
+                p.data().zero_()
+            else:
+                src = torch.from_numpy(_np.ascontiguousarray(
+                    _np.asarray(params[k], dtype=_np.float32)))
+                p.data().copy_(src.to(device=p.device, dtype=p.dtype))
             p.initialized = True
     if dtype is not None:
         block.to(to_torch_dtype(dtype))
@@ -68,5 +66,5 @@ def load_jax_params(block: Any, params: Dict[str, _np.ndarray],
 def export_params(block: Any) -> Dict[str, _np.ndarray]:
     """``{name: f32 numpy array}`` of every parameter of ``block``, keyed
     by the names :func:`load_jax_params` takes."""
-    return {k: p.detach().float().cpu().numpy()
+    return {k: p.data().detach().float().cpu().numpy()
             for k, p in block.collect_params().items()}

@@ -612,6 +612,13 @@ __device__ __forceinline__ void load_mn_tile(uint16_t* tile,
   }
 }
 
+// wgrad's f(x) as two 16-bit terms, hi = T(f) and lo = T(f - hi), each
+// multiplied by dy into the same f32 sums: for fp16, whose dy is exact in
+// either product, this is the JAX kernel's f32 f(x) to about 2^-22; bf16
+// rounds f(x) once, as the JAX kernel does (its cd is bf16)
+template <typename T> struct SplitF { static constexpr bool value = false; };
+template <> struct SplitF<__half> { static constexpr bool value = true; };
+
 // f(x) for the four rows (channels c0 + k_row(tid + 256 j)) of a thread
 template <typename T>
 struct Prologue {
@@ -633,34 +640,50 @@ struct Prologue {
     if (affine) v = __fadd_rn(__fmul_rn(v, sc[j]), sh[j]);
     return (relu && v < 0.f) ? 0.f : v;
   }
-  // f of the two 16-bit values of a word, packed back; the first `left`
-  // of them are real, the rest stay 0 (not f(0))
-  __device__ __forceinline__ uint32_t f2(uint32_t w, int j, int left) const {
-    const uint32_t o = Half<T>::pack(f(w & 0xffffu, j), f(w >> 16, j));
-    return left >= 2 ? o : left == 1 ? (o & 0xffffu) : 0u;
+  // f of the two 16-bit values of a word, packed back, and into *lo the
+  // packed remainders f - hi (SplitF); the first `left` of them are real,
+  // the rest stay 0 (not f(0))
+  __device__ __forceinline__ uint32_t f2(uint32_t w, int j, int left,
+                                         uint32_t* lo = nullptr) const {
+    const float v0 = f(w & 0xffffu, j), v1 = f(w >> 16, j);
+    const uint32_t keep = left >= 2 ? 0xffffffffu : left == 1 ? 0xffffu : 0u;
+    const uint32_t o = Half<T>::pack(v0, v1);
+    if (SplitF<T>::value && lo != nullptr)
+      *lo = Half<T>::pack(v0 - to_f32<T>(o & 0xffffu),
+                          v1 - to_f32<T>(o >> 16)) & keep;
+    return o & keep;
   }
-  // in place over the x tile of a rows-mode stage; `left` positions of
-  // this thread's chunk are real, rows past C stay 0
-  __device__ __forceinline__ void apply(uint16_t* tile, int c0, int C,
-                                        int left) const {
+  // in place over the x tile of a rows-mode stage (with SplitF, the
+  // remainders into lo_tile at the same places); `left` positions of this
+  // thread's chunk are real, rows past C stay 0
+  __device__ __forceinline__ void apply(uint16_t* tile, uint16_t* lo_tile,
+                                        int c0, int C, int left) const {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = threadIdx.x + j * THREADS;
       const int r = k_row(i);
-      if (c0 + r >= C || left <= 0) continue;
-      uint4* u = reinterpret_cast<uint4*>(tile + (k_chunk(i) * ROWS + r) * 8);
+      const int at = (k_chunk(i) * ROWS + r) * 8;
+      uint4* u = reinterpret_cast<uint4*>(tile + at);
+      if (c0 + r >= C || left <= 0) {
+        if (lo_tile) *reinterpret_cast<uint4*>(lo_tile + at) = *u;  // zeros
+        continue;
+      }
       const uint4 v = *u;
-      *u = make_uint4(f2(v.x, j, left), f2(v.y, j, left - 2),
-                      f2(v.z, j, left - 4), f2(v.w, j, left - 6));
+      uint4 l = make_uint4(0u, 0u, 0u, 0u);
+      *u = make_uint4(f2(v.x, j, left, &l.x), f2(v.y, j, left - 2, &l.y),
+                      f2(v.z, j, left - 4, &l.z), f2(v.w, j, left - 6, &l.w));
+      if (lo_tile) *reinterpret_cast<uint4*>(lo_tile + at) = l;
     }
   }
 };
 
 // One step: this warpgroup's 64 rows of A (at a) times the 128-column B
-// tile (at b), four k16 wgmmas committed as one group.
-template <typename T, int TR>
+// tile (at b), and with SPLIT times a second B tile (at b2) into the same
+// sums; k16 wgmmas committed as one group.
+template <typename T, int TR, bool SPLIT = false>
 __device__ __forceinline__ void mma_step(float* acc, const uint16_t* a,
-                                         const uint16_t* b) {
+                                         const uint16_t* b,
+                                         const uint16_t* b2 = nullptr) {
   const uint32_t sa = hop::smem_u32(a), sb = hop::smem_u32(b);
   hop::fence_regs(acc, 64);
   hop::wgmma_fence();
@@ -668,6 +691,13 @@ __device__ __forceinline__ void mma_step(float* acc, const uint16_t* a,
   for (int s = 0; s < BK / 16; ++s)
     hop::wgmma_128<T, TR, TR>(acc, hop::desc(sa + s * 2 * LBO, LBO),
                               hop::desc(sb + s * 2 * LBO, LBO));
+  if (SPLIT) {
+    const uint32_t sb2 = hop::smem_u32(b2);
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s)
+      hop::wgmma_128<T, TR, TR>(acc, hop::desc(sa + s * 2 * LBO, LBO),
+                                hop::desc(sb2 + s * 2 * LBO, LBO));
+  }
   hop::wgmma_commit();
 }
 
@@ -715,6 +745,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 2) wgrad_rows(Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem);  // RING x (dy, x) tiles
+  uint16_t* lo_tile = ring + RING * 2 * TILE;  // SplitF: f(x) - hi
   const int ci0 = blockIdx.x * COLS, co0 = blockIdx.y * ROWS;
   const int split = blockIdx.z, wgi = threadIdx.x >> 7;
   const uint16_t* x = static_cast<const uint16_t*>(a.x);
@@ -724,7 +755,10 @@ __global__ void __launch_bounds__(THREADS, 2) wgrad_rows(Args a) {
   const unsigned pb = static_cast<unsigned>(nB) * a.M;
   const int steps = static_cast<int>((pb - pa + BK - 1) / BK);
   const Prologue<T> pro(a, ci0);
-  const bool apply = pro.affine || pro.relu;
+  // SplitF: always, so that every step writes its lo tile (zero when f is
+  // the identity) and the second product is issued unconditionally
+  const bool apply = pro.affine || pro.relu || SplitF<T>::value;
+  uint16_t* lo = SplitF<T>::value ? lo_tile : nullptr;
 
   float acc[64];
 #pragma unroll
@@ -753,11 +787,11 @@ __global__ void __launch_bounds__(THREADS, 2) wgrad_rows(Args a) {
     hop::cp_commit();
     uint16_t* st = ring + (t % RING) * 2 * TILE;
     if (apply) {
-      pro.apply(st + TILE, ci0, a.Ci, left0 - t * BK);
+      pro.apply(st + TILE, lo, ci0, a.Ci, left0 - t * BK);
       hop::fence_async_smem();
       __syncthreads();
     }
-    mma_step<T, 0>(acc, st + wgi * 64 * 8, st + TILE);
+    mma_step<T, 0, SplitF<T>::value>(acc, st + wgi * 64 * 8, st + TILE, lo);
     mma_done(acc);  // the slot is free for step t + 2's copies
   }
   wgrad_store(a, acc, split, co0, ci0);
@@ -771,14 +805,15 @@ template <typename T, bool PRO>
 __device__ __forceinline__ void repack_k(uint16_t* tile, const uint16_t* slots,
                                          int slot_el, int op, int S, int M,
                                          int rows, const Pos& at,
-                                         const Prologue<T>& pro) {
+                                         const Prologue<T>& pro,
+                                         uint16_t* lo_tile = nullptr) {
   const uint16_t* run0 = slots + (at.n % S) * slot_el + op;
   const uint16_t* run1 = slots + ((at.n + 1) % S) * slot_el + op - M;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int i = threadIdx.x + j * THREADS;
     const int r = k_row(i);
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    uint32_t w[4] = {0u, 0u, 0u, 0u}, lo[4] = {0u, 0u, 0u, 0u};
     if (r < rows && at.left > 0) {
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
@@ -787,13 +822,15 @@ __device__ __forceinline__ void repack_k(uint16_t* tile, const uint16_t* slots,
         const uint32_t v0 = (m0 < M ? run0 : run1)[r * M + m0];
         const uint32_t v1 =
             e + 1 < at.left ? (m1 < M ? run0 : run1)[r * M + m1] : 0u;
-        w[e / 2] = PRO ? Half<T>::pack(pro.f(v0, j), pro.f(v1, j))
+        w[e / 2] = PRO ? pro.f2(v0 | (v1 << 16), j, at.left - e, &lo[e / 2])
                        : v0 | (v1 << 16);
-        if (e + 1 >= at.left) w[e / 2] &= 0xffffu;  // not f(0)
       }
     }
-    *reinterpret_cast<uint4*>(tile + (k_chunk(i) * ROWS + r) * 8) =
-        make_uint4(w[0], w[1], w[2], w[3]);
+    const int u = (k_chunk(i) * ROWS + r) * 8;
+    *reinterpret_cast<uint4*>(tile + u) = make_uint4(w[0], w[1], w[2], w[3]);
+    if (lo_tile)
+      *reinterpret_cast<uint4*>(lo_tile + u) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -802,7 +839,9 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_runs(Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);            // one a slot
   uint16_t* canon = reinterpret_cast<uint16_t*>(smem + BARS);  // dy, x tiles
-  uint16_t* slots = canon + 2 * TILE;  // S x (x run, dy run), 128 x M each
+  uint16_t* lo_tile = canon + 2 * TILE;  // SplitF: f(x) - hi
+  // S x (x run, dy run), 128 x M each
+  uint16_t* slots = canon + (2 + SplitF<T>::value) * TILE;
   const int ci0 = blockIdx.x * COLS, co0 = blockIdx.y * ROWS;
   const int split = blockIdx.z, wgi = threadIdx.x >> 7;
   const int M = a.M, S = a.slots, slot_el = 2 * ROWS * M;
@@ -814,6 +853,7 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_runs(Args a) {
   const int rows_x = min(ROWS, a.Ci - ci0), rows_dy = min(ROWS, a.Co - co0);
   const uint32_t bytes_x = rows_x * M * 2, bytes_dy = rows_dy * M * 2;
   const Prologue<T> pro(a, ci0);
+  uint16_t* lo = SplitF<T>::value ? lo_tile : nullptr;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) hop::mbar_init(bar + s, 1);
@@ -846,7 +886,8 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_runs(Args a) {
     __syncthreads();  // wgmma t - 1, which read the tiles, is done
     repack_k<T, false>(canon, slots, slot_el, ROWS * M, S, M, rows_dy, rp,
                        pro);
-    repack_k<T, true>(canon + TILE, slots, slot_el, 0, S, M, rows_x, rp, pro);
+    repack_k<T, true>(canon + TILE, slots, slot_el, 0, S, M, rows_x, rp, pro,
+                      lo);
     rp.advance(BK, M);
     hop::fence_async_smem();
     __syncthreads();  // the repack is done: images before step t + 1's go
@@ -854,7 +895,8 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_runs(Args a) {
       const int lo = static_cast<int>(min(P, p0 + BK) / M);
       for (; issued < nimg && issued < lo + S; ++issued) issue(issued);
     }
-    mma_step<T, 0>(acc, canon + wgi * 64 * 8, canon + TILE);
+    mma_step<T, 0, SplitF<T>::value>(acc, canon + wgi * 64 * 8,
+                                     canon + TILE, lo);
     mma_done(acc);
   }
   wgrad_store(a, acc, split, co0, ci0);
@@ -1102,10 +1144,12 @@ __global__ void __launch_bounds__(THREADS, 1) dgrad_runs(Args a) {
 }
 
 // dynamic shared memory of each kernel; the only copy of this sum
-// (conv1x1_plan picks wgrad's slots, bad_plan checks that they fit)
-int smem_bytes(bool wgrad, bool runs, int M, int slots) {
-  if (!runs) return RING * 2 * TILE_BYTES;
-  if (wgrad) return BARS + 2 * TILE_BYTES + slots * 2 * ROWS * M * 2;
+// (conv1x1_plan picks wgrad's slots, bad_plan checks that they fit). lo:
+// the fp16 wgrad's tile of f(x) - hi.
+int smem_bytes(bool wgrad, bool runs, int M, int slots, bool lo = false) {
+  const int extra = wgrad && lo ? TILE_BYTES : 0;
+  if (!runs) return RING * 2 * TILE_BYTES + extra;
+  if (wgrad) return BARS + 2 * TILE_BYTES + extra + slots * 2 * ROWS * M * 2;
   const int img = 1 + (COLS - 1 + M - 1) / M;
   return BARS + (RUNS_RING + 1) * TILE_BYTES +
          RUNS_RING * img * BK * M * 2;
@@ -1179,7 +1223,7 @@ extern "C" int mxt_conv1x1_fwd(int dtype, const void* x, const void* w,
 // the 16-bit dgrad / wgrad plan's arguments: runs need the channel counts
 // and M that make each run 16-byte aligned; vec is 8, 4 or 1
 bool bad_plan(bool wgrad, int N, int Ci, int Co, int M, int runs, int vec,
-              int wvec, int slots) {
+              int wvec, int slots, bool lo = false) {
   if ((long long)N * M >= (1LL << 31) || (vec != 8 && vec != 4 && vec != 1) ||
       (wvec != 8 && wvec != 4 && wvec != 1) || (vec != 1 && M % vec) ||
       (wvec != 1 && Ci % wvec))
@@ -1189,7 +1233,7 @@ bool bad_plan(bool wgrad, int N, int Ci, int Co, int M, int runs, int vec,
   if (wgrad && (slots < 1 || slots > wg::MAX_SLOTS ||
                 slots < (wg::BK - 1 + M - 1) / M + 3))
     return true;
-  return wg::smem_bytes(wgrad, true, M, slots) > wg::SMEM_MAX;
+  return wg::smem_bytes(wgrad, true, M, slots, lo) > wg::SMEM_MAX;
 }
 
 // da (N, Ci, M) in f32. 16-bit: runs != 0 stages dy and x as whole runs
@@ -1258,12 +1302,12 @@ extern "C" int mxt_conv1x1_wgrad(int dtype, const void* x, const void* dy,
   }
   if ((dtype != 1 && dtype != 2) || per < 1 ||
       (long long)(splits - 1) * per >= N || (long long)splits * per < N ||
-      bad_plan(true, N, Ci, Co, M, runs, vec, 1, slots))
+      bad_plan(true, N, Ci, Co, M, runs, vec, 1, slots, dtype == 2))
     return static_cast<int>(cudaErrorInvalidValue);
   a.per = per; a.vec = vec; a.slots = slots;
   const dim3 grid((Ci + wg::COLS - 1) / wg::COLS,
                   (Co + wg::ROWS - 1) / wg::ROWS, splits);
-  const int smem = wg::smem_bytes(true, runs, M, slots);
+  const int smem = wg::smem_bytes(true, runs, M, slots, dtype == 2);
   if (dtype == 1) {
     e = runs ? wg::launch_dyn(wg::wgrad_runs<__nv_bfloat16>, grid, smem, a, st)
              : wg::launch_dyn(wg::wgrad_rows<__nv_bfloat16>, grid, smem, a, st);

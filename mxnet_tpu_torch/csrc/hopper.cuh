@@ -1,6 +1,9 @@
 // Hopper (sm_90a) building blocks: wgmma on shared-memory operands in the
 // canonical no-swizzle layout, mbarriers, 1-D bulk copies and the 8/16-byte
-// cp.async that zero-fills. Used by conv_fused.cu's dgrad and wgrad kernels.
+// cp.async that zero-fills, used by conv_fused.cu's dgrad and wgrad kernels;
+// and, for flash_attention_fwd.cu, wgmma on 128-byte-swizzled operands (B,
+// and A either swizzled or in registers), tensor (TMA) copies and named
+// barriers (the second half of this file).
 //
 // The operand layout ("INTERLEAVE", no swizzle): a tile of R rows along M
 // (or N) and 64 along K is stored as 8 x 8 core matrices of 128 contiguous
@@ -97,7 +100,6 @@ __device__ __forceinline__ void wgmma_128<__half, 1, 1>(float* d, uint64_t da,
   HOP_WGMMA_128("f16", "1", "1");
 }
 #undef HOP_WGMMA_128
-#undef HOP_D8
 
 // ---------------------------------------------------------------- mbarriers
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -161,6 +163,208 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------- 128-byte-swizzled tiles
+// What a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of rows of
+// 64 16-bit values (128 bytes), row r at byte r * 128 with its 16-byte
+// chunk c stored at chunk c ^ (r % 8); 8 rows (1024 bytes) make one swizzle
+// atom, and the tile starts on a 1024-byte boundary. Wider rows are cut
+// into 64-wide panels stored one after another.
+//
+// K-major operand (Q or K in S = Q K^T: rows along M or N, 64 k per row):
+// stride byte offset 1024 (the next 8 rows), leading byte offset unused;
+// the k16 step kk of a panel starts 32 * kk bytes in.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_kmajor_sw128(uint32_t addr) {
+  return desc_sw128(addr, 16, 1024);
+}
+// MN-major operand (V in O += P V: row = k, 64 n per row): stride byte
+// offset 1024 (the next 8 k), leading byte offset `panel_bytes` (the next 64
+// n); the k16 step kk starts 2048 * kk bytes in.
+__device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr,
+                                                       uint32_t panel_bytes) {
+  return desc_sw128(addr, panel_bytes, 1024);
+}
+
+#define HOP_WGMMA_RS_64(TY, TB)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31},"  \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, " TB ";\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24)  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define HOP_WGMMA_RS_128(TY, TB)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"  \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, " TB ";\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24), HOP_D8(32),  \
+      HOP_D8(40), HOP_D8(48), HOP_D8(56)  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define HOP_WGMMA_RS_256(TY, TB)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "  \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "  \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "  \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "  \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "  \
+      "%127},"  \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, " TB ";\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24), HOP_D8(32),  \
+      HOP_D8(40), HOP_D8(48), HOP_D8(56), HOP_D8(64), HOP_D8(72),  \
+      HOP_D8(80), HOP_D8(88), HOP_D8(96), HOP_D8(104), HOP_D8(112),  \
+      HOP_D8(120)  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+#define HOP_WGMMA_SS_64(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31},"  \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24)  \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define HOP_WGMMA_SS_128(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"  \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24), HOP_D8(32),  \
+      HOP_D8(40), HOP_D8(48), HOP_D8(56)  \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+// d (N / 2 f32 per thread: the m64nN accumulator of one warpgroup) +=
+// A (64 x 16, in registers: the m16n8k16 A fragment of each warp's 16 rows)
+// * B (16 x N, shared memory, descriptor db); TB: 0 K-major B, 1 MN-major.
+// scale_d = 0 overwrites d.
+template <typename T, int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db, int scale_d);
+// d (N / 2 f32 per thread) = / += A (64 x 16) * B (16 x N), both K-major
+// from shared memory.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+
+#define HOP_RS(TYPE, TY, N, TB)                                            \
+  template <>                                                              \
+  __device__ __forceinline__ void wgmma_rs<TYPE, N, TB>(                   \
+      float* d, const uint32_t* a, uint64_t db, int scale_d) {             \
+    HOP_WGMMA_RS_##N(TY, #TB);                                             \
+  }
+HOP_RS(__nv_bfloat16, "bf16", 64, 1)
+HOP_RS(__nv_bfloat16, "bf16", 128, 1)
+HOP_RS(__nv_bfloat16, "bf16", 256, 1)
+HOP_RS(__half, "f16", 64, 1)
+HOP_RS(__half, "f16", 128, 1)
+HOP_RS(__half, "f16", 256, 1)
+#undef HOP_RS
+#define HOP_SS(TYPE, TY, N)                                                \
+  template <>                                                              \
+  __device__ __forceinline__ void wgmma_ss<TYPE, N>(                       \
+      float* d, uint64_t da, uint64_t db, int scale_d) {                   \
+    HOP_WGMMA_SS_##N(TY);                                                  \
+  }
+HOP_SS(__nv_bfloat16, "bf16", 64)
+HOP_SS(__nv_bfloat16, "bf16", 128)
+HOP_SS(__half, "f16", 64)
+HOP_SS(__half, "f16", 128)
+#undef HOP_SS
+#undef HOP_WGMMA_RS_64
+#undef HOP_WGMMA_RS_128
+#undef HOP_WGMMA_RS_256
+#undef HOP_WGMMA_SS_64
+#undef HOP_WGMMA_SS_128
+#undef HOP_D8
+
+// ------------------------------------------------------------ tensor copies
+// plain arrival (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// 4-d tensor copy of one box of the tensor map `map` (a __grid_constant__
+// kernel parameter) at element coordinates (c0 innermost .. c3) into shared
+// memory, completing on `bar`; elements outside the tensor read as zero.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// the reverse: one box from shared memory to the tensor; elements outside
+// the tensor are not written. Completes in the thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `count` threads: wait
+// for all of them, or only arrive
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 2^x on the special-function unit (flushes subnormals to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace hop

@@ -77,7 +77,7 @@ class BERTEncoder(HybridBlock):
 
     def forward(self, x, mask=None):
         T = x.shape[1]
-        x = self.ln(x + self.position_weight[:T][None])
+        x = self.ln(x + self.position_weight.data()[:T][None])
         x = npx.dropout(x, self._dropout)
         return remat_stack(list(self.layers), x, mask, dropout=self._dropout)
 
@@ -140,8 +140,8 @@ class BERTModel(HybridBlock):
             gathered = npx.take_positions(seq, masked_positions)
             h = self.mlm_ln(npx.gelu(self.mlm_transform(gathered)))
             logits = torch.matmul(h.reshape(-1, self._units),
-                                  self.word_embed.weight.t())
-            logits = logits + self.mlm_bias
+                                  self.word_embed.weight.data().t())
+            logits = logits + self.mlm_bias.data()
             outputs.append(logits.reshape(gathered.shape[0],
                                           gathered.shape[1], -1))
         return tuple(outputs) if len(outputs) > 1 else outputs[0]

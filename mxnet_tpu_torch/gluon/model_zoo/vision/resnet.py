@@ -20,6 +20,7 @@ from typing import Any, List
 from ....base import MXNetError
 from ....context import as_device
 from ...block import HybridBlock, PreActivation
+from ...parameter import data_or_none
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 from ...nn.basic_layers import (_conv1x1_fusable, _has_hooks,
@@ -107,7 +108,8 @@ class BottleneckV1(HybridBlock):
             if (npx.conv_fusion_enabled() and _conv1x1_fusable(body[0])
                     and not _has_hooks(self.body)):
                 conv1 = body[0]
-                h = npx.relu_conv1x1(z, conv1.weight, conv1.bias)
+                h = npx.relu_conv1x1(z, conv1.weight.data(),
+                                     data_or_none(conv1.bias))
                 out = _sequential_forward(body[1:], h)
                 xin = None      # the activated input, made only if needed
             else:

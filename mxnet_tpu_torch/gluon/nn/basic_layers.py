@@ -15,7 +15,7 @@ import torch
 
 from ... import npx
 from ..block import HybridBlock
-from ..parameter import Parameter
+from ..parameter import Parameter, data_or_none
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
            "Embedding", "Flatten"]
@@ -123,7 +123,8 @@ class Dense(HybridBlock):
                               init=bias_initializer) if use_bias else None
 
     def forward(self, x):
-        out = npx.fully_connected(x, self.weight, self.bias,
+        out = npx.fully_connected(x, self.weight.data(),
+                                  data_or_none(self.bias),
                                   num_hidden=self._units,
                                   no_bias=self.bias is None,
                                   flatten=self._flatten)
@@ -159,8 +160,8 @@ class LayerNorm(HybridBlock):
                               init=beta_initializer)
 
     def forward(self, x):
-        return npx.layer_norm(x, self.gamma, self.beta, axis=self._axis,
-                              eps=self._epsilon)
+        return npx.layer_norm(x, self.gamma.data(), self.beta.data(),
+                              axis=self._axis, eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
@@ -176,7 +177,7 @@ class Embedding(HybridBlock):
                                 dtype=dtype, init=weight_initializer)
 
     def forward(self, x):
-        return npx.embedding(x, self.weight, input_dim=self._input_dim,
+        return npx.embedding(x, self.weight.data(), input_dim=self._input_dim,
                              output_dim=self._output_dim)
 
 
@@ -229,12 +230,17 @@ class BatchNorm(HybridBlock):
         """Is ``stat_shift`` still all zeros? Read from the device once and
         cached against the buffer's identity and version, so a load or a
         cast (which rewrite it) asks again."""
-        sh = self.stat_shift
+        sh = self.stat_shift.data()
         key = (sh.data_ptr(), sh._version)
         if self._virgin_for != key:
             self._virgin_for = key
             self._stats_virgin = not bool(sh.detach().any())
         return self._stats_virgin
+
+    def _tensors(self):
+        """gamma, beta, running_mean, running_var as tensors."""
+        return (self.gamma.data(), self.beta.data(),
+                self.running_mean.data(), self.running_var.data())
 
     def _pre(self) -> Tuple[bool, bool]:
         """(training, virgin-shift), shared by forward() and the fused path."""
@@ -245,11 +251,11 @@ class BatchNorm(HybridBlock):
     def forward(self, x):
         training, virgin = self._pre()
         out, batch_mean, batch_var = npx.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            eps=self._epsilon, momentum=self._momentum,
+            x, *self._tensors(), eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale, axis=self._axis,
             use_global_stats=self._use_global_stats,
-            stats="centered" if virgin else None, shift=self.stat_shift)
+            stats="centered" if virgin else None,
+            shift=self.stat_shift.data())
         self._post(training, batch_mean, batch_var)
         return out
 
@@ -259,11 +265,12 @@ class BatchNorm(HybridBlock):
         1x1 conv as one GEMM."""
         training, virgin = self._pre()
         out, batch_mean, batch_var = npx.batch_norm_relu_conv1x1(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
-            conv.weight, conv_bias=conv.bias, eps=self._epsilon,
+            x, *self._tensors(), conv.weight.data(),
+            conv_bias=data_or_none(conv.bias), eps=self._epsilon,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats,
-            stats="centered" if virgin else None, shift=self.stat_shift)
+            stats="centered" if virgin else None,
+            shift=self.stat_shift.data())
         self._post(training, batch_mean, batch_var)
         return out
 
@@ -272,7 +279,8 @@ class BatchNorm(HybridBlock):
         if not training:
             return
         m = self._momentum
-        rm, rv, sh = self.running_mean, self.running_var, self.stat_shift
+        rm, rv, sh = (p.data() for p in (self.running_mean, self.running_var,
+                                         self.stat_shift))
         rm.copy_(m * rm + (1 - m) * batch_mean.detach())
         rv.copy_(m * rv + (1 - m) * batch_var.detach())
         sh.copy_(batch_mean.detach().to(sh.dtype))

@@ -12,7 +12,7 @@ from typing import Any, Optional
 
 from ... import npx
 from ..block import HybridBlock
-from ..parameter import Parameter
+from ..parameter import Parameter, data_or_none
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
 
@@ -48,7 +48,8 @@ class _Conv(HybridBlock):
 
     def forward(self, x):
         out = npx.convolution(
-            x, self.weight, self.bias, kernel=self._kernel,
+            x, self.weight.data(), data_or_none(self.bias),
+            kernel=self._kernel,
             stride=self._strides, dilate=self._dilation, pad=self._padding,
             num_filter=self._channels, num_group=self._groups,
             no_bias=self.bias is None, layout=self._layout)

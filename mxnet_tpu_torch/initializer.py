@@ -3,8 +3,11 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (``Initializer``, ``Zero``,
 ``One``, ``Uniform``, ``Normal``, ``Xavier``, the string registry). The
 JAX package draws from its global threefry stream; here every draw takes
-the caller's generator. Values are drawn on the CPU and then moved, so a
-seed gives the same weights on every device.
+the caller's generator, on that generator's device, and is then moved to
+the parameter's device: a CPU generator gives the same weights whatever the
+parameter's device; the framework generator of a device
+(:func:`mxnet_tpu_torch.random.generator`, ``Block.initialize``'s default)
+draws there.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def get(name: Any) -> "Initializer":
 
 class Initializer:
     """Base initializer; subclasses implement ``_init(shape, generator)``
-    returning a float32 CPU tensor."""
+    returning a float32 tensor on the generator's device."""
 
     def __call__(self, shape, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32,
@@ -79,7 +82,8 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init(self, shape, generator):
-        return (torch.rand(shape, generator=generator) * 2 - 1) * self.scale
+        return (torch.rand(shape, generator=generator,
+                           device=generator.device) * 2 - 1) * self.scale
 
 
 @register
@@ -88,7 +92,8 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init(self, shape, generator):
-        return torch.randn(shape, generator=generator) * self.sigma
+        return torch.randn(shape, generator=generator,
+                           device=generator.device) * self.sigma
 
 
 @register
@@ -110,5 +115,7 @@ class Xavier(Initializer):
             self.factor_type, fan_out)
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            return (torch.rand(shape, generator=generator) * 2 - 1) * scale
-        return torch.randn(shape, generator=generator) * scale
+            return (torch.rand(shape, generator=generator,
+                               device=generator.device) * 2 - 1) * scale
+        return torch.randn(shape, generator=generator,
+                           device=generator.device) * scale

@@ -16,6 +16,12 @@ Routing: a tensor on the CPU takes the plain versions
 (:func:`flash_attention_reference`, :func:`flash_attention_backward_reference`);
 a CUDA tensor launches the kernels or raises :class:`MXNetError`. Nothing
 falls back. Each launch adds one to its kernel's entry in :data:`launches`.
+The forward takes head dims up to 256 and reads 16-bit q, k and v by TMA,
+which needs a 16-byte aligned base and strides that are multiples of 16
+bytes; an operand that lacks either is first copied into a padded
+contiguous buffer, and :data:`padded_copies` counts those copies. The
+backward kernels take head dims up to 128: a gradient through attention
+with a larger head dim raises before the forward runs.
 The backward takes the fused single pass when Tk fits one k-block
 (``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule.
 The fused kernel adds dq across key tiles with f32 atomics, so its dq is
@@ -34,7 +40,8 @@ from ...base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward_reference", "dropout_keep_reference",
-           "launches", "KERNELS", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K"]
+           "launches", "padded_copies", "KERNELS", "DEFAULT_BLOCK_Q",
+           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM_FWD", "MAX_HEAD_DIM_BWD"]
 
 _NEG_INF = -1e30
 
@@ -47,6 +54,10 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # per-kernel launch counters: +1 per kernel launch, nowhere else
 launches = {name: 0 for name in KERNELS}
+# operands of the forward copied because TMA could not read them in place
+padded_copies = 0
+MAX_HEAD_DIM_FWD = 256
+MAX_HEAD_DIM_BWD = 128
 _COUNT_LOCK = threading.Lock()
 _FNS = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -204,7 +215,7 @@ def _kernel(name: str):
     if name == "flash_attention_fwd":
         fn = _kernels.load(name).mxt_flash_attention_fwd
         fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, strides,
-                       ctypes.c_float, i, i, p, i, ctypes.c_uint,
+                       ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     else:
         fn = _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd
@@ -221,9 +232,10 @@ def _bht(t):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
-def _check_operands(q, k, v, extra=()):
+def _check_operands(q, k, v, extra=(), max_d=MAX_HEAD_DIM_BWD):
     """q/k/v (and ``extra``, read or written with them) as (B, H, T, D)
-    views on one CUDA device in one dtype with a contiguous head dim."""
+    views on one CUDA device in one dtype with a contiguous head dim of at
+    most ``max_d``."""
     ts = (q, k, v) + tuple(extra)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise MXNetError("flash_attention: q, k, v and out must lie on one "
@@ -240,9 +252,9 @@ def _check_operands(q, k, v, extra=()):
     if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
         raise MXNetError(f"flash_attention: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D > 128:
-        raise MXNetError(f"flash_attention kernel takes head_dim <= 128, "
-                         f"got {D}")
+    if D > max_d:
+        raise MXNetError(f"flash_attention kernel takes head_dim <= {max_d},"
+                         f" got {D}")
     return B, H, Tq, Tk, D
 
 
@@ -283,32 +295,75 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
+def _tma_ready(t) -> bool:
+    """TMA reads or writes a 16-bit (B, H, T, D) view in place: 16-byte
+    aligned base, and every stride of a dimension longer than 1 a multiple
+    of 8 elements (16 bytes)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def _padded_buffer(t):
+    """An empty (B, H, T, D) view shaped like ``t`` whose rows are padded
+    to a multiple of 8 elements: a layout TMA can describe."""
+    B, H, T, D = t.shape
+    return torch.empty((B, H, T, -(-D // 8) * 8), dtype=t.dtype,
+                       device=t.device)[..., :D]
+
+
+def _count_copy() -> None:
+    global padded_copies
+    with _COUNT_LOCK:
+        padded_copies += 1
+
+
+def _tma_operand(t):
+    """``t`` itself when TMA can read it, else a counted padded copy."""
+    if _tma_ready(t):
+        return t
+    _count_copy()
+    return _padded_buffer(t).copy_(t)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
-                causal: bool) -> None:
+                causal: bool, fn=None) -> None:
     """The forward kernel on (B, H, T, D) views; ``out`` is written in
-    place, ``lse`` is (B, H, Tq, 1) contiguous f32."""
-    B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
+    place, ``lse`` is (B, H, Tq, 1) contiguous f32. 16-bit operands that
+    TMA cannot address are copied first (:func:`_tma_operand`); an output
+    it cannot address is written to a padded buffer and copied back.
+    ``fn``: another build of the same C entry (an experiment's variant,
+    ``chip_smoke.py --probe-fwd``); its launches are not counted."""
+    B, H, Tq, Tk, D = _check_operands(q, k, v, (out,), MAX_HEAD_DIM_FWD)
+    dest = out
+    if q.dtype != torch.float32:
+        q, k, v = (_tma_operand(t) for t in (q, k, v))
+        if not _tma_ready(out):
+            _count_copy()
+            out = _padded_buffer(out)
     ts = (q, k, v, out)
     flat = [s for t in ts for s in _bht(t)]
-    vec = _vec(ts, flat)
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
-    fn = _kernel("flash_attention_fwd")
+    variant = fn is not None
+    fn = fn or _kernel("flash_attention_fwd")
     arr = (ctypes.c_longlong * 16)(*(flat + bstrides))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), _ptr(bias), out.data_ptr(), lse.data_ptr(),
-                 B, H, Tq, Tk, D, arr, float(scale), int(bool(causal)), vec,
+                 B, H, Tq, Tk, D, arr, float(scale), int(bool(causal)),
                  _ptr(seed), drop, thresh, drop_scale, stream)
     if err != 0:
         raise MXNetError(f"flash_attention_fwd kernel launch failed: CUDA "
                          f"error {err}")
-    _count("flash_attention_fwd")
+    if not variant:
+        _count("flash_attention_fwd")
+    if out is not dest:
+        dest.copy_(out)
 
 
 def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
@@ -348,8 +403,9 @@ def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
         return flash_attention_reference(q, k, v, bias, scale, causal, seed,
                                          rate)
     B, H, Tq, D = q.shape
-    out = torch.empty((B, Tq, H, D), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    # rows padded to a multiple of 8 elements, so that TMA stores in place
+    out = torch.empty((B, Tq, H, -(-D // 8) * 8), dtype=q.dtype,
+                      device=q.device)[..., :D].transpose(1, 2)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale, causal)
     return out, lse
@@ -412,6 +468,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate, scale, causal, block_k,
                 bias_grad):
+        D = q.shape[-1]
+        if D > MAX_HEAD_DIM_BWD and any(ctx.needs_input_grad[:4]):
+            raise MXNetError(
+                f"flash_attention: the backward kernels take head_dim <= "
+                f"{MAX_HEAD_DIM_BWD}, got {D}; the forward alone takes up to "
+                f"{MAX_HEAD_DIM_FWD} (larger head dims in the backward wait "
+                "for ROADMAP Queue B 2, the fused backward's redesign)")
         out, lse = _flash_forward(q, k, v, bias, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, bias, seed, out, lse)
         ctx.cfg = (rate, scale, causal, block_k, bias_grad)

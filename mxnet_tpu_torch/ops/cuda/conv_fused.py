@@ -12,7 +12,9 @@ ReLU each optional):
 - fwd: ``y[n] = W @ f(x[n]) + bias``, in x's dtype;
 - dgrad: ``da[n] = (W^T @ dy[n]) * [x * scale + shift > 0]``, in f32;
 - wgrad: ``dW = sum_n dy[n] @ f(x[n])^T``, in W's dtype, with both operands
-  rounded to bf16 first when dy is bf16.
+  rounded to bf16 first when dy is bf16; for fp16 f(x) stays f32, as in
+  the JAX kernel (the kernel multiplies dy by fp16(f) and by the fp16
+  remainder f - fp16(f) into the same f32 sums).
 
 Routing: a tensor on the CPU takes the plain versions
 (:func:`conv1x1_fwd_reference`, :func:`conv1x1_dgrad_reference`,
@@ -22,9 +24,7 @@ kernel's entry in :data:`launches`. The JAX package's ``fusion_profitable``
 (a TPU traffic rule) and block chooser have no counterpart: the Hopper
 kernels tile by the plan of :func:`conv1x1_plan`, a pure function of the
 shape, the dtype and the operands' alignment. wgrad's split partial sums
-are added in a fixed order, so dW is the same from run to run. The fp16
-kernels round f(x) to fp16 for wgrad, where the JAX kernel keeps it in
-f32.
+are added in a fixed order, so dW is the same from run to run.
 """
 from __future__ import annotations
 
@@ -236,8 +236,10 @@ def conv1x1_plan(kind: str, N: int, Ci: int, Co: int, M: int, dtype,
     slots = 0
     if vec == 1 and align >= 16 and Ci % 8 == 0 and Co % 8 == 0 and \
             8 <= M < 64:
+        # the fp16 wgrad keeps a third tile: f(x) - fp16(f(x))
+        tiles = 3 if kind == "wgrad" and dtype == torch.float16 else 2
         slots = min(_MAX_SLOTS,
-                    (SMEM_MAX - _BARS - 2 * _TILE_BYTES) // (512 * M))
+                    (SMEM_MAX - _BARS - tiles * _TILE_BYTES) // (512 * M))
         if kind == "dgrad" or slots >= _cdiv(_WG_BK - 1, M) + 3:
             mode = "runs"
     if mode != "runs" or kind == "dgrad":

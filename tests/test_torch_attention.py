@@ -20,11 +20,11 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 B, H, D = 2, 2, 16
 
 
-def _inputs(seed, Tq, Tk, bias_kind):
+def _inputs(seed, Tq, Tk, bias_kind, d=D):
     rng = onp.random.RandomState(seed)
-    q = rng.normal(0, 1, (B, H, Tq, D)).astype("float32")
-    k = rng.normal(0, 1, (B, H, Tk, D)).astype("float32")
-    v = rng.normal(0, 1, (B, H, Tk, D)).astype("float32")
+    q = rng.normal(0, 1, (B, H, Tq, d)).astype("float32")
+    k = rng.normal(0, 1, (B, H, Tk, d)).astype("float32")
+    v = rng.normal(0, 1, (B, H, Tk, d)).astype("float32")
     bias = None
     if bias_kind == "keypad":
         valid = onp.array([Tk, max(1, Tk // 3)])
@@ -40,7 +40,7 @@ def _jax_forward(q, k, v, bias, causal, block):
     out, lse = jax_flash_fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         None if bias is None else jnp.asarray(bias), None,
-        1.0 / math.sqrt(D), causal, block, block, 0.0, True)
+        1.0 / math.sqrt(q.shape[-1]), causal, block, block, 0.0, True)
     return onp.asarray(out), onp.asarray(lse)
 
 
@@ -59,6 +59,39 @@ def test_plain_forward_matches_jax_kernel(causal, bias_kind, T, block):
     assert out.shape == (B, H, T, D) and lse.shape == (B, H, T, 1)
     onp.testing.assert_allclose(out.numpy(), want_out, **TOL)
     onp.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_at_large_head_dims_matches_jax_kernel(causal,
+                                                            bias_kind, d):
+    """The head dims the Hopper forward takes above 64 (padded to 128 and
+    256 there): the plain version vs the Pallas kernel, T=40 over blocks
+    of 16 (ragged)."""
+    q, k, v, bias = _inputs(d, 40, 40, bias_kind, d)
+    want_out, want_lse = _jax_forward(q, k, v, bias, causal, 16)
+    out, lse = port._flash_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias),
+        1.0 / math.sqrt(d), causal)
+    assert out.shape == (B, H, 40, d)
+    onp.testing.assert_allclose(out.numpy(), want_out, **TOL)
+    onp.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+
+
+def test_gradient_above_the_backward_head_dim_raises():
+    """The backward kernels take head dims up to 128: a gradient through
+    attention at D=160 raises before the forward runs (on every device,
+    so the CPU path keeps the card's contract); without a gradient the
+    forward takes it."""
+    x = torch.zeros(1, 8, 2, 160)
+    assert port.flash_attention(x, x, x).shape == (1, 8, 2, 160)
+    with pytest.raises(port.MXNetError, match="Queue B 2"):
+        port.flash_attention(x.requires_grad_(True), x, x)
+    y = torch.zeros(1, 8, 2, 128, requires_grad=True)
+    port.flash_attention(y, y, y).sum().backward()
+    assert y.grad.shape == y.shape
 
 
 @pytest.mark.parametrize("causal", [False, True])

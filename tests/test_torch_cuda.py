@@ -18,8 +18,9 @@ Dropout masks are compared bit for bit through the outputs they make.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: bf16 fwd and wgrad 1e-2
-(f(x) and the output rounded to bf16 once each), bf16 dgrad 1e-4 (f32 sums
-of exact products), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long sums).
+(f(x) and the output rounded to bf16 once each), 16-bit dgrad 1e-4 (f32
+sums of exact products), fp16 wgrad 1e-4 (f(x) carried as two fp16 terms,
+about f32), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long sums).
 
 mx.rtc: the user kernels of ``chip_smoke.py`` compiled by NVRTC for sm_90a
 against their plain versions: axpy, scale, square and rtc_axpy equal to the
@@ -83,7 +84,7 @@ def _bias(kind, B, H, Tq, Tk, dtype, dev, g):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [32, 40, 64, 128])
+@pytest.mark.parametrize("D", [32, 40, 64, 128, 200, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias_shape", [None, "keypad", (1, 3, 1, 1),
                                         (2, 1, 1, 1)])
@@ -270,12 +271,47 @@ def test_kernel_reads_strided_bthd_views(dev):
     _close(out.transpose(1, 2), ref, 2e-2, 2e-2, "out")
 
 
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("layout", ["odd_rows", "unaligned_base"])
+def test_forward_copies_what_tma_cannot_address(dev, dtype, layout):
+    """Rows of 36 16-bit values (72 bytes) or a base one element past a
+    16-byte boundary: the wrapper copies each such operand into a padded
+    buffer (counted), the kernel still runs, and the result equals the
+    plain version's; the output is written back into the caller's view."""
+    g = torch.Generator().manual_seed(9)
+    B, H, T = 2, 3, 70
+    D = 36 if layout == "odd_rows" else 64
+    base = torch.randn(3 * B * H * T * D + 1, generator=g).to(dev, dtype)
+    off = 1 if layout == "unaligned_base" else 0
+    q, k, v = (base[off + i * B * H * T * D:off + (i + 1) * B * H * T * D]
+               .reshape(B, H, T, D) for i in range(3))
+    before = (attn.padded_copies, attn.launches["flash_attention_fwd"])
+    out, lse = attn._flash_forward(q, k, v, None, 0.2, False)
+    torch.cuda.synchronize()
+    assert attn.padded_copies == before[0] + 3
+    assert attn.launches["flash_attention_fwd"] == before[1] + 1
+    ref, ref_lse = attn.flash_attention_reference(
+        q.float(), k.float(), v.float(), None, 0.2, False)
+    _close(out, ref, 2e-2, 2e-2, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+    dest = torch.empty(B * H * T * D + 1, dtype=dtype,
+                       device=dev)[1:].reshape(B, H, T, D)
+    lse2 = torch.empty(B, H, T, 1, device=dev)
+    attn._launch_fwd(q, k, v, None, None, 0.0, dest, lse2, 0.2, False)
+    torch.cuda.synchronize()
+    assert attn.padded_copies == before[0] + 7
+    assert torch.equal(dest, out)
+
+
 def test_kernel_rejects_what_it_does_not_take(dev):
     x = torch.zeros(1, 8, 2, 16, device=dev)
     with pytest.raises(MXNetError, match="dtype"):
         attn.flash_attention(x, x, x.double())
     with pytest.raises(MXNetError, match="head_dim"):
-        y = torch.zeros(1, 8, 2, 160, device=dev)
+        y = torch.zeros(1, 8, 2, 288, device=dev)
+        attn.flash_attention(y, y, y)
+    with pytest.raises(MXNetError, match="Queue B 2"):
+        y = torch.zeros(1, 8, 2, 160, device=dev, requires_grad=True)
         attn.flash_attention(y, y, y)
     with pytest.raises(MXNetError, match="contiguous"):
         z = torch.zeros(1, 8, 16, 2, device=dev).transpose(-1, -2)
@@ -290,6 +326,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 # ------------------------------------------------------- conv1x1 kernels
 CONV_REL = {torch.bfloat16: {"fwd": 1e-2, "dgrad": 1e-4, "wgrad": 1e-2},
+            torch.float16: {"dgrad": 1e-4, "wgrad": 1e-4},
             torch.float32: {"fwd": 1e-5, "dgrad": 1e-5, "wgrad": 1e-4}}
 
 
@@ -332,8 +369,10 @@ def test_conv_kernels_match_plain(dev, dtype, Ci, Co, M, affine, relu, bias):
 
 
 def _backward_match(x, w, dy, s, t, relu, dtype):
-    """dgrad and wgrad on the card against their plain versions at the
-    bf16 limits (fp16 has more mantissa bits than bf16)."""
+    """dgrad and wgrad on the card against their plain versions: f32 sums
+    of exact products for dgrad; wgrad at the bf16 limit for bf16 (f(x)
+    rounded to bf16 in both) and at the f32 one for fp16 (f(x) kept to
+    about 2^-22 as fp16 hi + lo, against f32 f(x) in the plain version)."""
     before = dict(cf.launches)
     got = {"dgrad": cf._dgrad(x, s, t, w, dy, relu),
            "wgrad": cf._wgrad(x, s, t, dy, relu, dtype)}
@@ -344,7 +383,7 @@ def _backward_match(x, w, dy, s, t, relu, dtype):
             "wgrad": cf.conv1x1_wgrad_reference(x, s, t, dy, relu, dtype)}
     for k in got:
         assert got[k].dtype == want[k].dtype and torch.isfinite(got[k]).all()
-        lim = CONV_REL[torch.bfloat16][k]
+        lim = CONV_REL[dtype][k]
         assert _rel(got[k], want[k]) <= lim, f"{k}: {_rel(got[k], want[k]):.3e}"
 
 
@@ -482,8 +521,8 @@ def test_resnet50_step_launches_each_conv_kernel_28_times(dev, fuse, want,
     torch.cuda.synchronize()
     assert {k: cf.launches[k] - before[k] for k in cf.KERNELS} == \
         {k: want for k in cf.KERNELS}
-    assert all(torch.isfinite(p.grad).all()
-               for p in net.collect_params().values() if p.grad is not None)
+    grads = [p.data().grad for p in net.collect_params().values()]
+    assert all(torch.isfinite(g).all() for g in grads if g is not None)
 
 
 # ---------------------------------------------------------------------------

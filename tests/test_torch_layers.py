@@ -139,6 +139,7 @@ def test_initialize_is_seeded_and_keeps_param_inits():
     a, b, c = build(1), build(1), build(2)
     pa, pb, pc = (n.collect_params() for n in (a, b, c))
     assert list(pa) == ["0.weight", "0.bias", "1.gamma", "1.beta"]
+    pa, pb, pc = ({k: p.data() for k, p in d.items()} for d in (pa, pb, pc))
     torch.testing.assert_close(pa["0.weight"], pb["0.weight"])
     assert not torch.equal(pa["0.weight"], pc["0.weight"])
     assert pa["0.weight"].abs().max() <= 0.07          # Uniform(0.07)

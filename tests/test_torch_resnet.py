@@ -250,10 +250,10 @@ def _train_two_steps(knob_val, knob, x):
                 loss = (y * y).sum()
             autograd.backward(loss)
             losses.append(float(loss.detach()))
-        grads = {k: p.grad.numpy().copy()
+        grads = {k: p.grad().numpy().copy()
                  for k, p in net.collect_params().items()
                  if p.grad_req != "null"}
-        stats = {k: p.detach().numpy().copy()
+        stats = {k: p.data().detach().numpy().copy()
                  for k, p in net.collect_params().items()
                  if "running" in k or "stat_shift" in k}
         eval_y = net(x).detach().numpy()
@@ -351,7 +351,7 @@ def test_load_rebuilds_a_missing_stat_shift():
     assert not bn._resolve_virgin_stats()
     load_jax_params(bn, {k: v for k, v in full.items() if k != "stat_shift"})
     assert bn._resolve_virgin_stats()
-    assert float(bn.running_mean[0]) == 2.0
+    assert float(bn.running_mean.data()[0]) == 2.0
     with pytest.raises(MXNetError, match="missing"):
         load_jax_params(bn, {k: v for k, v in full.items()
                              if k != "running_var"})

@@ -228,20 +228,20 @@ def test_grad_req_write_add_null():
             y = net(x)
         autograd.backward(y)       # non-scalar head: seeded with ones
     # write: the second backward replaced the first
-    torch.testing.assert_close(net.weight.grad, torch.full((3, 4), 2.0))
+    torch.testing.assert_close(net.weight.grad(), torch.full((3, 4), 2.0))
     net.weight.grad_req = "add"
     net.weight.zero_grad()
     for _ in range(3):
         with autograd.record():
             autograd.backward(net(x).sum())
-    torch.testing.assert_close(net.weight.grad, torch.full((3, 4), 6.0))
+    torch.testing.assert_close(net.weight.grad(), torch.full((3, 4), 6.0))
     net.bias.grad_req = "null"
-    assert net.bias.grad is None and not net.bias.requires_grad
+    assert net.bias.data().grad is None and not net.bias.data().requires_grad
     with pytest.raises(MXNetError, match="null"):
         net.bias.list_grad()
     with autograd.record():
         autograd.backward(net(x).sum())
-    assert net.bias.grad is None
+    assert net.bias.data().grad is None
     with pytest.raises(ValueError, match="grad_req"):
         net.bias.grad_req = "sometimes"
 
@@ -330,3 +330,150 @@ def test_trainer_save_load_states_round_trip(tmp_path):
     assert tr2.optimizer.num_update == 4
     for a, b in zip(resumed.parameters(), full.parameters()):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------- trainer state files across packages
+def _mp_pair(seed=0):
+    """One bf16 Dense layer in both packages with the same weights, each
+    with a multi-precision AdamW trainer (MasterWeightState for both
+    parameters)."""
+    rng = onp.random.RandomState(seed)
+    params = {"weight": rng.normal(0, 0.5, (3, 4)).astype("float32"),
+              "bias": rng.normal(0, 0.5, (3,)).astype("float32")}
+    jnet = mx.gluon.nn.Dense(3, in_units=4)
+    jnet.initialize()
+    for k, p in jnet.collect_params().items():
+        p.set_data(mx.np.array(params[k]))
+    jnet.cast("bfloat16")
+    tnet = load_jax_params(nn.Dense(3, in_units=4), params,
+                           dtype="bfloat16")
+    hp = {"learning_rate": 0.01, "wd": 0.1, "multi_precision": True}
+    return (jnet, mx.gluon.Trainer(jnet.collect_params(), "adamw", dict(hp)),
+            tnet, Trainer(tnet.collect_params(), "adamw", dict(hp)))
+
+
+# Inputs and output weights of small integers and halves: the gradients
+# (r^T x for the weight, the sum of r for the bias) are exact in bf16 in
+# both packages, so only the optimizer's arithmetic is compared.
+_XS = [onp.random.RandomState(20 + i).randint(-2, 3, (4, 4)).astype("float32")
+       for i in range(4)]
+_RS = [onp.random.RandomState(30 + i).randint(-2, 3, (4, 3)).astype("float32")
+       / 2 for i in range(4)]
+
+
+def _jax_steps(jnet, jtr, steps):
+    for x, r in zip(_XS[steps], _RS[steps]):
+        with mx.autograd.record():
+            loss = (jnet(mx.np.array(x).astype("bfloat16"))
+                    * mx.np.array(r).astype("bfloat16")).sum()
+        loss.backward()
+        jtr.step(4)
+
+
+def _port_steps(tnet, ttr, steps):
+    for x, r in zip(_XS[steps], _RS[steps]):
+        with autograd.record():
+            loss = (tnet(torch.from_numpy(x).to(torch.bfloat16))
+                    * torch.from_numpy(r).to(torch.bfloat16)).sum()
+        autograd.backward(loss)
+        ttr.step(4)
+
+
+def _compare_to_jax(tnet, ttr, jnet, jtr):
+    """bf16 weights within one bf16 rounding, f32 masters, Adam moments
+    and update counts as this file's multi-precision test holds them."""
+    assert list(tnet.collect_params()) == list(jnet.collect_params())
+    assert ttr.optimizer.num_update == jtr._optimizer.num_update
+    for i, (k, p) in enumerate(tnet.collect_params().items()):
+        q = jnet.collect_params()[k]
+        assert p.dtype == torch.bfloat16
+        onp.testing.assert_allclose(
+            p.data().detach().float().numpy(),
+            q.data().astype("float32").asnumpy(), rtol=8e-3)
+        ts, js = ttr._states[i], jtr._states[i]
+        assert isinstance(ts, optimizer.MasterWeightState)
+        onp.testing.assert_allclose(ts.master.numpy(), onp.asarray(js.master),
+                                    **F32)
+        for a, b in zip(ts.inner, js.inner):
+            onp.testing.assert_allclose(a.numpy(), onp.asarray(b), **F32)
+
+
+def test_trainer_states_saved_by_jax_resume_in_the_port(tmp_path):
+    """The JAX package saves after k=2 multi-precision AdamW steps; the
+    port loads the weights and the state file and takes N=2 more; the
+    result equals the JAX package's own run of 4 steps. State indices
+    follow collect_params(), the same in both packages."""
+    jnet, jtr, _, _ = _mp_pair()
+    _jax_steps(jnet, jtr, slice(0, 2))
+    fname = str(tmp_path / "jax.states")
+    jtr.save_states(fname)
+    saved = {k: p.data().astype("float32").asnumpy()
+             for k, p in jnet.collect_params().items()}
+    _jax_steps(jnet, jtr, slice(2, 4))
+    _, _, tnet, ttr = _mp_pair(seed=1)
+    load_jax_params(tnet, saved)
+    ttr.load_states(fname)
+    assert ttr.optimizer.num_update == 2
+    _port_steps(tnet, ttr, slice(2, 4))
+    _compare_to_jax(tnet, ttr, jnet, jtr)
+
+
+def test_trainer_states_saved_by_the_port_resume_in_jax(tmp_path):
+    """The reverse: the port saves after 2 steps, the JAX package loads
+    and takes 2 more, equal to the port's own run of 4."""
+    _, _, tnet, ttr = _mp_pair()
+    _port_steps(tnet, ttr, slice(0, 2))
+    fname = str(tmp_path / "port.states")
+    ttr.save_states(fname)
+    saved = {k: p.data().detach().float().numpy()
+             for k, p in tnet.collect_params().items()}
+    _port_steps(tnet, ttr, slice(2, 4))
+    jnet, jtr, _, _ = _mp_pair(seed=1)
+    for k, p in jnet.collect_params().items():
+        p.set_data(mx.np.array(saved[k]).astype("bfloat16"))
+    jtr.load_states(fname)
+    assert jtr._optimizer.num_update == 2
+    _jax_steps(jnet, jtr, slice(2, 4))
+    _compare_to_jax(tnet, ttr, jnet, jtr)
+
+
+def test_trainer_state_file_refuses_other_classes(tmp_path):
+    """Reading admits numpy arrays, builtin containers and
+    MasterWeightState; a pickle naming any other class is refused before
+    it is built."""
+    import collections
+    import pickle
+    _, _, tnet, ttr = _mp_pair()
+    fname = str(tmp_path / "bad.states")
+    with open(fname, "wb") as f:
+        pickle.dump({"format": 2, "num_update": 1, "index_update_count": {},
+                     "states": {0: collections.OrderedDict()}}, f)
+    with pytest.raises(MXNetError, match="collections.OrderedDict"):
+        ttr.load_states(fname)
+
+
+def test_trainer_reads_a_format_1_state_file(tmp_path):
+    """A format-1 file kept a master-weight state as a plain (master,
+    inner) tuple: both packages rewrap it as MasterWeightState."""
+    import pickle
+    jnet, jtr, tnet, ttr = _mp_pair()
+    rng = onp.random.RandomState(8)
+    states = {i: (rng.normal(0, 1, s).astype("float32"),
+                  (rng.normal(0, 1, s).astype("float32"),
+                   rng.uniform(0, 1, s).astype("float32")))
+              for i, s in enumerate([(3, 4), (3,)])}
+    fname = str(tmp_path / "v1.states")
+    with open(fname, "wb") as f:
+        pickle.dump({"num_update": 5, "index_update_count": {0: 5, 1: 5},
+                     "states": states}, f)
+    ttr.load_states(fname)
+    jtr.load_states(fname)
+    for i in range(2):
+        assert isinstance(ttr._states[i], optimizer.MasterWeightState)
+        onp.testing.assert_array_equal(ttr._states[i].master.numpy(),
+                                       states[i][0])
+        onp.testing.assert_array_equal(onp.asarray(jtr._states[i].master),
+                                       states[i][0])
+    _port_steps(tnet, ttr, slice(0, 1))
+    _jax_steps(jnet, jtr, slice(0, 1))
+    _compare_to_jax(tnet, ttr, jnet, jtr)
