@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernel checks)
     python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
+    python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -20,11 +21,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    layout and one layout TMA cannot address (its operands copied and
    counted), with and without dropout (its dropout mask read back and
    compared bit for bit in bf16, fp16 and f32), timed by device time
-   beside the mma.sync kernel it replaced; the fused backward, the two-pass dq/dkv pair (at the training
-   shape and at T=2048 causal), a learned (1, H, T, T) bias with its
-   reduced gradient, f32 for each, and fused against two-pass on the same
-   inputs; each timed with CUDA events beside its bound, its plain version
-   and a PyTorch library call (yardstick only). Then the three
+   beside the mma.sync kernel it replaced; the fused backward, the two-pass
+   dq/dkv pair (at the training shape and at T=2048 causal), a learned
+   (1, H, T, T) bias with its reduced gradient, fp16, causal and ragged
+   (T=333), head dims 128 and 40, f32 for each route, fused against
+   two-pass on the same inputs, no operand of BERT's fused-QKV layout
+   copied, and two runs of the fused kernel whose f32 dq accumulators
+   agree to rounding (dk, dv to the bit); each kernel timed by device time
+   (torch.profiler; CUDA events beside it) and each entry by the device
+   time of all its kernels (delta, zeroing, the kernel, the cast), beside
+   its bound, its plain version and a PyTorch library call (yardstick
+   only). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    beside its bound, its plain version and cuDNN: ``F.conv2d``,
@@ -36,7 +43,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fp16 junctions (wgrad at the f32 limit: f(x) kept as two fp16 terms), a
    ragged small shape with relu off, and an M > 4096 wgrad case; with
    ``--probe-fwd``, the flash forward against builds of it with the
-   softmax, the copies or the P V product cut out;
+   softmax, the copies or the P V product cut out; with ``--probe-bwd``,
+   the fused backward against builds of it with dropout's Philox, the dq
+   product and reduce-add, or the exponentials cut out;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
    length buckets: 16 concurrent requests; the forward kernel must launch
@@ -48,9 +57,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    masked positions, dropout 0.1: 10 steps on the fused backward, then 2
    with ``MXNET_FLASH_BLOCK_K=256`` on the two-pass pair; every step must
    launch the forward kernel 12 times and the backward kernels 12 times
-   each, no operand may be copied for TMA, and the loss must fall; step time, tokens/s and a profiler
-   breakdown; then one f32 step on the card against the same step on the
-   CPU (plain path);
+   each, no operand may be copied for TMA, and the loss must fall; step
+   time, tokens/s and a profiler breakdown with the device busy time and
+   the backward kernels' part of it beside the mma.sync backward's (the
+   kernel the fused one replaced, PERF.md); then one f32 step on
+   the card against the same step on the CPU (plain path);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
    from a seed, bf16 with f32 masters (``multi_precision``), B=128,
    224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
@@ -112,6 +123,9 @@ REL_BWD = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # fused against two-pass on the same inputs: dk, dv come from the same
 # code; dq differs by where it is rounded and the atomics' order
 REL_AGREE = {"bfloat16": 1e-2, "float32": 1e-5}
+# two runs of the fused backward on the same inputs: dq's key tiles are
+# summed in f32 in an order that changes from run to run (dk, dv do not)
+REL_RERUN = 1e-6
 # phase 4: bf16 BERT-base on the card against f32 on the CPU, relative
 # Frobenius error of each answer (12 layers of bf16 rounding)
 TOL_BERT_REL = 5e-2
@@ -177,6 +191,19 @@ OLD_FWD_MS = {"bf16 T=512 key-padding": 0.1247,
 FWD_CUTS = {"softmax cut": "MXT_FWD_CUT=1", "copies cut": "MXT_FWD_CUT=2",
             "P.V cut": "MXT_FWD_CUT=3"}
 FWD_KERNEL = r"flash_fwd_(wgmma|f32)"   # the forward's kernel names
+# the backward kernels' names (re.search), for device time by torch.profiler
+BWD_KERNEL = {"flash_attention_bwd_fused": r"bwd_fused_wg",
+              "flash_attention_bwd_dq": r"bwd_dq_mma",
+              "flash_attention_bwd_dkv": r"bwd_dkv_mma"}
+# the mma.sync fused backward this redesign replaced: its device time a
+# launch in a BERT training step (PERF.md section 5)
+OLD_FUSED_BWD_MS = 0.307
+# the BERT training step's device busy time and its backward kernels' part
+# with the mma.sync fused backward (PERF.md section 5)
+MMA_SYNC_STEP_MS = (21.678, 3.679)
+# --probe-bwd: the fused backward rebuilt with one part cut out
+BWD_CUTS = {"Philox cut": "MXT_BWD_CUT=1", "dq product and add cut":
+            "MXT_BWD_CUT=2", "exponentials cut": "MXT_BWD_CUT=3"}
 CONV_KERNELS = tuple(KERNEL_INFO)[4:]
 # BERT-base attention at the trained and served shapes
 B_MAIN, H, D, T_MAIN = 8, 12, 64, 512
@@ -803,6 +830,42 @@ def forward_probe(torch, dev, attn):
                   + f"; card: {smi_line()}", flush=True)
 
 
+def backward_probe(torch, dev, attn):
+    """Where the fused backward's time goes (``--probe-bwd``): the kernel
+    rebuilt with dropout's Philox words replaced by a hash, with the ds
+    store and the dq product and reduce-add cut out, or with the
+    exponentials cut out (``-DMXT_BWD_CUT=1/2/3``, wrong results, never
+    checked), timed in turns with the full kernel at the training shape,
+    with and without dropout. Variant launches are not counted."""
+    import ctypes
+    from mxnet_tpu_torch import _kernels
+    name = "flash_attention_bwd_fused"
+    argtypes = attn._kernel(name).argtypes
+    fns = {}
+    for label, define in BWD_CUTS.items():
+        fn = _kernels.load("flash_attention_bwd",
+                           (define,)).mxt_flash_attention_bwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[label] = fn
+    gen = torch.Generator().manual_seed(7)
+    T = T_MAIN
+    valid = [T, T // 2, T // 3, 1, T - 7, T // 4, 17, T]
+    for rate in (0.0, 0.1):
+        c = backward_case(torch, dev, gen, attn, B_MAIN, T, torch.bfloat16,
+                          False, "keypad", rate, valid=valid)
+
+        def timed(fn):
+            call, _ = kernel_only_call(torch, attn, c, name, fn)
+            return kernel_ms(call, BWD_KERNEL[name])
+        times = [("full", timed(None))]
+        times += [(k, timed(f)) for k, f in fns.items()]
+        times.append(("full again", timed(None)))
+        print(f"phase 3: probe backward B={B_MAIN} H={H} T={T} D={D} bf16 "
+              f"key-padding dropout {rate} (device time a launch): "
+              + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times)
+              + f"; card: {smi_line()}", flush=True)
+
+
 def dropout_mask_probe(torch, dev, attn, dt, seed, rate=0.1):
     """Read the forward kernel's dropout mask back bit for bit: with q = k
     = 0 every unmasked key has p = 1/128, and v = one-hot(key % 128) (head
@@ -833,23 +896,23 @@ def dropout_mask_probe(torch, dev, attn, dt, seed, rate=0.1):
 
 
 def backward_case(torch, dev, gen, attn, B, T, dt, causal, bias_kind, rate,
-                  valid=None):
-    qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen)
+                  valid=None, d=D):
+    qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen, d)
     valid = valid or [T] * B
     bias = None
     if bias_kind == "keypad":
         bias = keypad_bias(torch, dev, valid, T, dt)
     elif bias_kind == "full":
         bias = torch.randn((1, H, T, T), generator=gen).to(dev, dt)
-    do = torch.randn((B, T, H, D), generator=gen).to(dev, dt).transpose(1, 2)
+    do = torch.randn((B, T, H, d), generator=gen).to(dev, dt).transpose(1, 2)
     seed = torch.tensor([977, 31337], dtype=torch.int32, device=dev) \
         if rate > 0 else None
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(d)
     out, lse = attn._flash_forward(qh, kh, vh, bias, scale, causal, seed,
                                    rate)
     return dict(q=qh, k=kh, v=vh, do=do, bias=bias, seed=seed, out=out,
                 lse=lse, scale=scale, causal=causal, rate=rate, valid=valid,
-                B=B, T=T, dt=dt, learned=bias_kind == "full")
+                B=B, T=T, D=d, dt=dt, learned=bias_kind == "full")
 
 
 def run_backward(attn, c, block_k):
@@ -864,12 +927,16 @@ def backward_check(torch, attn, name, c, block_k, errs):
     route = ["flash_attention_bwd_fused"] if c["T"] <= block_k else \
         ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     before = dict(attn.launches)
+    copies = attn.padded_copies
     got = run_backward(attn, c, block_k)
     torch.cuda.synchronize()
     for n in attn.KERNELS[1:]:
         if attn.launches[n] - before[n] != (n in route):
             fail(f"{name}: {n} launched {attn.launches[n] - before[n]} "
                  f"times, expected {int(n in route)}")
+    if attn.padded_copies != copies:
+        fail(f"{name}: the fused-QKV views took "
+             f"{attn.padded_copies - copies} padded copies; expected none")
     want = attn.flash_attention_backward_reference(
         c["q"], c["k"], c["v"], c["bias"], c["seed"], c["rate"], c["out"],
         c["lse"], c["do"], c["scale"], c["causal"], c["learned"])
@@ -899,7 +966,10 @@ def backward_check(torch, attn, name, c, block_k, errs):
         parts.append(f"dbias {r:.2e}")
     elif got[3] is not None:
         fail(f"{name}: a dbias came back for a bias that is not learned")
-    ms = cuda_time_ms(lambda: run_backward(attn, c, block_k))
+    def entry():
+        return run_backward(attn, c, block_k)
+    dev_ms = device_ms(entry)
+    ms = cuda_time_ms(entry)
     plain_ms = cuda_time_ms(lambda: attn.flash_attention_backward_reference(
         c["q"], c["k"], c["v"], c["bias"], c["seed"], c["rate"], c["out"],
         c["lse"], c["do"], c["scale"], c["causal"], c["learned"]))
@@ -907,18 +977,22 @@ def backward_check(torch, attn, name, c, block_k, errs):
                                  c["do"], c["scale"], c["causal"], c["rate"],
                                  c["learned"])
     bnd, by = backward_bound_ms(
-        "entry", c["B"], H, c["T"], c["T"], D, c["valid"], dtn,
+        "entry", c["B"], H, c["T"], c["T"], c["D"], c["valid"], dtn,
         c["dt"].itemsize, c["causal"], c["bias"], c["learned"])
     print(f"phase 3: backward {name}: relative error {', '.join(parts)} "
-          f"(limit {lim}); entry {ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
-          f"plain {plain_ms:.4f} ms, sdpa backward {fmt_ms(lib_ms)} "
-          f"(device)", flush=True)
+          f"(limit {lim}); entry {fmt_ms(dev_ms)} (device: delta, zeroing, "
+          f"kernels, cast), {ms:.4f} ms a call back to back (CUDA events), "
+          f"bound {bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
+          f"backward {fmt_ms(lib_ms)} (device)", flush=True)
     return got
 
 
-def kernel_only_ms(torch, attn, c, name):
-    """One backward kernel alone, launched again and again on buffers made
-    once (the entry's delta, zeroing and casts excluded)."""
+def kernel_only_call(torch, attn, c, name, fn=None):
+    """``(call, (dq, dk, dv))``: a call of one backward kernel alone, to be
+    launched again and again on the buffers it returns, made once (the
+    entry's delta, zeroing and casts excluded; the fused kernel keeps
+    adding into one dq accumulator). ``fn``: a variant build of the C
+    entry (``--probe-bwd``)."""
     q, k, v, do = c["q"], c["k"], c["v"], c["do"]
     B, Hh, Tq, Dd = q.shape
     Tk = k.shape[2]
@@ -930,17 +1004,15 @@ def kernel_only_ms(torch, attn, c, name):
                      device=dev).transpose(1, 2)
     dv = torch.empty_like(dk)
     if name == "flash_attention_bwd_fused":
-        dq = torch.zeros((B, Tq, Hh, Dd), dtype=torch.float32,
-                         device=dev).transpose(1, 2)
-        outs = (dq, dk, dv)
+        outs = (attn.dq_accumulator(B, Hh, Tq, Dd, dev), dk, dv)
     elif name == "flash_attention_bwd_dq":
         outs = (torch.empty((B, Tq, Hh, Dd), dtype=q.dtype,
                             device=dev).transpose(1, 2), None, None)
     else:
         outs = (None, dk, dv)
-    return cuda_time_ms(lambda: attn._launch_bwd(
+    return (lambda: attn._launch_bwd(
         name, q, k, v, do, bias, c["seed"], c["rate"], lse, delta, *outs,
-        None, c["scale"], c["causal"]))
+        None, c["scale"], c["causal"], fn)), outs
 
 
 def backward_checks(torch, dev, gen, attn):
@@ -966,18 +1038,26 @@ def backward_checks(torch, dev, gen, attn):
                          "bf16 T=512 key-padding dropout 0.1 two-pass "
                          "(block_k=256)", c1, 256, errs)
     agree(torch, "bf16 T=512 dropout 0.1", fused, two, "bfloat16")
-    # the kernels alone at the training shape (dropout 0.1): result line
+    # the kernels alone at the training shape (dropout 0.1): result line.
+    # Device time, as the forward's: at the fused kernel's speed the host's
+    # launch path (checks, ctypes, six TMA descriptors) is slower than the
+    # kernel, so CUDA events over back-to-back calls read the host
     for name, kind in (("flash_attention_bwd_fused", "fused"),
                        ("flash_attention_bwd_dq", "dq"),
                        ("flash_attention_bwd_dkv", "dkv")):
-        ms = kernel_only_ms(torch, attn, c1, name)
+        call, _ = kernel_only_call(torch, attn, c1, name)
+        ms = kernel_ms(call, BWD_KERNEL[name])
+        host_ms = cuda_time_ms(call)
         bnd, by = backward_bound_ms(kind, B_MAIN, H, T_MAIN, T_MAIN, D,
                                     rng_valid, "bfloat16", 2, False,
                                     c1["bias"], False)
         rows[name] = dict(ms=ms, bound_ms=bnd, bound_by=by)
+        old = (f" [the mma.sync kernel it replaced: {OLD_FUSED_BWD_MS} ms a "
+               "launch in the BERT step]" if kind == "fused" else "")
         print(f"phase 3: {name} alone, B={B_MAIN} H={H} T={T_MAIN} D={D} "
-              f"bf16 key-padding dropout 0.1: {ms:.4f} ms, bound {bnd:.4f} "
-              f"ms ({by})", flush=True)
+              f"bf16 key-padding dropout 0.1: {fmt_ms(ms)} (device){old}, "
+              f"{host_ms:.4f} ms a call back to back (CUDA events), bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
     plain_ms = cuda_time_ms(lambda: attn.flash_attention_backward_reference(
         c1["q"], c1["k"], c1["v"], c1["bias"], c1["seed"], c1["rate"],
         c1["out"], c1["lse"], c1["do"], c1["scale"], False, False))
@@ -986,7 +1066,46 @@ def backward_checks(torch, dev, gen, attn):
                                  0.1, False)
     for r in rows.values():
         r.update(plain_ms=plain_ms, library_ms=lib_ms)
-    del c0, c1, fused, two
+    # the fused kernel adds dq's key tiles in an order that changes from run
+    # to run: two runs' f32 accumulators agree to rounding, dk and dv to
+    # the bit
+    runs = []
+    for _ in range(2):
+        call, outs = kernel_only_call(torch, attn, c1,
+                                      "flash_attention_bwd_fused")
+        call()
+        runs.append(outs)
+    torch.cuda.synchronize()
+    r = rel(runs[1][0], runs[0][0])
+    if r > REL_RERUN or not all(torch.equal(a, b)
+                                for a, b in zip(runs[0][1:], runs[1][1:])):
+        fail(f"two runs of the fused backward: dq accumulators differ by "
+             f"{r:.3e} (limit {REL_RERUN}), or dk / dv differ")
+    print(f"phase 3: two runs of the fused backward: f32 dq accumulators "
+          f"differ by {r:.2e} relative (limit {REL_RERUN}, "
+          f"{int((runs[1][0] != runs[0][0]).sum())} elements not bit for "
+          f"bit), dk and dv equal to the bit", flush=True)
+    del c0, c1, fused, two, runs
+    # fp16; causal and ragged (T not a multiple of the 128-key block);
+    # head dims 128 and 40 (the TMA boxes zero-fill past D)
+    c = mk(2, T_MAIN, torch.float16, False, "keypad", 0.1,
+           valid=rng_valid[:2])
+    backward_check(torch, attn, "fp16 T=512 key-padding dropout 0.1 fused",
+                   c, 1024, errs)
+    c = mk(2, 333, torch.bfloat16, True, None, 0.1)
+    fused = backward_check(torch, attn, "bf16 T=333 causal dropout 0.1 "
+                           "fused (ragged)", c, 1024, errs)
+    two = backward_check(torch, attn, "bf16 T=333 causal dropout 0.1 "
+                         "two-pass (block_k=128)", c, 128, errs)
+    agree(torch, "bf16 T=333 causal dropout 0.1", fused, two, "bfloat16")
+    c = mk(2, 300, torch.bfloat16, False, "keypad", 0.1,
+           valid=[300, 77], d=128)
+    backward_check(torch, attn, "bf16 D=128 T=300 key-padding dropout 0.1 "
+                   "fused", c, 1024, errs)
+    c = mk(2, 200, torch.float16, True, "keypad", 0.0, valid=[200, 131],
+           d=40)
+    backward_check(torch, attn, "fp16 D=40 T=200 causal key-padding fused",
+                   c, 1024, errs)
     # long sequence: the two-pass pair by the default block_k, causal
     c = mk(2, 2048, torch.bfloat16, True, None, 0.0)
     backward_check(torch, attn, "bf16 T=2048 causal two-pass", c, 1024,
@@ -1569,7 +1688,14 @@ def phase_train(torch, dev):
         train_step(torch, autograd, net, loss_fn, trainer, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    device_breakdown(prof, wall_ms, "phase 5: profiled step")
+    busy, _ = device_breakdown(prof, wall_ms, "phase 5: profiled step")
+    if busy:
+        bwd = sum(v for k, v in kernel_times(prof).items()
+                  if re.search(ATTN_GROUPS["flash backward"], k))
+        print(f"phase 5: device busy {busy:.3f} ms a step, of it the flash "
+              f"backward kernels {bwd:.3f} ms ({bwd / busy:.3f}) [with the "
+              f"mma.sync backward: {MMA_SYNC_STEP_MS[0]} ms busy, "
+              f"{MMA_SYNC_STEP_MS[1]} ms backward]", flush=True)
     # the step's three parts by host clock, each ended by a synchronize
     tok, typ, vl, pos, lab = batch
     split = {"forward+loss": 0.0, "backward": 0.0, "trainer.step": 0.0}
@@ -2302,6 +2428,9 @@ def main() -> int:
     ap.add_argument("--probe-fwd", action="store_true",
                     help="after phase 3, time the flash forward against "
                     "builds of it with one part cut out")
+    ap.add_argument("--probe-bwd", action="store_true",
+                    help="after phase 3, time the fused flash backward "
+                    "against builds of it with one part cut out")
     args = ap.parse_args()
 
     import torch
@@ -2328,9 +2457,14 @@ def main() -> int:
     if args.only != "rtc":
         # phase 2
         t0 = time.perf_counter()
-        built = _kernels.build_all(variants=[
-            ("flash_attention_fwd", (d,)) for d in FWD_CUTS.values()]
-            if args.probe_fwd else ())
+        variants = []
+        if args.probe_fwd:
+            variants += [("flash_attention_fwd", (d,))
+                         for d in FWD_CUTS.values()]
+        if args.probe_bwd:
+            variants += [("flash_attention_bwd", (d,))
+                         for d in BWD_CUTS.values()]
+        built = _kernels.build_all(variants=variants)
         print(f"phase 2: built {sorted(built)} in "
               f"{time.perf_counter() - t0:.1f} s "
               f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
@@ -2340,9 +2474,11 @@ def main() -> int:
 
         # phase 3
         rows = phase_kernels(torch, dev)
+        from mxnet_tpu_torch.ops.cuda import attention as attn
         if args.probe_fwd:
-            from mxnet_tpu_torch.ops.cuda import attention as attn
             forward_probe(torch, dev, attn)
+        if args.probe_bwd:
+            backward_probe(torch, dev, attn)
 
         launches = {n: None for n in KERNEL_INFO}
         if args.only is None:

@@ -23,11 +23,43 @@
 // What bounds it on an H100: the five products are 10*T*T*D flops against
 // about 8*T*D*2 bytes per (batch, head) in 16 bits; at BERT shapes (T = 512,
 // D = 64) that is ~320 flops a byte, near the card's ~295, so operations
-// and bytes bound it about equally (PERF.md). The design keeps every T x T
-// quantity (s, p, dp, ds) in registers and shared memory, never in device
-// memory unless the bias gradient asks for ds:
+// and bytes bound it about equally (PERF.md). Above that floor come the
+// T*T exponentials on the special-function unit, dropout's Philox on the
+// FMA pipe and the dq sums added across key tiles. Every T x T quantity (s,
+// p, dp, ds) stays in registers and shared memory, never in device memory
+// unless the bias gradient asks for ds:
 //
-// - dkv (and fused): one block of 4 warps per (batch, head, 64-key tile);
+// - fused (16-bit, bwd_fused_wg, FlashAttention-3's backward on the
+//   design of flash_attention_fwd.cu): a block of three warpgroups owns 128 keys of one
+//   (batch, head). One producer warp loads K and V once by TMA (128-byte
+//   swizzle, zero fill past Tk and past D) and then streams 64-row tiles
+//   of q and dout, with their lse (base 2, +inf past Tq so p = 0 there)
+//   and delta rows, through a ring of 2-3 stages on mbarriers; its
+//   warpgroup hands its registers to the consumers (setmaxnreg 32 / 232).
+//   Each of the two consumer warpgroups owns 64 keys and keeps their dk
+//   and dv in f32 registers over the walk. Per q tile it computes
+//   s^T = K q^T and dp^T = V dout^T by wgmma (K-major operands), p^T with
+//   ex2 and scale * log2(e) folded into one FMA (the key-padding bias of
+//   its two keys read once, in base-2 units), the dropout mask (one Philox
+//   call per 2 x 2 block, shared by the two lanes holding keys 2i and 2i+1
+//   by shuffle), and then dv += p_d^T dout and dk += ds^T q by wgmma with
+//   p_d^T and ds^T as the register A operand and dout, q as the MN-major B.
+//   ds^T goes transposed (stmatrix) into a swizzled ds [q][key] panel;
+//   dq = ds K over the warpgroup's 64 keys is one more wgmma, whose f32
+//   result goes through a shared-memory staging buffer (two at DP = 64,
+//   so one add can still be reading while the next tile is written) to one
+//   bulk reduce-add (cp.reduce.async.bulk .add.f32) into the caller's
+//   zeroed f32 accumulator, laid out (B, H, Tq rounded up to 64, DP + 8)
+//   so that a tile is one contiguous run (the 8 padding floats of a row put
+//   the rows of a shared-memory store on different banks). dk and dv leave
+//   by TMA stores. The order in which the
+//   key tiles' partial sums reach dq changes from run to run, so dq is not
+//   bitwise reproducible (it agrees to rounding). Head dims pad to DP = 64
+//   or 128 (D <= 128). Built with -DMXT_BWD_CUT=1 the Philox words are
+//   replaced by a hash, =2 the ds store and dq product and add are cut, =3
+//   the exponentials are cut; the results are wrong and chip_smoke.py
+//   --probe-bwd times each beside the full kernel.
+// - dkv (two-pass): one block of 4 warps per (batch, head, 64-key tile);
 //   each warp owns 16 keys and holds their dk and dv rows in registers while
 //   the block walks over 64-row tiles of q and dout, double-buffered through
 //   cp.async. Each warp computes s^T = k q^T and dp^T = v dout^T on the
@@ -35,24 +67,27 @@
 //   out of the accumulators already as the A operands of dv += p_d^T dout
 //   and dk += ds^T q, whose B operands come out of the row-major q and dout
 //   tiles through ldmatrix.trans. Causal blocks start at the diagonal tile.
-// - fused: the same block also writes ds (16-bit, scaled) to shared memory
-//   and each warp multiplies 16 of its rows by the resident k tile; the
-//   partial dq goes to an f32 (B, H, Tq, D) buffer by atomicAdd, which the
-//   caller casts to q's dtype. One pass over q, k, v and dout, at the price
-//   of a dq summation order that changes from run to run.
 // - dq (two-pass): one block per (batch, head, 64-row q tile), laid out as
 //   the forward: it walks over 64-key tiles of k and v and keeps dq in
 //   registers; ds comes out of the s accumulators as the A operand of
 //   dq += ds k. Deterministic, with the dkv kernel as its pair.
 //
 // f32 inputs take FMA kernels with the same structure (D/16 threads per row,
-// 16 columns each) and expf, so f32 stays at f32 accuracy. TMA, wgmma and
-// warp specialisation are left for later.
+// 16 columns each) and expf, so f32 stays at f32 accuracy; the fused one
+// adds dq with scalar atomics.
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
+#include "tma_host.cuh"
+
+#ifndef MXT_BWD_CUT
+#define MXT_BWD_CUT 0
+#endif
 
 namespace {
 
@@ -266,20 +301,18 @@ __global__ void __launch_bounds__(128) bwd_dq_mma(BwdArgs a) {
   store_c<T, DP>(dqp, a.dq_st, acc, row[0], a.Tq, a.D, t4);
 }
 
-// ------------------------------------------------- dk, dv (+ dq) (16-bit)
-template <typename T, int DP, bool FUSED>
+// ------------------------------------------------ dk, dv (two-pass, 16-bit)
+template <typename T, int DP>
 __global__ void __launch_bounds__(128) bwd_dkv_mma(BwdArgs a) {
   constexpr int QS = DP + PAD;
   constexpr int TILE = BM * QS;
-  constexpr int SS = BN + PAD;  // row stride of the ds tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
   uint16_t* sV = sK + BN * QS;
   uint16_t* sQ = sV + BN * QS;   // two Q tiles
   uint16_t* sO = sQ + 2 * TILE;  // two dout tiles
-  uint16_t* sS = sO + 2 * TILE;  // ds (scaled) as [q][key], fused only
-  float* sL = reinterpret_cast<float*>(sS + (FUSED ? BM * SS : 0));  // 2 x BM
-  float* sD = sL + 2 * BM;                                          // 2 x BM
+  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // 2 x BM
+  float* sD = sL + 2 * BM;                              // 2 x BM
 
   const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -372,8 +405,6 @@ __global__ void __launch_bounds__(128) bwd_dkv_mma(BwdArgs a) {
           float pd, ds0;
           score_grad<true>(a, bp, s[nt][e], dp[nt][e], qr, krow[i],
                            cL[ql + j], cD[ql + j], keep, pd, ds0);
-          if (FUSED && a.ds && qr < a.Tq && krow[i] < a.Tk)
-            ds_row(a, b, h, qr)[krow[i]] = ds0;
           s[nt][e] = pd;
           dp[nt][e] = ds0 * a.scale;
         }
@@ -403,47 +434,7 @@ __global__ void __launch_bounds__(128) bwd_dkv_mma(BwdArgs a) {
       }
     }
 
-    if (FUSED) {
-      // ds as [q][key] in shared memory; then each warp multiplies 16 of its
-      // rows by the resident K tile and adds them into the f32 dq buffer
-#pragma unroll
-      for (int nt = 0; nt < BM / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sS[(nt * 8 + t4 * 2 + (e & 1)) * SS + wk + g + 8 * (e >> 1)] =
-              Half<T>::bits(dp[nt][e]);
-      __syncthreads();
-      float c[DP / 8][4];
-#pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[nd][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t af[4];
-        mxt::load_a<SS>(af, sS, warp * 16, kk * 16, g, t4);
-#pragma unroll
-        for (int nd = 0; nd < DP / 8; nd += 2) {
-          uint32_t bf[4];
-          mxt::ldmatrix_b_trans<QS>(bf, sK, kk * 16, nd * 8, lane);
-          Half<T>::mma(c[nd], af, bf);
-          Half<T>::mma(c[nd + 1], af, bf + 2);
-        }
-      }
-      float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = q0 + warp * 16 + g + 8 * i;
-        if (r >= a.Tq) continue;
-#pragma unroll
-        for (int nd = 0; nd < DP / 8; ++nd) {
-          const int col = nd * 8 + t4 * 2;
-          if (col < a.D) atomicAdd(dqp + r * a.dq_st + col, c[nd][2 * i]);
-          if (col + 1 < a.D) atomicAdd(dqp + r * a.dq_st + col + 1, c[nd][2 * i + 1]);
-        }
-      }
-    }
-    __syncthreads();  // buffer buf (and the ds tile) are refilled next
+    __syncthreads();  // buffer buf is refilled next
   }
 
   uint16_t* dkp = static_cast<uint16_t*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
@@ -451,6 +442,415 @@ __global__ void __launch_bounds__(128) bwd_dkv_mma(BwdArgs a) {
   store_c<T, DP>(dkp + k0 * a.dk_st, a.dk_st, dk, wk + g, a.Tk - k0, a.D, t4);
   store_c<T, DP>(dvp + k0 * a.dv_st, a.dv_st, dv, wk + g, a.Tk - k0, a.D, t4);
 }
+
+// ------------------------------------------ fused single pass (16-bit, wgmma)
+namespace fused {
+
+constexpr int BQ = 64;         // query rows per tile of the walk
+constexpr int WG_KEYS = 64;    // keys per consumer warpgroup
+constexpr int ROW_BYTES = 128; // one swizzled row: 64 16-bit values
+constexpr float LOG2E = 1.4426950408889634f;
+
+// TMA descriptors, 4-d (d, t, h, b): q, dout, k, v (loads), dk, dv (stores)
+struct Maps {
+  CUtensorMap q, o, k, v, dk, dv;
+};
+
+// Shared memory of one block, in bytes from a 1024-byte aligned base: K and
+// V (DP / 64 panels of KEYS rows), the ring of Q and dout tiles (DP / 64
+// panels of BQ rows each), each consumer warpgroup's ds panel (BQ queries x
+// 64 keys) and DQ_BUFS f32 dq staging buffers (BQ rows of DQ_LD), the
+// ring's lse and delta rows, the mbarriers.
+template <int DP, int NC, int STAGES>
+struct Smem {
+  static constexpr int KEYS = NC * WG_KEYS;
+  static constexpr int PANELS = DP / 64;
+  static constexpr int KV_PANEL = KEYS * ROW_BYTES;
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int Q_PANEL = BQ * ROW_BYTES;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int DQ_LD = DP + 8;  // floats from one dq row to the next
+  static constexpr int DQ_BYTES = BQ * DQ_LD * 4;
+  static constexpr int DQ_BUFS = DP == 64 ? 2 : 1;  // dq staging buffers
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;
+  static constexpr int O = Q + STAGES * Q_BYTES;
+  static constexpr int DS = O + STAGES * Q_BYTES;
+  static constexpr int DQ = DS + NC * Q_PANEL;
+  static constexpr int LSE = DQ + NC * DQ_BUFS * DQ_BYTES;
+  static constexpr int DELTA = LSE + STAGES * BQ * 4;
+  static constexpr int BAR = DELTA + STAGES * BQ * 4;
+  static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+};
+
+// The Philox words of this thread's four scores of one 8-query chunk
+// (keys ka and kb = ka + 8, queries qc and qc + 1), as w[e] for the
+// accumulator's element order (ka, qc), (ka, qc + 1), (kb, qc), (kb, qc + 1).
+// Keys are the rows here, so the two lanes holding keys 2i and 2i + 1 (lane
+// and lane ^ 4) share a call: the even lane draws the block of its key ka,
+// the odd lane that of its kb, and each swaps the two words the other needs.
+__device__ __forceinline__ void dropout_chunk(uint32_t* w, uint2 key, int b,
+                                              int h, int qc, int ka, int kb,
+                                              bool odd) {
+#if MXT_BWD_CUT == 1
+  const uint4 x = make_uint4(qc * 0x9E3779B9u, ka * 0x85EBCA6Bu,
+                             (qc ^ ka) * 0xC2B2AE35u, (qc + kb) * 0x27D4EB2Fu);
+#else
+  const uint4 x = mxt::dropout_words(key, b, h, qc, odd ? kb : ka);
+#endif
+  const uint32_t get0 = __shfl_xor_sync(0xffffffffu, odd ? x.x : x.y, 4);
+  const uint32_t get1 = __shfl_xor_sync(0xffffffffu, odd ? x.z : x.w, 4);
+  w[0] = odd ? get0 : x.x;
+  w[1] = odd ? get1 : x.z;
+  w[2] = odd ? x.y : get0;
+  w[3] = odd ? x.w : get1;
+}
+
+template <typename T, int DP, int NC, int STAGES>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+    bwd_fused_wg(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using L = Smem<DP, NC, STAGES>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* full = full_kv + 1;     // [STAGES]: Q, dout tile, lse, delta
+  uint64_t* empty = full + STAGES;  // [STAGES]: the consumer warps done
+  float* s_lse = reinterpret_cast<float*>(sm + L::LSE);
+  float* s_delta = reinterpret_cast<float*>(sm + L::DELTA);
+
+  const int k0 = blockIdx.x * L::KEYS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  // query tiles above the causal diagonal see none of these keys
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int n_tiles = max(0, (a.Tq + BQ - 1) / BQ - iq0);
+
+  if (tid == 0) {
+    hop::mbar_init(full_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(empty + s, 4 * NC);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= NC * 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    if (tid >= NC * 128 + 32) return;
+    const float* lsep = a.lse + bh * a.Tq;
+    const float* deltap = a.delta + bh * a.Tq;
+    if (lane == 0) {
+      hop::mbar_expect(full_kv, 2 * L::KV_BYTES);
+      for (int p = 0; p < L::PANELS; ++p) {
+        hop::tma_load_4d(sm + L::K + p * L::KV_PANEL, &maps.k, full_kv,
+                         p * 64, k0, h, b);
+        hop::tma_load_4d(sm + L::V + p * L::KV_PANEL, &maps.v, full_kv,
+                         p * 64, k0, h, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, q0 = (iq0 + it) * BQ;
+      if (it >= STAGES)
+        hop::mbar_wait_or_trap(empty + s, ((it / STAGES) + 1) & 1);
+      // lse in base-2 units, +inf past Tq (p = 0 there); delta 0 past Tq
+      for (int j = lane; j < BQ; j += 32) {
+        const int r = q0 + j;
+        s_lse[s * BQ + j] = r < a.Tq ? lsep[r] * LOG2E : INFINITY;
+        s_delta[s * BQ + j] = r < a.Tq ? deltap[r] : 0.f;
+      }
+      if (lane != 0) {
+        hop::mbar_arrive(full + s);
+      } else {
+        unsigned char* qt = sm + L::Q + s * L::Q_BYTES;
+        unsigned char* ot = sm + L::O + s * L::Q_BYTES;
+        hop::mbar_expect(full + s, 2 * L::Q_BYTES);
+        for (int p = 0; p < L::PANELS; ++p) {
+          hop::tma_load_4d(qt + p * L::Q_PANEL, &maps.q, full + s, p * 64, q0,
+                           h, b);
+          hop::tma_load_4d(ot + p * L::Q_PANEL, &maps.o, full + s, p * 64, q0,
+                           h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  const int kw = k0 + wg * WG_KEYS;          // the warpgroup's first key
+  const int ka = kw + warp * 16 + g, kb = ka + 8;  // this thread's keys
+  const bool odd = (g & 1) != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  // the key's term of the exponent in base-2 units, read once: the bias of
+  // a key-padding row (bias broadcast over Tq), -inf past Tk (p = 0 there)
+  float kterm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kk = i ? kb : ka;
+    kterm[i] = kk >= a.Tk ? -INFINITY
+               : (bp != nullptr && !full_bias) ? bp[kk * a.b_sk] * LOG2E
+                                               : 0.f;
+  }
+  const uint32_t base = hop::smem_u32(sm);
+  const uint32_t k_slice = base + L::K + wg * WG_KEYS * ROW_BYTES;
+  const uint32_t v_slice = base + L::V + wg * WG_KEYS * ROW_BYTES;
+  const uint32_t ds_panel = base + L::DS + wg * L::Q_PANEL;
+  float* dq_stage =
+      reinterpret_cast<float*>(sm + L::DQ + wg * L::DQ_BUFS * L::DQ_BYTES);
+  float* dq_base = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  const bool leader = (tid & 127) == 0;
+  // stmatrix: lane l stores row l % 8 of transposed matrix l / 8, i.e. the
+  // ds row of query 8 (2 kk + l / 16) + l % 8 at key chunk 2 warp + (l / 8) % 2
+  const int st_row = ((lane >> 4) << 3) + (lane & 7);
+  const int st_chunk = 2 * warp + ((lane >> 3) & 1);
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];  // s^T, dp^T: rows ka, kb; BQ / 4 queries
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+
+  // the staging buffers' padding columns add zeros to the accumulator's
+  for (int i = tid & 127; i < L::DQ_BUFS * BQ; i += 128) {
+    float4* pad = reinterpret_cast<float4*>(dq_stage + i * L::DQ_LD + DP);
+    pad[0] = pad[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  hop::mbar_wait_or_trap(full_kv, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, q0 = (iq0 + it) * BQ;
+    const uint32_t q_tile = base + L::Q + s * L::Q_BYTES;
+    const uint32_t o_tile = base + L::O + s * L::Q_BYTES;
+    const float* lq = s_lse + s * BQ;
+    const float* dl = s_delta + s * BQ;
+    hop::mbar_wait_or_trap(full + s, (it / STAGES) & 1);
+
+    // s^T = K Q^T and dp^T = V dout^T (K-major operands), a group each
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      hop::wgmma_ss<T, BQ>(
+          st, hop::desc_kmajor_sw128(k_slice + (kk >> 2) * L::KV_PANEL + off),
+          hop::desc_kmajor_sw128(q_tile + (kk >> 2) * L::Q_PANEL + off),
+          kk > 0);
+    }
+    hop::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      hop::wgmma_ss<T, BQ>(
+          dpt, hop::desc_kmajor_sw128(v_slice + (kk >> 2) * L::KV_PANEL + off),
+          hop::desc_kmajor_sw128(o_tile + (kk >> 2) * L::Q_PANEL + off),
+          kk > 0);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();
+    hop::fence_regs(st, BQ / 2);
+
+    // p = 2^(s scale log2(e) + bias - lse), element i: key i & 2 ? kb : ka,
+    // query q0 + 8 (i / 4) + 2 t4 + (i & 1); each variant one straight run
+    if (!full_bias) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + 2 * t4);
+        st[4 * j] = fmaf(st[4 * j], scale2, kterm[0]) - l2.x;
+        st[4 * j + 1] = fmaf(st[4 * j + 1], scale2, kterm[0]) - l2.y;
+        st[4 * j + 2] = fmaf(st[4 * j + 2], scale2, kterm[1]) - l2.x;
+        st[4 * j + 3] = fmaf(st[4 * j + 3], scale2, kterm[1]) - l2.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int kk = (i & 2) ? kb : ka;
+        const float bv = r < a.Tq && kk < a.Tk
+                             ? bp[r * a.b_sq + kk * a.b_sk] * LOG2E : 0.f;
+        st[i] = fmaf(st[i], scale2, kterm[(i >> 1) & 1] + bv) -
+                lq[8 * (i >> 2) + 2 * t4 + (i & 1)];
+      }
+    }
+    if (a.causal && q0 < kw + WG_KEYS - 1) {  // the tile crosses the diagonal
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (((i & 2) ? kb : ka) > r) st[i] = -INFINITY;
+      }
+    }
+#if MXT_BWD_CUT != 3
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = hop::ex2(st[i]);
+#endif
+
+    // p_d (dropout) into st, ds0 = p (dp_d - delta) into dpt
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dpt, BQ / 2);
+    if (a.dropout) {
+      const uint32_t th = a.drop_threshold;
+      const float dsc = a.drop_scale;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        uint32_t w[4];
+        dropout_chunk(w, key, b, h, q0 + 8 * j + 2 * t4, ka, kb, odd);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const bool keep = w[e] >= th;
+          const float p = st[i];
+          const float dp = keep ? dpt[i] * dsc : 0.f;
+          st[i] = keep ? p * dsc : 0.f;
+          dpt[i] = p * (dp - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    }
+    if (a.ds != nullptr) {  // the learned bias's gradient: ds0 in f32
+      float* dsp = a.ds + bh * a.Tq * static_cast<long long>(a.Tk);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int kk = (i & 2) ? kb : ka;
+        if (r < a.Tq && kk < a.Tk) dsp[r * static_cast<long long>(a.Tk) + kk] = dpt[i];
+      }
+    }
+
+    // dv += p_d^T dout and dk += (ds0 scale)^T q: p_d^T and ds^T as the
+    // register A operand, dout and Q as the MN-major B operand
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pf[kk][r] = Half<T>::pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        df[kk][r] = Half<T>::pack(dpt[8 * kk + 2 * r] * a.scale,
+                                  dpt[8 * kk + 2 * r + 1] * a.scale);
+      }
+#if MXT_BWD_CUT != 2
+    // ds as [query][key] into this warpgroup's swizzled panel: the
+    // transposed 8 x 8 blocks of df by stmatrix, the K-major A operand of
+    // dq = ds K below (the last product that read the panel is done)
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const int row = 16 * kk + st_row;
+      hop::stmatrix_x4_trans(
+          ds_panel + row * ROW_BYTES + ((st_chunk ^ (row & 7)) << 4), df[kk]);
+    }
+#endif
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hop::wgmma_rs<T, DP, 1>(
+          dv, pf[kk],
+          hop::desc_mnmajor_sw128(o_tile + kk * 16 * ROW_BYTES, L::Q_PANEL), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hop::wgmma_rs<T, DP, 1>(
+          dk, df[kk],
+          hop::desc_mnmajor_sw128(q_tile + kk * 16 * ROW_BYTES, L::Q_PANEL), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dv, DP / 2);
+    hop::fence_regs(dk, DP / 2);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + s);  // Q, dout, lse, delta used
+
+#if MXT_BWD_CUT != 2
+    // dq of this warpgroup's 64 keys: ds (A, K-major) times its K slice
+    // (B, MN-major), once every warp's ds rows are in the panel and the
+    // bulk add that last read this tile's staging buffer is done reading
+    if (leader) hop::bulk_wait_read<L::DQ_BUFS - 1>();
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    float acc[DP / 2];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_KEYS / 16; ++kk)
+      hop::wgmma_ss<T, DP, 1>(
+          acc, hop::desc_kmajor_sw128(ds_panel + kk * 32),
+          hop::desc_mnmajor_sw128(k_slice + kk * 16 * ROW_BYTES, L::KV_PANEL),
+          kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc, DP / 2);
+    // through shared memory to one bulk f32 add; the rows of the staging
+    // buffer (and of the accumulator) are DQ_LD = DP + 8 floats apart,
+    // which puts the 8 rows of a store on different banks
+    float* stage = dq_stage + (it % L::DQ_BUFS) * (L::DQ_BYTES / 4);
+    const int row = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      *reinterpret_cast<float2*>(stage + row * L::DQ_LD + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(stage + (row + 8) * L::DQ_LD + 8 * j +
+                                 2 * t4) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    hop::fence_async_smem();
+    hop::named_sync(1 + wg, 128);
+    if (leader) {
+      hop::bulk_reduce_add_f32(dq_base + q0 * a.dq_st, stage, L::DQ_BYTES);
+      hop::bulk_commit();
+    }
+#endif
+  }
+
+  // ------------------------------------------------------------- epilogue
+  // dk and dv through this warpgroup's K and V slices (its last reads of
+  // them are done), in the swizzled layout of the store's tensor map; one
+  // thread stores each 64-wide panel
+  hop::named_sync(1 + wg, 128);
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int off = (j >> 3) * L::KV_PANEL + wg * WG_KEYS * ROW_BYTES;
+    const int chunk = ((j & 7) ^ (row & 7)) * 16 + t4 * 4;
+    unsigned char* kp = sm + L::K + off;
+    unsigned char* vp = sm + L::V + off;
+    *reinterpret_cast<uint32_t*>(kp + row * ROW_BYTES + chunk) =
+        Half<T>::pack(dk[4 * j], dk[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(kp + (row + 8) * ROW_BYTES + chunk) =
+        Half<T>::pack(dk[4 * j + 2], dk[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(vp + row * ROW_BYTES + chunk) =
+        Half<T>::pack(dv[4 * j], dv[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(vp + (row + 8) * ROW_BYTES + chunk) =
+        Half<T>::pack(dv[4 * j + 2], dv[4 * j + 3]);
+  }
+  hop::fence_async_smem();
+  hop::named_sync(1 + wg, 128);
+  if (leader) {
+    if (kw < a.Tk) {
+      for (int p = 0; p < L::PANELS; ++p) {
+        const int off = p * L::KV_PANEL + wg * WG_KEYS * ROW_BYTES;
+        hop::tma_store_4d(&maps.dk, sm + L::K + off, p * 64, kw, h, b);
+        hop::tma_store_4d(&maps.dv, sm + L::V + off, p * 64, kw, h, b);
+      }
+    }
+    hop::tma_store_commit_and_wait();
+    hop::bulk_wait<0>();  // every dq add has landed
+  }
+}
+
+}  // namespace fused
 
 // ------------------------------------------------------------ dq (f32, FMA)
 // DP / 16 threads per query row, 16 head columns each; K and V tiles in
@@ -666,10 +1066,48 @@ cudaError_t launch_half(int kind, const BwdArgs& a, cudaStream_t st) {
   }
   dim3 grid((a.Tk + BN - 1) / BN, a.H, a.B);
   const size_t base = (2 * BN + 4 * BM) * QS * E + 4 * BM * sizeof(float);
-  if (kind == FUSED)
-    return launch(bwd_dkv_mma<T, DP, true>, grid, 128,
-                  base + BM * (BN + PAD) * E, a, st);
-  return launch(bwd_dkv_mma<T, DP, false>, grid, 128, base, a, st);
+  return launch(bwd_dkv_mma<T, DP>, grid, 128, base, a, st);
+}
+
+template <typename T, int DP, int NC, int STAGES>
+cudaError_t launch_fused(const BwdArgs& a, const fused::Maps& maps,
+                         cudaStream_t stream) {
+  using L = fused::Smem<DP, NC, STAGES>;
+  auto kern = fused::bwd_fused_wg<T, DP, NC, STAGES>;
+  cudaError_t e = mxt::set_smem(kern, L::ALLOC);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.Tk + L::KEYS - 1) / L::KEYS, a.H, a.B);
+  kern<<<grid, (NC + 1) * 128, L::ALLOC, stream>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// The fused single pass: q, dout, k, v read and dk, dv written by TMA (the
+// caller passes views TMA can address); dq added into the f32 accumulator
+// (B, H, Tq rounded up to 64, DP + 8), contiguous, DP = 64 or 128.
+template <typename T>
+cudaError_t dispatch_fused(const BwdArgs& a, cudaStream_t st) {
+  const int ld = (a.D <= 64 ? 64 : 128) + 8;
+  const long long rows = (a.Tq + fused::BQ - 1) / fused::BQ * fused::BQ;
+  if (a.dq_st != ld || a.dq_sh != rows * ld || a.dq_sb != a.H * rows * ld)
+    return cudaErrorInvalidValue;
+  const CUtensorMapDataType type = mxt::TmaType<T>::value;
+  constexpr int NC = 2, KEYS = NC * fused::WG_KEYS;
+  fused::Maps maps;
+  if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
+                     a.q_sh, a.q_sb, fused::BQ) ||
+      !mxt::make_map(&maps.o, type, a.dout, a.D, a.Tq, a.H, a.B, a.o_st,
+                     a.o_sh, a.o_sb, fused::BQ) ||
+      !mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
+                     a.k_sh, a.k_sb, KEYS) ||
+      !mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
+                     a.v_sh, a.v_sb, KEYS) ||
+      !mxt::make_map(&maps.dk, type, a.dk, a.D, a.Tk, a.H, a.B, a.dk_st,
+                     a.dk_sh, a.dk_sb, fused::WG_KEYS) ||
+      !mxt::make_map(&maps.dv, type, a.dv, a.D, a.Tk, a.H, a.B, a.dv_st,
+                     a.dv_sh, a.dv_sb, fused::WG_KEYS))
+    return cudaErrorInvalidValue;
+  if (a.D <= 64) return launch_fused<T, 64, NC, 3>(a, maps, st);
+  return launch_fused<T, 128, NC, 2>(a, maps, st);
 }
 
 template <int DP>
@@ -690,6 +1128,7 @@ cudaError_t launch_f32(int kind, const BwdArgs& a, cudaStream_t st) {
 
 template <typename T>
 cudaError_t dispatch_half(int kind, const BwdArgs& a, cudaStream_t st) {
+  if (kind == FUSED) return dispatch_fused<T>(a, st);
   if (a.D <= 32) return launch_half<T, 32>(kind, a, st);
   if (a.D <= 64) return launch_half<T, 64>(kind, a, st);
   return launch_half<T, 128>(kind, a, st);
@@ -701,11 +1140,17 @@ cudaError_t dispatch_half(int kind, const BwdArgs& a, cudaStream_t st) {
 // zeroes, dk, dv), 1 = dq of the two-pass pair (dq in q's dtype), 2 = dk, dv
 // of the two-pass pair. dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 // strides (in elements): q, k, v, dout, dq, dk, dv as (b, h, t) each, then
-// bias (b, h, q, k); the head dimension has unit stride everywhere. lse and
-// delta are (B, H, Tq) contiguous f32. bias is f32 or null. ds, when not
-// null, is a zeroed (B, H, Tq, Tk) f32 buffer that kernels 0 and 1 fill with
-// p * (dp - delta). seed/dropout/drop_threshold/drop_scale as in
-// mxt_flash_attention_fwd. Returns cudaGetLastError().
+// bias (b, h, q, k); the head dimension has unit stride everywhere. For
+// kind 0 with 16-bit data, q, k, v, dout, dk and dv must be views TMA can
+// address (16-byte aligned, strides of dimensions longer than 1 multiples
+// of 8; the Python wrapper copies other operands) and dq the contiguous
+// (B, H, Tq rounded up to 64, DP + 8) accumulator, DP = 64 for D <= 64,
+// else 128. lse and delta are (B, H, Tq) contiguous f32. bias is f32 or
+// null.
+// ds, when not null, is a zeroed (B, H, Tq, Tk) f32 buffer that kernels 0
+// and 1 fill with p * (dp - delta). seed/dropout/drop_threshold/drop_scale
+// as in mxt_flash_attention_fwd. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int mxt_flash_attention_bwd(
     int kind, int dtype, const void* q, const void* k, const void* v,
     const void* dout, const float* bias, const float* lse, const float* delta,

@@ -63,6 +63,7 @@
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tma_host.cuh"
 
 #ifndef MXT_FWD_CUT
 #define MXT_FWD_CUT 0
@@ -540,65 +541,6 @@ __global__ void __launch_bounds__(2 * BM) flash_fwd_f32(Args a) {
 }
 
 // ------------------------------------------------------------------ host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d map (d, t, h, b) of a 16-bit (B, H, T, D) view with element strides
-// st, sh, sb, read or written in boxes of 64 x `rows` with the 128-byte
-// swizzle. A dimension of size 1 gets a stride TMA accepts (it is never
-// stepped). False when TMA cannot describe the view: the base is not 16-byte
-// aligned, or a stride is not a multiple of 16 bytes.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-              int D, int T, int H, int B, long long st, long long sh,
-              long long sb, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const long long elem[3] = {st, sh, sb};
-  cuuint64_t strides[3];
-  cuuint64_t extent = static_cast<cuuint64_t>(D) * 2;
-  for (int i = 0; i < 3; ++i) {
-    cuuint64_t bytes = static_cast<cuuint64_t>(elem[i]) * 2;
-    if (dims[i + 1] == 1) bytes = (extent + 15) / 16 * 16;
-    strides[i] = bytes;
-    extent = bytes * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
-                step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int DP, int STAGES, int KEYS>
 cudaError_t launch_wgmma(const Args& a, const Maps& maps,
                          cudaStream_t stream) {
@@ -612,29 +554,18 @@ cudaError_t launch_wgmma(const Args& a, const Maps& maps,
 }
 
 template <typename T>
-struct TmaType;
-template <>
-struct TmaType<__nv_bfloat16> {
-  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-};
-template <>
-struct TmaType<__half> {
-  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-};
-
-template <typename T>
 cudaError_t dispatch_half(const Args& a, cudaStream_t stream) {
-  const CUtensorMapDataType type = TmaType<T>::value;
+  const CUtensorMapDataType type = mxt::TmaType<T>::value;
   const int keys = a.D <= 128 ? 128 : 64;  // keys per K / V tile
   Maps maps;
-  if (!make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st, a.q_sh,
-                a.q_sb, ROWS) ||
-      !make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st, a.k_sh,
-                a.k_sb, keys) ||
-      !make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st, a.v_sh,
-                a.v_sb, keys) ||
-      !make_map(&maps.o, type, a.o, a.D, a.Tq, a.H, a.B, a.o_st, a.o_sh,
-                a.o_sb, WG_ROWS))
+  if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
+                     a.q_sh, a.q_sb, ROWS) ||
+      !mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
+                     a.k_sh, a.k_sb, keys) ||
+      !mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
+                     a.v_sh, a.v_sb, keys) ||
+      !mxt::make_map(&maps.o, type, a.o, a.D, a.Tq, a.H, a.B, a.o_st,
+                     a.o_sh, a.o_sb, WG_ROWS))
     return cudaErrorInvalidValue;
   if (a.D <= 64) return launch_wgmma<T, 64, 3, 128>(a, maps, stream);
   if (a.D <= 128) return launch_wgmma<T, 128, 2, 128>(a, maps, stream);

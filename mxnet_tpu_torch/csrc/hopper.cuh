@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks: wgmma on shared-memory operands in the
 // canonical no-swizzle layout, mbarriers, 1-D bulk copies and the 8/16-byte
 // cp.async that zero-fills, used by conv_fused.cu's dgrad and wgrad kernels;
-// and, for flash_attention_fwd.cu, wgmma on 128-byte-swizzled operands (B,
-// and A either swizzled or in registers), tensor (TMA) copies and named
-// barriers (the second half of this file).
+// and, for the flash-attention kernels, wgmma on 128-byte-swizzled operands
+// (B K-major or MN-major, A swizzled or in registers), tensor (TMA) copies,
+// named barriers, stmatrix and the bulk f32 reduce-add into global memory
+// (the second half of this file).
 //
 // The operand layout ("INTERLEAVE", no swizzle): a tile of R rows along M
 // (or N) and 64 along K is stored as 8 x 8 core matrices of 128 contiguous
@@ -243,19 +244,19 @@ __device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr,
       HOP_D8(120)  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 
-#define HOP_WGMMA_SS_64(TY)  \
+#define HOP_WGMMA_SS_64(TY, TB)  \
   asm volatile(  \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
       "%28, %29, %30, %31},"  \
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"  \
+      "%32, %33, p, 1, 1, 0, " TB ";\n}\n"  \
       :  \
       HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24)  \
       : "l"(da), "l"(db), "r"(scale_d))
 
-#define HOP_WGMMA_SS_128(TY)  \
+#define HOP_WGMMA_SS_128(TY, TB)  \
   asm volatile(  \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
@@ -264,7 +265,7 @@ __device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"  \
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"  \
+      "%64, %65, p, 1, 1, 0, " TB ";\n}\n"  \
       :  \
       HOP_D8(0), HOP_D8(8), HOP_D8(16), HOP_D8(24), HOP_D8(32),  \
       HOP_D8(40), HOP_D8(48), HOP_D8(56)  \
@@ -277,9 +278,9 @@ __device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr,
 template <typename T, int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int scale_d);
-// d (N / 2 f32 per thread) = / += A (64 x 16) * B (16 x N), both K-major
-// from shared memory.
-template <typename T, int N>
+// d (N / 2 f32 per thread) = / += A (64 x 16) * B (16 x N), both from
+// shared memory, A K-major; TB: 0 K-major B, 1 MN-major.
+template <typename T, int N, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d);
 
@@ -296,16 +297,20 @@ HOP_RS(__half, "f16", 64, 1)
 HOP_RS(__half, "f16", 128, 1)
 HOP_RS(__half, "f16", 256, 1)
 #undef HOP_RS
-#define HOP_SS(TYPE, TY, N)                                                \
+#define HOP_SS(TYPE, TY, N, TB)                                            \
   template <>                                                              \
-  __device__ __forceinline__ void wgmma_ss<TYPE, N>(                       \
+  __device__ __forceinline__ void wgmma_ss<TYPE, N, TB>(                   \
       float* d, uint64_t da, uint64_t db, int scale_d) {                   \
-    HOP_WGMMA_SS_##N(TY);                                                  \
+    HOP_WGMMA_SS_##N(TY, #TB);                                             \
   }
-HOP_SS(__nv_bfloat16, "bf16", 64)
-HOP_SS(__nv_bfloat16, "bf16", 128)
-HOP_SS(__half, "f16", 64)
-HOP_SS(__half, "f16", 128)
+HOP_SS(__nv_bfloat16, "bf16", 64, 0)
+HOP_SS(__nv_bfloat16, "bf16", 128, 0)
+HOP_SS(__half, "f16", 64, 0)
+HOP_SS(__half, "f16", 128, 0)
+HOP_SS(__nv_bfloat16, "bf16", 64, 1)
+HOP_SS(__nv_bfloat16, "bf16", 128, 1)
+HOP_SS(__half, "f16", 64, 1)
+HOP_SS(__half, "f16", 128, 1)
 #undef HOP_SS
 #undef HOP_WGMMA_RS_64
 #undef HOP_WGMMA_RS_128
@@ -358,6 +363,64 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 }
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Four 8 x 8 16-bit matrices stored transposed: r[i] holds matrix i in the
+// mma fragment layout (lane l: row l / 4, columns 2 (l % 4) and + 1); lane l
+// gives the shared-memory address of row l % 8 of transposed matrix l / 8
+// (column l % 8 of the fragment's matrix, 16 contiguous bytes).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t* r) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of f32 in
+// shared memory added element by element into global memory, atomically
+// per element, in the thread's bulk group. The source may be rewritten
+// once bulk_wait_read<n> has returned; the sums are complete in global
+// memory after bulk_wait<n>.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbar_wait that traps (a launch error, not a hung card) when the phase
+// has not completed within about 2^32 clock cycles
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 32)) __trap();
+  }
 }
 
 // 2^x on the special-function unit (flushes subnormals to zero)

@@ -20,12 +20,20 @@ The forward takes head dims up to 256 and reads 16-bit q, k and v by TMA,
 which needs a 16-byte aligned base and strides that are multiples of 16
 bytes; an operand that lacks either is first copied into a padded
 contiguous buffer, and :data:`padded_copies` counts those copies. The
-backward kernels take head dims up to 128: a gradient through attention
-with a larger head dim raises before the forward runs.
+16-bit fused backward reads q, k, v and dout and writes dk and dv by TMA
+under the same rule and count. The backward kernels take head dims up to
+128: a gradient through attention with a larger head dim raises before the
+forward runs.
 The backward takes the fused single pass when Tk fits one k-block
 (``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule.
-The fused kernel adds dq across key tiles with f32 atomics, so its dq is
-not bitwise reproducible from run to run; the two-pass pair is.
+The fused kernel adds each key tile's share of dq into a zeroed f32
+accumulator of the port's own layout, (B, H, Tq rounded up to 64, DP + 8)
+(:func:`dq_accumulator`: one contiguous run per 64-row tile, added by one
+bulk reduce-add in 16 bits, by scalar atomics in f32), and
+:func:`dq_from_accumulator` casts it into the (B, T, H, D) layout the model
+reads. The order in which the key tiles' shares arrive changes from run to
+run, so the fused dq is reproducible to rounding, not bit for bit; the
+two-pass pair is deterministic.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from ...base import MXNetError
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward_reference", "dropout_keep_reference",
            "launches", "padded_copies", "KERNELS", "DEFAULT_BLOCK_Q",
-           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM_FWD", "MAX_HEAD_DIM_BWD"]
+           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM_FWD", "MAX_HEAD_DIM_BWD",
+           "dq_accumulator", "dq_from_accumulator"]
 
 _NEG_INF = -1e30
 
@@ -58,6 +67,10 @@ launches = {name: 0 for name in KERNELS}
 padded_copies = 0
 MAX_HEAD_DIM_FWD = 256
 MAX_HEAD_DIM_BWD = 128
+# rows of one tile of the fused backward's dq accumulator, and the floats
+# that pad each of its rows
+DQ_TILE_ROWS = 64
+DQ_ROW_PAD = 8
 _COUNT_LOCK = threading.Lock()
 _FNS = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -325,6 +338,21 @@ def _tma_operand(t):
     return _padded_buffer(t).copy_(t)
 
 
+def _bthd_empty(B, H, T, D, dtype, device):
+    """An empty (B, H, T, D) view of a (B, T, H, D) buffer, the layout the
+    model merges heads from without a copy, with rows padded to a multiple
+    of 8 elements so that TMA writes it in place."""
+    return torch.empty((B, T, H, -(-D // 8) * 8), dtype=dtype,
+                       device=device)[..., :D].transpose(1, 2)
+
+
+def _padded_output(t):
+    """A counted padded buffer standing in for an output TMA cannot
+    write in place; the caller copies it back."""
+    _count_copy()
+    return _padded_buffer(t)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -342,8 +370,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     if q.dtype != torch.float32:
         q, k, v = (_tma_operand(t) for t in (q, k, v))
         if not _tma_ready(out):
-            _count_copy()
-            out = _padded_buffer(out)
+            out = _padded_output(out)
     ts = (q, k, v, out)
     flat = [s for t in ts for s in _bht(t)]
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
@@ -366,19 +393,52 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
         dest.copy_(out)
 
 
+def dq_accumulator(B: int, H: int, Tq: int, D: int, device) -> torch.Tensor:
+    """The fused backward's zeroed f32 dq accumulator: (B, H, Tq rounded
+    up to 64, DP + 8), contiguous, DP = 64 for D <= 64 and 128 above, so
+    each 64-row tile of one (batch, head) is one contiguous run that the
+    kernel adds in one bulk reduce-add (the 8 padding floats of a row keep
+    its shared-memory staging free of bank conflicts; they receive zeros).
+    Only the first Tq rows and D columns are dq."""
+    rows = -(-Tq // DQ_TILE_ROWS) * DQ_TILE_ROWS
+    return torch.zeros((B, H, rows, (64 if D <= 64 else 128) + DQ_ROW_PAD),
+                       dtype=torch.float32, device=device)
+
+
+def dq_from_accumulator(acc: torch.Tensor, Tq: int, D: int,
+                        dtype) -> torch.Tensor:
+    """dq as a (B, H, Tq, D) view of a dense (B, Tq, H, D) tensor of
+    ``dtype`` (the layout of the model's projections), cast from the
+    accumulator's first Tq rows and D columns."""
+    B, H = acc.shape[:2]
+    dq = torch.empty((B, Tq, H, D), dtype=dtype,
+                     device=acc.device).transpose(1, 2)
+    return dq.copy_(acc[:, :, :Tq, :D])
+
+
 def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
-                ds, scale: float, causal: bool) -> None:
-    """One backward kernel on (B, H, T, D) views. ``dq`` is an f32
-    accumulator for the fused kernel, q's dtype for the dq kernel; kernels
-    that do not write an output get None for it."""
+                ds, scale: float, causal: bool, fn=None) -> None:
+    """One backward kernel on (B, H, T, D) views. ``dq`` is the
+    :func:`dq_accumulator` for the fused kernel, q's dtype for the dq
+    kernel; kernels that do not write an output get None for it. The 16-bit
+    fused kernel reads q, k, v, do and writes dk, dv by TMA: operands it
+    cannot address are copied first and outputs written to a padded buffer
+    and copied back (:func:`_tma_operand`, counted). ``fn``: another build
+    of the same C entry (``chip_smoke.py --probe-bwd``); its launches are
+    not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
+    dests = (dk, dv)
+    if name == "flash_attention_bwd_fused" and q.dtype != torch.float32:
+        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
+        dk, dv = (t if _tma_ready(t) else _padded_output(t) for t in dests)
     ts = (q, k, v, do)
     flat = [s for t in ts for s in _bht(t)]
     vec = _vec(ts, flat)
     outs = [_bht(t) if t is not None else [0, 0, 0] for t in (dq, dk, dv)]
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
-    fn = _kernel(name)
+    variant = fn is not None
+    fn = fn or _kernel(name)
     arr = (ctypes.c_longlong * 25)(
         *(flat + [s for o in outs for s in o] + bstrides))
     with torch.cuda.device(q.device):
@@ -391,7 +451,11 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
                  drop_scale, stream)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
-    _count(name)
+    if not variant:
+        _count(name)
+    for dest, t in zip(dests, (dk, dv)):
+        if t is not dest:
+            dest.copy_(t)
 
 
 def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
@@ -403,9 +467,7 @@ def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
         return flash_attention_reference(q, k, v, bias, scale, causal, seed,
                                          rate)
     B, H, Tq, D = q.shape
-    # rows padded to a multiple of 8 elements, so that TMA stores in place
-    out = torch.empty((B, Tq, H, -(-D // 8) * 8), dtype=q.dtype,
-                      device=q.device)[..., :D].transpose(1, 2)
+    out = _bthd_empty(B, H, Tq, D, q.dtype, q.device)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale, causal)
     return out, lse
@@ -433,24 +495,26 @@ def _flash_backward(q, k, v, bias, seed, o, lse, g, scale: float,
             q, k, v, bias, seed, rate, o, lse, g, scale, causal, want_ds)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 _reduce_ds(ds, bias) if want_ds else None)
-    if g.stride(-1) != 1:
+    # the kernels read dout in place: a unit stride on D, no broadcast dims
+    # (the expanded gradient of a sum has zero strides)
+    if g.stride(-1) != 1 or 0 in g.stride():
         g = g.contiguous()
     dev = q.device
     delta = (g.float() * o.float()).sum(dim=-1).contiguous()   # (B, H, Tq)
     lse = lse.reshape(B, H, Tq).contiguous()
     ds = (torch.zeros((B, H, Tq, Tk), dtype=torch.float32, device=dev)
           if want_ds else None)
-    # gradients in the (B, T, H, D) layout of the model's projections
-    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=dev).transpose(1, 2)
-    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=dev).transpose(1, 2)
+    # gradients in the (B, T, H, D) layout of the model's projections, rows
+    # padded to a multiple of 8 elements so that TMA stores in place
+    dk = _bthd_empty(B, H, Tk, D, k.dtype, dev)
+    dv = _bthd_empty(B, H, Tk, D, v.dtype, dev)
     common = (q, k, v, g, bias, seed, rate, lse, delta)
     if Tk <= block_k:
         # Tk fits one k-block: the fused single pass
-        dq_acc = torch.zeros((B, Tq, H, D), dtype=torch.float32,
-                             device=dev).transpose(1, 2)
+        dq_acc = dq_accumulator(B, H, Tq, D, dev)
         _launch_bwd("flash_attention_bwd_fused", *common, dq_acc, dk, dv, ds,
                     scale, causal)
-        dq = dq_acc.to(q.dtype)
+        dq = dq_from_accumulator(dq_acc, Tq, D, q.dtype)
     else:
         dq = torch.empty((B, Tq, H, D), dtype=q.dtype,
                          device=dev).transpose(1, 2)
@@ -474,7 +538,7 @@ class _FlashAttention(torch.autograd.Function):
                 f"flash_attention: the backward kernels take head_dim <= "
                 f"{MAX_HEAD_DIM_BWD}, got {D}; the forward alone takes up to "
                 f"{MAX_HEAD_DIM_FWD} (larger head dims in the backward wait "
-                "for ROADMAP Queue B 2, the fused backward's redesign)")
+                "for ROADMAP Queue B 3, the two-pass pair's redesign)")
         out, lse = _flash_forward(q, k, v, bias, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, bias, seed, out, lse)
         ctx.cfg = (rate, scale, causal, block_k, bias_grad)

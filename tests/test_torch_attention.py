@@ -87,7 +87,7 @@ def test_gradient_above_the_backward_head_dim_raises():
     forward takes it."""
     x = torch.zeros(1, 8, 2, 160)
     assert port.flash_attention(x, x, x).shape == (1, 8, 2, 160)
-    with pytest.raises(port.MXNetError, match="Queue B 2"):
+    with pytest.raises(port.MXNetError, match="Queue B 3"):
         port.flash_attention(x.requires_grad_(True), x, x)
     y = torch.zeros(1, 8, 2, 128, requires_grad=True)
     port.flash_attention(y, y, y).sum().backward()

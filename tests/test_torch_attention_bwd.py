@@ -16,6 +16,10 @@
   gradient, a boolean mask is not and forms no ds; dropout and the kernel
   seed draw only from the framework generator; the kernel build hash covers
   the shared headers; no file of the port imports JAX.
+- The fused kernel's dq accumulator (pure Python around the kernel): its
+  layout, and the cast back into the (B, T, H, D) layout, against the
+  plain backward's dq with each 128-key block's share added in as the
+  kernel adds it (f32, rtol=1e-5, atol=1e-6: summation order only).
 """
 import ast
 import math
@@ -335,18 +339,69 @@ def test_dropout_draws_only_from_the_framework_generator():
 
 
 def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
-    """A changed header (philox.cuh, flash_common.cuh) names a new library,
-    so a stale build is never reused."""
+    """A changed header (philox.cuh, flash_common.cuh, hopper.cuh, the
+    TMA host helpers of tma_host.cuh) names a new library for every
+    kernel source, so a stale build is never reused."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_kernels.CSRC, csrc)
     monkeypatch.setattr(_kernels, "CSRC", csrc)
-    before = {n: _kernels._target(n) for n in _kernels.KERNEL_SOURCES}
-    assert before == {n: _kernels._target(n) for n in _kernels.KERNEL_SOURCES}
-    (csrc / "philox.cuh").write_text(
-        (csrc / "philox.cuh").read_text() + "\n// changed\n")
-    after = {n: _kernels._target(n) for n in _kernels.KERNEL_SOURCES}
-    for n in _kernels.KERNEL_SOURCES:
-        assert after[n] != before[n], n
+    headers = sorted(h.name for h in csrc.glob("*.cuh"))
+    assert {"philox.cuh", "flash_common.cuh", "hopper.cuh",
+            "tma_host.cuh"} <= set(headers)
+    for header in headers:
+        before = {n: _kernels._target(n) for n in _kernels.KERNEL_SOURCES}
+        assert before == {n: _kernels._target(n)
+                          for n in _kernels.KERNEL_SOURCES}
+        (csrc / header).write_text(
+            (csrc / header).read_text() + "\n// changed\n")
+        after = {n: _kernels._target(n) for n in _kernels.KERNEL_SOURCES}
+        for n in _kernels.KERNEL_SOURCES:
+            assert after[n] != before[n], (header, n)
+
+
+@pytest.mark.parametrize("Tq,Tk,D", [(1, 1, 16), (64, 48, 64), (65, 130, 40),
+                                     (77, 300, 100), (128, 257, 128)])
+def test_dq_accumulator_layout_and_cast_back(Tq, Tk, D):
+    """The fused kernel's f32 dq accumulator is (B, H, Tq rounded up to
+    64, DP + 8), zeroed and contiguous (DP = 64 for D <= 64, else 128), so
+    each 64-row tile is one contiguous run. Adding each 128-key block's
+    share of the plain backward's dq into its first Tq rows and D columns,
+    with junk in the padding, and casting back gives the plain dq as a
+    (B, H, Tq, D) view of a dense (B, Tq, H, D) tensor."""
+    rng = onp.random.RandomState(Tq + Tk + D)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, (B, H, T, D))
+                                    .astype("float32"))
+                   for T in (Tq, Tk, Tk, Tq))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = port.flash_attention_reference(q, k, v, None, scale, False)
+    want = port.flash_attention_backward_reference(
+        q, k, v, None, None, 0.0, out, lse, do, scale, False, False)[0]
+
+    acc = port.dq_accumulator(B, H, Tq, D, "cpu")
+    dp = 64 if D <= 64 else 128
+    rows = -(-Tq // 64) * 64
+    assert acc.shape == (B, H, rows, dp + 8) and acc.dtype == torch.float32
+    assert not acc.any()
+    # contiguous: each 64-row tile of one (batch, head) is one run
+    assert acc.stride() == (H * rows * (dp + 8), rows * (dp + 8), dp + 8, 1)
+
+    # the kernel's adds: one share per 128-key block, s, p, ds in f32
+    s = q @ k.transpose(-1, -2) * scale
+    p = torch.exp(s - lse)
+    ds = p * (do @ v.transpose(-1, -2) - (do * out).sum(-1, keepdim=True))
+    for k0 in range(0, Tk, 128):
+        acc[:, :, :Tq, :D] += ((ds[..., k0:k0 + 128] * scale)
+                               @ k[:, :, k0:k0 + 128])
+    acc[:, :, Tq:] = float("nan")          # rows past Tq: not dq
+    acc[..., D:] = 12345.0                 # columns past D: not dq
+    dq = port.dq_from_accumulator(acc, Tq, D, torch.bfloat16)
+    assert dq.shape == (B, H, Tq, D) and dq.dtype == torch.bfloat16
+    assert dq.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        port.dq_from_accumulator(acc, Tq, D, torch.float32), want,
+        rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dq.float(), want.to(torch.bfloat16).float(),
+                               rtol=1e-2, atol=1e-2)
 
 
 def _imported_modules(path):

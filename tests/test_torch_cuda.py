@@ -217,6 +217,130 @@ def test_fully_masked_rows_give_zero_dq(dev):
         assert dq[1].abs().max().item() == 0.0
 
 
+def _fused_against_plain(q, k, v, do, bias, seed, scale, out, lse, causal,
+                         rate):
+    """The fused route (one launch) against the plain backward; returns
+    the kernel's (dq, dk, dv)."""
+    before = attn.launches["flash_attention_bwd_fused"]
+    dq, dk, dv, _ = attn._flash_backward(q, k, v, bias, seed, out, lse, do,
+                                         scale, causal, 4096, rate,
+                                         bias_grad=False)
+    torch.cuda.synchronize()
+    assert attn.launches["flash_attention_bwd_fused"] == before + 1
+    want = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, False)
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want[:3]):
+        assert got.dtype == q.dtype and torch.isfinite(got).all(), name
+        assert _rel(got, w) <= tol, f"{name}: {_rel(got, w):.3e}"
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq,Tk", [(200, 333), (333, 200), (64, 129),
+                                   (1, 1), (513, 513)])
+def test_fused_backward_ragged_and_cross_lengths(dev, dtype, causal, Tq, Tk):
+    """Tk not a multiple of the kernel's 128-key block and Tq != Tk (TMA's
+    zero fill and clipping; the caller pads nothing), with key padding and
+    dropout 0.1, against the plain backward."""
+    case = _backward_case(dev, dtype, 64, causal, "keypad", 0.1, Tq=Tq,
+                          Tk=Tk)
+    _fused_against_plain(*case, causal, 0.1)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+def test_fused_backward_reads_bt3hd_views_without_copies(dev, dtype):
+    """q, k, v as views of one (B, T, 3, H, D) projection and dout as a
+    view of a (B, T, H, D) gradient: TMA reads them in place, so no
+    operand is copied."""
+    g = torch.Generator().manual_seed(4)
+    B, T, H, D = 2, 200, 4, 64
+    qkv = torch.randn(B, T, 3, H, D, generator=g).to(dev, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(B, T, H, D, generator=g).to(dev, dtype).transpose(1, 2)
+    seed = torch.tensor([3, 4], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, None, scale, False, seed, 0.1)
+    before = attn.padded_copies
+    _fused_against_plain(q, k, v, do, None, seed, scale, out, lse, False, 0.1)
+    assert attn.padded_copies == before
+
+
+@pytest.mark.parametrize("layout", ["odd_rows", "unaligned_base"])
+def test_fused_backward_copies_what_tma_cannot_address(dev, layout):
+    """Rows of 36 16-bit values or a base one element past a 16-byte
+    boundary: q, k, v and dout are copied into padded buffers (counted),
+    the result equals the plain version's; dk and dv outputs TMA cannot
+    write are written to padded buffers and copied back (counted)."""
+    g = torch.Generator().manual_seed(9)
+    B, H, T = 2, 3, 70
+    D = 36 if layout == "odd_rows" else 64
+    n = B * H * T * D
+    base = torch.randn(4 * n + 1, generator=g).to(dev, torch.bfloat16)
+    off = 1 if layout == "unaligned_base" else 0
+    q, k, v, do = (base[off + i * n:off + (i + 1) * n].reshape(B, H, T, D)
+                   for i in range(4))
+    out, lse = attn._flash_forward(q, k, v, None, 0.2, False)
+    before = attn.padded_copies
+    dq, dk, dv = _fused_against_plain(q, k, v, do, None, None, 0.2, out, lse,
+                                      False, 0.0)
+    assert attn.padded_copies == before + 4
+    dests = [torch.empty(n + 1, dtype=torch.bfloat16,
+                         device=dev)[1:].reshape(B, H, T, D) for _ in range(2)]
+    acc = attn.dq_accumulator(B, H, T, D, dev)
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    attn._launch_bwd("flash_attention_bwd_fused", q, k, v, do, None, None,
+                     0.0, lse.reshape(B, H, T).contiguous(), delta, acc,
+                     *dests, None, 0.2, False)
+    torch.cuda.synchronize()
+    assert attn.padded_copies == before + 4 + 6
+    assert torch.equal(dests[0], dk) and torch.equal(dests[1], dv)
+    assert _rel(attn.dq_from_accumulator(acc, T, D, torch.bfloat16), dq) \
+        <= 1e-2
+
+
+def test_fused_backward_fully_masked_key_tile(dev):
+    """Key padding of 100 of 300 keys leaves the kernel's second and third
+    128-key blocks of batch 1 fully masked: their dk and dv rows are 0 and
+    nothing they add moves dq."""
+    case = _backward_case(dev, torch.bfloat16, 64, False, None, 0.1, Tq=300,
+                          Tk=300)
+    keep = torch.arange(300)[None, :] < torch.tensor([300, 100])[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.bfloat16).min)
+    bias = bias[:, None, None, :].to(dev, torch.bfloat16)
+    q, k, v, do, _, seed, scale, _, _ = case
+    out, lse = attn._flash_forward(q, k, v, bias, scale, False, seed, 0.1)
+    dq, dk, dv = _fused_against_plain(q, k, v, do, bias, seed, scale, out,
+                                      lse, False, 0.1)
+    assert dk[1, :, 100:].abs().max().item() == 0.0
+    assert dv[1, :, 100:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_backward_reruns_agree_to_rounding(dev, dtype):
+    """The fused kernel adds each key block's share of dq in an order that
+    changes from run to run: two runs' f32 accumulators agree to 1e-6
+    relative (not necessarily bit for bit); dk and dv are equal."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, 64, False, "keypad", 0.1, Tq=512, Tk=512, B=2, H=4)
+    B, H, T, D = q.shape
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    lse = lse.reshape(B, H, T).contiguous()
+    runs = []
+    for _ in range(2):
+        acc = attn.dq_accumulator(B, H, T, D, dev)
+        dk = torch.empty_like(q)
+        dv = torch.empty_like(q)
+        attn._launch_bwd("flash_attention_bwd_fused", q, k, v, do, bias, seed,
+                         0.1, lse, delta, acc, dk, dv, None, scale, False)
+        runs.append((acc, dk, dv))
+    torch.cuda.synchronize()
+    assert _rel(runs[1][0], runs[0][0]) <= 1e-6
+    assert torch.equal(runs[1][1], runs[0][1])
+    assert torch.equal(runs[1][2], runs[0][2])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_through_kernels_equals_plain(dev, dtype):
     """q/k/v gradients of flash_attention on the card, through the
@@ -310,7 +434,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(MXNetError, match="head_dim"):
         y = torch.zeros(1, 8, 2, 288, device=dev)
         attn.flash_attention(y, y, y)
-    with pytest.raises(MXNetError, match="Queue B 2"):
+    with pytest.raises(MXNetError, match="Queue B 3"):
         y = torch.zeros(1, 8, 2, 160, device=dev, requires_grad=True)
         attn.flash_attention(y, y, y)
     with pytest.raises(MXNetError, match="contiguous"):
