@@ -21,17 +21,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    layout and one layout TMA cannot address (its operands copied and
    counted), with and without dropout (its dropout mask read back and
    compared bit for bit in bf16, fp16 and f32), timed by device time
-   beside the mma.sync kernel it replaced; the fused backward, the two-pass
-   dq/dkv pair (at the training shape and at T=2048 causal), a learned
+   beside the mma.sync kernel it replaced; the fused backward and the
+   two-pass dq/dkv pair (at the training shape, at T=2048 causal and at
+   head dim 256, where the pair is the route at every T), a learned
    (1, H, T, T) bias with its reduced gradient, fp16, causal and ragged
-   (T=333), head dims 128 and 40, f32 for each route, fused against
+   (T=333), head dims 40, 128 and 256, f32 for each route, fused against
    two-pass on the same inputs, no operand of BERT's fused-QKV layout
-   copied, and two runs of the fused kernel whose f32 dq accumulators
-   agree to rounding (dk, dv to the bit); each kernel timed by device time
+   copied, two runs of the fused kernel whose f32 dq accumulators agree to
+   rounding (dk, dv to the bit), two runs of the pair equal to the bit,
+   and the pair's dropout masks read back bit for bit at head dims 40, 64,
+   128 and 256 in bf16, fp16 and f32; each kernel timed by device time
    (torch.profiler; CUDA events beside it) and each entry by the device
-   time of all its kernels (delta, zeroing, the kernel, the cast), beside
-   its bound, its plain version and a PyTorch library call (yardstick
-   only). Then the three
+   time of all its kernels (delta, zeroing, the kernel, the cast; for the
+   pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
+   library call (yardstick only). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    beside its bound, its plain version and cuDNN: ``F.conv2d``,
@@ -60,8 +63,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    each, no operand may be copied for TMA, and the loss must fall; step
    time, tokens/s and a profiler breakdown with the device busy time and
    the backward kernels' part of it beside the mma.sync backward's (the
-   kernel the fused one replaced, PERF.md); then one f32 step on
-   the card against the same step on the CPU (plain path);
+   kernel the fused one replaced, PERF.md), and the same for one
+   two-pass step; then one f32 step on the card against the same step on
+   the CPU (plain path);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
    from a seed, bf16 with f32 masters (``multi_precision``), B=128,
    224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
@@ -122,7 +126,7 @@ TOL_LSE = dict(atol=1e-3, rtol=1e-4)
 REL_BWD = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # fused against two-pass on the same inputs: dk, dv come from the same
 # code; dq differs by where it is rounded and the atomics' order
-REL_AGREE = {"bfloat16": 1e-2, "float32": 1e-5}
+REL_AGREE = {"bfloat16": 1e-2, "float16": 1e-2, "float32": 1e-5}
 # two runs of the fused backward on the same inputs: dq's key tiles are
 # summed in f32 in an order that changes from run to run (dk, dv do not)
 REL_RERUN = 1e-6
@@ -193,8 +197,12 @@ FWD_CUTS = {"softmax cut": "MXT_FWD_CUT=1", "copies cut": "MXT_FWD_CUT=2",
 FWD_KERNEL = r"flash_fwd_(wgmma|f32)"   # the forward's kernel names
 # the backward kernels' names (re.search), for device time by torch.profiler
 BWD_KERNEL = {"flash_attention_bwd_fused": r"bwd_fused_wg",
-              "flash_attention_bwd_dq": r"bwd_dq_mma",
-              "flash_attention_bwd_dkv": r"bwd_dkv_mma"}
+              "flash_attention_bwd_dq": r"bwd_dq_wg",
+              "flash_attention_bwd_dkv": r"bwd_dkv_wg"}
+# the mma.sync pair this redesign replaced: device time a launch at rows
+# 3-4's shape (PERF.md section 6, final run PR 8)
+OLD_PAIR_MS = {"flash_attention_bwd_dq": 0.2340,
+               "flash_attention_bwd_dkv": 0.2282}
 # the mma.sync fused backward this redesign replaced: its device time a
 # launch in a BERT training step (PERF.md section 5)
 OLD_FUSED_BWD_MS = 0.307
@@ -528,16 +536,17 @@ def attention_bound_ms(B, H, Tq, D, valid, dtype_name, elem, causal, bias):
 def backward_bound_ms(kind, B, H, Tq, Tk, D, valid, dtype_name, elem,
                       causal, bias, want_ds):
     """Least time for one backward kernel (``fused``, ``dq``, ``dkv``) or
-    the whole entry (``entry``: the fused work plus reading ``out`` for
-    delta): q, k, v and dout read once (k, v only up to the valid
-    lengths), lse and delta once, each output written once in q's dtype
-    (the fused kernel's f32 dq buffer is a cost of its design, not of the
-    function, so it is not counted); the products this run's data needs,
-    2*D flops each per (query, key) pair: five for the fused pass, three
-    for dq (s, dp, ds k), four for dk/dv (s, dp, p^T dout, ds^T q)."""
+    a whole entry (``entry`` on the fused pass, ``pair`` on the dq/dkv
+    pair: the kernels' work plus reading ``out`` for delta): q, k, v and
+    dout read once (k, v only up to the valid lengths), lse and delta once,
+    each output written once in q's dtype (the fused kernel's f32 dq buffer
+    is a cost of its design, not of the function, so it is not counted);
+    the products this run's data needs, 2*D flops each per (query, key)
+    pair: five for the fused pass, three for dq (s, dp, ds k), four for
+    dk/dv (s, dp, p^T dout, ds^T q), seven for the pair."""
     pairs = score_pairs(B, Tq, valid, causal)
     keys = sum(valid)
-    products = {"fused": 5, "entry": 5, "dq": 3, "dkv": 4}[kind]
+    products = {"fused": 5, "entry": 5, "pair": 7, "dq": 3, "dkv": 4}[kind]
     rows = B * H * Tq * D
     nbytes = elem * (2 * rows + 2 * H * D * keys)       # q, dout; k, v
     nbytes += 2 * 4 * B * H * Tq                        # lse, delta
@@ -546,8 +555,9 @@ def backward_bound_ms(kind, B, H, Tq, Tk, D, valid, dtype_name, elem,
     kv_out = 2 * elem * B * H * Tk * D                  # dk, dv
     nbytes += {"fused": elem * rows + kv_out,           # dq
                "entry": elem * 2 * rows + kv_out,       # out read; dq
+               "pair": elem * 2 * rows + kv_out,
                "dq": elem * rows, "dkv": kv_out}[kind]
-    if want_ds and kind in ("fused", "dq", "entry"):
+    if want_ds and kind in ("fused", "dq", "entry", "pair"):
         nbytes += 4 * B * H * Tq * Tk
     return bound(2.0 * products * H * D * pairs, nbytes, dtype_name)
 
@@ -565,12 +575,12 @@ def rel_np(got, want) -> float:
                  / max(float(np.linalg.norm(want)), 1e-30))
 
 
-def qkv_views(torch, dev, B, T, dt, gen, d=D):
-    """q, k, v as (B, H, T, d) views of one (B, T, 3 * H * d) tensor, the
+def qkv_views(torch, dev, B, T, dt, gen, d=D, h=H):
+    """q, k, v as (B, h, T, d) views of one (B, T, 3 * h * d) tensor, the
     layout BERT's fused projection gives the kernels."""
-    qkv = torch.randn((B, T, 3 * H * d), generator=gen).to(dev, dt)
-    return tuple(t.reshape(B, T, H, d).transpose(1, 2)
-                 for t in qkv.split(H * d, dim=-1))
+    qkv = torch.randn((B, T, 3 * h * d), generator=gen).to(dev, dt)
+    return tuple(t.reshape(B, T, h, d).transpose(1, 2)
+                 for t in qkv.split(h * d, dim=-1))
 
 
 def keypad_bias(torch, dev, valid, T, dt):
@@ -896,15 +906,15 @@ def dropout_mask_probe(torch, dev, attn, dt, seed, rate=0.1):
 
 
 def backward_case(torch, dev, gen, attn, B, T, dt, causal, bias_kind, rate,
-                  valid=None, d=D):
-    qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen, d)
+                  valid=None, d=D, h=H):
+    qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen, d, h)
     valid = valid or [T] * B
     bias = None
     if bias_kind == "keypad":
         bias = keypad_bias(torch, dev, valid, T, dt)
     elif bias_kind == "full":
-        bias = torch.randn((1, H, T, T), generator=gen).to(dev, dt)
-    do = torch.randn((B, T, H, d), generator=gen).to(dev, dt).transpose(1, 2)
+        bias = torch.randn((1, h, T, T), generator=gen).to(dev, dt)
+    do = torch.randn((B, T, h, d), generator=gen).to(dev, dt).transpose(1, 2)
     seed = torch.tensor([977, 31337], dtype=torch.int32, device=dev) \
         if rate > 0 else None
     scale = 1.0 / math.sqrt(d)
@@ -912,7 +922,7 @@ def backward_case(torch, dev, gen, attn, B, T, dt, causal, bias_kind, rate,
                                    rate)
     return dict(q=qh, k=kh, v=vh, do=do, bias=bias, seed=seed, out=out,
                 lse=lse, scale=scale, causal=causal, rate=rate, valid=valid,
-                B=B, T=T, D=d, dt=dt, learned=bias_kind == "full")
+                B=B, H=h, T=T, D=d, dt=dt, learned=bias_kind == "full")
 
 
 def run_backward(attn, c, block_k):
@@ -924,7 +934,8 @@ def run_backward(attn, c, block_k):
 
 def backward_check(torch, attn, name, c, block_k, errs):
     """One backward call against the plain version; returns its outputs."""
-    route = ["flash_attention_bwd_fused"] if c["T"] <= block_k else \
+    fused = attn.backward_route(c["D"], c["T"], block_k) == "fused"
+    route = ["flash_attention_bwd_fused"] if fused else \
         ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
     before = dict(attn.launches)
     copies = attn.padded_copies
@@ -977,11 +988,14 @@ def backward_check(torch, attn, name, c, block_k, errs):
                                  c["do"], c["scale"], c["causal"], c["rate"],
                                  c["learned"])
     bnd, by = backward_bound_ms(
-        "entry", c["B"], H, c["T"], c["T"], c["D"], c["valid"], dtn,
-        c["dt"].itemsize, c["causal"], c["bias"], c["learned"])
+        "entry" if fused else "pair", c["B"], c["H"], c["T"], c["T"],
+        c["D"], c["valid"], dtn, c["dt"].itemsize, c["causal"], c["bias"],
+        c["learned"])
+    parts_of = "delta, zeroing, the kernel, the cast" if fused else \
+        "delta, dq, dkv"
     print(f"phase 3: backward {name}: relative error {', '.join(parts)} "
-          f"(limit {lim}); entry {fmt_ms(dev_ms)} (device: delta, zeroing, "
-          f"kernels, cast), {ms:.4f} ms a call back to back (CUDA events), "
+          f"(limit {lim}); entry {fmt_ms(dev_ms)} (device: {parts_of}), "
+          f"{ms:.4f} ms a call back to back (CUDA events), "
           f"bound {bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
           f"backward {fmt_ms(lib_ms)} (device)", flush=True)
     return got
@@ -1000,19 +1014,71 @@ def kernel_only_call(torch, attn, c, name, fn=None):
     lse = c["lse"].reshape(B, Hh, Tq).contiguous()
     bias = None if c["bias"] is None else c["bias"].float()
     dev = q.device
-    dk = torch.empty((B, Tk, Hh, Dd), dtype=k.dtype,
-                     device=dev).transpose(1, 2)
-    dv = torch.empty_like(dk)
+    dk = attn._bthd_empty(B, Hh, Tk, Dd, k.dtype, dev)
+    dv = attn._bthd_empty(B, Hh, Tk, Dd, v.dtype, dev)
     if name == "flash_attention_bwd_fused":
         outs = (attn.dq_accumulator(B, Hh, Tq, Dd, dev), dk, dv)
     elif name == "flash_attention_bwd_dq":
-        outs = (torch.empty((B, Tq, Hh, Dd), dtype=q.dtype,
-                            device=dev).transpose(1, 2), None, None)
+        outs = (attn._bthd_empty(B, Hh, Tq, Dd, q.dtype, dev), None, None)
     else:
         outs = (None, dk, dv)
     return (lambda: attn._launch_bwd(
         name, q, k, v, do, bias, c["seed"], c["rate"], lse, delta, *outs,
         None, c["scale"], c["causal"], fn)), outs
+
+
+def pair_dropout_masks(torch, attn, dev, dt, d, rate=0.1, B=2, Hh=3,
+                       Tk=200):
+    """The dropout masks the dq/dkv pair draws, read back bit for bit, each
+    (B, Hh, Tq = d, Tk) bool: ``(from dkv, from dq, dropout_keep_reference's)``.
+
+    dkv: with q = k = 0 every key has p = 1/Tk, and dout's row q =
+    one-hot(q) puts query q's kept-or-dropped p_d[q, j] alone into
+    dv[j, q] (exact: one product, the rest zeros). dq: with v = dout =
+    one-hot(0), dp = 1 everywhere, and the gradient of a learned zero bias
+    (B, Hh, Tq, Tk), ds = p (dp_d - delta), is positive where kept (dp_d =
+    1/(1-rate) exceeds delta, the row's kept share over 1-rate, unless all
+    Tk keys are kept) and negative where dropped. block_k = 64 < Tk: the
+    pair at every head dim."""
+    Tq, scale = d, 1.0 / math.sqrt(d)
+    seed = torch.tensor([1234, 5678], dtype=torch.int32, device=dev)
+    zq = torch.zeros((B, Hh, Tq, d), dtype=dt, device=dev)
+    zk = torch.zeros((B, Hh, Tk, d), dtype=dt, device=dev)
+    out, lse = attn._flash_forward(zq, zk, zk, None, scale, False, seed, rate)
+    eye = torch.eye(d, dtype=dt, device=dev).expand(B, Hh, d, d).contiguous()
+    dv = attn._flash_backward(zq, zk, zk, None, seed, out, lse, eye, scale,
+                              False, 64, rate)[2]
+    from_dkv = dv.transpose(-1, -2) > 0
+    e0 = torch.zeros(d, dtype=dt, device=dev)
+    e0[0] = 1
+    v = e0.expand(B, Hh, Tk, d).contiguous()
+    do = e0.expand(B, Hh, Tq, d).contiguous()
+    bias = torch.zeros((B, Hh, Tq, Tk), dtype=dt, device=dev)
+    out, lse = attn._flash_forward(zq, zk, v, bias, scale, False, seed, rate)
+    dbias = attn._flash_backward(zq, zk, v, bias, seed, out, lse, do, scale,
+                                 False, 64, rate, bias_grad=True)[3]
+    want = attn.dropout_keep_reference(seed, B, Hh, Tq, Tk, rate)
+    return from_dkv, dbias > 0, want
+
+
+def pair_kernel_times(torch, attn, label, c, rows=None):
+    """Device time of the dq and the dkv kernel alone at case ``c``, each
+    beside its bound; ``rows`` (if given) gets each kernel's row."""
+    dtn = str(c["dt"]).split(".")[-1]
+    parts = []
+    for name, kind in (("flash_attention_bwd_dq", "dq"),
+                       ("flash_attention_bwd_dkv", "dkv")):
+        call, _ = kernel_only_call(torch, attn, c, name)
+        ms = kernel_ms(call, BWD_KERNEL[name])
+        bnd, by = backward_bound_ms(kind, c["B"], c["H"], c["T"], c["T"],
+                                    c["D"], c["valid"], dtn,
+                                    c["dt"].itemsize, c["causal"], c["bias"],
+                                    c["learned"])
+        if rows is not None:
+            rows[name] = dict(ms=ms, bound_ms=bnd, bound_by=by)
+        parts.append(f"{kind} {fmt_ms(ms)} (bound {bnd:.5f} ms, {by})")
+    print(f"phase 3: the pair's kernels alone, {label} (device time a "
+          f"launch): {', '.join(parts)}", flush=True)
 
 
 def backward_checks(torch, dev, gen, attn):
@@ -1039,9 +1105,9 @@ def backward_checks(torch, dev, gen, attn):
                          "(block_k=256)", c1, 256, errs)
     agree(torch, "bf16 T=512 dropout 0.1", fused, two, "bfloat16")
     # the kernels alone at the training shape (dropout 0.1): result line.
-    # Device time, as the forward's: at the fused kernel's speed the host's
-    # launch path (checks, ctypes, six TMA descriptors) is slower than the
-    # kernel, so CUDA events over back-to-back calls read the host
+    # Device time, as the forward's: at these kernels' speed the host's
+    # launch path (checks, ctypes, five or six TMA descriptors) is slower
+    # than the kernel, so CUDA events over back-to-back calls read the host
     for name, kind in (("flash_attention_bwd_fused", "fused"),
                        ("flash_attention_bwd_dq", "dq"),
                        ("flash_attention_bwd_dkv", "dkv")):
@@ -1053,7 +1119,9 @@ def backward_checks(torch, dev, gen, attn):
                                     c1["bias"], False)
         rows[name] = dict(ms=ms, bound_ms=bnd, bound_by=by)
         old = (f" [the mma.sync kernel it replaced: {OLD_FUSED_BWD_MS} ms a "
-               "launch in the BERT step]" if kind == "fused" else "")
+               "launch in the BERT step]" if kind == "fused" else
+               f" [the mma.sync kernel it replaced: {OLD_PAIR_MS[name]} ms, "
+               "PR 8's final run]")
         print(f"phase 3: {name} alone, B={B_MAIN} H={H} T={T_MAIN} D={D} "
               f"bf16 key-padding dropout 0.1: {fmt_ms(ms)} (device){old}, "
               f"{host_ms:.4f} ms a call back to back (CUDA events), bound "
@@ -1085,7 +1153,37 @@ def backward_checks(torch, dev, gen, attn):
           f"differ by {r:.2e} relative (limit {REL_RERUN}, "
           f"{int((runs[1][0] != runs[0][0]).sum())} elements not bit for "
           f"bit), dk and dv equal to the bit", flush=True)
+    # the pair writes dq once from registers, with no atomics: two runs
+    # equal to the bit
+    runs = []
+    for _ in range(2):
+        outs = []
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            call, o = kernel_only_call(torch, attn, c1, name)
+            call()
+            outs += [t for t in o if t is not None]
+        runs.append(outs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("two runs of the dq/dkv pair differ (dq, dk or dv)")
+    print("phase 3: two runs of the dq/dkv pair: dq, dk and dv equal to the "
+          "bit", flush=True)
     del c0, c1, fused, two, runs
+    # the pair's dropout masks, bit for bit, at every head dim and dtype
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (40, 64, 128, 256):
+            from_dkv, from_dq, want = pair_dropout_masks(torch, attn, dev,
+                                                         dt, d)
+            torch.cuda.synchronize()
+            for what, got in (("dkv", from_dkv), ("dq", from_dq)):
+                if not torch.equal(got, want):
+                    fail(f"{dt} D={d}: the {what} kernel's dropout mask "
+                         f"differs from dropout_keep_reference in "
+                         f"{int((got != want).sum())} of {want.numel()} bits")
+        print(f"phase 3: the pair's {str(dt).split('.')[-1]} dropout 0.1 "
+              f"masks (dkv through dv, dq through the learned bias's ds) = "
+              f"dropout_keep_reference bit for bit at D=40, 64, 128, 256",
+              flush=True)
     # fp16; causal and ragged (T not a multiple of the 128-key block);
     # head dims 128 and 40 (the TMA boxes zero-fill past D)
     c = mk(2, T_MAIN, torch.float16, False, "keypad", 0.1,
@@ -1100,16 +1198,40 @@ def backward_checks(torch, dev, gen, attn):
     agree(torch, "bf16 T=333 causal dropout 0.1", fused, two, "bfloat16")
     c = mk(2, 300, torch.bfloat16, False, "keypad", 0.1,
            valid=[300, 77], d=128)
-    backward_check(torch, attn, "bf16 D=128 T=300 key-padding dropout 0.1 "
-                   "fused", c, 1024, errs)
+    fused = backward_check(torch, attn, "bf16 D=128 T=300 key-padding "
+                           "dropout 0.1 fused", c, 1024, errs)
+    two = backward_check(torch, attn, "bf16 D=128 T=300 key-padding "
+                         "dropout 0.1 two-pass (block_k=128)", c, 128, errs)
+    agree(torch, "bf16 D=128 T=300 dropout 0.1", fused, two, "bfloat16")
     c = mk(2, 200, torch.float16, True, "keypad", 0.0, valid=[200, 131],
            d=40)
-    backward_check(torch, attn, "fp16 D=40 T=200 causal key-padding fused",
-                   c, 1024, errs)
+    fused = backward_check(torch, attn, "fp16 D=40 T=200 causal key-padding "
+                           "fused", c, 1024, errs)
+    two = backward_check(torch, attn, "fp16 D=40 T=200 causal key-padding "
+                         "two-pass (block_k=64)", c, 64, errs)
+    agree(torch, "fp16 D=40 T=200 causal", fused, two, "float16")
     # long sequence: the two-pass pair by the default block_k, causal
     c = mk(2, 2048, torch.bfloat16, True, None, 0.0)
     backward_check(torch, attn, "bf16 T=2048 causal two-pass", c, 1024,
                    errs)
+    pair_kernel_times(torch, attn, "B=2 H=12 T=2048 D=64 bf16 causal", c)
+    # head dim 256: the pair at every Tk, in every dtype
+    c = mk(2, 1024, torch.bfloat16, False, "keypad", 0.1, valid=[1024, 700],
+           d=256, h=8)
+    backward_check(torch, attn, "bf16 D=256 H=8 T=1024 key-padding dropout "
+                   "0.1 (the pair: D > 128)", c, 1024, errs)
+    pair_kernel_times(torch, attn, "B=2 H=8 T=1024 D=256 bf16 key-padding "
+                      "dropout 0.1", c)
+    c = mk(2, 333, torch.float16, True, None, 0.1, d=256, h=4)
+    backward_check(torch, attn, "fp16 D=256 H=4 T=333 causal dropout 0.1 "
+                   "(ragged)", c, 1024, errs)
+    c = mk(2, 256, torch.bfloat16, False, "full", 0.1, d=256, h=4)
+    backward_check(torch, attn, "bf16 D=256 H=4 T=256 learned bias dropout "
+                   "0.1", c, 1024, errs)
+    c = mk(2, 300, torch.float32, False, "keypad", 0.1, valid=[300, 77],
+           d=256, h=4)
+    backward_check(torch, attn, "f32 D=256 H=4 T=300 key-padding dropout "
+                   "0.1", c, 1024, errs)
     # a learned (1, H, T, T) bias and its reduced gradient
     c = mk(4, T_MAIN, torch.bfloat16, False, "full", 0.1)
     backward_check(torch, attn, "bf16 T=512 learned bias dropout 0.1 fused",
@@ -1677,25 +1799,33 @@ def phase_train(torch, dev):
           f"route {two_ms:.3f} ms (mean of 2); card: {smi_line()}",
           flush=True)
 
-    # where the time goes in one fused step (counters restored after)
+    # where the time goes in one step of each route (counters restored
+    # after)
     from torch.profiler import ProfilerActivity, profile
     saved = dict(attn.launches)
-    train_step(torch, autograd, net, loss_fn, trainer, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    for route in ("fused", "two-pass"):
+        if route == "two-pass":
+            os.environ["MXNET_FLASH_BLOCK_K"] = "256"
         train_step(torch, autograd, net, loss_fn, trainer, batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    busy, _ = device_breakdown(prof, wall_ms, "phase 5: profiled step")
-    if busy:
-        bwd = sum(v for k, v in kernel_times(prof).items()
-                  if re.search(ATTN_GROUPS["flash backward"], k))
-        print(f"phase 5: device busy {busy:.3f} ms a step, of it the flash "
-              f"backward kernels {bwd:.3f} ms ({bwd / busy:.3f}) [with the "
-              f"mma.sync backward: {MMA_SYNC_STEP_MS[0]} ms busy, "
-              f"{MMA_SYNC_STEP_MS[1]} ms backward]", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            train_step(torch, autograd, net, loss_fn, trainer, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        os.environ.pop("MXNET_FLASH_BLOCK_K", None)
+        busy, _ = device_breakdown(prof, wall_ms,
+                                   f"phase 5: profiled {route} step")
+        if busy:
+            bwd = sum(v for k, v in kernel_times(prof).items()
+                      if re.search(ATTN_GROUPS["flash backward"], k))
+            old = (f" [with the mma.sync backward: {MMA_SYNC_STEP_MS[0]} ms "
+                   f"busy, {MMA_SYNC_STEP_MS[1]} ms backward]"
+                   if route == "fused" else "")
+            print(f"phase 5: {route} route: device busy {busy:.3f} ms a "
+                  f"step, of it the flash backward kernels {bwd:.3f} ms "
+                  f"({bwd / busy:.3f}){old}", flush=True)
     # the step's three parts by host clock, each ended by a synchronize
     tok, typ, vl, pos, lab = batch
     split = {"forward+loss": 0.0, "backward": 0.0, "trainer.step": 0.0}

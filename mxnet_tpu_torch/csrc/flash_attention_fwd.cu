@@ -49,7 +49,8 @@
 // from philox.cuh, a pure function of (seed, batch, head, row, col) that the
 // backward kernels and the plain version draw identically. One Philox call
 // covers a 2 x 2 block of scores; the two threads holding rows 2i and 2i+1
-// of a column pair each make one call and swap the words the other needs.
+// of a column pair each make one call and swap the words the other needs
+// (mxt::dropout_row_pair, which the backward's dq kernel shares).
 //
 // Experiments: built with -DMXT_FWD_CUT=1 the softmax is cut (P = S, no
 // rescale), =2 the copies after the first ring of stages are cut (the
@@ -221,24 +222,14 @@ __device__ __forceinline__ float2 softmax_tile(
   if (a.dropout) {
 #pragma unroll
     for (int j = 0; j < KEYS / 8; ++j) {
-      // even g: the block of rows (ra, ra + 1); odd g: (rb - 1, rb); each
-      // lane makes one call and swaps the words the other needs
-      const int col = k0 + 8 * j + 2 * w.t4;
-      const uint4 x =
-          mxt::dropout_words(key, w.b, w.h, w.odd ? w.rb : w.ra, col);
-      const uint32_t own0 = w.odd ? x.z : x.x, own1 = w.odd ? x.w : x.y;
-      const uint32_t get0 =
-          __shfl_xor_sync(0xffffffffu, w.odd ? x.x : x.z, 4);
-      const uint32_t get1 =
-          __shfl_xor_sync(0xffffffffu, w.odd ? x.y : x.w, 4);
-      const uint32_t wa0 = w.odd ? get0 : own0, wa1 = w.odd ? get1 : own1;
-      const uint32_t wb0 = w.odd ? own0 : get0, wb1 = w.odd ? own1 : get1;
+      uint32_t wd[4];
+      mxt::dropout_row_pair(wd, key, w.b, w.h, w.ra, w.rb,
+                            k0 + 8 * j + 2 * w.t4, w.odd);
       const uint32_t th = a.drop_threshold;
       const float ds = a.drop_scale;
-      sc[4 * j] = wa0 >= th ? sc[4 * j] * ds : 0.f;
-      sc[4 * j + 1] = wa1 >= th ? sc[4 * j + 1] * ds : 0.f;
-      sc[4 * j + 2] = wb0 >= th ? sc[4 * j + 2] * ds : 0.f;
-      sc[4 * j + 3] = wb1 >= th ? sc[4 * j + 3] * ds : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] = wd[e] >= th ? sc[4 * j + e] * ds : 0.f;
     }
   }
   return make_float2(alpha[0], alpha[1]);

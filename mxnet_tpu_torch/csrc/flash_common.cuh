@@ -141,16 +141,6 @@ __device__ __forceinline__ void load_a(uint32_t* a, const uint16_t* tile,
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * S + 8);
 }
 
-// B operand (16 deep x 8 wide, "col") of a product X Y^T, read from Y's
-// rows [n0, n0 + 8) and columns [c0, c0 + 16) of a row-major 16-bit tile.
-template <int S>
-__device__ __forceinline__ void load_b(uint32_t* b, const uint16_t* tile,
-                                       int n0, int c0, int g, int t4) {
-  const uint16_t* p = tile + (n0 + g) * S + c0 + t4 * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
 template <typename K>
 cudaError_t set_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

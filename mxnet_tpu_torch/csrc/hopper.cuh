@@ -244,6 +244,17 @@ __device__ __forceinline__ uint64_t desc_mnmajor_sw128(uint32_t addr,
       HOP_D8(120)  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 
+#define HOP_WGMMA_SS_32(TY, TB)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15},"  \
+      "%16, %17, p, 1, 1, 0, " TB ";\n}\n"  \
+      :  \
+      HOP_D8(0), HOP_D8(8)  \
+      : "l"(da), "l"(db), "r"(scale_d))
+
 #define HOP_WGMMA_SS_64(TY, TB)  \
   asm volatile(  \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
@@ -303,6 +314,8 @@ HOP_RS(__half, "f16", 256, 1)
       float* d, uint64_t da, uint64_t db, int scale_d) {                   \
     HOP_WGMMA_SS_##N(TY, #TB);                                             \
   }
+HOP_SS(__nv_bfloat16, "bf16", 32, 0)
+HOP_SS(__half, "f16", 32, 0)
 HOP_SS(__nv_bfloat16, "bf16", 64, 0)
 HOP_SS(__nv_bfloat16, "bf16", 128, 0)
 HOP_SS(__half, "f16", 64, 0)
@@ -315,6 +328,7 @@ HOP_SS(__half, "f16", 128, 1)
 #undef HOP_WGMMA_RS_64
 #undef HOP_WGMMA_RS_128
 #undef HOP_WGMMA_RS_256
+#undef HOP_WGMMA_SS_32
 #undef HOP_WGMMA_SS_64
 #undef HOP_WGMMA_SS_128
 #undef HOP_D8

@@ -60,6 +60,26 @@ __device__ __forceinline__ bool dropout_keep(uint2 key, int b, int h, int row,
          threshold;
 }
 
+// The words of one thread's four scores of an 8-column chunk of an mma
+// accumulator whose rows are queries (the forward's S, the dq kernel's s):
+// rows ra and rb = ra + 8, columns col and col + 1, as w[0..3] = (ra, col),
+// (ra, col + 1), (rb, col), (rb, col + 1). The two lanes holding rows 2i
+// and 2i + 1 (lane and lane ^ 4, `odd` on the second) share each call: the
+// even lane draws the block of its ra, the odd lane that of its rb, and
+// each swaps the two words the other needs.
+__device__ __forceinline__ void dropout_row_pair(uint32_t* w, uint2 key,
+                                                 int b, int h, int ra, int rb,
+                                                 int col, bool odd) {
+  const uint4 x = dropout_words(key, b, h, odd ? rb : ra, col);
+  const uint32_t own0 = odd ? x.z : x.x, own1 = odd ? x.w : x.y;
+  const uint32_t get0 = __shfl_xor_sync(0xffffffffu, odd ? x.x : x.z, 4);
+  const uint32_t get1 = __shfl_xor_sync(0xffffffffu, odd ? x.y : x.w, 4);
+  w[0] = odd ? get0 : own0;
+  w[1] = odd ? get1 : own1;
+  w[2] = odd ? own0 : get0;
+  w[3] = odd ? own1 : get1;
+}
+
 // The seed tensor (2,) int32 on the device, as the Philox key.
 __device__ __forceinline__ uint2 dropout_key(const int* seed) {
   return make_uint2(static_cast<uint32_t>(seed[0]),

@@ -16,24 +16,33 @@ Routing: a tensor on the CPU takes the plain versions
 (:func:`flash_attention_reference`, :func:`flash_attention_backward_reference`);
 a CUDA tensor launches the kernels or raises :class:`MXNetError`. Nothing
 falls back. Each launch adds one to its kernel's entry in :data:`launches`.
-The forward takes head dims up to 256 and reads 16-bit q, k and v by TMA,
-which needs a 16-byte aligned base and strides that are multiples of 16
-bytes; an operand that lacks either is first copied into a padded
-contiguous buffer, and :data:`padded_copies` counts those copies. The
-16-bit fused backward reads q, k, v and dout and writes dk and dv by TMA
-under the same rule and count. The backward kernels take head dims up to
-128: a gradient through attention with a larger head dim raises before the
-forward runs.
-The backward takes the fused single pass when Tk fits one k-block
-(``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule.
+The forward and the backward kernels take head dims up to 256
+(:data:`MAX_HEAD_DIM`); on the card a larger head dim raises before any
+kernel runs, and on the CPU the plain versions take any head dim, as the
+JAX package does.
+The 16-bit kernels read q, k, v and dout and write out, dq, dk and dv by
+TMA, which needs a 16-byte aligned base and strides that are multiples of
+16 bytes; an operand that lacks either is first copied into a padded
+contiguous buffer (an output is written there and copied back), and
+:data:`padded_copies` counts those copies.
+
+Routing of the backward (:func:`backward_route`), a contract of the port:
+for D <= 128, the fused single pass when Tk fits one k-block
+(``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule;
+for 128 < D <= 256 the pair at every Tk. The fused kernel keeps dk and dv
+for 64 keys a warpgroup in f32 registers and its K, V and two ring stages
+of q and dout in shared memory: at D = 256 that is 256 registers a thread
+(the cap is 232) and 256 KB (a block has 227 KB), so those head dims take
+the pair, which computes the same function with a deterministic dq.
 The fused kernel adds each key tile's share of dq into a zeroed f32
 accumulator of the port's own layout, (B, H, Tq rounded up to 64, DP + 8)
 (:func:`dq_accumulator`: one contiguous run per 64-row tile, added by one
 bulk reduce-add in 16 bits, by scalar atomics in f32), and
 :func:`dq_from_accumulator` casts it into the (B, T, H, D) layout the model
 reads. The order in which the key tiles' shares arrive changes from run to
-run, so the fused dq is reproducible to rounding, not bit for bit; the
-two-pass pair is deterministic.
+run, so the fused dq is reproducible to rounding, not bit for bit. The
+pair's dq kernel keeps dq in registers over all key tiles and writes it
+once: the pair is deterministic, bit for bit.
 """
 from __future__ import annotations
 
@@ -49,8 +58,8 @@ from ...base import MXNetError
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward_reference", "dropout_keep_reference",
            "launches", "padded_copies", "KERNELS", "DEFAULT_BLOCK_Q",
-           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM_FWD", "MAX_HEAD_DIM_BWD",
-           "dq_accumulator", "dq_from_accumulator"]
+           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM", "FUSED_MAX_HEAD_DIM", "backward_route", "dq_accumulator",
+           "dq_from_accumulator"]
 
 _NEG_INF = -1e30
 
@@ -65,8 +74,10 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
 launches = {name: 0 for name in KERNELS}
 # operands of the forward copied because TMA could not read them in place
 padded_copies = 0
-MAX_HEAD_DIM_FWD = 256
-MAX_HEAD_DIM_BWD = 128
+# the kernels take head dims up to this (the JAX package's too; larger
+# ones wait in ROADMAP Queue C); the fused backward up to FUSED_MAX_HEAD_DIM
+MAX_HEAD_DIM = 256
+FUSED_MAX_HEAD_DIM = 128
 # rows of one tile of the fused backward's dq accumulator, and the floats
 # that pad each of its rows
 DQ_TILE_ROWS = 64
@@ -233,7 +244,7 @@ def _kernel(name: str):
     else:
         fn = _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd
         fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                       strides, ctypes.c_float, i, i, p, i, ctypes.c_uint,
+                       strides, ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     fn.restype = ctypes.c_int
     _FNS[name] = fn
@@ -245,10 +256,10 @@ def _bht(t):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
-def _check_operands(q, k, v, extra=(), max_d=MAX_HEAD_DIM_BWD):
+def _check_operands(q, k, v, extra=()):
     """q/k/v (and ``extra``, read or written with them) as (B, H, T, D)
     views on one CUDA device in one dtype with a contiguous head dim of at
-    most ``max_d``."""
+    most :data:`MAX_HEAD_DIM`."""
     ts = (q, k, v) + tuple(extra)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise MXNetError("flash_attention: q, k, v and out must lie on one "
@@ -265,9 +276,9 @@ def _check_operands(q, k, v, extra=(), max_d=MAX_HEAD_DIM_BWD):
     if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
         raise MXNetError(f"flash_attention: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D > max_d:
-        raise MXNetError(f"flash_attention kernel takes head_dim <= {max_d},"
-                         f" got {D}")
+    if D > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention kernels take head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {D} (ROADMAP Queue C)")
     return B, H, Tq, Tk, D
 
 
@@ -292,15 +303,6 @@ def _seed_args(seed, rate, q):
                          "tensor on q's device")
     seed = seed.contiguous()
     return seed, 1, dropout_threshold(rate), 1.0 / (1.0 - rate)
-
-
-def _vec(ts, flat) -> int:
-    """16-byte loads: 16-bit data, D % 8 == 0, aligned pointers, strides
-    that are multiples of 8 elements."""
-    q = ts[0]
-    return int(q.shape[-1] % 8 == 0 and q.dtype != torch.float32
-               and all(t.data_ptr() % 16 == 0 for t in ts)
-               and all(s % 8 == 0 for s in flat))
 
 
 def _count(name: str) -> None:
@@ -365,7 +367,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     it cannot address is written to a padded buffer and copied back.
     ``fn``: another build of the same C entry (an experiment's variant,
     ``chip_smoke.py --probe-fwd``); its launches are not counted."""
-    B, H, Tq, Tk, D = _check_operands(q, k, v, (out,), MAX_HEAD_DIM_FWD)
+    B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
     dest = out
     if q.dtype != torch.float32:
         q, k, v = (_tma_operand(t) for t in (q, k, v))
@@ -421,19 +423,24 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     """One backward kernel on (B, H, T, D) views. ``dq`` is the
     :func:`dq_accumulator` for the fused kernel, q's dtype for the dq
     kernel; kernels that do not write an output get None for it. The 16-bit
-    fused kernel reads q, k, v, do and writes dk, dv by TMA: operands it
-    cannot address are copied first and outputs written to a padded buffer
-    and copied back (:func:`_tma_operand`, counted). ``fn``: another build
-    of the same C entry (``chip_smoke.py --probe-bwd``); its launches are
-    not counted."""
+    kernels read q, k, v, do and write dk, dv and the dq kernel's dq by
+    TMA: operands they cannot address are copied first and outputs written
+    to a padded buffer and copied back (:func:`_tma_operand`, counted).
+    ``fn``: another build of the same C entry (``chip_smoke.py
+    --probe-bwd``); its launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
-    dests = (dk, dv)
-    if name == "flash_attention_bwd_fused" and q.dtype != torch.float32:
+    fused = name == "flash_attention_bwd_fused"
+    # the outputs in q's dtype (the fused kernel's dq is its accumulator)
+    dests = [None if fused else dq, dk, dv]
+    written = dests
+    if q.dtype != torch.float32:
         q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
-        dk, dv = (t if _tma_ready(t) else _padded_output(t) for t in dests)
+        written = [t if t is None or _tma_ready(t) else _padded_output(t)
+                   for t in dests]
+        dq = dq if fused else written[0]
+        dk, dv = written[1:]
     ts = (q, k, v, do)
     flat = [s for t in ts for s in _bht(t)]
-    vec = _vec(ts, flat)
     outs = [_bht(t) if t is not None else [0, 0, 0] for t in (dq, dk, dv)]
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
@@ -447,13 +454,13 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
                  k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(bias),
                  lse.data_ptr(), delta.data_ptr(), _ptr(dq), _ptr(dk),
                  _ptr(dv), _ptr(ds), B, H, Tq, Tk, D, arr, float(scale),
-                 int(bool(causal)), vec, _ptr(seed), drop, thresh,
-                 drop_scale, stream)
+                 int(bool(causal)), _ptr(seed), drop, thresh, drop_scale,
+                 stream)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
     if not variant:
         _count(name)
-    for dest, t in zip(dests, (dk, dv)):
+    for dest, t in zip(dests, written):
         if t is not dest:
             dest.copy_(t)
 
@@ -480,6 +487,15 @@ def _reduce_ds(ds, bias):
     return d_bias.to(bias.dtype)
 
 
+def backward_route(D: int, Tk: int, block_k: int) -> str:
+    """``"fused"`` or ``"two_pass"``: the backward kernels a CUDA tensor
+    takes. The fused single pass when Tk fits one k-block and D <=
+    :data:`FUSED_MAX_HEAD_DIM`, the dq/dkv pair otherwise (the module
+    docstring says why)."""
+    return "fused" if Tk <= block_k and D <= FUSED_MAX_HEAD_DIM \
+        else "two_pass"
+
+
 def _flash_backward(q, k, v, bias, seed, o, lse, g, scale: float,
                     causal: bool, block_k: int, rate: float,
                     bias_grad: bool = True):
@@ -487,14 +503,23 @@ def _flash_backward(q, k, v, bias, seed, o, lse, g, scale: float,
     d_bias reduced to the bias's shape, or None without a bias or with
     ``bias_grad=False`` (a mask: its O(B*H*T^2) ds is never formed).
     ``o`` and ``lse`` are the forward's (global) output and log-sum-exp."""
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
     want_ds = bias is not None and bias_grad
     if not q.is_cuda:
         dq, dk, dv, ds = flash_attention_backward_reference(
             q, k, v, bias, seed, rate, o, lse, g, scale, causal, want_ds)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 _reduce_ds(ds, bias) if want_ds else None)
+    return _backward_kernels(q, k, v, bias, seed, o, lse, g, scale, causal,
+                             block_k, rate, want_ds)
+
+
+def _backward_kernels(q, k, v, bias, seed, o, lse, g, scale: float,
+                      causal: bool, block_k: int, rate: float,
+                      want_ds: bool):
+    """The card's side of :func:`_flash_backward`: delta, the buffers, and
+    the kernels :func:`backward_route` picks."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
     # the kernels read dout in place: a unit stride on D, no broadcast dims
     # (the expanded gradient of a sum has zero strides)
     if g.stride(-1) != 1 or 0 in g.stride():
@@ -509,15 +534,13 @@ def _flash_backward(q, k, v, bias, seed, o, lse, g, scale: float,
     dk = _bthd_empty(B, H, Tk, D, k.dtype, dev)
     dv = _bthd_empty(B, H, Tk, D, v.dtype, dev)
     common = (q, k, v, g, bias, seed, rate, lse, delta)
-    if Tk <= block_k:
-        # Tk fits one k-block: the fused single pass
+    if backward_route(D, Tk, block_k) == "fused":
         dq_acc = dq_accumulator(B, H, Tq, D, dev)
         _launch_bwd("flash_attention_bwd_fused", *common, dq_acc, dk, dv, ds,
                     scale, causal)
         dq = dq_from_accumulator(dq_acc, Tq, D, q.dtype)
     else:
-        dq = torch.empty((B, Tq, H, D), dtype=q.dtype,
-                         device=dev).transpose(1, 2)
+        dq = _bthd_empty(B, H, Tq, D, q.dtype, dev)
         _launch_bwd("flash_attention_bwd_dq", *common, dq, None, None, ds,
                     scale, causal)
         _launch_bwd("flash_attention_bwd_dkv", *common, None, dk, dv, None,
@@ -532,13 +555,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate, scale, causal, block_k,
                 bias_grad):
-        D = q.shape[-1]
-        if D > MAX_HEAD_DIM_BWD and any(ctx.needs_input_grad[:4]):
-            raise MXNetError(
-                f"flash_attention: the backward kernels take head_dim <= "
-                f"{MAX_HEAD_DIM_BWD}, got {D}; the forward alone takes up to "
-                f"{MAX_HEAD_DIM_FWD} (larger head dims in the backward wait "
-                "for ROADMAP Queue B 3, the two-pass pair's redesign)")
         out, lse = _flash_forward(q, k, v, bias, scale, causal, seed, rate)
         ctx.save_for_backward(q, k, v, bias, seed, out, lse)
         ctx.cfg = (rate, scale, causal, block_k, bias_grad)
@@ -572,7 +588,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     ``dropout``: probability-dropout rate on the attention weights, drawn
     in the kernels; ``dropout_seed``: (2,) int32 key, required when
     ``dropout > 0``. ``block_k`` routes the backward: the fused single pass
-    when Tk <= block_k, the two-pass dq/dkv kernels otherwise. ``block_q``
+    when Tk <= block_k and D <= 128, the two-pass dq/dkv kernels otherwise
+    (:func:`backward_route`). ``block_q``
     keeps the JAX signature; the kernels tile by 64 and do not read it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -1,6 +1,7 @@
 """The port's flash attention (mxnet_tpu_torch/ops/cuda/attention.py) on
-CPU tensors against the JAX package's Pallas flash kernel run in interpret
-mode on the CPU, as tests/test_flash_attention.py runs it.
+CPU tensors against the JAX package's Pallas flash kernels run in interpret
+mode on the CPU, as tests/test_flash_attention.py runs them: the forward,
+and the backward at the head dims above 128 (160, 256, 288).
 
 f32 throughout; tolerance rtol=2e-4, atol=2e-5 (the JAX package's own
 flash test): the two differ only in summation order.
@@ -8,12 +9,14 @@ flash test): the two differ only in summation order.
 import math
 
 import numpy as onp
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from mxnet_tpu.ops.pallas.attention import (_flash_forward as jax_flash_fwd,
-                                            flash_attention as jax_flash)
+from mxnet_tpu.ops.pallas.attention import (
+    _flash_backward as jax_flash_bwd, _flash_forward as jax_flash_fwd,
+    flash_attention as jax_flash)
 from mxnet_tpu_torch.ops.cuda import attention as port
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -80,18 +83,68 @@ def test_plain_forward_at_large_head_dims_matches_jax_kernel(causal,
     onp.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
 
 
-def test_gradient_above_the_backward_head_dim_raises():
-    """The backward kernels take head dims up to 128: a gradient through
-    attention at D=160 raises before the forward runs (on every device,
-    so the CPU path keeps the card's contract); without a gradient the
-    forward takes it."""
-    x = torch.zeros(1, 8, 2, 160)
-    assert port.flash_attention(x, x, x).shape == (1, 8, 2, 160)
-    with pytest.raises(port.MXNetError, match="Queue B 3"):
-        port.flash_attention(x.requires_grad_(True), x, x)
-    y = torch.zeros(1, 8, 2, 128, requires_grad=True)
-    port.flash_attention(y, y, y).sum().backward()
-    assert y.grad.shape == y.shape
+@pytest.mark.parametrize("block_k,route", [(64, "fused"), (16, "two_pass")])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_at_large_head_dims_matches_jax_kernel(
+        causal, bias_kind, d, block_k, route):
+    """The head dims the Hopper backward takes above 128 (padded to 256
+    there, always on the dq/dkv pair): dq, dk, dv (and dbias of the
+    learned bias) of the plain backward vs the Pallas backward in
+    interpret mode on the same forward residuals, T=40, on both JAX
+    routes: the fused pass (Tk <= block_k) and the pair (block_k=16)."""
+    T = 40
+    q, k, v, bias = _inputs(d + 1, T, T, bias_kind, d)
+    do = onp.random.RandomState(d + 2).normal(0, 1, q.shape) \
+        .astype("float32")
+    scale = 1.0 / math.sqrt(d)
+    bias_grad = bias_kind == "full"
+    jb = None if bias is None else jnp.asarray(bias)
+    out, lse = jax_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jb, None, scale, causal, 16, block_k, 0.0, True)
+    want = jax_flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb,
+                         None, out, lse, jnp.asarray(do), scale, causal, 16,
+                         block_k, 0.0, True, bias_grad=bias_grad)
+    got = port._flash_backward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        None if bias is None else torch.from_numpy(bias), None,
+        torch.from_numpy(onp.array(out)), torch.from_numpy(onp.array(lse)),
+        torch.from_numpy(do), scale, causal, block_k, 0.0,
+        bias_grad=bias_grad)
+    for name, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert g.shape == (B, H, T, d)
+        onp.testing.assert_allclose(g.numpy(), onp.asarray(w), **TOL,
+                                    err_msg=name)
+    if bias_grad:
+        onp.testing.assert_allclose(got[3].numpy(), onp.asarray(want[3]),
+                                    **TOL, err_msg="dbias")
+    else:
+        assert got[3] is None and want[3] is None
+
+
+@pytest.mark.parametrize("d", [256, 288])
+def test_gradient_at_large_head_dims_runs_end_to_end(d):
+    """A gradient through flash_attention at D=256 (the card's largest)
+    and D=288 (above it: the plain version takes any head dim, as the JAX
+    package's backward does) runs on the CPU and equals jax.grad through
+    the JAX entry point; causal, key padding, Tq=24."""
+    q, k, v, bias = _inputs(d, 24, 24, "keypad", d)
+    qt, kt, vt = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v))
+    w = onp.random.RandomState(d).normal(0, 1, qt.shape).astype("float32")
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jax_flash(q_, k_, v_, causal=True,
+                                 bias=jnp.asarray(bias)) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(qt), jnp.asarray(kt), jnp.asarray(vt))
+    ts = [torch.tensor(x, requires_grad=True) for x in (qt, kt, vt)]
+    out = port.flash_attention(*ts, causal=True, bias=torch.from_numpy(bias))
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, g in zip(ts, want):
+        assert t.grad.shape == (B, 24, H, d)
+        onp.testing.assert_allclose(t.grad.numpy(), onp.asarray(g), **TOL)
 
 
 @pytest.mark.parametrize("causal", [False, True])

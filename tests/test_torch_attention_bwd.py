@@ -12,8 +12,10 @@
   shape, and the plain forward and backward against torch autograd through
   the dense formula under the same mask (f32, rtol=1e-5, atol=1e-6:
   summation order only).
-- The routing faults the port had: a float mask is learned and gets a
-  gradient, a boolean mask is not and forms no ds; dropout and the kernel
+- Routing: the card's choice of backward kernels by head dim, Tk and
+  block_k (a spy on the launch, no card needed); the faults the port had:
+  a float mask is learned and gets a gradient, a boolean mask is not and
+  forms no ds; dropout and the kernel
   seed draw only from the framework generator; the kernel build hash covers
   the shared headers; no file of the port imports JAX.
 - The fused kernel's dq accumulator (pure Python around the kernel): its
@@ -308,6 +310,44 @@ def test_block_env_vars_route_the_backward(monkeypatch):
     monkeypatch.setenv("MXNET_FLASH_BLOCK_K", "16")
     port_tf.dot_product_attention(q, q, q)
     assert seen == [port.DEFAULT_BLOCK_K, 16]
+
+
+@pytest.mark.parametrize("D,Tk,block_k,route", [
+    (64, 48, 1024, "fused"), (40, 512, 512, "fused"),
+    (128, 512, 1024, "fused"), (64, 2048, 1024, "two_pass"),
+    (128, 512, 256, "two_pass"), (129, 8, 1024, "two_pass"),
+    (160, 48, 1024, "two_pass"), (256, 48, 1024, "two_pass"),
+    (256, 2048, 1024, "two_pass")])
+def test_card_backward_route(monkeypatch, D, Tk, block_k, route):
+    """The card's routing (pure Python, run here on CPU tensors with the
+    kernel launch replaced by a spy): D <= 128 takes the fused pass when
+    Tk <= block_k and the dq/dkv pair otherwise, the JAX rule; 128 < D <=
+    256 takes the pair at every Tk, with dq in q's dtype and dk, dv in
+    the (B, T, H, D) layout."""
+    seen = []
+
+    def spy(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
+            ds, scale, causal, fn=None):
+        seen.append((name, None if dq is None else dq.dtype,
+                     None if dk is None else tuple(dk.shape)))
+
+    monkeypatch.setattr(port, "_launch_bwd", spy)
+    Tq = 24
+    q = torch.zeros(1, 2, Tq, D, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, Tk, D, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, Tq, 1)
+    dq, dk, dv, _ = port._backward_kernels(q, kv, kv, None, None, q, lse, q,
+                                           0.125, False, block_k, 0.0, False)
+    assert port.backward_route(D, Tk, block_k) == route
+    if route == "fused":
+        assert seen == [("flash_attention_bwd_fused", torch.float32,
+                         (1, 2, Tk, D))]
+    else:
+        assert seen == [("flash_attention_bwd_dq", torch.bfloat16, None),
+                        ("flash_attention_bwd_dkv", None, (1, 2, Tk, D))]
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert dk.shape == dv.shape == kv.shape
+    assert dq.transpose(1, 2).stride(-2) % 8 == 0   # rows TMA can store
 
 
 def test_dropout_draws_only_from_the_framework_generator():

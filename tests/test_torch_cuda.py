@@ -13,8 +13,10 @@ same inputs, atol=rtol=2e-2 (the kernel rounds p to 16 bits before p.v and
 rounds out once); f32 inputs atol=rtol=1e-4 (summation order); lse
 atol=1e-3, rtol=1e-4. Backward, relative Frobenius error of each of dq, dk,
 dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
-bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics).
-Dropout masks are compared bit for bit through the outputs they make.
+bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics),
+at head dims 40 to 256 (above 128 always the dq/dkv pair); two runs of the
+pair equal to the bit. Dropout masks are compared bit for bit through the
+outputs they make.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: bf16 fwd and wgrad 1e-2
@@ -146,21 +148,26 @@ def _backward_case(dev, dtype, D, causal, bias_kind, rate, Tq=77, Tk=131,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [40, 64, 128])
+@pytest.mark.parametrize("D", [40, 64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
 @pytest.mark.parametrize("route", ["fused", "two_pass"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_kernels_match_plain(dev, dtype, D, causal, bias_kind,
                                       route, rate):
-    """dq, dk, dv (and dbias for the learned full bias) of the fused
-    kernel (block_k >= Tk) or the dq/dkv pair (block_k < Tk) against the
-    plain backward on the same inputs and the same dropout mask."""
+    """dq, dk, dv (and dbias for the learned full bias, from the ds the
+    fused or the dq kernel writes) of the fused kernel (block_k >= Tk,
+    D <= 128) or the dq/dkv pair (block_k < Tk, or D > 128 at any Tk)
+    against the plain backward on the same inputs and the same dropout
+    mask."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, causal, bias_kind, rate)
     block_k = 1024 if route == "fused" else 64
-    names = (["flash_attention_bwd_fused"] if route == "fused" else
+    names = (["flash_attention_bwd_fused"]
+             if attn.backward_route(D, k.shape[2], block_k) == "fused" else
              ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    assert (names == ["flash_attention_bwd_fused"]) == \
+        (route == "fused" and D <= 128)
     before = {n: attn.launches[n] for n in attn.KERNELS}
     bias_grad = bias_kind == "full"
     dq, dk, dv, db = attn._flash_backward(
@@ -183,10 +190,14 @@ def test_backward_kernels_match_plain(dev, dtype, D, causal, bias_kind,
         assert db is None
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_fused_and_two_pass_agree(dev, dtype):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [40, 64, 128])
+def test_fused_and_two_pass_agree(dev, dtype, D):
+    """The fused pass and the dq/dkv pair on the same inputs (key padding,
+    dropout 0.1): dk, dv from the same walk, dq rounded in other places."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
-        dev, dtype, 64, False, "keypad", 0.1, Tq=200, Tk=200)
+        dev, dtype, D, False, "keypad", 0.1, Tq=200, Tk=200)
     fused = attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
                                  False, 1024, 0.1)
     two = attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
@@ -194,6 +205,36 @@ def test_fused_and_two_pass_agree(dev, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     for a, b in zip(fused[:3], two[:3]):
         assert _rel(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [40, 64, 128, 256])
+def test_pair_dropout_masks_are_the_plain_mask(dev, dtype, D):
+    """The dropout masks the dkv kernel (through dv) and the dq kernel
+    (through the learned bias's ds) draw equal dropout_keep_reference's
+    bit for bit (chip_smoke.pair_dropout_masks)."""
+    from_dkv, from_dq, want = cs.pair_dropout_masks(torch, attn, dev, dtype,
+                                                    D)
+    torch.cuda.synchronize()
+    assert torch.equal(from_dkv, want)
+    assert torch.equal(from_dq, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [40, 64, 128, 256])
+def test_pair_reruns_equal_to_the_bit(dev, dtype, D):
+    """The pair writes dq once from registers (no accumulator, no
+    atomics): two runs on the same inputs give dq, dk, dv and the learned
+    bias's gradient equal to the bit."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, D, True, "full", 0.1, Tq=300, Tk=300)
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 True, 64, 0.1) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_fully_masked_rows_give_zero_dq(dev):
@@ -434,9 +475,12 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(MXNetError, match="head_dim"):
         y = torch.zeros(1, 8, 2, 288, device=dev)
         attn.flash_attention(y, y, y)
-    with pytest.raises(MXNetError, match="Queue B 3"):
-        y = torch.zeros(1, 8, 2, 160, device=dev, requires_grad=True)
+    with pytest.raises(MXNetError, match="head_dim <= 256"):
+        y = torch.zeros(1, 8, 2, 288, device=dev, requires_grad=True)
         attn.flash_attention(y, y, y)
+    y = torch.zeros(1, 8, 2, 160, device=dev, requires_grad=True)
+    attn.flash_attention(y, y, y).sum().backward()   # the pair takes it
+    assert y.grad.shape == y.shape
     with pytest.raises(MXNetError, match="contiguous"):
         z = torch.zeros(1, 8, 16, 2, device=dev).transpose(-1, -2)
         attn.flash_attention(z, z, z)
