@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
+    python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -37,18 +38,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    library call (yardstick only). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
-   beside its bound, its plain version and cuDNN: ``F.conv2d``,
-   ``torch.nn.grad.conv2d_input``, ``conv2d_weight``; dgrad's ReLU mask
-   compared bit for bit through a launch with W = dy = 1, wgrad run twice and compared to the bit, each
-   junction's dgrad and wgrad plan printed, and the three kernels' totals
-   per ResNet-50 step, the junctions weighted by how often they occur),
+   by device time beside its bound, its plain version and cuDNN:
+   ``F.conv2d``, ``torch.nn.grad.conv2d_input``, ``conv2d_weight``, and by
+   CUDA events beside the kernels it replaced (PR 3's fwd, PR 3's and PR
+   5's dgrad); dgrad's ReLU mask compared bit for bit through a launch
+   with W = dy = 1, wgrad run twice and compared to the bit, each
+   junction's three plans printed, and the three kernels' totals per
+   ResNet-50 step, the junctions weighted by how often they occur),
    the same shapes in f32 at N=8 with the other affine/bias variant, two
    fp16 junctions (wgrad at the f32 limit: f(x) kept as two fp16 terms), a
    ragged small shape with relu off, and an M > 4096 wgrad case; with
    ``--probe-fwd``, the flash forward against builds of it with the
    softmax, the copies or the P V product cut out; with ``--probe-bwd``,
    the fused backward against builds of it with dropout's Philox, the dq
-   product and reduce-add, or the exponentials cut out;
+   product and reduce-add, or the exponentials cut out; with
+   ``--probe-conv``, conv fwd and dgrad against builds of them with the
+   copies, the products or the epilogue cut out, at the eight junctions;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
    length buckets: 16 concurrent requests; the forward kernel must launch
@@ -213,6 +218,23 @@ MMA_SYNC_STEP_MS = (21.678, 3.679)
 BWD_CUTS = {"Philox cut": "MXT_BWD_CUT=1", "dq product and add cut":
             "MXT_BWD_CUT=2", "exponentials cut": "MXT_BWD_CUT=3"}
 CONV_KERNELS = tuple(KERNEL_INFO)[4:]
+# the kernels fwd and dgrad replaced, at CONV_JUNCTIONS (PERF.md section 6,
+# CUDA events back to back, H100 80GB HBM3 at 700 W): PR 3's mma.sync fwd
+# and dgrad, PR 5's wgmma dgrad; printed beside the new kernels' times
+OLD_CONV_MS = {
+    "conv1x1_fwd": {"PR 3": (0.2795, 0.2301, 0.4007, 0.3996, 0.1816, 0.1719,
+                             0.3418, 0.3334)},
+    "conv1x1_dgrad": {"PR 5": (0.3830, 0.1781, 0.2093, 0.1603, 0.5295,
+                               0.3296, 0.2813, 0.1970),
+                      "PR 3": (0.2255, 0.1624, 0.4947, 0.4912, 0.5496,
+                               0.3064, 0.4717, 0.4790)}}
+# --probe-conv: fwd and dgrad rebuilt with one part cut out
+CONV_CUTS = {"copies cut": "MXT_CONV_CUT=1", "products cut": "MXT_CONV_CUT=2",
+             "epilogue cut": "MXT_CONV_CUT=3"}
+# the conv kernels' names (re.search), for device time by torch.profiler
+CONV_KERNEL = {"conv1x1_fwd": r"(?<!flash_)fwd_(tma|fma)<",
+               "conv1x1_dgrad": r"dgrad_(tma|fma)<",
+               "conv1x1_wgrad": r"wgrad_(rows|runs|f32|reduce)\b"}
 # BERT-base attention at the trained and served shapes
 B_MAIN, H, D, T_MAIN = 8, 12, 64, 512
 # ResNet-50's 1x1 junctions at b128, 224x224: (kind, Ci, Co, M); "triple"
@@ -227,6 +249,9 @@ CONV_JUNCTIONS = [("triple", 64, 256, 3136), ("triple", 128, 512, 784),
 # bottlenecks; the first block of a stage has no deferred ReLU before it)
 CONV_COUNTS = (3, 4, 6, 3, 2, 3, 5, 2)
 B_RESNET, IMG_RESNET = 128, 224
+# the ResNet-50 step's device busy time fused / unfused before the conv
+# fwd / dgrad redesign (PERF.md section 5, PR 9's run)
+PR9_RESNET_BUSY_MS = (159.831, 151.030)
 
 # ----------------------------------------------------------- mx.rtc (phase 7)
 # User kernels for mx.rtc: CUDA C++ that NVRTC compiles for sm_90a at run
@@ -876,6 +901,48 @@ def backward_probe(torch, dev, attn):
               + f"; card: {smi_line()}", flush=True)
 
 
+def conv_probe(torch, dev):
+    """Where conv fwd's and dgrad's time goes (``--probe-conv``): each
+    rebuilt with the copies after the first ring of stages, the products,
+    or the epilogue (mask, staging, stores) cut out (``-DMXT_CONV_CUT=1/2/
+    3``, wrong results, never checked), timed by device time in turns with
+    the full kernel at the eight junctions. Variant launches are not
+    counted."""
+    import ctypes
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    fns = {}
+    for name, entry in (("conv1x1_fwd", "mxt_conv1x1_fwd"),
+                        ("conv1x1_dgrad", "mxt_conv1x1_dgrad")):
+        argtypes = cf._kernel(name).argtypes
+        for label, define in CONV_CUTS.items():
+            fn = getattr(_kernels.load("conv_fused", (define,)), entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name, label] = fn
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for kind, Ci, Co, M in CONV_JUNCTIONS:
+        x, w, dy, scale, shift, b = conv_case(torch, dev, gen, B_RESNET, Ci,
+                                              Co, M, torch.bfloat16,
+                                              kind == "triple", True)
+        for name in ("conv1x1_dgrad", "conv1x1_fwd"):
+            def run(fn):
+                if name == "conv1x1_fwd":
+                    return lambda: cf._fwd(x, scale, shift, w, True, b, fn=fn)
+                return lambda: cf._dgrad(x, scale, shift, w, dy, True, fn=fn)
+            times = [("full", kernel_ms(run(None), CONV_KERNEL[name]))]
+            times += [(label, kernel_ms(run(fns[name, label]),
+                                        CONV_KERNEL[name]))
+                      for label in CONV_CUTS]
+            times.append(("full again",
+                          kernel_ms(run(None), CONV_KERNEL[name])))
+            print(f"phase 3: probe {name} bf16 {kind} N={B_RESNET} "
+                  f"{Ci}->{Co} M={M} (device time a launch): "
+                  + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times)
+                  + f"; card: {smi_line()}", flush=True)
+        del x, w, dy
+    torch.cuda.empty_cache()
+
+
 def dropout_mask_probe(torch, dev, attn, dt, seed, rate=0.1):
     """Read the forward kernel's dropout mask back bit for bit: with q = k
     = 0 every unmasked key has p = 1/128, and v = one-hot(key % 128) (head
@@ -1301,9 +1368,9 @@ def conv_case(torch, dev, gen, N, Ci, Co, M, dt, affine, bias):
 
 
 def library_conv_ms(torch, name, x, w, dy, scale, shift, relu, b, hw):
-    """cuDNN at the same shape, by CUDA events (a yardstick, never used by
-    the port): F.conv2d on the already-activated input, conv2d_input,
-    conv2d_weight."""
+    """cuDNN at the same shape (a yardstick, never used by the port):
+    F.conv2d on the already-activated input, conv2d_input, conv2d_weight.
+    Returns (device time of its kernels, CUDA events back to back)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.cuda.conv_fused import _prologue
     N, Ci, M = x.shape
@@ -1311,25 +1378,27 @@ def library_conv_ms(torch, name, x, w, dy, scale, shift, relu, b, hw):
     h4 = _prologue(x, scale, shift, relu).to(x.dtype).reshape(N, Ci, *hw)
     w4 = w.reshape(Co, Ci, 1, 1)
     dy4 = dy.reshape(N, Co, *hw)
+    if name == "conv1x1_fwd":
+        bb = b.to(x.dtype) if b is not None else None
+        call = lambda: F.conv2d(h4, w4, bb)  # noqa: E731
+    elif name == "conv1x1_dgrad":
+        call = lambda: torch.nn.grad.conv2d_input(h4.shape, w4, dy4)  # noqa
+    else:
+        call = lambda: torch.nn.grad.conv2d_weight(h4, w4.shape, dy4)  # noqa
     try:
-        if name == "conv1x1_fwd":
-            return cuda_time_ms(lambda: F.conv2d(h4, w4, b.to(x.dtype)
-                                                 if b is not None else None))
-        if name == "conv1x1_dgrad":
-            return cuda_time_ms(lambda: torch.nn.grad.conv2d_input(
-                h4.shape, w4, dy4))
-        return cuda_time_ms(lambda: torch.nn.grad.conv2d_weight(
-            h4, w4.shape, dy4))
+        return device_ms(call), cuda_time_ms(call)
     except Exception as e:  # noqa: BLE001 - a yardstick only: reported
         print(f"phase 3:   library call unavailable here ({e!r:.120})",
               flush=True)
-        return None
+        return None, None
 
 
-def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None):
+def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None,
+               junction=None):
     """The three conv kernels on one case against their plain versions;
     each launch must move its counter by one. Returns {kernel: row} when
-    ``timed``."""
+    ``timed`` (``junction``: its index in CONV_JUNCTIONS, for the old
+    kernels' times)."""
     x, w, dy, scale, shift, b = case
     N, Ci, M = x.shape
     Co = w.shape[0]
@@ -1372,16 +1441,26 @@ def conv_check(torch, cf, label, case, relu, errs, timed=False, hw=None):
                          (got.float() - want.float()).abs().max().item())
         parts.append(f"{name.split('_')[1]} {r:.2e}")
         if timed:
-            ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
-            lib_ms = library_conv_ms(torch, name, x, w, dy, scale, shift,
-                                     relu, b, hw)
+            # the median of three profiler sessions: a session can record
+            # only part of the launches' device time
+            runs = sorted(v for v in (kernel_ms(kern, CONV_KERNEL[name])
+                                      for _ in range(3)) if v is not None)
+            ms = runs[len(runs) // 2] if runs else None
+            ev_ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+            lib_ms, lib_ev = library_conv_ms(torch, name, x, w, dy, scale,
+                                             shift, relu, b, hw)
             bnd, by = conv_bound_ms(name, N, Ci, Co, M, dtn, x.dtype.itemsize,
                                     scale is not None, b is not None)
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bnd, bound_by=by)
-            print(f"phase 3: {name} {label}: kernel {ms:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, cuDNN "
-                  f"{fmt_ms(lib_ms)}", flush=True)
+                              bound_ms=bnd, bound_by=by, events_ms=ev_ms,
+                              library_events_ms=lib_ev)
+            old = "".join(f", {pr} {t[junction]:.4f}"
+                          for pr, t in OLD_CONV_MS.get(name, {}).items()
+                          ) if junction is not None else ""
+            print(f"phase 3: {name} {label}: kernel {fmt_ms(ms)} (device), "
+                  f"bound {bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
+                  f"cuDNN {fmt_ms(lib_ms)} (device); CUDA events: kernel "
+                  f"{ev_ms:.4f}{old}, cuDNN {fmt_ms(lib_ev)}", flush=True)
     print(f"phase 3: conv {label}: relative error {', '.join(parts)}",
           flush=True)
     return rows
@@ -1417,17 +1496,43 @@ def dgrad_mask_check(torch, cf, label, case, got, want):
 
 def conv_step_totals(per_junction):
     """Per-step totals of each conv kernel: the junction rows weighted by
-    how often each junction occurs in one ResNet-50 v1 step."""
+    how often each junction occurs in one ResNet-50 v1 step; beside them
+    the same totals of the kernels that fwd and dgrad replaced."""
+    def total(vals):
+        return None if None in vals else sum(
+            c * v for c, v in zip(CONV_COUNTS, vals))
     for name in CONV_KERNELS:
-        tot = {}
-        for key in ("ms", "library_ms", "bound_ms"):
-            vals = [r[name][key] for r in per_junction]
-            tot[key] = None if None in vals else sum(
-                c * v for c, v in zip(CONV_COUNTS, vals))
+        tot = {key: total([r[name][key] for r in per_junction])
+               for key in ("ms", "library_ms", "bound_ms", "events_ms",
+                           "library_events_ms")}
+        old = "".join(f", {pr} {total(t):.4f}"
+                      for pr, t in OLD_CONV_MS.get(name, {}).items())
         print(f"phase 3: {name} per ResNet-50 step (junctions weighted "
               f"{'/'.join(map(str, CONV_COUNTS))}): kernel "
-              f"{fmt_ms(tot['ms'])}, cuDNN {fmt_ms(tot['library_ms'])}, "
-              f"bound {fmt_ms(tot['bound_ms'])}", flush=True)
+              f"{fmt_ms(tot['ms'])} (device), cuDNN "
+              f"{fmt_ms(tot['library_ms'])} (device), bound "
+              f"{fmt_ms(tot['bound_ms'])}; CUDA events: kernel "
+              f"{fmt_ms(tot['events_ms'])}{old}, cuDNN "
+              f"{fmt_ms(tot['library_events_ms'])}", flush=True)
+
+
+def print_plan(cf, kind, label, N, Ci, Co, M, dtype):
+    plan = cf.conv1x1_plan(kind, N, Ci, Co, M, dtype)
+    if kind != "wgrad" and plan["mode"] in ("tma", "runs"):
+        print(f"phase 3: {kind} plan {label}: {plan['mode']}"
+              + (f" (runs of up to {plan['imgs']} images a step)"
+                 if plan["mode"] == "runs" else "")
+              + f", tile {plan['tile']} channels x {plan['tile_panels']} "
+              f"panels of 64, {plan['tiles']} tiles on {plan['blocks']} "
+              f"persistent blocks, {plan['steps']} steps a tile, "
+              f"{plan['stages']} ring slots of {plan['slot_bytes']} bytes, "
+              f"{plan['store']} stores", flush=True)
+    else:
+        print(f"phase 3: {kind} plan {label}: {plan['mode']} (vec "
+              f"{plan.get('vec', 1)}), tile {plan['tile']} x {plan['bk']} "
+              f"deep, {plan['tiles']} tiles x {plan.get('splits', 1)} splits "
+              f"= {plan['blocks']} blocks, {plan['steps']} steps a block, "
+              f"{plan.get('slots', 0)} ring slots", flush=True)
 
 
 def conv_checks(torch, dev):
@@ -1440,18 +1545,13 @@ def conv_checks(torch, dev):
         affine = kind == "triple"
         label = (f"bf16 {kind} N={B_RESNET} {Ci}->{Co} M={M} "
                  f"({'affine' if affine else 'relu-only'}, bias)")
-        for k in ("dgrad", "wgrad"):
-            plan = cf.conv1x1_plan(k, B_RESNET, Ci, Co, M, torch.bfloat16)
-            print(f"phase 3: {k} plan {label}: {plan['mode']} (vec "
-                  f"{plan['vec']}, W {plan['wvec']}), tile {plan['tile']} "
-                  f"x {plan['bk']} deep, {plan['tiles']} tiles x "
-                  f"{plan['splits']} splits = {plan['blocks']} blocks, "
-                  f"{plan['steps']} steps a block, {plan['slots']} ring "
-                  "slots", flush=True)
+        for k in ("fwd", "dgrad", "wgrad"):
+            print_plan(cf, k, label, B_RESNET, Ci, Co, M, torch.bfloat16)
         case = conv_case(torch, dev, gen, B_RESNET, Ci, Co, M,
                          torch.bfloat16, affine, True)
         got = conv_check(torch, cf, label, case, True, errs, timed=True,
-                         hw=(side, side))
+                         hw=(side, side),
+                         junction=CONV_JUNCTIONS.index((kind, Ci, Co, M)))
         per_junction.append(got)
         if (kind, Ci, Co, M) == CONV_JUNCTIONS[0]:
             rows = got          # the result line's row: the stage-1 triple
@@ -1463,7 +1563,7 @@ def conv_checks(torch, dev):
                    f"({'affine' if affine else 'relu-only'}, no bias)",
                    conv_case(torch, dev, gen, 8, Ci, Co, M, torch.float32,
                              affine, False), True, errs)
-    for Ci, Co, M in ((64, 256, 3136), (512, 2048, 49)):
+    for Ci, Co, M in ((64, 256, 3136), (256, 1024, 196), (512, 2048, 49)):
         conv_check(torch, cf, f"fp16 N={B_RESNET} {Ci}->{Co} M={M} (affine, "
                    "bias)", conv_case(torch, dev, gen, B_RESNET, Ci, Co, M,
                                       torch.float16, True, True), True, errs)
@@ -1481,6 +1581,8 @@ def conv_checks(torch, dev):
                              False), True, errs)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
+        if rows[name]["ms"] is None:      # the profiler saw no device time
+            rows[name]["ms"] = rows[name]["events_ms"]
     torch.cuda.empty_cache()
     return rows
 
@@ -1522,9 +1624,8 @@ def reset_counts(mod) -> None:
 
 # kernel-name patterns (re.search) of each group of a breakdown
 ATTN_GROUPS = {"flash forward": r"flash_fwd", "flash backward": r"bwd_"}
-CONV_GROUPS = {"conv1x1 fwd": r"(?<!flash_)fwd_(mma<|f32\b)",
-               "conv1x1 dgrad": r"dgrad_(rows<|runs<|f32\b)",
-               "conv1x1 wgrad": r"wgrad_(rows<|runs<|f32\b|reduce<)"}
+CONV_GROUPS = {f"conv1x1 {k.split('_')[1]}": v
+               for k, v in CONV_KERNEL.items()}
 
 
 def device_breakdown(prof, wall_ms, label, groups=None):
@@ -2044,8 +2145,9 @@ def phase_resnet(torch, dev):
         resnet_step(autograd, net, loss_fn, tr, x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    device_breakdown(prof, wall_ms, "phase 6: profiled fused step",
-                     CONV_GROUPS)
+    fused_busy, _ = device_breakdown(prof, wall_ms,
+                                     "phase 6: profiled fused step",
+                                     CONV_GROUPS)
     cf.launches.update(saved)
 
     # the same 10 steps from the same weights on the cuDNN-only chain
@@ -2067,8 +2169,16 @@ def phase_resnet(torch, dev):
         resnet_step(autograd, net, loss_fn, tr, x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    device_breakdown(prof, wall_ms, "phase 6: profiled unfused step",
-                     CONV_GROUPS)
+    unfused_busy, _ = device_breakdown(prof, wall_ms,
+                                       "phase 6: profiled unfused step",
+                                       CONV_GROUPS)
+    if fused_busy and unfused_busy:
+        print(f"phase 6: device busy fused / unfused {fused_busy:.3f} / "
+              f"{unfused_busy:.3f} ms = {fused_busy / unfused_busy:.3f} "
+              f"(PR 9's run: {PR9_RESNET_BUSY_MS[0]} / "
+              f"{PR9_RESNET_BUSY_MS[1]} ms = "
+              f"{PR9_RESNET_BUSY_MS[0] / PR9_RESNET_BUSY_MS[1]:.3f})",
+              flush=True)
 
     # eval mode (running statistics): the kernels against the unfused chain
     outs = {}
@@ -2561,6 +2671,9 @@ def main() -> int:
     ap.add_argument("--probe-bwd", action="store_true",
                     help="after phase 3, time the fused flash backward "
                     "against builds of it with one part cut out")
+    ap.add_argument("--probe-conv", action="store_true",
+                    help="after phase 3, time conv fwd and dgrad against "
+                    "builds of them with one part cut out")
     args = ap.parse_args()
 
     import torch
@@ -2594,6 +2707,8 @@ def main() -> int:
         if args.probe_bwd:
             variants += [("flash_attention_bwd", (d,))
                          for d in BWD_CUTS.values()]
+        if args.probe_conv:
+            variants += [("conv_fused", (d,)) for d in CONV_CUTS.values()]
         built = _kernels.build_all(variants=variants)
         print(f"phase 2: built {sorted(built)} in "
               f"{time.perf_counter() - t0:.1f} s "
@@ -2609,6 +2724,8 @@ def main() -> int:
             forward_probe(torch, dev, attn)
         if args.probe_bwd:
             backward_probe(torch, dev, attn)
+        if args.probe_conv:
+            conv_probe(torch, dev)
 
         launches = {n: None for n in KERNEL_INFO}
         if args.only is None:

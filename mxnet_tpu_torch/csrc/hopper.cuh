@@ -1,19 +1,19 @@
 // Hopper (sm_90a) building blocks: wgmma on shared-memory operands in the
 // canonical no-swizzle layout, mbarriers, 1-D bulk copies and the 8/16-byte
-// cp.async that zero-fills, used by conv_fused.cu's dgrad and wgrad kernels;
-// and, for the flash-attention kernels, wgmma on 128-byte-swizzled operands
-// (B K-major or MN-major, A swizzled or in registers), tensor (TMA) copies,
-// named barriers, stmatrix and the bulk f32 reduce-add into global memory
-// (the second half of this file).
+// cp.async that zero-fills, used by conv_fused.cu's wgrad kernels; and, for
+// the flash-attention kernels and conv_fused.cu's fwd and dgrad, wgmma on
+// 128-byte-swizzled operands (B K-major or MN-major, A swizzled or in
+// registers, loaded there by ldmatrix), tensor (TMA) copies, named
+// barriers, stmatrix and the bulk f32 reduce-add into global memory (the
+// second half of this file).
 //
 // The operand layout ("INTERLEAVE", no swizzle): a tile of R rows along M
 // (or N) and 64 along K is stored as 8 x 8 core matrices of 128 contiguous
 // bytes; core matrix (row group rg, k group kg) starts at 16-byte unit
 // kg * R + rg * 8. Inside it, a K-major operand keeps row r % 8 in unit
-// r % 8 (8 consecutive k per unit); an MN-major operand keeps k % 8 in unit
-// k % 8 (8 consecutive rows per unit). Both give a descriptor with leading
-// byte offset R * 16 (the next k group) and stride byte offset 128 (the next
-// row group); a k16 step advances the start by 2 * R * 16 bytes.
+// r % 8 (8 consecutive k per unit). The descriptor's leading byte offset is
+// R * 16 (the next k group), its stride byte offset 128 (the next row
+// group); a k16 step advances the start by 2 * R * 16 bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,31 +74,18 @@ __device__ __forceinline__ void fence_async_smem() {
       : "l"(da), "l"(db), "r"(1))
 
 // d (64 f32 per thread: the m64n128 accumulator of one warpgroup) +=
-// A (64 x 16) * B (16 x 128), both from shared memory. TA / TB: 0 for a
-// K-major operand, 1 for an MN-major ("transposed") one.
-template <typename T, int TA, int TB>
+// A (64 x 16) * B (16 x 128), both K-major from shared memory.
+template <typename T>
 __device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db);
 template <>
-__device__ __forceinline__ void wgmma_128<__nv_bfloat16, 0, 0>(float* d,
-                                                               uint64_t da,
-                                                               uint64_t db) {
+__device__ __forceinline__ void wgmma_128<__nv_bfloat16>(float* d, uint64_t da,
+                                                         uint64_t db) {
   HOP_WGMMA_128("bf16", "0", "0");
 }
 template <>
-__device__ __forceinline__ void wgmma_128<__half, 0, 0>(float* d, uint64_t da,
-                                                        uint64_t db) {
+__device__ __forceinline__ void wgmma_128<__half>(float* d, uint64_t da,
+                                                  uint64_t db) {
   HOP_WGMMA_128("f16", "0", "0");
-}
-template <>
-__device__ __forceinline__ void wgmma_128<__nv_bfloat16, 1, 1>(float* d,
-                                                               uint64_t da,
-                                                               uint64_t db) {
-  HOP_WGMMA_128("bf16", "1", "1");
-}
-template <>
-__device__ __forceinline__ void wgmma_128<__half, 1, 1>(float* d, uint64_t da,
-                                                        uint64_t db) {
-  HOP_WGMMA_128("f16", "1", "1");
 }
 #undef HOP_WGMMA_128
 
@@ -141,6 +128,17 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the reverse: `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from shared to global memory, in the thread's bulk group
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                        uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
       : "memory");
 }
 
@@ -307,6 +305,10 @@ HOP_RS(__nv_bfloat16, "bf16", 256, 1)
 HOP_RS(__half, "f16", 64, 1)
 HOP_RS(__half, "f16", 128, 1)
 HOP_RS(__half, "f16", 256, 1)
+HOP_RS(__nv_bfloat16, "bf16", 64, 0)
+HOP_RS(__nv_bfloat16, "bf16", 128, 0)
+HOP_RS(__half, "f16", 64, 0)
+HOP_RS(__half, "f16", 128, 0)
 #undef HOP_RS
 #define HOP_SS(TYPE, TY, N, TB)                                            \
   template <>                                                              \
@@ -368,6 +370,32 @@ __device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
 __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 16-bit matrices loaded transposed: lane l gives the shared
+// address of row l % 8 of matrix l / 8 (16 contiguous bytes, any row
+// order); r[i] receives matrix i's elements [2 (l % 4)][l / 4] (low half)
+// and [2 (l % 4) + 1][l / 4]. With rows = k and columns = m of an MN-major
+// tile this is the m16n8k16 / wgmma A fragment of 16 m x 16 k.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// loads from shared memory at a 32-bit shared address
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint16_t lds_u16(uint32_t addr) {
+  uint16_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
 }
 
 // barrier `id` (1..15; 0 is __syncthreads) over `count` threads: wait

@@ -29,6 +29,7 @@ are added in a fixed order, so dW is the same from run to run.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Optional
 
@@ -51,14 +52,48 @@ _TILE = 64
 # in flight: four per SM of an H100's 132
 _WGRAD_BLOCKS = 4 * 132
 SMS = 132                    # an H100's streaming multiprocessors
-# the 16-bit dgrad / wgrad (csrc/conv_fused.cu, namespace wg): 128 x 128
-# output tiles, 64 deep a step; wgrad's runs keep as many image slots as
-# fit beside its barriers and two 16 KB tiles (the C entry derives the
-# shared memory from the plan and refuses a plan that does not fit);
-# wgrad splits its reduction until about two blocks per SM are in flight
+# the 16-bit wgrad (csrc/conv_fused.cu, namespace wg): 128 x 128 output
+# tiles, 64 deep a step; its runs keep as many image slots as fit beside
+# its barriers and two 16 KB tiles (the C entry derives the shared memory
+# from the plan and refuses a plan that does not fit); it splits its
+# reduction until about two blocks per SM are in flight
 _WG_TILE, _WG_BK, _TILE_BYTES = 128, 64, 128 * 64 * 2
 _BARS, _MAX_SLOTS, SMEM_MAX = 256, 16, 232448
 _WGRAD_TARGET = 2 * SMS
+# the 16-bit fwd and dgrad (namespace tc): 64-position panels, 64-deep
+# steps, 8 KB panels of 64 swizzled 128-byte rows; the ring takes as many
+# slots (at most 6) as fit beside dgrad's repacked B buffers (runs), the
+# output staging, 1 KB of alignment and 256 bytes of barriers
+# (tc::make_plan), and at least two
+PANEL, _PANEL_BYTES, _TC_MAX_STAGES, _TC_BARS = 64, 64 * 128, 6, 256
+
+
+def _tc_layout(kind, N, Ci, Co, M, tile):
+    """tc::make_plan's walk and shared-memory layout, or None where the
+    ring would take fewer than two slots."""
+    dgrad = kind == "dgrad"
+    runs = M % 8 != 0
+    ppi = _cdiv(M, PANEL)
+    panels = N * ppi
+    pb = 256 // tile if dgrad else 2
+    groups = _cdiv(panels, pb)
+    imgs = 0
+    if runs:        # the start P0 % ppi repeats within ppi groups
+        imgs = max(min(panels - 1, g * pb + pb - 1) // ppi - g * pb // ppi + 1
+                   for g in range(min(groups, ppi)))
+    w_bytes = tile // 64 * _PANEL_BYTES if dgrad else tile * 128
+    act = _cdiv(imgs * 128 * M, 1024) * 1024 if runs else pb * _PANEL_BYTES
+    slot = w_bytes + act    # dgrad's x fill (TMA rows) fits too
+    bt = 2 * pb * _PANEL_BYTES if runs else 0   # repacked panels
+    staging = 2 * 64 * 128 * 4 if dgrad else 2 * tile * 128
+    stages = min(_TC_MAX_STAGES,
+                 (SMEM_MAX - 1024 - _TC_BARS - bt - staging) // slot)
+    if stages < 2:
+        return None
+    return dict(ppi=ppi, panels=panels, tile_panels=pb, imgs=imgs,
+                tiles=groups * _cdiv(Ci if dgrad else Co, tile),
+                stages=stages, slot_bytes=slot, bt_bytes=bt,
+                staging_bytes=staging)
 
 
 # ---------------------------------------------------------- plain versions
@@ -111,7 +146,7 @@ def _kernel(name: str):
     lib = _kernels.load("conv_fused")
     if name == "conv1x1_fwd":
         fn = lib.mxt_conv1x1_fwd
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     elif name == "conv1x1_dgrad":
         fn = lib.mxt_conv1x1_dgrad
         fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
@@ -155,26 +190,23 @@ def _check_operands(x3, w=None, dy3=None, scale=None, shift=None, bias=None):
     return N, Ci, Co, M
 
 
-def _vec(t, row: int) -> int:
-    """16-byte loads of ``t``'s rows: 16-bit data, rows a multiple of 8
-    elements, an aligned pointer."""
-    return int(t.dtype != torch.float32 and row % 8 == 0
-               and t.data_ptr() % 16 == 0)
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _run(name, *args, device) -> None:
-    fn = _kernel(name)
+def _run(name, *args, device, fn=None) -> None:
+    """Launch kernel ``name``, or ``fn``, a build of it with an experiment's
+    defines (``chip_smoke.py --probe-conv``), which is not counted."""
+    counted = fn is None
+    fn = _kernel(name) if fn is None else fn
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        launches[name] += 1
+    if counted:
+        with _COUNT_LOCK:
+            launches[name] += 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -193,83 +225,110 @@ def _align(*ts) -> int:
 
 def conv1x1_plan(kind: str, N: int, Ci: int, Co: int, M: int, dtype,
                  align: int = 16) -> dict:
-    """How the ``dgrad`` or ``wgrad`` kernel runs at a shape: a pure
-    function of the shape, the dtype and ``align`` (the largest power of
-    two up to 16 dividing the operands' addresses), so the split of wgrad's
-    reduction, and with it the order of its sums, is too.
+    """How the ``fwd``, ``dgrad`` or ``wgrad`` kernel runs at a shape: a
+    pure function of the shape, the dtype and ``align`` (the largest power
+    of two up to 16 dividing the operands' addresses), so the split of
+    wgrad's reduction, and with it the order of its sums, is too.
 
-    16-bit keys: ``mode`` how x and dy reach shared memory, ``rows16`` /
+    16-bit fwd and dgrad (channels multiples of 8, every operand 16-byte
+    aligned): ``mode`` ``tma`` (M % 8 == 0: TMA boxes of whole 64-position
+    panels) or ``runs`` (else: one cp.async.bulk of each image's 64-channel
+    run a step, while two ring slots fit); ``ppi`` 64-position panels a
+    image and ``panels`` in all, ``tile`` output channels a block tile
+    (dgrad: ci, fwd: co; 64 or 128) and ``tile_panels``
+    its panels, ``imgs`` (runs) most images a tile's panels touch,
+    ``steps`` 64-deep contraction steps a tile (dgrad's ReLU on TMA rows
+    adds one fill, the mask's x tile), ``stages`` ring slots of
+    ``slot_bytes``, ``tiles`` and ``blocks`` (persistent: at most one an
+    SM), ``store``: ``tma`` where the output's rows are 16-byte multiples
+    (f32 da: M % 4 == 0; 16-bit y: M % 8 == 0), else ``bulk`` where a
+    panel is a whole image (M <= 64: one 1-D bulk copy of its contiguous
+    channel rows), else ``threads``. Other shapes take ``general`` (the
+    FMA kernels).
+
+    16-bit wgrad: ``mode`` how x and dy reach shared memory, ``rows16`` /
     ``rows8`` (16- / 8-byte cp.async of rows whose length is a multiple of
     8 / 4 elements), ``runs`` (cp.async.bulk of each image's contiguous
-    channel-tile run, 8 <= M < 64 not a multiple of 4) or ``general`` (element
-    loads, any shape); ``vec`` / ``wvec`` elements per copy of x and dy /
-    of W; ``tile`` (rows, columns) of the output per block, ``bk`` the
-    contraction per step; wgrad's ``splits`` blocks along the reduction,
-    ``per`` images each, ``slots`` images in its ring (runs); ``tiles``,
-    ``blocks`` (tiles x splits) and ``steps`` (contraction steps of a
-    block). dgrad's output tile runs along ci and the flattened
-    N*M axis, wgrad's along co and ci. f32 (``mode`` ``f32``): the FMA
-    kernels' 64 x 64 tiles; wgrad's splits in steps of 16 positions."""
-    if kind not in ("dgrad", "wgrad"):
-        raise MXNetError(f"conv1x1_plan: kind must be dgrad or wgrad, not "
-                         f"{kind!r}")
+    channel-tile run, 8 <= M < 64 not a multiple of 4) or ``general``
+    (element loads, any shape); ``vec`` elements per copy of x and dy;
+    ``tile`` (co, ci) of the output per block, ``bk`` the contraction per
+    step; ``splits`` blocks along the reduction, ``per`` images each,
+    ``slots`` images in its ring (runs); ``tiles``, ``blocks`` (tiles x
+    splits) and ``steps`` (contraction steps of a block). f32 (``mode``
+    ``f32``), and 16-bit ``general`` fwd and dgrad: the FMA kernels' 64 x
+    64 tiles; f32 wgrad's splits in steps of 16 positions."""
+    if kind not in ("fwd", "dgrad", "wgrad"):
+        raise MXNetError(f"conv1x1_plan: kind must be fwd, dgrad or wgrad, "
+                         f"not {kind!r}")
+    if kind != "wgrad":
+        out_ch = Co if kind == "fwd" else Ci
+        tile = 64 if out_ch <= 64 else 128
+        layout = None
+        if dtype != torch.float32 and align >= 16 and Ci % 8 == 0 and \
+                Co % 8 == 0:
+            layout = _tc_layout(kind, N, Ci, Co, M, tile)
+        if layout is None:
+            tiles = _cdiv(M, 64) * _cdiv(out_ch, 64) * N
+            return dict(kind=kind, mode="f32" if dtype == torch.float32
+                        else "general", tile=(64, 64), bk=16, tiles=tiles,
+                        blocks=tiles,
+                        steps=_cdiv(Co if kind == "dgrad" else Ci, 16))
+        store = "tma" if M % (4 if kind == "dgrad" else 8) == 0 else \
+            "bulk" if layout["ppi"] == 1 else "threads"
+        return dict(kind=kind, mode="tma" if M % 8 == 0 else "runs",
+                    tile=tile, steps=_cdiv(Ci if kind == "fwd" else Co, 64),
+                    blocks=min(layout["tiles"], SMS), store=store, **layout)
     if dtype == torch.float32:
-        plan = dict(kind=kind, mode="f32", vec=1, wvec=1, tile=(64, 64),
-                    bk=16, splits=1, per=0, slots=0)
-        if kind == "dgrad":
-            plan["tiles"] = _cdiv(M, 64) * _cdiv(Ci, 64) * N
-            plan["steps"] = _cdiv(Co, 16)
-        else:
-            steps = N * _cdiv(M, 16)
-            plan["tiles"] = _cdiv(Co, 64) * _cdiv(Ci, 64)
-            splits = max(1, min(steps, _cdiv(_WGRAD_BLOCKS, plan["tiles"]),
-                                65535))
-            plan.update(splits=splits, per=_cdiv(steps, splits),
-                        steps=_cdiv(steps, splits))
-        plan["blocks"] = plan["tiles"] * plan["splits"]
-        return plan
+        steps = N * _cdiv(M, 16)
+        tiles = _cdiv(Co, 64) * _cdiv(Ci, 64)
+        splits = max(1, min(steps, _cdiv(_WGRAD_BLOCKS, tiles), 65535))
+        return dict(kind=kind, mode="f32", vec=1, tile=(64, 64), bk=16,
+                    splits=splits, per=_cdiv(steps, splits), slots=0,
+                    tiles=tiles, steps=_cdiv(steps, splits),
+                    blocks=tiles * splits)
     vec = 8 if M % 8 == 0 and align >= 16 else \
         4 if M % 4 == 0 and align >= 8 else 1
-    wvec = 8 if Ci % 8 == 0 and align >= 16 else \
-        4 if Ci % 4 == 0 and align >= 8 else 1
     mode = {8: "rows16", 4: "rows8", 1: "general"}[vec]
     slots = 0
     if vec == 1 and align >= 16 and Ci % 8 == 0 and Co % 8 == 0 and \
             8 <= M < 64:
         # the fp16 wgrad keeps a third tile: f(x) - fp16(f(x))
-        tiles = 3 if kind == "wgrad" and dtype == torch.float16 else 2
+        tiles = 3 if dtype == torch.float16 else 2
         slots = min(_MAX_SLOTS,
                     (SMEM_MAX - _BARS - tiles * _TILE_BYTES) // (512 * M))
-        if kind == "dgrad" or slots >= _cdiv(_WG_BK - 1, M) + 3:
+        if slots >= _cdiv(_WG_BK - 1, M) + 3:
             mode = "runs"
-    if mode != "runs" or kind == "dgrad":
+    if mode != "runs":
         slots = 0
-    plan = dict(kind=kind, mode=mode, vec=vec, wvec=wvec,
-                tile=(_WG_TILE, _WG_TILE), bk=_WG_BK, slots=slots)
-    if kind == "dgrad":
-        plan.update(splits=1, per=0, steps=_cdiv(Co, _WG_BK),
-                    tiles=_cdiv(N * M, _WG_TILE) * _cdiv(Ci, _WG_TILE))
-    else:
-        tiles = _cdiv(Co, _WG_TILE) * _cdiv(Ci, _WG_TILE)
-        per = _cdiv(N, max(1, min(N, _cdiv(_WGRAD_TARGET, tiles))))
-        plan.update(splits=_cdiv(N, per), per=per,
-                    steps=_cdiv(per * M, _WG_BK), tiles=tiles)
-    plan["blocks"] = plan["tiles"] * plan["splits"]
-    return plan
+    tiles = _cdiv(Co, _WG_TILE) * _cdiv(Ci, _WG_TILE)
+    per = _cdiv(N, max(1, min(N, _cdiv(_WGRAD_TARGET, tiles))))
+    splits = _cdiv(N, per)
+    return dict(kind=kind, mode=mode, vec=vec, tile=(_WG_TILE, _WG_TILE),
+                bk=_WG_BK, slots=slots, splits=splits, per=per,
+                steps=_cdiv(per * M, _WG_BK), tiles=tiles,
+                blocks=tiles * splits)
 
 
-def _fwd(x3, scale, shift, w, relu: bool, bias=None):
+def _tc_args(plan) -> tuple:
+    """The C entries' (tc, tile, blocks) of a fwd / dgrad plan."""
+    if plan["mode"] not in ("tma", "runs"):
+        return 0, 64, 1
+    return 1, plan["tile"], plan["blocks"]
+
+
+def _fwd(x3, scale, shift, w, relu: bool, bias=None, fn=None):
     if not x3.is_cuda:
         return conv1x1_fwd_reference(x3, scale, shift, w, relu, bias)
     N, Ci, Co, M = _check_operands(x3, w, None, scale, shift, bias)
+    plan = conv1x1_plan("fwd", N, Ci, Co, M, x3.dtype, _align(x3, w))
     y = torch.empty((N, Co, M), dtype=x3.dtype, device=x3.device)
     _run("conv1x1_fwd", _DTYPE_CODE[x3.dtype], x3.data_ptr(), w.data_ptr(),
          _ptr(scale), _ptr(shift), _ptr(bias), y.data_ptr(), N, Ci, Co, M,
-         int(relu), _vec(x3, M), _vec(w, Ci), device=x3.device)
+         int(relu), *_tc_args(plan), device=x3.device, fn=fn)
     return y
 
 
-def _dgrad(x3, scale, shift, w, dy3, relu: bool):
+def _dgrad(x3, scale, shift, w, dy3, relu: bool, fn=None):
     if not x3.is_cuda:
         return conv1x1_dgrad_reference(x3, scale, shift, w, dy3, relu)
     N, Ci, Co, M = _check_operands(x3, w, dy3, scale, shift)
@@ -277,8 +336,7 @@ def _dgrad(x3, scale, shift, w, dy3, relu: bool):
     da = torch.empty((N, Ci, M), dtype=torch.float32, device=x3.device)
     _run("conv1x1_dgrad", _DTYPE_CODE[x3.dtype], x3.data_ptr(), w.data_ptr(),
          dy3.data_ptr(), _ptr(scale), _ptr(shift), da.data_ptr(), N, Ci, Co,
-         M, int(relu), int(plan["mode"] == "runs"), plan["vec"],
-         plan["wvec"], device=x3.device)
+         M, int(relu), *_tc_args(plan), device=x3.device, fn=fn)
     return da
 
 

@@ -19,10 +19,11 @@ pair equal to the bit. Dropout masks are compared bit for bit through the
 outputs they make.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
-versions, relative Frobenius error of each output: bf16 fwd and wgrad 1e-2
-(f(x) and the output rounded to bf16 once each), 16-bit dgrad 1e-4 (f32
-sums of exact products), fp16 wgrad 1e-4 (f(x) carried as two fp16 terms,
-about f32), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long sums).
+versions, relative Frobenius error of each output: 16-bit fwd and bf16
+wgrad 1e-2 (f(x) and the output rounded to 16 bits once each), 16-bit
+dgrad 1e-4 (f32 sums of exact products), fp16 wgrad 1e-4 (f(x) carried as
+two fp16 terms, about f32), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long
+sums); dgrad's ReLU mask bit for bit on every copy path.
 
 mx.rtc: the user kernels of ``chip_smoke.py`` compiled by NVRTC for sm_90a
 against their plain versions: axpy, scale, square and rtc_axpy equal to the
@@ -494,7 +495,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 # ------------------------------------------------------- conv1x1 kernels
 CONV_REL = {torch.bfloat16: {"fwd": 1e-2, "dgrad": 1e-4, "wgrad": 1e-2},
-            torch.float16: {"dgrad": 1e-4, "wgrad": 1e-4},
+            torch.float16: {"fwd": 1e-2, "dgrad": 1e-4, "wgrad": 1e-4},
             torch.float32: {"fwd": 1e-5, "dgrad": 1e-5, "wgrad": 1e-4}}
 
 
@@ -560,12 +561,47 @@ def _backward_match(x, w, dy, s, t, relu, dtype):
                                      (1024, 256, 196), (2048, 512, 49)])
 def test_conv_backward_kernels_at_resnet_batch(dev, dtype, Ci, Co, M):
     """dgrad and wgrad at N=128 on the junctions whose rows are not 16-byte
-    aligned (M=196: the 8-byte cp.async path; M=49: cp.async.bulk runs)."""
+    aligned: dgrad's bulk copies of whole channel runs, wgrad's 8-byte
+    cp.async (M=196) or cp.async.bulk runs (M=49)."""
     affine = Ci < Co
     x, w, dy, s, t, _ = _conv_case(dev, dtype, 128, Ci, Co, M, affine, False)
-    mode = cf.conv1x1_plan("dgrad", 128, Ci, Co, M, dtype)["mode"]
-    assert mode == ("rows8" if M == 196 else "runs")
+    assert cf.conv1x1_plan("dgrad", 128, Ci, Co, M, dtype)["mode"] == "runs"
+    assert cf.conv1x1_plan("wgrad", 128, Ci, Co, M, dtype)["mode"] == \
+        ("rows8" if M == 196 else "runs")
     _backward_match(x, w, dy, s, t, True, dtype)
+
+
+RESNET_JUNCTIONS = [(64, 256, 3136), (128, 512, 784), (256, 1024, 196),
+                    (512, 2048, 49), (256, 64, 3136), (512, 128, 784),
+                    (1024, 256, 196), (2048, 512, 49)]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("Ci,Co,M", RESNET_JUNCTIONS)
+@pytest.mark.parametrize("affine,bias", [(True, True), (True, False),
+                                         (False, True), (False, False)])
+def test_conv_fwd_and_dgrad_at_resnet_junctions(dev, dtype, Ci, Co, M,
+                                                affine, bias):
+    """fwd and dgrad on their copy ring at ResNet-50's eight b128
+    junctions (TMA rows and stores at M = 3136, 784; bulk runs and the
+    threads' stores at 196, 49), affine or relu-only, with and without
+    bias; each launch moves its counter by one."""
+    x, w, dy, s, t, b = _conv_case(dev, dtype, 128, Ci, Co, M, affine, bias)
+    for kind in ("fwd", "dgrad"):
+        assert cf.conv1x1_plan(kind, 128, Ci, Co, M, dtype)["mode"] == \
+            ("tma" if M % 8 == 0 else "runs")
+    before = dict(cf.launches)
+    got = {"fwd": cf._fwd(x, s, t, w, True, b),
+           "dgrad": cf._dgrad(x, s, t, w, dy, True)}
+    torch.cuda.synchronize()
+    assert {k: cf.launches[f"conv1x1_{k}"] - before[f"conv1x1_{k}"]
+            for k in got} == {"fwd": 1, "dgrad": 1}
+    want = {"fwd": cf.conv1x1_fwd_reference(x, s, t, w, True, b),
+            "dgrad": cf.conv1x1_dgrad_reference(x, s, t, w, dy, True)}
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.isfinite(got[k]).all()
+        assert _rel(got[k], want[k]) <= CONV_REL[dtype][k], \
+            f"{k}: {_rel(got[k], want[k]):.3e}"
 
 
 @pytest.mark.parametrize("dtype", HALF)
@@ -610,18 +646,36 @@ def test_conv_dgrad_mask_is_the_plain_mask(dev):
     assert _rel(da, want) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("N,Ci,Co,M", [(2, 64, 256, 3136), (2, 128, 64, 784),
                                        (4, 256, 128, 196), (8, 128, 256, 49),
                                        (3, 45, 77, 53)])
-def test_conv_dgrad_mask_is_bit_exact_on_every_staging_path(dev, N, Ci, Co,
-                                                            M):
+def test_conv_dgrad_mask_is_bit_exact_on_every_staging_path(dev, dtype, N,
+                                                            Ci, Co, M):
     """With W = dy = 1 every kept sum is Co, exact in f32: dgrad must give
-    Co * [x * scale + shift > 0] to the bit (rows16, rows8, runs, general)."""
-    x, w, dy, s, t, _ = _conv_case(dev, torch.bfloat16, N, Ci, Co, M, True,
-                                   False)
+    Co * [x * scale + shift > 0] to the bit on every copy path (TMA rows,
+    the mask from the x fill; bulk runs at M = 196 and 49, the mask in the
+    threads' stores; the general path)."""
+    x, w, dy, s, t, _ = _conv_case(dev, dtype, N, Ci, Co, M, True, False)
     da = cf._dgrad(x, s, t, torch.ones_like(w), torch.ones_like(dy), True)
     keep = cf._prologue(x, s, t, False) > 0
     assert torch.equal(da, keep.float() * Co)
+
+
+def test_conv_fwd_takes_an_unaligned_x(dev):
+    """x a contiguous slice at an odd storage offset: fwd's general path,
+    f(x) rounded to bf16 once, the output once."""
+    N, Ci, Co, M = 2, 64, 128, 196
+    x, w, _, s, t, b = _conv_case(dev, torch.bfloat16, N, Ci, Co, M, True,
+                                  True)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xu = flat[1:].view(N, Ci, M)
+    xu.copy_(x)
+    assert cf.conv1x1_plan("fwd", N, Ci, Co, M, x.dtype,
+                           cf._align(xu, w))["mode"] == "general"
+    got = cf._fwd(xu, s, t, w, True, b)
+    want = cf.conv1x1_fwd_reference(x, s, t, w, True, b)
+    assert _rel(got, want) <= CONV_REL[torch.bfloat16]["fwd"]
 
 
 @pytest.mark.parametrize("N,Ci,Co,M", [(16, 64, 256, 3136),
