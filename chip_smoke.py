@@ -13,8 +13,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: the card's name and ``nvidia-smi`` name and power limit, and
    MXNet's ``Dense(...).initialize()`` with no arguments landing on
    ``cuda:0``;
-2. build: every CUDA source of the port from ``mxnet_tpu_torch/csrc``, one
-   ``nvcc`` each, all started together; registers and spills per kernel;
+2. build: every CUDA source of the port from ``mxnet_tpu_torch/csrc`` (the
+   attention, conv and BatchNorm kernels), one ``nvcc`` each, all started
+   together; registers and spills per kernel;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the served and the trained BERT-base give it: the forward at
    head dims 64, 128 and 256, ragged and cross-length (Tq != Tk) shapes,
@@ -47,7 +48,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ResNet-50 step, the junctions weighted by how often they occur),
    the same shapes in f32 at N=8 with the other affine/bias variant, two
    fp16 junctions (wgrad at the f32 limit: f(x) kept as two fp16 terms), a
-   ragged small shape with relu off, and an M > 4096 wgrad case; with
+   ragged small shape with relu off, and an M > 4096 wgrad case; then
+   BatchNorm's four training kernels (bn_stats, bn_apply, bn_bwd_reduce,
+   bn_bwd_apply) against their plain versions at ResNet-50's nine
+   BatchNorm shapes at N=128 in bf16, fp16 and f32, an NHWC (axis -1) and
+   a 2-d case, an input mean of 100 (shifted and centered statistics) and
+   ragged shapes, each twice and equal to the bit; the bf16 shapes timed by
+   device time beside the bound, the plain version, PyTorch's native
+   batch-norm kernels (the library call of each) and cuDNN's training
+   ``F.batch_norm`` forward and backward, and their totals per ResNet-50
+   step, the shapes weighted by their layer counts; with
    ``--probe-fwd``, the flash forward against builds of it with the
    softmax, the copies or the P V product cut out; with ``--probe-bwd``,
    the fused backward against builds of it with dropout's Philox, the dq
@@ -77,9 +87,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0.9, ``MXNET_FUSE_BN_CONV=1``: 10 steps of ``autograd.record`` ->
    ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``Trainer.step(128)``;
    every step must launch each conv kernel 28 times (16 BatchNorm-relu-conv
-   triples, 12 deferred relu-conv junctions) and the loss must fall; step
-   time, img/s and a profiler breakdown; the same 10 steps with
-   ``MXNET_FUSE_BN_CONV=0`` (cuDNN only) from the same weights; an
+   triples, 12 deferred relu-conv junctions) and the BatchNorm kernels
+   53 / 37 / 37 / 53 times (the first step's centered statistics: bn_stats
+   twice a layer), and the loss must fall; step time, img/s and a
+   profiler breakdown (conv and batch-norm groups) with the peak device
+   memory; the same 10 steps with ``MXNET_FUSE_BN_CONV=0`` (cuDNN convs,
+   53 launches of each BatchNorm kernel a step) from the same weights; an
    eval-mode forward with the kernels against the unfused one; one f32 SGD
    step on the card (TF32 off) against the same step on the CPU;
 7. the imperative path and mx.rtc: NVRTC's and the driver's versions; the
@@ -190,6 +203,16 @@ KERNEL_INFO = {
                       "mxnet_tpu/ops/pallas/conv_fused.py:217"),
     "conv1x1_wgrad": ("mxnet_tpu_torch/csrc/conv_fused.cu",
                       "mxnet_tpu/ops/pallas/conv_fused.py:306"),
+    # BatchNorm's training VJP: the JAX package leaves it to XLA (no Pallas
+    # kernel), so these name the lines of the function each kernel computes
+    "bn_stats": ("mxnet_tpu_torch/csrc/batch_norm.cu",
+                 "mxnet_tpu/ops/nn.py:528 (_bn_train_math, XLA)"),
+    "bn_apply": ("mxnet_tpu_torch/csrc/batch_norm.cu",
+                 "mxnet_tpu/ops/nn.py:534 (_bn_train_math, XLA)"),
+    "bn_bwd_reduce": ("mxnet_tpu_torch/csrc/batch_norm.cu",
+                      "mxnet_tpu/ops/nn.py:560 (_bn_train_bwd, XLA)"),
+    "bn_bwd_apply": ("mxnet_tpu_torch/csrc/batch_norm.cu",
+                     "mxnet_tpu/ops/nn.py:563 (_bn_train_bwd, XLA)"),
 }
 ATTN_KERNELS = tuple(KERNEL_INFO)[:4]
 # the mma.sync forward this redesign replaced, at the same shapes (PERF.md
@@ -217,7 +240,7 @@ MMA_SYNC_STEP_MS = (21.678, 3.679)
 # --probe-bwd: the fused backward rebuilt with one part cut out
 BWD_CUTS = {"Philox cut": "MXT_BWD_CUT=1", "dq product and add cut":
             "MXT_BWD_CUT=2", "exponentials cut": "MXT_BWD_CUT=3"}
-CONV_KERNELS = tuple(KERNEL_INFO)[4:]
+CONV_KERNELS = tuple(KERNEL_INFO)[4:7]
 # the kernels fwd and dgrad replaced, at CONV_JUNCTIONS (PERF.md section 6,
 # CUDA events back to back, H100 80GB HBM3 at 700 W): PR 3's mma.sync fwd
 # and dgrad, PR 5's wgmma dgrad; printed beside the new kernels' times
@@ -250,8 +273,37 @@ CONV_JUNCTIONS = [("triple", 64, 256, 3136), ("triple", 128, 512, 784),
 CONV_COUNTS = (3, 4, 6, 3, 2, 3, 5, 2)
 B_RESNET, IMG_RESNET = 128, 224
 # the ResNet-50 step's device busy time fused / unfused before the conv
-# fwd / dgrad redesign (PERF.md section 5, PR 9's run)
-PR9_RESNET_BUSY_MS = (159.831, 151.030)
+# fwd / dgrad redesign (PERF.md section 5)
+OLD_CONV_RESNET_BUSY_MS = (159.831, 151.030)
+# ... and before BatchNorm's kernels, with eager f32 BatchNorm (PERF.md
+# section 5)
+EAGER_BN_RESNET_BUSY_MS = (150.355, 151.473)
+BN_KERNELS = tuple(KERNEL_INFO)[7:]
+# BatchNorm's kernels' names (re.search), for device time by torch.profiler
+BN_KERNEL = {"bn_stats": r"reduce_kernel<[^>]*, 0>",
+             "bn_apply": r"apply_kernel<[^>]*, 0>",
+             "bn_bwd_reduce": r"reduce_kernel<[^>]*, 1>",
+             "bn_bwd_apply": r"apply_kernel<[^>]*, 1>"}
+# ResNet-50 v1's 53 BatchNorm layers at 224x224: (C, H*W, layers), and the
+# 16 of them (bn2 of each bottleneck) that MXNET_FUSE_BN_CONV=1 fuses into
+# the next 1x1 conv, which then launch only bn_stats and bn_bwd_apply
+BN_SHAPES = ((64, 12544, 1), (64, 3136, 6), (256, 3136, 4), (128, 784, 8),
+             (512, 784, 5), (256, 196, 12), (1024, 196, 7), (512, 49, 6),
+             (2048, 49, 4))
+BN_FUSED = {(64, 3136): 3, (128, 784): 4, (256, 196): 6, (512, 49): 3}
+# a ResNet-50 step's BatchNorm launches, fused and unfused; the virgin
+# first step takes centered statistics, two bn_stats sweeps a layer
+BN_STEP = {"1": {"bn_stats": 53, "bn_apply": 37, "bn_bwd_reduce": 37,
+                 "bn_bwd_apply": 53},
+           "0": {k: 53 for k in BN_KERNELS}}
+# phase 3, BatchNorm's kernels against their plain versions: statistics, dg
+# and db relative Frobenius (f32 sums in another order; the mean's error
+# relative to the batch's standard deviation, as a mean near 0 has no
+# relative error of its own); out and dx within
+# one ulp of their 16-bit dtype (the kernels round each f32 operation as
+# the plain versions do) and relative 1e-5 in f32
+TOL_BN_REL = 1e-5
+TOL_BN_ULPS = 1
 
 # ----------------------------------------------------------- mx.rtc (phase 7)
 # User kernels for mx.rtc: CUDA C++ that NVRTC compiles for sm_90a at run
@@ -1587,6 +1639,298 @@ def conv_checks(torch, dev):
     return rows
 
 
+def bn_bound_ms(name, outer, C, inner, elem):
+    """Least time for one BatchNorm kernel: x (and dy) read once, the
+    per-channel vectors read and written once, the output written once
+    (out, dx in x's dtype; the statistics, dg, db in f32); its f32
+    operations, a few an element."""
+    n = outer * C * inner
+    nbytes, flops = {"bn_stats": (elem * n + 16 * C, 3 * n),
+                     "bn_apply": (2 * elem * n + 16 * C, 4 * n),
+                     "bn_bwd_reduce": (2 * elem * n + 16 * C, 5 * n),
+                     "bn_bwd_apply": (3 * elem * n + 28 * C, 8 * n)}[name]
+    return bound(flops, nbytes, "float32")
+
+
+def bn_case(torch, dev, gen, outer, C, inner, dt, mean=0.0):
+    """x (mean ``mean``, std 2) and dy in ``dt``, (outer, C, inner); f32 a
+    shift near the batch mean (the previous batch's, as the layer keeps
+    it), gamma, beta and the mean and var cotangents; drawn on the card."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(outer, C, inner) * 2 + mean
+    s = x.mean(dim=(0, 2)) + 0.1 * randn(C)
+    return dict(x=x.to(dt), dy=randn(outer, C, inner).to(dt), s=s,
+                g=torch.rand((C,), generator=gen, device=dev) + 0.5,
+                b=randn(C), dm=randn(C), dv=randn(C))
+
+
+def ulps16(torch, got, want) -> int:
+    """Largest distance in units in the last place between two 16-bit
+    tensors (their bit patterns in sign-magnitude order)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(got) - key(want)).abs().max().item())
+
+
+def library_bn_ms(torch, name, c, mean, inv, dg, db):
+    """The library call that computes the same function as kernel ``name``
+    on the same inputs (a yardstick, never used by the port): PyTorch's
+    native batch-norm kernels that SyncBatchNorm runs, batch_norm_stats,
+    batch_norm_elemt, batch_norm_backward_reduce and
+    batch_norm_backward_elemt. Device time, or None."""
+    x, dy, g, b = c["x"], c["dy"], c["g"], c["b"]
+    n = x.shape[0] * x.shape[2]
+    count = torch.full((1,), n, dtype=torch.int32, device=x.device)
+    dy_xmu = dg / inv                   # sum(dy * (x - mean))
+    calls = {
+        "bn_stats": lambda: torch.batch_norm_stats(x, 1e-5),
+        "bn_apply": lambda: torch.batch_norm_elemt(x, g, b, mean, inv, 1e-5),
+        "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            dy, x, mean, inv, g, True, True, True),
+        "bn_bwd_apply": lambda: torch.batch_norm_backward_elemt(
+            dy, x, mean, inv, g, db, dy_xmu, count)}
+    try:
+        return device_ms(calls[name])
+    except Exception as e:  # noqa: BLE001 - a yardstick only: reported
+        print(f"phase 3:   library call for {name} unavailable here "
+              f"({e!r:.120})", flush=True)
+        return None
+
+
+def cudnn_bn_ms(torch, c):
+    """cuDNN's training BatchNorm at the same shape (a yardstick):
+    ``F.batch_norm`` in training mode, x in its dtype, f32 weight, bias
+    and running statistics; the forward, and its backward through
+    autograd. Device times, or (None, None)."""
+    import torch.nn.functional as F
+    x, dy = c["x"], c["dy"]
+    C = x.shape[1]
+    x4 = x.unsqueeze(-1).detach().requires_grad_(True)
+    w = c["g"].detach().requires_grad_(True)
+    b = c["b"].detach().requires_grad_(True)
+    rm = torch.zeros(C, device=x.device)
+    rv = torch.ones(C, device=x.device)
+
+    def fwd():
+        return F.batch_norm(x4, rm, rv, w, b, True, 0.1, 1e-5)
+    try:
+        fwd_ms = device_ms(fwd)
+        y = fwd()
+        bwd_ms = device_ms(lambda: torch.autograd.grad(
+            y, (x4, w, b), dy.unsqueeze(-1), retain_graph=True))
+        return fwd_ms, bwd_ms
+    except Exception as e:  # noqa: BLE001 - a yardstick only: reported
+        print(f"phase 3:   cuDNN batch_norm unavailable here ({e!r:.120})",
+              flush=True)
+        return None, None
+
+
+def bn_check(torch, bn, label, c, errs, timed=False):
+    """BatchNorm's four kernels on one case against their plain versions
+    (the statistics both ways, bn_bwd_apply with and without dy), each
+    launch moving its counter by one, and a second run of each equal to
+    the bit. Returns {kernel: row} and cuDNN's (fwd, bwd) ms when
+    ``timed``."""
+    x, dy = c["x"], c["dy"]
+    outer, C, inner = x.shape
+    half = x.dtype != torch.float32
+    dtn = str(x.dtype).split(".")[-1]
+
+    def counted(name, fn):
+        before = bn.launches[name]
+        out = fn()
+        torch.cuda.synchronize()
+        if bn.launches[name] != before + 1:
+            fail(f"{label}: {name} counter moved by "
+                 f"{bn.launches[name] - before}, expected 1")
+        return out
+
+    def close(name, got, want, exact_dtype, scale=None):
+        """``scale``: the mean's error is taken relative to the batch's
+        standard deviation, the scale at which it moves out (a mean near
+        0 has no relative error of its own)."""
+        if not all(bool(t.isfinite().all()) for t in got):
+            fail(f"{label}: {name} gave non-finite values")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            if exact_dtype and half:
+                u = ulps16(torch, a, b)
+                if u > TOL_BN_ULPS:
+                    fail(f"{label}: {name} {u} ulps off the plain version")
+            else:
+                r = rel(a, b) if scale is None or i else \
+                    ((a - b).norm() / scale.norm()).item()
+                if r > TOL_BN_REL:
+                    fail(f"{label}: {name} relative error {r:.3e} > "
+                         f"{TOL_BN_REL}")
+                worst = max(worst, r)
+            errs[name] = max(errs.get(name, 0.0),
+                             (a.float() - b.float()).abs().max().item())
+        return worst
+
+    parts = []
+    stats = lambda: bn._stats(x, c["s"], 1e-5, False)  # noqa: E731
+    got = counted("bn_stats", stats)
+    want = bn.bn_stats_reference(x, c["s"], 1e-5, False)
+    std = want[1].sqrt()
+    parts.append(f"stats {close('bn_stats', got, want, False, std):.2e}")
+    if not torch.equal(stats()[1], got[1]):
+        fail(f"{label}: bn_stats differs from run to run")
+    m0 = counted("bn_stats", lambda: bn._stats(x, None, 1e-5, False))[0]
+    m0_want = bn.bn_stats_reference(x, None, 1e-5, False)[0]
+    var_c = counted("bn_stats", lambda: bn._stats(x, m0_want, 1e-5, True))[1]
+    var_c_want = bn.bn_stats_reference(x, m0_want, 1e-5, True)[1]
+    r = close("bn_stats", (m0, var_c), (m0_want, var_c_want), False, std)
+    parts.append(f"centered {r:.2e}")
+    mean, _, inv = want
+    apply = lambda: bn._apply(x, mean, inv, c["g"], c["b"])  # noqa: E731
+    out = counted("bn_apply", apply)
+    out_want = bn.bn_apply_reference(x, mean, inv, c["g"], c["b"])
+    close("bn_apply", (out,), (out_want,), True)
+    equal = {"out": torch.equal(out, out_want)}
+    reduce = lambda: bn._bwd_reduce(x, dy, mean, inv)  # noqa: E731
+    dg, db = counted("bn_bwd_reduce", reduce)
+    dgw, dbw = bn.bn_bwd_reduce_reference(x, dy, mean, inv)
+    r = close("bn_bwd_reduce", (dg, db), (dgw, dbw), False)
+    parts.append(f"dg, db {r:.2e}")
+    if not torch.equal(reduce()[0], dg):
+        fail(f"{label}: bn_bwd_reduce differs from run to run")
+    bwd = lambda: bn._bwd_apply(x, dy, mean, inv, c["g"], dgw, dbw,  # noqa
+                                c["dm"], c["dv"])
+    dx = counted("bn_bwd_apply", bwd)
+    dx_want = bn.bn_bwd_apply_reference(x, dy, mean, inv, c["g"], dgw, dbw,
+                                        c["dm"], c["dv"])
+    close("bn_bwd_apply", (dx,), (dx_want,), True)
+    dx2 = counted("bn_bwd_apply", lambda: bn._bwd_apply(
+        x, None, mean, None, None, None, None, c["dm"], c["dv"]))
+    dx2_want = bn.bn_bwd_apply_reference(x, None, mean, None, None, None,
+                                         None, c["dm"], c["dv"])
+    close("bn_bwd_apply", (dx2,), (dx2_want,), True)
+    equal["dx"] = torch.equal(dx, dx_want) and torch.equal(dx2, dx2_want)
+    if not (torch.equal(apply(), out) and torch.equal(bwd(), dx)):
+        fail(f"{label}: bn_apply or bn_bwd_apply differs from run to run")
+    print(f"phase 3: batch norm {label}: relative error {', '.join(parts)}; "
+          f"out and dx equal to the plain versions' bits: {equal}; two runs "
+          "equal to the bit", flush=True)
+    if not timed:
+        return None
+    rows = {}
+    kern = {"bn_stats": stats, "bn_apply": apply, "bn_bwd_reduce": reduce,
+            "bn_bwd_apply": bwd}
+    plain = {"bn_stats": lambda: bn.bn_stats_reference(x, c["s"], 1e-5),
+             "bn_apply": lambda: bn.bn_apply_reference(x, mean, inv, c["g"],
+                                                       c["b"]),
+             "bn_bwd_reduce": lambda: bn.bn_bwd_reduce_reference(x, dy, mean,
+                                                                 inv),
+             "bn_bwd_apply": lambda: bn.bn_bwd_apply_reference(
+                 x, dy, mean, inv, c["g"], dgw, dbw, c["dm"], c["dv"])}
+    saved = dict(bn.launches)
+    for name in BN_KERNELS:
+        runs = sorted(v for v in (kernel_ms(kern[name], BN_KERNEL[name])
+                                  for _ in range(3)) if v is not None)
+        ms = runs[len(runs) // 2] if runs else None
+        bnd, by = bn_bound_ms(name, outer, C, inner, x.dtype.itemsize)
+        rows[name] = dict(ms=ms, plain_ms=device_ms(plain[name]),
+                          library_ms=library_bn_ms(torch, name, c, mean, inv,
+                                                   dgw, dbw),
+                          bound_ms=bnd, bound_by=by,
+                          events_ms=cuda_time_ms(kern[name]))
+    bn.launches.update(saved)
+    cudnn = cudnn_bn_ms(torch, c)
+    print(f"phase 3: batch norm {label}: " + "; ".join(
+        f"{n} {fmt_ms(r['ms'])} (device; events {r['events_ms']:.4f}), "
+        f"bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
+        f"{fmt_ms(r['plain_ms'])}, library {fmt_ms(r['library_ms'])}"
+        for n, r in rows.items()) + f"; cuDNN training batch_norm fwd "
+        f"{fmt_ms(cudnn[0])}, bwd {fmt_ms(cudnn[1])} (device)", flush=True)
+    return rows, cudnn
+
+
+def bn_step_totals(per_shape):
+    """Per-step totals of each BatchNorm kernel and of cuDNN's training
+    BatchNorm: the shape rows weighted by how many of ResNet-50's layers
+    have each shape; fused: without the apply and the dy sweep of the 16
+    fused junctions. Returns {kernel: row} of the fused (main path)
+    totals."""
+    out = {}
+
+    def total(vals, counts):
+        return None if None in vals else sum(
+            k * v for k, v in zip(counts, vals))
+
+    layers = [n for _, _, n in BN_SHAPES]
+    fused = [n - (BN_FUSED.get((C, M), 0)) for C, M, n in BN_SHAPES]
+    for name in BN_KERNELS:
+        counts = fused if name in ("bn_apply", "bn_bwd_reduce") else layers
+        rows = [r[0][name] for r in per_shape]
+        tot = {key: total([r[key] for r in rows], counts)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "events_ms")}
+        unfused = total([r["ms"] for r in rows], layers)
+        out[name] = dict(tot, bound_by=rows[0]["bound_by"])
+        print(f"phase 3: {name} per ResNet-50 step ({sum(counts)} "
+              f"launches fused, {sum(layers)} unfused): kernel "
+              f"{fmt_ms(tot['ms'])} fused, {fmt_ms(unfused)} unfused "
+              f"(device), bound {fmt_ms(tot['bound_ms'])}, plain "
+              f"{fmt_ms(tot['plain_ms'])}, library "
+              f"{fmt_ms(tot['library_ms'])}", flush=True)
+    cud = [total([r[1][i] for r in per_shape], layers) for i in (0, 1)]
+    kern = [total([r[0][n]["ms"] for r in per_shape], layers)
+            for n in BN_KERNELS]
+    bnd = [total([r[0][n]["bound_ms"] for r in per_shape], layers)
+           for n in BN_KERNELS]
+    ksum = None if None in kern else sum(kern)
+    print(f"phase 3: batch norm per unfused ResNet-50 step (53 layers, "
+          f"forward and backward): the four kernels {fmt_ms(ksum)}, bound "
+          f"{sum(bnd):.4f} ms, cuDNN's training batch_norm "
+          f"{fmt_ms(None if None in cud else sum(cud))} (fwd "
+          f"{fmt_ms(cud[0])}, bwd {fmt_ms(cud[1])}; device)", flush=True)
+    return out
+
+
+def bn_checks(torch, dev):
+    """BatchNorm's kernels at ResNet-50's nine shapes at N=128 in bf16
+    (timed), fp16 and f32, one NHWC and one 2-d case, a large-mean input
+    and ragged shapes."""
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bn
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs, per_shape = {}, []
+    for C, M, n in BN_SHAPES:
+        plan = bn.bn_plan(B_RESNET, C, M, torch.bfloat16)
+        label = f"bf16 N={B_RESNET} C={C} M={M} ({n} layers)"
+        print(f"phase 3: batch norm plan {label}: {plan}", flush=True)
+        case = bn_case(torch, dev, gen, B_RESNET, C, M, torch.bfloat16)
+        per_shape.append(bn_check(torch, bn, label, case, errs, timed=True))
+        del case
+    rows = bn_step_totals(per_shape)
+    for dt in (torch.float16, torch.float32):
+        dtn = str(dt).split(".")[-1]
+        for C, M, _ in BN_SHAPES:
+            bn_check(torch, bn, f"{dtn} N={B_RESNET} C={C} M={M}",
+                     bn_case(torch, dev, gen, B_RESNET, C, M, dt), errs)
+    for dt in (torch.bfloat16, torch.float32):
+        dtn = str(dt).split(".")[-1]
+        bn_check(torch, bn, f"{dtn} NHWC (axis -1) N=128 28x28 C=512",
+                 bn_case(torch, dev, gen, 128 * 784, 512, 1, dt), errs)
+        bn_check(torch, bn, f"{dtn} 2-d (N, C) 4096x1024",
+                 bn_case(torch, dev, gen, 4096, 1024, 1, dt), errs)
+        bn_check(torch, bn, f"{dtn} mean 100 N=64 C=64 M=784",
+                 bn_case(torch, dev, gen, 64, 64, 784, dt, mean=100.0), errs)
+        for shape in ((3, 77, 53), (5, 45, 300), (7, 13, 1), (2, 2050, 1),
+                      (6, 30, 98), (4, 9, 12)):
+            bn_check(torch, bn, f"{dtn} ragged {shape}",
+                     bn_case(torch, dev, gen, *shape, dt), errs)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+        if rows[name]["ms"] is None:      # the profiler saw no device time
+            rows[name]["ms"] = rows[name]["events_ms"]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, dev):
     """Phase 3: every kernel against its plain version."""
     from mxnet_tpu_torch.ops.cuda import attention as attn
@@ -1594,6 +1938,7 @@ def phase_kernels(torch, dev):
     rows = {"flash_attention_fwd": forward_checks(torch, dev, gen, attn)}
     rows.update(backward_checks(torch, dev, gen, attn))
     rows.update(conv_checks(torch, dev))
+    rows.update(bn_checks(torch, dev))
     print(f"phase 3: every kernel agrees with its plain version; card: "
           f"{smi_line()}", flush=True)
     return rows
@@ -1626,6 +1971,7 @@ def reset_counts(mod) -> None:
 ATTN_GROUPS = {"flash forward": r"flash_fwd", "flash backward": r"bwd_"}
 CONV_GROUPS = {f"conv1x1 {k.split('_')[1]}": v
                for k, v in CONV_KERNEL.items()}
+RESNET_GROUPS = dict(CONV_GROUPS, **{"batch norm": r"\bbn::"})
 
 
 def device_breakdown(prof, wall_ms, label, groups=None):
@@ -2051,15 +2397,18 @@ def resnet_step(autograd, net, loss_fn, trainer, x, y):
 
 
 def resnet_steps(torch, autograd, net, loss_fn, trainer, x, y, n, want,
-                 label):
+                 label, first=None):
     """``n`` training steps; every step must launch each kernel of
-    ``want`` as often as it says, and nothing else. Returns (losses,
-    seconds per step)."""
+    ``want`` (of ``first`` in the first step, when given) as often as it
+    says, and nothing else. Returns (losses, seconds per step)."""
     from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bn
     from mxnet_tpu_torch.ops.cuda import conv_fused as cf
-    counters = [attn.launches, cf.launches]
+    counters = [attn.launches, cf.launches, bn.launches]
     losses, times = [], []
+    wants = want
     for step in range(n):
+        want = first if step == 0 and first is not None else wants
         before = [dict(c) for c in counters]
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2090,6 +2439,7 @@ def phase_resnet(torch, dev):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
     from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bn
     from mxnet_tpu_torch.ops.cuda import conv_fused as cf
 
     t0 = time.perf_counter()
@@ -2115,14 +2465,19 @@ def phase_resnet(torch, dev):
                        {"learning_rate": 0.1, "momentum": 0.9,
                         "multi_precision": True})
 
-    fused_want = {k: 28 for k in CONV_KERNELS}
+    def virgin(want):       # the first step: centered statistics
+        return dict(want, bn_stats=2 * want["bn_stats"])
+
+    fused_want = dict({k: 28 for k in CONV_KERNELS}, **BN_STEP["1"])
     os.environ["MXNET_FUSE_BN_CONV"] = "1"
     tr = trainer()
     reset_counts(attn)
+    reset_counts(bn)
     reset_counts(cf)                    # the main path starts here
     losses, times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y, 10,
-                                 fused_want, "fused")
+                                 fused_want, "fused", virgin(fused_want))
     counts = {k: cf.launches[k] for k in CONV_KERNELS}   # ... and ends here
+    counts.update({k: bn.launches[k] for k in BN_KERNELS})
     if any(attn.launches[k] for k in ATTN_KERNELS):
         fail(f"ResNet-50 launched attention kernels: {attn.launches}")
     if not losses[-1] < losses[0]:
@@ -2130,32 +2485,39 @@ def phase_resnet(torch, dev):
     fused_ms = 1e3 * sum(times[2:]) / len(times[2:])
     print(f"phase 6: losses (fused) {[round(v, 4) for v in losses]}",
           flush=True)
-    print(f"phase 6: launches in the training run {counts} (28 per step "
-          "each: 16 triples + 12 deferred junctions)", flush=True)
+    print(f"phase 6: launches in the training run {counts} (conv: 28 per "
+          "step each, 16 triples + 12 deferred junctions; batch norm per "
+          f"step {BN_STEP['1']}: the 16 fused junctions take only the "
+          "statistics and their backward, and the first step's centered "
+          "statistics two bn_stats sweeps a layer)", flush=True)
     print(f"phase 6: fused step {fused_ms:.3f} ms (mean of steps 3-10, "
           f"host clock to synchronize), {B / fused_ms * 1e3:.1f} img/s; "
           f"card: {smi_line()}", flush=True)
 
     # where the time goes in one fused step (counters restored after)
     from torch.profiler import ProfilerActivity, profile
-    saved = dict(cf.launches)
+    saved = dict(cf.launches), dict(bn.launches)
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         resnet_step(autograd, net, loss_fn, tr, x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    fused_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     fused_busy, _ = device_breakdown(prof, wall_ms,
                                      "phase 6: profiled fused step",
-                                     CONV_GROUPS)
-    cf.launches.update(saved)
+                                     RESNET_GROUPS)
+    cf.launches.update(saved[0])
+    bn.launches.update(saved[1])
 
     # the same 10 steps from the same weights on the cuDNN-only chain
     os.environ["MXNET_FUSE_BN_CONV"] = "0"
     load_jax_params(net, params)
     tr = trainer()
     u_losses, u_times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y,
-                                     10, {}, "unfused")
+                                     10, BN_STEP["0"], "unfused",
+                                     virgin(BN_STEP["0"]))
     unfused_ms = 1e3 * sum(u_times[2:]) / len(u_times[2:])
     drift = max(abs(a - b) for a, b in zip(losses, u_losses))
     print(f"phase 6: losses (unfused) {[round(v, 4) for v in u_losses]}; "
@@ -2163,34 +2525,42 @@ def phase_resnet(torch, dev):
     print(f"phase 6: unfused step {unfused_ms:.3f} ms, "
           f"{B / unfused_ms * 1e3:.1f} img/s; fused / unfused step time "
           f"{fused_ms / unfused_ms:.3f}; card: {smi_line()}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         resnet_step(autograd, net, loss_fn, tr, x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    unfused_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     unfused_busy, _ = device_breakdown(prof, wall_ms,
                                        "phase 6: profiled unfused step",
-                                       CONV_GROUPS)
+                                       RESNET_GROUPS)
     if fused_busy and unfused_busy:
         print(f"phase 6: device busy fused / unfused {fused_busy:.3f} / "
               f"{unfused_busy:.3f} ms = {fused_busy / unfused_busy:.3f} "
-              f"(PR 9's run: {PR9_RESNET_BUSY_MS[0]} / "
-              f"{PR9_RESNET_BUSY_MS[1]} ms = "
-              f"{PR9_RESNET_BUSY_MS[0] / PR9_RESNET_BUSY_MS[1]:.3f})",
+              f"(with eager f32 BatchNorm: {EAGER_BN_RESNET_BUSY_MS[0]} / "
+              f"{EAGER_BN_RESNET_BUSY_MS[1]} ms; before the conv fwd / dgrad "
+              f"redesign: {OLD_CONV_RESNET_BUSY_MS[0]} / "
+              f"{OLD_CONV_RESNET_BUSY_MS[1]} ms)",
               flush=True)
+    print(f"phase 6: peak device memory in a profiled step "
+          f"(torch.cuda.max_memory_allocated): fused {fused_peak:.3f} GiB, "
+          f"unfused {unfused_peak:.3f} GiB", flush=True)
 
     # eval mode (running statistics): the kernels against the unfused chain
     outs = {}
     with torch.no_grad():
         for knob in ("1", "0"):
             os.environ["MXNET_FUSE_BN_CONV"] = knob
-            before = dict(cf.launches)
+            before = dict(cf.launches, **bn.launches)
             outs[knob] = net(x).float()
             torch.cuda.synchronize()
             moved = {k: cf.launches[k] - before[k] for k in CONV_KERNELS}
-            want = {"conv1x1_fwd": 28 if knob == "1" else 0,
-                    "conv1x1_dgrad": 0, "conv1x1_wgrad": 0}
+            moved.update({k: bn.launches[k] - before[k] for k in BN_KERNELS})
+            want = dict({k: 0 for k in BN_KERNELS},
+                        conv1x1_fwd=28 if knob == "1" else 0,
+                        conv1x1_dgrad=0, conv1x1_wgrad=0)
             if moved != want:
                 fail(f"eval forward (fusion {knob}): launches {moved}, "
                      f"expected {want}")
@@ -2738,7 +3108,8 @@ def main() -> int:
                      f"{missing}")
             resnet = phase_resnet(torch, dev)
             launches.update(resnet)
-            missing = [n for n in CONV_KERNELS if not resnet[n]]
+            missing = [n for n in CONV_KERNELS + BN_KERNELS
+                       if not resnet[n]]
             if missing:
                 fail(f"kernels never launched on the ResNet-50 path: "
                      f"{missing}")

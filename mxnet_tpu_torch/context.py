@@ -14,7 +14,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "as_device"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "num_gpus",
+           "num_tpus", "current_context", "as_device"]
 
 
 class Context:
@@ -71,8 +72,30 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Pinned-memory CPU context: the CPU (torch pins tensors, not
+    devices)."""
+    return Context("cpu", device_id)
+
+
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def tpu(device_id: int = 0) -> Context:
+    """The JAX package's accelerator context; the port's is ``gpu``."""
+    raise MXNetError("the port runs on CUDA devices and has no TPU context; "
+                     "use gpu()")
+
+
+def num_gpus() -> int:
+    """Number of visible CUDA devices."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus() -> int:
+    """The port sees no TPU."""
+    return 0
 
 
 def current_context() -> Context:

@@ -176,6 +176,20 @@ class Block(torch.nn.Module):
     def register_child(self, block: "Block", name: Optional[str] = None) -> None:
         self.add_module(name or str(len(self._modules)), block)
 
+    def register_parameter(self, name: str, param: Any) -> Any:
+        """MXNet's form: register a :class:`~.parameter.Parameter` under
+        ``name`` and return it. Anything else (a ``torch.nn.Parameter`` or
+        None) takes ``nn.Module``'s."""
+        if isinstance(param, Parameter):
+            setattr(self, name, param)
+            return param
+        return super().register_parameter(name, param)
+
+    @property
+    def params(self) -> ParameterDict:
+        """This block's own parameters (not its children's)."""
+        return ParameterDict(self._reg_params)
+
     def collect_params(self, select: Optional[str] = None) -> ParameterDict:
         """All parameters of self and descendants, keyed by attribute path;
         ``select`` keeps the names a regular expression matches (at their
@@ -213,6 +227,26 @@ class Block(torch.nn.Module):
 
     def cast(self, dtype: Any) -> "Block":
         return self.to(to_torch_dtype(dtype))
+
+    def reset_ctx(self, ctx: Any) -> None:
+        """Move every parameter to ``ctx``."""
+        self.collect_params().reset_ctx(ctx)
+
+    def summary(self, *inputs: Any) -> str:
+        """Print and return a table of every parameter's name, shape and
+        size, and their total (the JAX package's ``nn_block_summary``)."""
+        lines = [f"{'Layer':<40}{'Output Shape':<24}{'Param #':<12}"]
+        total = 0
+        for name, p in self.collect_params().items():
+            n = 1
+            for d in p.shape:
+                n *= d
+            total += n
+            lines.append(f"{name:<40}{str(p.shape):<24}{n:<12}")
+        lines.append(f"Total params: {total}")
+        out = "\n".join(lines)
+        print(out)
+        return out
 
     def hybridize(self, active: bool = True, **kwargs: Any) -> None:
         """Accepted for API parity; the port runs eagerly."""

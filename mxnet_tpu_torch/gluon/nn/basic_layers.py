@@ -14,6 +14,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ... import npx
+from ...base import MXNetError
 from ..block import HybridBlock
 from ..parameter import Parameter, data_or_none
 
@@ -134,20 +135,26 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout, active in training (``autograd.record()``)."""
+    """Dropout, active in training (``autograd.record()``); ``axes``: the
+    mask is shared along these axes."""
 
-    def __init__(self, rate: float, **kwargs: Any) -> None:
+    def __init__(self, rate: float, axes: Tuple[int, ...] = (),
+                 **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._rate = rate
+        self._axes = axes
 
     def forward(self, x):
-        return npx.dropout(x, self._rate)
+        return npx.dropout(x, self._rate, axes=self._axes)
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalization over ``axis`` with gamma/beta."""
+    """Layer normalization over ``axis`` with gamma/beta. ``center`` and
+    ``scale`` are accepted, and gamma and beta apply either way, as in the
+    JAX package."""
 
     def __init__(self, axis: int = -1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
                  beta_initializer: Any = "zeros",
                  gamma_initializer: Any = "ones", in_channels: int = 0,
                  **kwargs: Any) -> None:
@@ -165,11 +172,16 @@ class LayerNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Index → vector lookup table."""
+    """Index → vector lookup table. ``sparse_grad=True`` (a row-sparse
+    weight gradient) is not ported."""
 
     def __init__(self, input_dim: int, output_dim: int,
                  dtype: Any = "float32", weight_initializer: Any = None,
-                 **kwargs: Any) -> None:
+                 sparse_grad: bool = False, **kwargs: Any) -> None:
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): row-sparse "
+                             "gradients are not ported yet (ROADMAP Queue A "
+                             "10)")
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
@@ -185,7 +197,7 @@ class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics.
 
     Training statistics are one pass about ``stat_shift``, the previous
-    batch's mean (``ops/nn.py:_bn_batch_stats``); the layer's first
+    batch's mean (``ops/cuda/batch_norm.py``); the layer's first
     training forward, while ``stat_shift`` is all zeros, takes centered
     statistics instead. The moving averages and ``stat_shift`` are updated
     in place after each training forward, outside autograd. The port runs

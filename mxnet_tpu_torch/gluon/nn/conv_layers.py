@@ -70,9 +70,13 @@ class Conv2D(_Conv):
 
 
 class _Pool(HybridBlock):
+    """Pooling; ``ceil_mode`` is accepted and the output size is the floor
+    one either way, as in the JAX package."""
+
     def __init__(self, pool_size, strides, padding, ndim: int,
                  pool_type: str, layout: str, global_pool: bool = False,
-                 count_include_pad: bool = True, **kwargs: Any) -> None:
+                 count_include_pad: bool = True, ceil_mode: bool = False,
+                 **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._kernel = _tuplify(pool_size, ndim)
         self._strides = _tuplify(strides if strides is not None
@@ -97,15 +101,17 @@ class _Pool(HybridBlock):
 
 class MaxPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", **kwargs):
+                 layout="NCHW", ceil_mode=False, **kwargs):
         super().__init__(pool_size, strides, padding, 2, "max", layout,
-                         **kwargs)
+                         ceil_mode=ceil_mode, **kwargs)
 
 
 class AvgPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", count_include_pad=True, **kwargs):
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
         super().__init__(pool_size, strides, padding, 2, "avg", layout,
+                         ceil_mode=ceil_mode,
                          count_include_pad=count_include_pad, **kwargs)
 
 

@@ -12,12 +12,14 @@ itself (``dense.weight``) is this object. Layers compute with
 ``p.data()``, the tensor itself (an autograd leaf on the parameter's
 device; the port's blocks take and give tensors, not NDArrays).
 
-The accessors follow the JAX package (``:95-245``): ``name``, ``shape``,
+The accessors follow the JAX package (``:95-280``): ``name``, ``shape``,
 ``dtype``, ``data(ctx)``, ``list_data()``, ``grad(ctx)``, ``list_grad()``,
 ``list_ctx()``, ``set_data()``, ``zero_grad()``, ``initialize()``,
-``reset_ctx()``, ``grad_req``, ``lr_mult`` and ``wd_mult``.
-Shapes must be known at construction (deferred initialization is not part
-of the port yet).
+``reset_ctx()``, ``cast()``, ``is_initialized``, ``grad_req``,
+``lr_mult`` and ``wd_mult``; the constructor takes its arguments
+(``differentiable=False`` means ``grad_req='null'``). Shapes must be known
+at construction, and gradients are dense: deferred initialization and
+``grad_stype='row_sparse'`` raise, naming their ROADMAP Queue A items.
 
 Gradients: ``grad_req`` follows MXNet through
 :func:`mxnet_tpu_torch.autograd.backward`: ``'write'`` replaces the
@@ -65,6 +67,9 @@ class Parameter:
                  shape: Optional[Union[int, Tuple[int, ...]]] = None,
                  dtype: Any = "float32", lr_mult: float = 1.0,
                  wd_mult: float = 1.0, init: Any = None,
+                 allow_deferred_init: bool = True,
+                 differentiable: bool = True, stype: str = "default",
+                 grad_stype: str = "default",
                  persistent: bool = True) -> None:
         if isinstance(shape, int):
             shape = (shape,)
@@ -72,7 +77,19 @@ class Parameter:
             raise MXNetError(
                 f"Parameter {name!r}: shape {shape} is not fully known; "
                 "the port needs every shape at construction (pass in_units/"
-                "in_channels)")
+                "in_channels): deferred initialization is not ported yet "
+                "(ROADMAP Queue A 8)")
+        if stype != "default":
+            raise ValueError(
+                f"Parameter stype={stype!r} is not supported (only "
+                "'default'; sparse *gradients* come via grad_stype)")
+        if grad_stype == "row_sparse":
+            raise MXNetError(f"Parameter {name!r}: row-sparse gradients are "
+                             "not ported yet (ROADMAP Queue A 10)")
+        if grad_stype != "default":
+            raise ValueError(f"invalid grad_stype {grad_stype!r}")
+        if not differentiable:
+            grad_req = "null"
         self._name = name
         self.init = init
         self.lr_mult = lr_mult
@@ -203,6 +220,18 @@ class Parameter:
             self._var.data = self._var.data.to(dev)
             if self._var.grad is not None:
                 self._var.grad = self._var.grad.to(dev)
+
+    def cast(self, dtype: Any) -> None:
+        """Change the value's dtype in place (and the gradient's)."""
+        dt = to_torch_dtype(dtype)
+        with torch.no_grad():
+            self._var.data = self._var.data.to(dt)
+            if self._var.grad is not None:
+                self._var.grad = self._var.grad.to(dt)
+
+    @property
+    def is_initialized(self) -> bool:
+        return self.initialized
 
     def __repr__(self) -> str:
         return (f"Parameter {self._name} (shape={self.shape}, "

@@ -139,7 +139,7 @@ class Trainer:
         if compression_params:
             raise MXNetError(
                 f"Trainer: gradient compression ({compression_params!r}) is "
-                "not ported yet (ROADMAP Queue A 11, the distributed "
+                "not ported yet (ROADMAP Queue A 13, the distributed "
                 "kvstores); pass compression_params=None")
         if kvstore not in _LOCAL_KVSTORES or update_on_kvstore:
             raise MXNetError(
@@ -170,7 +170,7 @@ class Trainer:
     def set_learning_rate(self, lr: float) -> None:
         self._optimizer.set_learning_rate(lr)
 
-    def allreduce_grads(self) -> None:
+    def allreduce_grads(self, ignore_stale_grad: bool = False) -> None:
         """Sum gradients across devices: one device has nothing to sum."""
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:

@@ -535,6 +535,17 @@ class NDArray:
     def sigmoid(self): return self._op("sigmoid")
     def tanh(self): return self._op("tanh")
     def relu(self): return self._op("relu")
+    def softmax(self, axis=-1):
+        """Softmax along ``axis`` in this array's dtype."""
+        from .register import invoke
+        return invoke("softmax", lambda x: torch.softmax(x, dim=axis),
+                      (self,))
+
+    def log_softmax(self, axis=-1):
+        """Log-softmax along ``axis`` in this array's dtype."""
+        from .register import invoke
+        return invoke("log_softmax",
+                      lambda x: torch.log_softmax(x, dim=axis), (self,))
     def one_hot(self, depth, **kw): return self._op("one_hot", depth, **kw)
     def astype_like(self, other): return self.astype(other.dtype)
     def zeros_like(self): return self._op("zeros_like")

@@ -9,8 +9,9 @@ Counterpart of the matching functions in ``mxnet_tpu/ops/nn.py``:
 ``batch_norm_relu_conv1x1`` and ``relu_conv1x1``. Plain functions on
 tensors; the matrix products and convolutions go to PyTorch (cuBLAS and
 cuDNN on the GPU) as the JAX package left them to XLA, except the
-prologue-fused 1x1 convolutions, which run the hand-written kernels of
-:mod:`.cuda.conv_fused`. Random draws take the framework generator of the
+prologue-fused 1x1 convolutions and BatchNorm's training forward and
+backward, which run the hand-written kernels of :mod:`.cuda.conv_fused`
+and :mod:`.cuda.batch_norm`. Random draws take the framework generator of the
 data's device (:mod:`mxnet_tpu_torch.random`), never torch's global one.
 """
 from __future__ import annotations
@@ -59,21 +60,32 @@ def layer_norm(data, gamma, beta, axis: int = -1, eps: float = 1e-5):
     return out.movedim(-1, axis)
 
 
-def dropout(data, p: float = 0.5, training: Optional[bool] = None):
+def dropout(data, p: float = 0.5, mode: str = "training", axes=None,
+            training: Optional[bool] = None):
     """Inverted dropout; identity unless training (``autograd.is_training()``
-    when ``training`` is None) and ``p > 0``. The mask draws from the
-    framework generator of the data's device."""
+    when ``training`` is None) or ``mode == "always"``, and ``p > 0``.
+    ``axes``: the mask is shared along these axes (variational dropout).
+    The mask draws from the framework generator of the data's device."""
     train = is_training() if training is None else training
-    if not train or p <= 0.0:
+    if (not train and mode != "always") or p <= 0.0:
         return data
-    keep = torch.rand(data.shape, device=data.device,
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = torch.rand(shape, device=data.device,
                       generator=_random.generator(data.device)) >= p
     return torch.where(keep, data / (1.0 - p), torch.zeros_like(data))
 
 
 def embedding(data, weight, input_dim: Optional[int] = None,
-              output_dim: Optional[int] = None):
-    """Table lookup: out[i...] = weight[data[i...]]."""
+              output_dim: Optional[int] = None, dtype=None,
+              sparse_grad: bool = False):
+    """Table lookup: out[i...] = weight[data[i...]]. ``dtype`` is accepted
+    and unused, as in the JAX package; ``sparse_grad=True`` (a row-sparse
+    weight gradient) is not ported."""
+    if sparse_grad:
+        raise MXNetError("embedding(sparse_grad=True): row-sparse gradients "
+                         "are not ported yet (ROADMAP Queue A 10)")
     return F.embedding(data.long(), weight)
 
 
@@ -83,14 +95,40 @@ def take_positions(data, positions):
     return torch.gather(data, 1, idx)
 
 
-def log_softmax(data, axis: int = -1):
+def log_softmax(data, axis: int = -1, temperature: Optional[float] = None):
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
     return torch.log_softmax(data, dim=axis)
 
 
-def pick(data, index, axis: int = -1, keepdims: bool = False):
-    """``out[i...] = data[i..., index[i...], ...]`` along ``axis``."""
-    out = torch.gather(data, axis, index.long().unsqueeze(axis))
-    return out if keepdims else out.squeeze(axis)
+def _fill_value(dtype):
+    """What an index past the axis reads (``jnp.take_along_axis``'s fill):
+    NaN, the least signed or the greatest unsigned integer, or True."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min if dtype.is_signed else \
+        torch.iinfo(dtype).max
+
+
+def pick(data, index, axis: int = -1, keepdims: bool = False,
+         mode: str = "clip"):
+    """``out[i...] = data[i..., index[i...], ...]`` along ``axis``, as the
+    JAX package computes it whatever ``mode`` says: an index in [-L, L)
+    counts from the end when negative, and any other index reads
+    :func:`_fill_value` (NaN for floats). Masked on every device: nothing
+    reaches the gather out of range."""
+    ax = axis % data.ndim
+    n = data.shape[ax]
+    idx = index.long().unsqueeze(ax)
+    inside = (idx >= -n) & (idx < n)
+    idx = torch.where(inside, torch.where(idx < 0, idx + n, idx),
+                      torch.zeros_like(idx))
+    out = torch.gather(data, ax, idx)
+    out = torch.where(inside, out, torch.full_like(out, _fill_value(
+        data.dtype)))
+    return out if keepdims else out.squeeze(ax)
 
 
 # ------------------------------------------------------------------ vision
@@ -168,24 +206,6 @@ def _channel_shape(x, axis: int):
     return shape
 
 
-def _bn_batch_stats(xf, red_axes, centered_stats: bool, shift, axis: int = 1):
-    """Batch mean and variance in f32: centered (mean, then E[(x-mean)^2]),
-    or one pass about ``shift`` (the layer's previous batch mean),
-    ``E[x-s]`` and ``E[(x-s)^2]``, exact in infinite precision whatever the
-    shift. Differentiable through torch autograd (shift excluded)."""
-    shape = _channel_shape(xf, axis)
-    if centered_stats:
-        mean = xf.mean(dim=red_axes)
-        centered = xf - mean.reshape(shape)
-        return mean, (centered * centered).mean(dim=red_axes)
-    s = shift.detach().float()
-    centered = xf - s.reshape(shape)
-    mean_c = centered.mean(dim=red_axes)
-    m2 = (centered * centered).mean(dim=red_axes)
-    var = torch.clamp_min(m2 - mean_c * mean_c, 0.0)
-    return mean_c + s, var
-
-
 def _stats_mode(stats: Optional[str]) -> bool:
     """True for centered statistics (``stats`` or ``MXNET_BN_STATS``)."""
     if stats is None:
@@ -201,28 +221,23 @@ def batch_norm(data, gamma, beta, running_mean, running_var,
     """BatchNorm forward; returns ``(out, batch_mean, batch_var)``.
 
     Training (``autograd.is_training()`` unless ``training`` says, and not
-    ``use_global_stats``): batch statistics in f32 by
-    :func:`_bn_batch_stats` about ``shift`` (default: the running mean), or
-    centered with ``stats="centered"``; ``out`` in the data's dtype, the
-    statistics in the running-stat dtype. The moving-average update is the
-    caller's (the gluon layer). Otherwise the running statistics normalise
-    and come back as they are. Gradients by torch autograd over the same
-    math (the JAX package hand-writes this VJP)."""
+    ``use_global_stats``): :func:`.cuda.batch_norm.batch_norm_train`, the
+    JAX package's ``_bn_train_core`` and its VJP: batch statistics in f32,
+    one sweep about ``shift`` (default: the running mean), or centered with
+    ``stats="centered"``; ``out`` in the data's dtype, the statistics in
+    the running-stat dtype. The moving-average update is the caller's (the
+    gluon layer). Otherwise the running statistics normalise and come back
+    as they are."""
+    from .cuda.batch_norm import batch_norm_train
     ax = axis % data.ndim
     gg = torch.ones_like(gamma) if fix_gamma else gamma
     train = is_training() if training is None else training
     shape = _channel_shape(data, ax)
     if train and not use_global_stats:
-        red = tuple(i for i in range(data.ndim) if i != ax)
-        xf = data.float()
-        mean, var = _bn_batch_stats(
-            xf, red, _stats_mode(stats),
-            running_mean if shift is None else shift, ax)
-        inv = torch.rsqrt(var + eps)
-        out = ((xf - mean.reshape(shape)) * inv.reshape(shape)
-               * gg.float().reshape(shape) + beta.float().reshape(shape))
-        return (out.to(data.dtype), mean.to(running_mean.dtype),
-                var.to(running_var.dtype))
+        out, mean, var = batch_norm_train(
+            data, gg, beta, running_mean if shift is None else shift, eps,
+            _stats_mode(stats), ax)
+        return out, mean.to(running_mean.dtype), var.to(running_var.dtype)
     inv = torch.rsqrt(running_var + eps)
     out = (data - running_mean.reshape(shape)) * (inv * gg).reshape(shape) \
         + beta.reshape(shape)
@@ -249,19 +264,21 @@ def batch_norm_relu_conv1x1(data, gamma, beta, running_mean, running_var,
     """``conv1x1(relu(batch_norm(data)))`` through the fused kernels, NCHW.
 
     The statistics contract of :func:`batch_norm` (axis 1): the batch
-    statistics, scale ``gamma / sqrt(var + eps)`` and shift ``beta - mean
-    * scale`` are ordinary torch ops outside the kernels' autograd
-    Function, so gradients reach gamma, beta and the data through the
+    statistics by :func:`.cuda.batch_norm.batch_stats` (the JAX package's
+    ``_bn_batch_stats``), then scale ``gamma / sqrt(var + eps)`` and shift
+    ``beta - mean * scale`` as torch ops outside the kernels' autograd
+    Functions, so gradients reach gamma, beta and the data through the
     statistics. Returns ``(out (N, Co, H, W), batch_mean, batch_var)``."""
+    from .cuda.batch_norm import batch_stats
     from .cuda.conv_fused import fused_prologue_conv1x1
     if data.ndim != 4:
         raise MXNetError("batch_norm_relu_conv1x1 expects NCHW data")
     gg = torch.ones_like(gamma) if fix_gamma else gamma
     train = is_training() if training is None else training
     if train and not use_global_stats:
-        mean, var = _bn_batch_stats(
-            data.float(), (0, 2, 3), _stats_mode(stats),
-            running_mean if shift is None else shift)
+        mean, var = batch_stats(
+            data, running_mean if shift is None else shift,
+            _stats_mode(stats), 1, eps)
     else:
         mean, var = running_mean.float(), running_var.float()
     scale = gg.float() * torch.rsqrt(var + eps)

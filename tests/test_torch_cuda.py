@@ -25,6 +25,14 @@ dgrad 1e-4 (f32 sums of exact products), fp16 wgrad 1e-4 (f(x) carried as
 two fp16 terms, about f32), f32 1e-5 (fwd, dgrad) and 1e-4 (wgrad: long
 sums); dgrad's ReLU mask bit for bit on every copy path.
 
+BatchNorm's four kernels (``bn_stats``, ``bn_apply``, ``bn_bwd_reduce``,
+``bn_bwd_apply``) against their plain versions on the same inputs: the
+statistics, dg and db within a relative Frobenius error of 1e-5 (f32 sums
+in another order; the mean's relative to the batch's standard deviation);
+out and dx equal to the bit (the kernels round every
+f32 operation as the plain versions do, given the same statistics); two
+runs equal to the bit; and the launches of a ResNet-50 step.
+
 mx.rtc: the user kernels of ``chip_smoke.py`` compiled by NVRTC for sm_90a
 against their plain versions: axpy, scale, square and rtc_axpy equal to the
 bit (their f32 arithmetic is written with __fmul_rn / __fadd_rn in the
@@ -46,6 +54,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import rtc
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as attn
+from mxnet_tpu_torch.ops.cuda import batch_norm as bn
 from mxnet_tpu_torch.ops.cuda import conv_fused as cf
 
 pytestmark = pytest.mark.cuda
@@ -745,6 +754,140 @@ def test_resnet50_step_launches_each_conv_kernel_28_times(dev, fuse, want,
         {k: want for k in cf.KERNELS}
     grads = [p.data().grad for p in net.collect_params().values()]
     assert all(torch.isfinite(g).all() for g in grads if g is not None)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm's training kernels
+# ---------------------------------------------------------------------------
+
+# ResNet-50's BatchNorm shapes (C, H*W) at 224x224, and the NHWC / 2-d cases
+RESNET_BN = [(64, 12544), (64, 3136), (256, 3136), (128, 784), (512, 784),
+             (256, 196), (1024, 196), (512, 49), (2048, 49)]
+
+
+def _bn_case(dev, dtype, outer, C, inner, mean=3.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(outer, C, inner, device=dev, generator=g) * 2 + mean)
+    s = x.mean(dim=(0, 2)) + 0.1 * torch.randn(C, device=dev, generator=g)
+    return dict(
+        x=x.to(dtype), dy=torch.randn(outer, C, inner, device=dev,
+                                      generator=g).to(dtype),
+        s=s.float(), g=torch.rand(C, device=dev, generator=g) + 0.5,
+        b=torch.randn(C, device=dev, generator=g),
+        dm=torch.randn(C, device=dev, generator=g),
+        dv=torch.randn(C, device=dev, generator=g))
+
+
+def _bn_check(c):
+    x, dy = c["x"], c["dy"]
+    for centered in (False, True):
+        shift = c["s"] if not centered else \
+            bn.bn_stats_reference(x, None, 1e-5)[0]
+        got = bn._stats(x, shift, 1e-5, centered)
+        want = bn.bn_stats_reference(x, shift, 1e-5, centered)
+        # the mean's error relative to the batch's standard deviation
+        assert ((got[0] - want[0]).norm() / want[1].sqrt().norm()).item() \
+            <= 1e-5, centered
+        for name, a, b in zip(("var", "inv"), got[1:], want[1:]):
+            assert _rel(a, b) <= 1e-5, (name, centered)
+    mean, _, inv = want
+    assert torch.equal(bn._apply(x, mean, inv, c["g"], c["b"]),
+                       bn.bn_apply_reference(x, mean, inv, c["g"], c["b"]))
+    dg, db = bn._bwd_reduce(x, dy, mean, inv)
+    dgr, dbr = bn.bn_bwd_reduce_reference(x, dy, mean, inv)
+    assert _rel(dg, dgr) <= 1e-5 and _rel(db, dbr) <= 1e-5
+    for args in ((dy, inv, c["g"], dgr, dbr, c["dm"], c["dv"]),
+                 (dy, inv, c["g"], dgr, dbr, None, None),
+                 (None, None, None, None, None, c["dm"], c["dv"])):
+        a = (x, args[0], mean) + args[1:]
+        assert torch.equal(bn._bwd_apply(*a), bn.bn_bwd_apply_reference(*a))
+    # the same from run to run, to the bit
+    assert torch.equal(bn._stats(x, c["s"], 1e-5, False)[1],
+                       bn._stats(x, c["s"], 1e-5, False)[1])
+    assert torch.equal(bn._bwd_reduce(x, dy, mean, inv)[0], dg)
+
+
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
+@pytest.mark.parametrize("C,M", RESNET_BN)
+def test_bn_kernels_at_resnet50_shapes(dev, dtype, C, M):
+    _bn_check(_bn_case(dev, dtype, 16, C, M))
+
+
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
+@pytest.mark.parametrize("outer,C,inner", [
+    (8 * 28 * 28, 512, 1),      # NHWC (axis -1)
+    (4096, 1024, 1),            # 2-d (N, C)
+    (3, 77, 53), (5, 45, 300), (7, 13, 1), (2, 2050, 1), (6, 30, 98),
+    (3, 6, 260), (4, 9, 12)])
+def test_bn_kernels_nhwc_2d_and_ragged(dev, dtype, outer, C, inner):
+    _bn_check(_bn_case(dev, dtype, outer, C, inner))
+
+
+def test_bn_kernels_large_mean(dev):
+    """An input mean of 100 (std 2): shifted statistics about a shift near
+    it, and centered ones."""
+    _bn_check(_bn_case(dev, torch.bfloat16, 64, 64, 784, mean=100.0))
+
+
+def test_bn_autograd_through_kernels_equals_plain(dev):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 24, 7, 7, generator=g) * 2 + 1
+    gm, b = torch.rand(24, generator=g) + 0.5, torch.randn(24, generator=g)
+    s = torch.randn(24, generator=g)
+
+    def grads(where):
+        leaves = [v.to(where).requires_grad_(True) for v in (x, gm, b)]
+        out, m, v = bn.batch_norm_train(*leaves, s.to(where), 1e-5, False, 1)
+        (torch.sin(out).sum() + m.sum() + (v * 2).sum()).backward()
+        return [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+
+    for got, want in zip(grads(dev), grads("cpu")):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_bn_kernels_reject_what_they_do_not_take(dev):
+    c = _bn_case(dev, torch.float32, 2, 8, 10)
+    with pytest.raises(MXNetError, match="dtype"):
+        bn._stats(c["x"].double(), c["s"], 1e-5, False)
+    with pytest.raises(MXNetError, match="dtype"):
+        bn.batch_norm_train(c["x"].double().reshape(2, 8, 10), c["g"],
+                            c["b"], c["s"])
+    with pytest.raises(MXNetError, match="float32"):
+        bn._apply(c["x"], c["s"].half(), c["s"], c["g"], c["b"])
+    with pytest.raises(MXNetError, match="one CUDA device"):
+        bn._bwd_reduce(c["x"], c["dy"], c["s"].cpu(), c["s"])
+    with pytest.raises(MXNetError, match="shapes"):
+        bn._apply(c["x"], c["s"][:4], c["s"], c["g"], c["b"])
+
+
+@pytest.mark.parametrize("fuse,want", [
+    ("0", {"bn_stats": 53, "bn_apply": 53, "bn_bwd_reduce": 53,
+           "bn_bwd_apply": 53}),
+    ("1", {"bn_stats": 53, "bn_apply": 37, "bn_bwd_reduce": 37,
+           "bn_bwd_apply": 53})])
+def test_resnet50_step_launches_each_bn_kernel(dev, fuse, want, monkeypatch):
+    """ResNet-50 v1's 53 BatchNorm layers (B=2, 64x64, bf16): the virgin
+    first step takes centered statistics (bn_stats twice a layer); the
+    next, each layer's statistics, apply and backward once, except that
+    the 16 fused junctions take only the statistics and their backward."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    monkeypatch.setenv("MXNET_FUSE_BN_CONV", fuse)
+    net = get_model("resnet50_v1", device=dev)
+    net.initialize(generator=torch.Generator().manual_seed(0), device=dev)
+    net.cast("bfloat16")
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    for step in range(2):
+        before = dict(bn.launches)
+        with autograd.record():
+            out = net(x.to(dev, torch.bfloat16))
+        autograd.backward(out.float().square().mean())
+        torch.cuda.synchronize()
+        moved = {k: bn.launches[k] - before[k] for k in bn.KERNELS}
+        expect = dict(want)
+        if step == 0:
+            expect["bn_stats"] *= 2
+        assert moved == expect, step
 
 
 # ---------------------------------------------------------------------------

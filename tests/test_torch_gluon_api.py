@@ -251,6 +251,6 @@ def test_trainer_takes_compression_params_none(how):
             tr = pkg.Trainer(*args, compression_params=None)
         assert tr.learning_rate == 0.1
     Trainer(tnet.collect_params(), "sgd", compression_params={})
-    with pytest.raises(MXNetError, match="Queue A 11"):
+    with pytest.raises(MXNetError, match="Queue A 13"):
         Trainer(tnet.collect_params(), "sgd",
                 compression_params={"type": "2bit", "threshold": 0.5})
