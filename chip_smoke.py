@@ -14,8 +14,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    MXNet's ``Dense(...).initialize()`` with no arguments landing on
    ``cuda:0``;
 2. build: every CUDA source of the port from ``mxnet_tpu_torch/csrc`` (the
-   attention, conv and BatchNorm kernels), one ``nvcc`` each, all started
-   together; registers and spills per kernel;
+   attention, conv and BatchNorm kernels and the multi-tensor update), one
+   ``nvcc`` each, all started together; registers and spills per kernel;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the served and the trained BERT-base give it: the forward at
    head dims 64, 128 and 256, ragged and cross-length (Tq != Tk) shapes,
@@ -57,7 +57,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    device time beside the bound, the plain version, PyTorch's native
    batch-norm kernels (the library call of each) and cuDNN's training
    ``F.batch_norm`` forward and backward, and their totals per ResNet-50
-   step, the shapes weighted by their layer counts; with
+   step, the shapes weighted by their layer counts; then the trainer's
+   multi-tensor update against its plain version (the eager per-parameter
+   update) in every case of ``UPDATE_CASES``: BERT-base's 154 tensors in
+   bf16 with f32 masters under AdamW in groups of 4, 1 and all,
+   ResNet-50's 193 in bf16 with masters under SGD with momentum 0.9,
+   f32 without masters under SGD, Adam and AdamW, fp16 with masters,
+   bf16 without, with clip_gradient and lr / wd multipliers: three steps
+   each, every weight, master and state equal to the bit, one launch a
+   group; the BERT-base and ResNet-50 cases timed by device time beside
+   the bound, the plain version and ``torch._fused_adamw_`` /
+   ``_fused_sgd_`` (yardsticks the port never calls); with
    ``--probe-fwd``, the flash forward against builds of it with the
    softmax, the copies or the P V product cut out; with ``--probe-bwd``,
    the fused backward against builds of it with dropout's Philox, the dq
@@ -66,10 +76,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    copies, the products or the epilogue cut out, at the eight junctions;
 4. BERT-base (12 layers, units 768, 12 heads, vocab 30522) with weights
    made from a seed, bf16 on ``cuda:0``, served by ``ModelServer`` with
-   length buckets: 16 concurrent requests; the forward kernel must launch
-   12 times per executed batch with no operand copied for TMA, and answers
-   must match the same weights run in f32 on the CPU through the plain
-   path;
+   length buckets through ``ServedModel.from_block``, which hybridizes the
+   block and takes its signature from one direct call: 16 concurrent
+   requests to an eager server and to one whose warm-up captured every
+   bucket as a CUDA graph (req/s, p50 / p99 each); the forward kernel
+   must launch 12 times per executed batch (the eager server's counter;
+   the profiler for both; the graph server's counter must not move: every
+   batch a replay) with no operand copied for TMA; the 16 requests sent
+   again one at a time must get the same bits from both servers, and
+   answers must match the same weights run in f32 on the CPU through the
+   plain path; a direct forward timed eager and replayed;
 5. BERT-base MLM training through ``autograd.record`` / ``backward`` /
    ``Trainer.step`` with AdamW (multi-precision), bf16, B=8, T=512, 76
    masked positions, dropout 0.1: 10 steps on the fused backward, then 2
@@ -79,8 +95,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time, tokens/s and a profiler breakdown with the device busy time and
    the backward kernels' part of it beside the mma.sync backward's (the
    kernel the fused one replaced, PERF.md), and the same for one
-   two-pass step; then one f32 step on the card against the same step on
-   the CPU (plain path);
+   two-pass step; the step's parts (forward+loss, backward, trainer.step)
+   with each parameter updated alone and in groups of 4; then the net
+   hybridized, from the same weights and generator state: 10 steps (the
+   first the eager warm-up, its loss equal to the eager run's first; the
+   second captures the forward and backward graphs), step time, tokens/s,
+   device busy and idle share, a replayed step's kernels counted by the
+   profiler equal to the eager step's, its parts; a replayed call against
+   an eager one (``Block.__call__``) from the same generator state on the
+   fused route and on the two-pass pair: outputs with dropout 0.1 and the
+   generator's state after equal to the bit, gradients within
+   TOL_GRAPH_GRAD_REL (and whether equal to the bit), two replays drawing
+   different dropout, ``grad_req='add'`` accumulating; then one f32 step
+   on the card against the same step on the CPU (plain path);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
    from a seed, bf16 with f32 masters (``multi_precision``), B=128,
    224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
@@ -92,9 +119,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    twice a layer), and the loss must fall; step time, img/s and a
    profiler breakdown (conv and batch-norm groups) with the peak device
    memory; the same 10 steps with ``MXNET_FUSE_BN_CONV=0`` (cuDNN convs,
-   53 launches of each BatchNorm kernel a step) from the same weights; an
-   eval-mode forward with the kernels against the unfused one; one f32 SGD
-   step on the card (TF32 off) against the same step on the CPU;
+   53 launches of each BatchNorm kernel a step) from the same weights; the
+   fused step's parts with each parameter updated alone and in groups of
+   4; an eval-mode forward with the kernels against the unfused one; the
+   net hybridized, fused and unfused, 10 steps each from the same weights
+   (the first, centered step eager, the second captured): step time,
+   img/s, busy and idle share, the conv and BatchNorm kernels of a
+   replayed step counted by the profiler equal to the eager step's, the
+   parts, and a replayed call against an eager one (outputs and the
+   BatchNorm statistics after it equal to the bit, gradients as phase 5);
+   one f32 SGD step on the card (TF32 off) against the same step on the
+   CPU;
 7. the imperative path and mx.rtc: NVRTC's and the driver's versions; the
    user kernel sources of ``RTC_SOURCES`` compiled by NVRTC for sm_90a
    (each timed); a handful of ``mx.np`` ops on (4096, 3072) arrays on
@@ -213,6 +248,11 @@ KERNEL_INFO = {
                       "mxnet_tpu/ops/nn.py:560 (_bn_train_bwd, XLA)"),
     "bn_bwd_apply": ("mxnet_tpu_torch/csrc/batch_norm.cu",
                      "mxnet_tpu/ops/nn.py:563 (_bn_train_bwd, XLA)"),
+    # the trainer's grouped update: XLA in the JAX package (no Pallas
+    # kernel), so this names the function it computes
+    "multi_tensor_update": ("mxnet_tpu_torch/csrc/multi_tensor.cu",
+                            "mxnet_tpu/gluon/trainer.py:833 (_fused_update, "
+                            "XLA)"),
 }
 ATTN_KERNELS = tuple(KERNEL_INFO)[:4]
 # the mma.sync forward this redesign replaced, at the same shapes (PERF.md
@@ -278,7 +318,12 @@ OLD_CONV_RESNET_BUSY_MS = (159.831, 151.030)
 # ... and before BatchNorm's kernels, with eager f32 BatchNorm (PERF.md
 # section 5)
 EAGER_BN_RESNET_BUSY_MS = (150.355, 151.473)
-BN_KERNELS = tuple(KERNEL_INFO)[7:]
+BN_KERNELS = tuple(KERNEL_INFO)[7:11]
+UPDATE_KERNELS = tuple(KERNEL_INFO)[11:]
+# the update kernel's launches a training step at aggregation 4: one a
+# group of 4, every trained tensor bf16 with an f32 master (one layout):
+# BERT-base's 154 tensors, ResNet-50 v1's 193
+UPDATE_STEP = {"bert": 39, "resnet": 49}
 # BatchNorm's kernels' names (re.search), for device time by torch.profiler
 BN_KERNEL = {"bn_stats": r"reduce_kernel<[^>]*, 0>",
              "bn_apply": r"apply_kernel<[^>]*, 0>",
@@ -576,6 +621,16 @@ def kernel_times(prof):
             if us is None:
                 us = getattr(evt, "self_cuda_time_total", 0.0)
             out[evt.key] = out.get(evt.key, 0.0) + us / 1e3
+    return out
+
+
+def kernel_counts(prof):
+    """{kernel name: launches} of a torch.profiler run; it sees the kernels
+    a CUDA graph replays, which no Python counter does."""
+    out = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            out[evt.key] = out.get(evt.key, 0) + evt.count
     return out
 
 
@@ -1931,6 +1986,236 @@ def bn_checks(torch, dev):
     return rows
 
 
+# ------------------------------------------- phase 3: the multi-tensor update
+def update_shapes(which: str):
+    """The trained parameters' shapes (tied ones once) of BERT-base with
+    its MLM head (phase 5) or ResNet-50 v1 (phase 6), built on the CPU;
+    "small": a few ragged shapes."""
+    if which == "small":
+        return [(33, 17), (5,), (1000,), (64, 3, 3, 3), (16385,), (2, 7, 11)]
+    if which == "bert":
+        from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
+        net = get_bert("bert_12_768_12", device="cpu", vocab_size=30522,
+                       max_length=512, use_pooler=False,
+                       use_classifier=False)
+    else:
+        from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+        net = get_model("resnet50_v1", device="cpu")
+    seen, out = set(), []
+    for p in net.collect_params().values():
+        if p.grad_req != "null" and id(p) not in seen:
+            seen.add(id(p))
+            out.append(tuple(p.shape))
+    return out
+
+
+def update_sides(torch, dev, case, shapes):
+    """Two identical sets (kernel, plain) of an optimizer, weights and
+    states, and three steps of gradients, from a seed."""
+    from mxnet_tpu_torch import optimizer as mo
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    dt = case["dtype"]
+    ws = [torch.randn(s, generator=gen) * 0.02 for s in shapes]
+    grads = [[(torch.randn(s, generator=gen) * 3).to(dev, dt)
+              for s in shapes] for _ in range(3)]
+    sides = []
+    for _ in range(2):
+        opt = mo.create(case["opt"], multi_precision=case["master"],
+                        **case["kw"])
+        opt.rescale_grad = 1.0 / 8
+        if case.get("mults"):
+            opt.set_lr_mult({i: (0.5, 1.0, 2.0)[i % 3]
+                             for i in range(len(shapes))})
+            opt.set_wd_mult({i: (1.0, 0.0, 0.5)[i % 3]
+                             for i in range(len(shapes))})
+        w = [x.to(dev, dt) for x in ws]
+        st = [opt.create_state_multi_precision(i, x) for i, x in enumerate(w)]
+        sides.append((opt, w, st))
+    return sides, grads
+
+
+def update_step(side, grads, agg, plain=False):
+    """One step of every parameter of ``side``: groups of ``agg`` by the
+    trainer's plan, the counts and hyperparameters in its order, through
+    the kernel or its plain version."""
+    from mxnet_tpu_torch.gluon.trainer import group_plan
+    opt, w, st = side
+    entries = [(i, w[i], grads[i], st[i]) for i in range(len(w))]
+    plan = group_plan([opt._group_key(i, x, s) for i, x, _, s in entries],
+                      agg)
+    hyp = [opt._next_hypers(i) for i in range(len(w))]
+    fn = opt._plain_update_groups if plain else opt._update_groups
+    out = fn([[entries[k] for k in g] for g in plan],
+             [[hyp[k] for k in g] for g in plan])
+    for g, states in zip(plan, out):
+        for k, s in zip(g, states):
+            st[k] = s
+
+
+def state_tensors(st):
+    """Every tensor of a parameter's state, the master first."""
+    from mxnet_tpu_torch.optimizer import MasterWeightState
+    if isinstance(st, MasterWeightState):
+        return [st.master] + list(st.inner)
+    return list(st)
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def update_bound_ms(case, shapes):
+    """Least time of one step: each gradient read once, each weight (or
+    master) and state read and written once, a master's weight written."""
+    n = sum(math.prod(s) for s in shapes)
+    e = {"float32": 4, "bfloat16": 2, "float16": 2}[
+        str(case["dtype"]).split(".")[-1]]
+    math_e = 4 if case["master"] else e
+    states = {"sgd": 2 * math_e if case["kw"].get("momentum") else 0,
+              "adam": 16, "adamw": 16}[case["opt"]]
+    per = e + 2 * math_e + states + (e if case["master"] else 0)
+    return n * per / HBM_BYTES_PER_S * 1e3, per
+
+
+def library_update_ms(torch, dev, case, shapes):
+    """PyTorch's fused optimizer kernel over f32 tensors of the same shapes
+    (``torch._fused_adamw_``, ``_fused_adam_``, ``_fused_sgd_``): a
+    yardstick, never called by the port. Device time, or None."""
+    try:
+        ps = [torch.zeros(s, device=dev) for s in shapes]
+        gs = [torch.ones(s, device=dev) for s in shapes]
+        kw = case["kw"]
+        if case["opt"] == "sgd":
+            bufs = [torch.zeros(s, device=dev) for s in shapes] \
+                if kw.get("momentum") else []
+            def call():
+                torch._fused_sgd_(ps, gs, bufs, weight_decay=kw.get("wd", 0.0),
+                                  momentum=kw.get("momentum", 0.0),
+                                  lr=kw["learning_rate"], dampening=0.0,
+                                  nesterov=False, maximize=False,
+                                  is_first_step=False)
+        else:
+            ms = [torch.zeros(s, device=dev) for s in shapes]
+            vs = [torch.zeros(s, device=dev) for s in shapes]
+            steps = [torch.ones((), device=dev) for _ in shapes]
+            fn = torch._fused_adamw_ if case["opt"] == "adamw" \
+                else torch._fused_adam_
+            def call():
+                fn(ps, gs, ms, vs, [], steps, lr=kw["learning_rate"],
+                   beta1=0.9, beta2=0.999, weight_decay=kw.get("wd", 0.0),
+                   eps=1e-8, amsgrad=False, maximize=False)
+        return device_ms(call, iters=5)
+    except Exception as e:  # noqa: BLE001 - a yardstick; reported, not fatal
+        print(f"phase 3:   library call unavailable here ({e!r:.120})",
+              flush=True)
+        return None
+
+
+# phase 3, the multi-tensor update's cases: (name, optimizer, its arguments,
+# parameter shapes, dtype, f32 masters, group size (0: all in one group),
+# clip_gradient and lr / wd multipliers); three steps each, kernel against
+# plain version from the same weights, gradients and states: every weight,
+# master and state equal to the bit
+UPDATE_KERNEL = r"mt::update<"
+ADAMW_KW = {"learning_rate": 1e-4, "wd": 0.01}
+UPDATE_CASES = [
+    dict(name="BERT-base AdamW bf16 masters, groups of 4", opt="adamw",
+         kw=ADAMW_KW, shapes="bert", dtype="bfloat16", master=True, agg=4,
+         timed=True),
+    dict(name="BERT-base AdamW bf16 masters, groups of 1", opt="adamw",
+         kw=ADAMW_KW, shapes="bert", dtype="bfloat16", master=True, agg=1),
+    dict(name="BERT-base AdamW bf16 masters, one group", opt="adamw",
+         kw=ADAMW_KW, shapes="bert", dtype="bfloat16", master=True, agg=0,
+         timed=True),
+    dict(name="ResNet-50 SGD momentum 0.9 bf16 masters, groups of 4",
+         opt="sgd", kw={"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+         shapes="resnet", dtype="bfloat16", master=True, agg=4, timed=True),
+    dict(name="SGD f32, clip, multipliers", opt="sgd",
+         kw={"learning_rate": 0.1, "wd": 1e-4, "clip_gradient": 0.2},
+         shapes="small", dtype="float32", master=False, agg=4, mults=True),
+    dict(name="Adam f32, clip, multipliers", opt="adam",
+         kw={"learning_rate": 1e-3, "wd": 1e-4, "clip_gradient": 0.2},
+         shapes="small", dtype="float32", master=False, agg=4, mults=True),
+    dict(name="AdamW f32, clip, multipliers", opt="adamw",
+         kw={"learning_rate": 1e-3, "wd": 0.01, "clip_gradient": 0.2},
+         shapes="small", dtype="float32", master=False, agg=0, mults=True),
+    dict(name="AdamW fp16 masters, clip, multipliers", opt="adamw",
+         kw={"learning_rate": 1e-3, "wd": 0.01, "clip_gradient": 0.2},
+         shapes="small", dtype="float16", master=True, agg=4, mults=True),
+    dict(name="SGD momentum fp16 masters, clip", opt="sgd",
+         kw={"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+             "clip_gradient": 0.2},
+         shapes="small", dtype="float16", master=True, agg=1),
+    dict(name="AdamW bf16 without masters, clip", opt="adamw",
+         kw={"learning_rate": 1e-3, "wd": 0.01, "clip_gradient": 0.2},
+         shapes="small", dtype="bfloat16", master=False, agg=4, mults=True),
+    dict(name="SGD momentum bf16 without masters", opt="sgd",
+         kw={"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+         shapes="small", dtype="bfloat16", master=False, agg=4),
+]
+
+
+def update_check(torch, dev, case, shapes, timed=False):
+    """One case: three steps through the kernel and the plain version; fails
+    unless every tensor ends with the same bits. Timed: device time a step
+    of the kernel, of the plain version and of the library call."""
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    case = dict(case, dtype=getattr(torch, case["dtype"])
+                if isinstance(case["dtype"], str) else case["dtype"])
+    agg = case["agg"] or len(shapes)
+    (kern, plain), grads = update_sides(torch, dev, case, shapes)
+    before = mt.launches["multi_tensor_update"]
+    for step in range(3):
+        update_step(kern, grads[step], agg)
+        update_step(plain, grads[step], agg, plain=True)
+    launched = mt.launches["multi_tensor_update"] - before
+    groups = -(-len(shapes) // agg)
+    if launched != 3 * groups:
+        fail(f"update {case['name']}: {launched} kernel launches in three "
+             f"steps, expected {3 * groups}")
+    worst, diff = 0.0, []
+    for k in range(len(shapes)):
+        pairs = [(kern[1][k], plain[1][k])] + list(zip(
+            state_tensors(kern[2][k]), state_tensors(plain[2][k])))
+        for a, b in pairs:
+            if not bits_equal(a, b):
+                diff.append(k)
+                worst = max(worst, (a.float() - b.float()).abs().max().item())
+    if diff:
+        fail(f"update {case['name']}: tensors {sorted(set(diff))[:8]} differ "
+             f"from the plain version (max abs {worst:.3e})")
+    row = dict(max_abs_err=0.0, ms=None, plain_ms=None, library_ms=None)
+    row["bound_ms"], per = update_bound_ms(case, shapes)
+    row["bound_by"] = "bytes"
+    if timed:
+        row["ms"] = profiled_ms(lambda: update_step(kern, grads[0], agg), 5,
+                                lambda n: re.search(UPDATE_KERNEL, n))
+        row["plain_ms"] = device_ms(
+            lambda: update_step(plain, grads[0], agg, plain=True), iters=2)
+        row["library_ms"] = library_update_ms(torch, dev, case, shapes)
+    print(f"phase 3: update {case['name']}: {len(shapes)} tensors, "
+          f"{sum(math.prod(s) for s in shapes)} elements, {groups} launches "
+          f"a step; weights, masters and states after 3 steps equal to the "
+          f"plain version's bits; device time a step {fmt_ms(row['ms'])} "
+          f"(bound {row['bound_ms']:.4f} ms at {per} B an element), plain "
+          f"{fmt_ms(row['plain_ms'])}, library {fmt_ms(row['library_ms'])}",
+          flush=True)
+    return row
+
+
+def update_checks(torch, dev):
+    """Phase 3: the multi-tensor update against its plain version in every
+    case of UPDATE_CASES. Returns the kernel's row: BERT-base's AdamW step
+    in groups of 4 (the main path's)."""
+    shapes = {k: update_shapes(k) for k in ("bert", "resnet", "small")}
+    rows = [update_check(torch, dev, c, shapes[c["shapes"]],
+                         timed=c.get("timed", False)) for c in UPDATE_CASES]
+    torch.cuda.empty_cache()
+    return {"multi_tensor_update": rows[0]}
+
+
 def phase_kernels(torch, dev):
     """Phase 3: every kernel against its plain version."""
     from mxnet_tpu_torch.ops.cuda import attention as attn
@@ -1939,6 +2224,7 @@ def phase_kernels(torch, dev):
     rows.update(backward_checks(torch, dev, gen, attn))
     rows.update(conv_checks(torch, dev))
     rows.update(bn_checks(torch, dev))
+    rows.update(update_checks(torch, dev))
     print(f"phase 3: every kernel agrees with its plain version; card: "
           f"{smi_line()}", flush=True)
     return rows
@@ -1997,10 +2283,11 @@ def device_breakdown(prof, wall_ms, label, groups=None):
     return busy, max(0.0, 1 - busy / wall_ms)
 
 
-def forward_breakdown(torch, net, dev, B=8, T=512):
-    """One direct bf16 forward of the served block at the top bucket:
-    its time by CUDA events, and the device time per kernel from
-    torch.profiler. The launch counters are restored afterwards."""
+def forward_breakdown(torch, net, dev, mode, B=8, T=512):
+    """One direct bf16 forward of the served block at the top bucket,
+    eager or replayed from its graph (``mode``, as the block is
+    hybridized): its time by CUDA events, and the device time per kernel
+    from torch.profiler. The launch counters are restored afterwards."""
     from mxnet_tpu_torch.ops.cuda import attention as attn
     saved = dict(attn.launches)
     gen = torch.Generator().manual_seed(3)
@@ -2016,9 +2303,9 @@ def forward_breakdown(torch, net, dev, B=8, T=512):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     attn.launches.update(saved)
-    print(f"phase 4: direct forward B={B} T={T} bf16: {ms:.3f} ms "
+    print(f"phase 4: direct forward ({mode}) B={B} T={T} bf16: {ms:.3f} ms "
           f"(CUDA events, mean of 10); card: {smi_line()}", flush=True)
-    device_breakdown(prof, wall_ms, "phase 4: profiled forward")
+    device_breakdown(prof, wall_ms, f"phase 4: profiled forward ({mode})")
 
 
 def phase_bert(torch, dev):
@@ -2028,8 +2315,7 @@ def phase_bert(torch, dev):
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon.block import HybridBlock
     from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
-    from mxnet_tpu_torch.ops.cuda import attention as attn
-    from mxnet_tpu_torch.serving import BucketPolicy, ModelServer, ServedModel
+    from mxnet_tpu_torch.serving import BucketPolicy, ServedModel
 
     class Encode(HybridBlock):
         """(tokens, valid_length) -> (sequence output, pooled output)."""
@@ -2050,67 +2336,42 @@ def phase_bert(torch, dev):
     params = random_bert_params(cpu_bert, seed=0)
     cpu_net = Encode(load_jax_params(cpu_bert, params))
     gpu_net = Encode(load_jax_params(bert_on_cpu(), params)).cast(
-        torch.bfloat16)
+        torch.bfloat16).to(dev)
     n_params = sum(p.numel() for p in gpu_net.parameters())
     print(f"phase 4: BERT-base built ({n_params} parameters, "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
 
-    sig = [((512,), np.int32), ((), np.int32)]
-    model = ServedModel.from_block(gpu_net, input_signature=sig, device=dev)
+    # one direct call gives the block the signature from_block takes
+    gpu_net.hybridize()
+    with torch.inference_mode():
+        gpu_net(torch.zeros((1, 512), dtype=torch.int32, device=dev),
+                torch.full((1,), 512, dtype=torch.int32, device=dev))
+    model = ServedModel.from_block(gpu_net, device=dev)
+    sig = [((512,), np.dtype(np.int32)), ((), np.dtype(np.int32))]
+    if model.input_signature != sig:
+        fail(f"from_block took the signature {model.input_signature}, "
+             f"expected {sig}")
     policy = BucketPolicy(batch_buckets=(1, 2, 4, 8), pad_axis=0,
                           length_buckets=(128, 512))
-    t0 = time.perf_counter()
-    server = ModelServer(model, policy=policy, warmup=True, timeout_ms=5)
-    print(f"phase 4: warmup {server.warmed} buckets in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
     rng = np.random.RandomState(1)
     lengths = [int(x) for x in rng.randint(16, 513, size=16)]
     lengths[0], lengths[1] = 16, 512
     samples = [(rng.randint(0, 30522, size=L).astype(np.int32),
                 np.int32(L)) for L in lengths]
-    lat = [0.0] * len(samples)
-    results = [None] * len(samples)
-    errors = []
-
-    def client(i):
-        try:
-            t = time.perf_counter()
-            results[i] = server.infer(*samples[i], timeout=300.0)
-            lat[i] = time.perf_counter() - t
-        except Exception as e:  # noqa: BLE001 - reported below, fatal
-            errors.append(f"request {i}: {e!r}")
-
-    with server:
-        reset_counts(attn)
-        batches0 = server.stats["batches"]
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(samples))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        wall = time.perf_counter() - t0
-        counts = dict(attn.launches)
-        batches = server.stats["batches"] - batches0
-    if errors:
-        fail("; ".join(errors))
+    runs = {}
+    for mode in ("eager", "graphs"):
+        gpu_net.hybridize(mode == "graphs")
+        runs[mode] = serve_run(torch, model, policy, samples, mode)
+    counts, results, batches = runs["eager"][:3]
     launches = counts["flash_attention_fwd"]
-    if batches < 1 or launches != 12 * batches:
-        fail(f"forward kernel launched {launches} times for {batches} "
-             "batches; expected 12 per batch")
-    if any(counts[n] for n in attn.KERNELS[1:]):
-        fail(f"serving launched a backward kernel: {counts}")
-    if attn.padded_copies:
-        fail(f"serving copied {attn.padded_copies} attention operands that "
-             "TMA could not address; expected none")
-    for (tok, L), res in zip(samples, results):
-        seq, pooled = res
-        if seq.shape != (L, 768) or pooled.shape != (768,) \
-                or not (np.isfinite(seq).all() and np.isfinite(pooled).all()):
-            fail(f"answer for length {L}: shapes {seq.shape}, "
-                 f"{pooled.shape} or non-finite values")
+    alone = [runs[m][3] for m in ("eager", "graphs")]
+    if not all(np.array_equal(a, b) for x, y in zip(*alone)
+               for a, b in zip(x, y)):
+        fail("the 16 requests, each alone, answered from the captured "
+             "buckets differ from the eager server's answers")
+    print("phase 4: the 16 requests, each alone, answered from the captured "
+          "buckets: equal to the eager server's answers to the bit",
+          flush=True)
     check = [0, 1, 2, 3, 4]
     worst = 0.0
     with torch.inference_mode():
@@ -2128,17 +2389,89 @@ def phase_bert(torch, dev):
                 if r > TOL_BERT_REL:
                     fail(f"answer for length {L} off the CPU f32 forward: "
                          f"relative error {r:.3e} > {TOL_BERT_REL}")
-    forward_breakdown(torch, gpu_net, dev)
+    for mode in ("eager", "graphs"):
+        gpu_net.hybridize(mode == "graphs")
+        forward_breakdown(torch, gpu_net, dev, mode)
+    print(f"phase 4: eager server: {batches} batches, {launches} forward "
+          f"launches (0 padded copies); {len(check)} answers vs CPU f32: "
+          f"worst relative error {worst:.3e}; card: {smi_line()}",
+          flush=True)
+    return counts
+
+
+def serve_run(torch, model, policy, samples, mode):
+    """One server over ``model``: warm-up (for graphs, every bucket
+    captured), 16 concurrent requests (req/s, latency p50 / p99; eager:
+    the forward kernel's launches by its counter, 12 a batch; graphs: the
+    counter must not move, every batch a replay, and the profiler must
+    see 12 forward kernels a batch), then each request alone. Returns
+    (counts, answers, batches, answers alone)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.serving import ModelServer
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    server = ModelServer(model, policy=policy, warmup=True, timeout_ms=5)
+    print(f"phase 4: {mode}: warmup {server.warmed} buckets in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    lat = [0.0] * len(samples)
+    results = [None] * len(samples)
+    errors = []
+
+    def client(i):
+        try:
+            t = time.perf_counter()
+            results[i] = server.infer(*samples[i], timeout=300.0)
+            lat[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 - reported below, fatal
+            errors.append(f"request {i}: {e!r}")
+
+    with server:
+        reset_counts(attn)
+        batches0 = server.stats["batches"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(samples))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        counts = dict(attn.launches)
+        batches = server.stats["batches"] - batches0
+        alone = [server.infer(*x, timeout=300.0) for x in samples]
+    if errors:
+        fail("; ".join(errors))
+    seen = pattern_counts(prof, ["flash_attention_fwd"])["flash_attention_fwd"]
+    launches = counts["flash_attention_fwd"]
+    if batches < 1 or seen != 12 * batches or \
+            launches != (12 * batches if mode == "eager" else 0):
+        fail(f"{mode} server: {batches} batches, forward kernels launched "
+             f"{launches} times by the counter and {seen} by the profiler; "
+             "expected 12 a batch by the profiler, by the counter 12 a batch "
+             "eager and none from graphs")
+    if any(counts[n] for n in attn.KERNELS[1:]):
+        fail(f"serving launched a backward kernel: {counts}")
+    if attn.padded_copies:
+        fail(f"serving copied {attn.padded_copies} attention operands that "
+             "TMA could not address; expected none")
+    for (tok, L), res in zip(samples, results):
+        seq, pooled = res
+        if seq.shape != (L, 768) or pooled.shape != (768,) \
+                or not (np.isfinite(seq).all() and np.isfinite(pooled).all()):
+            fail(f"answer for length {L}: shapes {seq.shape}, "
+                 f"{pooled.shape} or non-finite values")
     lat_ms = sorted(x * 1e3 for x in lat)
     p50 = lat_ms[len(lat_ms) // 2]
     p99 = lat_ms[min(len(lat_ms) - 1, int(math.ceil(0.99 * len(lat_ms))) - 1)]
-    print(f"phase 4: {len(samples)} requests in {wall:.3f} s "
-          f"({len(samples) / wall:.2f} req/s), {batches} batches, "
-          f"{launches} forward launches (0 padded copies), latency p50 "
-          f"{p50:.1f} ms p99 "
-          f"{p99:.1f} ms; {len(check)} answers vs CPU f32: worst relative "
-          f"error {worst:.3e}; card: {smi_line()}", flush=True)
-    return counts
+    print(f"phase 4: {mode}: {len(samples)} requests in {wall:.3f} s "
+          f"({len(samples) / wall:.2f} req/s), {batches} batches, forward "
+          f"kernels {seen} by the profiler ({launches} by the counter), "
+          f"latency p50 {p50:.1f} ms p99 {p99:.1f} ms; card: {smi_line()}",
+          flush=True)
+    return counts, results, batches, alone
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2166,6 +2499,225 @@ def train_step(torch, autograd, net, loss_fn, trainer, batch):
     return loss
 
 
+# every kernel of the port by name (re.search), for counting launches in a
+# profiler trace: a graph replay runs no Python, so no counter sees it
+KERNEL_PATTERNS = dict({"flash_attention_fwd": FWD_KERNEL}, **BWD_KERNEL,
+                       **CONV_KERNEL, **BN_KERNEL,
+                       multi_tensor_update=UPDATE_KERNEL)
+# the graphed backward's gradients against the eager ones, relative
+# Frobenius: bf16 rounding of the same kernels in another order (the fused
+# flash backward adds dq with atomics); where the routes are deterministic
+# the script also reports whether they are equal to the bit
+TOL_GRAPH_GRAD_REL = 2e-2
+
+
+def pattern_counts(prof, names):
+    """Launches of each kernel of ``names`` in a profiler run."""
+    per = kernel_counts(prof)
+    return {n: sum(c for k, c in per.items()
+                   if re.search(KERNEL_PATTERNS[n], k)) for n in names}
+
+
+def profiled_step(torch, step):
+    """One ``step()`` under torch.profiler: (wall ms to a synchronize,
+    the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    return wall_ms, prof
+
+
+def step_parts(torch, autograd, forward_loss, trainer, batch_size, n=3):
+    """Mean host ms of forward+loss, backward and trainer.step over ``n``
+    steps, each part ended by a synchronize, and the update kernel's
+    launches a step."""
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    split = {"forward+loss": 0.0, "backward": 0.0, "trainer.step": 0.0}
+    before = mt.launches["multi_tensor_update"]
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = forward_loss()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.step(batch_size)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k] += dt * 1e3 / n
+    launched = (mt.launches["multi_tensor_update"] - before) / n
+    return split, launched
+
+
+def fmt_parts(split) -> str:
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+
+
+def graph_vs_eager(torch, autograd, net, args, loss_of, label, add=4):
+    """A replayed call of the hybridized ``net`` against an eager one
+    (``Block.__call__``) on the same weights, from the same generator
+    state and BatchNorm statistics: the outputs, the statistics after the
+    call and the generator's state after it must be equal to the bit, the
+    gradients within TOL_GRAPH_GRAD_REL (whether they are equal to the
+    bit is reported); two replays must draw different dropout (when the
+    net has dropout); ``grad_req='add'`` on ``add`` parameters must
+    accumulate over two calls as it does eagerly. Returns whether the
+    gradients were equal to the bit."""
+    import importlib
+    from mxnet_tpu_torch.gluon.block import Block
+    gen = importlib.import_module("mxnet_tpu_torch.random").generator(
+        args[0].device)
+    items = list(net.collect_params().items())
+    stats = [p.data() for _, p in items if p.grad_req == "null"]
+    seen, params = set(), []
+    for k, p in items:
+        if p.grad_req != "null" and id(p) not in seen:
+            seen.add(id(p))
+            params.append((k, p))
+    g0, s0 = gen.get_state(), [t.clone() for t in stats]
+    calls = (("graph", net), ("eager", lambda *a: Block.__call__(net, *a)))
+
+    def flat(out):
+        return [o.detach().clone() for o in
+                (out if isinstance(out, (tuple, list)) else [out])]
+
+    def restore():
+        gen.set_state(g0)
+        for t, s in zip(stats, s0):
+            t.copy_(s)
+
+    res = {}
+    for mode, call in calls:
+        restore()
+        with autograd.record():
+            out = call(*args)
+            loss = loss_of(out)
+        autograd.backward(loss)
+        res[mode] = (flat(out), [t.clone() for t in stats], gen.get_state(),
+                     [p.grad().detach().clone() for _, p in params])
+    (og, sg, gg, dg), (oe, se, ge, de) = res["graph"], res["eager"]
+    if not all(bits_equal(a, b) for a, b in zip(og, oe)):
+        fail(f"{label}: a replayed call's outputs differ from the eager "
+             "call's on the same weights and generator state")
+    if not all(bits_equal(a, b) for a, b in zip(sg, se)):
+        fail(f"{label}: the BatchNorm statistics after a replayed call differ "
+             "from the eager call's")
+    if not torch.equal(gg, ge):
+        fail(f"{label}: a replay left the generator elsewhere than the eager "
+             "call")
+    rels = [(rel(a, b), k) for (k, _), a, b in zip(params, dg, de)]
+    worst = max(rels)
+    if worst[0] > TOL_GRAPH_GRAD_REL:
+        fail(f"{label}: the graphed backward's gradient of {worst[1]} is off "
+             f"the eager one by {worst[0]:.3e} > {TOL_GRAPH_GRAD_REL}")
+    grad_bits = all(bits_equal(a, b) for a, b in zip(dg, de))
+    # two replays in a row draw new numbers
+    restore()
+    with autograd.record():
+        a = flat(net(*args))
+        b = flat(net(*args))
+    redraw = not all(bits_equal(x, y) for x, y in zip(a, b))
+    # grad_req='add' over two calls
+    some = [p for _, p in params[:add]]
+    acc = {}
+    for mode, call in calls:
+        restore()
+        for p in some:
+            p.grad_req = "add"
+            p.data().grad = None
+        for _ in range(2):
+            with autograd.record():
+                loss = loss_of(call(*args))
+            autograd.backward(loss)
+        acc[mode] = [p.grad().detach().clone() for p in some]
+        for p in some:
+            p.grad_req = "write"
+    add_rel = max(rel(a, b) for a, b in zip(acc["graph"], acc["eager"]))
+    one = [x for x in res["graph"][3][:add]]
+    grew = min(rel(a, b) for a, b in zip(acc["graph"], one))
+    if add_rel > TOL_GRAPH_GRAD_REL or grew < 1e-3:
+        fail(f"{label}: grad_req='add' over two graphed calls is off the "
+             f"eager accumulation by {add_rel:.3e}, or did not accumulate "
+             f"(relative change from one call {grew:.3e})")
+    restore()
+    print(f"{label}: a replayed call vs an eager one from the same generator "
+          f"state and statistics: outputs, statistics and the generator's "
+          f"state after equal to the bit; gradients worst relative "
+          f"Frobenius {worst[0]:.3e} ({worst[1]}; limit "
+          f"{TOL_GRAPH_GRAD_REL}), {'equal' if grad_bits else 'not equal'} "
+          f"to the bit; two replays in a row draw "
+          f"{'different' if redraw else 'the same'} numbers; grad_req='add' "
+          f"over two calls within {add_rel:.3e} of eager", flush=True)
+    return grad_bits, redraw
+
+
+def embedding_backward_times(torch, tok, typ):
+    """BERT-base's embeddings' forward and backward on the card as the port
+    runs them (``ops/nn.py:_Embedding``, which a graph can capture: the
+    30522-row word table by ``index_put_`` into one f32 accumulator, the
+    2-row token-type table by PyTorch's one-pass kernel a chunk of 3072
+    indices) against PyTorch's own (``F.embedding``, whose backward above
+    3072 indices reads a count back to the host), at the main path's
+    tokens, and the word table at four times the batch; beside them the
+    route each table does not take. Device time of each, and whether the
+    port's gradients equal PyTorch's to the bit."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.nn import _EMBED_BWD_CHUNK, _Embedding
+    gen = torch.Generator(device=tok.device).manual_seed(3)
+    cases = (("word", tok, 30522), ("word", tok.repeat(4, 1), 30522),
+             ("token type", typ, 2))
+    for name, idx, rows in cases:
+        idx = idx.long()
+        w = (torch.randn(rows, 768, device=tok.device, generator=gen) * 0.02
+             ).to(torch.bfloat16).requires_grad_()
+        dout = torch.randn(*idx.shape, 768, device=tok.device,
+                           generator=gen).to(torch.bfloat16)
+        flat, g = idx.reshape(-1), dout.reshape(-1, 768)
+
+        def port():
+            return torch.autograd.grad(_Embedding.apply(idx, w), w, dout)[0]
+
+        def library():
+            return torch.autograd.grad(F.embedding(idx, w), w, dout)[0]
+
+        def accumulate():
+            return torch.zeros(rows, 768, device=w.device).index_put_(
+                (flat,), g.float(), accumulate=True).to(w.dtype)
+
+        def chunks():
+            total = torch.zeros(rows, 768, device=w.device)
+            for k in range(0, flat.numel(), _EMBED_BWD_CHUNK):
+                total.add_(torch.ops.aten.embedding_dense_backward(
+                    g[k:k + _EMBED_BWD_CHUNK].float(),
+                    flat[k:k + _EMBED_BWD_CHUNK], rows, -1, False))
+            return total.to(w.dtype)
+
+        got, want = port(), library()
+        r = rel(got, want)
+        if not bool(got.isfinite().all()) or r > 1e-2:
+            fail(f"the {name} embedding's backward at {tuple(idx.shape)} is "
+                 f"off PyTorch's by {r:.3e} (limit 1e-2)")
+        print(f"phase 5: {name} embedding ({rows}x768 bf16), tokens "
+              f"{tuple(idx.shape)}, device time: forward+backward, the "
+              f"port's {fmt_ms(device_ms(port, iters=5))}, PyTorch's "
+              f"{fmt_ms(device_ms(library, iters=5))}; the backward's sum "
+              f"alone by index_put_ {fmt_ms(device_ms(accumulate, iters=5))}"
+              f", by chunks {fmt_ms(device_ms(chunks, iters=5))}; the "
+              f"port's gradient "
+              f"{'equal' if bits_equal(got, want) else 'not equal'} to "
+              f"PyTorch's bits (relative Frobenius {r:.3e}); card: "
+              f"{smi_line()}", flush=True)
+
+
 def phase_train(torch, dev):
     """Phase 5: BERT-base MLM training on the card. Returns the launch
     counts of the training run."""
@@ -2176,6 +2728,7 @@ def phase_train(torch, dev):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
     from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
 
     cfg = dict(vocab_size=30522, max_length=512, use_pooler=False,
                use_classifier=False)
@@ -2199,25 +2752,28 @@ def phase_train(torch, dev):
     os.environ.pop("MXNET_FLASH_BLOCK_K", None)
     plan = [("fused", 10), ("two-pass", 2)]
     losses, times = {}, {}
-    reset_counts(attn)                      # the main path starts here
+    reset_counts(attn)
+    reset_counts(mt)                        # the main path starts here
     for route, n_steps in plan:
         if route == "two-pass":
             # the two-pass dq/dkv kernels: key blocks of 256 < T
             os.environ["MXNET_FLASH_BLOCK_K"] = "256"
-        want = {"flash_attention_fwd": 12}
+        want = {"flash_attention_fwd": 12,
+                "multi_tensor_update": UPDATE_STEP["bert"]}
         want.update({"flash_attention_bwd_fused": 12} if route == "fused"
                     else {"flash_attention_bwd_dq": 12,
                           "flash_attention_bwd_dkv": 12})
         losses[route], times[route] = [], []
         for step in range(n_steps):
-            before = dict(attn.launches)
+            before = dict(attn.launches, **mt.launches)
             torch.cuda.synchronize()
             t = time.perf_counter()
             loss = train_step(torch, autograd, net, loss_fn, trainer, batch)
             torch.cuda.synchronize()
             times[route].append(time.perf_counter() - t)
-            moved = {n: attn.launches[n] - before[n] for n in attn.KERNELS}
-            if moved != {n: want.get(n, 0) for n in attn.KERNELS}:
+            moved = {n: c[n] - before[n] for c in (attn.launches, mt.launches)
+                     for n in c}
+            if moved != {n: want.get(n, 0) for n in moved}:
                 fail(f"{route} step {step}: kernel launches {moved}, "
                      f"expected {want}")
             lval = loss.float().mean().item()
@@ -2226,7 +2782,7 @@ def phase_train(torch, dev):
                      f"{tuple(loss.shape)}")
             losses[route].append(lval)
     os.environ.pop("MXNET_FLASH_BLOCK_K", None)
-    counts = dict(attn.launches)            # ... and ends here
+    counts = dict(attn.launches, **mt.launches)     # ... and ends here
     if attn.padded_copies:
         fail(f"training copied {attn.padded_copies} attention operands that "
              "TMA could not address; expected none")
@@ -2248,19 +2804,15 @@ def phase_train(torch, dev):
 
     # where the time goes in one step of each route (counters restored
     # after)
-    from torch.profiler import ProfilerActivity, profile
     saved = dict(attn.launches)
+    profs = {}
     for route in ("fused", "two-pass"):
         if route == "two-pass":
             os.environ["MXNET_FLASH_BLOCK_K"] = "256"
         train_step(torch, autograd, net, loss_fn, trainer, batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            train_step(torch, autograd, net, loss_fn, trainer, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+        wall_ms, prof = profiled_step(torch, lambda: train_step(
+            torch, autograd, net, loss_fn, trainer, batch))
+        profs[route] = prof
         os.environ.pop("MXNET_FLASH_BLOCK_K", None)
         busy, _ = device_breakdown(prof, wall_ms,
                                    f"phase 5: profiled {route} step")
@@ -2273,38 +2825,109 @@ def phase_train(torch, dev):
             print(f"phase 5: {route} route: device busy {busy:.3f} ms a "
                   f"step, of it the flash backward kernels {bwd:.3f} ms "
                   f"({bwd / busy:.3f}){old}", flush=True)
-    # the step's three parts by host clock, each ended by a synchronize
+    # the step's three parts by host clock, each ended by a synchronize:
+    # each parameter updated alone (aggregation 1) against groups of 4
     tok, typ, vl, pos, lab = batch
-    split = {"forward+loss": 0.0, "backward": 0.0, "trainer.step": 0.0}
-    walk_ms = 0.0
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with autograd.record():
-            loss = loss_fn(net(tok, typ, vl, pos)[-1], lab)
-        torch.cuda.synchronize()
-        # the graph walk backward() makes for grad_req, timed alone
-        tw = time.perf_counter()
-        autograd._leaves([loss])
-        walk_ms += (time.perf_counter() - tw) * 1e3 / 3
-        t1 = time.perf_counter()
-        autograd.backward(loss)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        trainer.step(B)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, dt in zip(split, (t1 - t, t2 - t1, t3 - t2)):
-            split[k] += dt * 1e3 / 3
+
+    def forward_loss():
+        return loss_fn(net(tok, typ, vl, pos)[-1], lab)
+
+    for agg in (1, 4):
+        trainer.optimizer.aggregate_num = agg
+        split, launched = step_parts(torch, autograd, forward_loss, trainer,
+                                     B)
+        print(f"phase 5: step parts, aggregation {agg} (mean of 3, host "
+              f"clock): {fmt_parts(split)}; {launched:.0f} update launches "
+              "a step", flush=True)
+    with autograd.record():
+        loss = forward_loss()
+    tw = time.perf_counter()
+    autograd._leaves([loss])
+    print(f"phase 5: the backward's grad_req graph walk alone "
+          f"{(time.perf_counter() - tw) * 1e3:.3f} ms", flush=True)
     attn.launches.update(saved)
-    print("phase 5: step parts (mean of 3, host clock): " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in split.items())
-        + f"; the backward's grad_req graph walk alone {walk_ms:.3f} ms",
-        flush=True)
+    embedding_backward_times(torch, tok, typ)
+    hybrid_train(torch, dev, net, params, loss_fn, batch, losses["fused"],
+                 profs)
     del net, trainer
     torch.cuda.empty_cache()
     train_parity(torch, dev, params, cfg)
     return counts, fused_ms
+
+
+def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses,
+                 profs):
+    """Phase 5, hybridized: the net's forward and backward as CUDA graphs,
+    from the eager run's weights and generator state; step time, device
+    busy and idle share, every kernel's launches a step from the profiler
+    against the eager step's, the step parts; then a replayed call against
+    an eager one on the fused route and on the two-pass pair."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    load_jax_params(net, params, dtype="bfloat16")
+    trainer = Trainer(net.collect_params(), "adamw",
+                      {"learning_rate": 1e-4, "multi_precision": True})
+    mx_random.seed(0)
+    net.hybridize()
+    B, T = batch[0].shape
+    losses, times = [], []
+    for step in range(10):       # 1: the warm-up; 2: the capture; replays
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = train_step(torch, autograd, net, loss_fn, trainer, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.float().mean().item())
+    graphs = sum(1 for g in net._cached_graph.values() if g is not True)
+    if graphs != 1 or not losses[-1] < losses[0] or not all(
+            math.isfinite(v) for v in losses):
+        fail(f"hybridized training: {graphs} graphs captured, losses "
+             f"{losses}")
+    if losses[0] != eager_losses[0]:
+        fail(f"hybridized training: the first (eager) step's loss "
+             f"{losses[0]} differs from the eager run's {eager_losses[0]}")
+    ms = 1e3 * sum(times[2:]) / len(times[2:])
+    print(f"phase 5: hybridized losses {[round(x, 4) for x in losses]} "
+          f"(eager run's largest difference "
+          f"{max(abs(a - b) for a, b in zip(losses, eager_losses)):.4f}); "
+          f"step {ms:.3f} ms (mean of steps 3-10, host clock to "
+          f"synchronize), {B * T / ms * 1e3:.0f} tokens/s; card: "
+          f"{smi_line()}", flush=True)
+    wall_ms, prof = profiled_step(torch, lambda: train_step(
+        torch, autograd, net, loss_fn, trainer, batch))
+    device_breakdown(prof, wall_ms, "phase 5: profiled hybridized step")
+    names = ["flash_attention_fwd", "flash_attention_bwd_fused",
+             "multi_tensor_update"]
+    got, want = pattern_counts(prof, names), pattern_counts(profs["fused"],
+                                                            names)
+    if got != want or not got["flash_attention_fwd"]:
+        fail(f"hybridized step: kernel launches by the profiler {got}, the "
+             f"eager step's {want}")
+    print(f"phase 5: launches in a replayed step by the profiler {got}, as "
+          "in the eager step", flush=True)
+    tok, typ, vl, pos, lab = batch
+    split, launched = step_parts(
+        torch, autograd, lambda: loss_fn(net(tok, typ, vl, pos)[-1], lab),
+        trainer, B)
+    print(f"phase 5: step parts hybridized, aggregation 4 (mean of 3, host "
+          f"clock): {fmt_parts(split)}; {launched:.0f} update launches a "
+          "step", flush=True)
+    args = (tok, typ, vl, pos)
+    _, redraw = graph_vs_eager(torch, autograd, net, args,
+                               lambda out: loss_fn(out[-1], lab),
+                               "phase 5: fused route")
+    if not redraw:
+        fail("phase 5: two replays in a row drew the same dropout")
+    os.environ["MXNET_FLASH_BLOCK_K"] = "256"
+    for _ in range(2):            # the pair's signature: warm-up, capture
+        train_step(torch, autograd, net, loss_fn, trainer, batch)
+    graph_vs_eager(torch, autograd, net, args,
+                   lambda out: loss_fn(out[-1], lab),
+                   "phase 5: two-pass pair")
+    os.environ.pop("MXNET_FLASH_BLOCK_K", None)
+    net.hybridize(False)
 
 
 def train_parity(torch, dev, params, cfg):
@@ -2404,7 +3027,8 @@ def resnet_steps(torch, autograd, net, loss_fn, trainer, x, y, n, want,
     from mxnet_tpu_torch.ops.cuda import attention as attn
     from mxnet_tpu_torch.ops.cuda import batch_norm as bn
     from mxnet_tpu_torch.ops.cuda import conv_fused as cf
-    counters = [attn.launches, cf.launches, bn.launches]
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    counters = [attn.launches, cf.launches, bn.launches, mt.launches]
     losses, times = [], []
     wants = want
     for step in range(n):
@@ -2441,6 +3065,7 @@ def phase_resnet(torch, dev):
     from mxnet_tpu_torch.ops.cuda import attention as attn
     from mxnet_tpu_torch.ops.cuda import batch_norm as bn
     from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
 
     t0 = time.perf_counter()
     params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
@@ -2468,16 +3093,21 @@ def phase_resnet(torch, dev):
     def virgin(want):       # the first step: centered statistics
         return dict(want, bn_stats=2 * want["bn_stats"])
 
-    fused_want = dict({k: 28 for k in CONV_KERNELS}, **BN_STEP["1"])
+    update = {"multi_tensor_update": UPDATE_STEP["resnet"]}
+    fused_want = dict({k: 28 for k in CONV_KERNELS}, **BN_STEP["1"],
+                      **update)
+    unfused_want = dict(BN_STEP["0"], **update)
     os.environ["MXNET_FUSE_BN_CONV"] = "1"
     tr = trainer()
     reset_counts(attn)
     reset_counts(bn)
+    reset_counts(mt)
     reset_counts(cf)                    # the main path starts here
     losses, times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y, 10,
                                  fused_want, "fused", virgin(fused_want))
     counts = {k: cf.launches[k] for k in CONV_KERNELS}   # ... and ends here
     counts.update({k: bn.launches[k] for k in BN_KERNELS})
+    counts.update({k: mt.launches[k] for k in UPDATE_KERNELS})
     if any(attn.launches[k] for k in ATTN_KERNELS):
         fail(f"ResNet-50 launched attention kernels: {attn.launches}")
     if not losses[-1] < losses[0]:
@@ -2495,19 +3125,23 @@ def phase_resnet(torch, dev):
           f"card: {smi_line()}", flush=True)
 
     # where the time goes in one fused step (counters restored after)
-    from torch.profiler import ProfilerActivity, profile
     saved = dict(cf.launches), dict(bn.launches)
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        resnet_step(autograd, net, loss_fn, tr, x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    wall_ms, prof = profiled_step(torch, lambda: resnet_step(
+        autograd, net, loss_fn, tr, x, y))
+    profs = {"1": prof}
     fused_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     fused_busy, _ = device_breakdown(prof, wall_ms,
                                      "phase 6: profiled fused step",
                                      RESNET_GROUPS)
+    # the step's parts: each parameter updated alone against groups of 4
+    for agg in (1, 4):
+        tr.optimizer.aggregate_num = agg
+        split, launched = step_parts(torch, autograd,
+                                     lambda: loss_fn(net(x), y), tr, B)
+        print(f"phase 6: fused step parts, aggregation {agg} (mean of 3, "
+              f"host clock): {fmt_parts(split)}; {launched:.0f} update "
+              "launches a step", flush=True)
     cf.launches.update(saved[0])
     bn.launches.update(saved[1])
 
@@ -2516,8 +3150,8 @@ def phase_resnet(torch, dev):
     load_jax_params(net, params)
     tr = trainer()
     u_losses, u_times = resnet_steps(torch, autograd, net, loss_fn, tr, x, y,
-                                     10, BN_STEP["0"], "unfused",
-                                     virgin(BN_STEP["0"]))
+                                     10, unfused_want, "unfused",
+                                     virgin(unfused_want))
     unfused_ms = 1e3 * sum(u_times[2:]) / len(u_times[2:])
     drift = max(abs(a - b) for a, b in zip(losses, u_losses))
     print(f"phase 6: losses (unfused) {[round(v, 4) for v in u_losses]}; "
@@ -2526,12 +3160,9 @@ def phase_resnet(torch, dev):
           f"{B / unfused_ms * 1e3:.1f} img/s; fused / unfused step time "
           f"{fused_ms / unfused_ms:.3f}; card: {smi_line()}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        resnet_step(autograd, net, loss_fn, tr, x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    wall_ms, prof = profiled_step(torch, lambda: resnet_step(
+        autograd, net, loss_fn, tr, x, y))
+    profs["0"] = prof
     unfused_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     unfused_busy, _ = device_breakdown(prof, wall_ms,
                                        "phase 6: profiled unfused step",
@@ -2573,11 +3204,72 @@ def phase_resnet(torch, dev):
     print(f"phase 6: eval forward B={B} bf16, fused vs unfused logits: "
           f"relative Frobenius {r:.3e} (limit {TOL_RESNET_EVAL_REL})",
           flush=True)
-    del net, tr, outs, x
+    del tr, outs
+    hybrid_resnet(torch, net, params, loss_fn, x, y, trainer, profs,
+                  {"1": losses, "0": u_losses})
+    del net, x
     torch.cuda.empty_cache()
     resnet_parity(torch, dev)
     os.environ.pop("MXNET_FUSE_BN_CONV", None)
     return counts
+
+
+def hybrid_resnet(torch, net, params, loss_fn, x, y, trainer, profs,
+                  eager_losses):
+    """Phase 6, hybridized: 10 steps with the fused junctions, then 10
+    without, each from the eager runs' weights (the first, centered step
+    eager, the second captured); step time, device busy and idle share,
+    the conv and BatchNorm kernels' launches from the profiler against the
+    eager step's, the step parts, and a replayed call against an eager
+    one."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import load_jax_params
+    B = x.shape[0]
+    names = list(CONV_KERNELS + BN_KERNELS) + ["multi_tensor_update"]
+    for knob in ("1", "0"):
+        os.environ["MXNET_FUSE_BN_CONV"] = knob
+        label = f"phase 6: hybridized {'fused' if knob == '1' else 'unfused'}"
+        load_jax_params(net, params)
+        tr = trainer()
+        net.hybridize()
+        losses, times = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = resnet_step(autograd, net, loss_fn, tr, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.float().mean().item())
+        if not losses[-1] < losses[0] or losses[0] != eager_losses[knob][0]:
+            fail(f"{label}: losses {losses} (the eager run's first "
+                 f"{eager_losses[knob][0]})")
+        ms = 1e3 * sum(times[2:]) / len(times[2:])
+        print(f"{label}: losses {[round(v, 4) for v in losses]} (eager run's "
+              f"largest difference {max(abs(a - b) for a, b in zip(losses, eager_losses[knob])):.4f}); "
+              f"step {ms:.3f} ms (mean of steps 3-10, host clock to "
+              f"synchronize), {B / ms * 1e3:.1f} img/s; card: {smi_line()}",
+              flush=True)
+        wall_ms, prof = profiled_step(torch, lambda: resnet_step(
+            autograd, net, loss_fn, tr, x, y))
+        device_breakdown(prof, wall_ms, f"{label} profiled step",
+                         RESNET_GROUPS)
+        got, want = pattern_counts(prof, names), pattern_counts(profs[knob],
+                                                                names)
+        if got != want:
+            fail(f"{label}: kernel launches by the profiler {got}, the eager "
+                 f"step's {want}")
+        print(f"{label}: launches in a replayed step by the profiler {got}, "
+              "as in the eager step", flush=True)
+        split, launched = step_parts(torch, autograd,
+                                     lambda: loss_fn(net(x), y), tr, B)
+        print(f"{label} step parts, aggregation 4 (mean of 3, host clock): "
+              f"{fmt_parts(split)}; {launched:.0f} update launches a step",
+              flush=True)
+        graph_vs_eager(torch, autograd, net, (x,),
+                       lambda out: loss_fn(out, y), label)
+        net.hybridize(False)
+        del tr
+        torch.cuda.empty_cache()
 
 
 def resnet_parity(torch, dev):
@@ -3107,9 +3799,11 @@ def main() -> int:
                 fail(f"kernels never launched on the training path: "
                      f"{missing}")
             resnet = phase_resnet(torch, dev)
-            launches.update(resnet)
+            launches.update({n: resnet[n] for n in CONV_KERNELS + BN_KERNELS})
+            launches.update({n: train[n] + resnet[n] for n in UPDATE_KERNELS})
             missing = [n for n in CONV_KERNELS + BN_KERNELS
-                       if not resnet[n]]
+                       if not resnet[n]] + [n for n in UPDATE_KERNELS
+                                            if not train[n] or not resnet[n]]
             if missing:
                 fail(f"kernels never launched on the ResNet-50 path: "
                      f"{missing}")

@@ -49,7 +49,6 @@ def getenv(name: str, default: Any = None, typ: Optional[type] = None) -> Any:
 # the ROADMAP Queue A item that ports them. Reading one raises MXNetError
 # naming the item; any other missing name is an AttributeError.
 QUEUE_A = {
-    3: "hybridize() as CUDA graphs",
     4: "the serving front and its hooks",
     6: "Gluon layers, losses, initializers and the npx operators",
     7: "the rest of the imperative surface",
@@ -64,14 +63,13 @@ QUEUE_A = {
 }
 _UNPORTED = {
     "mxnet_tpu_torch": {
-        3: "bulk",
         4: "metrics faults tracing",
         7: "operator",
         8: "amp",
         11: "io image recordio",
         12: "metric checkpoint preemption",
         13: "kvstore kv parallel",
-        14: "profiler monitor mon retry health engine",
+        14: "profiler monitor mon retry health engine bulk",
         15: "test_utils runtime callback model mod module symbol sym contrib "
             "subgraph name attribute visualization viz",
     },

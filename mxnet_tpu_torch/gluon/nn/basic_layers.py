@@ -200,8 +200,11 @@ class BatchNorm(HybridBlock):
     batch's mean (``ops/cuda/batch_norm.py``); the layer's first
     training forward, while ``stat_shift`` is all zeros, takes centered
     statistics instead. The moving averages and ``stat_shift`` are updated
-    in place after each training forward, outside autograd. The port runs
-    eagerly, so the JAX package's graph invalidation has no counterpart."""
+    in place after each training forward, outside autograd; a hybridized
+    block's graph repeats that update at each replay. The first, centered
+    step reads the device (is ``stat_shift`` still zero?), so it never runs
+    inside a CUDA graph capture: :meth:`_graph_ready` sends that call
+    eager."""
 
     def __init__(self, axis: int = 1, momentum: float = 0.9,
                  epsilon: float = 1e-5, center: bool = True,
@@ -248,6 +251,11 @@ class BatchNorm(HybridBlock):
             self._virgin_for = key
             self._stats_virgin = not bool(sh.detach().any())
         return self._stats_virgin
+
+    def _graph_ready(self) -> bool:
+        """May a hybridized block capture or replay this layer's next call?
+        Not while the centered first training step is ahead."""
+        return not self._pre()[1]
 
     def _tensors(self):
         """gamma, beta, running_mean, running_var as tensors."""

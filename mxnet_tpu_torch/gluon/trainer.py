@@ -9,6 +9,32 @@ compression, gradient streaming, fault sites and tracing spans are not
 ported yet: a kvstore other than a local one, or ``compression_params``
 that ask for compression, raise.
 
+The update is the JAX package's ``_update_entries_impl`` (``trainer.py:
+738-883``): an optimizer that keeps ``Optimizer.update`` and
+``update_multi_precision`` and whose ``_step`` the kernel implements
+(``_fused_optimizer_ok``) updates its dense
+parameters (``_param_fusible``; row-sparse gradients never join, and the
+port has none yet) in groups of at most ``aggregate_num``
+(``MXNET_OPTIMIZER_AGGREGATION_SIZE``, default 4); every other optimizer,
+and any parameter left out, takes ``update_multi_precision`` one at a time.
+Each group is one launch of the multi-tensor kernel on CUDA tensors
+(``ops/cuda/multi_tensor.py``; every group of a step shares one
+host-to-device copy of the tables) and the eager per-parameter update on
+CPU tensors; a group of one is the same as ``update_multi_precision``. The
+update counts, lrs and wds are taken in the JAX package's order before
+any launch.
+
+The grouping rule for master weights differs from the JAX package's, which
+keeps every ``MasterWeightState`` out of its groups: the port's training
+paths run bf16 weights with f32 masters, so that rule would group nothing.
+Here a parameter with a master joins a group of parameters that share its
+layout and the optimizer's hyperparameters (``Optimizer._group_key``:
+device, weight dtype, a master or none, ``_hyper``); the kernel steps
+each master and rounds it to its weight, element by element as
+``update_multi_precision`` does, so the result is the same bits.
+Parameters of one layout are grouped in their order; groups come in the
+order of their first parameter (:func:`group_plan`).
+
 Trainer state files cross packages: ``save_states`` writes the JAX
 package's format-2 pickle (``{"format", "num_update",
 "index_update_count", "states"}``, states as numpy arrays, a master-weight
@@ -33,7 +59,7 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from .parameter import Parameter
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "group_plan"]
 
 _LOCAL_KVSTORES = (None, "device", "local")
 # the JAX package's MasterWeightState, as its pickles name it
@@ -58,6 +84,21 @@ def _dedupe(named):
             names.append(name)
             params.append(p)
     return names, params
+
+
+def group_plan(keys, agg: int):
+    """Positions ``0..len(keys)-1`` in groups: the positions of each key in
+    their order, at most ``agg`` a group; groups ordered by their first
+    position. One key throughout gives the JAX package's consecutive
+    chunks."""
+    open_, groups = {}, []
+    for k, key in enumerate(keys):
+        grp = open_.get(key)
+        if grp is None or len(grp) == agg:
+            grp = open_[key] = []
+            groups.append(grp)
+        grp.append(k)
+    return groups
 
 
 def _to_numpy(state):
@@ -199,13 +240,68 @@ class Trainer:
                     "autograd.record() first, or pass ignore_stale_grad=True")
             updatable.append((i, p))
         o = self._optimizer
+        entries = []
         for i, p in updatable:
             w = p.data()
             if i not in self._states:
                 self._states[i] = o.create_state_multi_precision(i, w)
-            self._states[i] = o.update_multi_precision(i, w, w.grad,
-                                                       self._states[i])
+            entries.append((i, w, w.grad))
+        self._update_entries(entries)
+        for _, p in updatable:
             p._fresh_grad = False
+
+    def _update_entries(self, updatable) -> None:
+        """Apply the optimizer to ``(index, weight, grad)`` entries: groups
+        of up to ``aggregate_num`` fusible parameters, then the rest one by
+        one (the JAX package's ``_update_entries_impl``)."""
+        o = self._optimizer
+        agg = o.aggregate_num
+        if len(updatable) > 1 and agg > 1 and self._fused_optimizer_ok():
+            fusible, rest = [], []
+            for t in updatable:
+                (fusible if self._param_fusible(t) else rest).append(t)
+            if len(fusible) < 2:
+                fusible, rest = [], updatable
+            if fusible:
+                self._fused_update(fusible, agg)
+        else:
+            rest = updatable
+        for i, w, g in rest:
+            self._states[i] = o.update_multi_precision(i, w, g,
+                                                       self._states[i])
+
+    def _fused_optimizer_ok(self) -> bool:
+        """Optimizers the kernel implements group; ones that override
+        ``update`` / ``update_multi_precision``, or whose ``_step`` the
+        kernel lacks, take the per-parameter path."""
+        o = self._optimizer
+        cls = type(o)
+        return not (o._kernel_op() is None or
+                    cls.update is not opt.Optimizer.update or
+                    cls.update_multi_precision is not
+                    opt.Optimizer.update_multi_precision)
+
+    def _param_fusible(self, t) -> bool:
+        """Dense parameters join a group, master weights included (the
+        module docstring says why)."""
+        _, _, g = t
+        return getattr(g, "stype", "default") != "row_sparse"
+
+    def _fused_update(self, fusible, agg: int) -> None:
+        """Every group of the plan in one ``_update_groups`` call: the
+        counts, lrs and wds first, in the parameters' order, then one
+        kernel launch a group on CUDA tensors."""
+        o = self._optimizer
+        entries = [(i, w, g, self._states[i]) for i, w, g in fusible]
+        plan = group_plan([o._group_key(i, w, s) for i, w, _, s in entries],
+                          agg)
+        hypers = [o._next_hypers(i) for i, _, _, _ in entries]
+        states = o._update_groups(
+            [[entries[k] for k in grp] for grp in plan],
+            [[hypers[k] for k in grp] for grp in plan])
+        for grp, sts in zip(plan, states):
+            for k, st in zip(grp, sts):
+                self._states[entries[k][0]] = st
 
     def zero_grad(self) -> None:
         for p in self._params:

@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version:
 flash attention (``attention``), the prologue-fused 1x1 convolution
-(``conv_fused``) and BatchNorm's training forward and backward
-(``batch_norm``)."""
+(``conv_fused``), BatchNorm's training forward and backward
+(``batch_norm``) and the trainer's multi-tensor optimizer update
+(``multi_tensor``)."""

@@ -77,15 +77,58 @@ def dropout(data, p: float = 0.5, mode: str = "training", axes=None,
     return torch.where(keep, data / (1.0 - p), torch.zeros_like(data))
 
 
+# PyTorch's CUDA embedding backward takes a sort-based path above this many
+# indices, and that path reads a count back to the host: it cannot run
+# inside a CUDA graph. Below it, one deterministic pass on the device.
+_EMBED_BWD_CHUNK = 3072
+
+
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` on the card, with a backward that stays on the
+    device and sums each row in f32, deterministically, rounding to the
+    weight's dtype once. A table no larger than the gradient (chunks x
+    rows <= indices: BERT's token types, 2 rows) takes PyTorch's one-pass
+    kernel a chunk of _EMBED_BWD_CHUNK indices, a dense f32 table each; a
+    larger one (BERT's 30522 words) one f32 accumulator by
+    ``index_put_(accumulate=True)``, which sums a row's repeats serially,
+    so a small table of many repeats would be slow (``chip_smoke.py``
+    phase 5 times both routes)."""
+
+    @staticmethod
+    def forward(ctx, idx, weight):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = weight.shape[0], weight.dtype
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (idx,) = ctx.saved_tensors
+        n, c = idx.numel(), _EMBED_BWD_CHUNK
+        flat, g = idx.reshape(n), dout.reshape(n, -1).float()
+        total = torch.zeros((ctx.rows, g.shape[1]), dtype=torch.float32,
+                            device=g.device)
+        if -(-n // c) * ctx.rows <= n:
+            for k in range(0, n, c):
+                total.add_(torch.ops.aten.embedding_dense_backward(
+                    g[k:k + c], flat[k:k + c], ctx.rows, -1, False))
+        else:
+            total.index_put_((flat,), g, accumulate=True)
+        return None, total.to(ctx.dtype)
+
+
 def embedding(data, weight, input_dim: Optional[int] = None,
               output_dim: Optional[int] = None, dtype=None,
               sparse_grad: bool = False):
     """Table lookup: out[i...] = weight[data[i...]]. ``dtype`` is accepted
     and unused, as in the JAX package; ``sparse_grad=True`` (a row-sparse
-    weight gradient) is not ported."""
+    weight gradient) is not ported. On the card the weight's gradient is
+    summed without a device-to-host read (:class:`_Embedding`), so a
+    hybridized block's backward can be captured."""
     if sparse_grad:
         raise MXNetError("embedding(sparse_grad=True): row-sparse gradients "
                          "are not ported yet (ROADMAP Queue A 10)")
+    if weight.is_cuda and weight.requires_grad and torch.is_grad_enabled():
+        return _Embedding.apply(data.long(), weight)
     return F.embedding(data.long(), weight)
 
 

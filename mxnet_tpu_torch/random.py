@@ -10,6 +10,11 @@ streams and ``seed(n)`` alone makes them repeat.
 
 The streams are not the JAX package's: threefry and Philox give different
 bits from one seed, so tests feed both packages numpy-made inputs.
+
+A hybridized block's CUDA graphs register the generator of their device
+(``gluon/block.py``), so each replay draws the next numbers of its stream.
+``seed`` replaces the generators; it bumps :func:`epoch`, and a block whose
+graphs were captured under an older epoch drops them.
 """
 from __future__ import annotations
 
@@ -18,11 +23,12 @@ from typing import Dict, Union
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "epoch"]
 
 _LOCK = threading.Lock()
 _SEED = 0
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
+_EPOCH = [0]
 
 
 def _key(device: Union[str, torch.device]) -> torch.device:
@@ -39,6 +45,12 @@ def seed(seed_state: int) -> None:
     with _LOCK:
         _SEED = int(seed_state)
         _GENERATORS.clear()
+        _EPOCH[0] += 1
+
+
+def epoch() -> int:
+    """How many times :func:`seed` has replaced the generators."""
+    return _EPOCH[0]
 
 
 def generator(device: Union[str, torch.device] = "cpu") -> torch.Generator:

@@ -2,8 +2,11 @@
 
 Counterpart of ``mxnet_tpu/serving/model.py:ServedModel`` (``from_block``,
 ``predict``, ``warmup``, ``default_policy``, ``describe``) for a live
-block on an explicit device. Export artifacts (``from_export``) and the
-decode path (``DecodeModel``) are not ported yet.
+block on an explicit device. ``from_block`` hybridizes the block, as the
+JAX package does, so on the card each bucket's batch replays a CUDA graph
+(``gluon/block.py``), and ``warmup`` captures every bucket before the
+server takes traffic. Export artifacts (``from_export``) and the decode
+path (``DecodeModel``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,16 +51,30 @@ class ServedModel:
                    input_signature: Optional[Sequence[Tuple[
                        Tuple[int, ...], Any]]] = None,
                    device: Any = None) -> "ServedModel":
-        """Serve a live block on ``device`` (``cuda:0`` by default).
-        ``input_signature`` is per-input (shape_without_batch, dtype).
-        The block is moved to the device and put in predict mode; each
-        batch runs under ``torch.inference_mode`` on the worker thread
+        """Serve a live block on ``device`` (``cuda:0`` by default),
+        hybridized (a HybridBlock not hybridized yet is). ``input_signature``
+        is per-input (shape_without_batch, dtype); by default the block's
+        last hybridized call's, without its batch axis (run it once
+        first). The block is moved to the device and put in predict mode;
+        each batch runs under ``torch.inference_mode`` on the worker thread
         that executes it."""
+        if hasattr(block, "hybridize") and not getattr(block, "_active",
+                                                       False):
+            block.hybridize()
         if input_signature is None:
-            raise MXNetError(
-                "from_block needs the input signature: pass "
-                "input_signature=[(sample_shape, dtype), ...] (shapes "
-                "WITHOUT the batch dim)")
+            last = getattr(block, "_last_sig", None)
+            if last is None:
+                raise MXNetError(
+                    "from_block needs the input signature: run the block "
+                    "once, or pass input_signature=[(sample_shape, "
+                    "dtype), ...] (shapes WITHOUT the batch dim)")
+            input_signature = [(tuple(s[1:]), d) for s, d in last]
+        try:
+            sig = [(tuple(s), _np.dtype(d)) for s, d in input_signature]
+        except TypeError as e:
+            raise MXNetError(f"from_block: an input dtype has no numpy "
+                             f"counterpart ({e}); requests are numpy "
+                             "arrays") from e
         dev = as_device(device)
         block.to(dev)
         block.eval()
@@ -69,7 +86,6 @@ class ServedModel:
                 out = block(*xs)
             return [_to_numpy(o) for o in _flatten(out)]
 
-        sig = [(tuple(s), _np.dtype(d)) for s, d in input_signature]
         return ServedModel(fn, sig, type(block).__name__)
 
     def predict(self, arrays: Sequence[_np.ndarray]) -> List[_np.ndarray]:
@@ -78,11 +94,15 @@ class ServedModel:
         return self._fn(arrays)
 
     def warmup(self, policy: BucketPolicy) -> int:
-        """Run every bucket signature the policy can emit once (zeros
-        input); returns how many signatures were warmed."""
+        """Run every bucket signature the policy can emit (zeros input)
+        twice: a hybridized block's first call of a signature is its
+        warm-up and the second captures its graph, as it does for each
+        hybridized child of a plain block (an eager block just runs
+        again); returns how many signatures were warmed."""
         sigs = policy.warmup_signatures(self.input_signature)
         for sig in sigs:
-            self.predict([_np.zeros(s, d) for s, d in sig])
+            for _ in range(2):
+                self.predict([_np.zeros(s, d) for s, d in sig])
         return len(sigs)
 
     def default_policy(self, **kw: Any) -> BucketPolicy:

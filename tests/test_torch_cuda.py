@@ -43,6 +43,22 @@ bf16; x.grad through the vjp against torch autograd of the plain forward
 launches on two streams, more than 48 KB of dynamic shared memory, and
 the errors: a CPU NDArray, a non-contiguous or wrongly typed argument, and
 a source that does not compile.
+
+The multi-tensor update (``csrc/multi_tensor.cu``): SGD with and without
+momentum, Adam and AdamW over f32 weights, 16-bit weights with f32 masters
+and 16-bit weights alone, with clip_gradient and lr / wd multipliers, in
+groups of 1, 4 and all: every weight, master and state equal to the plain
+version's bits after three steps; one launch a group from ``Trainer.step``.
+
+``hybridize()`` as CUDA graphs, on a small BERT (2 layers, units 128, head
+dim 64, bf16, dropout 0.1) and a small ResNet: a replayed call's outputs
+equal an eager call's bits from the same generator state, and leave the
+generator where the eager call does; two replays draw different dropout;
+the graphed backward's gradients within a relative Frobenius error of 2e-2
+of the eager ones (bf16); ``grad_req='add'`` accumulates; BatchNorm's
+running statistics after a replay equal the eager ones; the profiler sees
+a replay's kernels; a served model's captured buckets answer as eager; a
+capture that cannot be captured raises.
 """
 import math
 
@@ -56,6 +72,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops.cuda import attention as attn
 from mxnet_tpu_torch.ops.cuda import batch_norm as bn
 from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
 
 pytestmark = pytest.mark.cuda
 
@@ -1049,3 +1066,371 @@ def test_rtc_errors(dev, rtc_k):
     with pytest.raises(MXNetError, match="error"):
         rtc.CudaModule("extern \"C\" __global__ void k(float* x) "
                        "{ x[0] = undefined_name; }")
+
+
+# ---------------------------------------------------- the multi-tensor update
+UPDATE_OPTS = {
+    "sgd": ("sgd", {"learning_rate": 0.1, "wd": 1e-4}),
+    "sgd_momentum": ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4}),
+    "adam": ("adam", {"learning_rate": 1e-3, "wd": 1e-4}),
+    "adamw": ("adamw", {"learning_rate": 1e-3, "wd": 0.01}),
+}
+UPDATE_LAYOUTS = {"f32": (torch.float32, False),
+                  "bf16_master": (torch.bfloat16, True),
+                  "fp16_master": (torch.float16, True),
+                  "bf16": (torch.bfloat16, False),
+                  "fp16": (torch.float16, False)}
+
+
+@pytest.mark.parametrize("layout", list(UPDATE_LAYOUTS))
+@pytest.mark.parametrize("opt", list(UPDATE_OPTS))
+@pytest.mark.parametrize("clip", [None, 0.2])
+def test_update_kernel_equals_plain_bits(dev, opt, layout, clip):
+    name, kw = UPDATE_OPTS[opt]
+    dtype, master = UPDATE_LAYOUTS[layout]
+    case = dict(name=f"{opt} {layout} clip {clip}", opt=name,
+                kw=dict(kw, clip_gradient=clip), dtype=dtype, master=master,
+                agg=4, mults=clip is not None)
+    cs.update_check(torch, dev, case, cs.update_shapes("small"))
+
+
+@pytest.mark.parametrize("agg", [1, 4, 0])
+@pytest.mark.parametrize("opt", ["sgd_momentum", "adamw"])
+def test_update_kernel_group_sizes(dev, opt, agg):
+    name, kw = UPDATE_OPTS[opt]
+    case = dict(name=f"{opt} groups of {agg}", opt=name, kw=kw,
+                dtype=torch.bfloat16, master=True, agg=agg, mults=True)
+    shapes = cs.update_shapes("small") * 3
+    cs.update_check(torch, dev, case, shapes)
+
+
+def test_trainer_step_launches_one_update_a_group(dev, monkeypatch):
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    net = nn.HybridSequential()
+    for _ in range(5):
+        net.add(nn.Dense(16, in_units=16))
+    net.initialize(device=dev)
+    net.cast("bfloat16")
+    params = net.collect_params()
+    for agg, want in ((4, 3), (1, 10), (64, 1)):
+        monkeypatch.setenv("MXNET_OPTIMIZER_AGGREGATION_SIZE", str(agg))
+        tr = Trainer(params, "adamw", {"multi_precision": True})
+        assert tr.optimizer.aggregate_num == agg
+        x = torch.randn(4, 16, device=dev, dtype=torch.bfloat16)
+        with tmx.autograd.record():
+            y = net(x)
+        tmx.autograd.backward(y)
+        before = mt.launches["multi_tensor_update"]
+        tr.step(4)
+        assert mt.launches["multi_tensor_update"] - before == want
+
+
+def test_update_kernel_rejects_what_it_does_not_take(dev):
+    from mxnet_tpu_torch import optimizer as mo
+    opt = mo.create("sgd", learning_rate=0.1, momentum=0.9)
+    w = torch.zeros(8, device=dev, dtype=torch.float64)
+    with pytest.raises(MXNetError, match="not covered"):
+        opt.update(0, w, torch.ones_like(w), opt.create_state(0, w))
+    w = torch.zeros(8, 2, device=dev)
+    g = torch.ones(2, 8, device=dev).t()
+    with pytest.raises(MXNetError, match="contiguous"):
+        opt.update(0, w, g, opt.create_state(0, w))
+    with pytest.raises(MXNetError, match="one CUDA device"):
+        opt.update(0, w, torch.ones(8, 2), opt.create_state(0, w))
+
+
+# ------------------------------------------------------ hybridize as graphs
+BERT_SMALL = dict(vocab_size=1000, num_layers=2, units=128, hidden_size=256,
+                  num_heads=2, max_length=128, use_pooler=False,
+                  use_classifier=False)
+
+
+def _small_bert(dev, dropout=0.1):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert
+    params = cs.random_bert_params(
+        get_bert("bert_12_768_12", device="cpu", dropout=dropout,
+                 **BERT_SMALL), seed=0)
+    return load_jax_params(get_bert("bert_12_768_12", device=dev,
+                                    dropout=dropout, **BERT_SMALL),
+                           params, dtype="bfloat16")
+
+
+def _mlm(dev, seed=1):
+    return [x.to(dev) for x in cs.mlm_batch(torch, 4, 128, 8, seed,
+                                            vocab=1000, lo=32)]
+
+
+def _bits(a, b):
+    return all(cs.bits_equal(x, y) for x, y in zip(a, b))
+
+
+def _warm(net, batch, record=True):
+    """The signature's warm-up (eager) and capture calls. The warm-up's
+    outputs stay alive through the capture, as a training loop's last
+    loss does: their graph holds the parameters' AccumulateGrad nodes,
+    made on the default stream."""
+    keep = []
+    for _ in range(2):
+        if record:
+            with tmx.autograd.record():
+                keep.append(net(*batch[:4]))
+        else:
+            keep.append(net(*batch[:4]))
+    return keep
+
+
+def test_hybridized_forward_equals_eager_bits(dev):
+    from mxnet_tpu_torch.gluon.block import Block
+    net, batch = _small_bert(dev), _mlm(dev)
+    net.hybridize()
+    _warm(net, batch)
+    gen = tmx.random.generator(dev)
+    start = gen.get_state()
+    with tmx.autograd.record():
+        graphed = [o.detach() for o in net(*batch[:4])]
+    after = gen.get_state()
+    gen.set_state(start)
+    with tmx.autograd.record():
+        eager = [o.detach() for o in Block.__call__(net, *batch[:4])]
+    assert torch.equal(gen.get_state(), after)
+    assert _bits(graphed, eager)
+    with tmx.autograd.record():
+        again = [o.detach() for o in net(*batch[:4])]
+    assert not torch.equal(again[-1], graphed[-1])  # new dropout bits
+
+
+@pytest.mark.parametrize("route", ["fused", "pair"])
+def test_graphed_backward_matches_eager(dev, route, monkeypatch):
+    from mxnet_tpu_torch.gluon.block import Block
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    if route == "pair":
+        monkeypatch.setenv("MXNET_FLASH_BLOCK_K", "64")
+    net, batch = _small_bert(dev), _mlm(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    net.hybridize()
+    _warm(net, batch)
+    gen = tmx.random.generator(dev)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    grads = []
+    for call in (net, lambda *a: Block.__call__(net, *a)):
+        gen.manual_seed(5)
+        with tmx.autograd.record():
+            loss = loss_fn(call(*batch[:4])[-1], batch[4])
+        tmx.autograd.backward(loss)
+        grads.append([p.grad().detach().clone() for p in params])
+    for g, e in zip(*grads):
+        assert _rel(g, e) <= 2e-2
+
+
+def test_graphed_grad_req_add_accumulates(dev):
+    from mxnet_tpu_torch.gluon.block import Block
+    net, batch = _small_bert(dev, dropout=0.0), _mlm(dev)
+    net.hybridize()
+    _warm(net, batch)
+    some = list(net.collect_params().values())[:6]
+    for p in some:
+        p.grad_req = "add"
+    got = []
+    for call in (net, lambda *a: Block.__call__(net, *a)):
+        for p in some:
+            p.zero_grad()
+        for _ in range(2):
+            with tmx.autograd.record():
+                out = call(*batch[:4])[-1]
+            tmx.autograd.backward(out.float().sum())
+        got.append([p.grad().detach().clone() for p in some])
+    for g, e in zip(*got):
+        assert _rel(g, e) <= 2e-2
+        assert g.abs().sum() > 0
+
+
+def test_unfreezing_after_capture_gives_the_gradients(dev):
+    """Parameters frozen (grad_req 'null') when the graphs were captured,
+    then unfrozen: the graphs are dropped and captured again, and a
+    replay's backward gives them the eager call's gradients."""
+    from mxnet_tpu_torch.gluon.block import Block
+    net, batch = _small_bert(dev, dropout=0.0), _mlm(dev)
+    some = [p for p in net.collect_params().values()
+            if p.grad_req != "null"][:4]
+    for p in some:
+        p.grad_req = "null"
+    net.hybridize()
+    _warm(net, batch)
+    for p in some:
+        p.grad_req = "write"
+    got = []
+    # graphed: the warm-up again, the capture, a replay; then eager
+    for call, n in ((net, 3), (lambda *a: Block.__call__(net, *a), 1)):
+        for _ in range(n):
+            for p in some:
+                p.data().grad = None
+            with tmx.autograd.record():
+                out = call(*batch[:4])[-1]
+            tmx.autograd.backward(out.float().sum())
+        got.append([p.data().grad.clone() for p in some])
+    for g, e in zip(*got):
+        assert g.abs().sum() > 0
+        assert _rel(g, e) <= 2e-2
+
+
+def test_graphed_batchnorm_statistics_equal_eager(dev):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.block import Block
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    params = cs.random_resnet_params(get_model("resnet18_v1", device="cpu",
+                                               classes=10), seed=0)
+    net = load_jax_params(get_model("resnet18_v1", device=dev, classes=10),
+                          params, dtype="bfloat16")
+    x = torch.randn(4, 3, 64, 64, device=dev, dtype=torch.bfloat16)
+    net.hybridize()
+    for _ in range(3):       # the centered step, the warm-up, the capture
+        with tmx.autograd.record():
+            net(x)
+    stats = [p.data() for k, p in net.collect_params().items()
+             if k.endswith(("running_mean", "running_var", "stat_shift"))]
+    start = [t.clone() for t in stats]
+    with tmx.autograd.record():
+        graphed = net(x).detach()
+    after = [t.clone() for t in stats]
+    for t, s in zip(stats, start):
+        t.copy_(s)
+    with tmx.autograd.record():
+        eager = Block.__call__(net, x).detach()
+    assert cs.bits_equal(graphed, eager)
+    assert _bits(after, stats)
+    assert not _bits(after, start)
+
+
+def test_profiler_counts_replayed_kernels(dev):
+    from torch.profiler import ProfilerActivity, profile
+    net, batch = _small_bert(dev), _mlm(dev)
+    net.hybridize()
+    _warm(net, batch, record=False)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net(*batch[:4])
+        torch.cuda.synchronize()
+    counts = cs.kernel_counts(prof)
+    assert sum(c for k, c in counts.items()
+               if cs.re.search(cs.FWD_KERNEL, k)) == 2
+
+
+def test_capture_failure_raises(dev):
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Reads(HybridBlock):
+        def forward(self, x):
+            return x * float(x.sum().item())
+
+    net = Reads()
+    net.hybridize()
+    x = torch.ones(4, device=dev)
+    net(x)                                   # the warm-up runs eagerly
+    with pytest.raises(MXNetError, match="capturing Reads's forward"):
+        net(x)
+
+
+def test_served_buckets_answer_as_eager(dev):
+    import numpy as onp
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.serving import BucketPolicy, ServedModel
+
+    class Encode(HybridBlock):
+        def __init__(self, bert):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, tokens, valid_length):
+            return self.bert(tokens, None, valid_length)
+
+    net = Encode(_small_bert(dev))
+    tok = torch.zeros(1, 128, dtype=torch.int32, device=dev)
+    net.hybridize()
+    net(tok, torch.full((1,), 128, dtype=torch.int32, device=dev))
+    model = ServedModel.from_block(net, device=dev)
+    assert model.input_signature == [((128,), onp.dtype("int32")),
+                                     ((), onp.dtype("int32"))]
+    policy = BucketPolicy(batch_buckets=(1, 2))
+    assert model.warmup(policy) == 2
+    rng = onp.random.RandomState(0)
+    arrays = [rng.randint(0, 1000, (2, 128)).astype("int32"),
+              onp.array([100, 17], "int32")]
+    graphed = model.predict(arrays)
+    net.hybridize(False)
+    eager = model.predict(arrays)
+    assert all(onp.array_equal(a, b) for a, b in zip(graphed, eager))
+
+
+def test_warmup_captures_the_children_of_a_plain_block(dev):
+    """from_block hybridizes a plain Block's HybridBlock children; warmup
+    leaves each bucket captured, so no graph is captured under traffic."""
+    from mxnet_tpu_torch.gluon import Block as GluonBlock
+    from mxnet_tpu_torch.gluon.block import _Graph
+    from mxnet_tpu_torch.serving import BucketPolicy, ServedModel
+
+    class Encode(GluonBlock):
+        def __init__(self, bert):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, tokens, valid_length):
+            return self.bert(tokens, None, valid_length)
+
+    bert = _small_bert(dev)
+    model = ServedModel.from_block(Encode(bert), [((128,), "int32"),
+                                                  ((), "int32")], device=dev)
+    assert bert._active
+    assert model.warmup(BucketPolicy(batch_buckets=(1, 2))) == 2
+    assert len(bert._cached_graph) == 2
+    assert all(isinstance(g, _Graph) for g in bert._cached_graph.values())
+
+
+def test_replays_from_many_threads_answer_as_one(dev):
+    """Eight threads predicting at once through one served block's captured
+    buckets (its copy-in, replay and copy-out under one lock) get the
+    answers each batch gets alone."""
+    import sys
+    import threading
+    import numpy as onp
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.serving import BucketPolicy, ServedModel
+
+    class Encode(HybridBlock):
+        def __init__(self, bert):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, tokens, valid_length):
+            return self.bert(tokens, None, valid_length)
+
+    net = Encode(_small_bert(dev))
+    model = ServedModel.from_block(net, [((128,), "int32"), ((), "int32")],
+                                   device=dev)
+    model.warmup(BucketPolicy(batch_buckets=(1, 2)))
+    rng = onp.random.RandomState(3)
+    batches = [[rng.randint(0, 1000, (b, 128)).astype("int32"),
+                rng.randint(1, 129, (b,)).astype("int32")]
+               for b in (1, 2) * 16]
+    want = [model.predict(x) for x in batches]
+    got = [None] * len(batches)
+
+    def worker(k):
+        for i in range(k, len(batches), 8):
+            got[i] = model.predict(batches[i])
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    for a, b in zip(got, want):
+        assert all(onp.array_equal(x, y) for x, y in zip(a, b))
