@@ -6,7 +6,9 @@ explicit ``device`` and default to ``cuda:0``; without CUDA they raise
 
 ``nd`` / ``np`` are the imperative NDArray namespaces, ``npx`` the
 operators, ``autograd`` records on torch's autograd, ``random`` draws from
-the framework generators and ``rtc`` compiles user CUDA kernels with NVRTC.
+the framework generators, ``rtc`` compiles user CUDA kernels with NVRTC,
+and ``metrics``, ``tracing`` and ``faults`` are the runtime's counters,
+spans and fault sites.
 ``gluon``, ``optimizer``, ``init`` / ``initializer``, ``lr_scheduler`` and
 ``serving`` load on first use, as the JAX package's ``_LAZY`` table does
 (``mxnet_tpu/__init__.py``); a name of that table whose module the port
@@ -15,6 +17,9 @@ lacks raises :class:`MXNetError` naming its ROADMAP Queue A item.
 from .base import MXNetError, getenv, register_env, unported
 from .context import (Context, as_device, cpu, cpu_pinned, current_context,
                       gpu, num_gpus, num_tpus, tpu)
+from . import metrics
+from . import tracing
+from . import faults
 from . import autograd
 from . import ndarray
 from . import ndarray as nd

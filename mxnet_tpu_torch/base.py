@@ -49,7 +49,6 @@ def getenv(name: str, default: Any = None, typ: Optional[type] = None) -> Any:
 # the ROADMAP Queue A item that ports them. Reading one raises MXNetError
 # naming the item; any other missing name is an AttributeError.
 QUEUE_A = {
-    4: "the serving front and its hooks",
     6: "Gluon layers, losses, initializers and the npx operators",
     7: "the rest of the imperative surface",
     8: "the vision remainder, AMP and deferred initialization",
@@ -63,7 +62,6 @@ QUEUE_A = {
 }
 _UNPORTED = {
     "mxnet_tpu_torch": {
-        4: "metrics faults tracing",
         7: "operator",
         8: "amp",
         11: "io image recordio",

@@ -16,15 +16,18 @@ framework flag of ``autograd.record()`` / ``autograd.train_mode()``, as
 in the JAX package, not torch's per-module ``training`` attribute.
 ``HybridBlock.hybridize()`` turns its later calls on CUDA tensors into
 CUDA graphs, one per input signature (the JAX package's ``_call_cached``;
-:class:`HybridBlock` says how). ``save_parameters`` / ``load_parameters``
-read and write the JAX package's ``.params`` files (``ndarray_io.py``).
+:class:`HybridBlock` says how). ``HybridBlock.export`` writes a
+``torch.export`` program and its parameters for
+``serving.ServedModel.from_export``. ``save_parameters`` /
+``load_parameters`` read and write the JAX package's ``.params`` files
+(``ndarray_io.py``).
 """
 from __future__ import annotations
 
 import re
 import threading
 from collections import OrderedDict
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -34,7 +37,8 @@ from .. import random as _random
 from ..base import MXNetError, getenv
 from ..random import epoch as _random_epoch
 from ..context import as_device
-from .parameter import Parameter, resolve_device, to_torch_dtype
+from .parameter import (Parameter, dedupe_shared, resolve_device,
+                        to_torch_dtype)
 
 __all__ = ["Block", "HybridBlock", "ParameterDict", "remat_stack",
            "PreActivation"]
@@ -280,8 +284,8 @@ class Block(torch.nn.Module):
 # The settings read while a forward runs that change what it launches: part
 # of a graph's key, as the JAX package keys on ``_remat_enabled()``.
 _PROGRAM_ENV = ("MXNET_FUSE_BN_CONV", "MXNET_FLASH_BLOCK_K", "MXNET_BN_STATS")
-# One capture or replay at a time in the process; a capture under way on
-# this thread runs hybridized children inline.
+# One capture or replay at a time in the process; a capture (or an export
+# trace) under way on this thread runs hybridized blocks inline.
 _GRAPH_LOCK = threading.RLock()
 _CAPTURE = threading.local()
 
@@ -637,3 +641,133 @@ class HybridBlock(Block):
         grads = iter(grads)
         g.grads = [next(grads) if t.requires_grad else None
                    for t in g.static_in] + [next(grads) for _ in leaves]
+
+    # -- export / deploy -----------------------------------------------------
+    def export(self, path: str, epoch: int = 0,
+               input_signature: Optional[Sequence[tuple]] = None,
+               dynamic_batch: bool = False) -> Tuple[str, str]:
+        """Write ``path-symbol.json`` and ``path-NNNN.params`` for
+        :meth:`ServedModel.from_export`; returns their paths. The JAX
+        package's ``HybridBlock.export`` (``block.py:521-592``) with a
+        ``torch.export`` program in place of StableHLO: the two packages
+        cannot load each other's exports.
+
+        The program is the block's plain forward, traced in predict mode
+        with gradients off, never through its CUDA graphs, on the device
+        its parameters lie on. Its arguments are the parameters, then the
+        inputs: the parameters are not constants in it, so the program is
+        the same for any weights (``torch.func.functional_call`` swaps
+        ``nn.Module``'s registry, which the layers do not read; the trace
+        rebinds each Parameter's tensor, as a graph capture does). A tied
+        parameter is traced once, under its first name; the ``.params``
+        file (``ndarray_io.save_params``) carries every name.
+
+        ``input_signature``: per input (shape with the batch axis, dtype);
+        by default the last hybridized call's. ``dynamic_batch=True``
+        makes the batch axis of every input one ``torch.export.Dim``, so
+        one program serves every batch bucket; the trace then takes a
+        batch of at least 2 (sizes 0 and 1 would be specialised). A
+        forward that writes a parameter (training-mode statistics) raises.
+        The symbol json holds ``framework``, ``format_version``, the
+        inputs, ``dynamic_batch``, ``param_order``, the program (base64 of
+        ``torch.export.save``) and the digests ``program_sha256`` and
+        ``params_sha256``."""
+        import base64
+        import io
+        import json
+
+        import numpy as np
+        from .._durable import sha256_bytes, sha256_file
+        from ..ndarray_io import save_params
+        from ..serving.model import EXPORT_FRAMEWORK
+
+        if input_signature is None:
+            input_signature = self._last_sig
+        if input_signature is None:
+            raise MXNetError(
+                "export() needs the input signature: run the block once "
+                "(after hybridize()) or pass input_signature=[(shape, "
+                "dtype), ...]")
+        named = [(k, p) for k, p in self.collect_params().items()
+                 if p.is_initialized]
+        names, plist = dedupe_shared(named)
+        dev = plist[0].data().device if plist else torch.device("cpu")
+        sig = [(tuple(int(d) for d in s), dt) for s, dt in input_signature]
+        batch = max(2, sig[0][0][0]) if dynamic_batch else sig[0][0][0]
+        xs = tuple(torch.zeros((batch,) + s[1:], dtype=to_torch_dtype(dt),
+                               device=dev) for s, dt in sig)
+        params = [p.data().detach() for p in plist]
+        dims = None
+        if dynamic_batch:
+            b = torch.export.Dim("batch")
+            # (params, the varargs' tuple of inputs)
+            dims = ([None] * len(params), tuple({0: b} for _ in xs))
+        program = _ExportProgram(self, plist)
+        try:
+            _CAPTURE.active = True
+            with torch.no_grad(), _autograd.predict_mode():
+                ep = torch.export.export(program, (params,) + xs,
+                                         dynamic_shapes=dims, strict=False)
+        finally:
+            _CAPTURE.active = False
+        # the saved program keeps torch's training IR (views and in-place
+        # ops as eager runs them); its functional form names the inputs an
+        # in-place op writes
+        if ep.run_decompositions({}).graph_signature.user_inputs_to_mutate:
+            raise MXNetError(
+                "export traced a forward that mutates parameter state "
+                "(training-mode BatchNorm?); export runs in inference "
+                "mode — check autograd/use_global_stats configuration")
+        # the example inputs are the weights: the program is saved without
+        ep.example_inputs = None
+        buf = io.BytesIO()
+        torch.export.save(ep, buf)
+        blob = buf.getvalue()
+        meta = {
+            "framework": EXPORT_FRAMEWORK,
+            "format_version": 1,
+            "block": type(self).__name__,
+            "dynamic_batch": bool(dynamic_batch),
+            "inputs": [{"shape": list(s), "dtype": str(np.dtype(
+                _np_dtype(dt) if isinstance(dt, torch.dtype) else dt))}
+                for s, dt in sig],
+            "params": {k: {"shape": list(p.shape), "dtype": str(p.dtype)}
+                       for k, p in zip(names, plist)},
+            "param_order": names,
+            "program": base64.b64encode(blob).decode("ascii"),
+            "program_sha256": sha256_bytes(blob),
+        }
+        # the file carries every name, aliases included, as the JAX
+        # package's does; only the trace deduplicated
+        param_file = f"{path}-{epoch:04d}.params"
+        save_params(param_file, {k: p.data().detach() for k, p in named})
+        meta["params_sha256"] = sha256_file(param_file)
+        sym_file = f"{path}-symbol.json"
+        with open(sym_file, "w") as f:
+            json.dump(meta, f, indent=2)
+        return sym_file, param_file
+
+
+class _ExportProgram(torch.nn.Module):
+    """What ``HybridBlock.export`` traces: ``forward(params, *inputs)``
+    runs the block with each Parameter's tensor rebound to the argument
+    in its place. The block is held outside ``nn.Module``'s registry, so
+    its tensors do not become the program's state."""
+
+    def __init__(self, block: "HybridBlock", params) -> None:
+        super().__init__()
+        object.__setattr__(self, "_block", block)
+        object.__setattr__(self, "_params", list(params))
+
+    def forward(self, params, *xs):
+        saved = [p._var for p in self._params]
+        try:
+            for p, t in zip(self._params, params):
+                p._var = t
+            out = Block.__call__(self._block, *xs)
+        finally:
+            for p, var in zip(self._params, saved):
+                p._var = var
+        if isinstance(out, PreActivation):
+            out = out.materialize()
+        return out

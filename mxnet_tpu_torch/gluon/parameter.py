@@ -39,7 +39,8 @@ import torch
 from ..base import MXNetError
 from ..context import Context, as_device
 
-__all__ = ["Parameter", "to_torch_dtype", "context_of", "data_or_none"]
+__all__ = ["Parameter", "to_torch_dtype", "context_of", "data_or_none",
+           "dedupe_shared"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -255,3 +256,16 @@ def resolve_device(ctx: Any = None, device: Any = None) -> torch.device:
     if isinstance(where, (list, tuple)):
         where = where[0] if where else None
     return as_device(where)
+
+
+def dedupe_shared(named_params):
+    """Keep each Parameter once, under its first name (a tied parameter,
+    such as BERT's MLM decoder weight, is optimised and exported once);
+    the JAX package's ``dedupe_shared``. Returns (names, params)."""
+    names, params, seen = [], [], set()
+    for name, p in named_params:
+        if id(p) not in seen:
+            seen.add(id(p))
+            names.append(name)
+            params.append(p)
+    return names, params

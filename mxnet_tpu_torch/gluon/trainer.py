@@ -4,10 +4,13 @@ Counterpart of the single-device part of ``mxnet_tpu/gluon/trainer.py``:
 ``step`` (``rescale_grad = 1 / batch_size``, reduce, update), ``update``,
 ``allreduce_grads`` (nothing to reduce on one device), the stale-gradient
 error, ``zero_grad``, ``save_states``/``load_states``, and tied parameters
-optimised once. Multi-device and distributed kvstores, gradient
-compression, gradient streaming, fault sites and tracing spans are not
-ported yet: a kvstore other than a local one, or ``compression_params``
-that ask for compression, raise.
+optimised once, and the JAX package's hooks (``trainer.py:570-603``): the
+``trainer.step`` span, ``mxnet_trainer_step_seconds`` and the
+``trainer.step`` fault site, whose ``kind=nan`` poisons the first fresh
+gradient in place before the update. Multi-device and distributed
+kvstores, gradient compression and gradient streaming are not ported yet:
+a kvstore other than a local one, or ``compression_params`` that ask for
+compression, raise.
 
 The update is the JAX package's ``_update_entries_impl`` (``trainer.py:
 738-883``): an optimizer that keeps ``Optimizer.update`` and
@@ -50,14 +53,18 @@ from __future__ import annotations
 import importlib
 import io
 import pickle
+import time
 from typing import Any, Dict, Optional, Union
 
 import numpy as _np
 import torch
 
+from .. import faults as _faults
+from .. import metrics as _metrics
 from .. import optimizer as opt
+from .. import tracing as _tracing
 from ..base import MXNetError
-from .parameter import Parameter
+from .parameter import Parameter, dedupe_shared
 
 __all__ = ["Trainer", "group_plan"]
 
@@ -72,18 +79,6 @@ _NUMPY_NAMES = {("numpy", "ndarray"), ("numpy", "dtype")} | {
 _BUILTIN_NAMES = {("builtins", n) for n in (
     "tuple", "list", "dict", "set", "frozenset", "int", "float", "bool",
     "complex", "bytes", "bytearray", "str")}
-
-
-def _dedupe(named):
-    """Keep each parameter once, under its first name (a tied parameter,
-    such as BERT's MLM decoder weight, is optimised exactly once)."""
-    names, params, seen = [], [], set()
-    for name, p in named:
-        if id(p) not in seen:
-            seen.add(id(p))
-            names.append(name)
-            params.append(p)
-    return names, params
 
 
 def group_plan(keys, agg: int):
@@ -187,7 +182,7 @@ class Trainer:
                 f"Trainer: kvstore {kvstore!r} (update_on_kvstore="
                 f"{update_on_kvstore}) is not ported yet; the port trains "
                 "on one device (kvstore='device')")
-        self._param_names, self._params = _dedupe(named)
+        self._param_names, self._params = dedupe_shared(named)
         optimizer_params = optimizer_params or {}
         if isinstance(optimizer, opt.Optimizer):
             if optimizer_params:
@@ -216,9 +211,34 @@ class Trainer:
 
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Rescale gradients by 1/batch_size and apply one update."""
-        self._optimizer.rescale_grad = 1.0 / batch_size
-        self.allreduce_grads()
-        self._update(ignore_stale_grad)
+        if _faults._ARMED:
+            self._fault_site()
+        t0 = time.perf_counter()
+        try:
+            with _tracing.span("trainer.step", batch_size=batch_size):
+                self._optimizer.rescale_grad = 1.0 / batch_size
+                self.allreduce_grads()
+                self._update(ignore_stale_grad)
+        finally:
+            _metrics.TRAINER_STEP_SECONDS.observe(time.perf_counter() - t0)
+
+    def _fault_site(self) -> None:
+        """The ``trainer.step`` fault site: ``kind=nan`` writes NaN into
+        the first element of the first fresh gradient, in the
+        parameter's gradient itself, before the update."""
+        target = None
+        for p in self._params:
+            if p.grad_req != "null" and p.is_initialized \
+                    and p.data().grad is not None and p._fresh_grad:
+                target = p.data().grad
+                break
+        if target is None:
+            _faults.maybe_fault("trainer.step")
+            return
+        out = _faults.maybe_corrupt("trainer.step", [target])
+        if out[0] is not target:
+            with torch.no_grad():
+                target.copy_(out[0])
 
     def update(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Apply the optimizer without gradient reduction."""

@@ -16,9 +16,13 @@ Each output that shares memory with an input (a view: basic slicing,
 two NDArrays share a buffer (``ndarray.py``, value semantics). Each output
 is canonicalized to the JAX package's 32-bit types.
 
+Each call counts into ``mxnet_ops_dispatched_total{op=...}``
+(:func:`~mxnet_tpu_torch.metrics.inc_op`) and passes the ``dispatch.op``
+fault site, as in the JAX package (``register.py:406-408,447-449``).
+
 Not here, as in eager torch they have no meaning or belong to a later
 slice: the XLA executable cache and eager-op bulking, mesh harmonization,
-the AMP cast, profiler timers and the metrics, fault and monitor hooks.
+the AMP cast, profiler timers and the monitor hooks.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 
+from .. import faults as _faults
+from .. import metrics as _metrics
 from ..autograd import is_recording
 from .ndarray import NDArray, canonical_dtype
 
@@ -77,6 +83,9 @@ def invoke(name: str, impl: Callable, inputs: Sequence[NDArray],
            ctx=None) -> Any:
     """Run ``impl`` over the tensors of ``inputs``; returns one NDArray or
     a tuple of them, as ``impl`` returns one tensor or a tuple."""
+    _metrics.inc_op(name)
+    if _faults._ARMED:
+        _faults.maybe_fault("dispatch.op", op=name)
     tensors = [x._data for x in inputs]
     record = is_recording() and any(x._on_tape for x in inputs)
     with torch.set_grad_enabled(record):
@@ -113,6 +122,9 @@ def invoke_with_custom_vjp(name: str, impl: Callable,
     """Like :func:`invoke` with a hand-written pullback:
     ``vjp_fn(out_cot) -> per-input cotangents`` (tensors; None entries
     give no gradient). Single-output ops only."""
+    _metrics.inc_op(name)
+    if _faults._ARMED:
+        _faults.maybe_fault("dispatch.op", op=name)
     tensors = [x._data for x in inputs]
     if is_recording() and any(x._on_tape for x in inputs):
         with torch.enable_grad():

@@ -16,6 +16,17 @@ Routing: a tensor on the CPU takes the plain versions
 (:func:`flash_attention_reference`, :func:`flash_attention_backward_reference`);
 a CUDA tensor launches the kernels or raises :class:`MXNetError`. Nothing
 falls back. Each launch adds one to its kernel's entry in :data:`launches`.
+
+The forward is the registered op ``mxnet_tpu_torch::flash_attention_fwd``
+(``torch.library.custom_op``), so that ``torch.export`` traces it as one
+node of an exported program (``HybridBlock.export``): its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and its fake implementation gives the outputs' shapes and
+strides. Both implementations return ``out`` as a (B, H, Tq, D) view of a
+(B, Tq, H, D) buffer whose rows are padded to a multiple of 8 elements
+(:func:`_bthd_empty`) and ``lse`` as (B, H, Tq, 1) f32, the fake's
+layout. The operand checks run inside the CUDA implementation, so a trace
+does not specialise on them.
 The forward and the backward kernels take head dims up to 256
 (:data:`MAX_HEAD_DIM`); on the card a larger head dim raises before any
 kernel runs, and on the CPU the plain versions take any head dim, as the
@@ -465,19 +476,52 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
             dest.copy_(t)
 
 
-def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
-                   rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q/k/v: (B, H, T, D). Returns (out (B, H, Tq, D), lse (B, H, Tq, 1)).
-    On the card ``out`` is a view of a (B, Tq, H, D) buffer, the layout the
-    model merges heads from without a copy."""
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, bias, scale, causal, seed,
-                                         rate)
+_FWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? seed, "
+               "float scale, bool causal, float rate) -> (Tensor, Tensor)")
+
+
+def _fwd_outputs(q):
+    """Empty (out, lse) of the forward over (B, H, T, D) ``q``: out a
+    (B, H, Tq, D) view of a (B, Tq, H, D) buffer, the layout the model
+    merges heads from without a copy; lse (B, H, Tq, 1) f32."""
     B, H, Tq, D = q.shape
-    out = _bthd_empty(B, H, Tq, D, q.dtype, q.device)
-    lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
+    return (_bthd_empty(B, H, Tq, D, q.dtype, q.device),
+            torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device))
+
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu",
+                         schema=_FWD_SCHEMA)
+def flash_attention_fwd(q, k, v, bias, seed, scale, causal, rate):
+    """The forward over (B, H, T, D) q/k/v: ``(out, lse)``. On the CPU the
+    plain version (:func:`flash_attention_reference`), written into the
+    kernel's output layout."""
+    ref, lse = flash_attention_reference(q, k, v, bias, scale, causal, seed,
+                                         rate)
+    out, _ = _fwd_outputs(q)
+    return out.copy_(ref), lse
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, bias, seed, scale, causal, rate):
+    """The forward kernel's launch (operands checked in it)."""
+    out, lse = _fwd_outputs(q)
     _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale, causal)
     return out, lse
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, bias, seed, scale, causal, rate):
+    return _fwd_outputs(q)
+
+
+def _flash_forward(q, k, v, bias, scale: float, causal: bool, seed=None,
+                   rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k/v: (B, H, T, D). Returns (out (B, H, Tq, D), lse (B, H, Tq, 1))
+    from the registered op: the kernel on the card, the plain version on
+    the CPU."""
+    return flash_attention_fwd(q, k, v, bias, seed, float(scale),
+                               bool(causal), float(rate))
 
 
 def _reduce_ds(ds, bias):

@@ -8,10 +8,14 @@ the same padding, bucket and shedding rules:
   immediately,
 * the batcher flushes a batch when a bucket fills OR the oldest request
   has waited ``MXNET_SERVING_BATCH_TIMEOUT_MS``,
-* a request whose deadline passed while queued is shed at dequeue time.
+* a request whose deadline passed while queued is shed at dequeue time,
+* during a drain (:meth:`DynamicBatcher.start_drain`) a new request is
+  shed at submit while queued ones keep flowing.
 
-Shed requests fail with :class:`OverloadError`. The metrics and tracing
-hooks of the JAX package are not ported yet.
+Shed requests fail with :class:`OverloadError`. The serving families of
+the JAX package (``batching.py:213-238``) are declared here and fed as
+there; each request captures the submitter's trace context, and its
+queue wait is a retroactive ``queue.wait`` span in that trace.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as _np
 
+from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..base import MXNetError, getenv, register_env
 
 __all__ = ["BucketPolicy", "DynamicBatcher", "OverloadError", "Request"]
@@ -43,8 +49,9 @@ register_env("MXNET_SERVING_DEADLINE_MS", 0,
 class OverloadError(MXNetError):
     """A request was shed by the serving layer (NOT a server fault).
 
-    ``reason`` is ``"queue_full"`` (shed at submit) or ``"deadline"``
-    (shed at dequeue); ``retry_after_ms`` is a backoff hint.
+    ``reason`` is ``"queue_full"`` (shed at submit), ``"deadline"``
+    (shed at dequeue) or ``"draining"`` (shed at submit during a drain);
+    ``retry_after_ms`` is a backoff hint.
     """
 
     def __init__(self, reason: str, queue_depth: int = 0,
@@ -55,6 +62,12 @@ class OverloadError(MXNetError):
         super().__init__(
             f"request shed ({reason}); queue_depth={queue_depth} "
             f"retry_after_ms={retry_after_ms:.0f}")
+
+    def to_json(self) -> Dict[str, Any]:
+        """The shed payload of the HTTP front end's 429."""
+        return {"error": "overloaded", "reason": self.reason,
+                "queue_depth": self.queue_depth,
+                "retry_after_ms": round(self.retry_after_ms, 1)}
 
 
 def _pow2_buckets(max_batch: int) -> Tuple[int, ...]:
@@ -174,11 +187,42 @@ class BucketPolicy:
         return sigs
 
 
+# serving metric families (eager, like the core families in metrics.py)
+QUEUE_DEPTH = _metrics.gauge(
+    "mxnet_serving_queue_depth",
+    "Requests currently waiting in the serving batcher queue.")
+QUEUE_WAIT_SECONDS = _metrics.histogram(
+    "mxnet_serving_queue_wait_seconds",
+    "Per-request wait from submit to batch assembly.")
+BATCH_SIZE = _metrics.histogram(
+    "mxnet_serving_batch_size",
+    "Real (pre-padding) request count per assembled serving batch.",
+    buckets=_metrics.exponential_buckets(1, 2, 11))
+SHED_TOTAL = _metrics.counter(
+    "mxnet_serving_shed_total",
+    "Requests shed by the serving layer, by reason (queue_full at "
+    "submit; deadline at dequeue).", labels=("reason",))
+REQUESTS_TOTAL = _metrics.counter(
+    "mxnet_serving_requests_total",
+    "Serving requests by terminal status (ok / shed / error).",
+    labels=("status",))
+INFER_SECONDS = _metrics.histogram(
+    "mxnet_serving_inference_seconds",
+    "Wall time of one batched model execution (padded batch).")
+BUCKET_COMPILES = _metrics.counter(
+    "mxnet_serving_bucket_compiles_total",
+    "First-time executions per padded batch signature — each is one "
+    "compiled executable; bounded by the bucket grid.",
+    labels=("bucket",))
+
+
 class Request:
     """One queued inference request: the sample (tuple of per-input
-    arrays WITHOUT the batch dim), its future, and timing metadata."""
+    arrays WITHOUT the batch dim), its future, timing metadata, and the
+    trace context captured at submit (the worker attaches it)."""
 
-    __slots__ = ("sample", "key", "future", "enqueue_t", "deadline_t")
+    __slots__ = ("sample", "key", "future", "enqueue_t", "deadline_t",
+                 "trace")
 
     def __init__(self, sample: Sequence[_np.ndarray], key: Any,
                  future: Any, deadline_t: Optional[float]) -> None:
@@ -187,13 +231,16 @@ class Request:
         self.future = future
         self.enqueue_t = time.monotonic()
         self.deadline_t = deadline_t
+        self.trace = _tracing.capture()
 
 
-def _fail(r: Request, exc: Exception) -> None:
+def _fail(r: Request, exc: Exception) -> bool:
+    """Set ``exc`` on the request's future; False if it was done."""
     try:
         r.future.set_exception(exc)
     except Exception:   # noqa: BLE001 - cancelled/done race
-        pass
+        return False
+    return True
 
 
 class DynamicBatcher:
@@ -213,10 +260,29 @@ class DynamicBatcher:
         self._lock = threading.Lock()
         self._nonempty = threading.Condition(self._lock)
         self._closed = False
+        self._draining = False
 
     def __len__(self) -> int:
         with self._lock:
             return len(self._q)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def start_drain(self) -> None:
+        """Stop admitting: new submits shed with
+        ``OverloadError("draining")`` while queued requests keep flowing
+        to the workers."""
+        with self._lock:
+            self._draining = True
+
+    def reopen(self) -> None:
+        """Clear the closed and draining flags (the breaker reset
+        re-admits traffic through the same batcher)."""
+        with self._lock:
+            self._closed = False
+            self._draining = False
 
     def requeue(self, reqs: Sequence[Request]) -> None:
         """Front-insert requests a dying worker abandoned mid-batch
@@ -228,10 +294,12 @@ class DynamicBatcher:
         with self._lock:
             if self._closed:
                 for r in live:
-                    _fail(r, MXNetError("serving batcher closed with the "
-                                        "request still queued"))
+                    if _fail(r, MXNetError("serving batcher closed with "
+                                           "the request still queued")):
+                        REQUESTS_TOTAL.labels(status="error").inc()
                 return
             self._q[:0] = live
+            QUEUE_DEPTH.set(len(self._q))
             self._nonempty.notify_all()
 
     def submit(self, req: Request) -> None:
@@ -240,18 +308,29 @@ class DynamicBatcher:
         with self._lock:
             if self._closed:
                 raise MXNetError("serving batcher is closed")
+            if self._draining:
+                err = OverloadError("draining", queue_depth=len(self._q),
+                                    retry_after_ms=1e3)
+                SHED_TOTAL.labels(reason="draining").inc()
+                REQUESTS_TOTAL.labels(status="shed").inc()
+                req.future.set_exception(err)
+                raise err
             if len(self._q) >= self.queue_limit:
                 # abandoned (done) requests must not hold sheds high
                 self._q[:] = [r for r in self._q if not r.future.done()]
+                QUEUE_DEPTH.set(len(self._q))
             if len(self._q) >= self.queue_limit:
                 depth = len(self._q)
                 err = OverloadError(
                     "queue_full", queue_depth=depth,
                     retry_after_ms=1e3 * self.timeout_s * max(
                         1, depth // max(1, self.policy.max_batch)))
+                SHED_TOTAL.labels(reason="queue_full").inc()
+                REQUESTS_TOTAL.labels(status="shed").inc()
                 req.future.set_exception(err)
                 raise err
             self._q.append(req)
+            QUEUE_DEPTH.set(len(self._q))
             self._nonempty.notify()
 
     def close(self, error: Optional[Exception] = None) -> None:
@@ -262,8 +341,10 @@ class DynamicBatcher:
         with self._lock:
             self._closed = True
             for r in self._q:
-                _fail(r, exc)
+                if _fail(r, exc):
+                    REQUESTS_TOTAL.labels(status="error").inc()
             self._q.clear()
+            QUEUE_DEPTH.set(0)
             self._nonempty.notify_all()
 
     def _shed_expired(self, now: float) -> None:
@@ -272,11 +353,15 @@ class DynamicBatcher:
             if r.future.done():
                 continue
             if r.deadline_t is not None and now > r.deadline_t:
-                _fail(r, OverloadError("deadline", queue_depth=len(self._q),
-                                       retry_after_ms=1e3 * self.timeout_s))
+                if _fail(r, OverloadError(
+                        "deadline", queue_depth=len(self._q),
+                        retry_after_ms=1e3 * self.timeout_s)):
+                    SHED_TOTAL.labels(reason="deadline").inc()
+                    REQUESTS_TOTAL.labels(status="shed").inc()
             else:
                 keep.append(r)
         self._q[:] = keep
+        QUEUE_DEPTH.set(len(self._q))
 
     def next_batch(self, on_take: Optional[Callable[[List[Request]],
                                                     Any]] = None
@@ -306,6 +391,20 @@ class DynamicBatcher:
                         taken = set(map(id, take))
                         self._q[:] = [r for r in self._q
                                       if id(r) not in taken]
+                        QUEUE_DEPTH.set(len(self._q))
+                        now = time.monotonic()
+                        pc = time.perf_counter()
+                        for r in take:
+                            wait = now - r.enqueue_t
+                            QUEUE_WAIT_SECONDS.observe(
+                                wait,
+                                exemplar=r.trace.trace_id
+                                if r.trace is not None else None)
+                            # retroactive span: submit -> batch take
+                            _tracing.record_span(
+                                "queue.wait", pc - wait, pc,
+                                ctx=r.trace)
+                        BATCH_SIZE.observe(len(take))
                         if on_take is not None:
                             on_take(take)
                         return take

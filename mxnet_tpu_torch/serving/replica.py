@@ -7,7 +7,13 @@ own copy of the jittered exponential backoff schedule
 * a dead worker replica is restarted after a jittered backoff;
 * each replica has a restart budget (``MXNET_SERVING_MAX_RESTARTS``);
   past it the replica's breaker trips and it leaves the rotation;
-* when no replica remains in rotation the server is degraded.
+* when no replica remains in rotation the server is degraded;
+* :meth:`ReplicaSupervisor.reset` (the servers' ``reset_breaker()``)
+  refills every budget and clears the breaker.
+
+Restarts count into ``mxnet_serving_worker_restarts_total`` and each runs
+in a ``replica.restart`` span; ``mxnet_serving_breaker_open`` is 1 while
+the breaker is open.
 """
 from __future__ import annotations
 
@@ -16,12 +22,18 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
+from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..base import MXNetError, getenv, register_env
 
 __all__ = ["ReplicaSupervisor", "backoff_delays"]
 
 register_env("MXNET_SERVING_REPLICAS", 1,
              "Worker replicas hosted by each serving server.")
+register_env("MXNET_SERVING_DRAIN_DEADLINE_S", 30,
+             "Graceful-drain budget of ModelServer.drain(): admissions "
+             "stop, resident requests finish for at most this long, then "
+             "the server stops.")
 register_env("MXNET_SERVING_MAX_RESTARTS", 3,
              "Restart budget per serving worker replica.")
 register_env("MXNET_SERVING_RESTART_BACKOFF_MS", 100,
@@ -29,6 +41,18 @@ register_env("MXNET_SERVING_RESTART_BACKOFF_MS", 100,
              "doubles per restart (jittered).")
 
 _JITTER_RNG = random.Random()
+
+WORKER_RESTARTS = _metrics.counter(
+    "mxnet_serving_worker_restarts_total",
+    "Serving worker replicas restarted by the replica supervisor after "
+    "a worker death, by server kind (oneshot = ModelServer, generation "
+    "= GenerationServer).", labels=("server",))
+BREAKER_OPEN = _metrics.gauge(
+    "mxnet_serving_breaker_open",
+    "1 while a serving server's circuit breaker is open (every replica "
+    "exhausted its MXNET_SERVING_MAX_RESTARTS budget — the server is "
+    "degraded and sheds with DegradedError until reset_breaker()), by "
+    "server kind.", labels=("server",))
 
 
 def backoff_delays(attempts: int, base_ms: float, max_ms: float = 2000.0,
@@ -84,6 +108,7 @@ class ReplicaSupervisor:
         self._state: Dict[int, _ReplicaState] = {
             rid: _ReplicaState(self._fresh_delays())
             for rid in range(int(n_replicas))}
+        BREAKER_OPEN.labels(server=self.label).set(0)
 
     def _fresh_delays(self) -> Iterator[float]:
         return backoff_delays(attempts=self.max_restarts + 1,
@@ -114,6 +139,7 @@ class ReplicaSupervisor:
                 st.pending = True
         if delay is None:
             if self._degraded:
+                BREAKER_OPEN.labels(server=self.label).set(1)
                 self._on_degraded(exc)
             return False
         threading.Thread(target=self._restart_after, args=(rid, delay),
@@ -130,10 +156,25 @@ class ReplicaSupervisor:
                 return
             st.pending = False
             self.restarts += 1
+        WORKER_RESTARTS.labels(server=self.label).inc()
         try:
-            self._spawn(rid)
+            with _tracing.span("replica.restart", server=self.label,
+                               replica=rid, delay_s=delay):
+                self._spawn(rid)
         except Exception as e:   # noqa: BLE001 - a failed respawn is
             self.notify_death(rid, e)   # one more death
+
+    def reset(self) -> None:
+        """Refill every replica's restart budget and clear the breaker
+        (the servers' ``reset_breaker()``); the server respawns its dead
+        replicas itself after this."""
+        with self._lock:
+            self._degraded = False
+            for st in self._state.values():
+                st.delays = self._fresh_delays()
+                st.pending = False
+                st.tripped = False
+        BREAKER_OPEN.labels(server=self.label).set(0)
 
     def stop(self) -> None:
         """Server shutdown: cancel pending restarts."""

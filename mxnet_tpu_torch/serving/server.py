@@ -2,11 +2,22 @@
 
 Counterpart of ``mxnet_tpu/serving/server.py:ModelServer`` (``start``,
 ``stop``, ``infer``, ``infer_async``, warmup, replicas, shedding, the
-circuit breaker). Worker threads drain the shared queue and execute
-batches; any number of producer threads submit requests and wait on
+circuit breaker, the drain and the health split). Worker threads drain
+the shared queue and execute batches; any number of producer threads (the
+HTTP front end's, ``serving/http.py``) submit requests and wait on
 futures. A dead worker's in-flight batch requeues to the survivors while
 the :class:`~mxnet_tpu_torch.serving.replica.ReplicaSupervisor` restarts
-it. ``GenerationServer`` and the HTTP front end are not ported yet.
+it; when every replica has spent its budget the breaker opens and the
+server is degraded until :meth:`ModelServer.reset_breaker`.
+:meth:`ModelServer.start_drain` stops admissions (429 ``draining``) while
+resident work finishes; :meth:`ModelServer.drain` then stops the server.
+
+Each batch runs in a ``serving.execute`` span linking its requests' traces
+and passes the ``serving.execute`` fault site; the worker loop passes the
+``serving.worker`` site, where an error kills the worker thread. The JAX
+package's hang watchdog around the execute (``health.watch_section``) is
+ROADMAP Queue A 14. ``GenerationServer`` and ``serve_until_preempted``
+wait for Queue A 5 and 12.
 """
 from __future__ import annotations
 
@@ -18,8 +29,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as _np
 
+from .. import faults as _faults
+from .. import metrics as _metrics
+from .. import tracing as _tracing
 from ..base import MXNetError, getenv
-from .batching import BucketPolicy, DynamicBatcher, Request
+from .batching import BucketPolicy, DynamicBatcher, REQUESTS_TOTAL, Request
 from .model import ServedModel
 from .replica import ReplicaSupervisor
 
@@ -30,7 +44,7 @@ _LOG = logging.getLogger("mxnet_tpu_torch.serving")
 
 class DegradedError(MXNetError):
     """The server cannot take requests (every worker replica dead, or the
-    circuit breaker open)."""
+    circuit breaker open); the HTTP front end answers 503."""
 
 
 class ModelServer:
@@ -41,8 +55,10 @@ class ModelServer:
             y = server.infer(x_np)               # blocking, one sample
             fut = server.infer_async(x_np)       # concurrent.futures.Future
 
-    ``infer`` raises :class:`OverloadError` when the request is shed.
-    ``stats`` counts executed batches and answered requests.
+    ``infer`` raises :class:`OverloadError` when the request is shed
+    (bounded queue, deadline, draining). ``stats`` counts executed batches
+    and answered requests. A static export (``model.fixed_batch``) serves
+    only its traced batch: the policy's batch buckets must be just it.
     """
 
     def __init__(self, model: ServedModel,
@@ -56,6 +72,12 @@ class ModelServer:
         self.model = model
         self.policy = policy if policy is not None \
             else model.default_policy()
+        fixed = getattr(model, "fixed_batch", None)
+        if fixed is not None and \
+                tuple(self.policy.batch_buckets) != (fixed,):
+            raise MXNetError(
+                f"static export serves only batch={fixed}; the policy's "
+                f"batch_buckets must be [{fixed}]")
         self.batcher = DynamicBatcher(self.policy, timeout_ms=timeout_ms,
                                       queue_limit=queue_limit)
         self._default_deadline_s = \
@@ -133,16 +155,27 @@ class ModelServer:
                         r.future.set_exception(exc)
                     except Exception:   # noqa: BLE001 - done() race
                         continue
+                    REQUESTS_TOTAL.labels(status="error").inc()
 
     # -- health -------------------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self.batcher.draining
+
     @property
     def degraded(self) -> bool:
         return self._degraded
 
     def ready(self) -> bool:
-        """Started, breaker closed, a worker in rotation."""
+        """Readiness for new traffic: started, breaker closed, not
+        draining, a worker in rotation."""
         return bool(self._started and not self._degraded
+                    and not self.draining
                     and self.supervisor.in_rotation() > 0)
+
+    def healthy(self) -> bool:
+        """The JAX package's alias of :meth:`ready`."""
+        return self.ready()
 
     def __enter__(self) -> "ModelServer":
         return self.start()
@@ -150,16 +183,64 @@ class ModelServer:
     def __exit__(self, *exc: Any) -> None:
         self.stop()
 
+    # -- drain --------------------------------------------------------------
+    def start_drain(self) -> None:
+        """Stop admissions (new submits shed 429 ``draining``); queued and
+        in-flight work keeps executing."""
+        _metrics.SERVING_DRAINING.set(1)
+        self.batcher.start_drain()
+
+    def await_drained(self, timeout: float = 1.0) -> bool:
+        """Poll until no request is queued or in flight, or ``timeout``
+        seconds pass; True when drained."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                idle = not any(self._inflight.values())
+            if idle and len(self.batcher) == 0:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+
+    def drain(self, deadline_s: Optional[float] = None,
+              stop_timeout: float = 10.0) -> bool:
+        """Graceful shutdown: stop admissions, finish resident work within
+        ``deadline_s`` (default ``MXNET_SERVING_DRAIN_DEADLINE_S``), then
+        stop. True when everything finished inside the budget."""
+        if deadline_s is None:
+            deadline_s = float(getenv("MXNET_SERVING_DRAIN_DEADLINE_S", 30))
+        self.start_drain()
+        drained = self.await_drained(float(deadline_s))
+        self.stop(timeout=stop_timeout)
+        return drained
+
     # -- breaker ------------------------------------------------------------
     def _on_degraded(self, exc: BaseException) -> None:
+        """Every replica spent its restart budget: fail what is held and
+        refuse new work until :meth:`reset_breaker`."""
         self._degraded = True
         err = DegradedError(
             f"ModelServer worker thread died repeatedly "
             f"({self.supervisor.max_restarts} restarts per replica spent); "
-            f"the server is degraded (last error: {exc!r}); restart it")
+            f"circuit breaker tripped — the server is degraded (last "
+            f"error: {exc!r}); reset_breaker() or restart")
         self._fail_inflight(err)
         self.batcher.close(error=err)
         _LOG.error("serving worker crash-loop: breaker tripped (%r)", exc)
+
+    def reset_breaker(self) -> None:
+        """The operator's word that the crash cause is gone: refill every
+        restart budget, reopen the queue and respawn dead workers."""
+        if not self._started:
+            raise MXNetError("reset_breaker() on a stopped server — build "
+                             "and start a fresh one")
+        self.supervisor.reset()
+        self._degraded = False
+        self.batcher.reopen()
+        for wid in range(self.replicas):
+            if not self._worker_alive(wid):
+                self._spawn_worker(wid)
 
     # -- request API --------------------------------------------------------
     def infer_async(self, *sample: _np.ndarray,
@@ -223,6 +304,10 @@ class ModelServer:
                 batch = self.batcher.next_batch(on_take=take)
                 if batch is None:
                     return
+                # the worker-death fault site: an error here (outside the
+                # per-request handling) kills this worker thread
+                _faults.maybe_fault("serving.worker", worker=wid,
+                                    batch=len(batch))
                 try:
                     self._execute(batch)
                 except Exception:   # noqa: BLE001 - per-request faults
@@ -248,13 +333,22 @@ class ModelServer:
 
     def _execute(self, batch: List[Request]) -> None:
         try:
-            arrays, _nb = self.policy.assemble(
-                [r.sample for r in batch], batch[0].key)
-            outs = self.model.predict(arrays)
+            # a batch serves many requests: its span is a trace of its
+            # own that links each request's trace
+            with _tracing.span("serving.execute",
+                               batch=len(batch)) as xsp:
+                for r in batch:
+                    if r.trace is not None:
+                        xsp.add_link(r.trace.trace_id)
+                _faults.maybe_fault("serving.execute", batch=len(batch))
+                arrays, _nb = self.policy.assemble(
+                    [r.sample for r in batch], batch[0].key)
+                outs = self.model.predict(arrays)
         except Exception as e:   # noqa: BLE001 - worker must survive
             for r in batch:
                 if not r.future.done():
                     r.future.set_exception(e)
+                    REQUESTS_TOTAL.labels(status="error").inc()
             return
         with self._lock:
             self.stats["batches"] += 1
@@ -268,6 +362,7 @@ class ModelServer:
                 r.future.set_result(rows[0] if len(rows) == 1 else rows)
             except Exception:   # noqa: BLE001 - cancelled in the window
                 continue
+            REQUESTS_TOTAL.labels(status="ok").inc()
             with self._lock:
                 self.stats["requests"] += 1
 
@@ -308,11 +403,13 @@ class ModelServer:
             "warmed_buckets": self.warmed,
             "warmup_seconds": round(self.warmup_seconds, 6),
             "stats": dict(self.stats),
-            "ready": self.ready(),
+            "worker_alive": self.ready(),
             "resilience": {
                 "replicas": self.replicas,
                 "workers_alive": sum(1 for wid in range(self.replicas)
                                      if self._worker_alive(wid)),
+                "draining": self.draining,
                 "supervisor": self.supervisor.describe(),
             },
+            "exec_cache": self.model.exec_cache_stats(),
         }

@@ -50,7 +50,7 @@ NAMESPACES = [
 # names whose modules are ported: each must resolve
 PORTED = {
     "mxnet_tpu": "gluon optimizer initializer init lr_scheduler rtc serving "
-                 "autograd base context nd ndarray ndarray_io np npx numpy "
+                 "metrics faults tracing autograd base context nd ndarray ndarray_io np npx numpy "
                  "ops random util Context MXNetError NDArray cpu cpu_pinned "
                  "current_context gpu is_np_array is_np_shape num_gpus "
                  "num_tpus set_np tpu waitall",

@@ -59,6 +59,13 @@ of the eager ones (bf16); ``grad_req='add'`` accumulates; BatchNorm's
 running statistics after a replay equal the eager ones; the profiler sees
 a replay's kernels; a served model's captured buckets answer as eager; a
 capture that cannot be captured raises.
+
+The forward as the registered op ``mxnet_tpu_torch::flash_attention_fwd``:
+its out and lse equal to the bit with the launcher's at phase 3's forward
+shapes, with and without dropout; a served BERT's replays unchanged by it;
+an exported BERT (``HybridBlock.export`` -> ``ServedModel.from_export``)
+launching the kernel once a layer, counted by the profiler, within
+relative 2e-2 of the live block; an HTTP round trip equal to the bit.
 """
 import math
 
@@ -1434,3 +1441,134 @@ def test_replays_from_many_threads_answer_as_one(dev):
     assert not any(th.is_alive() for th in threads)
     for a, b in zip(got, want):
         assert all(onp.array_equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------------------------- the registered forward op and serving
+@pytest.mark.parametrize("dtype,T,D,rate", [
+    (torch.bfloat16, 512, 64, 0.0), (torch.bfloat16, 512, 64, 0.1),
+    (torch.float16, 512, 64, 0.0), (torch.bfloat16, 128, 64, 0.0),
+    (torch.bfloat16, 512, 128, 0.0), (torch.bfloat16, 512, 256, 0.1),
+    (torch.float32, 512, 64, 0.1)])
+def test_registered_op_equals_direct_launch_bits(dev, dtype, T, D, rate):
+    """``mxnet_tpu_torch::flash_attention_fwd`` against ``_launch_fwd``
+    into buffers of the same layout, at phase 3's forward shapes (B=8,
+    H=12, the key-padding bias): out and lse equal to the bit, one launch
+    each."""
+    g = torch.Generator().manual_seed(T + D)
+    B, H = 8, 12
+    q, k, v = (torch.randn(B, T, H, D, generator=g).to(dev, dtype)
+               .transpose(1, 2) for _ in range(3))
+    keep = torch.arange(T)[None, :] < torch.randint(16, T + 1, (B,),
+                                                    generator=g)[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(dtype).min)[:, None, None, :]
+    bias = bias.to(dev, dtype)
+    seed = torch.tensor([7, 11], dtype=torch.int32, device=dev) \
+        if rate else None
+    before = attn.launches["flash_attention_fwd"]
+    out, lse = torch.ops.mxnet_tpu_torch.flash_attention_fwd(
+        q, k, v, bias, seed, 0.125, False, rate)
+    want, want_lse = attn._fwd_outputs(q)
+    attn._launch_fwd(q, k, v, bias, seed, rate, want, want_lse, 0.125, False)
+    torch.cuda.synchronize()
+    assert attn.launches["flash_attention_fwd"] == before + 2
+    assert out.stride() == want.stride() and lse.shape == (B, H, T, 1)
+    assert cs.bits_equal(out, want) and cs.bits_equal(lse, want_lse)
+
+
+class _Encode(tmx.gluon.HybridBlock):
+    def __init__(self, bert):
+        super().__init__()
+        self.bert = bert
+
+    def forward(self, tokens, valid_length):
+        return self.bert(tokens, None, valid_length)
+
+
+def _served(dev):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import ServedModel
+    net = _Encode(_small_bert(dev))
+    return net, ServedModel.from_block(net, [((128,), "int32"),
+                                             ((), "int32")], device=dev)
+
+
+def _requests(n, seed=4):
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    return [[rng.randint(0, 1000, (b, 128)).astype("int32"),
+             rng.randint(1, 129, (b,)).astype("int32")]
+            for b in (1, 2, 2, 1)[:n]]
+
+
+def test_hybridized_bert_replay_unchanged_by_the_registered_op(dev,
+                                                              monkeypatch):
+    """A served bf16 BERT's replayed buckets answer with the bits of the
+    eager forward whose attention calls the launcher directly, not the
+    registered op: registering the kernel changed no number."""
+    import numpy as onp
+    from mxnet_tpu_torch.serving import BucketPolicy
+    net, model = _served(dev)
+    model.warmup(BucketPolicy(batch_buckets=(1, 2)))
+    graphed = [model.predict(x) for x in _requests(4)]
+
+    def direct(q, k, v, bias, scale, causal, seed=None, rate=0.0):
+        out, lse = attn._fwd_outputs(q)
+        attn._launch_fwd(q, k, v, bias, seed, rate, out, lse, scale, causal)
+        return out, lse
+
+    monkeypatch.setattr(attn, "_flash_forward", direct)
+    net.hybridize(False)
+    eager = [model.predict(x) for x in _requests(4)]
+    for a, b in zip(graphed, eager):
+        assert all(onp.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_exported_program_launches_the_kernel(dev, tmp_path):
+    """``export(dynamic_batch=True)`` of a bf16 BERT and ``from_export``:
+    each batch launches the forward kernel once a layer (profiler and
+    counter), runs no SDPA kernel, and answers as the live block does
+    eagerly (relative 2e-2)."""
+    import numpy as onp
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.serving import ServedModel
+    net, live = _served(dev)
+    net.hybridize(False)
+    sym, _ = net.export(str(tmp_path / "bert"),
+                        input_signature=[((2, 128), "int32"),
+                                         ((2,), "int32")],
+                        dynamic_batch=True)
+    model = ServedModel.from_export(sym, device=dev)
+    for x in _requests(4):
+        before = attn.launches["flash_attention_fwd"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = model.predict(x)
+            torch.cuda.synchronize()
+        counts = cs.kernel_counts(prof)
+        assert sum(c for k, c in counts.items()
+                   if cs.re.search(cs.FWD_KERNEL, k)) == 2
+        assert not any(cs.re.search(cs.SDPA_KERNEL, k) for k in counts)
+        assert attn.launches["flash_attention_fwd"] == before + 2
+        for a, b in zip(got, live.predict(x)):
+            assert a.shape == b.shape
+            assert cs.rel_err(a, b) <= 2e-2
+
+
+def test_http_round_trip_equals_in_process_bits(dev):
+    """One request over ``make_http_server`` on 127.0.0.1:0, parsed back to
+    f32: the bits the same server answers in process."""
+    import numpy as onp
+    from mxnet_tpu_torch.serving import BucketPolicy, ModelServer
+    _, model = _served(dev)
+    tok = onp.random.RandomState(5).randint(0, 1000, 128).astype("int32")
+    sample = (tok, onp.int32(77))
+    front = cs.HttpFront(ModelServer(model, BucketPolicy(batch_buckets=(1,)),
+                                     warmup=True, timeout_ms=1))
+    try:
+        want = front.server.infer(*sample, timeout=60.0)
+        status, _, data = cs.http_call(front.port, "POST", "/v1/inference",
+                                       cs.instance(sample))
+    finally:
+        front.close()
+    assert status == 200
+    got = onp.asarray(cs.json.loads(data)["predictions"][0], "float32")
+    assert got.shape == want.shape and onp.array_equal(got, want)
