@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, one GPU
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernel checks)
     python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
+    python3 chip_smoke.py --only generate  # phases 1, 2 and 8 (GPT-2 generation)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
     python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
@@ -167,7 +168,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    source that does not compile); and BERT-base bf16
    ``save_parameters`` -> ``load_parameters`` into a fresh ``get_bert``
    answering bit-identically;
-8. one ``{"kernels": [...]}`` line, the card line, and as the last line
+8. (run after phase 6, before phase 7) GPT-2 124M generation at full width
+   and depth, bf16, weights from a seed (matrices N(0, 1/fan_in):
+   ``random_gpt_params``): a full forward at B=1, T=1024 (12 causal flash
+   forward launches, no SDPA kernel, no operand copied, logits against f32
+   on the CPU); ``GenerationServer(GenerationEngine(DecodeModel.from_block
+   (net), max_slots=8), warmup=True)`` over KV buckets 128-1024 (greedy and
+   mixed decode graphs captured per bucket); the main path, 16 concurrent
+   requests in process under the profiler (prompts 16-512, 64-256 new
+   tokens, 12 greedy and 4 sampled: launches counted there, the flash
+   forward's by its counter, 12 an admission, the decode attention's
+   replays by the profiler); the same 16 again in process and over HTTP
+   (streamed), every prefill cold, streams equal to the main run's; no
+   capture and no ``decode:*`` / ``prefill:*`` compile after warmup; each
+   greedy token within ``GREEDY_MARGIN`` of its row's maximum in a
+   teacher-forced full forward, no greedy stream constant; the decode
+   step at S=8, L=128 and 1024 eager against replayed (tokens and KV rows
+   equal to the bit, host ms each); self (k=4) and 2-layer-draft
+   speculation, streams byte-identical to the plain run; in f32 (TF32
+   off), three greedy prompts token for token against the f32 plain path
+   on the CPU, a shared 256-token prefix (hits, streams equal to the prefix cache off) and two
+   replicas with a ``serving.worker`` fault mid-stream over HTTP (streams
+   token-identical, indexes contiguous, recoveries counted); then the
+   flash forward at the prefill's shapes and the suffix pass, and the
+   decode attention kernel, each against its plain version, timed beside
+   its bound and a library call;
+9. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
@@ -2541,13 +2567,18 @@ def instance(sample):
 
 
 class HttpFront:
-    """``make_http_server`` on 127.0.0.1:0 over ``server``, started and
-    serving on a thread; ``close()`` stops both."""
+    """``make_http_server`` on 127.0.0.1:0 over ``server`` (a ModelServer
+    or a GenerationServer), started and serving on a thread; ``close()``
+    stops both."""
 
     def __init__(self, server):
-        from mxnet_tpu_torch.serving import make_http_server
+        from mxnet_tpu_torch.serving import GenerationServer, make_http_server
         self.server = server.start()
-        self.httpd = make_http_server(server, host="127.0.0.1", port=0)
+        gen = isinstance(server, GenerationServer)
+        self.httpd = make_http_server(None if gen else server,
+                                      host="127.0.0.1", port=0,
+                                      generation_server=server if gen
+                                      else None)
         self.port = self.httpd.server_address[1]
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
@@ -4154,6 +4185,727 @@ def phase_rtc(torch, dev):
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 8
+# the generation phase's kernel of its own (the flash forward is row 1)
+GEN_INFO = {"decode_attention": (
+    "mxnet_tpu_torch/csrc/decode_attention.cu",
+    "mxnet_tpu/serving/model.py:335 (_slot_block_step einsums, XLA)")}
+# a call is one partial and one combine kernel: launches are counted by
+# the partial, device time summed over both
+DECODE_KERNEL = r"decode_partial<"
+DECODE_TIME = r"da::decode_(partial|combine)<"
+KERNEL_PATTERNS["decode_attention"] = DECODE_KERNEL
+# GPT-2 124M's bf16 forward on the card against the same weights in f32 on
+# the CPU, relative Frobenius over the logits (12 layers of bf16 rounding)
+TOL_GPT_FORWARD_REL = 5e-2
+# an emitted greedy token's logit within this of its row's maximum in a
+# teacher-forced bf16 full forward (logit units; the logits' spread here is
+# ~1.4): the decode and the full forward round differently, so near-ties
+# may flip
+GREEDY_MARGIN = 0.25
+GEN_SLOTS = 8
+GPT_VOCAB = 50257
+
+
+def random_gpt_params(block, seed: int):
+    """numpy weights for every parameter of a GPT ``block``, from ``seed``,
+    at a scale where greedy streams vary: matrices N(0, 1/fan_in) (each
+    block's update of the order of the residual), the word embedding
+    N(0, 0.05), the position table N(0, 1) (the position steers each
+    step, so greedy decoding does not settle on one token: with
+    N(0, 0.02) positions 4 streams of 120 tokens on the CPU ended in
+    constant runs of 1-105 tokens, with N(0, 1) in runs of 1-3 tokens and
+    77-79 distinct tokens each), biases N(0, 0.02), LayerNorm gamma
+    1 + N(0, 0.02)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, p in block.collect_params().items():
+        shape = tuple(p.shape)
+        z = rng.standard_normal(shape).astype(np.float32)
+        if name == "word_embed.weight":
+            out[name] = z * 0.05
+        elif name == "position_weight":
+            out[name] = z
+        elif name.endswith(".weight") and len(shape) == 2:
+            out[name] = z / np.float32(math.sqrt(shape[1]))
+        elif name.endswith("gamma"):
+            out[name] = 1.0 + 0.02 * z
+        else:
+            out[name] = 0.02 * z
+    return out
+
+
+def gpt_net(torch, dev, dtype, num_layers=12, params=None, seed=0):
+    """A GPT-2 124M-wide model (``num_layers`` deep) on ``dev`` in
+    ``dtype``, predict mode, with ``params`` (by default
+    :func:`random_gpt_params` from ``seed``): (net, params)."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+    net = GPTModel(vocab_size=GPT_VOCAB, num_layers=num_layers, units=768,
+                   hidden_size=3072, num_heads=12, max_length=1024,
+                   dropout=0.0)
+    if params is None:
+        params = random_gpt_params(net, seed)
+    load_jax_params(net, params)
+    return net.to(dev, getattr(torch, dtype)).eval(), params
+
+
+def gen_requests(n=16, seed=7):
+    """``n`` requests: prompts of 16-512 random tokens, 64-256 new tokens;
+    every fourth sampled (sample, top_k, top_p, sample at another
+    temperature), the rest greedy."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sampled = [dict(method="sample", temperature=0.9, seed=101),
+               dict(method="top_k", top_k=40, seed=102),
+               dict(method="top_p", top_p=0.9, seed=103),
+               dict(method="sample", temperature=1.3, seed=104)]
+    out = []
+    for i in range(n):
+        kw = sampled[i // 4] if i % 4 == 3 else {}
+        out.append(dict(tokens=rng.randint(0, GPT_VOCAB,
+                                           rng.randint(16, 513)).tolist(),
+                        max_new_tokens=int(rng.randint(64, 257)), kw=kw))
+    return out
+
+
+def gen_stats(ttft, wall, n_tokens):
+    import numpy as np
+    t = np.asarray(ttft) * 1e3
+    return dict(ttft_p50=float(np.percentile(t, 50)),
+                ttft_p99=float(np.percentile(t, 99)),
+                tok_s=n_tokens / wall, wall_s=wall, tokens=n_tokens)
+
+
+def fmt_gen(st) -> str:
+    return (f"TTFT p50 {st['ttft_p50']:.3f} ms, p99 {st['ttft_p99']:.3f} ms, "
+            f"{st['tokens']} tokens in {st['wall_s']:.3f} s = "
+            f"{st['tok_s']:.1f} tokens/s")
+
+
+def gen_inprocess(server, reqs):
+    """Every request submitted at once to ``server`` (a started
+    GenerationServer or a GenerationEngine's owner), each stream drained
+    on a thread: (token lists, stats)."""
+    n = len(reqs)
+    toks, ttft, ends = [None] * n, [0.0] * n, [0.0] * n
+    errors = []
+
+    def drain(i, stream, t_sub):
+        try:
+            first = stream.next_token(timeout=300)
+            ttft[i] = time.perf_counter() - t_sub
+            out = [first]
+            while True:
+                t = stream.next_token(timeout=300)
+                if t is None:
+                    break
+                out.append(t)
+            toks[i] = out
+            ends[i] = time.perf_counter()
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = []
+    for i, r in enumerate(reqs):
+        t_sub = time.perf_counter()
+        s = server.generate(r["tokens"], max_new_tokens=r["max_new_tokens"],
+                            **r["kw"])
+        th = threading.Thread(target=drain, args=(i, s, t_sub), daemon=True)
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(600)
+    if errors:
+        fail("generation in process: " + "; ".join(errors))
+    return toks, gen_stats(ttft, max(ends) - t0, sum(map(len, toks)))
+
+
+def http_generate(port, body):
+    """One streamed POST /v1/generate: (status, token lines, seconds to
+    the first token line, seconds to the end)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        lines, t_first = [], None
+        while True:
+            raw = resp.readline()
+            if not raw:
+                break
+            if not raw.strip():
+                continue
+            obj = json.loads(raw)
+            if "token" in obj and t_first is None:
+                t_first = time.perf_counter() - t0
+            lines.append(obj)
+        return resp.status, lines, t_first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def gen_http(port, reqs):
+    """The requests over HTTP at once, streamed: (token lists, stats);
+    fails on a status other than 200, a missing trailer or an index that
+    is not contiguous."""
+    n = len(reqs)
+    res = [None] * n
+    errors = []
+
+    def one(i, r):
+        try:
+            body = dict(tokens=r["tokens"],
+                        max_new_tokens=r["max_new_tokens"], stream=True,
+                        **r["kw"])
+            res[i] = http_generate(port, body)
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i, r), daemon=True)
+               for i, r in enumerate(reqs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("generation over HTTP: " + "; ".join(errors))
+    toks = []
+    for i, (status, lines, t_first, _) in enumerate(res):
+        tl = [ln for ln in lines if "token" in ln]
+        if status != 200 or not lines or not lines[-1].get("done") \
+                or lines[-1].get("error"):
+            fail(f"HTTP request {i}: status {status}, last line "
+                 f"{lines[-1] if lines else None}")
+        if [ln["index"] for ln in tl] != list(range(len(tl))):
+            fail(f"HTTP request {i}: index fields not contiguous")
+        toks.append([ln["token"] for ln in tl])
+    return toks, gen_stats([r[2] for r in res], wall, sum(map(len, toks)))
+
+
+def compile_counts(model):
+    """{label: mxnet_serving_bucket_compiles_total} of a DecodeModel's
+    programs, and its graph captures."""
+    from mxnet_tpu_torch import metrics
+    labels = model.describe()["programs_compiled"]
+    return ({t: metrics.value("mxnet_serving_bucket_compiles_total",
+                              bucket=t) for t in labels}, model.captures)
+
+
+LAUNCH_CALL = r"^cu(da)?LaunchKernel"   # the host's kernel-launch calls
+
+
+def profile_audit(prof, op_pattern, kernel_pattern):
+    """One torch.profiler session held against the launches the host made
+    in it. Each kernel-launch call the profiler saw on the host is matched
+    by correlation id to the record it saw on the device. Returns a dict:
+    ``calls`` (launch calls) and ``records`` (device records), ``lost``
+    (for each launch call without a record, the op that made it) and
+    ``lost_at`` (the call's place among the session's calls), and,
+    for the innermost op events whose name matches ``op_pattern``, in
+    order, ``ops`` (how many), ``kernels`` (how many have a kernel
+    matching ``kernel_pattern`` recorded) and ``unrecorded`` (the indexes
+    of those without)."""
+    def on_device(e):
+        return str(e.device_type).endswith("CUDA")
+
+    evts = list(prof.events())
+    records = [e for e in evts if on_device(e)]
+    recorded = {e.id for e in records}
+    calls = sorted((e for e in evts
+                    if not on_device(e) and re.search(LAUNCH_CALL, e.name)),
+                   key=lambda e: e.time_range.start)
+    lost_at = [i for i, c in enumerate(calls) if c.id not in recorded]
+    lost = [getattr(calls[i].cpu_parent, "name", calls[i].name)
+            for i in lost_at]
+    ops = sorted((e for e in evts if not on_device(e)
+                  and re.search(op_pattern, e.name)
+                  and not any(re.search(op_pattern, c.name)
+                              for c in e.cpu_children)),
+                 key=lambda e: e.time_range.start)
+    seen = [any(re.search(kernel_pattern, k.name) for k in e.kernels)
+            for e in ops]
+    return dict(calls=len(calls), records=len(records), lost=lost,
+                lost_at=lost_at, ops=len(ops), kernels=sum(seen),
+                unrecorded=[i for i, s in enumerate(seen) if not s])
+
+
+def gpt_forward_check(torch, attn, net, cpu_net, sessions=3):
+    """GPT-2 124M's full forward at B=1, T=1024 (bf16): twelve causal flash
+    forward launches by the counter, no SDPA kernel, no operand copied;
+    logits against the f32 plain path on the CPU. Each of ``sessions``
+    profiled forwards gives the unprofiled forward's logits to the bit
+    (so all of its kernels ran) and is audited (``profile_audit``): its
+    twelve flash forward ops each have their kernel recorded, or a launch
+    call whose record the session lost. A session in a process that ran
+    earlier profiler sessions can lose the records of its first few
+    launches, never one after a recorded launch, so the lost calls must be
+    the session's first."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(0, GPT_VOCAB, (1, 1024), generator=gen)
+    xd = x.to(net.word_embed.weight.data().device)
+    keep = []
+    with torch.inference_mode():
+        net(xd)                                 # warm-up
+        plain = net(xd)
+        torch.cuda.synchronize()
+        reset_counts(attn)
+        runs = [profiled_step(torch, lambda: keep.append(net(xd)))
+                for _ in range(sessions)]
+    wall = min(w for w, _ in runs)
+    audits = [profile_audit(prof, r"flash_attention_fwd", FWD_KERNEL)
+              for _, prof in runs]
+    sdpa = [k for _, prof in runs for k in kernel_counts(prof)
+            if re.search(SDPA_KERNEL, k)]
+    same = [torch.equal(out, plain) for out in keep]
+    short = [a for a in audits if a["ops"] != 12 or a["kernels"]
+             + sum("flash_attention_fwd" in n for n in a["lost"]) != 12
+             or a["lost_at"] != list(range(len(a["lost_at"])))]
+    if attn.launches["flash_attention_fwd"] != 12 * sessions \
+            or not all(same) or short or sdpa or attn.padded_copies:
+        fail(f"GPT-2 forward: {attn.launches['flash_attention_fwd']} "
+             f"counted launches in {sessions} forwards "
+             f"({12 * sessions} wanted), profiled logits equal to the "
+             f"unprofiled bits {same}, audits {audits}, SDPA kernels "
+             f"{sdpa}, padded copies {attn.padded_copies}")
+    with torch.inference_mode():
+        ref = cpu_net(x)
+    err = rel(keep[-1].float().cpu(), ref)
+    if not err <= TOL_GPT_FORWARD_REL:
+        fail(f"GPT-2 forward B=1 T=1024 bf16: logits rel err {err:.3e} "
+             f"against f32 on the CPU > {TOL_GPT_FORWARD_REL}")
+    print(f"phase 8: GPT-2 124M forward B=1 T=1024 bf16: 12 causal flash "
+          f"forward launches by the counter, no SDPA kernel, 0 operands "
+          f"copied; logits rel err {err:.3e} vs f32 CPU (limit "
+          f"{TOL_GPT_FORWARD_REL}); {wall:.3f} ms under the profiler",
+          flush=True)
+    for i, a in enumerate(audits):
+        print(f"phase 8: GPT-2 forward profile {i + 1}/{sessions}: logits "
+              f"equal to the unprofiled bits; {a['calls']} launch calls, "
+              f"{a['records']} kernel records, {len(a['lost'])} records "
+              f"lost (the session's first launches) "
+              f"{sorted(set(a['lost']))}; flash forward ops "
+              f"{a['ops']}, their kernels recorded {a['kernels']} "
+              f"(missing at layers {a['unrecorded']})", flush=True)
+
+
+def greedy_margins(torch, net, reqs, streams):
+    """Each greedy stream held to a teacher-forced bf16 full forward: every
+    emitted token's logit within GREEDY_MARGIN of its row's maximum; no
+    greedy stream constant. Returns the worst gap."""
+    worst = 0.0
+    dev = net.word_embed.weight.data().device
+    for i, (r, toks) in enumerate(zip(reqs, streams)):
+        if r["kw"]:
+            continue
+        if len(set(toks)) == 1:
+            fail(f"greedy stream {i} is constant ({toks[0]})")
+        t0 = len(r["tokens"])
+        seq = torch.tensor([r["tokens"] + toks[:-1]], device=dev)
+        with torch.inference_mode():
+            lg = net(seq)[0, t0 - 1:].float()
+        tok = torch.tensor(toks, device=dev)
+        gap = (lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0]).max()
+        worst = max(worst, float(gap))
+    if worst > GREEDY_MARGIN:
+        fail(f"a greedy token's logit is {worst:.4f} below its row's "
+             f"maximum in the teacher-forced forward (> {GREEDY_MARGIN})")
+    return worst
+
+
+def decode_step_bits(torch, dm, dev):
+    """The decode step at S=8, L=128 and 1024, greedy and mixed lanes, run
+    eagerly and replayed from the same cache state: tokens and KV rows
+    equal to the bit; host ms a step each way (a step ends in its (S,)
+    readback)."""
+    import numpy as np
+    from mxnet_tpu_torch.serving import PagedKVCache
+    from mxnet_tpu_torch.serving.model import warm_lanes
+    rng = np.random.RandomState(11)
+    out = {}
+    for L in (128, 1024):
+        cache = PagedKVCache(dm.n_layers, dm.num_heads, dm.head_dim,
+                             GEN_SLOTS, buckets=(L,), dtype=dm.dtype,
+                             device=dev)
+        for _ in range(GEN_SLOTS):
+            t0 = int(rng.randint(L // 2, L - 8))
+            _, ks, vs = dm.prefill(rng.randint(0, GPT_VOCAB, t0), L)
+            cache.write_prompt(cache.alloc(), ks, vs, t0)
+        toks = rng.randint(0, GPT_VOCAB, GEN_SLOTS)
+        pos = cache.positions.copy()
+        for name, lanes in zip(("greedy", "mixed"), warm_lanes(dm,
+                                                               GEN_SLOTS)):
+            snap = [t.clone() for t in cache._k + cache._v]
+            eager = dm.step(cache, toks, pos, lanes, graph=False)
+            after = [t.clone() for t in cache._k + cache._v]
+            for t, s in zip(cache._k + cache._v, snap):
+                t.copy_(s)
+            graphed = dm.step(cache, toks, pos, lanes)
+            if not np.array_equal(eager, graphed) or not all(
+                    torch.equal(a, b)
+                    for a, b in zip(after, cache._k + cache._v)):
+                fail(f"decode step S={GEN_SLOTS} L={L} {name}: the replay's "
+                     "tokens or KV rows differ from the eager step's bits")
+            times = {}
+            for route, graph in (("eager", False), ("replay", True)):
+                dm.step(cache, toks, pos, lanes, graph=graph)
+                t = time.perf_counter()
+                for _ in range(20):
+                    dm.step(cache, toks, pos, lanes, graph=graph)
+                times[route] = (time.perf_counter() - t) / 20 * 1e3
+            out[(L, name)] = times
+            print(f"phase 8: decode step S={GEN_SLOTS} L={L} {name}: replay "
+                  f"equal to eager to the bit (tokens and KV rows); eager "
+                  f"{times['eager']:.4f} ms, replayed {times['replay']:.4f} "
+                  f"ms a step (host clock, readback included)", flush=True)
+        del cache
+    return out
+
+
+def gen_speculation(torch, dm, draft_net, reqs, want):
+    """The requests through speculative engines (self k=4; a 2-layer draft
+    k=4): every stream byte-identical to the plain run's."""
+    from mxnet_tpu_torch import metrics
+    from mxnet_tpu_torch.serving import GenerationEngine, GenerationServer
+    names = ("mxnet_gen_spec_proposed_tokens_total",
+             "mxnet_gen_spec_accepted_tokens_total",
+             "mxnet_gen_kv_rollbacks_total")
+    for mode, kw in (("self", {}), ("draft", dict(draft_model=draft_net))):
+        eng = GenerationEngine(dm, max_slots=GEN_SLOTS, spec_mode=mode,
+                               spec_k=4, **kw)
+        c0 = [metrics.value(n) for n in names]
+        server = GenerationServer(eng, warmup=True).start()
+        try:
+            got, st = gen_inprocess(server, reqs)
+        finally:
+            server.stop()
+        prop, acc, rb = (metrics.value(n) - c for n, c in zip(names, c0))
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"speculative ({mode}) streams differ from the plain run "
+                 f"at requests {bad}")
+        print(f"phase 8: speculation {mode} k=4: {len(reqs)} streams "
+              f"byte-identical to the plain run (greedy and sampled); "
+              f"accept rate "
+              f"{acc / max(prop, 1):.4f} ({int(acc)} of {int(prop)} "
+              f"proposals), mxnet_gen_kv_rollbacks_total +{int(rb)}; "
+              f"{fmt_gen(st)}", flush=True)
+        del server, eng
+        torch.cuda.empty_cache()
+
+
+def gen_prefix(torch, dm):
+    """A shared 256-token prefix ahead of 8 suffixes (6 greedy, 2
+    sampled) with the prefix cache on and off: equal streams, 7 hits."""
+    import numpy as np
+    from mxnet_tpu_torch import metrics
+    from mxnet_tpu_torch.serving import GenerationEngine
+    rng = np.random.RandomState(21)
+    prefix = rng.randint(0, GPT_VOCAB, 256).tolist()
+    prompts = [prefix + rng.randint(0, GPT_VOCAB, int(n)).tolist()
+               for n in rng.randint(8, 120, 8)]
+    kws = [{}] * 6 + [dict(method="top_k", top_k=20, seed=5),
+                      dict(method="top_p", top_p=0.8, seed=6)]
+    out = {}
+    for slots in (8, 0):
+        eng = GenerationEngine(dm, max_slots=GEN_SLOTS, prefix_slots=slots)
+        eng.warmup()
+        h0 = metrics.value("mxnet_gen_prefix_cache_hits_total")
+        first = eng.submit(prompts[0], max_new_tokens=32, **kws[0])
+        while not first.finished:
+            eng.run_iteration()
+        rest = [eng.submit(p, max_new_tokens=32, **kw)
+                for p, kw in zip(prompts[1:], kws[1:])]
+        while not all(s.finished for s in rest):
+            eng.run_iteration()
+        out[slots] = ([s.result(timeout=60) for s in [first] + rest],
+                      metrics.value("mxnet_gen_prefix_cache_hits_total")
+                      - h0)
+        del eng
+    if out[8][0] != out[0][0] or out[8][1] != 7 or out[0][1] != 0:
+        fail(f"prefix cache: streams equal {out[8][0] == out[0][0]}, hits "
+             f"{out[8][1]} (7 wanted) on, {out[0][1]} off")
+    print("phase 8: shared 256-token prefix, 8 suffixes (f32): 7 prefix "
+          "hits (the suffix pass on the flash forward under its bias), "
+          "streams equal to the prefix cache off", flush=True)
+
+
+def gen_f32_vs_cpu(torch, dm, cpu_net):
+    """Three greedy prompts through an f32 engine on the card (TF32 off)
+    against the f32 plain path on the CPU (the zoo's eager ``generate``):
+    token for token."""
+    import numpy as np
+    from mxnet_tpu_torch.serving import GenerationEngine
+    rng = np.random.RandomState(41)
+    prompts = [rng.randint(0, GPT_VOCAB, n).tolist() for n in (20, 100, 300)]
+    eng = GenerationEngine(dm, max_slots=4, prefix_slots=0)
+    streams = [eng.submit(p, max_new_tokens=24) for p in prompts]
+    while not all(s.finished for s in streams):
+        eng.run_iteration()
+    got = [s.result(timeout=60) for s in streams]
+    want = [cpu_net.generate(np.asarray([p]), 24)[0].tolist()
+            for p in prompts]
+    if got != want:
+        fail(f"f32 greedy streams on the card differ from the CPU's: "
+             f"{[a == b for a, b in zip(got, want)]}")
+    print("phase 8: 3 greedy prompts (lengths 20, 100, 300; 24 tokens) on "
+          "an f32 engine on the card (TF32 off) equal token for token to "
+          "the f32 plain path on the CPU", flush=True)
+
+
+def gen_recovery(torch, dm):
+    """Two replicas over HTTP (f32), 8 streamed requests, once clean and
+    once with a ``serving.worker`` fault mid-stream: the same tokens,
+    contiguous indexes, recoveries counted."""
+    import numpy as np
+    from mxnet_tpu_torch import faults, metrics
+    from mxnet_tpu_torch.serving import GenerationEngine, GenerationServer
+    rng = np.random.RandomState(31)
+    reqs = [dict(tokens=rng.randint(0, GPT_VOCAB, int(n)).tolist(),
+                 max_new_tokens=48, kw=kw)
+            for n, kw in zip(rng.randint(20, 200, 8),
+                             [{}] * 6 + [dict(method="sample", seed=9),
+                                         dict(method="top_p", top_p=0.9,
+                                              seed=10)])]
+
+    def rec():
+        return sum(metrics.value("mxnet_serving_recoveries_total", site=s)
+                   for s in ("worker", "queue", "decode"))
+
+    gs = GenerationServer(engine_factory=lambda: GenerationEngine(
+        dm, max_slots=4, prefix_slots=0), replicas=2, warmup=True,
+        restart_backoff_ms=10)
+    front = HttpFront(gs)
+    try:
+        clean, _ = gen_http(front.port, reqs)
+        r0 = rec()
+        with faults.fault_plan("serving.worker:after=30:times=1"):
+            faulted, st = gen_http(front.port, reqs)
+        moved = rec() - r0
+    finally:
+        front.close()
+    if faulted != clean or moved < 1:
+        fail(f"worker death: streams equal {faulted == clean}, "
+             f"mxnet_serving_recoveries_total +{moved}")
+    print(f"phase 8: two replicas, a serving.worker fault mid-stream (f32): "
+          f"8 HTTP streams token-identical to the unfaulted pass, indexes "
+          f"contiguous, mxnet_serving_recoveries_total +{int(moved)}; "
+          f"{fmt_gen(st)}", flush=True)
+
+
+def prefill_kernel_rows(torch, dev, attn):
+    """The flash forward at the prefill's shapes, (1, 12, T, 64) causal
+    bf16, T = 128, 512, 1024, against its plain version, timed beside its
+    bound and SDPA's ``is_causal`` (a yardstick the port never calls); and
+    the suffix pass at Pb=256, Sb=128 with one real prefix row under its
+    f32 bias. Returns the T=1024 row."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.transformer import _mask_to_bias
+    gen = torch.Generator().manual_seed(8)
+    errs, row = [], None
+    for T in (128, 512, 1024):
+        q, k, v = qkv_views(torch, dev, 1, T, torch.bfloat16, gen, 64, 12)
+        got = attn.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                   causal=True).transpose(1, 2)
+        ref, _ = attn.flash_attention_reference(q.float(), k.float(),
+                                                v.float(), causal=True)
+        errs.append(check_close("prefill flash forward", f"T={T}", got, ref,
+                                TOL_HALF))
+        ms = kernel_ms(lambda: attn.flash_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)), causal=True),
+            FWD_KERNEL)
+        plain = device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, causal=True))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        b_ms, b_by = attention_bound_ms(1, 12, T, 64, [T], "bfloat16", 2,
+                                        True, None)
+        print(f"phase 8: prefill flash forward (1, 12, {T}, 64) causal bf16: "
+              f"{fmt_ms(ms)} device (bound {b_ms:.6f} ms by {b_by}; plain "
+              f"{fmt_ms(plain)}; SDPA is_causal {fmt_ms(lib)}); max abs err "
+              f"{errs[-1]:.3e}", flush=True)
+        row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib)
+    Pb, Sb, ql = 256, 128, 1
+    q, _, _ = qkv_views(torch, dev, 1, Sb, torch.bfloat16, gen, 64, 12)
+    _, k, v = qkv_views(torch, dev, 1, Pb + Sb, torch.bfloat16, gen, 64, 12)
+    cols = torch.arange(Pb + Sb, device=dev)[None, :]
+    rows = torch.arange(Sb, device=dev)[:, None]
+    vis = (cols < ql) | ((cols >= Pb) & (cols - Pb <= rows))
+    bias = _mask_to_bias(vis[None, None], torch.float32, 1, Sb, Pb + Sb)
+    got = attn.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                               bias=bias, bias_grad=False).transpose(1, 2)
+    ref, _ = attn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            bias=bias)
+    errs.append(check_close("suffix pass", "Pb=256 Sb=128 q=1", got, ref,
+                            TOL_HALF))
+    print(f"phase 8: suffix pass Pb=256 Sb=128, one real prefix row (key "
+          f"tiles masked whole) under its f32 bias: finite, max abs err "
+          f"{errs[-1]:.3e} vs plain", flush=True)
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+def decode_bound_ms(S, H, D, n, elem):
+    """Least time for one decode attention call: each slot's visible K and
+    V rows read once, q read and out written once (bytes; the products are
+    4 * H * D flops a row)."""
+    rows = sum(n)
+    return bound(4.0 * H * D * rows,
+                 elem * (2 * H * D * rows + 2 * S * H * D) + 8 * S,
+                 "bfloat16")
+
+
+def decode_kernel_row(torch, dev, da):
+    """The decode attention kernel at the main path's shape (S=8, H=12,
+    D=64, bucket L=1024, positions 300-1023) against its plain version,
+    timed beside its bound and SDPA over the masked cache (a yardstick)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(9)
+    S, L, H, D = GEN_SLOTS, 1024, 12, 64
+    pos = torch.randint(300, L, (S,), generator=gen)
+    qkv = torch.randn(S, 3 * H * D, generator=gen).to(dev, torch.bfloat16)
+    q = qkv[:, :H * D].reshape(S, H, D)
+    k, v = (torch.randn(S, L, H, D, generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    pd = pos.to(dev)
+    got = da.decode_attention(q, k, v, pd)
+    ref = da.decode_attention_reference(q.float(), k.float(), v.float(), pd)
+    err = check_close("decode attention", "S=8 L=1024", got, ref, TOL_HALF)
+    ms = kernel_ms(lambda: da.decode_attention(q, k, v, pd), DECODE_TIME)
+    plain = device_ms(lambda: da.decode_attention_reference(q, k, v, pd))
+    mask = (torch.arange(L, device=dev)[None, :] <= pd[:, None])[:, None,
+                                                                 None, :]
+    qh, kh, vh = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    b_ms, b_by = decode_bound_ms(S, H, D, (pos + 1).tolist(), 2)
+    print(f"phase 8: decode attention S=8 H=12 D=64 L=1024 bf16 (positions "
+          f"{pos.tolist()}): {fmt_ms(ms)} device (bound {b_ms:.6f} ms by "
+          f"{b_by}; plain {fmt_ms(plain)}; SDPA over the masked cache "
+          f"{fmt_ms(lib)}); max abs err {err:.3e}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def phase_generate(torch, dev):
+    """Phase 8: GPT-2 124M at full width and depth, generating through
+    ``GenerationServer`` (the engine's decode step replayed as CUDA graphs,
+    the prefill on the causal flash forward). Returns (rows, launches) of
+    the flash forward and the decode attention kernel, the launches those
+    of the main path: 16 concurrent requests in process."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import metrics
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    from mxnet_tpu_torch.serving import (DecodeModel, GenerationEngine,
+                                         GenerationServer)
+    t_phase = time.perf_counter()
+    cpu_net, params = gpt_net(torch, "cpu", "float32")
+    net, _ = gpt_net(torch, dev, "bfloat16", params=params)
+    gpt_forward_check(torch, attn, net, cpu_net)
+
+    dm = DecodeModel.from_block(net, device=dev)
+    t = time.perf_counter()
+    server = GenerationServer(GenerationEngine(dm, max_slots=GEN_SLOTS),
+                              warmup=True)
+    warm_s = time.perf_counter() - t
+    compiles0, captures0 = compile_counts(dm)
+    print(f"phase 8: GenerationServer warmup {warm_s:.2f} s: "
+          f"{captures0} CUDA graphs captured (greedy and mixed decode per "
+          f"KV bucket {list(server.engine.grid)}), programs "
+          f"{sorted(compiles0)}", flush=True)
+    reqs = gen_requests()
+    server.start()
+    reset_counts(attn)
+    reset_counts(da)
+    it0 = metrics.value("mxnet_gen_iterations_total")
+    d0 = metrics.hist_stats("mxnet_gen_step_seconds", phase="decode")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        main, st_prof = gen_inprocess(server, reqs)
+        torch.cuda.synchronize()
+    counts = kernel_counts(prof)
+    launches = {"flash_attention_fwd": attn.launches["flash_attention_fwd"],
+                "decode_attention": sum(
+                    c for k, c in counts.items()
+                    if re.search(DECODE_KERNEL, k))}
+    sdpa = [k for k in counts if re.search(SDPA_KERNEL, k)]
+    if launches["flash_attention_fwd"] != 12 * len(reqs) \
+            or not launches["decode_attention"] or sdpa \
+            or attn.padded_copies:
+        fail(f"generation main path: launches {launches} (flash forward "
+             f"{12 * len(reqs)} wanted), SDPA kernels {sdpa}, padded "
+             f"copies {attn.padded_copies}")
+    iters = metrics.value("mxnet_gen_iterations_total") - it0
+    d1 = metrics.hist_stats("mxnet_gen_step_seconds", phase="decode")
+    print(f"phase 8: 16 concurrent requests in process (main path, under "
+          f"the profiler): {fmt_gen(st_prof)}; {int(iters)} iterations, "
+          f"decode step {(d1[0] - d0[0]) / max(d1[1] - d0[1], 1) * 1e3:.4f} "
+          f"ms; launches {launches}", flush=True)
+    runs = {}
+    for label in ("in process", "HTTP"):
+        server.engine.cache.prefix.clear()     # every prefill cold
+        it0 = metrics.value("mxnet_gen_iterations_total")
+        d0 = metrics.hist_stats("mxnet_gen_step_seconds", phase="decode")
+        if label == "HTTP":
+            front = HttpFront(server)
+            try:
+                got, st = gen_http(front.port, reqs)
+            finally:
+                front.close()
+        else:
+            got, st = gen_inprocess(server, reqs)
+        iters = metrics.value("mxnet_gen_iterations_total") - it0
+        d1 = metrics.hist_stats("mxnet_gen_step_seconds", phase="decode")
+        step_ms = (d1[0] - d0[0]) / max(d1[1] - d0[1], 1) * 1e3
+        if got != main:
+            bad = [i for i, (a, b) in enumerate(zip(got, main)) if a != b]
+            fail(f"generation {label}: streams differ from the main run at "
+                 f"requests {bad}")
+        runs[label] = st
+        print(f"phase 8: 16 concurrent requests {label}: {fmt_gen(st)}; "
+              f"{int(iters)} iterations, {st['wall_s'] / max(iters, 1) * 1e3:.4f} "
+              f"ms an iteration, decode step {step_ms:.4f} ms; streams equal "
+              f"to the main run's", flush=True)
+    compiles1, captures1 = compile_counts(dm)
+    moved = {k: v for k, v in compiles1.items()
+             if compiles0.get(k) != v and (k.startswith("decode:")
+                                           or k.startswith("prefill:"))}
+    if moved or captures1 != captures0:
+        fail(f"traffic compiled after warmup: {moved}, captures "
+             f"{captures0} -> {captures1}")
+    worst = greedy_margins(torch, net, reqs, main)
+    print(f"phase 8: 12 greedy streams varied and held to a teacher-forced "
+          f"full forward: worst gap below the row maximum {worst:.4f} "
+          f"(limit {GREEDY_MARGIN}); no capture and no decode/prefill "
+          f"compile after warmup", flush=True)
+
+    decode_step_bits(torch, dm, dev)
+    draft, _ = gpt_net(torch, dev, "bfloat16", num_layers=2, seed=1)
+    gen_speculation(torch, dm, draft, reqs, main)
+    del draft
+
+    net32, _ = gpt_net(torch, dev, "float32", params=params)
+    dm32 = DecodeModel.from_block(net32, device=dev)
+    gen_f32_vs_cpu(torch, dm32, cpu_net)
+    gen_prefix(torch, dm32)
+    gen_recovery(torch, dm32)
+    del net32, dm32, cpu_net
+    torch.cuda.empty_cache()
+
+    rows = {"flash_attention_fwd": prefill_kernel_rows(torch, dev, attn),
+            "decode_attention": decode_kernel_row(torch, dev, da)}
+    print(f"phase 8: generation done in {time.perf_counter() - t_phase:.1f} "
+          f"s; card: {smi_line()}", flush=True)
+    return rows, launches
+
+
 def initialize_check(torch) -> None:
     """Phase 1: MXNet's ``initialize()`` with no arguments puts a block's
     parameters on the current context, ``cuda:0``."""
@@ -4170,9 +4922,11 @@ def initialize_check(torch) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "rtc"], default=None,
+    ap.add_argument("--only", choices=["kernels", "rtc", "generate"],
+                    default=None,
                     help="kernels: stop after the kernel checks (phases "
-                    "1-3); rtc: phases 1 and 7 only")
+                    "1-3); rtc: phases 1 and 7 only; generate: phases 1, "
+                    "2 and 8 (GPT-2 generation)")
     ap.add_argument("--probe-fwd", action="store_true",
                     help="after phase 3, time the flash forward against "
                     "builds of it with one part cut out")
@@ -4225,17 +4979,18 @@ def main() -> int:
         for kname in _kernels.KERNEL_SOURCES:
             print_ptxas(kname, _kernels._target(kname).with_suffix(".log"))
 
-        # phase 3
-        rows = phase_kernels(torch, dev)
-        from mxnet_tpu_torch.ops.cuda import attention as attn
-        if args.probe_fwd:
-            forward_probe(torch, dev, attn)
-        if args.probe_bwd:
-            backward_probe(torch, dev, attn)
-        if args.probe_conv:
-            conv_probe(torch, dev)
+        rows, launches = {}, {n: None for n in KERNEL_INFO}
+        if args.only != "generate":
+            # phase 3
+            rows = phase_kernels(torch, dev)
+            from mxnet_tpu_torch.ops.cuda import attention as attn
+            if args.probe_fwd:
+                forward_probe(torch, dev, attn)
+            if args.probe_bwd:
+                backward_probe(torch, dev, attn)
+            if args.probe_conv:
+                conv_probe(torch, dev)
 
-        launches = {n: None for n in KERNEL_INFO}
         if args.only is None:
             serve = phase_bert(torch, dev)
             train, _ = phase_train(torch, dev)
@@ -4253,9 +5008,24 @@ def main() -> int:
             if missing:
                 fail(f"kernels never launched on the ResNet-50 path: "
                      f"{missing}")
+        names = list(KERNEL_INFO)
+        if args.only in (None, "generate"):
+            # phase 8 (after phase 6; phase 7 follows)
+            gen_rows, gen_launches = phase_generate(torch, dev)
+            if args.only == "generate":
+                names = ["flash_attention_fwd"]
+                rows["flash_attention_fwd"] = gen_rows["flash_attention_fwd"]
+                launches["flash_attention_fwd"] = 0
+            launches["flash_attention_fwd"] += \
+                gen_launches["flash_attention_fwd"]
         entries += [dict(name=n, route="cuda", source=KERNEL_INFO[n][0],
                          replaces=KERNEL_INFO[n][1], launches=launches[n],
-                         **rows[n]) for n in KERNEL_INFO]
+                         **rows[n]) for n in names]
+        if args.only in (None, "generate"):
+            entries += [dict(name=n, route="cuda", source=GEN_INFO[n][0],
+                             replaces=GEN_INFO[n][1],
+                             launches=gen_launches[n], **gen_rows[n])
+                        for n in GEN_INFO]
 
     if args.only in (None, "rtc"):
         # phase 7

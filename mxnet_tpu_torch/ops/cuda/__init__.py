@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version:
 flash attention (``attention``), the prologue-fused 1x1 convolution
 (``conv_fused``), BatchNorm's training forward and backward
-(``batch_norm``) and the trainer's multi-tensor optimizer update
-(``multi_tensor``)."""
+(``batch_norm``), the trainer's multi-tensor optimizer update
+(``multi_tensor``) and the generation engine's one-token decode attention
+(``decode_attention``)."""

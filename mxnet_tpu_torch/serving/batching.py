@@ -12,7 +12,9 @@ the same padding, bucket and shedding rules:
 * during a drain (:meth:`DynamicBatcher.start_drain`) a new request is
   shed at submit while queued ones keep flowing.
 
-Shed requests fail with :class:`OverloadError`. The serving families of
+Shed requests fail with :class:`OverloadError`. :class:`SlotScheduler` is
+the generation engine's prefill queue and decode slot table
+(``batching.py:463``), with the same shed rules. The serving families of
 the JAX package (``batching.py:213-238``) are declared here and fed as
 there; each request captures the submitter's trace context, and its
 queue wait is a retroactive ``queue.wait`` span in that trace.
@@ -29,7 +31,8 @@ from .. import metrics as _metrics
 from .. import tracing as _tracing
 from ..base import MXNetError, getenv, register_env
 
-__all__ = ["BucketPolicy", "DynamicBatcher", "OverloadError", "Request"]
+__all__ = ["BucketPolicy", "DynamicBatcher", "OverloadError", "Request",
+           "SlotScheduler"]
 
 register_env("MXNET_SERVING_MAX_BATCH", 32,
              "Largest micro-batch the serving batcher assembles (also the "
@@ -413,3 +416,179 @@ class DynamicBatcher:
                 if self._closed:
                     return None
                 self._nonempty.wait()
+
+
+class SlotScheduler:
+    """Prefill queue + decode slot table — the iteration-level scheduler
+    behind :class:`~mxnet_tpu_torch.serving.generation.GenerationEngine`.
+
+    * **prefill** — a BOUNDED FIFO of not-yet-admitted requests: a full
+      queue sheds the newcomer at submit (``queue_full``); a request whose
+      deadline passed while waiting for a slot is shed at admission time
+      (``deadline``).
+    * **decode** — the slot table: admitted requests occupy a slot until
+      retirement (EOS / max-tokens / error) frees it. The engine drains
+      admissions between decode iterations.
+
+    Requests are duck-typed: they carry ``deadline_t`` (monotonic or None),
+    ``enqueue_t``, and ``fail(exc)`` / ``is_cancelled()``.
+    """
+
+    def __init__(self, max_slots: int,
+                 queue_limit: Optional[int] = None) -> None:
+        if queue_limit is None:
+            queue_limit = int(getenv("MXNET_SERVING_QUEUE_LIMIT", 256))
+        self.max_slots = int(max_slots)
+        self.queue_limit = int(queue_limit)
+        self._q: List[Any] = []
+        self._active: Dict[int, Any] = {}       # slot -> request
+        # popped for admission but not yet slot-resident (prefill in
+        # flight): counted so a drain poll never sees a false idle
+        self._mid_admission = 0
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._closed = False
+
+    # -- prefill queue ------------------------------------------------------
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+    def submit(self, req: Any, front: bool = False,
+               force: bool = False) -> None:
+        """Enqueue for admission, or shed immediately (OverloadError
+        failed onto the request AND raised). ``force`` bypasses the
+        queue_full shed and ``front`` queue-jumps — the recovery path."""
+        with self._lock:
+            if self._closed:
+                raise MXNetError("generation scheduler is closed")
+            if not force and len(self._q) >= self.queue_limit:
+                # abandoned (cancelled-while-queued) entries must not
+                # hold queue_full sheds high
+                self._q[:] = [r for r in self._q if not r.is_cancelled()]
+            if not force and len(self._q) >= self.queue_limit:
+                depth = len(self._q)
+                err = OverloadError("queue_full", queue_depth=depth,
+                                    retry_after_ms=100.0 * max(1, depth))
+                SHED_TOTAL.labels(reason="queue_full").inc()
+                REQUESTS_TOTAL.labels(status="shed").inc()
+                req.fail(err)
+                raise err
+            if front:
+                self._q.insert(0, req)
+            else:
+                self._q.append(req)
+            _metrics.GEN_QUEUE_DEPTH.set(len(self._q))
+            self._work.notify_all()
+
+    def discard(self, req: Any) -> bool:
+        """Evict a still-queued request now (consumer cancelled). Returns
+        True when the request was found queued."""
+        with self._lock:
+            try:
+                self._q.remove(req)
+            except ValueError:
+                return False
+            _metrics.GEN_QUEUE_DEPTH.set(len(self._q))
+        REQUESTS_TOTAL.labels(status="cancelled").inc()
+        return True
+
+    def drain_queue(self) -> List[Any]:
+        """Pop every queued request WITHOUT failing it (worker-death
+        evacuation); also clears the mid-admission count."""
+        with self._lock:
+            out, self._q[:] = list(self._q), []
+            self._mid_admission = 0
+            _metrics.GEN_QUEUE_DEPTH.set(0)
+            return out
+
+    def pop_admissions(self, free_slots: int,
+                       now: Optional[float] = None) -> List[Any]:
+        """Up to ``free_slots`` admissible requests, FIFO; expired or
+        cancelled entries are shed / dropped in passing."""
+        if now is None:
+            now = time.monotonic()
+        out: List[Any] = []
+        with self._lock:
+            keep: List[Any] = []
+            for r in self._q:
+                if r.is_cancelled():
+                    continue
+                if r.deadline_t is not None and now > r.deadline_t:
+                    err = OverloadError("deadline",
+                                        queue_depth=len(self._q),
+                                        retry_after_ms=100.0)
+                    SHED_TOTAL.labels(reason="deadline").inc()
+                    REQUESTS_TOTAL.labels(status="shed").inc()
+                    r.fail(err)
+                    continue
+                if len(out) < free_slots:
+                    out.append(r)
+                    tr = getattr(r, "trace", None)
+                    if tr is not None:
+                        # submit -> admission pop = the slot wait
+                        pc = time.perf_counter()
+                        _tracing.record_span(
+                            "queue.wait", pc - (now - r.enqueue_t),
+                            pc, ctx=tr)
+                else:
+                    keep.append(r)
+            self._q[:] = keep
+            self._mid_admission += len(out)
+            _metrics.GEN_QUEUE_DEPTH.set(len(self._q))
+        return out
+
+    def admission_done(self) -> None:
+        """One popped request landed (activated or failed)."""
+        with self._lock:
+            self._mid_admission = max(0, self._mid_admission - 1)
+
+    def busy(self) -> bool:
+        """Anything queued, slot-resident, or mid-admission."""
+        with self._lock:
+            return bool(self._q or self._active or self._mid_admission)
+
+    # -- decode slot table --------------------------------------------------
+    def activate(self, slot: int, req: Any) -> None:
+        with self._lock:
+            self._active[int(slot)] = req
+
+    def release(self, slot: int) -> Any:
+        with self._lock:
+            return self._active.pop(int(slot), None)
+
+    def active(self) -> Dict[int, Any]:
+        with self._lock:
+            return dict(self._active)
+
+    def n_active(self) -> int:
+        with self._lock:
+            return len(self._active)
+
+    # -- engine-loop blocking ----------------------------------------------
+    def wait_for_work(self, timeout: float) -> bool:
+        """Block until there is anything to do (queued request, active
+        slot, or close); returns False once closed AND drained."""
+        with self._lock:
+            if not self._q and not self._active and not self._closed:
+                self._work.wait(timeout)
+            return not (self._closed and not self._q
+                        and not self._active)
+
+    def close(self) -> None:
+        """Stop admissions; queued requests fail with a shutdown error.
+        Active slots are the engine's to fail (it owns the streams)."""
+        with self._lock:
+            self._closed = True
+            for r in self._q:
+                r.fail(MXNetError(
+                    "generation scheduler closed with the request "
+                    "still queued (shutdown)"))
+                REQUESTS_TOTAL.labels(status="error").inc()
+            self._q.clear()
+            _metrics.GEN_QUEUE_DEPTH.set(0)
+            self._work.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed

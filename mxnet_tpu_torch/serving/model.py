@@ -27,12 +27,18 @@ second its CUDA-graph capture: the bucket's "compile"), and each batch's
 wall time into ``mxnet_serving_inference_seconds`` with the current trace
 id as its exemplar. :meth:`ServedModel.exec_cache_stats` reports the
 signatures seen (``size``), the batches that ran a seen one (``hits``)
-and the first executions (``misses``). The decode path (``DecodeModel``)
-is ROADMAP Queue A 5.
+and the first executions (``misses``).
+
+:class:`DecodeModel` is the stateful autoregressive path of the generation
+engine (``model.py:260-880``): a prompt pass per prompt bucket on the flash
+forward kernel, and a one-token decode step over every slot of a
+:class:`~mxnet_tpu_torch.serving.kv_cache.PagedKVCache`, replayed on the
+card as one CUDA graph per KV bucket.
 """
 from __future__ import annotations
 
 import base64
+import contextlib
 import io
 import json
 import os
@@ -47,9 +53,14 @@ from .. import tracing as _tracing
 from .._durable import sha256_bytes, sha256_file
 from ..base import MXNetError
 from ..context import as_device
+from ..gluon.block import _GRAPH_LOCK
+from ..gluon.model_zoo.generation import (METHOD_CODES,  # noqa: F401
+                                          _block_prefill, _collect, _embed,
+                                          _head, _sample_tokens,
+                                          _slot_block_step)
 from .batching import BUCKET_COMPILES, INFER_SECONDS, BucketPolicy
 
-__all__ = ["ServedModel"]
+__all__ = ["ServedModel", "DecodeModel", "METHOD_CODES"]
 
 # what HybridBlock.export writes into ``framework``
 EXPORT_FRAMEWORK = "mxnet_tpu_torch"
@@ -274,6 +285,513 @@ class ServedModel:
                            for s, d in self.input_signature],
                 "fixed_batch": self.fixed_batch,
                 "buckets_compiled": sorted(_sig_str(s) for s in seen)}
+
+
+# ---------------------------------------------------------------------------
+# DecodeModel — the stateful autoregressive path (continuous batching)
+# ---------------------------------------------------------------------------
+
+class _CaptureGate:
+    """Orders the decode graphs' captures against the generation path's
+    other work on the card, across the threads of a process. While a
+    stream captures, PyTorch refuses a copy between pageable host memory
+    and the card on every thread, and a device-wide synchronize ends the
+    capture; a restarted replica captures its grid while the survivors
+    serve. So a capture (:meth:`exclusive`) waits until no prompt pass,
+    step or lane upload (:meth:`shared`, any number at once) runs, and new
+    ones wait until it ends. A thread that captures while it holds a
+    share gives the share up while it waits. Take the gate before the
+    graph lock, never while holding it."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._shares = 0          # threads inside shared()
+        self._pending = 0         # captures waiting or running
+        self._capturing = False
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._local, "depth", 0)
+        if not depth:
+            with self._cond:
+                while self._pending:
+                    self._cond.wait()
+                self._shares += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if not depth:
+                with self._cond:
+                    self._shares -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        held = getattr(self._local, "depth", 0) > 0
+        with self._cond:
+            self._shares -= held
+            self._pending += 1
+            self._cond.notify_all()
+            while self._shares or self._capturing:
+                self._cond.wait()
+            self._capturing = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._capturing = False
+                self._pending -= 1
+                self._shares += held
+                self._cond.notify_all()
+
+
+_GATE = _CaptureGate()
+
+
+class _Sampling:
+    """Per-slot sampling lanes (seed, counter base, temperature, top_k,
+    top_p, method): the host arrays, their device mirrors, and whether any
+    lane samples (the host picks the greedy or the mixed graph from it)."""
+
+    __slots__ = ("host", "dev", "mixed")
+
+    def __init__(self, host: Sequence[Any], device: torch.device) -> None:
+        kinds = (_np.int64, _np.int64, _np.float32, _np.int64, _np.float32,
+                 _np.int64)
+        self.host = tuple(_np.asarray(a).astype(k)
+                          for a, k in zip(host, kinds))
+        with _GATE.shared():
+            self.dev = tuple(torch.from_numpy(a).to(device)
+                             for a in self.host)
+        self.mixed = bool((self.host[5] != 0).any())
+
+
+class _StepIO:
+    """The static inputs every decode graph of one cache reads: tokens of
+    each width, positions, the sampling lanes and each bucket's flat slot
+    rows. Each replay copies its inputs in first."""
+
+    def __init__(self, S: int, device: torch.device) -> None:
+        self.S, self.device = S, device
+        self.toks: Dict[int, torch.Tensor] = {}
+        self.pos = torch.zeros((S,), dtype=torch.int64, device=device)
+        z = torch.zeros((S,), dtype=torch.int64, device=device)
+        self.samp = [z, z.clone(), torch.ones((S,), device=device),
+                     torch.ones_like(z), torch.ones((S,), device=device),
+                     z.clone()]
+        self.samp_src: Optional[_Sampling] = None
+        self.flat: Dict[int, torch.Tensor] = {}
+
+    def tokens(self, width: int) -> torch.Tensor:
+        if width not in self.toks:
+            self.toks[width] = torch.zeros((self.S, width),
+                                           dtype=torch.int64,
+                                           device=self.device)
+        return self.toks[width]
+
+    def flat_rows(self, L: int) -> torch.Tensor:
+        if L not in self.flat:
+            self.flat[L] = torch.arange(self.S, dtype=torch.int64,
+                                        device=self.device) * L
+        return self.flat[L]
+
+
+class DecodeModel:
+    """The decode-capable serving path: a stateful ``(cache, tokens,
+    positions) -> next tokens`` step over slot rows, plus a prompt pass per
+    prompt bucket — the programs the continuous-batching
+    :class:`~mxnet_tpu_torch.serving.generation.GenerationEngine` runs.
+
+    Built from a live :class:`~mxnet_tpu_torch.gluon.model_zoo.gpt.GPTModel`
+    (:meth:`from_block`); the parameters are read in place and the math is
+    the zoo's (``model_zoo.generation``), extended to per-slot positions:
+
+    * :meth:`prefill` and :meth:`prefill_suffix` run eagerly, their
+      attention on the flash forward kernel (causal; the suffix pass
+      non-causal under the visibility mask as an f32 bias);
+    * :meth:`step` (one token per slot), :meth:`verify` (``K1`` chained
+      repetitions of exactly the step's computation) and the drafts'
+      proposal chains replay on the card one CUDA graph per (bucket,
+      width, greedy or mixed sampling), captured over the cache's
+      buffers and static inputs (:class:`_StepIO`) the first time each is
+      met; :meth:`warmup` captures the whole grid. A capture that fails
+      raises. On the CPU each call runs eagerly.
+
+    Compile accounting rides the per-bucket counter of the one-shot path
+    (``mxnet_serving_bucket_compiles_total``, labels ``decode:SxL``,
+    ``verify:SxLxK1``, ``draft:SxLxk``, ``prefill:Lp``,
+    ``prefill_sfx:PbxSb``): a label's first call counts, as in the JAX
+    package. :attr:`captures` counts CUDA graph captures.
+    """
+
+    def __init__(self, params: Dict[str, Any], num_heads: int,
+                 ga: Tuple[Any, Any], max_length: int, name: str) -> None:
+        self.params = params
+        self.num_heads = int(num_heads)
+        self.ga = (bool(ga[0]), float(ga[1]))
+        self.max_length = int(max_length)
+        self.name = name
+        self.vocab_size, self.units = (int(n) for n in
+                                       params["embed"].shape)
+        self.head_dim = self.units // self.num_heads
+        self.n_layers = len(params["blocks"])
+        self.dtype = params["blocks"][0]["qkv_w"].dtype
+        self.device = params["embed"].device
+        self.captures = 0
+        self._seen_lock = threading.Lock()
+        self._seen: set = set()
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    def from_block(block: Any, device: Any = None) -> "DecodeModel":
+        """Build from a live zoo ``GPTModel`` on ``device`` (``cuda:0`` by
+        default; ``device="cpu"`` for the CPU): the block is moved there
+        and put in predict mode; its weights are read in place."""
+        if not hasattr(block, "blocks") or not hasattr(block, "word_embed"):
+            raise MXNetError(
+                f"DecodeModel serves decoder-only zoo LMs (GPTModel); "
+                f"got {type(block).__name__}")
+        block.to(as_device(device))
+        block.eval()
+        params = _collect(block)
+        ga = (params.pop("gelu_approx"), params.pop("ln_eps"))
+        nh = params.pop("num_heads")
+        return DecodeModel(params, nh, ga, block._max_length,
+                           type(block).__name__)
+
+    # -- accounting ---------------------------------------------------------
+    def _account(self, tag: str) -> None:
+        with self._seen_lock:
+            new = tag not in self._seen
+            if new:
+                self._seen.add(tag)
+        if new:
+            BUCKET_COMPILES.labels(bucket=tag).inc()
+
+    def _observe(self, phase: str, t0: float) -> None:
+        from .. import metrics as _metrics
+        _metrics.GEN_STEP_SECONDS.labels(phase=phase).observe(
+            time.perf_counter() - t0, exemplar=_tracing.current_trace_id())
+
+    def _sync(self) -> None:
+        # this thread's stream only: the other replicas' work goes on
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # -- prompt passes ------------------------------------------------------
+    def _padded(self, tokens: Any, bucket_len: int, what: str):
+        toks = _np.asarray(tokens, _np.int64).reshape(-1)
+        t0 = toks.shape[0]
+        if t0 < 1:
+            raise MXNetError(f"empty {what}")
+        if bucket_len < t0:
+            raise MXNetError(
+                f"{what} length {t0} exceeds its bucket {bucket_len}")
+        padded = _np.zeros((bucket_len,), _np.int64)
+        padded[:t0] = toks
+        return torch.from_numpy(padded), t0
+
+    def prefill(self, tokens: Any, bucket_len: int
+                ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                           List[torch.Tensor]]:
+        """Run the prompt pass padded to ``bucket_len``; returns
+        (last-token logits (V,) on the device, per-layer ks/vs
+        (bucket_len, nh, d)). Its attention is the flash forward kernel,
+        causal, one launch a layer."""
+        toks, t0 = self._padded(tokens, bucket_len, "prompt")
+        self._account(f"prefill:{bucket_len}")
+        t = time.perf_counter()
+        p = self.params
+        with _GATE.shared(), torch.inference_mode():
+            toks = toks.to(self.device)
+            x = p["embed"][toks][None] + p["pos"][:bucket_len][None]
+            ks, vs = [], []
+            for bp in p["blocks"]:
+                x, kh, vh = _block_prefill(bp, x, self.num_heads, self.ga)
+                ks.append(kh[0])
+                vs.append(vh[0])
+            logits = _head(p, x[0, t0 - 1], self.ga[1])
+            self._sync()
+        self._observe("prefill", t)
+        return logits, ks, vs
+
+    def prefill_suffix(self, tokens: Any, prefix_ks: List[torch.Tensor],
+                       prefix_vs: List[torch.Tensor], q: int,
+                       bucket_len: int
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                  List[torch.Tensor]]:
+        """The prompt pass over only the SUFFIX ``tokens`` (real positions
+        ``q..q+len``) against resident prefix rows (Pb, nh, d) — the
+        shared-prefix admission path. Suffix row i sees the real prefix
+        rows (< q) and the suffix rows up to itself: that mask, as a
+        (1, 1, Sb, Pb + Sb) f32 bias of ``finfo.min``, goes to the flash
+        forward with the prefix and suffix rows joined. Returns
+        (last-real-token logits (V,), per-layer suffix ks/vs
+        (bucket_len, nh, d))."""
+        from ..ops.transformer import _mask_to_bias
+        toks, t0 = self._padded(tokens, bucket_len, "prompt suffix")
+        Pb, Sb, q = int(prefix_ks[0].shape[0]), int(bucket_len), int(q)
+        self._account(f"prefill_sfx:{Pb}x{Sb}")
+        t = time.perf_counter()
+        p = self.params
+        with _GATE.shared(), torch.inference_mode():
+            toks = toks.to(self.device)
+            cols = torch.arange(Pb + Sb, device=self.device)[None, :]
+            rows = torch.arange(Sb, device=self.device)[:, None]
+            vis = (cols < q) | ((cols >= Pb) & (cols - Pb <= rows))
+            bias = _mask_to_bias(vis[None, None], torch.float32, 1, Sb,
+                                 Pb + Sb)
+            x = p["embed"][toks][None] + p["pos"][q:q + Sb][None]
+            ks, vs = [], []
+            for bp, pk, pv in zip(p["blocks"], prefix_ks, prefix_vs):
+                x, kh, vh = _block_prefill(bp, x, self.num_heads, self.ga,
+                                           bias=bias, prefix=(pk, pv))
+                ks.append(kh[0])
+                vs.append(vh[0])
+            logits = _head(p, x[0, t0 - 1], self.ga[1])
+            self._sync()
+        self._observe("prefill", t)
+        return logits, ks, vs
+
+    # -- sampling lanes -----------------------------------------------------
+    def greedy_sampling(self, n_slots: int) -> Tuple[_np.ndarray, ...]:
+        """All-greedy per-slot sampling vectors (seed, counter base,
+        temperature, top_k, top_p, method)."""
+        return (_np.zeros((n_slots,), _np.int32),
+                _np.zeros((n_slots,), _np.int32),
+                _np.ones((n_slots,), _np.float32),
+                _np.ones((n_slots,), _np.int32),
+                _np.ones((n_slots,), _np.float32),
+                _np.zeros((n_slots,), _np.int32))
+
+    def device_sampling(self, sampling: Sequence[_np.ndarray]) -> _Sampling:
+        """Device mirrors of the per-slot sampling vectors. The engine
+        keeps the result across iterations (the lanes change only at
+        admission / retirement): a step copies lanes into its graph's
+        inputs only when it is handed another object."""
+        return _Sampling(sampling, self.device)
+
+    def select(self, logits: Any, seed: int, counter: int,
+               temperature: float, top_k: int, top_p: float,
+               method: int) -> int:
+        """First-token selection over prefill logits — the single-row twin
+        of the in-step sampler (same function, same (seed, counter) key),
+        so a sequence's token at index ``i`` is the same whichever pass
+        emitted it."""
+        with _GATE.shared(), torch.inference_mode():
+            lg = torch.as_tensor(logits, device=self.device)[None]
+
+            def one(val, dtype):
+                return torch.full((1,), val, dtype=dtype,
+                                  device=self.device)
+
+            tok = _sample_tokens(
+                lg, one(seed, torch.int64), one(counter, torch.int64),
+                one(temperature, torch.float32), one(top_k, torch.int64),
+                one(top_p, torch.float32), one(method, torch.int64),
+                mixed=int(method) != 0)
+            return int(tok[0])
+
+    # -- the decode programs ------------------------------------------------
+    def _steps(self, cache: Any, layers: int, n_sub: int, feed: bool,
+               mixed: bool, width: int) -> torch.Tensor:
+        """``n_sub`` chained one-token steps over every slot of ``cache``
+        through the first ``layers`` blocks, reading the static inputs of
+        ``cache.io``: sub-step j writes K/V at pos + j and draws under
+        counter pos + j - base; ``feed`` feeds each output token back in
+        (a draft chain), else column j of the tokens is sub-step j's input
+        (verify). Returns (S, n_sub) int64."""
+        p, io = self.params, cache.io
+        flat = io.flat_rows(cache.bucket)
+        toks = io.tokens(width)
+        seeds, bases, temps, topks, topps, methods = io.samp
+        cur = toks[:, 0]
+        outs = []
+        for j in range(n_sub):
+            if not feed:
+                cur = toks[:, j]
+            pos = io.pos + j
+            x = _embed(p, cur, pos)
+            for bp, ck, cv in zip(p["blocks"][:layers], cache._k,
+                                  cache._v):
+                x = _slot_block_step(bp, x, ck, cv, pos, self.num_heads,
+                                     self.ga, flat)
+            cur = _sample_tokens(_head(p, x, self.ga[1]), seeds,
+                                 pos - bases, temps, topks, topps, methods,
+                                 mixed)
+            outs.append(cur)
+        return torch.stack(outs, 1)
+
+    def _run(self, cache: Any, kind: str, tokens: _np.ndarray,
+             positions: Any, sampling: Any, n_sub: int, feed: bool,
+             layers: Optional[int] = None, graph: bool = True
+             ) -> _np.ndarray:
+        """Copy the inputs into ``cache.io`` and run :meth:`_steps`: on the
+        card by replaying its CUDA graph (captured here the first time this
+        (kind, bucket, width, layers, mixed) is met), eagerly on the CPU or
+        with ``graph=False``."""
+        S = cache.max_slots
+        layers = self.n_layers if layers is None else int(layers)
+        if sampling is None:
+            sampling = self.greedy_sampling(S)
+        if not isinstance(sampling, _Sampling):
+            sampling = self.device_sampling(sampling)
+        toks = _np.asarray(tokens, _np.int64).reshape(S, -1)
+        width = toks.shape[1]
+        pos = _np.asarray(positions, _np.int64).reshape(S)
+        with _GATE.shared(), torch.inference_mode():
+            if cache.io is None:
+                cache.io = _StepIO(S, cache.device)
+            io = cache.io
+            io.tokens(width).copy_(torch.from_numpy(toks))
+            io.pos.copy_(torch.from_numpy(pos))
+            if io.samp_src is not sampling:
+                for dst, src in zip(io.samp, sampling.dev):
+                    dst.copy_(src)
+                io.samp_src = sampling
+            args = (cache, layers, n_sub, feed, sampling.mixed, width)
+            if cache.device.type != "cuda" or not graph:
+                return self._steps(*args).cpu().numpy()
+            key = (kind, cache.bucket, width, n_sub, feed, layers,
+                   sampling.mixed)
+            # only this engine's thread touches its cache; the graph lock
+            # covers the capture and the replay's launch, not the readback
+            entry = cache.graphs.get(key)
+            if entry is None:
+                with _GATE.exclusive(), _GRAPH_LOCK:
+                    entry = cache.graphs[key] = self._capture(key, args)
+            with _GRAPH_LOCK:
+                entry[0].replay()
+            return entry[1].cpu().numpy()
+
+    def _capture(self, key: Tuple[Any, ...], args: Tuple[Any, ...]):
+        """One eager run (it initialises the libraries' handles and writes
+        exactly what the replay writes), then the capture."""
+        self._steps(*args)
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                out = self._steps(*args)
+        except Exception as e:
+            raise MXNetError(
+                f"DecodeModel: capturing the {key[0]} graph for KV bucket "
+                f"{key[1]} (width {key[2]}, {key[5]} layers, "
+                f"{'mixed' if key[6] else 'greedy'} sampling) failed: "
+                f"{type(e).__name__}: {e}") from e
+        self.captures += 1
+        return g, out
+
+    def step(self, cache: Any, tokens: Any, positions: Any,
+             sampling: Optional[Any] = None, graph: bool = True
+             ) -> _np.ndarray:
+        """One decode iteration over every slot: writes each slot's K/V
+        row at its position in place and returns the (S,) int32 next
+        tokens (greedy or sampled per slot — ``sampling`` is the (seeds,
+        counter bases, temperatures, top_ks, top_ps, methods) vectors or
+        :meth:`device_sampling`'s mirror; None means all-greedy).
+        ``graph=False`` runs the same computation eagerly on the card."""
+        S = cache.max_slots
+        self._account(f"decode:{S}x{cache.bucket}")
+        t = time.perf_counter()
+        out = self._run(cache, "decode", tokens, positions, sampling, 1,
+                        True, graph=graph)
+        self._observe("decode", t)
+        return out[:, 0].astype(_np.int32)
+
+    def verify(self, cache: Any, tokens: Any, positions: Any,
+               sampling: Optional[Any] = None, graph: bool = True
+               ) -> _np.ndarray:
+        """One speculative verification pass over every slot: ``tokens``
+        is (S, k+1) — column 0 each slot's last emitted token, columns 1..
+        the draft proposals — and the return is the (S, k+1) int32 target
+        tokens for those positions, each the bits ``step`` would have
+        produced there (K1 repetitions of the step's computation in one
+        graph). The cache gains k+1 rows per slot from ``positions``; the
+        caller rolls rejected rows back (``cache.truncate``)."""
+        S = cache.max_slots
+        toks = _np.asarray(tokens, _np.int64)
+        if toks.ndim != 2 or toks.shape[0] != S or toks.shape[1] < 2:
+            raise MXNetError(
+                f"verify wants an (S, k+1) token matrix with k >= 1; "
+                f"got shape {toks.shape} for {S} slots")
+        self._account(f"verify:{S}x{cache.bucket}x{toks.shape[1]}")
+        t = time.perf_counter()
+        out = self._run(cache, "verify", toks, positions, sampling,
+                        toks.shape[1], False, graph=graph)
+        self._observe("verify", t)
+        return out.astype(_np.int32)
+
+    def warmup(self, cache: Any, prompt_buckets: Sequence[int],
+               suffix_pairs: bool = True) -> int:
+        """Run the whole program grid once: a prefill per prompt bucket, a
+        suffix prefill per reachable (prefix bucket, suffix bucket) pair,
+        the first-token selector, and the decode step per KV bucket with
+        all-greedy and with mixed sampling lanes (on the card each of the
+        two is captured). Afterwards traffic inside the grids captures
+        nothing. Leaves the cache on its smallest bucket, zeroed."""
+        n = 0
+        for pb in prompt_buckets:
+            self.prefill(_np.zeros((1,), _np.int64), int(pb))
+            n += 1
+        self.select(torch.zeros((self.vocab_size,), dtype=self.dtype),
+                    seed=0, counter=0, temperature=1.0, top_k=1,
+                    top_p=1.0, method=0)
+        n += 1
+        if suffix_pairs:
+            top = max(int(pb) for pb in prompt_buckets)
+            for Pb in prompt_buckets:
+                rows = [torch.zeros((int(Pb), self.num_heads,
+                                     self.head_dim), dtype=self.dtype,
+                                    device=self.device)
+                        for _ in range(self.n_layers)]
+                for Sb in prompt_buckets:
+                    if int(Pb) + int(Sb) > top:
+                        # unreachable: entries hold bucket-aligned
+                        # prefixes and the admission rule bounds q + Sb
+                        # by the top prompt bucket
+                        continue
+                    self.prefill_suffix(_np.zeros((1,), _np.int64), rows,
+                                        rows, q=1, bucket_len=int(Sb))
+                    n += 1
+        S = cache.max_slots
+        zeros = _np.zeros((S,), _np.int64)
+        for b in cache.grid:
+            # walk the grid directly (not via grow(): warmup must not
+            # count as live migrations)
+            cache._use(b)
+            for lanes in warm_lanes(self, S):
+                self.step(cache, zeros, zeros, lanes)
+            cache.reset_buffers()
+            n += 1
+        cache._use(cache.grid[0])
+        return n
+
+    def describe(self) -> Dict[str, Any]:
+        with self._seen_lock:
+            seen = sorted(self._seen)
+        return {
+            "name": self.name,
+            "kind": "decode",
+            "vocab_size": int(self.vocab_size),
+            "units": int(self.units),
+            "layers": self.n_layers,
+            "heads": self.num_heads,
+            "max_length": self.max_length,
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "programs_compiled": seen,
+        }
+
+
+def warm_lanes(model: DecodeModel, S: int) -> Tuple[Any, Any]:
+    """The two sampling-lane sets warmup runs each program with: all
+    greedy, and slot 0 sampling (the greedy and the mixed graph)."""
+    greedy = model.greedy_sampling(S)
+    mixed = tuple(a.copy() for a in greedy)
+    mixed[5][0] = 1
+    return model.device_sampling(greedy), model.device_sampling(mixed)
 
 
 def _guess_param_file(symbol_file: str) -> Optional[str]:

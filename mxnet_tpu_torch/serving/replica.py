@@ -20,7 +20,7 @@ from __future__ import annotations
 import random
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from .. import metrics as _metrics
 from .. import tracing as _tracing
@@ -103,6 +103,7 @@ class ReplicaSupervisor:
         self._on_degraded = on_degraded
         self._alive = alive_fn
         self._lock = threading.Lock()
+        self._threads: List[threading.Thread] = []
         self._stopped = False
         self._degraded = False
         self._state: Dict[int, _ReplicaState] = {
@@ -120,6 +121,11 @@ class ReplicaSupervisor:
             return sum(1 for rid, st in self._state.items()
                        if st.pending or (not st.tripped
                                          and self._alive(rid)))
+
+    def any_pending(self) -> bool:
+        """A restart is scheduled or backing off for some replica."""
+        with self._lock:
+            return any(st.pending for st in self._state.values())
 
     def notify_death(self, rid: int, exc: BaseException) -> bool:
         """A replica's worker died. Returns True when a restart was
@@ -142,9 +148,13 @@ class ReplicaSupervisor:
                 BREAKER_OPEN.labels(server=self.label).set(1)
                 self._on_degraded(exc)
             return False
-        threading.Thread(target=self._restart_after, args=(rid, delay),
-                         name=f"mxnet-serving-restart-{self.label}-{rid}",
-                         daemon=True).start()
+        t = threading.Thread(target=self._restart_after, args=(rid, delay),
+                             name=f"mxnet-serving-restart-{self.label}-{rid}",
+                             daemon=True)
+        with self._lock:
+            self._threads = [th for th in self._threads if th.is_alive()]
+            self._threads.append(t)
+        t.start()
         return True
 
     def _restart_after(self, rid: int, delay: float) -> None:
@@ -182,6 +192,15 @@ class ReplicaSupervisor:
             self._stopped = True
             for st in self._state.values():
                 st.pending = False
+
+    def join(self, timeout: float) -> None:
+        """Wait up to ``timeout`` seconds for restarts already under way (a
+        respawn that builds and warms an engine runs device work)."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
 
     def describe(self) -> Dict[str, Any]:
         with self._lock:

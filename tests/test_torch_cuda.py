@@ -66,6 +66,22 @@ shapes, with and without dropout; a served BERT's replays unchanged by it;
 an exported BERT (``HybridBlock.export`` -> ``ServedModel.from_export``)
 launching the kernel once a layer, counted by the profiler, within
 relative 2e-2 of the live block; an HTTP round trip equal to the bit.
+
+Generation (a 2-layer GPT, units 256, head dim 64): the prefill's flash
+forward, causal at B = 1 (T = 128, 512, 1024, bf16), against its plain
+version at atol=rtol=2e-2; the shared-prefix suffix pass under its
+(1, 1, Sb, Pb + Sb) f32 bias at Pb = 256, Sb = 128 with one real prefix row
+(key tiles masked whole) and with 100, finite and within the same
+tolerance; the decode attention kernel against its plain version (bf16
+2e-2, f32 1e-5) and equal to the bit whatever the bucket its rows lie in;
+the decode step replayed against the same step run eagerly, tokens and KV
+rows equal to the bit, greedy and mixed lanes; ``verify`` equal to the bit
+to K1 chained ``step``s; and an engine that captured its grid at warmup
+capturing nothing during traffic that migrates buckets and samples.
+Prompt passes while another thread captures a decode graph on the card (a
+replica restarted after a worker's death warming up): each waits on its
+own stream only, so the capture, the prompt passes' logits and a
+recovery's streams are what they are with nothing else running.
 """
 import math
 
@@ -1572,3 +1588,311 @@ def test_http_round_trip_equals_in_process_bits(dev):
     assert status == 200
     got = onp.asarray(cs.json.loads(data)["predictions"][0], "float32")
     assert got.shape == want.shape and onp.array_equal(got, want)
+
+
+# ------------------------------------------------------------ generation
+def _gen_net(dev, dtype=torch.bfloat16, layers=2, seed=0):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+    net = GPTModel(vocab_size=1000, num_layers=layers, units=256,
+                   hidden_size=512, num_heads=4, max_length=1024,
+                   dropout=0.0)
+    load_jax_params(net, cs.random_gpt_params(net, seed))
+    return net.to(dev, dtype).eval()
+
+
+@pytest.mark.parametrize("T", [128, 512, 1024])
+def test_prefill_flash_forward_causal_b1(dev, T):
+    g = torch.Generator().manual_seed(T)
+    qkv = torch.randn(1, T, 3 * 12 * 64, generator=g).to(dev, torch.bfloat16)
+    q, k, v = (t.reshape(1, T, 12, 64) for t in qkv.split(768, -1))
+    before = attn.launches["flash_attention_fwd"]
+    copies = attn.padded_copies
+    got = attn.flash_attention(q, k, v, causal=True)
+    assert attn.launches["flash_attention_fwd"] == before + 1
+    assert attn.padded_copies == copies
+    ref, _ = attn.flash_attention_reference(
+        *(t.transpose(1, 2).float() for t in (q, k, v)), causal=True)
+    _close(got, ref.transpose(1, 2), 2e-2, 2e-2, f"causal T={T}")
+
+
+@pytest.mark.parametrize("qlen", [1, 100])
+def test_suffix_pass_bias_with_whole_masked_tiles(dev, qlen):
+    from mxnet_tpu_torch.ops.transformer import _mask_to_bias
+    Pb, Sb = 256, 128
+    g = torch.Generator().manual_seed(qlen)
+    q, k, v = (torch.randn(1, T, 12, 64, generator=g).to(dev, torch.bfloat16)
+               for T in (Sb, Pb + Sb, Pb + Sb))
+    cols = torch.arange(Pb + Sb, device=dev)[None, :]
+    rows = torch.arange(Sb, device=dev)[:, None]
+    vis = (cols < qlen) | ((cols >= Pb) & (cols - Pb <= rows))
+    bias = _mask_to_bias(vis[None, None], torch.float32, 1, Sb, Pb + Sb)
+    got = attn.flash_attention(q, k, v, bias=bias, bias_grad=False)
+    assert torch.isfinite(got).all()
+    ref, _ = attn.flash_attention_reference(
+        *(t.transpose(1, 2).float() for t in (q, k, v)), bias=bias)
+    _close(got, ref.transpose(1, 2), 2e-2, 2e-2, f"suffix q={qlen}")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_decode_attention_kernel(dev, dtype, tol):
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    S, H, D = 8, 12, 64
+    g = torch.Generator().manual_seed(3)
+    pos = torch.tensor([0, 5, 127, 128, 300, 511, 700, 1023], device=dev)
+    q = torch.randn(S, 3 * H * D, generator=g).to(dev, dtype)[:, :H * D]
+    k, v = (torch.randn(S, 1024, H, D, generator=g).to(dev, dtype)
+            for _ in range(2))
+    before = da.launches["decode_attention"]
+    got = da.decode_attention(q.reshape(S, H, D), k, v, pos)
+    assert da.launches["decode_attention"] == before + 1
+    want = da.decode_attention_reference(q.reshape(S, H, D).cpu(), k.cpu(),
+                                         v.cpu(), pos.cpu())
+    _close(got.cpu(), want.float(), tol, tol, f"decode {dtype}")
+    # the same rows in a larger bucket: the same bits
+    k2, v2 = (torch.zeros(S, 2048, H, D, device=dev, dtype=dtype)
+              for _ in range(2))
+    k2[:, :1024], v2[:, :1024] = k, v
+    k2[:, 1024:].normal_()
+    again = da.decode_attention(q.reshape(S, H, D), k2, v2, pos)
+    assert torch.equal(again, got)
+    with pytest.raises(MXNetError, match="int64"):
+        da.decode_attention(q.reshape(S, H, D), k, v, pos.int())
+
+
+def _gen_cache(model, dev, S=4, buckets=(128, 256)):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import PagedKVCache
+    cache = PagedKVCache(model.n_layers, model.num_heads, model.head_dim,
+                         S, buckets=buckets, dtype=model.dtype, device=dev)
+    rng = onp.random.RandomState(1)
+    for t0 in (9, 40, 100, 17)[:S]:
+        _, ks, vs = model.prefill(rng.randint(0, 1000, t0), 128)
+        cache.write_prompt(cache.alloc(), ks, vs, t0)
+    return cache
+
+
+def _snapshot(cache):
+    return [t.clone() for t in cache._k + cache._v]
+
+
+def _restore(cache, snap):
+    for t, s in zip(cache._k + cache._v, snap):
+        t.copy_(s)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_decode_step_replay_equals_eager_bits(dev, mixed):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import DecodeModel
+    model = DecodeModel.from_block(_gen_net(dev), device=dev)
+    cache = _gen_cache(model, dev)
+    lanes = model.greedy_sampling(4)
+    if mixed:
+        lanes[5][:] = (0, 1, 2, 3)
+        lanes[0][:] = (5, 6, 7, 8)
+        lanes[3][:] = 7
+        lanes[4][:] = 0.8
+    toks = onp.array([3, 30, 300, 999])
+    pos = cache.positions.copy()
+    snap = _snapshot(cache)
+    eager = model.step(cache, toks, pos, lanes, graph=False)
+    after_eager = _snapshot(cache)
+    _restore(cache, snap)
+    graphed = model.step(cache, toks, pos, lanes)
+    assert model.captures == 1
+    assert onp.array_equal(eager, graphed)
+    assert all(torch.equal(a, b) for a, b in zip(after_eager,
+                                                 _snapshot(cache)))
+
+
+def test_verify_equals_chained_steps_bits(dev):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import DecodeModel
+    model = DecodeModel.from_block(_gen_net(dev), device=dev)
+    cache = _gen_cache(model, dev)
+    lanes = model.greedy_sampling(4)
+    lanes[5][:] = (0, 1, 0, 3)
+    lanes[3][:] = 5
+    lanes[4][:] = 0.9
+    snap, pos0 = _snapshot(cache), cache.positions.copy()
+    cur, outs = onp.array([1, 2, 3, 4]), []
+    for j in range(4):
+        cur = model.step(cache, cur, pos0 + j, lanes)
+        outs.append(cur)
+    steps = onp.stack(outs, 1)
+    after_steps = _snapshot(cache)
+    _restore(cache, snap)
+    cand = onp.concatenate([[[1], [2], [3], [4]], steps[:, :3]], 1)
+    ver = model.verify(cache, cand, pos0, lanes)
+    assert onp.array_equal(ver, steps)
+    assert all(torch.equal(a, b) for a, b in zip(after_steps,
+                                                 _snapshot(cache)))
+
+
+def test_engine_captures_nothing_after_warmup(dev):
+    import numpy as onp
+    from mxnet_tpu_torch import metrics
+    from mxnet_tpu_torch.serving import DecodeModel, GenerationEngine
+    model = DecodeModel.from_block(_gen_net(dev), device=dev)
+    eng = GenerationEngine(model, max_slots=4, kv_buckets=(128, 256),
+                           max_tokens=200, spec_mode="self", spec_k=3,
+                           spec_draft_layers=1)
+    eng.warmup()
+    captured = model.captures
+    assert captured == 12   # (step, verify, draft) x 2 buckets x 2 lanes
+    labels = model.describe()["programs_compiled"]
+    c0 = [metrics.value("mxnet_serving_bucket_compiles_total", bucket=t)
+          for t in labels]
+    rng = onp.random.RandomState(2)
+    streams = [eng.submit(rng.randint(0, 1000, 100), max_new_tokens=120),
+               eng.submit(rng.randint(0, 1000, 20), max_new_tokens=40,
+                          method="top_p", seed=4),
+               eng.submit(rng.randint(0, 1000, 60), max_new_tokens=30,
+                          speculative=False)]
+    while not all(s.finished for s in streams):
+        eng.run_iteration()
+    assert [len(s.result(timeout=10)) for s in streams] == [120, 40, 30]
+    assert eng.cache.bucket == 256
+    assert model.captures == captured
+    assert model.describe()["programs_compiled"] == labels
+    assert [metrics.value("mxnet_serving_bucket_compiles_total", bucket=t)
+            for t in labels] == c0
+
+
+
+
+def _hold_capture(model, monkeypatch):
+    """Patch ``model`` so that the first graph capture it makes stops,
+    inside the capture, until the test sets ``released``. Returns
+    (capturing, released) events."""
+    import threading
+    capturing, released = threading.Event(), threading.Event()
+    steps = model._steps
+
+    def held_steps(*a):
+        out = steps(*a)
+        if torch.cuda.is_current_stream_capturing() \
+                and not released.is_set():
+            capturing.set()
+            released.wait(120)
+        return out
+
+    monkeypatch.setattr(model, "_steps", held_steps)
+    return capturing, released
+
+
+def _while_held(capturing, released, capture, work):
+    """Run ``capture`` on a thread until its capture is held, then ``work``
+    on another; release the capture after a second. Returns whether
+    ``work`` was still waiting then, and what each raised."""
+    import threading
+    errors = {}
+
+    def run(name, fn):
+        try:
+            fn()
+        except Exception as e:   # noqa: BLE001 - returned to the test
+            errors[name] = e
+
+    tc = threading.Thread(target=run, args=("capture", capture))
+    tc.start()
+    tw = threading.Thread(target=run, args=("work", work))
+    try:
+        assert capturing.wait(120), "the capture never began"
+        tw.start()
+        tw.join(1.0)
+        waited = tw.is_alive()
+    finally:
+        released.set()
+        tc.join(120)
+        if tw.ident is not None:
+            tw.join(120)
+    return waited, errors
+
+
+def test_prompt_passes_wait_for_another_threads_capture(dev, monkeypatch):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import DecodeModel
+    net = _gen_net(dev)
+    survivor = DecodeModel.from_block(net, device=dev)
+    fresh = DecodeModel.from_block(net, device=dev)
+    rng = onp.random.RandomState(5)
+    prompts = [rng.randint(0, 1000, n) for n in (9, 100, 300)]
+    rows = [torch.randn(256, 4, 64, device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+
+    def passes():
+        return ([survivor.prefill(p, 512)[0] for p in prompts],
+                survivor.prefill_suffix(prompts[0], rows, rows, q=100,
+                                        bucket_len=128)[0],
+                survivor.select(survivor.prefill(prompts[1], 128)[0],
+                                seed=3, counter=0, temperature=0.8,
+                                top_k=50, top_p=0.9, method=3))
+
+    alone = passes()
+    cache = _gen_cache(fresh, dev)
+    toks, pos = onp.array([3, 30, 300, 999]), cache.positions.copy()
+    snap = _snapshot(cache)
+    eager = fresh.step(cache, toks, pos, graph=False)
+    _restore(cache, snap)
+    capturing, released = _hold_capture(fresh, monkeypatch)
+    got = {}
+    waited, errors = _while_held(
+        capturing, released,
+        lambda: got.update(step=fresh.step(cache, toks, pos)),
+        lambda: got.update(passes=passes()))
+    assert waited, "a prompt pass ran while another thread captured"
+    assert not errors and fresh.captures == 1
+    assert onp.array_equal(got["step"], eager)
+    during = got["passes"]
+    assert all(torch.equal(a, b) for a, b in zip(alone[0], during[0]))
+    assert torch.equal(alone[1], during[1]) and alone[2] == during[2]
+
+
+def test_recovery_waits_for_a_restarted_engines_capture(dev, monkeypatch):
+    import numpy as onp
+    from mxnet_tpu_torch.serving import (DecodeModel, GenerationEngine,
+                                         make_recovery_request)
+    model = DecodeModel.from_block(_gen_net(dev), device=dev)
+
+    def engine():
+        eng = GenerationEngine(model, max_slots=2, kv_buckets=(128, 256),
+                               max_tokens=200)
+        eng.warmup()
+        return eng
+
+    def finish(eng, streams):
+        for _ in range(200):
+            if all(s.finished for s in streams):
+                break
+            eng.run_iteration()
+        return [s.result(timeout=10) for s in streams]
+
+    rng = onp.random.RandomState(7)
+    prompts = [rng.randint(0, 1000, n) for n in (40, 90)]
+    kws = [{}, dict(method="sample", temperature=0.9, seed=5)]
+    survivor = engine()
+    clean = finish(survivor, [survivor.submit(p, max_new_tokens=30, **kw)
+                              for p, kw in zip(prompts, kws)])
+    dying = engine()
+    streams = [dying.submit(p, max_new_tokens=30, **kw)
+               for p, kw in zip(prompts, kws)]
+    for _ in range(12):
+        dying.run_iteration()
+    _, resident = dying.evacuate()
+    assert len(resident) == 2
+    assert all(0 < len(r.stream.tokens) < 30 for r in resident)
+    captures = model.captures
+    capturing, released = _hold_capture(model, monkeypatch)
+
+    def recover():
+        for req in resident:
+            survivor.submit_request(make_recovery_request(req), front=True)
+        survivor.run_iteration()     # the recovery's prompt passes
+
+    waited, errors = _while_held(capturing, released, engine, recover)
+    assert waited, "the recovery ran while the restart captured"
+    assert not errors and model.captures == captures + 4
+    assert finish(survivor, streams) == clean

@@ -39,3 +39,30 @@ def inputs(seed, B, T, valid):
     tokens = rng.randint(0, SMALL_BERT["vocab_size"], (B, T)).astype("int32")
     types = rng.randint(0, 2, (B, T)).astype("int32")
     return tokens, types, onp.asarray(valid, "int32")
+
+
+TINY_GPT = dict(vocab_size=97, num_layers=2, units=32, hidden_size=48,
+                num_heads=4, max_length=64, dropout=0.0)
+
+
+def gpt_pair(seed=0, sigma=1.0, **cfg):
+    """(jax_net, port_net, params): a small JAX GPT initialized from
+    ``seed`` with ``Normal(sigma)`` (a strong init keeps greedy streams
+    from collapsing to one token), its parameters as numpy, and the port
+    GPT (CPU, f32) loaded from them through ``load_jax_params``."""
+    import mxnet_tpu as mx
+    from mxnet_tpu.gluon.model_zoo.gpt import GPTModel as JGPT
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+
+    cfg = dict(TINY_GPT, **cfg)
+    mx.random.seed(seed)
+    jnet = JGPT(**cfg)
+    jnet.initialize(mx.init.Normal(sigma))
+    jnet(mx.np.zeros((1, 4), dtype="int32"))
+    params = {k: p.data().asnumpy()
+              for k, p in jnet.collect_params().items()}
+    tnet = GPTModel(**cfg)
+    load_jax_params(tnet, params)
+    tnet.eval()
+    return jnet, tnet, params
