@@ -128,11 +128,12 @@ def _block_prefill(p, x, nh: int, ga, bias=None, prefix=None):
     return _ffn_residual(p, x, ga), kh, vh
 
 
-def _slot_block_step(p, x, ck, cv, pos, nh: int, ga, flat_rows):
+def _slot_block_step(p, x, ck, cv, pos, nh: int, ga, flat_rows, work=None):
     """One decode token for every slot: ``x`` (S, C), caches (S, L, nh, d),
     ``pos`` (S,) int64 write positions, ``flat_rows`` (S,) int64 the
     first flat row of each slot (``arange(S) * L``). Slot i writes its K/V
-    at its position, then attends over its rows 0..pos[i]."""
+    at its position, then attends over its rows 0..pos[i]. ``work``: the
+    decode attention kernel's kept workspace, or None for one a call."""
     S, C = x.shape
     d = C // nh
     L = ck.shape[1]
@@ -142,7 +143,7 @@ def _slot_block_step(p, x, ck, cv, pos, nh: int, ga, flat_rows):
     idx = flat_rows + pos.clamp(max=L - 1)
     ck.view(S * L, nh, d).index_copy_(0, idx, k.reshape(S, nh, d))
     cv.view(S * L, nh, d).index_copy_(0, idx, v.reshape(S, nh, d))
-    out = decode_attention(q.reshape(S, nh, d), ck, cv, pos)
+    out = decode_attention(q.reshape(S, nh, d), ck, cv, pos, work=work)
     x = x + F.linear(out.reshape(S, C), p["out_w"], p["out_b"])
     return _ffn_residual(p, x, ga)
 

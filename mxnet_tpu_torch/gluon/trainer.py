@@ -20,10 +20,12 @@ parameters (``_param_fusible``; row-sparse gradients never join, and the
 port has none yet) in groups of at most ``aggregate_num``
 (``MXNET_OPTIMIZER_AGGREGATION_SIZE``, default 4); every other optimizer,
 and any parameter left out, takes ``update_multi_precision`` one at a time.
-Each group is one launch of the multi-tensor kernel on CUDA tensors
-(``ops/cuda/multi_tensor.py``; every group of a step shares one
-host-to-device copy of the tables) and the eager per-parameter update on
-CPU tensors; a group of one is the same as ``update_multi_precision``. The
+On CUDA tensors every group of a step goes to the multi-tensor kernel in
+one call, which launches it once for each layout (weight dtype, master or
+none) after one host-to-device copy of the tables
+(``ops/cuda/multi_tensor.py``); on CPU tensors each takes the eager
+per-parameter update; a group of one is the same as
+``update_multi_precision``. The
 update counts, lrs and wds are taken in the JAX package's order before
 any launch.
 
@@ -310,7 +312,7 @@ class Trainer:
     def _fused_update(self, fusible, agg: int) -> None:
         """Every group of the plan in one ``_update_groups`` call: the
         counts, lrs and wds first, in the parameters' order, then one
-        kernel launch a group on CUDA tensors."""
+        kernel launch a layout on CUDA tensors."""
         o = self._optimizer
         entries = [(i, w, g, self._states[i]) for i, w, g in fusible]
         plan = group_plan([o._group_key(i, w, s) for i, w, _, s in entries],

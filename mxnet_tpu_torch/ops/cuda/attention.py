@@ -8,6 +8,9 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
+- ``csrc/flash_attention_wide.cu`` replaces the same three at head dims
+  above :data:`MAX_HEAD_DIM` (``wide_fwd``, ``wide_dq``, ``wide_dkv``): a
+  warp a row, lanes over the head dim, any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -27,11 +30,12 @@ strides. Both implementations return ``out`` as a (B, H, Tq, D) view of a
 (:func:`_bthd_empty`) and ``lse`` as (B, H, Tq, 1) f32, the fake's
 layout. The operand checks run inside the CUDA implementation, so a trace
 does not specialise on them.
-The forward and the backward kernels take head dims up to 256
-(:data:`MAX_HEAD_DIM`); on the card a larger head dim raises before any
-kernel runs, and on the CPU the plain versions take any head dim, as the
-JAX package does.
-The 16-bit kernels read q, k, v and dout and write out, dq, dk and dv by
+The tiled forward and backward kernels take head dims up to 256
+(:data:`MAX_HEAD_DIM`); a larger head dim takes the wide kernels, forward
+and backward, so the card takes any head dim, as the JAX package and the
+plain versions do. The wide kernels read every operand through its
+strides, so they copy nothing.
+The tiled 16-bit kernels read q, k, v and dout and write out, dq, dk and dv by
 TMA, which needs a 16-byte aligned base and strides that are multiples of
 16 bytes; an operand that lacks either is first copied into a padded
 contiguous buffer (an output is written there and copied back), and
@@ -40,7 +44,8 @@ contiguous buffer (an output is written there and copied back), and
 Routing of the backward (:func:`backward_route`), a contract of the port:
 for D <= 128, the fused single pass when Tk fits one k-block
 (``Tk <= block_k``) and the two-pass dq/dkv pair otherwise, the JAX rule;
-for 128 < D <= 256 the pair at every Tk. The fused kernel keeps dk and dv
+for 128 < D <= 256 the pair at every Tk; for D > 256 the wide pair
+(``"wide"``). The fused kernel keeps dk and dv
 for 64 keys a warpgroup in f32 registers and its K, V and two ring stages
 of q and dout in shared memory: at D = 256 that is 256 registers a thread
 (the cap is 232) and 256 KB (a block has 227 KB), so those head dims take
@@ -80,13 +85,15 @@ DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 1024
 
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_wide_fwd", "flash_attention_wide_dq",
+           "flash_attention_wide_dkv")
 # per-kernel launch counters: +1 per kernel launch, nowhere else
 launches = {name: 0 for name in KERNELS}
 # operands of the forward copied because TMA could not read them in place
 padded_copies = 0
-# the kernels take head dims up to this (the JAX package's too; larger
-# ones wait in ROADMAP Queue C); the fused backward up to FUSED_MAX_HEAD_DIM
+# the tiled kernels take head dims up to this, the wide ones any above it;
+# the fused backward up to FUSED_MAX_HEAD_DIM
 MAX_HEAD_DIM = 256
 FUSED_MAX_HEAD_DIM = 128
 # rows of one tile of the fused backward's dq accumulator, and the floats
@@ -97,7 +104,8 @@ _COUNT_LOCK = threading.Lock()
 _FNS = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BWD_KIND = {"flash_attention_bwd_fused": 0, "flash_attention_bwd_dq": 1,
-             "flash_attention_bwd_dkv": 2}
+             "flash_attention_bwd_dkv": 2, "flash_attention_wide_dq": 1,
+             "flash_attention_wide_dkv": 2}
 
 # ---------------------------------------------------------------- dropout
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -247,19 +255,27 @@ def _kernel(name: str):
     from ... import _kernels
     p, i = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    if name == "flash_attention_fwd":
-        fn = _kernels.load(name).mxt_flash_attention_fwd
+    if name in ("flash_attention_fwd", "flash_attention_wide_fwd"):
+        fn = (_kernels.load(name).mxt_flash_attention_fwd
+              if name == "flash_attention_fwd" else
+              _kernels.load("flash_attention_wide").mxt_flash_wide_fwd)
         fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, strides,
                        ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     else:
-        fn = _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd
+        fn = (_kernels.load("flash_attention_wide").mxt_flash_wide_bwd
+              if _wide(name) else
+              _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd)
         fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                        strides, ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     fn.restype = ctypes.c_int
     _FNS[name] = fn
     return fn
+
+
+def _wide(name: str) -> bool:
+    return name.startswith("flash_attention_wide")
 
 
 def _bht(t):
@@ -269,8 +285,7 @@ def _bht(t):
 
 def _check_operands(q, k, v, extra=()):
     """q/k/v (and ``extra``, read or written with them) as (B, H, T, D)
-    views on one CUDA device in one dtype with a contiguous head dim of at
-    most :data:`MAX_HEAD_DIM`."""
+    views on one CUDA device in one dtype with a contiguous head dim."""
     ts = (q, k, v) + tuple(extra)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise MXNetError("flash_attention: q, k, v and out must lie on one "
@@ -287,9 +302,6 @@ def _check_operands(q, k, v, extra=()):
     if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
         raise MXNetError(f"flash_attention: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D > MAX_HEAD_DIM:
-        raise MXNetError(f"flash_attention kernels take head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {D} (ROADMAP Queue C)")
     return B, H, Tq, Tk, D
 
 
@@ -376,11 +388,15 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     place, ``lse`` is (B, H, Tq, 1) contiguous f32. 16-bit operands that
     TMA cannot address are copied first (:func:`_tma_operand`); an output
     it cannot address is written to a padded buffer and copied back.
-    ``fn``: another build of the same C entry (an experiment's variant,
-    ``chip_smoke.py --probe-fwd``); its launches are not counted."""
+    Above :data:`MAX_HEAD_DIM` the wide kernel runs, on the views as they
+    are. ``fn``: another build of the same C entry (an experiment's
+    variant, ``chip_smoke.py --probe-fwd``); its launches are not
+    counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
+    name = ("flash_attention_fwd" if D <= MAX_HEAD_DIM
+            else "flash_attention_wide_fwd")
     dest = out
-    if q.dtype != torch.float32:
+    if q.dtype != torch.float32 and not _wide(name):
         q, k, v = (_tma_operand(t) for t in (q, k, v))
         if not _tma_ready(out):
             out = _padded_output(out)
@@ -389,7 +405,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
     variant = fn is not None
-    fn = fn or _kernel("flash_attention_fwd")
+    fn = fn or _kernel(name)
     arr = (ctypes.c_longlong * 16)(*(flat + bstrides))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -398,10 +414,9 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
                  B, H, Tq, Tk, D, arr, float(scale), int(bool(causal)),
                  _ptr(seed), drop, thresh, drop_scale, stream)
     if err != 0:
-        raise MXNetError(f"flash_attention_fwd kernel launch failed: CUDA "
-                         f"error {err}")
+        raise MXNetError(f"{name} kernel launch failed: CUDA error {err}")
     if not variant:
-        _count("flash_attention_fwd")
+        _count(name)
     if out is not dest:
         dest.copy_(out)
 
@@ -436,15 +451,16 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     kernel; kernels that do not write an output get None for it. The 16-bit
     kernels read q, k, v, do and write dk, dv and the dq kernel's dq by
     TMA: operands they cannot address are copied first and outputs written
-    to a padded buffer and copied back (:func:`_tma_operand`, counted).
-    ``fn``: another build of the same C entry (``chip_smoke.py
-    --probe-bwd``); its launches are not counted."""
+    to a padded buffer and copied back (:func:`_tma_operand`, counted); the
+    wide kernels read and write the views as they are. ``fn``: another
+    build of the same C entry (``chip_smoke.py --probe-bwd``); its launches
+    are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
     fused = name == "flash_attention_bwd_fused"
     # the outputs in q's dtype (the fused kernel's dq is its accumulator)
     dests = [None if fused else dq, dk, dv]
     written = dests
-    if q.dtype != torch.float32:
+    if q.dtype != torch.float32 and not _wide(name):
         q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
         written = [t if t is None or _tma_ready(t) else _padded_output(t)
                    for t in dests]
@@ -532,10 +548,13 @@ def _reduce_ds(ds, bias):
 
 
 def backward_route(D: int, Tk: int, block_k: int) -> str:
-    """``"fused"`` or ``"two_pass"``: the backward kernels a CUDA tensor
-    takes. The fused single pass when Tk fits one k-block and D <=
-    :data:`FUSED_MAX_HEAD_DIM`, the dq/dkv pair otherwise (the module
+    """``"fused"``, ``"two_pass"`` or ``"wide"``: the backward kernels a
+    CUDA tensor takes. The fused single pass when Tk fits one k-block and
+    D <= :data:`FUSED_MAX_HEAD_DIM`, the dq/dkv pair up to
+    :data:`MAX_HEAD_DIM`, the wide dq/dkv pair above it (the module
     docstring says why)."""
+    if D > MAX_HEAD_DIM:
+        return "wide"
     return "fused" if Tk <= block_k and D <= FUSED_MAX_HEAD_DIM \
         else "two_pass"
 
@@ -578,17 +597,19 @@ def _backward_kernels(q, k, v, bias, seed, o, lse, g, scale: float,
     dk = _bthd_empty(B, H, Tk, D, k.dtype, dev)
     dv = _bthd_empty(B, H, Tk, D, v.dtype, dev)
     common = (q, k, v, g, bias, seed, rate, lse, delta)
-    if backward_route(D, Tk, block_k) == "fused":
+    route = backward_route(D, Tk, block_k)
+    if route == "fused":
         dq_acc = dq_accumulator(B, H, Tq, D, dev)
         _launch_bwd("flash_attention_bwd_fused", *common, dq_acc, dk, dv, ds,
                     scale, causal)
         dq = dq_from_accumulator(dq_acc, Tq, D, q.dtype)
     else:
+        pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
+            if route == "wide" else ("flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv")
         dq = _bthd_empty(B, H, Tq, D, q.dtype, dev)
-        _launch_bwd("flash_attention_bwd_dq", *common, dq, None, None, ds,
-                    scale, causal)
-        _launch_bwd("flash_attention_bwd_dkv", *common, None, dk, dv, None,
-                    scale, causal)
+        _launch_bwd(pair[0], *common, dq, None, None, ds, scale, causal)
+        _launch_bwd(pair[1], *common, None, dk, dv, None, scale, causal)
     return dq, dk, dv, (_reduce_ds(ds, bias) if want_ds else None)
 
 
@@ -632,8 +653,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
     ``dropout``: probability-dropout rate on the attention weights, drawn
     in the kernels; ``dropout_seed``: (2,) int32 key, required when
     ``dropout > 0``. ``block_k`` routes the backward: the fused single pass
-    when Tk <= block_k and D <= 128, the two-pass dq/dkv kernels otherwise
-    (:func:`backward_route`). ``block_q``
+    when Tk <= block_k and D <= 128, the two-pass dq/dkv kernels otherwise,
+    the wide pair above D = 256 (:func:`backward_route`). ``block_q``
     keeps the JAX signature; the kernels tile by 64 and do not read it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -7,56 +7,82 @@ JAX package leaves to XLA einsums. Slot ``s`` attends with its one query
 over its first ``pos[s] + 1`` cache rows (clamped to the bucket ``L``):
 ``softmax(q k^T * scale) v``, in f32, rounded to the cache's dtype.
 
-``csrc/decode_attention.cu`` reads only those rows, split into chunks of
-128 positions (one block each, then a combine in chunk order), and sums in
-an order fixed by the visible length and the head dim, so a slot's output
-has the same bits whatever the bucket, the slot index or the other slots:
-the generation engine's bucket migrations and speculative passes change
-no token (``serving/model.py``). The plain version computes each slot over
-exactly its visible rows too (a host loop, reading ``pos``), so on the
-CPU the same holds.
+``csrc/decode_attention.cu`` reads only those rows, in chunks of
+:func:`chunk` positions (a block each, the chunks combined in chunk order
+by the last block of a slot and head to finish, in the same launch), and
+sums in an order fixed by position, the visible length and the head dim,
+so a slot's output has the same bits whatever the bucket, the slot index
+or the other slots: the generation engine's bucket migrations and
+speculative passes change no token (``serving/model.py``). The plain
+version computes each slot over exactly its visible rows too (a host
+loop, reading ``pos``), so on the CPU the same holds.
 
 Operands: ``q`` (S, H, D) with a contiguous head dim (a view of the fused
 QKV projection), ``k`` and ``v`` (S, L, H, D) contiguous, ``pos`` (S,)
-int64 on the same device, D <= 256. On CUDA tensors the kernel runs or
-:class:`MXNetError` is raised; each launch (its partial and combine
-kernels) adds one to :data:`launches`. On CPU tensors the plain version
-runs.
+int64 on the same device, any head dim (above 256 a kernel whose lanes
+stride the head dim, up to what a block's shared memory holds). The
+kernel's scratch, :class:`Workspace` (the chunks' f32 records and a
+ticket counter a slot and head, which the kernel leaves at 0), is made per
+call unless the caller keeps one (:func:`workspace`: the decode graphs
+keep one a cache and bucket, so a replay allocates nothing). On CUDA
+tensors the kernel runs or :class:`MXNetError` is raised; each launch
+adds one to :data:`launches`. On CPU tensors the plain version runs.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ...base import MXNetError
 
-__all__ = ["decode_attention", "decode_attention_reference", "launches",
-           "KERNELS"]
+__all__ = ["decode_attention", "decode_attention_reference", "workspace",
+           "Workspace", "chunk", "launches", "KERNELS"]
 
 KERNELS = ("decode_attention",)
 # per-kernel launch counters: +1 per kernel launch, nowhere else
 launches = {name: 0 for name in KERNELS}
 _COUNT_LOCK = threading.Lock()
-_FN = []
+_LIB = []
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-CHUNK, MAX_HEAD_DIM = 128, 256     # csrc/decode_attention.cu
 
 
-def _kernel():
-    if _FN:
-        return _FN[0]
-    from ... import _kernels
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = _kernels.load("decode_attention").mxt_decode_attention
-    fn.argtypes = [i, p, ll, ll, p, p, ll, ll, ll, p, p, p, ll, ll, i, i, i,
-                   i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    _FN.append(fn)
-    return fn
+def _library():
+    """The kernel's library, its entry's argument types set."""
+    if not _LIB:
+        from ... import _kernels
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib = _kernels.load("decode_attention")
+        lib.mxt_decode_attention.argtypes = [
+            i, p, ll, ll, p, p, ll, ll, ll, p, p, p, p, ll, ll, i, i, i, i,
+            ctypes.c_float, i, p]
+        lib.mxt_decode_attention.restype = ctypes.c_int
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def chunk() -> int:
+    """Positions a block of the kernel takes (``da::CHUNK``)."""
+    return int(_library().mxt_decode_chunk())
+
+
+class Workspace(NamedTuple):
+    """The kernel's scratch for (S, H, L, D): the chunks' f32 records and a
+    zeroed int32 ticket a slot and head (the kernel leaves it at 0)."""
+    records: torch.Tensor
+    tickets: torch.Tensor
+
+
+def workspace(S: int, H: int, L: int, D: int, device) -> Workspace:
+    """A :class:`Workspace` for calls over (S, H, D) queries and buckets of
+    up to ``L`` positions on ``device``."""
+    nc = -(-L // chunk())
+    return Workspace(
+        torch.empty(S * H * nc * (D + 2), dtype=torch.float32, device=device),
+        torch.zeros(S * H, dtype=torch.int32, device=device))
 
 
 def decode_attention_reference(q, k, v, pos, scale: Optional[float] = None):
@@ -95,36 +121,53 @@ def _check(q, k, v, pos):
     if pos.dtype != torch.int64 or tuple(pos.shape) != (S,):
         raise MXNetError("decode_attention: pos must be an (S,) int64 "
                          "tensor")
-    if D > MAX_HEAD_DIM:
-        raise MXNetError(f"decode_attention: the kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {D}")
     return S, H, k.shape[1], D
 
 
+def _vectors(q, k, v) -> bool:
+    """Every row of q, k and v 16-byte aligned: the kernel may load 16
+    bytes at a time."""
+    e = q.element_size()
+    return all(t.data_ptr() % 16 == 0 for t in (q, k, v)) and all(
+        st * e % 16 == 0 for st in (q.stride(0), q.stride(1), k.stride(0),
+                                    k.stride(1), k.stride(2)))
+
+
 def decode_attention(q, k, v, pos, scale: Optional[float] = None,
-                     out=None):
+                     out=None, work: Optional[Workspace] = None):
     """(S, H, D) attention of each slot's query over its visible cache
-    rows. ``out``: an (S, H, D) tensor to write (a new one by default)."""
+    rows. ``out``: an (S, H, D) tensor to write (a new one by default);
+    ``work``: a :func:`workspace` for at least these (S, H, L, D) (a new
+    one by default)."""
     if not q.is_cuda:
         ref = decode_attention_reference(q, k, v, pos, scale)
         return ref if out is None else out.copy_(ref)
     S, H, L, D = _check(q, k, v, pos)
+    lib = _library()
+    if not lib.mxt_decode_fits(_DTYPE_CODE[q.dtype], L, D):
+        raise MXNetError(f"decode_attention: head_dim {D} at bucket {L} "
+                         f"needs more shared memory than a block has")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if out is None:
         out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
     elif out.stride(2) != 1 or tuple(out.shape) != (S, H, D):
         raise MXNetError("decode_attention: out must be (S, H, D) with a "
                          "contiguous head dim")
-    # the chunks' (o, max, sum) records, f32
-    ws = torch.empty(S * H * -(-L // CHUNK) * (D + 2), dtype=torch.float32,
-                     device=q.device)
+    if work is None:
+        work = workspace(S, H, L, D, q.device)
+    elif work.tickets.numel() < S * H or work.records.numel() < \
+            S * H * -(-L // chunk()) * (D + 2) or \
+            work.records.device != q.device:
+        raise MXNetError(f"decode_attention: the workspace does not hold "
+                         f"S={S}, H={H}, L={L}, D={D} on {q.device}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(_DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0),
-                        q.stride(1), k.data_ptr(), v.data_ptr(), k.stride(0),
-                        k.stride(1), k.stride(2), pos.data_ptr(),
-                        ws.data_ptr(), out.data_ptr(), out.stride(0),
-                        out.stride(1), S, H, L, D, scale, stream)
+        err = lib.mxt_decode_attention(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+            k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
+            k.stride(2), pos.data_ptr(), work.records.data_ptr(),
+            work.tickets.data_ptr(), out.data_ptr(), out.stride(0),
+            out.stride(1), S, H, L, D, scale, int(_vectors(q, k, v)), stream)
     if err != 0:
         raise MXNetError(f"decode_attention kernel launch failed: CUDA error "
                          f"{err}")

@@ -246,9 +246,10 @@ class Optimizer:
     def _update_groups(self, groups: Any, hypers: Any) -> list:
         """Update groups of ``(index, weight, grad, state)`` in place with
         their ``(lr, wd, t)``; returns the states, group by group. CUDA
-        tensors: one launch of the multi-tensor kernel a group, after one
-        table copy for all. CPU tensors, or a ``_step`` the kernel does not
-        implement: :meth:`_plain_update_groups`."""
+        tensors: one launch of the multi-tensor kernel a layout (weight
+        dtype, master or none) for all the groups, after one table copy.
+        CPU tensors, or a ``_step`` the kernel does not implement:
+        :meth:`_plain_update_groups`."""
         op = self._kernel_op()
         if op is None or not any(w.is_cuda for entries in groups
                                  for _, w, _, _ in entries):

@@ -58,6 +58,7 @@ from ..gluon.model_zoo.generation import (METHOD_CODES,  # noqa: F401
                                           _block_prefill, _collect, _embed,
                                           _head, _sample_tokens,
                                           _slot_block_step)
+from ..ops.cuda.decode_attention import workspace as _attention_workspace
 from .batching import BUCKET_COMPILES, INFER_SECONDS, BucketPolicy
 
 __all__ = ["ServedModel", "DecodeModel", "METHOD_CODES"]
@@ -371,8 +372,11 @@ class _Sampling:
 
 class _StepIO:
     """The static inputs every decode graph of one cache reads: tokens of
-    each width, positions, the sampling lanes and each bucket's flat slot
-    rows. Each replay copies its inputs in first."""
+    each width, positions, the sampling lanes, each bucket's flat slot
+    rows and the decode attention kernel's workspace (made before any
+    capture, so a replay allocates nothing; only this cache's thread runs
+    its steps, one after another). Each replay copies its inputs in
+    first."""
 
     def __init__(self, S: int, device: torch.device) -> None:
         self.S, self.device = S, device
@@ -384,6 +388,7 @@ class _StepIO:
                      z.clone()]
         self.samp_src: Optional[_Sampling] = None
         self.flat: Dict[int, torch.Tensor] = {}
+        self.work: Dict[int, Any] = {}
 
     def tokens(self, width: int) -> torch.Tensor:
         if width not in self.toks:
@@ -397,6 +402,15 @@ class _StepIO:
             self.flat[L] = torch.arange(self.S, dtype=torch.int64,
                                         device=self.device) * L
         return self.flat[L]
+
+    def attention_work(self, L: int, H: int, D: int) -> Any:
+        """The decode attention kernel's workspace for bucket ``L`` (None
+        on the CPU, whose plain version needs none)."""
+        if self.device.type != "cuda":
+            return None
+        if L not in self.work:
+            self.work[L] = _attention_workspace(self.S, H, L, D, self.device)
+        return self.work[L]
 
 
 class DecodeModel:
@@ -606,6 +620,7 @@ class DecodeModel:
         (verify). Returns (S, n_sub) int64."""
         p, io = self.params, cache.io
         flat = io.flat_rows(cache.bucket)
+        work = io.attention_work(cache.bucket, self.num_heads, self.head_dim)
         toks = io.tokens(width)
         seeds, bases, temps, topks, topps, methods = io.samp
         cur = toks[:, 0]
@@ -618,7 +633,7 @@ class DecodeModel:
             for bp, ck, cv in zip(p["blocks"][:layers], cache._k,
                                   cache._v):
                 x = _slot_block_step(bp, x, ck, cv, pos, self.num_heads,
-                                     self.ga, flat)
+                                     self.ga, flat, work)
             cur = _sample_tokens(_head(p, x, self.ga[1]), seeds,
                                  pos - bases, temps, topks, topps, methods,
                                  mixed)

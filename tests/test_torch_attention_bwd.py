@@ -317,13 +317,15 @@ def test_block_env_vars_route_the_backward(monkeypatch):
     (128, 512, 1024, "fused"), (64, 2048, 1024, "two_pass"),
     (128, 512, 256, "two_pass"), (129, 8, 1024, "two_pass"),
     (160, 48, 1024, "two_pass"), (256, 48, 1024, "two_pass"),
-    (256, 2048, 1024, "two_pass")])
+    (256, 2048, 1024, "two_pass"), (288, 48, 1024, "wide"),
+    (288, 2048, 1024, "wide"), (512, 48, 1024, "wide"),
+    (512, 512, 256, "wide")])
 def test_card_backward_route(monkeypatch, D, Tk, block_k, route):
     """The card's routing (pure Python, run here on CPU tensors with the
     kernel launch replaced by a spy): D <= 128 takes the fused pass when
     Tk <= block_k and the dq/dkv pair otherwise, the JAX rule; 128 < D <=
-    256 takes the pair at every Tk, with dq in q's dtype and dk, dv in
-    the (B, T, H, D) layout."""
+    256 takes the pair at every Tk; D > 256 the wide pair at every Tk,
+    with dq in q's dtype and dk, dv in the (B, T, H, D) layout."""
     seen = []
 
     def spy(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
@@ -343,11 +345,50 @@ def test_card_backward_route(monkeypatch, D, Tk, block_k, route):
         assert seen == [("flash_attention_bwd_fused", torch.float32,
                          (1, 2, Tk, D))]
     else:
-        assert seen == [("flash_attention_bwd_dq", torch.bfloat16, None),
-                        ("flash_attention_bwd_dkv", None, (1, 2, Tk, D))]
+        pair = "wide" if route == "wide" else "bwd"
+        assert seen == [(f"flash_attention_{pair}_dq", torch.bfloat16, None),
+                        (f"flash_attention_{pair}_dkv", None, (1, 2, Tk, D))]
     assert dq.shape == q.shape and dq.dtype == torch.bfloat16
     assert dk.shape == dv.shape == kv.shape
     assert dq.transpose(1, 2).stride(-2) % 8 == 0   # rows TMA can store
+
+
+@pytest.mark.parametrize("D,name,copies", [
+    (64, "flash_attention_fwd", 3), (256, "flash_attention_fwd", 3),
+    (288, "flash_attention_wide_fwd", 0),
+    (512, "flash_attention_wide_fwd", 0)])
+def test_card_forward_route(monkeypatch, D, name, copies):
+    """The card's forward routing (pure Python on CPU tensors, the device
+    checks and the launch replaced by spies): up to 256 the tiled kernel,
+    which copies 16-bit operands TMA cannot address (rows of D + 1
+    elements here); above it the wide kernel, which reads them in place,
+    counted under its own name."""
+    import contextlib
+    import types
+    launched = []
+
+    def kernel(kname):
+        def fn(*args):
+            launched.append((kname, args[11]))        # the head dim
+            return 0
+        return fn
+
+    monkeypatch.setattr(port, "_kernel", kernel)
+    monkeypatch.setattr(port, "_check_operands", lambda q, k, v, extra=(): (
+        *q.shape[:3], k.shape[2], q.shape[3]))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v = (torch.zeros(1, 2, T, D + 1, dtype=torch.bfloat16)[..., :D]
+               for T in (24, 40, 40))
+    out, lse = port._fwd_outputs(q)
+    before = (port.padded_copies, dict(port.launches))
+    port._launch_fwd(q, k, v, None, None, 0.0, out, lse, 0.125, False)
+    assert launched == [(name, D)]
+    assert port.padded_copies - before[0] == copies
+    assert {n: port.launches[n] - before[1][n] for n in port.KERNELS} == {
+        n: int(n == name) for n in port.KERNELS}
 
 
 def test_dropout_draws_only_from_the_framework_generator():

@@ -16,7 +16,10 @@ dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
 bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics),
 at head dims 40 to 256 (above 128 always the dq/dkv pair); two runs of the
 pair equal to the bit. Dropout masks are compared bit for bit through the
-outputs they make.
+outputs they make. Head dims above 256 (288, 320, 512) run the wide
+kernels, forward and backward, under the same tolerances, at Tq != Tk,
+with bias, causal and dropout (their masks read back bit for bit), two
+backward runs equal to the bit.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: 16-bit fwd and bf16
@@ -47,8 +50,10 @@ a source that does not compile.
 The multi-tensor update (``csrc/multi_tensor.cu``): SGD with and without
 momentum, Adam and AdamW over f32 weights, 16-bit weights with f32 masters
 and 16-bit weights alone, with clip_gradient and lr / wd multipliers, in
-groups of 1, 4 and all: every weight, master and state equal to the plain
-version's bits after three steps; one launch a group from ``Trainer.step``.
+groups of 1, 4 and all, with every other tensor's views off 16-byte
+alignment at ragged sizes, and at other chunk sizes and grids: every
+weight, master and state equal to the plain version's bits after three
+steps; one launch a layout a step from ``Trainer.step``.
 
 ``hybridize()`` as CUDA graphs, on a small BERT (2 layers, units 128, head
 dim 64, bf16, dropout 0.1) and a small ResNet: a replayed call's outputs
@@ -73,7 +78,10 @@ version at atol=rtol=2e-2; the shared-prefix suffix pass under its
 (1, 1, Sb, Pb + Sb) f32 bias at Pb = 256, Sb = 128 with one real prefix row
 (key tiles masked whole) and with 100, finite and within the same
 tolerance; the decode attention kernel against its plain version (bf16
-2e-2, f32 1e-5) and equal to the bit whatever the bucket its rows lie in;
+2e-2, f32 1e-5) and equal to the bit whatever the bucket its rows lie in,
+the slot index or the number of slots, at head dims 64 and 288, and a CUDA
+graph of it over a kept workspace equal to eager calls replay after
+replay;
 the decode step replayed against the same step run eagerly, tokens and KV
 rows equal to the bit, greedy and mixed lanes; ``verify`` equal to the bit
 to K1 chained ``step``s; and an engine that captured its grid at warmup
@@ -522,12 +530,18 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     x = torch.zeros(1, 8, 2, 16, device=dev)
     with pytest.raises(MXNetError, match="dtype"):
         attn.flash_attention(x, x, x.double())
-    with pytest.raises(MXNetError, match="head_dim"):
-        y = torch.zeros(1, 8, 2, 288, device=dev)
-        attn.flash_attention(y, y, y)
-    with pytest.raises(MXNetError, match="head_dim <= 256"):
-        y = torch.zeros(1, 8, 2, 288, device=dev, requires_grad=True)
-        attn.flash_attention(y, y, y)
+    # a head dim above 256 runs (the wide kernels), forward and backward,
+    # and agrees with the plain version
+    g = torch.Generator().manual_seed(288)
+    y = torch.randn(1, 8, 2, 288, generator=g).to(dev).requires_grad_(True)
+    out = attn.flash_attention(y, y, y)
+    ref, _ = attn.flash_attention_reference(*(y.detach().transpose(1, 2),) * 3)
+    _close(out.transpose(1, 2), ref, 1e-4, 1e-4, "D=288 forward")
+    out.sum().backward()
+    yr = y.detach().clone().requires_grad_(True)
+    want, _ = attn.flash_attention_reference(*(yr.transpose(1, 2),) * 3)
+    want.sum().backward()
+    assert _rel(y.grad, yr.grad) <= 1e-4
     y = torch.zeros(1, 8, 2, 160, device=dev, requires_grad=True)
     attn.flash_attention(y, y, y).sum().backward()   # the pair takes it
     assert y.grad.shape == y.shape
@@ -540,6 +554,127 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         xs = x.transpose(1, 2)
         attn._flash_forward(xs, xs, xs, None, 0.25, False,
                             torch.zeros(2, dtype=torch.int32), 0.1)
+
+
+# ---------------------------------------------- heads wider than 256 (C8)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [288, 320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full", (2, 1, 1, 1)])
+def test_wide_forward_matches_plain(dev, dtype, D, causal, bias_kind):
+    """The wide forward (D > 256) against the plain version at Tq != Tk:
+    out at atol=rtol 2e-2 in 16 bits and 1e-4 in f32, lse 1e-3 / 1e-4."""
+    g = torch.Generator().manual_seed(D)
+    B, H, Tq, Tk = 2, 3, 77, 131
+    q = torch.randn(B, H, Tq, D, generator=g).to(dev, dtype)
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(dev, dtype)
+            for _ in range(2))
+    bias = _bias(bias_kind, B, H, Tq, Tk, dtype, dev, g)
+    scale = 1.0 / math.sqrt(D)
+    before = dict(attn.launches)
+    out, lse = attn._flash_forward(q, k, v, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert {n: attn.launches[n] - before[n] for n in attn.KERNELS} == {
+        n: int(n == "flash_attention_wide_fwd") for n in attn.KERNELS}
+    ref, ref_lse = attn.flash_attention_reference(
+        q.float(), k.float(), v.float(), bias, scale, causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    _close(out, ref, tol, tol, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [288, 320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wide_backward_matches_plain(dev, dtype, D, causal, bias_kind, rate):
+    """dq, dk, dv (and a learned bias's gradient from the ds the wide dq
+    kernel writes) of the wide pair against the plain backward on the same
+    inputs and dropout mask, relative 2e-2 in 16 bits and 1e-4 in f32, at
+    Tq != Tk; the forward with dropout against the plain one (a differing
+    keep bit would move out past the tolerance); two runs equal to the
+    bit."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, D, causal, bias_kind, rate, Tq=70, Tk=45)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ref, _ = attn.flash_attention_reference(
+        q.float(), k.float(), v.float(), bias, scale, causal, seed, rate)
+    _close(out, ref, tol, tol, "out")
+    assert attn.backward_route(D, k.shape[2], 1024) == "wide"
+    before = dict(attn.launches)
+    bias_grad = bias_kind == "full"
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 causal, 1024, rate, bias_grad=bias_grad)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: attn.launches[n] - before[n] for n in attn.KERNELS} == {
+        n: 2 * (n in ("flash_attention_wide_dq", "flash_attention_wide_dkv"))
+        for n in attn.KERNELS}
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+    dq, dk, dv, db = runs[0]
+    rq, rk, rv, rds = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, bias_grad)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        assert _rel(got, want) <= tol, f"{name}: {_rel(got, want):.3e}"
+    if bias_grad:
+        want = rds.sum(dim=0, keepdim=True)
+        assert db.shape == bias.shape
+        assert _rel(db, want) <= tol, f"dbias: {_rel(db, want):.3e}"
+    else:
+        assert db is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [288, 320, 512])
+def test_wide_dropout_masks_are_the_plain_mask(dev, dtype, D):
+    """The wide forward's mask (v the identity over Tk = D keys) and the
+    wide pair's (through dv and a learned bias's ds,
+    chip_smoke.pair_dropout_masks) equal dropout_keep_reference's bit for
+    bit."""
+    got, want = cs.wide_mask_probe(torch, dev, attn, dtype, D)
+    from_dkv, from_dq, want_pair = cs.pair_dropout_masks(torch, attn, dev,
+                                                         dtype, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(from_dkv, want_pair)
+    assert torch.equal(from_dq, want_pair)
+
+
+def test_wide_autograd_reads_bthd_views(dev):
+    """Heads of 288 from one fused QKV projection through
+    ``flash_attention`` under autograd: one launch of each wide kernel,
+    no operand copied, the gradient of the projection against the plain
+    version's (bf16, relative 2e-2)."""
+    g = torch.Generator().manual_seed(11)
+    B, T, Hh, Dd = 2, 96, 3, 288
+    base = torch.randn(B, T, 3 * Hh * Dd, generator=g).to(dev, torch.bfloat16)
+    grads = []
+    for kernel in (True, False):
+        x = base.clone().requires_grad_(True)
+        q, k, v = (t.reshape(B, T, Hh, Dd) for t in x.split(Hh * Dd, -1))
+        before = (dict(attn.launches), attn.padded_copies)
+        if kernel:
+            out = attn.flash_attention(q, k, v, causal=True)
+        else:
+            out, _ = attn.flash_attention_reference(
+                *(t.float().transpose(1, 2) for t in (q, k, v)), causal=True)
+            out = out.transpose(1, 2)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        if kernel:
+            assert attn.padded_copies == before[1]
+            assert {n: attn.launches[n] - before[0][n]
+                    for n in attn.KERNELS} == {
+                n: int(n.startswith("flash_attention_wide"))
+                for n in attn.KERNELS}
+        grads.append(x.grad)
+    assert _rel(grads[0], grads[1]) <= 2e-2
 
 
 # ------------------------------------------------------- conv1x1 kernels
@@ -1128,7 +1263,48 @@ def test_update_kernel_group_sizes(dev, opt, agg):
     cs.update_check(torch, dev, case, shapes)
 
 
+@pytest.mark.parametrize("layout", list(UPDATE_LAYOUTS))
+@pytest.mark.parametrize("opt", list(UPDATE_OPTS))
+def test_update_kernel_unaligned_views_and_ragged_tails(dev, opt, layout):
+    """Every other tensor's weight, gradient, master and states one
+    element off 16-byte alignment (the kernel's scalar accesses), the rest
+    aligned (16-byte vectors), at sizes with ragged vector and chunk tails
+    and tensors of several chunks: the plain version's bits, one launch a
+    step."""
+    name, kw = UPDATE_OPTS[opt]
+    dtype, master = UPDATE_LAYOUTS[layout]
+    case = dict(name=f"{opt} {layout} unaligned", opt=name,
+                kw=dict(kw, clip_gradient=0.2), dtype=dtype, master=master,
+                agg=4, mults=True, unaligned=True)
+    shapes = [(1,), (7,), (8,), (9,), (15,), (16384,), (16385,), (3, 11),
+              (40007,), (16, 8), (70000,)]
+    cs.update_check(torch, dev, case, shapes)
+
+
+def test_update_kernel_chunks_and_grid_do_not_change_bits(dev, monkeypatch):
+    """The chunk size and the blocks an SM move no bit: each element's
+    update is the same function wherever the walk takes it."""
+    case = dict(name="adamw chunks", opt="adamw", kw=UPDATE_OPTS["adamw"][1],
+                dtype=torch.bfloat16, master=True, agg=4, mults=True,
+                unaligned=True)
+    shapes = [(5,), (1000,), (40007,), (3, 333)]
+    finals = []
+    for chunk, per_sm in ((8, 1), (64, 8), (16384, 4), (1 << 20, 2)):
+        monkeypatch.setattr(mt, "CHUNK", chunk)
+        monkeypatch.setattr(mt, "BLOCKS_PER_SM", per_sm)
+        (kern, _), grads = cs.update_sides(torch, dev, case, shapes)
+        for step in range(3):
+            cs.update_step(kern, grads[step], 4)
+        finals.append([t.clone() for t in kern[1]] + [
+            t.clone() for st in kern[2] for t in cs.state_tensors(st)])
+    for other in finals[1:]:
+        assert all(cs.bits_equal(a, b) for a, b in zip(finals[0], other))
+
+
 def test_trainer_step_launches_one_update_a_group(dev, monkeypatch):
+    """The update kernel's launches a trainer step: one a layout, whatever
+    the groups (the name is kept from the rule this replaced, one launch a
+    group)."""
     from mxnet_tpu_torch.gluon import Trainer, nn
     net = nn.HybridSequential()
     for _ in range(5):
@@ -1136,7 +1312,9 @@ def test_trainer_step_launches_one_update_a_group(dev, monkeypatch):
     net.initialize(device=dev)
     net.cast("bfloat16")
     params = net.collect_params()
-    for agg, want in ((4, 3), (1, 10), (64, 1)):
+    # one launch a layout (every weight here bf16 with a master) whatever
+    # the groups; aggregation 1 takes the per-parameter path, one a tensor
+    for agg, want in ((4, 1), (1, 10), (64, 1)):
         monkeypatch.setenv("MXNET_OPTIMIZER_AGGREGATION_SIZE", str(agg))
         tr = Trainer(params, "adamw", {"multi_precision": True})
         assert tr.optimizer.aggregate_num == agg
@@ -1659,6 +1837,55 @@ def test_decode_attention_kernel(dev, dtype, tol):
     assert torch.equal(again, got)
     with pytest.raises(MXNetError, match="int64"):
         da.decode_attention(q.reshape(S, H, D), k, v, pos.int())
+
+
+@pytest.mark.parametrize("D", [64, 288])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_decode_attention_placement_and_replay(dev, D, dtype, tol):
+    """At head dims 64 and 288: against the plain version; a slot's bits
+    the same in buckets 128 and 1024, at another slot index and among
+    fewer slots; a CUDA graph of the call over a kept workspace replayed
+    after its inputs change equal to the eager call's bits, replay after
+    replay (the tickets go back to 0)."""
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    S, H = 8, 4
+    g = torch.Generator().manual_seed(D)
+    q = torch.randn(S, H, D, generator=g).to(dev, dtype)
+    k, v = (torch.randn(S, 1024, H, D, generator=g).to(dev, dtype)
+            for _ in range(2))
+    short = torch.tensor([0, 1, 63, 64, 65, 100, 126, 127], device=dev)
+    got = da.decode_attention(q, k, v, short)
+    want = da.decode_attention_reference(q.cpu(), k.cpu(), v.cpu(),
+                                         short.cpu())
+    _close(got.cpu(), want.float(), tol, tol, f"decode D={D}")
+    small = da.decode_attention(q, k[:, :128].contiguous(),
+                                v[:, :128].contiguous(), short)
+    assert torch.equal(small, got)
+    perm = torch.tensor([5, 2, 7, 0, 3, 6, 1, 4], device=dev)
+    moved = da.decode_attention(q[perm], k[perm], v[perm], short[perm])
+    assert torch.equal(moved, got[perm])
+    few = da.decode_attention(q[2:5], k[2:5], v[2:5], short[2:5])
+    assert torch.equal(few, got[2:5])
+
+    pos = torch.tensor([0, 5, 127, 128, 300, 511, 700, 1023], device=dev)
+    work = da.workspace(S, H, 1024, D, dev)
+    out = torch.empty(S, H, D, device=dev, dtype=dtype)
+    before = da.launches["decode_attention"]
+    da.decode_attention(q, k, v, pos, out=out, work=work)     # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        da.decode_attention(q, k, v, pos, out=out, work=work)
+    for step in range(3):
+        pos.copy_(torch.tensor([3, 40, 129, 255, 256, 600, 899, 1000 - step],
+                               device=dev) - step)
+        k.normal_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = da.decode_attention(q, k, v, pos)
+        assert torch.equal(out, eager), step
+    assert torch.equal(work.tickets, torch.zeros_like(work.tickets))
+    assert da.launches["decode_attention"] == before + 2 + 3
 
 
 def _gen_cache(model, dev, S=4, buckets=(128, 256)):
