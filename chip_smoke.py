@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only kernels   # phases 1-3 (build + kernel checks)
     python3 chip_smoke.py --only rtc       # phases 1 and 7 (mx.nd + mx.rtc)
     python3 chip_smoke.py --only generate  # phases 1, 2 and 8 (GPT-2 generation)
+    python3 chip_smoke.py --only seq2seq   # phases 1, 2 and 9 (the Transformer)
+    python3 chip_smoke.py --only gpt-train # phases 1, 2 and 10 (GPT-2 training)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
     python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
@@ -210,7 +212,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time; a slot's bits
    equal in buckets 128 and 1024 and at another slot index; head dim 288
    within TOL_HALF);
-9. one ``{"kernels": [...]}`` line, the card line, and as the last line
+9. (after phase 8) the encoder-decoder Transformer, ``transformer_base``
+   (6 + 6 layers, 512 units, FFN 2048, 8 heads, shared vocabulary 32000,
+   tied embedding), bf16 with f32 masters, weights from a seed
+   (``random_transformer_params``) through ``load_jax_params``: Adam at lr
+   1e-4, dropout 0.1, B=32 pairs of Ts = Tt = 128 with source valid
+   lengths 32-128, ``autograd.record`` -> ``net(src, tgt_in, valid)`` ->
+   ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``Trainer.step``: 10
+   eager steps, each launching the flash forward and the fused backward 18
+   times (6 encoder, 6 causal decoder, 6 cross) and the update kernel
+   once, nothing else of the port, no operand copied; one step at
+   ``MXNET_FLASH_BLOCK_K=64`` (the dq/dkv pair, 18 each); the loss falls;
+   step ms, tokens/s, busy and idle share, peak memory, no library
+   attention kernel in the profile; 10 hybridized steps from the same
+   weights and generator state (a replayed step's kernels by the profiler
+   equal to the eager step's); one f32 step (B=2, Ts=24, Tt=16) against
+   the CPU; then ``translate``: 8 sources of lengths 16-128 padded to 128,
+   64 greedy tokens, 6 flash forwards and 768 decode-attention launches
+   (12 a token) by the counters, the decode kernel and no library
+   attention in a profiled call, each token within GREEDY_MARGIN of its
+   row's maximum in a teacher-forced bf16 ``decode``, ms a token and
+   tokens/s; ``beam_translate`` at K=4 (scores best-first, the best no
+   lower than K=1's); in f32 three sources (one of valid length 0) token
+   for token against the port's CPU path; then the flash forward, fused
+   backward and pair at the training shapes (key padding and causal) and
+   the decode attention at translate's shapes against their plain
+   versions, timed beside bound, plain and a library call, and the update
+   over transformer_base's parameters;
+10. GPT-2 124M trained (``get_gpt("gpt2_124m", vocab_size=50257,
+   dropout=0.0, max_length=1024)``, ``bench.py:557``'s configuration),
+   bf16 with f32 masters, AdamW lr 1e-4, B=8, T=1024: as phase 9, 12 + 12
+   launches a step, the pair at ``MXNET_FLASH_BLOCK_K=512``, the f32 step
+   at B=2, T=128, and the kernels at (8, 12, 1024, 64) causal;
+11. one ``{"kernels": [...]}`` line (the attention, update and decode
+   launches counting phases 9 and 10's main paths too; with ``--only
+   seq2seq`` / ``gpt-train`` the path's kernels alone, their rows measured
+   at its shapes), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
@@ -1267,7 +1304,7 @@ def run_backward(attn, c, block_k):
         bias_grad=c["learned"])
 
 
-def backward_check(torch, attn, name, c, block_k, errs):
+def backward_check(torch, attn, name, c, block_k, errs, phase="phase 3"):
     """One backward call against the plain version; returns its outputs."""
     fused = attn.backward_route(c["D"], c["T"], block_k) == "fused"
     route = ["flash_attention_bwd_fused"] if fused else \
@@ -1328,7 +1365,7 @@ def backward_check(torch, attn, name, c, block_k, errs):
         c["learned"])
     parts_of = "delta, zeroing, the kernel, the cast" if fused else \
         "delta, dq, dkv"
-    print(f"phase 3: backward {name}: relative error {', '.join(parts)} "
+    print(f"{phase}: backward {name}: relative error {', '.join(parts)} "
           f"(limit {lim}); entry {fmt_ms(dev_ms)} (device: {parts_of}), "
           f"{ms:.4f} ms a call back to back (CUDA events), "
           f"bound {bnd:.4f} ms ({by}), plain {plain_ms:.4f} ms, sdpa "
@@ -2373,12 +2410,7 @@ def update_shapes(which: str):
     else:
         from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
         net = get_model("resnet50_v1", device="cpu")
-    seen, out = set(), []
-    for p in net.collect_params().values():
-        if p.grad_req != "null" and id(p) not in seen:
-            seen.add(id(p))
-            out.append(tuple(p.shape))
-    return out
+    return model_shapes(net)
 
 
 def shifted(torch, t):
@@ -5286,6 +5318,612 @@ def phase_generate(torch, dev):
     return rows, launches
 
 
+# ------------------------------------------------------------ phases 9, 10
+# the kernels a training step of each model launches (the eager run's
+# counters): every attention runs the flash forward and, at T <= block_k
+# and D = 64, the fused backward; one update launch a step
+S2S_VOCAB = 32000
+S2S_B, S2S_T = 32, 128          # 4096 target tokens: the usual ~4k NMT batch
+S2S_ATTN = 18                   # 6 encoder, 6 causal decoder, 6 cross
+S2S_PAIR_BLOCK_K = 64           # below T: the dq/dkv pair
+S2S_SOURCES = [16, 32, 48, 64, 80, 96, 112, 128]   # translate's lengths
+S2S_NEW = 64
+S2S_BEAM = 4
+GPT_B, GPT_T = 8, 1024          # bench.py:557 bench_gpt's batch
+GPT_ATTN = 12
+GPT_PAIR_BLOCK_K = 512
+TRAIN_STEPS = 10
+
+
+def random_transformer_params(block, seed: int):
+    """numpy weights for every parameter of a Transformer ``block``, from
+    ``seed``, as :func:`random_gpt_params` makes GPT's (matrices
+    N(0, 1/fan_in), the shared embedding N(0, 0.05), the position tables
+    N(0, 1), biases N(0, 0.02), LayerNorm gamma 1 + N(0, 0.02)): greedy
+    translations vary and the loss falls under Adam at lr 1e-4. A tied
+    embedding gets one array under both names."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out, seen = {}, {}
+    for name, p in block.collect_params().items():
+        if id(p) in seen:
+            out[name] = out[seen[id(p)]]
+            continue
+        seen[id(p)] = name
+        shape = tuple(p.shape)
+        z = rng.standard_normal(shape).astype(np.float32)
+        if name.endswith("embed.weight"):
+            out[name] = z * 0.05
+        elif name.endswith("_pos"):
+            out[name] = z
+        elif name.endswith(".weight") and len(shape) == 2:
+            out[name] = z / np.float32(math.sqrt(shape[1]))
+        elif name.endswith("gamma"):
+            out[name] = 1.0 + 0.02 * z
+        else:
+            out[name] = 0.02 * z
+    return out
+
+
+def seq2seq_batch(torch, B, Ts, Tt, seed, lo=32, vocab=S2S_VOCAB):
+    """Source tokens, target input, target labels and source valid lengths
+    (``lo`` to Ts), from ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    valid = rng.randint(min(lo, Ts), Ts + 1, size=B)
+    src = rng.randint(0, vocab, (B, Ts))
+    tgt = rng.randint(0, vocab, (B, Tt + 1))
+    return [torch.from_numpy(np.asarray(x, dtype=np.int64))
+            for x in (src, tgt[:, :-1], tgt[:, 1:], valid)]
+
+
+def lm_batch(torch, B, T, seed, vocab=GPT_VOCAB):
+    """Tokens and next-token labels (B, T), from ``seed``."""
+    import numpy as np
+    toks = np.random.RandomState(seed).randint(0, vocab, (B, T + 1))
+    t = torch.from_numpy(toks.astype(np.int64))
+    return [t[:, :-1].contiguous(), t[:, 1:].contiguous()]
+
+
+def s2s_step(torch, autograd, net, loss_fn, trainer, batch):
+    src, tin, lab, vl = batch
+    with autograd.record():
+        loss = loss_fn(net(src, tin, vl), lab)
+    autograd.backward(loss)
+    trainer.step(src.shape[0])
+    return loss
+
+
+def lm_step(torch, autograd, net, loss_fn, trainer, batch):
+    x, y = batch
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    autograd.backward(loss)
+    trainer.step(x.shape[0])
+    return loss
+
+
+def counts_now(mods):
+    return {n: c for m in mods for n, c in m.launches.items()}
+
+
+def model_training(torch, dev, tag, build, params, batch, step, opt,
+                   n_attn, pair_block_k, tokens):
+    """Phase 9 / 10's training: ``build(device, dropout)`` made bf16 with
+    f32 masters from ``params``, ``TRAIN_STEPS`` eager steps of ``step``
+    (each launching the flash forward and the fused backward ``n_attn``
+    times and the update kernel once, and nothing else of the port), one
+    step at ``MXNET_FLASH_BLOCK_K=pair_block_k`` (the dq/dkv pair); the
+    loss must fall; step ms and tokens/s (``tokens`` a step), one profiled
+    step (busy and idle share, no SDPA kernel), peak memory; then
+    ``TRAIN_STEPS`` hybridized steps from the same weights and generator
+    state (a replayed step's kernels by the profiler equal to the eager
+    step's). Returns the launch counts of the eager run and the pair
+    step, and the measurements."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    mods = (attn, mt, da)
+    net = load_jax_params(build(dev), params, dtype="bfloat16")
+    loss_fn = SoftmaxCrossEntropyLoss(axis=-1)
+    hp = dict(opt[1], multi_precision=True)
+    trainer = Trainer(net.collect_params(), opt[0], dict(hp))
+    batch = [x.to(dev) for x in batch]
+
+    def one():
+        return step(torch, autograd, net, loss_fn, trainer, batch)
+
+    mx_random.seed(0)
+    os.environ.pop("MXNET_FLASH_BLOCK_K", None)
+    for m in mods:
+        reset_counts(m)                     # the main path starts here
+    want = {"flash_attention_fwd": n_attn,
+            "flash_attention_bwd_fused": n_attn, "multi_tensor_update": 1}
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts_now(mods)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        moved = {n: c - before[n] for n, c in counts_now(mods).items()}
+        if moved != {n: want.get(n, 0) for n in moved}:
+            fail(f"{tag} step {i}: kernel launches {moved}, expected {want}")
+        lval = loss.float().mean().item()
+        if not math.isfinite(lval):
+            fail(f"{tag} step {i}: loss {lval}")
+        losses.append(lval)
+    os.environ["MXNET_FLASH_BLOCK_K"] = str(pair_block_k)
+    before = counts_now(mods)
+    pair_loss = one().float().mean().item()
+    torch.cuda.synchronize()
+    os.environ.pop("MXNET_FLASH_BLOCK_K", None)
+    moved = {n: c - before[n] for n, c in counts_now(mods).items()}
+    pair_want = {"flash_attention_fwd": n_attn,
+                 "flash_attention_bwd_dq": n_attn,
+                 "flash_attention_bwd_dkv": n_attn, "multi_tensor_update": 1}
+    if moved != {n: pair_want.get(n, 0) for n in moved} or \
+            not math.isfinite(pair_loss):
+        fail(f"{tag} step at MXNET_FLASH_BLOCK_K={pair_block_k}: launches "
+             f"{moved}, expected {pair_want}; loss {pair_loss}")
+    counts = counts_now(mods)                # ... and ends here
+    if attn.padded_copies:
+        fail(f"{tag}: training copied {attn.padded_copies} attention "
+             "operands that TMA could not address; expected none")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses}")
+    ms = 1e3 * sum(times[2:]) / len(times[2:])
+    print(f"{tag}: eager losses {[round(x, 4) for x in losses]}; one step at "
+          f"MXNET_FLASH_BLOCK_K={pair_block_k} (the dq/dkv pair) loss "
+          f"{pair_loss:.4f}; launches in the run {counts}, 0 padded copies",
+          flush=True)
+    # where the time goes: one profiled step; the peak memory of a step
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall_ms, prof = profiled_step(torch, one)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy, idle = device_breakdown(prof, wall_ms, f"{tag}: profiled eager step")
+    eager_counts = pattern_counts_most(
+        (prof, profiled_step(torch, one)[1]),
+        ["flash_attention_fwd", "flash_attention_bwd_fused",
+         "multi_tensor_update"])
+    sdpa = [k for k in kernel_counts(prof) if re.search(SDPA_KERNEL, k)]
+    if sdpa:
+        fail(f"{tag}: library attention kernels ran in a step: {sdpa}")
+    if not eager_counts["flash_attention_fwd"]:
+        fail(f"{tag}: the profiler saw no flash forward in a step")
+    print(f"{tag}: eager step {ms:.3f} ms (mean of steps 3-{TRAIN_STEPS}, "
+          f"host clock to a synchronize), {tokens / ms * 1e3:.0f} tokens/s; "
+          f"device busy {fmt_ms(busy)} a step, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; peak "
+          f"memory {peak:.2f} GiB; no library attention kernel in the "
+          f"profile; card: {smi_line()}", flush=True)
+    stats = dict(eager_ms=ms, busy=busy, idle=idle, peak=peak)
+
+    # hybridized: the same weights and generator state
+    load_jax_params(net, params, dtype="bfloat16")
+    trainer = Trainer(net.collect_params(), opt[0], dict(hp))
+    mx_random.seed(0)
+    net.hybridize()
+    h_losses, h_times = [], []
+    for _ in range(TRAIN_STEPS):   # 1: the warm-up; 2: the capture; replays
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        h_times.append(time.perf_counter() - t)
+        h_losses.append(loss.float().mean().item())
+    graphs = sum(1 for g in net._cached_graph.values() if g is not True)
+    if graphs != 1 or not h_losses[-1] < h_losses[0] or not all(
+            math.isfinite(v) for v in h_losses):
+        fail(f"{tag} hybridized: {graphs} graphs captured, losses "
+             f"{h_losses}")
+    if h_losses[0] != losses[0]:
+        fail(f"{tag} hybridized: the first (eager) step's loss "
+             f"{h_losses[0]} differs from the eager run's {losses[0]}")
+    h_ms = 1e3 * sum(h_times[2:]) / len(h_times[2:])
+    wall_ms, prof = profiled_step(torch, one)
+    h_busy, h_idle = device_breakdown(prof, wall_ms,
+                                      f"{tag}: profiled hybridized step")
+    got = pattern_counts_most((prof, profiled_step(torch, one)[1]),
+                              list(eager_counts))
+    if got != eager_counts:
+        fail(f"{tag} hybridized: a replayed step's kernels by the profiler "
+             f"{got}, the eager step's {eager_counts}")
+    net.hybridize(False)
+    print(f"{tag}: hybridized losses {[round(x, 4) for x in h_losses]} "
+          f"(the eager run's largest difference "
+          f"{max(abs(a - b) for a, b in zip(h_losses, losses)):.4f}); step "
+          f"{h_ms:.3f} ms (mean of steps 3-{TRAIN_STEPS}), "
+          f"{tokens / h_ms * 1e3:.0f} tokens/s; device busy {fmt_ms(h_busy)}"
+          f", idle share "
+          f"{'not measured' if h_idle is None else f'{h_idle:.3f}'}; a "
+          f"replayed step's kernels by the profiler {got}, as the eager "
+          f"step's; card: {smi_line()}", flush=True)
+    stats.update(hybrid_ms=h_ms, hybrid_busy=h_busy, hybrid_idle=h_idle)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
+                    n_attn):
+    """One f32 step, dropout 0, on the card (the kernels; TF32 off) against
+    the same step on the CPU (the plain path): loss and every parameter's
+    gradient."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    out = {}
+    for where in ("cpu", dev):
+        net = load_jax_params(build(where), params)
+        trainer = Trainer(net.collect_params(), opt[0], dict(opt[1]))
+        before = dict(attn.launches)
+        loss = step(torch, autograd, net, SoftmaxCrossEntropyLoss(axis=-1),
+                    trainer, [x.to(where) for x in batch])
+        moved = attn.launches["flash_attention_bwd_fused"] - \
+            before["flash_attention_bwd_fused"]
+        if (where != "cpu") != (moved == n_attn):
+            fail(f"{tag} f32 step on {where}: {moved} fused backward "
+                 "launches")
+        out[str(where)] = (loss.detach().cpu(), {
+            k: p.grad().detach().cpu()
+            for k, p in net.collect_params().items()})
+        del net, trainer
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    grad_rel = max((rel(gg[k], gc[k]), k) for k in gc)
+    if loss_rel > TOL_TRAIN_LOSS_REL or grad_rel[0] > TOL_TRAIN_GRAD_REL:
+        fail(f"{tag} f32 step card vs CPU: loss relative {loss_rel:.3e} "
+             f"(limit {TOL_TRAIN_LOSS_REL}), gradient of {grad_rel[1]} "
+             f"{grad_rel[0]:.3e} (limit {TOL_TRAIN_GRAD_REL})")
+    print(f"{tag}: f32 step card vs CPU: loss relative {loss_rel:.3e} (limit "
+          f"{TOL_TRAIN_LOSS_REL}), worst gradient relative Frobenius "
+          f"{grad_rel[0]:.3e} ({grad_rel[1]}; limit {TOL_TRAIN_GRAD_REL})",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def path_attention_rows(torch, dev, attn, tag, B, H, T, valid, causal,
+                        pair_block_k):
+    """The flash forward, the fused backward and the dq/dkv pair at a
+    training path's shape (bf16, D = 64, key padding by ``valid`` or
+    causal) against their plain versions, each timed by device time beside
+    its bound, its plain version and SDPA (a yardstick). Returns the four
+    kernels' rows."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    c = backward_case(torch, dev, gen, attn, B, T, torch.bfloat16, causal,
+                      None if causal else "keypad", 0.0, valid=valid, d=64,
+                      h=H)
+    q, k, v, bias = c["q"], c["k"], c["v"], c["bias"]
+    ref, _ = attn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            bias=bias, causal=causal)
+    err = check_close(f"{tag} flash forward", f"({B}, {H}, {T}, 64)",
+                      c["out"], ref, TOL_HALF)
+
+    def fwd():
+        attn._flash_forward(q, k, v, bias, c["scale"], causal)
+    rows = {"flash_attention_fwd": dict(
+        max_abs_err=err, ms=kernel_ms(fwd, FWD_KERNEL),
+        plain_ms=device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias=bias, causal=causal)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, is_causal=causal)))}
+    rows["flash_attention_fwd"]["bound_ms"], \
+        rows["flash_attention_fwd"]["bound_by"] = attention_bound_ms(
+            B, H, T, 64, valid, "bfloat16", 2, causal, bias)
+    errs = {}
+    phase = tag.split(" causal")[0]
+    backward_check(torch, attn, f"({B}, {H}, {T}, 64) fused", c,
+                   attn.DEFAULT_BLOCK_K, errs, phase)
+    backward_check(torch, attn, f"({B}, {H}, {T}, 64) pair (block_k="
+                   f"{pair_block_k})", c, pair_block_k, errs, phase)
+    plain = device_ms(lambda: attn.flash_attention_backward_reference(
+        q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], c["scale"],
+        causal, False), iters=3)
+    lib = library_backward_ms(torch, q, k, v, bias, c["do"], c["scale"],
+                              causal, 0.0, False)
+    for name, kind in (("flash_attention_bwd_fused", "fused"),
+                       ("flash_attention_bwd_dq", "dq"),
+                       ("flash_attention_bwd_dkv", "dkv")):
+        call, _ = kernel_only_call(torch, attn, c, name)
+        bnd, by = backward_bound_ms(kind, B, H, T, T, 64, valid, "bfloat16",
+                                    2, causal, bias, False)
+        rows[name] = dict(max_abs_err=errs[name],
+                          ms=kernel_ms(call, BWD_KERNEL[name]),
+                          plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                          bound_by=by)
+    for name, r in rows.items():
+        print(f"{tag}: {name} at ({B}, {H}, {T}, 64) bf16 "
+              f"{'causal' if causal else 'key padding'}: {fmt_ms(r['ms'])} "
+              f"device a launch (bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}; plain {fmt_ms(r['plain_ms'])}; SDPA "
+              f"{fmt_ms(r['library_ms'])}); max abs err "
+              f"{r['max_abs_err']:.3e} vs plain", flush=True)
+    return rows
+
+
+def path_update_row(torch, dev, tag, name, opt, shapes):
+    """The multi-tensor update over a model's parameters (bf16, f32
+    masters) against its plain version, timed."""
+    case = dict(name=f"{name} {opt[0]} bf16 masters, one group", opt=opt[0],
+                kw=opt[1], shapes=None, dtype="bfloat16", master=True,
+                agg=0)
+    row = update_check(torch, dev, case, shapes, timed=True)
+    print(f"{tag}: the update over {name}'s {len(shapes)} tensors: "
+          f"{fmt_ms(row['ms'])} device a step (bound {row['bound_ms']:.4f} "
+          f"ms; plain {fmt_ms(row['plain_ms'])}; library "
+          f"{fmt_ms(row['library_ms'])})", flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def model_shapes(net):
+    """The trained parameters' shapes, tied ones once."""
+    seen, out = set(), []
+    for p in net.collect_params().values():
+        if p.grad_req != "null" and id(p) not in seen:
+            seen.add(id(p))
+            out.append(tuple(p.shape))
+    return out
+
+
+def s2s_build(dropout):
+    from mxnet_tpu_torch.gluon.model_zoo import get_transformer
+
+    def build(device):
+        return get_transformer("transformer_base", S2S_VOCAB, device=device,
+                               dropout=dropout)
+    return build
+
+
+def translate_margins(torch, net, src, vl, toks, bos):
+    """Each greedy token held to a teacher-forced bf16 ``decode`` over the
+    same prefix: its logit within GREEDY_MARGIN of its row's maximum; no
+    stream constant. Returns the worst gap."""
+    B = src.shape[0]
+    prefix = torch.cat([torch.full((B, 1), bos, dtype=torch.int64,
+                                   device=src.device),
+                        toks[:, :-1].to(src.device, torch.int64)], 1)
+    with torch.inference_mode():
+        memory = net.encode(src, vl)
+        lg = net.decode(prefix, memory, vl, src=src).float()
+    t = toks.to(src.device, torch.int64)
+    gap = (lg.max(-1).values - lg.gather(2, t[:, :, None])[:, :, 0]).max()
+    constant = [i for i, row in enumerate(toks.tolist())
+                if len(set(row)) == 1]
+    if constant or float(gap) > GREEDY_MARGIN:
+        fail(f"translate: streams {constant} constant, or a greedy token "
+             f"{float(gap):.4f} below its row's maximum in the teacher-forced "
+             f"decode (> {GREEDY_MARGIN})")
+    return float(gap)
+
+
+def s2s_translate(torch, dev, params):
+    """Phase 9's translation: transformer_base bf16 from ``params``, greedy
+    ``translate`` of 8 sources (lengths S2S_SOURCES, padded to 128) for
+    S2S_NEW tokens: 6 flash forwards (the encoder) and 12 decode-attention
+    launches a token by the counters, the decode kernel and no library
+    attention in a profiled call; each token held to a teacher-forced
+    ``decode``; ``beam_translate`` at K = S2S_BEAM (scores best-first, the
+    best no lower than K = 1's); then in f32 (TF32 off) three sources, one
+    of valid length 0, token for token against the port's f32 CPU path.
+    Returns the decode kernel's launches in the greedy call."""
+    import numpy as np
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    tag = "phase 9"
+    B, Ts = len(S2S_SOURCES), max(S2S_SOURCES)
+    rng = np.random.RandomState(21)
+    src = torch.from_numpy(rng.randint(1, S2S_VOCAB, (B, Ts))).to(dev)
+    vl = torch.tensor(S2S_SOURCES, device=dev)
+    src = torch.where(torch.arange(Ts, device=dev)[None] < vl[:, None], src,
+                      torch.zeros_like(src))          # padded with 0
+    net = load_jax_params(s2s_build(0.0)(dev), params, dtype="bfloat16")
+    bos = 1
+    net.translate(src, 4, bos, src_valid_length=vl)      # warm-up
+    torch.cuda.synchronize()
+    reset_counts(attn)
+    reset_counts(da)
+    t = time.perf_counter()
+    toks = net.translate(src, S2S_NEW, bos, src_valid_length=vl)
+    dt = time.perf_counter() - t
+    counts = dict(attn.launches, **da.launches)
+    want = {"flash_attention_fwd": 6, "decode_attention": 12 * S2S_NEW}
+    if {n: c for n, c in counts.items() if c} != want or \
+            attn.padded_copies:
+        fail(f"translate: launches {counts}, expected {want}; padded copies "
+             f"{attn.padded_copies}")
+    if tuple(toks.shape) != (B, S2S_NEW):
+        fail(f"translate: tokens of shape {tuple(toks.shape)}")
+    gap = translate_margins(torch, net, src, vl, toks, bos)
+    print(f"{tag}: translate greedy B={B} (source lengths {S2S_SOURCES}, "
+          f"padded to {Ts}) {S2S_NEW} new tokens: {dt * 1e3 / S2S_NEW:.3f} "
+          f"ms a token, {B * S2S_NEW / dt:.0f} tokens/s (host clock, eager "
+          f"loop); launches {counts}; worst gap below the teacher-forced "
+          f"row maximum {gap:.4f} (limit {GREEDY_MARGIN}); distinct tokens "
+          f"a stream {[len(set(r)) for r in toks.tolist()]}", flush=True)
+    _, prof = profiled_step(torch, lambda: net.translate(
+        src, 4, bos, src_valid_length=vl))
+    names = kernel_counts(prof)
+    sdpa = [k for k in names if re.search(SDPA_KERNEL, k)]
+    dec = sum(c for k, c in names.items() if re.search(DECODE_KERNEL, k))
+    if sdpa or not dec:
+        fail(f"translate: library attention kernels {sdpa}, decode kernels "
+             f"{dec} in a profiled call")
+    t = time.perf_counter()
+    seqs, scores = net.beam_translate(src, S2S_NEW, bos, beam_size=S2S_BEAM,
+                                      src_valid_length=vl)
+    beam_s = time.perf_counter() - t
+    _, one = net.beam_translate(src, S2S_NEW, bos, beam_size=1,
+                                src_valid_length=vl)
+    sc = scores.float()
+    if tuple(seqs.shape) != (B, S2S_BEAM, S2S_NEW) or \
+            not bool(sc.isfinite().all()) or \
+            bool((sc[:, 1:] > sc[:, :-1]).any()) or \
+            bool((sc[:, 0] < one[:, 0] - 1e-4).any()):
+        fail(f"beam_translate: shape {tuple(seqs.shape)}, scores {sc} (must "
+             f"be best-first), K=1 scores {one}")
+    print(f"{tag}: beam_translate K={S2S_BEAM}: {beam_s * 1e3:.1f} ms for "
+          f"{S2S_NEW} steps ({B * S2S_BEAM} rows); scores best-first, the "
+          f"best no lower than K=1's (margins "
+          f"{(sc[:, 0] - one[:, 0]).min().item():.4f} and up)", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    # f32 (TF32 off): card against the port's CPU path, one empty source
+    sub = torch.tensor([0, 3, 7])
+    vl32 = torch.tensor([40, 0, 128])
+    cpu = load_jax_params(s2s_build(0.0)("cpu"), params)
+    want = cpu.translate(src[sub].cpu(), 16, bos, src_valid_length=vl32)
+    del cpu
+    card = load_jax_params(s2s_build(0.0)(dev), params)
+    got = card.translate(src[sub], 16, bos, src_valid_length=vl32.to(dev))
+    g16 = load_jax_params(s2s_build(0.0)(dev), params, dtype="bfloat16")
+    zero = g16.translate(src[sub], 16, bos, src_valid_length=vl32.to(dev))
+    if not torch.equal(got, want):
+        fail(f"translate f32: the card's tokens {got.tolist()} differ from "
+             f"the CPU's {want.tolist()}")
+    print(f"{tag}: translate f32 (TF32 off), sources of valid length "
+          f"{vl32.tolist()}: the card's 16 tokens equal the CPU path's, "
+          f"token for token; bf16 with the empty source: tokens "
+          f"{zero[1].tolist()[:8]}...", flush=True)
+    del card, g16
+    torch.cuda.empty_cache()
+    return counts["decode_attention"]
+
+
+def s2s_decode_row(torch, dev, da):
+    """The decode attention at translate's shapes (S=8, H=8, D=64): the
+    cross-attention over the memory (L = 128, pos = valid length - 1) and
+    the self-attention over the cache (L = 64), against the plain version;
+    the cross call timed with a kept workspace beside its bound and SDPA
+    over the masked memory (a yardstick)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(12)
+    S, H, D = len(S2S_SOURCES), 8, 64
+    q = torch.randn(S, H, D, generator=gen).to(dev, torch.bfloat16)
+    errs = []
+    for L, pos in ((max(S2S_SOURCES), [n - 1 for n in S2S_SOURCES]),
+                   (S2S_NEW, [S2S_NEW // 2] * S)):
+        k, v = (torch.randn(S, L, H, D, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(2))
+        pd = torch.tensor(pos, device=dev)
+        errs.append(check_close(
+            "decode attention", f"S={S} L={L}", da.decode_attention(
+                q, k, v, pd), da.decode_attention_reference(
+                q.float(), k.float(), v.float(), pd), TOL_HALF))
+    L = max(S2S_SOURCES)
+    k, v = (torch.randn(S, L, H, D, generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    pd = torch.tensor([n - 1 for n in S2S_SOURCES], device=dev)
+    work = da.workspace(S, H, L, D, dev)
+
+    def call():
+        da.decode_attention(q, k, v, pd, work=work)
+    keep = lambda n: re.search(DECODE_KERNEL, n)    # noqa: E731
+    ms = launch_ms(call, 20, keep)
+    flushed = cold_ms(call, keep, per_call=1)
+    plain = device_ms(lambda: da.decode_attention_reference(q, k, v, pd))
+    mask = (torch.arange(L, device=dev)[None, :] <= pd[:, None])[:, None,
+                                                                 None, :]
+    qh, kh, vh = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib = device_ms(sdpa)
+    b_ms, b_by = decode_bound_ms(S, H, D, S2S_SOURCES, 2)
+    print(f"phase 9: decode attention (cross) S={S} H={H} D={D} L={L} bf16, "
+          f"valid lengths {S2S_SOURCES}: {fmt_ms(ms)} device back to back, "
+          f"{fmt_ms(flushed)} with L2 flushed (bound {b_ms:.6f} ms by "
+          f"{b_by}; plain {fmt_ms(plain)}; SDPA over the masked memory "
+          f"{fmt_ms(lib)}); max abs err {max(errs):.3e}", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, flushed_ms=flushed)
+
+
+def phase_seq2seq(torch, dev):
+    """Phase 9: the encoder-decoder Transformer (transformer_base, vocab
+    32000, bf16 with f32 masters, weights from a seed) trained with Adam
+    at lr 1e-4, dropout 0.1, on B=32 pairs of Ts = Tt = 128 (source valid
+    lengths 32-128): eager, at the pair's block_k, hybridized; the f32
+    step against the CPU (B=2, Ts=24, Tt=16); then translated greedy and
+    by beam search. Returns (rows, launches)."""
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    t_phase = time.perf_counter()
+    tag = "phase 9"
+    params = random_transformer_params(s2s_build(0.1)("cpu"), seed=0)
+    batch = seq2seq_batch(torch, S2S_B, S2S_T, S2S_T, seed=1)
+    valid = batch[3].tolist()
+    print(f"{tag}: transformer_base (6 + 6 layers, 512 units, FFN 2048, 8 "
+          f"heads, vocab {S2S_VOCAB}, tied embedding) bf16; B={S2S_B} "
+          f"Ts=Tt={S2S_T}, source valid lengths {valid}", flush=True)
+    adam = ("adam", {"learning_rate": 1e-4})
+    launches, stats = model_training(
+        torch, dev, tag, s2s_build(0.1), params, batch, s2s_step, adam,
+        S2S_ATTN, S2S_PAIR_BLOCK_K, S2S_B * S2S_T)
+    f32 = seq2seq_batch(torch, 2, 24, 16, seed=2, lo=10)
+    f32_step_parity(torch, dev, tag, s2s_build(0.0), params, f32, s2s_step,
+                    adam, S2S_ATTN)
+    launches["decode_attention"] = s2s_translate(torch, dev, params)
+    rows = path_attention_rows(torch, dev, attn, tag, S2S_B, 8, S2S_T,
+                               valid, False, S2S_PAIR_BLOCK_K)
+    path_attention_rows(torch, dev, attn, f"{tag} causal", S2S_B, 8, S2S_T,
+                        [S2S_T] * S2S_B, True, S2S_PAIR_BLOCK_K)
+    rows["decode_attention"] = s2s_decode_row(torch, dev, da)
+    rows["multi_tensor_update"] = path_update_row(
+        torch, dev, tag, "transformer_base", adam,
+        model_shapes(s2s_build(0.1)("cpu")))
+    print(f"{tag}: done in {time.perf_counter() - t_phase:.1f} s; card: "
+          f"{smi_line()}", flush=True)
+    return rows, launches, stats
+
+
+def phase_gpt_train(torch, dev):
+    """Phase 10: GPT-2 124M (``get_gpt("gpt2_124m", vocab_size=50257,
+    dropout=0.0, max_length=1024)``, bf16 with f32 masters, weights from a
+    seed) trained with AdamW at lr 1e-4 on B=8, T=1024 (``bench.py:557``'s
+    configuration): eager, at the pair's block_k, hybridized; the f32 step
+    against the CPU (B=2, T=128). Returns (rows, launches)."""
+    from mxnet_tpu_torch.gluon.model_zoo import get_gpt
+    from mxnet_tpu_torch.ops.cuda import attention as attn
+    t_phase = time.perf_counter()
+    tag = "phase 10"
+
+    def build(device):
+        return get_gpt("gpt2_124m", vocab_size=GPT_VOCAB, dropout=0.0,
+                       max_length=1024, device=device)
+    params = random_gpt_params(build("cpu"), seed=0)
+    print(f"{tag}: GPT-2 124M (12 layers, 768 units, 12 heads, vocab "
+          f"{GPT_VOCAB}) bf16, B={GPT_B} T={GPT_T}, AdamW lr 1e-4",
+          flush=True)
+    adamw = ("adamw", {"learning_rate": 1e-4, "wd": 0.01})
+    launches, stats = model_training(
+        torch, dev, tag, build, params, lm_batch(torch, GPT_B, GPT_T, 1),
+        lm_step, adamw, GPT_ATTN, GPT_PAIR_BLOCK_K, GPT_B * GPT_T)
+    f32_step_parity(torch, dev, tag, build, params, lm_batch(torch, 2, 128, 2),
+                    lm_step, adamw, GPT_ATTN)
+    rows = path_attention_rows(torch, dev, attn, tag, GPT_B, 12, GPT_T,
+                               [GPT_T] * GPT_B, True, GPT_PAIR_BLOCK_K)
+    rows["multi_tensor_update"] = path_update_row(
+        torch, dev, tag, "GPT-2 124M", adamw, model_shapes(build("cpu")))
+    print(f"{tag}: done in {time.perf_counter() - t_phase:.1f} s; card: "
+          f"{smi_line()}", flush=True)
+    return rows, launches, stats
+
+
 def initialize_check(torch) -> None:
     """Phase 1: MXNet's ``initialize()`` with no arguments puts a block's
     parameters on the current context, ``cuda:0``."""
@@ -5302,11 +5940,14 @@ def initialize_check(torch) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "rtc", "generate"],
+    ap.add_argument("--only", choices=["kernels", "rtc", "generate",
+                                       "seq2seq", "gpt-train"],
                     default=None,
                     help="kernels: stop after the kernel checks (phases "
                     "1-3); rtc: phases 1 and 7 only; generate: phases 1, "
-                    "2 and 8 (GPT-2 generation)")
+                    "2 and 8 (GPT-2 generation); seq2seq: phases 1, 2 and "
+                    "9 (the encoder-decoder Transformer); gpt-train: "
+                    "phases 1, 2 and 10 (GPT-2 training)")
     ap.add_argument("--probe-fwd", action="store_true",
                     help="after phase 3, time the flash forward against "
                     "builds of it with one part cut out")
@@ -5360,7 +6001,7 @@ def main() -> int:
             print_ptxas(kname, _kernels._target(kname).with_suffix(".log"))
 
         rows, launches = {}, {n: None for n in KERNEL_INFO}
-        if args.only != "generate":
+        if args.only in (None, "kernels"):
             # phase 3
             rows, wide_launches = phase_kernels(torch, dev)
             launches.update(wide_launches)
@@ -5399,13 +6040,41 @@ def main() -> int:
                 launches["flash_attention_fwd"] = 0
             launches["flash_attention_fwd"] += \
                 gen_launches["flash_attention_fwd"]
+        decode = {"decode_attention": 0}
+        if args.only in (None, "generate"):
+            decode = dict(gen_launches)
+            decode_row = gen_rows["decode_attention"]
+        paths = []
+        if args.only in (None, "seq2seq"):
+            # phase 9 (after phase 8)
+            paths.append(phase_seq2seq(torch, dev))
+        if args.only in (None, "gpt-train"):
+            # phase 10
+            paths.append(phase_gpt_train(torch, dev))
+        if args.only in ("seq2seq", "gpt-train"):
+            # the kernels of the path alone, its rows measured at its shapes
+            path_rows, path_launches, _ = paths[0]
+            names = [n for n in KERNEL_INFO if n in path_rows]
+            rows.update(path_rows)
+            launches.update({n: 0 for n in names})
+            if "decode_attention" in path_rows:
+                decode_row = path_rows["decode_attention"]
+        for _, path_launches, _ in paths:
+            for n in names:
+                launches[n] += path_launches.get(n, 0)
+            decode["decode_attention"] += path_launches.get(
+                "decode_attention", 0)
+        missing = [n for _, pl, _ in paths for n in
+                   ATTN_KERNELS + UPDATE_KERNELS if not pl[n]]
+        if missing:
+            fail(f"kernels never launched on the training paths: {missing}")
         entries += [dict(name=n, route="cuda", source=KERNEL_INFO[n][0],
                          replaces=KERNEL_INFO[n][1], launches=launches[n],
                          **rows[n]) for n in names]
-        if args.only in (None, "generate"):
+        if args.only in (None, "generate", "seq2seq"):
             entries += [dict(name=n, route="cuda", source=GEN_INFO[n][0],
                              replaces=GEN_INFO[n][1],
-                             launches=gen_launches[n], **gen_rows[n])
+                             launches=decode[n], **decode_row)
                         for n in GEN_INFO]
 
     if args.only in (None, "rtc"):

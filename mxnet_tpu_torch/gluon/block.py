@@ -36,6 +36,7 @@ from .. import autograd as _autograd
 from .. import random as _random
 from ..base import MXNetError, getenv
 from ..random import epoch as _random_epoch
+from ..random import renew as _renew_generator
 from ..context import as_device
 from .parameter import (Parameter, dedupe_shared, resolve_device,
                         to_torch_dtype)
@@ -438,7 +439,10 @@ class HybridBlock(Block):
     A hybridized child called inside its parent's capture runs inline:
     captures do not nest. CPU tensors run the block eagerly, the port's
     plain path on the CPU. On CUDA tensors a capture that fails raises
-    ``MXNetError`` with its cause; nothing runs eager in its place."""
+    ``MXNetError`` with its cause; nothing runs eager in its place. It
+    renews the framework generator of the device first
+    (:func:`~mxnet_tpu_torch.random.renew`): PyTorch ends a failed capture
+    without releasing the generators registered with it."""
 
     def __init__(self, prefix: Optional[str] = None, params: Any = None) -> None:
         super().__init__(prefix, params)
@@ -596,6 +600,9 @@ class HybridBlock(Block):
                     stage = "backward"
                     self._capture_backward(g, gen, aliases)
         except Exception as e:
+            # the failed capture left the generator it registered in
+            # capture mode: later draws would raise
+            _renew_generator(dev)
             raise MXNetError(
                 f"hybridize: capturing {type(self).__name__}'s {stage} "
                 f"for {[(tuple(t.shape), str(t.dtype)) for t in tensors]}"

@@ -160,13 +160,15 @@ def get_bert(model_name: str = "bert_12_768_12", vocab_size: int = 30522,
     """Build a zoo BERT on ``device`` (``cuda:0`` by default; pass
     ``device="cpu"`` for the CPU). Parameters are zeros until
     ``initialize`` or :func:`~mxnet_tpu_torch.convert.load_jax_params`."""
-    dev = as_device(device)
     if model_name not in _BERT_SPEC:
         raise MXNetError(f"unknown bert spec {model_name!r}; "
                          f"options: {sorted(_BERT_SPEC)}")
     cfg = dict(_BERT_SPEC[model_name])
     cfg.update(kwargs)
-    return BERTModel(vocab_size=vocab_size, **cfg).to(dev)
+    # built before the device is resolved: an argument the model does not
+    # take (MXNet's ctx=, as in the JAX package) raises TypeError first
+    net = BERTModel(vocab_size=vocab_size, **cfg)
+    return net.to(as_device(device))
 
 
 def bert_base(**kw) -> BERTModel:

@@ -18,9 +18,8 @@ from __future__ import annotations
 from typing import Any, List
 
 from ....base import MXNetError
-from ....context import as_device
 from ...block import HybridBlock, PreActivation
-from ...parameter import data_or_none
+from ...parameter import data_or_none, resolve_device
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, GlobalAvgPool2D,
                    HybridSequential, MaxPool2D)
 from ...nn.basic_layers import (_conv1x1_fusable, _has_hooks,
@@ -295,12 +294,15 @@ class ResNetV2(HybridBlock):
 
 
 def get_resnet(version: int, num_layers: int, pretrained: bool = False,
-               device: Any = None, classes: int = 1000,
+               ctx: Any = None, classes: int = 1000, device: Any = None,
                **kwargs: Any) -> HybridBlock:
     """Build a zoo ResNet on ``device`` (``cuda:0`` by default; pass
     ``device="cpu"`` for the CPU). Parameters are zeros until
-    ``initialize`` or :func:`~mxnet_tpu_torch.convert.load_jax_params`."""
-    dev = as_device(device)
+    ``initialize`` or :func:`~mxnet_tpu_torch.convert.load_jax_params`.
+    ``ctx`` is the JAX package's argument in its place: the net is
+    initialized there (``Block.initialize(ctx=ctx)``), as it is in the
+    JAX package; it is the same argument as ``device``."""
+    dev = resolve_device(ctx, device)
     if num_layers not in _RESNET_SPEC:
         raise MXNetError(f"invalid resnet depth {num_layers}; "
                          f"options: {sorted(_RESNET_SPEC)}")
@@ -316,6 +318,8 @@ def get_resnet(version: int, num_layers: int, pretrained: bool = False,
                        classes=classes, **kwargs)
     else:
         raise MXNetError(f"invalid resnet version {version}")
+    if ctx is not None:
+        return net.initialize(ctx=ctx)
     return net.to(dev)
 
 

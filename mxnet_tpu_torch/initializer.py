@@ -51,6 +51,16 @@ class Initializer:
         return self._init(tuple(shape), generator).to(device=device,
                                                        dtype=dtype)
 
+    def init_array(self, name: str, arr: Any) -> None:
+        """MXNet's legacy form ``init(name, arr)``: fill ``arr`` (an
+        NDArray or a tensor) in place, in its dtype and on its device,
+        drawing from the framework generator of that device."""
+        from .random import generator
+        t = getattr(arr, "_data", arr)
+        with torch.no_grad():
+            t.copy_(self(t.shape, generator(t.device), dtype=t.dtype,
+                         device=t.device))
+
     def _init(self, shape, generator):
         raise NotImplementedError
 

@@ -14,16 +14,17 @@ bits from one seed, so tests feed both packages numpy-made inputs.
 A hybridized block's CUDA graphs register the generator of their device
 (``gluon/block.py``), so each replay draws the next numbers of its stream.
 ``seed`` replaces the generators; it bumps :func:`epoch`, and a block whose
-graphs were captured under an older epoch drops them.
+graphs were captured under an older epoch drops them. :func:`renew`
+replaces one device's generator at the same state after a failed capture.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Union
+from typing import Any, Dict, Union
 
 import torch
 
-__all__ = ["seed", "generator", "epoch"]
+__all__ = ["seed", "generator", "epoch", "renew"]
 
 _LOCK = threading.Lock()
 _SEED = 0
@@ -38,9 +39,10 @@ def _key(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def seed(seed_state: int) -> None:
+def seed(seed_state: int, ctx: Any = "all") -> None:
     """Restart every device's stream from ``seed_state``
-    (``mx.random.seed``)."""
+    (``mx.random.seed``). ``ctx`` is the JAX package's argument, which
+    it ignores: one seed restarts every device there too."""
     global _SEED
     with _LOCK:
         _SEED = int(seed_state)
@@ -64,3 +66,22 @@ def generator(device: Union[str, torch.device] = "cpu") -> torch.Generator:
             gen.manual_seed(_SEED)
             _GENERATORS[dev] = gen
         return gen
+
+
+def renew(device: Union[str, torch.device]) -> torch.Generator:
+    """Replace ``device``'s generator by a new one at the same state and
+    bump :func:`epoch`. A CUDA graph whose capture failed part-way leaves
+    the generators registered with it in capture mode, where every later
+    draw outside a graph raises; the graphs that registered the old
+    generator are dropped with the epoch."""
+    dev = _key(device)
+    with _LOCK:
+        old = _GENERATORS.get(dev)
+        new = torch.Generator(device=dev)
+        try:
+            new.set_state(old.get_state())
+        except (AttributeError, RuntimeError):
+            new.manual_seed(_SEED)
+        _GENERATORS[dev] = new
+        _EPOCH[0] += 1
+        return new

@@ -137,6 +137,13 @@ class PagedKVCache:
     def v(self, layer: int) -> torch.Tensor:
         return self._v[layer]
 
+    def layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Every layer's (k, v) buffers of the current bucket. The decode
+        step writes them in place, so there is no ``replace``: the JAX
+        package swaps in the buffers its donated program returns, while
+        here the buffers a graph was captured over stay the cache's."""
+        return list(zip(self._k, self._v))
+
     # -- slots --------------------------------------------------------------
     def free_slots(self) -> List[int]:
         return [i for i in range(self.max_slots)

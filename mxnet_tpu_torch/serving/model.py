@@ -61,7 +61,7 @@ from ..gluon.model_zoo.generation import (METHOD_CODES,  # noqa: F401
 from ..ops.cuda.decode_attention import workspace as _attention_workspace
 from .batching import BUCKET_COMPILES, INFER_SECONDS, BucketPolicy
 
-__all__ = ["ServedModel", "DecodeModel", "METHOD_CODES"]
+__all__ = ["ServedModel", "DecodeModel", "METHOD_CODES", "load_served"]
 
 # what HybridBlock.export writes into ``framework``
 EXPORT_FRAMEWORK = "mxnet_tpu_torch"
@@ -87,17 +87,20 @@ def _sig_str(shapes: Sequence[Tuple[int, ...]]) -> str:
 class ServedModel:
     """A loaded inference model: ``predict`` over numpy batch arrays.
 
-    ``fixed_batch``: the one batch size a static export serves (None for
-    any)."""
+    The arguments are the JAX package's, in its order: ``fixed_batch`` is
+    the one batch size a static export serves (None for any).
+
+    Build with :meth:`from_export`, :meth:`from_block` or the
+    path-sniffing :func:`load_served`."""
 
     def __init__(self, fn: Any, input_signature: List[Tuple[Tuple[int, ...],
                                                             Any]],
-                 name: str, fixed_batch: Optional[int] = None) -> None:
+                 fixed_batch: Optional[int], name: str) -> None:
         self._fn = fn
         # per-input (shape_without_batch, dtype) of one request sample
         self.input_signature = input_signature
-        self.name = name
         self.fixed_batch = fixed_batch
+        self.name = name
         # the worker threads add while /healthz threads read
         self._seen_lock = threading.Lock()
         self._seen_buckets: set = set()
@@ -181,7 +184,7 @@ class ServedModel:
             return [_to_numpy(o) for o in _flatten(out)]
 
         name = os.path.basename(symbol_file).replace("-symbol.json", "")
-        return ServedModel(fn, sig, name or "export", fixed)
+        return ServedModel(fn, sig, fixed, name or "export")
 
     @staticmethod
     def from_block(block: Any,
@@ -223,7 +226,7 @@ class ServedModel:
                 out = block(*xs)
             return [_to_numpy(o) for o in _flatten(out)]
 
-        return ServedModel(fn, sig, type(block).__name__)
+        return ServedModel(fn, sig, None, type(block).__name__)
 
     def predict(self, arrays: Sequence[_np.ndarray]) -> List[_np.ndarray]:
         """Run one padded batch; returns per-output numpy arrays (axis 0
@@ -820,3 +823,22 @@ def _guess_param_file(symbol_file: str) -> Optional[str]:
                    and f.endswith(".params"))
     return os.path.join(folder, cands[-1]) if cands else None
 
+def load_served(model: Any, param_file: Optional[str] = None,
+                **kw: Any) -> ServedModel:
+    """Sniff ``model`` into a :class:`ServedModel` (the JAX package's
+    ``load_served``): an export prefix or ``-symbol.json`` path goes to
+    :meth:`ServedModel.from_export` (the port's own ``torch.export``
+    artifacts; the JAX package's StableHLO exports load only there), a
+    Block to :meth:`ServedModel.from_block`; ``kw`` goes to that
+    constructor. A Module is not ported (Queue A 15)."""
+    if isinstance(model, str):
+        sym = model if model.endswith("-symbol.json") \
+            else f"{model}-symbol.json"
+        return ServedModel.from_export(sym, param_file, **kw)
+    if hasattr(model, "params_initialized"):        # Module duck-type
+        raise MXNetError("serving a Module (ServedModel.from_module) is not "
+                         "ported yet (ROADMAP Queue A 15, the remaining "
+                         "surface)")
+    if hasattr(model, "collect_params"):            # gluon Block
+        return ServedModel.from_block(model, **kw)
+    raise MXNetError(f"cannot serve a {type(model).__name__}")

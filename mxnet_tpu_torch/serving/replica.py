@@ -115,6 +115,25 @@ class ReplicaSupervisor:
         return backoff_delays(attempts=self.max_restarts + 1,
                               base_ms=self.backoff_ms)
 
+    # -- state queries (the JAX package's) -----------------------------------
+    @property
+    def degraded(self) -> bool:
+        """Every replica has left the rotation."""
+        return self._degraded
+
+    def restart_pending(self, rid: int) -> bool:
+        """A restart of replica ``rid`` is scheduled or backing off."""
+        with self._lock:
+            st = self._state.get(rid)
+            return bool(st and st.pending)
+
+    def tripped(self, rid: int) -> bool:
+        """Replica ``rid`` spent its restart budget and is out until
+        ``reset()``."""
+        with self._lock:
+            st = self._state.get(rid)
+            return bool(st and st.tripped)
+
     def in_rotation(self) -> int:
         """Replicas alive or with a restart pending."""
         with self._lock:

@@ -281,3 +281,161 @@ def test_trainer_allreduce_grads_takes_ignore_stale_grad():
     tr = Trainer(tb.collect_params(), "sgd", {"learning_rate": 0.1})
     tr.allreduce_grads(ignore_stale_grad=True)
     tr.allreduce_grads()
+
+
+# ------------------------------------------- serving, zoo, init and random
+def test_served_model_takes_the_jax_argument_order():
+    """``ServedModel(fn, input_signature, fixed_batch, name)``."""
+    from mxnet_tpu.serving import ServedModel as JServed
+    from mxnet_tpu_torch.serving import ServedModel as TServed
+    sig = [((4,), onp.float32)]
+    for fixed in (8, None):
+        j = JServed(lambda a: [], sig, fixed, "m")
+        t = TServed(lambda a: [], sig, fixed, "m")
+        assert (t.name, t.fixed_batch) == (j.name, j.fixed_batch) \
+            == ("m", fixed)
+        assert t.describe()["fixed_batch"] == j.describe()["fixed_batch"]
+        assert t.default_policy().batch_buckets == \
+            j.default_policy().batch_buckets
+
+
+def _dense_pair():
+    jb = mx.gluon.nn.Dense(3, in_units=4, flatten=False)
+    jb.initialize()
+    tb = nn.Dense(3, in_units=4, flatten=False)
+    _copy(jb, tb)
+    return jb, tb
+
+
+def test_load_served_block_and_export_match_jax(tmp_path):
+    from mxnet_tpu.serving import load_served as jload
+    from mxnet_tpu_torch.serving import load_served as tload
+    jb, tb = _dense_pair()
+    x = onp.random.RandomState(7).randn(2, 4).astype("float32")
+    jb.hybridize()
+    jb(mx.np.array(x))
+    tb.hybridize()
+    tb(torch.from_numpy(x))
+    want = jload(jb).predict([x])[0]
+    got = tload(tb, device="cpu").predict([x])[0]
+    onp.testing.assert_allclose(got, want, **F32)
+    jprefix, tprefix = str(tmp_path / "j"), str(tmp_path / "t")
+    jb.export(jprefix)
+    tb.export(tprefix)
+    for prefix in (tprefix, tprefix + "-symbol.json"):
+        served = tload(prefix, device="cpu")
+        assert served.fixed_batch == jload(jprefix).fixed_batch == 2
+        onp.testing.assert_allclose(served.predict([x])[0], want, **F32)
+    # the packages' export formats are their own (a documented contract)
+    with pytest.raises(MXNetError, match="framework"):
+        tload(jprefix, device="cpu")
+
+    class Module:
+        params_initialized = True
+
+    with pytest.raises(MXNetError, match="Queue A 15"):
+        tload(Module())
+    for load in (jload, tload):
+        with pytest.raises(mx.MXNetError if load is jload else MXNetError):
+            load(3)
+
+
+def test_replica_supervisor_state_queries_match_jax():
+    from mxnet_tpu.serving import ReplicaSupervisor as JSup
+    from mxnet_tpu_torch.serving import ReplicaSupervisor as TSup
+    states = []
+    for cls in (JSup, TSup):
+        alive = {0: True, 1: True}
+        sup = cls("s", 2, spawn=lambda rid: None,
+                  on_degraded=lambda exc: None, alive_fn=alive.__getitem__,
+                  max_restarts=0, backoff_ms=1.0)
+        seen = [(sup.degraded, sup.tripped(0), sup.restart_pending(0))]
+        alive[0] = False
+        sup.notify_death(0, RuntimeError("x"))
+        seen.append((sup.degraded, sup.tripped(0), sup.tripped(1),
+                     sup.restart_pending(0), sup.tripped(9)))
+        alive[1] = False
+        sup.notify_death(1, RuntimeError("y"))
+        seen.append((sup.degraded, sup.tripped(1)))
+        sup.reset()
+        seen.append((sup.degraded, sup.tripped(0), sup.tripped(1)))
+        slow = cls("p", 1, spawn=lambda rid: None,
+                   on_degraded=lambda exc: None, alive_fn=lambda rid: False,
+                   max_restarts=1, backoff_ms=60_000.0)
+        slow.notify_death(0, RuntimeError("z"))
+        seen.append((slow.restart_pending(0), slow.tripped(0),
+                     slow.degraded))
+        slow.stop()
+        seen.append((slow.restart_pending(0),))
+        states.append(seen)
+    assert states[0] == states[1]
+    assert states[1][2] == (True, True) and states[1][4] == (True, False,
+                                                             False)
+
+
+def test_paged_kv_cache_layers_match_jax():
+    from mxnet_tpu.serving import PagedKVCache as JCache
+    from mxnet_tpu_torch.serving import PagedKVCache as TCache
+    j = JCache(3, 2, 4, max_slots=2, buckets=[8])
+    t = TCache(3, 2, 4, max_slots=2, buckets=[8], device="cpu")
+    jl, tl = j.layers(), t.layers()
+    assert len(tl) == len(jl) == 3
+    for (jk, jv), (tk, tv), i in zip(jl, tl, range(3)):
+        assert tuple(tk.shape) == tuple(jk.shape) == (2, 8, 2, 4)
+        assert tk is t.k(i) and tv is t.v(i)
+        onp.testing.assert_array_equal(tv.numpy(), onp.asarray(jv))
+
+
+@pytest.mark.parametrize("init", ["zeros", "ones"])
+def test_initializer_init_array_matches_jax(init):
+    jarr = mx.np.array(onp.full((3, 2), 5.0, "float32"))
+    mx.initializer.get(init).init_array("w", jarr)
+    with tmx.cpu():
+        tarr = tmx.nd.array(onp.full((3, 2), 5.0, "float32"))
+    tmx.initializer.get(init).init_array("w", tarr)
+    onp.testing.assert_array_equal(tarr.asnumpy(), jarr.asnumpy())
+    t = torch.full((4,), 5.0, dtype=torch.bfloat16)
+    tmx.init.Normal(0.5).init_array("w", t)
+    assert t.dtype == torch.bfloat16 and not (t == 5.0).any()
+
+
+def test_random_seed_takes_ctx():
+    for pkg in (mx, tmx):
+        pkg.random.seed(3, ctx="all")
+        pkg.random.seed(3, ctx=pkg.cpu())
+    tmx.random.seed(11, ctx="all")
+    a = tmx.nd.random.uniform(shape=(5,), ctx=tmx.cpu()).asnumpy()
+    tmx.random.seed(11)
+    b = tmx.nd.random.uniform(shape=(5,), ctx=tmx.cpu()).asnumpy()
+    onp.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("factory", ["get_resnet", "resnet18_v1"])
+def test_resnet_factories_place_the_net_on_ctx(factory):
+    """``ctx=`` places (and, as in the JAX package, initializes) the net
+    there; ``device=`` is the same argument under the port's name."""
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+    from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+    args = (1, 18) if factory == "get_resnet" else ()
+    jnet = getattr(jvision, factory)(*args, ctx=mx.cpu(), classes=10)
+    tnet = getattr(tvision, factory)(*args, ctx=tmx.cpu(), classes=10)
+    assert type(tnet).__name__ == type(jnet).__name__ == "ResNetV1"
+    assert list(tnet.collect_params()) == list(jnet.collect_params())
+    assert {p.data().device.type for p in
+            tnet.collect_params().values()} == {"cpu"}
+    assert all(p.is_initialized for p in tnet.collect_params().values())
+    with pytest.raises(MXNetError, match="not both"):
+        getattr(tvision, factory)(*args, ctx=tmx.cpu(), device="cpu",
+                                  classes=10)
+    net = tvision.get_model("resnet18_v1", device="cpu", classes=10)
+    assert not net.output.weight.data().detach().any()
+
+
+def test_get_bert_refuses_ctx_as_jax_does():
+    from mxnet_tpu.gluon.model_zoo.bert import get_bert as jget
+    from mxnet_tpu_torch.gluon.model_zoo.bert import get_bert as tget
+    cfg = dict(num_layers=1, units=32, hidden_size=64, num_heads=2,
+               vocab_size=50)
+    for get, ctx in ((jget, mx.cpu()), (tget, tmx.cpu())):
+        with pytest.raises(TypeError, match="ctx"):
+            get(ctx=ctx, **cfg)

@@ -89,7 +89,21 @@ capturing nothing during traffic that migrates buckets and samples.
 Prompt passes while another thread captures a decode graph on the card (a
 replica restarted after a worker's death warming up): each waits on its
 own stream only, so the capture, the prompt passes' logits and a
-recovery's streams are what they are with nothing else running.
+recovery's streams are what they are with nothing else running. A
+``ServedModel``'s hybridized block capturing a new signature while another
+thread runs prompt passes, and a decode capture while ``predict`` uploads
+a batch: neither raises, and each gives what it gives alone.
+
+The encoder-decoder Transformer (2 + 2 layers, units 256, head dim 64):
+a bf16 training step's launches (6 flash forwards, 6 fused backwards or 6
+of each of the pair at block_k 64, one update); the f32 step against the
+CPU's plain path (loss 1e-4 relative, gradients 1e-3 relative Frobenius,
+Tq != Tk, a source of valid length 0); f32 ``translate`` and
+``beam_translate`` equal to the CPU's tokens (scores 1e-4), the decode
+kernel 4 times a token; the hybridized step with and without
+``src_valid_length`` (one graph each, the tied embedding bound once). A
+2-layer GPT's training step: 2 + 2 launches (or the pair at block_k 128),
+and the f32 step against the CPU.
 """
 import math
 
@@ -1533,6 +1547,39 @@ def test_capture_failure_raises(dev):
         net(x)
 
 
+def test_capture_failure_leaves_the_generator_usable(dev):
+    """A capture that fails part-way leaves the framework generator it
+    registered in capture mode; the block renews it, so dropout draws
+    and a later capture still work."""
+    import importlib
+    from mxnet_tpu_torch.gluon import HybridBlock
+    mx_random = importlib.import_module("mxnet_tpu_torch.random")
+
+    class Reads(HybridBlock):
+        def forward(self, x):
+            return tmx.npx.dropout(x, 0.5, mode="always") \
+                * float(x.sum().item())
+
+    class Drops(HybridBlock):
+        def forward(self, x):
+            return tmx.npx.dropout(x, 0.5, mode="always")
+
+    x = torch.ones(1024, device=dev)
+    net = Reads()
+    net.hybridize()
+    net(x)
+    epoch = mx_random.epoch()
+    with pytest.raises(MXNetError, match="capturing Reads's forward"):
+        net(x)
+    assert mx_random.epoch() == epoch + 1
+    a = tmx.npx.dropout(x, 0.5, mode="always")
+    drops = Drops()
+    drops.hybridize()
+    outs = [drops(x) for _ in range(4)]    # warm-up, capture, replays
+    assert not torch.equal(outs[2], outs[3])
+    assert all(bool(((o == 0) | (o == 2)).all()) for o in outs + [a])
+
+
 def test_served_buckets_answer_as_eager(dev):
     import numpy as onp
     from mxnet_tpu_torch.gluon import HybridBlock
@@ -2123,3 +2170,254 @@ def test_recovery_waits_for_a_restarted_engines_capture(dev, monkeypatch):
     assert waited, "the recovery ran while the restart captured"
     assert not errors and model.captures == captures + 4
     assert finish(survivor, streams) == clean
+
+
+# ------------------------------------------- captures beside served traffic
+class _HeldBlock(tmx.gluon.HybridBlock):
+    """A Dense whose forward, while its stream captures, waits until the
+    test sets ``released``: a ``ModelServer``'s block capturing a new
+    signature."""
+
+    def __init__(self, capturing, released):
+        super().__init__()
+        self.dense = tmx.gluon.nn.Dense(64, in_units=64, flatten=False)
+        self._events = (capturing, released)
+
+    def forward(self, x):
+        y = self.dense(x)
+        capturing, released = self._events
+        if torch.cuda.is_current_stream_capturing() \
+                and not released.is_set():
+            capturing.set()
+            released.wait(120)
+        return y
+
+
+def test_prompt_passes_beside_a_served_blocks_capture(dev):
+    """A hybridized block served by ``ServedModel`` (a ``ModelServer``'s
+    worker) captures a new signature while another thread runs a
+    ``GenerationServer``'s prompt passes (host-to-card uploads): neither
+    raises, and each gives what it gives alone."""
+    import threading
+    import numpy as onp
+    from mxnet_tpu_torch.serving import DecodeModel, ServedModel
+    capturing, released = threading.Event(), threading.Event()
+    blk = _HeldBlock(capturing, released)
+    blk.initialize(device=dev)
+    served = ServedModel.from_block(blk, [((64,), onp.float32)], device=dev)
+    x = onp.random.RandomState(0).randn(2, 64).astype("float32")
+    model = DecodeModel.from_block(_gen_net(dev), device=dev)
+    rng = onp.random.RandomState(5)
+    prompts = [rng.randint(0, 1000, n) for n in (9, 100, 300)]
+    alone = [model.prefill(p, 512)[0] for p in prompts]
+    got = {}
+
+    def serve():
+        # a server's worker: the signature's eager warm-up, then its
+        # capture, on one thread (the capture needs that thread's cuBLAS
+        # handle made beforehand)
+        got["eager"] = served.predict([x])[0]
+        got["answer"] = served.predict([x])[0]
+
+    _, errors = _while_held(
+        capturing, released, serve,
+        lambda: got.update(passes=[model.prefill(p, 512)[0]
+                                   for p in prompts]))
+    assert not errors, errors
+    assert sum(1 for g in blk._cached_graph.values() if g is not True) == 1
+    assert onp.array_equal(got["answer"], got["eager"])
+    assert all(torch.equal(a, b) for a, b in zip(alone, got["passes"]))
+
+
+def test_served_predict_beside_a_decode_capture(dev, monkeypatch):
+    """The reverse: a decode graph's capture while ``ServedModel.predict``
+    uploads a batch and reads its answer back: neither raises, and each
+    gives what it gives alone."""
+    import numpy as onp
+    from mxnet_tpu_torch.serving import DecodeModel, ServedModel
+    fresh = DecodeModel.from_block(_gen_net(dev), device=dev)
+    cache = _gen_cache(fresh, dev)
+    toks, pos = onp.array([3, 30, 300, 999]), cache.positions.copy()
+    snap = _snapshot(cache)
+    eager = fresh.step(cache, toks, pos, graph=False)
+    _restore(cache, snap)
+    blk = tmx.gluon.nn.Dense(64, in_units=64, flatten=False)
+    blk.initialize(device=dev)
+    served = ServedModel.from_block(blk, [((64,), onp.float32)], device=dev)
+    x = onp.random.RandomState(1).randn(3, 64).astype("float32")
+    alone = served.predict([x])[0]
+    served.predict([x])                     # captured: later calls replay
+    capturing, released = _hold_capture(fresh, monkeypatch)
+    got = {}
+    _, errors = _while_held(
+        capturing, released,
+        lambda: got.update(step=fresh.step(cache, toks, pos)),
+        lambda: got.update(answer=served.predict([x])[0]))
+    assert not errors, errors
+    assert fresh.captures == 1 and onp.array_equal(got["step"], eager)
+    assert onp.array_equal(got["answer"], alone)
+
+
+# ------------------------------------- the encoder-decoder Transformer, GPT
+def _s2s_net(dev, dtype=torch.float32, dropout=0.0, seed=0):
+    """A 2 + 2 layer Transformer, units 256, head dim 64, vocab 1000, with
+    chip_smoke's random weights, on ``dev``; and the weights."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerModel
+    net = TransformerModel(src_vocab_size=1000, num_encoder_layers=2,
+                           num_decoder_layers=2, units=256, hidden_size=512,
+                           num_heads=4, max_length=256, dropout=dropout)
+    params = cs.random_transformer_params(net, seed)
+    return load_jax_params(net.to(dev), params, dtype=dtype), params
+
+
+def _train_step(net, batch, trainer, lm=False):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    loss_fn = SoftmaxCrossEntropyLoss(axis=-1)
+    with autograd.record():
+        out = net(batch[0]) if lm else net(batch[0], batch[1], batch[3])
+        loss = loss_fn(out, batch[1] if lm else batch[2])
+    autograd.backward(loss)
+    trainer.step(batch[0].shape[0])
+    return loss
+
+
+@pytest.mark.parametrize("block_k", [None, 64])
+def test_transformer_training_step_launches(dev, monkeypatch, block_k):
+    """One bf16 step (dropout 0.1): 6 flash forwards (2 encoder, 2 causal
+    decoder, 2 cross) and 6 fused backwards, or at block_k 64 < T the
+    dq/dkv pair 6 times each; one update launch; no operand copied."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    if block_k:
+        monkeypatch.setenv("MXNET_FLASH_BLOCK_K", str(block_k))
+    net, _ = _s2s_net(dev, torch.bfloat16, dropout=0.1)
+    batch = [x.to(dev) for x in cs.seq2seq_batch(torch, 4, 128, 96, 1,
+                                                 vocab=1000)]
+    tr = Trainer(net.collect_params(), "adam",
+                 {"learning_rate": 1e-4, "multi_precision": True})
+    before = dict(attn.launches, **mt.launches, **da.launches)
+    copies = attn.padded_copies
+    loss = _train_step(net, batch, tr)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in
+             dict(attn.launches, **mt.launches, **da.launches).items()}
+    bwd = {"flash_attention_bwd_fused": 6} if not block_k else {
+        "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6}
+    want = dict(flash_attention_fwd=6, multi_tensor_update=1, **bwd)
+    assert moved == {k: want.get(k, 0) for k in moved}
+    assert attn.padded_copies == copies
+    assert torch.isfinite(loss.float()).all() and loss.shape == (4,)
+
+
+def test_transformer_f32_step_matches_cpu(dev):
+    """One f32 Adam step at Ts=24, Tt=16 (Tq != Tk in the cross-attention)
+    with one source of valid length 0: loss within 1e-4 relative, every
+    gradient within 1e-3 relative Frobenius of the CPU's plain path."""
+    from mxnet_tpu_torch.gluon import Trainer
+    batch = cs.seq2seq_batch(torch, 3, 24, 16, 2, lo=10, vocab=1000)
+    batch[3][1] = 0
+    out = []
+    for where in ("cpu", dev):
+        net, _ = _s2s_net(where)
+        tr = Trainer(net.collect_params(), "adam", {"learning_rate": 1e-4})
+        loss = _train_step(net, [x.to(where) for x in batch], tr)
+        out.append((loss.detach().cpu(), {k: p.grad().detach().cpu() for
+                                          k, p in
+                                          net.collect_params().items()}))
+    (lc, gc), (lg, gg) = out
+    assert ((lg - lc).abs() / lc.abs()).max() <= 1e-4
+    for k in gc:
+        assert cs.rel(gg[k], gc[k]) <= 1e-3, k
+
+
+def test_transformer_translate_on_the_card(dev):
+    """f32 greedy ``translate`` and ``beam_translate`` equal to the port's
+    CPU path, a source of valid length 0 among them; the encoder's 2 flash
+    forwards and 4 decode-attention launches a token; bf16 tokens finite
+    and in range."""
+    from mxnet_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator().manual_seed(3)
+    src = torch.randint(1, 1000, (3, 40), generator=g)
+    vl = torch.tensor([40, 0, 17])
+    cpu, params = _s2s_net("cpu")
+    card, _ = _s2s_net(dev)
+    want = cpu.translate(src, 12, 1, src_valid_length=vl)
+    before = dict(attn.launches, **da.launches)
+    got = card.translate(src.to(dev), 12, 1, src_valid_length=vl.to(dev))
+    assert attn.launches["flash_attention_fwd"] - \
+        before["flash_attention_fwd"] == 2
+    assert da.launches["decode_attention"] - before["decode_attention"] \
+        == 4 * 12
+    assert torch.equal(got, want)
+    ws, wc = cpu.beam_translate(src, 10, 1, beam_size=3, eos_token=7,
+                                src_valid_length=vl)
+    gs, gc = card.beam_translate(src.to(dev), 10, 1, beam_size=3,
+                                 eos_token=7, src_valid_length=vl.to(dev))
+    assert torch.equal(gs, ws)
+    torch.testing.assert_close(gc, wc, rtol=1e-4, atol=1e-4)
+    half, _ = _s2s_net(dev, torch.bfloat16)
+    toks = half.translate(src.to(dev), 12, 1, src_valid_length=vl.to(dev))
+    assert toks.shape == (3, 12) and int(toks.min()) >= 0 \
+        and int(toks.max()) < 1000
+
+
+def test_transformer_hybridized_step_replays(dev):
+    """The hybridized bf16 step with and without ``src_valid_length``: the
+    second call of each signature captures and the third replays, with
+    the tied embedding bound once; losses finite and falling."""
+    from mxnet_tpu_torch.gluon import Trainer
+    net, _ = _s2s_net(dev, torch.bfloat16, dropout=0.1)
+    batch = [x.to(dev) for x in cs.seq2seq_batch(torch, 4, 64, 48, 5,
+                                                 vocab=1000)]
+    tr = Trainer(net.collect_params(), "adam",
+                 {"learning_rate": 1e-3, "multi_precision": True})
+    net.hybridize()
+    losses = [float(_train_step(net, batch, tr).float().mean())
+              for _ in range(4)]
+    no_vl = batch[:3] + [None]
+    losses += [float(_train_step(net, no_vl, tr).float().mean())
+               for _ in range(3)]
+    graphs = [g for g in net._cached_graph.values() if g is not True]
+    assert len(graphs) == 2
+    assert all(len(g.params) == len(net.collect_params()) - 1
+               for g in graphs)
+    assert all(math.isfinite(v) for v in losses) and losses[3] < losses[0]
+
+
+@pytest.mark.parametrize("block_k", [None, 128])
+def test_gpt_training_step_launches(dev, monkeypatch, block_k):
+    """A 2-layer GPT (units 256, head dim 64) bf16 AdamW step at B=2,
+    T=256: 2 causal flash forwards and 2 fused backwards, or at block_k
+    128 < T the pair; one update launch; then the f32 step against the
+    CPU."""
+    from mxnet_tpu_torch.gluon import Trainer
+    if block_k:
+        monkeypatch.setenv("MXNET_FLASH_BLOCK_K", str(block_k))
+    net = _gen_net(dev).train()
+    batch = [x.to(dev) for x in cs.lm_batch(torch, 2, 256, 3, vocab=1000)]
+    tr = Trainer(net.collect_params(), "adamw",
+                 {"learning_rate": 1e-4, "multi_precision": True})
+    before = dict(attn.launches, **mt.launches)
+    loss = _train_step(net, batch, tr, lm=True)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in
+             dict(attn.launches, **mt.launches).items()}
+    bwd = {"flash_attention_bwd_fused": 2} if not block_k else {
+        "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+    want = dict(flash_attention_fwd=2, multi_tensor_update=1, **bwd)
+    assert moved == {k: want.get(k, 0) for k in moved}
+    assert torch.isfinite(loss.float()).all()
+    out = []
+    small = [x.cpu()[:, :128] for x in batch]
+    for where in ("cpu", dev):
+        n = _gen_net(where, torch.float32)
+        t = Trainer(n.collect_params(), "adamw", {"learning_rate": 1e-4})
+        lv = _train_step(n, [x.to(where) for x in small], t, lm=True)
+        out.append((lv.detach().cpu(), {k: p.grad().detach().cpu() for k, p
+                                        in n.collect_params().items()}))
+    (lc, gc), (lg, gg) = out
+    assert ((lg - lc).abs() / lc.abs()).max() <= 1e-4
+    for k in gc:
+        assert cs.rel(gg[k], gc[k]) <= 1e-3, k

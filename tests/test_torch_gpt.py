@@ -120,6 +120,57 @@ def test_gpt_hybridize_equivalence(pair):
     torch.testing.assert_close(eager, hybrid, rtol=1e-5, atol=1e-6)
 
 
+def test_gpt_three_adamw_steps_match_jax():
+    """The language-model step (``bench.py:bench_gpt``'s, on a small GPT):
+    ``SoftmaxCrossEntropyLoss(axis=-1)`` over (B, T, V) logits,
+    ``backward``, ``Trainer.step`` with AdamW, three times. Losses at
+    rtol=1e-5; each weight after the steps at 1e-4 relative Frobenius (as
+    the small BERT's AdamW steps in ``test_torch_training.py``: Adam's
+    step scales a gradient entry's rounding noise by 1 / |g|), the key
+    biases, whose exact gradient is 0, held to moves of at most lr a
+    step."""
+    from mxnet_tpu_torch.convert import export_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    jnet, tnet, params = gpt_pair(seed=4, sigma=0.05)
+    toks = _tokens(21, 2, 17)
+    x, y = toks[:, :-1], toks[:, 1:]
+    hp = {"learning_rate": 1e-3, "wd": 0.01}
+    jtr = mx.gluon.Trainer(jnet.collect_params(), "adamw", dict(hp))
+    ttr = Trainer(tnet.collect_params(), "adamw", dict(hp))
+    jloss = mx.gluon.loss.SoftmaxCrossEntropyLoss(axis=-1)
+    tloss = SoftmaxCrossEntropyLoss(axis=-1)
+    tx, ty = torch.from_numpy(x).long(), torch.from_numpy(y).long()
+    for step in range(3):
+        with mx.autograd.record():
+            jl = jloss(jnet(mx.np.array(x)), mx.np.array(y))
+        jl.backward()
+        jtr.step(2)
+        with autograd.record():
+            tl = tloss(tnet(tx), ty)
+        autograd.backward(tl)
+        ttr.step(2)
+        assert tuple(tl.shape) == jl.shape
+        onp.testing.assert_allclose(tl.detach().numpy(), jl.asnumpy(),
+                                    rtol=1e-5, err_msg=f"step {step}")
+    jp = {k: p.data().asnumpy() for k, p in jnet.collect_params().items()}
+    tp = export_params(tnet)
+    C = 32
+    moved = 0.0
+    for k in jp:
+        got, want = tp[k].copy(), jp[k].copy()
+        if k.endswith("attn_qkv.bias"):
+            for d in (got, want):
+                move = d[C:2 * C] - params[k][C:2 * C]
+                assert abs(move).max() <= 3 * hp["learning_rate"]
+                d[C:2 * C] = 0
+        err = onp.linalg.norm(got - want) / onp.linalg.norm(want)
+        assert err <= 1e-4, (k, err)
+        moved = max(moved, onp.linalg.norm(want - params[k])
+                    / onp.linalg.norm(params[k]))
+    assert moved > 1e-3
+
+
 def test_gpt_specs_and_max_length_guard(pair):
     from mxnet_tpu.gluon.model_zoo.gpt import _SPECS as JSPECS
     from mxnet_tpu_torch.gluon.model_zoo.gpt import _SPECS

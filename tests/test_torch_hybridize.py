@@ -124,7 +124,7 @@ def test_warmup_runs_each_bucket_twice():
     from mxnet_tpu_torch.serving import BucketPolicy
     calls = []
     model = ServedModel(lambda arrays: calls.append(arrays[0].shape) or [],
-                        [((4,), onp.float32)], "f")
+                        [((4,), onp.float32)], None, "f")
     assert model.warmup(BucketPolicy(batch_buckets=(1, 2))) == 2
     assert calls == [(1, 4), (1, 4), (2, 4), (2, 4)]
 
