@@ -42,14 +42,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time of all its kernels (delta, zeroing, the kernel, the cast; for the
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
    library call (yardstick only). Then the wide kernels (head dims above
-   256: ``wide_fwd``, ``wide_dq``, ``wide_dkv``) against their plain
-   versions in ``WIDE_CASES`` (D = 288, 320, 512; bias none, key padding
-   and learned; causal; Tq != Tk; dropout; bf16, fp16, f32), two backward
-   runs equal to the bit, their dropout masks read back bit for bit, and
-   their path: ``flash_attention`` at (2, 512, 4, 288) bf16 forward and
-   backward under autograd with the counts from 0 (one launch of each),
-   each kernel timed there beside its bound, the plain version and SDPA
-   (each backend's refusal printed). Then the three
+   256: ``wide_fwd`` and ``wide_dq``, the tiled wgmma kernels of
+   ``flash_attention_wide_wg.cu`` for 16-bit heads up to 512 and the
+   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and wider heads,
+   and ``wide_dkv``) against their plain versions in ``WIDE_CASES`` (D =
+   264 to 576; bias none, key padding and learned; causal; Tq != Tk;
+   dropout; bf16, fp16, f32), two runs of the forward and of the backward
+   equal to the bit, the copies of rows TMA cannot address counted (D =
+   300), their dropout masks read back bit for bit at D = 288, 384 and
+   512; their path: ``flash_attention`` at (2, 512, 4, 288) and (8, 1024,
+   8, 320) bf16 from one fused QKV projection, forward and backward under
+   autograd with the counts from 0 (one launch of each kernel a shape, no
+   operand copied), the profiler's kernel names showing the tiled forward
+   and dq; and each ``WIDE_TIMED`` shape ((2, 4, 512, 288) and (4, 8, 1024,
+   512) with key padding, (8, 8, 1024, 320) with key padding and causal)
+   against the plain versions, each kernel timed there by device time
+   beside its bound, the plain version and SDPA's memory-efficient
+   backend (the only one that takes such heads); the warp-a-row forward
+   and dq checked and timed on their own route at (2, 4, 512, 576) bf16
+   with key padding, their source beside the times. Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -368,11 +379,13 @@ KERNEL_INFO = {
                             "XLA)"),
     # the flash kernels at head dims above 256 (the tiled ones take up to
     # 256): the same three Pallas kernels as rows 1, 3 and 4
+    # 16-bit heads up to 512 take the tiled wide forward and dq, f32 and
+    # wider heads those of flash_attention_wide.cu
     "flash_attention_wide_fwd": (
-        "mxnet_tpu_torch/csrc/flash_attention_wide.cu",
+        "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
     "flash_attention_wide_dq": (
-        "mxnet_tpu_torch/csrc/flash_attention_wide.cu",
+        "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:344"),
     "flash_attention_wide_dkv": (
         "mxnet_tpu_torch/csrc/flash_attention_wide.cu",
@@ -449,13 +462,17 @@ WIDE_KERNELS = tuple(KERNEL_INFO)[12:15]
 # layout, and every trained tensor is bf16 with an f32 master (one layout):
 # BERT-base's 154 tensors in 39 groups, ResNet-50 v1's 193 in 49
 UPDATE_STEP = {"bert": 1, "resnet": 1}
-# the wide kernels' names (re.search), for device time by torch.profiler
-WIDE_KERNEL = {"flash_attention_wide_fwd": r"wide::wide_fwd<",
-               "flash_attention_wide_dq": r"wide::wide_dq<",
+# the wide kernels' names (re.search), for device time by torch.profiler:
+# the tiled ones (wwg::wide_fwd_wg, wwg::wide_dq_wg) or the warp-a-row ones
+WIDE_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd(_wg)?<",
+               "flash_attention_wide_dq": r"wide_dq(_wg)?<",
                "flash_attention_wide_dkv": r"wide::wide_dkv<"}
-# the wide kernels' path (phase 3): attention over heads of 288 through
-# the user's entry point, forward and backward under autograd, bf16
-WIDE_PATH = dict(B=2, T=512, H=4, D=288)
+# the tiled ones alone, which the bf16 wide path must show
+WIDE_WG_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd_wg<",
+                  "flash_attention_wide_dq": r"wide_dq_wg<"}
+# the wide kernels' path (phase 3): attention over heads of 288 and 320
+# through the user's entry point, forward and backward under autograd, bf16
+WIDE_PATHS = (dict(B=2, T=512, H=4, D=288), dict(B=8, T=1024, H=8, D=320))
 # BatchNorm's kernels' names (re.search), for device time by torch.profiler
 BN_KERNEL = {"bn_stats": r"reduce_kernel<[^>]*, 0>",
              "bn_apply": r"apply_kernel<[^>]*, 0>",
@@ -1136,7 +1153,7 @@ def forward_probe(torch, dev, attn):
     dropout. Variant launches are not counted."""
     import ctypes
     from mxnet_tpu_torch import _kernels
-    argtypes = attn._kernel("flash_attention_fwd").argtypes
+    argtypes = attn._kernel("flash_attention_fwd", "tiled").argtypes
     fns = {}
     for label, define in FWD_CUTS.items():
         fn = _kernels.load("flash_attention_fwd",
@@ -1180,7 +1197,7 @@ def backward_probe(torch, dev, attn):
     import ctypes
     from mxnet_tpu_torch import _kernels
     name = "flash_attention_bwd_fused"
-    argtypes = attn._kernel(name).argtypes
+    argtypes = attn._kernel(name, "tiled").argtypes
     fns = {}
     for label, define in BWD_CUTS.items():
         fn = _kernels.load("flash_attention_bwd",
@@ -2214,13 +2231,34 @@ def wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal, bias_kind, rate,
 
 
 # (dtype, head dim, Tq, Tk, causal, bias, dropout): forward and backward
-# against the plain versions
+# against the plain versions. 16-bit heads up to 512 take the tiled wide
+# kernels (D = 300: rows TMA cannot address, copied and counted), f32 and
+# D = 576 the warp-a-row ones (attn.head_dim_route)
 WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 288, 200, 200, True, None, 0.1),
               ("bfloat16", 320, 100, 260, False, "full", 0.1),
               ("float16", 512, 130, 130, True, "keypad", 0.0),
+              ("bfloat16", 264, 77, 131, True, "keypad", 0.1),
+              ("float16", 300, 131, 77, True, "full", 0.0),
+              ("bfloat16", 384, 96, 200, False, None, 0.1),
+              ("bfloat16", 448, 150, 64, True, "full", 0.1),
+              ("bfloat16", 576, 64, 96, True, "keypad", 0.0),
               ("float32", 288, 128, 77, False, "full", 0.1),
               ("float32", 320, 64, 64, True, None, 0.0)]
+# the timed shapes (B, H, T, D, bias, causal), bf16 from one fused QKV
+# projection; key padding ragged over the batch (wide_timed_case). The first
+# is the wide path's first shape; the kernels line carries WIDE_LINE's rows
+WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
+              (8, 8, 1024, 320, "keypad", False),
+              (8, 8, 1024, 320, None, True),
+              (4, 8, 1024, 512, "keypad", False))
+WIDE_LINE = 1
+# the warp-a-row forward and dq (csrc/flash_attention_wide.cu), which keep
+# f32 and head dims above 512, timed on their own route at one such shape
+# (B, H, T, D, bias, causal), bf16 (the kernels line carries the tiled ones)
+WIDE_ROWS_TIMED = (2, 4, 512, 576, "keypad", False)
+WIDE_ROWS_KERNEL = {"flash_attention_wide_fwd": r"wide::wide_fwd<",
+                    "flash_attention_wide_dq": r"wide::wide_dq<"}
 
 
 def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
@@ -2236,22 +2274,278 @@ def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
     return out > 0, attn.dropout_keep_reference(seed, B, Hh, Tq, d, rate)
 
 
+def wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind, causal):
+    """One timed wide shape (``WIDE_TIMED``), bf16: q, k, v views of one
+    fused (B, T, 3 Hh d) projection, a key-padding bias with valid lengths
+    T - b T / (2 B) for batch b (or none), and the forward's out and lse."""
+    dt = torch.bfloat16
+    qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen, d, Hh)
+    valid = [T - b * T // (2 * B) for b in range(B)] \
+        if bias_kind == "keypad" else [T] * B
+    bias = keypad_bias(torch, dev, valid, T, dt) \
+        if bias_kind == "keypad" else None
+    do = torch.randn((B, T, Hh, d), generator=gen).to(dev, dt).transpose(1, 2)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = attn._flash_forward(qh, kh, vh, bias, scale, causal)
+    return dict(q=qh, k=kh, v=vh, do=do, bias=bias, seed=None, out=out,
+                lse=lse, scale=scale, causal=causal, rate=0.0, valid=valid,
+                B=B, H=Hh, T=T, D=d, dt=dt, learned=False)
+
+
+def wide_label(B, Hh, T, d, bias_kind, causal):
+    return (f"({B}, {Hh}, {T}, {d}) bf16 "
+            f"{'causal' if causal else bias_kind or 'no bias'}")
+
+
+def wide_sdpa(torch, fn):
+    """``fn`` under SDPA's memory-efficient backend, the only one that
+    takes head dims above 256 (a yardstick, never called by the port)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return fn()
+
+
+def wide_timed(torch, dev, gen, attn, errs):
+    """Each ``WIDE_TIMED`` shape: the wide kernels against the plain
+    versions (out within TOL_HALF, lse TOL_LSE, dq, dk, dv within
+    REL_BWD), then each kernel's device time beside its bound, its plain
+    version and SDPA's memory-efficient backend (forward; its whole
+    backward for dq and dk / dv). Returns the rows of WIDE_LINE's shape."""
+    import torch.nn.functional as F
+    line = {}
+    for i, (B, Hh, T, d, bias_kind, causal) in enumerate(WIDE_TIMED):
+        c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                            causal)
+        label = wide_label(B, Hh, T, d, bias_kind, causal)
+        q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
+        ref, ref_lse = attn.flash_attention_reference(
+            q.float(), k.float(), v.float(), bias, scale, causal)
+        e_fwd = check_close("wide forward", label, c["out"], ref, TOL_HALF)
+        check_close("wide forward lse", label, c["lse"], ref_lse, TOL_LSE)
+        del ref, ref_lse
+        got = run_backward(attn, c, 1024)
+        want = attn.flash_attention_backward_reference(
+            q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+            causal, False)
+        abs_err = {"flash_attention_wide_fwd": e_fwd}
+        for nm, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+            e = rel(g, w)
+            if not e <= REL_BWD["bfloat16"]:
+                fail(f"wide backward {label}: {nm} rel {e:.3e} beyond "
+                     f"{REL_BWD['bfloat16']}")
+            kname = ("flash_attention_wide_dq" if nm == "dq"
+                     else "flash_attention_wide_dkv")
+            abs_err[kname] = max(abs_err.get(kname, 0.0),
+                                 (g.float() - w).abs().max().item())
+        del got, want
+        for n, e in abs_err.items():
+            errs[n] = max(errs[n], e)
+        bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "bfloat16", 2,
+                                     causal, bias)
+        pattern = WIDE_KERNEL["flash_attention_wide_fwd"]
+        rows = {"flash_attention_wide_fwd": dict(
+            ms=launch_ms(lambda: attn._flash_forward(q, k, v, bias, scale,
+                                                     causal), 10,
+                         lambda n: re.search(pattern, n)),
+            plain_ms=device_ms(lambda: attn.flash_attention_reference(
+                q, k, v, bias, scale, causal), iters=3),
+            bound_ms=bnd, bound_by=by,
+            library_ms=wide_sdpa(torch, lambda: device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, is_causal=causal,
+                    scale=scale))))}
+        plain_bwd = device_ms(
+            lambda: attn.flash_attention_backward_reference(
+                q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+                causal, False), iters=3)
+        lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
+            torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
+        for name, kind in (("flash_attention_wide_dq", "dq"),
+                           ("flash_attention_wide_dkv", "dkv")):
+            call, _ = kernel_only_call(torch, attn, c, name)
+            bnd, by = backward_bound_ms(kind, B, Hh, T, T, d, c["valid"],
+                                        "bfloat16", 2, causal, bias, False)
+            pattern = WIDE_KERNEL[name]
+            rows[name] = dict(
+                ms=launch_ms(call, 5, lambda n: re.search(pattern, n)),
+                plain_ms=plain_bwd, bound_ms=bnd, bound_by=by,
+                library_ms=lib_bwd)
+        for name in WIDE_KERNELS:
+            r = rows[name]
+            r["max_abs_err"] = abs_err[name]
+            whole = " (the whole backward)" if name != WIDE_KERNELS[0] else ""
+            print(f"phase 3: {name} at {label}: {fmt_ms(r['ms'])} device "
+                  f"(bound {r['bound_ms']:.5f} ms by {r['bound_by']}; plain "
+                  f"{fmt_ms(r['plain_ms'])}{whole}; SDPA memory-efficient "
+                  f"{fmt_ms(r['library_ms'])}{whole}); error "
+                  f"{r['max_abs_err']:.3e}", flush=True)
+        if i == WIDE_LINE:
+            line = rows
+        del c
+        torch.cuda.empty_cache()
+    return line
+
+
+def wide_rows_timed(torch, dev, gen, attn):
+    """The warp-a-row forward and dq on their own route, at
+    ``WIDE_ROWS_TIMED``: checked against the plain versions (out within
+    TOL_HALF, dq within REL_BWD), then each kernel's device time, by the
+    profiler's records of that kernel's own name, beside its bound and the
+    plain version, with the route's source."""
+    B, Hh, T, d, bias_kind, causal = WIDE_ROWS_TIMED
+    if attn.head_dim_route(d, torch.bfloat16) != "wide_rows":
+        fail(f"WIDE_ROWS_TIMED: D={d} bf16 is not on the warp-a-row route")
+    c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                        causal)
+    label = wide_label(B, Hh, T, d, bias_kind, causal)
+    q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
+    ref, _ = attn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            bias, scale, causal)
+    errs = {"flash_attention_wide_fwd": check_close(
+        "warp-a-row wide forward", label, c["out"], ref, TOL_HALF)}
+    del ref
+    dq_call, outs = kernel_only_call(torch, attn, c, "flash_attention_wide_dq")
+    dq_call()
+    want = attn.flash_attention_backward_reference(
+        q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale, causal,
+        False)[0]
+    e = rel(outs[0], want)
+    if not e <= REL_BWD["bfloat16"]:
+        fail(f"warp-a-row wide dq {label}: rel {e:.3e} beyond "
+             f"{REL_BWD['bfloat16']}")
+    errs["flash_attention_wide_dq"] = (outs[0].float() - want).abs().max() \
+        .item()
+    del want
+    calls = {"flash_attention_wide_fwd": lambda: attn._flash_forward(
+        q, k, v, bias, scale, causal), "flash_attention_wide_dq": dq_call}
+    plain = {"flash_attention_wide_fwd": device_ms(
+        lambda: attn.flash_attention_reference(q, k, v, bias, scale, causal),
+        iters=3), "flash_attention_wide_dq": device_ms(
+        lambda: attn.flash_attention_backward_reference(
+            q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+            causal, False), iters=3)}
+    source = KERNEL_INFO["flash_attention_wide_dkv"][0]
+    for name, pattern in WIDE_ROWS_KERNEL.items():
+        ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
+        if ms is None:
+            fail(f"warp-a-row {name} at {label}: the profiler kept no "
+                 f"record of {pattern}")
+        if name.endswith("_fwd"):
+            bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "bfloat16",
+                                         2, causal, bias)
+            whole = ""
+        else:
+            bnd, by = backward_bound_ms("dq", B, Hh, T, T, d, c["valid"],
+                                        "bfloat16", 2, causal, bias, False)
+            whole = " (the whole backward)"
+        print(f"phase 3: {name} on the warp-a-row route ({source}) at "
+              f"{label}: {fmt_ms(ms)} device (bound {bnd:.5f} ms by {by}; "
+              f"plain {fmt_ms(plain[name])}{whole}); error "
+              f"{errs[name]:.3e}", flush=True)
+    del c, calls, outs
+    torch.cuda.empty_cache()
+
+
+def wide_path(torch, dev, gen, attn):
+    """The wide kernels' path: attention over each ``WIDE_PATHS`` shape
+    through the user's entry point ``flash_attention``, q, k, v from one
+    fused QKV projection, forward and backward under autograd, the counts
+    from 0 and one torch.profiler session over the runs, whose kernel
+    names must show the tiled wide forward and dq (and no warp-a-row one
+    of those two); out against the plain version. A session in a process
+    that ran many earlier ones can lose a kernel's record (the counts
+    still move), so a session short of a tiled kernel's records is run
+    once more, and both are held to the counts. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
+    for p in WIDE_PATHS:
+        B, T, Hh, d = (p[k] for k in ("B", "T", "H", "D"))
+        qkv = torch.randn((B, T, 3 * Hh * d), generator=gen).to(
+            dev, torch.bfloat16).requires_grad_(True)
+        runs.append((qkv, [t.reshape(B, T, Hh, d)
+                           for t in qkv.split(Hh * d, dim=-1)]))
+    for session in (1, 2):
+        torch.cuda.synchronize()
+        reset_counts(attn)                      # the wide path starts here
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer()
+            outs = []
+            for qkv, (q, k, v) in runs:
+                qkv.grad = None
+                out = attn.flash_attention(q, k, v)
+                out.float().square().sum().backward()
+                outs.append(out.detach())
+            torch.cuda.synchronize()
+        launches = {n: attn.launches[n] for n in WIDE_KERNELS}  # ... ends
+        if launches != {n: len(WIDE_PATHS) for n in WIDE_KERNELS} or any(
+                attn.launches[n] for n in attn.KERNELS
+                if n not in WIDE_KERNELS):
+            fail(f"wide path: launches {dict(attn.launches)}, expected "
+                 f"{len(WIDE_PATHS)} of each wide kernel and no other")
+        if attn.padded_copies:
+            fail(f"wide path: {attn.padded_copies} operands copied for "
+                 f"TMA; the fused-QKV views need none")
+        seen = kernel_counts(prof)
+        if any(re.search(r"wide::wide_(fwd|dq)<", k) for k in seen):
+            fail("wide path: a warp-a-row forward or dq kernel ran on the "
+                 "bf16 path")
+        hits = {pattern: sum(n for k, n in seen.items()
+                             if re.search(pattern, k))
+                for pattern in WIDE_WG_KERNEL.values()}
+        if all(h == len(WIDE_PATHS) for h in hits.values()):
+            break
+        msg = (f"wide path: session {session}: the profiler saw {hits} "
+               f"launches, expected {len(WIDE_PATHS)} of each: "
+               f"{sorted(k for k in seen if 'wide' in k)}")
+        if session == 2:
+            fail(msg)
+        print(f"phase 3: {msg}; the session is run again", flush=True)
+    for (qkv, (q, k, v)), out, p in zip(runs, outs, WIDE_PATHS):
+        label = f"({p['B']}, {p['T']}, {p['H']}, {p['D']})"
+        qh, kh, vh = (t.detach().transpose(1, 2).float() for t in (q, k, v))
+        ref, _ = attn.flash_attention_reference(qh, kh, vh)
+        check_close("wide path forward", label, out.transpose(1, 2), ref,
+                    TOL_HALF)
+        if not bool(qkv.grad.isfinite().all()):
+            fail(f"wide path {label}: non-finite gradient")
+        qkv.grad = None
+        ms = device_ms(lambda: attn.flash_attention(q, k, v).float().square()
+                       .sum().backward(), iters=3)
+        print(f"phase 3: wide path: flash_attention {label} bf16 forward "
+              f"and backward under autograd: {fmt_ms(ms)} device a step",
+              flush=True)
+        del ref
+    kernels = sorted(k for k in seen if re.search(r"wide", k))
+    print(f"phase 3: wide path: launches {launches}, no operand copied; "
+          f"profiler kernels {kernels}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def wide_checks(torch, dev, gen, attn):
     """Phase 3: the wide kernels (head dims above 256) against the plain
     versions in ``WIDE_CASES``, their dropout masks read back bit for bit
     (the forward's, and the pair's through ``pair_dropout_masks``), two
-    backward runs equal to the bit; then their path, attention at
-    ``WIDE_PATH`` through ``flash_attention`` forward and backward under
-    autograd with the counts from 0, timed beside the bounds, the plain
-    versions and SDPA. Returns (rows, the path's launches)."""
-    import torch.nn.functional as F
+    runs of the forward and of the backward equal to the bit, launches
+    and copies counted; their path (:func:`wide_path`); each
+    ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`), and the
+    warp-a-row forward and dq (:func:`wide_rows_timed`). Returns (rows,
+    the path's launches)."""
     errs = {n: 0.0 for n in WIDE_KERNELS}
     for dtn, d, Tq, Tk, causal, bias_kind, rate in WIDE_CASES:
         dt = getattr(torch, dtn)
+        copies = attn.padded_copies
         c = wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal,
                       bias_kind, rate)
+        route = attn.head_dim_route(d, dt)
+        # a 16-bit q, k, v whose rows TMA cannot address are copied
+        want_copies = 3 * (route == "wide_wg" and d % 8 != 0)
+        if attn.padded_copies - copies != want_copies:
+            fail(f"wide forward D={d} {dtn}: "
+                 f"{attn.padded_copies - copies} copies, expected "
+                 f"{want_copies}")
         label = (f"{dtn} D={d} Tq={Tq} Tk={Tk} causal={causal} "
-                 f"bias={bias_kind} dropout={rate}")
+                 f"bias={bias_kind} dropout={rate} ({route})")
         ref, ref_lse = attn.flash_attention_reference(
             c["q"].float(), c["k"].float(), c["v"].float(), c["bias"],
             c["scale"], causal, c["seed"], rate)
@@ -2260,6 +2554,11 @@ def wide_checks(torch, dev, gen, attn):
             errs["flash_attention_wide_fwd"],
             check_close("wide forward", label, c["out"], ref, tol))
         check_close("wide forward lse", label, c["lse"], ref_lse, TOL_LSE)
+        again = attn._flash_forward(c["q"], c["k"], c["v"], c["bias"],
+                                    c["scale"], causal, c["seed"], rate)
+        if not (torch.equal(again[0], c["out"])
+                and torch.equal(again[1], c["lse"])):
+            fail(f"wide forward {label}: two runs differ")
         before = {n: attn.launches[n] for n in attn.KERNELS}
         runs = [run_backward(attn, c, 1024) for _ in range(2)]
         moved = {n: attn.launches[n] - before[n] for n in attn.KERNELS}
@@ -2280,117 +2579,37 @@ def wide_checks(torch, dev, gen, attn):
                      f"{REL_BWD[dtn]}")
             kname = ("flash_attention_wide_dq" if nm == "dq"
                      else "flash_attention_wide_dkv")
-            errs[kname] = max(errs[kname], e)
+            errs[kname] = max(errs[kname],
+                              (got.float() - ref_g).abs().max().item())
         if c["learned"]:
             e = rel(runs[0][3], want_grads[3].sum(dim=0, keepdim=True))
             if not e <= REL_BWD[dtn]:
                 fail(f"wide backward {label}: dbias rel {e:.3e}")
         print(f"phase 3: wide {label}: out, lse within tolerance, dq, dk, "
               f"dv{', dbias' if c['learned'] else ''} within rel "
-              f"{REL_BWD[dtn]}, two backward runs equal to the bit",
+              f"{REL_BWD[dtn]}, two runs of the forward and of the "
+              f"backward equal to the bit, {want_copies} copies",
               flush=True)
-    for dt in (torch.bfloat16, torch.float32):
-        got, want = wide_mask_probe(torch, dev, attn, dt)
+    for dt, d in ((torch.bfloat16, 288), (torch.float16, 384),
+                  (torch.bfloat16, 512), (torch.float32, 288)):
+        got, want = wide_mask_probe(torch, dev, attn, dt, d)
         from_dkv, from_dq, want_pair = pair_dropout_masks(torch, attn, dev,
-                                                          dt, 288)
+                                                          dt, d)
         torch.cuda.synchronize()
         for what, a, b in (("forward", got, want), ("dkv", from_dkv,
                                                     want_pair),
                            ("dq", from_dq, want_pair)):
             if not torch.equal(a, b):
-                fail(f"wide {what} {dt} dropout mask differs from "
+                fail(f"wide {what} {dt} D={d} dropout mask differs from "
                      f"dropout_keep_reference in {int((a != b).sum())} bits")
-        print(f"phase 3: wide {str(dt).split('.')[-1]} D=288 dropout masks "
+        print(f"phase 3: wide {str(dt).split('.')[-1]} D={d} dropout masks "
               f"(forward, dq, dkv) = dropout_keep_reference bit for bit",
               flush=True)
-
-    # the path: (B, T, H, D) through the user's entry point, counts from 0
-    B, T, Hh, d = (WIDE_PATH[k] for k in ("B", "T", "H", "D"))
-    qkv = torch.randn((B, T, 3 * Hh * d), generator=gen).to(
-        dev, torch.bfloat16).requires_grad_(True)
-    q, k, v = (t.reshape(B, T, Hh, d) for t in qkv.split(Hh * d, dim=-1))
-    reset_counts(attn)                      # the wide path starts here
-    out = attn.flash_attention(q, k, v)
-    out.float().square().sum().backward()
-    torch.cuda.synchronize()
-    launches = {n: attn.launches[n] for n in WIDE_KERNELS}   # ... ends here
-    if launches != {n: 1 for n in WIDE_KERNELS} or any(
-            attn.launches[n] for n in attn.KERNELS if n not in WIDE_KERNELS):
-        fail(f"wide path: launches {dict(attn.launches)}, expected one of "
-             f"each wide kernel and no other")
-    qh, kh, vh = (t.detach().transpose(1, 2) for t in (q, k, v))
-    ref, _ = attn.flash_attention_reference(qh.float(), kh.float(),
-                                            vh.float())
-    errs["flash_attention_wide_fwd"] = max(
-        errs["flash_attention_wide_fwd"],
-        check_close("wide path forward", f"({B}, {T}, {Hh}, {d})",
-                    out.transpose(1, 2), ref, TOL_HALF))
-    if not bool(qkv.grad.isfinite().all()):
-        fail("wide path: non-finite gradient")
-    print(f"phase 3: wide path: flash_attention ({B}, {T}, {Hh}, {d}) bf16 "
-          f"forward and backward under autograd, launches {launches}",
-          flush=True)
-
-    # times at the path's shape
-    scale = 1.0 / math.sqrt(d)
-    c = dict(q=qh, k=kh, v=vh, do=torch.randn(
-        (B, T, Hh, d), generator=gen).to(dev, torch.bfloat16).transpose(1, 2),
-        bias=None, seed=None, scale=scale, causal=False, rate=0.0,
-        valid=[T] * B, B=B, H=Hh, T=T, D=d, dt=torch.bfloat16, learned=False)
-    c["out"], c["lse"] = attn._flash_forward(qh, kh, vh, None, scale, False)
-    rows = {}
-    fwd_ms = launch_ms(lambda: attn._flash_forward(qh, kh, vh, None, scale,
-                                                   False), 10,
-                       lambda n: re.search(WIDE_KERNEL[WIDE_KERNELS[0]], n))
-    plain_fwd = device_ms(lambda: attn.flash_attention_reference(
-        qh, kh, vh, None, scale))
-    plain_bwd = device_ms(lambda: attn.flash_attention_backward_reference(
-        qh, kh, vh, None, None, 0.0, c["out"], c["lse"], c["do"], scale,
-        False, False), iters=3)
-    backends = {}
-    try:
-        from torch.nn.attention import SDPBackend, sdpa_kernel
-    except ImportError:
-        SDPBackend = None
-    for bk in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-               "MATH"):
-        try:
-            with sdpa_kernel([getattr(SDPBackend, bk)]):
-                backends[bk] = device_ms(
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        except Exception as e:  # noqa: BLE001 - a yardstick: the refusal
-            backends[bk] = f"refused ({type(e).__name__})"
-    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    lib_bwd = library_backward_ms(torch, qh, kh, vh, None, c["do"], scale,
-                                  False, 0.0, False)
-    b_ms, b_by = attention_bound_ms(B, Hh, T, d, c["valid"], "bfloat16", 2,
-                                    False, None)
-    rows["flash_attention_wide_fwd"] = dict(
-        ms=fwd_ms, plain_ms=plain_fwd, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_fwd)
-    for name, kind in (("flash_attention_wide_dq", "dq"),
-                       ("flash_attention_wide_dkv", "dkv")):
-        call, _ = kernel_only_call(torch, attn, c, name)
-        bnd, by = backward_bound_ms(kind, B, Hh, T, T, d, c["valid"],
-                                    "bfloat16", 2, False, None, False)
-        pattern = WIDE_KERNEL[name]
-        rows[name] = dict(ms=launch_ms(call, 5, lambda n: re.search(pattern,
-                                                                     n)),
-                          plain_ms=plain_bwd, bound_ms=bnd, bound_by=by,
-                          library_ms=lib_bwd)
+    launches = wide_path(torch, dev, gen, attn)
+    rows = wide_timed(torch, dev, gen, attn, errs)
+    wide_rows_timed(torch, dev, gen, attn)
     for name in WIDE_KERNELS:
         rows[name]["max_abs_err"] = errs[name]
-        r = rows[name]
-        print(f"phase 3: {name} at ({B}, {Hh}, {T}, {d}) bf16: "
-              f"{fmt_ms(r['ms'])} device (bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']}; plain {fmt_ms(r['plain_ms'])}"
-              f"{' (the whole backward)' if name != WIDE_KERNELS[0] else ''};"
-              f" SDPA {fmt_ms(r['library_ms'])}"
-              f"{' (its whole backward)' if name != WIDE_KERNELS[0] else ''})"
-              f"; error {r['max_abs_err']:.3e}", flush=True)
-    print(f"phase 3: SDPA forward at ({B}, {Hh}, {T}, {d}) bf16 by backend: "
-          + ", ".join(f"{k} {fmt_ms(v) if not isinstance(v, str) else v}"
-                      for k, v in backends.items()), flush=True)
     torch.cuda.empty_cache()
     return rows, launches
 

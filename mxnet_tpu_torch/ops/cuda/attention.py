@@ -8,9 +8,14 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
-- ``csrc/flash_attention_wide.cu`` replaces the same three at head dims
-  above :data:`MAX_HEAD_DIM` (``wide_fwd``, ``wide_dq``, ``wide_dkv``): a
-  warp a row, lanes over the head dim, any D;
+- ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
+  ``_flash_bwd_dq_kernel`` for 16-bit q, k, v at head dims above
+  :data:`MAX_HEAD_DIM` up to :data:`WIDE_WG_MAX_HEAD_DIM` (``wide_fwd``,
+  ``wide_dq``): wgmma tiles over the head dim's 64-column panels;
+- ``csrc/flash_attention_wide.cu`` replaces the same three above
+  :data:`MAX_HEAD_DIM` otherwise (``wide_fwd``, ``wide_dq`` in f32 and
+  above :data:`WIDE_WG_MAX_HEAD_DIM`, ``wide_dkv`` at every wide head
+  dim): a warp a row, lanes over the head dim, any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -33,11 +38,19 @@ does not specialise on them.
 The tiled forward and backward kernels take head dims up to 256
 (:data:`MAX_HEAD_DIM`); a larger head dim takes the wide kernels, forward
 and backward, so the card takes any head dim, as the JAX package and the
-plain versions do. The wide kernels read every operand through its
-strides, so they copy nothing.
-The tiled 16-bit kernels read q, k, v and dout and write out, dq, dk and dv by
+plain versions do. Which source a kernel of a wide head dim comes from is
+:func:`head_dim_route`, a pure function of (D, dtype) and a contract of
+the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd`` and
+``wide_dq`` (``"wide_wg"``), f32 and D > 512 the warp-a-row ones
+(``"wide_rows"``), and ``wide_dkv`` is the warp-a-row kernel on both. A
+build or launch that fails raises; no route gives way to another. The
+warp-a-row kernels read every operand through its strides, so they copy
+nothing.
+The tiled 16-bit kernels (the wide tiled ones among them) read q, k, v and
+dout and write out, dq, dk and dv by
 TMA, which needs a 16-byte aligned base and strides that are multiples of
-16 bytes; an operand that lacks either is first copied into a padded
+16 bytes; an operand that lacks either (a head dim that is not a multiple
+of 8, say) is first copied into a padded
 contiguous buffer (an output is written there and copied back), and
 :data:`padded_copies` counts those copies.
 
@@ -58,7 +71,8 @@ bulk reduce-add in 16 bits, by scalar atomics in f32), and
 reads. The order in which the key tiles' shares arrive changes from run to
 run, so the fused dq is reproducible to rounding, not bit for bit. The
 pair's dq kernel keeps dq in registers over all key tiles and writes it
-once: the pair is deterministic, bit for bit.
+once: the pair is deterministic, bit for bit, and so are the wide kernels
+on both routes (out, lse, dq, dk and dv).
 """
 from __future__ import annotations
 
@@ -74,8 +88,9 @@ from ...base import MXNetError
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward_reference", "dropout_keep_reference",
            "launches", "padded_copies", "KERNELS", "DEFAULT_BLOCK_Q",
-           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM", "FUSED_MAX_HEAD_DIM", "backward_route", "dq_accumulator",
-           "dq_from_accumulator"]
+           "DEFAULT_BLOCK_K", "MAX_HEAD_DIM", "FUSED_MAX_HEAD_DIM",
+           "WIDE_WG_MAX_HEAD_DIM", "backward_route", "head_dim_route",
+           "dq_accumulator", "dq_from_accumulator"]
 
 _NEG_INF = -1e30
 
@@ -96,6 +111,9 @@ padded_copies = 0
 # the fused backward up to FUSED_MAX_HEAD_DIM
 MAX_HEAD_DIM = 256
 FUSED_MAX_HEAD_DIM = 128
+# 16-bit wide heads up to this take the tiled wide kernels
+WIDE_WG_MAX_HEAD_DIM = 512
+_HALF = (torch.bfloat16, torch.float16)
 # rows of one tile of the fused backward's dq accumulator, and the floats
 # that pad each of its rows
 DQ_TILE_ROWS = 64
@@ -247,35 +265,69 @@ def _check_bias(bias, B, H, Tq, Tk):
             f"{tuple(bias.shape)} for B={B}, H={H}, Tq={Tq}, Tk={Tk}")
 
 
-def _kernel(name: str):
-    """The ctypes entry of kernel ``name``, its library built on first use."""
-    fn = _FNS.get(name)
+def head_dim_route(D: int, dtype) -> str:
+    """The kernels a CUDA tensor of head dim ``D`` and ``dtype`` takes:
+    ``"tiled"`` (D <= :data:`MAX_HEAD_DIM`: ``flash_attention_fwd.cu``,
+    ``flash_attention_bwd.cu``), ``"wide_wg"`` (bf16 / fp16 up to
+    :data:`WIDE_WG_MAX_HEAD_DIM`: ``wide_fwd`` and ``wide_dq`` from
+    ``flash_attention_wide_wg.cu``, ``wide_dkv`` from
+    ``flash_attention_wide.cu``) or ``"wide_rows"`` (every wide kernel
+    from ``flash_attention_wide.cu``)."""
+    if D <= MAX_HEAD_DIM:
+        return "tiled"
+    if dtype in _HALF and D <= WIDE_WG_MAX_HEAD_DIM:
+        return "wide_wg"
+    return "wide_rows"
+
+
+def _source(name: str, route: str) -> Tuple[str, str]:
+    """(library, C entry) of kernel ``name`` on ``route``."""
+    fwd = name.endswith("_fwd")
+    if not _wide(name):
+        return (("flash_attention_fwd", "mxt_flash_attention_fwd") if fwd
+                else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
+    if route == "wide_wg" and name != "flash_attention_wide_dkv":
+        return ("flash_attention_wide_wg",
+                "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
+    return ("flash_attention_wide",
+            "mxt_flash_wide_fwd" if fwd else "mxt_flash_wide_bwd")
+
+
+def _kernel(name: str, route: str):
+    """The ctypes entry of kernel ``name`` on ``route`` (which decides the
+    source of a wide kernel only), its library built on first use."""
+    lib, entry = _source(name, route)
+    fn = _FNS.get((lib, entry))
     if fn is not None:
         return fn
     from ... import _kernels
     p, i = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    if name in ("flash_attention_fwd", "flash_attention_wide_fwd"):
-        fn = (_kernels.load(name).mxt_flash_attention_fwd
-              if name == "flash_attention_fwd" else
-              _kernels.load("flash_attention_wide").mxt_flash_wide_fwd)
+    fn = getattr(_kernels.load(lib), entry)
+    if name.endswith("_fwd"):
         fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, strides,
                        ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     else:
-        fn = (_kernels.load("flash_attention_wide").mxt_flash_wide_bwd
-              if _wide(name) else
-              _kernels.load("flash_attention_bwd").mxt_flash_attention_bwd)
         fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                        strides, ctypes.c_float, i, p, i, ctypes.c_uint,
                        ctypes.c_float, p]
     fn.restype = ctypes.c_int
-    _FNS[name] = fn
+    _FNS[(lib, entry)] = fn
     return fn
 
 
 def _wide(name: str) -> bool:
     return name.startswith("flash_attention_wide")
+
+
+def _uses_tma(name: str, route: str, dtype) -> bool:
+    """Whether kernel ``name`` on ``route`` reads and writes its 16-bit
+    operands by TMA (the warp-a-row kernels and the f32 ones do not)."""
+    if dtype not in _HALF:
+        return False
+    return route == "tiled" or (route == "wide_wg"
+                                and name != "flash_attention_wide_dkv")
 
 
 def _bht(t):
@@ -388,15 +440,16 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     place, ``lse`` is (B, H, Tq, 1) contiguous f32. 16-bit operands that
     TMA cannot address are copied first (:func:`_tma_operand`); an output
     it cannot address is written to a padded buffer and copied back.
-    Above :data:`MAX_HEAD_DIM` the wide kernel runs, on the views as they
-    are. ``fn``: another build of the same C entry (an experiment's
-    variant, ``chip_smoke.py --probe-fwd``); its launches are not
-    counted."""
+    Above :data:`MAX_HEAD_DIM` the wide kernel of :func:`head_dim_route`
+    runs (the warp-a-row one on the views as they are). ``fn``: another
+    build of the same C entry (an experiment's variant, ``chip_smoke.py
+    --probe-fwd``); its launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
-    name = ("flash_attention_fwd" if D <= MAX_HEAD_DIM
+    route = head_dim_route(D, q.dtype)
+    name = ("flash_attention_fwd" if route == "tiled"
             else "flash_attention_wide_fwd")
     dest = out
-    if q.dtype != torch.float32 and not _wide(name):
+    if _uses_tma(name, route, q.dtype):
         q, k, v = (_tma_operand(t) for t in (q, k, v))
         if not _tma_ready(out):
             out = _padded_output(out)
@@ -405,7 +458,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
     variant = fn is not None
-    fn = fn or _kernel(name)
+    fn = fn or _kernel(name, route)
     arr = (ctypes.c_longlong * 16)(*(flat + bstrides))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -451,16 +504,18 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     kernel; kernels that do not write an output get None for it. The 16-bit
     kernels read q, k, v, do and write dk, dv and the dq kernel's dq by
     TMA: operands they cannot address are copied first and outputs written
-    to a padded buffer and copied back (:func:`_tma_operand`, counted); the
-    wide kernels read and write the views as they are. ``fn``: another
-    build of the same C entry (``chip_smoke.py --probe-bwd``); its launches
-    are not counted."""
+    to a padded buffer and copied back (:func:`_tma_operand`, counted), as
+    does the tiled ``wide_dq`` of :func:`head_dim_route`; the warp-a-row
+    kernels read and write the views as they are. ``fn``: another build of
+    the same C entry (``chip_smoke.py --probe-bwd``); its launches are
+    not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
+    route = head_dim_route(D, q.dtype)
     fused = name == "flash_attention_bwd_fused"
     # the outputs in q's dtype (the fused kernel's dq is its accumulator)
     dests = [None if fused else dq, dk, dv]
     written = dests
-    if q.dtype != torch.float32 and not _wide(name):
+    if _uses_tma(name, route, q.dtype):
         q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
         written = [t if t is None or _tma_ready(t) else _padded_output(t)
                    for t in dests]
@@ -472,7 +527,7 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
     variant = fn is not None
-    fn = fn or _kernel(name)
+    fn = fn or _kernel(name, route)
     arr = (ctypes.c_longlong * 25)(
         *(flat + [s for o in outs for s in o] + bstrides))
     with torch.cuda.device(q.device):
@@ -552,7 +607,8 @@ def backward_route(D: int, Tk: int, block_k: int) -> str:
     CUDA tensor takes. The fused single pass when Tk fits one k-block and
     D <= :data:`FUSED_MAX_HEAD_DIM`, the dq/dkv pair up to
     :data:`MAX_HEAD_DIM`, the wide dq/dkv pair above it (the module
-    docstring says why)."""
+    docstring says why; :func:`head_dim_route` says which wide
+    kernels)."""
     if D > MAX_HEAD_DIM:
         return "wide"
     return "fused" if Tk <= block_k and D <= FUSED_MAX_HEAD_DIM \

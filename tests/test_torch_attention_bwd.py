@@ -355,19 +355,21 @@ def test_card_backward_route(monkeypatch, D, Tk, block_k, route):
 
 @pytest.mark.parametrize("D,name,copies", [
     (64, "flash_attention_fwd", 3), (256, "flash_attention_fwd", 3),
-    (288, "flash_attention_wide_fwd", 0),
-    (512, "flash_attention_wide_fwd", 0)])
+    (288, "flash_attention_wide_fwd", 3),
+    (512, "flash_attention_wide_fwd", 3),
+    (520, "flash_attention_wide_fwd", 0)])
 def test_card_forward_route(monkeypatch, D, name, copies):
     """The card's forward routing (pure Python on CPU tensors, the device
-    checks and the launch replaced by spies): up to 256 the tiled kernel,
-    which copies 16-bit operands TMA cannot address (rows of D + 1
-    elements here); above it the wide kernel, which reads them in place,
-    counted under its own name."""
+    checks and the launch replaced by spies): up to 256 the tiled kernel
+    and, for 16-bit heads up to 512, the tiled wide kernel, which both
+    copy 16-bit operands TMA cannot address (rows of D + 1 elements
+    here); above 512 the warp-a-row wide kernel, which reads them in
+    place; both wide kernels counted under the wide forward's name."""
     import contextlib
     import types
     launched = []
 
-    def kernel(kname):
+    def kernel(kname, route):
         def fn(*args):
             launched.append((kname, args[11]))        # the head dim
             return 0

@@ -16,10 +16,13 @@ dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
 bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics),
 at head dims 40 to 256 (above 128 always the dq/dkv pair); two runs of the
 pair equal to the bit. Dropout masks are compared bit for bit through the
-outputs they make. Head dims above 256 (288, 320, 512) run the wide
+outputs they make. Head dims above 256 (264 to 512) run the wide
 kernels, forward and backward, under the same tolerances, at Tq != Tk,
 with bias, causal and dropout (their masks read back bit for bit), two
-backward runs equal to the bit.
+backward runs equal to the bit; 16-bit heads up to 512 on the tiled wgmma
+forward and dq (out, lse and dq equal to the bit run to run, operands
+with rows TMA cannot address copied and counted), f32 heads on the
+warp-a-row kernels, as the profiler's kernel names show.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: 16-bit fwd and bf16
@@ -571,9 +574,15 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 
 # ---------------------------------------------- heads wider than 256 (C8)
+# 16-bit heads up to 512 take the tiled wgmma forward and dq
+# (csrc/flash_attention_wide_wg.cu; D = 264, 300 and 384 among them, 300
+# through copies TMA can address), f32 the warp-a-row kernels
+WIDE_DS = [264, 288, 300, 320, 384, 512]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [288, 320, 512])
+@pytest.mark.parametrize("D", WIDE_DS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias_kind", [None, "keypad", "full", (2, 1, 1, 1)])
 def test_wide_forward_matches_plain(dev, dtype, D, causal, bias_kind):
@@ -600,7 +609,7 @@ def test_wide_forward_matches_plain(dev, dtype, D, causal, bias_kind):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [288, 320, 512])
+@pytest.mark.parametrize("D", WIDE_DS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -645,7 +654,7 @@ def test_wide_backward_matches_plain(dev, dtype, D, causal, bias_kind, rate):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [288, 320, 512])
+@pytest.mark.parametrize("D", WIDE_DS)
 def test_wide_dropout_masks_are_the_plain_mask(dev, dtype, D):
     """The wide forward's mask (v the identity over Tk = D keys) and the
     wide pair's (through dv and a learned bias's ds,
@@ -658,6 +667,78 @@ def test_wide_dropout_masks_are_the_plain_mask(dev, dtype, D):
     assert torch.equal(got, want)
     assert torch.equal(from_dkv, want_pair)
     assert torch.equal(from_dq, want_pair)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("D,Tq,Tk", [(264, 333, 200), (384, 130, 257),
+                                     (512, 64, 100)])
+def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
+    """Two runs of the tiled wide forward and dq on the same inputs give
+    the same bits for out, lse, dq and a learned bias's ds (no atomics:
+    each sum runs in one order), causal, ragged, dropout 0.1."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, D, True, "full", 0.1, Tq=Tq, Tk=Tk)
+    assert attn.head_dim_route(D, dtype) == "wide_wg"
+    again = attn._flash_forward(q, k, v, bias, scale, True, seed, 0.1)
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 True, 1024, 0.1) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert torch.equal(runs[0][0], runs[1][0])          # dq
+    assert torch.equal(runs[0][3], runs[1][3])          # dbias from ds
+
+
+@pytest.mark.parametrize("dtype,D,route,fwd_copies,bwd_copies", [
+    (torch.bfloat16, 300, "wide_wg", 3, 4),
+    (torch.float16, 320, "wide_wg", 0, 0),
+    (torch.float32, 300, "wide_rows", 0, 0),
+    (torch.bfloat16, 520, "wide_rows", 0, 0)])
+def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
+                                     bwd_copies):
+    """Launches and copies of the wide route, contiguous (B, H, T, D)
+    operands: a 16-bit head dim that is not a multiple of 8 gives rows TMA
+    cannot address, so the tiled forward copies q, k, v and the tiled dq
+    q, k, v and dout (counted in ``padded_copies``); the warp-a-row
+    kernels read every operand in place. One launch of each wide kernel
+    per call, nothing else."""
+    assert attn.head_dim_route(D, dtype) == route
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, D, False, "keypad", 0.0, Tq=40, Tk=72)
+    before = (dict(attn.launches), attn.padded_copies)
+    out2, _ = attn._flash_forward(q, k, v, bias, scale, False)
+    torch.cuda.synchronize()
+    assert attn.padded_copies - before[1] == fwd_copies
+    assert torch.equal(out2, out)
+    mid = (dict(attn.launches), attn.padded_copies)
+    attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale, False,
+                         1024, 0.0)
+    torch.cuda.synchronize()
+    assert attn.padded_copies - mid[1] == bwd_copies
+    assert {n: attn.launches[n] - before[0][n] for n in attn.KERNELS} == {
+        n: int(n.startswith("flash_attention_wide")) for n in attn.KERNELS}
+
+
+@pytest.mark.parametrize("dtype,pattern", [
+    (torch.bfloat16, r"wwg::wide_(fwd|dq)_wg<"),
+    (torch.float32, r"wide::wide_(fwd|dq)<")])
+def test_wide_route_runs_its_kernels(dev, dtype, pattern):
+    """The profiler's kernel names on each wide route at D = 320: the
+    tiled wgmma forward and dq for bf16, the warp-a-row ones for f32, the
+    warp-a-row dk / dv kernel on both."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, dtype, 320, True, None, 0.0, Tq=64, Tk=64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cs.primer()
+        attn._flash_forward(q, k, v, None, scale, True)
+        attn._flash_backward(q, k, v, None, seed, out, lse, do, scale, True,
+                             1024, 0.0)
+        torch.cuda.synchronize()
+    names = [n for n in cs.kernel_counts(prof) if "wide" in n]
+    assert sum(bool(re.search(pattern, n)) for n in names) == 2, names
+    assert any(re.search(r"wide::wide_dkv<", n) for n in names), names
 
 
 def test_wide_autograd_reads_bthd_views(dev):

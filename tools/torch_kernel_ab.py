@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""The multi-tensor update and the decode attention kernel of the PyTorch
-port in the tree at ROOT, timed on one GPU at their main paths' shapes.
+"""The multi-tensor update, the decode attention kernel and the wide flash
+attention kernels of the PyTorch port in the tree at ROOT, timed on one GPU
+at their main paths' shapes.
 
-    python3 tools/torch_kernel_ab.py ROOT
+    python3 tools/torch_kernel_ab.py ROOT [update|decode|wide ...]
+
+(the named parts only; all three by default)
 
 ROOT is a checkout (or a ``git archive``) of the repository whose
 ``mxnet_tpu_torch`` and ``chip_smoke.py`` are measured. The update: one
@@ -21,6 +24,13 @@ positions, q, k and v that ``chip_smoke.py``'s phase 8 row draws (seed
 to back: the 25 MB of K and V stay in the 50 MB L2) and cold (a 64 MB
 buffer rewritten before each call, as each layer of a decode step finds
 its cache), beside SDPA over the masked cache timed the same two ways.
+The wide kernels (head dims above 256: ``wide_fwd``, ``wide_dq``,
+``wide_dkv``) at ``WIDE_SHAPES``, bf16, q, k, v from one fused projection,
+key padding ragged over the batch (valid lengths T - b T / (2 B)) or
+causal: the device time of each kernel alone a launch, median of 5
+sessions (the forward through ``_flash_forward``, dq and dk / dv through
+``chip_smoke.kernel_only_call``, so the entry's delta is not in them), the
+kernels' names matched whatever tree they come from.
 To compare two commits, run it on each tree in turns on one card (parent,
 change, change, parent). The result line starts with ``AB``. Imports
 nothing of JAX.
@@ -131,8 +141,53 @@ def decode_times(torch, cs, dev, da):
                 sdpa_cold_ms=lib_cold, bound_ms=bound, max_abs_err=err)
 
 
+# (B, H, T, D, bias, causal) of the wide kernels' timings: chip_smoke.py's
+# WIDE_TIMED
+WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False),
+               (8, 8, 1024, 320, "keypad", False),
+               (8, 8, 1024, 320, None, True),
+               (4, 8, 1024, 512, "keypad", False))
+WIDE_PATTERNS = {"fwd": r"wide_fwd(_wg)?<", "dq": r"wide_dq(_wg)?<",
+                 "dkv": r"wide_dkv<"}
+
+
+def wide_times(torch, cs, dev, attn):
+    """{shape: ms a launch of each wide kernel} at ``WIDE_SHAPES``."""
+    import math
+    out = {}
+    gen = torch.Generator().manual_seed(23)
+    dt = torch.bfloat16
+    for B, Hh, T, d, bias_kind, causal in WIDE_SHAPES:
+        q, k, v = cs.qkv_views(torch, dev, B, T, dt, gen, d, Hh)
+        valid = [T - b * T // (2 * B) for b in range(B)]
+        bias = cs.keypad_bias(torch, dev, valid, T, dt) \
+            if bias_kind == "keypad" else None
+        do = torch.randn((B, T, Hh, d), generator=gen).to(
+            dev, dt).transpose(1, 2)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = attn._flash_forward(q, k, v, bias, scale, causal)
+        c = dict(q=q, k=k, v=v, do=do, bias=bias, seed=None, out=o, lse=lse,
+                 scale=scale, causal=causal, rate=0.0)
+        row = {"fwd": median_ms(cs, lambda: attn._flash_forward(
+            q, k, v, bias, scale, causal), 5,
+            lambda n: re.search(WIDE_PATTERNS["fwd"], n))}
+        for part, name in (("dq", "flash_attention_wide_dq"),
+                           ("dkv", "flash_attention_wide_dkv")):
+            call, _ = cs.kernel_only_call(torch, attn, c, name)
+            pattern = WIDE_PATTERNS[part]
+            row[part] = median_ms(cs, call, 3,
+                                  lambda n: re.search(pattern, n))
+        label = (f"({B}, {Hh}, {T}, {d}) "
+                 f"{'causal' if causal else bias_kind}")
+        out[label] = row
+        del q, k, v, do, o, lse, c
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
-    if len(sys.argv) != 2:
+    parts = sys.argv[2:] or ["update", "decode", "wide"]
+    if len(sys.argv) < 2 or not set(parts) <= {"update", "decode", "wide"}:
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -142,13 +197,18 @@ def main() -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from mxnet_tpu_torch.ops.cuda import attention as attn
     from mxnet_tpu_torch.ops.cuda import decode_attention as da
     from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
     dev = torch.device("cuda:0")
     card = cs.smi_line()
-    res = dict(root=root, card=card,
-               update=update_times(torch, cs, dev, mt),
-               decode=decode_times(torch, cs, dev, da))
+    res = dict(root=root, card=card)
+    if "update" in parts:
+        res["update"] = update_times(torch, cs, dev, mt)
+    if "decode" in parts:
+        res["decode"] = decode_times(torch, cs, dev, da)
+    if "wide" in parts:
+        res["wide"] = wide_times(torch, cs, dev, attn)
     print("AB " + json.dumps(res), flush=True)
     return 0
 
