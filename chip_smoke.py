@@ -42,10 +42,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time of all its kernels (delta, zeroing, the kernel, the cast; for the
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
    library call (yardstick only). Then the wide kernels (head dims above
-   256: ``wide_fwd`` and ``wide_dq``, the tiled wgmma kernels of
-   ``flash_attention_wide_wg.cu`` for 16-bit heads up to 512 and the
-   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and wider heads,
-   and ``wide_dkv``) against their plain versions in ``WIDE_CASES`` (D =
+   256: ``wide_fwd``, ``wide_dq`` and ``wide_dkv``, the tiled wgmma
+   kernels of ``flash_attention_wide_wg.cu`` and
+   ``flash_attention_wide_dkv.cu`` for 16-bit heads up to 512 and the
+   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and wider heads)
+   against their plain versions in ``WIDE_CASES`` (D =
    264 to 576; bias none, key padding and learned; causal; Tq != Tk;
    dropout; bf16, fp16, f32), two runs of the forward and of the backward
    equal to the bit, the copies of rows TMA cannot address counted (D =
@@ -53,14 +54,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    512; their path: ``flash_attention`` at (2, 512, 4, 288) and (8, 1024,
    8, 320) bf16 from one fused QKV projection, forward and backward under
    autograd with the counts from 0 (one launch of each kernel a shape, no
-   operand copied), the profiler's kernel names showing the tiled forward
-   and dq; and each ``WIDE_TIMED`` shape ((2, 4, 512, 288) and (4, 8, 1024,
+   operand copied), the profiler's kernel names showing the tiled forward,
+   dq and dk / dv; and each ``WIDE_TIMED`` shape ((2, 4, 512, 288) and
+   (4, 8, 1024,
    512) with key padding, (8, 8, 1024, 320) with key padding and causal)
    against the plain versions, each kernel timed there by device time
    beside its bound, the plain version and SDPA's memory-efficient
-   backend (the only one that takes such heads); the warp-a-row forward
-   and dq checked and timed on their own route at (2, 4, 512, 576) bf16
-   with key padding, their source beside the times. Then the three
+   backend (the only one that takes such heads); the three warp-a-row
+   kernels checked and timed on their own route at (2, 4, 512, 576) bf16
+   and (2, 4, 512, 320) f32 with key padding, their source beside the
+   times, SDPA's memory-efficient forward and backward beside them (or its
+   refusal, printed). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -150,7 +154,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    first the eager warm-up, its loss equal to the eager run's first; the
    second captures the forward and backward graphs), step time, tokens/s,
    device busy and idle share, a replayed step's kernels counted by the
-   profiler equal to the eager step's, its parts; a replayed call against
+   profiler equal to what the launch counters say an eager step launches
+   (``step_kernel_counts``), its parts; a replayed call against
    an eager one (``Block.__call__``) from the same generator state on the
    fused route and on the two-pass pair: outputs with dropout 0.1 and the
    generator's state after equal to the bit, gradients within
@@ -237,11 +242,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step ms, tokens/s, busy and idle share, peak memory, no library
    attention kernel in the profile; 10 hybridized steps from the same
    weights and generator state (a replayed step's kernels by the profiler
-   equal to the eager step's); one f32 step (B=2, Ts=24, Tt=16) against
-   the CPU; then ``translate``: 8 sources of lengths 16-128 padded to 128,
-   64 greedy tokens, 6 flash forwards and 768 decode-attention launches
-   (12 a token) by the counters, the decode kernel and no library
-   attention in a profiled call, each token within GREEDY_MARGIN of its
+   equal to the launch counters' eager step); one f32 step (B=2, Ts=24,
+   Tt=16) against the CPU; then ``translate``: 8 sources of lengths 16-128
+   padded to 128, 64 greedy tokens, 6 flash forwards and 768
+   decode-attention launches (12 a token) by the counters, the decode
+   kernel and no library attention in a profiled call, each token within GREEDY_MARGIN of its
    row's maximum in a teacher-forced bf16 ``decode``, ms a token and
    tokens/s; ``beam_translate`` at K=4 (scores best-first, the best no
    lower than K=1's); in f32 three sources (one of valid length 0) token
@@ -379,8 +384,8 @@ KERNEL_INFO = {
                             "XLA)"),
     # the flash kernels at head dims above 256 (the tiled ones take up to
     # 256): the same three Pallas kernels as rows 1, 3 and 4
-    # 16-bit heads up to 512 take the tiled wide forward and dq, f32 and
-    # wider heads those of flash_attention_wide.cu
+    # 16-bit heads up to 512 take the tiled wide kernels, f32 and wider
+    # heads those of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
     "flash_attention_wide_fwd": (
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
@@ -388,7 +393,7 @@ KERNEL_INFO = {
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:344"),
     "flash_attention_wide_dkv": (
-        "mxnet_tpu_torch/csrc/flash_attention_wide.cu",
+        "mxnet_tpu_torch/csrc/flash_attention_wide_dkv.cu",
         "mxnet_tpu/ops/pallas/attention.py:524"),
 }
 ATTN_KERNELS = tuple(KERNEL_INFO)[:4]
@@ -463,13 +468,17 @@ WIDE_KERNELS = tuple(KERNEL_INFO)[12:15]
 # BERT-base's 154 tensors in 39 groups, ResNet-50 v1's 193 in 49
 UPDATE_STEP = {"bert": 1, "resnet": 1}
 # the wide kernels' names (re.search), for device time by torch.profiler:
-# the tiled ones (wwg::wide_fwd_wg, wwg::wide_dq_wg) or the warp-a-row ones
+# the tiled ones (wwg::wide_fwd_wg, wwg::wide_dq_wg, wdkv::wide_dkv_wg) or
+# the warp-a-row ones (wide::wide_fwd, ...)
 WIDE_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd(_wg)?<",
                "flash_attention_wide_dq": r"wide_dq(_wg)?<",
-               "flash_attention_wide_dkv": r"wide::wide_dkv<"}
+               "flash_attention_wide_dkv": r"wide_dkv(_wg)?<"}
 # the tiled ones alone, which the bf16 wide path must show
 WIDE_WG_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd_wg<",
-                  "flash_attention_wide_dq": r"wide_dq_wg<"}
+                  "flash_attention_wide_dq": r"wide_dq_wg<",
+                  "flash_attention_wide_dkv": r"wide_dkv_wg<"}
+# the source of the warp-a-row ones, which f32 and heads above 512 take
+WIDE_ROWS_SOURCE = "mxnet_tpu_torch/csrc/flash_attention_wide.cu"
 # the wide kernels' path (phase 3): attention over heads of 288 and 320
 # through the user's entry point, forward and backward under autograd, bf16
 WIDE_PATHS = (dict(B=2, T=512, H=4, D=288), dict(B=8, T=1024, H=8, D=320))
@@ -2253,12 +2262,14 @@ WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
               (8, 8, 1024, 320, None, True),
               (4, 8, 1024, 512, "keypad", False))
 WIDE_LINE = 1
-# the warp-a-row forward and dq (csrc/flash_attention_wide.cu), which keep
-# f32 and head dims above 512, timed on their own route at one such shape
-# (B, H, T, D, bias, causal), bf16 (the kernels line carries the tiled ones)
-WIDE_ROWS_TIMED = (2, 4, 512, 576, "keypad", False)
+# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep f32 and head dims
+# above 512, timed on their own route at one shape of each (B, H, T, D,
+# bias, causal, dtype) (the kernels line carries the tiled ones)
+WIDE_ROWS_TIMED = ((2, 4, 512, 576, "keypad", False, "bfloat16"),
+                   (2, 4, 512, 320, "keypad", False, "float32"))
 WIDE_ROWS_KERNEL = {"flash_attention_wide_fwd": r"wide::wide_fwd<",
-                    "flash_attention_wide_dq": r"wide::wide_dq<"}
+                    "flash_attention_wide_dq": r"wide::wide_dq<",
+                    "flash_attention_wide_dkv": r"wide::wide_dkv<"}
 
 
 def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
@@ -2274,11 +2285,13 @@ def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
     return out > 0, attn.dropout_keep_reference(seed, B, Hh, Tq, d, rate)
 
 
-def wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind, causal):
-    """One timed wide shape (``WIDE_TIMED``), bf16: q, k, v views of one
-    fused (B, T, 3 Hh d) projection, a key-padding bias with valid lengths
-    T - b T / (2 B) for batch b (or none), and the forward's out and lse."""
-    dt = torch.bfloat16
+def wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind, causal,
+                    dtn="bfloat16"):
+    """One timed wide shape (``WIDE_TIMED``, ``WIDE_ROWS_TIMED``), of dtype
+    ``dtn``: q, k, v views of one fused (B, T, 3 Hh d) projection, a
+    key-padding bias with valid lengths T - b T / (2 B) for batch b (or
+    none), and the forward's out and lse."""
+    dt = getattr(torch, dtn)
     qh, kh, vh = qkv_views(torch, dev, B, T, dt, gen, d, Hh)
     valid = [T - b * T // (2 * B) for b in range(B)] \
         if bias_kind == "keypad" else [T] * B
@@ -2292,8 +2305,8 @@ def wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind, causal):
                 B=B, H=Hh, T=T, D=d, dt=dt, learned=False)
 
 
-def wide_label(B, Hh, T, d, bias_kind, causal):
-    return (f"({B}, {Hh}, {T}, {d}) bf16 "
+def wide_label(B, Hh, T, d, bias_kind, causal, dtn="bfloat16"):
+    return (f"({B}, {Hh}, {T}, {d}) {'f32' if dtn == 'float32' else 'bf16'} "
             f"{'causal' if causal else bias_kind or 'no bias'}")
 
 
@@ -2387,63 +2400,84 @@ def wide_timed(torch, dev, gen, attn, errs):
 
 
 def wide_rows_timed(torch, dev, gen, attn):
-    """The warp-a-row forward and dq on their own route, at
-    ``WIDE_ROWS_TIMED``: checked against the plain versions (out within
-    TOL_HALF, dq within REL_BWD), then each kernel's device time, by the
-    profiler's records of that kernel's own name, beside its bound and the
-    plain version, with the route's source."""
-    B, Hh, T, d, bias_kind, causal = WIDE_ROWS_TIMED
-    if attn.head_dim_route(d, torch.bfloat16) != "wide_rows":
-        fail(f"WIDE_ROWS_TIMED: D={d} bf16 is not on the warp-a-row route")
-    c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
-                        causal)
-    label = wide_label(B, Hh, T, d, bias_kind, causal)
-    q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
-    ref, _ = attn.flash_attention_reference(q.float(), k.float(), v.float(),
-                                            bias, scale, causal)
-    errs = {"flash_attention_wide_fwd": check_close(
-        "warp-a-row wide forward", label, c["out"], ref, TOL_HALF)}
-    del ref
-    dq_call, outs = kernel_only_call(torch, attn, c, "flash_attention_wide_dq")
-    dq_call()
-    want = attn.flash_attention_backward_reference(
-        q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale, causal,
-        False)[0]
-    e = rel(outs[0], want)
-    if not e <= REL_BWD["bfloat16"]:
-        fail(f"warp-a-row wide dq {label}: rel {e:.3e} beyond "
-             f"{REL_BWD['bfloat16']}")
-    errs["flash_attention_wide_dq"] = (outs[0].float() - want).abs().max() \
-        .item()
-    del want
-    calls = {"flash_attention_wide_fwd": lambda: attn._flash_forward(
-        q, k, v, bias, scale, causal), "flash_attention_wide_dq": dq_call}
-    plain = {"flash_attention_wide_fwd": device_ms(
-        lambda: attn.flash_attention_reference(q, k, v, bias, scale, causal),
-        iters=3), "flash_attention_wide_dq": device_ms(
-        lambda: attn.flash_attention_backward_reference(
+    """The three warp-a-row kernels on their own route, at each
+    ``WIDE_ROWS_TIMED`` shape: checked against the plain versions (out
+    within TOL_HALF or TOL_F32, dq, dk and dv within REL_BWD), then each
+    kernel's device time, by the profiler's records of that kernel's own
+    name, beside its bound, the plain version and SDPA's memory-efficient
+    forward or whole backward (or SDPA's refusal, printed), with the
+    route's source."""
+    import torch.nn.functional as F
+    for B, Hh, T, d, bias_kind, causal, dtn in WIDE_ROWS_TIMED:
+        if attn.head_dim_route(d, getattr(torch, dtn)) != "wide_rows":
+            fail(f"WIDE_ROWS_TIMED: D={d} {dtn} is not on the warp-a-row "
+                 f"route")
+        c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                            causal, dtn)
+        label = wide_label(B, Hh, T, d, bias_kind, causal, dtn)
+        q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
+        ref, _ = attn.flash_attention_reference(
+            q.float(), k.float(), v.float(), bias, scale, causal)
+        errs = {"flash_attention_wide_fwd": check_close(
+            "warp-a-row wide forward", label, c["out"], ref,
+            TOL_F32 if dtn == "float32" else TOL_HALF)}
+        del ref
+        want = attn.flash_attention_backward_reference(
             q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
-            causal, False), iters=3)}
-    source = KERNEL_INFO["flash_attention_wide_dkv"][0]
-    for name, pattern in WIDE_ROWS_KERNEL.items():
-        ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
-        if ms is None:
-            fail(f"warp-a-row {name} at {label}: the profiler kept no "
-                 f"record of {pattern}")
-        if name.endswith("_fwd"):
-            bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "bfloat16",
-                                         2, causal, bias)
-            whole = ""
-        else:
-            bnd, by = backward_bound_ms("dq", B, Hh, T, T, d, c["valid"],
-                                        "bfloat16", 2, causal, bias, False)
-            whole = " (the whole backward)"
-        print(f"phase 3: {name} on the warp-a-row route ({source}) at "
-              f"{label}: {fmt_ms(ms)} device (bound {bnd:.5f} ms by {by}; "
-              f"plain {fmt_ms(plain[name])}{whole}); error "
-              f"{errs[name]:.3e}", flush=True)
-    del c, calls, outs
-    torch.cuda.empty_cache()
+            causal, False)
+        calls = {"flash_attention_wide_fwd": lambda: attn._flash_forward(
+            q, k, v, bias, scale, causal)}
+        for name, parts in (("flash_attention_wide_dq", ((0, "dq"),)),
+                            ("flash_attention_wide_dkv",
+                             ((1, "dk"), (2, "dv")))):
+            calls[name], outs = kernel_only_call(torch, attn, c, name)
+            calls[name]()
+            for i, nm in parts:
+                e = rel(outs[i], want[i])
+                if not e <= REL_BWD[dtn]:
+                    fail(f"warp-a-row wide {nm} {label}: rel {e:.3e} beyond "
+                         f"{REL_BWD[dtn]}")
+                errs[name] = max(errs.get(name, 0.0), (
+                    outs[i].float() - want[i]).abs().max().item())
+        del want
+        plain_fwd = device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias, scale, causal), iters=3)
+        plain_bwd = device_ms(
+            lambda: attn.flash_attention_backward_reference(
+                q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+                causal, False), iters=3)
+        try:
+            lib_fwd = wide_sdpa(torch, lambda: device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, is_causal=causal, scale=scale)))
+        except Exception as e:  # noqa: BLE001 - a yardstick only: reported
+            print(f"phase 3:   SDPA memory-efficient forward refuses "
+                  f"{label}: {e!r:.160}", flush=True)
+            lib_fwd = None
+        lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
+            torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
+        for name, pattern in WIDE_ROWS_KERNEL.items():
+            ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
+            if ms is None:
+                fail(f"warp-a-row {name} at {label}: the profiler kept no "
+                     f"record of {pattern}")
+            if name.endswith("_fwd"):
+                bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], dtn,
+                                             c["dt"].itemsize, causal, bias)
+                whole, lib, plain = "", lib_fwd, plain_fwd
+            else:
+                bnd, by = backward_bound_ms(
+                    name.rsplit("_", 1)[1], B, Hh, T, T, d, c["valid"], dtn,
+                    c["dt"].itemsize, causal, bias, False)
+                whole, lib, plain = " (the whole backward)", lib_bwd, \
+                    plain_bwd
+            print(f"phase 3: {name} on the warp-a-row route "
+                  f"({WIDE_ROWS_SOURCE}) at {label}: {fmt_ms(ms)} device "
+                  f"(bound {bnd:.5f} ms by {by}; plain {fmt_ms(plain)}"
+                  f"{whole}; SDPA memory-efficient {fmt_ms(lib)}{whole}); "
+                  f"error {errs[name]:.3e}", flush=True)
+        del c, calls, outs
+        torch.cuda.empty_cache()
 
 
 def wide_path(torch, dev, gen, attn):
@@ -2451,8 +2485,8 @@ def wide_path(torch, dev, gen, attn):
     through the user's entry point ``flash_attention``, q, k, v from one
     fused QKV projection, forward and backward under autograd, the counts
     from 0 and one torch.profiler session over the runs, whose kernel
-    names must show the tiled wide forward and dq (and no warp-a-row one
-    of those two); out against the plain version. A session in a process
+    names must show the tiled wide forward, dq and dk / dv (and no
+    warp-a-row wide kernel); out against the plain version. A session in a process
     that ran many earlier ones can lose a kernel's record (the counts
     still move), so a session short of a tiled kernel's records is run
     once more, and both are held to the counts. Returns the launches."""
@@ -2486,9 +2520,8 @@ def wide_path(torch, dev, gen, attn):
             fail(f"wide path: {attn.padded_copies} operands copied for "
                  f"TMA; the fused-QKV views need none")
         seen = kernel_counts(prof)
-        if any(re.search(r"wide::wide_(fwd|dq)<", k) for k in seen):
-            fail("wide path: a warp-a-row forward or dq kernel ran on the "
-                 "bf16 path")
+        if any(re.search(r"wide::wide_(fwd|dq|dkv)<", k) for k in seen):
+            fail("wide path: a warp-a-row wide kernel ran on the bf16 path")
         hits = {pattern: sum(n for k, n in seen.items()
                              if re.search(pattern, k))
                 for pattern in WIDE_WG_KERNEL.values()}
@@ -2529,7 +2562,7 @@ def wide_checks(torch, dev, gen, attn):
     runs of the forward and of the backward equal to the bit, launches
     and copies counted; their path (:func:`wide_path`); each
     ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`), and the
-    warp-a-row forward and dq (:func:`wide_rows_timed`). Returns (rows,
+    warp-a-row kernels (:func:`wide_rows_timed`). Returns (rows,
     the path's launches)."""
     errs = {n: 0.0 for n in WIDE_KERNELS}
     for dtn, d, Tq, Tk, causal, bias_kind, rate in WIDE_CASES:
@@ -3579,6 +3612,37 @@ def pattern_counts_most(profs, names):
     return {n: max(r[n] for r in runs) for n in names}
 
 
+def step_kernel_counts(torch, step, want, label, sessions=4):
+    """Launches of each kernel of ``want`` in one ``step()`` by
+    torch.profiler, held to ``want``: what the launch counters say an eager
+    step launches. A replayed CUDA graph moves no counter, so the profiler is
+    its only witness. A session can drop kernel records, never add one: in a
+    process that ran earlier sessions it loses its first few launches
+    (phase 8's audit), which the session's :func:`primer` takes, and now and
+    then one more (PERF.md §7). So the step is profiled in up to
+    ``sessions`` primed sessions, each kernel's count the most any of them
+    saw, until the counts reach ``want``; fails if they pass it or never
+    reach it. Returns the counts and the sessions taken."""
+    from torch.profiler import ProfilerActivity, profile
+    got = {n: 0 for n in want}
+    for k in range(1, sessions + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            primer()
+            torch.cuda.synchronize()
+            step()
+            torch.cuda.synchronize()
+        seen = pattern_counts(prof, list(want))
+        got = {n: max(got[n], seen[n]) for n in want}
+        if got == want or any(got[n] > want[n] for n in want):
+            break
+    if got != want:
+        fail(f"{label}: kernels by the profiler {got} (the most of {k} "
+             f"primed sessions), the launch counters' eager step {want}")
+    return got, k
+
+
 def profiled_step(torch, step):
     """One ``step()`` under torch.profiler: (wall ms to a synchronize,
     the profile)."""
@@ -3866,15 +3930,12 @@ def phase_train(torch, dev):
     # where the time goes in one step of each route (counters restored
     # after)
     saved = dict(attn.launches)
-    profs = {}
     for route in ("fused", "two-pass"):
         if route == "two-pass":
             os.environ["MXNET_FLASH_BLOCK_K"] = "256"
         train_step(torch, autograd, net, loss_fn, trainer, batch)
         wall_ms, prof = profiled_step(torch, lambda: train_step(
             torch, autograd, net, loss_fn, trainer, batch))
-        profs[route] = (prof, profiled_step(torch, lambda: train_step(
-            torch, autograd, net, loss_fn, trainer, batch))[1])
         os.environ.pop("MXNET_FLASH_BLOCK_K", None)
         busy, _ = device_breakdown(prof, wall_ms,
                                    f"phase 5: profiled {route} step")
@@ -3909,21 +3970,20 @@ def phase_train(torch, dev):
           f"{(time.perf_counter() - tw) * 1e3:.3f} ms", flush=True)
     attn.launches.update(saved)
     embedding_backward_times(torch, tok, typ)
-    hybrid_train(torch, dev, net, params, loss_fn, batch, losses["fused"],
-                 profs)
+    hybrid_train(torch, dev, net, params, loss_fn, batch, losses["fused"])
     del net, trainer
     torch.cuda.empty_cache()
     train_parity(torch, dev, params, cfg)
     return counts, fused_ms
 
 
-def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses,
-                 profs):
+def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses):
     """Phase 5, hybridized: the net's forward and backward as CUDA graphs,
     from the eager run's weights and generator state; step time, device
     busy and idle share, every kernel's launches a step from the profiler
-    against the eager step's, the step parts; then a replayed call against
-    an eager one on the fused route and on the two-pass pair."""
+    against the launch counters' eager step, the step parts; then a
+    replayed call against an eager one on the fused route and on the
+    two-pass pair."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch import random as mx_random
     from mxnet_tpu_torch.convert import load_jax_params
@@ -3960,16 +4020,15 @@ def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses,
     wall_ms, prof = profiled_step(torch, lambda: train_step(
         torch, autograd, net, loss_fn, trainer, batch))
     device_breakdown(prof, wall_ms, "phase 5: profiled hybridized step")
-    names = ["flash_attention_fwd", "flash_attention_bwd_fused",
-             "multi_tensor_update"]
-    got = pattern_counts_most((prof, profiled_step(torch, lambda: train_step(
-        torch, autograd, net, loss_fn, trainer, batch))[1]), names)
-    want = pattern_counts_most(profs["fused"], names)
-    if got != want or not got["flash_attention_fwd"]:
-        fail(f"hybridized step: kernel launches by the profiler {got}, the "
-             f"eager step's {want}")
-    print(f"phase 5: launches in a replayed step by the profiler {got}, as "
-          "in the eager step", flush=True)
+    got, sessions = step_kernel_counts(
+        torch, lambda: train_step(torch, autograd, net, loss_fn, trainer,
+                                  batch),
+        {"flash_attention_fwd": 12, "flash_attention_bwd_fused": 12,
+         "multi_tensor_update": UPDATE_STEP["bert"]},
+        "phase 5: a replayed step")
+    print(f"phase 5: launches in a replayed step by the profiler {got} "
+          f"({sessions} primed sessions), as the launch counters' eager step",
+          flush=True)
     tok, typ, vl, pos, lab = batch
     split, launched = step_parts(
         torch, autograd, lambda: loss_fn(net(tok, typ, vl, pos)[-1], lab),
@@ -5636,9 +5695,9 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
     loss must fall; step ms and tokens/s (``tokens`` a step), one profiled
     step (busy and idle share, no SDPA kernel), peak memory; then
     ``TRAIN_STEPS`` hybridized steps from the same weights and generator
-    state (a replayed step's kernels by the profiler equal to the eager
-    step's). Returns the launch counts of the eager run and the pair
-    step, and the measurements."""
+    state (an eager and a replayed step's kernels by the profiler equal to
+    the launch counters' eager step). Returns the launch counts of the
+    eager run and the pair step, and the measurements."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch import random as mx_random
     from mxnet_tpu_torch.convert import load_jax_params
@@ -5710,15 +5769,11 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
     wall_ms, prof = profiled_step(torch, one)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     busy, idle = device_breakdown(prof, wall_ms, f"{tag}: profiled eager step")
-    eager_counts = pattern_counts_most(
-        (prof, profiled_step(torch, one)[1]),
-        ["flash_attention_fwd", "flash_attention_bwd_fused",
-         "multi_tensor_update"])
+    eager_counts, eager_sessions = step_kernel_counts(
+        torch, one, want, f"{tag}: an eager step")
     sdpa = [k for k in kernel_counts(prof) if re.search(SDPA_KERNEL, k)]
     if sdpa:
         fail(f"{tag}: library attention kernels ran in a step: {sdpa}")
-    if not eager_counts["flash_attention_fwd"]:
-        fail(f"{tag}: the profiler saw no flash forward in a step")
     print(f"{tag}: eager step {ms:.3f} ms (mean of steps 3-{TRAIN_STEPS}, "
           f"host clock to a synchronize), {tokens / ms * 1e3:.0f} tokens/s; "
           f"device busy {fmt_ms(busy)} a step, idle share "
@@ -5752,11 +5807,8 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
     wall_ms, prof = profiled_step(torch, one)
     h_busy, h_idle = device_breakdown(prof, wall_ms,
                                       f"{tag}: profiled hybridized step")
-    got = pattern_counts_most((prof, profiled_step(torch, one)[1]),
-                              list(eager_counts))
-    if got != eager_counts:
-        fail(f"{tag} hybridized: a replayed step's kernels by the profiler "
-             f"{got}, the eager step's {eager_counts}")
+    got, sessions = step_kernel_counts(torch, one, want,
+                                       f"{tag} hybridized: a replayed step")
     net.hybridize(False)
     print(f"{tag}: hybridized losses {[round(x, 4) for x in h_losses]} "
           f"(the eager run's largest difference "
@@ -5765,8 +5817,10 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
           f"{tokens / h_ms * 1e3:.0f} tokens/s; device busy {fmt_ms(h_busy)}"
           f", idle share "
           f"{'not measured' if h_idle is None else f'{h_idle:.3f}'}; a "
-          f"replayed step's kernels by the profiler {got}, as the eager "
-          f"step's; card: {smi_line()}", flush=True)
+          f"replayed step's kernels by the profiler {got} ({sessions} "
+          f"primed sessions; an eager step's {eager_counts}, "
+          f"{eager_sessions}), as the launch counters' eager step; card: "
+          f"{smi_line()}", flush=True)
     stats.update(hybrid_ms=h_ms, hybrid_busy=h_busy, hybrid_idle=h_idle)
     del net, trainer
     torch.cuda.empty_cache()

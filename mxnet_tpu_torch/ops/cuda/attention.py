@@ -9,13 +9,15 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
 - ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
-  ``_flash_bwd_dq_kernel`` for 16-bit q, k, v at head dims above
+  ``_flash_bwd_dq_kernel``, and ``csrc/flash_attention_wide_dkv.cu``
+  ``_flash_bwd_dkv_kernel``, for 16-bit q, k, v at head dims above
   :data:`MAX_HEAD_DIM` up to :data:`WIDE_WG_MAX_HEAD_DIM` (``wide_fwd``,
-  ``wide_dq``): wgmma tiles over the head dim's 64-column panels;
+  ``wide_dq``, ``wide_dkv``): wgmma tiles over the head dim's 64-column
+  panels;
 - ``csrc/flash_attention_wide.cu`` replaces the same three above
-  :data:`MAX_HEAD_DIM` otherwise (``wide_fwd``, ``wide_dq`` in f32 and
-  above :data:`WIDE_WG_MAX_HEAD_DIM`, ``wide_dkv`` at every wide head
-  dim): a warp a row, lanes over the head dim, any D;
+  :data:`MAX_HEAD_DIM` otherwise (f32, and 16-bit above
+  :data:`WIDE_WG_MAX_HEAD_DIM`): a warp a row, lanes over the head dim,
+  any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -40,19 +42,19 @@ The tiled forward and backward kernels take head dims up to 256
 and backward, so the card takes any head dim, as the JAX package and the
 plain versions do. Which source a kernel of a wide head dim comes from is
 :func:`head_dim_route`, a pure function of (D, dtype) and a contract of
-the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd`` and
-``wide_dq`` (``"wide_wg"``), f32 and D > 512 the warp-a-row ones
-(``"wide_rows"``), and ``wide_dkv`` is the warp-a-row kernel on both. A
-build or launch that fails raises; no route gives way to another. The
-warp-a-row kernels read every operand through its strides, so they copy
-nothing.
+the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
+``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), f32 and D > 512 the
+warp-a-row ones (``"wide_rows"``). A build or launch that fails raises; no
+route gives way to another. The warp-a-row kernels read every operand
+through its strides, so they copy nothing.
 The tiled 16-bit kernels (the wide tiled ones among them) read q, k, v and
 dout and write out, dq, dk and dv by
 TMA, which needs a 16-byte aligned base and strides that are multiples of
 16 bytes; an operand that lacks either (a head dim that is not a multiple
 of 8, say) is first copied into a padded
-contiguous buffer (an output is written there and copied back), and
-:data:`padded_copies` counts those copies.
+contiguous buffer (an output is written there and copied back), once
+for both kernels of a backward pair, and :data:`padded_copies` counts
+those copies.
 
 Routing of the backward (:func:`backward_route`), a contract of the port:
 for D <= 128, the fused single pass when Tk fits one k-block
@@ -271,7 +273,7 @@ def head_dim_route(D: int, dtype) -> str:
     ``flash_attention_bwd.cu``), ``"wide_wg"`` (bf16 / fp16 up to
     :data:`WIDE_WG_MAX_HEAD_DIM`: ``wide_fwd`` and ``wide_dq`` from
     ``flash_attention_wide_wg.cu``, ``wide_dkv`` from
-    ``flash_attention_wide.cu``) or ``"wide_rows"`` (every wide kernel
+    ``flash_attention_wide_dkv.cu``) or ``"wide_rows"`` (every wide kernel
     from ``flash_attention_wide.cu``)."""
     if D <= MAX_HEAD_DIM:
         return "tiled"
@@ -286,7 +288,9 @@ def _source(name: str, route: str) -> Tuple[str, str]:
     if not _wide(name):
         return (("flash_attention_fwd", "mxt_flash_attention_fwd") if fwd
                 else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
-    if route == "wide_wg" and name != "flash_attention_wide_dkv":
+    if route == "wide_wg" and name == "flash_attention_wide_dkv":
+        return ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
+    if route == "wide_wg":
         return ("flash_attention_wide_wg",
                 "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
     return ("flash_attention_wide",
@@ -324,10 +328,7 @@ def _wide(name: str) -> bool:
 def _uses_tma(name: str, route: str, dtype) -> bool:
     """Whether kernel ``name`` on ``route`` reads and writes its 16-bit
     operands by TMA (the warp-a-row kernels and the f32 ones do not)."""
-    if dtype not in _HALF:
-        return False
-    return route == "tiled" or (route == "wide_wg"
-                                and name != "flash_attention_wide_dkv")
+    return dtype in _HALF and route in ("tiled", "wide_wg")
 
 
 def _bht(t):
@@ -423,6 +424,17 @@ def _bthd_empty(B, H, T, D, dtype, device):
                        device=device)[..., :D].transpose(1, 2)
 
 
+def _pair_operands(pair, route, ts):
+    """The operands ``ts`` (q, k, v, dout) of the backward kernels
+    ``pair`` on ``route``: when they read by TMA, each 16-bit operand that
+    TMA cannot address copied once for both (:func:`_tma_operand`,
+    counted), so that the second kernel finds it ready; else as they
+    are."""
+    if not any(_uses_tma(n, route, ts[0].dtype) for n in pair):
+        return tuple(ts)
+    return tuple(_tma_operand(t) for t in ts)
+
+
 def _padded_output(t):
     """A counted padded buffer standing in for an output TMA cannot
     write in place; the caller copies it back."""
@@ -505,10 +517,11 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     kernels read q, k, v, do and write dk, dv and the dq kernel's dq by
     TMA: operands they cannot address are copied first and outputs written
     to a padded buffer and copied back (:func:`_tma_operand`, counted), as
-    does the tiled ``wide_dq`` of :func:`head_dim_route`; the warp-a-row
-    kernels read and write the views as they are. ``fn``: another build of
-    the same C entry (``chip_smoke.py --probe-bwd``); its launches are
-    not counted."""
+    do the tiled ``wide_dq`` and ``wide_dkv`` of :func:`head_dim_route`
+    (:func:`_backward_kernels` copies the pair's operands once, for both);
+    the warp-a-row kernels read and write the views as they are. ``fn``:
+    another build of the same C entry (``chip_smoke.py --probe-bwd``); its
+    launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
     route = head_dim_route(D, q.dtype)
     fused = name == "flash_attention_bwd_fused"
@@ -663,6 +676,8 @@ def _backward_kernels(q, k, v, bias, seed, o, lse, g, scale: float,
         pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
             if route == "wide" else ("flash_attention_bwd_dq",
                                      "flash_attention_bwd_dkv")
+        common = _pair_operands(pair, head_dim_route(D, q.dtype),
+                                common[:4]) + common[4:]
         dq = _bthd_empty(B, H, Tq, D, q.dtype, dev)
         _launch_bwd(pair[0], *common, dq, None, None, ds, scale, causal)
         _launch_bwd(pair[1], *common, None, dk, dv, None, scale, causal)

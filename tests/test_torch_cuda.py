@@ -20,9 +20,10 @@ outputs they make. Head dims above 256 (264 to 512) run the wide
 kernels, forward and backward, under the same tolerances, at Tq != Tk,
 with bias, causal and dropout (their masks read back bit for bit), two
 backward runs equal to the bit; 16-bit heads up to 512 on the tiled wgmma
-forward and dq (out, lse and dq equal to the bit run to run, operands
-with rows TMA cannot address copied and counted), f32 heads on the
-warp-a-row kernels, as the profiler's kernel names show.
+forward, dq and dk / dv (out, lse, dq, dk and dv equal to the bit run to
+run, operands with rows TMA cannot address copied and counted, once for
+the backward pair), f32 heads on the warp-a-row kernels, as the
+profiler's kernel names show.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
 versions, relative Frobenius error of each output: 16-bit fwd and bf16
@@ -574,9 +575,10 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 
 # ---------------------------------------------- heads wider than 256 (C8)
-# 16-bit heads up to 512 take the tiled wgmma forward and dq
-# (csrc/flash_attention_wide_wg.cu; D = 264, 300 and 384 among them, 300
-# through copies TMA can address), f32 the warp-a-row kernels
+# 16-bit heads up to 512 take the tiled wgmma forward, dq and dk / dv
+# (csrc/flash_attention_wide_wg.cu, csrc/flash_attention_wide_dkv.cu; D =
+# 264, 300 and 384 among them, 300 through copies TMA can address), f32
+# the warp-a-row kernels
 WIDE_DS = [264, 288, 300, 320, 384, 512]
 
 
@@ -671,11 +673,16 @@ def test_wide_dropout_masks_are_the_plain_mask(dev, dtype, D):
 
 @pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("D,Tq,Tk", [(264, 333, 200), (384, 130, 257),
-                                     (512, 64, 100)])
+                                     (448, 333, 100), (512, 64, 100),
+                                     (512, 100, 333)])
 def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
-    """Two runs of the tiled wide forward and dq on the same inputs give
-    the same bits for out, lse, dq and a learned bias's ds (no atomics:
-    each sum runs in one order), causal, ragged, dropout 0.1."""
+    """Two runs of the tiled wide forward, dq and dk / dv on the same
+    inputs give the same bits for out, lse, dq, dk, dv and a learned
+    bias's ds (no atomics: each sum runs in one order), causal, ragged
+    (Tk > Tq leaves key blocks no query sees: dk and dv 0 there), dropout
+    0.1, at the padded head dims 320 to 512 (dk / dv split by slices up to
+    384, by roles above); dk and dv within relative 2e-2 of the plain
+    backward."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, True, "full", 0.1, Tq=Tq, Tk=Tk)
     assert attn.head_dim_route(D, dtype) == "wide_wg"
@@ -684,8 +691,12 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
                                  True, 1024, 0.1) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
-    assert torch.equal(runs[0][0], runs[1][0])          # dq
-    assert torch.equal(runs[0][3], runs[1][3])          # dbias from ds
+    for i in range(4):                                  # dq, dk, dv, dbias
+        assert torch.equal(runs[0][i], runs[1][i]), i
+    _, rk, rv, _ = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, 0.1, out, lse, do, scale, True, False)
+    for name, got, want in (("dk", runs[0][1], rk), ("dv", runs[0][2], rv)):
+        assert _rel(got, want) <= 2e-2, f"{name}: {_rel(got, want):.3e}"
 
 
 @pytest.mark.parametrize("dtype,D,route,fwd_copies,bwd_copies", [
@@ -697,10 +708,10 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
                                      bwd_copies):
     """Launches and copies of the wide route, contiguous (B, H, T, D)
     operands: a 16-bit head dim that is not a multiple of 8 gives rows TMA
-    cannot address, so the tiled forward copies q, k, v and the tiled dq
-    q, k, v and dout (counted in ``padded_copies``); the warp-a-row
-    kernels read every operand in place. One launch of each wide kernel
-    per call, nothing else."""
+    cannot address, so the tiled forward copies q, k, v and the tiled
+    backward pair q, k, v and dout, once for both kernels (counted in
+    ``padded_copies``); the warp-a-row kernels read every operand in
+    place. One launch of each wide kernel per call, nothing else."""
     assert attn.head_dim_route(D, dtype) == route
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, False, "keypad", 0.0, Tq=40, Tk=72)
@@ -718,13 +729,13 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
         n: int(n.startswith("flash_attention_wide")) for n in attn.KERNELS}
 
 
-@pytest.mark.parametrize("dtype,pattern", [
-    (torch.bfloat16, r"wwg::wide_(fwd|dq)_wg<"),
-    (torch.float32, r"wide::wide_(fwd|dq)<")])
-def test_wide_route_runs_its_kernels(dev, dtype, pattern):
+@pytest.mark.parametrize("dtype,pattern,dkv_pattern", [
+    (torch.bfloat16, r"wwg::wide_(fwd|dq)_wg<", r"wdkv::wide_dkv_wg<"),
+    (torch.float32, r"wide::wide_(fwd|dq)<", r"wide::wide_dkv<")])
+def test_wide_route_runs_its_kernels(dev, dtype, pattern, dkv_pattern):
     """The profiler's kernel names on each wide route at D = 320: the
-    tiled wgmma forward and dq for bf16, the warp-a-row ones for f32, the
-    warp-a-row dk / dv kernel on both."""
+    tiled wgmma forward, dq and dk / dv for bf16, the warp-a-row ones for
+    f32."""
     import re
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
@@ -738,7 +749,8 @@ def test_wide_route_runs_its_kernels(dev, dtype, pattern):
         torch.cuda.synchronize()
     names = [n for n in cs.kernel_counts(prof) if "wide" in n]
     assert sum(bool(re.search(pattern, n)) for n in names) == 2, names
-    assert any(re.search(r"wide::wide_dkv<", n) for n in names), names
+    assert [n for n in names if "dkv" in n] == [
+        n for n in names if re.search(dkv_pattern, n)] != [], names
 
 
 def test_wide_autograd_reads_bthd_views(dev):

@@ -3,11 +3,13 @@
 
 The card's route at a wide head dim is ``head_dim_route``, a pure function
 of (D, dtype): 16-bit heads up to 512 take the tiled wgmma kernels of
-``csrc/flash_attention_wide_wg.cu`` for the forward and dq (and the
-warp-a-row dk / dv kernel), f32 heads and heads above 512 the warp-a-row
-kernels of ``csrc/flash_attention_wide.cu``. Those kernels run only on the
-card (``tests/test_torch_cuda.py``); here the route is checked at every
-edge, and the plain versions, which the card's kernels are held to, are
+``csrc/flash_attention_wide_wg.cu`` for the forward and dq and of
+``csrc/flash_attention_wide_dkv.cu`` for dk / dv, f32 heads and heads above
+512 the warp-a-row kernels of ``csrc/flash_attention_wide.cu``. Those
+kernels run only on the card (``tests/test_torch_cuda.py``); here the route
+is checked at every edge, the backward pair's operands that TMA cannot
+address are copied once for both kernels, and the plain versions, which
+the card's kernels are held to, are
 held to the JAX package's Pallas kernels in interpret mode through its
 entry point ``flash_attention`` and ``jax.grad`` of it, at D = 264, 320,
 384 and 512: causal with Tq != Tk, a key-padding bias, and a learned full
@@ -42,9 +44,9 @@ HALF = (torch.bfloat16, torch.float16)
 @pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513])
 def test_head_dim_route(D, dtype):
     """Every edge of the route: up to 256 the tiled kernels, 16-bit up to
-    512 the tiled wide kernels, f32 and above 512 the warp-a-row ones;
-    the route decides the source of wide_fwd and wide_dq only (wide_dkv is
-    the warp-a-row kernel on both wide routes) and whether operands go
+    512 the tiled wide kernels (wide_fwd and wide_dq from one source,
+    wide_dkv from its own), f32 and above 512 the warp-a-row ones; the
+    route decides the source of each wide kernel and whether operands go
     through TMA (and so may be copied)."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
@@ -67,12 +69,46 @@ def test_head_dim_route(D, dtype):
     assert port._source("flash_attention_wide_dq", route) == (
         lib, f"{prefix}_bwd")
     assert port._source("flash_attention_wide_dkv", route) == (
-        "flash_attention_wide", "mxt_flash_wide_bwd")
+        ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
+        if route == "wide_wg"
+        else ("flash_attention_wide", "mxt_flash_wide_bwd"))
     tma = route == "wide_wg"
-    assert port._uses_tma("flash_attention_wide_fwd", route, dtype) == tma
-    assert port._uses_tma("flash_attention_wide_dq", route, dtype) == tma
-    assert not port._uses_tma("flash_attention_wide_dkv", route, dtype)
+    for name in ("flash_attention_wide_fwd", "flash_attention_wide_dq",
+                 "flash_attention_wide_dkv"):
+        assert port._uses_tma(name, route, dtype) == tma
     assert port.backward_route(D, 48, 1024) == "wide"
+
+
+@pytest.mark.parametrize("D,dtype,copies", [
+    (300, torch.bfloat16, 4), (300, torch.float16, 4),
+    (300, torch.float32, 0), (520, torch.bfloat16, 0),
+    (320, torch.bfloat16, 0), (36, torch.bfloat16, 4)])
+def test_pair_operands_copied_once(D, dtype, copies):
+    """The backward pair's q, k, v and dout, contiguous (B, H, T, D) views:
+    rows of D = 300 (or 36) 16-bit values are not a multiple of 16 bytes, so
+    on a route whose kernels read by TMA each is copied once for both
+    kernels (counted), into a view TMA can address that holds the same
+    values, and the second kernel's own check copies nothing more; f32,
+    D > 512 (the warp-a-row kernels) and D = 320 take them as they are. No
+    kernel runs here."""
+    route = port.head_dim_route(D, dtype)
+    pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
+        if route != "tiled" else ("flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")
+    g = torch.Generator().manual_seed(D)
+    ts = tuple(torch.randn(2, 3, T, D, generator=g).to(dtype)
+               for T in (24, 40, 40, 24))
+    before = port.padded_copies
+    got = port._pair_operands(pair, route, ts)
+    assert port.padded_copies - before == copies
+    for t, u in zip(ts, got):
+        assert torch.equal(t, u)
+        assert (u is t) == (copies == 0)
+        if copies:
+            assert port._tma_ready(u)
+    again = tuple(port._tma_operand(u) for u in got) if copies else got
+    assert port.padded_copies - before == copies
+    assert all(a is b for a, b in zip(again, got))
 
 
 def _inputs(seed, Tq, Tk, bias_kind, d):

@@ -148,7 +148,7 @@ WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False),
                (8, 8, 1024, 320, None, True),
                (4, 8, 1024, 512, "keypad", False))
 WIDE_PATTERNS = {"fwd": r"wide_fwd(_wg)?<", "dq": r"wide_dq(_wg)?<",
-                 "dkv": r"wide_dkv<"}
+                 "dkv": r"wide_dkv(_wg)?<"}
 
 
 def wide_times(torch, cs, dev, attn):
