@@ -41,30 +41,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (torch.profiler; CUDA events beside it) and each entry by the device
    time of all its kernels (delta, zeroing, the kernel, the cast; for the
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
-   library call (yardstick only). Then the wide kernels (head dims above
+   library call (yardstick only). The f32 kernels (``F32_TIMED``: BERT-base's
+   (8, 12, 512, 64) key padding and GPT-2 training's (8, 12, 1024, 64)
+   causal) are timed beside their bound at the f32 FMA peak, their
+   products' time as 3xTF32 on the tensor cores, the plain versions and
+   SDPA's f32 calls. Then the wide kernels (head dims above
    256: ``wide_fwd``, ``wide_dq`` and ``wide_dkv``, the tiled wgmma
-   kernels of ``flash_attention_wide_wg.cu`` and
-   ``flash_attention_wide_dkv.cu`` for 16-bit heads up to 512 and the
-   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and wider heads)
-   against their plain versions in ``WIDE_CASES`` (D =
-   264 to 576; bias none, key padding and learned; causal; Tq != Tk;
+   kernels of ``flash_attention_wide_wg.cu`` (forward and dq at every
+   16-bit head dim, streaming the head dim above 512) and
+   ``flash_attention_wide_dkv.cu`` (16-bit dk / dv up to 512) and the
+   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and 16-bit dk /
+   dv above 512) against their plain versions in ``WIDE_CASES`` (D =
+   264 to 1024; bias none, key padding and learned; causal; Tq != Tk;
    dropout; bf16, fp16, f32), two runs of the forward and of the backward
    equal to the bit, the copies of rows TMA cannot address counted (D =
-   300), their dropout masks read back bit for bit at D = 288, 384 and
-   512; their path: ``flash_attention`` at (2, 512, 4, 288) and (8, 1024,
+   300, 530), above 512 the profiler's records showing the streamed
+   forward and dq and no warp-a-row one, their dropout masks read back
+   bit for bit at D = 288, 384, 512 and 576; their path: ``flash_attention``
+   at (2, 512, 4, 288) and (8, 1024,
    8, 320) bf16 from one fused QKV projection, forward and backward under
    autograd with the counts from 0 (one launch of each kernel a shape, no
    operand copied), the profiler's kernel names showing the tiled forward,
-   dq and dk / dv; and each ``WIDE_TIMED`` shape ((2, 4, 512, 288) and
-   (4, 8, 1024,
-   512) with key padding, (8, 8, 1024, 320) with key padding and causal)
+   dq and dk / dv; and each ``WIDE_TIMED`` shape ((2, 4, 512, 288),
+   (4, 8, 1024, 512), (2, 4, 512, 576) and (4, 8, 1024, 1024) with key
+   padding, (8, 8, 1024, 320) with key padding and causal)
    against the plain versions, each kernel timed there by device time
    beside its bound, the plain version and SDPA's memory-efficient
-   backend (the only one that takes such heads); the three warp-a-row
-   kernels checked and timed on their own route at (2, 4, 512, 576) bf16
-   and (2, 4, 512, 320) f32 with key padding, their source beside the
-   times, SDPA's memory-efficient forward and backward beside them (or its
-   refusal, printed). Then the three
+   backend (the only one that takes such heads); the warp-a-row kernels
+   checked and timed on their own route: dk / dv at (2, 4, 512, 576) bf16
+   and all three at (2, 4, 512, 320) f32 with key padding, their source
+   beside the times, SDPA's memory-efficient forward and backward beside
+   them (or its refusal, printed). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -383,9 +390,10 @@ KERNEL_INFO = {
                             "mxnet_tpu/gluon/trainer.py:833 (_fused_update, "
                             "XLA)"),
     # the flash kernels at head dims above 256 (the tiled ones take up to
-    # 256): the same three Pallas kernels as rows 1, 3 and 4
-    # 16-bit heads up to 512 take the tiled wide kernels, f32 and wider
-    # heads those of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
+    # 256): the same three Pallas kernels as rows 1, 3 and 4. 16-bit heads
+    # take the tiled wide forward and dq at every D (streaming the head dim
+    # above 512) and the tiled dk / dv up to 512; f32 heads and 16-bit dk /
+    # dv above 512 those of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
     "flash_attention_wide_fwd": (
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
@@ -467,12 +475,23 @@ WIDE_KERNELS = tuple(KERNEL_INFO)[12:15]
 # layout, and every trained tensor is bf16 with an f32 master (one layout):
 # BERT-base's 154 tensors in 39 groups, ResNet-50 v1's 193 in 49
 UPDATE_STEP = {"bert": 1, "resnet": 1}
-# the wide kernels' names (re.search), for device time by torch.profiler:
-# the tiled ones (wwg::wide_fwd_wg, wwg::wide_dq_wg, wdkv::wide_dkv_wg) or
-# the warp-a-row ones (wide::wide_fwd, ...)
-WIDE_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd(_wg)?<",
-               "flash_attention_wide_dq": r"wide_dq(_wg)?<",
-               "flash_attention_wide_dkv": r"wide_dkv(_wg)?<"}
+# the wide kernels' names (re.search), for device time by torch.profiler,
+# by the source of each (attn._source): the tiled ones (wwg::wide_fwd_wg,
+# wwg::wide_dq_wg, wdkv::wide_dkv_wg), the streamed ones above 512
+# (wwg::wide_fwd_st, wwg::wide_dq_st) or the warp-a-row ones
+# (wide::wide_fwd, ...)
+WIDE_SOURCE_KERNEL = {
+    "flash_attention_wide_wg": {
+        "flash_attention_wide_fwd": r"wide_fwd_(wg|st)<",
+        "flash_attention_wide_dq": r"wide_dq_(wg|st)<"},
+    "flash_attention_wide_dkv": {
+        "flash_attention_wide_dkv": r"wide_dkv_wg<"},
+    "flash_attention_wide": {
+        "flash_attention_wide_fwd": r"wide::wide_fwd<",
+        "flash_attention_wide_dq": r"wide::wide_dq<",
+        "flash_attention_wide_dkv": r"wide::wide_dkv<"}}
+# the warp-a-row forward and dq, which no 16-bit head dim may run
+WIDE_ROWS_FWD_DQ = r"wide::wide_(fwd|dq)<"
 # the tiled ones alone, which the bf16 wide path must show
 WIDE_WG_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd_wg<",
                   "flash_attention_wide_dq": r"wide_dq_wg<",
@@ -2240,9 +2259,11 @@ def wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal, bias_kind, rate,
 
 
 # (dtype, head dim, Tq, Tk, causal, bias, dropout): forward and backward
-# against the plain versions. 16-bit heads up to 512 take the tiled wide
-# kernels (D = 300: rows TMA cannot address, copied and counted), f32 and
-# D = 576 the warp-a-row ones (attn.head_dim_route)
+# against the plain versions. 16-bit heads take the tiled wide kernels
+# (D = 300 and 530: rows TMA cannot address, copied and counted), the
+# forward and dq streaming the head dim above 512 (530, 576, 640, 1024;
+# 1280 with q streamed too) beside the warp-a-row dk / dv; f32 the
+# warp-a-row ones (attn.head_dim_route)
 WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 288, 200, 200, True, None, 0.1),
               ("bfloat16", 320, 100, 260, False, "full", 0.1),
@@ -2252,6 +2273,10 @@ WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 384, 96, 200, False, None, 0.1),
               ("bfloat16", 448, 150, 64, True, "full", 0.1),
               ("bfloat16", 576, 64, 96, True, "keypad", 0.0),
+              ("bfloat16", 640, 100, 160, False, "full", 0.1),
+              ("float16", 1024, 130, 200, True, "keypad", 0.0),
+              ("bfloat16", 530, 77, 131, True, None, 0.1),
+              ("bfloat16", 1280, 96, 160, False, "keypad", 0.1),
               ("float32", 288, 128, 77, False, "full", 0.1),
               ("float32", 320, 64, 64, True, None, 0.0)]
 # the timed shapes (B, H, T, D, bias, causal), bf16 from one fused QKV
@@ -2260,16 +2285,16 @@ WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
 WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
               (8, 8, 1024, 320, "keypad", False),
               (8, 8, 1024, 320, None, True),
-              (4, 8, 1024, 512, "keypad", False))
+              (4, 8, 1024, 512, "keypad", False),
+              (2, 4, 512, 576, "keypad", False),
+              (4, 8, 1024, 1024, "keypad", False))
 WIDE_LINE = 1
-# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep f32 and head dims
-# above 512, timed on their own route at one shape of each (B, H, T, D,
-# bias, causal, dtype) (the kernels line carries the tiled ones)
+# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep f32 and 16-bit dk /
+# dv above 512, timed on their own route at one shape of each (B, H, T, D,
+# bias, causal, dtype): each kernel whose source the route makes the
+# warp-a-row file (the kernels line carries the tiled ones)
 WIDE_ROWS_TIMED = ((2, 4, 512, 576, "keypad", False, "bfloat16"),
                    (2, 4, 512, 320, "keypad", False, "float32"))
-WIDE_ROWS_KERNEL = {"flash_attention_wide_fwd": r"wide::wide_fwd<",
-                    "flash_attention_wide_dq": r"wide::wide_dq<",
-                    "flash_attention_wide_dkv": r"wide::wide_dkv<"}
 
 
 def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
@@ -2318,13 +2343,26 @@ def wide_sdpa(torch, fn):
         return fn()
 
 
+def wide_sdpa_forward_ms(torch, q, k, v, bias, scale, causal, label):
+    """Device ms of SDPA's memory-efficient forward at a wide shape, or None
+    with its refusal printed (a yardstick only)."""
+    import torch.nn.functional as F
+    try:
+        return wide_sdpa(torch, lambda: device_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, is_causal=causal, scale=scale)))
+    except Exception as e:  # noqa: BLE001 - a yardstick only: reported
+        print(f"phase 3:   SDPA memory-efficient forward refuses {label}: "
+              f"{e!r:.160}", flush=True)
+        return None
+
+
 def wide_timed(torch, dev, gen, attn, errs):
     """Each ``WIDE_TIMED`` shape: the wide kernels against the plain
     versions (out within TOL_HALF, lse TOL_LSE, dq, dk, dv within
     REL_BWD), then each kernel's device time beside its bound, its plain
     version and SDPA's memory-efficient backend (forward; its whole
     backward for dq and dk / dv). Returns the rows of WIDE_LINE's shape."""
-    import torch.nn.functional as F
     line = {}
     for i, (B, Hh, T, d, bias_kind, causal) in enumerate(WIDE_TIMED):
         c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
@@ -2355,18 +2393,20 @@ def wide_timed(torch, dev, gen, attn, errs):
             errs[n] = max(errs[n], e)
         bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "bfloat16", 2,
                                      causal, bias)
-        pattern = WIDE_KERNEL["flash_attention_wide_fwd"]
+        route = attn.head_dim_route(d, torch.bfloat16)
+        # each kernel timed by the records of its route's own kernel
+        pats = {n: WIDE_SOURCE_KERNEL[attn._source(n, route)[0]][n]
+                for n in WIDE_KERNELS}
         rows = {"flash_attention_wide_fwd": dict(
             ms=launch_ms(lambda: attn._flash_forward(q, k, v, bias, scale,
                                                      causal), 10,
-                         lambda n: re.search(pattern, n)),
+                         lambda n: re.search(
+                             pats["flash_attention_wide_fwd"], n)),
             plain_ms=device_ms(lambda: attn.flash_attention_reference(
                 q, k, v, bias, scale, causal), iters=3),
             bound_ms=bnd, bound_by=by,
-            library_ms=wide_sdpa(torch, lambda: device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias, is_causal=causal,
-                    scale=scale))))}
+            library_ms=wide_sdpa_forward_ms(torch, q, k, v, bias, scale,
+                                            causal, label))}
         plain_bwd = device_ms(
             lambda: attn.flash_attention_backward_reference(
                 q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
@@ -2378,16 +2418,21 @@ def wide_timed(torch, dev, gen, attn, errs):
             call, _ = kernel_only_call(torch, attn, c, name)
             bnd, by = backward_bound_ms(kind, B, Hh, T, T, d, c["valid"],
                                         "bfloat16", 2, causal, bias, False)
-            pattern = WIDE_KERNEL[name]
+            pattern = pats[name]
             rows[name] = dict(
                 ms=launch_ms(call, 5, lambda n: re.search(pattern, n)),
                 plain_ms=plain_bwd, bound_ms=bnd, bound_by=by,
                 library_ms=lib_bwd)
         for name in WIDE_KERNELS:
             r = rows[name]
+            if r["ms"] is None:
+                fail(f"{name} at {label}: the profiler kept no record of "
+                     f"{pats[name]} ({route})")
             r["max_abs_err"] = abs_err[name]
             whole = " (the whole backward)" if name != WIDE_KERNELS[0] else ""
-            print(f"phase 3: {name} at {label}: {fmt_ms(r['ms'])} device "
+            print(f"phase 3: {name} at {label} ({route}, "
+                  f"{attn._source(name, route)[0]}.cu): {fmt_ms(r['ms'])} "
+                  f"device "
                   f"(bound {r['bound_ms']:.5f} ms by {r['bound_by']}; plain "
                   f"{fmt_ms(r['plain_ms'])}{whole}; SDPA memory-efficient "
                   f"{fmt_ms(r['library_ms'])}{whole}); error "
@@ -2400,36 +2445,47 @@ def wide_timed(torch, dev, gen, attn, errs):
 
 
 def wide_rows_timed(torch, dev, gen, attn):
-    """The three warp-a-row kernels on their own route, at each
-    ``WIDE_ROWS_TIMED`` shape: checked against the plain versions (out
-    within TOL_HALF or TOL_F32, dq, dk and dv within REL_BWD), then each
-    kernel's device time, by the profiler's records of that kernel's own
-    name, beside its bound, the plain version and SDPA's memory-efficient
-    forward or whole backward (or SDPA's refusal, printed), with the
-    route's source."""
-    import torch.nn.functional as F
+    """The warp-a-row kernels on their own route, at each
+    ``WIDE_ROWS_TIMED`` shape: each wide kernel whose source the shape's
+    route makes ``WIDE_ROWS_SOURCE`` (all three in f32, dk / dv alone in 16
+    bits above 512; the route checked kernel by kernel), checked against
+    the plain versions (out within TOL_HALF or TOL_F32, dq, dk and dv
+    within REL_BWD), then its device time, by the profiler's records of
+    that kernel's own name, beside its bound, the plain version and SDPA's
+    memory-efficient forward or whole backward (or SDPA's refusal,
+    printed)."""
+    rows_lib = "flash_attention_wide"
     for B, Hh, T, d, bias_kind, causal, dtn in WIDE_ROWS_TIMED:
-        if attn.head_dim_route(d, getattr(torch, dtn)) != "wide_rows":
-            fail(f"WIDE_ROWS_TIMED: D={d} {dtn} is not on the warp-a-row "
-                 f"route")
+        route = attn.head_dim_route(d, getattr(torch, dtn))
+        names = [n for n in WIDE_KERNELS
+                 if attn._source(n, route)[0] == rows_lib]
+        want = list(WIDE_KERNELS) if dtn == "float32" \
+            else ["flash_attention_wide_dkv"]
+        if names != want:
+            fail(f"WIDE_ROWS_TIMED: D={d} {dtn} ({route}) takes the "
+                 f"warp-a-row {names}, expected {want}")
         c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
                             causal, dtn)
         label = wide_label(B, Hh, T, d, bias_kind, causal, dtn)
         q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
-        ref, _ = attn.flash_attention_reference(
-            q.float(), k.float(), v.float(), bias, scale, causal)
-        errs = {"flash_attention_wide_fwd": check_close(
-            "warp-a-row wide forward", label, c["out"], ref,
-            TOL_F32 if dtn == "float32" else TOL_HALF)}
-        del ref
+        errs, calls = {}, {}
+        if "flash_attention_wide_fwd" in names:
+            ref, _ = attn.flash_attention_reference(
+                q.float(), k.float(), v.float(), bias, scale, causal)
+            errs["flash_attention_wide_fwd"] = check_close(
+                "warp-a-row wide forward", label, c["out"], ref,
+                TOL_F32 if dtn == "float32" else TOL_HALF)
+            calls["flash_attention_wide_fwd"] = lambda: attn._flash_forward(
+                q, k, v, bias, scale, causal)
+            del ref
         want = attn.flash_attention_backward_reference(
             q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
             causal, False)
-        calls = {"flash_attention_wide_fwd": lambda: attn._flash_forward(
-            q, k, v, bias, scale, causal)}
         for name, parts in (("flash_attention_wide_dq", ((0, "dq"),)),
                             ("flash_attention_wide_dkv",
                              ((1, "dk"), (2, "dv")))):
+            if name not in names:
+                continue
             calls[name], outs = kernel_only_call(torch, attn, c, name)
             calls[name]()
             for i, nm in parts:
@@ -2446,17 +2502,12 @@ def wide_rows_timed(torch, dev, gen, attn):
             lambda: attn.flash_attention_backward_reference(
                 q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
                 causal, False), iters=3)
-        try:
-            lib_fwd = wide_sdpa(torch, lambda: device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias, is_causal=causal, scale=scale)))
-        except Exception as e:  # noqa: BLE001 - a yardstick only: reported
-            print(f"phase 3:   SDPA memory-efficient forward refuses "
-                  f"{label}: {e!r:.160}", flush=True)
-            lib_fwd = None
+        lib_fwd = wide_sdpa_forward_ms(torch, q, k, v, bias, scale, causal,
+                                       label)
         lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
             torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
-        for name, pattern in WIDE_ROWS_KERNEL.items():
+        for name in names:
+            pattern = WIDE_SOURCE_KERNEL[rows_lib][name]
             ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
             if ms is None:
                 fail(f"warp-a-row {name} at {label}: the profiler kept no "
@@ -2476,7 +2527,7 @@ def wide_rows_timed(torch, dev, gen, attn):
                   f"(bound {bnd:.5f} ms by {by}; plain {fmt_ms(plain)}"
                   f"{whole}; SDPA memory-efficient {fmt_ms(lib)}{whole}); "
                   f"error {errs[name]:.3e}", flush=True)
-        del c, calls, outs
+        del c, calls
         torch.cuda.empty_cache()
 
 
@@ -2555,6 +2606,32 @@ def wide_path(torch, dev, gen, attn):
     return launches
 
 
+def stream_route_audit(torch, attn, c, label):
+    """At a 16-bit head dim above 512: one forward and one backward of case
+    ``c`` under torch.profiler, whose records must show the streamed tiled
+    forward and dq and no warp-a-row forward or dq (a session that kept no
+    record of a streamed kernel is run once more)."""
+    from torch.profiler import ProfilerActivity, profile
+    for session in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer()
+            attn._flash_forward(c["q"], c["k"], c["v"], c["bias"],
+                                c["scale"], c["causal"], c["seed"],
+                                c["rate"])
+            run_backward(attn, c, 1024)
+            torch.cuda.synchronize()
+        names = sorted(k for k in kernel_counts(prof) if "wide" in k)
+        if any(re.search(WIDE_ROWS_FWD_DQ, k) for k in names):
+            fail(f"wide {label}: a warp-a-row forward or dq kernel ran at a "
+                 f"16-bit head dim above 512: {names}")
+        if all(any(re.search(p, k) for k in names)
+               for p in (r"wide_fwd_st<", r"wide_dq_st<")):
+            return
+    fail(f"wide {label}: the profiler saw no streamed forward or dq: "
+         f"{names}")
+
+
 def wide_checks(torch, dev, gen, attn):
     """Phase 3: the wide kernels (head dims above 256) against the plain
     versions in ``WIDE_CASES``, their dropout masks read back bit for bit
@@ -2572,7 +2649,8 @@ def wide_checks(torch, dev, gen, attn):
                       bias_kind, rate)
         route = attn.head_dim_route(d, dt)
         # a 16-bit q, k, v whose rows TMA cannot address are copied
-        want_copies = 3 * (route == "wide_wg" and d % 8 != 0)
+        want_copies = 3 * (d % 8 != 0 and attn._uses_tma(
+            "flash_attention_wide_fwd", route, dt))
         if attn.padded_copies - copies != want_copies:
             fail(f"wide forward D={d} {dtn}: "
                  f"{attn.padded_copies - copies} copies, expected "
@@ -2618,13 +2696,16 @@ def wide_checks(torch, dev, gen, attn):
             e = rel(runs[0][3], want_grads[3].sum(dim=0, keepdim=True))
             if not e <= REL_BWD[dtn]:
                 fail(f"wide backward {label}: dbias rel {e:.3e}")
+        if route == "wide_stream":
+            stream_route_audit(torch, attn, c, label)
         print(f"phase 3: wide {label}: out, lse within tolerance, dq, dk, "
               f"dv{', dbias' if c['learned'] else ''} within rel "
               f"{REL_BWD[dtn]}, two runs of the forward and of the "
               f"backward equal to the bit, {want_copies} copies",
               flush=True)
     for dt, d in ((torch.bfloat16, 288), (torch.float16, 384),
-                  (torch.bfloat16, 512), (torch.float32, 288)):
+                  (torch.bfloat16, 512), (torch.bfloat16, 576),
+                  (torch.float32, 288)):
         got, want = wide_mask_probe(torch, dev, attn, dt, d)
         from_dkv, from_dq, want_pair = pair_dropout_masks(torch, attn, dev,
                                                           dt, d)
@@ -2645,6 +2726,99 @@ def wide_checks(torch, dev, gen, attn):
         rows[name]["max_abs_err"] = errs[name]
     torch.cuda.empty_cache()
     return rows, launches
+
+
+# the f32 flash kernels at head dims up to 256 (FMA kernels; f32 is MXNet's
+# default dtype), timed at BERT-base's attention (key padding) and GPT-2
+# training's (causal) in f32: (B, H, T, D, bias, causal)
+F32_TIMED = ((8, 12, 512, 64, "keypad", False), (8, 12, 1024, 64, None, True))
+F32_KERNEL = {"flash_attention_fwd": r"flash_fwd_f32",
+              "flash_attention_bwd_fused": r"bwd_dkv_f32<\d+, true>",
+              "flash_attention_bwd_dq": r"bwd_dq_f32<",
+              "flash_attention_bwd_dkv": r"bwd_dkv_f32<\d+, false>"}
+TF32_FLOPS = 495e12   # H100 SXM data sheet, dense
+
+
+def f32_timed(torch, dev, gen, attn):
+    """Each ``F32_TIMED`` shape in f32: the forward, the fused backward
+    pass (the route at these shapes: Tk <= block_k, D <= 128) and the
+    dq/dkv pair, each against its plain version (out TOL_F32, dq, dk, dv
+    REL_BWD), then each kernel's device time a launch beside its bound
+    (operations at the f32 FMA peak), the time its products would take on
+    the tensor cores as 3xTF32 (three TF32 products an f32 one, as SDPA's
+    f32 kernels do), the plain version's and SDPA's f32 forward or whole
+    backward (default backends, TF32 off)."""
+    import torch.nn.functional as F
+    for B, Hh, T, d, bias_kind, causal in F32_TIMED:
+        c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                            causal, "float32")
+        label = (f"({B}, {Hh}, {T}, {d}) f32 "
+                 f"{'causal' if causal else bias_kind}")
+        q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
+        if attn.backward_route(d, T, attn.DEFAULT_BLOCK_K) != "fused":
+            fail(f"f32 rows {label}: the backward is not the fused pass")
+        ref, _ = attn.flash_attention_reference(q, k, v, bias, scale, causal)
+        errs = {"flash_attention_fwd": check_close(
+            "f32 forward", label, c["out"], ref, TOL_F32)}
+        del ref
+        want = attn.flash_attention_backward_reference(
+            q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+            causal, False)
+        calls = {"flash_attention_fwd": lambda: attn._flash_forward(
+            q, k, v, bias, scale, causal)}
+        for name, parts in (("flash_attention_bwd_fused",
+                             ((0, "dq"), (1, "dk"), (2, "dv"))),
+                            ("flash_attention_bwd_dq", ((0, "dq"),)),
+                            ("flash_attention_bwd_dkv",
+                             ((1, "dk"), (2, "dv")))):
+            calls[name], outs = kernel_only_call(torch, attn, c, name)
+            calls[name]()
+            for i, nm in parts:
+                got = outs[i]
+                if name == "flash_attention_bwd_fused" and nm == "dq":
+                    got = attn.dq_from_accumulator(got, T, d, torch.float32)
+                e = rel(got, want[i])
+                if not e <= REL_BWD["float32"]:
+                    fail(f"f32 {name} {label}: {nm} rel {e:.3e} beyond "
+                         f"{REL_BWD['float32']}")
+                errs[name] = max(errs.get(name, 0.0), e)
+        del want
+        plain = {"fwd": device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias, scale, causal), iters=3),
+            "bwd": device_ms(lambda: attn.flash_attention_backward_reference(
+                q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+                causal, False), iters=3)}
+        lib = {"fwd": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, is_causal=causal, scale=scale)),
+            "bwd": library_backward_ms(torch, q, k, v, bias, c["do"], scale,
+                                       causal, 0.0, False)}
+        pairs = score_pairs(B, T, c["valid"], causal)
+        for name, pattern in F32_KERNEL.items():
+            if name == "flash_attention_fwd":
+                bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"],
+                                             "float32", 4, causal, bias)
+                flops, side = 4.0 * Hh * d * pairs, "fwd"
+            else:
+                kind = name.rsplit("_", 1)[1]
+                bnd, by = backward_bound_ms(kind, B, Hh, T, T, d, c["valid"],
+                                            "float32", 4, causal, bias,
+                                            False)
+                flops = 2.0 * {"fused": 5, "dq": 3, "dkv": 4}[kind] * Hh \
+                    * d * pairs
+                side = "bwd"
+            ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
+            if ms is None:
+                fail(f"f32 {name} at {label}: the profiler kept no record of "
+                     f"{pattern}")
+            whole = " (the whole backward)" if side == "bwd" else ""
+            print(f"phase 3: f32 {name} at {label}: {fmt_ms(ms)} device "
+                  f"(bound {bnd:.5f} ms by {by} at the f32 FMA peak; 3xTF32 "
+                  f"on the tensor cores {3 * flops / TF32_FLOPS * 1e3:.5f} "
+                  f"ms; plain {fmt_ms(plain[side])}{whole}; SDPA f32 "
+                  f"{fmt_ms(lib[side])}{whole}); error {errs[name]:.3e}",
+                  flush=True)
+        del c, calls, outs
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------- phase 3: the multi-tensor update
@@ -2902,6 +3076,7 @@ def phase_kernels(torch, dev):
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = {"flash_attention_fwd": forward_checks(torch, dev, gen, attn)}
     rows.update(backward_checks(torch, dev, gen, attn))
+    f32_timed(torch, dev, gen, attn)
     wide_rows, wide_launches = wide_checks(torch, dev, gen, attn)
     rows.update(wide_rows)
     rows.update(conv_checks(torch, dev))

@@ -6,7 +6,13 @@
 // take any head dim. flash_attention_fwd.cu and flash_attention_bwd.cu tile
 // the head dim into wgmma panels and registers sized up to 256; these
 // kernels are the simple route for wider heads, off every main path of the
-// port (no zoo model has such heads), written to be right for any D:
+// port (no zoo model has such heads), written to be right for any D. The
+// routes of ops/cuda/attention.py:head_dim_route that take them: f32 at
+// every D > 256 ("wide_rows": all three), and wide_dkv alone for 16-bit
+// D > 512 ("wide_stream"); 16-bit heads take the tiled wgmma forward and
+// dq of flash_attention_wide_wg.cu at every D > 256, and the tiled wide_dkv
+// of flash_attention_wide_dkv.cu up to 512. So wide_fwd and wide_dq serve
+// f32 alone:
 //
 //   wide_fwd:  out = softmax(q k^T * scale + bias) v and lse = m + log l,
 //              the denominator over the undropped probabilities, the kept

@@ -1,12 +1,14 @@
-// Flash attention at 16-bit head dims 256 < D <= 512 for Hopper (sm_90a),
-// tiled on wgmma and TMA, bound through plain C entries: the forward and
-// the backward's dq kernel.
+// Flash attention at 16-bit head dims above 256 for Hopper (sm_90a), tiled
+// on wgmma and TMA, bound through plain C entries: the forward and the
+// backward's dq kernel, on the "wide_wg" route (256 < D <= 512) and the
+// "wide_stream" route (D > 512) of ops/cuda/attention.py:head_dim_route.
 //
-// Replaces, for bf16 / fp16 at 256 < D <= 512: mxnet_tpu/ops/pallas/
+// Replaces, for bf16 / fp16 at every D > 256: mxnet_tpu/ops/pallas/
 // attention.py, _flash_fwd_kernel (launched at :317) and
 // _flash_bwd_dq_kernel (launched at :740), which take any head dim. It
 // computes what flash_attention_wide.cu's wide_fwd and wide_dq compute (a
-// warp a row on the FMA pipe; they keep f32 and D > 512, and wide_dkv):
+// warp a row on the FMA pipe; they keep f32, and its wide_dkv 16-bit
+// D > 512 too; flash_attention_wide_dkv.cu's wide_dkv the rest):
 //   out = softmax(q k^T * scale + bias) v and lse = m + log(max(l, 1e-30)),
 //     the denominator over the undropped probabilities, the kept ones
 //     scaled by 1 / (1 - rate);
@@ -75,6 +77,15 @@
 // forward keeps q (64 KB) and two stages of K and V (128 KB) beside the
 // exchange (32 KB), and dq q and dout (128 KB) beside one stage; the number
 // of stages is the most that fits (Smem below).
+//
+// Above D = 512 q and dout no longer fit beside a ring: wide_fwd_st and
+// wide_dq_st stream the head dim (the section "head dims above 512"). A
+// block owns 64 rows and one slice of 3 or 4 output panels; each key tile
+// streams 64-column panels of K (and of q, V, dout) through the ring to
+// compute s (and dp) over the full head dim, then the slice's V (K) panels
+// for O (dq). Shared memory does not grow with D; s and dp are recomputed
+// once a slice, ceil(P / 4) + 1 products of P panels for the forward's 2.
+// The forward keeps q resident while its P panels fit beside four slots.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,6 +113,7 @@ constexpr int WG_ROWS = 64;      // query rows of a consumer warpgroup
 constexpr int KEYS = 32;         // keys a K / V tile
 constexpr int ROW_BYTES = 128;   // one swizzled row: 64 16-bit values
 constexpr int TILE_PANEL = KEYS * ROW_BYTES;  // one 64-column panel of a tile
+constexpr int Q_PANEL_BYTES = WG_ROWS * ROW_BYTES;  // ... of 64 rows
 constexpr int NFRAG = KEYS / 2;  // f32 a thread of a 64 x KEYS accumulator
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 constexpr int BAR_X = 3;         // the named barrier of the exchange
@@ -395,14 +407,16 @@ __device__ __forceinline__ float2 softmax_tile(
 // The output panels [O0, O1) of a warpgroup's 64 rows (acc, 32 f32 a
 // panel, times mul[0] for row ra and mul[1] for rb) packed to 16 bits into
 // panels [O0, O1) of the q region at `region` (panels `panel` bytes apart,
-// the warpgroup's rows first), then stored by TMA by one thread. The
-// caller has made sure nobody reads those panels any more.
+// the warpgroup's rows first), then stored by TMA by one thread as the
+// output's panels [O0 + shift, O1 + shift). The caller has made sure
+// nobody reads those panels any more.
 template <typename T, int O0, int O1>
 __device__ __forceinline__ void store_rows(const float (*acc)[32],
                                            const float* mul,
                                            unsigned char* region, int panel,
                                            const CUtensorMap* map,
-                                           const Rows& w, int Tq, int wg) {
+                                           const Rows& w, int Tq, int wg,
+                                           int shift = 0) {
   const int row = w.warp * 16 + w.g;
 #pragma unroll
   for (int p = O0; p < O1; ++p) {
@@ -422,7 +436,8 @@ __device__ __forceinline__ void store_rows(const float (*acc)[32],
   if ((threadIdx.x & 127) == 0 && w.r0 < Tq) {
 #pragma unroll
     for (int p = O0; p < O1; ++p)
-      hop::tma_store_4d(map, region + p * panel, p * 64, w.r0, w.h, w.b);
+      hop::tma_store_4d(map, region + p * panel, (p + shift) * 64, w.r0,
+                        w.h, w.b);
     hop::tma_store_commit_and_wait();
   }
 }
@@ -606,6 +621,82 @@ __global__ void __launch_bounds__(3 * 128, 1)
 // What a dq warpgroup computes of each tile's scores: design (a) splits s
 // and dp between its two warpgroups, (b) computes both.
 enum Role { ROLE_S = 1, ROLE_DP = 2, ROLE_BOTH = 3 };
+
+// One tile of the streamed dq kernel, dq_consumer's arithmetic as a
+// function: p = 2^(s scale log2(e) + key term + bias - lse) into sc (0
+// above the diagonal and past Tk; each variant one straight run), ds0 = p
+// (dp_d - delta) into dp with the dropout mask drawn as the forward draws
+// it (the rows are queries), and ds0 into the rows of dsp (the learned
+// bias's gradient, f32) when dsp is not null. kt: the tile's staged key
+// terms. (dq_consumer keeps the code inline: called there, the same code
+// made its DP = 512 kernel a third slower on an H100, 0.85 against 0.64 ms
+// at (4, 8, 1024, 512).)
+__device__ __forceinline__ void ds_tile(float* sc, float* dp, const Args& a,
+                                        const Rows& w, int k0,
+                                        const float* kt, const float* lse2,
+                                        const float* dl, uint2 key,
+                                        float scale2, bool full_bias,
+                                        const float* bp, float* dsp) {
+  if (!full_bias) {
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      const float2 k2 =
+          *reinterpret_cast<const float2*>(kt + 8 * j + 2 * w.t4);
+      sc[4 * j] = fmaf(sc[4 * j], scale2, k2.x) - lse2[0];
+      sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, k2.y) - lse2[0];
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, k2.x) - lse2[1];
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, k2.y) - lse2[1];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) {
+      const int r = (i & 2) ? w.rb : w.ra;
+      const int cl = 8 * (i >> 2) + 2 * w.t4 + (i & 1), col = k0 + cl;
+      const float bv = r < a.Tq && col < a.Tk
+                           ? bp[r * a.b_sq + col * a.b_sk] * LOG2E : 0.f;
+      sc[i] = fmaf(sc[i], scale2, kt[cl] + bv) - lse2[(i >> 1) & 1];
+    }
+  }
+  if (a.causal && k0 + KEYS - 1 > w.r0) {  // the tile crosses the diagonal
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) {
+      const int r = (i & 2) ? w.rb : w.ra;
+      if (k0 + 8 * (i >> 2) + 2 * w.t4 + (i & 1) > r) sc[i] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NFRAG; ++i) sc[i] = hop::ex2(sc[i]);
+
+  if (a.dropout) {
+    const uint32_t th = a.drop_threshold;
+    const float dsc = a.drop_scale;
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      uint32_t wd[4];
+      mxt::dropout_row_pair(wd, key, w.b, w.h, w.ra, w.rb,
+                            k0 + 8 * j + 2 * w.t4, w.odd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float dpd = wd[e] >= th ? dp[i] * dsc : 0.f;
+        dp[i] = sc[i] * (dpd - dl[e >> 1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i)
+      dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+  }
+  if (dsp != nullptr) {  // the learned bias's gradient, f32
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) {
+      const int r = (i & 2) ? w.rb : w.ra;
+      const int col = k0 + 8 * (i >> 2) + 2 * w.t4 + (i & 1);
+      if (r < a.Tq && col < a.Tk)
+        dsp[r * static_cast<long long>(a.Tk) + col] = dp[i];
+    }
+  }
+}
 
 // One consumer warpgroup of the dq kernel: s and / or dp (ROLE), dq over
 // panels [O0, O1); writes ds when write_ds and the caller asked for it.
@@ -863,6 +954,506 @@ __global__ void __launch_bounds__((DqSmem<DP, MODE>::NC + 1) * 128, 1)
   }
 }
 
+// ------------------------------------ head dims above 512: the streamed walk
+// q and dout of a block's 64 rows take 128 D bytes each (64 KB at D = 512,
+// 128 KB at 1024): the head dim no longer fits shared memory beside a ring.
+// So a block owns 64 query rows of one (batch, head) and one slice of 3 or
+// 4 of the P output panels (the P panels split evenly into ceil(P / 4)
+// slices, st_slices), with one consumer warpgroup and one producer warp
+// (256 threads: up to 255 registers a thread, where 384 get 168). Each
+// 32-key tile is a run of ring steps: ceil(P / G) score steps, each
+// holding G 64-column panels of K (and of q, unless the forward keeps q
+// resident) or, for dq, of K, V, q and dout, which the consumer adds into
+// s (and dp) by wgmma, then one value step holding the slice's panels of V
+// (dq: K), for O += P V (dq += ds K). A slot is one size whatever D is;
+// only the number of steps a tile grows with it. Every wgmma group is
+// straight-line code of a fixed size: a group in a loop of a run-time trip
+// count, or under a run-time condition, is serialized by ptxas (C7520), so
+// the panels of the last score step past P read a zeroed region instead.
+// Few large steps: a step's handshake between the producer and the
+// consumer costs more than its products (on an H100, one panel a step ran
+// the forward at (4, 8, 1024, 1024) in 2.2 ms, 1.86 with its loads cut out
+// and 2.04 with its products cut out; 4 panels a step in 1.15). Every
+// slice computes s (and dp) over all P panels in the same order, so every
+// slice holds the same bits of the row max, the denominator and p: slice 0
+// alone writes lse (ds). The forward keeps q resident where it fits
+// (fwd_q_resident): streaming q with K took 11-17 % longer on an H100.
+//
+// head-dim panels a score step: the forward's, 4 (a 16 KB slot, or 48 KB
+// with q), and dq's, 3 (72 KB: 3 slots), 1-11 % faster on an H100 than 2
+// (48 KB: 4 slots) and 20-28 % faster than 4 (2 slots)
+constexpr int ST_G_FWD = 4;
+constexpr int ST_G_DQ = 3;
+constexpr int ST_MAX_SLOTS = 8;
+constexpr int ST_THREADS = 256;  // a consumer warpgroup, a producer's
+// score steps' wgmma groups in flight after a commit (2 ran the forward at
+// (4, 8, 1024, 1024) in 1.36 against 1.15 ms)
+constexpr int ST_PIPE = 1;
+
+// The slices of P panels, each 3 or 4 panels for P > 8
+__host__ __device__ inline int st_slices(int P) { return (P + 3) / 4; }
+
+// The streamed kernels' shared memory, the same on the host and the
+// device, in bytes from a 1024-byte aligned base: a zeroed panel of 64
+// rows (the operands of the score steps' panels past P), q (a resident
+// forward's P panels), the ring's SLOTS slots, a staged bias row (dq: key
+// terms) a slot, indexed by tile, then the mbarriers: full and empty a
+// slot, and the resident q's.
+struct StreamSmem {
+  int P, G, NS, SLOT, SLOTS, Q, RING, BIAS, BAR, ALLOC;
+  __host__ __device__ StreamSmem(int D, bool dq, bool q_res) {
+    P = (D + 63) / 64;
+    G = dq ? ST_G_DQ : ST_G_FWD;
+    NS = (P + G - 1) / G;
+    Q = Q_PANEL_BYTES;  // after the zeroed panel at 0
+    RING = Q + (q_res ? P * Q_PANEL_BYTES : 0);
+    SLOT = dq ? G * 2 * (TILE_PANEL + Q_PANEL_BYTES)
+              : G * (TILE_PANEL + (q_res ? 0 : Q_PANEL_BYTES));
+    SLOTS = (SMEM_LIMIT - 1024 - 8 - RING) / (SLOT + KEYS * 4 + 2 * 8);
+    if (SLOTS > ST_MAX_SLOTS) SLOTS = ST_MAX_SLOTS;
+    BIAS = RING + SLOTS * SLOT;
+    BAR = BIAS + SLOTS * KEYS * 4;
+    ALLOC = BAR + (2 * SLOTS + 1) * 8 + 1024;
+  }
+};
+
+// Whether the forward keeps its q panels resident (loaded once) rather than
+// streaming them with every tile's K panels: where they fit beside a ring
+// of 4 slots (D <= 1152), twice the steps the consumer holds at once.
+__host__ __device__ inline bool fwd_q_resident(int P) {
+  return StreamSmem(P * 64, false, true).SLOTS >= 2 * (ST_PIPE + 1);
+}
+
+__device__ __forceinline__ void st_advance(int& st, uint32_t& ph,
+                                           int slots) {
+  if (++st == slots) {
+    st = 0;
+    ph ^= 1;
+  }
+}
+
+// The zeroed panel, written once by the consumer warpgroup before its
+// first product
+__device__ __forceinline__ void st_zero(unsigned char* sm) {
+  float4* z = reinterpret_cast<float4*>(sm);
+  for (int i = threadIdx.x & 127; i < Q_PANEL_BYTES / 16; i += 128)
+    z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  hop::fence_async_smem();
+  hop::named_sync(1, 128);
+}
+
+// acc (NFRAG f32) = (first) or += A (64 rows, one K-major panel at a) x
+// B^T (a KEYS-row tile's K-major panel at b). Not committed.
+template <typename T>
+__device__ __forceinline__ void panel_scores(float* acc, uint32_t a,
+                                             uint32_t b, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_ss<T, KEYS>(acc, hop::desc_kmajor_sw128(a + kk * 32),
+                           hop::desc_kmajor_sw128(b + kk * 32),
+                           first && kk == 0 ? 0 : 1);
+}
+
+// The NS score steps of a tile from the ring slot st on: issue(j, slot,
+// first) adds step j's products into the accumulators (first: the tile's
+// first step, which overwrites them). After each commit up to ST_PIPE
+// groups stay in flight, so the tensor cores have the next step queued
+// while one finishes; a step's slot is released once its group is done.
+// The caller fences the accumulators.
+template <typename Issue>
+__device__ __forceinline__ void st_scores(const Issue& issue, uint32_t ring,
+                                          const StreamSmem& L,
+                                          uint64_t* full, uint64_t* empty,
+                                          int& st, uint32_t& ph) {
+  int rel = st;  // the oldest slot not yet released
+#pragma unroll
+  for (int j = 0; j < ST_PIPE; ++j) {  // NS > ST_PIPE
+    hop::mbar_wait_or_trap(full + st, ph);
+    hop::wgmma_fence();
+    issue(j, ring + st * L.SLOT, j == 0);
+    hop::wgmma_commit();
+    st_advance(st, ph, L.SLOTS);
+  }
+  for (int j = ST_PIPE; j < L.NS; ++j) {
+    hop::mbar_wait_or_trap(full + st, ph);
+    hop::wgmma_fence();
+    issue(j, ring + st * L.SLOT, false);
+    hop::wgmma_commit();
+    hop::wgmma_wait<ST_PIPE>();
+    release(empty + rel);
+    if (++rel == L.SLOTS) rel = 0;
+    st_advance(st, ph, L.SLOTS);
+  }
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < ST_PIPE; ++i) {
+    release(empty + rel);
+    if (++rel == L.SLOTS) rel = 0;
+  }
+}
+
+// acc[p] += A (registers: af) x panel p of the value step, the slice's NO
+// panels of V or K in the ring slot st.
+template <typename T, int NO>
+__device__ __forceinline__ void st_values(float (*acc)[32],
+                                          const uint32_t (*af)[4],
+                                          uint32_t ring, const StreamSmem& L,
+                                          uint64_t* full, uint64_t* empty,
+                                          int& st, uint32_t& ph) {
+  hop::mbar_wait_or_trap(full + st, ph);
+  hop::wgmma_fence();
+  accumulate<T, 0, NO>(acc, af, ring + st * L.SLOT);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < NO; ++p) hop::fence_regs(acc[p], 32);
+  release(empty + st);
+  st_advance(st, ph, L.SLOTS);
+}
+
+// The consumer of the streamed forward: the scores over all P panels, the
+// online softmax, and O over the slice's NO panels from ps.
+template <typename T, int NO, bool QRES>
+__device__ __forceinline__ void fwd_st_consumer(const Maps& maps,
+                                                const Args& a,
+                                                unsigned char* sm,
+                                                const StreamSmem& L, int r0,
+                                                int ps, int n_tiles) {
+  const Rows w = rows_of(r0);
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + w.b * a.b_sb + w.h * a.b_sh : nullptr;
+  const float scale2 = a.scale * LOG2E;
+  const uint32_t base = hop::smem_u32(sm);
+  const uint32_t ring = base + L.RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);
+  uint64_t* empty = full + L.SLOTS;
+  const float* s_bias = reinterpret_cast<const float*>(sm + L.BIAS);
+
+  float o[NO][32];
+#pragma unroll
+  for (int p = 0; p < NO; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float sc[NFRAG];
+  float m[2] = {NEG2, NEG2};  // running row max, base-2 units
+  float l[2] = {0.f, 0.f};    // per-thread partial row sums
+  uint32_t pf[KEYS / 16][4];  // P, the A operand of P V
+
+  st_zero(sm);
+  if constexpr (QRES) hop::mbar_wait_or_trap(empty + L.SLOTS, 0);  // q
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // S = q K^T, ST_G_FWD panels a step: K's at the slot, q's resident or
+    // behind K's; a panel past P reads the zeroed one (base)
+    st_scores(
+        [&](int j, uint32_t slot, bool first) {
+#pragma unroll
+          for (int g = 0; g < ST_G_FWD; ++g) {
+            const int p = j * ST_G_FWD + g;
+            const bool real = p < L.P;
+            const uint32_t qa =
+                !real ? base
+                : QRES ? base + L.Q + p * Q_PANEL_BYTES
+                       : slot + ST_G_FWD * TILE_PANEL + g * Q_PANEL_BYTES;
+            panel_scores<T>(sc, qa, real ? slot + g * TILE_PANEL : base,
+                            first && g == 0);
+          }
+        },
+        ring, L, full, empty, st, ph);
+    hop::fence_regs(sc, NFRAG);
+    const float2 alpha = softmax_tile(
+        sc, m, l, a, w, it * KEYS,
+        row_bias ? s_bias + (it % L.SLOTS) * KEYS : nullptr, bp, full_bias,
+        key, scale2);
+#pragma unroll
+    for (int p = 0; p < NO; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= (i & 2) ? alpha.y : alpha.x;
+    pack_a<T>(pf, sc);
+    st_values<T, NO>(o, pf, ring, L, full, empty, st, ph);  // O += P V
+  }
+
+  // ------------------------------------------------------------- epilogue
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float denom = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / denom;
+    const int r = i ? w.rb : w.ra;
+    if (ps == 0 && w.t4 == 0 && r < a.Tq)
+      a.lse_out[((long long)w.b * a.H + w.h) * a.Tq + r] =
+          m[i] * LN2 + logf(denom);
+  }
+  // every warp is past its last product: the ring's first slots take the
+  // output's panels
+  hop::named_sync(1, 128);
+  store_rows<T, 0, NO>(o, inv, sm + L.RING, Q_PANEL_BYTES, &maps.out, w,
+                       a.Tq, 0, ps);
+}
+
+template <typename T, bool QRES>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+    wide_fwd_st(const __grid_constant__ Maps maps, const Args a) {
+  const StreamSmem L(a.D, false, QRES);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* empty = full + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  uint64_t* full_q = empty + L.SLOTS;  // the resident q
+  float* s_bias = reinterpret_cast<float*>(sm + L.BIAS);
+
+  const int nsl = st_slices(L.P);
+  const int sl = blockIdx.x % nsl;
+  const int q0 = (blockIdx.x / nsl) * WG_ROWS;
+  const int ps = sl * L.P / nsl, no = (sl + 1) * L.P / nsl - ps;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + WG_ROWS);  // later keys add nothing
+  const int n_tiles = (k_end + KEYS - 1) / KEYS;
+
+  if (tid == 0) {
+    hop::mbar_init(full_q, 1);
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies; every lane stages a tile's bias
+    // row with its first step and arrives on each step's barrier
+    if (tid >= 160) return;
+    const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+    const float* bp = row_bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+    if (QRES && lane == 0) {
+      hop::mbar_expect(full_q, L.P * Q_PANEL_BYTES);
+      for (int p = 0; p < L.P; ++p)
+        hop::tma_load_4d(sm + L.Q + p * Q_PANEL_BYTES, &maps.q, full_q,
+                         p * 64, q0, h, b);
+    }
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * KEYS;
+      for (int j = 0; j <= L.NS; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0 && row_bias) {
+          const int col = k0 + lane;
+          s_bias[(it % L.SLOTS) * KEYS + lane] =
+              col < a.Tk ? bp[col * a.b_sk] * LOG2E : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * L.SLOT;
+          if (j < L.NS) {  // a score step: K (and q) panels [p0, p0 + n)
+            const int p0 = j * ST_G_FWD, n = min(ST_G_FWD, L.P - p0);
+            hop::mbar_expect(full + st,
+                             n * (TILE_PANEL + (QRES ? 0 : Q_PANEL_BYTES)));
+            for (int g = 0; g < n; ++g) {
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st,
+                               (p0 + g) * 64, k0, h, b);
+              if (!QRES)
+                hop::tma_load_4d(
+                    slot + ST_G_FWD * TILE_PANEL + g * Q_PANEL_BYTES,
+                    &maps.q, full + st, (p0 + g) * 64, q0, h, b);
+            }
+          } else {  // the value step: the slice's V panels
+            hop::mbar_expect(full + st, no * TILE_PANEL);
+            for (int p = 0; p < no; ++p)
+              hop::tma_load_4d(slot + p * TILE_PANEL, &maps.v, full + st,
+                               (ps + p) * 64, k0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  if (no == 4)
+    fwd_st_consumer<T, 4, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+  else
+    fwd_st_consumer<T, 3, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+}
+
+// The consumer of the streamed dq kernel: s and dp over all P panels, ds,
+// and dq over the slice's NO panels from ps; slice 0 writes ds.
+template <typename T, int NO>
+__device__ __forceinline__ void dq_st_consumer(const Maps& maps,
+                                               const Args& a,
+                                               unsigned char* sm,
+                                               const StreamSmem& L, int r0,
+                                               int ps, int n_tiles) {
+  const Rows w = rows_of(r0);
+  const long long bh = static_cast<long long>(w.b) * a.H + w.h;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + w.b * a.b_sb + w.h * a.b_sh : nullptr;
+  // the rows' lse in base-2 units (+inf past Tq: p = 0 there) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i ? w.rb : w.ra;
+    lse2[i] = r < a.Tq ? a.lse[bh * a.Tq + r] * LOG2E : INFINITY;
+    dl[i] = r < a.Tq ? a.delta[bh * a.Tq + r] : 0.f;
+  }
+  const uint32_t ring = hop::smem_u32(sm) + L.RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);
+  uint64_t* empty = full + L.SLOTS;
+  const float* s_kterm = reinterpret_cast<const float*>(sm + L.BIAS);
+  float* dsp = ps == 0 && a.ds != nullptr
+                   ? a.ds + bh * a.Tq * static_cast<long long>(a.Tk)
+                   : nullptr;
+
+  float dq[NO][32];
+#pragma unroll
+  for (int p = 0; p < NO; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[p][i] = 0.f;
+  float sc[NFRAG], dp[NFRAG];  // s, dp: rows ra, rb; KEYS / 4 keys
+  uint32_t pf[KEYS / 16][4];   // ds, the A operand of dq += ds K
+
+  st_zero(sm);
+  const uint32_t zero = hop::smem_u32(sm);
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // s = q K^T and dp = dout V^T, ST_G_DQ panels a step: K's at the slot,
+    // then V's, q's, dout's; a panel past P reads the zeroed one
+    st_scores(
+        [&](int j, uint32_t slot, bool first) {
+          constexpr int G = ST_G_DQ;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const bool real = j * G + g < L.P;
+            const uint32_t qs = slot + 2 * G * TILE_PANEL;
+            panel_scores<T>(sc, real ? qs + g * Q_PANEL_BYTES : zero,
+                            real ? slot + g * TILE_PANEL : zero,
+                            first && g == 0);
+            panel_scores<T>(dp, real ? qs + (G + g) * Q_PANEL_BYTES : zero,
+                            real ? slot + (G + g) * TILE_PANEL : zero,
+                            first && g == 0);
+          }
+        },
+        ring, L, full, empty, st, ph);
+    hop::fence_regs(sc, NFRAG);
+    hop::fence_regs(dp, NFRAG);
+    ds_tile(sc, dp, a, w, it * KEYS, s_kterm + (it % L.SLOTS) * KEYS, lse2,
+            dl, key, scale2, full_bias, bp, dsp);
+    pack_a<T>(pf, dp);
+    st_values<T, NO>(dq, pf, ring, L, full, empty, st, ph);  // dq += ds K
+  }
+
+  // ------------------------------------------------------------- epilogue
+  hop::named_sync(1, 128);
+  const float mul[2] = {a.scale, a.scale};
+  store_rows<T, 0, NO>(dq, mul, sm + L.RING, Q_PANEL_BYTES, &maps.out, w,
+                       a.Tq, 0, ps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+    wide_dq_st(const __grid_constant__ Maps maps, const Args a) {
+  const StreamSmem L(a.D, true, false);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* empty = full + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  float* s_kterm = reinterpret_cast<float*>(sm + L.BIAS);
+
+  const int nsl = st_slices(L.P);
+  const int sl = blockIdx.x % nsl;
+  const int q0 = (blockIdx.x / nsl) * WG_ROWS;
+  const int ps = sl * L.P / nsl, no = (sl + 1) * L.P / nsl - ps;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + WG_ROWS);
+  const int n_tiles = (k_end + KEYS - 1) / KEYS;
+
+  if (tid == 0) {
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    if (tid >= 160) return;
+    const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+    const float* bp = row_bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * KEYS;
+      for (int j = 0; j <= L.NS; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0) {
+          // each key's term of the exponent in base-2 units: the
+          // key-padding bias (bias broadcast over Tq), -inf past Tk
+          const int col = k0 + lane;
+          s_kterm[(it % L.SLOTS) * KEYS + lane] =
+              col >= a.Tk     ? -INFINITY
+              : bp != nullptr ? bp[col * a.b_sk] * LOG2E
+                              : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * L.SLOT;
+          if (j < L.NS) {  // a score step: K, V, q, dout panels [p0, p0 + n)
+            constexpr int G = ST_G_DQ;
+            const int p0 = j * G, n = min(G, L.P - p0);
+            unsigned char* qs = slot + 2 * G * TILE_PANEL;
+            hop::mbar_expect(full + st, n * 2 * (TILE_PANEL + Q_PANEL_BYTES));
+            for (int g = 0; g < n; ++g) {
+              const int c = (p0 + g) * 64;
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st, c,
+                               k0, h, b);
+              hop::tma_load_4d(slot + (G + g) * TILE_PANEL, &maps.v,
+                               full + st, c, k0, h, b);
+              hop::tma_load_4d(qs + g * Q_PANEL_BYTES, &maps.q, full + st, c,
+                               q0, h, b);
+              hop::tma_load_4d(qs + (G + g) * Q_PANEL_BYTES, &maps.dout,
+                               full + st, c, q0, h, b);
+            }
+          } else {  // the value step: the slice's K panels
+            hop::mbar_expect(full + st, no * TILE_PANEL);
+            for (int p = 0; p < no; ++p)
+              hop::tma_load_4d(slot + p * TILE_PANEL, &maps.k, full + st,
+                               (ps + p) * 64, k0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  if (no == 4)
+    dq_st_consumer<T, 4>(maps, a, sm, L, q0, ps, n_tiles);
+  else
+    dq_st_consumer<T, 3>(maps, a, sm, L, q0, ps, n_tiles);
+}
+
 // ------------------------------------------------------------------- host
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, int threads, size_t smem,
@@ -878,6 +1469,26 @@ cudaError_t launch_fwd(const Args& a, const Maps& maps, cudaStream_t st) {
   const dim3 grid((a.Tq + WG_ROWS - 1) / WG_ROWS, a.H, a.B);
   return launch(wide_fwd_wg<T, DP>, grid, 3 * 128, FwdSmem<DP>::ALLOC, st,
                 maps, a);
+}
+
+// the streamed kernels (D > 512): a block a slice of a row block's output
+template <typename T>
+cudaError_t launch_fwd_st(const Args& a, const Maps& maps, cudaStream_t st) {
+  const int P = (a.D + 63) / 64;
+  const dim3 grid((a.Tq + WG_ROWS - 1) / WG_ROWS * st_slices(P), a.H, a.B);
+  if (fwd_q_resident(P))
+    return launch(wide_fwd_st<T, true>, grid, ST_THREADS,
+                  StreamSmem(a.D, false, true).ALLOC, st, maps, a);
+  return launch(wide_fwd_st<T, false>, grid, ST_THREADS,
+                StreamSmem(a.D, false, false).ALLOC, st, maps, a);
+}
+
+template <typename T>
+cudaError_t launch_dq_st(const Args& a, const Maps& maps, cudaStream_t st) {
+  const int P = (a.D + 63) / 64;
+  const dim3 grid((a.Tq + WG_ROWS - 1) / WG_ROWS * st_slices(P), a.H, a.B);
+  return launch(wide_dq_st<T>, grid, ST_THREADS,
+                StreamSmem(a.D, true, false).ALLOC, st, maps, a);
 }
 
 template <typename T, int DP, int MODE = dq_mode(DP)>
@@ -908,6 +1519,7 @@ cudaError_t dispatch(int kind, const Args& a, cudaStream_t st) {
     return cudaErrorInvalidValue;
   if (kind == 0) {
     maps.dout = maps.q;  // unused
+    if (a.D > 512) return launch_fwd_st<T>(a, maps, st);
     if (dp == 320) return launch_fwd<T, 320>(a, maps, st);
     if (dp == 384) return launch_fwd<T, 384>(a, maps, st);
     if (dp == 448) return launch_fwd<T, 448>(a, maps, st);
@@ -916,6 +1528,7 @@ cudaError_t dispatch(int kind, const Args& a, cudaStream_t st) {
   if (!mxt::make_map(&maps.dout, type, a.dout, a.D, a.Tq, a.H, a.B,
                      a.do_st, a.do_sh, a.do_sb, WG_ROWS))
     return cudaErrorInvalidValue;
+  if (a.D > 512) return launch_dq_st<T>(a, maps, st);
   if (dp == 320) return launch_dq<T, 320>(a, maps, st);
   if (dp == 384) return launch_dq<T, 384>(a, maps, st);
   if (dp == 448) return launch_dq<T, 448>(a, maps, st);
@@ -929,7 +1542,7 @@ cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t st) {
 
 bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
          const int* seed) {
-  return dtype < 1 || dtype > 2 || D <= 256 || D > 512 || B < 1 || H < 1 ||
+  return dtype < 1 || dtype > 2 || D <= 256 || B < 1 || H < 1 ||
          Tq < 1 || Tk < 1 || B > 65535 || H > 65535 || (dropout && !seed);
 }
 
@@ -938,8 +1551,7 @@ bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
 
 // The forward, with mxt_flash_wide_fwd's arguments (flash_attention_wide.cu:
 // strides of q, k, v, out as (batch, head, time) triples, then the bias's
-// four), for 16-bit data (dtype 1 = bfloat16, 2 = float16) at 256 < D <=
-// 512. q, k, v and out must be views TMA can address (16-byte aligned,
+// four), for 16-bit data (dtype 1 = bfloat16, 2 = float16) at D > 256. q, k, v and out must be views TMA can address (16-byte aligned,
 // strides of dimensions longer than 1 multiples of 8 elements; the Python
 // wrapper copies other operands). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
@@ -970,7 +1582,7 @@ extern "C" int mxt_flash_wide_wg_fwd(int dtype, const void* q, const void* k,
 
 // The dq kernel, with mxt_flash_wide_bwd's arguments (kind must be 1;
 // strides of q, k, v, dout, dq, dk, dv as (batch, head, time) triples, then
-// the bias's four; dk, dv unused), for 16-bit data at 256 < D <= 512, every
+// the bias's four; dk, dv unused), for 16-bit data at D > 256, every
 // 16-bit operand and dq addressable by TMA. ds, when not null, is a
 // (B, H, Tq, Tk) f32 buffer the kernel fills with p * (dp - delta).
 extern "C" int mxt_flash_wide_wg_bwd(

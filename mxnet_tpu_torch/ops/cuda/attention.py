@@ -9,13 +9,14 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
 - ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
-  ``_flash_bwd_dq_kernel``, and ``csrc/flash_attention_wide_dkv.cu``
-  ``_flash_bwd_dkv_kernel``, for 16-bit q, k, v at head dims above
-  :data:`MAX_HEAD_DIM` up to :data:`WIDE_WG_MAX_HEAD_DIM` (``wide_fwd``,
-  ``wide_dq``, ``wide_dkv``): wgmma tiles over the head dim's 64-column
-  panels;
+  ``_flash_bwd_dq_kernel`` for 16-bit q, k, v at every head dim above
+  :data:`MAX_HEAD_DIM` (``wide_fwd``, ``wide_dq``): wgmma tiles over the
+  head dim's 64-column panels, the panels streamed through the ring above
+  :data:`WIDE_WG_MAX_HEAD_DIM`; ``csrc/flash_attention_wide_dkv.cu``
+  replaces ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v up to
+  :data:`WIDE_WG_MAX_HEAD_DIM` (``wide_dkv``);
 - ``csrc/flash_attention_wide.cu`` replaces the same three above
-  :data:`MAX_HEAD_DIM` otherwise (f32, and 16-bit above
+  :data:`MAX_HEAD_DIM` otherwise (f32, and ``wide_dkv`` for 16-bit above
   :data:`WIDE_WG_MAX_HEAD_DIM`): a warp a row, lanes over the head dim,
   any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
@@ -43,10 +44,12 @@ and backward, so the card takes any head dim, as the JAX package and the
 plain versions do. Which source a kernel of a wide head dim comes from is
 :func:`head_dim_route`, a pure function of (D, dtype) and a contract of
 the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
-``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), f32 and D > 512 the
-warp-a-row ones (``"wide_rows"``). A build or launch that fails raises; no
-route gives way to another. The warp-a-row kernels read every operand
-through its strides, so they copy nothing.
+``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), 16-bit above 512 the tiled
+``wide_fwd`` and ``wide_dq`` that stream the head dim and the warp-a-row
+``wide_dkv`` (``"wide_stream"``), f32 the three warp-a-row ones
+(``"wide_rows"``). A build or launch that fails raises; no route gives way
+to another. The warp-a-row kernels read every operand through its strides,
+so they copy nothing.
 The tiled 16-bit kernels (the wide tiled ones among them) read q, k, v and
 dout and write out, dq, dk and dv by
 TMA, which needs a 16-byte aligned base and strides that are multiples of
@@ -113,7 +116,8 @@ padded_copies = 0
 # the fused backward up to FUSED_MAX_HEAD_DIM
 MAX_HEAD_DIM = 256
 FUSED_MAX_HEAD_DIM = 128
-# 16-bit wide heads up to this take the tiled wide kernels
+# 16-bit wide heads up to this take the tiled wide kernels, wider ones the
+# tiled forward and dq that stream the head dim
 WIDE_WG_MAX_HEAD_DIM = 512
 _HALF = (torch.bfloat16, torch.float16)
 # rows of one tile of the fused backward's dq accumulator, and the floats
@@ -273,13 +277,15 @@ def head_dim_route(D: int, dtype) -> str:
     ``flash_attention_bwd.cu``), ``"wide_wg"`` (bf16 / fp16 up to
     :data:`WIDE_WG_MAX_HEAD_DIM`: ``wide_fwd`` and ``wide_dq`` from
     ``flash_attention_wide_wg.cu``, ``wide_dkv`` from
-    ``flash_attention_wide_dkv.cu``) or ``"wide_rows"`` (every wide kernel
-    from ``flash_attention_wide.cu``)."""
+    ``flash_attention_wide_dkv.cu``), ``"wide_stream"`` (bf16 / fp16 above
+    it: ``wide_fwd`` and ``wide_dq`` from ``flash_attention_wide_wg.cu``,
+    ``wide_dkv`` from ``flash_attention_wide.cu``) or ``"wide_rows"`` (f32:
+    every wide kernel from ``flash_attention_wide.cu``)."""
     if D <= MAX_HEAD_DIM:
         return "tiled"
-    if dtype in _HALF and D <= WIDE_WG_MAX_HEAD_DIM:
-        return "wide_wg"
-    return "wide_rows"
+    if dtype not in _HALF:
+        return "wide_rows"
+    return "wide_wg" if D <= WIDE_WG_MAX_HEAD_DIM else "wide_stream"
 
 
 def _source(name: str, route: str) -> Tuple[str, str]:
@@ -290,7 +296,8 @@ def _source(name: str, route: str) -> Tuple[str, str]:
                 else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
     if route == "wide_wg" and name == "flash_attention_wide_dkv":
         return ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
-    if route == "wide_wg":
+    if route in ("wide_wg", "wide_stream") \
+            and name != "flash_attention_wide_dkv":
         return ("flash_attention_wide_wg",
                 "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
     return ("flash_attention_wide",
@@ -327,8 +334,10 @@ def _wide(name: str) -> bool:
 
 def _uses_tma(name: str, route: str, dtype) -> bool:
     """Whether kernel ``name`` on ``route`` reads and writes its 16-bit
-    operands by TMA (the warp-a-row kernels and the f32 ones do not)."""
-    return dtype in _HALF and route in ("tiled", "wide_wg")
+    operands by TMA: every kernel but the warp-a-row ones
+    (:func:`_source`) and the f32 ones."""
+    return dtype in _HALF and _source(name, route)[0] != \
+        "flash_attention_wide"
 
 
 def _bht(t):

@@ -357,14 +357,14 @@ def test_card_backward_route(monkeypatch, D, Tk, block_k, route):
     (64, "flash_attention_fwd", 3), (256, "flash_attention_fwd", 3),
     (288, "flash_attention_wide_fwd", 3),
     (512, "flash_attention_wide_fwd", 3),
-    (520, "flash_attention_wide_fwd", 0)])
+    (520, "flash_attention_wide_fwd", 3)])
 def test_card_forward_route(monkeypatch, D, name, copies):
     """The card's forward routing (pure Python on CPU tensors, the device
     checks and the launch replaced by spies): up to 256 the tiled kernel
-    and, for 16-bit heads up to 512, the tiled wide kernel, which both
-    copy 16-bit operands TMA cannot address (rows of D + 1 elements
-    here); above 512 the warp-a-row wide kernel, which reads them in
-    place; both wide kernels counted under the wide forward's name."""
+    and, for 16-bit heads above 256, the tiled wide kernel (streaming the
+    head dim above 512), which all copy 16-bit operands TMA cannot address
+    (rows of D + 1 elements here); the wide kernels counted under the wide
+    forward's name."""
     import contextlib
     import types
     launched = []

@@ -16,13 +16,14 @@ dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
 bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics),
 at head dims 40 to 256 (above 128 always the dq/dkv pair); two runs of the
 pair equal to the bit. Dropout masks are compared bit for bit through the
-outputs they make. Head dims above 256 (264 to 512) run the wide
+outputs they make. Head dims above 256 (264 to 1024) run the wide
 kernels, forward and backward, under the same tolerances, at Tq != Tk,
 with bias, causal and dropout (their masks read back bit for bit), two
-backward runs equal to the bit; 16-bit heads up to 512 on the tiled wgmma
-forward, dq and dk / dv (out, lse, dq, dk and dv equal to the bit run to
-run, operands with rows TMA cannot address copied and counted, once for
-the backward pair), f32 heads on the warp-a-row kernels, as the
+backward runs equal to the bit; 16-bit heads on the tiled wgmma forward
+and dq (streaming the head dim above 512) and, up to 512, dk / dv (out,
+lse, dq, ds, dk and dv equal to the bit run to run, operands with rows
+TMA cannot address copied and counted, once for the backward pair), f32
+heads and 16-bit dk / dv above 512 on the warp-a-row kernels, as the
 profiler's kernel names show.
 
 The prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
@@ -575,11 +576,12 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 
 # ---------------------------------------------- heads wider than 256 (C8)
-# 16-bit heads up to 512 take the tiled wgmma forward, dq and dk / dv
-# (csrc/flash_attention_wide_wg.cu, csrc/flash_attention_wide_dkv.cu; D =
-# 264, 300 and 384 among them, 300 through copies TMA can address), f32
-# the warp-a-row kernels
-WIDE_DS = [264, 288, 300, 320, 384, 512]
+# 16-bit heads take the tiled wgmma forward and dq
+# (csrc/flash_attention_wide_wg.cu; above 512 streaming the head dim) and,
+# up to 512, dk / dv (csrc/flash_attention_wide_dkv.cu; D = 264, 300 and
+# 384 among them, 300 through copies TMA can address), f32 heads and 16-bit
+# dk / dv above 512 the warp-a-row kernels
+WIDE_DS = [264, 288, 300, 320, 384, 512, 576, 1024]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
@@ -674,18 +676,24 @@ def test_wide_dropout_masks_are_the_plain_mask(dev, dtype, D):
 @pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("D,Tq,Tk", [(264, 333, 200), (384, 130, 257),
                                      (448, 333, 100), (512, 64, 100),
-                                     (512, 100, 333)])
+                                     (512, 100, 333), (530, 77, 131),
+                                     (640, 200, 96), (1024, 130, 257),
+                                     (1280, 70, 130)])
 def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
     """Two runs of the tiled wide forward, dq and dk / dv on the same
     inputs give the same bits for out, lse, dq, dk, dv and a learned
     bias's ds (no atomics: each sum runs in one order), causal, ragged
     (Tk > Tq leaves key blocks no query sees: dk and dv 0 there), dropout
     0.1, at the padded head dims 320 to 512 (dk / dv split by slices up to
-    384, by roles above); dk and dv within relative 2e-2 of the plain
-    backward."""
+    384, by roles above) and at 530 to 1280, where the forward and dq
+    stream the head dim (each slice of the output recomputes the scores;
+    slice 0 writes lse and ds; at 1280 the forward streams q too) and dk /
+    dv are the warp-a-row kernel's; dk and dv within relative 2e-2 of the
+    plain backward."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, True, "full", 0.1, Tq=Tq, Tk=Tk)
-    assert attn.head_dim_route(D, dtype) == "wide_wg"
+    assert attn.head_dim_route(D, dtype) == (
+        "wide_wg" if D <= 512 else "wide_stream")
     again = attn._flash_forward(q, k, v, bias, scale, True, seed, 0.1)
     runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
                                  True, 1024, 0.1) for _ in range(2)]
@@ -703,7 +711,9 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
     (torch.bfloat16, 300, "wide_wg", 3, 4),
     (torch.float16, 320, "wide_wg", 0, 0),
     (torch.float32, 300, "wide_rows", 0, 0),
-    (torch.bfloat16, 520, "wide_rows", 0, 0)])
+    (torch.bfloat16, 520, "wide_stream", 0, 0),
+    (torch.bfloat16, 530, "wide_stream", 3, 4),
+    (torch.float32, 576, "wide_rows", 0, 0)])
 def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
                                      bwd_copies):
     """Launches and copies of the wide route, contiguous (B, H, T, D)
@@ -711,7 +721,9 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
     cannot address, so the tiled forward copies q, k, v and the tiled
     backward pair q, k, v and dout, once for both kernels (counted in
     ``padded_copies``); the warp-a-row kernels read every operand in
-    place. One launch of each wide kernel per call, nothing else."""
+    place (so at D = 530 the warp-a-row dk / dv reads the copies the
+    streamed dq made). One launch of each wide kernel per call, nothing
+    else."""
     assert attn.head_dim_route(D, dtype) == route
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, False, "keypad", 0.0, Tq=40, Tk=72)
@@ -729,17 +741,21 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
         n: int(n.startswith("flash_attention_wide")) for n in attn.KERNELS}
 
 
-@pytest.mark.parametrize("dtype,pattern,dkv_pattern", [
-    (torch.bfloat16, r"wwg::wide_(fwd|dq)_wg<", r"wdkv::wide_dkv_wg<"),
-    (torch.float32, r"wide::wide_(fwd|dq)<", r"wide::wide_dkv<")])
-def test_wide_route_runs_its_kernels(dev, dtype, pattern, dkv_pattern):
-    """The profiler's kernel names on each wide route at D = 320: the
+@pytest.mark.parametrize("dtype,D,pattern,dkv_pattern", [
+    (torch.bfloat16, 320, r"wwg::wide_(fwd|dq)_wg<", r"wdkv::wide_dkv_wg<"),
+    (torch.float32, 320, r"wide::wide_(fwd|dq)<", r"wide::wide_dkv<"),
+    (torch.bfloat16, 576, r"wwg::wide_(fwd|dq)_st<", r"wide::wide_dkv<"),
+    (torch.float16, 1024, r"wwg::wide_(fwd|dq)_st<", r"wide::wide_dkv<"),
+    (torch.bfloat16, 2048, r"wwg::wide_(fwd|dq)_st<", r"wide::wide_dkv<")])
+def test_wide_route_runs_its_kernels(dev, dtype, D, pattern, dkv_pattern):
+    """The profiler's kernel names on each wide route: at D = 320 the
     tiled wgmma forward, dq and dk / dv for bf16, the warp-a-row ones for
-    f32."""
+    f32; above 512 the streamed tiled forward and dq and the warp-a-row
+    dk / dv for 16 bits (no warp-a-row forward or dq)."""
     import re
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
-        dev, dtype, 320, True, None, 0.0, Tq=64, Tk=64)
+        dev, dtype, D, True, None, 0.0, Tq=64, Tk=64)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cs.primer()
@@ -751,6 +767,9 @@ def test_wide_route_runs_its_kernels(dev, dtype, pattern, dkv_pattern):
     assert sum(bool(re.search(pattern, n)) for n in names) == 2, names
     assert [n for n in names if "dkv" in n] == [
         n for n in names if re.search(dkv_pattern, n)] != [], names
+    if dtype != torch.float32:
+        assert not any(re.search(r"wide::wide_(fwd|dq)<", n)
+                       for n in names), names
 
 
 def test_wide_autograd_reads_bthd_views(dev):

@@ -2,18 +2,19 @@
 (mxnet_tpu_torch/ops/cuda/attention.py), on the CPU.
 
 The card's route at a wide head dim is ``head_dim_route``, a pure function
-of (D, dtype): 16-bit heads up to 512 take the tiled wgmma kernels of
-``csrc/flash_attention_wide_wg.cu`` for the forward and dq and of
-``csrc/flash_attention_wide_dkv.cu`` for dk / dv, f32 heads and heads above
-512 the warp-a-row kernels of ``csrc/flash_attention_wide.cu``. Those
+of (D, dtype): 16-bit heads take the tiled wgmma kernels of
+``csrc/flash_attention_wide_wg.cu`` for the forward and dq at every D > 256
+(streaming the head dim above 512) and of ``csrc/flash_attention_wide_dkv.cu``
+for dk / dv up to 512, 16-bit dk / dv above 512 and every f32 kernel the
+warp-a-row kernels of ``csrc/flash_attention_wide.cu``. Those
 kernels run only on the card (``tests/test_torch_cuda.py``); here the route
 is checked at every edge, the backward pair's operands that TMA cannot
 address are copied once for both kernels, and the plain versions, which
 the card's kernels are held to, are
 held to the JAX package's Pallas kernels in interpret mode through its
 entry point ``flash_attention`` and ``jax.grad`` of it, at D = 264, 320,
-384 and 512: causal with Tq != Tk, a key-padding bias, and a learned full
-bias with its gradient.
+384, 512, 576 and 1024: causal with Tq != Tk, a key-padding bias, and a
+learned full bias with its gradient.
 
 f32 throughout; tolerance rtol=2e-4, atol=2e-5 (the JAX package's own
 flash test): the two differ only in summation order.
@@ -31,7 +32,7 @@ from mxnet_tpu_torch.ops.cuda import attention as port
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 B, H = 2, 2
-WIDE_D = [264, 320, 384, 512]
+WIDE_D = [264, 320, 384, 512, 576, 1024]
 # (Tq, Tk, causal, bias): causal with Tq != Tk, key padding, learned full
 CASES = {"causal_cross": (24, 40, True, None),
          "keypad": (32, 32, False, "keypad"),
@@ -39,58 +40,77 @@ CASES = {"causal_cross": (24, 40, True, None),
 HALF = (torch.bfloat16, torch.float16)
 
 
+# (library, C entry) of each wide kernel on each wide route
+WIDE_SOURCES = {
+    "wide_wg": {
+        "flash_attention_wide_fwd": ("flash_attention_wide_wg",
+                                     "mxt_flash_wide_wg_fwd"),
+        "flash_attention_wide_dq": ("flash_attention_wide_wg",
+                                    "mxt_flash_wide_wg_bwd"),
+        "flash_attention_wide_dkv": ("flash_attention_wide_dkv",
+                                     "mxt_flash_wide_wg_dkv")},
+    "wide_stream": {
+        "flash_attention_wide_fwd": ("flash_attention_wide_wg",
+                                     "mxt_flash_wide_wg_fwd"),
+        "flash_attention_wide_dq": ("flash_attention_wide_wg",
+                                    "mxt_flash_wide_wg_bwd"),
+        "flash_attention_wide_dkv": ("flash_attention_wide",
+                                     "mxt_flash_wide_bwd")},
+    "wide_rows": {
+        "flash_attention_wide_fwd": ("flash_attention_wide",
+                                     "mxt_flash_wide_fwd"),
+        "flash_attention_wide_dq": ("flash_attention_wide",
+                                    "mxt_flash_wide_bwd"),
+        "flash_attention_wide_dkv": ("flash_attention_wide",
+                                     "mxt_flash_wide_bwd")}}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513])
+@pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513, 576, 1024,
+                               2048])
 def test_head_dim_route(D, dtype):
-    """Every edge of the route: up to 256 the tiled kernels, 16-bit up to
+    """Every edge of the route: up to 256 the tiled kernels; 16-bit up to
     512 the tiled wide kernels (wide_fwd and wide_dq from one source,
-    wide_dkv from its own), f32 and above 512 the warp-a-row ones; the
-    route decides the source of each wide kernel and whether operands go
-    through TMA (and so may be copied)."""
+    wide_dkv from its own), 16-bit above 512 the tiled wide_fwd and wide_dq
+    that stream the head dim and the warp-a-row wide_dkv, f32 the
+    warp-a-row ones; the route decides the source of each wide kernel and
+    whether it reads and writes by TMA (and so may copy operands): every
+    tiled kernel does, no warp-a-row one."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
         want = "tiled"
-    elif D <= 512 and dtype in HALF:
-        want = "wide_wg"
-    else:
+    elif dtype not in HALF:
         want = "wide_rows"
+    else:
+        want = "wide_wg" if D <= 512 else "wide_stream"
     assert route == want
     assert port.head_dim_route(D, dtype) == route        # pure
     if route == "tiled":
         assert port._source("flash_attention_fwd", route) == (
             "flash_attention_fwd", "mxt_flash_attention_fwd")
         return
-    lib = "flash_attention_wide_wg" if route == "wide_wg" \
-        else "flash_attention_wide"
-    prefix = "mxt_flash_wide_wg" if route == "wide_wg" else "mxt_flash_wide"
-    assert port._source("flash_attention_wide_fwd", route) == (
-        lib, f"{prefix}_fwd")
-    assert port._source("flash_attention_wide_dq", route) == (
-        lib, f"{prefix}_bwd")
-    assert port._source("flash_attention_wide_dkv", route) == (
-        ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
-        if route == "wide_wg"
-        else ("flash_attention_wide", "mxt_flash_wide_bwd"))
-    tma = route == "wide_wg"
-    for name in ("flash_attention_wide_fwd", "flash_attention_wide_dq",
-                 "flash_attention_wide_dkv"):
-        assert port._uses_tma(name, route, dtype) == tma
+    for name, source in WIDE_SOURCES[route].items():
+        assert port._source(name, route) == source, name
+        assert port._uses_tma(name, route, dtype) == (
+            source[0] != "flash_attention_wide"), name
     assert port.backward_route(D, 48, 1024) == "wide"
 
 
 @pytest.mark.parametrize("D,dtype,copies", [
     (300, torch.bfloat16, 4), (300, torch.float16, 4),
     (300, torch.float32, 0), (520, torch.bfloat16, 0),
-    (320, torch.bfloat16, 0), (36, torch.bfloat16, 4)])
+    (320, torch.bfloat16, 0), (36, torch.bfloat16, 4),
+    (530, torch.bfloat16, 4), (530, torch.float32, 0)])
 def test_pair_operands_copied_once(D, dtype, copies):
     """The backward pair's q, k, v and dout, contiguous (B, H, T, D) views:
     rows of D = 300 (or 36) 16-bit values are not a multiple of 16 bytes, so
     on a route whose kernels read by TMA each is copied once for both
     kernels (counted), into a view TMA can address that holds the same
-    values, and the second kernel's own check copies nothing more; f32,
-    D > 512 (the warp-a-row kernels) and D = 320 take them as they are. No
-    kernel runs here."""
+    values, and the second kernel's own check copies nothing more (at D =
+    530 the streamed dq reads by TMA, so the warp-a-row dk / dv gets the
+    copies too); f32 (the warp-a-row kernels) and D = 320 or 520 (rows
+    TMA can address) take them as they are. No kernel runs here."""
     route = port.head_dim_route(D, dtype)
     pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
         if route != "tiled" else ("flash_attention_bwd_dq",

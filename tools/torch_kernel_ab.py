@@ -146,8 +146,12 @@ def decode_times(torch, cs, dev, da):
 WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False),
                (8, 8, 1024, 320, "keypad", False),
                (8, 8, 1024, 320, None, True),
-               (4, 8, 1024, 512, "keypad", False))
-WIDE_PATTERNS = {"fwd": r"wide_fwd(_wg)?<", "dq": r"wide_dq(_wg)?<",
+               (4, 8, 1024, 512, "keypad", False),
+               (2, 4, 512, 576, "keypad", False),
+               (4, 8, 1024, 1024, "keypad", False))
+# every route's names: the tiled (_wg), the streamed (_st, heads above 512)
+# and the warp-a-row kernels
+WIDE_PATTERNS = {"fwd": r"wide_fwd(_wg|_st)?<", "dq": r"wide_dq(_wg|_st)?<",
                  "dkv": r"wide_dkv(_wg)?<"}
 
 
