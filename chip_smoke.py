@@ -48,15 +48,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    SDPA's f32 calls. Then the wide kernels (head dims above
    256: ``wide_fwd``, ``wide_dq`` and ``wide_dkv``, the tiled wgmma
    kernels of ``flash_attention_wide_wg.cu`` (forward and dq at every
-   16-bit head dim, streaming the head dim above 512) and
-   ``flash_attention_wide_dkv.cu`` (16-bit dk / dv up to 512) and the
-   warp-a-row ones of ``flash_attention_wide.cu`` for f32 and 16-bit dk /
-   dv above 512) against their plain versions in ``WIDE_CASES`` (D =
-   264 to 1024; bias none, key padding and learned; causal; Tq != Tk;
-   dropout; bf16, fp16, f32), two runs of the forward and of the backward
-   equal to the bit, the copies of rows TMA cannot address counted (D =
-   300, 530), above 512 the profiler's records showing the streamed
-   forward and dq and no warp-a-row one, their dropout masks read back
+   16-bit head dim, streaming the head dim above 512; the 3xTF32 forward
+   at every f32 one) and ``flash_attention_wide_dkv.cu`` (16-bit dk / dv,
+   streaming above 512) and the warp-a-row ones of
+   ``flash_attention_wide.cu`` for the f32 dq and dk / dv) against their
+   plain versions in ``WIDE_CASES`` (D = 264 to 1280; bias none, key
+   padding and learned; causal; Tq != Tk; dropout; bf16, fp16, f32), two
+   runs of the forward and of the backward equal to the bit, the copies
+   of rows TMA cannot address counted (D = 300, 530; f32 530), on the
+   streamed and the f32 routes the profiler's records showing the route's
+   own three kernels and no other wide one, their dropout masks read back
    bit for bit at D = 288, 384, 512 and 576; their path: ``flash_attention``
    at (2, 512, 4, 288) and (8, 1024,
    8, 320) bf16 from one fused QKV projection, forward and backward under
@@ -67,11 +68,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    padding, (8, 8, 1024, 320) with key padding and causal)
    against the plain versions, each kernel timed there by device time
    beside its bound, the plain version and SDPA's memory-efficient
-   backend (the only one that takes such heads); the warp-a-row kernels
-   checked and timed on their own route: dk / dv at (2, 4, 512, 576) bf16
-   and all three at (2, 4, 512, 320) f32 with key padding, their source
-   beside the times, SDPA's memory-efficient forward and backward beside
-   them (or its refusal, printed). Then the three
+   backend (the only one that takes such heads); the f32 forward
+   (``WIDE_F32_TIMED``: (2, 4, 512, 320), (8, 8, 1024, 320) and (2, 4, 512,
+   576) with key padding) checked and timed beside its FMA bound, its
+   products' time as 3xTF32, the plain version and SDPA's f32 forward; the
+   warp-a-row f32 dq and dk / dv checked and timed on their own route at
+   (2, 4, 512, 320) with key padding, their source beside the times,
+   SDPA's memory-efficient whole backward beside them (or its refusal,
+   printed). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -391,9 +395,9 @@ KERNEL_INFO = {
                             "XLA)"),
     # the flash kernels at head dims above 256 (the tiled ones take up to
     # 256): the same three Pallas kernels as rows 1, 3 and 4. 16-bit heads
-    # take the tiled wide forward and dq at every D (streaming the head dim
-    # above 512) and the tiled dk / dv up to 512; f32 heads and 16-bit dk /
-    # dv above 512 those of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
+    # take the tiled wide forward, dq and dk / dv at every D (streaming the
+    # head dim above 512); f32 heads the 3xTF32 forward and the dq and dk /
+    # dv of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
     "flash_attention_wide_fwd": (
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
@@ -478,25 +482,24 @@ UPDATE_STEP = {"bert": 1, "resnet": 1}
 # the wide kernels' names (re.search), for device time by torch.profiler,
 # by the source of each (attn._source): the tiled ones (wwg::wide_fwd_wg,
 # wwg::wide_dq_wg, wdkv::wide_dkv_wg), the streamed ones above 512
-# (wwg::wide_fwd_st, wwg::wide_dq_st) or the warp-a-row ones
-# (wide::wide_fwd, ...)
+# (wwg::wide_fwd_st, wwg::wide_dq_st, wdkv::wide_dkv_st), the f32 forward
+# (wwg::wide_fwd_tf32) or the warp-a-row f32 pair (wide::wide_dq, ...)
 WIDE_SOURCE_KERNEL = {
     "flash_attention_wide_wg": {
-        "flash_attention_wide_fwd": r"wide_fwd_(wg|st)<",
+        "flash_attention_wide_fwd": r"wide_fwd_(wg<|st<|tf32\b)",
         "flash_attention_wide_dq": r"wide_dq_(wg|st)<"},
     "flash_attention_wide_dkv": {
-        "flash_attention_wide_dkv": r"wide_dkv_wg<"},
+        "flash_attention_wide_dkv": r"wide_dkv_(wg|st)<"},
     "flash_attention_wide": {
-        "flash_attention_wide_fwd": r"wide::wide_fwd<",
         "flash_attention_wide_dq": r"wide::wide_dq<",
         "flash_attention_wide_dkv": r"wide::wide_dkv<"}}
-# the warp-a-row forward and dq, which no 16-bit head dim may run
-WIDE_ROWS_FWD_DQ = r"wide::wide_(fwd|dq)<"
-# the tiled ones alone, which the bf16 wide path must show
-WIDE_WG_KERNEL = {"flash_attention_wide_fwd": r"wide_fwd_wg<",
-                  "flash_attention_wide_dq": r"wide_dq_wg<",
-                  "flash_attention_wide_dkv": r"wide_dkv_wg<"}
-# the source of the warp-a-row ones, which f32 and heads above 512 take
+# the kernels each wide route runs (forward, dq, dk / dv, as WIDE_KERNELS),
+# by the profiler's names; no other wide kernel may run on it
+ROUTE_KERNELS = {
+    "wide_wg": (r"wide_fwd_wg<", r"wide_dq_wg<", r"wide_dkv_wg<"),
+    "wide_stream": (r"wide_fwd_st<", r"wide_dq_st<", r"wide_dkv_st<"),
+    "wide_f32": (r"wide_fwd_tf32\b", r"wide::wide_dq<", r"wide::wide_dkv<")}
+# the source of the warp-a-row ones, which the f32 dq and dk / dv take
 WIDE_ROWS_SOURCE = "mxnet_tpu_torch/csrc/flash_attention_wide.cu"
 # the wide kernels' path (phase 3): attention over heads of 288 and 320
 # through the user's entry point, forward and backward under autograd, bf16
@@ -2260,10 +2263,10 @@ def wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal, bias_kind, rate,
 
 # (dtype, head dim, Tq, Tk, causal, bias, dropout): forward and backward
 # against the plain versions. 16-bit heads take the tiled wide kernels
-# (D = 300 and 530: rows TMA cannot address, copied and counted), the
-# forward and dq streaming the head dim above 512 (530, 576, 640, 1024;
-# 1280 with q streamed too) beside the warp-a-row dk / dv; f32 the
-# warp-a-row ones (attn.head_dim_route)
+# (D = 300 and 530: rows TMA cannot address, copied and counted), all three
+# streaming the head dim above 512 (530, 576, 640, 1024; 1280 with the
+# forward's q streamed too); f32 the 3xTF32 forward (530: copied) and the
+# warp-a-row dq and dk / dv (attn.head_dim_route)
 WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 288, 200, 200, True, None, 0.1),
               ("bfloat16", 320, 100, 260, False, "full", 0.1),
@@ -2278,7 +2281,10 @@ WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 530, 77, 131, True, None, 0.1),
               ("bfloat16", 1280, 96, 160, False, "keypad", 0.1),
               ("float32", 288, 128, 77, False, "full", 0.1),
-              ("float32", 320, 64, 64, True, None, 0.0)]
+              ("float32", 320, 64, 64, True, None, 0.0),
+              ("float32", 576, 77, 131, True, "keypad", 0.1),
+              ("float32", 1024, 64, 96, False, "full", 0.0),
+              ("float32", 530, 70, 45, False, None, 0.0)]
 # the timed shapes (B, H, T, D, bias, causal), bf16 from one fused QKV
 # projection; key padding ragged over the batch (wide_timed_case). The first
 # is the wide path's first shape; the kernels line carries WIDE_LINE's rows
@@ -2289,12 +2295,16 @@ WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
               (2, 4, 512, 576, "keypad", False),
               (4, 8, 1024, 1024, "keypad", False))
 WIDE_LINE = 1
-# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep f32 and 16-bit dk /
-# dv above 512, timed on their own route at one shape of each (B, H, T, D,
-# bias, causal, dtype): each kernel whose source the route makes the
-# warp-a-row file (the kernels line carries the tiled ones)
-WIDE_ROWS_TIMED = ((2, 4, 512, 576, "keypad", False, "bfloat16"),
-                   (2, 4, 512, 320, "keypad", False, "float32"))
+# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep the f32 dq and dk /
+# dv, timed on their own route (B, H, T, D, bias, causal, dtype): each
+# kernel whose source the route makes the warp-a-row file (the kernels line
+# carries the tiled ones)
+WIDE_ROWS_TIMED = ((2, 4, 512, 320, "keypad", False, "float32"),)
+# the f32 forward (3xTF32, wide_fwd_tf32) timed at (B, H, T, D, bias,
+# causal) in f32
+WIDE_F32_TIMED = ((2, 4, 512, 320, "keypad", False),
+                  (8, 8, 1024, 320, "keypad", False),
+                  (2, 4, 512, 576, "keypad", False))
 
 
 def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
@@ -2447,20 +2457,18 @@ def wide_timed(torch, dev, gen, attn, errs):
 def wide_rows_timed(torch, dev, gen, attn):
     """The warp-a-row kernels on their own route, at each
     ``WIDE_ROWS_TIMED`` shape: each wide kernel whose source the shape's
-    route makes ``WIDE_ROWS_SOURCE`` (all three in f32, dk / dv alone in 16
-    bits above 512; the route checked kernel by kernel), checked against
-    the plain versions (out within TOL_HALF or TOL_F32, dq, dk and dv
-    within REL_BWD), then its device time, by the profiler's records of
-    that kernel's own name, beside its bound, the plain version and SDPA's
-    memory-efficient forward or whole backward (or SDPA's refusal,
-    printed)."""
+    route makes ``WIDE_ROWS_SOURCE`` (the f32 dq and dk / dv alone; the
+    route checked kernel by kernel), checked against the plain backward
+    (dq, dk and dv within REL_BWD), then its device time, by the
+    profiler's records of that kernel's own name, beside its bound, the
+    plain version and SDPA's memory-efficient whole backward (or SDPA's
+    refusal, printed)."""
     rows_lib = "flash_attention_wide"
     for B, Hh, T, d, bias_kind, causal, dtn in WIDE_ROWS_TIMED:
         route = attn.head_dim_route(d, getattr(torch, dtn))
         names = [n for n in WIDE_KERNELS
                  if attn._source(n, route)[0] == rows_lib]
-        want = list(WIDE_KERNELS) if dtn == "float32" \
-            else ["flash_attention_wide_dkv"]
+        want = ["flash_attention_wide_dq", "flash_attention_wide_dkv"]
         if names != want:
             fail(f"WIDE_ROWS_TIMED: D={d} {dtn} ({route}) takes the "
                  f"warp-a-row {names}, expected {want}")
@@ -2469,15 +2477,6 @@ def wide_rows_timed(torch, dev, gen, attn):
         label = wide_label(B, Hh, T, d, bias_kind, causal, dtn)
         q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
         errs, calls = {}, {}
-        if "flash_attention_wide_fwd" in names:
-            ref, _ = attn.flash_attention_reference(
-                q.float(), k.float(), v.float(), bias, scale, causal)
-            errs["flash_attention_wide_fwd"] = check_close(
-                "warp-a-row wide forward", label, c["out"], ref,
-                TOL_F32 if dtn == "float32" else TOL_HALF)
-            calls["flash_attention_wide_fwd"] = lambda: attn._flash_forward(
-                q, k, v, bias, scale, causal)
-            del ref
         want = attn.flash_attention_backward_reference(
             q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
             causal, False)
@@ -2496,14 +2495,10 @@ def wide_rows_timed(torch, dev, gen, attn):
                 errs[name] = max(errs.get(name, 0.0), (
                     outs[i].float() - want[i]).abs().max().item())
         del want
-        plain_fwd = device_ms(lambda: attn.flash_attention_reference(
-            q, k, v, bias, scale, causal), iters=3)
         plain_bwd = device_ms(
             lambda: attn.flash_attention_backward_reference(
                 q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
                 causal, False), iters=3)
-        lib_fwd = wide_sdpa_forward_ms(torch, q, k, v, bias, scale, causal,
-                                       label)
         lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
             torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
         for name in names:
@@ -2512,22 +2507,62 @@ def wide_rows_timed(torch, dev, gen, attn):
             if ms is None:
                 fail(f"warp-a-row {name} at {label}: the profiler kept no "
                      f"record of {pattern}")
-            if name.endswith("_fwd"):
-                bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], dtn,
-                                             c["dt"].itemsize, causal, bias)
-                whole, lib, plain = "", lib_fwd, plain_fwd
-            else:
-                bnd, by = backward_bound_ms(
-                    name.rsplit("_", 1)[1], B, Hh, T, T, d, c["valid"], dtn,
-                    c["dt"].itemsize, causal, bias, False)
-                whole, lib, plain = " (the whole backward)", lib_bwd, \
-                    plain_bwd
+            bnd, by = backward_bound_ms(
+                name.rsplit("_", 1)[1], B, Hh, T, T, d, c["valid"], dtn,
+                c["dt"].itemsize, causal, bias, False)
             print(f"phase 3: {name} on the warp-a-row route "
                   f"({WIDE_ROWS_SOURCE}) at {label}: {fmt_ms(ms)} device "
-                  f"(bound {bnd:.5f} ms by {by}; plain {fmt_ms(plain)}"
-                  f"{whole}; SDPA memory-efficient {fmt_ms(lib)}{whole}); "
-                  f"error {errs[name]:.3e}", flush=True)
+                  f"(bound {bnd:.5f} ms by {by}; plain {fmt_ms(plain_bwd)} "
+                  f"(the whole backward); SDPA memory-efficient "
+                  f"{fmt_ms(lib_bwd)} (the whole backward)); error "
+                  f"{errs[name]:.3e}", flush=True)
         del c, calls
+        torch.cuda.empty_cache()
+
+
+def wide_f32_timed(torch, dev, gen, attn):
+    """The f32 wide forward (3xTF32 on the tensor cores, route
+    ``wide_f32``) at each ``WIDE_F32_TIMED`` shape: out and lse within
+    TOL_F32 of the plain version, then its device time, by the
+    profiler's records of ``wide_fwd_tf32``, beside its bound (operations
+    at the f32 FMA peak), its products' time as 3xTF32 on the tensor cores,
+    the plain version's and SDPA's f32 forward (its memory-efficient
+    backend, the only one that takes such heads; TF32 off)."""
+    pattern = ROUTE_KERNELS["wide_f32"][0]
+    for B, Hh, T, d, bias_kind, causal in WIDE_F32_TIMED:
+        if attn.head_dim_route(d, torch.float32) != "wide_f32":
+            fail(f"WIDE_F32_TIMED: D={d} f32 takes route "
+                 f"{attn.head_dim_route(d, torch.float32)}")
+        c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                            causal, "float32")
+        label = wide_label(B, Hh, T, d, bias_kind, causal, "float32")
+        q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
+        ref, ref_lse = attn.flash_attention_reference(q, k, v, bias, scale,
+                                                      causal)
+        err = check_close("f32 wide forward", label, c["out"], ref, TOL_F32)
+        check_close("f32 wide forward lse", label, c["lse"], ref_lse,
+                    TOL_F32)
+        del ref, ref_lse
+        ms = launch_ms(lambda: attn._flash_forward(q, k, v, bias, scale,
+                                                   causal), 10,
+                       lambda n: re.search(pattern, n))
+        if ms is None:
+            fail(f"f32 wide forward at {label}: the profiler kept no record "
+                 f"of {pattern}")
+        bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "float32", 4,
+                                     causal, bias)
+        flops = 4.0 * Hh * d * score_pairs(B, T, c["valid"], causal)
+        plain = device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias, scale, causal), iters=3)
+        lib = wide_sdpa_forward_ms(torch, q, k, v, bias, scale, causal,
+                                   label)
+        print(f"phase 3: flash_attention_wide_fwd (wide_f32, 3xTF32) at "
+              f"{label}: {fmt_ms(ms)} device (bound {bnd:.5f} ms by {by} at "
+              f"the f32 FMA peak; 3xTF32 on the tensor cores "
+              f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms; plain {fmt_ms(plain)}; "
+              f"SDPA f32 memory-efficient {fmt_ms(lib)}); error {err:.3e}",
+              flush=True)
+        del c
         torch.cuda.empty_cache()
 
 
@@ -2575,7 +2610,7 @@ def wide_path(torch, dev, gen, attn):
             fail("wide path: a warp-a-row wide kernel ran on the bf16 path")
         hits = {pattern: sum(n for k, n in seen.items()
                              if re.search(pattern, k))
-                for pattern in WIDE_WG_KERNEL.values()}
+                for pattern in ROUTE_KERNELS["wide_wg"]}
         if all(h == len(WIDE_PATHS) for h in hits.values()):
             break
         msg = (f"wide path: session {session}: the profiler saw {hits} "
@@ -2606,12 +2641,14 @@ def wide_path(torch, dev, gen, attn):
     return launches
 
 
-def stream_route_audit(torch, attn, c, label):
-    """At a 16-bit head dim above 512: one forward and one backward of case
-    ``c`` under torch.profiler, whose records must show the streamed tiled
-    forward and dq and no warp-a-row forward or dq (a session that kept no
-    record of a streamed kernel is run once more)."""
+def route_audit(torch, attn, c, label, route):
+    """One forward and one backward of case ``c`` under torch.profiler,
+    whose records must show ``route``'s own forward, dq and dk / dv
+    (``ROUTE_KERNELS``) and no other wide kernel: above 512 in 16 bits the
+    streamed tiled ones, in f32 the 3xTF32 forward and the warp-a-row pair
+    (a session that kept no record of one of them is run once more)."""
     from torch.profiler import ProfilerActivity, profile
+    patterns = ROUTE_KERNELS[route]
     for session in (1, 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2622,14 +2659,13 @@ def stream_route_audit(torch, attn, c, label):
             run_backward(attn, c, 1024)
             torch.cuda.synchronize()
         names = sorted(k for k in kernel_counts(prof) if "wide" in k)
-        if any(re.search(WIDE_ROWS_FWD_DQ, k) for k in names):
-            fail(f"wide {label}: a warp-a-row forward or dq kernel ran at a "
-                 f"16-bit head dim above 512: {names}")
-        if all(any(re.search(p, k) for k in names)
-               for p in (r"wide_fwd_st<", r"wide_dq_st<")):
+        if not all(any(re.search(p, k) for p in patterns) for k in names):
+            fail(f"wide {label}: a kernel of another route ran on "
+                 f"{route}: {names}")
+        if all(any(re.search(p, k) for k in names) for p in patterns):
             return
-    fail(f"wide {label}: the profiler saw no streamed forward or dq: "
-         f"{names}")
+    fail(f"wide {label}: the profiler missed one of {route}'s kernels "
+         f"{patterns}: {names}")
 
 
 def wide_checks(torch, dev, gen, attn):
@@ -2638,9 +2674,9 @@ def wide_checks(torch, dev, gen, attn):
     (the forward's, and the pair's through ``pair_dropout_masks``), two
     runs of the forward and of the backward equal to the bit, launches
     and copies counted; their path (:func:`wide_path`); each
-    ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`), and the
-    warp-a-row kernels (:func:`wide_rows_timed`). Returns (rows,
-    the path's launches)."""
+    ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`), the f32
+    forward (:func:`wide_f32_timed`) and the warp-a-row kernels
+    (:func:`wide_rows_timed`). Returns (rows, the path's launches)."""
     errs = {n: 0.0 for n in WIDE_KERNELS}
     for dtn, d, Tq, Tk, causal, bias_kind, rate in WIDE_CASES:
         dt = getattr(torch, dtn)
@@ -2648,8 +2684,9 @@ def wide_checks(torch, dev, gen, attn):
         c = wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal,
                       bias_kind, rate)
         route = attn.head_dim_route(d, dt)
-        # a 16-bit q, k, v whose rows TMA cannot address are copied
-        want_copies = 3 * (d % 8 != 0 and attn._uses_tma(
+        # a q, k, v whose rows TMA cannot address (not a multiple of 16
+        # bytes) are copied
+        want_copies = 3 * (d * dt.itemsize % 16 != 0 and attn._uses_tma(
             "flash_attention_wide_fwd", route, dt))
         if attn.padded_copies - copies != want_copies:
             fail(f"wide forward D={d} {dtn}: "
@@ -2664,7 +2701,8 @@ def wide_checks(torch, dev, gen, attn):
         errs["flash_attention_wide_fwd"] = max(
             errs["flash_attention_wide_fwd"],
             check_close("wide forward", label, c["out"], ref, tol))
-        check_close("wide forward lse", label, c["lse"], ref_lse, TOL_LSE)
+        check_close("wide forward lse", label, c["lse"], ref_lse,
+                    TOL_F32 if dtn == "float32" else TOL_LSE)
         again = attn._flash_forward(c["q"], c["k"], c["v"], c["bias"],
                                     c["scale"], causal, c["seed"], rate)
         if not (torch.equal(again[0], c["out"])
@@ -2696,8 +2734,8 @@ def wide_checks(torch, dev, gen, attn):
             e = rel(runs[0][3], want_grads[3].sum(dim=0, keepdim=True))
             if not e <= REL_BWD[dtn]:
                 fail(f"wide backward {label}: dbias rel {e:.3e}")
-        if route == "wide_stream":
-            stream_route_audit(torch, attn, c, label)
+        if route in ("wide_stream", "wide_f32"):
+            route_audit(torch, attn, c, label, route)
         print(f"phase 3: wide {label}: out, lse within tolerance, dq, dk, "
               f"dv{', dbias' if c['learned'] else ''} within rel "
               f"{REL_BWD[dtn]}, two runs of the forward and of the "
@@ -2705,7 +2743,7 @@ def wide_checks(torch, dev, gen, attn):
               flush=True)
     for dt, d in ((torch.bfloat16, 288), (torch.float16, 384),
                   (torch.bfloat16, 512), (torch.bfloat16, 576),
-                  (torch.float32, 288)):
+                  (torch.float32, 288), (torch.float32, 576)):
         got, want = wide_mask_probe(torch, dev, attn, dt, d)
         from_dkv, from_dq, want_pair = pair_dropout_masks(torch, attn, dev,
                                                           dt, d)
@@ -2721,6 +2759,7 @@ def wide_checks(torch, dev, gen, attn):
               flush=True)
     launches = wide_path(torch, dev, gen, attn)
     rows = wide_timed(torch, dev, gen, attn, errs)
+    wide_f32_timed(torch, dev, gen, attn)
     wide_rows_timed(torch, dev, gen, attn)
     for name in WIDE_KERNELS:
         rows[name]["max_abs_err"] = errs[name]

@@ -1,49 +1,39 @@
-// Flash attention at head dims above 256 for Hopper (sm_90a), bound through
-// plain C entries: the forward and the backward's dq / dkv pair.
+// The backward pair of flash attention for f32 heads above 256 on Hopper
+// (sm_90a), bound through a plain C entry: wide_dq and wide_dkv.
 //
-// Replaces, for head_dim > 256 only: mxnet_tpu/ops/pallas/attention.py,
-// _flash_fwd_kernel, _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel, which
-// take any head dim. flash_attention_fwd.cu and flash_attention_bwd.cu tile
-// the head dim into wgmma panels and registers sized up to 256; these
-// kernels are the simple route for wider heads, off every main path of the
-// port (no zoo model has such heads), written to be right for any D. The
-// routes of ops/cuda/attention.py:head_dim_route that take them: f32 at
-// every D > 256 ("wide_rows": all three), and wide_dkv alone for 16-bit
-// D > 512 ("wide_stream"); 16-bit heads take the tiled wgmma forward and
-// dq of flash_attention_wide_wg.cu at every D > 256, and the tiled wide_dkv
-// of flash_attention_wide_dkv.cu up to 512. So wide_fwd and wide_dq serve
-// f32 alone:
+// Replaces, for f32 at head_dim > 256 only (route "wide_f32" of
+// ops/cuda/attention.py:head_dim_route): mxnet_tpu/ops/pallas/attention.py,
+// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel, which take any head dim.
+// flash_attention_bwd.cu takes head dims up to 256; 16-bit heads above it
+// take the tiled wgmma kernels of flash_attention_wide_wg.cu (the forward
+// and dq) and flash_attention_wide_dkv.cu (dk / dv), and f32 heads the
+// 3xTF32 forward of flash_attention_wide_wg.cu. These two kernels are the
+// simple route for the f32 backward, off every main path of the port (no
+// zoo model has such heads), written to be right for any D:
 //
-//   wide_fwd:  out = softmax(q k^T * scale + bias) v and lse = m + log l,
-//              the denominator over the undropped probabilities, the kept
-//              ones scaled by 1 / (1 - rate) (the keep bit of philox.cuh,
-//              the same pure function of (seed, b, h, row, col) as the
-//              other kernels draw);
 //   wide_dq:   from the forward's lse and delta = rowsum(dout * out),
-//              p = exp(s - lse), dp = dout v^T (dropout as the forward),
+//              p = exp(s - lse), dp = dout v^T (dropped out as the forward
+//              drops p: the keep bit of philox.cuh, the same pure function
+//              of (seed, b, h, row, col) as the other kernels draw),
 //              ds0 = p (dp - delta), dq = (ds0 * scale) k, and ds0 itself
 //              into an f32 (B, H, Tq, Tk) tensor when the bias is learned;
 //   wide_dkv:  dv = p_d^T dout, dk = (ds0 * scale)^T q.
 //
 // The causal mask is top-left (col <= row); masked scores add nothing. A
-// warp owns one query row (fwd, dq) or one key row (dkv) of one (batch,
-// head), and its lanes stride the head dim: a score is a lane-strided dot
-// product reduced by a butterfly, a few of them at once (their loads and
+// warp owns one query row (dq) or one key row (dkv) of one (batch, head),
+// and its lanes stride the head dim: a score is a lane-strided dot product
+// reduced by a butterfly, a few of them at once (their loads and
 // reductions independent), so every sum runs in a fixed order and two runs
 // give the same bits (no atomics). The outputs are produced in slices of
 // 256 columns (8 f32 accumulators a lane), each slice a walk over the keys
 // (queries for dkv) in order that recomputes the scores it needs, so any
-// head dim fits in registers; the forward first walks the keys once for
-// the row max and denominator. Accumulation is in f32; each output is
-// rounded once to q's dtype (f32, bf16, fp16).
+// head dim fits in registers. Accumulation and outputs are f32.
 //
 // Bound: these kernels re-read K (or q and dout) once per 256-column slice
 // and do the products on the FMA pipe, so they are bound by neither the
 // card's bytes nor its tensor cores: a simple kernel that is right, for a
 // case no main path takes (PERF.md).
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -55,23 +45,10 @@ constexpr int WARPS = 4;        // rows a block
 constexpr int SLICE = 8;        // output columns a lane holds: 256 a warp
 // scores a warp computes at once, by kernel: the fastest of 1, 2 and 4 at
 // (2, 4, 512, 288) bf16 (PERF.md section 6)
-constexpr int KB_FWD = 2, KB_DQ = 1, KB_DKV = 4;
-constexpr float NEG_BIG = -1e30f;
+constexpr int KB_DQ = 1, KB_DKV = 4;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float ld(const __half* p) {
-  return __half2float(*p);
-}
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ void st(__half* p, float x) {
-  *p = __float2half_rn(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -114,8 +91,7 @@ struct Args {
   const float* lse;     // (B, H, Tq) f32
   const float* delta;   // (B, H, Tq) f32
   const int* seed;
-  void* o;              // forward: out; dq kernel: dq
-  float* lse_out;       // forward: (B, H, Tq) f32
+  void* o;              // dq
   void* dk;
   void* dv;
   float* ds;            // (B, H, Tq, Tk) f32, or null
@@ -155,69 +131,6 @@ __device__ __forceinline__ bool kept(const Args& a, uint2 key, int b, int h,
                                      int row, int col) {
   return !a.dropout ||
          mxt::dropout_keep(key, b, h, row, col, a.drop_threshold);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32) wide_fwd(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int h = blockIdx.y, b = blockIdx.z;
-  if (row >= a.Tq) return;
-  const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
-                row * a.q_st;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
-  const int kend = a.causal ? min(a.Tk, row + 1) : a.Tk;
-  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
-  constexpr int KB = KB_FWD;
-
-  // the row's max (floored at -1e30, as the other kernels start it) and
-  // denominator, online over the keys in order
-  float m = NEG_BIG, l = 0.f;
-  for (int j0 = 0; j0 < kend; j0 += KB) {
-    float s[KB];
-    scores<KB>(a, qr, kb, bp, row, j0, kend, lane, s);
-#pragma unroll
-    for (int i = 0; i < KB; ++i) {
-      if (j0 + i >= kend) break;
-      const float mn = fmaxf(m, s[i]);
-      l = l * expf(m - mn) + expf(s[i] - mn);
-      m = mn;
-    }
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + row * a.o_st;
-  for (int d0 = 0; d0 < a.D; d0 += 32 * SLICE) {
-    float acc[SLICE];
-#pragma unroll
-    for (int r = 0; r < SLICE; ++r) acc[r] = 0.f;
-    for (int j0 = 0; j0 < kend; j0 += KB) {
-      float s[KB];
-      scores<KB>(a, qr, kb, bp, row, j0, kend, lane, s);
-#pragma unroll
-      for (int i = 0; i < KB; ++i) {
-        const int j = j0 + i;
-        if (j >= kend) break;
-        float p = expf(s[i] - m);
-        if (a.dropout) p = kept(a, key, b, h, row, j) ? p * a.drop_scale : 0.f;
-        const T* vr = vb + j * a.v_st;
-#pragma unroll
-        for (int r = 0; r < SLICE; ++r) {
-          const int d = d0 + r * 32 + lane;
-          if (d < a.D) acc[r] = fmaf(p, ld(vr + d), acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < SLICE; ++r) {
-      const int d = d0 + r * 32 + lane;
-      if (d < a.D) st(orow + d, acc[r] * inv);
-    }
-  }
-  if (lane == 0)
-    a.lse_out[(static_cast<long long>(b) * a.H + h) * a.Tq + row] =
-        m + logf(fmaxf(l, 1e-30f));
 }
 
 // One score's share of the backward, as flash_attention_bwd.cu score_grad:
@@ -352,63 +265,29 @@ __global__ void __launch_bounds__(WARPS * 32) wide_dkv(const Args a) {
   }
 }
 
-template <typename T>
 cudaError_t launch(int kind, const Args& a, cudaStream_t s) {
   const int rows = kind == 2 ? a.Tk : a.Tq;
   const dim3 grid((rows + WARPS - 1) / WARPS, a.H, a.B);
-  if (kind == 0)
-    wide_fwd<T><<<grid, WARPS * 32, 0, s>>>(a);
-  else if (kind == 1)
-    wide_dq<T><<<grid, WARPS * 32, 0, s>>>(a);
+  if (kind == 1)
+    wide_dq<float><<<grid, WARPS * 32, 0, s>>>(a);
   else
-    wide_dkv<T><<<grid, WARPS * 32, 0, s>>>(a);
+    wide_dkv<float><<<grid, WARPS * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t s) {
-  if (dtype == 0) return launch<float>(kind, a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(kind, a, s);
-  return launch<__half>(kind, a, s);
-}
-
+// f32 (dtype 0) alone
 bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
          const int* seed) {
-  return dtype < 0 || dtype > 2 || D < 1 || B < 1 || H < 1 || Tq < 1 ||
-         Tk < 1 || B > 65535 || H > 65535 || (dropout && !seed);
+  return dtype != 0 || D < 1 || B < 1 || H < 1 || Tq < 1 || Tk < 1 ||
+         B > 65535 || H > 65535 || (dropout && !seed);
 }
 
 }  // namespace wide
 
-// The forward, with mxt_flash_attention_fwd's arguments (strides: q, k, v,
-// out as (batch, head, time) triples, then the bias's four).
-extern "C" int mxt_flash_wide_fwd(int dtype, const void* q, const void* k,
-                                  const void* v, const float* bias, void* out,
-                                  float* lse, int B, int H, int Tq, int Tk,
-                                  int D, const long long* strides, float scale,
-                                  int causal, const int* seed, int dropout,
-                                  unsigned int drop_threshold,
-                                  float drop_scale, void* stream) {
-  if (wide::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || !out || !lse)
-    return static_cast<int>(cudaErrorInvalidValue);
-  wide::Args a{};
-  a.q = q; a.k = k; a.v = v; a.bias = bias; a.o = out; a.lse_out = lse;
-  a.B = B; a.H = H; a.Tq = Tq; a.Tk = Tk; a.D = D;
-  a.q_sb = strides[0]; a.q_sh = strides[1]; a.q_st = strides[2];
-  a.k_sb = strides[3]; a.k_sh = strides[4]; a.k_st = strides[5];
-  a.v_sb = strides[6]; a.v_sh = strides[7]; a.v_st = strides[8];
-  a.o_sb = strides[9]; a.o_sh = strides[10]; a.o_st = strides[11];
-  a.b_sb = strides[12]; a.b_sh = strides[13]; a.b_sq = strides[14];
-  a.b_sk = strides[15];
-  a.scale = scale; a.causal = causal; a.seed = seed; a.dropout = dropout != 0;
-  a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
-  return static_cast<int>(
-      wide::dispatch(0, dtype, a, static_cast<cudaStream_t>(stream)));
-}
-
-// The backward pair, with mxt_flash_attention_bwd's arguments: kind 1 the
-// dq kernel (writes dq, and ds when it is not null), 2 the dk / dv kernel;
-// strides: q, k, v, dout, dq, dk, dv as (batch, head, time) triples, then
-// the bias's four.
+// The backward pair, with mxt_flash_attention_bwd's arguments, for f32
+// (dtype 0): kind 1 the dq kernel (writes dq, and ds when it is not null),
+// 2 the dk / dv kernel; strides: q, k, v, dout, dq, dk, dv as (batch,
+// head, time) triples, then the bias's four.
 extern "C" int mxt_flash_wide_bwd(
     int kind, int dtype, const void* q, const void* k, const void* v,
     const void* dout, const float* bias, const float* lse, const float* delta,
@@ -433,5 +312,5 @@ extern "C" int mxt_flash_wide_bwd(
   a.scale = scale; a.causal = causal; a.seed = seed; a.dropout = dropout != 0;
   a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
   return static_cast<int>(
-      wide::dispatch(kind, dtype, a, static_cast<cudaStream_t>(stream)));
+      wide::launch(kind, a, static_cast<cudaStream_t>(stream)));
 }

@@ -1,11 +1,14 @@
-// Flash attention's dk / dv kernel at 16-bit head dims 256 < D <= 512 for
-// Hopper (sm_90a), tiled on wgmma and TMA, bound through a plain C entry.
+// Flash attention's dk / dv kernels at 16-bit head dims above 256 for
+// Hopper (sm_90a), tiled on wgmma and TMA, bound through a plain C entry:
+// wide_dkv_wg on the "wide_wg" route (256 < D <= 512) and wide_dkv_st,
+// which streams the head dim, on the "wide_stream" route (D > 512) of
+// ops/cuda/attention.py:head_dim_route.
 //
-// Replaces, for bf16 / fp16 at 256 < D <= 512: mxnet_tpu/ops/pallas/
+// Replaces, for bf16 / fp16 at every D > 256: mxnet_tpu/ops/pallas/
 // attention.py, _flash_bwd_dkv_kernel (launched at :778), which takes any
 // head dim; flash_attention_wide.cu's wide_dkv (a warp a key row on the FMA
-// pipe) keeps f32 and D > 512. From q, k, v, dout, the forward's lse and
-// delta = rowsum(dout * out):
+// pipe) keeps f32. From q, k, v, dout, the forward's lse and delta =
+// rowsum(dout * out):
 //   p = exp(s - lse), s = q k^T * scale + bias, 0 where masked;
 //   p_d, dp_d: p and dp = dout v^T dropped out as the forward drops p;
 //   dv = p_d^T dout,  dk = (p (dp_d - delta) * scale)^T q, ds rounded to
@@ -68,6 +71,10 @@
 // run. Blocks are numbered key block by key block, all of one (batch,
 // head) together, so that its q and dout (1.3 MB at T = 1024, DP = 320)
 // are read from the 50 MB L2 by every block after the first.
+//
+// Above D = 512 K and V no longer fit beside a ring: wide_dkv_st streams
+// K, V, q and dout panels through it, with design (ii)'s roles at every D
+// (the section "head dims above 512").
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -526,6 +533,376 @@ __global__ void __launch_bounds__(2 * 128, 1)
   }
 }
 
+// ------------------------------------ head dims above 512: the streamed walk
+// K and V of a block's 64 keys take 256 D bytes (256 KB at D = 1024): they
+// no longer fit beside a ring. So the walk streams the head dim too, as
+// flash_attention_wide_wg.cu's wide_dq_st does: P = ceil(D / 64) panels in
+// ceil(P / 4) slices of 3 or 4 (st_slices), a dv block and a dk block a
+// slice (ROLES), one consumer warpgroup and one producer warp (256
+// threads). Each 32-row q tile is a run of ring steps: ceil(P / ST_G)
+// score steps, each holding ST_G panels of K and q (and, for dk, of V and
+// dout), which the consumer adds into s^T (and dp^T) by wgmma, then one
+// value step holding the slice's panels of dout (dv) or q (dk), for dv +=
+// p_d^T dout (dk += ds^T q). A slot is one size whatever D is; the panels
+// of the last score step past P read a zeroed region, so every wgmma group
+// is straight-line code of a fixed size (a group in a loop of a run-time
+// trip count is serialized by ptxas, C7520). Every block of a key block
+// computes s^T (dp^T) over all P panels in the same order, so all hold the
+// same bits of p and ds. dk and dv leave once, by TMA stores: no atomics.
+// head-dim panels a score step: 3 (3 slots of 72 KB) was 7-8 % faster on
+// an H100 than 2 (4 slots) at D = 576 and 1280, a tie at 1024, and 12-28 %
+// faster than 4 (2 slots)
+constexpr int ST_G = 3;
+constexpr int ST_THREADS = 256;  // a consumer warpgroup, a producer's
+constexpr int ST_MAX_SLOTS = 8;
+
+__host__ __device__ inline int st_slices(int P) { return (P + 3) / 4; }
+
+__device__ __forceinline__ void st_advance(int& st, uint32_t& ph,
+                                           int slots) {
+  if (++st == slots) {
+    st = 0;
+    ph ^= 1;
+  }
+}
+
+// The streamed walk's shared memory from a 1024-byte aligned base: a zeroed
+// 64-row panel, the ring's SLOTS slots (a score step: ST_G panels each of
+// K, V, q, dout; a value step: the slice's panels of dout or q), each
+// slot's lse and delta rows (indexed by tile), the mbarriers (full and
+// empty a slot).
+struct StSmem {
+  int P, NS, SLOT, SLOTS, RING, AUX, BAR, ALLOC;
+  __host__ __device__ explicit StSmem(int D) {
+    P = (D + 63) / 64;
+    NS = (P + ST_G - 1) / ST_G;
+    SLOT = ST_G * 2 * (KV_PANEL + Q_PANEL);
+    RING = KV_PANEL;  // after the zeroed panel at 0
+    SLOTS = (SMEM_LIMIT - 1024 - RING) / (SLOT + 2 * BQ * 4 + 2 * 8);
+    if (SLOTS > ST_MAX_SLOTS) SLOTS = ST_MAX_SLOTS;
+    AUX = RING + SLOTS * SLOT;
+    BAR = AUX + SLOTS * 2 * BQ * 4;
+    ALLOC = BAR + 2 * SLOTS * 8 + 1024;
+  }
+};
+
+// p^T and ds^T of one q tile from the accumulated s^T (st) and dp^T (dpt,
+// dk blocks), walk's arithmetic: p = 2^(s scale log2(e) + key term + bias
+// - lse) (0 where masked), the dropout mask with keys as the rows, p_d
+// into st (dv blocks), ds0 = p (dp_d - delta) into dpt (dk blocks). lq,
+// dl: the tile's staged lse (base 2) and delta rows. walk keeps its own
+// copy inline, for its SLICES blocks that need both: on the card, moving
+// such a tile's code of the tiled dq kernel into a helper made it a third
+// slower (flash_attention_wide_wg.cu, ds_tile).
+template <bool DK>
+__device__ __forceinline__ void tile_grads(float* st, float* dpt,
+                                           const Args& a, int q0, int k0,
+                                           int ka, int kb, int t4, bool odd,
+                                           const float* kterm,
+                                           const float* lq, const float* dl,
+                                           uint2 key, float scale2,
+                                           bool full_bias, const float* bp,
+                                           int b, int h) {
+  if (!full_bias) {
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + 2 * t4);
+      st[4 * j] = fmaf(st[4 * j], scale2, kterm[0]) - l2.x;
+      st[4 * j + 1] = fmaf(st[4 * j + 1], scale2, kterm[0]) - l2.y;
+      st[4 * j + 2] = fmaf(st[4 * j + 2], scale2, kterm[1]) - l2.x;
+      st[4 * j + 3] = fmaf(st[4 * j + 3], scale2, kterm[1]) - l2.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int kk = (i & 2) ? kb : ka;
+      const float bv = r < a.Tq && kk < a.Tk
+                           ? bp[r * a.b_sq + kk * a.b_sk] * LOG2E : 0.f;
+      st[i] = fmaf(st[i], scale2, kterm[(i >> 1) & 1] + bv) -
+              lq[8 * (i >> 2) + 2 * t4 + (i & 1)];
+    }
+  }
+  if (a.causal && q0 < k0 + KEYS - 1) {  // the tile crosses the diagonal
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (((i & 2) ? kb : ka) > r) st[i] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = hop::ex2(st[i]);
+  if (a.dropout) {
+    const uint32_t th = a.drop_threshold;
+    const float dsc = a.drop_scale;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      uint32_t w[4];
+      dropout_chunk(w, key, b, h, q0 + 8 * j + 2 * t4, ka, kb, odd);
+      [[maybe_unused]] const float2 d2 =
+          DK ? *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4)
+             : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const bool keep = w[e] >= th;
+        if constexpr (DK) {
+          const float dp = keep ? dpt[i] * dsc : 0.f;
+          dpt[i] = st[i] * (dp - ((e & 1) ? d2.y : d2.x));
+        } else {
+          st[i] = keep ? st[i] * dsc : 0.f;
+        }
+      }
+    }
+  } else if constexpr (DK) {
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+  }
+}
+
+// One block of the streamed walk: dk (DK) or dv of the keys [k0, k0 + 64)
+// over the W panels from c0.
+template <typename T, bool DK, int W>
+__device__ __forceinline__ void walk_st(const Maps& maps, const Args& a,
+                                        unsigned char* sm, const StSmem& L,
+                                        int k0, int c0, int h, int b) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* empty = full + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  float* s_aux = reinterpret_cast<float*>(sm + L.AUX);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  // query tiles above the causal diagonal see none of these keys
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int n_tiles = max(0, (a.Tq + BQ - 1) / BQ - iq0);
+  // a score step's operands: K's panels at 0, V's, q's, dout's behind
+  constexpr int V_AT = ST_G * KV_PANEL, Q_AT = 2 * ST_G * KV_PANEL;
+  constexpr int DO_AT = Q_AT + ST_G * Q_PANEL;
+
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies; every lane stages a tile's lse
+    // and delta rows with its first step and arrives on each step's barrier
+    if (tid >= 160) return;
+    const float* lsep = a.lse + bh * a.Tq;
+    const float* deltap = a.delta + bh * a.Tq;
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = (iq0 + it) * BQ;
+      for (int j = 0; j <= L.NS; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0) {
+          // lse in base-2 units, +inf past Tq (p = 0 there); delta 0 there
+          const int r = q0 + lane;
+          float* aux = s_aux + (it % L.SLOTS) * 2 * BQ;
+          aux[lane] = r < a.Tq ? lsep[r] * LOG2E : INFINITY;
+          aux[BQ + lane] = r < a.Tq ? deltap[r] : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * L.SLOT;
+          if (j < L.NS) {  // a score step: panels [p0, p0 + n)
+            const int p0 = j * ST_G, n = min(ST_G, L.P - p0);
+            hop::mbar_expect(full + st,
+                             n * (DK ? 2 : 1) * (KV_PANEL + Q_PANEL));
+            for (int g = 0; g < n; ++g) {
+              const int c = (p0 + g) * 64;
+              hop::tma_load_4d(slot + g * KV_PANEL, &maps.k, full + st, c,
+                               k0, h, b);
+              hop::tma_load_4d(slot + Q_AT + g * Q_PANEL, &maps.q, full + st,
+                               c, q0, h, b);
+              if (DK) {
+                hop::tma_load_4d(slot + V_AT + g * KV_PANEL, &maps.v,
+                                 full + st, c, k0, h, b);
+                hop::tma_load_4d(slot + DO_AT + g * Q_PANEL, &maps.dout,
+                                 full + st, c, q0, h, b);
+              }
+            }
+          } else {  // the value step: the slice's q (dk) or dout (dv)
+            hop::mbar_expect(full + st, W * Q_PANEL);
+            for (int p = 0; p < W; ++p)
+              hop::tma_load_4d(slot + p * Q_PANEL,
+                               DK ? &maps.q : &maps.dout, full + st,
+                               (c0 + p) * 64, q0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  const int warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
+  const int ka = k0 + warp * 16 + g8, kb = ka + 8;  // this thread's keys
+  const bool odd = (g8 & 1) != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  float kterm[2];  // the key's term of the exponent, as walk reads it
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kk = i ? kb : ka;
+    kterm[i] = kk >= a.Tk ? -INFINITY
+               : (bp != nullptr && !full_bias) ? bp[kk * a.b_sk] * LOG2E
+                                               : 0.f;
+  }
+  const uint32_t zero = hop::smem_u32(sm);
+  const uint32_t ring = zero + L.RING;
+  {  // the zeroed panel, before the first product
+    float4* z = reinterpret_cast<float4*>(sm);
+    for (int i = tid; i < KV_PANEL / 16; i += 128)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    hop::fence_async_smem();
+    hop::named_sync(1, 128);
+  }
+
+  float acc[W * 32];  // dk or dv
+#pragma unroll
+  for (int i = 0; i < W * 32; ++i) acc[i] = 0.f;
+  float st[BQ / 2], dpt[DK ? BQ / 2 : 1];  // s^T, dp^T: rows ka, kb
+  uint32_t af[BQ / 16][4];
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (iq0 + it) * BQ;
+    // s^T = K q^T (and dp^T = V dout^T), ST_G panels a step; the step
+    // before is still in flight when a step is issued, its slot released
+    // once it is done
+    int rel = s;
+    for (int j = 0; j < L.NS; ++j) {
+      hop::mbar_wait_or_trap(full + s, ph);
+      hop::wgmma_fence();  // after the wait: else ptxas serializes (C7520)
+      const uint32_t slot = ring + s * L.SLOT;
+#pragma unroll
+      for (int g = 0; g < ST_G; ++g) {
+        const bool real = j * ST_G + g < L.P;
+        const uint32_t kp = real ? slot + g * KV_PANEL : zero;
+        const uint32_t qp = real ? slot + Q_AT + g * Q_PANEL : zero;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss<T, BQ>(st, hop::desc_kmajor_sw128(kp + kk * 32),
+                               hop::desc_kmajor_sw128(qp + kk * 32),
+                               j > 0 || g > 0 || kk > 0);
+        if constexpr (DK) {
+          const uint32_t vp = real ? slot + V_AT + g * KV_PANEL : zero;
+          const uint32_t op = real ? slot + DO_AT + g * Q_PANEL : zero;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_ss<T, BQ>(dpt, hop::desc_kmajor_sw128(vp + kk * 32),
+                                 hop::desc_kmajor_sw128(op + kk * 32),
+                                 j > 0 || g > 0 || kk > 0);
+        }
+      }
+      hop::wgmma_commit();
+      if (j > 0) {
+        hop::wgmma_wait<1>();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(empty + rel);
+        if (++rel == L.SLOTS) rel = 0;
+      }
+      st_advance(s, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + rel);
+    hop::fence_regs(st, BQ / 2);
+    if constexpr (DK) hop::fence_regs(dpt, BQ / 2);
+
+    const float* lq = s_aux + (it % L.SLOTS) * 2 * BQ;
+    tile_grads<DK>(st, dpt, a, q0, k0, ka, kb, t4, odd, kterm, lq, lq + BQ,
+                   key, scale2, full_bias, bp, b, h);
+
+    // dv += p_d^T dout or dk += (ds0 scale)^T q over the slice's panels:
+    // p_d^T or ds^T packed to 16 bits as the register A operand, the value
+    // step's panels as the MN-major B
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        if constexpr (DK)
+          af[kk][r] = Half<T>::pack(dpt[i] * a.scale, dpt[i + 1] * a.scale);
+        else
+          af[kk][r] = Half<T>::pack(st[i], st[i + 1]);
+      }
+    hop::mbar_wait_or_trap(full + s, ph);
+    hop::wgmma_fence();
+    const uint32_t vals = ring + s * L.SLOT;
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      mma_panels<T, W>(acc, af[kk], vals + kk * 16 * ROW_BYTES);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc, W * 32);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + s);
+    st_advance(s, ph, L.SLOTS);
+  }
+
+  // ------------------------------------------------------------- epilogue
+  // dk or dv through the ring's first panels (every step is used), in the
+  // swizzled layout of the store's tensor map; one thread stores each
+  // 64-wide panel, keys past Tk and columns past D clipped
+  hop::named_sync(1, 128);
+  stage_rows<T, W>(acc, sm + L.RING, warp * 16 + g8, t4);
+  hop::fence_async_smem();
+  hop::named_sync(1, 128);
+  if (tid == 0 && k0 < a.Tk) {
+    for (int p = 0; p < W; ++p)
+      hop::tma_store_4d(DK ? &maps.dk : &maps.dv, sm + L.RING + p * KV_PANEL,
+                        (c0 + p) * 64, k0, h, b);
+    hop::tma_store_commit_and_wait();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+    wide_dkv_st(const __grid_constant__ Maps maps, const Args a) {
+  const StSmem L(a.D);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);
+  uint64_t* empty = full + L.SLOTS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // blocks [0, nsl) of a key block own dv of slice j, [nsl, 2 nsl) dk
+  const int nsl = st_slices(L.P);
+  const int j = blockIdx.x % (2 * nsl), k0 = (blockIdx.x / (2 * nsl)) * KEYS;
+  const int sl = j % nsl;
+  const int c0 = sl * L.P / nsl, w = (sl + 1) * L.P / nsl - c0;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (j < nsl) {
+    if (w == 4)
+      walk_st<T, false, 4>(maps, a, sm, L, k0, c0, h, b);
+    else
+      walk_st<T, false, 3>(maps, a, sm, L, k0, c0, h, b);
+  } else {
+    if (w == 4)
+      walk_st<T, true, 4>(maps, a, sm, L, k0, c0, h, b);
+    else
+      walk_st<T, true, 3>(maps, a, sm, L, k0, c0, h, b);
+  }
+}
+
 // ------------------------------------------------------------------- host
 template <typename T, int DP, int MODE = dkv_mode(DP)>
 cudaError_t launch(const Args& a, const Maps& maps, cudaStream_t st) {
@@ -535,6 +912,18 @@ cudaError_t launch(const Args& a, const Maps& maps, cudaStream_t st) {
   cudaError_t e = mxt::set_smem(kern, L::ALLOC);
   if (e != cudaSuccess) return e;
   kern<<<grid, 2 * 128, L::ALLOC, st>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// the streamed walk (D > 512): 2 ceil(P / 4) blocks a key block
+template <typename T>
+cudaError_t launch_st(const Args& a, const Maps& maps, cudaStream_t st) {
+  const StSmem L(a.D);
+  auto kern = wide_dkv_st<T>;
+  const dim3 grid((a.Tk + KEYS - 1) / KEYS * 2 * st_slices(L.P), a.H, a.B);
+  cudaError_t e = mxt::set_smem(kern, L.ALLOC);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, ST_THREADS, L.ALLOC, st>>>(maps, a);
   return cudaGetLastError();
 }
 
@@ -557,6 +946,7 @@ cudaError_t dispatch(const Args& a, const long long* s, void* dk, void* dv,
       !mxt::make_map(&maps.dv, type, dv, a.D, a.Tk, a.H, a.B, s[20], s[19],
                      s[18], KEYS))
     return cudaErrorInvalidValue;
+  if (a.D > 512) return launch_st<T>(a, maps, st);
   if (a.D <= 320) return launch<T, 320>(a, maps, st);
   if (a.D <= 384) return launch<T, 384>(a, maps, st);
   if (a.D <= 448) return launch<T, 448>(a, maps, st);
@@ -569,7 +959,7 @@ cudaError_t dispatch(const Args& a, const long long* s, void* dk, void* dv,
 // The dk / dv kernel, with mxt_flash_wide_bwd's arguments (kind must be 2;
 // strides of q, k, v, dout, dq, dk, dv as (batch, head, time) triples, then
 // the bias's four; dq and ds unused), for 16-bit data (dtype 1 = bfloat16,
-// 2 = float16) at 256 < D <= 512. q, k, v, dout, dk and dv must be views
+// 2 = float16) at D > 256. q, k, v, dout, dk and dv must be views
 // TMA can address (16-byte aligned, strides of dimensions longer than 1
 // multiples of 8 elements; the Python wrapper copies other operands).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
@@ -583,7 +973,7 @@ extern "C" int mxt_flash_wide_wg_dkv(
     float drop_scale, void* stream) {
   (void)dq;
   (void)ds;
-  if (kind != 2 || dtype < 1 || dtype > 2 || D <= 256 || D > 512 || B < 1 ||
+  if (kind != 2 || dtype < 1 || dtype > 2 || D <= 256 || B < 1 ||
       H < 1 || Tq < 1 || Tk < 1 || B > 65535 || H > 65535 || !lse ||
       !delta || !dk || !dv || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,14 +1,16 @@
-// Flash attention at 16-bit head dims above 256 for Hopper (sm_90a), tiled
-// on wgmma and TMA, bound through plain C entries: the forward and the
-// backward's dq kernel, on the "wide_wg" route (256 < D <= 512) and the
-// "wide_stream" route (D > 512) of ops/cuda/attention.py:head_dim_route.
+// Flash attention at head dims above 256 for Hopper (sm_90a), tiled on
+// wgmma and TMA, bound through plain C entries: the forward at every dtype
+// and the backward's dq kernel for 16-bit data, on the "wide_wg" route
+// (16-bit, 256 < D <= 512), the "wide_stream" route (16-bit, D > 512) and,
+// for the forward, the "wide_f32" route (f32, D > 256) of
+// ops/cuda/attention.py:head_dim_route.
 //
-// Replaces, for bf16 / fp16 at every D > 256: mxnet_tpu/ops/pallas/
-// attention.py, _flash_fwd_kernel (launched at :317) and
-// _flash_bwd_dq_kernel (launched at :740), which take any head dim. It
-// computes what flash_attention_wide.cu's wide_fwd and wide_dq compute (a
-// warp a row on the FMA pipe; they keep f32, and its wide_dkv 16-bit
-// D > 512 too; flash_attention_wide_dkv.cu's wide_dkv the rest):
+// Replaces, at every D > 256: mxnet_tpu/ops/pallas/attention.py,
+// _flash_fwd_kernel (launched at :317) and, for bf16 / fp16,
+// _flash_bwd_dq_kernel (launched at :740), which take any head dim;
+// flash_attention_wide_dkv.cu's kernels take 16-bit dk / dv, and
+// flash_attention_wide.cu's warp-a-row ones the f32 dq and dk / dv. It
+// computes:
 //   out = softmax(q k^T * scale + bias) v and lse = m + log(max(l, 1e-30)),
 //     the denominator over the undropped probabilities, the kept ones
 //     scaled by 1 / (1 - rate);
@@ -86,6 +88,12 @@
 // for O (dq). Shared memory does not grow with D; s and dp are recomputed
 // once a slice, ceil(P / 4) + 1 products of P panels for the forward's 2.
 // The forward keeps q resident while its P panels fit beside four slots.
+//
+// f32 heads take wide_fwd_tf32 at every D > 256 (the section "f32 heads"):
+// the same streamed walk in 32-column f32 panels, each product three TF32
+// wgmmas (3xTF32), K and V split into TF32 halves (V transposed, as
+// wgmma's TF32 B must be K-major) by three producer warps between the TMA
+// copy and the consumer.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1454,6 +1462,464 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
     dq_st_consumer<T, 3>(maps, a, sm, L, q0, ps, n_tiles);
 }
 
+// ------------------------------------- f32 heads: the forward on 3xTF32
+// f32 q, k, v at every D > 256 (route "wide_f32"): the streamed walk above
+// carried to f32. A 128-byte swizzled row holds 32 f32 values, so a panel
+// is 32 columns (P = ceil(D / 32)), and wgmma reads f32 data only as TF32
+// (10 mantissa bits), K-major on both sides. So each operand is split
+// into TF32 halves, x = hi + lo, and each product taken as hi hi' + hi lo'
+// + lo hi' (3xTF32, hopper.cuh): f32 to about 2^-21 relative, where TF32
+// alone (2^-11) would miss the f32 tolerance. Both products take A from
+// registers, B from shared memory:
+//  - S = q K^T: the consumer loads its q fragments raw from shared memory
+//    (q resident, loaded once, while its P panels leave a ring of 4 slots:
+//    D <= 608; else streamed with K) and splits them in registers; K's
+//    panels come TF_G a ring step, split in place (hi, lo TF_LO bytes on);
+//  - O += P V: P is split in registers; V's panels come TF_G a step,
+//    transposed in place into V^T (a row a column of the head dim, its 32
+//    keys one 128-byte row: K-major B) with lo beside it, the keys of each
+//    8-key group in the order P's register fragment takes them
+//    (tf32_key_pos), so P is the A operand with no shuffle;
+//  - three producer warps, the splitters, split K and V between the TMA
+//    copy and the consumer (one more barrier a slot, ready). Splitting q
+//    there too, for every key tile, bounded an earlier build of this
+//    kernel: 0.194 ms at (2, 4, 512, 320) (PERF.md section 6).
+// A block owns 64 rows and a slice of up to TF_NO output panels (192
+// columns: 96 f32 a thread), the slices recomputing S as the 16-bit
+// streamed kernels do; three m64n32k8 wgmmas a k8 step and panel. Every
+// sum runs in one order: out and lse are the same bits from run to run.
+constexpr int TF_G = 2;       // head-dim panels a ring step
+constexpr int TF_NO = 6;      // output panels a slice, at most
+constexpr int TF_LO = TF_G * TILE_PANEL;  // lo's offset in a slot
+constexpr int TF_SPLIT = 96;  // splitter threads: producer warps 1-3
+constexpr int BAR_SPLIT = 2;  // the splitters' named barrier
+
+// The slices of P f32 panels: 4 to 6 panels each for P >= 9 (P / ceil(P /
+// 6) >= 4), the widths wide_fwd_tf32's consumer is built for
+__host__ __device__ inline int tf_slices(int P) {
+  return (P + TF_NO - 1) / TF_NO;
+}
+static_assert(TF_NO == 6, "wide_fwd_tf32 takes slices of 4 to 6 panels");
+
+// The f32 forward's shared memory from a 1024-byte aligned base: a zeroed
+// 64-row panel (the operands of score panels past P), q's P raw panels
+// (q_res), the ring's SLOTS slots (K or V^T hi at 0, lo at TF_LO, a
+// streamed q's raw panels at 2 TF_LO), a staged bias row a slot, indexed
+// by tile, then the mbarriers: full (copied), ready (split) and empty
+// (used) a slot, and the resident q's.
+struct TfSmem {
+  int P, NS, SLOT, SLOTS, RING, BIAS, BAR, ALLOC;
+  __host__ __device__ TfSmem(int D, bool q_res) {
+    P = (D + 31) / 32;
+    NS = (P + TF_G - 1) / TF_G;
+    RING = Q_PANEL_BYTES + (q_res ? P * Q_PANEL_BYTES : 0);
+    SLOT = 2 * TF_LO + (q_res ? 0 : TF_G * Q_PANEL_BYTES);
+    SLOTS = (SMEM_LIMIT - 1024 - 8 - RING) / (SLOT + KEYS * 4 + 3 * 8);
+    if (SLOTS > ST_MAX_SLOTS) SLOTS = ST_MAX_SLOTS;
+    BIAS = RING + SLOTS * SLOT;
+    BAR = BIAS + SLOTS * KEYS * 4;
+    ALLOC = BAR + (3 * SLOTS + 1) * 8 + 1024;
+  }
+};
+
+// Whether the f32 forward keeps q's raw panels resident: where they leave
+// a ring of 4 slots
+__host__ __device__ inline bool tf_q_resident(int P) {
+  return TfSmem(P * 32, true).SLOTS >= 4;
+}
+
+// Where key r of a tile sits in a row of V^T: P's TF32 register fragment
+// takes an 8-key group's k = t4 from its element 2 t4 and k = t4 + 4 from
+// 2 t4 + 1 (hop::wgmma_tf32_rs32), so key 2 c of the group is stored at c
+// and key 2 c + 1 at c + 4
+__device__ __forceinline__ int tf32_key_pos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
+// A score step's n K panels split in place, lo TF_LO bytes on, by
+// splitter t of TF_SPLIT (its loads all issued before the first split)
+__device__ __forceinline__ void tf_split_keys(unsigned char* slot, int n,
+                                              int t) {
+  constexpr int K4 = TILE_PANEL / 16;  // float4s a panel
+  constexpr int PER = (TF_G * K4 + TF_SPLIT - 1) / TF_SPLIT;
+  uint4* hi = reinterpret_cast<uint4*>(slot);
+  uint4* lo = reinterpret_cast<uint4*>(slot + TF_LO);
+  float4 x[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * TF_SPLIT;
+    if (i < n * K4) x[u] = reinterpret_cast<const float4*>(hi)[i];
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * TF_SPLIT;
+    if (i >= n * K4) break;
+    uint4 h, l;
+    hop::tf32_split(x[u].x, h.x, l.x);
+    hop::tf32_split(x[u].y, h.y, l.y);
+    hop::tf32_split(x[u].z, h.z, l.z);
+    hop::tf32_split(x[u].w, h.w, l.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// A value step's n V panels (32 keys x 32 columns each, swizzled as TMA
+// wrote them) transposed in place into V^T (row c: column c of the step's
+// panels, key r at tf32_key_pos(r), swizzled) as hi, lo TF_LO bytes on, by
+// splitter t: every splitter reads its share before any writes
+__device__ __forceinline__ void tf_split_values(unsigned char* slot, int n,
+                                                int t) {
+  constexpr int K4 = TILE_PANEL / 16;
+  constexpr int PER = (TF_G * K4 + TF_SPLIT - 1) / TF_SPLIT;  // float4s
+  float4 buf[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    // unit i: panel i / K4, 16-byte chunk (i >> 5) & 7, key i & 31: a warp
+    // takes one chunk of the 32 keys, so that each of its stores below
+    // fills one row of V^T across 32 banks
+    const int i = t + u * TF_SPLIT, r = i & 31, c = (i >> 5) & 7;
+    if (i < n * K4)
+      buf[u] = *reinterpret_cast<const float4*>(
+          slot + (i / K4) * TILE_PANEL + r * ROW_BYTES + ((c ^ (r & 7)) << 4));
+  }
+  hop::named_sync(BAR_SPLIT, TF_SPLIT);
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * TF_SPLIT, s = tf32_key_pos(i & 31);
+    if (i >= n * K4) break;
+    const float x[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = (i / K4) * 32 + ((i >> 5) & 7) * 4 + e;  // V^T's row
+      const int off =
+          row * ROW_BYTES + (((s >> 2) ^ (row & 7)) << 4) + (s & 3) * 4;
+      uint32_t h, l;
+      hop::tf32_split(x[e], h, l);
+      *reinterpret_cast<uint32_t*>(slot + off) = h;
+      *reinterpret_cast<uint32_t*>(slot + TF_LO + off) = l;
+    }
+  }
+}
+
+// The output panels [0, NO) of the consumer's 64 rows (acc, NFRAG f32 a
+// 32-column panel, times mul[0] for row ra and mul[1] for rb) into f32
+// panels of 64 rows at `region` (swizzled), then stored by TMA by one
+// thread as the output's panels [shift, shift + NO)
+template <int NO>
+__device__ __forceinline__ void store_rows_f32(const float (*acc)[NFRAG],
+                                               const float* mul,
+                                               unsigned char* region,
+                                               const CUtensorMap* map,
+                                               const Rows& w, int Tq,
+                                               int shift) {
+  const int row = w.warp * 16 + w.g;
+#pragma unroll
+  for (int p = 0; p < NO; ++p) {
+    unsigned char* pn = region + p * Q_PANEL_BYTES;
+#pragma unroll
+    for (int j = 0; j < NFRAG / 4; ++j) {
+      const int at = (((2 * j + (w.t4 >> 1)) ^ (row & 7)) << 4) +
+                     (w.t4 & 1) * 8;
+      const float* x = acc[p] + 4 * j;
+      *reinterpret_cast<float2*>(pn + row * ROW_BYTES + at) =
+          make_float2(x[0] * mul[0], x[1] * mul[0]);
+      *reinterpret_cast<float2*>(pn + (row + 8) * ROW_BYTES + at) =
+          make_float2(x[2] * mul[1], x[3] * mul[1]);
+    }
+  }
+  hop::fence_async_smem();
+  hop::named_sync(1, 128);
+  if ((threadIdx.x & 127) == 0 && w.r0 < Tq) {
+#pragma unroll
+    for (int p = 0; p < NO; ++p)
+      hop::tma_store_4d(map, region + p * Q_PANEL_BYTES, (p + shift) * 32,
+                        w.r0, w.h, w.b);
+    hop::tma_store_commit_and_wait();
+  }
+}
+
+// The consumer of the f32 forward: S over all P panels, the online
+// softmax, and O over the slice's NO panels from ps.
+template <int NO, bool QRES>
+__device__ __forceinline__ void fwd_tf32_consumer(const Maps& maps,
+                                                  const Args& a,
+                                                  unsigned char* sm,
+                                                  const TfSmem& L, int r0,
+                                                  int ps, int n_tiles) {
+  constexpr int NV = (NO + TF_G - 1) / TF_G;  // value steps a tile
+  const Rows w = rows_of(r0);
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + w.b * a.b_sb + w.h * a.b_sh : nullptr;
+  const float scale2 = a.scale * LOG2E;
+  const uint32_t zero = hop::smem_u32(sm);
+  const uint32_t ring = zero + L.RING;
+  uint64_t* ready = reinterpret_cast<uint64_t*>(sm + L.BAR) + L.SLOTS;
+  uint64_t* empty = ready + L.SLOTS;
+  const float* s_bias = reinterpret_cast<const float*>(sm + L.BIAS);
+  // this thread's rows of a 64-row q panel: row, row + 8 (same swizzle)
+  const int row = w.warp * 16 + w.g;
+  const int qa = row * ROW_BYTES + w.t4 * 4, qb = qa + 8 * ROW_BYTES;
+
+  float o[NO][NFRAG];
+#pragma unroll
+  for (int p = 0; p < NO; ++p)
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) o[p][i] = 0.f;
+  float sc[NFRAG];
+  float m[2] = {NEG2, NEG2};  // running row max, base-2 units
+  float l[2] = {0.f, 0.f};    // per-thread partial row sums
+  // P's TF32 halves, the A operand of P V: k8 step j's fragment
+  uint32_t phi[KEYS / 8][4], plo[KEYS / 8][4];
+  // q's TF32 halves, the A operand of q K^T: panel g's k8 step kk
+  uint32_t ah[TF_G][4][4], al[TF_G][4][4];
+
+  st_zero(sm);
+  if constexpr (QRES) hop::mbar_wait_or_trap(empty + L.SLOTS, 0);  // q
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // S = q K^T in 3xTF32, TF_G panels a step: q's fragments loaded raw
+    // and split here, K's halves split in the slot; a panel past P reads
+    // the zeroed one. Each panel is a wgmma group of its own, in flight as
+    // the next panel's fragments are loaded (1-3 % faster on an H100 than
+    // a group a step behind one wait)
+    int prev = 0;  // the slot of the step before, in use until its last
+                   // group is done
+    for (int j = 0; j < L.NS; ++j) {
+      hop::mbar_wait_or_trap(ready + st, ph);
+      const uint32_t slot = ring + st * L.SLOT;
+#pragma unroll
+      for (int g = 0; g < TF_G; ++g) {
+        // panel g's q fragments into set g, whose last reader (panel g of
+        // the step before) is done: the wait after the group before
+        const int p = j * TF_G + g;
+        const unsigned char* qp =
+            p >= L.P ? sm
+            : QRES   ? sm + Q_PANEL_BYTES + p * Q_PANEL_BYTES
+                     : sm + L.RING + st * L.SLOT + 2 * TF_LO +
+                         g * Q_PANEL_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // columns 8 kk + t4 and + 4: 16-byte chunks 2 kk and 2 kk + 1
+          const int c0 = ((2 * kk) ^ w.g) << 4, c1 = ((2 * kk + 1) ^ w.g) << 4;
+          hop::tf32_split(*reinterpret_cast<const float*>(qp + qa + c0),
+                          ah[g][kk][0], al[g][kk][0]);
+          hop::tf32_split(*reinterpret_cast<const float*>(qp + qb + c0),
+                          ah[g][kk][1], al[g][kk][1]);
+          hop::tf32_split(*reinterpret_cast<const float*>(qp + qa + c1),
+                          ah[g][kk][2], al[g][kk][2]);
+          hop::tf32_split(*reinterpret_cast<const float*>(qp + qb + c1),
+                          ah[g][kk][3], al[g][kk][3]);
+        }
+        hop::wgmma_fence();
+        const uint32_t kh = p < L.P ? slot + g * TILE_PANEL : zero;
+        const uint32_t kl = p < L.P ? kh + TF_LO : zero;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dkh = hop::desc_kmajor_sw128(kh + kk * 32);
+          hop::wgmma_tf32_rs32(sc, ah[g][kk], dkh,
+                               j > 0 || g > 0 || kk > 0);
+          hop::wgmma_tf32_rs32(sc, ah[g][kk],
+                               hop::desc_kmajor_sw128(kl + kk * 32));
+          hop::wgmma_tf32_rs32(sc, al[g][kk], dkh);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();  // the group before this one is done
+        if (g == 0 && j > 0) release(empty + prev);
+      }
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+    hop::fence_regs(sc, NFRAG);
+    const float2 alpha = softmax_tile(
+        sc, m, l, a, w, it * KEYS,
+        row_bias ? s_bias + (it % L.SLOTS) * KEYS : nullptr, bp, full_bias,
+        key, scale2);
+#pragma unroll
+    for (int p = 0; p < NO; ++p)
+#pragma unroll
+      for (int i = 0; i < NFRAG; ++i) o[p][i] *= (i & 2) ? alpha.y : alpha.x;
+    // P's fragment of keys 8 j .. 8 j + 7: (row ra, key 2 t4), (rb, 2 t4),
+    // (ra, 2 t4 + 1), (rb, 2 t4 + 1), V^T's keys stored to match
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      hop::tf32_split(sc[4 * j], phi[j][0], plo[j][0]);
+      hop::tf32_split(sc[4 * j + 2], phi[j][1], plo[j][1]);
+      hop::tf32_split(sc[4 * j + 1], phi[j][2], plo[j][2]);
+      hop::tf32_split(sc[4 * j + 3], phi[j][3], plo[j][3]);
+    }
+    // O += P V in 3xTF32, TF_G of the slice's V^T panels a step (its own
+    // output panels, so a step's group may run as the next is issued)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      constexpr int LAST = NO - (NV - 1) * TF_G;  // the last step's panels
+      hop::mbar_wait_or_trap(ready + st, ph);
+      hop::wgmma_fence();
+      const uint32_t vt = ring + st * L.SLOT;
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int g = 0; g < (v < NV - 1 ? TF_G : LAST); ++g) {
+          const uint32_t b = vt + g * TILE_PANEL + j * 32;
+          float* acc = o[v * TF_G + g];
+          hop::wgmma_tf32_rs32(acc, phi[j], hop::desc_kmajor_sw128(b));
+          hop::wgmma_tf32_rs32(acc, phi[j],
+                               hop::desc_kmajor_sw128(b + TF_LO));
+          hop::wgmma_tf32_rs32(acc, plo[j], hop::desc_kmajor_sw128(b));
+        }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the step before is done
+      if (v > 0) release(empty + prev);
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+#pragma unroll
+    for (int p = 0; p < NO; ++p) hop::fence_regs(o[p], NFRAG);
+  }
+
+  // ------------------------------------------------------------- epilogue
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float denom = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / denom;
+    const int r = i ? w.rb : w.ra;
+    if (ps == 0 && w.t4 == 0 && r < a.Tq)
+      a.lse_out[((long long)w.b * a.H + w.h) * a.Tq + r] =
+          m[i] * LN2 + logf(denom);
+  }
+  // every step is used and split: the ring's first slots take the output
+  hop::named_sync(1, 128);
+  store_rows_f32<NO>(o, inv, sm + L.RING, &maps.out, w, a.Tq, ps);
+}
+
+template <bool QRES>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+    wide_fwd_tf32(const __grid_constant__ Maps maps, const Args a) {
+  const TfSmem L(a.D, QRES);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* ready = full + L.SLOTS;   // [SLOTS]: the 3 splitter warps done
+  uint64_t* empty = ready + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  uint64_t* full_q = empty + L.SLOTS;  // the resident q
+  float* s_bias = reinterpret_cast<float*>(sm + L.BIAS);
+
+  const int nsl = tf_slices(L.P);
+  const int sl = blockIdx.x % nsl;
+  const int q0 = (blockIdx.x / nsl) * WG_ROWS;
+  const int ps = sl * L.P / nsl, no = (sl + 1) * L.P / nsl - ps;
+  const int nv = (no + TF_G - 1) / TF_G;  // value steps a tile
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + WG_ROWS);  // later keys add nothing
+  const int n_tiles = (k_end + KEYS - 1) / KEYS;
+
+  if (tid == 0) {
+    hop::mbar_init(full_q, 1);
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(ready + s, TF_SPLIT / 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 160) {
+    // ----------------------------------------------------------- splitters
+    const int t = tid - 160;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      for (int j = 0; j < L.NS + nv; ++j) {
+        hop::mbar_wait_or_trap(full + st, ph);
+        unsigned char* slot = sm + L.RING + st * L.SLOT;
+        if (j < L.NS)
+          tf_split_keys(slot, min(TF_G, L.P - j * TF_G), t);
+        else
+          tf_split_values(slot, min(TF_G, no - (j - L.NS) * TF_G), t);
+        hop::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(ready + st);
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies; every lane stages a tile's bias
+    // row with its first step and arrives on each step's barrier
+    const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+    const float* bp = row_bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+    if (QRES && lane == 0) {
+      hop::mbar_expect(full_q, L.P * Q_PANEL_BYTES);
+      for (int p = 0; p < L.P; ++p)
+        hop::tma_load_4d(sm + Q_PANEL_BYTES + p * Q_PANEL_BYTES, &maps.q,
+                         full_q, p * 32, q0, h, b);
+    }
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * KEYS;
+      for (int j = 0; j < L.NS + nv; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0 && row_bias) {
+          const int col = k0 + lane;
+          s_bias[(it % L.SLOTS) * KEYS + lane] =
+              col < a.Tk ? bp[col * a.b_sk] * LOG2E : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * L.SLOT;
+          if (j < L.NS) {  // a score step: K (and q) panels [p0, p0 + n)
+            const int p0 = j * TF_G, n = min(TF_G, L.P - p0);
+            hop::mbar_expect(full + st,
+                             n * (TILE_PANEL + (QRES ? 0 : Q_PANEL_BYTES)));
+            for (int g = 0; g < n; ++g) {
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st,
+                               (p0 + g) * 32, k0, h, b);
+              if (!QRES)
+                hop::tma_load_4d(slot + 2 * TF_LO + g * Q_PANEL_BYTES,
+                                 &maps.q, full + st, (p0 + g) * 32, q0, h,
+                                 b);
+            }
+          } else {  // a value step: V panels [p0, p0 + n) of the slice
+            const int p0 = (j - L.NS) * TF_G, n = min(TF_G, no - p0);
+            hop::mbar_expect(full + st, n * TILE_PANEL);
+            for (int g = 0; g < n; ++g)
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.v, full + st,
+                               (ps + p0 + g) * 32, k0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  if (no == 6)
+    fwd_tf32_consumer<6, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+  else if (no == 5)
+    fwd_tf32_consumer<5, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+  else
+    fwd_tf32_consumer<4, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+}
+
 // ------------------------------------------------------------------- host
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, int threads, size_t smem,
@@ -1535,25 +2001,52 @@ cudaError_t dispatch(int kind, const Args& a, cudaStream_t st) {
   return launch_dq<T, 512>(a, maps, st);
 }
 
+// The f32 forward: q, k, v read and out written by TMA in f32 boxes of 32
+// columns
+cudaError_t dispatch_tf32(const Args& a, cudaStream_t st) {
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  Maps maps;
+  if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
+                     a.q_sh, a.q_sb, WG_ROWS, 4) ||
+      !mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
+                     a.k_sh, a.k_sb, KEYS, 4) ||
+      !mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
+                     a.v_sh, a.v_sb, KEYS, 4) ||
+      !mxt::make_map(&maps.out, type, a.o, a.D, a.Tq, a.H, a.B, a.o_st,
+                     a.o_sh, a.o_sb, WG_ROWS, 4))
+    return cudaErrorInvalidValue;
+  maps.dout = maps.q;  // unused
+  const int P = (a.D + 31) / 32;
+  const dim3 grid((a.Tq + WG_ROWS - 1) / WG_ROWS * tf_slices(P), a.H, a.B);
+  if (tf_q_resident(P))
+    return launch(wide_fwd_tf32<true>, grid, ST_THREADS,
+                  TfSmem(a.D, true).ALLOC, st, maps, a);
+  return launch(wide_fwd_tf32<false>, grid, ST_THREADS,
+                TfSmem(a.D, false).ALLOC, st, maps, a);
+}
+
+// dtype 0 (f32, the forward alone), 1 (bf16) or 2 (fp16)
 cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t st) {
+  if (dtype == 0) return dispatch_tf32(a, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(kind, a, st);
   return dispatch<__half>(kind, a, st);
 }
 
 bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
          const int* seed) {
-  return dtype < 1 || dtype > 2 || D <= 256 || B < 1 || H < 1 ||
+  return dtype < 0 || dtype > 2 || D <= 256 || B < 1 || H < 1 ||
          Tq < 1 || Tk < 1 || B > 65535 || H > 65535 || (dropout && !seed);
 }
 
 }  // namespace wwg
 }  // namespace
 
-// The forward, with mxt_flash_wide_fwd's arguments (flash_attention_wide.cu:
-// strides of q, k, v, out as (batch, head, time) triples, then the bias's
-// four), for 16-bit data (dtype 1 = bfloat16, 2 = float16) at D > 256. q, k, v and out must be views TMA can address (16-byte aligned,
-// strides of dimensions longer than 1 multiples of 8 elements; the Python
-// wrapper copies other operands). Returns cudaGetLastError(), or
+// The forward, with mxt_flash_attention_fwd's arguments (strides of q, k,
+// v, out as (batch, head, time) triples, then the bias's four), at D > 256
+// for dtype 0 (f32: wide_fwd_tf32), 1 (bfloat16) or 2 (float16). q, k, v
+// and out must be views TMA can address (16-byte aligned, strides of
+// dimensions longer than 1 multiples of 16 bytes; the Python wrapper
+// copies other operands). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int mxt_flash_wide_wg_fwd(int dtype, const void* q, const void* k,
                                      const void* v, const float* bias,
@@ -1594,7 +2087,8 @@ extern "C" int mxt_flash_wide_wg_bwd(
     float drop_scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || kind != 1 ||
+  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || dtype == 0 ||
+      kind != 1 ||
       !lse || !delta || !dq)
     return static_cast<int>(cudaErrorInvalidValue);
   wwg::Args a{};

@@ -3,7 +3,8 @@
 // cp.async that zero-fills, used by conv_fused.cu's wgrad kernels; and, for
 // the flash-attention kernels and conv_fused.cu's fwd and dgrad, wgmma on
 // 128-byte-swizzled operands (B K-major or MN-major, A swizzled or in
-// registers, loaded there by ldmatrix), tensor (TMA) copies, named
+// registers, loaded there by ldmatrix; TF32 operands split for 3xTF32),
+// tensor (TMA) copies, named
 // barriers, stmatrix and the bulk f32 reduce-add into global memory (the
 // second half of this file).
 //
@@ -327,6 +328,41 @@ HOP_SS(__nv_bfloat16, "bf16", 128, 1)
 HOP_SS(__half, "f16", 64, 1)
 HOP_SS(__half, "f16", 128, 1)
 #undef HOP_SS
+
+// ------------------------------------------------------------ TF32 operands
+// wgmma takes .tf32 operands only K-major (no transpose flag), as 32-bit
+// values of which the tensor cores read the top 19 bits (10 mantissa
+// bits). An f32 x splits into two of them, x = hi + lo exactly: hi = x
+// rounded to TF32 (to nearest, ties away from zero), lo = x - hi (exact in
+// f32, |lo| <= 2^-11 |x|), of which the tensor cores read 10 mantissa bits
+// (to 2^-21 |x|). Three TF32 products hi hi' + hi lo' + lo hi' in f32 sums
+// give an f32 product to about 2^-21 relative (3xTF32), where one TF32
+// product keeps 2^-11. hi must round: lo then takes either sign, so the
+// bits the tensor cores drop err both ways. Truncated (hi = x with its low
+// bits cleared, lo always of x's sign), every product erred low by up to
+// 3 2^-20 and the errors added up along a row: the gradient through a
+// score q . q of 288 columns missed its f32 tolerance of 1e-4.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 f32) = (scale_d 0) or += A (64 x 8 TF32 in registers: a[0] row g,
+// k t4; a[1] row g + 8, k t4; a[2] row g, k t4 + 4; a[3] row g + 8, k t4 +
+// 4 of each warp's 16 rows, g = lane / 4, t4 = lane % 4) * B (8 x 32,
+// K-major in shared memory)
+__device__ __forceinline__ void wgmma_tf32_rs32(float* d, const uint32_t* a,
+                                                uint64_t db,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOP_D8(0), HOP_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 #undef HOP_WGMMA_RS_64
 #undef HOP_WGMMA_RS_128
 #undef HOP_WGMMA_RS_256

@@ -1,8 +1,8 @@
 // Host side of the tensor (TMA) copies: cuTensorMapEncodeTiled looked up
 // through the runtime (no -lcuda), one builder of 4-d maps over a strided
-// view, and its two users' shapes: the (d, t, h, b) map of a 16-bit
-// (B, H, T, D) view (flash_attention_fwd.cu, flash_attention_bwd.cu) and
-// the (inner, rows, n) map of an (N, C, M) tensor (conv_fused.cu).
+// view, and its two users' shapes: the (d, t, h, b) map of a 16-bit or
+// f32 (B, H, T, D) view (the flash-attention kernels) and the (inner,
+// rows, n) map of an (N, C, M) tensor (conv_fused.cu).
 #pragma once
 
 #include <cuda.h>
@@ -72,15 +72,17 @@ inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, int esize,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The 4-d map (d, t, h, b) of a 16-bit (B, H, T, D) view with element
-// strides st, sh, sb, read or written in 128-byte-swizzled boxes of
-// 64 x `rows`.
+// The 4-d map (d, t, h, b) of a (B, H, T, D) view of `esize`-byte elements
+// (16-bit by default, or f32) with element strides st, sh, sb, read or
+// written in 128-byte-swizzled boxes of one 128-byte row (64 16-bit or 32
+// f32 values) x `rows`.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
                      const void* ptr, int D, int T, int H, int B,
-                     long long st, long long sh, long long sb, int rows) {
+                     long long st, long long sh, long long sb, int rows,
+                     int esize = 2) {
   const long long dims[4] = {D, T, H, B}, elem[3] = {st, sh, sb};
-  const int box[4] = {64, rows, 1, 1};
-  return make_map_4d(map, type, 2, ptr, dims, elem, box,
+  const int box[4] = {128 / esize, rows, 1, 1};
+  return make_map_4d(map, type, esize, ptr, dims, elem, box,
                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

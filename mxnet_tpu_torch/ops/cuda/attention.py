@@ -8,17 +8,18 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
-- ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
-  ``_flash_bwd_dq_kernel`` for 16-bit q, k, v at every head dim above
-  :data:`MAX_HEAD_DIM` (``wide_fwd``, ``wide_dq``): wgmma tiles over the
-  head dim's 64-column panels, the panels streamed through the ring above
-  :data:`WIDE_WG_MAX_HEAD_DIM`; ``csrc/flash_attention_wide_dkv.cu``
-  replaces ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v up to
-  :data:`WIDE_WG_MAX_HEAD_DIM` (``wide_dkv``);
-- ``csrc/flash_attention_wide.cu`` replaces the same three above
-  :data:`MAX_HEAD_DIM` otherwise (f32, and ``wide_dkv`` for 16-bit above
-  :data:`WIDE_WG_MAX_HEAD_DIM`): a warp a row, lanes over the head dim,
-  any D;
+- ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` at
+  every head dim above :data:`MAX_HEAD_DIM` (``wide_fwd``: 16-bit on wgmma
+  tiles over the head dim's 64-column panels, streamed through the ring
+  above :data:`WIDE_WG_MAX_HEAD_DIM`; f32 on 3xTF32 wgmma over 32-column
+  panels, streamed at every D) and ``_flash_bwd_dq_kernel`` for 16-bit q,
+  k, v there (``wide_dq``); ``csrc/flash_attention_wide_dkv.cu`` replaces
+  ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v there (``wide_dkv``, the
+  key-block walk, streaming the head dim above
+  :data:`WIDE_WG_MAX_HEAD_DIM`);
+- ``csrc/flash_attention_wide.cu`` replaces ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel`` for f32 above :data:`MAX_HEAD_DIM`: a warp a
+  row, lanes over the head dim, any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -45,17 +46,17 @@ plain versions do. Which source a kernel of a wide head dim comes from is
 :func:`head_dim_route`, a pure function of (D, dtype) and a contract of
 the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
 ``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), 16-bit above 512 the tiled
-``wide_fwd`` and ``wide_dq`` that stream the head dim and the warp-a-row
-``wide_dkv`` (``"wide_stream"``), f32 the three warp-a-row ones
-(``"wide_rows"``). A build or launch that fails raises; no route gives way
+three that stream the head dim (``"wide_stream"``), f32 the 3xTF32
+``wide_fwd`` and the warp-a-row ``wide_dq`` and ``wide_dkv``
+(``"wide_f32"``). A build or launch that fails raises; no route gives way
 to another. The warp-a-row kernels read every operand through its strides,
 so they copy nothing.
-The tiled 16-bit kernels (the wide tiled ones among them) read q, k, v and
-dout and write out, dq, dk and dv by
+The tiled kernels (the tiled 16-bit ones and the wide f32 forward) read
+q, k, v and dout and write out, dq, dk and dv by
 TMA, which needs a 16-byte aligned base and strides that are multiples of
-16 bytes; an operand that lacks either (a head dim that is not a multiple
-of 8, say) is first copied into a padded
-contiguous buffer (an output is written there and copied back), once
+16 bytes; an operand that lacks either (a 16-bit head dim that is not a
+multiple of 8, an f32 one not a multiple of 4) is first copied into a
+padded contiguous buffer (an output is written there and copied back), once
 for both kernels of a backward pair, and :data:`padded_copies` counts
 those copies.
 
@@ -117,7 +118,7 @@ padded_copies = 0
 MAX_HEAD_DIM = 256
 FUSED_MAX_HEAD_DIM = 128
 # 16-bit wide heads up to this take the tiled wide kernels, wider ones the
-# tiled forward and dq that stream the head dim
+# tiled kernels that stream the head dim
 WIDE_WG_MAX_HEAD_DIM = 512
 _HALF = (torch.bfloat16, torch.float16)
 # rows of one tile of the fused backward's dq accumulator, and the floats
@@ -275,16 +276,16 @@ def head_dim_route(D: int, dtype) -> str:
     """The kernels a CUDA tensor of head dim ``D`` and ``dtype`` takes:
     ``"tiled"`` (D <= :data:`MAX_HEAD_DIM`: ``flash_attention_fwd.cu``,
     ``flash_attention_bwd.cu``), ``"wide_wg"`` (bf16 / fp16 up to
-    :data:`WIDE_WG_MAX_HEAD_DIM`: ``wide_fwd`` and ``wide_dq`` from
-    ``flash_attention_wide_wg.cu``, ``wide_dkv`` from
-    ``flash_attention_wide_dkv.cu``), ``"wide_stream"`` (bf16 / fp16 above
-    it: ``wide_fwd`` and ``wide_dq`` from ``flash_attention_wide_wg.cu``,
-    ``wide_dkv`` from ``flash_attention_wide.cu``) or ``"wide_rows"`` (f32:
-    every wide kernel from ``flash_attention_wide.cu``)."""
+    :data:`WIDE_WG_MAX_HEAD_DIM`) and ``"wide_stream"`` (bf16 / fp16 above
+    it: the head dim streamed), both with ``wide_fwd`` and ``wide_dq`` from
+    ``flash_attention_wide_wg.cu`` and ``wide_dkv`` from
+    ``flash_attention_wide_dkv.cu``, or ``"wide_f32"`` (f32: the 3xTF32
+    ``wide_fwd`` from ``flash_attention_wide_wg.cu``, ``wide_dq`` and
+    ``wide_dkv`` from ``flash_attention_wide.cu``)."""
     if D <= MAX_HEAD_DIM:
         return "tiled"
     if dtype not in _HALF:
-        return "wide_rows"
+        return "wide_f32"
     return "wide_wg" if D <= WIDE_WG_MAX_HEAD_DIM else "wide_stream"
 
 
@@ -294,14 +295,12 @@ def _source(name: str, route: str) -> Tuple[str, str]:
     if not _wide(name):
         return (("flash_attention_fwd", "mxt_flash_attention_fwd") if fwd
                 else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
-    if route == "wide_wg" and name == "flash_attention_wide_dkv":
+    if route == "wide_f32" and not fwd:
+        return ("flash_attention_wide", "mxt_flash_wide_bwd")
+    if name == "flash_attention_wide_dkv":
         return ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
-    if route in ("wide_wg", "wide_stream") \
-            and name != "flash_attention_wide_dkv":
-        return ("flash_attention_wide_wg",
-                "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
-    return ("flash_attention_wide",
-            "mxt_flash_wide_fwd" if fwd else "mxt_flash_wide_bwd")
+    return ("flash_attention_wide_wg",
+            "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
 
 
 def _kernel(name: str, route: str):
@@ -333,11 +332,12 @@ def _wide(name: str) -> bool:
 
 
 def _uses_tma(name: str, route: str, dtype) -> bool:
-    """Whether kernel ``name`` on ``route`` reads and writes its 16-bit
-    operands by TMA: every kernel but the warp-a-row ones
-    (:func:`_source`) and the f32 ones."""
-    return dtype in _HALF and _source(name, route)[0] != \
-        "flash_attention_wide"
+    """Whether kernel ``name`` on ``route`` reads and writes its operands
+    by TMA: every 16-bit kernel and the wide f32 forward, that is every
+    kernel but the warp-a-row ones (:func:`_source`) and the f32 ones of
+    head dims up to :data:`MAX_HEAD_DIM`."""
+    return (dtype in _HALF or route != "tiled") and \
+        _source(name, route)[0] != "flash_attention_wide"
 
 
 def _bht(t):
@@ -396,11 +396,12 @@ def _count(name: str) -> None:
 
 
 def _tma_ready(t) -> bool:
-    """TMA reads or writes a 16-bit (B, H, T, D) view in place: 16-byte
-    aligned base, and every stride of a dimension longer than 1 a multiple
-    of 8 elements (16 bytes)."""
+    """TMA reads or writes a (B, H, T, D) view in place: 16-byte aligned
+    base, and every stride of a dimension longer than 1 a multiple of 16
+    bytes (8 16-bit elements, 4 f32)."""
     return t.data_ptr() % 16 == 0 and all(
-        t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+        t.stride(i) * t.element_size() % 16 == 0
+        for i in range(3) if t.shape[i] > 1)
 
 
 def _padded_buffer(t):
@@ -433,13 +434,13 @@ def _bthd_empty(B, H, T, D, dtype, device):
                        device=device)[..., :D].transpose(1, 2)
 
 
-def _pair_operands(pair, route, ts):
-    """The operands ``ts`` (q, k, v, dout) of the backward kernels
-    ``pair`` on ``route``: when they read by TMA, each 16-bit operand that
-    TMA cannot address copied once for both (:func:`_tma_operand`,
-    counted), so that the second kernel finds it ready; else as they
-    are."""
-    if not any(_uses_tma(n, route, ts[0].dtype) for n in pair):
+def _tma_operands(names, route, ts):
+    """The operands ``ts`` of the kernels ``names`` on ``route`` (the
+    forward's q, k, v, or the backward pair's q, k, v, dout): when one of
+    them reads by TMA, each operand that TMA cannot address copied once for
+    all (:func:`_tma_operand`, counted), so that the pair's second kernel
+    finds it ready; else as they are."""
+    if not any(_uses_tma(n, route, ts[0].dtype) for n in names):
         return tuple(ts)
     return tuple(_tma_operand(t) for t in ts)
 
@@ -458,12 +459,12 @@ def _ptr(t):
 def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
                 causal: bool, fn=None) -> None:
     """The forward kernel on (B, H, T, D) views; ``out`` is written in
-    place, ``lse`` is (B, H, Tq, 1) contiguous f32. 16-bit operands that
-    TMA cannot address are copied first (:func:`_tma_operand`); an output
-    it cannot address is written to a padded buffer and copied back.
-    Above :data:`MAX_HEAD_DIM` the wide kernel of :func:`head_dim_route`
-    runs (the warp-a-row one on the views as they are). ``fn``: another
-    build of the same C entry (an experiment's variant, ``chip_smoke.py
+    place, ``lse`` is (B, H, Tq, 1) contiguous f32. Operands of a kernel
+    that reads by TMA (:func:`_uses_tma`) that TMA cannot address are
+    copied first (:func:`_tma_operand`); an output it cannot address is
+    written to a padded buffer and copied back. Above
+    :data:`MAX_HEAD_DIM` the wide kernel of :func:`head_dim_route` runs.
+    ``fn``: another build of the same C entry (an experiment's variant, ``chip_smoke.py
     --probe-fwd``); its launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (out,))
     route = head_dim_route(D, q.dtype)
@@ -471,7 +472,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
             else "flash_attention_wide_fwd")
     dest = out
     if _uses_tma(name, route, q.dtype):
-        q, k, v = (_tma_operand(t) for t in (q, k, v))
+        q, k, v = _tma_operands((name,), route, (q, k, v))
         if not _tma_ready(out):
             out = _padded_output(out)
     ts = (q, k, v, out)
@@ -527,8 +528,9 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     TMA: operands they cannot address are copied first and outputs written
     to a padded buffer and copied back (:func:`_tma_operand`, counted), as
     do the tiled ``wide_dq`` and ``wide_dkv`` of :func:`head_dim_route`
-    (:func:`_backward_kernels` copies the pair's operands once, for both);
-    the warp-a-row kernels read and write the views as they are. ``fn``:
+    (:func:`_backward_kernels` copies the pair's operands once, for both,
+    :func:`_tma_operands`);
+    the warp-a-row f32 pair reads and writes the views as they are. ``fn``:
     another build of the same C entry (``chip_smoke.py --probe-bwd``); its
     launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
@@ -685,8 +687,8 @@ def _backward_kernels(q, k, v, bias, seed, o, lse, g, scale: float,
         pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
             if route == "wide" else ("flash_attention_bwd_dq",
                                      "flash_attention_bwd_dkv")
-        common = _pair_operands(pair, head_dim_route(D, q.dtype),
-                                common[:4]) + common[4:]
+        common = _tma_operands(pair, head_dim_route(D, q.dtype),
+                               common[:4]) + common[4:]
         dq = _bthd_empty(B, H, Tq, D, q.dtype, dev)
         _launch_bwd(pair[0], *common, dq, None, None, ds, scale, causal)
         _launch_bwd(pair[1], *common, None, dk, dv, None, scale, causal)

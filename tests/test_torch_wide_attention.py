@@ -3,13 +3,15 @@
 
 The card's route at a wide head dim is ``head_dim_route``, a pure function
 of (D, dtype): 16-bit heads take the tiled wgmma kernels of
-``csrc/flash_attention_wide_wg.cu`` for the forward and dq at every D > 256
-(streaming the head dim above 512) and of ``csrc/flash_attention_wide_dkv.cu``
-for dk / dv up to 512, 16-bit dk / dv above 512 and every f32 kernel the
-warp-a-row kernels of ``csrc/flash_attention_wide.cu``. Those
+``csrc/flash_attention_wide_wg.cu`` for the forward and dq and of
+``csrc/flash_attention_wide_dkv.cu`` for dk / dv at every D > 256 (all
+three streaming the head dim above 512); f32 heads the 3xTF32 forward of
+``csrc/flash_attention_wide_wg.cu`` and the warp-a-row dq and dk / dv of
+``csrc/flash_attention_wide.cu``. Those
 kernels run only on the card (``tests/test_torch_cuda.py``); here the route
-is checked at every edge, the backward pair's operands that TMA cannot
-address are copied once for both kernels, and the plain versions, which
+is checked at every edge, the forward's operands and the backward pair's
+that TMA cannot address are copied once (for both kernels of the pair),
+and the plain versions, which
 the card's kernels are held to, are
 held to the JAX package's Pallas kernels in interpret mode through its
 entry point ``flash_attention`` and ``jax.grad`` of it, at D = 264, 320,
@@ -54,11 +56,11 @@ WIDE_SOURCES = {
                                      "mxt_flash_wide_wg_fwd"),
         "flash_attention_wide_dq": ("flash_attention_wide_wg",
                                     "mxt_flash_wide_wg_bwd"),
-        "flash_attention_wide_dkv": ("flash_attention_wide",
-                                     "mxt_flash_wide_bwd")},
-    "wide_rows": {
-        "flash_attention_wide_fwd": ("flash_attention_wide",
-                                     "mxt_flash_wide_fwd"),
+        "flash_attention_wide_dkv": ("flash_attention_wide_dkv",
+                                     "mxt_flash_wide_wg_dkv")},
+    "wide_f32": {
+        "flash_attention_wide_fwd": ("flash_attention_wide_wg",
+                                     "mxt_flash_wide_wg_fwd"),
         "flash_attention_wide_dq": ("flash_attention_wide",
                                     "mxt_flash_wide_bwd"),
         "flash_attention_wide_dkv": ("flash_attention_wide",
@@ -67,21 +69,22 @@ WIDE_SOURCES = {
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513, 576, 1024,
-                               2048])
+@pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513, 530, 576,
+                               1024, 2048])
 def test_head_dim_route(D, dtype):
     """Every edge of the route: up to 256 the tiled kernels; 16-bit up to
     512 the tiled wide kernels (wide_fwd and wide_dq from one source,
-    wide_dkv from its own), 16-bit above 512 the tiled wide_fwd and wide_dq
-    that stream the head dim and the warp-a-row wide_dkv, f32 the
-    warp-a-row ones; the route decides the source of each wide kernel and
-    whether it reads and writes by TMA (and so may copy operands): every
-    tiled kernel does, no warp-a-row one."""
+    wide_dkv from its own), 16-bit above 512 the same sources' kernels that
+    stream the head dim, f32 the 3xTF32 wide_fwd (the 16-bit forward's
+    source) and the warp-a-row wide_dq and wide_dkv; the route decides the
+    source of each wide kernel and whether it reads and writes by TMA (and
+    so may copy operands): every tiled kernel does, f32 among them, no
+    warp-a-row one."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
         want = "tiled"
     elif dtype not in HALF:
-        want = "wide_rows"
+        want = "wide_f32"
     else:
         want = "wide_wg" if D <= 512 else "wide_stream"
     assert route == want
@@ -101,16 +104,20 @@ def test_head_dim_route(D, dtype):
     (300, torch.bfloat16, 4), (300, torch.float16, 4),
     (300, torch.float32, 0), (520, torch.bfloat16, 0),
     (320, torch.bfloat16, 0), (36, torch.bfloat16, 4),
-    (530, torch.bfloat16, 4), (530, torch.float32, 0)])
+    (530, torch.bfloat16, 4), (530, torch.float32, 0),
+    (257, torch.float16, 4), (513, torch.bfloat16, 4),
+    (576, torch.float16, 0), (1024, torch.bfloat16, 0),
+    (2048, torch.float32, 0), (257, torch.float32, 0)])
 def test_pair_operands_copied_once(D, dtype, copies):
     """The backward pair's q, k, v and dout, contiguous (B, H, T, D) views:
-    rows of D = 300 (or 36) 16-bit values are not a multiple of 16 bytes, so
-    on a route whose kernels read by TMA each is copied once for both
-    kernels (counted), into a view TMA can address that holds the same
-    values, and the second kernel's own check copies nothing more (at D =
-    530 the streamed dq reads by TMA, so the warp-a-row dk / dv gets the
-    copies too); f32 (the warp-a-row kernels) and D = 320 or 520 (rows
-    TMA can address) take them as they are. No kernel runs here."""
+    rows of D = 300, 530, 257 or 513 (or 36) 16-bit values are not a
+    multiple of 16 bytes, so on a route whose kernels read by TMA (every
+    16-bit pair, the streamed one above 512 among them) each is copied once
+    for both kernels (counted), into a view TMA can address that holds the
+    same values, and the second kernel's own check copies nothing more;
+    f32 (the warp-a-row pair, at any D) and 16-bit rows TMA can address
+    (D = 320, 520, 576, 1024) are taken as they are. No kernel runs
+    here."""
     route = port.head_dim_route(D, dtype)
     pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
         if route != "tiled" else ("flash_attention_bwd_dq",
@@ -119,7 +126,7 @@ def test_pair_operands_copied_once(D, dtype, copies):
     ts = tuple(torch.randn(2, 3, T, D, generator=g).to(dtype)
                for T in (24, 40, 40, 24))
     before = port.padded_copies
-    got = port._pair_operands(pair, route, ts)
+    got = port._tma_operands(pair, route, ts)
     assert port.padded_copies - before == copies
     for t, u in zip(ts, got):
         assert torch.equal(t, u)
@@ -129,6 +136,38 @@ def test_pair_operands_copied_once(D, dtype, copies):
     again = tuple(port._tma_operand(u) for u in got) if copies else got
     assert port.padded_copies - before == copies
     assert all(a is b for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("D,dtype,copies", [
+    (257, torch.float32, 3), (300, torch.float32, 0),
+    (530, torch.float32, 3), (512, torch.float32, 0),
+    (513, torch.float32, 3), (576, torch.float32, 0),
+    (1024, torch.float32, 0), (2048, torch.float32, 0),
+    (300, torch.bfloat16, 3), (530, torch.float16, 3),
+    (576, torch.bfloat16, 0), (128, torch.float32, 0)])
+def test_forward_operands_copied(D, dtype, copies):
+    """The forward's q, k, v, contiguous (B, H, T, D) views: every wide
+    forward reads by TMA, the f32 one (3xTF32) too, so rows that are not a
+    multiple of 16 bytes (f32 D = 257, 513, 530: not a multiple of 4; 16-bit
+    D = 300, 530: not a multiple of 8) are copied, each once and counted,
+    into views TMA can address holding the same values; the tiled f32
+    forward (D = 128) reads none by TMA. No kernel runs here."""
+    route = port.head_dim_route(D, dtype)
+    name = "flash_attention_wide_fwd" if route != "tiled" \
+        else "flash_attention_fwd"
+    assert port._uses_tma(name, route, dtype) == (
+        route != "tiled" or dtype in HALF)
+    g = torch.Generator().manual_seed(D)
+    ts = tuple(torch.randn(2, 3, T, D, generator=g).to(dtype)
+               for T in (24, 40, 40))
+    before = port.padded_copies
+    got = port._tma_operands((name,), route, ts)
+    assert port.padded_copies - before == copies
+    for t, u in zip(ts, got):
+        assert torch.equal(t, u)
+        assert (u is t) == (copies == 0)
+        if route != "tiled":
+            assert port._tma_ready(u)
 
 
 def _inputs(seed, Tq, Tk, bias_kind, d):

@@ -25,9 +25,10 @@ to back: the 25 MB of K and V stay in the 50 MB L2) and cold (a 64 MB
 buffer rewritten before each call, as each layer of a decode step finds
 its cache), beside SDPA over the masked cache timed the same two ways.
 The wide kernels (head dims above 256: ``wide_fwd``, ``wide_dq``,
-``wide_dkv``) at ``WIDE_SHAPES``, bf16, q, k, v from one fused projection,
-key padding ragged over the batch (valid lengths T - b T / (2 B)) or
-causal: the device time of each kernel alone a launch, median of 5
+``wide_dkv``) at ``WIDE_SHAPES``, bf16 or f32, q, k, v from one fused
+projection, key padding ragged over the batch (valid lengths
+T - b T / (2 B)) or causal: the device time of each kernel alone a launch,
+median of 5
 sessions (the forward through ``_flash_forward``, dq and dk / dv through
 ``chip_smoke.kernel_only_call``, so the entry's delta is not in them), the
 kernels' names matched whatever tree they come from.
@@ -141,18 +142,20 @@ def decode_times(torch, cs, dev, da):
                 sdpa_cold_ms=lib_cold, bound_ms=bound, max_abs_err=err)
 
 
-# (B, H, T, D, bias, causal) of the wide kernels' timings: chip_smoke.py's
-# WIDE_TIMED
-WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False),
-               (8, 8, 1024, 320, "keypad", False),
-               (8, 8, 1024, 320, None, True),
-               (4, 8, 1024, 512, "keypad", False),
-               (2, 4, 512, 576, "keypad", False),
-               (4, 8, 1024, 1024, "keypad", False))
-# every route's names: the tiled (_wg), the streamed (_st, heads above 512)
-# and the warp-a-row kernels
-WIDE_PATTERNS = {"fwd": r"wide_fwd(_wg|_st)?<", "dq": r"wide_dq(_wg|_st)?<",
-                 "dkv": r"wide_dkv(_wg)?<"}
+# (B, H, T, D, bias, causal, dtype) of the wide kernels' timings:
+# chip_smoke.py's WIDE_TIMED (bf16) and WIDE_F32_TIMED
+WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False, "bfloat16"),
+               (8, 8, 1024, 320, "keypad", False, "bfloat16"),
+               (8, 8, 1024, 320, None, True, "bfloat16"),
+               (4, 8, 1024, 512, "keypad", False, "bfloat16"),
+               (2, 4, 512, 576, "keypad", False, "bfloat16"),
+               (4, 8, 1024, 1024, "keypad", False, "bfloat16"),
+               (2, 4, 512, 320, "keypad", False, "float32"),
+               (8, 8, 1024, 320, "keypad", False, "float32"),
+               (2, 4, 512, 576, "keypad", False, "float32"))
+# every route's names: the tiled (_wg), the streamed (_st, 16-bit heads
+# above 512), the 3xTF32 (_tf32, f32) and the warp-a-row kernels
+WIDE_PATTERNS = {"fwd": r"wide_fwd", "dq": r"wide_dq", "dkv": r"wide_dkv"}
 
 
 def wide_times(torch, cs, dev, attn):
@@ -160,8 +163,8 @@ def wide_times(torch, cs, dev, attn):
     import math
     out = {}
     gen = torch.Generator().manual_seed(23)
-    dt = torch.bfloat16
-    for B, Hh, T, d, bias_kind, causal in WIDE_SHAPES:
+    for B, Hh, T, d, bias_kind, causal, dtn in WIDE_SHAPES:
+        dt = getattr(torch, dtn)
         q, k, v = cs.qkv_views(torch, dev, B, T, dt, gen, d, Hh)
         valid = [T - b * T // (2 * B) for b in range(B)]
         bias = cs.keypad_bias(torch, dev, valid, T, dt) \
@@ -181,7 +184,7 @@ def wide_times(torch, cs, dev, attn):
             pattern = WIDE_PATTERNS[part]
             row[part] = median_ms(cs, call, 3,
                                   lambda n: re.search(pattern, n))
-        label = (f"({B}, {Hh}, {T}, {d}) "
+        label = (f"({B}, {Hh}, {T}, {d}) {dtn} "
                  f"{'causal' if causal else bias_kind}")
         out[label] = row
         del q, k, v, do, o, lse, c
