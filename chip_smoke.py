@@ -43,15 +43,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
    library call (yardstick only). The f32 kernels (``F32_TIMED``: BERT-base's
    (8, 12, 512, 64) key padding and GPT-2 training's (8, 12, 1024, 64)
-   causal) are timed beside their bound at the f32 FMA peak, their
-   products' time as 3xTF32 on the tensor cores, the plain versions and
-   SDPA's f32 calls. Then the wide kernels (head dims above
+   causal: the FMA forward and pair, the 3xTF32 fused pass, whose profiler
+   records must name ``tf::bwd_fused_tf32``) are timed beside their bound
+   at the f32 FMA peak, their products' time as 3xTF32 on the tensor
+   cores, the plain versions and SDPA's f32 calls. Then the wide kernels
+   (head dims above
    256: ``wide_fwd``, ``wide_dq`` and ``wide_dkv``, the tiled wgmma
    kernels of ``flash_attention_wide_wg.cu`` (forward and dq at every
    16-bit head dim, streaming the head dim above 512; the 3xTF32 forward
-   at every f32 one) and ``flash_attention_wide_dkv.cu`` (16-bit dk / dv,
-   streaming above 512) and the warp-a-row ones of
-   ``flash_attention_wide.cu`` for the f32 dq and dk / dv) against their
+   and dq at every f32 one) and ``flash_attention_wide_dkv.cu`` (16-bit
+   dk / dv, streaming above 512) and the warp-a-row one of
+   ``flash_attention_wide.cu`` for the f32 dk / dv) against their
    plain versions in ``WIDE_CASES`` (D = 264 to 1280; bias none, key
    padding and learned; causal; Tq != Tk; dropout; bf16, fp16, f32), two
    runs of the forward and of the backward equal to the bit, the copies
@@ -68,14 +70,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    padding, (8, 8, 1024, 320) with key padding and causal)
    against the plain versions, each kernel timed there by device time
    beside its bound, the plain version and SDPA's memory-efficient
-   backend (the only one that takes such heads); the f32 forward
+   backend (the only one that takes such heads); the f32 forward and dq
    (``WIDE_F32_TIMED``: (2, 4, 512, 320), (8, 8, 1024, 320) and (2, 4, 512,
-   576) with key padding) checked and timed beside its FMA bound, its
-   products' time as 3xTF32, the plain version and SDPA's f32 forward; the
-   warp-a-row f32 dq and dk / dv checked and timed on their own route at
-   (2, 4, 512, 320) with key padding, their source beside the times,
-   SDPA's memory-efficient whole backward beside them (or its refusal,
-   printed). Then the three
+   576) with key padding) checked and timed beside their FMA bounds, their
+   products' time as 3xTF32, the plain versions and SDPA's f32 forward and
+   whole backward; the warp-a-row f32 dk / dv checked and timed on its own
+   route at (2, 4, 512, 320) and (8, 8, 1024, 320) with key padding, its
+   source beside the times, SDPA's memory-efficient whole backward beside
+   them (or its refusal, printed). Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -396,8 +398,9 @@ KERNEL_INFO = {
     # the flash kernels at head dims above 256 (the tiled ones take up to
     # 256): the same three Pallas kernels as rows 1, 3 and 4. 16-bit heads
     # take the tiled wide forward, dq and dk / dv at every D (streaming the
-    # head dim above 512); f32 heads the 3xTF32 forward and the dq and dk /
-    # dv of flash_attention_wide.cu (WIDE_ROWS_SOURCE)
+    # head dim above 512); f32 heads the 3xTF32 forward and dq
+    # (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) and the warp-a-row dk / dv of
+    # flash_attention_wide.cu (WIDE_ROWS_SOURCE)
     "flash_attention_wide_fwd": (
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
@@ -483,23 +486,23 @@ UPDATE_STEP = {"bert": 1, "resnet": 1}
 # by the source of each (attn._source): the tiled ones (wwg::wide_fwd_wg,
 # wwg::wide_dq_wg, wdkv::wide_dkv_wg), the streamed ones above 512
 # (wwg::wide_fwd_st, wwg::wide_dq_st, wdkv::wide_dkv_st), the f32 forward
-# (wwg::wide_fwd_tf32) or the warp-a-row f32 pair (wide::wide_dq, ...)
+# and dq (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) or the warp-a-row f32 dk /
+# dv (wide::wide_dkv)
 WIDE_SOURCE_KERNEL = {
     "flash_attention_wide_wg": {
         "flash_attention_wide_fwd": r"wide_fwd_(wg<|st<|tf32\b)",
-        "flash_attention_wide_dq": r"wide_dq_(wg|st)<"},
+        "flash_attention_wide_dq": r"wide_dq_(wg<|st<|tf32\b)"},
     "flash_attention_wide_dkv": {
         "flash_attention_wide_dkv": r"wide_dkv_(wg|st)<"},
     "flash_attention_wide": {
-        "flash_attention_wide_dq": r"wide::wide_dq<",
         "flash_attention_wide_dkv": r"wide::wide_dkv<"}}
 # the kernels each wide route runs (forward, dq, dk / dv, as WIDE_KERNELS),
 # by the profiler's names; no other wide kernel may run on it
 ROUTE_KERNELS = {
     "wide_wg": (r"wide_fwd_wg<", r"wide_dq_wg<", r"wide_dkv_wg<"),
     "wide_stream": (r"wide_fwd_st<", r"wide_dq_st<", r"wide_dkv_st<"),
-    "wide_f32": (r"wide_fwd_tf32\b", r"wide::wide_dq<", r"wide::wide_dkv<")}
-# the source of the warp-a-row ones, which the f32 dq and dk / dv take
+    "wide_f32": (r"wide_fwd_tf32\b", r"wide_dq_tf32\b", r"wide::wide_dkv<")}
+# the source of the warp-a-row kernel, which the f32 dk / dv takes
 WIDE_ROWS_SOURCE = "mxnet_tpu_torch/csrc/flash_attention_wide.cu"
 # the wide kernels' path (phase 3): attention over heads of 288 and 320
 # through the user's entry point, forward and backward under autograd, bf16
@@ -1554,25 +1557,7 @@ def backward_checks(torch, dev, gen, attn):
                                  0.1, False)
     for r in rows.values():
         r.update(plain_ms=plain_ms, library_ms=lib_ms)
-    # the fused kernel adds dq's key tiles in an order that changes from run
-    # to run: two runs' f32 accumulators agree to rounding, dk and dv to
-    # the bit
-    runs = []
-    for _ in range(2):
-        call, outs = kernel_only_call(torch, attn, c1,
-                                      "flash_attention_bwd_fused")
-        call()
-        runs.append(outs)
-    torch.cuda.synchronize()
-    r = rel(runs[1][0], runs[0][0])
-    if r > REL_RERUN or not all(torch.equal(a, b)
-                                for a, b in zip(runs[0][1:], runs[1][1:])):
-        fail(f"two runs of the fused backward: dq accumulators differ by "
-             f"{r:.3e} (limit {REL_RERUN}), or dk / dv differ")
-    print(f"phase 3: two runs of the fused backward: f32 dq accumulators "
-          f"differ by {r:.2e} relative (limit {REL_RERUN}, "
-          f"{int((runs[1][0] != runs[0][0]).sum())} elements not bit for "
-          f"bit), dk and dv equal to the bit", flush=True)
+    fused_reruns(torch, attn, c1, "bf16 T=512 key-padding dropout 0.1")
     # the pair writes dq once from registers, with no atomics: two runs
     # equal to the bit
     runs = []
@@ -1666,14 +1651,82 @@ def backward_checks(torch, dev, gen, attn):
     two = backward_check(torch, attn, "f32 T=512 key-padding dropout 0.1 "
                          "two-pass (block_k=256)", c, 256, errs)
     agree(torch, "f32 T=512 dropout 0.1", fused, two, "float32")
+    fused_reruns(torch, attn, c, "f32 T=512 key-padding dropout 0.1")
     c = mk(1, 2048, torch.float32, True, None, 0.0)
     backward_check(torch, attn, "f32 T=2048 causal two-pass", c, 1024, errs)
     c = mk(2, 256, torch.float32, False, "full", 0.0)
     backward_check(torch, attn, "f32 T=256 learned bias fused", c, 1024,
                    errs)
+    # the f32 fused pass (3xTF32) at head dims 40 and 100 (zero-filled past
+    # D) and 128, causal, ragged (T=333), every bias, against the pair; its
+    # dropout mask bit for bit
+    for d, causal, bias_kind in ((40, True, None), (100, False, "keypad"),
+                                 (128, True, "full")):
+        c = mk(2, 333, torch.float32, causal, bias_kind, 0.1, d=d, h=4)
+        label = (f"f32 D={d} T=333 {'causal ' if causal else ''}"
+                 f"{bias_kind or 'no bias'} dropout 0.1")
+        fused = backward_check(torch, attn, f"{label} fused", c, 1024, errs)
+        two = backward_check(torch, attn, f"{label} two-pass (block_k=128)",
+                             c, 128, errs)
+        agree(torch, label, fused, two, "float32")
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (32, 64, 100, 128):
+            got, want = fused_dropout_mask(torch, attn, dev, dt, d)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{dt} D={d}: the fused pass's dropout mask differs "
+                     f"from dropout_keep_reference in "
+                     f"{int((got != want).sum())} of {want.numel()} bits")
+        print(f"phase 3: the fused pass's {str(dt).split('.')[-1]} dropout "
+              f"0.1 masks (through dv) = dropout_keep_reference bit for bit "
+              f"at D=32, 64, 100, 128", flush=True)
     for name, r in rows.items():
         r["max_abs_err"] = errs.get(name, 0.0)
     return rows
+
+
+def fused_reruns(torch, attn, c, label):
+    """The fused kernel adds dq's key blocks in an order that changes from
+    run to run: two runs' f32 accumulators agree to rounding (REL_RERUN),
+    dk and dv to the bit."""
+    runs = []
+    for _ in range(2):
+        call, outs = kernel_only_call(torch, attn, c,
+                                      "flash_attention_bwd_fused")
+        call()
+        runs.append(outs)
+    torch.cuda.synchronize()
+    r = rel(runs[1][0], runs[0][0])
+    if r > REL_RERUN or not all(torch.equal(a, b)
+                                for a, b in zip(runs[0][1:], runs[1][1:])):
+        fail(f"two runs of the fused backward ({label}): dq accumulators "
+             f"differ by {r:.3e} (limit {REL_RERUN}), or dk / dv differ")
+    print(f"phase 3: two runs of the fused backward ({label}): f32 dq "
+          f"accumulators differ by {r:.2e} relative (limit {REL_RERUN}, "
+          f"{int((runs[1][0] != runs[0][0]).sum())} elements not bit for "
+          f"bit), dk and dv equal to the bit", flush=True)
+
+
+def fused_dropout_mask(torch, attn, dev, dt, d, rate=0.1, B=2, Hh=3,
+                       Tk=200):
+    """The dropout mask the fused pass draws, read back bit for bit
+    through dv: with q = k = 0 every key has p = 1 / Tk, and dout's row q
+    = one-hot(q) (Tq = d) puts query q's kept-or-dropped p_d[q, j] alone
+    into dv[j, q] (one product, the rest zeros). ``(got,
+    dropout_keep_reference's)``, each (B, Hh, d, Tk) bool."""
+    scale = 1.0 / math.sqrt(d)
+    seed = torch.tensor([1234, 5678], dtype=torch.int32, device=dev)
+    zq = torch.zeros((B, Hh, d, d), dtype=dt, device=dev)
+    zk = torch.zeros((B, Hh, Tk, d), dtype=dt, device=dev)
+    out, lse = attn._flash_forward(zq, zk, zk, None, scale, False, seed, rate)
+    eye = torch.eye(d, dtype=dt, device=dev).expand(B, Hh, d, d)
+    before = attn.launches["flash_attention_bwd_fused"]
+    dv = attn._flash_backward(zq, zk, zk, None, seed, out, lse,
+                              eye.contiguous(), scale, False, 4096, rate)[2]
+    if attn.launches["flash_attention_bwd_fused"] != before + 1:
+        fail(f"fused dropout mask {dt} D={d}: the fused pass did not run")
+    return (dv.transpose(-1, -2) > 0,
+            attn.dropout_keep_reference(seed, B, Hh, d, Tk, rate))
 
 
 def agree(torch, name, fused, two, dtn):
@@ -2265,8 +2318,8 @@ def wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal, bias_kind, rate,
 # against the plain versions. 16-bit heads take the tiled wide kernels
 # (D = 300 and 530: rows TMA cannot address, copied and counted), all three
 # streaming the head dim above 512 (530, 576, 640, 1024; 1280 with the
-# forward's q streamed too); f32 the 3xTF32 forward (530: copied) and the
-# warp-a-row dq and dk / dv (attn.head_dim_route)
+# forward's q streamed too); f32 the 3xTF32 forward and dq (530: copied)
+# and the warp-a-row dk / dv, at 264 to 1280 (attn.head_dim_route)
 WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 288, 200, 200, True, None, 0.1),
               ("bfloat16", 320, 100, 260, False, "full", 0.1),
@@ -2284,7 +2337,9 @@ WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("float32", 320, 64, 64, True, None, 0.0),
               ("float32", 576, 77, 131, True, "keypad", 0.1),
               ("float32", 1024, 64, 96, False, "full", 0.0),
-              ("float32", 530, 70, 45, False, None, 0.0)]
+              ("float32", 530, 70, 45, False, None, 0.0),
+              ("float32", 264, 77, 131, True, "keypad", 0.1),
+              ("float32", 1280, 96, 160, False, "full", 0.1)]
 # the timed shapes (B, H, T, D, bias, causal), bf16 from one fused QKV
 # projection; key padding ragged over the batch (wide_timed_case). The first
 # is the wide path's first shape; the kernels line carries WIDE_LINE's rows
@@ -2295,13 +2350,14 @@ WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
               (2, 4, 512, 576, "keypad", False),
               (4, 8, 1024, 1024, "keypad", False))
 WIDE_LINE = 1
-# the warp-a-row kernels (WIDE_ROWS_SOURCE), which keep the f32 dq and dk /
-# dv, timed on their own route (B, H, T, D, bias, causal, dtype): each
-# kernel whose source the route makes the warp-a-row file (the kernels line
+# the warp-a-row kernel (WIDE_ROWS_SOURCE), which keeps the f32 dk / dv,
+# timed on its own route (B, H, T, D, bias, causal, dtype): each kernel
+# whose source the route makes the warp-a-row file (the kernels line
 # carries the tiled ones)
-WIDE_ROWS_TIMED = ((2, 4, 512, 320, "keypad", False, "float32"),)
-# the f32 forward (3xTF32, wide_fwd_tf32) timed at (B, H, T, D, bias,
-# causal) in f32
+WIDE_ROWS_TIMED = ((2, 4, 512, 320, "keypad", False, "float32"),
+                   (8, 8, 1024, 320, "keypad", False, "float32"))
+# the f32 forward and dq (3xTF32: wide_fwd_tf32, wide_dq_tf32) timed at
+# (B, H, T, D, bias, causal) in f32
 WIDE_F32_TIMED = ((2, 4, 512, 320, "keypad", False),
                   (8, 8, 1024, 320, "keypad", False),
                   (2, 4, 512, 576, "keypad", False))
@@ -2455,11 +2511,11 @@ def wide_timed(torch, dev, gen, attn, errs):
 
 
 def wide_rows_timed(torch, dev, gen, attn):
-    """The warp-a-row kernels on their own route, at each
+    """The warp-a-row kernel on its own route, at each
     ``WIDE_ROWS_TIMED`` shape: each wide kernel whose source the shape's
-    route makes ``WIDE_ROWS_SOURCE`` (the f32 dq and dk / dv alone; the
-    route checked kernel by kernel), checked against the plain backward
-    (dq, dk and dv within REL_BWD), then its device time, by the
+    route makes ``WIDE_ROWS_SOURCE`` (the f32 dk / dv alone; the route
+    checked kernel by kernel), checked against the plain backward (dk and
+    dv within REL_BWD), then its device time, by the
     profiler's records of that kernel's own name, beside its bound, the
     plain version and SDPA's memory-efficient whole backward (or SDPA's
     refusal, printed)."""
@@ -2468,7 +2524,7 @@ def wide_rows_timed(torch, dev, gen, attn):
         route = attn.head_dim_route(d, getattr(torch, dtn))
         names = [n for n in WIDE_KERNELS
                  if attn._source(n, route)[0] == rows_lib]
-        want = ["flash_attention_wide_dq", "flash_attention_wide_dkv"]
+        want = ["flash_attention_wide_dkv"]
         if names != want:
             fail(f"WIDE_ROWS_TIMED: D={d} {dtn} ({route}) takes the "
                  f"warp-a-row {names}, expected {want}")
@@ -2480,11 +2536,8 @@ def wide_rows_timed(torch, dev, gen, attn):
         want = attn.flash_attention_backward_reference(
             q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
             causal, False)
-        for name, parts in (("flash_attention_wide_dq", ((0, "dq"),)),
-                            ("flash_attention_wide_dkv",
-                             ((1, "dk"), (2, "dv")))):
-            if name not in names:
-                continue
+        for name, parts in (("flash_attention_wide_dkv",
+                             ((1, "dk"), (2, "dv"))),):
             calls[name], outs = kernel_only_call(torch, attn, c, name)
             calls[name]()
             for i, nm in parts:
@@ -2503,7 +2556,9 @@ def wide_rows_timed(torch, dev, gen, attn):
             torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
         for name in names:
             pattern = WIDE_SOURCE_KERNEL[rows_lib][name]
-            ms = launch_ms(calls[name], 5, lambda n: re.search(pattern, n))
+            ms = launch_ms(calls[name], 5 if T <= 512 else 2,
+                           lambda n: re.search(pattern, n),
+                           warmup=3 if T <= 512 else 1)
             if ms is None:
                 fail(f"warp-a-row {name} at {label}: the profiler kept no "
                      f"record of {pattern}")
@@ -2521,14 +2576,16 @@ def wide_rows_timed(torch, dev, gen, attn):
 
 
 def wide_f32_timed(torch, dev, gen, attn):
-    """The f32 wide forward (3xTF32 on the tensor cores, route
+    """The f32 wide forward and dq (3xTF32 on the tensor cores, route
     ``wide_f32``) at each ``WIDE_F32_TIMED`` shape: out and lse within
-    TOL_F32 of the plain version, then its device time, by the
-    profiler's records of ``wide_fwd_tf32``, beside its bound (operations
-    at the f32 FMA peak), its products' time as 3xTF32 on the tensor cores,
-    the plain version's and SDPA's f32 forward (its memory-efficient
-    backend, the only one that takes such heads; TF32 off)."""
-    pattern = ROUTE_KERNELS["wide_f32"][0]
+    TOL_F32 of the plain version, dq within REL_BWD of the plain backward,
+    then each one's device time, by the profiler's records of
+    ``wide_fwd_tf32`` and ``wide_dq_tf32``, beside its bound (operations at
+    the f32 FMA peak), its products' time as 3xTF32 on the tensor cores,
+    the plain version's and SDPA's f32 forward or whole backward (its
+    memory-efficient backend, the only one that takes such heads; TF32
+    off)."""
+    fwd_pattern, dq_pattern = ROUTE_KERNELS["wide_f32"][:2]
     for B, Hh, T, d, bias_kind, causal in WIDE_F32_TIMED:
         if attn.head_dim_route(d, torch.float32) != "wide_f32":
             fail(f"WIDE_F32_TIMED: D={d} f32 takes route "
@@ -2543,26 +2600,59 @@ def wide_f32_timed(torch, dev, gen, attn):
         check_close("f32 wide forward lse", label, c["lse"], ref_lse,
                     TOL_F32)
         del ref, ref_lse
-        ms = launch_ms(lambda: attn._flash_forward(q, k, v, bias, scale,
-                                                   causal), 10,
-                       lambda n: re.search(pattern, n))
-        if ms is None:
-            fail(f"f32 wide forward at {label}: the profiler kept no record "
-                 f"of {pattern}")
-        bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"], "float32", 4,
-                                     causal, bias)
-        flops = 4.0 * Hh * d * score_pairs(B, T, c["valid"], causal)
-        plain = device_ms(lambda: attn.flash_attention_reference(
-            q, k, v, bias, scale, causal), iters=3)
-        lib = wide_sdpa_forward_ms(torch, q, k, v, bias, scale, causal,
-                                   label)
-        print(f"phase 3: flash_attention_wide_fwd (wide_f32, 3xTF32) at "
-              f"{label}: {fmt_ms(ms)} device (bound {bnd:.5f} ms by {by} at "
-              f"the f32 FMA peak; 3xTF32 on the tensor cores "
-              f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms; plain {fmt_ms(plain)}; "
-              f"SDPA f32 memory-efficient {fmt_ms(lib)}); error {err:.3e}",
-              flush=True)
-        del c
+        dq_call, outs = kernel_only_call(torch, attn, c,
+                                         "flash_attention_wide_dq")
+        dq_call()
+        want = attn.flash_attention_backward_reference(
+            q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
+            causal, False)[0]
+        e = rel(outs[0], want)
+        if not e <= REL_BWD["float32"]:
+            fail(f"f32 wide dq {label}: rel {e:.3e} beyond "
+                 f"{REL_BWD['float32']}")
+        dq_err = (outs[0].float() - want).abs().max().item()
+        del want
+        big = T > 512
+        ms = {"fwd": launch_ms(lambda: attn._flash_forward(
+            q, k, v, bias, scale, causal), 10,
+            lambda n: re.search(fwd_pattern, n)),
+            "dq": launch_ms(dq_call, 3 if big else 10,
+                            lambda n: re.search(dq_pattern, n))}
+        for side, pattern in (("fwd", fwd_pattern), ("dq", dq_pattern)):
+            if ms[side] is None:
+                fail(f"f32 wide {side} at {label}: the profiler kept no "
+                     f"record of {pattern}")
+        pairs = score_pairs(B, T, c["valid"], causal)
+        plain = {"fwd": device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias, scale, causal), iters=3),
+            "dq": device_ms(lambda: attn.flash_attention_backward_reference(
+                q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"],
+                scale, causal, False), iters=2 if big else 3)}
+        lib = {"fwd": wide_sdpa_forward_ms(torch, q, k, v, bias, scale,
+                                           causal, label),
+               "dq": wide_sdpa(torch, lambda: library_backward_ms(
+                   torch, q, k, v, bias, c["do"], scale, causal, 0.0,
+                   False))}
+        for side, name, n_prod, error in (
+                ("fwd", "flash_attention_wide_fwd", 2, err),
+                ("dq", "flash_attention_wide_dq", 3, dq_err)):
+            if side == "fwd":
+                bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"],
+                                             "float32", 4, causal, bias)
+            else:
+                bnd, by = backward_bound_ms("dq", B, Hh, T, T, d, c["valid"],
+                                            "float32", 4, causal, bias,
+                                            False)
+            flops = 2.0 * n_prod * Hh * d * pairs
+            whole = " (the whole backward)" if side == "dq" else ""
+            print(f"phase 3: {name} (wide_f32, 3xTF32) at {label}: "
+                  f"{fmt_ms(ms[side])} device (bound {bnd:.5f} ms by {by} "
+                  f"at the f32 FMA peak; 3xTF32 on the tensor cores "
+                  f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms; plain "
+                  f"{fmt_ms(plain[side])}{whole}; SDPA f32 "
+                  f"memory-efficient {fmt_ms(lib[side])}{whole}); error "
+                  f"{error:.3e}", flush=True)
+        del c, outs
         torch.cuda.empty_cache()
 
 
@@ -2767,14 +2857,15 @@ def wide_checks(torch, dev, gen, attn):
     return rows, launches
 
 
-# the f32 flash kernels at head dims up to 256 (FMA kernels; f32 is MXNet's
-# default dtype), timed at BERT-base's attention (key padding) and GPT-2
-# training's (causal) in f32: (B, H, T, D, bias, causal)
+# the f32 flash kernels at head dims up to 256 (f32 is MXNet's default
+# dtype: the FMA forward and pair, the 3xTF32 fused pass), timed at
+# BERT-base's attention (key padding) and GPT-2 training's (causal) in f32:
+# (B, H, T, D, bias, causal)
 F32_TIMED = ((8, 12, 512, 64, "keypad", False), (8, 12, 1024, 64, None, True))
 F32_KERNEL = {"flash_attention_fwd": r"flash_fwd_f32",
-              "flash_attention_bwd_fused": r"bwd_dkv_f32<\d+, true>",
+              "flash_attention_bwd_fused": r"bwd_fused_tf32<",
               "flash_attention_bwd_dq": r"bwd_dq_f32<",
-              "flash_attention_bwd_dkv": r"bwd_dkv_f32<\d+, false>"}
+              "flash_attention_bwd_dkv": r"bwd_dkv_f32<"}
 TF32_FLOPS = 495e12   # H100 SXM data sheet, dense
 
 
@@ -4267,8 +4358,9 @@ def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses):
 
 
 def train_parity(torch, dev, params, cfg):
-    """One f32 step, dropout 0, B=2, T=128: the card (kernels) against the
-    CPU (plain path), loss and every parameter's gradient."""
+    """One f32 step, dropout 0, B=2, T=128: the card (kernels, under
+    :func:`f32_fused_audit`) against the CPU (plain path), loss and every
+    parameter's gradient."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon import Trainer
@@ -4285,8 +4377,13 @@ def train_parity(torch, dev, params, cfg):
         trainer = Trainer(net.collect_params(), "adamw",
                           {"learning_rate": 1e-4})
         before = dict(attn.launches)
-        loss = train_step(torch, autograd, net, SoftmaxCrossEntropyLoss(),
-                          trainer, [x.to(where) for x in batch])
+        xs = [x.to(where) for x in batch]
+
+        def run():
+            return train_step(torch, autograd, net,
+                              SoftmaxCrossEntropyLoss(), trainer, xs)
+        loss = run() if where == "cpu" else f32_fused_audit(
+            torch, "phase 5", run)
         grads = {k: p.grad().detach().cpu() for k, p in
                  net.collect_params().items()}
         moved = attn.launches["flash_attention_bwd_fused"] - \
@@ -6041,11 +6138,31 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
     return counts, stats
 
 
+def f32_fused_audit(torch, tag, run):
+    """``run()``, an f32 step on the card, under torch.profiler: its
+    records must show the 3xTF32 fused pass (``F32_KERNEL``) and none of
+    the f32 FMA backward kernels. Returns what ``run`` returns."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primer()
+        result = run()
+        torch.cuda.synchronize()
+    names = list(kernel_counts(prof))
+    fused = [n for n in names
+             if re.search(F32_KERNEL["flash_attention_bwd_fused"], n)]
+    fma = [n for n in names if re.search(r"bwd_(dq|dkv)_f32<", n)]
+    if not fused or fma:
+        fail(f"{tag} f32 step: the profiler's backward kernels "
+             f"{fused + fma}, expected the 3xTF32 fused pass alone")
+    return result
+
+
 def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
                     n_attn):
     """One f32 step, dropout 0, on the card (the kernels; TF32 off) against
     the same step on the CPU (the plain path): loss and every parameter's
-    gradient."""
+    gradient; the card's step under :func:`f32_fused_audit`."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon import Trainer
@@ -6056,8 +6173,12 @@ def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
         net = load_jax_params(build(where), params)
         trainer = Trainer(net.collect_params(), opt[0], dict(opt[1]))
         before = dict(attn.launches)
-        loss = step(torch, autograd, net, SoftmaxCrossEntropyLoss(axis=-1),
-                    trainer, [x.to(where) for x in batch])
+        xs = [x.to(where) for x in batch]
+
+        def run():
+            return step(torch, autograd, net,
+                        SoftmaxCrossEntropyLoss(axis=-1), trainer, xs)
+        loss = run() if where == "cpu" else f32_fused_audit(torch, tag, run)
         moved = attn.launches["flash_attention_bwd_fused"] - \
             before["flash_attention_bwd_fused"]
         if (where != "cpu") != (moved == n_attn):

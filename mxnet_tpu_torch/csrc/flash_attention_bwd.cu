@@ -94,9 +94,11 @@
 // are cut, =3 the walk's exponentials are cut; the results are wrong and
 // chip_smoke.py --probe-bwd times the fused pass so beside the full kernel.
 //
-// f32 inputs take FMA kernels with the same structure (D/16 threads per
-// row, 16 columns each) and expf, so f32 stays at f32 accuracy; the fused
-// one adds dq with scalar atomics.
+// f32 inputs: the fused pass is tf::bwd_fused_tf32, the key-block walk on
+// 3xTF32 wgmma (its section below: f32-accurate products on the tensor
+// cores whatever torch.backends.cuda.matmul.allow_tf32 says); the pair
+// keeps FMA kernels with the same structure (D/16 threads per row, 16
+// columns each) and expf.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -914,6 +916,498 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 
 }  // namespace wg
 
+// ------------------------------------ f32 fused pass (3xTF32 on wgmma, TMA)
+// f32 q, k, v at D <= 128 (kind FUSED): the key-block walk above carried to
+// f32 on the tensor cores. wgmma reads f32 only as TF32 (10 mantissa bits),
+// and only K-major, so every operand is split into TF32 halves, x = hi + lo
+// (hopper.cuh), and every product taken as hi hi' + hi lo' + lo hi'
+// (3xTF32): an f32-accurate product (about 2^-21 relative), not a TF32
+// one, whatever torch.backends.cuda.matmul.allow_tf32 says. A block owns
+// 64 keys of one (batch, head) and walks their q tiles of 32 rows; one
+// consumer warpgroup, one producer warp and three splitter warps (256
+// threads, 255 registers a thread). The head dim is padded to DP in {32,
+// 64, 96, 128}, DP / 32 panels of 32 f32 columns (one 128-byte swizzled
+// row; TMA zero-fills past D). A register A operand can be split in
+// registers; a shared-memory B operand needs its halves in shared memory.
+// Per q tile, all five products on m64n32k8 TF32 wgmmas:
+//  - s^T = K q^T and dp^T = V dout^T: K and V (raw, resident) split in the
+//    consumer's registers, a panel at a time, as the A operand; q and dout
+//    (hi in place of the TMA copy, lo beside it) as the K-major B;
+//  - dv += p_d^T dout and dk += (ds scale)^T q: p_d^T and ds^T, the s^T and
+//    dp^T accumulators, split in registers as the A operand; dout^T and
+//    q^T as the B, which the splitter warps write transposed (a row a
+//    column of the head dim, its 32 queries one 128-byte row, each 8-query
+//    group in the order the accumulator's fragment takes them,
+//    hop::tf32_key_pos), as the f32 wide forward writes V^T;
+//  - dq^T = K^T (ds scale)^T, a 64-row M of the head dim at a time: K^T
+//    read from raw K in registers as the A operand; ds as [query][key]
+//    (hi, lo), written by the consumer, as the K-major B. dq^T leaves
+//    through a staging buffer, transposed to [query][d], by one bulk f32
+//    reduce-add a tile into the caller's zeroed accumulator (B, H, Tq
+//    rounded up to 64, DP' + 8), DP' = 64 for D <= 64, else 128 (the 16-bit
+//    pass's layout); the order of the key blocks' adds varies, so dq agrees
+//    from run to run to rounding, dk and dv to the bit.
+// Shared memory (227 KB a block): K and V raw (2 DP 256 bytes: 32 KB at
+// DP = 64), a ring stage of q, dout, q^T, dout^T, hi and lo each (8 DP 128
+// bytes: 64 KB), ds hi and lo (16 KB), the dq staging buffer (32 rows of
+// DP' + 8 floats: 9 KB at DP' = 64), lse and delta rows: 4 stages at DP =
+// 32, 2 at 64, 1 at 96 and 128 (TfSmem).
+// Bound: operations, its five products (10 T^2 D flops a (batch, head),
+// each as three TF32 ones). On an H100 it takes about 4 times that bound:
+// the one consumer warpgroup issues each product group, waits for it and
+// only then computes what the next one reads (cut builds, PERF.md section
+// 6).
+namespace tf {
+
+constexpr int KEYS = 64;                 // keys a block: M of s^T, dk, dv
+constexpr int BQ = 32;                   // queries a q tile
+constexpr int ROW = 128;                 // one swizzled row: 32 f32
+constexpr int PANEL_Q = BQ * ROW;        // 32 columns of a q tile
+constexpr int PANEL_K = KEYS * ROW;      // ... of the key block
+constexpr int SPLIT = 96;                // splitter threads: warps 5-7
+constexpr int THREADS = 256;
+constexpr int SMEM_LIMIT = 232448;       // bytes a block may use
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int imin(int x, int y) { return x < y ? x : y; }
+
+struct Maps {
+  CUtensorMap q, o, k, v;
+};
+
+// Shared memory from a 1024-byte aligned base: K, V (raw, NP panels of 64
+// keys), ds [query][key] hi and lo (2 panels of 32 keys each), the dq
+// staging buffer, the ring (a stage: q at Q, dout at O, each as hi, lo,
+// transposed hi, transposed lo, T bytes apart), lse and delta rows a stage,
+// the mbarriers: K and V's, then full (copied), ready (split), empty (used)
+// a stage.
+template <int DP>
+struct TfSmem {
+  static constexpr int NP = DP / 32;
+  static constexpr int ACC_LD = (DP <= 64 ? 64 : 128) + 8;  // dq_accumulator
+  static constexpr int T = NP * PANEL_Q;  // one quarter of q's share
+  static constexpr int STAGE = 8 * T;
+  static constexpr int K = 0;
+  static constexpr int V = K + NP * PANEL_K;
+  static constexpr int DS = V + NP * PANEL_K;
+  static constexpr int DS_LO = 2 * PANEL_Q;
+  static constexpr int DQ = DS + 2 * DS_LO;
+  static constexpr int RING = DQ + BQ * ACC_LD * 4;
+  static constexpr int Q = 0, O = 4 * T;  // in a stage
+  static constexpr int PER = STAGE + 2 * BQ * 4 + 3 * 8;
+  static constexpr int STAGES =
+      imin(4, (SMEM_LIMIT - 1024 - 8 - RING) / PER);
+  static constexpr int LSE = RING + STAGES * STAGE;
+  static constexpr int DELTA = LSE + STAGES * BQ * 4;
+  static constexpr int BAR = DELTA + STAGES * BQ * 4;
+  static constexpr int ALLOC = BAR + (1 + 3 * STAGES) * 8 + 1024;
+  static_assert(RING % 1024 == 0 && STAGES >= 1 && ALLOC <= SMEM_LIMIT,
+                "shared memory");
+};
+
+// One q or dout tile (NP panels of 32 rows, as TMA wrote them at x) split
+// by splitter t: hi in place, lo T bytes on, and transposed (row c: column
+// c, its 32 rows at hop::tf32_key_pos) as hi at 2 T, lo at 3 T. A warp
+// takes one 16-byte chunk of the 32 rows, so that each transposed store
+// fills one row across 32 banks.
+template <int NP>
+__device__ __forceinline__ void split_tile(unsigned char* x, int t) {
+  constexpr int T = NP * PANEL_Q;
+  constexpr int PER = (NP * 256 + SPLIT - 1) / SPLIT;  // float4s a splitter
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * SPLIT, p = i >> 8, c = (i >> 5) & 7, r = i & 31;
+    if (i >= NP * 256) break;
+    const int off = p * PANEL_Q + r * ROW + ((c ^ (r & 7)) << 4);
+    const float4 v = *reinterpret_cast<const float4*>(x + off);
+    const float e4[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hop::tf32_split(e4[e], hi[e], lo[e]);
+    *reinterpret_cast<uint4*>(x + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(x + T + off) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    const int s = hop::tf32_key_pos(r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 4 * c + e;  // of the transposed panel p
+      const int to = p * PANEL_Q + row * ROW + (((s >> 2) ^ (row & 7)) << 4) +
+                     (s & 3) * 4;
+      *reinterpret_cast<uint32_t*>(x + 2 * T + to) = hi[e];
+      *reinterpret_cast<uint32_t*>(x + 3 * T + to) = lo[e];
+    }
+  }
+}
+
+// The TF32 halves of k8 steps 4 hf .. 4 hf + 3 of K^T's rows d, d + 8 (A
+// of dq^T: keys along k), read from raw K (panel kp, d's 16-byte chunk dw
+// and word dc of it), or 0 where the rows lie past DP (!in)
+__device__ __forceinline__ void kt_split(const unsigned char* kp, int dw,
+                                         int dc, int t4, int hf, bool in,
+                                         uint32_t (*hi)[4],
+                                         uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // a[e]: row d + 8 (e & 1) (two chunks on), key 8 kk + t4 + 4 (e >> 1)
+      const int kr = 8 * (4 * hf + u) + t4 + 4 * (e >> 1);
+      const int ch = dw + 2 * (e & 1);
+      const float x = in ? *reinterpret_cast<const float*>(
+                               kp + kr * ROW + ((ch ^ (kr & 7)) << 4) + dc)
+                         : 0.f;
+      hop::tf32_split(x, hi[u][e], lo[u][e]);
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_fused_tf32(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using L = TfSmem<DP>;
+  constexpr int NP = L::NP, STAGES = L::STAGES, T = L::T;
+  constexpr int MC = (DP + 63) / 64;  // 64-row M chunks of dq^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* full = full_kv + 1;      // [STAGES]: q, dout, lse, delta copied
+  uint64_t* ready = full + STAGES;   // [STAGES]: the 3 splitter warps done
+  uint64_t* empty = ready + STAGES;  // [STAGES]: the 4 consumer warps done
+  float* s_lse = reinterpret_cast<float*>(sm + L::LSE);
+  float* s_delta = reinterpret_cast<float*>(sm + L::DELTA);
+
+  const int k0 = blockIdx.x * KEYS, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  // query tiles above the causal diagonal see none of these keys
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int n_tiles = max(0, (a.Tq + BQ - 1) / BQ - iq0);
+
+  if (tid == 0) {
+    hop::mbar_init(full_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(ready + s, SPLIT / 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 160) {
+    // ----------------------------------------------------------- splitters
+    const int t = tid - 160;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      hop::mbar_wait_or_trap(full + s, (it / STAGES) & 1);
+      unsigned char* st = sm + L::RING + s * L::STAGE;
+      split_tile<NP>(st + L::Q, t);
+      split_tile<NP>(st + L::O, t);
+      hop::fence_async_smem();
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(ready + s);
+    }
+    return;
+  }
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // lane 0 issues the copies; every lane stages one row's lse (base 2,
+    // +inf past Tq: p = 0 there) and delta, and arrives on the stage
+    const float* lsep = a.lse + bh * a.Tq;
+    const float* deltap = a.delta + bh * a.Tq;
+    if (lane == 0) {
+      hop::mbar_expect(full_kv, 2 * NP * PANEL_K);
+      for (int p = 0; p < NP; ++p) {
+        hop::tma_load_4d(sm + L::K + p * PANEL_K, &maps.k, full_kv, p * 32,
+                         k0, h, b);
+        hop::tma_load_4d(sm + L::V + p * PANEL_K, &maps.v, full_kv, p * 32,
+                         k0, h, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, q0 = (iq0 + it) * BQ;
+      if (it >= STAGES)
+        hop::mbar_wait_or_trap(empty + s, ((it / STAGES) + 1) & 1);
+      const int r = q0 + lane;
+      s_lse[s * BQ + lane] = r < a.Tq ? lsep[r] * LOG2E : INFINITY;
+      s_delta[s * BQ + lane] = r < a.Tq ? deltap[r] : 0.f;
+      if (lane != 0) {
+        hop::mbar_arrive(full + s);
+      } else {
+        unsigned char* st = sm + L::RING + s * L::STAGE;
+        hop::mbar_expect(full + s, 2 * T);
+        for (int p = 0; p < NP; ++p) {
+          hop::tma_load_4d(st + L::Q + p * PANEL_Q, &maps.q, full + s, p * 32,
+                           q0, h, b);
+          hop::tma_load_4d(st + L::O + p * PANEL_Q, &maps.o, full + s, p * 32,
+                           q0, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  const int warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int kl = warp * 16 + g;             // this thread's rows of K, V
+  const int ka = k0 + kl, kb = ka + 8;      // ... its keys
+  const bool odd = (g & 1) != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  // the key's term of the exponent in base-2 units, read once: the bias of
+  // a key-padding row (bias broadcast over Tq), -inf past Tk (p = 0 there)
+  float kterm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kk = i ? kb : ka;
+    kterm[i] = kk >= a.Tk ? -INFINITY
+               : (bp != nullptr && !full_bias) ? bp[kk * a.b_sk] * LOG2E
+                                               : 0.f;
+  }
+  const uint32_t base = hop::smem_u32(sm);
+  const int ao = kl * ROW + t4 * 4;  // this thread's word of row kl
+  const bool leader = tid == 0;
+  float* stage = reinterpret_cast<float*>(sm + L::DQ);
+  float* dq_base = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  float* dsp = a.ds != nullptr
+                   ? a.ds + bh * a.Tq * static_cast<long long>(a.Tk)
+                   : nullptr;
+  // the staging buffer's columns past 64 MC (padding) add zeros
+  for (int i = tid; i < BQ * L::ACC_LD; i += 128) stage[i] = 0.f;
+
+  float dk[NP][16], dv[NP][16];  // keys ka, kb x panel columns
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dk[p][i] = dv[p][i] = 0.f;
+  float st[16], dpt[16];  // s^T, dp^T: keys ka, kb x 8 of the 32 queries
+  // two sets of an A operand's TF32 halves (hi, lo), k8 step kk: K's then
+  // p_d^T's, V's then ds^T's
+  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+
+  hop::mbar_wait_or_trap(full_kv, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, q0 = (iq0 + it) * BQ;
+    const uint32_t qt = base + L::RING + s * L::STAGE + L::Q;
+    const uint32_t ot = base + L::RING + s * L::STAGE + L::O;
+    const float* lq = s_lse + s * BQ;
+    const float* dl = s_delta + s * BQ;
+    hop::mbar_wait_or_trap(ready + s, (it / STAGES) & 1);
+
+    // s^T = K q^T and dp^T = V dout^T, a panel of the head dim a group
+    // each: K's (V's) halves of the next panel split while the group
+    // before runs
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hop::wgmma_wait<1>();  // s^T's group of panel p - 1 done: h0, l0 free
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::tf32_rows_split(sm + L::K + p * PANEL_K, ao, g, kk, h0[kk],
+                             l0[kk]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_tf32_3x(st, h0[kk], l0[kk], qt + p * PANEL_Q + kk * 32, T,
+                           p > 0 || kk > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // dp^T's group of panel p - 1 done
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::tf32_rows_split(sm + L::V + p * PANEL_K, ao, g, kk, h1[kk],
+                             l1[kk]);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_tf32_3x(dpt, h1[kk], l1[kk], ot + p * PANEL_Q + kk * 32,
+                           T, p > 0 || kk > 0);
+      hop::wgmma_commit();
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs(st, 16);
+    hop::fence_regs(dpt, 16);
+
+    // p = 2^(s scale log2(e) + bias - lse), element i: key i & 2 ? kb : ka,
+    // query q0 + 8 (i / 4) + 2 t4 + (i & 1); each variant one straight run
+    if (!full_bias) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + 2 * t4);
+        st[4 * j] = fmaf(st[4 * j], scale2, kterm[0]) - l2.x;
+        st[4 * j + 1] = fmaf(st[4 * j + 1], scale2, kterm[0]) - l2.y;
+        st[4 * j + 2] = fmaf(st[4 * j + 2], scale2, kterm[1]) - l2.x;
+        st[4 * j + 3] = fmaf(st[4 * j + 3], scale2, kterm[1]) - l2.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int kk = (i & 2) ? kb : ka;
+        const float bv = r < a.Tq && kk < a.Tk
+                             ? bp[r * a.b_sq + kk * a.b_sk] * LOG2E : 0.f;
+        st[i] = fmaf(st[i], scale2, kterm[(i >> 1) & 1] + bv) -
+                lq[8 * (i >> 2) + 2 * t4 + (i & 1)];
+      }
+    }
+    if (a.causal && q0 < k0 + KEYS - 1) {  // the tile crosses the diagonal
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (((i & 2) ? kb : ka) > r) st[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) st[i] = hop::ex2(st[i]);
+
+    // p_d (dropout) into st, ds0 = p (dp_d - delta) into dpt
+    if (a.dropout) {
+      const uint32_t th = a.drop_threshold;
+      const float dsc = a.drop_scale;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t w[4];
+        wg::dropout_chunk(w, key, b, h, q0 + 8 * j + 2 * t4, ka, kb, odd);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const bool keep = w[e] >= th;
+          const float p = st[i];
+          const float dp = keep ? dpt[i] * dsc : 0.f;
+          st[i] = keep ? p * dsc : 0.f;
+          dpt[i] = p * (dp - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    }
+    if (dsp != nullptr) {  // the learned bias's gradient, f32
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int kk = (i & 2) ? kb : ka;
+        if (r < a.Tq && kk < a.Tk)
+          dsp[r * static_cast<long long>(a.Tk) + kk] = dpt[i];
+      }
+    }
+
+    // p_d^T and (ds0 scale)^T as the A operand; ds (scaled) also as
+    // [query][key] halves, dq^T's B (its last reader, the tile before's
+    // dq^T, is done: its group was waited for before the staging barrier)
+    hop::tf32_acc_split(st, 1.f, h0, l0);
+    hop::tf32_acc_split(dpt, a.scale, h1, l1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = 8 * j + 2 * t4 + (e & 1);      // the query
+        const int kr = kl + ((e & 2) ? 8 : 0);        // the key, in the block
+        const int c = (e & 1) ? 2 + (e >> 1) : e >> 1;  // the split's order
+        const int off = (kr >> 5) * PANEL_Q + qr * ROW +
+                        ((((kr & 31) >> 2) ^ (qr & 7)) << 4) + (kr & 3) * 4;
+        *reinterpret_cast<uint32_t*>(sm + L::DS + off) = h1[j][c];
+        *reinterpret_cast<uint32_t*>(sm + L::DS + L::DS_LO + off) = l1[j][c];
+      }
+
+    // dv += p_d^T dout, dk += ds^T q over the panels: dout^T and q^T (hi at
+    // 2 T, lo at 3 T) as the K-major B
+    hop::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        hop::wgmma_tf32_3x(dv[p], h0[j], l0[j],
+                           ot + 2 * T + p * PANEL_Q + j * 32, T);
+        hop::wgmma_tf32_3x(dk[p], h1[j], l1[j],
+                           qt + 2 * T + p * PANEL_Q + j * 32, T);
+      }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hop::fence_regs(dv[p], 16);
+      hop::fence_regs(dk[p], 16);
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(empty + s);  // the stage is used
+
+    // dq^T = K^T (ds scale)^T: K^T's halves (rows d, keys along k) from raw
+    // K in registers, ds from shared memory, once every warp's ds is there
+    // and the bulk add before has read the staging buffer
+    if (leader) hop::bulk_wait_read<0>();
+    hop::fence_async_smem();
+    hop::named_sync(1, 128);
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      // two groups of 4 k8 steps (keys 0-31, 32-63), their A halves in the
+      // two sets of registers, so the second's are split as the first runs
+      float acc[16];
+      const int d = 64 * c + kl;  // this thread's rows d, d + 8 of dq^T
+      const bool in = 64 * c + 16 * warp < DP;
+      const unsigned char* kp = sm + L::K + (d >> 5) * PANEL_K;
+      const int dw = (d & 31) >> 2, dc = (d & 3) * 4;
+      kt_split(kp, dw, dc, t4, 0, in, h0, l0);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hop::wgmma_tf32_3x(acc, h0[u], l0[u], base + L::DS + u * 32,
+                           L::DS_LO, u > 0);
+      hop::wgmma_commit();
+      kt_split(kp, dw, dc, t4, 1, in, h1, l1);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hop::wgmma_tf32_3x(acc, h1[u], l1[u],
+                           base + L::DS + PANEL_Q + u * 32, L::DS_LO);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc, 16);
+      // dq^T's element i: row d + 8 ((i >> 1) & 1), query 8 (i / 4) + 2 t4
+      // + (i & 1), into the staging buffer's [query][d]
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        stage[(8 * (i >> 2) + 2 * t4 + (i & 1)) * L::ACC_LD + d +
+              ((i & 2) ? 8 : 0)] = acc[i];
+    }
+    hop::fence_async_smem();
+    hop::named_sync(1, 128);
+    if (leader) {
+      hop::bulk_reduce_add_f32(dq_base + q0 * a.dq_st, stage,
+                               BQ * L::ACC_LD * 4);
+      hop::bulk_commit();
+    }
+  }
+
+  // ------------------------------------------------------------- epilogue
+  // dk and dv straight to global memory (once a block), rows past Tk and
+  // columns past D not written
+  float* dkp = static_cast<float*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
+  float* dvp = static_cast<float*>(a.dv) + b * a.dv_sb + h * a.dv_sh;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int kr = (i & 2) ? kb : ka;
+      const int col = 32 * p + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (kr < a.Tk && col < a.D) {
+        dkp[kr * a.dk_st + col] = dk[p][i];
+        dvp[kr * a.dv_st + col] = dv[p][i];
+      }
+    }
+  if (leader) hop::bulk_wait<0>();  // every dq add has landed
+}
+
+}  // namespace tf
+
 // ------------------------------------------------------------ dq (f32, FMA)
 // DP / 16 threads per query row, 16 head columns each; K and V tiles in
 // shared memory; one key at a time.
@@ -990,8 +1484,8 @@ __global__ void __launch_bounds__(BM * DP / 16) bwd_dq_f32(BwdArgs a) {
   }
 }
 
-// ---------------------------------------------- dk, dv (+ dq) (f32, FMA)
-template <int DP, bool FUSED>
+// --------------------------------------------------- dk, dv (f32, FMA)
+template <int DP>
 __global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
   constexpr int TPR = DP / 16, HD = 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -999,8 +1493,6 @@ __global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
   float* sO = sQ + BM * DP;                        // [BM][DP]
   float* sL = sO + BM * DP;                        // [BM]
   float* sD = sL + BM;                             // [BM]
-  float* sK = sD + BM;                             // [BN][DP], fused only
-  float* sS = sK + (FUSED ? BN * DP : 0);          // [BM][BN], fused only
 
   const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, part = tid % TPR, kl = tid / TPR;
@@ -1021,12 +1513,6 @@ __global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
     kr[d] = in ? kp[kc * a.k_st + d0 + d] : 0.f;
     vr[d] = in ? vp[kc * a.v_st + d0 + d] : 0.f;
     dk[d] = dv[d] = 0.f;
-  }
-  if (FUSED) {
-    for (int i = tid; i < BN * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      sK[i] = (k0 + r < a.Tk && c < a.D) ? kp[(k0 + r) * a.k_st + c] : 0.f;
-    }
   }
 
   const int iq0 = a.causal ? k0 / BM : 0;
@@ -1063,33 +1549,10 @@ __global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
       float pd, ds0;
       score_grad(a, bp, s, dp, qr, kc, sL[j], sD[j], keep, pd, ds0);
       const float dsc = ds0 * a.scale;
-      if (FUSED && part == 0) {
-        sS[j * BN + kl] = dsc;
-        if (a.ds && kc < a.Tk) ds_row(a, b, h, qr)[kc] = ds0;
-      }
 #pragma unroll
       for (int d = 0; d < HD; ++d) {
         dv[d] += pd * sO[j * DP + d0 + d];
         dk[d] += dsc * sQ[j * DP + d0 + d];
-      }
-    }
-    if (FUSED) {
-      __syncthreads();
-      // thread (row kl, part) adds ds[kl, :] k[:, d0:d0+16] into dq
-      if (kl < n) {
-        float c[HD];
-#pragma unroll
-        for (int d = 0; d < HD; ++d) c[d] = 0.f;
-        for (int j = 0; j < BN; ++j) {
-          const float x = sS[kl * BN + j];
-#pragma unroll
-          for (int d = 0; d < HD; ++d) c[d] += x * sK[j * DP + d0 + d];
-        }
-        float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh +
-                     (q0 + kl) * a.dq_st;
-#pragma unroll
-        for (int d = 0; d < HD; ++d)
-          if (d0 + d < a.D) atomicAdd(dqp + d0 + d, c[d]);
       }
     }
   }
@@ -1203,6 +1666,7 @@ cudaError_t dispatch_dq(const BwdArgs& a, cudaStream_t st) {
   return launch_dq<T, 256, 1, 2>(a, maps, st);
 }
 
+// The f32 pair (FMA kernels)
 template <int DP>
 cudaError_t launch_f32(int kind, const BwdArgs& a, cudaStream_t st) {
   constexpr int threads = BM * DP / 16;
@@ -1212,14 +1676,43 @@ cudaError_t launch_f32(int kind, const BwdArgs& a, cudaStream_t st) {
                   st, a);
   }
   dim3 grid((a.Tk + BN - 1) / BN, a.H, a.B);
-  const size_t base = (2 * BM * DP + 2 * BM) * sizeof(float);
-  if (kind == FUSED) {
-    if constexpr (DP > 128) return cudaErrorInvalidValue;  // the pair only
-    else
-      return launch(bwd_dkv_f32<DP, true>, grid, threads,
-                    base + (BN * DP + BM * BN) * sizeof(float), st, a);
-  }
-  return launch(bwd_dkv_f32<DP, false>, grid, threads, base, st, a);
+  return launch(bwd_dkv_f32<DP>, grid, threads,
+                (2 * BM * DP + 2 * BM) * sizeof(float), st, a);
+}
+
+template <int DP>
+cudaError_t launch_tf32(const BwdArgs& a, const tf::Maps& maps,
+                        cudaStream_t st) {
+  dim3 grid((a.Tk + tf::KEYS - 1) / tf::KEYS, a.H, a.B);
+  return launch(tf::bwd_fused_tf32<DP>, grid, tf::THREADS,
+                tf::TfSmem<DP>::ALLOC, st, maps, a);
+}
+
+// The f32 fused pass (D <= 128, dq added into the f32 accumulator (B, H,
+// Tq rounded up to 64, DP' + 8), contiguous, DP' = 64 or 128): q, dout, k,
+// v read by TMA in f32 boxes of 32 columns (the caller passes views TMA
+// can address); dk, dv written by the threads.
+cudaError_t dispatch_fused_f32(const BwdArgs& a, cudaStream_t st) {
+  if (a.D > 128) return cudaErrorInvalidValue;
+  const int ld = (a.D <= 64 ? 64 : 128) + 8;
+  const long long rows = (a.Tq + wg::WG_ROWS - 1) / wg::WG_ROWS * wg::WG_ROWS;
+  if (a.dq_st != ld || a.dq_sh != rows * ld || a.dq_sb != a.H * rows * ld)
+    return cudaErrorInvalidValue;
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  tf::Maps maps;
+  if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
+                     a.q_sh, a.q_sb, tf::BQ, 4) ||
+      !mxt::make_map(&maps.o, type, a.dout, a.D, a.Tq, a.H, a.B, a.o_st,
+                     a.o_sh, a.o_sb, tf::BQ, 4) ||
+      !mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
+                     a.k_sh, a.k_sb, tf::KEYS, 4) ||
+      !mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
+                     a.v_sh, a.v_sb, tf::KEYS, 4))
+    return cudaErrorInvalidValue;
+  if (a.D <= 32) return launch_tf32<32>(a, maps, st);
+  if (a.D <= 64) return launch_tf32<64>(a, maps, st);
+  if (a.D <= 96) return launch_tf32<96>(a, maps, st);
+  return launch_tf32<128>(a, maps, st);
 }
 
 template <typename T>
@@ -1235,10 +1728,11 @@ cudaError_t dispatch_half(int kind, const BwdArgs& a, cudaStream_t st) {
 // float16. strides (in elements): q, k, v, dout, dq, dk, dv as (b, h, t)
 // each, then bias (b, h, q, k); the head dimension has unit stride
 // everywhere. For 16-bit data q, k, v, dout and the 16-bit outputs (dk, dv;
-// dq of kind 1) must be views TMA can address (16-byte aligned, strides of
-// dimensions longer than 1 multiples of 8; the Python wrapper copies other
-// operands), and dq of kind 0 the contiguous (B, H, Tq rounded up to 64,
-// DP + 8) accumulator, DP = 64 for D <= 64, else 128. lse and delta are
+// dq of kind 1), and for f32 of kind 0 q, k, v and dout, must be views TMA
+// can address (16-byte aligned, strides of dimensions longer than 1
+// multiples of 16 bytes; the Python wrapper copies other operands), and dq
+// of kind 0 the contiguous (B, H, Tq rounded up to 64, DP + 8)
+// accumulator, DP = 64 for D <= 64, else 128. lse and delta are
 // (B, H, Tq) contiguous f32. bias is f32 or null.
 // ds, when not null, is a zeroed (B, H, Tq, Tk) f32 buffer that kernels 0
 // and 1 fill with p * (dp - delta). seed/dropout/drop_threshold/drop_scale
@@ -1270,6 +1764,7 @@ extern "C" int mxt_flash_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
+      if (kind == FUSED) return static_cast<int>(dispatch_fused_f32(a, st));
       if (D <= 32) return static_cast<int>(launch_f32<32>(kind, a, st));
       if (D <= 64) return static_cast<int>(launch_f32<64>(kind, a, st));
       if (D <= 128) return static_cast<int>(launch_f32<128>(kind, a, st));

@@ -1,38 +1,36 @@
-// The backward pair of flash attention for f32 heads above 256 on Hopper
-// (sm_90a), bound through a plain C entry: wide_dq and wide_dkv.
+// The f32 dk / dv of flash attention for heads above 256 on Hopper
+// (sm_90a), bound through a plain C entry: wide_dkv.
 //
 // Replaces, for f32 at head_dim > 256 only (route "wide_f32" of
 // ops/cuda/attention.py:head_dim_route): mxnet_tpu/ops/pallas/attention.py,
-// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel, which take any head dim.
-// flash_attention_bwd.cu takes head dims up to 256; 16-bit heads above it
-// take the tiled wgmma kernels of flash_attention_wide_wg.cu (the forward
-// and dq) and flash_attention_wide_dkv.cu (dk / dv), and f32 heads the
-// 3xTF32 forward of flash_attention_wide_wg.cu. These two kernels are the
-// simple route for the f32 backward, off every main path of the port (no
-// zoo model has such heads), written to be right for any D:
+// _flash_bwd_dkv_kernel, which takes any head dim. flash_attention_bwd.cu
+// takes head dims up to 256; 16-bit heads above it take the tiled wgmma
+// kernels of flash_attention_wide_wg.cu (the forward and dq) and
+// flash_attention_wide_dkv.cu (dk / dv), and f32 heads the 3xTF32 forward
+// and dq of flash_attention_wide_wg.cu. This kernel is the simple route
+// for the f32 dk / dv, off every main path of the port (no zoo model has
+// such heads), written to be right for any D:
 //
-//   wide_dq:   from the forward's lse and delta = rowsum(dout * out),
+//   wide_dkv:  from the forward's lse and delta = rowsum(dout * out),
 //              p = exp(s - lse), dp = dout v^T (dropped out as the forward
 //              drops p: the keep bit of philox.cuh, the same pure function
 //              of (seed, b, h, row, col) as the other kernels draw),
-//              ds0 = p (dp - delta), dq = (ds0 * scale) k, and ds0 itself
-//              into an f32 (B, H, Tq, Tk) tensor when the bias is learned;
-//   wide_dkv:  dv = p_d^T dout, dk = (ds0 * scale)^T q.
+//              ds0 = p (dp - delta), dv = p_d^T dout, dk = (ds0 * scale)^T q.
 //
 // The causal mask is top-left (col <= row); masked scores add nothing. A
-// warp owns one query row (dq) or one key row (dkv) of one (batch, head),
-// and its lanes stride the head dim: a score is a lane-strided dot product
-// reduced by a butterfly, a few of them at once (their loads and
-// reductions independent), so every sum runs in a fixed order and two runs
-// give the same bits (no atomics). The outputs are produced in slices of
-// 256 columns (8 f32 accumulators a lane), each slice a walk over the keys
-// (queries for dkv) in order that recomputes the scores it needs, so any
-// head dim fits in registers. Accumulation and outputs are f32.
+// warp owns one key row of one (batch, head), and its lanes stride the
+// head dim: a score is a lane-strided dot product reduced by a butterfly,
+// a few of them at once (their loads and reductions independent), so every
+// sum runs in a fixed order and two runs give the same bits (no atomics).
+// The outputs are produced in slices of 256 columns (8 f32 accumulators a
+// lane), each slice a walk over the queries in order that recomputes the
+// scores it needs, so any head dim fits in registers. Accumulation and
+// outputs are f32.
 //
-// Bound: these kernels re-read K (or q and dout) once per 256-column slice
-// and do the products on the FMA pipe, so they are bound by neither the
-// card's bytes nor its tensor cores: a simple kernel that is right, for a
-// case no main path takes (PERF.md).
+// Bound: this kernel re-reads q and dout once per 256-column slice and
+// does the products on the FMA pipe, so it is bound by neither the card's
+// bytes nor its tensor cores: a simple kernel that is right, for a case no
+// main path takes (PERF.md).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,9 +41,9 @@ namespace wide {
 
 constexpr int WARPS = 4;        // rows a block
 constexpr int SLICE = 8;        // output columns a lane holds: 256 a warp
-// scores a warp computes at once, by kernel: the fastest of 1, 2 and 4 at
-// (2, 4, 512, 288) bf16 (PERF.md section 6)
-constexpr int KB_DQ = 1, KB_DKV = 4;
+// scores a warp computes at once: the fastest of 1, 2 and 4 at (2, 4, 512,
+// 288) bf16 (PERF.md section 6)
+constexpr int KB_DKV = 4;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
@@ -91,10 +89,8 @@ struct Args {
   const float* lse;     // (B, H, Tq) f32
   const float* delta;   // (B, H, Tq) f32
   const int* seed;
-  void* o;              // dq
   void* dk;
   void* dv;
-  float* ds;            // (B, H, Tq, Tk) f32, or null
   int B, H, Tq, Tk, D;
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
@@ -110,22 +106,6 @@ struct Args {
   uint32_t drop_threshold;
   float drop_scale;
 };
-
-// the scaled scores of row `row` against keys j0 .. j0 + KB - 1 (the
-// ones at or past kend are not used), with the bias
-template <int KB, typename T>
-__device__ __forceinline__ void scores(const Args& a, const T* qr,
-                                       const T* kb, const float* bp, int row,
-                                       int j0, int kend, int lane, float* s) {
-  const T* kr[KB];
-  rows<KB>(kb, a.k_st, j0, kend, kr);
-  dots<KB>(qr, kr, a.D, lane, s);
-#pragma unroll
-  for (int i = 0; i < KB; ++i) {
-    s[i] *= a.scale;
-    if (bp && j0 + i < kend) s[i] += bp[row * a.b_sq + (j0 + i) * a.b_sk];
-  }
-}
 
 __device__ __forceinline__ bool kept(const Args& a, uint2 key, int b, int h,
                                      int row, int col) {
@@ -147,60 +127,6 @@ __device__ __forceinline__ void grads(const Args& a, uint2 key, int b, int h,
     dp = keep ? dp * a.drop_scale : 0.f;
   }
   ds0 = p * (dp - delta);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32) wide_dq(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int h = blockIdx.y, b = blockIdx.z;
-  if (row >= a.Tq) return;
-  const T* qr = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
-                row * a.q_st;
-  const T* dor = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh +
-                 row * a.do_st;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
-  const long long bhr = (static_cast<long long>(b) * a.H + h) * a.Tq + row;
-  const float lse = a.lse[bhr], delta = a.delta[bhr];
-  const int kend = a.causal ? min(a.Tk, row + 1) : a.Tk;
-  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
-  constexpr int KB = KB_DQ;
-  float* dsr = a.ds ? a.ds + bhr * a.Tk : nullptr;
-  T* dqr = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + row * a.o_st;
-  for (int d0 = 0; d0 < a.D; d0 += 32 * SLICE) {
-    float acc[SLICE];
-#pragma unroll
-    for (int r = 0; r < SLICE; ++r) acc[r] = 0.f;
-    for (int j0 = 0; j0 < kend; j0 += KB) {
-      float s[KB], dp[KB];
-      scores<KB>(a, qr, kb, bp, row, j0, kend, lane, s);
-      const T* vr[KB];
-      rows<KB>(vb, a.v_st, j0, kend, vr);
-      dots<KB>(dor, vr, a.D, lane, dp);
-#pragma unroll
-      for (int i = 0; i < KB; ++i) {
-        const int j = j0 + i;
-        if (j >= kend) break;
-        float pd, ds0;
-        grads(a, key, b, h, row, j, s[i], dp[i], lse, delta, pd, ds0);
-        if (dsr && d0 == 0 && lane == 0) dsr[j] = ds0;
-        const float w = ds0 * a.scale;
-        const T* kr = kb + j * a.k_st;
-#pragma unroll
-        for (int r = 0; r < SLICE; ++r) {
-          const int d = d0 + r * 32 + lane;
-          if (d < a.D) acc[r] = fmaf(w, ld(kr + d), acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < SLICE; ++r) {
-      const int d = d0 + r * 32 + lane;
-      if (d < a.D) st(dqr + d, acc[r]);
-    }
-  }
 }
 
 template <typename T>
@@ -265,13 +191,9 @@ __global__ void __launch_bounds__(WARPS * 32) wide_dkv(const Args a) {
   }
 }
 
-cudaError_t launch(int kind, const Args& a, cudaStream_t s) {
-  const int rows = kind == 2 ? a.Tk : a.Tq;
-  const dim3 grid((rows + WARPS - 1) / WARPS, a.H, a.B);
-  if (kind == 1)
-    wide_dq<float><<<grid, WARPS * 32, 0, s>>>(a);
-  else
-    wide_dkv<float><<<grid, WARPS * 32, 0, s>>>(a);
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  const dim3 grid((a.Tk + WARPS - 1) / WARPS, a.H, a.B);
+  wide_dkv<float><<<grid, WARPS * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -284,10 +206,9 @@ bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
 
 }  // namespace wide
 
-// The backward pair, with mxt_flash_attention_bwd's arguments, for f32
-// (dtype 0): kind 1 the dq kernel (writes dq, and ds when it is not null),
-// 2 the dk / dv kernel; strides: q, k, v, dout, dq, dk, dv as (batch,
-// head, time) triples, then the bias's four.
+// The dk / dv kernel, with mxt_flash_attention_bwd's arguments, for f32
+// (dtype 0) and kind 2 alone (dq, ds unused); strides: q, k, v, dout, dq,
+// dk, dv as (batch, head, time) triples, then the bias's four.
 extern "C" int mxt_flash_wide_bwd(
     int kind, int dtype, const void* q, const void* k, const void* v,
     const void* dout, const float* bias, const float* lse, const float* delta,
@@ -295,13 +216,14 @@ extern "C" int mxt_flash_wide_bwd(
     int D, const long long* strides, float scale, int causal,
     const int* seed, int dropout, unsigned int drop_threshold,
     float drop_scale, void* stream) {
-  if (wide::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || kind < 1 ||
-      kind > 2 || !lse || !delta || (kind == 1 && !dq) ||
-      (kind == 2 && (!dk || !dv)))
+  if (wide::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || kind != 2 ||
+      !lse || !delta || !dk || !dv)
     return static_cast<int>(cudaErrorInvalidValue);
   wide::Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.bias = bias; a.lse = lse;
-  a.delta = delta; a.o = dq; a.dk = dk; a.dv = dv; a.ds = ds;
+  (void)dq;
+  (void)ds;
+  a.delta = delta; a.dk = dk; a.dv = dv;
   a.B = B; a.H = H; a.Tq = Tq; a.Tk = Tk; a.D = D;
   long long* dst[25] = {&a.q_sb,  &a.q_sh,  &a.q_st,  &a.k_sb,  &a.k_sh,
                         &a.k_st,  &a.v_sb,  &a.v_sh,  &a.v_st,  &a.do_sb,
@@ -312,5 +234,5 @@ extern "C" int mxt_flash_wide_bwd(
   a.scale = scale; a.causal = causal; a.seed = seed; a.dropout = dropout != 0;
   a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
   return static_cast<int>(
-      wide::launch(kind, a, static_cast<cudaStream_t>(stream)));
+      wide::launch(a, static_cast<cudaStream_t>(stream)));
 }

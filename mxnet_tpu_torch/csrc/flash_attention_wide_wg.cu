@@ -1,16 +1,14 @@
 // Flash attention at head dims above 256 for Hopper (sm_90a), tiled on
-// wgmma and TMA, bound through plain C entries: the forward at every dtype
-// and the backward's dq kernel for 16-bit data, on the "wide_wg" route
-// (16-bit, 256 < D <= 512), the "wide_stream" route (16-bit, D > 512) and,
-// for the forward, the "wide_f32" route (f32, D > 256) of
-// ops/cuda/attention.py:head_dim_route.
+// wgmma and TMA, bound through plain C entries: the forward and the
+// backward's dq kernel at every dtype, on the "wide_wg" route (16-bit, 256
+// < D <= 512), the "wide_stream" route (16-bit, D > 512) and the
+// "wide_f32" route (f32, D > 256) of ops/cuda/attention.py:head_dim_route.
 //
 // Replaces, at every D > 256: mxnet_tpu/ops/pallas/attention.py,
-// _flash_fwd_kernel (launched at :317) and, for bf16 / fp16,
-// _flash_bwd_dq_kernel (launched at :740), which take any head dim;
-// flash_attention_wide_dkv.cu's kernels take 16-bit dk / dv, and
-// flash_attention_wide.cu's warp-a-row ones the f32 dq and dk / dv. It
-// computes:
+// _flash_fwd_kernel (launched at :317) and _flash_bwd_dq_kernel (launched
+// at :740), which take any head dim; flash_attention_wide_dkv.cu's kernels
+// take 16-bit dk / dv, and flash_attention_wide.cu's warp-a-row one the
+// f32 dk / dv. It computes:
 //   out = softmax(q k^T * scale + bias) v and lse = m + log(max(l, 1e-30)),
 //     the denominator over the undropped probabilities, the kept ones
 //     scaled by 1 / (1 - rate);
@@ -89,11 +87,13 @@
 // once a slice, ceil(P / 4) + 1 products of P panels for the forward's 2.
 // The forward keeps q resident while its P panels fit beside four slots.
 //
-// f32 heads take wide_fwd_tf32 at every D > 256 (the section "f32 heads"):
-// the same streamed walk in 32-column f32 panels, each product three TF32
-// wgmmas (3xTF32), K and V split into TF32 halves (V transposed, as
-// wgmma's TF32 B must be K-major) by three producer warps between the TMA
-// copy and the consumer.
+// f32 heads take wide_fwd_tf32 and wide_dq_tf32 at every D > 256 (the
+// sections "f32 heads"): the same streamed walk in 32-column f32 panels,
+// each product three TF32 wgmmas (3xTF32: f32-accurate products on the
+// tensor cores, whatever torch.backends.cuda.matmul.allow_tf32 says), K
+// and V split into TF32 halves (V, or for dq K, transposed, as wgmma's
+// TF32 B must be K-major) by three producer warps between the TMA copy and
+// the consumer.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1479,7 +1479,7 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
 //    transposed in place into V^T (a row a column of the head dim, its 32
 //    keys one 128-byte row: K-major B) with lo beside it, the keys of each
 //    8-key group in the order P's register fragment takes them
-//    (tf32_key_pos), so P is the A operand with no shuffle;
+//    (hop::tf32_key_pos), so P is the A operand with no shuffle;
 //  - three producer warps, the splitters, split K and V between the TMA
 //    copy and the consumer (one more barrier a slot, ready). Splitting q
 //    there too, for every key tile, bounded an earlier build of this
@@ -1528,14 +1528,6 @@ __host__ __device__ inline bool tf_q_resident(int P) {
   return TfSmem(P * 32, true).SLOTS >= 4;
 }
 
-// Where key r of a tile sits in a row of V^T: P's TF32 register fragment
-// takes an 8-key group's k = t4 from its element 2 t4 and k = t4 + 4 from
-// 2 t4 + 1 (hop::wgmma_tf32_rs32), so key 2 c of the group is stored at c
-// and key 2 c + 1 at c + 4
-__device__ __forceinline__ int tf32_key_pos(int r) {
-  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
-}
-
 // A score step's n K panels split in place, lo TF_LO bytes on, by
 // splitter t of TF_SPLIT (its loads all issued before the first split)
 __device__ __forceinline__ void tf_split_keys(unsigned char* slot, int n,
@@ -1566,8 +1558,8 @@ __device__ __forceinline__ void tf_split_keys(unsigned char* slot, int n,
 
 // A value step's n V panels (32 keys x 32 columns each, swizzled as TMA
 // wrote them) transposed in place into V^T (row c: column c of the step's
-// panels, key r at tf32_key_pos(r), swizzled) as hi, lo TF_LO bytes on, by
-// splitter t: every splitter reads its share before any writes
+// panels, key r at hop::tf32_key_pos(r), swizzled) as hi, lo TF_LO bytes
+// on, by splitter t: every splitter reads its share before any writes
 __device__ __forceinline__ void tf_split_values(unsigned char* slot, int n,
                                                 int t) {
   constexpr int K4 = TILE_PANEL / 16;
@@ -1586,7 +1578,7 @@ __device__ __forceinline__ void tf_split_values(unsigned char* slot, int n,
   hop::named_sync(BAR_SPLIT, TF_SPLIT);
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
-    const int i = t + u * TF_SPLIT, s = tf32_key_pos(i & 31);
+    const int i = t + u * TF_SPLIT, s = hop::tf32_key_pos(i & 31);
     if (i >= n * K4) break;
     const float x[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
 #pragma unroll
@@ -1920,6 +1912,303 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
     fwd_tf32_consumer<4, QRES>(maps, a, sm, L, q0, ps, n_tiles);
 }
 
+// ------------------------------------------ f32 heads: dq on 3xTF32
+// f32 dq at every D > 256 (route "wide_f32"): wide_fwd_tf32's walk with q
+// streamed, two products where the forward has one on each side:
+//  - s = q K^T and dp = dout V^T: q's and dout's raw panels come with K's
+//    and V's, TF_G of each a score step, q and dout split in the
+//    consumer's registers as the A operand, K and V split in place by the
+//    splitters (hi, lo TF_LO bytes on; V at 2 TF_LO) as the K-major B;
+//  - dq += ds K (times scale once, at the store): ds, the dp accumulator,
+//    split in registers as the A operand (as P in the forward, no
+//    shuffle), K's panels of the slice transposed in place into K^T by the
+//    splitters, the keys of each 8-key group at hop::tf32_key_pos (the
+//    forward's V^T).
+// A block owns 64 rows and a slice of up to TF_NO dq panels; the slices
+// recompute s and dp. q and dout beside K and V take a 64 KB slot (three
+// slots); keeping them resident (2 D 256 bytes: 160 KB at D = 320) would
+// leave the ring too few. dq leaves once, times scale, by TMA store: no
+// atomics, every sum in one order, so dq (and ds) are the same bits from
+// run to run. Bound: operations, its three products (6 T^2 D flops a
+// (batch, head), each as three TF32 ones); on an H100 it takes 5-6 times
+// that bound (PERF.md section 6).
+constexpr int TQ_SLOT = 4 * TF_LO + 2 * TF_G * Q_PANEL_BYTES;
+constexpr int TQ_Q = 4 * TF_LO;  // q's raw panels in a score step's slot
+constexpr int TQ_O = TQ_Q + TF_G * Q_PANEL_BYTES;  // ... dout's
+
+// The f32 dq kernel's shared memory from a 1024-byte aligned base: a zeroed
+// 64-row panel (the operands of score panels past P), the ring's SLOTS
+// slots, a tile's key terms a slot (indexed by tile), then the mbarriers:
+// full, ready and empty a slot.
+struct TfDqSmem {
+  int P, NS, SLOTS, RING, KTERM, BAR, ALLOC;
+  __host__ __device__ explicit TfDqSmem(int D) {
+    P = (D + 31) / 32;
+    NS = (P + TF_G - 1) / TF_G;
+    RING = Q_PANEL_BYTES;
+    SLOTS = (SMEM_LIMIT - 1024 - RING) / (TQ_SLOT + KEYS * 4 + 3 * 8);
+    if (SLOTS > ST_MAX_SLOTS) SLOTS = ST_MAX_SLOTS;
+    KTERM = RING + SLOTS * TQ_SLOT;
+    BAR = KTERM + SLOTS * KEYS * 4;
+    ALLOC = BAR + 3 * SLOTS * 8 + 1024;
+  }
+};
+
+// The consumer of the f32 dq kernel: s and dp over all P panels, ds, and
+// dq over the slice's NO panels from ps; slice 0 writes ds.
+template <int NO>
+__device__ __forceinline__ void dq_tf32_consumer(const Maps& maps,
+                                                 const Args& a,
+                                                 unsigned char* sm,
+                                                 const TfDqSmem& L, int r0,
+                                                 int ps, int n_tiles) {
+  constexpr int NV = (NO + TF_G - 1) / TF_G;  // value steps a tile
+  const Rows w = rows_of(r0);
+  const long long bh = static_cast<long long>(w.b) * a.H + w.h;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + w.b * a.b_sb + w.h * a.b_sh : nullptr;
+  // the rows' lse in base-2 units (+inf past Tq: p = 0 there) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i ? w.rb : w.ra;
+    lse2[i] = r < a.Tq ? a.lse[bh * a.Tq + r] * LOG2E : INFINITY;
+    dl[i] = r < a.Tq ? a.delta[bh * a.Tq + r] : 0.f;
+  }
+  const uint32_t zero = hop::smem_u32(sm);
+  const uint32_t ring = zero + L.RING;
+  uint64_t* ready = reinterpret_cast<uint64_t*>(sm + L.BAR) + L.SLOTS;
+  uint64_t* empty = ready + L.SLOTS;
+  const float* s_kterm = reinterpret_cast<const float*>(sm + L.KTERM);
+  float* dsp = ps == 0 && a.ds != nullptr
+                   ? a.ds + bh * a.Tq * static_cast<long long>(a.Tk)
+                   : nullptr;
+  // this thread's word of row w.warp * 16 + w.g of a 64-row panel
+  const int qa = (w.warp * 16 + w.g) * ROW_BYTES + w.t4 * 4;
+
+  float dq[NO][NFRAG];
+#pragma unroll
+  for (int p = 0; p < NO; ++p)
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) dq[p][i] = 0.f;
+  float sc[NFRAG], dp[NFRAG];  // s, dp: rows ra, rb; KEYS / 4 keys
+  // two sets of an A operand's TF32 halves (hi, lo), k8 step kk: q's then
+  // ds's, and dout's
+  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+
+  st_zero(sm);
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // s = q K^T and dp = dout V^T in 3xTF32, a group each a panel: the
+    // next panel's halves split while the group before runs; a panel past
+    // P reads the zeroed one
+    int prev = 0;  // the slot of the step before, in use until its groups
+                   // are done
+    for (int j = 0; j < L.NS; ++j) {
+      hop::mbar_wait_or_trap(ready + st, ph);
+      const uint32_t slot = ring + st * TQ_SLOT;
+      const unsigned char* sp = sm + L.RING + st * TQ_SLOT;
+#pragma unroll
+      for (int g = 0; g < TF_G; ++g) {
+        const int p = j * TF_G + g;
+        const bool real = p < L.P;
+        const bool first = j == 0 && g == 0;
+        const uint32_t lo = real ? TF_LO : 0;  // lo's offset (0: the zeros)
+        hop::wgmma_wait<1>();  // s's group before is done: h0, l0 free
+        const unsigned char* qp = real ? sp + TQ_Q + g * Q_PANEL_BYTES : sm;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::tf32_rows_split(qp, qa, w.g, kk, h0[kk], l0[kk]);
+        hop::wgmma_fence();
+        const uint32_t kh = real ? slot + g * TILE_PANEL : zero;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_tf32_3x(sc, h0[kk], l0[kk], kh + kk * 32, lo,
+                             !first || kk > 0);
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();  // dp's group before is done: h1, l1 free
+        if (g == 0 && j > 0) release(empty + prev);
+        const unsigned char* op = real ? sp + TQ_O + g * Q_PANEL_BYTES : sm;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::tf32_rows_split(op, qa, w.g, kk, h1[kk], l1[kk]);
+        hop::wgmma_fence();
+        const uint32_t vh = real ? slot + 2 * TF_LO + g * TILE_PANEL : zero;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_tf32_3x(dp, h1[kk], l1[kk], vh + kk * 32, lo,
+                             !first || kk > 0);
+        hop::wgmma_commit();
+      }
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+    hop::fence_regs(sc, NFRAG);
+    hop::fence_regs(dp, NFRAG);
+    ds_tile(sc, dp, a, w, it * KEYS, s_kterm + (it % L.SLOTS) * KEYS, lse2,
+            dl, key, scale2, full_bias, bp, dsp);
+    // ds as the A operand of its 4 k8 steps over the keys, K^T's keys
+    // stored to match
+    hop::tf32_acc_split(dp, 1.f, h0, l0);
+    // dq += ds K in 3xTF32, TF_G of the slice's K^T panels a step (its own
+    // dq panels, so a step's group may run as the next is issued)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      constexpr int LAST = NO - (NV - 1) * TF_G;  // the last step's panels
+      hop::mbar_wait_or_trap(ready + st, ph);
+      hop::wgmma_fence();
+      const uint32_t kt = ring + st * TQ_SLOT;
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int g = 0; g < (v < NV - 1 ? TF_G : LAST); ++g)
+          hop::wgmma_tf32_3x(dq[v * TF_G + g], h0[j], l0[j],
+                             kt + g * TILE_PANEL + j * 32, TF_LO);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the step before is done
+      if (v > 0) release(empty + prev);
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+#pragma unroll
+    for (int p = 0; p < NO; ++p) hop::fence_regs(dq[p], NFRAG);
+  }
+
+  // ------------------------------------------------------------- epilogue
+  // every step is used and split: the ring's first slots take dq * scale
+  hop::named_sync(1, 128);
+  const float mul[2] = {a.scale, a.scale};
+  store_rows_f32<NO>(dq, mul, sm + L.RING, &maps.out, w, a.Tq, ps);
+}
+
+__global__ void __launch_bounds__(ST_THREADS, 1)
+    wide_dq_tf32(const __grid_constant__ Maps maps, const Args a) {
+  const TfDqSmem L(a.D);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* ready = full + L.SLOTS;   // [SLOTS]: the 3 splitter warps done
+  uint64_t* empty = ready + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  float* s_kterm = reinterpret_cast<float*>(sm + L.KTERM);
+
+  const int nsl = tf_slices(L.P);
+  const int sl = blockIdx.x % nsl;
+  const int q0 = (blockIdx.x / nsl) * WG_ROWS;
+  const int ps = sl * L.P / nsl, no = (sl + 1) * L.P / nsl - ps;
+  const int nv = (no + TF_G - 1) / TF_G;  // value steps a tile
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + WG_ROWS);  // later keys add nothing
+  const int n_tiles = (k_end + KEYS - 1) / KEYS;
+
+  if (tid == 0) {
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(ready + s, TF_SPLIT / 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 160) {
+    // ----------------------------------------------------------- splitters
+    // a score step's K and V panels split in place, a value step's K
+    // panels transposed into K^T
+    const int t = tid - 160;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      for (int j = 0; j < L.NS + nv; ++j) {
+        hop::mbar_wait_or_trap(full + st, ph);
+        unsigned char* slot = sm + L.RING + st * TQ_SLOT;
+        if (j < L.NS) {
+          const int n = min(TF_G, L.P - j * TF_G);
+          tf_split_keys(slot, n, t);
+          tf_split_keys(slot + 2 * TF_LO, n, t);
+        } else {
+          tf_split_values(slot, min(TF_G, no - (j - L.NS) * TF_G), t);
+        }
+        hop::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(ready + st);
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies; every lane stages a tile's key
+    // terms with its first step and arrives on each step's barrier
+    const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+    const float* bp = row_bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * KEYS;
+      for (int j = 0; j < L.NS + nv; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0) {
+          // each key's term of the exponent in base-2 units: the
+          // key-padding bias (bias broadcast over Tq), -inf past Tk
+          const int col = k0 + lane;
+          s_kterm[(it % L.SLOTS) * KEYS + lane] =
+              col >= a.Tk     ? -INFINITY
+              : bp != nullptr ? bp[col * a.b_sk] * LOG2E
+                              : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * TQ_SLOT;
+          if (j < L.NS) {  // a score step: K, V, q, dout panels [p0, p0 + n)
+            const int p0 = j * TF_G, n = min(TF_G, L.P - p0);
+            hop::mbar_expect(full + st,
+                             n * 2 * (TILE_PANEL + Q_PANEL_BYTES));
+            for (int g = 0; g < n; ++g) {
+              const int c = (p0 + g) * 32;
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st, c,
+                               k0, h, b);
+              hop::tma_load_4d(slot + 2 * TF_LO + g * TILE_PANEL, &maps.v,
+                               full + st, c, k0, h, b);
+              hop::tma_load_4d(slot + TQ_Q + g * Q_PANEL_BYTES, &maps.q,
+                               full + st, c, q0, h, b);
+              hop::tma_load_4d(slot + TQ_O + g * Q_PANEL_BYTES, &maps.dout,
+                               full + st, c, q0, h, b);
+            }
+          } else {  // a value step: K panels [p0, p0 + n) of the slice
+            const int p0 = (j - L.NS) * TF_G, n = min(TF_G, no - p0);
+            hop::mbar_expect(full + st, n * TILE_PANEL);
+            for (int g = 0; g < n; ++g)
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st,
+                               (ps + p0 + g) * 32, k0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  if (no == 6)
+    dq_tf32_consumer<6>(maps, a, sm, L, q0, ps, n_tiles);
+  else if (no == 5)
+    dq_tf32_consumer<5>(maps, a, sm, L, q0, ps, n_tiles);
+  else
+    dq_tf32_consumer<4>(maps, a, sm, L, q0, ps, n_tiles);
+}
+
 // ------------------------------------------------------------------- host
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, int threads, size_t smem,
@@ -2001,9 +2290,9 @@ cudaError_t dispatch(int kind, const Args& a, cudaStream_t st) {
   return launch_dq<T, 512>(a, maps, st);
 }
 
-// The f32 forward: q, k, v read and out written by TMA in f32 boxes of 32
-// columns
-cudaError_t dispatch_tf32(const Args& a, cudaStream_t st) {
+// The f32 kernels (kind 0: the forward, 1: dq): q, k, v (and dout) read
+// and out (dq) written by TMA in f32 boxes of 32 columns
+cudaError_t dispatch_tf32(int kind, const Args& a, cudaStream_t st) {
   const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   Maps maps;
   if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
@@ -2015,9 +2304,16 @@ cudaError_t dispatch_tf32(const Args& a, cudaStream_t st) {
       !mxt::make_map(&maps.out, type, a.o, a.D, a.Tq, a.H, a.B, a.o_st,
                      a.o_sh, a.o_sb, WG_ROWS, 4))
     return cudaErrorInvalidValue;
-  maps.dout = maps.q;  // unused
   const int P = (a.D + 31) / 32;
   const dim3 grid((a.Tq + WG_ROWS - 1) / WG_ROWS * tf_slices(P), a.H, a.B);
+  if (kind == 1) {
+    if (!mxt::make_map(&maps.dout, type, a.dout, a.D, a.Tq, a.H, a.B,
+                       a.do_st, a.do_sh, a.do_sb, WG_ROWS, 4))
+      return cudaErrorInvalidValue;
+    return launch(wide_dq_tf32, grid, ST_THREADS, TfDqSmem(a.D).ALLOC, st,
+                  maps, a);
+  }
+  maps.dout = maps.q;  // unused
   if (tf_q_resident(P))
     return launch(wide_fwd_tf32<true>, grid, ST_THREADS,
                   TfSmem(a.D, true).ALLOC, st, maps, a);
@@ -2025,9 +2321,9 @@ cudaError_t dispatch_tf32(const Args& a, cudaStream_t st) {
                 TfSmem(a.D, false).ALLOC, st, maps, a);
 }
 
-// dtype 0 (f32, the forward alone), 1 (bf16) or 2 (fp16)
+// dtype 0 (f32), 1 (bf16) or 2 (fp16)
 cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t st) {
-  if (dtype == 0) return dispatch_tf32(a, st);
+  if (dtype == 0) return dispatch_tf32(kind, a, st);
   if (dtype == 1) return dispatch<__nv_bfloat16>(kind, a, st);
   return dispatch<__half>(kind, a, st);
 }
@@ -2075,9 +2371,10 @@ extern "C" int mxt_flash_wide_wg_fwd(int dtype, const void* q, const void* k,
 
 // The dq kernel, with mxt_flash_wide_bwd's arguments (kind must be 1;
 // strides of q, k, v, dout, dq, dk, dv as (batch, head, time) triples, then
-// the bias's four; dk, dv unused), for 16-bit data at D > 256, every
-// 16-bit operand and dq addressable by TMA. ds, when not null, is a
-// (B, H, Tq, Tk) f32 buffer the kernel fills with p * (dp - delta).
+// the bias's four; dk, dv unused), at D > 256 for dtype 0 (f32:
+// wide_dq_tf32), 1 (bfloat16) or 2 (float16), q, k, v, dout and dq
+// addressable by TMA. ds, when not null, is a (B, H, Tq, Tk) f32 buffer
+// the kernel fills with p * (dp - delta).
 extern "C" int mxt_flash_wide_wg_bwd(
     int kind, int dtype, const void* q, const void* k, const void* v,
     const void* dout, const float* bias, const float* lse, const float* delta,
@@ -2087,9 +2384,8 @@ extern "C" int mxt_flash_wide_wg_bwd(
     float drop_scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || dtype == 0 ||
-      kind != 1 ||
-      !lse || !delta || !dq)
+  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || kind != 1 || !lse ||
+      !delta || !dq)
     return static_cast<int>(cudaErrorInvalidValue);
   wwg::Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.bias = bias; a.lse = lse;

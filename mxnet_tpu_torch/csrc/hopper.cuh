@@ -348,6 +348,15 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// Where element r of an 8-element group along K sits in a K-major TF32 B
+// operand whose A is an accumulator fragment (P or ds as wgmma_tf32_rs32's
+// register A): the fragment takes k = t4 from the accumulator's column
+// 2 t4 and k = t4 + 4 from 2 t4 + 1, so element 2 c of the group is stored
+// at c and element 2 c + 1 at c + 4
+__device__ __forceinline__ int tf32_key_pos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
 // d (16 f32) = (scale_d 0) or += A (64 x 8 TF32 in registers: a[0] row g,
 // k t4; a[1] row g + 8, k t4; a[2] row g, k t4 + 4; a[3] row g + 8, k t4 +
 // 4 of each warp's 16 rows, g = lane / 4, t4 = lane % 4) * B (8 x 32,
@@ -362,6 +371,49 @@ __device__ __forceinline__ void wgmma_tf32_rs32(float* d, const uint32_t* a,
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : HOP_D8(0), HOP_D8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+// acc (16 f32) = (scale_d 0) or += A (halves ah, al) x B (TF32 halves,
+// K-major in shared memory: hi at b, lo `lo` bytes on) as three TF32
+// products, ah bh + ah bl + al bh (3xTF32)
+__device__ __forceinline__ void wgmma_tf32_3x(float* acc, const uint32_t* ah,
+                                              const uint32_t* al, uint32_t b,
+                                              uint32_t lo, int scale_d = 1) {
+  const uint64_t bh = desc_kmajor_sw128(b);
+  wgmma_tf32_rs32(acc, ah, bh, scale_d);
+  wgmma_tf32_rs32(acc, ah, desc_kmajor_sw128(b + lo));
+  wgmma_tf32_rs32(acc, al, bh);
+}
+
+// The TF32 halves of k8 step kk of a register A operand whose f32 rows ra
+// and rb = ra + 8 lie raw in a 128-byte-swizzled panel of 32 columns (ao:
+// the byte offset of row ra's word t4; g = ra % 8): a[0] (ra, 8 kk + t4),
+// a[1] (rb, ..), a[2] (ra, 8 kk + t4 + 4), a[3] (rb, ..)
+__device__ __forceinline__ void tf32_rows_split(const unsigned char* panel,
+                                                int ao, int g, int kk,
+                                                uint32_t* hi, uint32_t* lo) {
+  const int c0 = ((2 * kk) ^ g) << 4, c1 = ((2 * kk + 1) ^ g) << 4;
+  const int bo = ao + 8 * 128;
+  tf32_split(*reinterpret_cast<const float*>(panel + ao + c0), hi[0], lo[0]);
+  tf32_split(*reinterpret_cast<const float*>(panel + bo + c0), hi[1], lo[1]);
+  tf32_split(*reinterpret_cast<const float*>(panel + ao + c1), hi[2], lo[2]);
+  tf32_split(*reinterpret_cast<const float*>(panel + bo + c1), hi[3], lo[3]);
+}
+
+// An m64n32 accumulator fragment x (rows g, g + 8; element 4 j + e at
+// column 8 j + 2 t4 + (e & 1)), times mul, as the TF32 A operand of its 4
+// k8 steps along the columns: step j takes (g, 8 j + 2 t4), (g + 8, ..),
+// (g, 8 j + 2 t4 + 1), (g + 8, ..), so its B stores each 8-element group
+// at tf32_key_pos
+__device__ __forceinline__ void tf32_acc_split(const float* x, float mul,
+                                               uint32_t (*hi)[4],
+                                               uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    tf32_split(x[4 * j] * mul, hi[j][0], lo[j][0]);
+    tf32_split(x[4 * j + 2] * mul, hi[j][1], lo[j][1]);
+    tf32_split(x[4 * j + 1] * mul, hi[j][2], lo[j][2]);
+    tf32_split(x[4 * j + 3] * mul, hi[j][3], lo[j][3]);
+  }
 }
 #undef HOP_WGMMA_RS_64
 #undef HOP_WGMMA_RS_128

@@ -8,18 +8,18 @@ by :mod:`mxnet_tpu_torch._kernels`:
 - ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
-- ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` at
-  every head dim above :data:`MAX_HEAD_DIM` (``wide_fwd``: 16-bit on wgmma
-  tiles over the head dim's 64-column panels, streamed through the ring
-  above :data:`WIDE_WG_MAX_HEAD_DIM`; f32 on 3xTF32 wgmma over 32-column
-  panels, streamed at every D) and ``_flash_bwd_dq_kernel`` for 16-bit q,
-  k, v there (``wide_dq``); ``csrc/flash_attention_wide_dkv.cu`` replaces
+- ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
+  ``_flash_bwd_dq_kernel`` at every head dim above :data:`MAX_HEAD_DIM`
+  (``wide_fwd``, ``wide_dq``: 16-bit on wgmma tiles over the head dim's
+  64-column panels, streamed through the ring above
+  :data:`WIDE_WG_MAX_HEAD_DIM`; f32 on 3xTF32 wgmma over 32-column panels,
+  streamed at every D); ``csrc/flash_attention_wide_dkv.cu`` replaces
   ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v there (``wide_dkv``, the
   key-block walk, streaming the head dim above
   :data:`WIDE_WG_MAX_HEAD_DIM`);
-- ``csrc/flash_attention_wide.cu`` replaces ``_flash_bwd_dq_kernel`` and
-  ``_flash_bwd_dkv_kernel`` for f32 above :data:`MAX_HEAD_DIM`: a warp a
-  row, lanes over the head dim, any D;
+- ``csrc/flash_attention_wide.cu`` replaces ``_flash_bwd_dkv_kernel`` for
+  f32 above :data:`MAX_HEAD_DIM`: a warp a row, lanes over the head dim,
+  any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -47,18 +47,24 @@ plain versions do. Which source a kernel of a wide head dim comes from is
 the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
 ``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), 16-bit above 512 the tiled
 three that stream the head dim (``"wide_stream"``), f32 the 3xTF32
-``wide_fwd`` and the warp-a-row ``wide_dq`` and ``wide_dkv``
+``wide_fwd`` and ``wide_dq`` and the warp-a-row ``wide_dkv``
 (``"wide_f32"``). A build or launch that fails raises; no route gives way
-to another. The warp-a-row kernels read every operand through its strides,
-so they copy nothing.
-The tiled kernels (the tiled 16-bit ones and the wide f32 forward) read
-q, k, v and dout and write out, dq, dk and dv by
-TMA, which needs a 16-byte aligned base and strides that are multiples of
-16 bytes; an operand that lacks either (a 16-bit head dim that is not a
-multiple of 8, an f32 one not a multiple of 4) is first copied into a
-padded contiguous buffer (an output is written there and copied back), once
-for both kernels of a backward pair, and :data:`padded_copies` counts
-those copies.
+to another. The warp-a-row kernel and the f32 FMA kernels of head dims up
+to :data:`MAX_HEAD_DIM` (the forward, the pair) read every operand through
+its strides, so they copy nothing.
+Every other kernel (the 16-bit ones, the wide f32 forward and dq, the f32
+fused backward; :func:`_uses_tma`) reads q, k, v and dout and writes out,
+dq, dk and dv by TMA (the f32 fused backward stores dk and dv from its
+threads), which needs a 16-byte aligned base and strides that are
+multiples of 16 bytes; an operand that lacks either (a 16-bit head dim
+that is not a multiple of 8, an f32 one not a multiple of 4) is first
+copied into a padded contiguous buffer (an output is written there and
+copied back), once for both kernels of a backward pair, and
+:data:`padded_copies` counts those copies.
+The 3xTF32 kernels (the wide f32 forward and dq, the f32 fused backward)
+run their f32 products on the tensor cores as three TF32 products of
+split halves: f32-accurate (about 2**-21 relative), whatever
+``torch.backends.cuda.matmul.allow_tf32`` says.
 
 Routing of the backward (:func:`backward_route`), a contract of the port:
 for D <= 128, the fused single pass when Tk fits one k-block
@@ -72,7 +78,7 @@ the pair, which computes the same function with a deterministic dq.
 The fused kernel adds each key tile's share of dq into a zeroed f32
 accumulator of the port's own layout, (B, H, Tq rounded up to 64, DP + 8)
 (:func:`dq_accumulator`: one contiguous run per 64-row tile, added by one
-bulk reduce-add in 16 bits, by scalar atomics in f32), and
+bulk reduce-add a q tile, 64 rows in 16 bits, 32 in f32), and
 :func:`dq_from_accumulator` casts it into the (B, T, H, D) layout the model
 reads. The order in which the key tiles' shares arrive changes from run to
 run, so the fused dq is reproducible to rounding, not bit for bit. The
@@ -280,8 +286,8 @@ def head_dim_route(D: int, dtype) -> str:
     it: the head dim streamed), both with ``wide_fwd`` and ``wide_dq`` from
     ``flash_attention_wide_wg.cu`` and ``wide_dkv`` from
     ``flash_attention_wide_dkv.cu``, or ``"wide_f32"`` (f32: the 3xTF32
-    ``wide_fwd`` from ``flash_attention_wide_wg.cu``, ``wide_dq`` and
-    ``wide_dkv`` from ``flash_attention_wide.cu``)."""
+    ``wide_fwd`` and ``wide_dq`` from ``flash_attention_wide_wg.cu``, the
+    warp-a-row ``wide_dkv`` from ``flash_attention_wide.cu``)."""
     if D <= MAX_HEAD_DIM:
         return "tiled"
     if dtype not in _HALF:
@@ -295,7 +301,7 @@ def _source(name: str, route: str) -> Tuple[str, str]:
     if not _wide(name):
         return (("flash_attention_fwd", "mxt_flash_attention_fwd") if fwd
                 else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
-    if route == "wide_f32" and not fwd:
+    if route == "wide_f32" and name == "flash_attention_wide_dkv":
         return ("flash_attention_wide", "mxt_flash_wide_bwd")
     if name == "flash_attention_wide_dkv":
         return ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
@@ -333,10 +339,12 @@ def _wide(name: str) -> bool:
 
 def _uses_tma(name: str, route: str, dtype) -> bool:
     """Whether kernel ``name`` on ``route`` reads and writes its operands
-    by TMA: every 16-bit kernel and the wide f32 forward, that is every
-    kernel but the warp-a-row ones (:func:`_source`) and the f32 ones of
-    head dims up to :data:`MAX_HEAD_DIM`."""
-    return (dtype in _HALF or route != "tiled") and \
+    by TMA: every 16-bit kernel, the wide f32 forward and dq and the f32
+    fused backward, that is every kernel but the warp-a-row f32 dk / dv
+    (:func:`_source`) and the f32 FMA forward and pair of head dims up to
+    :data:`MAX_HEAD_DIM`."""
+    return (dtype in _HALF or route != "tiled"
+            or name == "flash_attention_bwd_fused") and \
         _source(name, route)[0] != "flash_attention_wide"
 
 
@@ -523,14 +531,16 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
                 ds, scale: float, causal: bool, fn=None) -> None:
     """One backward kernel on (B, H, T, D) views. ``dq`` is the
     :func:`dq_accumulator` for the fused kernel, q's dtype for the dq
-    kernel; kernels that do not write an output get None for it. The 16-bit
-    kernels read q, k, v, do and write dk, dv and the dq kernel's dq by
-    TMA: operands they cannot address are copied first and outputs written
-    to a padded buffer and copied back (:func:`_tma_operand`, counted), as
-    do the tiled ``wide_dq`` and ``wide_dkv`` of :func:`head_dim_route`
-    (:func:`_backward_kernels` copies the pair's operands once, for both,
-    :func:`_tma_operands`);
-    the warp-a-row f32 pair reads and writes the views as they are. ``fn``:
+    kernel; kernels that do not write an output get None for it. The
+    kernels of :func:`_uses_tma` (every 16-bit kernel, the f32 fused pass,
+    the wide f32 dq) read q, k, v, do and write dk, dv and the dq kernel's
+    dq by TMA (the f32 fused pass stores dk, dv from its threads, through
+    the same buffers): operands they cannot address are copied first and
+    outputs written to a padded buffer and copied back
+    (:func:`_tma_operand`, counted; :func:`_backward_kernels` copies a
+    pair's operands once, for both, :func:`_tma_operands`); the f32 FMA
+    pair and the warp-a-row f32 dk / dv read and write the views as they
+    are. ``fn``:
     another build of the same C entry (``chip_smoke.py --probe-bwd``); its
     launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))

@@ -393,6 +393,65 @@ def test_card_forward_route(monkeypatch, D, name, copies):
         n: int(n == name) for n in port.KERNELS}
 
 
+@pytest.mark.parametrize("D,name,qkv,copies", [
+    (64, "flash_attention_bwd_fused", True, 0),
+    (32, "flash_attention_bwd_fused", True, 0),
+    (65, "flash_attention_bwd_fused", False, 4),
+    (100, "flash_attention_bwd_fused", False, 0),
+    (64, "flash_attention_bwd_dq", True, 0),
+    (65, "flash_attention_bwd_dq", False, 0),
+    (65, "flash_attention_bwd_dkv", False, 0)])
+def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
+    """f32 heads up to 128: the fused pass (3xTF32 on wgmma) reads q, k, v
+    and dout by TMA, the FMA pair does not (_uses_tma), so the fused pass
+    copies f32 operands whose rows are not a multiple of 16 bytes (D = 65:
+    q, k, v and dout, each counted) and takes BERT's fused-QKV views (q, k,
+    v as slices of one (B, T, 3, H, D) projection) as they lie, and the
+    pair copies nothing. Pure Python on CPU tensors, the launch replaced
+    by a spy that records the pointers the kernel would read."""
+    import contextlib
+    import types
+    launched = []
+
+    def kernel(kname, route):
+        def fn(*args):
+            launched.append((kname, args[2:6]))       # q, k, v, dout
+            return 0
+        return fn
+
+    monkeypatch.setattr(port, "_kernel", kernel)
+    monkeypatch.setattr(port, "_check_operands", lambda q, k, v, extra=(): (
+        *q.shape[:3], k.shape[2], q.shape[3]))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    T = 40
+    assert port._uses_tma(name, "tiled", torch.float32) == (
+        name == "flash_attention_bwd_fused")
+    assert not port._uses_tma("flash_attention_fwd", "tiled", torch.float32)
+    if qkv:
+        proj = torch.zeros(B, T, 3, H, D)
+        q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.zeros(B, H, T, D) for _ in range(3))
+    do = torch.zeros(B, T, H, D).transpose(1, 2)
+    lse = delta = torch.zeros(B, H, T)
+    fused = name == "flash_attention_bwd_fused"
+    dq = port.dq_accumulator(B, H, T, D, "cpu") if fused else \
+        port._bthd_empty(B, H, T, D, torch.float32, "cpu")
+    dk = port._bthd_empty(B, H, T, D, torch.float32, "cpu")
+    before = port.padded_copies
+    port._launch_bwd(name, q, k, v, do, None, None, 0.0, lse, delta, dq,
+                     None if name.endswith("_dq") else dk,
+                     None if name.endswith("_dq") else dk, None, 0.125,
+                     False)
+    assert [n for n, _ in launched] == [name]
+    assert port.padded_copies - before == copies
+    if copies == 0:
+        assert launched[0][1] == tuple(t.data_ptr() for t in (q, k, v, do))
+
+
 def test_dropout_draws_only_from_the_framework_generator():
     """Same framework seed, same masks; torch.manual_seed moves nothing."""
     x = torch.ones(4, 64)

@@ -13,15 +13,21 @@ same inputs, atol=rtol=2e-2 (the kernel rounds p to 16 bits before p.v and
 rounds out once); f32 inputs atol=rtol=1e-4 (summation order); lse
 atol=1e-3, rtol=1e-4. Backward, relative Frobenius error of each of dq, dk,
 dv and dbias: 2e-2 for 16-bit inputs (p, ds and the outputs rounded to 16
-bits), 1e-4 for f32 (summation order, and the fused kernel's dq atomics),
-at head dims 40 to 256 (above 128 always the dq/dkv pair); two runs of the
-pair equal to the bit. Dropout masks are compared bit for bit through the
-outputs they make. Head dims above 256 (264 to 1024) run the wide
+bits), 1e-4 for f32 (summation order, and the order of the fused kernel's
+dq adds), at head dims 40 to 256 (above 128 always the dq/dkv pair); two
+runs of the pair equal to the bit. The f32 fused pass (3xTF32 on wgmma,
+``tf::bwd_fused_tf32``) at head dims 1 to 128 (32, 40, 64, 100, 128):
+causal, every bias kind, a learned bias, dropout (its mask read back bit
+for bit through dv), Tq != Tk and T = 333, within 1e-4 of the plain
+version and 1e-5 of the f32 pair, two runs' dq within 1e-6 and dk, dv
+equal to the bit, BERT's fused-QKV views read without a copy. Dropout
+masks are compared bit for bit through the outputs they make. Head dims
+above 256 (264 to 1280) run the wide
 kernels, forward and backward, under the same tolerances, at Tq != Tk,
 with bias, causal and dropout (their masks read back bit for bit), two
 backward runs equal to the bit; 16-bit heads on the tiled wgmma forward,
 dq and dk / dv (streaming the head dim above 512), f32 heads on the 3xTF32
-wgmma forward and the warp-a-row dq and dk / dv (out, lse, dq, ds, dk and
+wgmma forward and dq and the warp-a-row dk / dv (out, lse, dq, ds, dk and
 dv equal to the bit run to run, operands with rows TMA cannot address
 copied and counted, once for the backward pair), as the profiler's kernel
 names show.
@@ -269,7 +275,7 @@ def test_backward_kernels_match_plain(dev, dtype, D, causal, bias_kind,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
-@pytest.mark.parametrize("D", [40, 64, 128])
+@pytest.mark.parametrize("D", [40, 64, 128, 32, 100])
 def test_fused_and_two_pass_agree(dev, dtype, D):
     """The fused pass and the dq/dkv pair on the same inputs (key padding,
     dropout 0.1): dk, dv from the same walk, dq rounded in other places."""
@@ -354,20 +360,40 @@ def _fused_against_plain(q, k, v, do, bias, seed, scale, out, lse, causal,
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("Tq,Tk", [(200, 333), (333, 200), (64, 129),
                                    (1, 1), (513, 513)])
 def test_fused_backward_ragged_and_cross_lengths(dev, dtype, causal, Tq, Tk):
-    """Tk not a multiple of the kernel's 128-key block and Tq != Tk (TMA's
-    zero fill and clipping; the caller pads nothing), with key padding and
-    dropout 0.1, against the plain backward."""
+    """Tk not a multiple of the kernel's key block (128 keys in 16 bits,
+    64 in f32) and Tq != Tk (TMA's zero fill and clipping; the caller pads
+    nothing), with key padding and dropout 0.1, against the plain
+    backward. In f32 at Tq = Tk = 1, dq and dk are 0 (one key: p = 1 and
+    out = v, so dp = delta and ds = 0) and both versions give rounding
+    noise of dp - delta, whose relative error says nothing: there dv is
+    held to the plain version and ds to its rounding bound, |ds| <=
+    2**-17 sum|dout v| / (1 - rate) (dp's products and f32 sums and
+    delta's f32 sum each within 2**-18 of the sum of their terms'
+    magnitudes), so |dq| <= that * scale * |k| and |dk| <= that * scale *
+    |q|, element by element."""
     case = _backward_case(dev, dtype, 64, causal, "keypad", 0.1, Tq=Tq,
                           Tk=Tk)
+    if dtype == torch.float32 and Tk == 1:
+        q, k, v, do, bias, seed, scale, out, lse = case
+        dq, dk, dv, _ = attn._flash_backward(q, k, v, bias, seed, out, lse,
+                                             do, scale, causal, 4096, 0.1,
+                                             bias_grad=False)
+        want = attn.flash_attention_backward_reference(
+            q, k, v, bias, seed, 0.1, out, lse, do, scale, causal, False)
+        assert _rel(dv, want[2]) <= 1e-4
+        ds = (do.abs() * v.abs()).sum(-1, keepdim=True) / 0.9 * 2.0 ** -17
+        assert (dq.abs() <= ds * scale * k.abs() * 1.001).all()
+        assert (dk.abs() <= ds * scale * q.abs() * 1.001).all()
+        return
     _fused_against_plain(*case, causal, 0.1)
 
 
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
 def test_fused_backward_reads_bt3hd_views_without_copies(dev, dtype):
     """q, k, v as views of one (B, T, 3, H, D) projection and dout as a
     view of a (B, T, H, D) gradient: TMA reads them in place, so no
@@ -416,6 +442,84 @@ def test_fused_backward_copies_what_tma_cannot_address(dev, layout):
     assert torch.equal(dests[0], dk) and torch.equal(dests[1], dv)
     assert _rel(attn.dq_from_accumulator(acc, T, D, torch.bfloat16), dq) \
         <= 1e-2
+
+
+@pytest.mark.parametrize("D", [32, 40, 64, 100, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", (2, 1, 1, 1), "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_fused_backward_matches_plain(dev, D, causal, bias_kind, rate):
+    """The f32 fused pass (3xTF32 on wgmma) at every padded head dim (32,
+    64, 96, 128 in 32-column panels; D = 40 and 100 zero-filled past D),
+    causal, every bias kind (a learned full bias's gradient from the ds it
+    writes), dropout 0.1, Tq != Tk: dq, dk, dv within relative 1e-4 of the
+    plain backward, one launch of the fused kernel and none other."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, causal, bias_kind, rate)
+    before = dict(attn.launches)
+    bias_grad = bias_kind == "full"
+    dq, dk, dv, db = attn._flash_backward(
+        q, k, v, bias, seed, out, lse, do, scale, causal, 1024, rate,
+        bias_grad=bias_grad)
+    torch.cuda.synchronize()
+    assert {n: attn.launches[n] - before[n] for n in attn.KERNELS} == {
+        n: int(n == "flash_attention_bwd_fused") for n in attn.KERNELS}
+    rq, rk, rv, rds = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, bias_grad)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert _rel(got, want) <= 1e-4, f"{name}: {_rel(got, want):.3e}"
+    if bias_grad:
+        want = rds.sum(dim=0, keepdim=True)
+        assert _rel(db, want) <= 1e-4, f"dbias: {_rel(db, want):.3e}"
+
+
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
+@pytest.mark.parametrize("D", [32, 64, 100, 128])
+def test_fused_dropout_mask_is_the_plain_mask(dev, dtype, D):
+    """The fused pass's dropout mask (keys as the rows of its walk, one
+    Philox call shared by two lanes), read back through dv
+    (chip_smoke.fused_dropout_mask), equals dropout_keep_reference's bit
+    for bit."""
+    got, want = cs.fused_dropout_mask(torch, attn, dev, dtype, D)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [32, 40, 64, 100, 128])
+def test_f32_fused_backward_reruns(dev, D):
+    """Two f32 fused passes on the same inputs (causal, learned bias,
+    dropout 0.1, Tq != Tk): dq, added a key block at a time in a varying
+    order, within 1e-6 relative; dk, dv and the bias's ds equal to the
+    bit."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, True, "full", 0.1, Tq=333, Tk=200)
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 True, 1024, 0.1) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _rel(runs[1][0], runs[0][0]) <= 1e-6
+    for i in (1, 2, 3):
+        assert torch.equal(runs[1][i], runs[0][i]), i
+
+
+@pytest.mark.parametrize("layout", ["odd_rows", "unaligned_base"])
+def test_f32_fused_backward_copies_what_tma_cannot_address(dev, layout):
+    """f32 rows of 37 values (148 bytes) or a base one element past a
+    16-byte boundary: the f32 fused pass reads q, k, v and dout by TMA, so
+    each is copied into a padded buffer (counted) and the result equals
+    the plain version's."""
+    g = torch.Generator().manual_seed(9)
+    B, H, T = 2, 3, 70
+    D = 37 if layout == "odd_rows" else 64
+    n = B * H * T * D
+    base = torch.randn(4 * n + 1, generator=g).to(dev)
+    off = 1 if layout == "unaligned_base" else 0
+    q, k, v, do = (base[off + i * n:off + (i + 1) * n].reshape(B, H, T, D)
+                   for i in range(4))
+    out, lse = attn._flash_forward(q, k, v, None, 0.2, False)
+    before = attn.padded_copies
+    _fused_against_plain(q, k, v, do, None, None, 0.2, out, lse, False, 0.0)
+    assert attn.padded_copies == before + 4
 
 
 def test_fused_backward_fully_masked_key_tile(dev):
@@ -580,7 +684,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 # (csrc/flash_attention_wide_wg.cu) and dk / dv
 # (csrc/flash_attention_wide_dkv.cu), all three streaming the head dim above
 # 512 (D = 300 through copies TMA can address); f32 heads the 3xTF32
-# forward (csrc/flash_attention_wide_wg.cu) and the warp-a-row dq and dk /
+# forward and dq (csrc/flash_attention_wide_wg.cu) and the warp-a-row dk /
 # dv (csrc/flash_attention_wide.cu)
 WIDE_DS = [264, 288, 300, 320, 384, 512, 576, 1024]
 
@@ -691,9 +795,9 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
     384, by roles above) and at 530 to 1280, where all three stream the
     head dim (each slice of an output recomputes the scores; slice 0 writes
     lse and ds; at 1280 the forward streams q too) and dk / dv are the
-    tiled kernel's; in f32 the 3xTF32 forward (its slices recomputing S at
-    every D) beside the warp-a-row dq and dk / dv; dk and dv within
-    relative 2e-2 (f32: 1e-4) of the plain backward."""
+    tiled kernel's; in f32 the 3xTF32 forward and dq (their slices
+    recomputing the scores at every D) beside the warp-a-row dk / dv; dk
+    and dv within relative 2e-2 (f32: 1e-4) of the plain backward."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, True, "full", 0.1, Tq=Tq, Tk=Tk)
     route = attn.head_dim_route(D, dtype)
@@ -703,6 +807,7 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
         "flash_attention_wide" if dtype == torch.float32
         else "flash_attention_wide_dkv")
     assert attn._source("flash_attention_wide_fwd", route)[0] == \
+        attn._source("flash_attention_wide_dq", route)[0] == \
         "flash_attention_wide_wg"
     again = attn._flash_forward(q, k, v, bias, scale, True, seed, 0.1)
     runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
@@ -718,6 +823,32 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
         assert _rel(got, want) <= tol, f"{name}: {_rel(got, want):.3e}"
 
 
+@pytest.mark.parametrize("D", [264, 320, 576, 1280])
+@pytest.mark.parametrize("causal,bias_kind,rate", [
+    (True, "keypad", 0.1), (False, "full", 0.1), (True, None, 0.0)])
+def test_f32_wide_dq_matches_plain_and_reruns(dev, D, causal, bias_kind,
+                                              rate):
+    """The f32 wide dq (3xTF32 on wgmma, wwg::wide_dq_tf32; slices of up to
+    six 32-column panels, each recomputing the scores) at D = 264 to 1280,
+    Tq != Tk: dq and a learned bias's gradient within relative 1e-4 of the
+    plain backward, two runs equal to the bit."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, causal, bias_kind, rate, Tq=150, Tk=97)
+    bias_grad = bias_kind == "full"
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 causal, 1024, rate, bias_grad=bias_grad)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+    rq, _, _, rds = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, bias_grad)
+    assert _rel(runs[0][0], rq) <= 1e-4, f"dq: {_rel(runs[0][0], rq):.3e}"
+    if bias_grad:
+        want = rds.sum(dim=0, keepdim=True)
+        assert _rel(runs[0][3], want) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype,D,route,fwd_copies,bwd_copies", [
     (torch.bfloat16, 300, "wide_wg", 3, 4),
     (torch.float16, 320, "wide_wg", 0, 0),
@@ -725,17 +856,17 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
     (torch.bfloat16, 520, "wide_stream", 0, 0),
     (torch.bfloat16, 530, "wide_stream", 3, 4),
     (torch.float32, 576, "wide_f32", 0, 0),
-    (torch.float32, 530, "wide_f32", 3, 0),
-    (torch.float32, 257, "wide_f32", 3, 0)])
+    (torch.float32, 530, "wide_f32", 3, 4),
+    (torch.float32, 257, "wide_f32", 3, 4)])
 def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
                                      bwd_copies):
     """Launches and copies of the wide route, contiguous (B, H, T, D)
     operands: a head dim whose rows are not a multiple of 16 bytes (16-bit
     D not a multiple of 8, f32 D not a multiple of 4) gives rows TMA cannot
-    address, so the tiled forward (the f32 one too) copies q, k, v and the
-    tiled 16-bit backward pair q, k, v and dout, once for both kernels
-    (counted in ``padded_copies``); the warp-a-row f32 pair reads every
-    operand in place. One launch of each wide kernel per call, nothing
+    address, so the tiled forward (the f32 one too) copies q, k, v and a
+    backward pair with a TMA kernel (16-bit, and f32 with its 3xTF32 dq)
+    q, k, v and dout, once for both kernels (counted in
+    ``padded_copies``). One launch of each wide kernel per call, nothing
     else."""
     assert attn.head_dim_route(D, dtype) == route
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
@@ -756,7 +887,7 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
 
 _TILED = (r"wwg::wide_fwd_wg<", r"wwg::wide_dq_wg<", r"wdkv::wide_dkv_wg<")
 _STREAMED = (r"wwg::wide_fwd_st<", r"wwg::wide_dq_st<", r"wdkv::wide_dkv_st<")
-_F32 = (r"wwg::wide_fwd_tf32\b", r"wide::wide_dq<", r"wide::wide_dkv<")
+_F32 = (r"wwg::wide_fwd_tf32\b", r"wwg::wide_dq_tf32\b", r"wide::wide_dkv<")
 
 
 @pytest.mark.parametrize("dtype,D,patterns", [
@@ -772,8 +903,8 @@ def test_wide_route_runs_its_kernels(dev, dtype, D, patterns):
     of the forward, dq and dk / dv and no other wide one: at D = 320 the
     tiled wgmma kernels for bf16, above 512 the streamed ones for 16 bits
     (no warp-a-row kernel runs in 16 bits), and for f32 at every D the
-    3xTF32 forward (no warp-a-row forward) beside the warp-a-row dq and
-    dk / dv."""
+    3xTF32 forward and dq (no warp-a-row forward or dq) beside the
+    warp-a-row dk / dv."""
     import re
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
@@ -791,7 +922,7 @@ def test_wide_route_runs_its_kernels(dev, dtype, D, patterns):
             pattern, names)
     assert all(any(re.search(p, n) for p in patterns) for n in names), names
     if dtype == torch.float32:
-        assert not any(re.search(r"wide::wide_fwd", n) for n in names)
+        assert not any(re.search(r"wide::wide_(fwd|dq)", n) for n in names)
     else:
         assert not any(re.search(r"\bwide::", n) for n in names), names
 

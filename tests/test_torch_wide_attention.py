@@ -5,8 +5,8 @@ The card's route at a wide head dim is ``head_dim_route``, a pure function
 of (D, dtype): 16-bit heads take the tiled wgmma kernels of
 ``csrc/flash_attention_wide_wg.cu`` for the forward and dq and of
 ``csrc/flash_attention_wide_dkv.cu`` for dk / dv at every D > 256 (all
-three streaming the head dim above 512); f32 heads the 3xTF32 forward of
-``csrc/flash_attention_wide_wg.cu`` and the warp-a-row dq and dk / dv of
+three streaming the head dim above 512); f32 heads the 3xTF32 forward and
+dq of ``csrc/flash_attention_wide_wg.cu`` and the warp-a-row dk / dv of
 ``csrc/flash_attention_wide.cu``. Those
 kernels run only on the card (``tests/test_torch_cuda.py``); here the route
 is checked at every edge, the forward's operands and the backward pair's
@@ -61,8 +61,8 @@ WIDE_SOURCES = {
     "wide_f32": {
         "flash_attention_wide_fwd": ("flash_attention_wide_wg",
                                      "mxt_flash_wide_wg_fwd"),
-        "flash_attention_wide_dq": ("flash_attention_wide",
-                                    "mxt_flash_wide_bwd"),
+        "flash_attention_wide_dq": ("flash_attention_wide_wg",
+                                    "mxt_flash_wide_wg_bwd"),
         "flash_attention_wide_dkv": ("flash_attention_wide",
                                      "mxt_flash_wide_bwd")}}
 
@@ -75,11 +75,11 @@ def test_head_dim_route(D, dtype):
     """Every edge of the route: up to 256 the tiled kernels; 16-bit up to
     512 the tiled wide kernels (wide_fwd and wide_dq from one source,
     wide_dkv from its own), 16-bit above 512 the same sources' kernels that
-    stream the head dim, f32 the 3xTF32 wide_fwd (the 16-bit forward's
-    source) and the warp-a-row wide_dq and wide_dkv; the route decides the
+    stream the head dim, f32 the 3xTF32 wide_fwd and wide_dq (the 16-bit
+    kernels' source) and the warp-a-row wide_dkv; the route decides the
     source of each wide kernel and whether it reads and writes by TMA (and
-    so may copy operands): every tiled kernel does, f32 among them, no
-    warp-a-row one."""
+    so may copy operands): every tiled kernel does, f32 among them, the
+    warp-a-row one does not."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
         want = "tiled"
@@ -104,10 +104,10 @@ def test_head_dim_route(D, dtype):
     (300, torch.bfloat16, 4), (300, torch.float16, 4),
     (300, torch.float32, 0), (520, torch.bfloat16, 0),
     (320, torch.bfloat16, 0), (36, torch.bfloat16, 4),
-    (530, torch.bfloat16, 4), (530, torch.float32, 0),
+    (530, torch.bfloat16, 4), (530, torch.float32, 4),
     (257, torch.float16, 4), (513, torch.bfloat16, 4),
     (576, torch.float16, 0), (1024, torch.bfloat16, 0),
-    (2048, torch.float32, 0), (257, torch.float32, 0)])
+    (2048, torch.float32, 0), (257, torch.float32, 4)])
 def test_pair_operands_copied_once(D, dtype, copies):
     """The backward pair's q, k, v and dout, contiguous (B, H, T, D) views:
     rows of D = 300, 530, 257 or 513 (or 36) 16-bit values are not a
@@ -115,8 +115,9 @@ def test_pair_operands_copied_once(D, dtype, copies):
     16-bit pair, the streamed one above 512 among them) each is copied once
     for both kernels (counted), into a view TMA can address that holds the
     same values, and the second kernel's own check copies nothing more;
-    f32 (the warp-a-row pair, at any D) and 16-bit rows TMA can address
-    (D = 320, 520, 576, 1024) are taken as they are. No kernel runs
+    so are f32 rows of D = 530 and 257 (not a multiple of 4), which the
+    3xTF32 wide_dq reads by TMA; rows TMA can address (f32 D = 300, 2048,
+    16-bit D = 320, 520, 576, 1024) are taken as they are. No kernel runs
     here."""
     route = port.head_dim_route(D, dtype)
     pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \

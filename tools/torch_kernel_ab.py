@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""The multi-tensor update, the decode attention kernel and the wide flash
-attention kernels of the PyTorch port in the tree at ROOT, timed on one GPU
-at their main paths' shapes.
+"""The multi-tensor update, the decode attention kernel, the wide flash
+attention kernels and the f32 backward kernels of the PyTorch port in the
+tree at ROOT, timed on one GPU at their main paths' shapes.
 
-    python3 tools/torch_kernel_ab.py ROOT [update|decode|wide ...]
+    python3 tools/torch_kernel_ab.py ROOT [update|decode|wide|f32 ...]
 
-(the named parts only; all three by default)
+(the named parts only; all four by default)
 
 ROOT is a checkout (or a ``git archive``) of the repository whose
 ``mxnet_tpu_torch`` and ``chip_smoke.py`` are measured. The update: one
@@ -32,6 +32,13 @@ median of 5
 sessions (the forward through ``_flash_forward``, dq and dk / dv through
 ``chip_smoke.kernel_only_call``, so the entry's delta is not in them), the
 kernels' names matched whatever tree they come from.
+The f32 part: the f32 fused backward pass at ``chip_smoke.py``'s
+``F32_TIMED`` shapes (BERT-base's (8, 12, 512, 64) key padding, GPT-2
+training's (8, 12, 1024, 64) causal) and the f32 wide dq at (2, 4, 512,
+320) and (8, 8, 1024, 320) key padding, each kernel alone a launch through
+``chip_smoke.kernel_only_call``, median of 5 sessions, beside SDPA's whole
+f32 backward on the same inputs (TF32 off); the kernels' names matched
+whatever the tree calls them (``F32_PATTERNS``).
 To compare two commits, run it on each tree in turns on one card (parent,
 change, change, parent). The result line starts with ``AB``. Imports
 nothing of JAX.
@@ -192,9 +199,46 @@ def wide_times(torch, cs, dev, attn):
     return out
 
 
+# (B, H, T, D, bias, causal, part) of the f32 part: chip_smoke.py's
+# F32_TIMED (the fused pass) and the f32 wide dq
+F32_SHAPES = ((8, 12, 512, 64, "keypad", False, "fused"),
+              (8, 12, 1024, 64, None, True, "fused"),
+              (2, 4, 512, 320, "keypad", False, "wide_dq"),
+              (8, 8, 1024, 320, "keypad", False, "wide_dq"))
+# their names in any tree: the 3xTF32 kernels and the FMA fused pass and
+# warp-a-row dq they replaced
+F32_PATTERNS = {"fused": r"bwd_fused_tf32|bwd_dkv_f32<\d+, true>",
+                "wide_dq": r"wide_dq"}
+F32_NAMES = {"fused": "flash_attention_bwd_fused",
+             "wide_dq": "flash_attention_wide_dq"}
+
+
+def f32_times(torch, cs, dev, attn):
+    """{shape: ms a launch of the f32 fused pass or wide dq, and SDPA's
+    whole f32 backward} at ``F32_SHAPES``."""
+    out = {}
+    gen = torch.Generator().manual_seed(29)
+    for B, Hh, T, d, bias_kind, causal, part in F32_SHAPES:
+        c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                               causal, "float32")
+        call, _ = cs.kernel_only_call(torch, attn, c, F32_NAMES[part])
+        pattern = F32_PATTERNS[part]
+        row = {part: median_ms(cs, call, 3, lambda n: re.search(pattern, n))}
+        row["sdpa_bwd"] = cs.library_backward_ms(
+            torch, c["q"], c["k"], c["v"], c["bias"], c["do"], c["scale"],
+            causal, 0.0, False)
+        label = (f"({B}, {Hh}, {T}, {d}) f32 "
+                 f"{'causal' if causal else bias_kind}")
+        out[label] = row
+        del c, call
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
-    parts = sys.argv[2:] or ["update", "decode", "wide"]
-    if len(sys.argv) < 2 or not set(parts) <= {"update", "decode", "wide"}:
+    parts = sys.argv[2:] or ["update", "decode", "wide", "f32"]
+    if len(sys.argv) < 2 or not set(parts) <= {"update", "decode", "wide",
+                                               "f32"}:
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -216,6 +260,9 @@ def main() -> int:
         res["decode"] = decode_times(torch, cs, dev, da)
     if "wide" in parts:
         res["wide"] = wide_times(torch, cs, dev, attn)
+    if "f32" in parts:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        res["f32"] = f32_times(torch, cs, dev, attn)
     print("AB " + json.dumps(res), flush=True)
     return 0
 

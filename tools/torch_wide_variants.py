@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Designs of two wide flash kernels of the PyTorch port, each built from a
+"""Designs of three flash kernels of the PyTorch port, each built from a
 copy of its source with text replaced, timed in turns on one GPU.
 
     python3 tools/torch_wide_variants.py fwd [VARIANT ...]
     python3 tools/torch_wide_variants.py dkv [VARIANT ...]
+    python3 tools/torch_wide_variants.py fused [VARIANT ...]
 
 ``fwd``: the f32 forward on 3xTF32 (``wwg::wide_fwd_tf32`` in
 ``csrc/flash_attention_wide_wg.cu``) at (2, 4, 512, 320), (8, 8, 1024, 320),
@@ -24,11 +25,20 @@ default; ``base`` is the source as it stands):
   ``no_split`` (the splitters' work out);
 - dkv ``g2``, ``g4``: 2 / 4 head-dim panels a score step (ST_G).
 
+``fused``: the f32 fused backward pass on 3xTF32 (``tf::bwd_fused_tf32`` in
+``csrc/flash_attention_bwd.cu``) at BERT-base's (8, 12, 512, 64) key
+padding and GPT-2 training's (8, 12, 1024, 64) causal, cut builds, wrong by
+design: ``no_sdp`` (the s^T and dp^T products out; K's and V's halves
+still split), ``no_dkv`` (the dv and dk products out), ``no_dq`` (dq^T's
+K^T halves, products and staging out; the reduce-add of a zeroed buffer
+kept), ``no_split`` (the splitter warps' work out).
+
 Each build goes into ``build/variants/`` with ``_kernels.NVCC_FLAGS`` (its
 ``-Xptxas -v`` lines for the kernel printed), then every variant is timed
 in the order base, variants, variants reversed, base: the device time of
 the kernel's records a launch (``chip_smoke.launch_ms``), beside its max
-error against the plain version (relative for dk / dv). Run from the root
+error against the plain version (relative for dk / dv, the fused pass's
+relative for dk and dv). Run from the root
 of a checkout on a machine with the card. Imports nothing of JAX.
 """
 import ctypes
@@ -38,6 +48,7 @@ import subprocess
 import sys
 
 WG = "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu"
+BWD = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
 DKV = "mxnet_tpu_torch/csrc/flash_attention_wide_dkv.cu"
 _SLICES = "static_assert(TF_NO == 6, \"wide_fwd_tf32 takes slices of 4 to 6 panels\");"
 _S_MMA = """          hop::wgmma_tf32_rs32(sc, ah[g][kk], dkh,
@@ -110,6 +121,65 @@ _OLDK = [("""  float4 x[PER];
     x[0] = reinterpret_cast<const float4*>(hi)[i];
     uint4 h, l;""")]
 
+# the fused pass's cut builds: text of csrc/flash_attention_bwd.cu
+_SDP = [("""#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_tf32_3x(st, h0[kk], l0[kk], qt + p * PANEL_Q + kk * 32, T,
+                           p > 0 || kk > 0);""",
+  """#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        st[kk] += __uint_as_float(h0[kk][0] ^ l0[kk][3]);"""),
+ ("""#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_tf32_3x(dpt, h1[kk], l1[kk], ot + p * PANEL_Q + kk * 32,
+                           T, p > 0 || kk > 0);""",
+  """#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        dpt[kk] += __uint_as_float(h1[kk][0] ^ l1[kk][3]);""")]
+_DKV = [("""        hop::wgmma_tf32_3x(dv[p], h0[j], l0[j],
+                           ot + 2 * T + p * PANEL_Q + j * 32, T);
+        hop::wgmma_tf32_3x(dk[p], h1[j], l1[j],
+                           qt + 2 * T + p * PANEL_Q + j * 32, T);""",
+  """        dv[p][j] += __uint_as_float(h0[j][0] ^ l0[j][3]);
+        dk[p][j] += __uint_as_float(h1[j][0] ^ l1[j][3]);""")]
+_DQ = [("""#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      // two groups of 4 k8 steps (keys 0-31, 32-63), their A halves in the
+      // two sets of registers, so the second's are split as the first runs
+      float acc[16];
+      const int d = 64 * c + kl;  // this thread's rows d, d + 8 of dq^T
+      const bool in = 64 * c + 16 * warp < DP;
+      const unsigned char* kp = sm + L::K + (d >> 5) * PANEL_K;
+      const int dw = (d & 31) >> 2, dc = (d & 3) * 4;
+      kt_split(kp, dw, dc, t4, 0, in, h0, l0);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hop::wgmma_tf32_3x(acc, h0[u], l0[u], base + L::DS + u * 32,
+                           L::DS_LO, u > 0);
+      hop::wgmma_commit();
+      kt_split(kp, dw, dc, t4, 1, in, h1, l1);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hop::wgmma_tf32_3x(acc, h1[u], l1[u],
+                           base + L::DS + PANEL_Q + u * 32, L::DS_LO);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc, 16);
+      // dq^T's element i: row d + 8 ((i >> 1) & 1), query 8 (i / 4) + 2 t4
+      // + (i & 1), into the staging buffer's [query][d]
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        stage[(8 * (i >> 2) + 2 * t4 + (i & 1)) * L::ACC_LD + d +
+              ((i & 2) ? 8 : 0)] = acc[i];
+    }
+""",
+  """""")]
+_FSPLIT = [("""      split_tile<NP>(st + L::Q, t);
+      split_tile<NP>(st + L::O, t);""",
+  """      (void)st;""")]
+
 PARTS = {
     "fwd": dict(
         source=WG, entry="mxt_flash_wide_wg_fwd", kernel="wide_fwd_tf32",
@@ -128,7 +198,13 @@ PARTS = {
         shapes=((2, 4, 512, 576), (4, 8, 1024, 1024), (2, 4, 512, 1280)),
         variants={
             "g2": [("constexpr int ST_G = 3;", "constexpr int ST_G = 2;")],
-            "g4": [("constexpr int ST_G = 3;", "constexpr int ST_G = 4;")]})}
+            "g4": [("constexpr int ST_G = 3;", "constexpr int ST_G = 4;")]}),
+    "fused": dict(
+        source=BWD, entry="mxt_flash_attention_bwd", kernel="bwd_fused_tf32",
+        shapes=((8, 12, 512, 64, "keypad", False),
+                (8, 12, 1024, 64, None, True)),
+        variants={"no_sdp": _SDP, "no_dkv": _DKV, "no_dq": _DQ,
+                  "no_split": _FSPLIT})}
 
 
 def start_build(kernels, which, part, name, cuts):
@@ -190,8 +266,9 @@ def timed(torch, cs, attn, which, part, fn, c, want):
         torch.cuda.synchronize()
         err = (out.float() - want).abs().max().item()
         return cs.launch_ms(call, 10, keep), err
-    call, outs = cs.kernel_only_call(torch, attn, c,
-                                     "flash_attention_wide_dkv", fn=fn)
+    name = ("flash_attention_bwd_fused" if which == "fused"
+            else "flash_attention_wide_dkv")
+    call, outs = cs.kernel_only_call(torch, attn, c, name, fn=fn)
     call()
     torch.cuda.synchronize()
     err = max(cs.rel(outs[1], want[1]), cs.rel(outs[2], want[2]))
@@ -227,24 +304,26 @@ def main() -> int:
             return 1
         fns[n] = load(part, so, log, n)
     order = ["base"] + names + names[::-1] + ["base"]
-    dtn = "float32" if which == "fwd" else "bfloat16"
+    dtn = "bfloat16" if which == "dkv" else "float32"
     gen = torch.Generator().manual_seed(5)
     dev = torch.device("cuda:0")
-    for B, Hh, T, d in part["shapes"]:
-        c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, "keypad",
-                               False, dtn)
+    for B, Hh, T, d, *rest in part["shapes"]:
+        bias_kind, causal = rest or ("keypad", False)
+        c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
+                               causal, dtn)
         if which == "fwd":
             want, _ = attn.flash_attention_reference(
                 c["q"], c["k"], c["v"], c["bias"], c["scale"], False)
         else:
             want = attn.flash_attention_backward_reference(
                 c["q"], c["k"], c["v"], c["bias"], None, 0.0, c["out"],
-                c["lse"], c["do"], c["scale"], False, False)
+                c["lse"], c["do"], c["scale"], causal, False)
         res = {}
         for n in order:
             res.setdefault(n, []).append(
                 timed(torch, cs, attn, which, part, fns[n], c, want))
-        print(f"({B}, {Hh}, {T}, {d}) {dtn} keypad: " + "; ".join(
+        print(f"({B}, {Hh}, {T}, {d}) {dtn} "
+              f"{'causal' if causal else bias_kind}: " + "; ".join(
             f"{n} {' / '.join(f'{ms:.4f}' for ms, _ in r)} ms "
             f"(error {max(e for _, e in r):.1e})" for n, r in res.items()),
             flush=True)
