@@ -42,18 +42,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time of all its kernels (delta, zeroing, the kernel, the cast; for the
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
    library call (yardstick only). The f32 kernels (``F32_TIMED``: BERT-base's
-   (8, 12, 512, 64) key padding and GPT-2 training's (8, 12, 1024, 64)
-   causal: the FMA forward and pair, the 3xTF32 fused pass, whose profiler
-   records must name ``tf::bwd_fused_tf32``) are timed beside their bound
-   at the f32 FMA peak, their products' time as 3xTF32 on the tensor
-   cores, the plain versions and SDPA's f32 calls. Then the wide kernels
+   (8, 12, 512, 64) key padding, GPT-2 training's (8, 12, 1024, 64)
+   causal and (4, 8, 1024, 256) key padding: the FMA forward, the 3xTF32
+   fused pass (D <= 128) and the 3xTF32 pair, dq ``wwg::wide_dq_tf32`` and
+   dk / dv ``tf::bwd_dkv_tf32`` / ``tf::bwd_dkv_tf32_st``, whose profiler
+   records must name them) are timed beside their bound at the f32 FMA
+   peak, their products' time as 3xTF32 on the tensor cores, the plain
+   versions and SDPA's f32 calls. Then the wide kernels
    (head dims above
    256: ``wide_fwd``, ``wide_dq`` and ``wide_dkv``, the tiled wgmma
    kernels of ``flash_attention_wide_wg.cu`` (forward and dq at every
    16-bit head dim, streaming the head dim above 512; the 3xTF32 forward
    and dq at every f32 one) and ``flash_attention_wide_dkv.cu`` (16-bit
-   dk / dv, streaming above 512) and the warp-a-row one of
-   ``flash_attention_wide.cu`` for the f32 dk / dv) against their
+   dk / dv, streaming above 512) and the 3xTF32 f32 dk / dv of
+   ``flash_attention_bwd.cu``) against their
    plain versions in ``WIDE_CASES`` (D = 264 to 1280; bias none, key
    padding and learned; causal; Tq != Tk; dropout; bf16, fp16, f32), two
    runs of the forward and of the backward equal to the bit, the copies
@@ -70,14 +72,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    padding, (8, 8, 1024, 320) with key padding and causal)
    against the plain versions, each kernel timed there by device time
    beside its bound, the plain version and SDPA's memory-efficient
-   backend (the only one that takes such heads); the f32 forward and dq
-   (``WIDE_F32_TIMED``: (2, 4, 512, 320), (8, 8, 1024, 320) and (2, 4, 512,
-   576) with key padding) checked and timed beside their FMA bounds, their
-   products' time as 3xTF32, the plain versions and SDPA's f32 forward and
-   whole backward; the warp-a-row f32 dk / dv checked and timed on its own
-   route at (2, 4, 512, 320) and (8, 8, 1024, 320) with key padding, its
-   source beside the times, SDPA's memory-efficient whole backward beside
-   them (or its refusal, printed). Then the three
+   backend (the only one that takes such heads); the f32 forward, dq and
+   dk / dv (``WIDE_F32_TIMED``: (2, 4, 512, 320), (8, 8, 1024, 320) and
+   (2, 4, 512, 576) with key padding) checked and timed beside their FMA
+   bounds, their products' time as 3xTF32, the plain versions and SDPA's
+   f32 forward and whole backward. Then the three
    prologue-fused 1x1-conv kernels (fwd, dgrad, wgrad) against their plain
    versions at ResNet-50's eight b128 junction shapes in bf16 (each timed
    by device time beside its bound, its plain version and cuDNN:
@@ -174,7 +173,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    generator's state after equal to the bit, gradients within
    TOL_GRAPH_GRAD_REL (and whether equal to the bit), two replays drawing
    different dropout, ``grad_req='add'`` accumulating; then one f32 step
-   on the card against the same step on the CPU (plain path);
+   on the card against the same step on the CPU (plain path), on the
+   fused pass and on the 3xTF32 pair (``MXNET_FLASH_BLOCK_K=64`` below T;
+   ``F32_ROUTES``);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
    from a seed, bf16 with f32 masters (``multi_precision``), B=128,
    224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
@@ -399,8 +400,8 @@ KERNEL_INFO = {
     # 256): the same three Pallas kernels as rows 1, 3 and 4. 16-bit heads
     # take the tiled wide forward, dq and dk / dv at every D (streaming the
     # head dim above 512); f32 heads the 3xTF32 forward and dq
-    # (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) and the warp-a-row dk / dv of
-    # flash_attention_wide.cu (WIDE_ROWS_SOURCE)
+    # (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) and the 3xTF32 dk / dv of
+    # flash_attention_bwd.cu (tf::bwd_dkv_tf32_st)
     "flash_attention_wide_fwd": (
         "mxnet_tpu_torch/csrc/flash_attention_wide_wg.cu",
         "mxnet_tpu/ops/pallas/attention.py:129"),
@@ -486,24 +487,26 @@ UPDATE_STEP = {"bert": 1, "resnet": 1}
 # by the source of each (attn._source): the tiled ones (wwg::wide_fwd_wg,
 # wwg::wide_dq_wg, wdkv::wide_dkv_wg), the streamed ones above 512
 # (wwg::wide_fwd_st, wwg::wide_dq_st, wdkv::wide_dkv_st), the f32 forward
-# and dq (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) or the warp-a-row f32 dk /
-# dv (wide::wide_dkv)
+# and dq (wwg::wide_fwd_tf32, wwg::wide_dq_tf32) or the f32 dk / dv
+# (tf::bwd_dkv_tf32_st)
 WIDE_SOURCE_KERNEL = {
     "flash_attention_wide_wg": {
         "flash_attention_wide_fwd": r"wide_fwd_(wg<|st<|tf32\b)",
         "flash_attention_wide_dq": r"wide_dq_(wg<|st<|tf32\b)"},
     "flash_attention_wide_dkv": {
         "flash_attention_wide_dkv": r"wide_dkv_(wg|st)<"},
-    "flash_attention_wide": {
-        "flash_attention_wide_dkv": r"wide::wide_dkv<"}}
+    "flash_attention_bwd": {
+        "flash_attention_wide_dkv": r"bwd_dkv_tf32_st\b"}}
 # the kernels each wide route runs (forward, dq, dk / dv, as WIDE_KERNELS),
-# by the profiler's names; no other wide kernel may run on it
+# by the profiler's names; no other wide or 3xTF32 kernel may run on it
 ROUTE_KERNELS = {
     "wide_wg": (r"wide_fwd_wg<", r"wide_dq_wg<", r"wide_dkv_wg<"),
     "wide_stream": (r"wide_fwd_st<", r"wide_dq_st<", r"wide_dkv_st<"),
-    "wide_f32": (r"wide_fwd_tf32\b", r"wide_dq_tf32\b", r"wide::wide_dkv<")}
-# the source of the warp-a-row kernel, which the f32 dk / dv takes
-WIDE_ROWS_SOURCE = "mxnet_tpu_torch/csrc/flash_attention_wide.cu"
+    "wide_f32": (r"wide_fwd_tf32\b", r"wide_dq_tf32\b",
+                 r"bwd_dkv_tf32_st\b")}
+# the names of the kernels a route audit reads: the wide ones and the
+# 3xTF32 ones
+AUDITED = r"wide|tf32"
 # the wide kernels' path (phase 3): attention over heads of 288 and 320
 # through the user's entry point, forward and backward under autograd, bf16
 WIDE_PATHS = (dict(B=2, T=512, H=4, D=288), dict(B=8, T=1024, H=8, D=320))
@@ -1187,7 +1190,8 @@ def forward_probe(torch, dev, attn):
     dropout. Variant launches are not counted."""
     import ctypes
     from mxnet_tpu_torch import _kernels
-    argtypes = attn._kernel("flash_attention_fwd", "tiled").argtypes
+    argtypes = attn._kernel("flash_attention_fwd",
+                            torch.bfloat16).argtypes
     fns = {}
     for label, define in FWD_CUTS.items():
         fn = _kernels.load("flash_attention_fwd",
@@ -1231,7 +1235,7 @@ def backward_probe(torch, dev, attn):
     import ctypes
     from mxnet_tpu_torch import _kernels
     name = "flash_attention_bwd_fused"
-    argtypes = attn._kernel(name, "tiled").argtypes
+    argtypes = attn._kernel(name, torch.bfloat16).argtypes
     fns = {}
     for label, define in BWD_CUTS.items():
         fn = _kernels.load("flash_attention_bwd",
@@ -2318,8 +2322,8 @@ def wide_case(torch, dev, gen, attn, dt, d, Tq, Tk, causal, bias_kind, rate,
 # against the plain versions. 16-bit heads take the tiled wide kernels
 # (D = 300 and 530: rows TMA cannot address, copied and counted), all three
 # streaming the head dim above 512 (530, 576, 640, 1024; 1280 with the
-# forward's q streamed too); f32 the 3xTF32 forward and dq (530: copied)
-# and the warp-a-row dk / dv, at 264 to 1280 (attn.head_dim_route)
+# forward's q streamed too); f32 the 3xTF32 forward, dq and dk / dv (530:
+# copied), at 264 to 1280 (attn.head_dim_route)
 WIDE_CASES = [("bfloat16", 288, 333, 333, False, "keypad", 0.0),
               ("bfloat16", 288, 200, 200, True, None, 0.1),
               ("bfloat16", 320, 100, 260, False, "full", 0.1),
@@ -2350,14 +2354,8 @@ WIDE_TIMED = ((2, 4, 512, 288, "keypad", False),
               (2, 4, 512, 576, "keypad", False),
               (4, 8, 1024, 1024, "keypad", False))
 WIDE_LINE = 1
-# the warp-a-row kernel (WIDE_ROWS_SOURCE), which keeps the f32 dk / dv,
-# timed on its own route (B, H, T, D, bias, causal, dtype): each kernel
-# whose source the route makes the warp-a-row file (the kernels line
-# carries the tiled ones)
-WIDE_ROWS_TIMED = ((2, 4, 512, 320, "keypad", False, "float32"),
-                   (8, 8, 1024, 320, "keypad", False, "float32"))
-# the f32 forward and dq (3xTF32: wide_fwd_tf32, wide_dq_tf32) timed at
-# (B, H, T, D, bias, causal) in f32
+# the f32 forward, dq and dk / dv (3xTF32: wide_fwd_tf32, wide_dq_tf32,
+# bwd_dkv_tf32_st) timed at (B, H, T, D, bias, causal) in f32
 WIDE_F32_TIMED = ((2, 4, 512, 320, "keypad", False),
                   (8, 8, 1024, 320, "keypad", False),
                   (2, 4, 512, 576, "keypad", False))
@@ -2378,7 +2376,7 @@ def wide_mask_probe(torch, dev, attn, dt, d=288, rate=0.1, B=2, Hh=3,
 
 def wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind, causal,
                     dtn="bfloat16"):
-    """One timed wide shape (``WIDE_TIMED``, ``WIDE_ROWS_TIMED``), of dtype
+    """One timed wide shape (``WIDE_TIMED``, ``WIDE_F32_TIMED``), of dtype
     ``dtn``: q, k, v views of one fused (B, T, 3 Hh d) projection, a
     key-padding bias with valid lengths T - b T / (2 B) for batch b (or
     none), and the forward's out and lse."""
@@ -2461,7 +2459,7 @@ def wide_timed(torch, dev, gen, attn, errs):
                                      causal, bias)
         route = attn.head_dim_route(d, torch.bfloat16)
         # each kernel timed by the records of its route's own kernel
-        pats = {n: WIDE_SOURCE_KERNEL[attn._source(n, route)[0]][n]
+        pats = {n: WIDE_SOURCE_KERNEL[attn._source(n, torch.bfloat16)[0]][n]
                 for n in WIDE_KERNELS}
         rows = {"flash_attention_wide_fwd": dict(
             ms=launch_ms(lambda: attn._flash_forward(q, k, v, bias, scale,
@@ -2497,7 +2495,8 @@ def wide_timed(torch, dev, gen, attn, errs):
             r["max_abs_err"] = abs_err[name]
             whole = " (the whole backward)" if name != WIDE_KERNELS[0] else ""
             print(f"phase 3: {name} at {label} ({route}, "
-                  f"{attn._source(name, route)[0]}.cu): {fmt_ms(r['ms'])} "
+                  f"{attn._source(name, torch.bfloat16)[0]}.cu): "
+                  f"{fmt_ms(r['ms'])} "
                   f"device "
                   f"(bound {r['bound_ms']:.5f} ms by {r['bound_by']}; plain "
                   f"{fmt_ms(r['plain_ms'])}{whole}; SDPA memory-efficient "
@@ -2510,82 +2509,17 @@ def wide_timed(torch, dev, gen, attn, errs):
     return line
 
 
-def wide_rows_timed(torch, dev, gen, attn):
-    """The warp-a-row kernel on its own route, at each
-    ``WIDE_ROWS_TIMED`` shape: each wide kernel whose source the shape's
-    route makes ``WIDE_ROWS_SOURCE`` (the f32 dk / dv alone; the route
-    checked kernel by kernel), checked against the plain backward (dk and
-    dv within REL_BWD), then its device time, by the
-    profiler's records of that kernel's own name, beside its bound, the
-    plain version and SDPA's memory-efficient whole backward (or SDPA's
-    refusal, printed)."""
-    rows_lib = "flash_attention_wide"
-    for B, Hh, T, d, bias_kind, causal, dtn in WIDE_ROWS_TIMED:
-        route = attn.head_dim_route(d, getattr(torch, dtn))
-        names = [n for n in WIDE_KERNELS
-                 if attn._source(n, route)[0] == rows_lib]
-        want = ["flash_attention_wide_dkv"]
-        if names != want:
-            fail(f"WIDE_ROWS_TIMED: D={d} {dtn} ({route}) takes the "
-                 f"warp-a-row {names}, expected {want}")
-        c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
-                            causal, dtn)
-        label = wide_label(B, Hh, T, d, bias_kind, causal, dtn)
-        q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
-        errs, calls = {}, {}
-        want = attn.flash_attention_backward_reference(
-            q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
-            causal, False)
-        for name, parts in (("flash_attention_wide_dkv",
-                             ((1, "dk"), (2, "dv"))),):
-            calls[name], outs = kernel_only_call(torch, attn, c, name)
-            calls[name]()
-            for i, nm in parts:
-                e = rel(outs[i], want[i])
-                if not e <= REL_BWD[dtn]:
-                    fail(f"warp-a-row wide {nm} {label}: rel {e:.3e} beyond "
-                         f"{REL_BWD[dtn]}")
-                errs[name] = max(errs.get(name, 0.0), (
-                    outs[i].float() - want[i]).abs().max().item())
-        del want
-        plain_bwd = device_ms(
-            lambda: attn.flash_attention_backward_reference(
-                q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
-                causal, False), iters=3)
-        lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
-            torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
-        for name in names:
-            pattern = WIDE_SOURCE_KERNEL[rows_lib][name]
-            ms = launch_ms(calls[name], 5 if T <= 512 else 2,
-                           lambda n: re.search(pattern, n),
-                           warmup=3 if T <= 512 else 1)
-            if ms is None:
-                fail(f"warp-a-row {name} at {label}: the profiler kept no "
-                     f"record of {pattern}")
-            bnd, by = backward_bound_ms(
-                name.rsplit("_", 1)[1], B, Hh, T, T, d, c["valid"], dtn,
-                c["dt"].itemsize, causal, bias, False)
-            print(f"phase 3: {name} on the warp-a-row route "
-                  f"({WIDE_ROWS_SOURCE}) at {label}: {fmt_ms(ms)} device "
-                  f"(bound {bnd:.5f} ms by {by}; plain {fmt_ms(plain_bwd)} "
-                  f"(the whole backward); SDPA memory-efficient "
-                  f"{fmt_ms(lib_bwd)} (the whole backward)); error "
-                  f"{errs[name]:.3e}", flush=True)
-        del c, calls
-        torch.cuda.empty_cache()
-
-
 def wide_f32_timed(torch, dev, gen, attn):
-    """The f32 wide forward and dq (3xTF32 on the tensor cores, route
-    ``wide_f32``) at each ``WIDE_F32_TIMED`` shape: out and lse within
-    TOL_F32 of the plain version, dq within REL_BWD of the plain backward,
-    then each one's device time, by the profiler's records of
-    ``wide_fwd_tf32`` and ``wide_dq_tf32``, beside its bound (operations at
-    the f32 FMA peak), its products' time as 3xTF32 on the tensor cores,
-    the plain version's and SDPA's f32 forward or whole backward (its
-    memory-efficient backend, the only one that takes such heads; TF32
-    off)."""
-    fwd_pattern, dq_pattern = ROUTE_KERNELS["wide_f32"][:2]
+    """The f32 wide forward, dq and dk / dv (3xTF32 on the tensor cores,
+    route ``wide_f32``) at each ``WIDE_F32_TIMED`` shape: out and lse
+    within TOL_F32 of the plain version, dq, dk and dv within REL_BWD of
+    the plain backward, then each one's device time, by the profiler's
+    records of its own kernel (``ROUTE_KERNELS["wide_f32"]``), beside its
+    bound (operations at the f32 FMA peak), its products' time as 3xTF32
+    on the tensor cores, the plain version's and SDPA's f32 forward or
+    whole backward (its memory-efficient backend, the only one that takes
+    such heads; TF32 off)."""
+    patterns = dict(zip(("fwd", "dq", "dkv"), ROUTE_KERNELS["wide_f32"]))
     for B, Hh, T, d, bias_kind, causal in WIDE_F32_TIMED:
         if attn.head_dim_route(d, torch.float32) != "wide_f32":
             fail(f"WIDE_F32_TIMED: D={d} f32 takes route "
@@ -2596,63 +2530,68 @@ def wide_f32_timed(torch, dev, gen, attn):
         q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
         ref, ref_lse = attn.flash_attention_reference(q, k, v, bias, scale,
                                                       causal)
-        err = check_close("f32 wide forward", label, c["out"], ref, TOL_F32)
+        err = {"fwd": check_close("f32 wide forward", label, c["out"], ref,
+                                  TOL_F32)}
         check_close("f32 wide forward lse", label, c["lse"], ref_lse,
                     TOL_F32)
         del ref, ref_lse
-        dq_call, outs = kernel_only_call(torch, attn, c,
-                                         "flash_attention_wide_dq")
-        dq_call()
         want = attn.flash_attention_backward_reference(
             q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"], scale,
-            causal, False)[0]
-        e = rel(outs[0], want)
-        if not e <= REL_BWD["float32"]:
-            fail(f"f32 wide dq {label}: rel {e:.3e} beyond "
-                 f"{REL_BWD['float32']}")
-        dq_err = (outs[0].float() - want).abs().max().item()
-        del want
+            causal, False)
+        calls = {"fwd": lambda: attn._flash_forward(q, k, v, bias, scale,
+                                                    causal)}
+        for side, parts in (("dq", ((0, "dq"),)),
+                            ("dkv", ((1, "dk"), (2, "dv")))):
+            calls[side], outs = kernel_only_call(
+                torch, attn, c, f"flash_attention_wide_{side}")
+            calls[side]()
+            for i, nm in parts:
+                e = rel(outs[i], want[i])
+                if not e <= REL_BWD["float32"]:
+                    fail(f"f32 wide {nm} {label}: rel {e:.3e} beyond "
+                         f"{REL_BWD['float32']}")
+                err[side] = max(err.get(side, 0.0),
+                                (outs[i].float() - want[i]).abs().max().item())
+        del want, outs
         big = T > 512
-        ms = {"fwd": launch_ms(lambda: attn._flash_forward(
-            q, k, v, bias, scale, causal), 10,
-            lambda n: re.search(fwd_pattern, n)),
-            "dq": launch_ms(dq_call, 3 if big else 10,
-                            lambda n: re.search(dq_pattern, n))}
-        for side, pattern in (("fwd", fwd_pattern), ("dq", dq_pattern)):
+        ms = {side: launch_ms(calls[side], 10 if side == "fwd" or not big
+                              else 3, lambda n, p=pattern: re.search(p, n))
+              for side, pattern in patterns.items()}
+        for side, pattern in patterns.items():
             if ms[side] is None:
                 fail(f"f32 wide {side} at {label}: the profiler kept no "
                      f"record of {pattern}")
         pairs = score_pairs(B, T, c["valid"], causal)
-        plain = {"fwd": device_ms(lambda: attn.flash_attention_reference(
-            q, k, v, bias, scale, causal), iters=3),
-            "dq": device_ms(lambda: attn.flash_attention_backward_reference(
+        plain_bwd = device_ms(
+            lambda: attn.flash_attention_backward_reference(
                 q, k, v, bias, None, 0.0, c["out"], c["lse"], c["do"],
-                scale, causal, False), iters=2 if big else 3)}
+                scale, causal, False), iters=2 if big else 3)
+        lib_bwd = wide_sdpa(torch, lambda: library_backward_ms(
+            torch, q, k, v, bias, c["do"], scale, causal, 0.0, False))
+        plain = {"fwd": device_ms(lambda: attn.flash_attention_reference(
+            q, k, v, bias, scale, causal), iters=3), "dq": plain_bwd,
+            "dkv": plain_bwd}
         lib = {"fwd": wide_sdpa_forward_ms(torch, q, k, v, bias, scale,
                                            causal, label),
-               "dq": wide_sdpa(torch, lambda: library_backward_ms(
-                   torch, q, k, v, bias, c["do"], scale, causal, 0.0,
-                   False))}
-        for side, name, n_prod, error in (
-                ("fwd", "flash_attention_wide_fwd", 2, err),
-                ("dq", "flash_attention_wide_dq", 3, dq_err)):
+               "dq": lib_bwd, "dkv": lib_bwd}
+        for side, n_prod in (("fwd", 2), ("dq", 3), ("dkv", 4)):
             if side == "fwd":
                 bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"],
                                              "float32", 4, causal, bias)
             else:
-                bnd, by = backward_bound_ms("dq", B, Hh, T, T, d, c["valid"],
+                bnd, by = backward_bound_ms(side, B, Hh, T, T, d, c["valid"],
                                             "float32", 4, causal, bias,
                                             False)
             flops = 2.0 * n_prod * Hh * d * pairs
-            whole = " (the whole backward)" if side == "dq" else ""
-            print(f"phase 3: {name} (wide_f32, 3xTF32) at {label}: "
-                  f"{fmt_ms(ms[side])} device (bound {bnd:.5f} ms by {by} "
-                  f"at the f32 FMA peak; 3xTF32 on the tensor cores "
-                  f"{3 * flops / TF32_FLOPS * 1e3:.5f} ms; plain "
-                  f"{fmt_ms(plain[side])}{whole}; SDPA f32 "
-                  f"memory-efficient {fmt_ms(lib[side])}{whole}); error "
-                  f"{error:.3e}", flush=True)
-        del c, outs
+            whole = " (the whole backward)" if side != "fwd" else ""
+            print(f"phase 3: flash_attention_wide_{side} (wide_f32, 3xTF32) "
+                  f"at {label}: {fmt_ms(ms[side])} device (bound {bnd:.5f} "
+                  f"ms by {by} at the f32 FMA peak; 3xTF32 on the tensor "
+                  f"cores {3 * flops / TF32_FLOPS * 1e3:.5f} ms; plain "
+                  f"{fmt_ms(plain[side])}{whole}; SDPA f32 memory-efficient "
+                  f"{fmt_ms(lib[side])}{whole}); error {err[side]:.3e}",
+                  flush=True)
+        del c, calls
         torch.cuda.empty_cache()
 
 
@@ -2661,8 +2600,8 @@ def wide_path(torch, dev, gen, attn):
     through the user's entry point ``flash_attention``, q, k, v from one
     fused QKV projection, forward and backward under autograd, the counts
     from 0 and one torch.profiler session over the runs, whose kernel
-    names must show the tiled wide forward, dq and dk / dv (and no
-    warp-a-row wide kernel); out against the plain version. A session in a process
+    names must show the tiled wide forward, dq and dk / dv (and no other
+    wide or 3xTF32 kernel); out against the plain version. A session in a process
     that ran many earlier ones can lose a kernel's record (the counts
     still move), so a session short of a tiled kernel's records is run
     once more, and both are held to the counts. Returns the launches."""
@@ -2696,8 +2635,10 @@ def wide_path(torch, dev, gen, attn):
             fail(f"wide path: {attn.padded_copies} operands copied for "
                  f"TMA; the fused-QKV views need none")
         seen = kernel_counts(prof)
-        if any(re.search(r"wide::wide_(fwd|dq|dkv)<", k) for k in seen):
-            fail("wide path: a warp-a-row wide kernel ran on the bf16 path")
+        other = [k for k in seen if re.search(AUDITED, k) and not any(
+            re.search(p, k) for p in ROUTE_KERNELS["wide_wg"])]
+        if other:
+            fail(f"wide path: {other} ran on the bf16 path")
         hits = {pattern: sum(n for k, n in seen.items()
                              if re.search(pattern, k))
                 for pattern in ROUTE_KERNELS["wide_wg"]}
@@ -2734,9 +2675,9 @@ def wide_path(torch, dev, gen, attn):
 def route_audit(torch, attn, c, label, route):
     """One forward and one backward of case ``c`` under torch.profiler,
     whose records must show ``route``'s own forward, dq and dk / dv
-    (``ROUTE_KERNELS``) and no other wide kernel: above 512 in 16 bits the
-    streamed tiled ones, in f32 the 3xTF32 forward and the warp-a-row pair
-    (a session that kept no record of one of them is run once more)."""
+    (``ROUTE_KERNELS``) and no other wide or 3xTF32 kernel: above 512 in
+    16 bits the streamed tiled ones, in f32 the 3xTF32 forward, dq and dk /
+    dv (a session that kept no record of one of them is run once more)."""
     from torch.profiler import ProfilerActivity, profile
     patterns = ROUTE_KERNELS[route]
     for session in (1, 2):
@@ -2748,7 +2689,7 @@ def route_audit(torch, attn, c, label, route):
                                 c["rate"])
             run_backward(attn, c, 1024)
             torch.cuda.synchronize()
-        names = sorted(k for k in kernel_counts(prof) if "wide" in k)
+        names = sorted(k for k in kernel_counts(prof) if re.search(AUDITED, k))
         if not all(any(re.search(p, k) for p in patterns) for k in names):
             fail(f"wide {label}: a kernel of another route ran on "
                  f"{route}: {names}")
@@ -2764,9 +2705,9 @@ def wide_checks(torch, dev, gen, attn):
     (the forward's, and the pair's through ``pair_dropout_masks``), two
     runs of the forward and of the backward equal to the bit, launches
     and copies counted; their path (:func:`wide_path`); each
-    ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`), the f32
-    forward (:func:`wide_f32_timed`) and the warp-a-row kernels
-    (:func:`wide_rows_timed`). Returns (rows, the path's launches)."""
+    ``WIDE_TIMED`` shape checked and timed (:func:`wide_timed`) and the
+    f32 kernels (:func:`wide_f32_timed`). Returns (rows, the path's
+    launches)."""
     errs = {n: 0.0 for n in WIDE_KERNELS}
     for dtn, d, Tq, Tk, causal, bias_kind, rate in WIDE_CASES:
         dt = getattr(torch, dtn)
@@ -2850,7 +2791,6 @@ def wide_checks(torch, dev, gen, attn):
     launches = wide_path(torch, dev, gen, attn)
     rows = wide_timed(torch, dev, gen, attn, errs)
     wide_f32_timed(torch, dev, gen, attn)
-    wide_rows_timed(torch, dev, gen, attn)
     for name in WIDE_KERNELS:
         rows[name]["max_abs_err"] = errs[name]
     torch.cuda.empty_cache()
@@ -2858,26 +2798,30 @@ def wide_checks(torch, dev, gen, attn):
 
 
 # the f32 flash kernels at head dims up to 256 (f32 is MXNet's default
-# dtype: the FMA forward and pair, the 3xTF32 fused pass), timed at
-# BERT-base's attention (key padding) and GPT-2 training's (causal) in f32:
-# (B, H, T, D, bias, causal)
-F32_TIMED = ((8, 12, 512, 64, "keypad", False), (8, 12, 1024, 64, None, True))
+# dtype: the FMA forward, the 3xTF32 fused pass and pair), timed at
+# BERT-base's attention (key padding), GPT-2 training's (causal) and
+# (4, 8, 1024, 256) with key padding, where the pair is the only route, in
+# f32: (B, H, T, D, bias, causal)
+F32_TIMED = ((8, 12, 512, 64, "keypad", False), (8, 12, 1024, 64, None, True),
+             (4, 8, 1024, 256, "keypad", False))
 F32_KERNEL = {"flash_attention_fwd": r"flash_fwd_f32",
               "flash_attention_bwd_fused": r"bwd_fused_tf32<",
-              "flash_attention_bwd_dq": r"bwd_dq_f32<",
-              "flash_attention_bwd_dkv": r"bwd_dkv_f32<"}
+              "flash_attention_bwd_dq": r"wide_dq_tf32\b",
+              "flash_attention_bwd_dkv": r"bwd_dkv_tf32(<|_st\b)"}
+# the f32 FMA kernels the 3xTF32 ones replaced: none of them may run
+F32_GONE = r"bwd_(dq|dkv)_f32<|wide::wide_dkv<"
 TF32_FLOPS = 495e12   # H100 SXM data sheet, dense
 
 
 def f32_timed(torch, dev, gen, attn):
     """Each ``F32_TIMED`` shape in f32: the forward, the fused backward
-    pass (the route at these shapes: Tk <= block_k, D <= 128) and the
-    dq/dkv pair, each against its plain version (out TOL_F32, dq, dk, dv
-    REL_BWD), then each kernel's device time a launch beside its bound
-    (operations at the f32 FMA peak), the time its products would take on
-    the tensor cores as 3xTF32 (three TF32 products an f32 one, as SDPA's
-    f32 kernels do), the plain version's and SDPA's f32 forward or whole
-    backward (default backends, TF32 off)."""
+    pass (the route at D <= 128: Tk <= block_k) and the dq/dkv pair, each
+    against its plain version (out TOL_F32, dq, dk, dv REL_BWD), then each
+    kernel's device time a launch beside its bound (operations at the f32
+    FMA peak), the time its products would take on the tensor cores as
+    3xTF32 (three TF32 products an f32 one, as SDPA's f32 kernels do), the
+    plain version's and SDPA's f32 forward or whole backward (default
+    backends, TF32 off)."""
     import torch.nn.functional as F
     for B, Hh, T, d, bias_kind, causal in F32_TIMED:
         c = wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
@@ -2885,8 +2829,10 @@ def f32_timed(torch, dev, gen, attn):
         label = (f"({B}, {Hh}, {T}, {d}) f32 "
                  f"{'causal' if causal else bias_kind}")
         q, k, v, bias, scale = c["q"], c["k"], c["v"], c["bias"], c["scale"]
-        if attn.backward_route(d, T, attn.DEFAULT_BLOCK_K) != "fused":
-            fail(f"f32 rows {label}: the backward is not the fused pass")
+        fused = attn.backward_route(d, T, attn.DEFAULT_BLOCK_K) == "fused"
+        if fused != (d <= attn.FUSED_MAX_HEAD_DIM):
+            fail(f"f32 rows {label}: backward route "
+                 f"{attn.backward_route(d, T, attn.DEFAULT_BLOCK_K)}")
         ref, _ = attn.flash_attention_reference(q, k, v, bias, scale, causal)
         errs = {"flash_attention_fwd": check_close(
             "f32 forward", label, c["out"], ref, TOL_F32)}
@@ -2896,11 +2842,11 @@ def f32_timed(torch, dev, gen, attn):
             causal, False)
         calls = {"flash_attention_fwd": lambda: attn._flash_forward(
             q, k, v, bias, scale, causal)}
-        for name, parts in (("flash_attention_bwd_fused",
-                             ((0, "dq"), (1, "dk"), (2, "dv"))),
-                            ("flash_attention_bwd_dq", ((0, "dq"),)),
-                            ("flash_attention_bwd_dkv",
-                             ((1, "dk"), (2, "dv")))):
+        kernels = ((("flash_attention_bwd_fused",
+                     ((0, "dq"), (1, "dk"), (2, "dv"))),) if fused else ()) \
+            + (("flash_attention_bwd_dq", ((0, "dq"),)),
+               ("flash_attention_bwd_dkv", ((1, "dk"), (2, "dv"))))
+        for name, parts in kernels:
             calls[name], outs = kernel_only_call(torch, attn, c, name)
             calls[name]()
             for i, nm in parts:
@@ -2923,7 +2869,8 @@ def f32_timed(torch, dev, gen, attn):
             "bwd": library_backward_ms(torch, q, k, v, bias, c["do"], scale,
                                        causal, 0.0, False)}
         pairs = score_pairs(B, T, c["valid"], causal)
-        for name, pattern in F32_KERNEL.items():
+        for name in calls:
+            pattern = F32_KERNEL[name]
             if name == "flash_attention_fwd":
                 bnd, by = attention_bound_ms(B, Hh, T, d, c["valid"],
                                              "float32", 4, causal, bias)
@@ -4357,10 +4304,17 @@ def hybrid_train(torch, dev, net, params, loss_fn, batch, eager_losses):
     net.hybridize(False)
 
 
+# the f32 BERT step's backward routes on the card (phase 5): the fused
+# pass, and the dq/dkv pair with MXNET_FLASH_BLOCK_K below T = 128
+F32_ROUTES = (("the fused pass", ("flash_attention_bwd_fused",), None),
+              ("the dq/dkv pair", ("flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"), "64"))
+
+
 def train_parity(torch, dev, params, cfg):
     """One f32 step, dropout 0, B=2, T=128: the card (kernels, under
-    :func:`f32_fused_audit`) against the CPU (plain path), loss and every
-    parameter's gradient."""
+    :func:`f32_audit`) on each of ``F32_ROUTES`` against the CPU (plain
+    path), loss and every parameter's gradient."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon import Trainer
@@ -4369,8 +4323,8 @@ def train_parity(torch, dev, params, cfg):
     from mxnet_tpu_torch.ops.cuda import attention as attn
 
     batch = mlm_batch(torch, 2, 128, 19, seed=2, lo=32)
-    out = {}
-    for where in ("cpu", dev):
+
+    def step_on(where, names):
         net = load_jax_params(
             get_bert("bert_12_768_12", device=where, dropout=0.0, **cfg),
             params)
@@ -4382,32 +4336,43 @@ def train_parity(torch, dev, params, cfg):
         def run():
             return train_step(torch, autograd, net,
                               SoftmaxCrossEntropyLoss(), trainer, xs)
-        loss = run() if where == "cpu" else f32_fused_audit(
-            torch, "phase 5", run)
-        grads = {k: p.grad().detach().cpu() for k, p in
-                 net.collect_params().items()}
-        moved = attn.launches["flash_attention_bwd_fused"] - \
-            before["flash_attention_bwd_fused"]
-        if (where != "cpu") != (moved == 12):
-            fail(f"parity step on {where}: {moved} fused backward launches")
-        out[str(where)] = (loss.detach().cpu(), grads,
-                           {k: p.data().detach().cpu() for k, p in
-                            net.collect_params().items()})
-    (lc, gc, wc), (lg, gg, wg) = out["cpu"], out[str(dev)]
-    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
-    if loss_rel > TOL_TRAIN_LOSS_REL:
-        fail(f"f32 step: loss on the card {lg.tolist()} vs the CPU "
-             f"{lc.tolist()}: relative {loss_rel:.3e} > {TOL_TRAIN_LOSS_REL}")
-    grad_rel = max((rel(gg[k], gc[k]), k) for k in gc)
-    if grad_rel[0] > TOL_TRAIN_GRAD_REL:
-        fail(f"f32 step: gradient of {grad_rel[1]} off the CPU's by "
-             f"{grad_rel[0]:.3e} > {TOL_TRAIN_GRAD_REL}")
-    w_rel = max(rel(wg[k], wc[k]) for k in wc)
-    print(f"phase 5: f32 step B=2 T=128 card vs CPU: loss relative "
-          f"{loss_rel:.3e} (limit {TOL_TRAIN_LOSS_REL}), worst gradient "
-          f"relative Frobenius {grad_rel[0]:.3e} ({grad_rel[1]}; limit "
-          f"{TOL_TRAIN_GRAD_REL}), weights after the step {w_rel:.3e}",
-          flush=True)
+        loss = run() if where == "cpu" else f32_audit(
+            torch, "phase 5", run, names)
+        moved = {n: attn.launches[n] - before[n]
+                 for n in ATTN_KERNELS[1:]}
+        want = {n: 12 * (n in names) for n in ATTN_KERNELS[1:]}
+        if moved != want:
+            fail(f"parity step on {where}: backward launches {moved}, "
+                 f"expected {want}")
+        return (loss.detach().cpu(),
+                {k: p.grad().detach().cpu() for k, p in
+                 net.collect_params().items()},
+                {k: p.data().detach().cpu() for k, p in
+                 net.collect_params().items()})
+
+    lc, gc, wc = step_on("cpu", ())
+    for route, names, block_k in F32_ROUTES:
+        if block_k:
+            os.environ["MXNET_FLASH_BLOCK_K"] = block_k
+        try:
+            lg, gg, wg = step_on(dev, names)
+        finally:
+            os.environ.pop("MXNET_FLASH_BLOCK_K", None)
+        loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+        if loss_rel > TOL_TRAIN_LOSS_REL:
+            fail(f"f32 step ({route}): loss on the card {lg.tolist()} vs "
+                 f"the CPU {lc.tolist()}: relative {loss_rel:.3e} > "
+                 f"{TOL_TRAIN_LOSS_REL}")
+        grad_rel = max((rel(gg[k], gc[k]), k) for k in gc)
+        if grad_rel[0] > TOL_TRAIN_GRAD_REL:
+            fail(f"f32 step ({route}): gradient of {grad_rel[1]} off the "
+                 f"CPU's by {grad_rel[0]:.3e} > {TOL_TRAIN_GRAD_REL}")
+        w_rel = max(rel(wg[k], wc[k]) for k in wc)
+        print(f"phase 5: f32 step B=2 T=128 card ({route}) vs CPU: loss "
+              f"relative {loss_rel:.3e} (limit {TOL_TRAIN_LOSS_REL}), worst "
+              f"gradient relative Frobenius {grad_rel[0]:.3e} "
+              f"({grad_rel[1]}; limit {TOL_TRAIN_GRAD_REL}), weights after "
+              f"the step {w_rel:.3e}", flush=True)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -6138,23 +6103,25 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
     return counts, stats
 
 
-def f32_fused_audit(torch, tag, run):
+def f32_audit(torch, tag, run, names=("flash_attention_bwd_fused",)):
     """``run()``, an f32 step on the card, under torch.profiler: its
-    records must show the 3xTF32 fused pass (``F32_KERNEL``) and none of
-    the f32 FMA backward kernels. Returns what ``run`` returns."""
+    records must show the 3xTF32 backward kernels of ``names``
+    (``F32_KERNEL``) and none of the f32 FMA kernels they replaced
+    (``F32_GONE``). Returns what ``run`` returns."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         primer()
         result = run()
         torch.cuda.synchronize()
-    names = list(kernel_counts(prof))
-    fused = [n for n in names
-             if re.search(F32_KERNEL["flash_attention_bwd_fused"], n)]
-    fma = [n for n in names if re.search(r"bwd_(dq|dkv)_f32<", n)]
-    if not fused or fma:
+    seen = list(kernel_counts(prof))
+    found = {n: [k for k in seen if re.search(F32_KERNEL[n], k)]
+             for n in names}
+    gone = [k for k in seen if re.search(F32_GONE, k)]
+    if not all(found.values()) or gone:
         fail(f"{tag} f32 step: the profiler's backward kernels "
-             f"{fused + fma}, expected the 3xTF32 fused pass alone")
+             f"{found} {gone}, expected the 3xTF32 kernels of {names} "
+             f"alone")
     return result
 
 
@@ -6162,7 +6129,7 @@ def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
                     n_attn):
     """One f32 step, dropout 0, on the card (the kernels; TF32 off) against
     the same step on the CPU (the plain path): loss and every parameter's
-    gradient; the card's step under :func:`f32_fused_audit`."""
+    gradient; the card's step under :func:`f32_audit`."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.convert import load_jax_params
     from mxnet_tpu_torch.gluon import Trainer
@@ -6178,7 +6145,7 @@ def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
         def run():
             return step(torch, autograd, net,
                         SoftmaxCrossEntropyLoss(axis=-1), trainer, xs)
-        loss = run() if where == "cpu" else f32_fused_audit(torch, tag, run)
+        loss = run() if where == "cpu" else f32_audit(torch, tag, run)
         moved = attn.launches["flash_attention_bwd_fused"] - \
             before["flash_attention_bwd_fused"]
         if (where != "cpu") != (moved == n_attn):

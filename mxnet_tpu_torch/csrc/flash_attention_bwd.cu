@@ -94,11 +94,13 @@
 // are cut, =3 the walk's exponentials are cut; the results are wrong and
 // chip_smoke.py --probe-bwd times the fused pass so beside the full kernel.
 //
-// f32 inputs: the fused pass is tf::bwd_fused_tf32, the key-block walk on
-// 3xTF32 wgmma (its section below: f32-accurate products on the tensor
-// cores whatever torch.backends.cuda.matmul.allow_tf32 says); the pair
-// keeps FMA kernels with the same structure (D/16 threads per row, 16
-// columns each) and expf.
+// f32 inputs, on 3xTF32 wgmma (f32-accurate products on the tensor cores
+// whatever torch.backends.cuda.matmul.allow_tf32 says; the sections
+// below): the fused pass is tf::bwd_fused_tf32, the key-block walk, and
+// the pair's dk, dv the same walk without dq (tf::bwd_dkv_tf32, D <= 128)
+// or, at every D above 128, the walk streaming the head dim with dk and dv
+// split across blocks (tf::bwd_dkv_tf32_st). The pair's f32 dq is
+// flash_attention_wide_wg.cu's wide_dq_tf32 at every D.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -115,8 +117,6 @@
 
 namespace {
 
-using mxt::BM;
-using mxt::BN;
 using mxt::Half;
 
 struct BwdArgs {
@@ -147,32 +147,6 @@ struct BwdArgs {
   uint32_t drop_threshold;
   float drop_scale;
 };
-
-// One score's share of the backward: p_d (for dv) and ds0 = p (dp - delta)
-// (unscaled; for dk, dq and the bias gradient).
-__device__ __forceinline__ void score_grad(const BwdArgs& a, const float* bp,
-                                           float s, float dp, int row, int col,
-                                           float lse, float delta, bool keep,
-                                           float& pd, float& ds0) {
-  float p = 0.f;
-  if (row < a.Tq && col < a.Tk && !(a.causal && col > row)) {
-    float x = s * a.scale;
-    if (bp) x += bp[row * a.b_sq + col * a.b_sk];
-    p = expf(x - lse);
-  }
-  pd = p;
-  if (a.dropout) {
-    pd = keep ? p * a.drop_scale : 0.f;
-    dp = keep ? dp * a.drop_scale : 0.f;
-  }
-  ds0 = p * (dp - delta);
-}
-
-__device__ __forceinline__ float* ds_row(const BwdArgs& a, int b, int h,
-                                         int row) {
-  return a.ds + ((static_cast<long long>(b) * a.H + h) * a.Tq + row) *
-                    static_cast<long long>(a.Tk);
-}
 
 // ------------------------------------------- 16-bit kernels (wgmma, TMA)
 namespace wg {
@@ -917,8 +891,9 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 }  // namespace wg
 
 // ------------------------------------ f32 fused pass (3xTF32 on wgmma, TMA)
-// f32 q, k, v at D <= 128 (kind FUSED): the key-block walk above carried to
-// f32 on the tensor cores. wgmma reads f32 only as TF32 (10 mantissa bits),
+// f32 q, k, v at D <= 128 (kind FUSED, and kind DKV without the dq^T
+// product: bwd_dkv_tf32): the key-block walk above carried to f32 on the
+// tensor cores. wgmma reads f32 only as TF32 (10 mantissa bits),
 // and only K-major, so every operand is split into TF32 halves, x = hi + lo
 // (hopper.cuh), and every product taken as hi hi' + hi lo' + lo hi'
 // (3xTF32): an f32-accurate product (about 2^-21 relative), not a TF32
@@ -951,7 +926,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 // DP = 64), a ring stage of q, dout, q^T, dout^T, hi and lo each (8 DP 128
 // bytes: 64 KB), ds hi and lo (16 KB), the dq staging buffer (32 rows of
 // DP' + 8 floats: 9 KB at DP' = 64), lse and delta rows: 4 stages at DP =
-// 32, 2 at 64, 1 at 96 and 128 (TfSmem).
+// 32, 2 at 64, 1 at 96 and 128 (TfSmem); without dq, 4 at 32, 3 at 64.
 // Bound: operations, its five products (10 T^2 D flops a (batch, head),
 // each as three TF32 ones). On an H100 it takes about 4 times that bound:
 // the one consumer warpgroup issues each product group, waits for it and
@@ -981,7 +956,7 @@ struct Maps {
 // transposed hi, transposed lo, T bytes apart), lse and delta rows a stage,
 // the mbarriers: K and V's, then full (copied), ready (split), empty (used)
 // a stage.
-template <int DP>
+template <int DP, bool WITH_DQ>
 struct TfSmem {
   static constexpr int NP = DP / 32;
   static constexpr int ACC_LD = (DP <= 64 ? 64 : 128) + 8;  // dq_accumulator
@@ -991,8 +966,8 @@ struct TfSmem {
   static constexpr int V = K + NP * PANEL_K;
   static constexpr int DS = V + NP * PANEL_K;
   static constexpr int DS_LO = 2 * PANEL_Q;
-  static constexpr int DQ = DS + 2 * DS_LO;
-  static constexpr int RING = DQ + BQ * ACC_LD * 4;
+  static constexpr int DQ = DS + (WITH_DQ ? 2 * DS_LO : 0);
+  static constexpr int RING = DQ + (WITH_DQ ? BQ * ACC_LD * 4 : 0);
   static constexpr int Q = 0, O = 4 * T;  // in a stage
   static constexpr int PER = STAGE + 2 * BQ * 4 + 3 * 8;
   static constexpr int STAGES =
@@ -1060,10 +1035,10 @@ __device__ __forceinline__ void kt_split(const unsigned char* kp, int dw,
     }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1)
-    bwd_fused_tf32(const __grid_constant__ Maps maps, const BwdArgs a) {
-  using L = TfSmem<DP>;
+template <int DP, bool WITH_DQ>
+__device__ __forceinline__ void kv_walk_tf32(const Maps& maps,
+                                             const BwdArgs& a) {
+  using L = TfSmem<DP, WITH_DQ>;
   constexpr int NP = L::NP, STAGES = L::STAGES, T = L::T;
   constexpr int MC = (DP + 63) / 64;  // 64-row M chunks of dq^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1170,12 +1145,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int ao = kl * ROW + t4 * 4;  // this thread's word of row kl
   const bool leader = tid == 0;
   float* stage = reinterpret_cast<float*>(sm + L::DQ);
-  float* dq_base = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
-  float* dsp = a.ds != nullptr
+  float* dq_base = WITH_DQ ? static_cast<float*>(a.dq) + b * a.dq_sb +
+                                 h * a.dq_sh
+                           : nullptr;
+  // ds for the learned bias's gradient: the fused pass writes it, the
+  // pair's dq kernel does
+  float* dsp = WITH_DQ && a.ds != nullptr
                    ? a.ds + bh * a.Tq * static_cast<long long>(a.Tk)
                    : nullptr;
   // the staging buffer's columns past 64 MC (padding) add zeros
-  for (int i = tid; i < BQ * L::ACC_LD; i += 128) stage[i] = 0.f;
+  if constexpr (WITH_DQ)
+    for (int i = tid; i < BQ * L::ACC_LD; i += 128) stage[i] = 0.f;
 
   float dk[NP][16], dv[NP][16];  // keys ka, kb x panel columns
 #pragma unroll
@@ -1300,23 +1280,26 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
 
-    // p_d^T and (ds0 scale)^T as the A operand; ds (scaled) also as
-    // [query][key] halves, dq^T's B (its last reader, the tile before's
+    // p_d^T and (ds0 scale)^T as the A operand; with dq, ds (scaled) also
+    // as [query][key] halves, dq^T's B (its last reader, the tile before's
     // dq^T, is done: its group was waited for before the staging barrier)
     hop::tf32_acc_split(st, 1.f, h0, l0);
     hop::tf32_acc_split(dpt, a.scale, h1, l1);
+    if constexpr (WITH_DQ) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = 8 * j + 2 * t4 + (e & 1);      // the query
-        const int kr = kl + ((e & 2) ? 8 : 0);        // the key, in the block
-        const int c = (e & 1) ? 2 + (e >> 1) : e >> 1;  // the split's order
-        const int off = (kr >> 5) * PANEL_Q + qr * ROW +
-                        ((((kr & 31) >> 2) ^ (qr & 7)) << 4) + (kr & 3) * 4;
-        *reinterpret_cast<uint32_t*>(sm + L::DS + off) = h1[j][c];
-        *reinterpret_cast<uint32_t*>(sm + L::DS + L::DS_LO + off) = l1[j][c];
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int qr = 8 * j + 2 * t4 + (e & 1);        // the query
+          const int kr = kl + ((e & 2) ? 8 : 0);          // the key
+          const int c = (e & 1) ? 2 + (e >> 1) : e >> 1;  // the split's order
+          const int off = (kr >> 5) * PANEL_Q + qr * ROW +
+                          ((((kr & 31) >> 2) ^ (qr & 7)) << 4) + (kr & 3) * 4;
+          *reinterpret_cast<uint32_t*>(sm + L::DS + off) = h1[j][c];
+          *reinterpret_cast<uint32_t*>(sm + L::DS + L::DS_LO + off) =
+              l1[j][c];
+        }
+    }
 
     // dv += p_d^T dout, dk += ds^T q over the panels: dout^T and q^T (hi at
     // 2 T, lo at 3 T) as the K-major B
@@ -1339,6 +1322,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(empty + s);  // the stage is used
+    if constexpr (!WITH_DQ) continue;
 
     // dq^T = K^T (ds scale)^T: K^T's halves (rows d, keys along k) from raw
     // K in registers, ds from shared memory, once every warp's ds is there
@@ -1403,171 +1387,506 @@ __global__ void __launch_bounds__(THREADS, 1)
         dvp[kr * a.dv_st + col] = dv[p][i];
       }
     }
-  if (leader) hop::bulk_wait<0>();  // every dq add has landed
+  if (WITH_DQ && leader) hop::bulk_wait<0>();  // every dq add has landed
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_fused_tf32(const __grid_constant__ Maps maps, const BwdArgs a) {
+  kv_walk_tf32<DP, true>(maps, a);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkv_tf32(const __grid_constant__ Maps maps, const BwdArgs a) {
+  kv_walk_tf32<DP, false>(maps, a);
+}
+
+// ----------------------------- f32 dk / dv above D = 128: the streamed walk
+// Above DP = 128 the walk above does not fit: a ring stage would hold 8 DP
+// 128 bytes (256 KB at DP = 256, against 227 KB a block), and dk and dv of
+// 64 keys over DP columns would take DP f32 registers a thread (the cap is
+// 255). So, as flash_attention_wide_dkv.cu's wide_dkv_st does for 16 bits,
+// the head dim streams through a ring and dk and dv are split across
+// blocks by role: a key block's dv blocks compute s^T alone, its dk blocks
+// s^T and dp^T, each over all P = ceil(D / 32) panels, and each owns dv
+// or dk over a slice of 3 to 6 panels (st_slices: ceil(P / 6) slices, so
+// 2 ceil(P / 6) blocks a key block). One consumer warpgroup, one producer
+// warp, three splitter warps (256 threads). Each 32-row q tile is a run of
+// ring steps (slots of 64 KB, 3 of them):
+//  - ceil(P / SG) score steps, each SG panels of K and q (for dk also V and
+//    dout): s^T = K q^T (dp^T = V dout^T) in 3xTF32, K (V) raw and split in
+//    the consumer's registers as the A operand, a panel a group, q (dout)
+//    split in place by the splitters (hi, lo S_LO bytes on) as the K-major
+//    B; panels past P read a zeroed panel, so every wgmma group is
+//    straight-line code;
+//  - one value step, the slice's panels of dout (dv) or q (dk) transposed
+//    in place by the splitters into dout^T (q^T) hi, lo V_LO bytes on (a
+//    row a column of the head dim, its 32 queries one 128-byte row at
+//    hop::tf32_key_pos), for dv += p_d^T dout (dk += (ds scale)^T q) with
+//    p_d^T (ds^T) split in registers as the A operand.
+// Every block of a key block computes s^T (dp^T) over all panels in the
+// same order, so all hold the same bits of p and ds; dk and dv are stored
+// once by the threads: no atomics, the same bits from run to run.
+// Bound: operations, s^T, dp^T, dv, dk (8 T^2 D flops a (batch, head), each
+// as three TF32 products); the roles compute (3 ceil(P / 6) + 2) / 4 times
+// that (1.25 at D <= 192, 2 at 193-384).
+constexpr int SG = 2;                        // head-dim panels a score step
+constexpr int SNO = 6;                       // dk or dv panels a block, at most
+constexpr int S_V = SG * PANEL_K;            // a score step: K raw at 0, V raw
+constexpr int S_Q = 2 * SG * PANEL_K;        // ... q hi (lo S_LO bytes on)
+constexpr int S_LO = SG * PANEL_Q;
+constexpr int S_O = S_Q + 2 * S_LO;          // ... dout hi (lo S_LO on)
+constexpr int S_SLOT = S_O + 2 * S_LO;       // 64 KB
+constexpr int V_LO = SNO * PANEL_Q;          // a value step: lo^T from hi^T
+constexpr int BAR_SPLIT = 2;                 // the splitters' named barrier
+static_assert(2 * V_LO <= S_SLOT, "a value step fits a slot");
+
+__host__ __device__ inline int st_slices(int P) { return (P + SNO - 1) / SNO; }
+
+// The streamed walk's shared memory from a 1024-byte aligned base: a zeroed
+// 64-row panel, the ring's SLOTS slots, each tile's lse and delta rows
+// (indexed by tile), the mbarriers: full (copied), ready (split) and empty
+// (used) a slot.
+struct StSmem {
+  int P, NS, SLOTS, AUX, BAR, ALLOC;
+  static constexpr int RING = PANEL_K;  // after the zeroed panel at 0
+  __host__ __device__ explicit StSmem(int D) {
+    P = (D + 31) / 32;
+    NS = (P + SG - 1) / SG;
+    SLOTS = (SMEM_LIMIT - 1024 - RING) / (S_SLOT + 2 * BQ * 4 + 3 * 8);
+    if (SLOTS > 8) SLOTS = 8;
+    AUX = RING + SLOTS * S_SLOT;
+    BAR = AUX + SLOTS * 2 * BQ * 4;
+    ALLOC = BAR + 3 * SLOTS * 8 + 1024;
+  }
+};
+
+__device__ __forceinline__ void st_advance(int& s, uint32_t& ph, int slots) {
+  if (++s == slots) {
+    s = 0;
+    ph ^= 1;
+  }
+}
+
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(empty);
+}
+
+// n panels of a 32-row tile (as TMA wrote them at x) split in place by
+// splitter t: hi at x, lo S_LO bytes on
+__device__ __forceinline__ void split_rows(unsigned char* x, int n, int t) {
+  constexpr int PER = (SG * 256 + SPLIT - 1) / SPLIT;  // float4s a splitter
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * SPLIT;
+    if (i >= n * 256) break;
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    uint4 hi, lo;
+    hop::tf32_split(v.x, hi.x, lo.x);
+    hop::tf32_split(v.y, hi.y, lo.y);
+    hop::tf32_split(v.z, hi.z, lo.z);
+    hop::tf32_split(v.w, hi.w, lo.w);
+    reinterpret_cast<uint4*>(x)[i] = hi;
+    reinterpret_cast<uint4*>(x + S_LO)[i] = lo;
+  }
+}
+
+// n panels of a 32-row tile (as TMA wrote them at x) transposed in place by
+// splitter t (row c: column c, its 32 rows at hop::tf32_key_pos): hi at x,
+// lo V_LO bytes on. Every splitter reads its share before any writes; a
+// warp takes one 16-byte chunk of the 32 rows, so that each transposed
+// store fills one row across 32 banks.
+__device__ __forceinline__ void split_cols(unsigned char* x, int n, int t) {
+  constexpr int PER = (SNO * 256 + SPLIT - 1) / SPLIT;
+  float4 buf[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * SPLIT, p = i >> 8, c = (i >> 5) & 7, r = i & 31;
+    if (i < n * 256)
+      buf[u] = *reinterpret_cast<const float4*>(x + p * PANEL_Q + r * ROW +
+                                                ((c ^ (r & 7)) << 4));
+  }
+  hop::named_sync(BAR_SPLIT, SPLIT);
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = t + u * SPLIT, p = i >> 8, c = (i >> 5) & 7;
+    if (i >= n * 256) break;
+    const int s = hop::tf32_key_pos(i & 31);
+    const float e4[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 4 * c + e;  // of the transposed panel p
+      const int to = p * PANEL_Q + row * ROW + (((s >> 2) ^ (row & 7)) << 4) +
+                     (s & 3) * 4;
+      uint32_t hi, lo;
+      hop::tf32_split(e4[e], hi, lo);
+      *reinterpret_cast<uint32_t*>(x + to) = hi;
+      *reinterpret_cast<uint32_t*>(x + V_LO + to) = lo;
+    }
+  }
+}
+
+// One score panel's group: acc (= or +=) A x B^T in 3xTF32, A's halves
+// split from the raw 64-row panel ap into hi, lo, B's halves at b and
+// b + b_lo (K-major). Committed.
+__device__ __forceinline__ void score_panel(float* acc, uint32_t (*hi)[4],
+                                            uint32_t (*lo)[4],
+                                            const unsigned char* ap, int ao,
+                                            int g, uint32_t b, uint32_t b_lo,
+                                            bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::tf32_rows_split(ap, ao, g, kk, hi[kk], lo[kk]);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_tf32_3x(acc, hi[kk], lo[kk], b + kk * 32, b_lo, add || kk > 0);
+  hop::wgmma_commit();
+}
+
+// The consumer of one block of the streamed walk: dk (DK) or dv of the keys
+// [k0, k0 + 64) over the W panels from c0
+template <bool DK, int W>
+__device__ __forceinline__ void dkv_st_consumer(const BwdArgs& a,
+                                                unsigned char* sm,
+                                                const StSmem& L, int k0,
+                                                int c0, int iq0,
+                                                int n_tiles) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int kl = warp * 16 + g;             // this thread's rows of K, V
+  const int ka = k0 + kl, kb = ka + 8;      // ... its keys
+  const bool odd = (g & 1) != 0;
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const float scale2 = a.scale * LOG2E;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+  float kterm[2];  // the key's term of the exponent, as kv_walk_tf32 reads it
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kk = i ? kb : ka;
+    kterm[i] = kk >= a.Tk ? -INFINITY
+               : (bp != nullptr && !full_bias) ? bp[kk * a.b_sk] * LOG2E
+                                               : 0.f;
+  }
+  uint64_t* ready = reinterpret_cast<uint64_t*>(sm + L.BAR) + L.SLOTS;
+  uint64_t* empty = ready + L.SLOTS;
+  const float* s_aux = reinterpret_cast<const float*>(sm + L.AUX);
+  const uint32_t zero = hop::smem_u32(sm);
+  const uint32_t ring = zero + StSmem::RING;
+  const int ao = kl * ROW + t4 * 4;  // this thread's word of row kl
+  {  // the zeroed panel, before the first product
+    float4* z = reinterpret_cast<float4*>(sm);
+    for (int i = tid; i < PANEL_K / 16; i += 128)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    hop::fence_async_smem();
+    hop::named_sync(1, 128);
+  }
+
+  float acc[W][16];  // dk or dv: keys ka, kb x the slice's panel columns
+#pragma unroll
+  for (int p = 0; p < W; ++p)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[p][i] = 0.f;
+  float st[16], dpt[DK ? 16 : 1];  // s^T, dp^T: keys ka, kb x 8 of 32 queries
+  // two sets of an A operand's TF32 halves (hi, lo), k8 step kk: dk blocks
+  // K's and V's, dv blocks K's of even and odd panels; then p_d^T's or
+  // ds^T's in the first
+  uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+
+  int s = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (iq0 + it) * BQ;
+    // s^T = K q^T (and dp^T = V dout^T), a group a panel: a set of halves
+    // is split again once the group before that read it is done, the step
+    // before's slot released once all its groups are
+    int prev = 0;
+    for (int j = 0; j < L.NS; ++j) {
+      hop::mbar_wait_or_trap(ready + s, ph);
+      const unsigned char* sp = sm + StSmem::RING + s * S_SLOT;
+      const uint32_t slot = ring + s * S_SLOT;
+#pragma unroll
+      for (int gg = 0; gg < SG; ++gg) {
+        const bool real = j * SG + gg < L.P;
+        const bool add = j > 0 || gg > 0;
+        const uint32_t lo = real ? S_LO : 0;  // lo's offset (0: the zeros)
+        hop::wgmma_wait<1>();
+        if (!DK && gg == 1 && j > 0) release(empty + prev);
+        const unsigned char* kp = real ? sp + gg * PANEL_K : sm;
+        const uint32_t qh = real ? slot + S_Q + gg * PANEL_Q : zero;
+        if (DK || gg == 0)
+          score_panel(st, h0, l0, kp, ao, g, qh, lo, add);
+        else
+          score_panel(st, h1, l1, kp, ao, g, qh, lo, add);
+        if constexpr (DK) {
+          hop::wgmma_wait<1>();
+          if (gg == 0 && j > 0) release(empty + prev);
+          const unsigned char* vp = real ? sp + S_V + gg * PANEL_K : sm;
+          const uint32_t oh = real ? slot + S_O + gg * PANEL_Q : zero;
+          score_panel(dpt, h1, l1, vp, ao, g, oh, lo, add);
+        }
+      }
+      prev = s;
+      st_advance(s, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+    hop::fence_regs(st, 16);
+    if constexpr (DK) hop::fence_regs(dpt, 16);
+
+    // p = 2^(s scale log2(e) + bias - lse), element i: key i & 2 ? kb : ka,
+    // query q0 + 8 (i / 4) + 2 t4 + (i & 1)
+    const float* lq = s_aux + (it % L.SLOTS) * 2 * BQ;
+    const float* dl = lq + BQ;
+    if (!full_bias) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * j + 2 * t4);
+        st[4 * j] = fmaf(st[4 * j], scale2, kterm[0]) - l2.x;
+        st[4 * j + 1] = fmaf(st[4 * j + 1], scale2, kterm[0]) - l2.y;
+        st[4 * j + 2] = fmaf(st[4 * j + 2], scale2, kterm[1]) - l2.x;
+        st[4 * j + 3] = fmaf(st[4 * j + 3], scale2, kterm[1]) - l2.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int kk = (i & 2) ? kb : ka;
+        const float bv = r < a.Tq && kk < a.Tk
+                             ? bp[r * a.b_sq + kk * a.b_sk] * LOG2E : 0.f;
+        st[i] = fmaf(st[i], scale2, kterm[(i >> 1) & 1] + bv) -
+                lq[8 * (i >> 2) + 2 * t4 + (i & 1)];
+      }
+    }
+    if (a.causal && q0 < k0 + KEYS - 1) {  // the tile crosses the diagonal
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (((i & 2) ? kb : ka) > r) st[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) st[i] = hop::ex2(st[i]);
+
+    // dv blocks: p_d (dropout) into st; dk blocks: ds0 = p (dp_d - delta)
+    // into dpt
+    if (a.dropout) {
+      const uint32_t th = a.drop_threshold;
+      const float dsc = a.drop_scale;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t w[4];
+        wg::dropout_chunk(w, key, b, h, q0 + 8 * j + 2 * t4, ka, kb, odd);
+        [[maybe_unused]] const float2 d2 =
+            DK ? *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4)
+               : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const bool keep = w[e] >= th;
+          if constexpr (DK) {
+            const float dp = keep ? dpt[i] * dsc : 0.f;
+            dpt[i] = st[i] * (dp - ((e & 1) ? d2.y : d2.x));
+          } else {
+            st[i] = keep ? st[i] * dsc : 0.f;
+          }
+        }
+      }
+    } else if constexpr (DK) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+    }
+
+    // dv += p_d^T dout or dk += (ds0 scale)^T q over the slice's panels:
+    // p_d^T or ds^T split as the A operand, the value step's transposed
+    // panels (hi, lo V_LO bytes on) as the K-major B
+    if constexpr (DK)
+      hop::tf32_acc_split(dpt, a.scale, h0, l0);
+    else
+      hop::tf32_acc_split(st, 1.f, h0, l0);
+    hop::mbar_wait_or_trap(ready + s, ph);
+    hop::wgmma_fence();
+    const uint32_t vt = ring + s * S_SLOT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int p = 0; p < W; ++p)
+        hop::wgmma_tf32_3x(acc[p], h0[j], l0[j], vt + p * PANEL_Q + j * 32,
+                           V_LO);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < W; ++p) hop::fence_regs(acc[p], 16);
+    release(empty + s);
+    st_advance(s, ph, L.SLOTS);
+  }
+
+  // ------------------------------------------------------------- epilogue
+  // dk or dv straight to global memory (once a block), rows past Tk and
+  // columns past D not written
+  float* out = static_cast<float*>(DK ? a.dk : a.dv) +
+               b * (DK ? a.dk_sb : a.dv_sb) + h * (DK ? a.dk_sh : a.dv_sh);
+  const long long ost = DK ? a.dk_st : a.dv_st;
+#pragma unroll
+  for (int p = 0; p < W; ++p)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int kr = (i & 2) ? kb : ka;
+      const int col = 32 * (c0 + p) + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (kr < a.Tk && col < a.D) out[kr * ost + col] = acc[p][i];
+    }
+}
+
+// One block of the streamed walk: dk (DK) or dv of the keys [k0, k0 + 64)
+// over the w panels from c0
+template <bool DK>
+__device__ __forceinline__ void dkv_st_block(const Maps& maps,
+                                             const BwdArgs& a,
+                                             unsigned char* sm,
+                                             const StSmem& L, int k0, int c0,
+                                             int w) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* ready = full + L.SLOTS;   // [SLOTS]: the 3 splitter warps done
+  uint64_t* empty = ready + L.SLOTS;  // [SLOTS]: the 4 consumer warps done
+  float* s_aux = reinterpret_cast<float*>(sm + L.AUX);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  // query tiles above the causal diagonal see none of these keys
+  const int iq0 = a.causal ? k0 / BQ : 0;
+  const int n_tiles = max(0, (a.Tq + BQ - 1) / BQ - iq0);
+
+  if (tid >= 160) {
+    // ----------------------------------------------------------- splitters
+    // a score step's q (and dout) panels split in place, the value step's
+    // dout (or q) panels transposed
+    const int t = tid - 160;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      for (int j = 0; j <= L.NS; ++j) {
+        hop::mbar_wait_or_trap(full + s, ph);
+        unsigned char* slot = sm + StSmem::RING + s * S_SLOT;
+        if (j < L.NS) {
+          const int n = min(SG, L.P - j * SG);
+          split_rows(slot + S_Q, n, t);
+          if (DK) split_rows(slot + S_O, n, t);
+        } else {
+          split_cols(slot, w, t);
+        }
+        hop::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(ready + s);
+        st_advance(s, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+  if (tid >= 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies; every lane stages a tile's lse
+    // (base 2, +inf past Tq: p = 0 there) and delta rows with its first
+    // step and arrives on each step's barrier
+    const float* lsep = a.lse + bh * a.Tq;
+    const float* deltap = a.delta + bh * a.Tq;
+    int s = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = (iq0 + it) * BQ;
+      for (int j = 0; j <= L.NS; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + s, ph ^ 1);
+        if (j == 0) {
+          const int r = q0 + lane;
+          float* aux = s_aux + (it % L.SLOTS) * 2 * BQ;
+          aux[lane] = r < a.Tq ? lsep[r] * LOG2E : INFINITY;
+          aux[BQ + lane] = r < a.Tq ? deltap[r] : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + s);
+        } else {
+          unsigned char* slot = sm + StSmem::RING + s * S_SLOT;
+          if (j < L.NS) {  // a score step: panels [p0, p0 + n)
+            const int p0 = j * SG, n = min(SG, L.P - p0);
+            hop::mbar_expect(full + s, n * (DK ? 2 : 1) * (PANEL_K + PANEL_Q));
+            for (int gg = 0; gg < n; ++gg) {
+              const int c = (p0 + gg) * 32;
+              hop::tma_load_4d(slot + gg * PANEL_K, &maps.k, full + s, c, k0,
+                               h, b);
+              hop::tma_load_4d(slot + S_Q + gg * PANEL_Q, &maps.q, full + s,
+                               c, q0, h, b);
+              if (DK) {
+                hop::tma_load_4d(slot + S_V + gg * PANEL_K, &maps.v, full + s,
+                                 c, k0, h, b);
+                hop::tma_load_4d(slot + S_O + gg * PANEL_Q, &maps.o, full + s,
+                                 c, q0, h, b);
+              }
+            }
+          } else {  // the value step: the slice's q (dk) or dout (dv)
+            hop::mbar_expect(full + s, w * PANEL_Q);
+            for (int p = 0; p < w; ++p)
+              hop::tma_load_4d(slot + p * PANEL_Q, DK ? &maps.q : &maps.o,
+                               full + s, (c0 + p) * 32, q0, h, b);
+          }
+        }
+        st_advance(s, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumer
+  if (w == 6)
+    dkv_st_consumer<DK, 6>(a, sm, L, k0, c0, iq0, n_tiles);
+  else if (w == 5)
+    dkv_st_consumer<DK, 5>(a, sm, L, k0, c0, iq0, n_tiles);
+  else if (w == 4)
+    dkv_st_consumer<DK, 4>(a, sm, L, k0, c0, iq0, n_tiles);
+  else
+    dkv_st_consumer<DK, 3>(a, sm, L, k0, c0, iq0, n_tiles);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_dkv_tf32_st(const __grid_constant__ Maps maps, const BwdArgs a) {
+  const StSmem L(a.D);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);
+  uint64_t* ready = full + L.SLOTS;
+  uint64_t* empty = ready + L.SLOTS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(ready + s, SPLIT / 32);
+      hop::mbar_init(empty + s, 4);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // blocks [0, nsl) of a key block own dv of slice j, [nsl, 2 nsl) dk
+  const int nsl = st_slices(L.P);
+  const int j = blockIdx.x % (2 * nsl), k0 = (blockIdx.x / (2 * nsl)) * KEYS;
+  const int sl = j % nsl;
+  const int c0 = sl * L.P / nsl, w = (sl + 1) * L.P / nsl - c0;
+  if (j < nsl)
+    dkv_st_block<false>(maps, a, sm, L, k0, c0, w);
+  else
+    dkv_st_block<true>(maps, a, sm, L, k0, c0, w);
 }
 
 }  // namespace tf
-
-// ------------------------------------------------------------ dq (f32, FMA)
-// DP / 16 threads per query row, 16 head columns each; K and V tiles in
-// shared memory; one key at a time.
-template <int DP>
-__global__ void __launch_bounds__(BM * DP / 16) bwd_dq_f32(BwdArgs a) {
-  constexpr int TPR = DP / 16, HD = 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [BN][DP]
-  float* sV = sK + BN * DP;
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, part = tid % TPR;
-  const int r = q0 + tid / TPR, d0 = part * HD;
-  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
-
-  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* op = static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
-  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  float qr[HD], orow[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const bool in = r < a.Tq && d0 + d < a.D;
-    qr[d] = in ? qp[r * a.q_st + d0 + d] : 0.f;
-    orow[d] = in ? op[r * a.o_st + d0 + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  const float lse = r < a.Tq ? a.lse[bh * a.Tq + r] : 0.f;
-  const float delta = r < a.Tq ? a.delta[bh * a.Tq + r] : 0.f;
-
-  int k_end = a.Tk;
-  if (a.causal) k_end = min(k_end, q0 + BM);
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();
-    for (int i = tid; i < BN * DP; i += blockDim.x) {
-      const int kr = i / DP, c = i % DP;
-      const bool in = k0 + kr < a.Tk && c < a.D;
-      sK[i] = in ? kp[(k0 + kr) * a.k_st + c] : 0.f;
-      sV[i] = in ? vp[(k0 + kr) * a.v_st + c] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(BN, a.Tk - k0);
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        s += qr[d] * sK[j * DP + d0 + d];
-        dp += orow[d] * sV[j * DP + d0 + d];
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        dp += __shfl_xor_sync(0xffffffffu, dp, off);
-      }
-      const int col = k0 + j;
-      const bool keep =
-          !a.dropout || mxt::dropout_keep(key, b, h, r, col, a.drop_threshold);
-      float pd, ds0;
-      score_grad(a, bp, s, dp, r, col, lse, delta, keep, pd, ds0);
-      if (a.ds && part == 0 && r < a.Tq) ds_row(a, b, h, r)[col] = ds0;
-      const float dsc = ds0 * a.scale;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] += dsc * sK[j * DP + d0 + d];
-    }
-  }
-  if (r < a.Tq) {
-    float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d0 + d < a.D) dqp[r * a.dq_st + d0 + d] = acc[d];
-  }
-}
-
-// --------------------------------------------------- dk, dv (f32, FMA)
-template <int DP>
-__global__ void __launch_bounds__(BN * DP / 16) bwd_dkv_f32(BwdArgs a) {
-  constexpr int TPR = DP / 16, HD = 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BM][DP]
-  float* sO = sQ + BM * DP;                        // [BM][DP]
-  float* sL = sO + BM * DP;                        // [BM]
-  float* sD = sL + BM;                             // [BM]
-
-  const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, part = tid % TPR, kl = tid / TPR;
-  const int kc = k0 + kl, d0 = part * HD;
-  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
-
-  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* op = static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
-  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  float kr[HD], vr[HD], dk[HD], dv[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const bool in = kc < a.Tk && d0 + d < a.D;
-    kr[d] = in ? kp[kc * a.k_st + d0 + d] : 0.f;
-    vr[d] = in ? vp[kc * a.v_st + d0 + d] : 0.f;
-    dk[d] = dv[d] = 0.f;
-  }
-
-  const int iq0 = a.causal ? k0 / BM : 0;
-  for (int q0 = iq0 * BM; q0 < a.Tq; q0 += BM) {
-    __syncthreads();
-    for (int i = tid; i < BM * DP; i += blockDim.x) {
-      const int r = i / DP, c = i % DP;
-      const bool in = q0 + r < a.Tq && c < a.D;
-      sQ[i] = in ? qp[(q0 + r) * a.q_st + c] : 0.f;
-      sO[i] = in ? op[(q0 + r) * a.o_st + c] : 0.f;
-    }
-    for (int i = tid; i < BM; i += blockDim.x) {
-      const bool in = q0 + i < a.Tq;
-      sL[i] = in ? a.lse[bh * a.Tq + q0 + i] : 0.f;
-      sD[i] = in ? a.delta[bh * a.Tq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(BM, a.Tq - q0);
-    for (int j = 0; j < n; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        s += kr[d] * sQ[j * DP + d0 + d];
-        dp += vr[d] * sO[j * DP + d0 + d];
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        dp += __shfl_xor_sync(0xffffffffu, dp, off);
-      }
-      const int qr = q0 + j;
-      const bool keep =
-          !a.dropout || mxt::dropout_keep(key, b, h, qr, kc, a.drop_threshold);
-      float pd, ds0;
-      score_grad(a, bp, s, dp, qr, kc, sL[j], sD[j], keep, pd, ds0);
-      const float dsc = ds0 * a.scale;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dv[d] += pd * sO[j * DP + d0 + d];
-        dk[d] += dsc * sQ[j * DP + d0 + d];
-      }
-    }
-  }
-  if (kc < a.Tk) {
-    float* dkp = static_cast<float*>(a.dk) + b * a.dk_sb + h * a.dk_sh;
-    float* dvp = static_cast<float*>(a.dv) + b * a.dv_sb + h * a.dv_sh;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      if (d0 + d < a.D) {
-        dkp[kc * a.dk_st + d0 + d] = dk[d];
-        dvp[kc * a.dv_st + d0 + d] = dv[d];
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------------------ launch
 enum Kind { FUSED = 0, DQ = 1, DKV = 2 };
@@ -1666,53 +1985,67 @@ cudaError_t dispatch_dq(const BwdArgs& a, cudaStream_t st) {
   return launch_dq<T, 256, 1, 2>(a, maps, st);
 }
 
-// The f32 pair (FMA kernels)
-template <int DP>
-cudaError_t launch_f32(int kind, const BwdArgs& a, cudaStream_t st) {
-  constexpr int threads = BM * DP / 16;
-  if (kind == DQ) {
-    dim3 grid((a.Tq + BM - 1) / BM, a.H, a.B);
-    return launch(bwd_dq_f32<DP>, grid, threads, 2 * BN * DP * sizeof(float),
-                  st, a);
-  }
-  dim3 grid((a.Tk + BN - 1) / BN, a.H, a.B);
-  return launch(bwd_dkv_f32<DP>, grid, threads,
-                (2 * BM * DP + 2 * BM) * sizeof(float), st, a);
+// The f32 kernels' maps: q, dout, k, v read by TMA in f32 boxes of 32
+// columns (the caller passes views TMA can address)
+bool tf_maps(tf::Maps& maps, const BwdArgs& a) {
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
+                       a.q_sh, a.q_sb, tf::BQ, 4) &&
+         mxt::make_map(&maps.o, type, a.dout, a.D, a.Tq, a.H, a.B, a.o_st,
+                       a.o_sh, a.o_sb, tf::BQ, 4) &&
+         mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
+                       a.k_sh, a.k_sb, tf::KEYS, 4) &&
+         mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
+                       a.v_sh, a.v_sb, tf::KEYS, 4);
 }
 
-template <int DP>
+// the key-block walk on 3xTF32: the fused pass (WITH_DQ) or the pair's dk,
+// dv (D <= 128)
+template <int DP, bool WITH_DQ>
 cudaError_t launch_tf32(const BwdArgs& a, const tf::Maps& maps,
                         cudaStream_t st) {
   dim3 grid((a.Tk + tf::KEYS - 1) / tf::KEYS, a.H, a.B);
-  return launch(tf::bwd_fused_tf32<DP>, grid, tf::THREADS,
-                tf::TfSmem<DP>::ALLOC, st, maps, a);
+  if constexpr (WITH_DQ)
+    return launch(tf::bwd_fused_tf32<DP>, grid, tf::THREADS,
+                  tf::TfSmem<DP, true>::ALLOC, st, maps, a);
+  else
+    return launch(tf::bwd_dkv_tf32<DP>, grid, tf::THREADS,
+                  tf::TfSmem<DP, false>::ALLOC, st, maps, a);
+}
+
+template <bool WITH_DQ>
+cudaError_t dispatch_walk_f32(const BwdArgs& a, const tf::Maps& maps,
+                              cudaStream_t st) {
+  if (a.D <= 32) return launch_tf32<32, WITH_DQ>(a, maps, st);
+  if (a.D <= 64) return launch_tf32<64, WITH_DQ>(a, maps, st);
+  if (a.D <= 96) return launch_tf32<96, WITH_DQ>(a, maps, st);
+  return launch_tf32<128, WITH_DQ>(a, maps, st);
 }
 
 // The f32 fused pass (D <= 128, dq added into the f32 accumulator (B, H,
-// Tq rounded up to 64, DP' + 8), contiguous, DP' = 64 or 128): q, dout, k,
-// v read by TMA in f32 boxes of 32 columns (the caller passes views TMA
-// can address); dk, dv written by the threads.
+// Tq rounded up to 64, DP' + 8), contiguous, DP' = 64 or 128); dk, dv
+// written by the threads.
 cudaError_t dispatch_fused_f32(const BwdArgs& a, cudaStream_t st) {
   if (a.D > 128) return cudaErrorInvalidValue;
   const int ld = (a.D <= 64 ? 64 : 128) + 8;
   const long long rows = (a.Tq + wg::WG_ROWS - 1) / wg::WG_ROWS * wg::WG_ROWS;
   if (a.dq_st != ld || a.dq_sh != rows * ld || a.dq_sb != a.H * rows * ld)
     return cudaErrorInvalidValue;
-  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   tf::Maps maps;
-  if (!mxt::make_map(&maps.q, type, a.q, a.D, a.Tq, a.H, a.B, a.q_st,
-                     a.q_sh, a.q_sb, tf::BQ, 4) ||
-      !mxt::make_map(&maps.o, type, a.dout, a.D, a.Tq, a.H, a.B, a.o_st,
-                     a.o_sh, a.o_sb, tf::BQ, 4) ||
-      !mxt::make_map(&maps.k, type, a.k, a.D, a.Tk, a.H, a.B, a.k_st,
-                     a.k_sh, a.k_sb, tf::KEYS, 4) ||
-      !mxt::make_map(&maps.v, type, a.v, a.D, a.Tk, a.H, a.B, a.v_st,
-                     a.v_sh, a.v_sb, tf::KEYS, 4))
-    return cudaErrorInvalidValue;
-  if (a.D <= 32) return launch_tf32<32>(a, maps, st);
-  if (a.D <= 64) return launch_tf32<64>(a, maps, st);
-  if (a.D <= 96) return launch_tf32<96>(a, maps, st);
-  return launch_tf32<128>(a, maps, st);
+  if (!tf_maps(maps, a)) return cudaErrorInvalidValue;
+  return dispatch_walk_f32<true>(a, maps, st);
+}
+
+// The f32 pair's dk, dv at every D: the walk without dq up to 128, the
+// streamed walk above; dk, dv written by the threads.
+cudaError_t dispatch_dkv_f32(const BwdArgs& a, cudaStream_t st) {
+  tf::Maps maps;
+  if (!tf_maps(maps, a)) return cudaErrorInvalidValue;
+  if (a.D <= 128) return dispatch_walk_f32<false>(a, maps, st);
+  const tf::StSmem L(a.D);
+  dim3 grid((a.Tk + tf::KEYS - 1) / tf::KEYS * 2 * tf::st_slices(L.P), a.H,
+            a.B);
+  return launch(tf::bwd_dkv_tf32_st, grid, tf::THREADS, L.ALLOC, st, maps, a);
 }
 
 template <typename T>
@@ -1723,13 +2056,14 @@ cudaError_t dispatch_half(int kind, const BwdArgs& a, cudaStream_t st) {
 }  // namespace
 
 // kind: 0 = fused single pass (dq into an f32 accumulator that the caller
-// zeroes, dk, dv; D <= 128), 1 = dq of the two-pass pair (dq in q's dtype),
-// 2 = dk, dv of the two-pass pair. dtype: 0 = float32, 1 = bfloat16, 2 =
-// float16. strides (in elements): q, k, v, dout, dq, dk, dv as (b, h, t)
-// each, then bias (b, h, q, k); the head dimension has unit stride
-// everywhere. For 16-bit data q, k, v, dout and the 16-bit outputs (dk, dv;
-// dq of kind 1), and for f32 of kind 0 q, k, v and dout, must be views TMA
-// can address (16-byte aligned, strides of dimensions longer than 1
+// zeroes, dk, dv; D <= 128), 1 = dq of the two-pass pair (dq in q's dtype;
+// 16-bit only: the f32 dq is flash_attention_wide_wg.cu's wide_dq_tf32),
+// 2 = dk, dv of the two-pass pair (D <= 256, f32 at every D). dtype: 0 =
+// float32, 1 = bfloat16, 2 = float16. strides (in elements): q, k, v, dout,
+// dq, dk, dv as (b, h, t) each, then bias (b, h, q, k); the head dimension
+// has unit stride everywhere. For 16-bit data q, k, v, dout and the 16-bit
+// outputs (dk, dv; dq of kind 1), and for f32 q, k, v and dout, must be
+// views TMA can address (16-byte aligned, strides of dimensions longer than 1
 // multiples of 16 bytes; the Python wrapper copies other operands), and dq
 // of kind 0 the contiguous (B, H, Tq rounded up to 64, DP + 8)
 // accumulator, DP = 64 for D <= 64, else 128. lse and delta are
@@ -1745,8 +2079,9 @@ extern "C" int mxt_flash_attention_bwd(
     int D, const long long* strides, float scale, int causal,
     const int* seed, int dropout, unsigned int drop_threshold,
     float drop_scale, void* stream) {
-  if (D < 1 || D > 256 || B < 1 || H < 1 || Tq < 1 || Tk < 1 || B > 65535 ||
-      H > 65535 || kind < 0 || kind > 2 || (dropout && !seed))
+  const bool any_d = dtype == 0 && kind == DKV;
+  if (D < 1 || (D > 256 && !any_d) || B < 1 || H < 1 || Tq < 1 || Tk < 1 ||
+      B > 65535 || H > 65535 || kind < 0 || kind > 2 || (dropout && !seed))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.bias = bias; a.lse = lse;
@@ -1765,10 +2100,8 @@ extern "C" int mxt_flash_attention_bwd(
   switch (dtype) {
     case 0:
       if (kind == FUSED) return static_cast<int>(dispatch_fused_f32(a, st));
-      if (D <= 32) return static_cast<int>(launch_f32<32>(kind, a, st));
-      if (D <= 64) return static_cast<int>(launch_f32<64>(kind, a, st));
-      if (D <= 128) return static_cast<int>(launch_f32<128>(kind, a, st));
-      return static_cast<int>(launch_f32<256>(kind, a, st));
+      if (kind == DKV) return static_cast<int>(dispatch_dkv_f32(a, st));
+      return static_cast<int>(cudaErrorInvalidValue);
     case 1:
       return static_cast<int>(dispatch_half<__nv_bfloat16>(kind, a, st));
     case 2:

@@ -2,13 +2,14 @@
 // wgmma and TMA, bound through plain C entries: the forward and the
 // backward's dq kernel at every dtype, on the "wide_wg" route (16-bit, 256
 // < D <= 512), the "wide_stream" route (16-bit, D > 512) and the
-// "wide_f32" route (f32, D > 256) of ops/cuda/attention.py:head_dim_route.
+// "wide_f32" route (f32, D > 256) of ops/cuda/attention.py:head_dim_route,
+// and the f32 dq at every D (the f32 pair of route "tiled" too).
 //
 // Replaces, at every D > 256: mxnet_tpu/ops/pallas/attention.py,
 // _flash_fwd_kernel (launched at :317) and _flash_bwd_dq_kernel (launched
-// at :740), which take any head dim; flash_attention_wide_dkv.cu's kernels
-// take 16-bit dk / dv, and flash_attention_wide.cu's warp-a-row one the
-// f32 dk / dv. It computes:
+// at :740), which take any head dim, and the latter for f32 at D <= 256;
+// flash_attention_wide_dkv.cu's kernels take 16-bit dk / dv, and
+// flash_attention_bwd.cu's 3xTF32 ones the f32 dk / dv. It computes:
 //   out = softmax(q k^T * scale + bias) v and lse = m + log(max(l, 1e-30)),
 //     the denominator over the undropped probabilities, the kept ones
 //     scaled by 1 / (1 - rate);
@@ -87,8 +88,8 @@
 // once a slice, ceil(P / 4) + 1 products of P panels for the forward's 2.
 // The forward keeps q resident while its P panels fit beside four slots.
 //
-// f32 heads take wide_fwd_tf32 and wide_dq_tf32 at every D > 256 (the
-// sections "f32 heads"): the same streamed walk in 32-column f32 panels,
+// f32 heads take wide_fwd_tf32 at every D > 256 and wide_dq_tf32 at every
+// D (the sections "f32 heads"): the same streamed walk in 32-column f32 panels,
 // each product three TF32 wgmmas (3xTF32: f32-accurate products on the
 // tensor cores, whatever torch.backends.cuda.matmul.allow_tf32 says), K
 // and V split into TF32 halves (V, or for dq K, transposed, as wgmma's
@@ -1495,9 +1496,14 @@ constexpr int TF_SPLIT = 96;  // splitter threads: producer warps 1-3
 constexpr int BAR_SPLIT = 2;  // the splitters' named barrier
 
 // The slices of P f32 panels: 4 to 6 panels each for P >= 9 (P / ceil(P /
-// 6) >= 4), the widths wide_fwd_tf32's consumer is built for
+// 6) >= 4), the widths wide_fwd_tf32's consumer is built for; below, one
+// slice of P up to 6 and two of 3 or 4 at P = 7, 8 (the f32 dq at D <= 256)
 __host__ __device__ inline int tf_slices(int P) {
   return (P + TF_NO - 1) / TF_NO;
+}
+// whether every slice of P panels is 4 to 6 wide
+__host__ __device__ inline bool tf_dq_wide(int P) {
+  return P >= 4 && P != 7;
 }
 static_assert(TF_NO == 6, "wide_fwd_tf32 takes slices of 4 to 6 panels");
 
@@ -1913,8 +1919,9 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
 }
 
 // ------------------------------------------ f32 heads: dq on 3xTF32
-// f32 dq at every D > 256 (route "wide_f32"): wide_fwd_tf32's walk with q
-// streamed, two products where the forward has one on each side:
+// f32 dq at every D (route "wide_f32" above 256, the f32 pair's dq of route
+// "tiled" at D <= 256): wide_fwd_tf32's walk with q streamed, two products
+// where the forward has one on each side:
 //  - s = q K^T and dp = dout V^T: q's and dout's raw panels come with K's
 //    and V's, TF_G of each a score step, q and dout split in the
 //    consumer's registers as the A operand, K and V split in place by the
@@ -1924,10 +1931,11 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
 //    shuffle), K's panels of the slice transposed in place into K^T by the
 //    splitters, the keys of each 8-key group at hop::tf32_key_pos (the
 //    forward's V^T).
-// A block owns 64 rows and a slice of up to TF_NO dq panels; the slices
-// recompute s and dp. q and dout beside K and V take a 64 KB slot (three
-// slots); keeping them resident (2 D 256 bytes: 160 KB at D = 320) would
-// leave the ring too few. dq leaves once, times scale, by TMA store: no
+// A block owns 64 rows and a slice of up to TF_NO dq panels (tf_slices: one
+// slice of all P panels up to D = 192, two of 3 or 4 at 193-256, 4 to 6
+// above); the slices recompute s and dp. q and dout beside K and V take a
+// 64 KB slot (three slots); keeping them resident (2 D 256 bytes: 160 KB
+// at D = 320) would leave the ring too few. dq leaves once, times scale, by TMA store: no
 // atomics, every sum in one order, so dq (and ds) are the same bits from
 // run to run. Bound: operations, its three products (6 T^2 D flops a
 // (batch, head), each as three TF32 ones); on an H100 it takes 5-6 times
@@ -2088,6 +2096,10 @@ __device__ __forceinline__ void dq_tf32_consumer(const Maps& maps,
   store_rows_f32<NO>(dq, mul, sm + L.RING, &maps.out, w, a.Tq, ps);
 }
 
+// NO_LO = 4: slices of 4 to 6 panels (tf_dq_wide); 1: of 1 to 4 (P <= 3 or
+// 7), built apart so that the narrow widths add no registers to the wide
+// ones
+template <int NO_LO>
 __global__ void __launch_bounds__(ST_THREADS, 1)
     wide_dq_tf32(const __grid_constant__ Maps maps, const Args a) {
   const TfDqSmem L(a.D);
@@ -2201,12 +2213,23 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
   }
 
   // -------------------------------------------------------------- consumer
-  if (no == 6)
-    dq_tf32_consumer<6>(maps, a, sm, L, q0, ps, n_tiles);
-  else if (no == 5)
-    dq_tf32_consumer<5>(maps, a, sm, L, q0, ps, n_tiles);
-  else
-    dq_tf32_consumer<4>(maps, a, sm, L, q0, ps, n_tiles);
+  if constexpr (NO_LO == 4) {
+    if (no == 6)
+      dq_tf32_consumer<6>(maps, a, sm, L, q0, ps, n_tiles);
+    else if (no == 5)
+      dq_tf32_consumer<5>(maps, a, sm, L, q0, ps, n_tiles);
+    else
+      dq_tf32_consumer<4>(maps, a, sm, L, q0, ps, n_tiles);
+  } else {
+    if (no == 4)
+      dq_tf32_consumer<4>(maps, a, sm, L, q0, ps, n_tiles);
+    else if (no == 3)
+      dq_tf32_consumer<3>(maps, a, sm, L, q0, ps, n_tiles);
+    else if (no == 2)
+      dq_tf32_consumer<2>(maps, a, sm, L, q0, ps, n_tiles);
+    else
+      dq_tf32_consumer<1>(maps, a, sm, L, q0, ps, n_tiles);
+  }
 }
 
 // ------------------------------------------------------------------- host
@@ -2310,7 +2333,10 @@ cudaError_t dispatch_tf32(int kind, const Args& a, cudaStream_t st) {
     if (!mxt::make_map(&maps.dout, type, a.dout, a.D, a.Tq, a.H, a.B,
                        a.do_st, a.do_sh, a.do_sb, WG_ROWS, 4))
       return cudaErrorInvalidValue;
-    return launch(wide_dq_tf32, grid, ST_THREADS, TfDqSmem(a.D).ALLOC, st,
+    if (tf_dq_wide(P))
+      return launch(wide_dq_tf32<4>, grid, ST_THREADS, TfDqSmem(a.D).ALLOC,
+                    st, maps, a);
+    return launch(wide_dq_tf32<1>, grid, ST_THREADS, TfDqSmem(a.D).ALLOC, st,
                   maps, a);
   }
   maps.dout = maps.q;  // unused
@@ -2328,9 +2354,11 @@ cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t st) {
   return dispatch<__half>(kind, a, st);
 }
 
-bool bad(int dtype, int B, int H, int Tq, int Tk, int D, int dropout,
-         const int* seed) {
-  return dtype < 0 || dtype > 2 || D <= 256 || B < 1 || H < 1 ||
+// kind 0: the forward, 1: dq; every D > 256, and the f32 dq at every D
+bool bad(int kind, int dtype, int B, int H, int Tq, int Tk, int D,
+         int dropout, const int* seed) {
+  const int least = dtype == 0 && kind == 1 ? 1 : 257;
+  return dtype < 0 || dtype > 2 || D < least || B < 1 || H < 1 ||
          Tq < 1 || Tk < 1 || B > 65535 || H > 65535 || (dropout && !seed);
 }
 
@@ -2352,7 +2380,7 @@ extern "C" int mxt_flash_wide_wg_fwd(int dtype, const void* q, const void* k,
                                      int causal, const int* seed, int dropout,
                                      unsigned int drop_threshold,
                                      float drop_scale, void* stream) {
-  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || !out || !lse)
+  if (wwg::bad(0, dtype, B, H, Tq, Tk, D, dropout, seed) || !out || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
   wwg::Args a{};
   a.q = q; a.k = k; a.v = v; a.bias = bias; a.o = out; a.lse_out = lse;
@@ -2384,7 +2412,7 @@ extern "C" int mxt_flash_wide_wg_bwd(
     float drop_scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (wwg::bad(dtype, B, H, Tq, Tk, D, dropout, seed) || kind != 1 || !lse ||
+  if (wwg::bad(1, dtype, B, H, Tq, Tk, D, dropout, seed) || kind != 1 || !lse ||
       !delta || !dq)
     return static_cast<int>(cudaErrorInvalidValue);
   wwg::Args a{};

@@ -7,19 +7,19 @@ by :mod:`mxnet_tpu_torch._kernels`:
 
 - ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
-  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``;
+  ``_flash_bwd_dq_kernel`` (16-bit) and ``_flash_bwd_dkv_kernel`` (16-bit
+  up to :data:`MAX_HEAD_DIM`, f32 at every head dim: the key-block walk on
+  3xTF32 wgmma, streaming the head dim above :data:`FUSED_MAX_HEAD_DIM`);
 - ``csrc/flash_attention_wide_wg.cu`` replaces ``_flash_fwd_kernel`` and
   ``_flash_bwd_dq_kernel`` at every head dim above :data:`MAX_HEAD_DIM`
   (``wide_fwd``, ``wide_dq``: 16-bit on wgmma tiles over the head dim's
   64-column panels, streamed through the ring above
   :data:`WIDE_WG_MAX_HEAD_DIM`; f32 on 3xTF32 wgmma over 32-column panels,
-  streamed at every D); ``csrc/flash_attention_wide_dkv.cu`` replaces
-  ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v there (``wide_dkv``, the
-  key-block walk, streaming the head dim above
+  streamed at every D), and the f32 ``_flash_bwd_dq_kernel`` at every head
+  dim; ``csrc/flash_attention_wide_dkv.cu`` replaces
+  ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v above :data:`MAX_HEAD_DIM`
+  (``wide_dkv``, the key-block walk, streaming the head dim above
   :data:`WIDE_WG_MAX_HEAD_DIM`);
-- ``csrc/flash_attention_wide.cu`` replaces ``_flash_bwd_dkv_kernel`` for
-  f32 above :data:`MAX_HEAD_DIM`: a warp a row, lanes over the head dim,
-  any D;
 - ``csrc/philox.cuh`` replaces ``_dropout_keep``: the keep bit of a score is
   a pure function of (seed, batch, head, row, col), never of tile shape, so
   every kernel and :func:`dropout_keep_reference` draw the same mask.
@@ -47,23 +47,23 @@ plain versions do. Which source a kernel of a wide head dim comes from is
 the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
 ``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), 16-bit above 512 the tiled
 three that stream the head dim (``"wide_stream"``), f32 the 3xTF32
-``wide_fwd`` and ``wide_dq`` and the warp-a-row ``wide_dkv``
-(``"wide_f32"``). A build or launch that fails raises; no route gives way
-to another. The warp-a-row kernel and the f32 FMA kernels of head dims up
-to :data:`MAX_HEAD_DIM` (the forward, the pair) read every operand through
-its strides, so they copy nothing.
-Every other kernel (the 16-bit ones, the wide f32 forward and dq, the f32
-fused backward; :func:`_uses_tma`) reads q, k, v and dout and writes out,
-dq, dk and dv by TMA (the f32 fused backward stores dk and dv from its
-threads), which needs a 16-byte aligned base and strides that are
-multiples of 16 bytes; an operand that lacks either (a 16-bit head dim
-that is not a multiple of 8, an f32 one not a multiple of 4) is first
-copied into a padded contiguous buffer (an output is written there and
-copied back), once for both kernels of a backward pair, and
-:data:`padded_copies` counts those copies.
-The 3xTF32 kernels (the wide f32 forward and dq, the f32 fused backward)
-run their f32 products on the tensor cores as three TF32 products of
-split halves: f32-accurate (about 2**-21 relative), whatever
+``wide_fwd``, ``wide_dq`` and dk / dv (``"wide_f32"``). :func:`_source`
+names each kernel's library: the f32 pair at every head dim is the 3xTF32
+dq of ``flash_attention_wide_wg.cu`` and dk / dv of
+``flash_attention_bwd.cu``. A build or launch that fails raises; no route
+gives way to another. The f32 FMA forward of head dims up to
+:data:`MAX_HEAD_DIM` reads every operand through its strides, so it
+copies nothing. Every other kernel (:func:`_uses_tma`) reads q, k, v and
+dout and writes out, dq, dk and dv by TMA (the f32 fused pass and dk / dv
+store dk and dv from their threads), which needs a 16-byte aligned
+base and strides that are multiples of 16 bytes; an operand that lacks
+either (a 16-bit head dim that is not a multiple of 8, an f32 one not a
+multiple of 4) is first copied into a padded contiguous buffer (an output
+is written there and copied back), once for both kernels of a backward
+pair, and :data:`padded_copies` counts those copies.
+The 3xTF32 kernels (the wide f32 forward, every f32 backward kernel) run
+their f32 products on the tensor cores as three TF32 products of split
+halves: f32-accurate (about 2**-21 relative), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says.
 
 Routing of the backward (:func:`backward_route`), a contract of the port:
@@ -281,13 +281,14 @@ def _check_bias(bias, B, H, Tq, Tk):
 def head_dim_route(D: int, dtype) -> str:
     """The kernels a CUDA tensor of head dim ``D`` and ``dtype`` takes:
     ``"tiled"`` (D <= :data:`MAX_HEAD_DIM`: ``flash_attention_fwd.cu``,
-    ``flash_attention_bwd.cu``), ``"wide_wg"`` (bf16 / fp16 up to
-    :data:`WIDE_WG_MAX_HEAD_DIM`) and ``"wide_stream"`` (bf16 / fp16 above
-    it: the head dim streamed), both with ``wide_fwd`` and ``wide_dq`` from
-    ``flash_attention_wide_wg.cu`` and ``wide_dkv`` from
-    ``flash_attention_wide_dkv.cu``, or ``"wide_f32"`` (f32: the 3xTF32
-    ``wide_fwd`` and ``wide_dq`` from ``flash_attention_wide_wg.cu``, the
-    warp-a-row ``wide_dkv`` from ``flash_attention_wide.cu``)."""
+    ``flash_attention_bwd.cu``; the f32 pair as :func:`_source` says),
+    ``"wide_wg"`` (bf16 / fp16 up to :data:`WIDE_WG_MAX_HEAD_DIM`) and
+    ``"wide_stream"`` (bf16 / fp16 above it: the head dim streamed), both
+    with ``wide_fwd`` and ``wide_dq`` from ``flash_attention_wide_wg.cu``
+    and ``wide_dkv`` from ``flash_attention_wide_dkv.cu``, or
+    ``"wide_f32"`` (f32: the 3xTF32 ``wide_fwd`` and ``wide_dq`` from
+    ``flash_attention_wide_wg.cu``, the 3xTF32 dk / dv from
+    ``flash_attention_bwd.cu``)."""
     if D <= MAX_HEAD_DIM:
         return "tiled"
     if dtype not in _HALF:
@@ -295,24 +296,29 @@ def head_dim_route(D: int, dtype) -> str:
     return "wide_wg" if D <= WIDE_WG_MAX_HEAD_DIM else "wide_stream"
 
 
-def _source(name: str, route: str) -> Tuple[str, str]:
-    """(library, C entry) of kernel ``name`` on ``route``."""
+def _source(name: str, dtype) -> Tuple[str, str]:
+    """(library, C entry) of kernel ``name`` for ``dtype`` (a wide kernel's
+    name is its route's, :func:`head_dim_route`): the f32 pair at every
+    head dim is ``wide_dq_tf32`` of ``flash_attention_wide_wg.cu`` and the
+    3xTF32 dk / dv of ``flash_attention_bwd.cu``."""
     fwd = name.endswith("_fwd")
+    if dtype not in _HALF and name.endswith("_dq"):
+        return ("flash_attention_wide_wg", "mxt_flash_wide_wg_bwd")
+    if dtype not in _HALF and name.endswith("_dkv"):
+        return ("flash_attention_bwd", "mxt_flash_attention_bwd")
     if not _wide(name):
         return (("flash_attention_fwd", "mxt_flash_attention_fwd") if fwd
                 else ("flash_attention_bwd", "mxt_flash_attention_bwd"))
-    if route == "wide_f32" and name == "flash_attention_wide_dkv":
-        return ("flash_attention_wide", "mxt_flash_wide_bwd")
     if name == "flash_attention_wide_dkv":
         return ("flash_attention_wide_dkv", "mxt_flash_wide_wg_dkv")
     return ("flash_attention_wide_wg",
             "mxt_flash_wide_wg_fwd" if fwd else "mxt_flash_wide_wg_bwd")
 
 
-def _kernel(name: str, route: str):
-    """The ctypes entry of kernel ``name`` on ``route`` (which decides the
-    source of a wide kernel only), its library built on first use."""
-    lib, entry = _source(name, route)
+def _kernel(name: str, dtype):
+    """The ctypes entry of kernel ``name`` for ``dtype`` (which decide its
+    source, :func:`_source`), its library built on first use."""
+    lib, entry = _source(name, dtype)
     fn = _FNS.get((lib, entry))
     if fn is not None:
         return fn
@@ -339,13 +345,9 @@ def _wide(name: str) -> bool:
 
 def _uses_tma(name: str, route: str, dtype) -> bool:
     """Whether kernel ``name`` on ``route`` reads and writes its operands
-    by TMA: every 16-bit kernel, the wide f32 forward and dq and the f32
-    fused backward, that is every kernel but the warp-a-row f32 dk / dv
-    (:func:`_source`) and the f32 FMA forward and pair of head dims up to
+    by TMA: every kernel but the f32 FMA forward of head dims up to
     :data:`MAX_HEAD_DIM`."""
-    return (dtype in _HALF or route != "tiled"
-            or name == "flash_attention_bwd_fused") and \
-        _source(name, route)[0] != "flash_attention_wide"
+    return dtype in _HALF or route != "tiled" or name != "flash_attention_fwd"
 
 
 def _bht(t):
@@ -488,7 +490,7 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
     variant = fn is not None
-    fn = fn or _kernel(name, route)
+    fn = fn or _kernel(name, q.dtype)
     arr = (ctypes.c_longlong * 16)(*(flat + bstrides))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -531,16 +533,14 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
                 ds, scale: float, causal: bool, fn=None) -> None:
     """One backward kernel on (B, H, T, D) views. ``dq`` is the
     :func:`dq_accumulator` for the fused kernel, q's dtype for the dq
-    kernel; kernels that do not write an output get None for it. The
-    kernels of :func:`_uses_tma` (every 16-bit kernel, the f32 fused pass,
-    the wide f32 dq) read q, k, v, do and write dk, dv and the dq kernel's
-    dq by TMA (the f32 fused pass stores dk, dv from its threads, through
-    the same buffers): operands they cannot address are copied first and
-    outputs written to a padded buffer and copied back
-    (:func:`_tma_operand`, counted; :func:`_backward_kernels` copies a
-    pair's operands once, for both, :func:`_tma_operands`); the f32 FMA
-    pair and the warp-a-row f32 dk / dv read and write the views as they
-    are. ``fn``:
+    kernel; kernels that do not write an output get None for it. Every
+    backward kernel (:func:`_uses_tma`) reads q, k, v, do and writes dk, dv
+    and the dq kernel's dq by TMA (the f32 fused pass and dk / dv store dk,
+    dv from their threads, through the same buffers): operands it cannot
+    address are copied first and outputs written to a padded buffer and
+    copied back (:func:`_tma_operand`, counted; :func:`_backward_kernels`
+    copies a pair's operands once, for both, :func:`_tma_operands`).
+    ``fn``:
     another build of the same C entry (``chip_smoke.py --probe-bwd``); its
     launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
@@ -561,7 +561,7 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
     seed, drop, thresh, drop_scale = _seed_args(seed, rate, q)
     variant = fn is not None
-    fn = fn or _kernel(name, route)
+    fn = fn or _kernel(name, q.dtype)
     arr = (ctypes.c_longlong * 25)(
         *(flat + [s for o in outs for s in o] + bstrides))
     with torch.cuda.device(q.device):

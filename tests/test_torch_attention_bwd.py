@@ -369,7 +369,7 @@ def test_card_forward_route(monkeypatch, D, name, copies):
     import types
     launched = []
 
-    def kernel(kname, route):
+    def kernel(kname, dtype):
         def fn(*args):
             launched.append((kname, args[11]))        # the head dim
             return 0
@@ -399,21 +399,21 @@ def test_card_forward_route(monkeypatch, D, name, copies):
     (65, "flash_attention_bwd_fused", False, 4),
     (100, "flash_attention_bwd_fused", False, 0),
     (64, "flash_attention_bwd_dq", True, 0),
-    (65, "flash_attention_bwd_dq", False, 0),
-    (65, "flash_attention_bwd_dkv", False, 0)])
+    (65, "flash_attention_bwd_dq", False, 4),
+    (65, "flash_attention_bwd_dkv", False, 4)])
 def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
-    """f32 heads up to 128: the fused pass (3xTF32 on wgmma) reads q, k, v
-    and dout by TMA, the FMA pair does not (_uses_tma), so the fused pass
-    copies f32 operands whose rows are not a multiple of 16 bytes (D = 65:
-    q, k, v and dout, each counted) and takes BERT's fused-QKV views (q, k,
-    v as slices of one (B, T, 3, H, D) projection) as they lie, and the
-    pair copies nothing. Pure Python on CPU tensors, the launch replaced
-    by a spy that records the pointers the kernel would read."""
+    """f32 heads up to 128: the fused pass and the pair (3xTF32 on wgmma)
+    read q, k, v and dout by TMA (_uses_tma), so each copies f32 operands
+    whose rows are not a multiple of 16 bytes (D = 65: q, k, v and dout,
+    each counted) and takes BERT's fused-QKV views (q, k, v as slices of
+    one (B, T, 3, H, D) projection) as they lie. Pure Python on CPU
+    tensors, the launch replaced by a spy that records the pointers the
+    kernel would read."""
     import contextlib
     import types
     launched = []
 
-    def kernel(kname, route):
+    def kernel(kname, dtype):
         def fn(*args):
             launched.append((kname, args[2:6]))       # q, k, v, dout
             return 0
@@ -427,8 +427,7 @@ def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     T = 40
-    assert port._uses_tma(name, "tiled", torch.float32) == (
-        name == "flash_attention_bwd_fused")
+    assert port._uses_tma(name, "tiled", torch.float32)
     assert not port._uses_tma("flash_attention_fwd", "tiled", torch.float32)
     if qkv:
         proj = torch.zeros(B, T, 3, H, D)

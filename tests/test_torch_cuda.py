@@ -684,8 +684,8 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 # (csrc/flash_attention_wide_wg.cu) and dk / dv
 # (csrc/flash_attention_wide_dkv.cu), all three streaming the head dim above
 # 512 (D = 300 through copies TMA can address); f32 heads the 3xTF32
-# forward and dq (csrc/flash_attention_wide_wg.cu) and the warp-a-row dk /
-# dv (csrc/flash_attention_wide.cu)
+# forward and dq (csrc/flash_attention_wide_wg.cu) and the 3xTF32 dk / dv
+# (csrc/flash_attention_bwd.cu, tf::bwd_dkv_tf32_st)
 WIDE_DS = [264, 288, 300, 320, 384, 512, 576, 1024]
 
 
@@ -796,18 +796,19 @@ def test_wide_tiled_reruns_equal_to_the_bit(dev, dtype, D, Tq, Tk):
     head dim (each slice of an output recomputes the scores; slice 0 writes
     lse and ds; at 1280 the forward streams q too) and dk / dv are the
     tiled kernel's; in f32 the 3xTF32 forward and dq (their slices
-    recomputing the scores at every D) beside the warp-a-row dk / dv; dk
-    and dv within relative 2e-2 (f32: 1e-4) of the plain backward."""
+    recomputing the scores at every D) beside the 3xTF32 dk / dv (the head
+    dim streamed, dv and dk blocks by slices); dk and dv within relative
+    2e-2 (f32: 1e-4) of the plain backward."""
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
         dev, dtype, D, True, "full", 0.1, Tq=Tq, Tk=Tk)
     route = attn.head_dim_route(D, dtype)
     assert route == ("wide_f32" if dtype == torch.float32
                      else "wide_wg" if D <= 512 else "wide_stream")
-    assert attn._source("flash_attention_wide_dkv", route)[0] == (
-        "flash_attention_wide" if dtype == torch.float32
+    assert attn._source("flash_attention_wide_dkv", dtype)[0] == (
+        "flash_attention_bwd" if dtype == torch.float32
         else "flash_attention_wide_dkv")
-    assert attn._source("flash_attention_wide_fwd", route)[0] == \
-        attn._source("flash_attention_wide_dq", route)[0] == \
+    assert attn._source("flash_attention_wide_fwd", dtype)[0] == \
+        attn._source("flash_attention_wide_dq", dtype)[0] == \
         "flash_attention_wide_wg"
     again = attn._flash_forward(q, k, v, bias, scale, True, seed, 0.1)
     runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
@@ -849,6 +850,110 @@ def test_f32_wide_dq_matches_plain_and_reruns(dev, D, causal, bias_kind,
         assert _rel(runs[0][3], want) <= 1e-4
 
 
+# the f32 pair on 3xTF32 at every head dim: dq wwg::wide_dq_tf32, dk / dv
+# tf::bwd_dkv_tf32 (D <= 128) and tf::bwd_dkv_tf32_st (above)
+F32_PAIR_DS = [32, 40, 64, 100, 128, 160, 200, 256, 264, 320, 576, 1280]
+
+
+def _pair_names(D):
+    return (("flash_attention_wide_dq", "flash_attention_wide_dkv") if D > 256
+            else ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+
+
+@pytest.mark.parametrize("D", F32_PAIR_DS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_pair_matches_plain_and_reruns(dev, D, causal, bias_kind, rate):
+    """The f32 dq / dk / dv pair (block_k 64 < Tk; the wide pair above 256)
+    at Tq != Tk: dq, dk, dv and a learned bias's gradient (the ds the dq
+    kernel writes) within relative 1e-4 of the plain backward on the same
+    dropout mask; one launch of each kernel a call; two runs equal to the
+    bit (no atomics)."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, causal, bias_kind, rate)
+    names = _pair_names(D)
+    bias_grad = bias_kind == "full"
+    before = dict(attn.launches)
+    runs = [attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                                 causal, 64, rate, bias_grad=bias_grad)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: attn.launches[n] - before[n] for n in attn.KERNELS} == {
+        n: 2 * (n in names) for n in attn.KERNELS}
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+    dq, dk, dv, db = runs[0]
+    rq, rk, rv, rds = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, rate, out, lse, do, scale, causal, bias_grad)
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all(), name
+        assert _rel(got, want) <= 1e-4, f"{name}: {_rel(got, want):.3e}"
+    if bias_grad:
+        want = rds.sum(dim=0, keepdim=True)
+        assert _rel(db, want) <= 1e-4, f"dbias: {_rel(db, want):.3e}"
+
+
+@pytest.mark.parametrize("D", [32, 100, 160, 200])
+def test_f32_pair_dropout_masks_are_the_plain_mask(dev, D):
+    """The masks the f32 dk / dv (through dv) and dq (through a learned
+    bias's ds) draw equal dropout_keep_reference's bit for bit, at head
+    dims on the walk (32, 100) and on the streamed walk (160, 200)."""
+    from_dkv, from_dq, want = cs.pair_dropout_masks(torch, attn, dev,
+                                                    torch.float32, D)
+    torch.cuda.synchronize()
+    assert torch.equal(from_dkv, want)
+    assert torch.equal(from_dq, want)
+
+
+@pytest.mark.parametrize("D", [64, 160, 320])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_pair_at_one_key(dev, D, causal):
+    """Tq = Tk = 1 through the f32 pair (block_k 0 forces it at D = 64):
+    one key gives p = 1 and out = v, so dp = delta and ds = 0, dq and dk
+    are 0 and both versions give rounding noise of dp - delta. So dv is
+    held to the plain version and dq, dk to the rounding bound of ds,
+    |ds| <= 2**-17 sum|dout v| / (1 - rate), times scale |k| (|q|),
+    element by element (test_fused_backward_ragged_and_cross_lengths)."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, causal, "keypad", 0.1, Tq=1, Tk=1)
+    before = dict(attn.launches)
+    dq, dk, dv, _ = attn._flash_backward(q, k, v, bias, seed, out, lse, do,
+                                         scale, causal, 0, 0.1,
+                                         bias_grad=False)
+    torch.cuda.synchronize()
+    assert {n: attn.launches[n] - before[n] for n in attn.KERNELS} == {
+        n: int(n in _pair_names(D)) for n in attn.KERNELS}
+    want = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, 0.1, out, lse, do, scale, causal, False)
+    assert _rel(dv, want[2]) <= 1e-4
+    ds = (do.abs() * v.abs()).sum(-1, keepdim=True) / 0.9 * 2.0 ** -17
+    assert (dq.abs() <= ds * scale * k.abs() * 1.001).all()
+    assert (dk.abs() <= ds * scale * q.abs() * 1.001).all()
+
+
+@pytest.mark.parametrize("D,copies", [(65, 4), (100, 0), (130, 4),
+                                      (257, 4), (530, 4), (320, 0)])
+def test_f32_pair_copies_what_tma_cannot_address(dev, D, copies):
+    """Both kernels of the f32 pair read q, k, v and dout by TMA, so rows
+    that are not a multiple of 16 bytes (D not a multiple of 4: 65, 130,
+    257, 530) are copied once for both (counted), the rest read in place;
+    one launch of each, dq, dk, dv within 1e-4 of the plain backward."""
+    q, k, v, do, bias, seed, scale, out, lse = _backward_case(
+        dev, torch.float32, D, False, "keypad", 0.0, Tq=40, Tk=72)
+    before = (dict(attn.launches), attn.padded_copies)
+    got = attn._flash_backward(q, k, v, bias, seed, out, lse, do, scale,
+                               False, 64, 0.0)
+    torch.cuda.synchronize()
+    assert attn.padded_copies - before[1] == copies
+    assert {n: attn.launches[n] - before[0][n] for n in attn.KERNELS} == {
+        n: int(n in _pair_names(D)) for n in attn.KERNELS}
+    want = attn.flash_attention_backward_reference(
+        q, k, v, bias, seed, 0.0, out, lse, do, scale, False, False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g, w) <= 1e-4, f"{name}: {_rel(g, w):.3e}"
+
+
 @pytest.mark.parametrize("dtype,D,route,fwd_copies,bwd_copies", [
     (torch.bfloat16, 300, "wide_wg", 3, 4),
     (torch.float16, 320, "wide_wg", 0, 0),
@@ -887,7 +992,8 @@ def test_wide_launch_and_copy_counts(dev, dtype, D, route, fwd_copies,
 
 _TILED = (r"wwg::wide_fwd_wg<", r"wwg::wide_dq_wg<", r"wdkv::wide_dkv_wg<")
 _STREAMED = (r"wwg::wide_fwd_st<", r"wwg::wide_dq_st<", r"wdkv::wide_dkv_st<")
-_F32 = (r"wwg::wide_fwd_tf32\b", r"wwg::wide_dq_tf32\b", r"wide::wide_dkv<")
+_F32 = (r"wwg::wide_fwd_tf32\b", r"wwg::wide_dq_tf32\b",
+        r"tf::bwd_dkv_tf32_st\b")
 
 
 @pytest.mark.parametrize("dtype,D,patterns", [
@@ -902,9 +1008,8 @@ def test_wide_route_runs_its_kernels(dev, dtype, D, patterns):
     """The profiler's kernel names on each wide route, one kernel of each
     of the forward, dq and dk / dv and no other wide one: at D = 320 the
     tiled wgmma kernels for bf16, above 512 the streamed ones for 16 bits
-    (no warp-a-row kernel runs in 16 bits), and for f32 at every D the
-    3xTF32 forward and dq (no warp-a-row forward or dq) beside the
-    warp-a-row dk / dv."""
+    and for f32 at every D the 3xTF32 forward, dq and dk / dv; no
+    warp-a-row kernel (namespace ``wide::``, gone) at any dtype."""
     import re
     from torch.profiler import ProfilerActivity, profile
     q, k, v, do, bias, seed, scale, out, lse = _backward_case(
@@ -916,15 +1021,13 @@ def test_wide_route_runs_its_kernels(dev, dtype, D, patterns):
         attn._flash_backward(q, k, v, None, seed, out, lse, do, scale, True,
                              1024, 0.0)
         torch.cuda.synchronize()
-    names = [n for n in cs.kernel_counts(prof) if "wide" in n]
+    names = [n for n in cs.kernel_counts(prof)
+             if re.search(r"wide|tf32", n)]
     for pattern in patterns:
         assert sum(bool(re.search(pattern, n)) for n in names) == 1, (
             pattern, names)
     assert all(any(re.search(p, n) for p in patterns) for n in names), names
-    if dtype == torch.float32:
-        assert not any(re.search(r"wide::wide_(fwd|dq)", n) for n in names)
-    else:
-        assert not any(re.search(r"\bwide::", n) for n in names), names
+    assert not any(re.search(r"\bwide::", n) for n in names), names
 
 
 def test_wide_autograd_reads_bthd_views(dev):
@@ -2049,6 +2152,7 @@ def test_exported_program_launches_the_kernel(dev, tmp_path):
     for x in _requests(4):
         before = attn.launches["flash_attention_fwd"]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cs.primer()   # the records a session may lose (PERF.md §7)
             got = model.predict(x)
             torch.cuda.synchronize()
         counts = cs.kernel_counts(prof)

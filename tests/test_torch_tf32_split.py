@@ -1,10 +1,11 @@
 """The 3xTF32 arithmetic of the card's f32 backward kernels, emulated in
 plain torch on the CPU, against the JAX package's Pallas backward.
 
-The f32 fused pass (``csrc/flash_attention_bwd.cu``, ``tf::bwd_fused_tf32``)
-and the f32 wide dq (``csrc/flash_attention_wide_wg.cu``,
-``wwg::wide_dq_tf32``) take every product on the tensor cores as three TF32
-products of split halves: x = hi + lo, hi = x rounded to TF32 (10 mantissa
+The f32 backward kernels (``csrc/flash_attention_bwd.cu``: the fused pass
+``tf::bwd_fused_tf32`` and the pair's dk / dv ``tf::bwd_dkv_tf32`` and
+``tf::bwd_dkv_tf32_st``; ``csrc/flash_attention_wide_wg.cu``: the pair's dq
+``wwg::wide_dq_tf32`` at every head dim) take every product on the tensor
+cores as three TF32 products of split halves: x = hi + lo, hi = x rounded to TF32 (10 mantissa
 bits) to nearest, ties away from zero, lo = x - hi, of which the tensor
 cores read the top 19 bits (lo truncated to TF32); a product is hi hi' +
 hi lo' + lo hi', summed in f32 (``hopper.cuh``: ``tf32_split``). This file
@@ -13,8 +14,10 @@ applied as the kernels apply it to the backward's formulas: s and dp from
 split q, K, dout and V; p and ds in f32; dv, dk and dq from split p, ds,
 dout, q and K. Against ``_flash_backward`` in interpret mode, on the same
 numpy inputs and the JAX forward's out and lse, at (2, 2, 96, 64) (the
-JAX fused kernel, as the card's fused pass) and (1, 2, 64, 320) (the JAX
-pair, as the card's wide dq) in f32 with key padding: dq, dk and dv within
+JAX fused kernel, as the card's fused pass), (1, 2, 64, 192) (the JAX
+pair at a head dim where the card's pair streams the head dim through its
+dk / dv) and (1, 2, 64, 320) (the JAX pair, as the card's wide pair) in
+f32 with key padding: dq, dk and dv within
 1e-4 relative Frobenius error, the card's f32 tolerance (``REL_BWD``), so
 the split costs no more than the order of f32 sums does. The split itself:
 exact (hi + lo = x), hi on TF32's grid, rounded to nearest.
@@ -85,12 +88,13 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("B,H,T,D,block_k", [(2, 2, 96, 64, 128),
+                                             (1, 2, 64, 192, 32),
                                              (1, 2, 64, 320, 32)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_3xtf32_backward_matches_jax_kernel(B, H, T, D, block_k, causal):
     """The 3xTF32 emulation of the backward against the Pallas backward in
-    interpret mode (fused at D = 64, the dq/dkv pair at D = 320), key
-    padding ragged over the batch: dq, dk, dv within 1e-4 relative."""
+    interpret mode (fused at D = 64, the dq/dkv pair at D = 192 and 320),
+    key padding ragged over the batch: dq, dk, dv within 1e-4 relative."""
     rng = onp.random.RandomState(T + D)
     q, k, v, do = (rng.normal(0, 1, (B, H, T, D)).astype("float32")
                    for _ in range(4))

@@ -6,8 +6,8 @@ of (D, dtype): 16-bit heads take the tiled wgmma kernels of
 ``csrc/flash_attention_wide_wg.cu`` for the forward and dq and of
 ``csrc/flash_attention_wide_dkv.cu`` for dk / dv at every D > 256 (all
 three streaming the head dim above 512); f32 heads the 3xTF32 forward and
-dq of ``csrc/flash_attention_wide_wg.cu`` and the warp-a-row dk / dv of
-``csrc/flash_attention_wide.cu``. Those
+dq of ``csrc/flash_attention_wide_wg.cu`` and the 3xTF32 dk / dv of
+``csrc/flash_attention_bwd.cu`` (the f32 pair's at every head dim). Those
 kernels run only on the card (``tests/test_torch_cuda.py``); here the route
 is checked at every edge, the forward's operands and the backward pair's
 that TMA cannot address are copied once (for both kernels of the pair),
@@ -42,8 +42,14 @@ CASES = {"causal_cross": (24, 40, True, None),
 HALF = (torch.bfloat16, torch.float16)
 
 
-# (library, C entry) of each wide kernel on each wide route
+# (library, C entry) of each wide kernel on each wide route; "tiled": the
+# 16-bit pair of head dims up to 256, under the wide kernels' names
 WIDE_SOURCES = {
+    "tiled": {
+        "flash_attention_wide_dq": ("flash_attention_bwd",
+                                    "mxt_flash_attention_bwd"),
+        "flash_attention_wide_dkv": ("flash_attention_bwd",
+                                     "mxt_flash_attention_bwd")},
     "wide_wg": {
         "flash_attention_wide_fwd": ("flash_attention_wide_wg",
                                      "mxt_flash_wide_wg_fwd"),
@@ -63,8 +69,8 @@ WIDE_SOURCES = {
                                      "mxt_flash_wide_wg_fwd"),
         "flash_attention_wide_dq": ("flash_attention_wide_wg",
                                     "mxt_flash_wide_wg_bwd"),
-        "flash_attention_wide_dkv": ("flash_attention_wide",
-                                     "mxt_flash_wide_bwd")}}
+        "flash_attention_wide_dkv": ("flash_attention_bwd",
+                                     "mxt_flash_attention_bwd")}}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
@@ -72,14 +78,15 @@ WIDE_SOURCES = {
 @pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513, 530, 576,
                                1024, 2048])
 def test_head_dim_route(D, dtype):
-    """Every edge of the route: up to 256 the tiled kernels; 16-bit up to
-    512 the tiled wide kernels (wide_fwd and wide_dq from one source,
-    wide_dkv from its own), 16-bit above 512 the same sources' kernels that
-    stream the head dim, f32 the 3xTF32 wide_fwd and wide_dq (the 16-bit
-    kernels' source) and the warp-a-row wide_dkv; the route decides the
-    source of each wide kernel and whether it reads and writes by TMA (and
-    so may copy operands): every tiled kernel does, f32 among them, the
-    warp-a-row one does not."""
+    """Every edge of the route: up to 256 the tiled kernels (the f32 pair
+    the 3xTF32 dq of the wide source and the 3xTF32 dk / dv of the tiled
+    backward's); 16-bit up to 512 the tiled wide kernels (wide_fwd and
+    wide_dq from one source, wide_dkv from its own), 16-bit above 512 the
+    same sources' kernels that stream the head dim, f32 the 3xTF32 wide_fwd
+    and wide_dq (the 16-bit kernels' source) and the 3xTF32 dk / dv of the
+    tiled backward's source; the route and dtype decide the source of each
+    kernel and whether it reads and writes by TMA (and so may copy
+    operands): every wide kernel does, f32 among them."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
         want = "tiled"
@@ -90,13 +97,17 @@ def test_head_dim_route(D, dtype):
     assert route == want
     assert port.head_dim_route(D, dtype) == route        # pure
     if route == "tiled":
-        assert port._source("flash_attention_fwd", route) == (
+        assert port._source("flash_attention_fwd", dtype) == (
             "flash_attention_fwd", "mxt_flash_attention_fwd")
+        pair = WIDE_SOURCES["wide_f32" if dtype not in HALF else "tiled"]
+        assert port._source("flash_attention_bwd_dq", dtype) == (
+            pair["flash_attention_wide_dq"])
+        assert port._source("flash_attention_bwd_dkv", dtype) == (
+            pair["flash_attention_wide_dkv"])
         return
     for name, source in WIDE_SOURCES[route].items():
-        assert port._source(name, route) == source, name
-        assert port._uses_tma(name, route, dtype) == (
-            source[0] != "flash_attention_wide"), name
+        assert port._source(name, dtype) == source, name
+        assert port._uses_tma(name, route, dtype), name
     assert port.backward_route(D, 48, 1024) == "wide"
 
 

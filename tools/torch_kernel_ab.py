@@ -32,13 +32,14 @@ median of 5
 sessions (the forward through ``_flash_forward``, dq and dk / dv through
 ``chip_smoke.kernel_only_call``, so the entry's delta is not in them), the
 kernels' names matched whatever tree they come from.
-The f32 part: the f32 fused backward pass at ``chip_smoke.py``'s
-``F32_TIMED`` shapes (BERT-base's (8, 12, 512, 64) key padding, GPT-2
-training's (8, 12, 1024, 64) causal) and the f32 wide dq at (2, 4, 512,
-320) and (8, 8, 1024, 320) key padding, each kernel alone a launch through
-``chip_smoke.kernel_only_call``, median of 5 sessions, beside SDPA's whole
-f32 backward on the same inputs (TF32 off); the kernels' names matched
-whatever the tree calls them (``F32_PATTERNS``).
+The f32 part: the f32 fused backward pass and the dq / dk / dv pair at
+``chip_smoke.py``'s ``F32_TIMED`` shapes (BERT-base's (8, 12, 512, 64)
+key padding, GPT-2 training's (8, 12, 1024, 64) causal; the pair alone at
+(4, 8, 1024, 256) key padding) and the f32 wide dq and dk / dv at (2, 4,
+512, 320) and (8, 8, 1024, 320) key padding, each kernel alone a launch
+through ``chip_smoke.kernel_only_call``, median of 5 sessions, beside
+SDPA's whole f32 backward on the same inputs (TF32 off); the kernels'
+names matched whatever the tree calls them (``F32_PARTS``).
 To compare two commits, run it on each tree in turns on one card (parent,
 change, change, parent). The result line starts with ``AB``. Imports
 nothing of JAX.
@@ -161,8 +162,10 @@ WIDE_SHAPES = ((2, 4, 512, 288, "keypad", False, "bfloat16"),
                (8, 8, 1024, 320, "keypad", False, "float32"),
                (2, 4, 512, 576, "keypad", False, "float32"))
 # every route's names: the tiled (_wg), the streamed (_st, 16-bit heads
-# above 512), the 3xTF32 (_tf32, f32) and the warp-a-row kernels
-WIDE_PATTERNS = {"fwd": r"wide_fwd", "dq": r"wide_dq", "dkv": r"wide_dkv"}
+# above 512), the 3xTF32 (_tf32 and the f32 dk / dv bwd_dkv_tf32_st) and
+# the warp-a-row kernels
+WIDE_PATTERNS = {"fwd": r"wide_fwd", "dq": r"wide_dq",
+                 "dkv": r"wide_dkv|bwd_dkv_tf32_st"}
 
 
 def wide_times(torch, cs, dev, attn):
@@ -199,38 +202,47 @@ def wide_times(torch, cs, dev, attn):
     return out
 
 
-# (B, H, T, D, bias, causal, part) of the f32 part: chip_smoke.py's
-# F32_TIMED (the fused pass) and the f32 wide dq
-F32_SHAPES = ((8, 12, 512, 64, "keypad", False, "fused"),
-              (8, 12, 1024, 64, None, True, "fused"),
-              (2, 4, 512, 320, "keypad", False, "wide_dq"),
-              (8, 8, 1024, 320, "keypad", False, "wide_dq"))
-# their names in any tree: the 3xTF32 kernels and the FMA fused pass and
-# warp-a-row dq they replaced
-F32_PATTERNS = {"fused": r"bwd_fused_tf32|bwd_dkv_f32<\d+, true>",
-                "wide_dq": r"wide_dq"}
-F32_NAMES = {"fused": "flash_attention_bwd_fused",
-             "wide_dq": "flash_attention_wide_dq"}
+# each f32 kernel's entry name and its names in any tree: the 3xTF32
+# kernels and the FMA and warp-a-row kernels they replaced
+F32_PARTS = {
+    "fused": ("flash_attention_bwd_fused",
+              r"bwd_fused_tf32|bwd_dkv_f32<\d+, true>"),
+    "dq": ("flash_attention_bwd_dq", r"bwd_dq_f32<|wide_dq_tf32"),
+    "dkv": ("flash_attention_bwd_dkv", r"bwd_dkv_(f32<|tf32)"),
+    "wide_dq": ("flash_attention_wide_dq", r"wide_dq"),
+    "wide_dkv": ("flash_attention_wide_dkv",
+                 r"wide::wide_dkv<|bwd_dkv_tf32_st")}
+# (B, H, T, D, bias, causal, parts) of the f32 part: chip_smoke.py's
+# F32_TIMED and the f32 wide pair
+F32_SHAPES = ((8, 12, 512, 64, "keypad", False, ("fused", "dq", "dkv")),
+              (8, 12, 1024, 64, None, True, ("fused", "dq", "dkv")),
+              (4, 8, 1024, 256, "keypad", False, ("dq", "dkv")),
+              (2, 4, 512, 320, "keypad", False, ("wide_dq", "wide_dkv")),
+              (8, 8, 1024, 320, "keypad", False, ("wide_dq", "wide_dkv")))
 
 
 def f32_times(torch, cs, dev, attn):
-    """{shape: ms a launch of the f32 fused pass or wide dq, and SDPA's
-    whole f32 backward} at ``F32_SHAPES``."""
+    """{shape: ms a launch of each f32 backward kernel, and SDPA's whole
+    f32 backward} at ``F32_SHAPES``."""
     out = {}
     gen = torch.Generator().manual_seed(29)
-    for B, Hh, T, d, bias_kind, causal, part in F32_SHAPES:
+    for B, Hh, T, d, bias_kind, causal, parts in F32_SHAPES:
         c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
                                causal, "float32")
-        call, _ = cs.kernel_only_call(torch, attn, c, F32_NAMES[part])
-        pattern = F32_PATTERNS[part]
-        row = {part: median_ms(cs, call, 3, lambda n: re.search(pattern, n))}
+        row = {}
+        for part in parts:
+            name, pattern = F32_PARTS[part]
+            call, _ = cs.kernel_only_call(torch, attn, c, name)
+            row[part] = median_ms(cs, call, 3,
+                                  lambda n, p=pattern: re.search(p, n))
+            del call
         row["sdpa_bwd"] = cs.library_backward_ms(
             torch, c["q"], c["k"], c["v"], c["bias"], c["do"], c["scale"],
             causal, 0.0, False)
         label = (f"({B}, {Hh}, {T}, {d}) f32 "
                  f"{'causal' if causal else bias_kind}")
         out[label] = row
-        del c, call
+        del c
         torch.cuda.empty_cache()
     return out
 

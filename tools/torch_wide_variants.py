@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Designs of three flash kernels of the PyTorch port, each built from a
+"""Designs of four flash kernels of the PyTorch port, each built from a
 copy of its source with text replaced, timed in turns on one GPU.
 
     python3 tools/torch_wide_variants.py fwd [VARIANT ...]
     python3 tools/torch_wide_variants.py dkv [VARIANT ...]
     python3 tools/torch_wide_variants.py fused [VARIANT ...]
+    python3 tools/torch_wide_variants.py f32dkv [VARIANT ...]
 
 ``fwd``: the f32 forward on 3xTF32 (``wwg::wide_fwd_tf32`` in
 ``csrc/flash_attention_wide_wg.cu``) at (2, 4, 512, 320), (8, 8, 1024, 320),
@@ -32,6 +33,14 @@ design: ``no_sdp`` (the s^T and dp^T products out; K's and V's halves
 still split), ``no_dkv`` (the dv and dk products out), ``no_dq`` (dq^T's
 K^T halves, products and staging out; the reduce-add of a zeroed buffer
 kept), ``no_split`` (the splitter warps' work out).
+
+``f32dkv``: the f32 dk / dv that streams the head dim on 3xTF32
+(``tf::bwd_dkv_tf32_st`` in ``csrc/flash_attention_bwd.cu``) at (4, 8,
+1024, 256), (2, 4, 512, 320) and (8, 8, 1024, 320) f32 with key padding,
+cut builds, wrong by design: ``no_sdp`` (the s^T and dp^T products out;
+K's and V's halves still split), ``no_val`` (the dv and dk products of the
+value step out, and with them the split of their A operand),
+``no_split`` (the splitter warps' work out).
 
 Each build goes into ``build/variants/`` with ``_kernels.NVCC_FLAGS`` (its
 ``-Xptxas -v`` lines for the kernel printed), then every variant is timed
@@ -179,6 +188,21 @@ _DQ = [("""#pragma unroll
 _FSPLIT = [("""      split_tile<NP>(st + L::Q, t);
       split_tile<NP>(st + L::O, t);""",
   """      (void)st;""")]
+# the streamed f32 dk / dv's cut builds: text of csrc/flash_attention_bwd.cu
+_ST_SDP = [("""#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_tf32_3x(acc, hi[kk], lo[kk], b + kk * 32, b_lo, add || kk > 0);""",
+  """  (void)b; (void)b_lo; (void)add;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    acc[kk] += __uint_as_float(hi[kk][0] ^ lo[kk][3]);""")]
+_ST_VAL = [("""        hop::wgmma_tf32_3x(acc[p], h0[j], l0[j], vt + p * PANEL_Q + j * 32,
+                           V_LO);""",
+  """        (void)vt;""")]
+_ST_SPLIT = [("""          split_rows(slot + S_Q, n, t);
+          if (DK) split_rows(slot + S_O, n, t);""",
+  """          (void)n;"""),
+ ("""          split_cols(slot, w, t);""", """          (void)slot;""")]
 
 PARTS = {
     "fwd": dict(
@@ -204,7 +228,12 @@ PARTS = {
         shapes=((8, 12, 512, 64, "keypad", False),
                 (8, 12, 1024, 64, None, True)),
         variants={"no_sdp": _SDP, "no_dkv": _DKV, "no_dq": _DQ,
-                  "no_split": _FSPLIT})}
+                  "no_split": _FSPLIT}),
+    "f32dkv": dict(
+        source=BWD, entry="mxt_flash_attention_bwd", kernel="bwd_dkv_tf32_st",
+        shapes=((4, 8, 1024, 256), (2, 4, 512, 320), (8, 8, 1024, 320)),
+        variants={"no_sdp": _ST_SDP, "no_val": _ST_VAL,
+                  "no_split": _ST_SPLIT})}
 
 
 def start_build(kernels, which, part, name, cuts):
@@ -231,7 +260,7 @@ def load(part, so, log, name):
     (those naming the kernel's mangled template, ``<length>name I``)."""
     lines = log.splitlines()
     for i, ln in enumerate(lines):
-        if not re.search(r"\d" + part["kernel"] + "I", ln):
+        if not re.search(r"\d" + part["kernel"] + "[IE]", ln):
             continue
         if re.search(r"C75\d\d", ln):
             print(f"{name}: {ln.strip()[:160]}", flush=True)
@@ -267,6 +296,7 @@ def timed(torch, cs, attn, which, part, fn, c, want):
         err = (out.float() - want).abs().max().item()
         return cs.launch_ms(call, 10, keep), err
     name = ("flash_attention_bwd_fused" if which == "fused"
+            else "flash_attention_bwd_dkv" if c["D"] <= attn.MAX_HEAD_DIM
             else "flash_attention_wide_dkv")
     call, outs = cs.kernel_only_call(torch, attn, c, name, fn=fn)
     call()
