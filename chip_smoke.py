@@ -43,7 +43,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    pair delta, dq, dkv), beside its bound, its plain version and a PyTorch
    library call (yardstick only). The f32 kernels (``F32_TIMED``: BERT-base's
    (8, 12, 512, 64) key padding, GPT-2 training's (8, 12, 1024, 64)
-   causal and (4, 8, 1024, 256) key padding: the FMA forward, the 3xTF32
+   causal and (4, 8, 1024, 256) key padding: the 3xTF32 forward
+   ``wwg::flash_fwd_tf32``, the 3xTF32
    fused pass (D <= 128) and the 3xTF32 pair, dq ``wwg::wide_dq_tf32`` and
    dk / dv ``tf::bwd_dkv_tf32`` / ``tf::bwd_dkv_tf32_st``, whose profiler
    records must name them) are timed beside their bound at the f32 FMA
@@ -175,7 +176,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    different dropout, ``grad_req='add'`` accumulating; then one f32 step
    on the card against the same step on the CPU (plain path), on the
    fused pass and on the 3xTF32 pair (``MXNET_FLASH_BLOCK_K=64`` below T;
-   ``F32_ROUTES``);
+   ``F32_ROUTES``; the profiler's records show the 3xTF32 forward, 12
+   launches a step, and no f32 FMA kernel);
 6. ResNet-50 v1 (classes 1000, full width and depth) with weights made
    from a seed, bf16 with f32 masters (``multi_precision``), B=128,
    224x224 synthetic data as ``bench.py`` makes it, SGD lr 0.1 momentum
@@ -1102,6 +1104,10 @@ def forward_checks(torch, dev, gen, attn):
              bias="keypad", B=2, rate=0.1),
         dict(name="f32 D=256 T=100 causal", T=100, D=256, dt=f32, B=2,
              causal=True),
+        dict(name="f32 D=37 T=100 key-padding (padded copies)", T=100,
+             D=37, dt=f32, B=2, bias="keypad", copies=3),
+        dict(name="f32 D=100 Tq=77 Tk=333 cross causal dropout 0.1", T=77,
+             Tk=333, cross=True, D=100, dt=f32, B=2, causal=True, rate=0.1),
     ]
     for flags in ((False, False, False), (True, False, False),
                   (False, True, False), (True, True, False),
@@ -2717,8 +2723,7 @@ def wide_checks(torch, dev, gen, attn):
         route = attn.head_dim_route(d, dt)
         # a q, k, v whose rows TMA cannot address (not a multiple of 16
         # bytes) are copied
-        want_copies = 3 * (d * dt.itemsize % 16 != 0 and attn._uses_tma(
-            "flash_attention_wide_fwd", route, dt))
+        want_copies = 3 * (d * dt.itemsize % 16 != 0)
         if attn.padded_copies - copies != want_copies:
             fail(f"wide forward D={d} {dtn}: "
                  f"{attn.padded_copies - copies} copies, expected "
@@ -2798,18 +2803,18 @@ def wide_checks(torch, dev, gen, attn):
 
 
 # the f32 flash kernels at head dims up to 256 (f32 is MXNet's default
-# dtype: the FMA forward, the 3xTF32 fused pass and pair), timed at
+# dtype: the 3xTF32 forward, fused pass and pair), timed at
 # BERT-base's attention (key padding), GPT-2 training's (causal) and
 # (4, 8, 1024, 256) with key padding, where the pair is the only route, in
 # f32: (B, H, T, D, bias, causal)
 F32_TIMED = ((8, 12, 512, 64, "keypad", False), (8, 12, 1024, 64, None, True),
              (4, 8, 1024, 256, "keypad", False))
-F32_KERNEL = {"flash_attention_fwd": r"flash_fwd_f32",
+F32_KERNEL = {"flash_attention_fwd": r"flash_fwd_tf32<",
               "flash_attention_bwd_fused": r"bwd_fused_tf32<",
               "flash_attention_bwd_dq": r"wide_dq_tf32\b",
               "flash_attention_bwd_dkv": r"bwd_dkv_tf32(<|_st\b)"}
 # the f32 FMA kernels the 3xTF32 ones replaced: none of them may run
-F32_GONE = r"bwd_(dq|dkv)_f32<|wide::wide_dkv<"
+F32_GONE = r"flash_fwd_f32<|bwd_(dq|dkv)_f32<|wide::wide_dkv<"
 TF32_FLOPS = 495e12   # H100 SXM data sheet, dense
 
 
@@ -4338,11 +4343,11 @@ def train_parity(torch, dev, params, cfg):
                               SoftmaxCrossEntropyLoss(), trainer, xs)
         loss = run() if where == "cpu" else f32_audit(
             torch, "phase 5", run, names)
-        moved = {n: attn.launches[n] - before[n]
-                 for n in ATTN_KERNELS[1:]}
-        want = {n: 12 * (n in names) for n in ATTN_KERNELS[1:]}
+        moved = {n: attn.launches[n] - before[n] for n in ATTN_KERNELS}
+        want = {n: 12 * (n in names) for n in ATTN_KERNELS}
+        want["flash_attention_fwd"] = 12 * (where != "cpu")
         if moved != want:
-            fail(f"parity step on {where}: backward launches {moved}, "
+            fail(f"parity step on {where}: attention launches {moved}, "
                  f"expected {want}")
         return (loss.detach().cpu(),
                 {k: p.grad().detach().cpu() for k, p in
@@ -6105,9 +6110,10 @@ def model_training(torch, dev, tag, build, params, batch, step, opt,
 
 def f32_audit(torch, tag, run, names=("flash_attention_bwd_fused",)):
     """``run()``, an f32 step on the card, under torch.profiler: its
-    records must show the 3xTF32 backward kernels of ``names``
-    (``F32_KERNEL``) and none of the f32 FMA kernels they replaced
-    (``F32_GONE``). Returns what ``run`` returns."""
+    records must show the 3xTF32 forward and the 3xTF32 backward kernels
+    of ``names`` (``F32_KERNEL``) and none of the f32 FMA kernels they
+    replaced (``F32_GONE``). Returns what ``run`` returns."""
+    names = ("flash_attention_fwd",) + tuple(names)
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -6119,7 +6125,7 @@ def f32_audit(torch, tag, run, names=("flash_attention_bwd_fused",)):
              for n in names}
     gone = [k for k in seen if re.search(F32_GONE, k)]
     if not all(found.values()) or gone:
-        fail(f"{tag} f32 step: the profiler's backward kernels "
+        fail(f"{tag} f32 step: the profiler's attention kernels "
              f"{found} {gone}, expected the 3xTF32 kernels of {names} "
              f"alone")
     return result
@@ -6146,11 +6152,11 @@ def f32_step_parity(torch, dev, tag, build, params, batch, step, opt,
             return step(torch, autograd, net,
                         SoftmaxCrossEntropyLoss(axis=-1), trainer, xs)
         loss = run() if where == "cpu" else f32_audit(torch, tag, run)
-        moved = attn.launches["flash_attention_bwd_fused"] - \
-            before["flash_attention_bwd_fused"]
-        if (where != "cpu") != (moved == n_attn):
-            fail(f"{tag} f32 step on {where}: {moved} fused backward "
-                 "launches")
+        for name in ("flash_attention_fwd", "flash_attention_bwd_fused"):
+            moved = attn.launches[name] - before[name]
+            if moved != (n_attn if where != "cpu" else 0):
+                fail(f"{tag} f32 step on {where}: {moved} {name} "
+                     "launches")
         out[str(where)] = (loss.detach().cpu(), {
             k: p.grad().detach().cpu()
             for k, p in net.collect_params().items()})

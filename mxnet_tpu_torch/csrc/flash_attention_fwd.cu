@@ -40,8 +40,8 @@
 // packed to 16 bits) and V as the MN-major B operand. The output goes
 // through shared memory (the warpgroup's Q slice, swizzled) to a TMA
 // store, which drops rows past Tq and columns past D. Head dims are padded
-// to DP in {64, 128, 256} (D <= 256). f32 inputs take a plain FMA kernel
-// with the same online-softmax recurrence.
+// to DP in {64, 128, 256} (D <= 256). f32 inputs take the 3xTF32 forward
+// of flash_attention_wide_wg.cu (flash_fwd_tf32).
 //
 // Probability dropout (training): the running denominator l sums the
 // undropped probabilities, and the kept ones are scaled by 1 / (1 - rate)
@@ -72,8 +72,6 @@
 
 namespace {
 
-using mxt::BM;
-using mxt::BN;
 using mxt::Half;
 using mxt::NEG_BIG;
 
@@ -459,78 +457,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// f32 inputs: two threads per query row, each owning half of the head
-// dimension (DP / 2 values of q and of the output sum in registers); K
-// and V tiles staged in shared memory; one key at a time
-// through the same online-softmax recurrence.
-template <int DP>
-__global__ void __launch_bounds__(2 * BM) flash_fwd_f32(Args a) {
-  constexpr int HD = DP / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [BN][DP]
-  float* sV = sK + BN * DP;                        // [BN][DP]
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, half = tid & 1;
-  const int r = q0 + (tid >> 1);
-  const int d0 = half * HD;
-  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
-
-  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* bp = a.bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
-
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = (r < a.Tq && d0 + d < a.D) ? qp[r * a.q_st + d0 + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = NEG_BIG, l = 0.f;
-
-  int k_end = a.Tk;
-  if (a.causal) k_end = min(k_end, q0 + BM);
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();
-    for (int i = tid; i < BN * DP; i += blockDim.x) {
-      const int kr = i / DP, c = i % DP;
-      const bool in = k0 + kr < a.Tk && c < a.D;
-      sK[i] = in ? kp[(k0 + kr) * a.k_st + c] : 0.f;
-      sV[i] = in ? vp[(k0 + kr) * a.v_st + c] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(BN, a.Tk - k0);
-    for (int j = 0; j < n; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) part += qr[d] * sK[j * DP + d0 + d];
-      float x = (part + __shfl_xor_sync(0xffffffffu, part, 1)) * a.scale;
-      const int col = k0 + j;
-      if (bp && r < a.Tq) x += bp[r * a.b_sq + col * a.b_sk];
-      if (a.causal && col > r) x = NEG_BIG;
-      const float m_new = fmaxf(m, x);
-      const float alpha = expf(m - m_new);
-      float p = expf(x - m_new);
-      l = l * alpha + p;
-      m = m_new;
-      if (a.dropout)
-        p = mxt::dropout_keep(key, b, h, r, col, a.drop_threshold)
-                ? p * a.drop_scale : 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = acc[d] * alpha + p * sV[j * DP + d0 + d];
-    }
-  }
-  if (r < a.Tq) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d0 + d < a.D) op[r * a.o_st + d0 + d] = acc[d] / denom;
-    if (half == 0) a.lse[((long long)b * a.H + h) * a.Tq + r] = m + logf(denom);
-  }
-}
-
 // ------------------------------------------------------------------ host
 template <typename T, int DP, int STAGES, int KEYS>
 cudaError_t launch_wgmma(const Args& a, const Maps& maps,
@@ -563,22 +489,12 @@ cudaError_t dispatch_half(const Args& a, cudaStream_t stream) {
   return launch_wgmma<T, 256, 2, 64>(a, maps, stream);
 }
 
-template <int DP>
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * BN * DP;
-  auto kern = flash_fwd_f32<DP>;
-  cudaError_t e = mxt::set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.Tq + BM - 1) / BM, a.H, a.B);
-  kern<<<grid, 2 * BM, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides (in elements):
+// dtype: 1 = bfloat16, 2 = float16 (float32 takes mxt_flash_wide_wg_fwd,
+// the 3xTF32 forward of flash_attention_wide_wg.cu). strides (in elements):
 // q (b, h, t), k (b, h, t), v (b, h, t), out (b, h, t), bias (b, h, q, k);
-// the head dimension has unit stride everywhere, and for 16-bit data every
+// the head dimension has unit stride everywhere, and every
 // pointer is 16-byte aligned and every stride of a dimension longer than 1
 // a multiple of 8 (what TMA can describe; the Python wrapper copies other
 // operands). lse is (B, H, Tq) contiguous f32. bias is f32 or null. seed is
@@ -611,11 +527,6 @@ extern "C" int mxt_flash_attention_fwd(int dtype, const void* q, const void* k,
   a.drop_threshold = drop_threshold; a.drop_scale = drop_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      if (D <= 32) return static_cast<int>(launch_f32<32>(a, st));
-      if (D <= 64) return static_cast<int>(launch_f32<64>(a, st));
-      if (D <= 128) return static_cast<int>(launch_f32<128>(a, st));
-      return static_cast<int>(launch_f32<256>(a, st));
     case 1:
       return static_cast<int>(dispatch_half<__nv_bfloat16>(a, st));
     case 2:

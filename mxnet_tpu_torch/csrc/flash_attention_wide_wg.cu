@@ -3,11 +3,12 @@
 // backward's dq kernel at every dtype, on the "wide_wg" route (16-bit, 256
 // < D <= 512), the "wide_stream" route (16-bit, D > 512) and the
 // "wide_f32" route (f32, D > 256) of ops/cuda/attention.py:head_dim_route,
-// and the f32 dq at every D (the f32 pair of route "tiled" too).
+// and the f32 forward and dq at every D (the f32 forward and pair of route
+// "tiled" too).
 //
 // Replaces, at every D > 256: mxnet_tpu/ops/pallas/attention.py,
 // _flash_fwd_kernel (launched at :317) and _flash_bwd_dq_kernel (launched
-// at :740), which take any head dim, and the latter for f32 at D <= 256;
+// at :740), which take any head dim, and both for f32 at D <= 256;
 // flash_attention_wide_dkv.cu's kernels take 16-bit dk / dv, and
 // flash_attention_bwd.cu's 3xTF32 ones the f32 dk / dv. It computes:
 //   out = softmax(q k^T * scale + bias) v and lse = m + log(max(l, 1e-30)),
@@ -88,8 +89,9 @@
 // once a slice, ceil(P / 4) + 1 products of P panels for the forward's 2.
 // The forward keeps q resident while its P panels fit beside four slots.
 //
-// f32 heads take wide_fwd_tf32 at every D > 256 and wide_dq_tf32 at every
-// D (the sections "f32 heads"): the same streamed walk in 32-column f32 panels,
+// f32 heads take wide_fwd_tf32 at every D > 256, flash_fwd_tf32 at D <= 256
+// and wide_dq_tf32 at every D (the sections "f32 heads"): the same streamed
+// walk in 32-column f32 panels,
 // each product three TF32 wgmmas (3xTF32: f32-accurate products on the
 // tensor cores, whatever torch.backends.cuda.matmul.allow_tf32 says), K
 // and V split into TF32 halves (V, or for dq K, transposed, as wgmma's
@@ -1603,14 +1605,15 @@ __device__ __forceinline__ void tf_split_values(unsigned char* slot, int n,
 // The output panels [0, NO) of the consumer's 64 rows (acc, NFRAG f32 a
 // 32-column panel, times mul[0] for row ra and mul[1] for rb) into f32
 // panels of 64 rows at `region` (swizzled), then stored by TMA by one
-// thread as the output's panels [shift, shift + NO)
+// thread as the output's panels [shift, shift + NO); `bar`: the consumer
+// warpgroup's named barrier
 template <int NO>
 __device__ __forceinline__ void store_rows_f32(const float (*acc)[NFRAG],
                                                const float* mul,
                                                unsigned char* region,
                                                const CUtensorMap* map,
                                                const Rows& w, int Tq,
-                                               int shift) {
+                                               int shift, int bar = 1) {
   const int row = w.warp * 16 + w.g;
 #pragma unroll
   for (int p = 0; p < NO; ++p) {
@@ -1627,7 +1630,7 @@ __device__ __forceinline__ void store_rows_f32(const float (*acc)[NFRAG],
     }
   }
   hop::fence_async_smem();
-  hop::named_sync(1, 128);
+  hop::named_sync(bar, 128);
   if ((threadIdx.x & 127) == 0 && w.r0 < Tq) {
 #pragma unroll
     for (int p = 0; p < NO; ++p)
@@ -1916,6 +1919,369 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
     fwd_tf32_consumer<5, QRES>(maps, a, sm, L, q0, ps, n_tiles);
   else
     fwd_tf32_consumer<4, QRES>(maps, a, sm, L, q0, ps, n_tiles);
+}
+
+// ---------------------------- f32 heads up to 256: the forward on 3xTF32
+// f32 q, k, v at D <= 256 (route "tiled"): wide_fwd_tf32's walk with q
+// split once a block. Its P = ceil(D / 32) raw panels come by TMA once;
+// each consumer warpgroup splits its rows in place into TF32 hi (over the
+// raw copy) and lo (beside it), so S = q K^T takes both operands from
+// shared memory (three m64n32k8 wgmmas a k8 step and panel, no register
+// fragments of q and no split of q a key tile), and out leaves through the
+// warpgroup's hi panels once its last product has read them. K and V come
+// TF_G panels a ring step, split (V transposed into V^T) in place by the
+// three splitter warps, as in wide_fwd_tf32; O += P V takes P's halves
+// from registers.
+// Up to D = 128 (fwd_tf32_warpgroups) a block owns 128 rows: two consumer
+// warpgroups of 64 rows read every split K / V^T slot, so the splitters
+// split a key tile once for 128 rows, and one warpgroup's softmax runs
+// while the other's products do (a warpgroup's walk of S, softmax, P V is
+// serial). Their 384 threads get 168 registers a thread from ptxas; at D =
+// 128 a consumer holds O (64 f32), S (16) and P's halves (32). Above 128
+// a block owns 64 rows with one consumer warpgroup and one slice of the
+// output panels, or at 193-256, where O takes 112-128 registers, two
+// slices recomputing S when one would leave SMs idle (fwd_tf32_slices).
+// Every sum runs in one order: out and lse are the same bits from run to
+// run. What bounds it: its products, 4 T^2 D flops a (batch, head), each
+// as three TF32 ones; on an H100 it takes 3.1-3.5 times that bound, S's
+// products the largest part a cut build removes (PERF.md section 6).
+
+// Consumer warpgroups a block of the f32 forward at P panels (D <= 256)
+__host__ __device__ constexpr int fwd_tf32_warpgroups(int P) {
+  return P <= 4 ? 2 : 1;
+}
+// Slices of its P output panels, a block a slice, each recomputing S: one
+// while the row blocks (of all heads and batches) fill the card's SMs; at
+// P = 7, 8 two below that (the slices then double the blocks). On an H100
+// one slice took 0.60 against two's 0.92 ms at (4, 8, 1024, 256), 512 row
+// blocks, and 0.073 against 0.060 at (2, 4, 512, 224), 64 (PERF.md
+// section 6).
+inline int fwd_tf32_slices(int P, long long row_blocks) {
+  if (P < 7) return 1;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return row_blocks < sms ? 2 : 1;
+}
+
+// The forward's shared memory from a 1024-byte aligned base: a zeroed
+// 64-row panel (the operands of score panels past P), q's hi panels (the
+// raw copy, split in place; a warpgroup's P panels of 64 rows each, then
+// the next warpgroup's), its lo panels, the ring's SLOTS slots (K or V^T hi
+// at 0, lo at TF_LO), a staged bias row a slot, indexed by tile, then the
+// mbarriers: full, ready and empty a slot, and q's.
+struct TfnSmem {
+  int P, NS, QHI, QLO, RING, SLOTS, BIAS, BAR, ALLOC;
+  __host__ __device__ TfnSmem(int D, int nc) {
+    P = (D + 31) / 32;
+    NS = (P + TF_G - 1) / TF_G;
+    QHI = Q_PANEL_BYTES;
+    QLO = QHI + nc * P * Q_PANEL_BYTES;
+    RING = QLO + nc * P * Q_PANEL_BYTES;
+    SLOTS = (SMEM_LIMIT - 1024 - 8 - RING) / (2 * TF_LO + KEYS * 4 + 3 * 8);
+    if (SLOTS > ST_MAX_SLOTS) SLOTS = ST_MAX_SLOTS;
+    BIAS = RING + SLOTS * 2 * TF_LO;
+    BAR = BIAS + SLOTS * KEYS * 4;
+    ALLOC = BAR + (3 * SLOTS + 1) * 8 + 1024;
+  }
+};
+
+// The consumer warpgroup wg of the forward (rows r0 .. r0 + 63): q split,
+// S over all P panels, the online softmax, O over the slice's NO panels
+// from ps.
+template <int NO>
+__device__ __forceinline__ void fwd_tf32_consumer_n(const Maps& maps,
+                                                    const Args& a,
+                                                    unsigned char* sm,
+                                                    const TfnSmem& L, int wg,
+                                                    int r0, int ps,
+                                                    int n_tiles) {
+  constexpr int NV = (NO + TF_G - 1) / TF_G;  // value steps a tile
+  const Rows w = rows_of(r0);
+  const uint2 key = a.dropout ? mxt::dropout_key(a.seed) : make_uint2(0, 0);
+  const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+  const bool full_bias = a.bias != nullptr && a.b_sq != 0;
+  const float* bp = a.bias ? a.bias + w.b * a.b_sb + w.h * a.b_sh : nullptr;
+  const float scale2 = a.scale * LOG2E;
+  // the warpgroup's named barrier (the splitters' is BAR_SPLIT)
+  const int bar = wg == 0 ? 1 : 3;
+  const uint32_t zero = hop::smem_u32(sm);
+  const uint32_t ring = zero + L.RING;
+  uint64_t* ready = reinterpret_cast<uint64_t*>(sm + L.BAR) + L.SLOTS;
+  uint64_t* empty = ready + L.SLOTS;
+  uint64_t* full_q = empty + L.SLOTS;
+  const float* s_bias = reinterpret_cast<const float*>(sm + L.BIAS);
+  unsigned char* qhi = sm + L.QHI + wg * L.P * Q_PANEL_BYTES;
+  unsigned char* qlo = sm + L.QLO + wg * L.P * Q_PANEL_BYTES;
+  const uint32_t qh = hop::smem_u32(qhi), ql = hop::smem_u32(qlo);
+
+  // q's TF32 halves, once: hi over the raw copy, lo beside it (the same
+  // swizzled places)
+  hop::mbar_wait_or_trap(full_q, 0);
+  for (int i = threadIdx.x & 127; i < L.P * Q_PANEL_BYTES / 16; i += 128) {
+    const float4 x = reinterpret_cast<const float4*>(qhi)[i];
+    uint4 hv, lv;
+    hop::tf32_split(x.x, hv.x, lv.x);
+    hop::tf32_split(x.y, hv.y, lv.y);
+    hop::tf32_split(x.z, hv.z, lv.z);
+    hop::tf32_split(x.w, hv.w, lv.w);
+    reinterpret_cast<uint4*>(qhi)[i] = hv;
+    reinterpret_cast<uint4*>(qlo)[i] = lv;
+  }
+  hop::fence_async_smem();
+  hop::named_sync(bar, 128);
+
+  float o[NO][NFRAG];
+#pragma unroll
+  for (int p = 0; p < NO; ++p)
+#pragma unroll
+    for (int i = 0; i < NFRAG; ++i) o[p][i] = 0.f;
+  float sc[NFRAG];
+  float m[2] = {NEG2, NEG2};  // running row max, base-2 units
+  float l[2] = {0.f, 0.f};    // per-thread partial row sums
+  // P's TF32 halves, the A operand of P V: k8 step j's fragment
+  uint32_t phi[KEYS / 8][4], plo[KEYS / 8][4];
+
+  int st = 0;
+  uint32_t ph = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // S = q K^T in 3xTF32, TF_G panels a step, a step's wgmma group in
+    // flight while the next step's slot is awaited; a panel past P reads
+    // the zeroed one on both sides
+    int prev = 0;  // the slot of the step before, in use until its group
+                   // is done
+    for (int j = 0; j < L.NS; ++j) {
+      hop::mbar_wait_or_trap(ready + st, ph);
+      const uint32_t slot = ring + st * 2 * TF_LO;
+      hop::wgmma_fence();
+#pragma unroll
+      for (int g = 0; g < TF_G; ++g) {
+        const int p = j * TF_G + g;
+        const uint32_t ah = p < L.P ? qh + p * Q_PANEL_BYTES : zero;
+        const uint32_t al = p < L.P ? ql + p * Q_PANEL_BYTES : zero;
+        const uint32_t kh = p < L.P ? slot + g * TILE_PANEL : zero;
+        const uint32_t kl = p < L.P ? kh + TF_LO : zero;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dah = hop::desc_kmajor_sw128(ah + kk * 32);
+          const uint64_t dkh = hop::desc_kmajor_sw128(kh + kk * 32);
+          hop::wgmma_tf32_ss32(sc, dah, dkh, j > 0 || g > 0 || kk > 0);
+          hop::wgmma_tf32_ss32(sc, dah,
+                               hop::desc_kmajor_sw128(kl + kk * 32));
+          hop::wgmma_tf32_ss32(sc, hop::desc_kmajor_sw128(al + kk * 32),
+                               dkh);
+        }
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the step before is done
+      if (j > 0) release(empty + prev);
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+    hop::fence_regs(sc, NFRAG);
+    const float2 alpha = softmax_tile(
+        sc, m, l, a, w, it * KEYS,
+        row_bias ? s_bias + (it % L.SLOTS) * KEYS : nullptr, bp, full_bias,
+        key, scale2);
+#pragma unroll
+    for (int p = 0; p < NO; ++p)
+#pragma unroll
+      for (int i = 0; i < NFRAG; ++i) o[p][i] *= (i & 2) ? alpha.y : alpha.x;
+    // P's fragment of keys 8 j .. 8 j + 7: (row ra, key 2 t4), (rb, 2 t4),
+    // (ra, 2 t4 + 1), (rb, 2 t4 + 1), V^T's keys stored to match
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      hop::tf32_split(sc[4 * j], phi[j][0], plo[j][0]);
+      hop::tf32_split(sc[4 * j + 2], phi[j][1], plo[j][1]);
+      hop::tf32_split(sc[4 * j + 1], phi[j][2], plo[j][2]);
+      hop::tf32_split(sc[4 * j + 3], phi[j][3], plo[j][3]);
+    }
+    // O += P V in 3xTF32, TF_G of the slice's V^T panels a step
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      constexpr int LAST = NO - (NV - 1) * TF_G;  // the last step's panels
+      hop::mbar_wait_or_trap(ready + st, ph);
+      hop::wgmma_fence();
+      const uint32_t vt = ring + st * 2 * TF_LO;
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+        for (int g = 0; g < (v < NV - 1 ? TF_G : LAST); ++g)
+          hop::wgmma_tf32_3x(o[v * TF_G + g], phi[j], plo[j],
+                             vt + g * TILE_PANEL + j * 32, TF_LO);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();  // the value step before is done
+      if (v > 0) release(empty + prev);
+      prev = st;
+      st_advance(st, ph, L.SLOTS);
+    }
+    hop::wgmma_wait<0>();
+    release(empty + prev);
+#pragma unroll
+    for (int p = 0; p < NO; ++p) hop::fence_regs(o[p], NFRAG);
+  }
+
+  // ------------------------------------------------------------- epilogue
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float denom = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / denom;
+    const int r = i ? w.rb : w.ra;
+    if (ps == 0 && w.t4 == 0 && r < a.Tq)
+      a.lse_out[((long long)w.b * a.H + w.h) * a.Tq + r] =
+          m[i] * LN2 + logf(denom);
+  }
+  // the warpgroup's q hi panels (NO <= P of them) take the output once
+  // its last product has read them
+  hop::named_sync(bar, 128);
+  store_rows_f32<NO>(o, inv, qhi, &maps.out, w, a.Tq, ps, bar);
+}
+
+// NC consumer warpgroups of 64 rows (fwd_tf32_warpgroups); the slices of
+// the output panels (fwd_tf32_slices) NO_LO = 7: one slice of 7 or 8
+// panels, 4: of 4 to 6 (tf_dq_wide), 1: of 1 to 4 (P <= 3, or two slices
+// at P = 7), built apart so that the narrow widths add no registers to the
+// wide ones
+template <int NC, int NO_LO>
+__global__ void __launch_bounds__(NC * 128 + 128, 1)
+    flash_fwd_tf32(const __grid_constant__ Maps maps, const Args a) {
+  const TfnSmem L(a.D, NC);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.BAR);  // [SLOTS]
+  uint64_t* ready = full + L.SLOTS;   // [SLOTS]: the 3 splitter warps done
+  uint64_t* empty = ready + L.SLOTS;  // [SLOTS]: the 4 NC consumer warps
+  uint64_t* full_q = empty + L.SLOTS;  // q's raw panels
+  float* s_bias = reinterpret_cast<float*>(sm + L.BIAS);
+
+  constexpr int ROWS = NC * WG_ROWS;
+  const int nsl = gridDim.x / ((a.Tq + ROWS - 1) / ROWS);  // slices
+  const int sl = blockIdx.x % nsl;
+  const int q0 = (blockIdx.x / nsl) * ROWS;
+  const int ps = sl * L.P / nsl, no = (sl + 1) * L.P / nsl - ps;
+  const int nv = (no + TF_G - 1) / TF_G;  // value steps a tile
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  int k_end = a.Tk;
+  if (a.causal) k_end = min(k_end, q0 + ROWS);  // later keys add nothing
+  const int n_tiles = (k_end + KEYS - 1) / KEYS;
+
+  // the zeroed panel, read by the products of score panels past P
+  for (int i = tid; i < Q_PANEL_BYTES / 16; i += NC * 128 + 128)
+    reinterpret_cast<float4*>(sm)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  hop::fence_async_smem();
+  if (tid == 0) {
+    hop::mbar_init(full_q, 1);
+    for (int s = 0; s < L.SLOTS; ++s) {
+      hop::mbar_init(full + s, 32);
+      hop::mbar_init(ready + s, TF_SPLIT / 32);
+      hop::mbar_init(empty + s, 4 * NC);
+    }
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= NC * 128 + 32) {
+    // ----------------------------------------------------------- splitters
+    const int t = tid - NC * 128 - 32;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      for (int j = 0; j < L.NS + nv; ++j) {
+        hop::mbar_wait_or_trap(full + st, ph);
+        unsigned char* slot = sm + L.RING + st * 2 * TF_LO;
+        const int n = j < L.NS ? min(TF_G, L.P - j * TF_G)
+                               : min(TF_G, no - (j - L.NS) * TF_G);
+        if (j < L.NS) tf_split_keys(slot, n, t);
+        else tf_split_values(slot, n, t);
+        hop::fence_async_smem();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(ready + st);
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+  if (tid >= NC * 128) {
+    // ------------------------------------------------------------ producer
+    // one warp: lane 0 issues the copies (q's panels of each warpgroup
+    // with a row below Tq first); every lane stages a tile's bias row with
+    // its first step and arrives on each step's barrier
+    const bool row_bias = a.bias != nullptr && a.b_sq == 0;
+    const float* bp = row_bias ? a.bias + b * a.b_sb + h * a.b_sh : nullptr;
+    if (lane == 0) {
+      const int nq = min(NC, (a.Tq - q0 + WG_ROWS - 1) / WG_ROWS);
+      hop::mbar_expect(full_q, nq * L.P * Q_PANEL_BYTES);
+      for (int r = 0; r < nq; ++r)
+        for (int p = 0; p < L.P; ++p)
+          hop::tma_load_4d(sm + L.QHI + (r * L.P + p) * Q_PANEL_BYTES,
+                           &maps.q, full_q, p * 32, q0 + r * WG_ROWS, h, b);
+    }
+    int st = 0, step = 0;
+    uint32_t ph = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * KEYS;
+      for (int j = 0; j < L.NS + nv; ++j, ++step) {
+        if (step >= L.SLOTS) hop::mbar_wait_or_trap(empty + st, ph ^ 1);
+        if (j == 0 && row_bias) {
+          const int col = k0 + lane;
+          s_bias[(it % L.SLOTS) * KEYS + lane] =
+              col < a.Tk ? bp[col * a.b_sk] * LOG2E : 0.f;
+        }
+        if (lane != 0) {
+          hop::mbar_arrive(full + st);
+        } else {
+          unsigned char* slot = sm + L.RING + st * 2 * TF_LO;
+          if (j < L.NS) {  // a score step: K panels [p0, p0 + n)
+            const int p0 = j * TF_G, n = min(TF_G, L.P - p0);
+            hop::mbar_expect(full + st, n * TILE_PANEL);
+            for (int g = 0; g < n; ++g)
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.k, full + st,
+                               (p0 + g) * 32, k0, h, b);
+          } else {  // a value step: V panels [p0, p0 + n) of the slice
+            const int p0 = (j - L.NS) * TF_G, n = min(TF_G, no - p0);
+            hop::mbar_expect(full + st, n * TILE_PANEL);
+            for (int g = 0; g < n; ++g)
+              hop::tma_load_4d(slot + g * TILE_PANEL, &maps.v, full + st,
+                               (ps + p0 + g) * 32, k0, h, b);
+          }
+        }
+        st_advance(st, ph, L.SLOTS);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  const int wg = tid >> 7, r0 = q0 + wg * WG_ROWS;
+  if constexpr (NO_LO == 7) {
+    if (no == 8)
+      fwd_tf32_consumer_n<8>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else
+      fwd_tf32_consumer_n<7>(maps, a, sm, L, wg, r0, ps, n_tiles);
+  } else if constexpr (NO_LO == 4) {
+    if (no == 6)
+      fwd_tf32_consumer_n<6>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else if (no == 5)
+      fwd_tf32_consumer_n<5>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else
+      fwd_tf32_consumer_n<4>(maps, a, sm, L, wg, r0, ps, n_tiles);
+  } else {
+    if (no == 4)
+      fwd_tf32_consumer_n<4>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else if (no == 3)
+      fwd_tf32_consumer_n<3>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else if (no == 2)
+      fwd_tf32_consumer_n<2>(maps, a, sm, L, wg, r0, ps, n_tiles);
+    else
+      fwd_tf32_consumer_n<1>(maps, a, sm, L, wg, r0, ps, n_tiles);
+  }
 }
 
 // ------------------------------------------ f32 heads: dq on 3xTF32
@@ -2340,6 +2706,20 @@ cudaError_t dispatch_tf32(int kind, const Args& a, cudaStream_t st) {
                   maps, a);
   }
   maps.dout = maps.q;  // unused
+  if (a.D <= 256) {  // flash_fwd_tf32: 64 rows a warpgroup, NC of them
+    const int nc = fwd_tf32_warpgroups(P);
+    const int rows = (a.Tq + nc * WG_ROWS - 1) / (nc * WG_ROWS);
+    const int nsl = fwd_tf32_slices(P, 1LL * rows * a.H * a.B);
+    const dim3 g(rows * nsl, a.H, a.B);
+    const size_t smem = TfnSmem(a.D, nc).ALLOC;
+    if (nc == 2)
+      return launch(flash_fwd_tf32<2, 1>, g, 3 * 128, smem, st, maps, a);
+    if (nsl == 1 && P >= 7)
+      return launch(flash_fwd_tf32<1, 7>, g, 2 * 128, smem, st, maps, a);
+    if (tf_dq_wide(P))
+      return launch(flash_fwd_tf32<1, 4>, g, 2 * 128, smem, st, maps, a);
+    return launch(flash_fwd_tf32<1, 1>, g, 2 * 128, smem, st, maps, a);
+  }
   if (tf_q_resident(P))
     return launch(wide_fwd_tf32<true>, grid, ST_THREADS,
                   TfSmem(a.D, true).ALLOC, st, maps, a);
@@ -2354,10 +2734,10 @@ cudaError_t dispatch(int kind, int dtype, const Args& a, cudaStream_t st) {
   return dispatch<__half>(kind, a, st);
 }
 
-// kind 0: the forward, 1: dq; every D > 256, and the f32 dq at every D
+// kind 0: the forward, 1: dq; every D > 256, and f32 at every D
 bool bad(int kind, int dtype, int B, int H, int Tq, int Tk, int D,
          int dropout, const int* seed) {
-  const int least = dtype == 0 && kind == 1 ? 1 : 257;
+  const int least = dtype == 0 ? 1 : 257;
   return dtype < 0 || dtype > 2 || D < least || B < 1 || H < 1 ||
          Tq < 1 || Tk < 1 || B > 65535 || H > 65535 || (dropout && !seed);
 }
@@ -2366,8 +2746,9 @@ bool bad(int kind, int dtype, int B, int H, int Tq, int Tk, int D,
 }  // namespace
 
 // The forward, with mxt_flash_attention_fwd's arguments (strides of q, k,
-// v, out as (batch, head, time) triples, then the bias's four), at D > 256
-// for dtype 0 (f32: wide_fwd_tf32), 1 (bfloat16) or 2 (float16). q, k, v
+// v, out as (batch, head, time) triples, then the bias's four), for dtype
+// 0 (f32: flash_fwd_tf32 at every D <= 256, wide_fwd_tf32 above) and, at
+// D > 256, 1 (bfloat16) or 2 (float16). q, k, v
 // and out must be views TMA can address (16-byte aligned, strides of
 // dimensions longer than 1 multiples of 16 bytes; the Python wrapper
 // copies other operands). Returns cudaGetLastError(), or

@@ -372,6 +372,19 @@ __device__ __forceinline__ void wgmma_tf32_rs32(float* d, const uint32_t* a,
       : HOP_D8(0), HOP_D8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+// d (16 f32) = (scale_d 0) or += A (64 x 8 TF32, K-major in shared memory,
+// descriptor da) * B (8 x 32, K-major in shared memory, descriptor db)
+__device__ __forceinline__ void wgmma_tf32_ss32(float* d, uint64_t da,
+                                                uint64_t db,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : HOP_D8(0), HOP_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 // acc (16 f32) = (scale_d 0) or += A (halves ah, al) x B (TF32 halves,
 // K-major in shared memory: hi at b, lo `lo` bytes on) as three TF32
 // products, ah bh + ah bl + al bh (3xTF32)

@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/ops/pallas/attention.py`` (``flash_attention``,
 ``_dropout_keep``). The kernels are CUDA C++ for ``sm_90a``, built and loaded
 by :mod:`mxnet_tpu_torch._kernels`:
 
-- ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel``;
+- ``csrc/flash_attention_fwd.cu`` replaces ``_flash_fwd_kernel`` for
+  16-bit q, k, v up to :data:`MAX_HEAD_DIM`;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_fused_kernel``,
   ``_flash_bwd_dq_kernel`` (16-bit) and ``_flash_bwd_dkv_kernel`` (16-bit
   up to :data:`MAX_HEAD_DIM`, f32 at every head dim: the key-block walk on
@@ -15,8 +16,10 @@ by :mod:`mxnet_tpu_torch._kernels`:
   (``wide_fwd``, ``wide_dq``: 16-bit on wgmma tiles over the head dim's
   64-column panels, streamed through the ring above
   :data:`WIDE_WG_MAX_HEAD_DIM`; f32 on 3xTF32 wgmma over 32-column panels,
-  streamed at every D), and the f32 ``_flash_bwd_dq_kernel`` at every head
-  dim; ``csrc/flash_attention_wide_dkv.cu`` replaces
+  streamed at every D), and the f32 ``_flash_fwd_kernel`` and
+  ``_flash_bwd_dq_kernel`` at every head dim (the forward up to
+  :data:`MAX_HEAD_DIM` is ``flash_fwd_tf32``, 3xTF32 with q split once a
+  block); ``csrc/flash_attention_wide_dkv.cu`` replaces
   ``_flash_bwd_dkv_kernel`` for 16-bit q, k, v above :data:`MAX_HEAD_DIM`
   (``wide_dkv``, the key-block walk, streaming the head dim above
   :data:`WIDE_WG_MAX_HEAD_DIM`);
@@ -48,20 +51,18 @@ the port: 16-bit at 256 < D <= 512 takes the tiled ``wide_fwd``,
 ``wide_dq`` and ``wide_dkv`` (``"wide_wg"``), 16-bit above 512 the tiled
 three that stream the head dim (``"wide_stream"``), f32 the 3xTF32
 ``wide_fwd``, ``wide_dq`` and dk / dv (``"wide_f32"``). :func:`_source`
-names each kernel's library: the f32 pair at every head dim is the 3xTF32
-dq of ``flash_attention_wide_wg.cu`` and dk / dv of
-``flash_attention_bwd.cu``. A build or launch that fails raises; no route
-gives way to another. The f32 FMA forward of head dims up to
-:data:`MAX_HEAD_DIM` reads every operand through its strides, so it
-copies nothing. Every other kernel (:func:`_uses_tma`) reads q, k, v and
-dout and writes out, dq, dk and dv by TMA (the f32 fused pass and dk / dv
-store dk and dv from their threads), which needs a 16-byte aligned
+names each kernel's library: the f32 forward and dq at every head dim are
+the 3xTF32 kernels of ``flash_attention_wide_wg.cu``, the f32 dk / dv
+those of ``flash_attention_bwd.cu``. A build or launch that fails raises;
+no route gives way to another. Every kernel reads q, k, v and dout and
+writes out, dq, dk and dv by TMA (the f32 fused pass and dk / dv store dk
+and dv from their threads), which needs a 16-byte aligned
 base and strides that are multiples of 16 bytes; an operand that lacks
 either (a 16-bit head dim that is not a multiple of 8, an f32 one not a
 multiple of 4) is first copied into a padded contiguous buffer (an output
 is written there and copied back), once for both kernels of a backward
 pair, and :data:`padded_copies` counts those copies.
-The 3xTF32 kernels (the wide f32 forward, every f32 backward kernel) run
+The 3xTF32 kernels (every f32 kernel, forward and backward) run
 their f32 products on the tensor cores as three TF32 products of split
 halves: f32-accurate (about 2**-21 relative), whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says.
@@ -298,10 +299,14 @@ def head_dim_route(D: int, dtype) -> str:
 
 def _source(name: str, dtype) -> Tuple[str, str]:
     """(library, C entry) of kernel ``name`` for ``dtype`` (a wide kernel's
-    name is its route's, :func:`head_dim_route`): the f32 pair at every
-    head dim is ``wide_dq_tf32`` of ``flash_attention_wide_wg.cu`` and the
-    3xTF32 dk / dv of ``flash_attention_bwd.cu``."""
+    name is its route's, :func:`head_dim_route`): the f32 forward at every
+    head dim is ``flash_attention_wide_wg.cu``'s (``flash_fwd_tf32`` up to
+    :data:`MAX_HEAD_DIM`, ``wide_fwd_tf32`` above), the f32 pair
+    ``wide_dq_tf32`` of the same file and the 3xTF32 dk / dv of
+    ``flash_attention_bwd.cu``."""
     fwd = name.endswith("_fwd")
+    if dtype not in _HALF and fwd:
+        return ("flash_attention_wide_wg", "mxt_flash_wide_wg_fwd")
     if dtype not in _HALF and name.endswith("_dq"):
         return ("flash_attention_wide_wg", "mxt_flash_wide_wg_bwd")
     if dtype not in _HALF and name.endswith("_dkv"):
@@ -341,13 +346,6 @@ def _kernel(name: str, dtype):
 
 def _wide(name: str) -> bool:
     return name.startswith("flash_attention_wide")
-
-
-def _uses_tma(name: str, route: str, dtype) -> bool:
-    """Whether kernel ``name`` on ``route`` reads and writes its operands
-    by TMA: every kernel but the f32 FMA forward of head dims up to
-    :data:`MAX_HEAD_DIM`."""
-    return dtype in _HALF or route != "tiled" or name != "flash_attention_fwd"
 
 
 def _bht(t):
@@ -444,14 +442,11 @@ def _bthd_empty(B, H, T, D, dtype, device):
                        device=device)[..., :D].transpose(1, 2)
 
 
-def _tma_operands(names, route, ts):
-    """The operands ``ts`` of the kernels ``names`` on ``route`` (the
-    forward's q, k, v, or the backward pair's q, k, v, dout): when one of
-    them reads by TMA, each operand that TMA cannot address copied once for
-    all (:func:`_tma_operand`, counted), so that the pair's second kernel
-    finds it ready; else as they are."""
-    if not any(_uses_tma(n, route, ts[0].dtype) for n in names):
-        return tuple(ts)
+def _tma_operands(ts):
+    """The operands ``ts`` (the forward's q, k, v, or the backward pair's
+    q, k, v, dout), each that TMA cannot address copied once for all
+    (:func:`_tma_operand`, counted), so that the pair's second kernel finds
+    it ready."""
     return tuple(_tma_operand(t) for t in ts)
 
 
@@ -469,8 +464,8 @@ def _ptr(t):
 def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
                 causal: bool, fn=None) -> None:
     """The forward kernel on (B, H, T, D) views; ``out`` is written in
-    place, ``lse`` is (B, H, Tq, 1) contiguous f32. Operands of a kernel
-    that reads by TMA (:func:`_uses_tma`) that TMA cannot address are
+    place, ``lse`` is (B, H, Tq, 1) contiguous f32. Every forward kernel
+    reads q, k, v and writes out by TMA: operands TMA cannot address are
     copied first (:func:`_tma_operand`); an output it cannot address is
     written to a padded buffer and copied back. Above
     :data:`MAX_HEAD_DIM` the wide kernel of :func:`head_dim_route` runs.
@@ -481,10 +476,9 @@ def _launch_fwd(q, k, v, bias, seed, rate, out, lse, scale: float,
     name = ("flash_attention_fwd" if route == "tiled"
             else "flash_attention_wide_fwd")
     dest = out
-    if _uses_tma(name, route, q.dtype):
-        q, k, v = _tma_operands((name,), route, (q, k, v))
-        if not _tma_ready(out):
-            out = _padded_output(out)
+    q, k, v = _tma_operands((q, k, v))
+    if not _tma_ready(out):
+        out = _padded_output(out)
     ts = (q, k, v, out)
     flat = [s for t in ts for s in _bht(t)]
     bias, bstrides = _bias_args(bias, q, B, H, Tq, Tk)
@@ -534,7 +528,7 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     """One backward kernel on (B, H, T, D) views. ``dq`` is the
     :func:`dq_accumulator` for the fused kernel, q's dtype for the dq
     kernel; kernels that do not write an output get None for it. Every
-    backward kernel (:func:`_uses_tma`) reads q, k, v, do and writes dk, dv
+    backward kernel reads q, k, v, do and writes dk, dv
     and the dq kernel's dq by TMA (the f32 fused pass and dk / dv store dk,
     dv from their threads, through the same buffers): operands it cannot
     address are copied first and outputs written to a padded buffer and
@@ -544,17 +538,14 @@ def _launch_bwd(name, q, k, v, do, bias, seed, rate, lse, delta, dq, dk, dv,
     another build of the same C entry (``chip_smoke.py --probe-bwd``); its
     launches are not counted."""
     B, H, Tq, Tk, D = _check_operands(q, k, v, (do,))
-    route = head_dim_route(D, q.dtype)
     fused = name == "flash_attention_bwd_fused"
     # the outputs in q's dtype (the fused kernel's dq is its accumulator)
     dests = [None if fused else dq, dk, dv]
-    written = dests
-    if _uses_tma(name, route, q.dtype):
-        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
-        written = [t if t is None or _tma_ready(t) else _padded_output(t)
-                   for t in dests]
-        dq = dq if fused else written[0]
-        dk, dv = written[1:]
+    q, k, v, do = _tma_operands((q, k, v, do))
+    written = [t if t is None or _tma_ready(t) else _padded_output(t)
+               for t in dests]
+    dq = dq if fused else written[0]
+    dk, dv = written[1:]
     ts = (q, k, v, do)
     flat = [s for t in ts for s in _bht(t)]
     outs = [_bht(t) if t is not None else [0, 0, 0] for t in (dq, dk, dv)]
@@ -697,8 +688,7 @@ def _backward_kernels(q, k, v, bias, seed, o, lse, g, scale: float,
         pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
             if route == "wide" else ("flash_attention_bwd_dq",
                                      "flash_attention_bwd_dkv")
-        common = _tma_operands(pair, head_dim_route(D, q.dtype),
-                               common[:4]) + common[4:]
+        common = _tma_operands(common[:4]) + common[4:]
         dq = _bthd_empty(B, H, Tq, D, q.dtype, dev)
         _launch_bwd(pair[0], *common, dq, None, None, ds, scale, causal)
         _launch_bwd(pair[1], *common, None, dk, dv, None, scale, causal)

@@ -403,7 +403,7 @@ def test_card_forward_route(monkeypatch, D, name, copies):
     (65, "flash_attention_bwd_dkv", False, 4)])
 def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
     """f32 heads up to 128: the fused pass and the pair (3xTF32 on wgmma)
-    read q, k, v and dout by TMA (_uses_tma), so each copies f32 operands
+    read q, k, v and dout by TMA, so each copies f32 operands
     whose rows are not a multiple of 16 bytes (D = 65: q, k, v and dout,
     each counted) and takes BERT's fused-QKV views (q, k, v as slices of
     one (B, T, 3, H, D) projection) as they lie. Pure Python on CPU
@@ -427,8 +427,6 @@ def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     T = 40
-    assert port._uses_tma(name, "tiled", torch.float32)
-    assert not port._uses_tma("flash_attention_fwd", "tiled", torch.float32)
     if qkv:
         proj = torch.zeros(B, T, 3, H, D)
         q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
@@ -449,6 +447,56 @@ def test_card_f32_backward_operands(monkeypatch, D, name, qkv, copies):
     assert port.padded_copies - before == copies
     if copies == 0:
         assert launched[0][1] == tuple(t.data_ptr() for t in (q, k, v, do))
+
+
+@pytest.mark.parametrize("D,qkv,copies", [
+    (64, True, 0), (32, True, 0), (128, True, 0), (256, True, 0),
+    (65, False, 3), (1, False, 3), (200, False, 0)])
+def test_card_f32_forward_operands(monkeypatch, D, qkv, copies):
+    """The f32 forward at every head dim up to 256 is the 3xTF32 kernel of
+    the wide source (_source: flash_attention_wide_wg's
+    mxt_flash_wide_wg_fwd), which reads q, k, v and writes out by TMA: it
+    takes BERT's fused-QKV views (q, k, v as slices of one (B, T, 3, H, D)
+    projection) as they lie and copies f32 operands whose rows are not a
+    multiple of 16 bytes (D = 1, 65: q, k and v, each counted). Pure
+    Python on CPU tensors, the launch replaced by a spy that records the
+    source and the pointers the kernel would read."""
+    import contextlib
+    import types
+    launched = []
+
+    def kernel(kname, dtype):
+        def fn(*args):
+            launched.append((port._source(kname, dtype), args[0], args[1:4],
+                             args[11]))
+            return 0
+        return fn
+
+    monkeypatch.setattr(port, "_kernel", kernel)
+    monkeypatch.setattr(port, "_check_operands", lambda q, k, v, extra=(): (
+        *q.shape[:3], k.shape[2], q.shape[3]))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    T = 40
+    if qkv:
+        proj = torch.zeros(B, T, 3, H, D)
+        q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.zeros(B, H, T, D) for _ in range(3))
+    out, lse = port._fwd_outputs(q)
+    before = port.padded_copies
+    port._launch_fwd(q, k, v, None, None, 0.0, out, lse, 0.125, False)
+    assert len(launched) == 1
+    source, dtype_code, ptrs, d = launched[0]
+    assert source == ("flash_attention_wide_wg", "mxt_flash_wide_wg_fwd")
+    assert (dtype_code, d) == (0, D)
+    assert port.padded_copies - before == copies
+    if copies == 0:
+        assert ptrs == tuple(t.data_ptr() for t in (q, k, v))
+    else:
+        assert all(p != t.data_ptr() for p, t in zip(ptrs, (q, k, v)))
 
 
 def test_dropout_draws_only_from_the_framework_generator():

@@ -20,7 +20,12 @@ runs of the pair equal to the bit. The f32 fused pass (3xTF32 on wgmma,
 causal, every bias kind, a learned bias, dropout (its mask read back bit
 for bit through dv), Tq != Tk and T = 333, within 1e-4 of the plain
 version and 1e-5 of the f32 pair, two runs' dq within 1e-6 and dk, dv
-equal to the bit, BERT's fused-QKV views read without a copy. Dropout
+equal to the bit, BERT's fused-QKV views read without a copy. The f32
+forward (3xTF32 on wgmma, ``wwg::flash_fwd_tf32``) at head dims 1 to 256
+(1, 4, 32, 40, 64, 100, 128, 160, 200, 224, 256): causal, every bias
+shape, Tq != Tk, one row or one key, dropout, within 1e-4 (lse 1e-3 /
+1e-4) of the plain version, two runs equal to the bit, BERT's fused-QKV
+views read without a copy, rows of 37 f32 copied. Dropout
 masks are compared bit for bit through the outputs they make. Head dims
 above 256 (264 to 1280) run the wide
 kernels, forward and backward, under the same tolerances, at Tq != Tk,
@@ -617,16 +622,19 @@ def test_kernel_reads_strided_bthd_views(dev):
     _close(out.transpose(1, 2), ref, 2e-2, 2e-2, "out")
 
 
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dtype", HALF + (torch.float32,))
 @pytest.mark.parametrize("layout", ["odd_rows", "unaligned_base"])
 def test_forward_copies_what_tma_cannot_address(dev, dtype, layout):
-    """Rows of 36 16-bit values (72 bytes) or a base one element past a
-    16-byte boundary: the wrapper copies each such operand into a padded
-    buffer (counted), the kernel still runs, and the result equals the
-    plain version's; the output is written back into the caller's view."""
+    """Rows of 36 16-bit values (72 bytes) or 37 f32 ones (148 bytes), or a
+    base one element past a 16-byte boundary: the wrapper copies each such
+    operand into a padded buffer (counted), the kernel still runs, and the
+    result equals the plain version's; the output is written back into the
+    caller's view."""
     g = torch.Generator().manual_seed(9)
     B, H, T = 2, 3, 70
-    D = 36 if layout == "odd_rows" else 64
+    D = (37 if dtype == torch.float32 else 36) if layout == "odd_rows" \
+        else 64
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
     base = torch.randn(3 * B * H * T * D + 1, generator=g).to(dev, dtype)
     off = 1 if layout == "unaligned_base" else 0
     q, k, v = (base[off + i * B * H * T * D:off + (i + 1) * B * H * T * D]
@@ -638,7 +646,7 @@ def test_forward_copies_what_tma_cannot_address(dev, dtype, layout):
     assert attn.launches["flash_attention_fwd"] == before[1] + 1
     ref, ref_lse = attn.flash_attention_reference(
         q.float(), k.float(), v.float(), None, 0.2, False)
-    _close(out, ref, 2e-2, 2e-2, "out")
+    _close(out, ref, tol, tol, "out")
     _close(lse, ref_lse, 1e-3, 1e-4, "lse")
     dest = torch.empty(B * H * T * D + 1, dtype=dtype,
                        device=dev)[1:].reshape(B, H, T, D)
@@ -647,6 +655,161 @@ def test_forward_copies_what_tma_cannot_address(dev, dtype, layout):
     torch.cuda.synchronize()
     assert attn.padded_copies == before[0] + 7
     assert torch.equal(dest, out)
+
+
+# the f32 forward at head dims up to 256: 3xTF32 on wgmma
+# (csrc/flash_attention_wide_wg.cu, wwg::flash_fwd_tf32), two consumer
+# warpgroups a block up to D = 128, one above, two slices at 193-256
+F32_FWD_DS = [1, 4, 32, 40, 64, 100, 128, 160, 200, 224, 256]
+
+
+def _f32_forward_case(dev, D, Tq, Tk, bias_kind, seed_val=3):
+    g = torch.Generator().manual_seed(seed_val + D)
+    B, H = 2, 3
+    q = torch.randn(B, H, Tq, D, generator=g).to(dev)
+    k = torch.randn(B, H, Tk, D, generator=g).to(dev)
+    v = torch.randn(B, H, Tk, D, generator=g).to(dev)
+    return q, k, v, _bias(bias_kind, B, H, Tq, Tk, torch.float32, dev, g)
+
+
+@pytest.mark.parametrize("D", F32_FWD_DS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", (1, 3, 1, 1),
+                                       (2, 1, 1, 1), "full"])
+def test_f32_forward_matches_plain_and_reruns(dev, D, causal, bias_kind):
+    """The f32 forward at Tq = 77 != Tk = 131 against the plain version
+    (out 1e-4, lse 1e-3 / 1e-4: TOL_F32), one launch counted; a second run
+    equal to the bit (no atomics)."""
+    q, k, v, bias = _f32_forward_case(dev, D, 77, 131, bias_kind)
+    scale = 1.0 / math.sqrt(D)
+    before = attn.launches["flash_attention_fwd"]
+    out, lse = attn._flash_forward(q, k, v, bias, scale, causal)
+    torch.cuda.synchronize()
+    assert attn.launches["flash_attention_fwd"] == before + 1
+    ref, ref_lse = attn.flash_attention_reference(q, k, v, bias, scale,
+                                                  causal)
+    _close(out, ref, 1e-4, 1e-4, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+    again = attn._flash_forward(q, k, v, bias, scale, causal)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("D", [200, 224, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_kind", [None, "keypad", "full"])
+def test_f32_forward_one_slice_matches_plain(dev, D, causal, bias_kind):
+    """Head dims 193-256 where the row blocks fill the card (B, H, Tq = 4,
+    8, 300: 160 row blocks): one slice of 7 or 8 output panels, no S
+    recomputed, against the plain version; two runs equal to the bit."""
+    g = torch.Generator().manual_seed(D)
+    B, H, Tq, Tk = 4, 8, 300, 333
+    q = torch.randn(B, H, Tq, D, generator=g).to(dev)
+    k = torch.randn(B, H, Tk, D, generator=g).to(dev)
+    v = torch.randn(B, H, Tk, D, generator=g).to(dev)
+    bias = _bias(bias_kind, 2, H, Tq, Tk, torch.float32, dev, g)
+    if bias is not None and bias.shape[0] == 2:
+        bias = bias.repeat(2, 1, 1, 1)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, bias, scale, causal)
+    ref, ref_lse = attn.flash_attention_reference(q, k, v, bias, scale,
+                                                  causal)
+    _close(out, ref, 1e-4, 1e-4, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+    again = attn._flash_forward(q, k, v, bias, scale, causal)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("D", [1, 64, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (1, 200), (200, 1), (130, 64)])
+def test_f32_forward_at_one_row_or_key(dev, D, causal, Tq, Tk):
+    """Tq = Tk = 1, one query row against many keys, many rows against
+    one key, and a block's second warpgroup past Tq (Tq = 130: rows 128-129
+    of a 128-row block): the f32 forward against the plain version."""
+    q, k, v, bias = _f32_forward_case(dev, D, Tq, Tk, "keypad")
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, bias, scale, causal)
+    ref, ref_lse = attn.flash_attention_reference(q, k, v, bias, scale,
+                                                  causal)
+    _close(out, ref, 1e-4, 1e-4, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+
+
+def _f32_forward_instance(D, B, H, Tq):
+    """The flash_fwd_tf32 instance an f32 forward launches: two consumer
+    warpgroups up to D = 128; above, one slice of the output panels unless
+    the row blocks leave SMs idle at D > 192 (two slices then)."""
+    if D <= 128:
+        return "<2, 1>"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = D <= 192 or -(-Tq // 64) * H * B >= sms
+    P = -(-D // 32)
+    if one:
+        return "<1, 7>" if P >= 7 else "<1, 4>"
+    return "<1, 4>" if P == 8 else "<1, 1>"
+
+
+@pytest.mark.parametrize("D,B,H,Tq", [(32, 2, 3, 77), (200, 2, 3, 77),
+                                      (160, 2, 3, 77), (256, 4, 8, 300),
+                                      (224, 2, 3, 77)])
+def test_f32_forward_runs_the_3xtf32_kernel(dev, D, B, H, Tq):
+    """The profiler's records of an f32 forward (after 16 launches of a
+    tiny kernel: a session can lose its first records) name the 3xTF32
+    kernel's instance of the shape (two consumer warpgroups, one slice of
+    the output panels or two) and no FMA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(D)
+    q = torch.randn(B, H, Tq, D, generator=g).to(dev)
+    k = torch.randn(B, H, 131, D, generator=g).to(dev)
+    primer = torch.zeros(256, dtype=torch.uint8, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.bitwise_not(primer, out=primer)
+        attn._flash_forward(q, k, k, None, 0.125, False)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    want = "flash_fwd_tf32" + _f32_forward_instance(D, B, H, Tq)
+    assert any(want in n for n in names), names
+    assert not any("flash_fwd_f32<" in n for n in names), names
+
+
+@pytest.mark.parametrize("D", [1, 40, 128, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_forward_dropout_mask_is_the_plain_mask(dev, D, causal):
+    """Dropout 0.1 in the f32 forward against the plain version with the
+    same seed: a differing keep bit would move out far past 1e-4."""
+    q, k, v, bias = _f32_forward_case(dev, D, 77, 131, None)
+    seed = torch.tensor([4321, 17], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = attn._flash_forward(q, k, v, None, scale, causal, seed, 0.1)
+    ref, ref_lse = attn.flash_attention_reference(q, k, v, None, scale,
+                                                  causal, seed, 0.1)
+    _close(out, ref, 1e-4, 1e-4, "out")
+    _close(lse, ref_lse, 1e-3, 1e-4, "lse")
+    again = attn._flash_forward(q, k, v, None, scale, causal, seed, 0.1)
+    assert torch.equal(again[0], out)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_f32_forward_reads_fused_qkv_without_copies(dev, D):
+    """BERT's f32 attention: q, k, v as views of one fused (B, T, 3 H D)
+    projection, read where they lie (no copy counted), out in the (B, T,
+    H, D) layout, against the plain version."""
+    g = torch.Generator().manual_seed(D)
+    B, T, H = 2, 128, 12
+    qkv = torch.randn(B, T, 3 * H * D, generator=g).to(dev)
+    q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    valid = torch.tensor([T, 77], device=dev)
+    bias = torch.where(torch.arange(T, device=dev)[None, :] < valid[:, None],
+                       0.0, -1e9)[:, None, None, :]
+    before = (attn.padded_copies, attn.launches["flash_attention_fwd"])
+    out = attn.flash_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert attn.padded_copies == before[0]
+    assert attn.launches["flash_attention_fwd"] == before[1] + 1
+    ref, _ = attn.flash_attention_reference(
+        *(x.transpose(1, 2) for x in (q, k, v)), bias)
+    _close(out.transpose(1, 2), ref, 1e-4, 1e-4, "out")
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):

@@ -78,15 +78,14 @@ WIDE_SOURCES = {
 @pytest.mark.parametrize("D", [256, 257, 264, 300, 512, 513, 530, 576,
                                1024, 2048])
 def test_head_dim_route(D, dtype):
-    """Every edge of the route: up to 256 the tiled kernels (the f32 pair
-    the 3xTF32 dq of the wide source and the 3xTF32 dk / dv of the tiled
-    backward's); 16-bit up to 512 the tiled wide kernels (wide_fwd and
-    wide_dq from one source, wide_dkv from its own), 16-bit above 512 the
-    same sources' kernels that stream the head dim, f32 the 3xTF32 wide_fwd
-    and wide_dq (the 16-bit kernels' source) and the 3xTF32 dk / dv of the
-    tiled backward's source; the route and dtype decide the source of each
-    kernel and whether it reads and writes by TMA (and so may copy
-    operands): every wide kernel does, f32 among them."""
+    """Every edge of the route: up to 256 the tiled kernels (the f32
+    forward and dq the 3xTF32 kernels of the wide source, the f32 dk / dv
+    the 3xTF32 kernel of the tiled backward's); 16-bit up to 512 the tiled
+    wide kernels (wide_fwd and wide_dq from one source, wide_dkv from its
+    own), 16-bit above 512 the same sources' kernels that stream the head
+    dim, f32 the 3xTF32 wide_fwd and wide_dq (the 16-bit kernels' source)
+    and the 3xTF32 dk / dv of the tiled backward's source; the route and
+    dtype decide the source of each kernel."""
     route = port.head_dim_route(D, dtype)
     if D <= 256:
         want = "tiled"
@@ -98,7 +97,9 @@ def test_head_dim_route(D, dtype):
     assert port.head_dim_route(D, dtype) == route        # pure
     if route == "tiled":
         assert port._source("flash_attention_fwd", dtype) == (
-            "flash_attention_fwd", "mxt_flash_attention_fwd")
+            ("flash_attention_fwd", "mxt_flash_attention_fwd")
+            if dtype in HALF else
+            ("flash_attention_wide_wg", "mxt_flash_wide_wg_fwd"))
         pair = WIDE_SOURCES["wide_f32" if dtype not in HALF else "tiled"]
         assert port._source("flash_attention_bwd_dq", dtype) == (
             pair["flash_attention_wide_dq"])
@@ -107,7 +108,6 @@ def test_head_dim_route(D, dtype):
         return
     for name, source in WIDE_SOURCES[route].items():
         assert port._source(name, dtype) == source, name
-        assert port._uses_tma(name, route, dtype), name
     assert port.backward_route(D, 48, 1024) == "wide"
 
 
@@ -122,23 +122,18 @@ def test_head_dim_route(D, dtype):
 def test_pair_operands_copied_once(D, dtype, copies):
     """The backward pair's q, k, v and dout, contiguous (B, H, T, D) views:
     rows of D = 300, 530, 257 or 513 (or 36) 16-bit values are not a
-    multiple of 16 bytes, so on a route whose kernels read by TMA (every
-    16-bit pair, the streamed one above 512 among them) each is copied once
-    for both kernels (counted), into a view TMA can address that holds the
-    same values, and the second kernel's own check copies nothing more;
+    multiple of 16 bytes, so, as every kernel reads by TMA, each is copied
+    once for both kernels (counted), into a view TMA can address that holds
+    the same values, and the second kernel's own check copies nothing more;
     so are f32 rows of D = 530 and 257 (not a multiple of 4), which the
     3xTF32 wide_dq reads by TMA; rows TMA can address (f32 D = 300, 2048,
     16-bit D = 320, 520, 576, 1024) are taken as they are. No kernel runs
     here."""
-    route = port.head_dim_route(D, dtype)
-    pair = ("flash_attention_wide_dq", "flash_attention_wide_dkv") \
-        if route != "tiled" else ("flash_attention_bwd_dq",
-                                  "flash_attention_bwd_dkv")
     g = torch.Generator().manual_seed(D)
     ts = tuple(torch.randn(2, 3, T, D, generator=g).to(dtype)
                for T in (24, 40, 40, 24))
     before = port.padded_copies
-    got = port._tma_operands(pair, route, ts)
+    got = port._tma_operands(ts)
     assert port.padded_copies - before == copies
     for t, u in zip(ts, got):
         assert torch.equal(t, u)
@@ -156,30 +151,26 @@ def test_pair_operands_copied_once(D, dtype, copies):
     (513, torch.float32, 3), (576, torch.float32, 0),
     (1024, torch.float32, 0), (2048, torch.float32, 0),
     (300, torch.bfloat16, 3), (530, torch.float16, 3),
-    (576, torch.bfloat16, 0), (128, torch.float32, 0)])
+    (576, torch.bfloat16, 0), (128, torch.float32, 0),
+    (65, torch.float32, 3), (37, torch.float32, 3), (1, torch.float32, 3),
+    (36, torch.bfloat16, 3), (256, torch.float32, 0)])
 def test_forward_operands_copied(D, dtype, copies):
-    """The forward's q, k, v, contiguous (B, H, T, D) views: every wide
-    forward reads by TMA, the f32 one (3xTF32) too, so rows that are not a
-    multiple of 16 bytes (f32 D = 257, 513, 530: not a multiple of 4; 16-bit
-    D = 300, 530: not a multiple of 8) are copied, each once and counted,
-    into views TMA can address holding the same values; the tiled f32
-    forward (D = 128) reads none by TMA. No kernel runs here."""
-    route = port.head_dim_route(D, dtype)
-    name = "flash_attention_wide_fwd" if route != "tiled" \
-        else "flash_attention_fwd"
-    assert port._uses_tma(name, route, dtype) == (
-        route != "tiled" or dtype in HALF)
+    """The forward's q, k, v, contiguous (B, H, T, D) views: every forward
+    reads by TMA, the f32 ones (3xTF32) at every head dim too, so rows that
+    are not a multiple of 16 bytes (f32 D = 1, 37, 65, 257, 513, 530: not a
+    multiple of 4; 16-bit D = 36, 300, 530: not a multiple of 8) are
+    copied, each once and counted, into views TMA can address holding the
+    same values. No kernel runs here."""
     g = torch.Generator().manual_seed(D)
     ts = tuple(torch.randn(2, 3, T, D, generator=g).to(dtype)
                for T in (24, 40, 40))
     before = port.padded_copies
-    got = port._tma_operands((name,), route, ts)
+    got = port._tma_operands(ts)
     assert port.padded_copies - before == copies
     for t, u in zip(ts, got):
         assert torch.equal(t, u)
         assert (u is t) == (copies == 0)
-        if route != "tiled":
-            assert port._tma_ready(u)
+        assert port._tma_ready(u)
 
 
 def _inputs(seed, Tq, Tk, bias_kind, d):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The multi-tensor update, the decode attention kernel, the wide flash
-attention kernels and the f32 backward kernels of the PyTorch port in the
+attention kernels and the f32 flash kernels of the PyTorch port in the
 tree at ROOT, timed on one GPU at their main paths' shapes.
 
     python3 tools/torch_kernel_ab.py ROOT [update|decode|wide|f32 ...]
@@ -32,14 +32,16 @@ median of 5
 sessions (the forward through ``_flash_forward``, dq and dk / dv through
 ``chip_smoke.kernel_only_call``, so the entry's delta is not in them), the
 kernels' names matched whatever tree they come from.
-The f32 part: the f32 fused backward pass and the dq / dk / dv pair at
-``chip_smoke.py``'s ``F32_TIMED`` shapes (BERT-base's (8, 12, 512, 64)
-key padding, GPT-2 training's (8, 12, 1024, 64) causal; the pair alone at
-(4, 8, 1024, 256) key padding) and the f32 wide dq and dk / dv at (2, 4,
-512, 320) and (8, 8, 1024, 320) key padding, each kernel alone a launch
-through ``chip_smoke.kernel_only_call``, median of 5 sessions, beside
-SDPA's whole f32 backward on the same inputs (TF32 off); the kernels'
-names matched whatever the tree calls them (``F32_PARTS``).
+The f32 part: the f32 forward, the fused backward pass and the dq / dk /
+dv pair at ``chip_smoke.py``'s ``F32_TIMED`` shapes (BERT-base's (8, 12,
+512, 64) key padding, GPT-2 training's (8, 12, 1024, 64) causal; the
+forward and the pair alone at (4, 8, 1024, 256) key padding) and the f32
+wide dq and dk / dv at (2, 4, 512, 320) and (8, 8, 1024, 320) key
+padding, each kernel alone a launch (the forward through
+``_flash_forward``, the backward kernels through
+``chip_smoke.kernel_only_call``), median of 5 sessions, beside SDPA's f32
+forward and whole f32 backward on the same inputs (TF32 off); the
+kernels' names matched whatever the tree calls them (``F32_PARTS``).
 To compare two commits, run it on each tree in turns on one card (parent,
 change, change, parent). The result line starts with ``AB``. Imports
 nothing of JAX.
@@ -205,6 +207,7 @@ def wide_times(torch, cs, dev, attn):
 # each f32 kernel's entry name and its names in any tree: the 3xTF32
 # kernels and the FMA and warp-a-row kernels they replaced
 F32_PARTS = {
+    "fwd": ("flash_attention_fwd", r"flash_fwd_f32<|flash_fwd_tf32<"),
     "fused": ("flash_attention_bwd_fused",
               r"bwd_fused_tf32|bwd_dkv_f32<\d+, true>"),
     "dq": ("flash_attention_bwd_dq", r"bwd_dq_f32<|wide_dq_tf32"),
@@ -214,28 +217,41 @@ F32_PARTS = {
                  r"wide::wide_dkv<|bwd_dkv_tf32_st")}
 # (B, H, T, D, bias, causal, parts) of the f32 part: chip_smoke.py's
 # F32_TIMED and the f32 wide pair
-F32_SHAPES = ((8, 12, 512, 64, "keypad", False, ("fused", "dq", "dkv")),
-              (8, 12, 1024, 64, None, True, ("fused", "dq", "dkv")),
-              (4, 8, 1024, 256, "keypad", False, ("dq", "dkv")),
+F32_SHAPES = ((8, 12, 512, 64, "keypad", False,
+               ("fwd", "fused", "dq", "dkv")),
+              (8, 12, 1024, 64, None, True, ("fwd", "fused", "dq", "dkv")),
+              (4, 8, 1024, 256, "keypad", False, ("fwd", "dq", "dkv")),
               (2, 4, 512, 320, "keypad", False, ("wide_dq", "wide_dkv")),
               (8, 8, 1024, 320, "keypad", False, ("wide_dq", "wide_dkv")))
 
 
 def f32_times(torch, cs, dev, attn):
-    """{shape: ms a launch of each f32 backward kernel, and SDPA's whole
-    f32 backward} at ``F32_SHAPES``."""
+    """{shape: ms a launch of each f32 kernel, SDPA's f32 forward and
+    whole f32 backward} at ``F32_SHAPES``."""
+    import torch.nn.functional as F
     out = {}
     gen = torch.Generator().manual_seed(29)
     for B, Hh, T, d, bias_kind, causal, parts in F32_SHAPES:
         c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
                                causal, "float32")
+        q, k, v, bias, scale = (c[x] for x in ("q", "k", "v", "bias",
+                                               "scale"))
         row = {}
         for part in parts:
             name, pattern = F32_PARTS[part]
-            call, _ = cs.kernel_only_call(torch, attn, c, name)
+            if part == "fwd":
+                def call():
+                    return attn._flash_forward(q, k, v, bias, scale, causal)
+            else:
+                call, _ = cs.kernel_only_call(torch, attn, c, name)
             row[part] = median_ms(cs, call, 3,
                                   lambda n, p=pattern: re.search(p, n))
             del call
+        if "fwd" in parts:
+            row["sdpa_fwd"] = median_ms(
+                cs, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, is_causal=causal, scale=scale),
+                3, lambda n: True)
         row["sdpa_bwd"] = cs.library_backward_ms(
             torch, c["q"], c["k"], c["v"], c["bias"], c["do"], c["scale"],
             causal, 0.0, False)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Designs of four flash kernels of the PyTorch port, each built from a
+"""Designs of five flash kernels of the PyTorch port, each built from a
 copy of its source with text replaced, timed in turns on one GPU.
 
     python3 tools/torch_wide_variants.py fwd [VARIANT ...]
+    python3 tools/torch_wide_variants.py f32fwd [VARIANT ...]
     python3 tools/torch_wide_variants.py dkv [VARIANT ...]
     python3 tools/torch_wide_variants.py fused [VARIANT ...]
     python3 tools/torch_wide_variants.py f32dkv [VARIANT ...]
@@ -25,6 +26,19 @@ default; ``base`` is the source as it stands):
   ``no_s`` (the S products out), ``no_pv`` (the P V products out),
   ``no_split`` (the splitters' work out);
 - dkv ``g2``, ``g4``: 2 / 4 head-dim panels a score step (ST_G).
+
+``f32fwd``: the f32 forward at head dims up to 256 on 3xTF32
+(``wwg::flash_fwd_tf32`` in ``csrc/flash_attention_wide_wg.cu``) at
+BERT-base's (8, 12, 512, 64) key padding, GPT-2 training's (8, 12, 1024,
+64) causal and (4, 8, 1024, 128), (4, 8, 1024, 256) and (2, 4, 512, 224)
+key padding. ``wg1``: one consumer warpgroup of 64 rows a block at every
+D (``fwd_tf32_warpgroups``; the source puts two, 128 rows, on each split
+K / V^T slot up to D = 128); ``one_slice`` / ``two_slices``: one slice
+of all P output panels, or two (each recomputing S), at D = 193-256
+whatever the grid (``fwd_tf32_slices``; the source takes two only when
+one slice's row blocks would leave SMs idle); cut
+builds, wrong by design: ``no_s`` (the S products out), ``no_pv`` (the
+P V products out), ``no_split`` (the splitters' work out).
 
 ``fused``: the f32 fused backward pass on 3xTF32 (``tf::bwd_fused_tf32`` in
 ``csrc/flash_attention_bwd.cu``) at BERT-base's (8, 12, 512, 64) key
@@ -204,6 +218,18 @@ _ST_SPLIT = [("""          split_rows(slot + S_Q, n, t);
   """          (void)n;"""),
  ("""          split_cols(slot, w, t);""", """          (void)slot;""")]
 
+# the f32 forward at D <= 256's variants: text of
+# csrc/flash_attention_wide_wg.cu
+_N_S = """          hop::wgmma_tf32_ss32(sc, dah, dkh, j > 0 || g > 0 || kk > 0);
+          hop::wgmma_tf32_ss32(sc, dah,
+                               hop::desc_kmajor_sw128(kl + kk * 32));
+          hop::wgmma_tf32_ss32(sc, hop::desc_kmajor_sw128(al + kk * 32),
+                               dkh);"""
+_N_PV = """          hop::wgmma_tf32_3x(o[v * TF_G + g], phi[j], plo[j],
+                             vt + g * TILE_PANEL + j * 32, TF_LO);"""
+_N_SPLIT = """        if (j < L.NS) tf_split_keys(slot, n, t);
+        else tf_split_values(slot, n, t);"""
+
 PARTS = {
     "fwd": dict(
         source=WG, entry="mxt_flash_wide_wg_fwd", kernel="wide_fwd_tf32",
@@ -217,6 +243,22 @@ PARTS = {
             "no_s": [(_S_MMA, "(void)dkh; (void)kl;")],
             "no_pv": [(_PV_MMA, "(void)acc; (void)b;")],
             "no_split": [(_SPLIT, "(void)slot;")]}),
+    "f32fwd": dict(
+        source=WG, entry="mxt_flash_wide_wg_fwd", kernel="flash_fwd_tf32",
+        shapes=((8, 12, 512, 64, "keypad", False),
+                (8, 12, 1024, 64, None, True),
+                (4, 8, 1024, 128, "keypad", False),
+                (4, 8, 1024, 256, "keypad", False),
+                (2, 4, 512, 224, "keypad", False)),
+        variants={
+            "wg1": [("  return P <= 4 ? 2 : 1;", "  return 1;")],
+            "one_slice": [("  return row_blocks < sms ? 2 : 1;",
+                           "  return 1;")],
+            "two_slices": [("  return row_blocks < sms ? 2 : 1;",
+                            "  return 2;")],
+            "no_s": [(_N_S, "(void)dah; (void)dkh; (void)kl; (void)al;")],
+            "no_pv": [(_N_PV, "(void)vt;")],
+            "no_split": [(_N_SPLIT, "(void)slot; (void)n;")]}),
     "dkv": dict(
         source=DKV, entry="mxt_flash_wide_wg_dkv", kernel="wide_dkv_st",
         shapes=((2, 4, 512, 576), (4, 8, 1024, 1024), (2, 4, 512, 1280)),
@@ -285,12 +327,12 @@ def load(part, so, log, name):
 def timed(torch, cs, attn, which, part, fn, c, want):
     """(device ms a launch, error) of one build on case ``c``."""
     keep = lambda n: part["kernel"] in n   # noqa: E731
-    if which == "fwd":
+    if which in ("fwd", "f32fwd"):
         q, k, v, bias, scale = (c[x] for x in ("q", "k", "v", "bias",
                                                "scale"))
         out, lse = attn._fwd_outputs(q)
         call = lambda: attn._launch_fwd(   # noqa: E731
-            q, k, v, bias, None, 0.0, out, lse, scale, False, fn=fn)
+            q, k, v, bias, None, 0.0, out, lse, scale, c["causal"], fn=fn)
         call()
         torch.cuda.synchronize()
         err = (out.float() - want).abs().max().item()
@@ -341,9 +383,9 @@ def main() -> int:
         bias_kind, causal = rest or ("keypad", False)
         c = cs.wide_timed_case(torch, dev, gen, attn, B, Hh, T, d, bias_kind,
                                causal, dtn)
-        if which == "fwd":
+        if which in ("fwd", "f32fwd"):
             want, _ = attn.flash_attention_reference(
-                c["q"], c["k"], c["v"], c["bias"], c["scale"], False)
+                c["q"], c["k"], c["v"], c["bias"], c["scale"], causal)
         else:
             want = attn.flash_attention_backward_reference(
                 c["q"], c["k"], c["v"], c["bias"], None, 0.0, c["out"],
