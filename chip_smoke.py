@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only generate  # phases 1, 2 and 8 (GPT-2 generation)
     python3 chip_smoke.py --only seq2seq   # phases 1, 2 and 9 (the Transformer)
     python3 chip_smoke.py --only gpt-train # phases 1, 2 and 10 (GPT-2 training)
+    python3 chip_smoke.py --only layers    # phases 1, 2 and 11 (DCGAN, layers)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
     python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
@@ -276,11 +277,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 with f32 masters, AdamW lr 1e-4, B=8, T=1024: as phase 9, 12 + 12
    launches a step, the pair at ``MXNET_FLASH_BLOCK_K=512``, the f32 step
    at B=2, T=128, and the kernels at (8, 12, 1024, 64) causal;
-11. one ``{"kernels": [...]}`` line (the attention, update and decode
-   launches counting phases 9 and 10's main paths too; with ``--only
-   seq2seq`` / ``gpt-train`` the path's kernels alone, their rows measured
-   at its shapes), the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+11. (after phase 10, before phase 7) the Gluon layers, losses,
+   initializers and ``npx`` operators, driven by MXNet's Gluon DCGAN
+   (``example/gluon/dc_gan/dcgan.py``: nz 100, ngf = ndf = 64, 64x64,
+   ``nn.Sequential`` of ``Conv2DTranspose`` / ``Conv2D``, ``BatchNorm``,
+   relu / tanh / ``LeakyReLU(0.2)``, ``SigmoidBCELoss``, two Adam trainers
+   at lr 2e-4, beta1 0.5; convolutions N(0, 0.02) from a seed; synthetic
+   images in [-1, 1]): one iteration (D on a real batch and on
+   ``G(z).detach()``, ``trainerD.step``, G through D, ``trainerG.step``) at
+   B = 8 in f32 (TF32 off) on the card against the same on the CPU (losses
+   TOL_DCGAN_LOSS_REL, every gradient TOL_DCGAN_GRAD_REL); the main path,
+   10 iterations at B = 64, f32, the launch counts from 0 and asserted an
+   iteration (BatchNorm's kernels 17 / 17 / 13 / 13, the first iteration's
+   centered statistics 7 more ``bn_stats``, the update kernel 2), losses
+   finite, every trained parameter moved, iteration ms and img/s, busy and
+   idle share of one primed profiled iteration, peak memory and the TF32
+   settings; BatchNorm's kernels at DCGAN's four shapes against their
+   plain versions, timed with L2 flushed and totalled per iteration, and
+   the update over the generator's and the discriminator's parameters;
+   the initializers drawing on the card;
+   then the sweep: every operator, layer and loss of Queue A 6 at a size
+   its users run (BERT-base's FFN activation, its scores, ResNet-50's and
+   AlexNet's and SSD's and Fast R-CNN's tensors, DCGAN's transposed
+   convolutions, CTC at T = 400) forward and gradient on the card against
+   the CPU (on a smaller batch where the CPU would take long) within
+   TOL_SWEEP / TOL_SWEEP_LONG, bf16 against f32 within TOL_SWEEP_BF16 where
+   the op takes bf16, each timed forward and forward+backward by device
+   time (the median of three profiler sessions);
+12. one ``{"kernels": [...]}`` line (the attention, update and decode
+   launches counting phases 9 and 10's main paths too, BatchNorm's and the
+   update's phase 11's; with ``--only seq2seq`` / ``gpt-train`` / ``layers``
+   the path's kernels alone, their rows measured at its shapes), the card
+   line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
 """
@@ -2039,12 +2067,13 @@ def ulps16(torch, got, want) -> int:
     return int((key(got) - key(want)).abs().max().item())
 
 
-def library_bn_ms(torch, name, c, mean, inv, dg, db):
+def library_bn_ms(torch, name, c, mean, inv, dg, db, timer=None):
     """The library call that computes the same function as kernel ``name``
     on the same inputs (a yardstick, never used by the port): PyTorch's
     native batch-norm kernels that SyncBatchNorm runs, batch_norm_stats,
     batch_norm_elemt, batch_norm_backward_reduce and
-    batch_norm_backward_elemt. Device time, or None."""
+    batch_norm_backward_elemt. Device time by ``timer`` (default
+    :func:`device_ms`), or None."""
     x, dy, g, b = c["x"], c["dy"], c["g"], c["b"]
     n = x.shape[0] * x.shape[2]
     count = torch.full((1,), n, dtype=torch.int32, device=x.device)
@@ -2057,18 +2086,19 @@ def library_bn_ms(torch, name, c, mean, inv, dg, db):
         "bn_bwd_apply": lambda: torch.batch_norm_backward_elemt(
             dy, x, mean, inv, g, db, dy_xmu, count)}
     try:
-        return device_ms(calls[name])
+        return (timer or device_ms)(calls[name])
     except Exception as e:  # noqa: BLE001 - a yardstick only: reported
         print(f"phase 3:   library call for {name} unavailable here "
               f"({e!r:.120})", flush=True)
         return None
 
 
-def cudnn_bn_ms(torch, c):
+def cudnn_bn_ms(torch, c, timer=None):
     """cuDNN's training BatchNorm at the same shape (a yardstick):
     ``F.batch_norm`` in training mode, x in its dtype, f32 weight, bias
     and running statistics; the forward, and its backward through
-    autograd. Device times, or (None, None)."""
+    autograd. Device times by ``timer`` (default :func:`device_ms`), or
+    (None, None)."""
     import torch.nn.functional as F
     x, dy = c["x"], c["dy"]
     C = x.shape[1]
@@ -2081,9 +2111,10 @@ def cudnn_bn_ms(torch, c):
     def fwd():
         return F.batch_norm(x4, rm, rv, w, b, True, 0.1, 1e-5)
     try:
-        fwd_ms = device_ms(fwd)
+        timer = timer or device_ms
+        fwd_ms = timer(fwd)
         y = fwd()
-        bwd_ms = device_ms(lambda: torch.autograd.grad(
+        bwd_ms = timer(lambda: torch.autograd.grad(
             y, (x4, w, b), dy.unsqueeze(-1), retain_graph=True))
         return fwd_ms, bwd_ms
     except Exception as e:  # noqa: BLE001 - a yardstick only: reported
@@ -2092,12 +2123,13 @@ def cudnn_bn_ms(torch, c):
         return None, None
 
 
-def bn_check(torch, bn, label, c, errs, timed=False):
+def bn_check(torch, bn, label, c, errs, timed=False, cold=False):
     """BatchNorm's four kernels on one case against their plain versions
     (the statistics both ways, bn_bwd_apply with and without dy), each
     launch moving its counter by one, and a second run of each equal to
     the bit. Returns {kernel: row} and cuDNN's (fwd, bwd) ms when
-    ``timed``."""
+    ``timed``; ``cold``: every device time with L2 flushed before each
+    call (:func:`cold_ms`)."""
     x, dy = c["x"], c["dy"]
     outer, C, inner = x.shape
     half = x.dtype != torch.float32
@@ -2192,24 +2224,29 @@ def bn_check(torch, bn, label, c, errs, timed=False):
              "bn_bwd_apply": lambda: bn.bn_bwd_apply_reference(
                  x, dy, mean, inv, c["g"], dgw, dbw, c["dm"], c["dv"])}
     saved = dict(bn.launches)
+    timer = (lambda fn: cold_ms(fn, lambda n: True)) if cold else device_ms
     for name in BN_KERNELS:
-        runs = sorted(v for v in (kernel_ms(kern[name], BN_KERNEL[name])
-                                  for _ in range(3)) if v is not None)
+        keep = lambda n, k=BN_KERNEL[name]: re.search(k, n)  # noqa: E731
+        runs = sorted(v for v in (
+            cold_ms(kern[name], keep) if cold
+            else kernel_ms(kern[name], BN_KERNEL[name]) for _ in range(3))
+            if v is not None)
         ms = runs[len(runs) // 2] if runs else None
         bnd, by = bn_bound_ms(name, outer, C, inner, x.dtype.itemsize)
-        rows[name] = dict(ms=ms, plain_ms=device_ms(plain[name]),
+        rows[name] = dict(ms=ms, plain_ms=timer(plain[name]),
                           library_ms=library_bn_ms(torch, name, c, mean, inv,
-                                                   dgw, dbw),
+                                                   dgw, dbw, timer),
                           bound_ms=bnd, bound_by=by,
                           events_ms=cuda_time_ms(kern[name]))
     bn.launches.update(saved)
-    cudnn = cudnn_bn_ms(torch, c)
+    cudnn = cudnn_bn_ms(torch, c, timer)
+    where = "device, L2 flushed" if cold else "device"
     print(f"phase 3: batch norm {label}: " + "; ".join(
-        f"{n} {fmt_ms(r['ms'])} (device; events {r['events_ms']:.4f}), "
+        f"{n} {fmt_ms(r['ms'])} ({where}; events {r['events_ms']:.4f}), "
         f"bound {r['bound_ms']:.4f} ({r['bound_by']}), plain "
         f"{fmt_ms(r['plain_ms'])}, library {fmt_ms(r['library_ms'])}"
         for n, r in rows.items()) + f"; cuDNN training batch_norm fwd "
-        f"{fmt_ms(cudnn[0])}, bwd {fmt_ms(cudnn[1])} (device)", flush=True)
+        f"{fmt_ms(cudnn[0])}, bwd {fmt_ms(cudnn[1])} ({where})", flush=True)
     return rows, cudnn
 
 
@@ -2683,17 +2720,20 @@ def route_audit(torch, attn, c, label, route):
     whose records must show ``route``'s own forward, dq and dk / dv
     (``ROUTE_KERNELS``) and no other wide or 3xTF32 kernel: above 512 in
     16 bits the streamed tiled ones, in f32 the 3xTF32 forward, dq and dk /
-    dv (a session that kept no record of one of them is run once more)."""
+    dv. A session runs the pair twice, and a session that kept no record
+    of one of them is run once more: primed sessions have been seen to
+    lose the records of a D = 1280 forward and dq."""
     from torch.profiler import ProfilerActivity, profile
     patterns = ROUTE_KERNELS[route]
     for session in (1, 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             primer()
-            attn._flash_forward(c["q"], c["k"], c["v"], c["bias"],
-                                c["scale"], c["causal"], c["seed"],
-                                c["rate"])
-            run_backward(attn, c, 1024)
+            for _ in range(2):
+                attn._flash_forward(c["q"], c["k"], c["v"], c["bias"],
+                                    c["scale"], c["causal"], c["seed"],
+                                    c["rate"])
+                run_backward(attn, c, 1024)
             torch.cuda.synchronize()
         names = sorted(k for k in kernel_counts(prof) if re.search(AUDITED, k))
         if not all(any(re.search(p, k) for p in patterns) for k in names):
@@ -3199,11 +3239,13 @@ CONV_GROUPS = {f"conv1x1 {k.split('_')[1]}": v
 RESNET_GROUPS = dict(CONV_GROUPS, **{"batch norm": r"\bbn::"})
 
 
-def device_breakdown(prof, wall_ms, label, groups=None):
+def device_breakdown(prof, wall_ms, label, groups=None, drop=None):
     """Device time per kernel from a torch.profiler run, the device's idle
     share over ``wall_ms`` and the share of each group of kernels (names
-    matching the group's pattern). Returns (busy ms, idle share)."""
-    per_kernel = kernel_times(prof)
+    matching the group's pattern); kernels whose names match ``drop`` (a
+    session's primer) are left out. Returns (busy ms, idle share)."""
+    per_kernel = {k: v for k, v in kernel_times(prof).items()
+                  if not (drop and re.search(drop, k))}
     busy = sum(per_kernel.values())
     if busy <= 0:
         print(f"{label}: per-kernel device time: not measured (the profiler "
@@ -6505,6 +6547,778 @@ def phase_gpt_train(torch, dev):
     return rows, launches, stats
 
 
+# ------------------------------------------- phase 11: layers and losses
+# MXNet's Gluon DCGAN (example/gluon/dc_gan/dcgan.py; Radford et al., ICLR
+# 2016): nz 100, ngf = ndf = 64, 3 channels, 64x64 images, B = 64, Adam lr
+# 2e-4 beta1 0.5, f32 as the example trains
+DCGAN = dict(nz=100, ngf=64, ndf=64, nc=3)
+B_DCGAN, B_DCGAN_PARITY, DCGAN_ITERS = 64, 8, 10
+DCGAN_ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
+# BatchNorm launches an iteration: G's 4 layers run forward twice (D's step
+# on G(z).detach(), G's step) and backward once, D's 3 forward three times
+# (real, fake, G's step) and backward twice; the first iteration's
+# centered statistics (the virgin shift) add one bn_stats sweep a layer;
+# the update kernel once a trainer step (every parameter f32, one layout)
+DCGAN_STEP = {"bn_stats": 17, "bn_apply": 17, "bn_bwd_reduce": 13,
+              "bn_bwd_apply": 13, "multi_tensor_update": 2}
+DCGAN_FIRST_EXTRA = {"bn_stats": 7}
+# DCGAN's BatchNorm shapes at B = 64: (C, H*W, forward, backward launches
+# an iteration): G's 512 x 4x4 and D's last, G's 256 x 8x8 and D's second,
+# G's 128 x 16x16 and D's first, G's 64 x 32x32
+DCGAN_BN_SHAPES = ((512, 16, 5, 3), (256, 64, 5, 3), (128, 256, 5, 3),
+                   (64, 1024, 2, 1))
+# the groups of a DCGAN iteration's profile (kernel names, re.search)
+DCGAN_GROUPS = {"batch norm": r"\bbn::", "update": r"multi_tensor|mt::",
+                "convolution": r"conv|cudnn|sm90_xmma|implicit|gemm|nvjet"}
+# phase 11, the DCGAN iteration on the card (f32, TF32 off) against the
+# same port on the CPU: BERT's f32 limits (PERF.md section 2)
+TOL_DCGAN_LOSS_REL = 1e-4
+TOL_DCGAN_GRAD_REL = 1e-3
+# phase 11's sweep, card against CPU, relative Frobenius error of the
+# output and of each gradient: f32 (TF32 off) 1e-5; convolutions, CTC and
+# reductions over more than 1e4 terms, in the forward or in a gradient (a
+# norm's gamma and beta gradients sum over N * H * W) 1e-4; bf16 on the card against f32
+# on the card on the same (rounded) inputs 2e-2, the output and the
+# gradients, but the output alone for the clamped activations
+# (HardSigmoid, HardSwish), whose derivative steps where alpha * x + beta
+# crosses 0 or 1: a bf16 rounding moves ~0.2% of N(0, 2) inputs across,
+# each taking its whole gradient with it (~4e-2 measured)
+TOL_SWEEP = 1e-5
+TOL_SWEEP_LONG = 1e-4
+TOL_SWEEP_BF16 = 2e-2
+
+
+def dcgan_nets(nn, nz, ngf, ndf, nc):
+    """The example's generator and discriminator as its script builds them
+    (``nn.Sequential``; shapes given, as the port takes them)."""
+    netG = nn.Sequential()
+    cin = nz
+    for i, c in enumerate((ngf * 8, ngf * 4, ngf * 2, ngf)):
+        netG.add(nn.Conv2DTranspose(c, 4, 1 if i == 0 else 2,
+                                    0 if i == 0 else 1, use_bias=False,
+                                    in_channels=cin),
+                 nn.BatchNorm(in_channels=c), nn.Activation("relu"))
+        cin = c
+    netG.add(nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False,
+                                in_channels=ngf), nn.Activation("tanh"))
+    netD = nn.Sequential()
+    netD.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False, in_channels=nc),
+             nn.LeakyReLU(0.2))
+    cin = ndf
+    for c in (ndf * 2, ndf * 4, ndf * 8):
+        netD.add(nn.Conv2D(c, 4, 2, 1, use_bias=False, in_channels=cin),
+                 nn.BatchNorm(in_channels=c), nn.LeakyReLU(0.2))
+        cin = c
+    netD.add(nn.Conv2D(1, 4, 1, 0, use_bias=False, in_channels=ndf * 8))
+    return netG, netD
+
+
+def dcgan_weights(net, seed):
+    """The example's ``initialize(mx.init.Normal(0.02))``: convolutions
+    N(0, 0.02) from ``seed``, the BatchNorms' own ones and zeros."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    fill = {"gamma": 1.0, "running_var": 1.0}
+    return {k: (rng.normal(0, 0.02, p.shape) if k.endswith("weight") else
+                np.full(p.shape, fill.get(k.rsplit(".", 1)[1], 0.0)))
+            .astype("float32") for k, p in net.collect_params().items()}
+
+
+def dcgan_setup(torch, dev, params):
+    """Both nets on ``dev`` from ``params``, their Adam trainers and the
+    loss."""
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon import Trainer, loss, nn
+    netG, netD = dcgan_nets(nn, **DCGAN)
+    load_jax_params(netG.to(dev), params[0])
+    load_jax_params(netD.to(dev), params[1])
+    trD = Trainer(netD.collect_params(), "adam", dict(DCGAN_ADAM))
+    trG = Trainer(netG.collect_params(), "adam", dict(DCGAN_ADAM))
+    return netG, netD, trD, trG, loss.SigmoidBCELoss()
+
+
+def dcgan_iteration(torch, nets, real, noise, grads=False):
+    """The example's loop body: D on the real batch (label 1) and on
+    ``G(z).detach()`` (label 0), ``trainerD.step``; G through D (label 1),
+    ``trainerG.step``. Returns errD, errG and, with ``grads``, the
+    gradients of D's step and of G's step by parameter name."""
+    from mxnet_tpu_torch import autograd
+    netG, netD, trD, trG, loss = nets
+    B = real.shape[0]
+    ones = torch.ones(B, device=real.device)
+    zeros = torch.zeros(B, device=real.device)
+
+    def taken(net):
+        return {k: p.grad().detach().cpu().clone() for k, p in
+                net.collect_params().items() if p.grad_req != "null"} \
+            if grads else None
+
+    with autograd.record():
+        err_real = loss(netD(real).reshape((-1, 1)), ones)
+        fake = netG(noise)
+        err_fake = loss(netD(fake.detach()).reshape((-1, 1)), zeros)
+        errD = err_real + err_fake
+    autograd.backward(errD)
+    gD = taken(netD)
+    trD.step(B)
+    with autograd.record():
+        errG = loss(netD(netG(noise)).reshape((-1, 1)), ones)
+    autograd.backward(errG)
+    gG = taken(netG)
+    trG.step(B)
+    return errD.detach(), errG.detach(), gD, gG
+
+
+def dcgan_data(torch, B, seed, dev):
+    """Synthetic images in [-1, 1] (the example's normalized batch) and
+    the noise, drawn on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    real = torch.rand((B, DCGAN["nc"], 64, 64), generator=gen,
+                      device=dev) * 2 - 1
+    noise = torch.randn((B, DCGAN["nz"], 1, 1), generator=gen, device=dev)
+    return real, noise
+
+
+def dcgan_parity(torch, dev, params):
+    """One iteration at B = 8, f32, on the card and on the CPU from the
+    same weights and data: losses and every gradient within the limits."""
+    real, noise = dcgan_data(torch, B_DCGAN_PARITY, 11, "cpu")
+    out = {}
+    for where in ("cpu", dev):
+        nets = dcgan_setup(torch, where, params)
+        out[str(where)] = dcgan_iteration(
+            torch, nets, real.to(where), noise.to(where), grads=True)
+    (cD, cG, cgD, cgG), (gD, gG, ggD, ggG) = out["cpu"], out[str(dev)]
+    loss_err = max(rel(gD.cpu(), cD), rel(gG.cpu(), cG))
+    grad_err = max((rel(g[k], c[k]), k) for g, c in ((ggD, cgD), (ggG, cgG))
+                   for k in c)
+    if loss_err > TOL_DCGAN_LOSS_REL or grad_err[0] > TOL_DCGAN_GRAD_REL:
+        fail(f"phase 11: DCGAN card against CPU at B={B_DCGAN_PARITY}: "
+             f"losses rel {loss_err:.3e} (limit {TOL_DCGAN_LOSS_REL}), worst "
+             f"gradient {grad_err[1]} rel {grad_err[0]:.3e} (limit "
+             f"{TOL_DCGAN_GRAD_REL})")
+    print(f"phase 11: DCGAN one iteration at B={B_DCGAN_PARITY} f32 (TF32 "
+          f"off), card against CPU: errD / errG rel {loss_err:.3e} (limit "
+          f"{TOL_DCGAN_LOSS_REL}); worst of {len(cgD) + len(cgG)} gradients "
+          f"{grad_err[1]} rel {grad_err[0]:.3e} (limit "
+          f"{TOL_DCGAN_GRAD_REL})", flush=True)
+
+
+def dcgan_train(torch, dev, params):
+    """The main path: DCGAN_ITERS iterations at B = 64 on the card, the
+    launch counts from 0 (asserted an iteration); the losses finite and
+    every parameter moved; iteration ms and img/s (mean of iterations
+    3-10, host clock to a synchronize); busy ms and idle share of one
+    primed profiled iteration; peak memory. Returns the launches."""
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bn
+    from mxnet_tpu_torch.ops.cuda import multi_tensor as mt
+    mods = (bn, mt)
+    nets = dcgan_setup(torch, dev, params)
+    real, noise = dcgan_data(torch, B_DCGAN, 12, dev)
+    start = {k: p.data().detach().clone() for net in nets[:2]
+             for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    for m in mods:
+        reset_counts(m)                     # the main path starts here
+    times, losses = [], []
+    for i in range(DCGAN_ITERS):
+        before = counts_now(mods)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        errD, errG, _, _ = dcgan_iteration(torch, nets, real, noise)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        moved = {n: c - before[n] for n, c in counts_now(mods).items()}
+        want = {n: DCGAN_STEP.get(n, 0) + (DCGAN_FIRST_EXTRA.get(n, 0)
+                                           if i == 0 else 0) for n in moved}
+        if moved != want:
+            fail(f"phase 11: DCGAN iteration {i}: launches {moved}, "
+                 f"expected {want}")
+        losses.append((errD.mean().item(), errG.mean().item()))
+        if not all(math.isfinite(v) for v in losses[-1]):
+            fail(f"phase 11: DCGAN iteration {i}: losses {losses[-1]}")
+    counts = counts_now(mods)               # ... and ends here
+    still = [k for net in nets[:2] for k, p in net.collect_params().items()
+             if p.grad_req != "null" and torch.equal(p.data(),
+                                                     start[k].to(dev))]
+    if still:
+        fail(f"phase 11: DCGAN parameters that did not move: {still}")
+    ms = 1e3 * sum(times[2:]) / len(times[2:])
+    torch.cuda.reset_peak_memory_stats(dev)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primer()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dcgan_iteration(torch, nets, real, noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy, idle = device_breakdown(
+        prof, wall_ms, "phase 11: a primed profiled DCGAN iteration",
+        DCGAN_GROUPS, drop="bitwise_not")
+    print(f"phase 11: DCGAN (nz {DCGAN['nz']}, ngf = ndf = {DCGAN['ngf']}, "
+          f"64x64) B={B_DCGAN} f32, Adam lr 2e-4 beta1 0.5: losses (errD, "
+          f"errG) {[(round(a, 4), round(b, 4)) for a, b in losses]}, every "
+          f"trained parameter moved; iteration {ms:.3f} ms (mean of "
+          f"iterations 3-{DCGAN_ITERS}, host clock to a synchronize), "
+          f"{B_DCGAN / ms * 1e3:.1f} img/s; device busy {fmt_ms(busy)}, "
+          f"idle share {'not measured' if idle is None else f'{idle:.3f}'} "
+          f"(one primed profiled iteration, wall {wall_ms:.3f} ms); peak "
+          f"memory {peak:.3f} GiB; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}; launches in the run {counts} "
+          f"({DCGAN_STEP} an iteration, the first +{DCGAN_FIRST_EXTRA}); "
+          f"card: {smi_line()}", flush=True)
+    del nets
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dcgan_kernel_rows(torch, dev, params):
+    """BatchNorm's kernels at DCGAN's shapes (f32, B = 64) against their
+    plain versions, timed with L2 flushed (the tensors, 0.5-17 MB, fit in
+    L2, and the bound is at the HBM rate), and per iteration (each shape
+    weighted by its launches); the update kernel over the generator's and
+    the discriminator's parameters (f32, Adam; one launch each an
+    iteration). Returns {kernel: row} of the per-iteration totals."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bn
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs, rows = {}, {n: {} for n in BN_KERNELS}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "events_ms")
+    for C, M, nf, nb in DCGAN_BN_SHAPES:
+        r, _ = bn_check(torch, bn, f"f32 N={B_DCGAN} C={C} M={M} (DCGAN)",
+                        bn_case(torch, dev, gen, B_DCGAN, C, M,
+                                torch.float32), errs, timed=True, cold=True)
+        for name in BN_KERNELS:
+            k = nf if name in ("bn_stats", "bn_apply") else nb
+            for key in keys:
+                v, acc = r[name][key], rows[name].get(key, 0.0)
+                rows[name][key] = None if v is None or acc is None \
+                    else acc + k * v
+            rows[name]["bound_by"] = r[name]["bound_by"]
+    for name, row in rows.items():
+        row["max_abs_err"] = errs[name]
+        if row["ms"] is None:
+            row["ms"] = row["events_ms"]
+        print(f"phase 11: {name} per DCGAN iteration ({DCGAN_STEP[name]} "
+              f"launches): {fmt_ms(row['ms'])} device, bound "
+              f"{row['bound_ms']:.4f} ms, plain {fmt_ms(row['plain_ms'])}, "
+              f"library {fmt_ms(row['library_ms'])}", flush=True)
+    # the update kernel on both of the main path's parameter sets: D's in
+    # trainerD.step, G's in trainerG.step
+    upd = []
+    for side, net in zip(("generator", "discriminator"),
+                         dcgan_nets(nn, **DCGAN)):
+        case = dict(name=f"DCGAN {side} Adam f32, one group", opt="adam",
+                    kw=DCGAN_ADAM, shapes=None, dtype="float32",
+                    master=False, agg=0)
+        upd.append(update_check(torch, dev, case, model_shapes(net),
+                                timed=True))
+    rows["multi_tensor_update"] = {
+        k: None if None in (upd[0][k], upd[1][k]) else upd[0][k] + upd[1][k]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    rows["multi_tensor_update"].update(max_abs_err=0.0, bound_by="bytes")
+    torch.cuda.empty_cache()
+    return rows
+
+
+
+class SweepCase:
+    """One operator, layer or loss of phase 11's sweep: ``fn(*args)`` or
+    ``block(*args)``; ``make(n, gen)`` its inputs at batch ``n`` on the
+    generator's device (float ones take gradients); compared at
+    ``n_cmp`` on the card and the CPU, timed at ``n_full`` on the card;
+    ``bf16``: also run in bf16 against f32 ('forward': the output
+    alone)."""
+
+    def __init__(self, name, size, make, n_full, n_cmp=None, fn=None,
+                 block=None, tol=TOL_SWEEP, bf16=False, grad=True,
+                 train=False):
+        self.name, self.size, self.make = name, size, make
+        self.n_full, self.n_cmp = n_full, n_cmp or n_full
+        self.fn, self.block, self.tol = fn, block, tol
+        self.bf16, self.grad, self.train = bf16, grad, train
+
+    def __call__(self, block, *xs):
+        """The operator, or ``block``, on ``xs`` (in training mode for a
+        layer whose forward depends on it)."""
+        from mxnet_tpu_torch import autograd
+        fn = block if block is not None else self.fn
+        if self.train:
+            with autograd.train_mode():
+                return fn(*xs)
+        return fn(*xs)
+
+
+def rel64(got, want) -> float:
+    """Relative Frobenius error in f64 (a masked log-softmax holds values
+    near f32's lowest, whose squares f32 cannot hold)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm().clamp_min(1e-300)).item()
+
+
+def sweep_cases(torch):
+    """Phase 11's sweep: every operator, layer and loss of Queue A 6 at a
+    size its users run."""
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon import contrib, loss, nn
+    L = TOL_SWEEP_LONG
+
+    def randn(gen, *shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=gen.device) * scale
+
+    def rand(gen, *shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=gen.device) \
+            * (hi - lo) + lo
+
+    def randint(gen, lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=gen.device)
+
+    def bert_act(n, gen):               # BERT-base's FFN activation
+        return [randn(gen, n, 512, 3072, scale=2.0)]
+
+    def signs(gen, *shape):
+        return torch.where(rand(gen, *shape) > 0.5, 1.0, -1.0)
+
+    C = []
+    act = "BERT-base FFN (8, 512, 3072)"
+    for name, block in (
+            ("LeakyReLU (npx.leaky_relu)", lambda: nn.LeakyReLU(0.2)),
+            ("PReLU (npx.prelu)", lambda: nn.PReLU(in_channels=3072)),
+            ("ELU (npx.elu)", lambda: nn.ELU(0.5)),
+            ("SELU (npx.selu)", lambda: nn.SELU()),
+            ("GELU erf", lambda: nn.GELU()),
+            ("GELU tanh", lambda: nn.GELU("tanh")),
+            ("Swish / SiLU (npx.silu)", lambda: nn.Swish()),
+            ("Swish beta 1.5", lambda: nn.Swish(1.5)),
+            ("Mish (npx.mish)", lambda: nn.Mish()),
+            ("HardSigmoid (npx.hard_sigmoid)", lambda: nn.HardSigmoid()),
+            ("HardSwish (npx.hard_swish)", lambda: nn.HardSwish())):
+        C.append(SweepCase(name, act, bert_act, 8, block=block,
+                           bf16="forward" if "Hard" in name else True))
+    for name in ("softrelu", "softsign", "log_sigmoid"):
+        C.append(SweepCase(f"npx.{name}", act, bert_act, 8,
+                           fn=getattr(npx, name), bf16=True))
+    C += [
+        SweepCase("npx.leaky_relu act_type elu", act, bert_act, 8,
+                  fn=lambda x: npx.leaky_relu(x, 0.3, "elu"), bf16=True),
+        SweepCase("npx.softmax temperature 2", act, bert_act, 8,
+                  fn=lambda x: npx.softmax(x, temperature=2.0), bf16=True),
+        SweepCase("npx.softmax length", act, lambda n, g: bert_act(n, g) + [
+            randint(g, 1024, 3073, n)], 8, fn=lambda x, ln: npx.softmax(
+                x, length=ln), bf16=True),
+        SweepCase("npx.masked_log_softmax", act, lambda n, g: bert_act(n, g)
+                  + [rand(g, n, 1, 3072) > 0.1], 8,
+                  fn=npx.masked_log_softmax, bf16=True),
+        SweepCase("npx.masked_softmax key padding",
+                  "BERT-base scores (8, 12, 512, 512)", lambda n, g: [
+                      randn(g, n, 12, 512, 512, scale=3.0),
+                      torch.arange(512, device=g.device)[None, None, None]
+                      < randint(g, 64, 513, n, 1, 1, 1)], 8,
+                  fn=npx.masked_softmax, bf16=True),
+        SweepCase("npx.rms_norm", act, lambda n, g: bert_act(n, g) + [
+            rand(g, 3072, lo=0.5, hi=1.5)], 8, fn=npx.rms_norm, bf16=True),
+        SweepCase("GroupNorm(32) (npx.group_norm)", "(32, 256, 56, 56)",
+                  lambda n, g: [randn(g, n, 256, 56, 56) + 0.5], 32, 8,
+                  block=lambda: nn.GroupNorm(32, in_channels=256), tol=L,
+                  bf16=True),
+        SweepCase("InstanceNorm (npx.instance_norm)", "(32, 256, 56, 56)",
+                  lambda n, g: [randn(g, n, 256, 56, 56) + 0.5], 32, 8,
+                  block=lambda: nn.InstanceNorm(in_channels=256), tol=L,
+                  bf16=True),
+        SweepCase("SyncBatchNorm training (BatchNorm's kernels)",
+                  "(32, 256, 56, 56)", lambda n, g: [randn(g, n, 256, 56, 56)],
+                  32, 8, block=lambda: nn.SyncBatchNorm(in_channels=256),
+                  tol=L, train=True),
+        SweepCase("npx.lrn", "AlexNet conv1 (128, 96, 55, 55)",
+                  lambda n, g: [randn(g, n, 96, 55, 55, scale=3.0)], 128, 16,
+                  fn=lambda x: npx.lrn(x, 1e-4, 0.75, 2.0, 5), bf16=True)]
+    for mode, tol in (("instance", L), ("channel", TOL_SWEEP),
+                      ("spatial", TOL_SWEEP)):
+        C.append(SweepCase(f"npx.l2_normalization {mode}",
+                           "SSD conv4_3 (32, 512, 38, 38)",
+                           lambda n, g: [randn(g, n, 512, 38, 38)], 32, 8,
+                           fn=lambda x, m=mode: npx.l2_normalization(
+                               x, mode=m), tol=tol))
+    C += [
+        SweepCase("Conv1D k=3 (npx.convolution)", "(32, 512, 1024)",
+                  lambda n, g: [randn(g, n, 512, 1024)], 32, 2,
+                  block=lambda: nn.Conv1D(512, 3, padding=1,
+                                          in_channels=512), tol=L, bf16=True),
+        SweepCase("Conv3D k=3", "(8, 64, 16, 56, 56)",
+                  lambda n, g: [randn(g, n, 64, 16, 56, 56)], 8, 1,
+                  block=lambda: nn.Conv3D(64, 3, padding=1, in_channels=64),
+                  tol=L, bf16=True)]
+    cin = DCGAN["nz"]
+    for i, (c, hw) in enumerate(((512, 1), (256, 4), (128, 8), (64, 16),
+                                 (3, 32))):
+        k = 64 if i == 4 else c
+        C.append(SweepCase(
+            f"Conv2DTranspose {cin}->{c} (npx.deconvolution)",
+            f"DCGAN G layer {i + 1} ({B_DCGAN}, {cin}, {hw}, {hw})",
+            lambda n, g, ci=cin, s=hw: [randn(g, n, ci, s, s)], B_DCGAN, 8,
+            block=lambda ci=cin, co=c, first=i == 0: nn.Conv2DTranspose(
+                co, 4, 1 if first else 2, 0 if first else 1, use_bias=False,
+                in_channels=ci), tol=L, bf16=True))
+        cin = k
+    C += [
+        SweepCase("Conv1DTranspose k=4 s=2", "(32, 512, 1024)",
+                  lambda n, g: [randn(g, n, 512, 1024)], 32, 2,
+                  block=lambda: nn.Conv1DTranspose(256, 4, 2, 1,
+                                                   in_channels=512),
+                  tol=L, bf16=True),
+        SweepCase("Conv3DTranspose k=4 s=2", "(8, 64, 8, 28, 28)",
+                  lambda n, g: [randn(g, n, 64, 8, 28, 28)], 8, 1,
+                  block=lambda: nn.Conv3DTranspose(32, 4, 2, 1,
+                                                   in_channels=64),
+                  tol=L, bf16=True),
+        SweepCase("npx.adaptive_avg_pool2d", "ResNet-50 head (32, 2048, 7, 7)",
+                  lambda n, g: [randn(g, n, 2048, 7, 7)], 32,
+                  fn=lambda x: npx.adaptive_avg_pool2d(x, 1)),
+        SweepCase("npx.roi_pooling 7x7", "Fast R-CNN (2, 512, 38, 50), "
+                  "128 ROIs", lambda n, g: [randn(g, 2, 512, 38, 50), torch.cat(
+                      [randint(g, 0, 2, n, 1).float(),
+                       rand(g, n, 2, hi=500.0),
+                       rand(g, n, 2, lo=100.0, hi=300.0)], 1)], 128, 16,
+                  fn=lambda x, r: npx.roi_pooling(
+                      x, torch.cat([r[:, :3], r[:, 1:3] + r[:, 3:]], 1),
+                      (7, 7), 1 / 16)),
+        SweepCase("npx.up_sampling nearest x2", "(8, 256, 32, 32)",
+                  lambda n, g: [randn(g, n, 256, 32, 32)], 8,
+                  fn=lambda x: npx.up_sampling(x, 2), bf16=True),
+        SweepCase("npx.up_sampling bilinear x2", "(8, 256, 32, 32)",
+                  lambda n, g: [randn(g, n, 256, 32, 32)], 8,
+                  fn=lambda x: npx.up_sampling(x, 2, "bilinear"), bf16=True)]
+    tnc = "(T=512, N=32, 1024) TNC, lengths 64-512"
+
+    def seq(n, g):
+        return [randn(g, 512, n, 1024), randint(g, 64, 513, n)]
+    for name in ("sequence_mask", "sequence_last", "sequence_reverse"):
+        C.append(SweepCase(f"npx.{name}", tnc, seq, 32,
+                           fn=lambda x, ln, f=getattr(npx, name): f(
+                               x, ln, use_sequence_length=True)))
+    C += [
+        SweepCase("npx.topk_mask k=50", "BERT vocabulary (64, 30522)",
+                  lambda n, g: [randn(g, n, 30522)], 64,
+                  fn=lambda x: npx.topk_mask(x, 50), grad=False),
+        SweepCase("npx.smooth_l1", act, bert_act, 8,
+                  fn=lambda x: npx.smooth_l1(x, 1.0)),
+        SweepCase("npx.arange_like", act, bert_act, 8, fn=npx.arange_like,
+                  grad=False),
+        SweepCase("npx.softmax_output", "ImageNet logits (256, 1000)",
+                  lambda n, g: [randn(g, n, 1000), randint(g, -1, 1000, n)],
+                  256, fn=lambda x, lab: npx.softmax_output(
+                      x, lab, use_ignore=True, normalization="valid")),
+        SweepCase("npx.linear_regression_output", "(1024, 256)",
+                  lambda n, g: [randn(g, n, 256), randn(g, n, 256)], 1024,
+                  fn=npx.linear_regression_output),
+        SweepCase("npx.mae_regression_output", "(1024, 256)",
+                  lambda n, g: [randn(g, n, 256), randn(g, n, 256)], 1024,
+                  fn=npx.mae_regression_output),
+        SweepCase("npx.logistic_regression_output", "(1024, 256)",
+                  lambda n, g: [randn(g, n, 256), rand(g, n, 256)], 1024,
+                  fn=npx.logistic_regression_output),
+        SweepCase("npx.make_loss", "(1024, 256)",
+                  lambda n, g: [randn(g, n, 256)], 1024,
+                  fn=lambda x: npx.make_loss(x, normalization="batch")),
+        SweepCase("npx.interleaved_matmul_selfatt_qk",
+                  "BERT-base (T=512, N=8, 2304)",
+                  lambda n, g: [randn(g, 512, n, 2304)], 8,
+                  fn=lambda x: npx.interleaved_matmul_selfatt_qk(x, 12),
+                  bf16=True),
+        SweepCase("npx.interleaved_matmul_selfatt_valatt",
+                  "BERT-base (512, 8, 2304), (96, 512, 512)",
+                  lambda n, g: [randn(g, 512, n, 2304),
+                                rand(g, n * 12, 512, 512) / 256], 8,
+                  fn=lambda x, a: npx.interleaved_matmul_selfatt_valatt(
+                      x, a, 12), bf16=True),
+        SweepCase("npx.interleaved_matmul_encdec_qk",
+                  "transformer_base (128, 32, 512), (128, 32, 1024)",
+                  lambda n, g: [randn(g, 128, n, 512), randn(g, 128, n, 1024)],
+                  32, fn=lambda q, kv: npx.interleaved_matmul_encdec_qk(
+                      q, kv, 8), bf16=True),
+        SweepCase("npx.interleaved_matmul_encdec_valatt",
+                  "transformer_base (128, 32, 1024), (256, 128, 128)",
+                  lambda n, g: [randn(g, 128, n, 1024),
+                                rand(g, n * 8, 128, 128) / 64], 32,
+                  fn=lambda kv, a: npx.interleaved_matmul_encdec_valatt(
+                      kv, a, 8), bf16=True)]
+    c1, c3 = "(32, 512, 1024)", "(8, 64, 16, 56, 56)"
+
+    def x1(n, g):
+        return [randn(g, n, 512, 1024)]
+
+    def x3(n, g):
+        return [randn(g, n, 64, 16, 56, 56)]
+    C += [
+        SweepCase("MaxPool1D", c1, x1, 32, block=lambda: nn.MaxPool1D()),
+        SweepCase("AvgPool1D", c1, x1, 32, block=lambda: nn.AvgPool1D()),
+        SweepCase("MaxPool3D", c3, x3, 8, 2, block=lambda: nn.MaxPool3D()),
+        SweepCase("AvgPool3D", c3, x3, 8, 2, block=lambda: nn.AvgPool3D()),
+        SweepCase("GlobalMaxPool1D", c1, x1, 32,
+                  block=lambda: nn.GlobalMaxPool1D()),
+        SweepCase("GlobalMaxPool2D", "ResNet-50 head (32, 2048, 7, 7)",
+                  lambda n, g: [randn(g, n, 2048, 7, 7)], 32,
+                  block=lambda: nn.GlobalMaxPool2D()),
+        SweepCase("GlobalMaxPool3D", c3, x3, 8, 2,
+                  block=lambda: nn.GlobalMaxPool3D()),
+        SweepCase("GlobalAvgPool1D", c1, x1, 32,
+                  block=lambda: nn.GlobalAvgPool1D()),
+        SweepCase("GlobalAvgPool3D", c3, x3, 8, 2, tol=L,
+                  block=lambda: nn.GlobalAvgPool3D()),
+        SweepCase("ReflectionPad2D(1)", "CycleGAN block (8, 256, 64, 64)",
+                  lambda n, g: [randn(g, n, 256, 64, 64)], 8,
+                  block=lambda: nn.ReflectionPad2D(1)),
+        SweepCase("PixelShuffle1D(2)", c1, x1, 32,
+                  block=lambda: contrib.nn.PixelShuffle1D(2)),
+        SweepCase("PixelShuffle2D(2)", "ESPCN (16, 256, 64, 64)",
+                  lambda n, g: [randn(g, n, 256, 64, 64)], 16,
+                  block=lambda: contrib.nn.PixelShuffle2D(2)),
+        SweepCase("PixelShuffle3D(2)", "(8, 512, 8, 28, 28)",
+                  lambda n, g: [randn(g, n, 512, 8, 28, 28)], 8, 2,
+                  block=lambda: contrib.nn.PixelShuffle3D(2))]
+
+    def branches(cls):
+        net = cls(axis=1)
+        net.add(nn.Conv2D(64, 1, in_channels=256), nn.Identity(),
+                nn.Conv2D(32, 3, padding=1, in_channels=256))
+        return net
+    inception = "Inception branches (32, 256, 28, 28)"
+    for name, cls in (("HybridConcurrent", contrib.nn.HybridConcurrent),
+                      ("Concurrent", contrib.nn.Concurrent),
+                      ("HybridConcatenate / Concatenate",
+                       nn.HybridConcatenate)):
+        C.append(SweepCase(name, inception,
+                           lambda n, g: [randn(g, n, 256, 28, 28)], 32, 8,
+                           block=lambda c=cls: branches(c), tol=L))
+    C += [
+        SweepCase("Identity", act, bert_act, 8, block=lambda: nn.Identity(),
+                  grad=False),
+        SweepCase("Lambda('tanh')", act, bert_act, 8,
+                  block=lambda: nn.Lambda("tanh")),
+        SweepCase("HybridLambda(x * x)", act, bert_act, 8,
+                  block=lambda: nn.HybridLambda(lambda x: x * x))]
+    cls1000 = "(1024, 1000)"
+
+    def pl(n, g):
+        return [randn(g, n, 1000, scale=2.0), randn(g, n, 1000)]
+    C += [
+        SweepCase("L1Loss", cls1000, pl, 1024, block=lambda: loss.L1Loss()),
+        SweepCase("SigmoidBCELoss pos_weight", "multi-label (1024, 1000)",
+                  lambda n, g: [randn(g, n, 1000, scale=2.0),
+                                (rand(g, n, 1000) > 0.9).float(), None,
+                                rand(g, 1000, lo=1.0, hi=5.0)], 1024,
+                  block=lambda: loss.SigmoidBCELoss()),
+        SweepCase("KLDivLoss from logits", "distillation (1024, 1000)",
+                  lambda n, g: [randn(g, n, 1000, scale=2.0),
+                                torch.softmax(randn(g, n, 1000), -1)], 1024,
+                  block=lambda: loss.KLDivLoss(from_logits=False)),
+        SweepCase("HuberLoss", cls1000, pl, 1024,
+                  block=lambda: loss.HuberLoss()),
+        SweepCase("HingeLoss", cls1000, lambda n, g: [
+            randn(g, n, 1000), signs(g, n, 1000)], 1024,
+                  block=lambda: loss.HingeLoss()),
+        SweepCase("SquaredHingeLoss", cls1000, lambda n, g: [
+            randn(g, n, 1000), signs(g, n, 1000)], 1024,
+                  block=lambda: loss.SquaredHingeLoss()),
+        SweepCase("LogisticLoss", cls1000, lambda n, g: [
+            randn(g, n, 1000), signs(g, n, 1000)], 1024,
+                  block=lambda: loss.LogisticLoss()),
+        SweepCase("TripletLoss", "embeddings (1024, 128)", lambda n, g: [
+            randn(g, n, 128), randn(g, n, 128), randn(g, n, 128)], 1024,
+                  block=lambda: loss.TripletLoss()),
+        SweepCase("CosineEmbeddingLoss", "(1024, 512)", lambda n, g: [
+            randn(g, n, 512), randn(g, n, 512), signs(g, n)], 1024,
+                  block=lambda: loss.CosineEmbeddingLoss()),
+        SweepCase("PoissonNLLLoss", cls1000, lambda n, g: [
+            randn(g, n, 1000), torch.poisson(rand(g, n, 1000, hi=4.0),
+                                             generator=g)], 1024,
+                  block=lambda: loss.PoissonNLLLoss(), tol=L),
+        SweepCase("SDMLLoss", "(256, 512)", lambda n, g: [
+            randn(g, n, 512), randn(g, n, 512)], 256,
+                  block=lambda: loss.SDMLLoss()),
+        SweepCase("CTCLoss (npx.ctc_loss)",
+                  "T=400, B=32, 29 classes, labels 20-100",
+                  lambda n, g: [randn(g, n, 400, 29, scale=2.0),
+                                randint(g, 1, 29, n, 100),
+                                randint(g, 300, 401, n),
+                                randint(g, 20, 101, n)], 32,
+                  block=lambda: loss.CTCLoss(), tol=L)]
+    return C
+
+
+def sweep_run(torch, case, block, args):
+    """Output and gradients (of the float arguments and the block's
+    parameters; zeros where no gradient reaches one) of one call, for a
+    random cotangent."""
+    xs = [a.detach().clone().requires_grad_(
+        case.grad and a.is_floating_point()) if a is not None else None
+        for a in args]
+    out = case(block, *xs)
+    if not case.grad:
+        return out, []
+    leaves = sweep_leaves(xs, block)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    cot = torch.randn(out.shape, generator=gen).to(out.device, out.dtype)
+    grads = torch.autograd.grad(out, leaves, cot, allow_unused=True)
+    return out.detach(), [torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, grads)]
+
+
+def sweep_leaves(xs, block):
+    """The tensors a sweep call differentiates: its float arguments and
+    the trained parameters of its block."""
+    leaves = [x for x in xs if x is not None and x.requires_grad]
+    if block is not None:
+        leaves += [p.data() for p in block.collect_params().values()
+                   if p.grad_req != "null"]
+    return leaves
+
+
+def sweep_ms(fn):
+    """Device ms a call of ``fn``: the median of three profiler sessions
+    that recorded device time (a session can lose records and read low or
+    nothing), None when none did."""
+    runs = sorted(v for v in (device_ms(fn, iters=5) for _ in range(3))
+                  if v)
+    return runs[len(runs) // 2] if runs else None
+
+
+def sweep_blocks(torch, case, dev):
+    """The case's block on the CPU (parameters from a CPU generator) and a
+    copy on the card with the same parameters; (None, None) for an
+    operator."""
+    if case.block is None:
+        return None, None
+    from mxnet_tpu_torch.convert import export_params, load_jax_params
+    cpu = case.block()
+    cpu.initialize(generator=torch.Generator().manual_seed(5), device="cpu")
+    return cpu, load_jax_params(case.block().to(dev), export_params(cpu))
+
+
+def sweep_one(torch, dev, case):
+    """Card against CPU at ``n_cmp`` (f32; bf16 against f32 on the card),
+    then the forward and the forward+backward timed at ``n_full``."""
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    args = case.make(case.n_cmp, gen)
+    on_dev = [None if a is None else a.to(dev) for a in args]
+    cpu_block, dev_block = sweep_blocks(torch, case, dev)
+    want, want_g = sweep_run(torch, case, cpu_block, args)
+    got, got_g = sweep_run(torch, case, dev_block, on_dev)
+    if got.dtype == torch.bool:
+        err = 0.0 if torch.equal(got.cpu(), want) else 1.0
+    else:
+        err = max([rel64(got, want)] + [rel64(a, b)
+                                         for a, b in zip(got_g, want_g)])
+    if err > case.tol or not all(bool(t.isfinite().all()) for t in
+                                 [got.float()] + list(got_g)):
+        fail(f"phase 11: {case.name}: card against CPU rel {err:.3e} "
+             f"(limit {case.tol})")
+    err16 = None
+    if case.bf16:
+        half = [a.to(torch.bfloat16) if a is not None and
+                a.is_floating_point() else a for a in on_dev]
+        ref = [a.float() if a is not None and a.is_floating_point() else a
+               for a in half]
+        if dev_block is not None:
+            dev_block.cast("bfloat16")
+            b16, b16_g = sweep_run(torch, case, dev_block, half)
+            dev_block.cast("float32")
+        else:
+            b16, b16_g = sweep_run(torch, case, None, half)
+        f32, f32_g = sweep_run(torch, case, dev_block, ref)
+        err16 = max([rel64(b16, f32)] + ([] if case.bf16 == "forward" else
+                                         [rel64(a, b) for a, b in
+                                          zip(b16_g, f32_g)]))
+        if err16 > TOL_SWEEP_BF16:
+            fail(f"phase 11: {case.name}: bf16 against f32 rel "
+                 f"{err16:.3e} (limit {TOL_SWEEP_BF16})")
+    del args, on_dev, want, want_g, got, got_g
+    gdev = torch.Generator(device=dev).manual_seed(22)
+    full = case.make(case.n_full, gdev)
+    fwd_ms = sweep_ms(lambda: case(dev_block, *full))
+    bwd_ms = None
+    if case.grad:
+        xs = [a.requires_grad_(True) if a is not None and
+              a.is_floating_point() else a for a in full]
+        leaves = sweep_leaves(xs, dev_block)
+        cot = torch.randn(case(dev_block, *xs).shape, generator=gdev,
+                          device=dev)
+        bwd_ms = sweep_ms(lambda: torch.autograd.grad(
+            case(dev_block, *xs), leaves, cot, allow_unused=True))
+    print(f"phase 11: sweep {case.name} at {case.size}: card against CPU "
+          f"(N={case.n_cmp}) rel {err:.3e} (limit {case.tol})"
+          + ("" if err16 is None else f", bf16 against f32 rel "
+             f"{err16:.3e} (limit {TOL_SWEEP_BF16}"
+             + (", the output" if case.bf16 == "forward" else "") + ")")
+          + f"; device ms forward {fmt_ms(fwd_ms)}, forward+backward "
+          f"{fmt_ms(bwd_ms)} (N={case.n_full})", flush=True)
+    del full
+    torch.cuda.empty_cache()
+
+
+def init_check(torch, dev):
+    """The ported initializers drawing on the card: Orthogonal rows
+    orthonormal to its scale, MSRAPrelu's variance Xavier's, Constant,
+    Bilinear, LSTMBias and ``gluon.Constant`` equal to the CPU's bits."""
+    from mxnet_tpu_torch import initializer as init
+    from mxnet_tpu_torch.gluon import Constant
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = init.Orthogonal(1.414)((1024, 1024), gen, device=dev).double()
+    orth = ((q @ q.T - 1.414 ** 2 * torch.eye(1024, device=dev,
+                                               dtype=torch.float64)).abs()
+            .max().item())
+    w = init.MSRAPrelu()((256, 256, 3, 3), gen, device=dev)
+    var = w.double().var().item() / (2.0 / (1 + 0.25 ** 2) / (256 * 9))
+    cpu = torch.Generator().manual_seed(0)
+    same = all(torch.equal(ini((2, 3, 4, 4), gen, device=dev).cpu(),
+                           ini((2, 3, 4, 4), cpu))
+               for ini in (init.Constant(0.3), init.Bilinear(),
+                           init.LSTMBias(2.0)))
+    c = Constant(torch.arange(6.0).reshape(2, 3))
+    c.initialize(device=dev)
+    if orth > 1e-5 or abs(var - 1) > 0.05 or not same or \
+            c.data().device != dev or not torch.equal(
+                c.data().cpu(), torch.arange(6.0).reshape(2, 3)):
+        fail(f"phase 11: initializers on the card: Orthogonal |q q^T - "
+             f"s^2 I| {orth:.2e}, MSRAPrelu variance / Xavier's {var:.4f}, "
+             f"Constant / Bilinear / LSTMBias equal to the CPU's {same}, "
+             f"gluon.Constant on {c.data().device}")
+    print(f"phase 11: initializers on the card: Orthogonal (1024, 1024) "
+          f"|q q^T - 1.414^2 I| {orth:.2e}; MSRAPrelu (256, 256, 3, 3) "
+          f"variance / Xavier's formula {var:.4f}; Constant, Bilinear and "
+          f"LSTMBias equal to the CPU's bits; gluon.Constant placed on "
+          f"{c.data().device}", flush=True)
+
+
+def phase_layers(torch, dev):
+    """Phase 11: MXNet's Gluon DCGAN on the card (the B = 8 iteration
+    against the CPU, the B = 64 main path with its launches, time and
+    memory), its kernels' rows at its shapes, the initializers, and the
+    sweep of every ported operator, layer and loss against the CPU.
+    Returns (rows, launches)."""
+    from mxnet_tpu_torch.gluon import nn
+    t_phase = time.perf_counter()
+    netG, netD = dcgan_nets(nn, **DCGAN)
+    params = (dcgan_weights(netG, 0), dcgan_weights(netD, 1))
+    dcgan_parity(torch, dev, params)
+    launches = dcgan_train(torch, dev, params)
+    rows = dcgan_kernel_rows(torch, dev, params)
+    init_check(torch, dev)
+    t = time.perf_counter()
+    cases = sweep_cases(torch)
+    for case in cases:
+        sweep_one(torch, dev, case)
+    print(f"phase 11: sweep of {len(cases)} operators, layers and losses in "
+          f"{time.perf_counter() - t:.1f} s; phase done in "
+          f"{time.perf_counter() - t_phase:.1f} s; card: {smi_line()}",
+          flush=True)
+    return rows, launches
+
+
 def initialize_check(torch) -> None:
     """Phase 1: MXNet's ``initialize()`` with no arguments puts a block's
     parameters on the current context, ``cuda:0``."""
@@ -6522,13 +7336,14 @@ def initialize_check(torch) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "rtc", "generate",
-                                       "seq2seq", "gpt-train"],
+                                       "seq2seq", "gpt-train", "layers"],
                     default=None,
                     help="kernels: stop after the kernel checks (phases "
                     "1-3); rtc: phases 1 and 7 only; generate: phases 1, "
                     "2 and 8 (GPT-2 generation); seq2seq: phases 1, 2 and "
                     "9 (the encoder-decoder Transformer); gpt-train: "
-                    "phases 1, 2 and 10 (GPT-2 training)")
+                    "phases 1, 2 and 10 (GPT-2 training); layers: phases "
+                    "1, 2 and 11 (the DCGAN and the layer sweep)")
     ap.add_argument("--probe-fwd", action="store_true",
                     help="after phase 3, time the flash forward against "
                     "builds of it with one part cut out")
@@ -6649,6 +7464,19 @@ def main() -> int:
                    ATTN_KERNELS + UPDATE_KERNELS if not pl[n]]
         if missing:
             fail(f"kernels never launched on the training paths: {missing}")
+        if args.only in (None, "layers"):
+            # phase 11 (after phase 10; phase 7 follows)
+            layer_rows, layer_launches = phase_layers(torch, dev)
+            layer_names = list(BN_KERNELS + UPDATE_KERNELS)
+            if args.only == "layers":
+                names = layer_names
+                rows.update(layer_rows)
+                launches.update({n: 0 for n in names})
+            missing = [n for n in layer_names if not layer_launches[n]]
+            if missing:
+                fail(f"kernels never launched on the DCGAN path: {missing}")
+            for n in layer_names:
+                launches[n] += layer_launches[n]
         entries += [dict(name=n, route="cuda", source=KERNEL_INFO[n][0],
                          replaces=KERNEL_INFO[n][1], launches=launches[n],
                          **rows[n]) for n in names]

@@ -49,7 +49,7 @@ def getenv(name: str, default: Any = None, typ: Optional[type] = None) -> Any:
 # the ROADMAP Queue A item that ports them. Reading one raises MXNetError
 # naming the item; any other missing name is an AttributeError.
 QUEUE_A = {
-    6: "Gluon layers, losses, initializers and the npx operators",
+    6: "the quantized and box operators",
     7: "the rest of the imperative surface",
     8: "the vision remainder, AMP and deferred initialization",
     9: "RNN",
@@ -72,35 +72,19 @@ _UNPORTED = {
             "subgraph name attribute visualization viz",
     },
     "mxnet_tpu_torch.gluon": {
-        6: "Constant",
         8: "DeferredInitializationError",
         9: "rnn",
         11: "data",
-        12: "contrib",
         15: "SymbolBlock utils",
     },
-    "mxnet_tpu_torch.gluon.nn": {
-        6: "Sequential SyncBatchNorm GroupNorm InstanceNorm Lambda "
-           "HybridLambda Identity HybridConcatenate Concatenate Conv1D Conv3D "
-           "Conv1DTranspose Conv2DTranspose Conv3DTranspose MaxPool1D "
-           "MaxPool3D AvgPool1D AvgPool3D GlobalMaxPool1D GlobalMaxPool2D "
-           "GlobalMaxPool3D GlobalAvgPool1D GlobalAvgPool3D ReflectionPad2D "
-           "LeakyReLU PReLU ELU SELU GELU Swish SiLU Mish HardSigmoid "
-           "HardSwish",
+    "mxnet_tpu_torch.gluon.contrib": {
+        9: "rnn",
+        12: "estimator",
     },
     "mxnet_tpu_torch.npx": {
-        6: "leaky_relu prelu elu selu silu swish mish softrelu softsign "
-           "hard_sigmoid hard_swish log_sigmoid softmax masked_softmax "
-           "masked_log_softmax deconvolution adaptive_avg_pool2d group_norm "
-           "instance_norm rms_norm l2_normalization lrn sequence_mask "
-           "sequence_last sequence_reverse topk_mask smooth_l1 up_sampling "
-           "roi_pooling ctc_loss softmax_output linear_regression_output "
-           "mae_regression_output logistic_regression_output make_loss "
-           "arange_like interleaved_matmul_selfatt_qk "
-           "interleaved_matmul_selfatt_valatt interleaved_matmul_encdec_qk "
-           "interleaved_matmul_encdec_valatt quantize quantize_v2 dequantize "
-           "requantize quantized_fully_connected quantized_conv "
-           "quantized_pooling quantized_act quantized_flatten",
+        6: "quantize quantize_v2 dequantize requantize "
+           "quantized_fully_connected quantized_conv quantized_pooling "
+           "quantized_act quantized_flatten",
         9: "rnn",
     },
 }

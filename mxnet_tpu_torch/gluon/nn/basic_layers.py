@@ -1,25 +1,64 @@
-"""Basic layers: HybridSequential, Dense, Dropout, BatchNorm, LayerNorm,
-Embedding, Flatten, and the BatchNorm -> relu -> 1x1-conv junction matcher.
+"""Basic layers: Sequential, HybridSequential, Dense, Dropout, BatchNorm,
+SyncBatchNorm, LayerNorm, GroupNorm, InstanceNorm, Embedding, Flatten,
+Identity, Lambda, HybridLambda, HybridConcatenate / Concatenate, and the
+BatchNorm -> relu -> 1x1-conv junction matcher.
 
 Counterpart of the same classes and helpers (``_has_hooks``,
 ``_conv1x1_fusable``, ``_fusable_bn_relu_conv``, ``_sequential_forward``)
 in ``mxnet_tpu/gluon/nn/basic_layers.py``, with the same parameter names
-and layouts (Dense weight is (units, in_units); LayerNorm has gamma/beta;
-BatchNorm has gamma, beta, running_mean, running_var and stat_shift).
+and layouts (Dense weight is (units, in_units); LayerNorm, GroupNorm and
+InstanceNorm have gamma/beta; BatchNorm has gamma, beta, running_mean,
+running_var and stat_shift).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
 from ... import npx
 from ...base import MXNetError
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ..parameter import Parameter, data_or_none
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Embedding", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda", "Identity",
+           "HybridConcatenate", "Concatenate"]
+
+
+class Sequential(Block):
+    """Blocks run in order, named "0", "1", ... (``nn.Sequential``): a
+    plain Block, whose ``hybridize`` reaches its hybrid children."""
+
+    def add(self, *blocks: Block) -> None:
+        for b in blocks:
+            self.register_child(b)
+
+    def forward(self, x: Any, *args: Any) -> Any:
+        for child in self._modules.values():
+            x = child(x, *args)
+            args = ()
+        return x
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, key: Union[int, slice]):
+        items = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*items[key])
+            return net
+        return items[key]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def hybridize(self, active: bool = True, **kwargs: Any) -> None:
+        for child in self._modules.values():
+            if isinstance(child, HybridBlock):
+                child.hybridize(active, **kwargs)
 
 
 def _has_hooks(*blocks) -> bool:
@@ -316,3 +355,120 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm; on one device it is :class:`BatchNorm`, as
+    in the JAX package (``num_devices`` is accepted)."""
+
+    def __init__(self, in_channels: int = 0,
+                 num_devices: Optional[int] = None, **kwargs: Any) -> None:
+        kwargs.setdefault("in_channels", in_channels)
+        super().__init__(**kwargs)
+
+
+class _Norm(HybridBlock):
+    """gamma and beta of ``in_channels``; ``center`` and ``scale`` are
+    accepted, and both apply either way, as in the JAX package."""
+
+    def __init__(self, epsilon: float, beta_initializer: Any,
+                 gamma_initializer: Any, in_channels: int,
+                 **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        self.gamma = Parameter("gamma", shape=(in_channels,),
+                               init=gamma_initializer)
+        self.beta = Parameter("beta", shape=(in_channels,),
+                              init=beta_initializer)
+
+
+class GroupNorm(_Norm):
+    """Group normalization over channels-first data."""
+
+    def __init__(self, num_groups: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer: Any = "zeros",
+                 gamma_initializer: Any = "ones", in_channels: int = 0,
+                 **kwargs: Any) -> None:
+        super().__init__(epsilon, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        return npx.group_norm(x, self.gamma.data(), self.beta.data(),
+                              num_groups=self._num_groups, eps=self._epsilon)
+
+
+class InstanceNorm(_Norm):
+    """Instance normalization over channels-first data (``axis`` is
+    accepted; the channels are axis 1, as in the JAX package)."""
+
+    def __init__(self, axis: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer: Any = "zeros",
+                 gamma_initializer: Any = "ones", in_channels: int = 0,
+                 **kwargs: Any) -> None:
+        super().__init__(epsilon, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+
+    def forward(self, x):
+        return npx.instance_norm(x, self.gamma.data(), self.beta.data(),
+                                 eps=self._epsilon)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _function(function: Union[str, Callable]) -> Callable:
+    """A callable, or the name of a torch function of the numpy
+    namespace's name ('tanh', 'exp', ...)."""
+    if not isinstance(function, str):
+        return function
+    fn = getattr(torch, function, None)
+    if not callable(fn):
+        raise MXNetError(f"Lambda: no function named {function!r}")
+    return fn
+
+
+class Lambda(Block):
+    """A function as a Block (``nn.Lambda``)."""
+
+    def __init__(self, function: Union[str, Callable], **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._func = _function(function)
+
+    def forward(self, *args: Any) -> Any:
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function as a HybridBlock (``nn.HybridLambda``)."""
+
+    def __init__(self, function: Union[str, Callable], **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._func = _function(function)
+
+    def forward(self, *args: Any) -> Any:
+        return self._func(*args)
+
+
+class HybridConcatenate(HybridBlock):
+    """Children run on the same input, their outputs concatenated along
+    ``axis``."""
+
+    def __init__(self, axis: int = -1, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def add(self, *blocks: Block) -> None:
+        for b in blocks:
+            self.register_child(b)
+
+    def forward(self, x):
+        return torch.cat([child(x) for child in self._modules.values()],
+                         dim=self.axis)
+
+
+Concatenate = HybridConcatenate

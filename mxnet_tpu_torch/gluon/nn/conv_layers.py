@@ -1,20 +1,29 @@
 """Convolution and pooling layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` (``_Conv`` forward,
-``Conv2D``, ``_Pool``, ``MaxPool2D``, ``AvgPool2D``, ``GlobalAvgPool2D``),
-channels-first (NCHW), with the weight layout (channels, in_channels /
-groups, kh, kw). Shapes are fixed at construction, so a convolution takes
-``in_channels`` (the JAX package can defer it to the first forward).
+Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``Conv1D`` / ``2D`` /
+``3D``, their transposes (on ``npx.deconvolution``, with
+``output_padding``), the max and average pools of 1-3 spatial dims, their
+global forms and ``ReflectionPad2D``, channels-first, with the weight
+layouts (channels, in_channels / groups, k...) and, transposed,
+(in_channels, channels / groups, k...). Shapes are fixed at construction,
+so a convolution takes ``in_channels`` (the JAX package can defer it to the
+first forward).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
+import torch.nn.functional as F
+
 from ... import npx
 from ..block import HybridBlock
 from ..parameter import Parameter, data_or_none
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D"]
 
 
 def _tuplify(v, n):
@@ -29,6 +38,7 @@ class _Conv(HybridBlock):
                  activation: Optional[str] = None, use_bias: bool = True,
                  weight_initializer: Any = None,
                  bias_initializer: Any = "zeros", ndim: int = 2,
+                 transpose: bool = False, output_padding=0,
                  **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._channels = channels
@@ -40,19 +50,27 @@ class _Conv(HybridBlock):
         self._groups = groups
         self._layout = layout
         self._activation = activation
-        self.weight = Parameter(
-            "weight", shape=(channels, in_channels // groups) + self._kernel,
-            init=weight_initializer)
+        self._transpose = transpose
+        self._output_padding = _tuplify(output_padding, ndim)
+        io = (in_channels, channels // groups) if transpose else \
+            (channels, in_channels // groups)
+        self.weight = Parameter("weight", shape=io + self._kernel,
+                                init=weight_initializer)
         self.bias = Parameter("bias", shape=(channels,),
                               init=bias_initializer) if use_bias else None
 
     def forward(self, x):
-        out = npx.convolution(
-            x, self.weight.data(), data_or_none(self.bias),
-            kernel=self._kernel,
-            stride=self._strides, dilate=self._dilation, pad=self._padding,
-            num_filter=self._channels, num_group=self._groups,
-            no_bias=self.bias is None, layout=self._layout)
+        kw = dict(kernel=self._kernel, stride=self._strides,
+                  dilate=self._dilation, pad=self._padding,
+                  num_filter=self._channels, num_group=self._groups,
+                  no_bias=self.bias is None, layout=self._layout)
+        if self._transpose:
+            out = npx.deconvolution(x, self.weight.data(),
+                                    data_or_none(self.bias),
+                                    adj=self._output_padding, **kw)
+        else:
+            out = npx.convolution(x, self.weight.data(),
+                                  data_or_none(self.bias), **kw)
         if self._activation:
             out = npx.activation(out, self._activation)
         return out
@@ -62,11 +80,53 @@ class _Conv(HybridBlock):
                 f"kernel_size={self._kernel}, stride={self._strides}")
 
 
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=1, **kwargs)
+
+
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", **kwargs):
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, layout, ndim=2, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=3, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=1, transpose=True,
+                         output_padding=output_padding, **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=2, transpose=True,
+                         output_padding=output_padding, **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, ndim=3, transpose=True,
+                         output_padding=output_padding, **kwargs)
 
 
 class _Pool(HybridBlock):
@@ -99,11 +159,33 @@ class _Pool(HybridBlock):
                 f"padding={self._padding}")
 
 
+class MaxPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(pool_size, strides, padding, 1, "max", layout,
+                         ceil_mode=ceil_mode, **kwargs)
+
+
 class MaxPool2D(_Pool):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
         super().__init__(pool_size, strides, padding, 2, "max", layout,
                          ceil_mode=ceil_mode, **kwargs)
+
+
+class MaxPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(pool_size, strides, padding, 3, "max", layout,
+                         ceil_mode=ceil_mode, **kwargs)
+
+
+class AvgPool1D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(pool_size, strides, padding, 1, "avg", layout,
+                         ceil_mode=ceil_mode,
+                         count_include_pad=count_include_pad, **kwargs)
 
 
 class AvgPool2D(_Pool):
@@ -115,7 +197,57 @@ class AvgPool2D(_Pool):
                          count_include_pad=count_include_pad, **kwargs)
 
 
-class GlobalAvgPool2D(_Pool):
-    def __init__(self, layout="NCHW", **kwargs):
-        super().__init__(1, 1, 0, 2, "avg", layout, global_pool=True,
+class AvgPool3D(_Pool):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(pool_size, strides, padding, 3, "avg", layout,
+                         ceil_mode=ceil_mode,
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class _GlobalPool(_Pool):
+    def __init__(self, ndim: int, pool_type: str, layout: str, **kwargs):
+        super().__init__(1, 1, 0, ndim, pool_type, layout, global_pool=True,
                          **kwargs)
+
+
+class GlobalMaxPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "max", layout, **kwargs)
+
+
+class GlobalMaxPool2D(_GlobalPool):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(2, "max", layout, **kwargs)
+
+
+class GlobalMaxPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "max", layout, **kwargs)
+
+
+class GlobalAvgPool1D(_GlobalPool):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__(1, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool2D(_GlobalPool):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__(2, "avg", layout, **kwargs)
+
+
+class GlobalAvgPool3D(_GlobalPool):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__(3, "avg", layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflect ``padding`` pixels at each side of an NCHW image."""
+
+    def __init__(self, padding: int = 0, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self._padding = padding
+
+    def forward(self, x):
+        return F.pad(x, (self._padding,) * 4, mode="reflect")

@@ -39,8 +39,8 @@ import torch
 from ..base import MXNetError
 from ..context import Context, as_device
 
-__all__ = ["Parameter", "to_torch_dtype", "context_of", "data_or_none",
-           "dedupe_shared"]
+__all__ = ["Parameter", "Constant", "to_torch_dtype", "context_of",
+           "data_or_none", "dedupe_shared"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -237,6 +237,27 @@ class Parameter:
     def __repr__(self) -> str:
         return (f"Parameter {self._name} (shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (MXNet's
+    ``gluon.Constant``): ``initialize`` places the value, whatever the
+    initializer."""
+
+    def __init__(self, value: Any, name: str = "const") -> None:
+        t = value if isinstance(value, torch.Tensor) else \
+            torch.as_tensor(_np.asarray(getattr(value, "_data", value)))
+        super().__init__(name=name, grad_req="null", shape=tuple(t.shape),
+                         dtype=t.dtype, differentiable=False)
+        self._value = t.detach().clone()
+
+    def initialize(self, init: Any = None, ctx: Any = None,
+                   default_init: Any = None, force_reinit: bool = False,
+                   *, generator: Optional[torch.Generator] = None,
+                   device: Any = None) -> None:
+        with torch.no_grad():
+            self._var.data = self._value.to(resolve_device(ctx, device))
+        self.initialized = True
 
 
 def data_or_none(p: Optional[Parameter]) -> Optional[torch.Tensor]:

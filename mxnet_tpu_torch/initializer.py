@@ -1,7 +1,8 @@
 """Weight initializers with an explicit ``torch.Generator``.
 
 Counterpart of ``mxnet_tpu/initializer.py`` (``Initializer``, ``Zero``,
-``One``, ``Uniform``, ``Normal``, ``Xavier``, the string registry). The
+``One``, ``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
+``MSRAPrelu``, ``LSTMBias``, ``Bilinear``, the string registry). The
 JAX package draws from its global threefry stream; here every draw takes
 the caller's generator, on that generator's device, and is then moved to
 the parameter's device: a CPU generator gives the same weights whatever the
@@ -14,9 +15,11 @@ from __future__ import annotations
 import math
 from typing import Any, Dict
 
+import numpy as _np
 import torch
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Orthogonal", "Xavier", "MSRAPrelu", "LSTMBias", "Bilinear",
            "register", "get"]
 
 _REGISTRY: Dict[str, type] = {}
@@ -85,6 +88,16 @@ _REGISTRY["ones"] = One
 
 
 @register
+class Constant(Initializer):
+    def __init__(self, value: float = 0.0) -> None:
+        self.value = value
+
+    def _init(self, shape, generator):
+        value = torch.from_numpy(_np.asarray(self.value, dtype=_np.float32))
+        return torch.broadcast_to(value, shape).clone()
+
+
+@register
 class Uniform(Initializer):
     """U(-scale, scale); the reference's default for weights."""
 
@@ -104,6 +117,36 @@ class Normal(Initializer):
     def _init(self, shape, generator):
         return torch.randn(shape, generator=generator,
                            device=generator.device) * self.sigma
+
+
+def _draw(shape, generator, rand_type: str):
+    """U(-1, 1) for 'uniform', else N(0, 1), on the generator's device."""
+    if rand_type == "uniform":
+        return torch.rand(shape, generator=generator,
+                          device=generator.device) * 2 - 1
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor of a random (out, in) matrix
+    (U(-1, 1) or N(0, 1) entries): U of its SVD when that has the
+    weight's shape, else V^T. Rows (or columns) orthonormal to
+    ``scale``. The SVD runs in f64: cuSOLVER's f32 SVD of a 1024 x 1024
+    matrix leaves its rows orthonormal only to ~2e-4 (LAPACK's f32 to
+    ~3e-6), so the f32 factor is the f64 one rounded."""
+
+    def __init__(self, scale: float = 1.414,
+                 rand_type: str = "uniform") -> None:
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init(self, shape, generator):
+        nout, nin = shape[0], math.prod(shape[1:])
+        a = _draw((nout, nin), generator, self.rand_type).double()
+        u, _, v = torch.linalg.svd(a, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        return (self.scale * q.reshape(shape)).float()
 
 
 @register
@@ -129,3 +172,40 @@ class Xavier(Initializer):
                                device=generator.device) * 2 - 1) * scale
         return torch.randn(shape, generator=generator,
                            device=generator.device) * scale
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Kaiming He's initialization: Gaussian Xavier with magnitude
+    ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type: str = "avg", slope: float = 0.25) -> None:
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros but the forget gate's quarter (the second), ``forget_bias``."""
+
+    def __init__(self, forget_bias: float = 1.0) -> None:
+        self.forget_bias = forget_bias
+
+    def _init(self, shape, generator):
+        b = torch.zeros(shape)
+        n = shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        return b
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel for a deconvolution weight (out, in,
+    kh, kw), each (kh, kw) plane the same."""
+
+    def _init(self, shape, generator):
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = _np.arange(math.prod(shape))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        w = (1 - _np.abs(x / f - c)) * (1 - _np.abs(y / f - c))
+        return torch.from_numpy(w.astype(_np.float32).reshape(shape))

@@ -1,9 +1,9 @@
 """``npx`` — the operator namespace.
 
 Counterpart of ``mxnet_tpu/npx.py``: the operators of ``ops/nn.py`` and
-``ops/transformer.py`` that the port has, ``set_np`` and its friends, the
-device helpers and the ``mx.nd`` operators the JAX package re-exports here.
-A name of its ``__all__`` that the port lacks raises
+``ops/transformer.py``, ``set_np`` and its friends, the device helpers and
+the ``mx.nd`` operators the JAX package re-exports here. A name of its
+``__all__`` that the port lacks (``rnn``, the quantized operators) raises
 :class:`~mxnet_tpu_torch.base.MXNetError` naming its ROADMAP Queue A item.
 """
 from .base import unported
@@ -15,27 +15,20 @@ from .ndarray.ops import (arange, batch_dot, broadcast_like,  # noqa: F401
                           pad, reshape, reshape_like, scatter_nd, shuffle,
                           sigmoid, space_to_depth, spatial_transformer, tanh,
                           topk)
-from .ops.nn import (activation, batch_norm,  # noqa: F401
-                     batch_norm_relu_conv1x1, conv_fusion_enabled,
-                     convolution, dropout, embedding, fully_connected, gelu,
-                     layer_norm, log_softmax, pick, pooling, relu,
-                     relu_conv1x1, take_positions)
-from .ops.transformer import (dot_product_attention,  # noqa: F401
-                              multi_head_attention)
+from .ops.nn import *  # noqa: F401,F403
+from .ops.nn import __all__ as _nn_all
+from .ops.transformer import *  # noqa: F401,F403
+from .ops.transformer import __all__ as _tr_all
 from .util import (is_np_array, is_np_shape, reset_np, set_np,  # noqa: F401
                    use_np)
 
-__all__ = ["activation", "dropout", "embedding", "fully_connected", "gelu",
-           "layer_norm", "log_softmax", "pick", "take_positions",
-           "dot_product_attention", "multi_head_attention", "relu",
-           "convolution", "pooling", "batch_norm", "conv_fusion_enabled",
-           "batch_norm_relu_conv1x1", "relu_conv1x1",
-           "set_np", "reset_np", "is_np_array", "is_np_shape", "use_np",
-           "cpu", "gpu", "tpu", "num_gpus", "num_tpus", "current_context",
-           "waitall", "one_hot", "topk", "pad", "arange", "reshape",
-           "gather_nd", "scatter_nd", "sigmoid", "tanh", "reshape_like",
-           "broadcast_like", "batch_dot", "depth_to_space", "space_to_depth",
-           "shuffle", "spatial_transformer", "khatri_rao"]
+__all__ = list(_nn_all) + list(_tr_all) + [
+    "set_np", "reset_np", "is_np_array", "is_np_shape", "use_np",
+    "cpu", "gpu", "tpu", "num_gpus", "num_tpus", "current_context",
+    "waitall", "one_hot", "topk", "pad", "arange", "reshape", "gather_nd",
+    "scatter_nd", "sigmoid", "tanh", "reshape_like", "broadcast_like",
+    "batch_dot", "depth_to_space", "space_to_depth", "shuffle",
+    "spatial_transformer", "khatri_rao"]
 
 
 def __getattr__(name):

@@ -1,11 +1,15 @@
 """Transformer attention ops.
 
 Counterpart of ``mxnet_tpu/ops/transformer.py`` (``_mask_to_bias``,
-``dot_product_attention``, ``multi_head_attention``), with the same
-(B, T, C) / (B, T, H, D) layouts and mask-to-bias rules. Attention always
-goes through :func:`~mxnet_tpu_torch.ops.cuda.attention.flash_attention`:
-on a CUDA tensor that is the Hopper kernel, on a CPU tensor its plain
-version. There is no length threshold.
+``dot_product_attention``, ``multi_head_attention`` and the four
+``interleaved_matmul_*`` operators of MXNet's fused-QKV API), with the same
+(B, T, C) / (B, T, H, D) layouts and mask-to-bias rules; the interleaved
+operators take MXNet's (T, N, 3 * H * D) layout, each head's q, k and v
+side by side, and are batched matrix products (cuBLAS on the GPU).
+Attention always goes through
+:func:`~mxnet_tpu_torch.ops.cuda.attention.flash_attention`: on a CUDA
+tensor that is the Hopper kernel, on a CPU tensor its plain version.
+There is no length threshold.
 
 As in the JAX package's routing: a boolean mask is not learned, so the
 kernel is told ``bias_grad=False`` and skips the O(B*H*T^2) softmax
@@ -27,7 +31,10 @@ from ..autograd import is_training
 from ..base import getenv, register_env
 from .cuda.attention import DEFAULT_BLOCK_K, flash_attention
 
-__all__ = ["dot_product_attention", "multi_head_attention"]
+__all__ = ["dot_product_attention", "multi_head_attention",
+           "interleaved_matmul_selfatt_qk",
+           "interleaved_matmul_selfatt_valatt",
+           "interleaved_matmul_encdec_qk", "interleaved_matmul_encdec_valatt"]
 
 register_env("MXNET_FLASH_BLOCK_K", DEFAULT_BLOCK_K,
              "Flash-attention key-block rows: the backward runs the fused "
@@ -105,3 +112,61 @@ def multi_head_attention(query, key, value, num_heads: int, mask=None,
                                 dropout=dropout, causal=causal,
                                 training=training)
     return out.reshape(B, Tq, C)
+
+
+def _heads(x, T: int, N: int, nh: int, d: int):
+    """(T, N, nh, d) -> (N * nh, T, d)."""
+    return x.permute(1, 2, 0, 3).reshape(N * nh, T, d)
+
+
+def _merge(out, N: int, nh: int, d: int):
+    """(N * nh, T, d) -> (T, N, nh * d)."""
+    T = out.shape[1]
+    return out.reshape(N, nh, T, d).permute(2, 0, 1, 3).reshape(T, N, nh * d)
+
+
+def _scaled(q, d: int):
+    """``q / sqrt(d)``, the factor computed in q's dtype as the JAX
+    package computes it."""
+    return q * (1.0 / torch.sqrt(torch.tensor(d, dtype=q.dtype,
+                                              device=q.device)))
+
+
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads: int):
+    """Scaled q k^T from the interleaved (T, N, 3 * H * D) projection:
+    (N * H, T, T)."""
+    T, N, C3 = queries_keys_values.shape
+    d = C3 // (3 * heads)
+    x = queries_keys_values.reshape(T, N, heads, 3, d)
+    q, k = (_heads(x[:, :, :, i], T, N, heads, d) for i in (0, 1))
+    return torch.bmm(_scaled(q, d), k.transpose(1, 2))
+
+
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads: int):
+    """attention · v back to (T, N, H * D)."""
+    T, N, C3 = queries_keys_values.shape
+    d = C3 // (3 * heads)
+    v = _heads(queries_keys_values.reshape(T, N, heads, 3, d)[:, :, :, 2],
+               T, N, heads, d)
+    return _merge(torch.bmm(attention, v), N, heads, d)
+
+
+def interleaved_matmul_encdec_qk(queries, keys_values, heads: int):
+    """Scaled q k^T of queries (Tq, N, H * D) against the interleaved
+    (Tk, N, 2 * H * D) keys and values: (N * H, Tq, Tk)."""
+    Tq, N, C = queries.shape
+    Tk, d = keys_values.shape[0], C // heads
+    q = _heads(queries.reshape(Tq, N, heads, d), Tq, N, heads, d)
+    k = _heads(keys_values.reshape(Tk, N, heads, 2, d)[:, :, :, 0], Tk, N,
+               heads, d)
+    return torch.bmm(_scaled(q, d), k.transpose(1, 2))
+
+
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads: int):
+    """attention · v of the interleaved keys and values: (Tq, N, H * D)."""
+    Tk, N, C2 = keys_values.shape
+    d = C2 // (2 * heads)
+    v = _heads(keys_values.reshape(Tk, N, heads, 2, d)[:, :, :, 1], Tk, N,
+               heads, d)
+    return _merge(torch.bmm(attention, v), N, heads, d)
