@@ -94,8 +94,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    BatchNorm's four training kernels (bn_stats, bn_apply, bn_bwd_reduce,
    bn_bwd_apply) against their plain versions at ResNet-50's nine
    BatchNorm shapes at N=128 in bf16, fp16 and f32, an NHWC (axis -1) and
-   a 2-d case, an input mean of 100 (shifted and centered statistics) and
-   ragged shapes, each twice and equal to the bit; the bf16 shapes timed by
+   a 2-d case, an input mean of 100 (shifted and centered statistics),
+   ragged shapes (one image and one channel among them) and a shape on
+   the reductions' second level (few channels, large images), each twice
+   and equal to the bit, each reduction one kernel record and no memset
+   a call by the profiler, the ResNet-50 shapes' reduction plans one
+   level; the bf16 shapes timed by
    device time beside the bound, the plain version, PyTorch's native
    batch-norm kernels (the library call of each) and cuDNN's training
    ``F.batch_norm`` forward and backward, and their totals per ResNet-50
@@ -293,7 +297,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    finite, every trained parameter moved, iteration ms and img/s, busy and
    idle share of one primed profiled iteration, peak memory and the TF32
    settings; BatchNorm's kernels at DCGAN's four shapes against their
-   plain versions, timed with L2 flushed and totalled per iteration, and
+   plain versions (the reductions' plans one level, one launch and no
+   memset a call), timed with L2 flushed and totalled per iteration, and
    the update over the generator's and the discriminator's parameters;
    the initializers drawing on the card;
    then the sweep: every operator, layer and loss of Queue A 6 at a size
@@ -552,6 +557,8 @@ BN_SHAPES = ((64, 12544, 1), (64, 3136, 6), (256, 3136, 4), (128, 784, 8),
              (512, 784, 5), (256, 196, 12), (1024, 196, 7), (512, 49, 6),
              (2048, 49, 4))
 BN_FUSED = {(64, 3136): 3, (128, 784): 4, (256, 196): 6, (512, 49): 3}
+# (outer, C, inner) of phase 3's case on the reductions' second level
+BN_SECOND = (32, 3, 50176)
 # a ResNet-50 step's BatchNorm launches, fused and unfused; the virgin
 # first step takes centered statistics, two bn_stats sweeps a layer
 BN_STEP = {"1": {"bn_stats": 53, "bn_apply": 37, "bn_bwd_reduce": 37,
@@ -2123,13 +2130,45 @@ def cudnn_bn_ms(torch, c, timer=None):
         return None, None
 
 
+def bn_one_launch(torch, bn, label, c):
+    """Each reduction, one call under the profiler (after the session's
+    :func:`primer`): one record of its kernel and no memset (a session
+    that kept no record of it, as one can lose its first records, is
+    taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, dy, s = c["x"], c["dy"], c["s"]
+    mean, _, inv = bn.bn_stats_reference(x, s, 1e-5)
+    calls = {"bn_stats": lambda: bn._stats(x, s, 1e-5, False),
+             "bn_bwd_reduce": lambda: bn._bwd_reduce(x, dy, mean, inv)}
+    saved = dict(bn.launches)
+    for name, fn in calls.items():
+        fn()
+        for _ in range(3):      # a session that lost the record: again
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                primer()
+                fn()
+                torch.cuda.synchronize()
+            counts = kernel_counts(prof)
+            n = sum(v for k, v in counts.items()
+                    if re.search(BN_KERNEL[name], k))
+            memsets = [k for k in counts if "memset" in k.lower()]
+            if n or memsets:
+                break
+        if n != 1 or memsets:
+            fail(f"{label}: {name} launched its kernel {n} times and "
+                 f"{memsets or 'no'} memsets in one call (one, none)")
+    bn.launches.update(saved)
+
+
 def bn_check(torch, bn, label, c, errs, timed=False, cold=False):
     """BatchNorm's four kernels on one case against their plain versions
     (the statistics both ways, bn_bwd_apply with and without dy), each
     launch moving its counter by one, and a second run of each equal to
-    the bit. Returns {kernel: row} and cuDNN's (fwd, bwd) ms when
-    ``timed``; ``cold``: every device time with L2 flushed before each
-    call (:func:`cold_ms`)."""
+    the bit; each reduction one launch a call (:func:`bn_one_launch`).
+    Returns {kernel: row} and cuDNN's (fwd, bwd) ms when ``timed``;
+    ``cold``: every device time with L2 flushed before each call
+    (:func:`cold_ms`)."""
     x, dy = c["x"], c["dy"]
     outer, C, inner = x.shape
     half = x.dtype != torch.float32
@@ -2208,9 +2247,11 @@ def bn_check(torch, bn, label, c, errs, timed=False, cold=False):
     equal["dx"] = torch.equal(dx, dx_want) and torch.equal(dx2, dx2_want)
     if not (torch.equal(apply(), out) and torch.equal(bwd(), dx)):
         fail(f"{label}: bn_apply or bn_bwd_apply differs from run to run")
+    bn_one_launch(torch, bn, label, c)
     print(f"phase 3: batch norm {label}: relative error {', '.join(parts)}; "
           f"out and dx equal to the plain versions' bits: {equal}; two runs "
-          "equal to the bit", flush=True)
+          "equal to the bit; each reduction one launch, no memset",
+          flush=True)
     if not timed:
         return None
     rows = {}
@@ -2301,8 +2342,12 @@ def bn_checks(torch, dev):
     errs, per_shape = {}, []
     for C, M, n in BN_SHAPES:
         plan = bn.bn_plan(B_RESNET, C, M, torch.bfloat16)
+        rplan = bn.bn_reduce_plan(B_RESNET, C, M, torch.bfloat16)
         label = f"bf16 N={B_RESNET} C={C} M={M} ({n} layers)"
-        print(f"phase 3: batch norm plan {label}: {plan}", flush=True)
+        print(f"phase 3: batch norm plan {label}: {plan}; the reductions' "
+              f"{rplan}", flush=True)
+        if rplan["splits"] != 1:
+            fail(f"{label}: the reductions take the second level {rplan}")
         case = bn_case(torch, dev, gen, B_RESNET, C, M, torch.bfloat16)
         per_shape.append(bn_check(torch, bn, label, case, errs, timed=True))
         del case
@@ -2321,9 +2366,20 @@ def bn_checks(torch, dev):
         bn_check(torch, bn, f"{dtn} mean 100 N=64 C=64 M=784",
                  bn_case(torch, dev, gen, 64, 64, 784, dt, mean=100.0), errs)
         for shape in ((3, 77, 53), (5, 45, 300), (7, 13, 1), (2, 2050, 1),
-                      (6, 30, 98), (4, 9, 12)):
+                      (6, 30, 98), (4, 9, 12), (1, 7, 300), (1, 64, 49),
+                      (64, 1, 1024), (256, 1, 12)):
             bn_check(torch, bn, f"{dtn} ragged {shape}",
                      bn_case(torch, dev, gen, *shape, dt), errs)
+    # the reductions' second level: few channels, large images (an RGB
+    # input layer's BatchNorm), several clusters a channel
+    for dt in (torch.bfloat16, torch.float32):
+        rplan = bn.bn_reduce_plan(*BN_SECOND, dt)
+        if rplan["splits"] < 2:
+            fail(f"{BN_SECOND}: the reductions take one level {rplan}")
+        label = f"{str(dt).split('.')[-1]} second level {BN_SECOND}"
+        print(f"phase 3: batch norm plan {label}: {rplan}", flush=True)
+        bn_check(torch, bn, label, bn_case(torch, dev, gen, *BN_SECOND, dt),
+                 errs)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
         if rows[name]["ms"] is None:      # the profiler saw no device time
@@ -6574,6 +6630,11 @@ DCGAN_GROUPS = {"batch norm": r"\bbn::", "update": r"multi_tensor|mt::",
 # same port on the CPU: BERT's f32 limits (PERF.md section 2)
 TOL_DCGAN_LOSS_REL = 1e-4
 TOL_DCGAN_GRAD_REL = 1e-3
+# D's Adam step there, card against CPU (dcgan_d_step): an element's
+# gradient is settled where the two differ by at most an eighth of the
+# CPU's; at most DCGAN_D_UNSETTLED of D's 2765568 are not
+DCGAN_D_SETTLED = 8
+DCGAN_D_UNSETTLED = 128
 # phase 11's sweep, card against CPU, relative Frobenius error of the
 # output and of each gradient: f32 (TF32 off) 1e-5; convolutions, CTC and
 # reductions over more than 1e4 terms, in the forward or in a gradient (a
@@ -6637,11 +6698,15 @@ def dcgan_setup(torch, dev, params):
     return netG, netD, trD, trG, loss.SigmoidBCELoss()
 
 
-def dcgan_iteration(torch, nets, real, noise, grads=False):
+def dcgan_iteration(torch, nets, real, noise, grads=False, d_after=None,
+                    d_step=None):
     """The example's loop body: D on the real batch (label 1) and on
     ``G(z).detach()`` (label 0), ``trainerD.step``; G through D (label 1),
     ``trainerG.step``. Returns errD, errG and, with ``grads``, the
-    gradients of D's step and of G's step by parameter name."""
+    gradients of D's step and of G's step by parameter name. ``d_step``: a
+    dict that takes D's trained parameters after its step, on the CPU, by
+    name. ``d_after``: D's parameters by name, loaded into D after its step
+    (the G step then goes through those weights)."""
     from mxnet_tpu_torch import autograd
     netG, netD, trD, trG, loss = nets
     B = real.shape[0]
@@ -6661,6 +6726,14 @@ def dcgan_iteration(torch, nets, real, noise, grads=False):
     autograd.backward(errD)
     gD = taken(netD)
     trD.step(B)
+    if d_step is not None:
+        d_step.update({k: p.data().detach().cpu().clone() for k, p in
+                       netD.collect_params().items() if p.grad_req != "null"})
+    if d_after is not None:
+        with torch.no_grad():
+            for k, p in netD.collect_params().items():
+                if k in d_after:
+                    p.data().copy_(d_after[k].to(p.data().device))
     with autograd.record():
         errG = loss(netD(netG(noise)).reshape((-1, 1)), ones)
     autograd.backward(errG)
@@ -6679,29 +6752,73 @@ def dcgan_data(torch, B, seed, dev):
     return real, noise
 
 
+def dcgan_d_step(before, got, want, g_got, g_want):
+    """D's Adam step, ``got`` against ``want`` (D's parameters after it, by
+    name, from the same ``before``): ``(err, name, unsettled)``, the worst
+    relative error of a tensor's update (after less before) over its
+    settled elements, and the count of the others. An element is settled
+    where ``g_got`` differs from its gradient in ``g_want`` by at most
+    1 / DCGAN_D_SETTLED of it. Adam's first step moves a weight by lr *
+    g / (|g| + eps'), eps' = eps / sqrt(1 - beta2) on the rescaled g: by
+    about lr times g's sign, and, where |g| is within a few eps', by an
+    amount that rounding of g moves; an unsettled gradient is rounding's
+    in its sign or its size."""
+    worst, unsettled = (0.0, None), 0
+    for k, w in want.items():
+        g = g_want[k].float()
+        keep = g.abs() >= DCGAN_D_SETTLED * (g_got[k].float() - g).abs()
+        b = before[k].float()
+        worst = max(worst, (rel((got[k].float() - b)[keep],
+                                (w.float() - b)[keep]), k))
+        unsettled += int((~keep).sum())
+    return worst[0], worst[1], unsettled
+
+
 def dcgan_parity(torch, dev, params):
     """One iteration at B = 8, f32, on the card and on the CPU from the
-    same weights and data: losses and every gradient within the limits."""
+    same weights and data: losses and every gradient within the limits.
+    D's step is held to the CPU's by :func:`dcgan_d_step`: its update
+    within TOL_DCGAN_GRAD_REL where the gradient's sign is settled, and at
+    most DCGAN_D_UNSETTLED elements where it is not. G's step then goes
+    through the same D on both: the CPU's D after its step. Adam's first
+    step moves each weight by about lr times the sign of its gradient, so
+    a D gradient within rounding of 0 whose sign differs moves that weight
+    2 lr apart and G's gradients with it: one such sign flips between 1
+    and 3 CPU threads on the same CPU and puts G's 10.gamma 8.5e-3 apart
+    (``tools/torch_dcgan_parity.py``)."""
     real, noise = dcgan_data(torch, B_DCGAN_PARITY, 11, "cpu")
-    out = {}
+    out, d_after, d_card = {}, None, {}
     for where in ("cpu", dev):
         nets = dcgan_setup(torch, where, params)
         out[str(where)] = dcgan_iteration(
-            torch, nets, real.to(where), noise.to(where), grads=True)
+            torch, nets, real.to(where), noise.to(where), grads=True,
+            d_after=d_after, d_step=None if d_after is None else d_card)
+        if d_after is None:
+            d_after = {k: p.data().detach().clone() for k, p in
+                       nets[1].collect_params().items()
+                       if p.grad_req != "null"}
     (cD, cG, cgD, cgG), (gD, gG, ggD, ggG) = out["cpu"], out[str(dev)]
     loss_err = max(rel(gD.cpu(), cD), rel(gG.cpu(), cG))
     grad_err = max((rel(g[k], c[k]), k) for g, c in ((ggD, cgD), (ggG, cgG))
                    for k in c)
-    if loss_err > TOL_DCGAN_LOSS_REL or grad_err[0] > TOL_DCGAN_GRAD_REL:
+    before = {k: torch.from_numpy(v) for k, v in params[1].items()}
+    step_err, step_name, unsettled = dcgan_d_step(before, d_card, d_after,
+                                                  ggD, cgD)
+    if loss_err > TOL_DCGAN_LOSS_REL or grad_err[0] > TOL_DCGAN_GRAD_REL \
+            or step_err > TOL_DCGAN_GRAD_REL or unsettled > DCGAN_D_UNSETTLED:
         fail(f"phase 11: DCGAN card against CPU at B={B_DCGAN_PARITY}: "
              f"losses rel {loss_err:.3e} (limit {TOL_DCGAN_LOSS_REL}), worst "
-             f"gradient {grad_err[1]} rel {grad_err[0]:.3e} (limit "
-             f"{TOL_DCGAN_GRAD_REL})")
+             f"gradient {grad_err[1]} rel {grad_err[0]:.3e}, worst of D's "
+             f"updates {step_name} rel {step_err:.3e} (limits "
+             f"{TOL_DCGAN_GRAD_REL}), {unsettled} unsettled elements (limit "
+             f"{DCGAN_D_UNSETTLED})")
     print(f"phase 11: DCGAN one iteration at B={B_DCGAN_PARITY} f32 (TF32 "
           f"off), card against CPU: errD / errG rel {loss_err:.3e} (limit "
           f"{TOL_DCGAN_LOSS_REL}); worst of {len(cgD) + len(cgG)} gradients "
-          f"{grad_err[1]} rel {grad_err[0]:.3e} (limit "
-          f"{TOL_DCGAN_GRAD_REL})", flush=True)
+          f"{grad_err[1]} rel {grad_err[0]:.3e}; worst of D's {len(cgD)} "
+          f"updates {step_name} rel {step_err:.3e} (limits "
+          f"{TOL_DCGAN_GRAD_REL}), {unsettled} unsettled elements (limit "
+          f"{DCGAN_D_UNSETTLED})", flush=True)
 
 
 def dcgan_train(torch, dev, params):
@@ -6789,6 +6906,12 @@ def dcgan_kernel_rows(torch, dev, params):
     errs, rows = {}, {n: {} for n in BN_KERNELS}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "events_ms")
     for C, M, nf, nb in DCGAN_BN_SHAPES:
+        rplan = bn.bn_reduce_plan(B_DCGAN, C, M, torch.float32)
+        print(f"phase 11: batch norm reductions' plan at C={C} M={M}: "
+              f"{rplan}", flush=True)
+        if rplan["splits"] != 1:
+            fail(f"DCGAN C={C} M={M}: the reductions take the second "
+                 f"level {rplan}")
         r, _ = bn_check(torch, bn, f"f32 N={B_DCGAN} C={C} M={M} (DCGAN)",
                         bn_case(torch, dev, gen, B_DCGAN, C, M,
                                 torch.float32), errs, timed=True, cold=True)

@@ -30,8 +30,18 @@ Routing: a tensor on the CPU takes the plain versions
 tensor launches the kernels or raises :class:`MXNetError` (f64 among
 them). Nothing falls back. Each launch adds one to its kernel's entry in
 :data:`launches`. The sums are the same from run to run, to the bit
-(:func:`bn_plan` is a pure function of the shape, the dtype and the
-alignment, and the kernels add in a fixed order with no float atomics).
+(:func:`bn_plan` and :func:`bn_reduce_plan` are pure functions of the
+shape, the dtype and the alignment, and the kernels add in a fixed order
+with no float atomics).
+
+The two reductions are one launch each: channel groups times a
+thread-block cluster of up to :data:`MAX_CLUSTER` blocks, whose
+per-channel sums meet in distributed shared memory in rank order. Where
+such clusters cannot fill the card (few channels, large images),
+several clusters a group add theirs through a workspace and an int
+counter a (group, rank); the counters are kept a device and stream
+(:func:`_second_level`) and each launch leaves them at 0, so no launch
+zeroes them (a CUDA graph zeroes its own at each replay).
 """
 from __future__ import annotations
 
@@ -45,7 +55,8 @@ from ...base import MXNetError
 
 __all__ = ["batch_norm_train", "batch_stats", "bn_stats_reference",
            "bn_apply_reference", "bn_bwd_reduce_reference",
-           "bn_bwd_apply_reference", "bn_plan", "launches", "KERNELS"]
+           "bn_bwd_apply_reference", "bn_plan", "bn_reduce_plan", "launches",
+           "KERNELS"]
 
 KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
 # per-kernel launch counters: +1 per kernel launch, nowhere else
@@ -57,7 +68,17 @@ THREADS = 256              # csrc/batch_norm.cu bn::T
 MAX_SPAN = 2048            # bn::MAX_SPAN: positions a group's span holds
 LONG_RUN = 256             # runs at least this long take one channel a block
 _TARGET_BLOCKS = 8 * 132   # eight 256-thread blocks on each of 132 SMs
-_MAX_SPLITS = 128          # bounds the last block's sum over the splits
+_MAX_SPLITS = 128          # the most splits of the applies' grid
+# the reductions' grid (bn_reduce_plan; tools/torch_bn_plans.py sets these)
+MAX_CLUSTER = 8            # bn::MAX_CLUSTER: the portable cluster size
+MAX_CG = MAX_SPAN // 2     # bn::MAX_CG: channels a group's sums hold
+LOADS = 4                  # bn::NB: loads a thread keeps in flight
+_REDUCE_BLOCKS = 2 * 132   # the most blocks: two an SM
+_REDUCE_BLOCKS_ONE = 4 * 132   # with one channel a group: four an SM
+_MIN_REDUCE_BLOCKS = 128   # the fewest, however little each thread loads
+_MIN_SPAN_BYTES = 128      # an image's span of a group at the least
+_SECOND_BELOW = 132        # fewer blocks than SMs: clusters split the images
+_MIN_PASSES = 4            # a second-level block's passes at the least
 
 
 # ---------------------------------------------------------- plain versions
@@ -175,6 +196,64 @@ def bn_plan(outer: int, C: int, inner: int, dtype, align: int = 16) -> dict:
                 splits=splits, per=per, blocks=groups * splits)
 
 
+def bn_reduce_plan(outer: int, C: int, inner: int, dtype,
+                   align: int = 16) -> dict:
+    """How the two reductions (``bn_stats``, ``bn_bwd_reduce``) walk x
+    (outer, C, inner) and combine their blocks: a pure function of the
+    shape, the dtype and ``align``, so the order of every sum is too.
+
+    ``one``, ``vec`` and ``rows`` as :func:`bn_plan`. The grid aims for
+    one batch of :data:`LOADS` vectors a thread, between
+    :data:`_MIN_REDUCE_BLOCKS` blocks and :data:`_REDUCE_BLOCKS`
+    (:data:`_REDUCE_BLOCKS_ONE` with one channel a group). A group of short
+    runs takes at most :func:`bn_plan`'s ``cg`` channels, and fewer (by
+    whole vectors, an image's span at least :data:`_MIN_SPAN_BYTES`) until
+    the groups alone make that grid; then ``cluster`` blocks a group (1,
+    2, 4 or 8, no more than its passes: ``rows`` images, or a vector a
+    thread) while the grid stays within it. Where that leaves fewer than
+    :data:`_SECOND_BELOW` blocks, ``splits`` clusters a group take the
+    second level (a workspace and a counter a (group, rank)), each block
+    at least :data:`_MIN_PASSES` passes; else ``splits`` is 1. Each block
+    takes ``per`` images (a multiple of ``rows``) or ``per`` vectors
+    (``one``) of its group in order, the last ones fewer or none.
+
+    Chosen on the card (``tools/torch_bn_plans.py``; PERF.md §6): a
+    cluster costs its blocks a barrier and, at 8 blocks, the chance that
+    the grid no longer fits one wave, so narrow groups come first."""
+    walk = bn_plan(outer, C, inner, dtype, align)
+    one, vec, cg = walk["one"], walk["vec"], walk["cg"]
+    vectors = outer * C * (inner // vec) if one else outer * C * inner // vec
+    want = max(_MIN_REDUCE_BLOCKS,
+               min(_REDUCE_BLOCKS_ONE if one else _REDUCE_BLOCKS,
+                   _cdiv(vectors, LOADS * THREADS)))
+    if one:
+        rows = 1
+        passes = _cdiv(outer * (inner // vec), THREADS)
+    else:
+        step = vec // math.gcd(inner, vec)     # channels a whole vector
+        elem = torch.empty((), dtype=dtype).element_size()
+        least = _cdiv(_cdiv(_MIN_SPAN_BYTES, inner * elem), step) * step
+        cg = min(cg, max(least, C // want // step * step))
+        slots = cg * inner // vec
+        rows = 1 if slots >= THREADS else THREADS // slots
+        passes = _cdiv(outer, rows)
+    groups = _cdiv(C, cg)
+    cluster = 1
+    while cluster < MAX_CLUSTER and 2 * groups * cluster <= want and \
+            2 * cluster <= passes:
+        cluster *= 2
+    splits = 1
+    if groups * cluster < _SECOND_BELOW:
+        splits = max(1, min(want // (groups * cluster),
+                            passes // (cluster * _MIN_PASSES)))
+    per_passes = _cdiv(passes, cluster * splits)
+    splits = _cdiv(passes, cluster * per_passes)
+    per = per_passes * (THREADS if one else rows)
+    return dict(one=one, vec=vec, cg=cg, rows=rows, groups=groups,
+                cluster=cluster, splits=splits, per=per,
+                blocks=groups * cluster * splits)
+
+
 # ------------------------------------------------------------- the kernels
 def _kernel(name: str):
     """The ctypes entry of kernel ``name``, its library built on first use."""
@@ -184,16 +263,17 @@ def _kernel(name: str):
     from ... import _kernels
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = _kernels.load("batch_norm")
-    walk = [i, i, i, i, i, i, i, i, i, p]
+    walk = [i, i, i, i, i, i, i, i, i, p]           # bn_plan's
+    rwalk = [i, i, i, i, i, i, i, i, i, i, p]       # bn_reduce_plan's
     if name == "bn_stats":
         fn = lib.mxt_bn_stats
-        fn.argtypes = [i, p, p, i, f, p, p, p, p, p] + walk
+        fn.argtypes = [i, p, p, i, f, p, p, p, p, p] + rwalk
     elif name == "bn_apply":
         fn = lib.mxt_bn_apply
         fn.argtypes = [i, p, p, p, p, p, p] + walk
     elif name == "bn_bwd_reduce":
         fn = lib.mxt_bn_bwd_reduce
-        fn.argtypes = [i, p, p, p, p, p, p, p, p] + walk
+        fn.argtypes = [i, p, p, p, p, p, p, p, p] + rwalk
     else:
         fn = lib.mxt_bn_bwd_apply
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, f, f] + walk
@@ -261,11 +341,42 @@ def _plan_of(x3, *ts):
     return bn_plan(outer, C, inner, x3.dtype, _align(x3, *ts))
 
 
-def _workspace(x3, plan):
-    """f32 partial sums (splits, C, 2) and one int counter a group."""
+def _reduce_plan_of(x3, *ts):
+    outer, C, inner = x3.shape
+    return bn_reduce_plan(outer, C, inner, x3.dtype, _align(x3, *ts))
+
+
+def _rwalk(plan) -> tuple:
+    return (int(plan["one"]), plan["vec"], plan["cg"], plan["per"],
+            plan["rows"], plan["cluster"], plan["splits"])
+
+
+# the second level's counters, one int a (group, rank), kept per device and
+# stream: each launch leaves them at 0, so they are zeroed once, when made
+# (a stream's launches run in order; two streams keep two sets)
+_COUNTERS = {}
+
+
+def _second_level(x3, plan):
+    """(ws, count) for a plan with ``splits`` > 1: f32 sums (splits, C, 2)
+    and the counters; (None, None) for one split. A CUDA graph being
+    captured gets counters of its own, zeroed in the graph at each replay:
+    a kept set's address would be baked into every graph that met it, and
+    two graphs replayed on two streams would share it."""
+    if plan["splits"] == 1:
+        return None, None
     ws = torch.empty(plan["splits"] * x3.shape[1] * 2, dtype=torch.float32,
                      device=x3.device)
-    count = torch.empty(plan["groups"], dtype=torch.int32, device=x3.device)
+    n = plan["groups"] * plan["cluster"]
+    if torch.cuda.is_current_stream_capturing():
+        return ws, torch.zeros(n, dtype=torch.int32, device=x3.device)
+    key = (x3.device.index, torch.cuda.current_stream(x3.device).cuda_stream)
+    with _COUNT_LOCK:
+        count = _COUNTERS.get(key)
+        if count is None or count.numel() < n:
+            count = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=x3.device)
+            _COUNTERS[key] = count
     return ws, count
 
 
@@ -273,16 +384,16 @@ def _stats(x3, shift, eps: float, centered: bool):
     if not x3.is_cuda:
         return bn_stats_reference(x3, shift, eps, centered)
     _check("bn_stats", x3, vecs=(shift,))
-    plan = _plan_of(x3)
+    plan = _reduce_plan_of(x3)
     outer, C, inner = x3.shape
     var = torch.empty(C, dtype=torch.float32, device=x3.device)
     inv = torch.empty_like(var)
     mean = shift if centered else torch.empty_like(var)
-    ws, count = _workspace(x3, plan)
+    ws, count = _second_level(x3, plan)
     _run("bn_stats", _DTYPE_CODE[x3.dtype], x3.data_ptr(), _ptr(shift),
          int(centered), float(eps), None if centered else mean.data_ptr(),
-         var.data_ptr(), inv.data_ptr(), ws.data_ptr(), count.data_ptr(),
-         outer, C, inner, *_walk(plan), device=x3.device)
+         var.data_ptr(), inv.data_ptr(), _ptr(ws), _ptr(count),
+         outer, C, inner, *_rwalk(plan), device=x3.device)
     return mean, var, inv
 
 
@@ -302,14 +413,14 @@ def _bwd_reduce(x3, dy3, mean, inv):
     if not x3.is_cuda:
         return bn_bwd_reduce_reference(x3, dy3, mean, inv)
     _check("bn_bwd_reduce", x3, (dy3,), (mean, inv))
-    plan = _plan_of(x3, dy3)
+    plan = _reduce_plan_of(x3, dy3)
     dg = torch.empty_like(mean)
     db = torch.empty_like(mean)
-    ws, count = _workspace(x3, plan)
+    ws, count = _second_level(x3, plan)
     _run("bn_bwd_reduce", _DTYPE_CODE[x3.dtype], x3.data_ptr(),
          dy3.data_ptr(), mean.data_ptr(), inv.data_ptr(), dg.data_ptr(),
-         db.data_ptr(), ws.data_ptr(), count.data_ptr(), *x3.shape,
-         *_walk(plan), device=x3.device)
+         db.data_ptr(), _ptr(ws), _ptr(count), *x3.shape, *_rwalk(plan),
+         device=x3.device)
     return dg, db
 
 

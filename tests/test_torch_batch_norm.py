@@ -24,9 +24,12 @@ Tolerances:
   3.9e-3 a value, from f32 sums taken in another order).
 
 Also: one training call saves x and three per-channel vectors (at most
-``x.nbytes + 64 * C`` bytes, so no f32 copy of x), and the kernels' walk
-(``bn_plan``) reads every element exactly once, replayed in numpy with the
-kernels' index arithmetic.
+``x.nbytes + 64 * C`` bytes, so no f32 copy of x), and the kernels' walks
+(``bn_plan`` for the elementwise kernels, ``bn_reduce_plan`` for the two
+reductions) read every element exactly once, replayed in numpy with the
+kernels' index arithmetic; the reductions' plans at ResNet-50's and DCGAN's
+shapes fit the kernel (clusters of at most 8 blocks, one level), and the
+elementwise kernels' plans there are what they were.
 """
 import numpy as onp
 import jax  # noqa: F401  (JAX on the CPU before the JAX package loads)
@@ -301,3 +304,160 @@ def test_plans_at_resnet50_shapes_fit_the_kernels(C, M):
     assert plan["cg"] * M <= bn.MAX_SPAN or plan["one"]
     assert (plan["splits"] - 1) * plan["per"] < 128 <= \
         plan["splits"] * plan["per"]
+
+
+def _reduce_walk(plan, outer, C, inner):
+    """How many times the reduction kernel (``csrc/batch_norm.cu``
+    reduce_kernel: block_sums_one / block_sums_group) reads each element of
+    x (outer, C, inner) under ``plan``, over every group, block (cluster
+    rank and split) and thread: its index arithmetic, vectorized over the
+    threads."""
+    T, seen = bn.THREADS, onp.zeros(outer * C * inner, onp.int64)
+    vec, cg, per, rows = plan["vec"], plan["cg"], plan["per"], plan["rows"]
+    lanes = onp.arange(vec)
+    t = onp.arange(T)
+    for gi in range(plan["groups"]):
+        c0 = gi * cg
+        cn = min(cg, C - c0)
+        for b in range(plan["cluster"] * plan["splits"]):
+            if plan["one"]:
+                vpr = inner // vec
+                i0 = b * per
+                n = max(0, min(outer * vpr, i0 + per) - i0)
+                j = (t[:, None] + T * onp.arange(_cdiv(n, T))[None, :])
+                i = i0 + j[j < n]
+                o, s = i // vpr, i % vpr
+                p = ((o * C + c0) * inner + s * vec)
+            else:
+                o0, o1 = min(outer, b * per), min(outer, b * per + per)
+                nsf, nsl = cg * inner // vec, cn * inner // vec
+                r, slot0, step = onp.zeros(T, int), t, T
+                if rows > 1:
+                    r, slot0, step = t // nsf, t % nsf, nsf
+                k_slots = max(1, 4 // vec)
+                s = slot0[:, None] + step * onp.arange(k_slots)[None, :]
+                ok = (r[:, None] < rows) & (s < nsl)
+                o = o0 + r[:, None, None] + rows * onp.arange(
+                    _cdiv(max(o1 - o0, 0), rows) + 1)[None, None, :]
+                keep = ok[:, :, None] & (o < o1)
+                ob = onp.broadcast_to(o, keep.shape)
+                sb = onp.broadcast_to(s[:, :, None], keep.shape)
+                p = (ob[keep] * C + c0) * inner + sb[keep] * vec
+            onp.add.at(seen, (p[:, None] + lanes[None, :]).ravel(), 1)
+    return seen
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+WALK_SHAPES = [(5, 7, 300), (6, 40, 49), (3, 11, 196), (130, 24, 1),
+               (9, 264, 1), (4, 3, 8), (2, 2048, 1), (33, 5, 17),
+               (3, 6, 260), (4, 9, 12), (5, 36, 1), (3, 50, 49),
+               (2, 30, 98), (3, 20, 6)]
+# DCGAN's BatchNorm shapes at B = 64 (f32): (C, H*W)
+DCGAN_BN = [(512, 16), (256, 64), (128, 256), (64, 1024)]
+RESNET_BN = [(64, 12544), (64, 3136), (256, 3136), (128, 784), (512, 784),
+             (256, 196), (1024, 196), (512, 49), (2048, 49)]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    (s, d) for s in WALK_SHAPES for d in (torch.bfloat16, torch.float32)] + [
+    ((64, C, M), torch.float32) for C, M in DCGAN_BN])
+def test_reduction_walk_reads_every_element_once(shape, dtype):
+    outer, C, inner = shape
+    plan = bn.bn_reduce_plan(outer, C, inner, dtype)
+    assert (_reduce_walk(plan, outer, C, inner) == 1).all(), plan
+
+
+def _fits_the_kernel(plan, outer, inner):
+    """The kernel's own checks (``csrc/batch_norm.cu`` bad_reduce)."""
+    passes = (outer * (inner // plan["vec"]) if plan["one"] else outer)
+    return (1 <= plan["cluster"] <= bn.MAX_CLUSTER and
+            plan["cluster"] * plan["splits"] <= 65535 and
+            plan["cluster"] * plan["splits"] * plan["per"] >= passes and
+            plan["cg"] <= bn.MAX_CG and
+            (plan["one"] or plan["per"] % plan["rows"] == 0) and
+            plan["blocks"] == plan["groups"] * plan["cluster"] *
+            plan["splits"])
+
+
+@pytest.mark.parametrize("outer,C,M,dtype", [
+    (128, C, M, torch.bfloat16) for C, M in RESNET_BN] + [
+    (64, C, M, torch.float32) for C, M in DCGAN_BN])
+def test_reduction_plans_at_resnet50_and_dcgan_shapes(outer, C, M, dtype):
+    """One level (a cluster of at most 8 blocks a group, one split, no
+    workspace or counter), the grid at least 128 blocks (DCGAN's C = 512,
+    M = 16 takes 128, one batch of loads a thread) and at most four an
+    SM, 16-byte loads, and the walk as bn_plan's (one channel a block from
+    M = 256)."""
+    plan = bn.bn_reduce_plan(outer, C, M, dtype)
+    assert _fits_the_kernel(plan, outer, M), plan
+    assert plan["splits"] == 1, plan
+    assert 128 <= plan["blocks"] <= 4 * 132, plan
+    assert plan["vec"] * torch.empty((), dtype=dtype).element_size() == 16
+    assert plan["one"] == (M >= bn.LONG_RUN)
+    walk = bn.bn_plan(outer, C, M, dtype)
+    assert plan["cg"] <= walk["cg"] and plan["vec"] == walk["vec"]
+
+
+@pytest.mark.parametrize("outer,C,M,dtype", [
+    (32, 3, 50176, torch.bfloat16), (16, 16, 12544, torch.float32),
+    (64, 1, 1024, torch.float32)])
+def test_reduction_plan_takes_the_second_level_for_few_large_channels(
+        outer, C, M, dtype):
+    """Few channels with large images: eight-block clusters cannot fill
+    the card, so several clusters a group split the images."""
+    plan = bn.bn_reduce_plan(outer, C, M, dtype)
+    assert _fits_the_kernel(plan, outer, M), plan
+    assert plan["cluster"] == bn.MAX_CLUSTER and plan["splits"] > 1, plan
+
+
+def test_second_level_counters_under_capture_are_the_graphs_own(
+        monkeypatch):
+    """While a CUDA graph is captured, each second-level call makes zeroed
+    counters of its own (zeroed in its graph at each replay) and keeps none
+    for a later call or graph."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    x3 = torch.zeros(32, 3, 50176, dtype=torch.bfloat16)
+    plan = bn.bn_reduce_plan(32, 3, 50176, torch.bfloat16)
+    kept = dict(bn._COUNTERS)
+    (ws, a), (_, b) = (bn._second_level(x3, plan) for _ in range(2))
+    assert plan["splits"] > 1 and a.data_ptr() != b.data_ptr()
+    assert a.dtype == torch.int32 and not a.any()
+    assert a.numel() == plan["groups"] * plan["cluster"]
+    assert ws.numel() == plan["splits"] * 3 * 2 and bn._COUNTERS == kept
+
+
+@pytest.mark.parametrize("outer,C,inner", [
+    (1, 7, 300), (1, 64, 49), (1, 5, 1), (40, 1, 300), (64, 1, 12),
+    (1, 1, 1)])
+def test_reduction_plans_for_one_image_or_one_channel(outer, C, inner):
+    """outer = 1 and C = 1: no block of a cluster without work but the
+    last, and the walk still reads every element once."""
+    for dtype in (torch.float32, torch.float16):
+        plan = bn.bn_reduce_plan(outer, C, inner, dtype)
+        assert _fits_the_kernel(plan, outer, inner), plan
+        assert (_reduce_walk(plan, outer, C, inner) == 1).all(), plan
+
+
+# bn_plan at ResNet-50's shapes (N = 128, bf16): (one, vec, cg, rows,
+# groups, splits, per), as the elementwise kernels have walked since they
+# were written
+APPLY_PLANS = {(64, 12544): (True, 8, 1, 1, 64, 16, 8),
+               (64, 3136): (True, 8, 1, 1, 64, 16, 8),
+               (256, 3136): (True, 8, 1, 1, 256, 5, 26),
+               (128, 784): (True, 8, 1, 1, 128, 9, 15),
+               (512, 784): (True, 8, 1, 1, 512, 3, 43),
+               (256, 196): (False, 8, 10, 1, 26, 32, 4),
+               (1024, 196): (False, 8, 10, 1, 103, 11, 12),
+               (512, 49): (False, 8, 40, 1, 13, 64, 2),
+               (2048, 49): (False, 8, 40, 1, 52, 19, 7)}
+
+
+@pytest.mark.parametrize("C,M", RESNET_BN)
+def test_apply_plans_at_resnet50_shapes_are_unchanged(C, M):
+    plan = bn.bn_plan(128, C, M, torch.bfloat16)
+    assert tuple(plan[k] for k in ("one", "vec", "cg", "rows", "groups",
+                                   "splits", "per")) == APPLY_PLANS[(C, M)]

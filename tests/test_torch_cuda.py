@@ -50,7 +50,9 @@ statistics, dg and db within a relative Frobenius error of 1e-5 (f32 sums
 in another order; the mean's relative to the batch's standard deviation);
 out and dx equal to the bit (the kernels round every
 f32 operation as the plain versions do, given the same statistics); two
-runs equal to the bit; and the launches of a ResNet-50 step.
+runs equal to the bit; the two reductions one kernel launch a call and no
+memset, at DCGAN's shapes, on the second level, at one image and at one
+channel; and the launches of a ResNet-50 step.
 
 mx.rtc: the user kernels of ``chip_smoke.py`` compiled by NVRTC for sm_90a
 against their plain versions: axpy, scale, square and rtc_axpy equal to the
@@ -1543,6 +1545,95 @@ def test_bn_kernels_at_resnet50_shapes(dev, dtype, C, M):
     (3, 6, 260), (4, 9, 12)])
 def test_bn_kernels_nhwc_2d_and_ragged(dev, dtype, outer, C, inner):
     _bn_check(_bn_case(dev, dtype, outer, C, inner))
+
+
+# the two reductions (bn_reduce_plan): DCGAN's shapes at B = 64 (f32), the
+# second level (few channels, large images), one image, one channel
+BN_REDUCE_CASES = [
+    (64, 512, 16, torch.float32), (64, 256, 64, torch.float32),
+    (64, 128, 256, torch.float32), (64, 64, 1024, torch.float32),
+    (32, 3, 50176, torch.bfloat16), (16, 16, 12544, torch.float16),
+    (1, 7, 300, torch.float32), (1, 64, 49, torch.bfloat16),
+    (1, 1, 4096, torch.float32), (64, 1, 1024, torch.float32),
+    (256, 1, 12, torch.bfloat16), (4096, 1, 1, torch.float16)]
+
+
+@pytest.mark.parametrize("outer,C,inner,dtype", BN_REDUCE_CASES)
+def test_bn_reductions_one_launch(dev, outer, C, inner, dtype):
+    """Each reduction held to its plain version (the four kernels through
+    ``_bn_check``); a call launches the reduction kernel once and no
+    memset (the profiler's records, after 16 launches of a tiny kernel: a
+    session can lose its first records, and one that kept none of the
+    kernel's is taken again) and moves its counter by one; a
+    third call equals the first to the bit (the second level's counters
+    are back at 0)."""
+    from torch.profiler import ProfilerActivity, profile
+    c = _bn_case(dev, dtype, outer, C, inner)
+    _bn_check(c)
+    x, dy = c["x"], c["dy"]
+    mean, _, inv = bn.bn_stats_reference(x, c["s"], 1e-5)
+    calls = {"bn_stats": lambda: bn._stats(x, c["s"], 1e-5, False),
+             "bn_bwd_reduce": lambda: bn._bwd_reduce(x, dy, mean, inv)}
+    for name, fn in calls.items():
+        first = fn()
+        for _ in range(3):      # a session that lost the record: again
+            before = bn.launches[name]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                cs.primer()
+                second = fn()
+                torch.cuda.synchronize()
+            counts = cs.kernel_counts(prof)
+            n = sum(v for k, v in counts.items()
+                    if cs.re.search(cs.BN_KERNEL[name], k))
+            assert n <= 1, counts
+            assert not any("memset" in k.lower() for k in counts), counts
+            assert bn.launches[name] == before + 1
+            if n == 1:
+                break
+        assert n == 1, counts
+        third = fn()
+        for a, b, d in zip(first, second, third):
+            assert torch.equal(a, b) and torch.equal(a, d), name
+    if (outer, C, inner) in ((32, 3, 50176), (16, 16, 12544),
+                             (64, 1, 1024)):
+        assert bn._reduce_plan_of(x, dy)["splits"] > 1
+
+
+def test_bn_second_level_in_two_graphs_on_two_streams(dev):
+    """Two hybridized BatchNorm layers at a second-level shape (bf16 (32,
+    3, 224 x 224)), each captured in its own graph, replayed on two
+    streams at once, twice: each graph holds its own counters, so every
+    replay's output equals an eager call of its layer to the bit."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.block import Block
+    g = torch.Generator().manual_seed(0)
+    xs = [(torch.randn(32, 3, 224, 224, generator=g) * 2 + k).to(
+        dev, torch.bfloat16) for k in (0, 1)]
+    assert bn._reduce_plan_of(xs[0].view(32, 3, -1))["splits"] > 1
+    nets = []
+    for x in xs:
+        net = nn.BatchNorm(in_channels=3)
+        net.initialize(device=dev)
+        net.cast("bfloat16")
+        net.hybridize()
+        for _ in range(2):      # the warm-up (centered), the capture
+            with tmx.autograd.record():
+                net(x)
+        assert sum(1 for v in net._cached_graph.values()
+                   if v is not True) == 1
+        nets.append(net)
+    streams = [torch.cuda.Stream(dev) for _ in nets]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        got = []
+        for net, x, s in zip(nets, xs, streams):
+            with torch.cuda.stream(s), tmx.autograd.record():
+                got.append(net(x).detach().clone())
+        torch.cuda.synchronize()
+        for net, x, out in zip(nets, xs, got):
+            with tmx.autograd.record():
+                want = Block.__call__(net, x).detach()
+            assert torch.equal(out, want)
 
 
 def test_bn_kernels_large_mean(dev):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The multi-tensor update, the decode attention kernel, the wide flash
-attention kernels and the f32 flash kernels of the PyTorch port in the
-tree at ROOT, timed on one GPU at their main paths' shapes.
+attention kernels, the f32 flash kernels and BatchNorm's two reductions of
+the PyTorch port in the tree at ROOT, timed on one GPU at their main
+paths' shapes.
 
-    python3 tools/torch_kernel_ab.py ROOT [update|decode|wide|f32 ...]
+    python3 tools/torch_kernel_ab.py ROOT [update|decode|wide|f32|bn ...]
 
-(the named parts only; all four by default)
+(the named parts only; all five by default)
 
 ROOT is a checkout (or a ``git archive``) of the repository whose
 ``mxnet_tpu_torch`` and ``chip_smoke.py`` are measured. The update: one
@@ -42,6 +43,16 @@ padding, each kernel alone a launch (the forward through
 ``chip_smoke.kernel_only_call``), median of 5 sessions, beside SDPA's f32
 forward and whole f32 backward on the same inputs (TF32 off); the
 kernels' names matched whatever the tree calls them (``F32_PARTS``).
+The bn part: ``bn_stats`` and ``bn_bwd_reduce`` (``_stats`` shifted about
+a shift near the batch mean, ``_bwd_reduce``) at DCGAN's four BatchNorm
+shapes (f32, B = 64) and ResNet-50's nine (bf16, N = 128), on
+``chip_smoke.py``'s ``bn_case`` inputs (seed 31): each kernel's device
+time a call back to back (``warm_ms``) and with a 64 MB buffer rewritten
+before each call (``cold_ms``: DCGAN's tensors, 0.5-17 MB, fit in the
+50 MB L2), median of 5 sessions, and the same two ways the library's
+``batch_norm_stats`` / ``batch_norm_backward_reduce``
+(``chip_smoke.library_bn_ms``); the plain version's time and the bound
+(``chip_smoke.bn_bound_ms``) beside them.
 To compare two commits, run it on each tree in turns on one card (parent,
 change, change, parent). The result line starts with ``AB``. Imports
 nothing of JAX.
@@ -263,10 +274,62 @@ def f32_times(torch, cs, dev, attn):
     return out
 
 
+# (outer, C, inner, dtype) of the bn part: DCGAN's shapes (phase 11's
+# DCGAN_BN_SHAPES) and ResNet-50's (phase 3's BN_SHAPES)
+BN_SHAPES = tuple((64, C, M, "float32") for C, M in
+                  ((512, 16), (256, 64), (128, 256), (64, 1024))) + tuple(
+    (128, C, M, "bfloat16") for C, M in
+    ((64, 12544), (64, 3136), (256, 3136), (128, 784), (512, 784),
+     (256, 196), (1024, 196), (512, 49), (2048, 49)))
+# the two reductions' kernels in any tree
+BN_PATTERNS = {"bn_stats": r"reduce_kernel<[^>]*, 0>",
+               "bn_bwd_reduce": r"reduce_kernel<[^>]*, 1>"}
+
+
+def bn_times(torch, cs, dev, bn, library=True):
+    """{shape: {kernel: warm and cold ms, the library's, plain, bound}}
+    at ``BN_SHAPES``; ``library`` False: the kernels' times and the bound
+    alone."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for outer, C, M, dtn in BN_SHAPES:
+        c = cs.bn_case(torch, dev, gen, outer, C, M, getattr(torch, dtn))
+        x, dy, s = c["x"], c["dy"], c["s"]
+        mean, _, inv = bn.bn_stats_reference(x, s, 1e-5)
+        dg, db = bn.bn_bwd_reduce_reference(x, dy, mean, inv)
+        calls = {"bn_stats": lambda: bn._stats(x, s, 1e-5, False),
+                 "bn_bwd_reduce": lambda: bn._bwd_reduce(x, dy, mean, inv)}
+        plain = {"bn_stats": lambda: bn.bn_stats_reference(x, s, 1e-5),
+                 "bn_bwd_reduce": lambda: bn.bn_bwd_reduce_reference(
+                     x, dy, mean, inv)}
+        row = {}
+        for name, call in calls.items():
+            pattern = BN_PATTERNS[name]
+            warm, cold = two_ways(torch, cs, call,
+                                  lambda n, p=pattern: re.search(p, n), 10)
+            bound = cs.bn_bound_ms(name, outer, C, M, x.element_size())[0]
+            if not library:
+                row[name] = dict(warm_ms=warm, cold_ms=cold, bound_ms=bound)
+                continue
+            lib = cs.library_bn_ms(
+                torch, name, c, mean, inv, dg, db,
+                lambda fn: two_ways(torch, cs, fn, lambda n: True, 10)) or \
+                (None, None)
+            row[name] = dict(
+                warm_ms=warm, cold_ms=cold, library_warm_ms=lib[0],
+                library_cold_ms=lib[1],
+                plain_ms=median_ms(cs, plain[name], 3, lambda n: True),
+                bound_ms=bound)
+        out[f"({outer}, {C}, {M}) {dtn}"] = row
+        del c, x, dy, calls, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
-    parts = sys.argv[2:] or ["update", "decode", "wide", "f32"]
+    parts = sys.argv[2:] or ["update", "decode", "wide", "f32", "bn"]
     if len(sys.argv) < 2 or not set(parts) <= {"update", "decode", "wide",
-                                               "f32"}:
+                                               "f32", "bn"}:
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.abspath(sys.argv[1])
@@ -291,6 +354,9 @@ def main() -> int:
     if "f32" in parts:
         torch.backends.cuda.matmul.allow_tf32 = False
         res["f32"] = f32_times(torch, cs, dev, attn)
+    if "bn" in parts:
+        from mxnet_tpu_torch.ops.cuda import batch_norm as bn
+        res["bn"] = bn_times(torch, cs, dev, bn)
     print("AB " + json.dumps(res), flush=True)
     return 0
 
