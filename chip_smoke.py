@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only seq2seq   # phases 1, 2 and 9 (the Transformer)
     python3 chip_smoke.py --only gpt-train # phases 1, 2 and 10 (GPT-2 training)
     python3 chip_smoke.py --only layers    # phases 1, 2 and 11 (DCGAN, layers)
+    python3 chip_smoke.py --only quant     # phases 1, 2 and 12 (int8, SSD boxes)
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
     python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
@@ -309,11 +310,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    TOL_SWEEP / TOL_SWEEP_LONG, bf16 against f32 within TOL_SWEEP_BF16 where
    the op takes bf16, each timed forward and forward+backward by device
    time (the median of three profiler sessions);
-12. one ``{"kernels": [...]}`` line (the attention, update and decode
+12. (after phase 11, before phase 7) int8 inference and SSD's box
+   operators. The main path is upstream MXNet's ``example/quantization``
+   flow: ``resnet50_v1`` (1000 classes, f32 weights from a seed through
+   ``load_jax_params``) quantized by ``contrib.quantization.quantize_net``
+   with naive calibration on 10 batches of 32 synthetic images, forwards
+   at B = 64, 224x224: 54 int8 kernel launches a forward by the counters
+   (53 convolutions and the Dense layer) with ``MXNET_FUSE_BN_CONV`` on
+   and off (the fused bf16 conv kernels never), no cuDNN convolution or
+   cuBLAS product in a primed profiled forward, two eager runs and three
+   replays of the hybridized net equal to the bit; the logits against the
+   f32 net (relative Frobenius error, top-1 agreement), then entropy
+   calibration on 2 batches the same way; the card against the port's
+   CPU int8 net at B = 2 with the card's ranges (the int8 weights equal,
+   the logits within TOL_QUANT_CPU_REL); ms a forward eager and replayed,
+   img/s, busy and idle share and peak memory of the f32, int8 and bf16
+   nets; the int8 kernel at each distinct shape of the path and at a
+   grouped, a dilated, a 1-d and a 3-d one, equal to its float64 plain
+   version to the bit, timed beside its bound, the plain version and
+   ``torch._int_mm`` where one product computes the shape. Then SSD-300's
+   box operators at its own shapes (8732 anchors from ``multibox_prior``
+   over six feature maps; ``multibox_target`` at B = 32, 21 classes, 64
+   label rows, negative mining 3; ``multibox_detection`` at threshold
+   0.01, NMS 0.45, top 400; ``box_iou`` and ``bipartite_matching``) on the
+   card against the CPU, each timed (the median of three profiler
+   sessions), and the NMS kernel's keep mask equal to its plain version's
+   at the detection's shape and over all 8732 anchors of an image;
+13. one ``{"kernels": [...]}`` line (the attention, update and decode
    launches counting phases 9 and 10's main paths too, BatchNorm's and the
-   update's phase 11's; with ``--only seq2seq`` / ``gpt-train`` / ``layers``
-   the path's kernels alone, their rows measured at its shapes), the card
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   update's phase 11's, the int8 and NMS kernels' phase 12's; with
+   ``--only seq2seq`` / ``gpt-train`` / ``layers`` / ``quant`` the path's
+   kernels alone, their rows measured at its shapes), the card line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of ``mxnet_tpu``.
 """
@@ -7442,6 +7470,584 @@ def phase_layers(torch, dev):
     return rows, launches
 
 
+# ------------------------------- phase 12: int8 ResNet-50, SSD box operators
+# the main path (upstream MXNet's example/quantization flow): resnet50_v1,
+# 1000 classes, f32 weights from a seed, quantize_net with naive
+# calibration on 10 batches of 32 (the example's default), then entropy on
+# 2 (cut from 10 to bound the phase's time: the numpy histograms and the
+# KL sweep take ~0.3 s a layer a batch), forwards at B = 64, 224x224
+B_QUANT, B_CALIB, CALIB_NAIVE, CALIB_ENTROPY, B_QUANT_CPU = 64, 32, 10, 2, 2
+# int8 kernel launches a quantized ResNet-50 forward: 53 convolutions and
+# the Dense layer
+QUANT_STEP = 54
+# the quantized net on the card against the port's int8 net on the CPU at
+# B = 2, the card's calibrated ranges copied over (the int8 weights equal).
+# Each quantized layer given the CPU layer's own input computes the CPU's
+# bits (the int8 products are exact, the f32 operations around them the
+# same), which is checked layer by layer. End to end, the f32 operations
+# between the layers (BatchNorm's rsqrt, the average pool's sum) round
+# differently on the card by an ulp; an activation within an ulp of a code
+# boundary then takes the neighbouring code, a step of 1/127 of its
+# layer's range, which moves codes downstream in turn: 1.056e-2 measured
+# at B = 2 (first chip run; a limit of 1e-2 set before it was measured
+# failed), so the logits are held to 5e-2
+TOL_QUANT_CPU_REL = 5e-2
+QUANT_INFO = {
+    "int8_conv": ("mxnet_tpu_torch/csrc/int8_conv.cu",
+                  "mxnet_tpu/ops/quantization.py:236 (quantized_conv; and "
+                  ":183 quantized_fully_connected, XLA)"),
+    "box_nms": ("mxnet_tpu_torch/csrc/box_nms.cu",
+                "mxnet_tpu/ops/boxes.py:114 (box_nms's lax.fori_loop, XLA)"),
+}
+INT8_KERNEL = r"conv_s8"
+NMS_KERNEL = r"nms::"
+# library convolutions and products (kernel names, re.search): none may run
+# in a quantized forward
+LIB_KERNEL = (r"cudnn|cublas|gemm|gemv|nvjet|xmma|cutlass|implicit|winograd|"
+              r"fprop|dgrad|wgrad|conv2d|convolve")
+PEAK_INT8_OPS = 1979e12          # H100 SXM data sheet, dense int8
+# shapes the main path does not run, each checked and timed: (label,
+# layout, data, weight, stride, pad, dilate, groups)
+INT8_EXTRA = (
+    ("grouped 3x3, 32 groups (ResNeXt-50 stage 2)", "NCHW",
+     (64, 256, 28, 28), (256, 8, 3, 3), (1, 1), (1, 1), (1, 1), 32),
+    ("dilated 3x3, dilation 2 (DeepLab stage 4)", "NCHW",
+     (16, 512, 28, 28), (512, 512, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+    ("1-d, k 5 (a speech frontend)", "NCW", (64, 256, 400), (256, 256, 5),
+     (1,), (2,), (1,), 1),
+    ("3-d 3x3x3 (C3D conv3)", "NCDHW", (8, 128, 8, 28, 28),
+     (256, 128, 3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1), 1),
+)
+# SSD-300 (Liu et al., ECCV 2016) as GluonCV's ssd_300_vgg16_atrous_voc
+# configures it: six feature maps, anchor sizes 30-315 over 300, ratios
+# {1, 2, 1/2} or {1, 2, 1/2, 3, 1/3}, steps 8-300 over 300: 8732 anchors;
+# VOC's 20 classes and background, B = 32, 64 label rows (1-40 valid)
+SSD_MAPS = ((38, 8, (1, 2, 0.5)), (19, 16, (1, 2, 0.5, 3, 1 / 3)),
+            (10, 32, (1, 2, 0.5, 3, 1 / 3)), (5, 64, (1, 2, 0.5, 3, 1 / 3)),
+            (3, 100, (1, 2, 0.5)), (1, 300, (1, 2, 0.5)))
+SSD_SIZES = (30, 60, 111, 162, 213, 264, 315)
+SSD_ANCHORS, SSD_B, SSD_CLASSES, SSD_LABELS = 8732, 32, 21, 64
+# the box operators on the card against the CPU: the same f32 formulas
+# (every division an IEEE one on both); exp and log may differ by an ulp,
+# so the encoded targets and decoded boxes at 1e-5, and a decoded box's
+# IoU within an ulp of the 0.45 threshold may flip its keep bit: at most
+# SSD_FLIPS rows of the detection's 32 x 8732
+TOL_BOX_REL = 1e-5
+SSD_FLIPS = 8
+
+
+def quant_net(torch, dev, params, dtype=None):
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    return load_jax_params(get_model("resnet50_v1", device=dev), params,
+                           dtype=dtype)
+
+
+def quant_batches(torch, n, B, seed, dev):
+    """``n`` synthetic batches of B images in [-1, 1] from ``seed`` (bench.py's
+    synthetic batch)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.uniform(-1, 1, (B, 3, 224, 224)).astype(
+        np.float32)).to(dev) for _ in range(n)]
+
+
+def quant_layers(net):
+    from mxnet_tpu_torch.contrib.quantization import (QuantizedConv,
+                                                      QuantizedDense)
+    return {k: m for k, m in net.named_modules()
+            if isinstance(m, (QuantizedConv, QuantizedDense))}
+
+
+def quant_forward_ms(torch, net, x, label):
+    """Prints ms a forward (eager; then hybridized, replayed) by CUDA
+    events, img/s, busy / idle of a primed profiled replay, peak memory."""
+    from mxnet_tpu_torch.gluon.block import Block
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        eager = cuda_time_ms(lambda: Block.__call__(net, x), iters=5)
+        net.hybridize()
+        for _ in range(2):
+            net(x)
+        torch.cuda.reset_peak_memory_stats()
+        replay = cuda_time_ms(lambda: net(x), iters=10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            net(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    busy, idle = device_breakdown(
+        prof, wall, f"phase 12: a primed profiled replay ({label})",
+        {"int8 kernel": INT8_KERNEL, "library conv / GEMM": LIB_KERNEL},
+        drop="bitwise_not")
+    net.hybridize(False)
+    B = x.shape[0]
+    print(f"phase 12: {label} forward B={B}: eager {eager:.3f} ms, replayed "
+          f"{replay:.3f} ms ({B / replay * 1e3:.1f} img/s; CUDA events); "
+          f"busy {fmt_ms(busy)}, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; peak "
+          f"memory {peak:.3f} GiB", flush=True)
+
+
+def quant_main_path(torch, dev, params):
+    """The int8 ResNet-50 main path. Returns (launches, shapes): the int8
+    kernel's launches of the eager forwards and {shape: launches a
+    forward} of its convolutions and Dense layer."""
+    import os
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.gluon.block import Block
+    from mxnet_tpu_torch.ops.cuda import conv_fused as cf
+    from mxnet_tpu_torch.ops.cuda import int8_conv as i8
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    net = quant_net(torch, dev, params)
+    x = quant_batches(torch, 1, B_QUANT, 100, dev)[0]
+    with torch.inference_mode():
+        ref = Block.__call__(net, x).float()
+    quant_forward_ms(torch, net, x, "f32 ResNet-50 (cuDNN)")
+    calib = quant_batches(torch, CALIB_NAIVE, B_CALIB, 101, dev)
+    t = time.perf_counter()
+    quantize_net(net, calib_data=calib, calib_mode="naive")
+    t_naive = time.perf_counter() - t
+    layers = quant_layers(net)
+    if len(layers) != QUANT_STEP:
+        fail(f"phase 12: quantize_net swapped {len(layers)} layers in, not "
+             f"{QUANT_STEP}")
+    shapes = {}
+
+    def record(m, args):
+        q = m._cfg if hasattr(m, "_cfg") else None
+        key = (tuple(args[0].shape), tuple(m.wq.shape),
+               None if q is None else (q["stride"], q["pad"], q["dilate"],
+                                       q["num_group"]))
+        shapes[key] = shapes.get(key, 0) + 1
+    hooks = [m.register_forward_pre_hook(record) for m in layers.values()]
+    for mod in (i8, cf):
+        reset_counts(mod)                   # the main path starts here
+    copies0 = dict(i8.copies)
+    outs = []
+    knob0 = os.environ.get("MXNET_FUSE_BN_CONV")
+    with torch.inference_mode():
+        for knob in ("0", "1", "0"):
+            os.environ["MXNET_FUSE_BN_CONV"] = knob
+            before = i8.launches["int8_conv"]
+            outs.append(net(x))
+            torch.cuda.synchronize()
+            if i8.launches["int8_conv"] - before != QUANT_STEP:
+                fail(f"phase 12: a quantized forward (MXNET_FUSE_BN_CONV="
+                     f"{knob}) launched the int8 kernel "
+                     f"{i8.launches['int8_conv'] - before} times, not "
+                     f"{QUANT_STEP}")
+    if knob0 is None:
+        os.environ.pop("MXNET_FUSE_BN_CONV", None)
+    else:
+        os.environ["MXNET_FUSE_BN_CONV"] = knob0
+    launches = dict(i8.launches)            # ... and ends here
+    for h in hooks:
+        h.remove()
+    copies = {k: (v - copies0[k]) // 3 for k, v in i8.copies.items()}
+    shapes = {k: n // 3 for k, n in shapes.items()}     # a forward's
+    if any(cf.launches.values()):
+        fail(f"phase 12: the quantized net reached the fused bf16 conv "
+             f"kernels: {cf.launches}")
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        fail("phase 12: two quantized forwards (fusion on and off) differ")
+    q = outs[0].float()
+    if tuple(q.shape) != (B_QUANT, 1000) or not torch.isfinite(q).all():
+        fail(f"phase 12: quantized logits {tuple(q.shape)}, finite "
+             f"{bool(torch.isfinite(q).all())}")
+    err, top1 = rel(q, ref), (q.argmax(1) == ref.argmax(1)).float().mean()
+    # a random net maps every image near one direction: the error of the
+    # logits less their batch mean, and the f32 net's distinct top-1
+    # classes, say how much of the agreement is that direction's
+    centered = rel(q - q.mean(0), ref - ref.mean(0))
+    classes = len(set(ref.argmax(1).tolist()))
+    # no library convolution or product in a primed profiled forward
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer()
+            net(x)
+            torch.cuda.synchronize()
+    counts = kernel_counts(prof)
+    lib = sorted(k for k in counts if re.search(LIB_KERNEL, k)
+                 and not re.search(INT8_KERNEL, k))
+    n_int8 = sum(c for k, c in counts.items() if re.search(INT8_KERNEL, k))
+    if lib or n_int8 > QUANT_STEP:
+        fail(f"phase 12: the profiled quantized forward ran library kernels "
+             f"{lib[:6]} or {n_int8} int8 kernels")
+    quant_forward_ms(torch, net, x, "int8 ResNet-50")
+    # hybridized: the replay equals the eager forward, run after run
+    with torch.inference_mode():
+        net.hybridize()
+        replays = [net(x) for _ in range(3)]
+        net.hybridize(False)
+    if not all(torch.equal(r, outs[0]) for r in replays):
+        fail("phase 12: a replayed quantized forward differs from the eager "
+             "one")
+    print(f"phase 12: int8 ResNet-50 v1 (quantize_net naive, {CALIB_NAIVE} "
+          f"batches of {B_CALIB}, {t_naive:.1f} s): {QUANT_STEP} int8 kernel "
+          f"launches a forward by the counters with MXNET_FUSE_BN_CONV 0 and "
+          f"1 (the fused conv kernels 0), {n_int8} int8 records and no "
+          f"library convolution or product in a primed profiled forward; "
+          f"copies a forward {copies}; two eager runs and three replays equal "
+          f"to the bit; logits against the f32 net: rel Frobenius "
+          f"{err:.3e} (less the batch mean {centered:.3e}), top-1 agreement "
+          f"{float(top1):.4f} (the f32 net's top-1: {classes} classes of "
+          f"{B_QUANT} images); launches in the run {launches}", flush=True)
+    # entropy calibration on a fresh f32 net
+    net_e = quant_net(torch, dev, params)
+    t = time.perf_counter()
+    quantize_net(net_e, calib_data=calib[:CALIB_ENTROPY],
+                 calib_mode="entropy")
+    t_entropy = time.perf_counter() - t
+    with torch.inference_mode():
+        qe = net_e(x).float()
+    if not torch.isfinite(qe).all():
+        fail("phase 12: the entropy-calibrated logits are not finite")
+    err_e = rel(qe, ref)
+    top1_e = (qe.argmax(1) == ref.argmax(1)).float().mean()
+    print(f"phase 12: entropy calibration on {CALIB_ENTROPY} batches of "
+          f"{B_CALIB} in {t_entropy:.1f} s: logits against the f32 net rel "
+          f"Frobenius {err_e:.3e} (less the batch mean "
+          f"{rel(qe - qe.mean(0), ref - ref.mean(0)):.3e}), top-1 agreement "
+          f"{float(top1_e):.4f}", flush=True)
+    del net_e
+    quant_cpu_check(torch, net, params, x, ref)
+    quant_forward_ms(torch, quant_net(torch, dev, params, "bfloat16"),
+                     x.to(torch.bfloat16), "bf16 ResNet-50 (cuDNN)")
+    print(f"phase 12: main path done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def quant_cpu_check(torch, net, params, x, ref):
+    """The port's int8 net on the CPU at B = 2 with the card's calibrated
+    ranges copied in: the int8 weights equal, each quantized layer on the
+    CPU layer's input equal to its output to the bit, the logits within
+    TOL_QUANT_CPU_REL (the f32 nets' own difference printed beside)."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    cpu = quant_net(torch, "cpu", params)
+    xc = x[:B_QUANT_CPU].cpu()
+    with torch.inference_mode():
+        f32_err = rel(ref[:B_QUANT_CPU].cpu(), cpu(xc).float())
+    quantize_net(cpu, calib_data=[xc], calib_mode="naive")
+    card, host = quant_layers(net), quant_layers(cpu)
+    for k, m in host.items():
+        src = card[k]
+        if not torch.equal(m.wq, src.wq.cpu()) or (
+                m.bq is not None and not torch.equal(m.bq, src.bq.cpu())):
+            fail(f"phase 12: {k}: the int8 weights differ card and CPU")
+        m._in_min, m._in_max = src._in_min, src._in_max
+        m.in_min.copy_(src.in_min)
+        m.in_max.copy_(src.in_max)
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda _m, a, o, _k=k: seen.__setitem__(_k, (a[0], o)))
+        for k, m in host.items()]
+    with torch.inference_mode():
+        got = net(x[:B_QUANT_CPU]).float().cpu()
+        want = cpu(xc).float()
+        for h in hooks:
+            h.remove()
+        for k, (inp, out) in seen.items():
+            if not torch.equal(card[k](inp.to(x.device)).cpu(), out):
+                fail(f"phase 12: quantized layer {k} on the CPU layer's "
+                     f"input differs from the CPU's output")
+    err = rel(got, want)
+    print(f"phase 12: int8 ResNet-50 B={B_QUANT_CPU} card against the port's "
+          f"CPU int8 net (the card's ranges): int8 weights of all "
+          f"{len(host)} layers equal; each layer on the CPU layer's input "
+          f"equal to its output to the bit; logits rel Frobenius {err:.3e} "
+          f"(limit {TOL_QUANT_CPU_REL}; the f32 nets card / CPU "
+          f"{f32_err:.3e}), top-1 {got.argmax(1).tolist()} / "
+          f"{want.argmax(1).tolist()}", flush=True)
+    if not err <= TOL_QUANT_CPU_REL:
+        fail(f"phase 12: card against CPU {err:.3e} > {TOL_QUANT_CPU_REL}")
+
+
+def int8_bound_ms(M, N, K, x_bytes, O):
+    t_ops = 2.0 * M * N * K / PEAK_INT8_OPS * 1e3
+    nbytes = x_bytes + O * K + O * 4 + M * O * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_int_mm_ms(torch, a, b):
+    """torch._int_mm(a, b) (a yardstick, never called by the port), or None
+    where it does not take the shapes."""
+    try:
+        return kernel_ms(lambda: torch._int_mm(a, b), r".", iters=10)
+    except RuntimeError as e:
+        print(f"phase 12:   torch._int_mm unavailable here ({e!r:.100})",
+              flush=True)
+        return None
+
+
+def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
+             gen):
+    """One int8 kernel shape: the kernel against its plain version (equal to
+    the bit), its device time, the plain version's, torch._int_mm's where
+    the shape is a plain product (stride-1 1x1 or the FC), and the bound."""
+    from mxnet_tpu_torch.ops.cuda import int8_conv as i8
+    fc = layout == "FC"
+    first = layout.startswith("NC")
+    x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8,
+                      device=dev)
+    if first and x.ndim == 4:      # as the path gives it: channels-last
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8,
+                      device=dev)
+    O = ws[0] if first or fc else ws[-1]
+    b = torch.randint(-2 ** 20, 2 ** 20, (O,), generator=gen,
+                      dtype=torch.int32, device=dev)
+    if fc:
+        run = (lambda: i8.fully_connected(x, w, b))
+        plain = (lambda: i8.fully_connected_reference(x, w, b))
+    else:
+        run = (lambda: i8.conv(x, w, b, stride, pad, dilate, groups, layout))
+        plain = (lambda: i8.conv_reference(x, w, b, stride, pad, dilate,
+                                           groups, layout))
+    saved = dict(i8.launches)
+    got, want = run(), plain()
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"phase 12: int8 kernel {label}: differs from its plain version "
+             f"(max abs {(got.double() - want.double()).abs().max():.3e})")
+    ms = launch_ms(run, 10, lambda n: re.search(INT8_KERNEL, n))
+    plain_ms = device_ms(plain, iters=3)
+    i8.launches.update(saved)
+    lib = None
+    if fc:
+        lib = library_int_mm_ms(torch, x, w.t())
+    elif ws[2:] == (1,) * (len(ws) - 2) and all(s == 1 for s in stride) \
+            and groups == 1 and first:
+        lib = library_int_mm_ms(torch, x.movedim(1, -1).reshape(-1, xs[1]),
+                                w.reshape(O, -1).t())
+    M = want.numel() // O
+    K = w.numel() // O
+    bnd, by = int8_bound_ms(M, O, K, x.numel(), O)
+    print(f"phase 12: int8 {label}: equal to the plain version; kernel "
+          f"{fmt_ms(ms)}, plain {fmt_ms(plain_ms)}, library "
+          f"{'none' if lib is None else fmt_ms(lib)}, bound {bnd:.4f} ms "
+          f"({by}); {2.0 * M * O * K / (ms or float('inf')) / 1e9:.1f} "
+          f"TOP/s", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
+                bound_by=by)
+
+
+def int8_kernel_rows(torch, dev, shapes):
+    """The int8 kernel at each distinct shape of the main path (in its
+    order; weighted by its launches a forward into the kernels line's row)
+    and at the extra shapes; the row's library_ms is None (no one PyTorch
+    call computes every shape)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for (xs, ws, cfg), n in shapes.items():
+        if cfg is None:
+            r = int8_row(torch, dev, f"FC {xs} x {ws} ({n} a forward)", "FC",
+                         xs, ws, None, None, None, 1, gen)
+        else:
+            stride, pad, dilate, groups = cfg
+            r = int8_row(torch, dev, f"{xs} -> {ws[0]}, {ws[2]}x{ws[3]} "
+                         f"stride {stride[0]} ({n} a forward)", "NCHW", xs,
+                         ws, stride, pad, dilate, groups, gen)
+        for k in total:
+            total[k] = None if total[k] is None or r[k] is None \
+                else total[k] + n * r[k]
+    for label, layout, xs, ws, st, pd, dl, g in INT8_EXTRA:
+        int8_row(torch, dev, label, layout, xs, ws, st, pd, dl, g, gen)
+    row = dict(total, library_ms=None, bound_by="operations")
+    print(f"phase 12: int8 kernel per quantized ResNet-50 forward (B="
+          f"{B_QUANT}, {sum(shapes.values())} launches): {fmt_ms(row['ms'])}"
+          f" device, plain {fmt_ms(row['plain_ms'])}, bound "
+          f"{row['bound_ms']:.4f} ms", flush=True)
+    return row
+
+
+def ssd_anchors(torch, dev):
+    """SSD-300's 8732 anchors: multibox_prior over the six feature maps."""
+    from mxnet_tpu_torch.ops import boxes
+    out = []
+    for i, (f, step, ratios) in enumerate(SSD_MAPS):
+        s0, s1 = SSD_SIZES[i] / 300, SSD_SIZES[i + 1] / 300
+        out.append(boxes.multibox_prior(
+            torch.zeros((1, 1, f, f), device=dev), sizes=(s0, (s0 * s1) ** 0.5),
+            ratios=ratios, steps=(step / 300, step / 300)))
+    return torch.cat(out, 1)
+
+
+def ssd_inputs(torch, seed):
+    """SSD's label rows (1-40 valid a image, cls -1 past them), class
+    predictions and location offsets for B = 32, from ``seed``, on the
+    CPU."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    B, M, C, N = SSD_B, SSD_LABELS, SSD_CLASSES, SSD_ANCHORS
+    lab = np.full((B, M, 5), -1.0, np.float32)
+    for b in range(B):
+        k = rng.randint(1, 41)
+        xy = rng.uniform(0, 0.8, (k, 2))
+        wh = rng.uniform(0.05, 0.5, (k, 2))
+        lab[b, :k, 0] = rng.randint(0, C - 1, k)
+        lab[b, :k, 1:3] = xy
+        lab[b, :k, 3:5] = np.minimum(xy + wh, 1.0)
+    logits = rng.standard_normal((B, C, N)).astype(np.float32) * 2
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = (rng.standard_normal((B, N * 4)) * 0.5).astype(np.float32)
+    return [torch.from_numpy(a) for a in (lab, logits, prob.astype(
+        np.float32), loc)]
+
+
+def ssd_time(torch, fn):
+    """Device time of ``fn``: the median of three profiler sessions."""
+    import statistics
+    fn()
+    got = [device_ms(fn, iters=3) for _ in range(3)]
+    return None if None in got else statistics.median(got)
+
+
+def ssd_boxes(torch, dev):
+    """SSD-300's box operators on the card against the port's CPU path, each
+    timed; the NMS kernel's launches counted over the detections. Returns
+    (launches, nms row)."""
+    from mxnet_tpu_torch.ops import boxes
+    from mxnet_tpu_torch.ops.cuda import box_nms as nms
+    t0 = time.perf_counter()
+    lab, logits, prob, loc = ssd_inputs(torch, 41)
+    anc = {d: ssd_anchors(torch, d) for d in ("cpu", dev)}
+    if tuple(anc["cpu"].shape) != (1, SSD_ANCHORS, 4) or \
+            rel(anc[dev].cpu(), anc["cpu"]) > TOL_BOX_REL:
+        fail(f"phase 12: multibox_prior gave {tuple(anc[dev].shape)} anchors,"
+             f" card against CPU {rel(anc[dev].cpu(), anc['cpu']):.3e}")
+    on = {"cpu": (lab, logits, prob, loc)}
+    on[dev] = tuple(t.to(dev) for t in on["cpu"])
+    ops = {
+        "multibox_prior": lambda d: ssd_anchors(torch, d),
+        "box_iou": lambda d: boxes.box_iou(anc[d], on[d][0][..., 1:5]),
+        "bipartite_matching": lambda d: boxes.bipartite_matching(
+            boxes.box_iou(on[d][0][..., 1:5], anc[d]), threshold=0.1),
+        "multibox_target": lambda d: boxes.multibox_target(
+            anc[d], on[d][0], on[d][1], negative_mining_ratio=3.0),
+        "multibox_detection": lambda d: boxes.multibox_detection(
+            on[d][2], on[d][3], anc[d], threshold=0.01, nms_threshold=0.45,
+            nms_topk=400),
+    }
+    reset_counts(nms)                       # the main path starts here
+    results = {}
+    for name, fn in ops.items():
+        got, want = fn(dev), fn("cpu")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        results[name] = (got, want)
+    launches = dict(nms.launches)           # ... and ends here
+    if launches["box_nms"] != 1:
+        fail(f"phase 12: multibox_detection launched the NMS kernel "
+             f"{launches['box_nms']} times, not once")
+    flips = 0
+    for name, (got, want) in results.items():
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"phase 12: {name}: card {tuple(g.shape)} against CPU "
+                     f"{tuple(w.shape)}, finite {bool(torch.isfinite(g).all())}")
+            if name == "multibox_detection":
+                kg, kw = g[..., 0] >= 0, w[..., 0] >= 0
+                flips = int((kg != kw).sum())
+                both = kg & kw
+                err = rel(g[both], w[both])
+                if flips > SSD_FLIPS or not err <= TOL_BOX_REL:
+                    fail(f"phase 12: multibox_detection: {flips} keep bits "
+                         f"differ card / CPU, kept rows rel {err:.3e}")
+            elif g.dtype.is_floating_point and g.abs().max() > 0:
+                err = ((g - w).abs() / (w.abs() + 1)).max().item()
+                if not err <= TOL_BOX_REL:
+                    fail(f"phase 12: {name}: card against CPU {err:.3e}")
+    # the NMS kernel's keep mask against its plain version on the card's
+    # own sorted boxes: the detection's (B = 32, topk 400) and all 8732
+    # anchors of one image
+    row = None
+    for label, B, n in (("detection B=32, topk 400", SSD_B, 400),
+                        ("one image, all 8732 anchors", 1, SSD_ANCHORS)):
+        bx, cl, va = nms_inputs(torch, on[dev], anc[dev], B, n)
+        saved = dict(nms.launches)
+        got = nms.nms_keep(bx, cl, va, 0.45, False)
+        want = nms.nms_keep_reference(bx, cl, va, 0.45, False)
+        if not torch.equal(got, want):
+            fail(f"phase 12: NMS keep mask ({label}) differs from its plain "
+                 f"version in {int((got != want).sum())} rows")
+        ms = launch_ms(lambda: nms.nms_keep(bx, cl, va, 0.45, False), 10,
+                       lambda k: re.search(NMS_KERNEL, k), per_call=2)
+        if n < SSD_ANCHORS:
+            plain_ms, how = device_ms(lambda: nms.nms_keep_reference(
+                bx, cl, va, 0.45, False), iters=1), "device time"
+        else:       # 8732 steps of ~15 launches: CUDA events, not records
+            plain_ms, how = cuda_time_ms(lambda: nms.nms_keep_reference(
+                bx, cl, va, 0.45, False), iters=1, warmup=0), "CUDA events"
+        nms.launches.update(saved)
+        t_ops = B * n * (n - 1) / 2 * 17 / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = B * (n * 20 + va.shape[1] * 2) / HBM_BYTES_PER_S * 1e3
+        bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        print(f"phase 12: NMS kernel, {label}: keep mask equal to the plain "
+              f"version's ({int(got.sum())} kept of {int(va.sum())} valid); "
+              f"{fmt_ms(ms)} (both passes), plain {fmt_ms(plain_ms)} "
+              f"({how}), bound {bnd:.5f} ms ({by}), library none (PyTorch "
+              f"has no NMS)", flush=True)
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       library_ms=None, max_abs_err=0.0)
+    for name, fn in ops.items():
+        print(f"phase 12: SSD-300 {name}: card equal to the CPU within "
+              f"{TOL_BOX_REL}; device {fmt_ms(ssd_time(torch, lambda: fn(dev)))}"
+              f" (median of three profiler sessions)", flush=True)
+    print(f"phase 12: SSD-300 box operators ({SSD_ANCHORS} anchors, B="
+          f"{SSD_B}, {SSD_CLASSES} classes, {SSD_LABELS} label rows): "
+          f"detection keep bits differing card / CPU {flips}; NMS launches "
+          f"{launches}; done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, row
+
+
+def nms_inputs(torch, data, anc, B, n):
+    """The score-sorted boxes, classes and validity box_nms hands its
+    kernel for multibox_detection's first B images, the sweep restricted to
+    n rows."""
+    from mxnet_tpu_torch.ops import boxes
+    prob, loc = data[2][:B], data[3][:B]
+    rows = boxes.multibox_detection(prob, loc, anc, threshold=0.01,
+                                    nms_threshold=1.0)      # nothing suppressed
+    N = rows.shape[1]
+    valid = rows[..., 1] > 0
+    valid &= torch.arange(N, device=rows.device)[None, :] < n
+    return rows[:, :n, 2:6].contiguous(), rows[:, :n, 0].contiguous(), valid
+
+
+def phase_quant(torch, dev):
+    """Phase 12: int8 ResNet-50 v1 through quantize_net (the main path,
+    checks and times), the int8 kernel's rows, and SSD-300's box operators
+    with the NMS kernel. Returns (rows, launches)."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    t = time.perf_counter()
+    # gamma 1 in every BatchNorm, so every convolution's output reaches the
+    # logits (random_resnet_params' zero last gamma would mute a third)
+    params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
+                                  seed=0, zero_last_gamma=False)
+    launches, shapes = quant_main_path(torch, dev, params)
+    rows = {"int8_conv": dict(int8_kernel_rows(torch, dev, shapes),
+                              max_abs_err=0.0)}
+    nms_launches, rows["box_nms"] = ssd_boxes(torch, dev)
+    launches.update(nms_launches)
+    torch.cuda.empty_cache()
+    print(f"phase 12: done in {time.perf_counter() - t:.1f} s; card: "
+          f"{smi_line()}", flush=True)
+    return rows, launches
+
+
 def initialize_check(torch) -> None:
     """Phase 1: MXNet's ``initialize()`` with no arguments puts a block's
     parameters on the current context, ``cuda:0``."""
@@ -7459,14 +8065,17 @@ def initialize_check(torch) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "rtc", "generate",
-                                       "seq2seq", "gpt-train", "layers"],
+                                       "seq2seq", "gpt-train", "layers",
+                                       "quant"],
                     default=None,
                     help="kernels: stop after the kernel checks (phases "
                     "1-3); rtc: phases 1 and 7 only; generate: phases 1, "
                     "2 and 8 (GPT-2 generation); seq2seq: phases 1, 2 and "
                     "9 (the encoder-decoder Transformer); gpt-train: "
                     "phases 1, 2 and 10 (GPT-2 training); layers: phases "
-                    "1, 2 and 11 (the DCGAN and the layer sweep)")
+                    "1, 2 and 11 (the DCGAN and the layer sweep); quant: "
+                    "phases 1, 2 and 12 (int8 ResNet-50 and SSD's box "
+                    "operators)")
     ap.add_argument("--probe-fwd", action="store_true",
                     help="after phase 3, time the flash forward against "
                     "builds of it with one part cut out")
@@ -7600,9 +8209,23 @@ def main() -> int:
                 fail(f"kernels never launched on the DCGAN path: {missing}")
             for n in layer_names:
                 launches[n] += layer_launches[n]
+        if args.only in (None, "quant"):
+            # phase 12 (after phase 11; phase 7 follows)
+            quant_rows, quant_launches = phase_quant(torch, dev)
+            missing = [n for n in QUANT_INFO if not quant_launches[n]]
+            if missing:
+                fail(f"kernels never launched on the int8 and SSD paths: "
+                     f"{missing}")
+            if args.only == "quant":
+                names = []
         entries += [dict(name=n, route="cuda", source=KERNEL_INFO[n][0],
                          replaces=KERNEL_INFO[n][1], launches=launches[n],
                          **rows[n]) for n in names]
+        if args.only in (None, "quant"):
+            entries += [dict(name=n, route="cuda", source=QUANT_INFO[n][0],
+                             replaces=QUANT_INFO[n][1],
+                             launches=quant_launches[n], **quant_rows[n])
+                        for n in QUANT_INFO]
         if args.only in (None, "generate", "seq2seq"):
             entries += [dict(name=n, route="cuda", source=GEN_INFO[n][0],
                              replaces=GEN_INFO[n][1],

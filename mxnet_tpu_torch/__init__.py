@@ -9,10 +9,11 @@ operators, ``autograd`` records on torch's autograd, ``random`` draws from
 the framework generators, ``rtc`` compiles user CUDA kernels with NVRTC,
 and ``metrics``, ``tracing`` and ``faults`` are the runtime's counters,
 spans and fault sites.
-``gluon``, ``optimizer``, ``init`` / ``initializer``, ``lr_scheduler`` and
-``serving`` load on first use, as the JAX package's ``_LAZY`` table does
-(``mxnet_tpu/__init__.py``); a name of that table whose module the port
-lacks raises :class:`MXNetError` naming its ROADMAP Queue A item.
+``gluon``, ``optimizer``, ``init`` / ``initializer``, ``lr_scheduler``,
+``serving`` and ``contrib`` load on first use, as the JAX package's
+``_LAZY`` table does (``mxnet_tpu/__init__.py``); a name of that table
+whose module the port lacks raises :class:`MXNetError` naming its ROADMAP
+Queue A item.
 """
 from .base import MXNetError, getenv, register_env, unported
 from .context import (Context, as_device, cpu, cpu_pinned, current_context,
@@ -43,6 +44,7 @@ _LAZY = {
     "init": ".initializer",
     "lr_scheduler": ".lr_scheduler",
     "serving": ".serving",
+    "contrib": ".contrib",
 }
 
 

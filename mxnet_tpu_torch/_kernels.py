@@ -32,7 +32,8 @@ __all__ = ["KERNEL_SOURCES", "build_all", "load", "build_dir"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_fused",
                   "batch_norm", "multi_tensor", "decode_attention",
-                  "flash_attention_wide_wg", "flash_attention_wide_dkv")
+                  "flash_attention_wide_wg", "flash_attention_wide_dkv",
+                  "int8_conv", "box_nms")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -49,7 +49,6 @@ def getenv(name: str, default: Any = None, typ: Optional[type] = None) -> Any:
 # the ROADMAP Queue A item that ports them. Reading one raises MXNetError
 # naming the item; any other missing name is an AttributeError.
 QUEUE_A = {
-    6: "the quantized and box operators",
     7: "the rest of the imperative surface",
     8: "the vision remainder, AMP and deferred initialization",
     9: "RNN",
@@ -68,8 +67,23 @@ _UNPORTED = {
         12: "metric checkpoint preemption",
         13: "kvstore kv parallel",
         14: "profiler monitor mon retry health engine bulk",
-        15: "test_utils runtime callback model mod module symbol sym contrib "
+        15: "test_utils runtime callback model mod module symbol sym "
             "subgraph name attribute visualization viz",
+    },
+    "mxnet_tpu_torch.contrib": {
+        15: "onnx text svrg tensorboard hf",
+    },
+    "mxnet_tpu_torch.ndarray": {
+        7: "FullyConnected Convolution Deconvolution Activation BatchNorm "
+           "LayerNorm GroupNorm InstanceNorm Pooling Dropout Embedding "
+           "LeakyReLU SoftmaxOutput LinearRegressionOutput "
+           "LogisticRegressionOutput MAERegressionOutput MakeLoss "
+           "SoftmaxActivation Concat Reshape Flatten Cast SwapAxis "
+           "SequenceMask SequenceLast SequenceReverse L2Normalization LRN "
+           "Pad SliceChannel UpSampling Custom",
+    },
+    "mxnet_tpu_torch.ops": {
+        9: "rnn",
     },
     "mxnet_tpu_torch.gluon": {
         8: "DeferredInitializationError",
@@ -82,9 +96,6 @@ _UNPORTED = {
         12: "estimator",
     },
     "mxnet_tpu_torch.npx": {
-        6: "quantize quantize_v2 dequantize requantize "
-           "quantized_fully_connected quantized_conv quantized_pooling "
-           "quantized_act quantized_flatten",
         9: "rnn",
     },
 }

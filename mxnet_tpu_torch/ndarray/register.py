@@ -26,6 +26,7 @@ the AMP cast, profiler timers and the monitor hooks.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
@@ -35,8 +36,8 @@ from .. import metrics as _metrics
 from ..autograd import is_recording
 from .ndarray import NDArray, canonical_dtype
 
-__all__ = ["invoke", "invoke_with_custom_vjp", "register_op", "get_op",
-           "list_ops", "wrap_out"]
+__all__ = ["invoke", "invoke_with_custom_vjp", "register_op",
+           "register_tensor_op", "get_op", "list_ops", "wrap_out"]
 
 # name -> {"fn": public python function, "doc": ...}
 _OP_REGISTRY: Dict[str, Dict[str, Any]] = {}
@@ -46,6 +47,30 @@ def register_op(name: str, fn: Callable, doc: str = "") -> Callable:
     """Register a public op under ``name`` (``NNVM_REGISTER_OP``)."""
     _OP_REGISTRY[name] = {"fn": fn, "doc": doc or (fn.__doc__ or "")}
     return fn
+
+
+def register_tensor_op(name: str, fn: Callable) -> Callable:
+    """Register ``fn``, an operator over tensors (``ops/*.py``), as the
+    NDArray operator ``name``: it is ``invoke``d over the tensors of its
+    NDArray arguments, positional or keyword; other arguments reach ``fn``
+    as they are. Returns the NDArray operator."""
+    @functools.wraps(fn)
+    def op(*args: Any, **kwargs: Any) -> Any:
+        pos = [i for i, a in enumerate(args) if isinstance(a, NDArray)]
+        keys = [k for k, v in kwargs.items() if isinstance(v, NDArray)]
+
+        def impl(*tensors):
+            a, kw = list(args), dict(kwargs)
+            for i, t in zip(pos, tensors):
+                a[i] = t
+            for k, t in zip(keys, tensors[len(pos):]):
+                kw[k] = t
+            return fn(*a, **kw)
+
+        return invoke(name, impl, [args[i] for i in pos] +
+                      [kwargs[k] for k in keys])
+
+    return register_op(name, op)
 
 
 def get_op(name: str) -> Callable:

@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/npx.py``: the operators of ``ops/nn.py`` and
 ``ops/transformer.py``, ``set_np`` and its friends, the device helpers and
-the ``mx.nd`` operators the JAX package re-exports here. A name of its
-``__all__`` that the port lacks (``rnn``, the quantized operators) raises
-:class:`~mxnet_tpu_torch.base.MXNetError` naming its ROADMAP Queue A item.
+the ``mx.nd`` operators the JAX package re-exports here, and the quantized
+operators of ``ops/quantization.py``. A name of its ``__all__`` that the
+port lacks (``rnn``) raises :class:`~mxnet_tpu_torch.base.MXNetError`
+naming its ROADMAP Queue A item.
 """
 from .base import unported
 from .context import (cpu, current_context, gpu, num_gpus,  # noqa: F401
@@ -19,10 +20,12 @@ from .ops.nn import *  # noqa: F401,F403
 from .ops.nn import __all__ as _nn_all
 from .ops.transformer import *  # noqa: F401,F403
 from .ops.transformer import __all__ as _tr_all
+from .ops.quantization import *  # noqa: F401,F403
+from .ops.quantization import __all__ as _q_all
 from .util import (is_np_array, is_np_shape, reset_np, set_np,  # noqa: F401
                    use_np)
 
-__all__ = list(_nn_all) + list(_tr_all) + [
+__all__ = list(_nn_all) + list(_tr_all) + list(_q_all) + [
     "set_np", "reset_np", "is_np_array", "is_np_shape", "use_np",
     "cpu", "gpu", "tpu", "num_gpus", "num_tpus", "current_context",
     "waitall", "one_hot", "topk", "pad", "arange", "reshape", "gather_nd",

@@ -58,15 +58,12 @@ NAMESPACES = [
     ("mxnet_tpu.initializer", tmx.initializer, list(jinit.__all__)),
     ("mxnet_tpu.npx", tmx.npx, list(jnpx.__all__)),
 ]
-# the quantized operators (ROADMAP Queue A 6) and rnn (A 9) are not ported
-QUANTIZED = ("quantize quantize_v2 dequantize requantize "
-             "quantized_fully_connected quantized_conv quantized_pooling "
-             "quantized_act quantized_flatten").split()
-# names whose modules are ported: each must resolve
+# names whose modules are ported: each must resolve (rnn, ROADMAP Queue A
+# 9, is not)
 PORTED = {
     "mxnet_tpu": "gluon optimizer initializer init lr_scheduler rtc serving "
                  "metrics faults tracing autograd base context nd ndarray ndarray_io np npx numpy "
-                 "ops random util Context MXNetError NDArray cpu cpu_pinned "
+                 "ops random util contrib Context MXNetError NDArray cpu cpu_pinned "
                  "current_context gpu is_np_array is_np_shape num_gpus "
                  "num_tpus set_np tpu waitall",
     "mxnet_tpu.gluon": "Block HybridBlock Parameter Constant Trainer nn loss "
@@ -76,8 +73,7 @@ PORTED = {
     "mxnet_tpu.gluon.contrib": "nn",
     "mxnet_tpu.gluon.contrib.nn": " ".join(jcontrib_nn.__all__),
     "mxnet_tpu.initializer": " ".join(jinit.__all__),
-    "mxnet_tpu.npx": " ".join(n for n in jnpx.__all__
-                              if n not in QUANTIZED + ["rnn"]),
+    "mxnet_tpu.npx": " ".join(n for n in jnpx.__all__ if n != "rnn"),
 }
 
 

@@ -122,6 +122,20 @@ kernel 4 times a token; the hybridized step with and without
 ``src_valid_length`` (one graph each, the tied embedding bound once). A
 2-layer GPT's training step: 2 + 2 launches (or the pair at block_k 128),
 and the f32 step against the CPU.
+
+The int8 convolution and product (``csrc/int8_conv.cu``) against their
+float64 plain version, to the bit, with and without the int32 bias: conv1's
+C = 3 (K = 147), strided 1x1 downsamples, K not a multiple of 32 or 16,
+groups, dilation, the 1-d and 3-d layouts, channels-last weights, M < 16,
+K = 4608 of -127 x -127 (past f32's 2^24), the FC at batch 1 to 300; a
+channels-last input read in place and a contiguous one copied and counted;
+a failed launch or build raising with the plain version out of reach. The
+NMS kernel's keep mask (``csrc/box_nms.cu``) against its plain version, to
+the bit, at N = 1, 63, 64, 65, 300 and 8732, the sweep cut to topk < N,
+with and without ``force_suppress``; ``box_nms`` on the card equal to the
+CPU's; a failed launch raising. A ResNet-18 v1 through ``quantize_net``:
+21 int8 launches a forward, and its hybridized replays equal to the eager
+forward to the bit.
 """
 import math
 
@@ -3046,3 +3060,196 @@ def test_gpt_training_step_launches(dev, monkeypatch, block_k):
     assert ((lg - lc).abs() / lc.abs()).max() <= 1e-4
     for k in gc:
         assert cs.rel(gg[k], gc[k]) <= 1e-3, k
+
+
+# ------------------------------------------------- int8 convolution, NMS
+from mxnet_tpu_torch.ops.cuda import box_nms as nms  # noqa: E402
+from mxnet_tpu_torch.ops.cuda import int8_conv as i8  # noqa: E402
+
+# (layout, data shape, weight shape, stride, pad, dilate, groups): ResNet-50's
+# conv1 (C = 3, K = 147), a strided 1x1 downsample, a 3x3 and a 1x1 that a
+# block of 128 output channels takes; K not a multiple of 32 or 16; groups,
+# dilation; the 1-d and 3-d layouts; channels-last weights; M < 16
+INT8_CASES = [
+    ("NCHW", (2, 3, 40, 40), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
+    ("NCHW", (2, 256, 14, 14), (512, 256, 1, 1), (2, 2), (0, 0), (1, 1), 1),
+    ("NCHW", (2, 64, 14, 14), (64, 64, 3, 3), (1, 1), (1, 1), (1, 1), 1),
+    ("NCHW", (3, 48, 9, 9), (200, 48, 1, 1), (1, 1), (0, 0), (1, 1), 1),
+    ("NCHW", (2, 40, 9, 9), (24, 40, 1, 1), (1, 1), (0, 0), (1, 1), 1),
+    ("NCHW", (2, 64, 11, 11), (96, 16, 3, 3), (1, 2), (2, 1), (2, 1), 4),
+    ("NCHW", (2, 6, 8, 8), (9, 2, 3, 3), (1, 1), (1, 1), (1, 1), 3),
+    ("NHWC", (2, 9, 9, 32), (3, 3, 32, 48), (2, 2), (1, 1), (1, 1), 1),
+    ("NCW", (3, 32, 50), (20, 32, 5), (2,), (2,), (1,), 1),
+    ("NWC", (2, 37, 24), (3, 12, 30), (1,), (1,), (3,), 2),
+    ("NCDHW", (2, 16, 5, 6, 7), (8, 16, 3, 3, 3), (1, 1, 2), (1, 1, 1),
+     (1, 1, 1), 1),
+    ("NDHWC", (1, 4, 5, 6, 32), (2, 2, 2, 16, 40), (1, 2, 1), (0, 1, 1),
+     (2, 1, 1), 2),
+    ("NCHW", (1, 16, 3, 3), (8, 16, 1, 1), (1, 1), (0, 0), (1, 1), 1),
+]
+
+
+def _i8(shape, g, dev):
+    return torch.randint(-127, 128, shape, generator=g,
+                         dtype=torch.int8).to(dev)
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_conv_matches_plain(dev, case, with_bias):
+    """The int8 kernel equals its float64 plain version to the bit (and is
+    launched once a call)."""
+    layout, xs, ws, stride, pad, dilate, groups = case
+    g = torch.Generator().manual_seed(len(xs) * 7 + groups)
+    x, w = _i8(xs, g, dev), _i8(ws, g, dev)
+    O = ws[0] if layout.startswith("NC") else ws[-1]
+    b = torch.randint(-2 ** 20, 2 ** 20, (O,), generator=g,
+                      dtype=torch.int32).to(dev) if with_bias else None
+    before = i8.launches["int8_conv"]
+    got = i8.conv(x, w, b, stride, pad, dilate, groups, layout)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_conv"] == before + 1
+    want = i8.conv_reference(x, w, b, stride, pad, dilate, groups, layout)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_worst_case_sum_is_exact(dev):
+    """K = 4608 (ResNet-50's 3x3x512) of -127 x -127: every output is
+    K * 127^2 = 74322432, past f32's 2^24, exact."""
+    x = torch.full((1, 512, 3, 3), -127, dtype=torch.int8, device=dev)
+    w = torch.full((128, 512, 3, 3), -127, dtype=torch.int8, device=dev)
+    got = i8.conv(x, w, None, (1, 1), (0, 0), (1, 1), 1, "NCHW")
+    assert torch.equal(got, torch.full_like(got, 4608 * 127 * 127))
+
+
+@pytest.mark.parametrize("M,K,N", [(2, 2048, 1000), (64, 2048, 1000),
+                                   (5, 147, 33), (1, 16, 8), (300, 96, 130)])
+def test_int8_fully_connected_matches_plain(dev, M, K, N):
+    g = torch.Generator().manual_seed(M + K + N)
+    x, w = _i8((M, K), g, dev), _i8((N, K), g, dev)
+    b = torch.randint(-9999, 9999, (N,), generator=g, dtype=torch.int32).to(dev)
+    assert torch.equal(i8.fully_connected(x, w, b),
+                       i8.fully_connected_reference(x, w, b))
+
+
+def test_int8_conv_reads_channels_last_without_a_copy(dev):
+    """A channels-first input whose memory is channels-last (what the kernel
+    writes) is read in place; a contiguous NCHW one is copied and counted,
+    as is a 3x3 OIHW weight; a 1x1 weight is not."""
+    g = torch.Generator().manual_seed(3)
+    x = _i8((2, 32, 8, 8), g, dev)
+    w1, w3 = _i8((16, 32, 1, 1), g, dev), _i8((16, 32, 3, 3), g, dev)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    for xin, w, want in ((cl, w1, (0, 0)), (x, w1, (1, 0)), (cl, w3, (0, 1))):
+        before = dict(i8.copies)
+        y = i8.conv(xin, w, None, (1, 1), (1, 1) if w is w3 else (0, 0),
+                    (1, 1), 1, "NCHW")
+        assert (i8.copies["input"] - before["input"],
+                i8.copies["weight"] - before["weight"]) == want
+        assert y.permute(0, 2, 3, 1).is_contiguous()
+
+
+def test_int8_conv_raises_and_never_falls_back(dev, monkeypatch):
+    """A failed launch and a failed build raise MXNetError; an operand the
+    kernel does not take raises; nothing runs the plain version."""
+    g = torch.Generator().manual_seed(4)
+    x, w = _i8((1, 16, 4, 4), g, dev), _i8((8, 16, 1, 1), g, dev)
+    args = ((1, 1), (0, 0), (1, 1), 1, "NCHW")
+    monkeypatch.setattr(i8, "conv_reference", None)
+    monkeypatch.setattr(i8, "_kernel", lambda: (lambda *a: 98))
+    with pytest.raises(MXNetError, match="CUDA error 98"):
+        i8.conv(x, w, None, *args)
+
+    def no_build():
+        raise MXNetError("nvcc failed")
+    monkeypatch.setattr(i8, "_kernel", no_build)
+    with pytest.raises(MXNetError, match="nvcc failed"):
+        i8.fully_connected(x.reshape(1, -1)[:, :16], w.reshape(8, 16))
+    with pytest.raises(MXNetError, match="int8"):
+        i8.conv(x.float(), w, None, *args)
+    with pytest.raises(MXNetError, match="bias"):
+        i8.conv(x, w, torch.zeros(8, device=dev), *args)
+
+
+def _nms_inputs(B, N, g, dev, classes=3):
+    xy = torch.rand(B, N, 2, generator=g)
+    wh = torch.rand(B, N, 2, generator=g) * 0.25 + 0.01
+    boxes = torch.cat([xy, xy + wh], -1)
+    cls = torch.randint(0, classes, (B, N), generator=g).float()
+    valid = torch.rand(B, N, generator=g) > 0.1
+    return boxes.to(dev), cls.to(dev), valid.to(dev)
+
+
+@pytest.mark.parametrize("B,N,n", [(2, 1, 1), (2, 63, 63), (2, 64, 64),
+                                   (3, 65, 65), (1, 8732, 8732),
+                                   (4, 8732, 400), (2, 300, 100)])
+@pytest.mark.parametrize("force", [False, True])
+def test_nms_keep_matches_plain(dev, B, N, n, force):
+    """The NMS kernel's keep mask equals its plain version's to the bit,
+    the sweep restricted to the first n rows (topk) where n < N."""
+    g = torch.Generator().manual_seed(N + n)
+    boxes, cls, valid = _nms_inputs(B, N, g, dev)
+    valid[:, n:] = False
+    before = nms.launches["box_nms"]
+    got = nms.nms_keep(boxes[:, :n], cls[:, :n], valid, 0.45, force)
+    torch.cuda.synchronize()
+    assert nms.launches["box_nms"] == before + 1
+    want = nms.nms_keep_reference(boxes[:, :n], cls[:, :n], valid, 0.45,
+                                  force)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(valid.sum()) or N < 64
+
+
+def test_box_nms_on_the_card_equals_the_cpu(dev):
+    """``box_nms`` with classes, topk and out_format on the card against
+    the same call on the CPU: the same rows (the IoUs are the same f32
+    operations)."""
+    from mxnet_tpu_torch.ops import boxes as ob
+    g = torch.Generator().manual_seed(9)
+    boxes, cls, _ = _nms_inputs(2, 500, g, "cpu")
+    score = torch.rand(2, 500, generator=g)
+    data = torch.cat([cls[..., None], score[..., None], boxes], -1)
+    for kw in (dict(), dict(topk=100, out_format="center"),
+               dict(force_suppress=True, valid_thresh=0.3)):
+        got = ob.box_nms(data.to(dev), overlap_thresh=0.4, id_index=0, **kw)
+        want = ob.box_nms(data, overlap_thresh=0.4, id_index=0, **kw)
+        assert torch.equal(got.cpu(), want), kw
+
+
+def test_nms_raises_and_never_falls_back(dev, monkeypatch):
+    g = torch.Generator().manual_seed(5)
+    boxes, cls, valid = _nms_inputs(1, 10, g, dev)
+    monkeypatch.setattr(nms, "nms_keep_reference", None)
+    monkeypatch.setattr(nms, "_kernel", lambda: (lambda *a: 98))
+    with pytest.raises(MXNetError, match="CUDA error 98"):
+        nms.nms_keep(boxes, cls, valid, 0.5, False)
+    with pytest.raises(MXNetError, match="f32"):
+        nms.nms_keep(boxes.half(), cls, valid, 0.5, False)
+
+
+def test_quantized_resnet_graph_capture(dev):
+    """A ResNet-18 v1 (10 classes) quantized by ``quantize_net``: every
+    convolution and the Dense layer launch the int8 kernel once a forward,
+    and a hybridized call (warm-up, capture, replay) equals the eager
+    forward to the bit."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.gluon.block import Block
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    params = cs.random_resnet_params(get_model("resnet18_v1", device="cpu",
+                                               classes=10), seed=1)
+    net = load_jax_params(get_model("resnet18_v1", device=dev, classes=10),
+                          params)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(4, 3, 64, 64, generator=g).to(dev)
+    quantize_net(net, calib_data=[x], calib_mode="naive")
+    with torch.no_grad():
+        before = i8.launches["int8_conv"]
+        eager = Block.__call__(net, x)
+        torch.cuda.synchronize()
+        assert i8.launches["int8_conv"] - before == 21    # 20 convs + Dense
+        net.hybridize()
+        outs = [net(x) for _ in range(3)]
+    assert all(torch.equal(o, eager) for o in outs)
+    assert torch.isfinite(eager).all()
