@@ -12,6 +12,7 @@
     python3 chip_smoke.py --probe-fwd      # ... and the flash forward probe
     python3 chip_smoke.py --probe-bwd      # ... and the fused backward probe
     python3 chip_smoke.py --probe-conv     # ... and the conv fwd / dgrad probe
+    python3 chip_smoke.py --only quant --probe-int8  # ... the int8 kernel's
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -316,8 +317,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``load_jax_params``) quantized by ``contrib.quantization.quantize_net``
    with naive calibration on 10 batches of 32 synthetic images, forwards
    at B = 64, 224x224: 54 int8 kernel launches a forward by the counters
-   (53 convolutions and the Dense layer) with ``MXNET_FUSE_BN_CONV`` on
-   and off (the fused bf16 conv kernels never), no cuDNN convolution or
+   (53 convolutions and the Dense layer, each a whole quantized layer on
+   the kernel's f32 variant) with ``MXNET_FUSE_BN_CONV`` on and off (the
+   fused bf16 conv kernels never), operand copies a forward printed and no
+   weight repacked (each layer packs its own once), no cuDNN convolution or
    cuBLAS product in a primed profiled forward, two eager runs and three
    replays of the hybridized net equal to the bit; the logits against the
    f32 net (relative Frobenius error, top-1 agreement), then entropy
@@ -326,9 +329,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the logits within TOL_QUANT_CPU_REL); ms a forward eager and replayed,
    img/s, busy and idle share and peak memory of the f32, int8 and bf16
    nets; the int8 kernel at each distinct shape of the path and at a
-   grouped, a dilated, a 1-d and a 3-d one, equal to its float64 plain
-   version to the bit, timed beside its bound, the plain version and
-   ``torch._int_mm`` where one product computes the shape. Then SSD-300's
+   grouped, a dilated, a 1-d and a 3-d one, both variants (int8 in, int32
+   out; f32 in, f32 out) equal to their plain versions to the bit, each
+   timed beside its bound (the f32 variant's counting f32 bytes in and
+   out) and its plain version, the f32 variant beside the unfused
+   operators it replaces (``quantize_v2``, the int8 product,
+   ``dequantize``), and ``torch._int_mm`` where one product computes the
+   shape; with ``--probe-int8``, both variants at those shapes, conv1 and
+   two 3x3 ones against builds of the kernel with A's copies, the
+   products or the epilogue's stores cut out. Then SSD-300's
    box operators at its own shapes (8732 anchors from ``multibox_prior``
    over six feature maps; ``multibox_target`` at B = 32, 21 classes, 64
    label rows, negative mining 3; ``multibox_detection`` at threshold
@@ -512,6 +521,9 @@ OLD_CONV_MS = {
                                0.3296, 0.2813, 0.1970),
                       "PR 3": (0.2255, 0.1624, 0.4947, 0.4912, 0.5496,
                                0.3064, 0.4717, 0.4790)}}
+# --probe-int8: the int8 kernel rebuilt with one part cut out
+INT8_CUTS = {"A copies cut": "MXT_I8_CUT=3", "products cut": "MXT_I8_CUT=1",
+             "stores cut": "MXT_I8_CUT=2"}
 # --probe-conv: fwd and dgrad rebuilt with one part cut out
 CONV_CUTS = {"copies cut": "MXT_CONV_CUT=1", "products cut": "MXT_CONV_CUT=2",
              "epilogue cut": "MXT_CONV_CUT=3"}
@@ -7499,7 +7511,7 @@ QUANT_INFO = {
     "box_nms": ("mxnet_tpu_torch/csrc/box_nms.cu",
                 "mxnet_tpu/ops/boxes.py:114 (box_nms's lax.fori_loop, XLA)"),
 }
-INT8_KERNEL = r"conv_s8"
+INT8_KERNEL = r"conv_s8_wg"
 NMS_KERNEL = r"nms::"
 # library convolutions and products (kernel names, re.search): none may run
 # in a quantized forward
@@ -7651,6 +7663,9 @@ def quant_main_path(torch, dev, params):
         h.remove()
     copies = {k: (v - copies0[k]) // 3 for k, v in i8.copies.items()}
     shapes = {k: n // 3 for k, n in shapes.items()}     # a forward's
+    if copies["weight"]:
+        fail(f"phase 12: a quantized forward repacked {copies['weight']} "
+             "weights (each layer packs its own once)")
     if any(cf.launches.values()):
         fail(f"phase 12: the quantized net reached the fused bf16 conv "
              f"kernels: {cf.launches}")
@@ -7792,35 +7807,74 @@ def library_int_mm_ms(torch, a, b):
 
 def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
              gen):
-    """One int8 kernel shape: the kernel against its plain version (equal to
-    the bit), its device time, the plain version's, torch._int_mm's where
-    the shape is a plain product (stride-1 1x1 or the FC), and the bound."""
+    """One int8 kernel shape, both variants. int8 in, int32 out: the kernel
+    against its plain version (equal to the bit), its device time, the plain
+    version's, torch._int_mm's where the shape is a plain product (stride-1
+    1x1 or the FC), and the bound. f32 in, f32 out (a whole quantized layer,
+    what the main path launches): the same against its plain version, and
+    the time of the unfused operators it replaces (quantize_v2, the int8
+    product, dequantize, as the layer ran them before), the bound counting
+    f32 bytes in and out. Returns the f32 variant's row and the int8 one's."""
+    from mxnet_tpu_torch.ops import quantization as qop
     from mxnet_tpu_torch.ops.cuda import int8_conv as i8
     fc = layout == "FC"
     first = layout.startswith("NC")
     x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8,
                       device=dev)
-    if first and x.ndim == 4:      # as the path gives it: channels-last
+    xf = torch.randn(xs, generator=gen, device=dev) * 60
+    conv1 = not fc and xs[1] == 3      # the NCHW image, read as it lies
+    if first and x.ndim == 4 and not conv1:   # as the path gives it
         x = x.contiguous(memory_format=torch.channels_last)
+        xf = xf.contiguous(memory_format=torch.channels_last)
     w = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8,
                       device=dev)
     O = ws[0] if first or fc else ws[-1]
     b = torch.randint(-2 ** 20, 2 ** 20, (O,), generator=gen,
                       dtype=torch.int32, device=dev)
+    scale = torch.full((), 1.0, device=dev)
+    step = torch.full((), 1e-4, device=dev)
+    bq = torch.randint(-127, 128, (O,), generator=gen, dtype=torch.int8,
+                       device=dev)
+    rng = [torch.full((), v, device=dev) for v in (-127.0, 127.0, -0.5,
+                                                   0.5, -0.25, 0.25)]
     if fc:
         run = (lambda: i8.fully_connected(x, w, b))
         plain = (lambda: i8.fully_connected_reference(x, w, b))
+        run_f = (lambda: i8.fully_connected_f32(xf, w, b, scale, step))
+        plain_f = (lambda: i8.fully_connected_f32_reference(xf, w, b, scale,
+                                                            step))
+
+        def unfused():
+            q, mn, mx = qop.quantize_v2(xf, rng[0], rng[1])
+            y, mn_o, mx_o = qop.quantized_fully_connected(
+                q, w, bq, mn, mx, *rng[2:], num_hidden=O)
+            return qop.dequantize(y, mn_o, mx_o)
     else:
-        run = (lambda: i8.conv(x, w, b, stride, pad, dilate, groups, layout))
-        plain = (lambda: i8.conv_reference(x, w, b, stride, pad, dilate,
-                                           groups, layout))
+        cfg = (stride, pad, dilate, groups, layout)
+        run = (lambda: i8.conv(x, w, b, *cfg))
+        plain = (lambda: i8.conv_reference(x, w, b, *cfg))
+        run_f = (lambda: i8.conv_f32(xf, w, b, scale, step, *cfg))
+        plain_f = (lambda: i8.conv_f32_reference(xf, w, b, scale, step,
+                                                 *cfg))
+
+        def unfused():
+            q, mn, mx = qop.quantize_v2(xf, rng[0], rng[1])
+            y, mn_o, mx_o = qop.quantized_conv(
+                q, w, bq, mn, mx, *rng[2:], stride=stride, pad=pad,
+                dilate=dilate, num_group=groups, layout=layout)
+            return qop.dequantize(y, mn_o, mx_o)
     saved = dict(i8.launches)
-    got, want = run(), plain()
-    if got.shape != want.shape or not torch.equal(got, want):
-        fail(f"phase 12: int8 kernel {label}: differs from its plain version "
-             f"(max abs {(got.double() - want.double()).abs().max():.3e})")
+    for what, fn, ref in (("int8", run, plain), ("f32", run_f, plain_f)):
+        got, want = fn(), ref()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"phase 12: int8 kernel {label} ({what} variant): differs "
+                 f"from its plain version (max abs "
+                 f"{(got.double() - want.double()).abs().max():.3e})")
     ms = launch_ms(run, 10, lambda n: re.search(INT8_KERNEL, n))
+    ms_f = launch_ms(run_f, 10, lambda n: re.search(INT8_KERNEL, n))
     plain_ms = device_ms(plain, iters=3)
+    plain_f_ms = device_ms(plain_f, iters=3)
+    unfused_ms = device_ms(unfused, iters=5)
     i8.launches.update(saved)
     lib = None
     if fc:
@@ -7832,42 +7886,129 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
     M = want.numel() // O
     K = w.numel() // O
     bnd, by = int8_bound_ms(M, O, K, x.numel(), O)
-    print(f"phase 12: int8 {label}: equal to the plain version; kernel "
-          f"{fmt_ms(ms)}, plain {fmt_ms(plain_ms)}, library "
-          f"{'none' if lib is None else fmt_ms(lib)}, bound {bnd:.4f} ms "
-          f"({by}); {2.0 * M * O * K / (ms or float('inf')) / 1e9:.1f} "
-          f"TOP/s", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
-                bound_by=by)
+    bnd_f, by_f = int8_bound_ms(M, O, K, 4 * x.numel(), O)
+    plan = i8.int8_plan(M, xs[-1] if not first and not fc else xs[1],
+                        O // groups, groups, K, False, 4, first)
+    ops = 2.0 * M * O * K
+    print(f"phase 12: int8 {label}: both variants equal to their plain "
+          f"versions; int8 in: kernel {fmt_ms(ms)}, plain {fmt_ms(plain_ms)}"
+          f", library {'none' if lib is None else fmt_ms(lib)}, bound "
+          f"{bnd:.4f} ms ({by}), {ops / (ms or float('inf')) / 1e9:.1f} "
+          f"TOP/s; f32 in (the layer): kernel {fmt_ms(ms_f)}, plain "
+          f"{fmt_ms(plain_f_ms)}, unfused operators {fmt_ms(unfused_ms)}, "
+          f"bound {bnd_f:.4f} ms ({by_f}); tiles {plan.tiles}, split "
+          f"{plan.split}", flush=True)
+    return (dict(ms=ms_f, plain_ms=plain_f_ms, library_ms=lib,
+                 bound_ms=bnd_f, bound_by=by_f, unfused_ms=unfused_ms),
+            dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
+                 bound_by=by))
 
 
 def int8_kernel_rows(torch, dev, shapes):
     """The int8 kernel at each distinct shape of the main path (in its
-    order; weighted by its launches a forward into the kernels line's row)
-    and at the extra shapes; the row's library_ms is None (no one PyTorch
-    call computes every shape)."""
+    order; weighted by its launches a forward) and at the extra shapes.
+    The kernels line's row is the f32 variant's (the main path's: a whole
+    quantized layer a launch); its library_ms is None (no one PyTorch call
+    computes every shape). The int8 variant's totals are printed beside."""
     gen = torch.Generator(device=dev).manual_seed(31)
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    keys = ("ms", "plain_ms", "bound_ms")
+    total = dict.fromkeys(keys + ("unfused_ms",), 0.0)
+    total8 = dict.fromkeys(keys, 0.0)
+    kinds = {"bytes": 0.0, "operations": 0.0}   # the bound's ms by kind
+
+    def add(acc, r, n):
+        for k in acc:
+            acc[k] = None if acc[k] is None or r[k] is None \
+                else acc[k] + n * r[k]
     for (xs, ws, cfg), n in shapes.items():
         if cfg is None:
-            r = int8_row(torch, dev, f"FC {xs} x {ws} ({n} a forward)", "FC",
-                         xs, ws, None, None, None, 1, gen)
+            r, r8 = int8_row(torch, dev, f"FC {xs} x {ws} ({n} a forward)",
+                             "FC", xs, ws, None, None, None, 1, gen)
         else:
             stride, pad, dilate, groups = cfg
-            r = int8_row(torch, dev, f"{xs} -> {ws[0]}, {ws[2]}x{ws[3]} "
-                         f"stride {stride[0]} ({n} a forward)", "NCHW", xs,
-                         ws, stride, pad, dilate, groups, gen)
-        for k in total:
-            total[k] = None if total[k] is None or r[k] is None \
-                else total[k] + n * r[k]
+            r, r8 = int8_row(torch, dev, f"{xs} -> {ws[0]}, {ws[2]}x{ws[3]} "
+                             f"stride {stride[0]} ({n} a forward)", "NCHW",
+                             xs, ws, stride, pad, dilate, groups, gen)
+        add(total, r, n)
+        add(total8, r8, n)
+        kinds[r["bound_by"]] += n * r["bound_ms"]
     for label, layout, xs, ws, st, pd, dl, g in INT8_EXTRA:
         int8_row(torch, dev, label, layout, xs, ws, st, pd, dl, g, gen)
-    row = dict(total, library_ms=None, bound_by="operations")
+    unfused = total.pop("unfused_ms")
+    row = dict(total, library_ms=None, bound_by=max(kinds, key=kinds.get))
     print(f"phase 12: int8 kernel per quantized ResNet-50 forward (B="
-          f"{B_QUANT}, {sum(shapes.values())} launches): {fmt_ms(row['ms'])}"
-          f" device, plain {fmt_ms(row['plain_ms'])}, bound "
-          f"{row['bound_ms']:.4f} ms", flush=True)
+          f"{B_QUANT}, {sum(shapes.values())} launches): f32 variant (the "
+          f"path's) {fmt_ms(row['ms'])} device, plain "
+          f"{fmt_ms(row['plain_ms'])}, bound {row['bound_ms']:.4f} ms, the "
+          f"unfused operators it replaces {fmt_ms(unfused)}; int8 variant "
+          f"{fmt_ms(total8['ms'])}, plain {fmt_ms(total8['plain_ms'])}, "
+          f"bound {total8['bound_ms']:.4f} ms", flush=True)
     return row
+
+
+# --probe-int8's shapes: the ten that torch._int_mm computes, conv1 and two
+# 3x3 ones of the path (label, layout, data, weight, stride, pad, dilate)
+INT8_PROBE = [("FC", "FC", (64, 2048), (1000, 2048), None, None, None)] + [
+    (f"{c}@{h}^2 -> {o} {k}x{k}", "NCHW", (64, c, h, h), (o, c, k, k),
+     (s, s), (k // 2, k // 2), (1, 1)) for c, h, o, k, s in (
+        (3, 224, 64, 7, 2), (64, 56, 64, 1, 1), (64, 56, 256, 1, 1),
+        (256, 56, 64, 1, 1), (128, 28, 512, 1, 1), (512, 28, 128, 1, 1),
+        (256, 14, 1024, 1, 1), (1024, 14, 256, 1, 1), (512, 7, 2048, 1, 1),
+        (2048, 7, 512, 1, 1), (64, 56, 64, 3, 1), (512, 7, 512, 3, 1))]
+
+
+def int8_probe(torch, dev):
+    """Where the int8 kernel's time goes (``--probe-int8``): both variants
+    at INT8_PROBE's shapes, timed by device time in turns with builds of
+    the kernel with A's copies, the products or the epilogue's stores cut
+    out (``-DMXT_I8_CUT=3/1/2``, wrong results, never checked). Variant
+    launches are not counted."""
+    import ctypes
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.ops.cuda import int8_conv as i8
+    argtypes = i8._kernel().argtypes
+    fns = {}
+    for label, define in INT8_CUTS.items():
+        fn = _kernels.load("int8_conv", (define,)).mxt_int8_conv
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[label] = fn
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keep = (lambda n: re.search(INT8_KERNEL, n))
+    saved = dict(i8.launches)
+    for label, layout, xs, ws, st, pd, dl in INT8_PROBE:
+        fc = layout == "FC"
+        O = ws[0]
+        w = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8,
+                          device=dev)
+        b = torch.randint(-2 ** 20, 2 ** 20, (O,), generator=gen,
+                          dtype=torch.int32, device=dev)
+        scale = torch.full((), 1.0, device=dev)
+        step = torch.full((), 1e-4, device=dev)
+        for variant in ("int8", "f32"):
+            f32 = variant == "f32"
+            x = (torch.randn(xs, generator=gen, device=dev) * 60) if f32 \
+                else torch.randint(-127, 128, xs, generator=gen,
+                                   dtype=torch.int8, device=dev)
+            if not fc and xs[1] != 3:
+                x = x.contiguous(memory_format=torch.channels_last)
+            sc, sp = (scale, step) if f32 else (None, None)
+
+            def run(fn):
+                if fc:
+                    return lambda: i8._fc(x, w, b, None, sc, sp, False, fn)
+                return lambda: i8._conv(x, w, b, st, pd, dl, 1, layout, None,
+                                        sc, sp, False, fn)
+            times = [("full", launch_ms(run(None), 10, keep))]
+            times += [(lab, launch_ms(run(fns[lab]), 10, keep))
+                      for lab in INT8_CUTS]
+            times.append(("full again", launch_ms(run(None), 10, keep)))
+            print(f"phase 12: probe int8 kernel, {variant} in, {label} "
+                  f"(device time a launch): "
+                  + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times)
+                  + f"; card: {smi_line()}", flush=True)
+        del x, w
+    i8.launches.update(saved)
+    torch.cuda.empty_cache()
 
 
 def ssd_anchors(torch, dev):
@@ -8085,6 +8226,9 @@ def main() -> int:
     ap.add_argument("--probe-conv", action="store_true",
                     help="after phase 3, time conv fwd and dgrad against "
                     "builds of them with one part cut out")
+    ap.add_argument("--probe-int8", action="store_true",
+                    help="in phase 12, time the int8 kernel against builds "
+                    "of it with one part cut out")
     args = ap.parse_args()
 
     import torch
@@ -8120,6 +8264,8 @@ def main() -> int:
                          for d in BWD_CUTS.values()]
         if args.probe_conv:
             variants += [("conv_fused", (d,)) for d in CONV_CUTS.values()]
+        if args.probe_int8:
+            variants += [("int8_conv", (d,)) for d in INT8_CUTS.values()]
         built = _kernels.build_all(variants=variants)
         print(f"phase 2: built {sorted(built)} in "
               f"{time.perf_counter() - t0:.1f} s "
@@ -8212,6 +8358,8 @@ def main() -> int:
         if args.only in (None, "quant"):
             # phase 12 (after phase 11; phase 7 follows)
             quant_rows, quant_launches = phase_quant(torch, dev)
+            if args.probe_int8:
+                int8_probe(torch, dev)
             missing = [n for n in QUANT_INFO if not quant_launches[n]]
             if missing:
                 fail(f"kernels never launched on the int8 and SSD paths: "

@@ -11,14 +11,21 @@ histograms and the KL sweep are the JAX package's numpy code (the sweep's
 inner loop vectorized, to the same values).
 
 A quantized layer keeps its int8 weight and bias, their ranges and its
-calibrated input range as buffers on the layer's device, so a forward
-passes device tensors to ``ops/quantization.py`` (``quantize_v2`` ->
-``quantized_conv`` / ``quantized_fully_connected`` -> ``dequantize``),
-reads nothing back to the host, and runs as one CUDA graph under
-``hybridize()``. The int8 products run on the hand-written int8
-tensor-core kernel (``ops/cuda/int8_conv.py``) on the card. A quantized
-convolution takes a materialized input: it is not a ``Conv2D``, so the
-BatchNorm -> relu -> 1x1-conv fusion never matches it.
+calibrated input range as buffers on the layer's device, and its weight
+packed once for the kernel (a buffer that ``state_dict`` and
+``save_parameters`` leave out). A forward is one launch of the int8
+kernel's f32 variant (``ops/cuda/int8_conv.py``: ``conv_f32`` /
+``fully_connected_f32``), which quantizes the f32 input as it stages it,
+runs the int8 product and dequantizes (and relu's) in its epilogue: the
+bits of ``quantize_v2`` -> ``quantized_conv`` /
+``quantized_fully_connected`` -> ``dequantize`` -> activation. Its
+constants (the input's scale, the output's step, the bias rescaled into
+the accumulator's step: ``ops/quantization.int8_layer_constants``) are
+computed once with a calibrated range, per batch without one. A forward
+reads nothing back to the host and runs as one CUDA graph under
+``hybridize()``. A quantized convolution takes a materialized input: it is
+not a ``Conv2D``, so the BatchNorm -> relu -> 1x1-conv fusion never
+matches it.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from ..gluon.nn.basic_layers import Dense
 from ..gluon.nn.conv_layers import _Conv
 from ..ops import nn as npx
 from ..ops import quantization as qop
+from ..ops.cuda import int8_conv as i8
 
 __all__ = ["quantize_net", "QuantizedDense", "QuantizedConv",
            "optimal_threshold_entropy"]
@@ -129,10 +137,25 @@ class _Observer:
 # Quantized layers
 # ---------------------------------------------------------------------------
 
+def _stamp(t: Optional[torch.Tensor]):
+    """Where ``t`` lies and how often it was written in place (None for
+    None): a changed stamp says a cached value computed from it is stale.
+    An inference tensor keeps no count; its stamp is its address."""
+    if t is None:
+        return None
+    try:
+        return t.data_ptr(), t._version
+    except RuntimeError:
+        return t.data_ptr(), None
+
+
 class _QuantizedLayer(HybridBlock):
     """The state both int8 layers share: the int8 weight and bias with
     their ranges, and the input range (None: each batch's own), all
-    buffers on the float layer's device."""
+    buffers on the float layer's device; the weight packed once for the
+    kernel (a buffer that is not saved); and, with a calibrated range, the
+    layer's constants (scale, step, rescaled bias), computed once and again
+    only when a range or the bias is written."""
 
     def __init__(self, layer, in_range) -> None:
         super().__init__()
@@ -151,15 +174,41 @@ class _QuantizedLayer(HybridBlock):
                 self._in_min, dtype=torch.float32, device=w.device))
             self.register_buffer("in_max", torch.tensor(
                 self._in_max, dtype=torch.float32, device=w.device))
+        self._repack()
+        self._consts = None
 
-    def _quantize_input(self, x):
+    def _pack(self) -> i8.Packed:
+        raise NotImplementedError
+
+    def _repack(self) -> None:
+        p = self._pack()
+        self.register_buffer("wpack", p.w, persistent=False)
+        self._Kp, self._cf, self._w_stamp = p.Kp, p.cf, _stamp(self.wq)
+
+    def _packed(self) -> i8.Packed:
+        """The packed weight, packed again (and counted) if ``wq`` was
+        written since."""
+        if _stamp(self.wq) != self._w_stamp:
+            self._repack()
+            with i8._COUNT_LOCK:
+                i8.copies["weight"] += 1
+        return i8.Packed(self.wpack, self._Kp, self._cf)
+
+    def _constants(self, x):
+        """(scale, step, bias32) of a forward on ``x``: from ``x``'s own
+        range without a calibrated one, else the cached ones."""
+        ranges = (self.wmin, self.wmax, self.bq, self.bmin, self.bmax)
         if self._in_min is None:
-            return qop.quantize_v2(x, out_type="int8")
-        return qop.quantize_v2(x, self.in_min, self.in_max, out_type="int8")
+            return qop.int8_layer_constants(x.min().float(),
+                                            x.max().float(), *ranges)
+        key = tuple(_stamp(t) for t in (self.in_min, self.in_max) + ranges)
+        if self._consts is None or self._consts[0] != key:
+            self._consts = (key, qop.int8_layer_constants(
+                self.in_min, self.in_max, *ranges))
+        return self._consts[1]
 
-    def _finish(self, y, mn_o, mx_o):
-        out = qop.dequantize(y, mn_o, mx_o)
-        if self._activation:
+    def _activate(self, out, fused: bool):
+        if self._activation and not fused:
             out = npx.activation(out, self._activation)
         return out
 
@@ -169,17 +218,23 @@ class QuantizedDense(_QuantizedLayer):
 
     def __init__(self, layer: Dense, in_range: Tuple[float, float],
                  **kwargs: Any) -> None:
-        super().__init__(layer, in_range)
         self._units = layer._units
         self._flatten = layer._flatten
+        super().__init__(layer, in_range)
+
+    def _pack(self) -> i8.Packed:
+        N, K = self.wq.shape
+        return i8.pack_weight(self.wq.reshape(N, K, 1), "NCW", False)[0]
 
     def forward(self, x):
-        q, mn, mx = self._quantize_input(x)
-        y, mn_o, mx_o = qop.quantized_fully_connected(
-            q, self.wq, self.bq, mn, mx, self.wmin, self.wmax, self.bmin,
-            self.bmax, num_hidden=self._units, no_bias=self.bq is None,
-            flatten=self._flatten)
-        return self._finish(y, mn_o, mx_o)
+        x = x.float()
+        scale, step, b32 = self._constants(x)
+        if self._flatten and x.ndim > 2:
+            x = x.reshape(x.shape[0], -1)
+        relu = self._activation == "relu"
+        y = i8.fully_connected_f32(x.reshape(-1, x.shape[-1]), self.wq, b32,
+                                   scale, step, relu, packed=self._packed())
+        return self._activate(y.reshape(x.shape[:-1] + (y.shape[-1],)), relu)
 
     def __repr__(self) -> str:
         return f"QuantizedDense(-> {self._units}, int8)"
@@ -192,18 +247,32 @@ class QuantizedConv(_QuantizedLayer):
                  **kwargs: Any) -> None:
         if layer._transpose:
             raise MXNetError("transpose conv has no int8 path")
-        super().__init__(layer, in_range)
         self._cfg = dict(kernel=layer._kernel, stride=layer._strides,
                          pad=layer._padding, dilate=layer._dilation,
                          num_filter=layer._channels,
                          num_group=layer._groups, layout=layer._layout)
+        super().__init__(layer, in_range)
+
+    def _geometry(self, nd: int):
+        c = self._cfg
+        return (qop._tuple(c["stride"] or 1, nd),
+                qop._tuple(c["pad"] if c["pad"] is not None else 0, nd),
+                qop._tuple(c["dilate"] or 1, nd))
+
+    def _pack(self) -> i8.Packed:
+        stride, pad, _ = self._geometry(self.wq.ndim - 2)
+        return i8.pack_layer_weight(self.wq, stride, pad,
+                                    self._cfg["num_group"],
+                                    self._cfg["layout"])
 
     def forward(self, x):
-        q, mn, mx = self._quantize_input(x)
-        y, mn_o, mx_o = qop.quantized_conv(
-            q, self.wq, self.bq, mn, mx, self.wmin, self.wmax, self.bmin,
-            self.bmax, no_bias=self.bq is None, **self._cfg)
-        return self._finish(y, mn_o, mx_o)
+        x = x.float()
+        scale, step, b32 = self._constants(x)
+        relu = self._activation == "relu"
+        y = i8.conv_f32(x, self.wq, b32, scale, step,
+                        *self._geometry(x.ndim - 2), self._cfg["num_group"],
+                        self._cfg["layout"], relu, packed=self._packed())
+        return self._activate(y, relu)
 
     def __repr__(self) -> str:
         return f"QuantizedConv({self._cfg['num_filter']}, int8)"

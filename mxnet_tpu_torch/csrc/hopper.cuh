@@ -144,7 +144,7 @@ __device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
 }
 
 // --------------------------------------------------------------- cp.async
-// 16 or 8 bytes, zero-filled when !ok (src is then not read)
+// 16, 8 or 4 bytes, zero-filled when !ok (src is then not read)
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -156,6 +156,20 @@ __device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 8 : 0)
                : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+// an arrival on `bar` made when every cp.async the thread issued before it
+// has landed; the barrier's count includes it (.noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -435,6 +449,90 @@ __device__ __forceinline__ void tf32_acc_split(const float* x, float mul,
 #undef HOP_WGMMA_SS_64
 #undef HOP_WGMMA_SS_128
 #undef HOP_D8
+
+// ------------------------------------------------------------ int8 operands
+// wgmma on signed 8-bit operands, int32 sums: both operands K-major (the
+// only layout 8-bit wgmma takes), k32 a product, so one 128-byte-swizzled
+// row holds four k32 steps and step kk starts 32 * kk bytes in, as a k16
+// step of 16-bit operands does. No .satfinite: a sum wraps as an int32
+// addition does. The register A fragment of k32 holds the same bytes as
+// the 16-bit one of k16: a[0] row g, k 4 t4 .. 4 t4 + 3; a[1] row g + 8;
+// a[2] row g, k 16 + 4 t4 ..; a[3] row g + 8 (g = lane / 4, t4 = lane % 4,
+// each warp's 16 rows); the int32 accumulator is laid out as the f32 one.
+#define HOP_I8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+    "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define HOP_S8_REGS_32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define HOP_S8_REGS_64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (N / 2 int32 per thread: the m64nN accumulator of one warpgroup) =
+// (scale_d 0) or += A (64 x 32 s8, shared memory, descriptor da) * B (32 x
+// N s8, shared memory, descriptor db)
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int* d, uint64_t da, uint64_t db,
+                                            int scale_d = 1);
+template <>
+__device__ __forceinline__ void wgmma_s8_ss<64>(int* d, uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOP_S8_REGS_32
+      ", %32, %33, p;\n}\n"
+      : HOP_I8(0), HOP_I8(8), HOP_I8(16), HOP_I8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8_ss<128>(int* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOP_S8_REGS_64
+      ", %64, %65, p;\n}\n"
+      : HOP_I8(0), HOP_I8(8), HOP_I8(16), HOP_I8(24), HOP_I8(32), HOP_I8(40),
+        HOP_I8(48), HOP_I8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d += A (64 x 32 s8 in registers: the fragment above) * B (shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a,
+                                            uint64_t db, int scale_d = 1);
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(int* d, const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOP_S8_REGS_32
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : HOP_I8(0), HOP_I8(8), HOP_I8(16), HOP_I8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int* d, const uint32_t* a,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HOP_S8_REGS_64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : HOP_I8(0), HOP_I8(8), HOP_I8(16), HOP_I8(24), HOP_I8(32), HOP_I8(40),
+        HOP_I8(48), HOP_I8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+#undef HOP_I8
+#undef HOP_S8_REGS_32
+#undef HOP_S8_REGS_64
+
+// fence_regs for int32 accumulators
+__device__ __forceinline__ void fence_regs(int* d, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // ------------------------------------------------------------ tensor copies
 // plain arrival (no transaction bytes)

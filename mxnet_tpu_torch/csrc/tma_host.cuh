@@ -1,8 +1,10 @@
 // Host side of the tensor (TMA) copies: cuTensorMapEncodeTiled looked up
 // through the runtime (no -lcuda), one builder of 4-d maps over a strided
-// view, and its two users' shapes: the (d, t, h, b) map of a 16-bit or
-// f32 (B, H, T, D) view (the flash-attention kernels) and the (inner,
-// rows, n) map of an (N, C, M) tensor (conv_fused.cu).
+// view, and its users' shapes: the (d, t, h, b) map of a 16-bit or f32
+// (B, H, T, D) view (the flash-attention kernels), the (inner, rows, n) map
+// of an (N, C, M) tensor (conv_fused.cu) and the 2-d map of a matrix of
+// rows (int8_conv.cu: the packed (O, Kp) int8 weight, a channels-last
+// (M, C) int8 or f32 operand).
 #pragma once
 
 #include <cuda.h>
@@ -103,8 +105,26 @@ inline bool make_map_ncm(CUtensorMap* map, CUtensorMapDataType type,
   return make_map_4d(map, type, esize, ptr, dims, elem, box, swizzle);
 }
 
+// The 2-d map (inner, rows) of `rows` rows of `inner` elements of `esize`
+// bytes, `stride` elements from one row to the next, read in 128-byte-
+// swizzled boxes of box_inner (box_inner * esize <= 128) x box_rows.
+// Elements past either edge read as zero.
+inline bool make_map_rows(CUtensorMap* map, CUtensorMapDataType type,
+                          int esize, const void* ptr, long long rows,
+                          long long inner, long long stride, int box_inner,
+                          int box_rows) {
+  const long long dims[4] = {inner, rows, 1, 1}, elem[3] = {stride, 0, 0};
+  const int box[4] = {box_inner, box_rows, 1, 1};
+  return make_map_4d(map, type, esize, ptr, dims, elem, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <typename T>
 struct TmaType;
+template <>
+struct TmaType<int8_t> {  // bytes copied as they are
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
 template <>
 struct TmaType<__nv_bfloat16> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;

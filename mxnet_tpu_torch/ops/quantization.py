@@ -26,6 +26,9 @@ graph captures it.
 The int8 products (``quantized_conv``, ``quantized_fully_connected``) run
 on :mod:`.cuda.int8_conv`: the hand-written int8 tensor-core kernel on a
 CUDA tensor, its exact float64 plain version on a CPU tensor.
+:func:`int8_layer_constants` gives a quantized layer the scale, step and
+rescaled bias these operators compute around its product, for the
+kernel's f32 variant, which runs the whole layer.
 ``quantized_pooling`` pools the int8 values as f32 through the library,
 which is exact: a maximum is, and an average sums fewer than 2^24 / 127
 integers before ``round(sum / n)``.
@@ -192,6 +195,24 @@ def quantized_fully_connected(data, weight, bias, min_data, max_data,
         b32 = _bias32(bias, _f32(min_bias, data), _f32(max_bias, data), mx_o)
     y = int8_conv.fully_connected(x.reshape(-1, x.shape[-1]), weight, b32)
     return y.reshape(x.shape[:-1] + (y.shape[-1],)), mn_o, mx_o
+
+
+def int8_layer_constants(mn, mx, min_weight, max_weight, bias=None,
+                         min_bias=None, max_bias=None):
+    """What one int8 layer's forward computes around its product, given its
+    input range [mn, mx] (0-d f32 tensors): the quantizing ``scale`` of
+    ``quantize_v2``, the dequantizing ``step`` of the int32 accumulator's
+    range and the int8 ``bias`` rescaled into it (``bias32``; None without
+    a bias), by the same operations as ``quantize_v2``,
+    ``quantized_conv`` / ``quantized_fully_connected`` and ``dequantize``,
+    so the same bits. Returns ``(scale, step, bias32)``."""
+    amax = _amax(mn, mx)
+    scale = _const(_INT8_MAX, mn) / amax.clamp_min(1e-30)
+    mn_o, mx_o = _ranges(mn, -amax, amax, min_weight, max_weight)
+    b32 = None
+    if bias is not None:
+        b32 = _bias32(bias, _f32(min_bias, mn), _f32(max_bias, mn), mx_o)
+    return scale, _over(_amax(mn_o, mx_o), _INT32_MAX), b32
 
 
 def _tuple(v, n: int):

@@ -129,7 +129,12 @@ C = 3 (K = 147), strided 1x1 downsamples, K not a multiple of 32 or 16,
 groups, dilation, the 1-d and 3-d layouts, channels-last weights, M < 16,
 K = 4608 of -127 x -127 (past f32's 2^24), the FC at batch 1 to 300; a
 channels-last input read in place and a contiguous one copied and counted;
-a failed launch or build raising with the plain version out of reach. The
+a failed launch or build raising with the plain version out of reach. Its
+f32 variant (a whole quantized layer: quantize, product, dequantize, relu)
+against the unfused operator sequence, to the bit, at the same cases; both
+variants at every shape of the int8 ResNet-50 path and four more (every A
+route, the split over a cluster), two runs equal; a quantized conv and
+Dense captured in a CUDA graph, the replay equal to the eager call. The
 NMS kernel's keep mask (``csrc/box_nms.cu``) against its plain version, to
 the bit, at N = 1, 63, 64, 65, 300 and 8732, the sweep cut to topk < N,
 with and without ``force_suppress``; ``box_nms`` on the card equal to the
@@ -3112,6 +3117,140 @@ def test_int8_conv_matches_plain(dev, case, with_bias):
     want = i8.conv_reference(x, w, b, stride, pad, dilate, groups, layout)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+# every int8 shape of a quantized ResNet-50 v1 forward at B = 64, 224x224
+# (layout, data, weight, stride, pad, dilate, groups): conv1 (the element
+# route, (c, kh, kw) order), the 1x1 stride-1 ones (A by TMA), the
+# strided 1x1 and the 3x3 ones (16-byte pieces), the FC (split over a
+# cluster); then the four shapes off the path that chip_smoke.py times
+RESNET50_INT8 = [("NCHW", (64, 3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3),
+                  (1, 1), 1)] + [
+    ("NCHW", (64, c, h, h), (o, c, k, k), (s, s), (k // 2, k // 2), (1, 1),
+     1) for c, h, o, k, s in (
+        (64, 56, 64, 1, 1), (64, 56, 64, 3, 1), (64, 56, 256, 1, 1),
+        (256, 56, 64, 1, 1), (256, 56, 128, 1, 2), (128, 28, 128, 3, 1),
+        (128, 28, 512, 1, 1), (256, 56, 512, 1, 2), (512, 28, 128, 1, 1),
+        (512, 28, 256, 1, 2), (256, 14, 256, 3, 1), (256, 14, 1024, 1, 1),
+        (512, 28, 1024, 1, 2), (1024, 14, 256, 1, 1),
+        (1024, 14, 512, 1, 2), (512, 7, 512, 3, 1), (512, 7, 2048, 1, 1),
+        (1024, 14, 2048, 1, 2), (2048, 7, 512, 1, 1))] + [
+    ("FC", (64, 2048), (1000, 2048), None, None, None, 1)] + [
+    c[1:] for c in cs.INT8_EXTRA]
+
+
+def _int8_case(case, dev, f32: bool, seed: int):
+    """Inputs of one shape: int8 data, or f32 data of which x * scale is
+    exact and spans +-200 with many halves k + 1/2 (round half to even,
+    the clamp at +-127); the weight, an int32 bias, the scale and step."""
+    layout, xs, ws = case[:3]
+    g = torch.Generator().manual_seed(seed)
+    w = _i8(ws, g, dev)
+    O = ws[0] if layout.startswith("NC") or layout == "FC" else ws[-1]
+    b = torch.randint(-2 ** 20, 2 ** 20, (O,), generator=g,
+                      dtype=torch.int32).to(dev)
+    if not f32:
+        return _i8(xs, g, dev), w, b, None, None
+    halves = torch.randint(-400, 401, xs, generator=g).float() / 2
+    x = (halves + torch.rand(xs, generator=g).round() * 0.25) * 0.5
+    scale = torch.full((), 2.0, device=dev)          # x * scale exact
+    step = torch.full((), 3.0517578125e-05 * 1.1, device=dev)
+    return x.to(dev), w, b, scale, step
+
+
+def _int8_call(case, x, w, b, scale, step, relu, plain):
+    layout, _, _, stride, pad, dilate, groups = case
+    fc = layout == "FC"
+    if scale is None:
+        if fc:
+            fn = i8.fully_connected_reference if plain else i8.fully_connected
+            return fn(x, w, b)
+        fn = i8.conv_reference if plain else i8.conv
+        return fn(x, w, b, stride, pad, dilate, groups, layout)
+    if fc:
+        fn = i8.fully_connected_f32_reference if plain \
+            else i8.fully_connected_f32
+        return fn(x, w, b, scale, step, relu)
+    fn = i8.conv_f32_reference if plain else i8.conv_f32
+    return fn(x, w, b, scale, step, stride, pad, dilate, groups, layout,
+              relu)
+
+
+@pytest.mark.parametrize("case", RESNET50_INT8,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("variant", ["int8", "f32", "f32_relu"])
+def test_int8_kernel_at_resnet50_shapes(dev, case, variant):
+    """Both variants of the kernel equal their plain versions to the bit at
+    every shape of the int8 ResNet-50 path and the four extra ones (every
+    route, split over a cluster or not), the launch counter rising once a
+    call, and two runs equal."""
+    f32 = variant != "int8"
+    x, w, b, scale, step = _int8_case(case, dev, f32, len(case[1]) * 5 +
+                                      case[2][0])
+    if case[0].startswith("NC") and x.ndim == 4:
+        x = x.contiguous(memory_format=torch.channels_last)  # as the path
+    if case[1][1] == 3:
+        x = x.contiguous()                    # conv1's image: NCHW, as is
+    relu = variant == "f32_relu"
+    before = i8.launches["int8_conv"]
+    got = _int8_call(case, x, w, b, scale, step, relu, False)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_conv"] == before + 1
+    again = _int8_call(case, x, w, b, scale, step, relu, False)
+    want = _int8_call(case, x, w, b, scale, step, relu, True)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("relu", [False, True])
+def test_int8_f32_variant_matches_plain(dev, case, relu):
+    """The f32 variant (a whole quantized layer) equals its plain version,
+    the unfused operator sequence, to the bit at every layout, stride,
+    padding, dilation and group count of the int8 cases."""
+    x, w, b, scale, step = _int8_case(case, dev, True, 17 + len(case[1]))
+    before = i8.launches["int8_conv"]
+    got = _int8_call(case, x, w, b, scale, step, relu, False)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_conv"] == before + 1
+    want = _int8_call(case, x, w, b, scale, step, relu, True)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_int8_layer_graph_replay_equals_eager(dev):
+    """A quantized Dense and a 3x3 convolution layer (f32 variant, packed
+    weights, cached constants) captured in one CUDA graph: the replay
+    equals the eager call to the bit, and the eager call launches the
+    kernel once a layer."""
+    from mxnet_tpu_torch.contrib.quantization import (QuantizedConv,
+                                                      QuantizedDense)
+    from mxnet_tpu_torch.gluon import nn
+    torch.manual_seed(7)
+    conv = nn.Conv2D(48, 3, padding=1, in_channels=32, activation="relu")
+    dense = nn.Dense(10, in_units=48 * 8 * 8)
+    for blk in (conv, dense):
+        blk.initialize(device=dev)
+    qc = QuantizedConv(conv, (-2.0, 2.5))
+    qd = QuantizedDense(dense, (0.0, 3.0))
+    x = torch.randn(4, 32, 8, 8, device=dev)
+    with torch.no_grad():
+        before = i8.launches["int8_conv"]
+        eager = qd(qc(x))
+        torch.cuda.synchronize()
+        assert i8.launches["int8_conv"] - before == 2
+        graph = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            qd(qc(x))
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                out = qd(qc(x))
+        torch.cuda.current_stream().wait_stream(s)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def test_int8_conv_worst_case_sum_is_exact(dev):
