@@ -318,7 +318,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with naive calibration on 10 batches of 32 synthetic images, forwards
    at B = 64, 224x224: 54 int8 kernel launches a forward by the counters
    (53 convolutions and the Dense layer, each a whole quantized layer on
-   the kernel's f32 variant) with ``MXNET_FUSE_BN_CONV`` on and off (the
+   the kernel's f32-in variant, conv1 on the int8-in one after the
+   operators' quantize) with ``MXNET_FUSE_BN_CONV`` on and off (the
    fused bf16 conv kernels never), operand copies a forward printed and no
    weight repacked (each layer packs its own once), no cuDNN convolution or
    cuBLAS product in a primed profiled forward, two eager runs and three
@@ -331,13 +332,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    nets; the int8 kernel at each distinct shape of the path and at a
    grouped, a dilated, a 1-d and a 3-d one, both variants (int8 in, int32
    out; f32 in, f32 out) equal to their plain versions to the bit, each
-   timed beside its bound (the f32 variant's counting f32 bytes in and
-   out) and its plain version, the f32 variant beside the unfused
+   timed beside its bound (the input elements the convolution reads,
+   4 bytes each for the f32 variant) and its plain version, the f32
+   variant's layer (every kernel of its call) beside the unfused
    operators it replaces (``quantize_v2``, the int8 product,
    ``dequantize``), and ``torch._int_mm`` where one product computes the
    shape; with ``--probe-int8``, both variants at those shapes, conv1 and
    two 3x3 ones against builds of the kernel with A's copies, the
-   products or the epilogue's stores cut out. Then SSD-300's
+   products or the epilogue's stores cut out, or one staging tile a
+   warpgroup, in three rounds. Then SSD-300's
    box operators at its own shapes (8732 anchors from ``multibox_prior``
    over six feature maps; ``multibox_target`` at B = 32, 21 classes, 64
    label rows, negative mining 3; ``multibox_detection`` at threshold
@@ -347,7 +350,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    at the detection's shape and over all 8732 anchors of an image;
 13. one ``{"kernels": [...]}`` line (the attention, update and decode
    launches counting phases 9 and 10's main paths too, BatchNorm's and the
-   update's phase 11's, the int8 and NMS kernels' phase 12's; with
+   update's phase 11's, the int8 (both variants) and NMS kernels'
+   phase 12's; with
    ``--only seq2seq`` / ``gpt-train`` / ``layers`` / ``quant`` the path's
    kernels alone, their rows measured at its shapes), the card line, and
    as the last line ``{"ok": true, "device": {...}}``.
@@ -362,6 +366,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -521,9 +526,13 @@ OLD_CONV_MS = {
                                0.3296, 0.2813, 0.1970),
                       "PR 3": (0.2255, 0.1624, 0.4947, 0.4912, 0.5496,
                                0.3064, 0.4717, 0.4790)}}
-# --probe-int8: the int8 kernel rebuilt with one part cut out
+# --probe-int8: the int8 kernel rebuilt with one part cut out, or with one
+# staging tile a warpgroup (the epilogue's stores not overlapped)
 INT8_CUTS = {"A copies cut": "MXT_I8_CUT=3", "products cut": "MXT_I8_CUT=1",
-             "stores cut": "MXT_I8_CUT=2"}
+             "stores cut": "MXT_I8_CUT=2", "TMA stores cut": "MXT_I8_CUT=5",
+             "one staging tile": "MXT_I8_CUT=4"}
+# --probe-int8's rounds: every build timed once a round, in turns
+INT8_PROBE_ROUNDS = 3
 # --probe-conv: fwd and dgrad rebuilt with one part cut out
 CONV_CUTS = {"copies cut": "MXT_CONV_CUT=1", "products cut": "MXT_CONV_CUT=2",
              "epilogue cut": "MXT_CONV_CUT=3"}
@@ -7508,6 +7517,10 @@ QUANT_INFO = {
     "int8_conv": ("mxnet_tpu_torch/csrc/int8_conv.cu",
                   "mxnet_tpu/ops/quantization.py:236 (quantized_conv; and "
                   ":183 quantized_fully_connected, XLA)"),
+    "int8_conv_f32": ("mxnet_tpu_torch/csrc/int8_conv.cu",
+                      "mxnet_tpu/contrib/quantization.py:189 (QuantizedConv"
+                      ".forward; and :144 QuantizedDense.forward: "
+                      "quantize_v2, the int8 product, dequantize, XLA)"),
     "box_nms": ("mxnet_tpu_torch/csrc/box_nms.cu",
                 "mxnet_tpu/ops/boxes.py:114 (box_nms's lax.fori_loop, XLA)"),
 }
@@ -7646,13 +7659,13 @@ def quant_main_path(torch, dev, params):
     with torch.inference_mode():
         for knob in ("0", "1", "0"):
             os.environ["MXNET_FUSE_BN_CONV"] = knob
-            before = i8.launches["int8_conv"]
+            before = sum(i8.launches.values())
             outs.append(net(x))
             torch.cuda.synchronize()
-            if i8.launches["int8_conv"] - before != QUANT_STEP:
+            n = sum(i8.launches.values()) - before
+            if n != QUANT_STEP:
                 fail(f"phase 12: a quantized forward (MXNET_FUSE_BN_CONV="
-                     f"{knob}) launched the int8 kernel "
-                     f"{i8.launches['int8_conv'] - before} times, not "
+                     f"{knob}) launched the int8 kernel {n} times, not "
                      f"{QUANT_STEP}")
     if knob0 is None:
         os.environ.pop("MXNET_FUSE_BN_CONV", None)
@@ -7788,10 +7801,31 @@ def quant_cpu_check(torch, net, params, x, ref):
 
 
 def int8_bound_ms(M, N, K, x_bytes, O):
+    """The larger of the products' time at the int8 peak (M x N outputs of
+    a K-long reduction) and the bytes' time: ``x_bytes`` of input read, the
+    (O, K) int8 weight and the int32 bias read, the M x O 4-byte output
+    written."""
     t_ops = 2.0 * M * N * K / PEAK_INT8_OPS * 1e3
     nbytes = x_bytes + O * K + O * 4 + M * O * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_read_elems(layout, xs, ws, stride, pad, dilate):
+    """The input elements a convolution reads: along each spatial dim the
+    indices that some output's tap lands on (a 1x1 stride-2 layer reads a
+    quarter of its input), times the images and the channels; the FC's
+    whole input."""
+    if layout == "FC":
+        return math.prod(xs)
+    first = layout.startswith("NC")
+    n = xs[0] * (xs[1] if first else xs[-1])
+    sp, ks = (xs[2:], ws[2:]) if first else (xs[1:-1], ws[:-2])
+    for i, k, st, p, d in zip(sp, ks, stride, pad, dilate):
+        o = (i + 2 * p - d * (k - 1) - 1) // st + 1
+        n *= len({a * st - p + b * d for a in range(o) for b in range(k)}
+                 & set(range(i)))
+    return n
 
 
 def library_int_mm_ms(torch, a, b):
@@ -7811,10 +7845,14 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
     against its plain version (equal to the bit), its device time, the plain
     version's, torch._int_mm's where the shape is a plain product (stride-1
     1x1 or the FC), and the bound. f32 in, f32 out (a whole quantized layer,
-    what the main path launches): the same against its plain version, and
-    the time of the unfused operators it replaces (quantize_v2, the int8
-    product, dequantize, as the layer ran them before), the bound counting
-    f32 bytes in and out. Returns the f32 variant's row and the int8 one's."""
+    what the main path runs): the same against its plain version, the
+    device time of the kernel and of every kernel the layer's call
+    launches (where the plan quantizes by the operators first, those and
+    the int8-in kernel), and the time of the unfused operators it replaces
+    (quantize_v2, the int8 product, dequantize, as the layer ran them
+    before), the bound counting f32 bytes in and out. Both bounds count
+    the input elements the convolution reads (int8_read_elems). Returns
+    the f32 variant's row and the int8 one's."""
     from mxnet_tpu_torch.ops import quantization as qop
     from mxnet_tpu_torch.ops.cuda import int8_conv as i8
     fc = layout == "FC"
@@ -7872,6 +7910,7 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
                  f"{(got.double() - want.double()).abs().max():.3e})")
     ms = launch_ms(run, 10, lambda n: re.search(INT8_KERNEL, n))
     ms_f = launch_ms(run_f, 10, lambda n: re.search(INT8_KERNEL, n))
+    layer_ms = device_ms(run_f, iters=10)
     plain_ms = device_ms(plain, iters=3)
     plain_f_ms = device_ms(plain_f, iters=3)
     unfused_ms = device_ms(unfused, iters=5)
@@ -7885,21 +7924,28 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
                                 w.reshape(O, -1).t())
     M = want.numel() // O
     K = w.numel() // O
-    bnd, by = int8_bound_ms(M, O, K, x.numel(), O)
-    bnd_f, by_f = int8_bound_ms(M, O, K, 4 * x.numel(), O)
+    elems = int8_read_elems(layout, xs, ws, stride, pad, dilate)
+    bnd, by = int8_bound_ms(M, O, K, elems, O)
+    bnd_f, by_f = int8_bound_ms(M, O, K, 4 * elems, O)
+    one = fc or (all(k == 1 for k in (ws[2:] if first else ws[:-2]))
+                 and all(v == 1 for v in stride) and all(v == 0 for v in pad))
     plan = i8.int8_plan(M, xs[-1] if not first and not fc else xs[1],
-                        O // groups, groups, K, False, 4, first)
+                        O // groups, groups, K, one, 4, first)
     ops = 2.0 * M * O * K
+    via = "codes by the operators, then the int8-in " if plan.codes_first \
+        else ""
     print(f"phase 12: int8 {label}: both variants equal to their plain "
           f"versions; int8 in: kernel {fmt_ms(ms)}, plain {fmt_ms(plain_ms)}"
           f", library {'none' if lib is None else fmt_ms(lib)}, bound "
           f"{bnd:.4f} ms ({by}), {ops / (ms or float('inf')) / 1e9:.1f} "
-          f"TOP/s; f32 in (the layer): kernel {fmt_ms(ms_f)}, plain "
-          f"{fmt_ms(plain_f_ms)}, unfused operators {fmt_ms(unfused_ms)}, "
-          f"bound {bnd_f:.4f} ms ({by_f}); tiles {plan.tiles}, split "
-          f"{plan.split}", flush=True)
+          f"TOP/s; f32 in (the layer): {via}kernel {fmt_ms(ms_f)}, the "
+          f"layer's kernels {fmt_ms(layer_ms)}, "
+          f"plain {fmt_ms(plain_f_ms)}, unfused operators "
+          f"{fmt_ms(unfused_ms)}, bound {bnd_f:.4f} ms ({by_f}); route "
+          f"{plan.route}, tiles {plan.tiles}, split {plan.split}", flush=True)
     return (dict(ms=ms_f, plain_ms=plain_f_ms, library_ms=lib,
-                 bound_ms=bnd_f, bound_by=by_f, unfused_ms=unfused_ms),
+                 bound_ms=bnd_f, bound_by=by_f, unfused_ms=unfused_ms,
+                 layer_ms=layer_ms, codes_first=plan.codes_first),
             dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
                  bound_by=by))
 
@@ -7907,14 +7953,22 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
 def int8_kernel_rows(torch, dev, shapes):
     """The int8 kernel at each distinct shape of the main path (in its
     order; weighted by its launches a forward) and at the extra shapes.
-    The kernels line's row is the f32 variant's (the main path's: a whole
-    quantized layer a launch); its library_ms is None (no one PyTorch call
-    computes every shape). The int8 variant's totals are printed beside."""
+    The kernels line's rows: ``int8_conv``, the int8-in variant (int8 in,
+    int32 out: the quantized operators' product) at every shape of the
+    path, and ``int8_conv_f32``, the f32-in variant (a whole quantized
+    layer) at the shapes where the path's layers launch it (not where the
+    plan quantizes by the operators first: conv1); their library_ms is
+    None (no one PyTorch call computes every shape). The layers' totals
+    (every kernel of a layer's call) are printed beside the unfused
+    operators'."""
     gen = torch.Generator(device=dev).manual_seed(31)
     keys = ("ms", "plain_ms", "bound_ms")
-    total = dict.fromkeys(keys + ("unfused_ms",), 0.0)
+    total = dict.fromkeys(keys, 0.0)
     total8 = dict.fromkeys(keys, 0.0)
-    kinds = {"bytes": 0.0, "operations": 0.0}   # the bound's ms by kind
+    layers = dict.fromkeys(("layer_ms", "unfused_ms"), 0.0)
+    kinds = {"bytes": 0.0, "operations": 0.0}   # the f32 bound by kind
+    kinds8 = dict.fromkeys(kinds, 0.0)
+    n_f32 = 0
 
     def add(acc, r, n):
         for k in acc:
@@ -7929,40 +7983,81 @@ def int8_kernel_rows(torch, dev, shapes):
             r, r8 = int8_row(torch, dev, f"{xs} -> {ws[0]}, {ws[2]}x{ws[3]} "
                              f"stride {stride[0]} ({n} a forward)", "NCHW",
                              xs, ws, stride, pad, dilate, groups, gen)
-        add(total, r, n)
+        add(layers, r, n)
         add(total8, r8, n)
-        kinds[r["bound_by"]] += n * r["bound_ms"]
+        kinds8[r8["bound_by"]] += n * r8["bound_ms"]
+        if not r["codes_first"]:
+            add(total, r, n)
+            kinds[r["bound_by"]] += n * r["bound_ms"]
+            n_f32 += n
     for label, layout, xs, ws, st, pd, dl, g in INT8_EXTRA:
         int8_row(torch, dev, label, layout, xs, ws, st, pd, dl, g, gen)
-    unfused = total.pop("unfused_ms")
     row = dict(total, library_ms=None, bound_by=max(kinds, key=kinds.get))
+    row8 = dict(total8, library_ms=None,
+                bound_by=max(kinds8, key=kinds8.get))
     print(f"phase 12: int8 kernel per quantized ResNet-50 forward (B="
-          f"{B_QUANT}, {sum(shapes.values())} launches): f32 variant (the "
-          f"path's) {fmt_ms(row['ms'])} device, plain "
-          f"{fmt_ms(row['plain_ms'])}, bound {row['bound_ms']:.4f} ms, the "
-          f"unfused operators it replaces {fmt_ms(unfused)}; int8 variant "
-          f"{fmt_ms(total8['ms'])}, plain {fmt_ms(total8['plain_ms'])}, "
-          f"bound {total8['bound_ms']:.4f} ms", flush=True)
-    return row
+          f"{B_QUANT}, {sum(shapes.values())} layers): int8-in variant "
+          f"(int8_conv, the operators' product) at every layer "
+          f"{fmt_ms(row8['ms'])} device, plain {fmt_ms(row8['plain_ms'])}, "
+          f"bound {row8['bound_ms']:.4f} ms ({row8['bound_by']}); f32-in "
+          f"variant (int8_conv_f32) at the {n_f32} layers that launch it "
+          f"{fmt_ms(row['ms'])}, plain {fmt_ms(row['plain_ms'])}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the layers' "
+          f"kernels {fmt_ms(layers['layer_ms'])} against the unfused "
+          f"operators' {fmt_ms(layers['unfused_ms'])}", flush=True)
+    return row8, row
 
 
-# --probe-int8's shapes: the ten that torch._int_mm computes, conv1 and two
-# 3x3 ones of the path (label, layout, data, weight, stride, pad, dilate)
+# --probe-int8's shapes: the ten that torch._int_mm computes, conv1, three
+# 3x3 ones and a strided 1x1 of the path (label, layout, data, weight,
+# stride, pad, dilate)
 INT8_PROBE = [("FC", "FC", (64, 2048), (1000, 2048), None, None, None)] + [
     (f"{c}@{h}^2 -> {o} {k}x{k}", "NCHW", (64, c, h, h), (o, c, k, k),
      (s, s), (k // 2, k // 2), (1, 1)) for c, h, o, k, s in (
         (3, 224, 64, 7, 2), (64, 56, 64, 1, 1), (64, 56, 256, 1, 1),
         (256, 56, 64, 1, 1), (128, 28, 512, 1, 1), (512, 28, 128, 1, 1),
         (256, 14, 1024, 1, 1), (1024, 14, 256, 1, 1), (512, 7, 2048, 1, 1),
-        (2048, 7, 512, 1, 1), (64, 56, 64, 3, 1), (512, 7, 512, 3, 1))]
+        (2048, 7, 512, 1, 1), (64, 56, 64, 3, 1), (512, 7, 512, 3, 1),
+        (128, 28, 128, 3, 1), (256, 56, 512, 1, 2))]
+
+
+def int8_other_route(torch, i8, x, w, b, st, pd, dl, layout, label):
+    """{"runs route": call}: the int8-in kernel at a shape whose plan
+    gathers A in 16-byte pieces, with A taken by the bulk-copied channel
+    runs instead (an experiment: not counted), checked against the plain
+    version to the bit; {} at other shapes."""
+    s = i8._shape(x, w, st, pd, dl, 1, layout)
+    plan = i8._plan(s, st, pd, 1, 1, x.device)
+    if plan.route != "chunk":
+        return {}
+    plan = plan._replace(route="runs")
+    packed, _ = i8.pack_weight(w, layout, plan.cf)
+    y = torch.empty((s.N,) + s.osp + (s.O,), dtype=torch.int32,
+                    device=x.device)
+    x5 = i8._input(x, s, plan)
+
+    def call():
+        i8._launch(x5, packed, b, y, s, st, pd, dl, 1, plan,
+                   fn=i8._kernel())
+        return y
+    got = call().movedim(-1, 1)
+    want = i8.conv_reference(x, w, b, st, pd, dl, 1, layout)
+    print(f"phase 12: probe int8 kernel, int8 in, {label}: the runs route "
+          f"{'equal to' if torch.equal(got, want) else 'DIFFERS from'} the "
+          f"plain version", flush=True)
+    return {"runs route": call}
 
 
 def int8_probe(torch, dev):
     """Where the int8 kernel's time goes (``--probe-int8``): both variants
     at INT8_PROBE's shapes, timed by device time in turns with builds of
     the kernel with A's copies, the products or the epilogue's stores cut
-    out (``-DMXT_I8_CUT=3/1/2``, wrong results, never checked). Variant
-    launches are not counted."""
+    out (``-DMXT_I8_CUT=3/1/2``; 5 the TMA stores alone, the staging
+    kept; wrong results, never checked) and with one
+    staging tile a warpgroup (``-DMXT_I8_CUT=4``: each tile's stores read
+    out before the next tile is staged), INT8_PROBE_ROUNDS rounds of every
+    build in turns: the median and the range of each. Variant launches are
+    not counted."""
     import ctypes
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops.cuda import int8_conv as i8
@@ -7998,13 +8093,23 @@ def int8_probe(torch, dev):
                     return lambda: i8._fc(x, w, b, None, sc, sp, False, fn)
                 return lambda: i8._conv(x, w, b, st, pd, dl, 1, layout, None,
                                         sc, sp, False, fn)
-            times = [("full", launch_ms(run(None), 10, keep))]
-            times += [(lab, launch_ms(run(fns[lab]), 10, keep))
-                      for lab in INT8_CUTS]
-            times.append(("full again", launch_ms(run(None), 10, keep)))
+            runs = dict(full=run(None),
+                        **{lab: run(fns[lab]) for lab in INT8_CUTS})
+            if not f32 and not fc:
+                runs.update(int8_other_route(torch, i8, x, w, b, st, pd, dl,
+                                             layout, label))
+            times = {k: [] for k in runs}
+            for _ in range(INT8_PROBE_ROUNDS):
+                for k, fn in runs.items():
+                    t = launch_ms(fn, 10, keep)
+                    if t is not None:
+                        times[k].append(t)
             print(f"phase 12: probe int8 kernel, {variant} in, {label} "
-                  f"(device time a launch): "
-                  + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times)
+                  f"(device time a launch, median [min-max] of "
+                  f"{INT8_PROBE_ROUNDS} rounds): " + ", ".join(
+                      f"{k} {statistics.median(v):.4f} ms [{min(v):.4f}-"
+                      f"{max(v):.4f}]" if v else f"{k} not measured"
+                      for k, v in times.items())
                   + f"; card: {smi_line()}", flush=True)
         del x, w
     i8.launches.update(saved)
@@ -8179,8 +8284,9 @@ def phase_quant(torch, dev):
     params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
                                   seed=0, zero_last_gamma=False)
     launches, shapes = quant_main_path(torch, dev, params)
-    rows = {"int8_conv": dict(int8_kernel_rows(torch, dev, shapes),
-                              max_abs_err=0.0)}
+    row8, row = int8_kernel_rows(torch, dev, shapes)
+    rows = {"int8_conv": dict(row8, max_abs_err=0.0),
+            "int8_conv_f32": dict(row, max_abs_err=0.0)}
     nms_launches, rows["box_nms"] = ssd_boxes(torch, dev)
     launches.update(nms_launches)
     torch.cuda.empty_cache()

@@ -140,13 +140,13 @@ class _Observer:
 def _stamp(t: Optional[torch.Tensor]):
     """Where ``t`` lies and how often it was written in place (None for
     None): a changed stamp says a cached value computed from it is stale.
-    An inference tensor keeps no count; its stamp is its address."""
+    An inference tensor counts no writes, so nothing computed from it may
+    be cached: its stamp is a new object, equal to no other."""
     if t is None:
         return None
-    try:
-        return t.data_ptr(), t._version
-    except RuntimeError:
-        return t.data_ptr(), None
+    if t.is_inference():
+        return object()
+    return t.data_ptr(), t._version
 
 
 class _QuantizedLayer(HybridBlock):
@@ -155,26 +155,30 @@ class _QuantizedLayer(HybridBlock):
     buffers on the float layer's device; the weight packed once for the
     kernel (a buffer that is not saved); and, with a calibrated range, the
     layer's constants (scale, step, rescaled bias), computed once and again
-    only when a range or the bias is written."""
+    only when a range or the bias is written. The buffers are made outside
+    inference mode, so they count their writes even when the layer is
+    built, or loaded, inside it; a buffer replaced by an inference tensor
+    is never cached from (:func:`_stamp`)."""
 
     def __init__(self, layer, in_range) -> None:
         super().__init__()
         self._activation = layer._activation
         self._in_min, self._in_max = in_range
-        w = layer.weight.data().detach()
-        for name, t in (("w", w), ("b", None if layer.bias is None
-                                    else layer.bias.data().detach())):
-            q, mn, mx = (None, None, None) if t is None else \
-                qop.quantize_v2(t, out_type="int8")
-            self.register_buffer(name + "q", q)
-            self.register_buffer(name + "min", mn)
-            self.register_buffer(name + "max", mx)
-        if self._in_min is not None:
-            self.register_buffer("in_min", torch.tensor(
-                self._in_min, dtype=torch.float32, device=w.device))
-            self.register_buffer("in_max", torch.tensor(
-                self._in_max, dtype=torch.float32, device=w.device))
-        self._repack()
+        with torch.inference_mode(False), torch.no_grad():
+            w = layer.weight.data().detach()
+            for name, t in (("w", w), ("b", None if layer.bias is None
+                                        else layer.bias.data().detach())):
+                q, mn, mx = (None, None, None) if t is None else \
+                    qop.quantize_v2(t, out_type="int8")
+                self.register_buffer(name + "q", q)
+                self.register_buffer(name + "min", mn)
+                self.register_buffer(name + "max", mx)
+            if self._in_min is not None:
+                self.register_buffer("in_min", torch.tensor(
+                    self._in_min, dtype=torch.float32, device=w.device))
+                self.register_buffer("in_max", torch.tensor(
+                    self._in_max, dtype=torch.float32, device=w.device))
+            self._repack()
         self._consts = None
 
     def _pack(self) -> i8.Packed:

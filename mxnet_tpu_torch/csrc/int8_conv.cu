@@ -38,7 +38,8 @@
 //
 // Bound: operations at ResNet-50's deep shapes in int8, the bytes of x and
 // y at the others and in f32 (an f32 input is 4 bytes an element where the
-// product does 2 Og operations with it). The design: a block of three
+// product does 2 Og operations with it; a 1x1 stride-2 layer reads a
+// quarter of x). The design: a block of three
 // warpgroups computes 128 x BN output tiles (BN 64 or 128) over a ring of
 // shared-memory slots guarded by mbarriers. The producer warpgroup fills
 // the ring: the weight's BN x 128 tile by TMA (128-byte swizzle), and A's
@@ -59,7 +60,9 @@
 // A straight from shared memory, f32 A read from shared memory, quantized
 // in registers and fed as wgmma's register operand. The epilogue stages
 // each warpgroup's 64 x BN tile in shared memory and writes it by TMA
-// stores, whole lines, while the next tile's products run. Unsplit, the
+// stores, whole lines, while the next tile's products run; where the ring
+// keeps 3 slots, two staging tiles a warpgroup, used in turns, so a tile's
+// stores also run on while the next tile is staged. Unsplit, the
 // grid is persistent (a block an SM walks the tiles) and the ring runs on
 // across tiles, so one tile's epilogue overlaps the next tile's loads. A
 // shape whose tiles leave SMs idle (the FC) splits its reduction over a
@@ -79,7 +82,9 @@
 #include "tma_host.cuh"
 
 // experiments only (chip_smoke.py --probe-int8): 1 cuts the products out,
-// 2 the epilogue's stores, 3 A's copies (wrong results, never checked)
+// 2 the epilogue's stores, 3 A's copies, 5 the TMA stores alone (staging
+// kept; wrong results, never checked); 4 keeps one staging tile a
+// warpgroup where two would fit (right results)
 #ifndef MXT_I8_CUT
 #define MXT_I8_CUT 0
 #endif
@@ -96,14 +101,14 @@ constexpr int BAR_BYTES = 256;
 constexpr int SMEM_MAX = 232448;
 // how A reaches shared memory
 constexpr int ROUTE_TMA = 0, ROUTE_CHUNK = 1, ROUTE_ELEM = 2, ROUTE_RUNS = 3;
-// route RUNS (f32): a row of A, 128 f32 of one or more taps' channel runs,
-// lies plain at RS bytes a row (16 bytes of padding spread the consumers'
-// reads over the banks)
-constexpr int RS = 128 * 4 + 16;
+// route RUNS: a row of A, 128 elements of one or more taps' channel runs,
+// lies plain at rs(esize) bytes a row (16 bytes of padding spread the
+// consumers' reads over the banks)
+__host__ __device__ constexpr int rs(int esize) { return 128 * esize + 16; }
 
 // the bytes of a ring slot's A tile for route and element size
 __host__ __device__ constexpr int a_tile(int route, int esize) {
-  return route == ROUTE_RUNS ? BM * RS : BOX * esize;
+  return route == ROUTE_RUNS ? BM * rs(esize) : BOX * esize;
 }
 
 struct Params {
@@ -124,6 +129,7 @@ struct Params {
   int n_tiles;
   int stages, slot;     // ring slots and their bytes
   int store;            // the output by TMA from a staging tile, else stores
+  int bufs;             // staging tiles a warpgroup (1 or 2, in turns)
   int stage_at, bar_at; // byte offsets of the staging tiles and barriers
 };
 
@@ -419,59 +425,73 @@ __device__ __forceinline__ long long walk_next(const Params& p,
 
 // One ring step of row `row` from element k0 on: f32 by 4-byte cp.async
 // (zero-filled in the padding; the caller arrives when they land), int8
-// through registers, a word of 4 at a time. Elements past the reduction
-// are not written (they meet the weight's zero padding).
+// through registers, 32 loads in flight, then two 16-byte stores (a load
+// at a time waited on each, the element walk was latency-bound). Elements
+// past the reduction meet the weight's zero padding: they are written as
+// 0 within a 16-byte piece, not at all past it.
 template <typename T>
 __device__ __forceinline__ void elem_gather(const Params& p, const RowPos& r,
                                             Walk& w, int g, int k0, int row,
                                             uint8_t* a) {
-  const T* x = static_cast<const T*>(p.x);
   const int n = min(BK, p.K - k0);
   if constexpr (sizeof(T) == 4) {
+    const T* x = static_cast<const T*>(p.x);
     for (int q = 0; q < n; ++q) {
       const long long off = walk_next(p, r, g, w);
       hop::cp4(a + (q >> 5) * BOX + swz(row, (q & 31) >> 2) + 4 * (q & 3),
                off >= 0 ? x + off : x, off >= 0);
     }
   } else {
-    for (int q = 0; q < n; q += 4) {
-      uint32_t v = 0;
+    const uint8_t* x = static_cast<const uint8_t*>(p.x);
+    for (int q = 0; q < n; q += 32) {
+      uint32_t v[32];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (q + e < n) {
-          const long long off = walk_next(p, r, g, w);
-          if (off >= 0)
-            v |= static_cast<uint32_t>(static_cast<uint8_t>(x[off]))
-                 << (8 * e);
+      for (int e = 0; e < 32; ++e) {
+        const long long off = q + e < n ? walk_next(p, r, g, w) : -1;
+        v[e] = off >= 0 ? static_cast<uint32_t>(__ldg(x + off)) : 0u;
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (q + 16 * c < n) {
+          uint32_t word[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t* b = v + 16 * c + 4 * i;
+            word[i] = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24);
+          }
+          *reinterpret_cast<uint4*>(a + swz(row, (q >> 4) + c)) =
+              make_uint4(word[0], word[1], word[2], word[3]);
         }
       }
-      *reinterpret_cast<uint32_t*>(a + swz(row, q >> 4) + (q & 15)) = v;
     }
   }
 }
 
 // Route RUNS: row r's elements k0 .. k0 + 127 (or to K) of a step, in
-// the order (kd, kh, kw, c) with C / G a multiple of 32: runs of whole
-// 32-channel pieces of one tap, contiguous in a channels-last x, each
-// copied by one 1-d bulk copy to `a` (the row's place in the slot), or
-// zeros written where the tap lies in the padding. t: the tap of k0,
-// moved on to the next step's. Returns the bytes copied.
+// the order (kd, kh, kw, c) with C / G a multiple of 32 (f32) or 16
+// (int8): runs of whole 128-byte (f32) or 16-byte (int8) pieces of one
+// tap, contiguous in a channels-last x, each copied by one 1-d bulk copy
+// to `a` (the row's place in the slot), or zeros written where the tap
+// lies in the padding. t: the tap of k0, moved on to the next step's.
+// Returns the bytes copied.
+template <typename T>
 __device__ __forceinline__ uint32_t runs_gather(const Params& p,
                                                 const RowPos& r, Tap& t,
                                                 int g, int k0, uint8_t* a,
                                                 uint64_t* bar) {
-  const float* x = static_cast<const float*>(p.x);
+  constexpr int E = sizeof(T);
+  const T* x = static_cast<const T*>(p.x);
   const int n = min(BK, p.K - k0);
   uint32_t bytes = 0;
   for (int done = 0; done < n;) {
     const int len = min(p.Cg - t.c, n - done);
     const long long off = x_offset(p, r, t, g);
     if (off >= 0) {
-      hop::bulk_g2s(a + 4 * done, x + off, 4 * len, bar);
-      bytes += 4 * len;
+      hop::bulk_g2s(a + E * done, x + off, E * len, bar);
+      bytes += E * len;
     } else {
-      for (int i = 0; i < len; i += 4)
-        *reinterpret_cast<uint4*>(a + 4 * (done + i)) =
+      for (int i = 0; i < E * len; i += 16)
+        *reinterpret_cast<uint4*>(a + E * done + i) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     done += len;
@@ -521,6 +541,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   // otherwise also one from each gathering thread (f32 and the pieces
   // when their copies land, int8 element by element after its stores)
   constexpr bool ASYNC = ROUTE == ROUTE_CHUNK || (F32 && ROUTE != ROUTE_RUNS);
+  // A read into registers (f32 quantized there; int8 runs laid out plain)
+  // and fed as wgmma's register operand, else wgmma reads it from the slot
+  constexpr bool REG_A = F32 || ROUTE == ROUTE_RUNS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = hop::smem_u32(smem_raw);
   uint8_t* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -596,7 +619,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           // the padding; the row's bytes announced with its arrival
           uint32_t bytes = 0;
           if (MXT_I8_CUT != 3)
-            bytes = runs_gather(p, r, walk.t, w.g, s * BK, st + pt * RS, bar);
+            bytes = runs_gather<T>(p, r, walk.t, w.g, s * BK,
+                                   st + pt * rs(sizeof(T)), bar);
           hop::mbar_expect(bar, bytes);
           continue;
         }
@@ -624,8 +648,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int ra = wg * 64 + warp * 16 + g8;   // rows ra, ra + 8 of the tile
     const bool lead = (tid & 127) == 0;
     const int S = p.split;
-    int fill = 0;
-    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    int fill = 0, turn = 0;
+    bool committed = false;   // lead: the last tile's stores were issued
+    for (long long u = blockIdx.x; u < units; u += gridDim.x, ++turn) {
       const Unit w = unit_of(p, u, BN);
       int acc[NA];
 #pragma unroll
@@ -634,7 +659,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         ring.wait(fill);
         uint8_t* st = ring.at(fill);
         const uint32_t b = hop::smem_u32(st + A_BYTES);
-        if constexpr (F32) {
+        if constexpr (REG_A) {
           // k32 step kk is box kk: a[0] row ra, k 4 t4 ..; a[1] row ra + 8;
           // a[2] row ra, k 16 + 4 t4 ..; a[3] row ra + 8
           // (boxes past the reduction hold no data: their codes are 0)
@@ -646,8 +671,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int h = 0; h < 4; ++h) {
               const int row = ra + 8 * (h & 1), c4 = 4 * (h >> 1) + t4;
+              if constexpr (!F32) {
+                // int8 runs: the 4 codes at k 32 kk + 4 c4
+                a[kk][h] = in ? *reinterpret_cast<const uint32_t*>(
+                                    st + row * rs(1) + 32 * kk + 4 * c4)
+                              : 0u;
+                continue;
+              }
               const uint8_t* q =
-                  ROUTE == ROUTE_RUNS ? st + row * RS + (8 * kk + c4) * 16
+                  ROUTE == ROUTE_RUNS ? st + row * rs(4) + (8 * kk + c4) * 16
                                       : box + swz(row, c4);
               a[kk][h] = in ? quant4(*reinterpret_cast<const float4*>(q),
                                      scale)
@@ -690,7 +722,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (s > w.s0) ring.release(fill - 1, lane);
         }
       }
-      if constexpr (!F32) {
+      if constexpr (!REG_A) {
         hop::wgmma_wait<0>();
         hop::fence_regs(acc, NA);
         ring.release(fill - 1, lane);
@@ -725,13 +757,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       // element 4 j + 2 h + e: row ra + 8 h, channel n0 + 8 j + 2 t4 + e.
       // store: into this warpgroup's staging tile, BN / 32 128-byte-
       // swizzled boxes of its 64 rows x 32 channels, then one TMA store a
-      // box (whole lines; rows and channels past the output clipped), the
-      // staging rewritten only after the last tile's stores have read it;
-      // else two neighbouring channels as one 8-byte store where O and Og
-      // are even
-      uint8_t* stage = sm + p.stage_at + wg * BN * 256;
+      // box (whole lines; rows and channels past the output clipped). With
+      // two staging tiles a warpgroup, used in turns, a tile's stores run
+      // on while the next tile is computed and staged: a staging tile is
+      // rewritten once the stores of the tile before last have read it
+      // (one bulk group a tile may stay pending), with one once the last
+      // tile's have. Else two neighbouring channels as one 8-byte store
+      // where O and Og are even
+      uint8_t* stage =
+          sm + p.stage_at + ((turn % p.bufs) * 2 + wg) * BN * 256;
       if (p.store) {
-        if (lead) hop::bulk_wait_read<0>();
+        if (lead) {
+          if (p.bufs == 2 && committed)
+            hop::bulk_wait_read<1>();
+          else
+            hop::bulk_wait_read<0>();
+        }
         hop::named_sync(2 + wg, 128);
       }
 #pragma unroll
@@ -783,7 +824,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         hop::fence_async_smem();
         hop::named_sync(2 + wg, 128);
         const long long r0 = w.m0 + wg * 64;
-        if (lead && r0 < p.M) {
+        if (lead) committed = r0 < p.M && MXT_I8_CUT != 5;
+        if (lead && r0 < p.M && MXT_I8_CUT != 5) {
           for (int b = 0; b < BN / 32 && w.n0 + 32 * b < p.O; ++b)
             hop::tma_store_4d(&maps.y, stage + b * 8192, w.n0 + 32 * b,
                               static_cast<int>(r0), 0, 0);
@@ -831,9 +873,8 @@ cudaError_t launch_route(int route, const Maps& maps, const Params& p,
     return launch<BN, T, ROUTE_TMA>(maps, p, blocks, smem, stream);
   if (route == ROUTE_CHUNK)
     return launch<BN, T, ROUTE_CHUNK>(maps, p, blocks, smem, stream);
-  if constexpr (sizeof(T) == 4)
-    if (route == ROUTE_RUNS)
-      return launch<BN, T, ROUTE_RUNS>(maps, p, blocks, smem, stream);
+  if (route == ROUTE_RUNS)
+    return launch<BN, T, ROUTE_RUNS>(maps, p, blocks, smem, stream);
   return launch<BN, T, ROUTE_ELEM>(maps, p, blocks, smem, stream);
 }
 
@@ -890,21 +931,26 @@ extern "C" int mxt_int8_conv(const void* x, const void* w, const void* bias,
       (route == i8::ROUTE_TMA &&
        (!one || (C * esize) % 16 || p.M >= (1LL << 31))) ||
       (route == i8::ROUTE_CHUNK && (p.Cg % (16 / esize) || cf)) ||
-      (route == i8::ROUTE_RUNS && (!in_f32 || p.Cg % 32 || cf)))
+      (route == i8::ROUTE_RUNS && (p.Cg % (in_f32 ? 32 : 16) || cf)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the output by TMA stores from staging tiles (64 rows x bn a
   // warpgroup) where a tile's channels are its own (one group) and rows
   // are 16-byte multiples, unless a gathering route would lose ring slots
-  // below 3 to them; split, each block stores its share itself
+  // below 3 to them; two a warpgroup, in turns, where that leaves the ring
+  // at least 3 slots (or as many as one does); split, each block stores
+  // its share itself
   p.slot = i8::a_tile(route, esize) + bn * 128;
   const int room = i8::SMEM_MAX - 1024 - i8::BAR_BYTES, tiles = 2 * bn * 256;
   const int direct = std::min(i8::MAX_STAGES, room / p.slot);
   const int staged = std::min(i8::MAX_STAGES, (room - tiles) / p.slot);
+  const int staged2 = std::min(i8::MAX_STAGES, (room - 2 * tiles) / p.slot);
   p.store = split == 1 && G == 1 && O % 4 == 0 &&
             reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
             (route == i8::ROUTE_TMA || staged >= std::min(3, direct));
-  const int staging = p.store ? tiles : 0;
-  p.stages = p.store ? staged : direct;
+  p.bufs = p.store && MXT_I8_CUT != 4 && staged2 >= std::min(3, staged)
+               ? 2 : 1;
+  const int staging = p.store ? p.bufs * tiles : 0;
+  p.stages = p.store ? (p.bufs == 2 ? staged2 : staged) : direct;
   // split's partial sums (256 threads x bn / 2) in the drained ring
   if (p.stages < 2 || 256LL * bn / 2 * 4 > 1LL * p.stages * p.slot)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,8 +37,11 @@ where a group's channels are a multiple of 32; in 16-byte pieces where
 they fill whole pieces; element by element otherwise; the reduction's order (channels-last ``(kd, kh, kw,
 c)``, or ``(c, kd, kh, kw)`` over a channels-first input taken element by
 element: conv1's NCHW image is read as it lies); the tile's output
-channels; and how many blocks of a thread-block cluster split the
-reduction where the tiles alone leave SMs idle.
+channels; how many blocks of a thread-block cluster split the
+reduction where the tiles alone leave SMs idle; and whether an f32 input
+that would be taken element by element in the order ``(c, kd, kh, kw)``
+(conv1's) is quantized by the operators first, its codes then read by the
+int8-in variant (``codes_first``: faster at conv1, and the same bits).
 
 The kernel writes a channels-last output, so for a channels-first layout
 the result is a view, logically in that layout, of a channels-last tensor.
@@ -56,7 +59,9 @@ through the library and cast to int32: exact, since |acc| <= K * 127^2 <
 2^53; the f32 variant's plain version is the operator sequence on it. On
 CPU tensors they run; on CUDA tensors the kernel runs or
 :class:`MXNetError` is raised, nothing falls back. Each launch adds one to
-:data:`launches`. No host synchronization: a CUDA graph captures it.
+:data:`launches`, under the variant's name: ``"int8_conv"`` for an int8
+input, ``"int8_conv_f32"`` for an f32 one. No host synchronization: a
+CUDA graph captures it.
 """
 from __future__ import annotations
 
@@ -77,7 +82,9 @@ __all__ = ["conv", "fully_connected", "conv_f32", "fully_connected_f32",
            "Plan", "launches",
            "copies", "KERNELS", "LAYOUTS"]
 
-KERNELS = ("int8_conv",)
+# the kernel's two variants by its input: int8 (the operators' product)
+# and f32 (a whole quantized layer)
+KERNELS = ("int8_conv", "int8_conv_f32")
 # per-kernel launch counters: +1 per kernel launch, nowhere else
 launches = {name: 0 for name in KERNELS}
 # operand copies the wrapper made for the kernel's layout
@@ -113,13 +120,16 @@ class Plan(NamedTuple):
     ``"elem"``, ``"runs"``), the reduction order ``cf`` ((c, kd, kh, kw) over a
     channels-first input, else (kd, kh, kw, c)), the tile's output channels
     ``bn``, the cluster's ``split`` of the reduction, its 128-wide
-    ``steps`` and the output ``tiles``."""
+    ``steps`` and the output ``tiles``; ``codes_first``: an f32 input is
+    quantized by the operators and the int8-in variant launched on its
+    codes (the plan is that launch's)."""
     route: str
     cf: bool
     bn: int
     split: int
     steps: int
     tiles: int
+    codes_first: bool = False
 
 
 def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
@@ -133,16 +143,25 @@ def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
     The split: with one block an SM, a tile's time is its steps, so a
     launch takes (waves of blocks) x (steps a block, plus about one for the
     cluster's combine where the reduction is split); the smallest such
-    split of 1, 2, 4, 8 (at most the steps), the smaller on a tie."""
+    split of 1, 2, 4, 8 (at most the steps), the smaller on a tie.
+
+    An f32 input that the kernel would read element by element in the
+    order (c, kd, kh, kw) (conv1's 3-channel NCHW image) is quantized by
+    the operators first (``codes_first``) and the int8-in variant reads its
+    codes: at conv1 that is faster than the f32 variant's 4-byte copies
+    and the consumers' quantizing of 64 KB of f32 a step (PERF.md §6)."""
     Cg = C // G
-    if one and (C * esize) % 16 == 0:
-        route = "tma"
-    elif esize == 4 and Cg % 32 == 0:
-        route = "runs"
-    elif Cg % (16 // esize) == 0:
-        route = "chunk"
-    else:
-        route = "elem"
+
+    def route_of(esize):
+        if one and (C * esize) % 16 == 0:
+            return "tma"
+        if esize == 4 and Cg % 32 == 0:
+            return "runs"
+        return "chunk" if Cg % (16 // esize) == 0 else "elem"
+    route = route_of(esize)
+    codes_first = esize == 4 and route == "elem" and channels_first
+    if codes_first:
+        route = route_of(1)
     bn = 64 if Og <= 64 else 128
     tiles = -(-M // BM) * -(-Og // bn) * G
     steps = -(-K // BK)
@@ -154,7 +173,7 @@ def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
         if best is None or cost < best[0]:
             best = (cost, s)
     return Plan(route, route == "elem" and channels_first, bn, best[1], steps,
-                tiles)
+                tiles, codes_first)
 
 
 def _sms(device) -> int:
@@ -212,16 +231,16 @@ def fully_connected_reference(x, w, bias32=None):
     return y if bias32 is None else y + bias32
 
 
-def _quantize(x, scale):
-    """``quantize_v2``'s int8 codes of ``x`` given its scale (a 0-d f32
-    tensor): the product, round half to even, the clamp, the cast."""
-    return torch.clamp(torch.round(x.float() * scale), -127.0,
-                       127.0).to(torch.int8)
+def _codes(x, scale):
+    """``quantize_v2``'s int8 codes of ``x`` at ``scale`` (a 0-d f32
+    tensor): ``ops/quantization.int8_codes``."""
+    from .. import quantization
+    return quantization.int8_codes(x.float(), scale)
 
 
-def _dequantize(y, step, relu: bool):
-    """``dequantize`` of an int32 accumulator by its step (a 0-d f32
-    tensor), then the relu."""
+def _dequantized(y, step, relu: bool):
+    """``dequantize``'s product of an int32 accumulator by its step (a 0-d
+    f32 tensor), then the relu."""
     out = y * step
     return torch.relu(out) if relu else out
 
@@ -231,16 +250,16 @@ def conv_f32_reference(x, w, bias32, scale, step, stride=(1,), pad=(0,),
                        relu: bool = False):
     """The plain version of a quantized convolution layer: its input's
     int8 codes, :func:`conv_reference`, ``dequantize``, the relu."""
-    y = conv_reference(_quantize(x, scale), w, bias32, stride, pad, dilate,
+    y = conv_reference(_codes(x, scale), w, bias32, stride, pad, dilate,
                        groups, layout)
-    return _dequantize(y, step, relu)
+    return _dequantized(y, step, relu)
 
 
 def fully_connected_f32_reference(x, w, bias32, scale, step,
                                   relu: bool = False):
     """The plain version of a quantized fully connected layer."""
-    y = fully_connected_reference(_quantize(x, scale), w, bias32)
-    return _dequantize(y, step, relu)
+    y = fully_connected_reference(_codes(x, scale), w, bias32)
+    return _dequantized(y, step, relu)
 
 
 # ------------------------------------------------------------------- packing
@@ -392,7 +411,7 @@ def _launch(x5, packed: Packed, bias32, y, s: _Shape, stride, pad, dilate,
         raise MXNetError(f"int8_conv kernel launch failed: CUDA error {err}")
     if fn is None:
         with _COUNT_LOCK:
-            launches["int8_conv"] += 1
+            launches[KERNELS[x5.dtype == torch.float32]] += 1
 
 
 def _conv(x, w, bias32, stride, pad, dilate, groups, layout, packed,
@@ -406,6 +425,8 @@ def _conv(x, w, bias32, stride, pad, dilate, groups, layout, packed,
     y = torch.empty((s.N,) + s.osp + (s.O,), dtype=out, device=x.device)
     if y.numel():
         plan = _plan(s, stride, pad, groups, 4 if in_f32 else 1, x.device)
+        if plan.codes_first:
+            x, scale = _codes(x, scale), None
         if packed is None or packed.cf != plan.cf:
             packed, copied = pack_weight(w, layout, plan.cf)
             if copied:

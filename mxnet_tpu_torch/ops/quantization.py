@@ -96,14 +96,31 @@ def _amax(mn, mx):
     return torch.maximum(mn.abs(), mx.abs())
 
 
+def int8_scale(amax):
+    """The int8 quantizing scale of the range [-amax, amax] (a 0-d f32
+    tensor): ``127 / max(amax, 1e-30)``, one IEEE division."""
+    return _const(_INT8_MAX, amax) / amax.clamp_min(1e-30)
+
+
+def int8_codes(x, scale):
+    """The int8 codes of f32 ``x`` at ``scale``: the product, round half
+    to even, the clamp to +-127, the cast."""
+    return torch.clamp(torch.round(x * scale), -_INT8_MAX,
+                       _INT8_MAX).to(torch.int8)
+
+
+def dequantize_step(mn, mx, qmax: float):
+    """The f32 step of a signed type's codes over the range [mn, mx]:
+    ``max(|mn|, |mx|) / qmax``, as XLA compiles the division."""
+    return _over(_amax(mn, mx), qmax)
+
+
 def _quantize(x, mn, mx, out_type: str):
     """``x`` (f32) into ``out_type`` over the range [mn, mx]."""
     q_max = _range_for(out_type)
     if out_type == "int8":
         amax = _amax(mn, mx)
-        scale = _const(q_max, x) / amax.clamp_min(1e-30)
-        q = torch.clamp(torch.round(x * scale), -q_max, q_max)
-        return q.to(torch.int8), -amax, amax
+        return int8_codes(x, int8_scale(amax)), -amax, amax
     scale = _const(q_max, x) / (mx - mn).clamp_min(1e-30)
     q = torch.clamp(torch.round((x - mn) * scale), 0.0, q_max)
     return q.to(torch.uint8), mn, mx
@@ -139,7 +156,7 @@ def dequantize(data, min_range, max_range, out_type: str = "float32"):
     if data.dtype == torch.uint8:
         return (data * _over(mx - mn, _UINT8_MAX) + mn).to(dt)
     qmax = float(torch.iinfo(data.dtype).max)
-    return (data * _over(_amax(mn, mx), qmax)).to(dt)
+    return (data * dequantize_step(mn, mx, qmax)).to(dt)
 
 
 def requantize(data, min_range, max_range,
@@ -148,15 +165,12 @@ def requantize(data, min_range, max_range,
     """int32 accumulator and its float range -> int8 and its range; the
     calibrated range, or the accumulator's own abs-max."""
     mn, mx = _f32(min_range, data), _f32(max_range, data)
-    step = _over(_amax(mn, mx), _INT32_MAX)
-    real = data.float() * step
+    real = data.float() * dequantize_step(mn, mx, _INT32_MAX)
     if min_calib_range is not None and max_calib_range is not None:
         amax = _const(max(abs(min_calib_range), abs(max_calib_range)), data)
     else:
         amax = torch.maximum(real.min().abs(), real.max().abs())
-    scale = _const(_INT8_MAX, data) / amax.clamp_min(1e-30)
-    q8 = torch.clamp(torch.round(real * scale), -_INT8_MAX, _INT8_MAX)
-    return q8.to(torch.int8), -amax, amax
+    return int8_codes(real, int8_scale(amax)), -amax, amax
 
 
 def _int8_range_prod(mn_a, mx_a, mn_b, mx_b):
@@ -207,12 +221,12 @@ def int8_layer_constants(mn, mx, min_weight, max_weight, bias=None,
     ``quantized_conv`` / ``quantized_fully_connected`` and ``dequantize``,
     so the same bits. Returns ``(scale, step, bias32)``."""
     amax = _amax(mn, mx)
-    scale = _const(_INT8_MAX, mn) / amax.clamp_min(1e-30)
     mn_o, mx_o = _ranges(mn, -amax, amax, min_weight, max_weight)
     b32 = None
     if bias is not None:
         b32 = _bias32(bias, _f32(min_bias, mn), _f32(max_bias, mn), mx_o)
-    return scale, _over(_amax(mn_o, mx_o), _INT32_MAX), b32
+    return (int8_scale(amax), dequantize_step(mn_o, mx_o, _INT32_MAX),
+            b32)
 
 
 def _tuple(v, n: int):

@@ -3192,10 +3192,10 @@ def test_int8_kernel_at_resnet50_shapes(dev, case, variant):
     if case[1][1] == 3:
         x = x.contiguous()                    # conv1's image: NCHW, as is
     relu = variant == "f32_relu"
-    before = i8.launches["int8_conv"]
+    before = sum(i8.launches.values())
     got = _int8_call(case, x, w, b, scale, step, relu, False)
     torch.cuda.synchronize()
-    assert i8.launches["int8_conv"] == before + 1
+    assert sum(i8.launches.values()) == before + 1
     again = _int8_call(case, x, w, b, scale, step, relu, False)
     want = _int8_call(case, x, w, b, scale, step, relu, True)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -3210,10 +3210,10 @@ def test_int8_f32_variant_matches_plain(dev, case, relu):
     the unfused operator sequence, to the bit at every layout, stride,
     padding, dilation and group count of the int8 cases."""
     x, w, b, scale, step = _int8_case(case, dev, True, 17 + len(case[1]))
-    before = i8.launches["int8_conv"]
+    before = sum(i8.launches.values())
     got = _int8_call(case, x, w, b, scale, step, relu, False)
     torch.cuda.synchronize()
-    assert i8.launches["int8_conv"] == before + 1
+    assert sum(i8.launches.values()) == before + 1
     want = _int8_call(case, x, w, b, scale, step, relu, True)
     assert got.dtype == torch.float32 and torch.equal(got, want)
 
@@ -3235,10 +3235,10 @@ def test_int8_layer_graph_replay_equals_eager(dev):
     qd = QuantizedDense(dense, (0.0, 3.0))
     x = torch.randn(4, 32, 8, 8, device=dev)
     with torch.no_grad():
-        before = i8.launches["int8_conv"]
+        before = i8.launches["int8_conv_f32"]
         eager = qd(qc(x))
         torch.cuda.synchronize()
-        assert i8.launches["int8_conv"] - before == 2
+        assert i8.launches["int8_conv_f32"] - before == 2
         graph = torch.cuda.CUDAGraph()
         s = torch.cuda.Stream()
         s.wait_stream(torch.cuda.current_stream())
@@ -3384,10 +3384,14 @@ def test_quantized_resnet_graph_capture(dev):
     x = torch.randn(4, 3, 64, 64, generator=g).to(dev)
     quantize_net(net, calib_data=[x], calib_mode="naive")
     with torch.no_grad():
-        before = i8.launches["int8_conv"]
+        before = dict(i8.launches)
         eager = Block.__call__(net, x)
         torch.cuda.synchronize()
-        assert i8.launches["int8_conv"] - before == 21    # 20 convs + Dense
+        # conv1's 3-channel image quantized by the operators, then the
+        # int8-in variant; the other 19 convolutions and the Dense layer
+        # the f32-in variant
+        assert {k: i8.launches[k] - before[k] for k in before} == {
+            "int8_conv": 1, "int8_conv_f32": 20}
         net.hybridize()
         outs = [net(x) for _ in range(3)]
     assert all(torch.equal(o, eager) for o in outs)

@@ -155,7 +155,8 @@ def test_quantization_extremes_round_half_to_even_and_clamp():
     scale = torch.tensor(2.0)
     want = torch.tensor([0, 2, 0, -2, 2, 126, 127, -127, 127, -127, 127,
                          -127], dtype=torch.int8)
-    assert torch.equal(i8._quantize(x, scale), want)
+    assert torch.equal(i8._codes(x, scale), want)
+    assert torch.equal(tqop.int8_codes(x, scale), want)
     assert torch.equal(tqop.quantize_v2(x, torch.tensor(-63.5),
                                         torch.tensor(63.5))[0], want)
 
@@ -220,6 +221,48 @@ def test_layer_constants_are_cached_until_a_range_is_written():
         q._in_max = 4.0
         assert q._constants(x) is not first
         assert torch.equal(_bits(q(x)), _bits(_unfused_layer(q, x)))
+
+
+@pytest.mark.parametrize("built_inside", [False, True])
+@pytest.mark.parametrize("how", ["copy", "load_state_dict"])
+def test_ranges_written_in_inference_mode_reach_the_forward(built_inside,
+                                                             how):
+    """A layer built (or only run) under ``torch.inference_mode`` and whose
+    input range and weight are then written there, in place or by
+    ``load_state_dict``: the next forward computes with the new values
+    (the cached constants and packed weight are not stale)."""
+    torch.manual_seed(5)
+    layer = nn.Conv2D(8, 3, padding=1, in_channels=16, activation="relu")
+    layer.initialize(device="cpu")
+    x = torch.randn(2, 16, 5, 5)
+    with torch.inference_mode(built_inside):
+        q = tq.QuantizedConv(layer, (-1.0, 1.5))
+    with torch.inference_mode():
+        q(x)
+        wq = torch.randint(-127, 128, q.wq.shape, dtype=torch.int8)
+        if how == "copy":
+            q.in_max.copy_(torch.tensor(4.0))
+            q.wq.copy_(wq)
+        else:
+            state = {k: v.clone() for k, v in q.state_dict().items()}
+            state["in_max"], state["wq"] = torch.tensor(4.0), wq
+            q.load_state_dict(state)
+        q._in_max = 4.0
+        got = q(x)
+        assert torch.equal(_bits(got), _bits(_unfused_layer(q, x)))
+    assert not q.wq.is_inference() and not q.in_max.is_inference()
+    assert torch.equal(q.wpack[:, :q.wq[0].numel()],
+                       q.wq.movedim(1, -1).reshape(8, -1))
+
+
+def test_stamp_of_an_inference_tensor_equals_no_other():
+    with torch.inference_mode():
+        t = torch.zeros(2)
+    assert tq._stamp(t) != tq._stamp(t)
+    u = torch.zeros(2)
+    assert tq._stamp(u) == tq._stamp(u)
+    u.add_(1)
+    assert tq._stamp(u) != (u.data_ptr(), 0)
 
 
 def _quantized_pair():
@@ -311,6 +354,29 @@ PLANS = [
     ((64, 256, 64, 1, 256, True, 1, False), ("tma", False, 64, 1)),
     ((64, 64, 64, 1, 64, True, 1, False), ("tma", False, 64, 1)),
 ]
+
+
+# f32 in read element by element in the order (c, kd, kh, kw): quantized by
+# the operators first, the plan the int8-in launch's; not where the f32
+# variant takes the input otherwise, nor for int8 in
+CODES_FIRST = [
+    ((802816, 3, 64, 1, 147, False, 4, True), True),      # conv1
+    ((81, 6, 24, 1, 6, True, 4, True), True),
+    ((81, 6, 24, 1, 6, True, 4, False), False),            # channels last
+    ((802816, 3, 64, 1, 147, False, 1, True), False),      # int8 in
+    ((81, 20, 24, 1, 180, False, 4, True), False),         # f32 pieces
+    ((200704, 64, 256, 1, 64, True, 4, True), False),      # by TMA
+]
+
+
+@pytest.mark.parametrize("args,want", CODES_FIRST,
+                         ids=[str(a) for a, _ in CODES_FIRST])
+def test_int8_plan_codes_first(args, want):
+    p = i8.int8_plan(*args)
+    assert p.codes_first == want
+    if want:
+        as_int8 = i8.int8_plan(*args[:6], 1, *args[7:])
+        assert p == as_int8._replace(codes_first=True)
 
 
 @pytest.mark.parametrize("args,want", PLANS, ids=[str(a) for a, _ in PLANS])
