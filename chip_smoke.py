@@ -318,8 +318,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with naive calibration on 10 batches of 32 synthetic images, forwards
    at B = 64, 224x224: 54 int8 kernel launches a forward by the counters
    (53 convolutions and the Dense layer, each a whole quantized layer on
-   the kernel's f32-in variant, conv1 on the int8-in one after the
-   operators' quantize) with ``MXNET_FUSE_BN_CONV`` on and off (the
+   the kernel's f32-in variant) with ``MXNET_FUSE_BN_CONV`` on and off (the
    fused bf16 conv kernels never), operand copies a forward printed and no
    weight repacked (each layer packs its own once), no cuDNN convolution or
    cuBLAS product in a primed profiled forward, two eager runs and three
@@ -334,13 +333,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    out; f32 in, f32 out) equal to their plain versions to the bit, each
    timed beside its bound (the input elements the convolution reads,
    4 bytes each for the f32 variant) and its plain version, the f32
-   variant's layer (every kernel of its call) beside the unfused
-   operators it replaces (``quantize_v2``, the int8 product,
-   ``dequantize``), and ``torch._int_mm`` where one product computes the
-   shape; with ``--probe-int8``, both variants at those shapes, conv1 and
-   two 3x3 ones against builds of the kernel with A's copies, the
-   products or the epilogue's stores cut out, or one staging tile a
-   warpgroup, in three rounds. Then SSD-300's
+   variant beside the unfused operators it replaces (``quantize_v2``,
+   the int8 product, ``dequantize``), and ``torch._int_mm`` where one
+   product computes the shape; with ``--probe-int8``, both variants at
+   those shapes, conv1, three 3x3 ones and a strided 1x1 against builds
+   of the kernel with A's copies, the products, the epilogue's stores or
+   parts of them cut out, in three rounds. Then the quantized operators
+   as MXNet's symbolic int8 graphs call them (``quantize_v2``, each
+   convolution ``quantized_conv`` and ``requantize``, ``quantized_act``,
+   ``dequantize``) through a ResNet-50 bottleneck at B = 64, their own
+   path for the int8-in variant's launches, on the card against the CPU
+   to the bit. Then SSD-300's
    box operators at its own shapes (8732 anchors from ``multibox_prior``
    over six feature maps; ``multibox_target`` at B = 32, 21 classes, 64
    label rows, negative mining 3; ``multibox_detection`` at threshold
@@ -526,11 +529,11 @@ OLD_CONV_MS = {
                                0.3296, 0.2813, 0.1970),
                       "PR 3": (0.2255, 0.1624, 0.4947, 0.4912, 0.5496,
                                0.3064, 0.4717, 0.4790)}}
-# --probe-int8: the int8 kernel rebuilt with one part cut out, or with one
-# staging tile a warpgroup (the epilogue's stores not overlapped)
+# --probe-int8: the int8 kernel rebuilt with one part cut out
 INT8_CUTS = {"A copies cut": "MXT_I8_CUT=3", "products cut": "MXT_I8_CUT=1",
              "stores cut": "MXT_I8_CUT=2", "TMA stores cut": "MXT_I8_CUT=5",
-             "one staging tile": "MXT_I8_CUT=4"}
+             "TMA stores and fence cut": "MXT_I8_CUT=6",
+             "TMA stores and staging writes cut": "MXT_I8_CUT=7"}
 # --probe-int8's rounds: every build timed once a round, in turns
 INT8_PROBE_ROUNDS = 3
 # --probe-conv: fwd and dgrad rebuilt with one part cut out
@@ -7755,6 +7758,77 @@ def quant_main_path(torch, dev, params):
     return launches, shapes
 
 
+# the quantized operators' own path: ResNet-50 v1's stage-1 bottleneck
+# (64@56^2: 1x1 -> 64, 3x3 -> 64, 1x1 -> 256; (filters, kernel, pad)) as
+# MXNet's symbolic int8 graphs run it, at B = 64; the CPU checks the first
+# B_QUANT_OPS_CPU images
+QUANT_OPS_BLOCK = ((64, 1, 0), (64, 3, 1), (256, 1, 0))
+QUANT_OPS_C, QUANT_OPS_H, B_QUANT_OPS_CPU = 64, 56, 4
+
+
+def quant_operator_path(torch, dev, B=B_QUANT, B_cpu=B_QUANT_OPS_CPU):
+    """The quantized operators as upstream MXNet's symbolic int8 graphs
+    (``contrib.quant.quantize_model``) call them, through ``mx.npx``:
+    ``quantize_v2`` at the input, each convolution ``quantized_conv``
+    (int8 in, int32 out: the int8-in variant of the kernel) and
+    ``requantize`` into the next layer's int8, ``quantized_act`` (relu)
+    between the layers, ``dequantize`` at the end; QUANT_OPS_BLOCK at B
+    images, weights and data from a seed, the requantize ranges
+    calibrated on the CPU's first B_cpu images. The card's int8 codes of
+    every layer and its f32 output equal the CPU's on those images to the
+    bit. Returns the operator chain's output."""
+    import numpy as np
+    from mxnet_tpu_torch import npx
+    rng = np.random.RandomState(41)
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, QUANT_OPS_C, QUANT_OPS_H,
+                                             QUANT_OPS_H)).astype(np.float32))
+    layers, c = [], QUANT_OPS_C
+    for o, k, p in QUANT_OPS_BLOCK:
+        layers.append((torch.from_numpy(rng.randint(-127, 128, (o, c, k, k))
+                                        .astype(np.int8)),
+                       torch.from_numpy(rng.randint(-127, 128, (o,))
+                                        .astype(np.int8)), k, p, o))
+        c = o
+
+    def chain(xs, where, calib=None):
+        """(codes of each layer, f32 output, each requantize's range)"""
+        q, mn, mx = npx.quantize_v2(xs.to(where), -1.0, 1.0)
+        codes, seen = [q], []
+        for i, (w, b, k, p, o) in enumerate(layers):
+            y, mn_o, mx_o = npx.quantized_conv(
+                q, w.to(where), b.to(where), mn, mx, -0.3, 0.3, -0.5, 0.5,
+                kernel=(k, k), stride=(1, 1), pad=(p, p), num_filter=o,
+                layout="NCHW")
+            r = (None, None) if calib is None else (-calib[i], calib[i])
+            q, mn, mx = npx.requantize(y, mn_o, mx_o, *r)
+            seen.append(float(mx))
+            if i < len(layers) - 1:
+                q, mn, mx = npx.quantized_act(q, mn, mx, act_type="relu")
+            codes.append(q)
+        return codes, npx.dequantize(q, mn, mx), seen
+    t = time.perf_counter()
+    with torch.inference_mode():
+        calib = chain(x[:B_cpu], "cpu")[2]
+        codes, out, _ = chain(x, dev, calib)
+        torch.cuda.synchronize()
+        cpu_codes, cpu_out, _ = chain(x[:B_cpu], "cpu", calib)
+    for i, (got, want) in enumerate(zip(codes, cpu_codes)):
+        if not torch.equal(got[:B_cpu].cpu(), want):
+            fail(f"phase 12: the quantized operators' layer {i} codes "
+                 f"differ card / CPU")
+    if not torch.equal(out[:B_cpu].cpu(), cpu_out) \
+            or not torch.isfinite(out).all():
+        fail("phase 12: the quantized operators' output differs card / CPU "
+             "or is not finite")
+    print(f"phase 12: the quantized operators (quantize_v2, quantized_conv "
+          f"and requantize a layer, quantized_act, dequantize) through "
+          f"{len(layers)} convolutions of a ResNet-50 bottleneck at B={B}, "
+          f"{QUANT_OPS_H}^2: codes of every layer and the output equal to "
+          f"the CPU's on {B_cpu} images; in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return out
+
+
 def quant_cpu_check(torch, net, params, x, ref):
     """The port's int8 net on the CPU at B = 2 with the card's calibrated
     ranges copied in: the int8 weights equal, each quantized layer on the
@@ -7845,14 +7919,12 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
     against its plain version (equal to the bit), its device time, the plain
     version's, torch._int_mm's where the shape is a plain product (stride-1
     1x1 or the FC), and the bound. f32 in, f32 out (a whole quantized layer,
-    what the main path runs): the same against its plain version, the
-    device time of the kernel and of every kernel the layer's call
-    launches (where the plan quantizes by the operators first, those and
-    the int8-in kernel), and the time of the unfused operators it replaces
-    (quantize_v2, the int8 product, dequantize, as the layer ran them
-    before), the bound counting f32 bytes in and out. Both bounds count
-    the input elements the convolution reads (int8_read_elems). Returns
-    the f32 variant's row and the int8 one's."""
+    what the main path launches): the same against its plain version, and
+    the time of the unfused operators it replaces (quantize_v2, the int8
+    product, dequantize, as the layer ran them before), the bound counting
+    f32 bytes in and out. Both bounds count the input elements the
+    convolution reads (int8_read_elems). Returns the f32 variant's row and
+    the int8 one's."""
     from mxnet_tpu_torch.ops import quantization as qop
     from mxnet_tpu_torch.ops.cuda import int8_conv as i8
     fc = layout == "FC"
@@ -7910,7 +7982,6 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
                  f"{(got.double() - want.double()).abs().max():.3e})")
     ms = launch_ms(run, 10, lambda n: re.search(INT8_KERNEL, n))
     ms_f = launch_ms(run_f, 10, lambda n: re.search(INT8_KERNEL, n))
-    layer_ms = device_ms(run_f, iters=10)
     plain_ms = device_ms(plain, iters=3)
     plain_f_ms = device_ms(plain_f, iters=3)
     unfused_ms = device_ms(unfused, iters=5)
@@ -7932,20 +8003,16 @@ def int8_row(torch, dev, label, layout, xs, ws, stride, pad, dilate, groups,
     plan = i8.int8_plan(M, xs[-1] if not first and not fc else xs[1],
                         O // groups, groups, K, one, 4, first)
     ops = 2.0 * M * O * K
-    via = "codes by the operators, then the int8-in " if plan.codes_first \
-        else ""
     print(f"phase 12: int8 {label}: both variants equal to their plain "
           f"versions; int8 in: kernel {fmt_ms(ms)}, plain {fmt_ms(plain_ms)}"
           f", library {'none' if lib is None else fmt_ms(lib)}, bound "
           f"{bnd:.4f} ms ({by}), {ops / (ms or float('inf')) / 1e9:.1f} "
-          f"TOP/s; f32 in (the layer): {via}kernel {fmt_ms(ms_f)}, the "
-          f"layer's kernels {fmt_ms(layer_ms)}, "
-          f"plain {fmt_ms(plain_f_ms)}, unfused operators "
-          f"{fmt_ms(unfused_ms)}, bound {bnd_f:.4f} ms ({by_f}); route "
-          f"{plan.route}, tiles {plan.tiles}, split {plan.split}", flush=True)
+          f"TOP/s; f32 in (the layer): kernel {fmt_ms(ms_f)}, plain "
+          f"{fmt_ms(plain_f_ms)}, unfused operators {fmt_ms(unfused_ms)}, "
+          f"bound {bnd_f:.4f} ms ({by_f}); route {plan.route}, tiles "
+          f"{plan.tiles}, split {plan.split}", flush=True)
     return (dict(ms=ms_f, plain_ms=plain_f_ms, library_ms=lib,
-                 bound_ms=bnd_f, bound_by=by_f, unfused_ms=unfused_ms,
-                 layer_ms=layer_ms, codes_first=plan.codes_first),
+                 bound_ms=bnd_f, bound_by=by_f, unfused_ms=unfused_ms),
             dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
                  bound_by=by))
 
@@ -7954,21 +8021,16 @@ def int8_kernel_rows(torch, dev, shapes):
     """The int8 kernel at each distinct shape of the main path (in its
     order; weighted by its launches a forward) and at the extra shapes.
     The kernels line's rows: ``int8_conv``, the int8-in variant (int8 in,
-    int32 out: the quantized operators' product) at every shape of the
-    path, and ``int8_conv_f32``, the f32-in variant (a whole quantized
-    layer) at the shapes where the path's layers launch it (not where the
-    plan quantizes by the operators first: conv1); their library_ms is
-    None (no one PyTorch call computes every shape). The layers' totals
-    (every kernel of a layer's call) are printed beside the unfused
-    operators'."""
+    int32 out: the quantized operators' product), and ``int8_conv_f32``,
+    the f32-in variant (a whole quantized layer, what the path launches),
+    each at every shape of the path; their library_ms is None (no one
+    PyTorch call computes every shape)."""
     gen = torch.Generator(device=dev).manual_seed(31)
     keys = ("ms", "plain_ms", "bound_ms")
-    total = dict.fromkeys(keys, 0.0)
+    total = dict.fromkeys(keys + ("unfused_ms",), 0.0)
     total8 = dict.fromkeys(keys, 0.0)
-    layers = dict.fromkeys(("layer_ms", "unfused_ms"), 0.0)
-    kinds = {"bytes": 0.0, "operations": 0.0}   # the f32 bound by kind
+    kinds = {"bytes": 0.0, "operations": 0.0}   # the bound's ms by kind
     kinds8 = dict.fromkeys(kinds, 0.0)
-    n_f32 = 0
 
     def add(acc, r, n):
         for k in acc:
@@ -7983,28 +8045,25 @@ def int8_kernel_rows(torch, dev, shapes):
             r, r8 = int8_row(torch, dev, f"{xs} -> {ws[0]}, {ws[2]}x{ws[3]} "
                              f"stride {stride[0]} ({n} a forward)", "NCHW",
                              xs, ws, stride, pad, dilate, groups, gen)
-        add(layers, r, n)
+        add(total, r, n)
         add(total8, r8, n)
+        kinds[r["bound_by"]] += n * r["bound_ms"]
         kinds8[r8["bound_by"]] += n * r8["bound_ms"]
-        if not r["codes_first"]:
-            add(total, r, n)
-            kinds[r["bound_by"]] += n * r["bound_ms"]
-            n_f32 += n
     for label, layout, xs, ws, st, pd, dl, g in INT8_EXTRA:
         int8_row(torch, dev, label, layout, xs, ws, st, pd, dl, g, gen)
+    unfused = total.pop("unfused_ms")
     row = dict(total, library_ms=None, bound_by=max(kinds, key=kinds.get))
     row8 = dict(total8, library_ms=None,
                 bound_by=max(kinds8, key=kinds8.get))
     print(f"phase 12: int8 kernel per quantized ResNet-50 forward (B="
-          f"{B_QUANT}, {sum(shapes.values())} layers): int8-in variant "
-          f"(int8_conv, the operators' product) at every layer "
-          f"{fmt_ms(row8['ms'])} device, plain {fmt_ms(row8['plain_ms'])}, "
-          f"bound {row8['bound_ms']:.4f} ms ({row8['bound_by']}); f32-in "
-          f"variant (int8_conv_f32) at the {n_f32} layers that launch it "
-          f"{fmt_ms(row['ms'])}, plain {fmt_ms(row['plain_ms'])}, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the layers' "
-          f"kernels {fmt_ms(layers['layer_ms'])} against the unfused "
-          f"operators' {fmt_ms(layers['unfused_ms'])}", flush=True)
+          f"{B_QUANT}, {sum(shapes.values())} layers): f32-in variant "
+          f"(int8_conv_f32, the path's) {fmt_ms(row['ms'])} device, plain "
+          f"{fmt_ms(row['plain_ms'])}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), the unfused operators it replaces "
+          f"{fmt_ms(unfused)}; int8-in variant (int8_conv, the operators' "
+          f"product) {fmt_ms(row8['ms'])}, plain {fmt_ms(row8['plain_ms'])}"
+          f", bound {row8['bound_ms']:.4f} ms ({row8['bound_by']})",
+          flush=True)
     return row8, row
 
 
@@ -8021,43 +8080,14 @@ INT8_PROBE = [("FC", "FC", (64, 2048), (1000, 2048), None, None, None)] + [
         (128, 28, 128, 3, 1), (256, 56, 512, 1, 2))]
 
 
-def int8_other_route(torch, i8, x, w, b, st, pd, dl, layout, label):
-    """{"runs route": call}: the int8-in kernel at a shape whose plan
-    gathers A in 16-byte pieces, with A taken by the bulk-copied channel
-    runs instead (an experiment: not counted), checked against the plain
-    version to the bit; {} at other shapes."""
-    s = i8._shape(x, w, st, pd, dl, 1, layout)
-    plan = i8._plan(s, st, pd, 1, 1, x.device)
-    if plan.route != "chunk":
-        return {}
-    plan = plan._replace(route="runs")
-    packed, _ = i8.pack_weight(w, layout, plan.cf)
-    y = torch.empty((s.N,) + s.osp + (s.O,), dtype=torch.int32,
-                    device=x.device)
-    x5 = i8._input(x, s, plan)
-
-    def call():
-        i8._launch(x5, packed, b, y, s, st, pd, dl, 1, plan,
-                   fn=i8._kernel())
-        return y
-    got = call().movedim(-1, 1)
-    want = i8.conv_reference(x, w, b, st, pd, dl, 1, layout)
-    print(f"phase 12: probe int8 kernel, int8 in, {label}: the runs route "
-          f"{'equal to' if torch.equal(got, want) else 'DIFFERS from'} the "
-          f"plain version", flush=True)
-    return {"runs route": call}
-
-
 def int8_probe(torch, dev):
     """Where the int8 kernel's time goes (``--probe-int8``): both variants
     at INT8_PROBE's shapes, timed by device time in turns with builds of
     the kernel with A's copies, the products or the epilogue's stores cut
-    out (``-DMXT_I8_CUT=3/1/2``; 5 the TMA stores alone, the staging
-    kept; wrong results, never checked) and with one
-    staging tile a warpgroup (``-DMXT_I8_CUT=4``: each tile's stores read
-    out before the next tile is staged), INT8_PROBE_ROUNDS rounds of every
-    build in turns: the median and the range of each. Variant launches are
-    not counted."""
+    out (``-DMXT_I8_CUT=3/1/2``) or the epilogue's TMA stores alone, with
+    its proxy fence or with its staging writes (5/6/7; wrong results,
+    never checked), INT8_PROBE_ROUNDS rounds of every build in turns: the
+    median and the range of each. Variant launches are not counted."""
     import ctypes
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops.cuda import int8_conv as i8
@@ -8095,9 +8125,6 @@ def int8_probe(torch, dev):
                                         sc, sp, False, fn)
             runs = dict(full=run(None),
                         **{lab: run(fns[lab]) for lab in INT8_CUTS})
-            if not f32 and not fc:
-                runs.update(int8_other_route(torch, i8, x, w, b, st, pd, dl,
-                                             layout, label))
             times = {k: [] for k in runs}
             for _ in range(INT8_PROBE_ROUNDS):
                 for k, fn in runs.items():
@@ -8275,8 +8302,9 @@ def nms_inputs(torch, data, anc, B, n):
 
 def phase_quant(torch, dev):
     """Phase 12: int8 ResNet-50 v1 through quantize_net (the main path,
-    checks and times), the int8 kernel's rows, and SSD-300's box operators
-    with the NMS kernel. Returns (rows, launches)."""
+    checks and times), the quantized operators' own path, the int8
+    kernel's rows, and SSD-300's box operators with the NMS kernel.
+    Returns (rows, launches)."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
     t = time.perf_counter()
     # gamma 1 in every BatchNorm, so every convolution's output reaches the
@@ -8284,6 +8312,13 @@ def phase_quant(torch, dev):
     params = random_resnet_params(get_model("resnet50_v1", device="cpu"),
                                   seed=0, zero_last_gamma=False)
     launches, shapes = quant_main_path(torch, dev, params)
+    from mxnet_tpu_torch.ops.cuda import int8_conv as i8
+    reset_counts(i8)                        # the operators' path starts here
+    quant_operator_path(torch, dev)
+    for k, n in i8.launches.items():        # ... and ends here
+        launches[k] += n
+    print(f"phase 12: int8 kernel launches of the operators' path "
+          f"{dict(i8.launches)}", flush=True)
     row8, row = int8_kernel_rows(torch, dev, shapes)
     rows = {"int8_conv": dict(row8, max_abs_err=0.0),
             "int8_conv_f32": dict(row, max_abs_err=0.0)}

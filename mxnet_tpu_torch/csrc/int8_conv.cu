@@ -60,9 +60,7 @@
 // A straight from shared memory, f32 A read from shared memory, quantized
 // in registers and fed as wgmma's register operand. The epilogue stages
 // each warpgroup's 64 x BN tile in shared memory and writes it by TMA
-// stores, whole lines, while the next tile's products run; where the ring
-// keeps 3 slots, two staging tiles a warpgroup, used in turns, so a tile's
-// stores also run on while the next tile is staged. Unsplit, the
+// stores, whole lines, while the next tile's products run. Unsplit, the
 // grid is persistent (a block an SM walks the tiles) and the ring runs on
 // across tiles, so one tile's epilogue overlaps the next tile's loads. A
 // shape whose tiles leave SMs idle (the FC) splits its reduction over a
@@ -81,10 +79,11 @@
 #include "hopper.cuh"
 #include "tma_host.cuh"
 
-// experiments only (chip_smoke.py --probe-int8): 1 cuts the products out,
-// 2 the epilogue's stores, 3 A's copies, 5 the TMA stores alone (staging
-// kept; wrong results, never checked); 4 keeps one staging tile a
-// warpgroup where two would fit (right results)
+// experiments only (chip_smoke.py --probe-int8; wrong results, never
+// checked): 1 cuts the products out, 2 the epilogue's stores, 3 A's
+// copies; 5 the TMA stores (the staging, its fence and barrier kept), 6
+// those and the proxy fence, 7 those and the staging writes (the fence
+// and barrier kept)
 #ifndef MXT_I8_CUT
 #define MXT_I8_CUT 0
 #endif
@@ -101,14 +100,14 @@ constexpr int BAR_BYTES = 256;
 constexpr int SMEM_MAX = 232448;
 // how A reaches shared memory
 constexpr int ROUTE_TMA = 0, ROUTE_CHUNK = 1, ROUTE_ELEM = 2, ROUTE_RUNS = 3;
-// route RUNS: a row of A, 128 elements of one or more taps' channel runs,
-// lies plain at rs(esize) bytes a row (16 bytes of padding spread the
-// consumers' reads over the banks)
-__host__ __device__ constexpr int rs(int esize) { return 128 * esize + 16; }
+// route RUNS (f32): a row of A, 128 f32 of one or more taps' channel runs,
+// lies plain at RS bytes a row (16 bytes of padding spread the consumers'
+// reads over the banks)
+constexpr int RS = 128 * 4 + 16;
 
 // the bytes of a ring slot's A tile for route and element size
 __host__ __device__ constexpr int a_tile(int route, int esize) {
-  return route == ROUTE_RUNS ? BM * rs(esize) : BOX * esize;
+  return route == ROUTE_RUNS ? BM * RS : BOX * esize;
 }
 
 struct Params {
@@ -129,7 +128,6 @@ struct Params {
   int n_tiles;
   int stages, slot;     // ring slots and their bytes
   int store;            // the output by TMA from a staging tile, else stores
-  int bufs;             // staging tiles a warpgroup (1 or 2, in turns)
   int stage_at, bar_at; // byte offsets of the staging tiles and barriers
 };
 
@@ -425,10 +423,9 @@ __device__ __forceinline__ long long walk_next(const Params& p,
 
 // One ring step of row `row` from element k0 on: f32 by 4-byte cp.async
 // (zero-filled in the padding; the caller arrives when they land), int8
-// through registers, 32 loads in flight, then two 16-byte stores (a load
-// at a time waited on each, the element walk was latency-bound). Elements
-// past the reduction meet the weight's zero padding: they are written as
-// 0 within a 16-byte piece, not at all past it.
+// through registers, 32 loads issued before any is used, then two 16-byte
+// stores. Elements past the reduction meet the weight's zero padding:
+// they are written as 0 within a 16-byte piece, not at all past it.
 template <typename T>
 __device__ __forceinline__ void elem_gather(const Params& p, const RowPos& r,
                                             Walk& w, int g, int k0, int row,
@@ -468,30 +465,27 @@ __device__ __forceinline__ void elem_gather(const Params& p, const RowPos& r,
 }
 
 // Route RUNS: row r's elements k0 .. k0 + 127 (or to K) of a step, in
-// the order (kd, kh, kw, c) with C / G a multiple of 32 (f32) or 16
-// (int8): runs of whole 128-byte (f32) or 16-byte (int8) pieces of one
-// tap, contiguous in a channels-last x, each copied by one 1-d bulk copy
-// to `a` (the row's place in the slot), or zeros written where the tap
-// lies in the padding. t: the tap of k0, moved on to the next step's.
-// Returns the bytes copied.
-template <typename T>
+// the order (kd, kh, kw, c) with C / G a multiple of 32: runs of whole
+// 32-channel pieces of one tap, contiguous in a channels-last x, each
+// copied by one 1-d bulk copy to `a` (the row's place in the slot), or
+// zeros written where the tap lies in the padding. t: the tap of k0,
+// moved on to the next step's. Returns the bytes copied.
 __device__ __forceinline__ uint32_t runs_gather(const Params& p,
                                                 const RowPos& r, Tap& t,
                                                 int g, int k0, uint8_t* a,
                                                 uint64_t* bar) {
-  constexpr int E = sizeof(T);
-  const T* x = static_cast<const T*>(p.x);
+  const float* x = static_cast<const float*>(p.x);
   const int n = min(BK, p.K - k0);
   uint32_t bytes = 0;
   for (int done = 0; done < n;) {
     const int len = min(p.Cg - t.c, n - done);
     const long long off = x_offset(p, r, t, g);
     if (off >= 0) {
-      hop::bulk_g2s(a + E * done, x + off, E * len, bar);
-      bytes += E * len;
+      hop::bulk_g2s(a + 4 * done, x + off, 4 * len, bar);
+      bytes += 4 * len;
     } else {
-      for (int i = 0; i < E * len; i += 16)
-        *reinterpret_cast<uint4*>(a + E * done + i) =
+      for (int i = 0; i < len; i += 4)
+        *reinterpret_cast<uint4*>(a + 4 * (done + i)) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     done += len;
@@ -541,9 +535,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   // otherwise also one from each gathering thread (f32 and the pieces
   // when their copies land, int8 element by element after its stores)
   constexpr bool ASYNC = ROUTE == ROUTE_CHUNK || (F32 && ROUTE != ROUTE_RUNS);
-  // A read into registers (f32 quantized there; int8 runs laid out plain)
-  // and fed as wgmma's register operand, else wgmma reads it from the slot
-  constexpr bool REG_A = F32 || ROUTE == ROUTE_RUNS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = hop::smem_u32(smem_raw);
   uint8_t* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -619,8 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           // the padding; the row's bytes announced with its arrival
           uint32_t bytes = 0;
           if (MXT_I8_CUT != 3)
-            bytes = runs_gather<T>(p, r, walk.t, w.g, s * BK,
-                                   st + pt * rs(sizeof(T)), bar);
+            bytes = runs_gather(p, r, walk.t, w.g, s * BK, st + pt * RS, bar);
           hop::mbar_expect(bar, bytes);
           continue;
         }
@@ -648,9 +638,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int ra = wg * 64 + warp * 16 + g8;   // rows ra, ra + 8 of the tile
     const bool lead = (tid & 127) == 0;
     const int S = p.split;
-    int fill = 0, turn = 0;
-    bool committed = false;   // lead: the last tile's stores were issued
-    for (long long u = blockIdx.x; u < units; u += gridDim.x, ++turn) {
+    int fill = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
       const Unit w = unit_of(p, u, BN);
       int acc[NA];
 #pragma unroll
@@ -659,7 +648,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         ring.wait(fill);
         uint8_t* st = ring.at(fill);
         const uint32_t b = hop::smem_u32(st + A_BYTES);
-        if constexpr (REG_A) {
+        if constexpr (F32) {
           // k32 step kk is box kk: a[0] row ra, k 4 t4 ..; a[1] row ra + 8;
           // a[2] row ra, k 16 + 4 t4 ..; a[3] row ra + 8
           // (boxes past the reduction hold no data: their codes are 0)
@@ -671,15 +660,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int h = 0; h < 4; ++h) {
               const int row = ra + 8 * (h & 1), c4 = 4 * (h >> 1) + t4;
-              if constexpr (!F32) {
-                // int8 runs: the 4 codes at k 32 kk + 4 c4
-                a[kk][h] = in ? *reinterpret_cast<const uint32_t*>(
-                                    st + row * rs(1) + 32 * kk + 4 * c4)
-                              : 0u;
-                continue;
-              }
               const uint8_t* q =
-                  ROUTE == ROUTE_RUNS ? st + row * rs(4) + (8 * kk + c4) * 16
+                  ROUTE == ROUTE_RUNS ? st + row * RS + (8 * kk + c4) * 16
                                       : box + swz(row, c4);
               a[kk][h] = in ? quant4(*reinterpret_cast<const float4*>(q),
                                      scale)
@@ -722,7 +704,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (s > w.s0) ring.release(fill - 1, lane);
         }
       }
-      if constexpr (!REG_A) {
+      if constexpr (!F32) {
         hop::wgmma_wait<0>();
         hop::fence_regs(acc, NA);
         ring.release(fill - 1, lane);
@@ -757,22 +739,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       // element 4 j + 2 h + e: row ra + 8 h, channel n0 + 8 j + 2 t4 + e.
       // store: into this warpgroup's staging tile, BN / 32 128-byte-
       // swizzled boxes of its 64 rows x 32 channels, then one TMA store a
-      // box (whole lines; rows and channels past the output clipped). With
-      // two staging tiles a warpgroup, used in turns, a tile's stores run
-      // on while the next tile is computed and staged: a staging tile is
-      // rewritten once the stores of the tile before last have read it
-      // (one bulk group a tile may stay pending), with one once the last
-      // tile's have. Else two neighbouring channels as one 8-byte store
-      // where O and Og are even
-      uint8_t* stage =
-          sm + p.stage_at + ((turn % p.bufs) * 2 + wg) * BN * 256;
+      // box (whole lines; rows and channels past the output clipped), the
+      // staging rewritten only after the last tile's stores have read it;
+      // else two neighbouring channels as one 8-byte store where O and Og
+      // are even
+      uint8_t* stage = sm + p.stage_at + wg * BN * 256;
       if (p.store) {
-        if (lead) {
-          if (p.bufs == 2 && committed)
-            hop::bulk_wait_read<1>();
-          else
-            hop::bulk_wait_read<0>();
-        }
+        if (lead) hop::bulk_wait_read<0>();
         hop::named_sync(2 + wg, 128);
       }
 #pragma unroll
@@ -800,7 +773,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               v[e] = __float_as_uint(f);
             }
           }
-          if (MXT_I8_CUT == 2) {
+          if (MXT_I8_CUT == 2 || MXT_I8_CUT == 7) {
             asm volatile("" ::"r"(v[0]), "r"(v[1]));
           } else if (p.store) {
             const int c = 8 * j + 2 * t4, r = ra - wg * 64 + 8 * h;
@@ -821,11 +794,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       if (p.store && MXT_I8_CUT != 2) {
-        hop::fence_async_smem();
+        if (MXT_I8_CUT != 6) hop::fence_async_smem();
         hop::named_sync(2 + wg, 128);
         const long long r0 = w.m0 + wg * 64;
-        if (lead) committed = r0 < p.M && MXT_I8_CUT != 5;
-        if (lead && r0 < p.M && MXT_I8_CUT != 5) {
+        if (lead && r0 < p.M && MXT_I8_CUT < 5) {
           for (int b = 0; b < BN / 32 && w.n0 + 32 * b < p.O; ++b)
             hop::tma_store_4d(&maps.y, stage + b * 8192, w.n0 + 32 * b,
                               static_cast<int>(r0), 0, 0);
@@ -873,8 +845,9 @@ cudaError_t launch_route(int route, const Maps& maps, const Params& p,
     return launch<BN, T, ROUTE_TMA>(maps, p, blocks, smem, stream);
   if (route == ROUTE_CHUNK)
     return launch<BN, T, ROUTE_CHUNK>(maps, p, blocks, smem, stream);
-  if (route == ROUTE_RUNS)
-    return launch<BN, T, ROUTE_RUNS>(maps, p, blocks, smem, stream);
+  if constexpr (sizeof(T) == 4)
+    if (route == ROUTE_RUNS)
+      return launch<BN, T, ROUTE_RUNS>(maps, p, blocks, smem, stream);
   return launch<BN, T, ROUTE_ELEM>(maps, p, blocks, smem, stream);
 }
 
@@ -931,26 +904,21 @@ extern "C" int mxt_int8_conv(const void* x, const void* w, const void* bias,
       (route == i8::ROUTE_TMA &&
        (!one || (C * esize) % 16 || p.M >= (1LL << 31))) ||
       (route == i8::ROUTE_CHUNK && (p.Cg % (16 / esize) || cf)) ||
-      (route == i8::ROUTE_RUNS && (p.Cg % (in_f32 ? 32 : 16) || cf)))
+      (route == i8::ROUTE_RUNS && (!in_f32 || p.Cg % 32 || cf)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the output by TMA stores from staging tiles (64 rows x bn a
   // warpgroup) where a tile's channels are its own (one group) and rows
   // are 16-byte multiples, unless a gathering route would lose ring slots
-  // below 3 to them; two a warpgroup, in turns, where that leaves the ring
-  // at least 3 slots (or as many as one does); split, each block stores
-  // its share itself
+  // below 3 to them; split, each block stores its share itself
   p.slot = i8::a_tile(route, esize) + bn * 128;
   const int room = i8::SMEM_MAX - 1024 - i8::BAR_BYTES, tiles = 2 * bn * 256;
   const int direct = std::min(i8::MAX_STAGES, room / p.slot);
   const int staged = std::min(i8::MAX_STAGES, (room - tiles) / p.slot);
-  const int staged2 = std::min(i8::MAX_STAGES, (room - 2 * tiles) / p.slot);
   p.store = split == 1 && G == 1 && O % 4 == 0 &&
             reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
             (route == i8::ROUTE_TMA || staged >= std::min(3, direct));
-  p.bufs = p.store && MXT_I8_CUT != 4 && staged2 >= std::min(3, staged)
-               ? 2 : 1;
-  const int staging = p.store ? p.bufs * tiles : 0;
-  p.stages = p.store ? (p.bufs == 2 ? staged2 : staged) : direct;
+  const int staging = p.store ? tiles : 0;
+  p.stages = p.store ? staged : direct;
   // split's partial sums (256 threads x bn / 2) in the drained ring
   if (p.stages < 2 || 256LL * bn / 2 * 4 > 1LL * p.stages * p.slot)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,11 +37,8 @@ where a group's channels are a multiple of 32; in 16-byte pieces where
 they fill whole pieces; element by element otherwise; the reduction's order (channels-last ``(kd, kh, kw,
 c)``, or ``(c, kd, kh, kw)`` over a channels-first input taken element by
 element: conv1's NCHW image is read as it lies); the tile's output
-channels; how many blocks of a thread-block cluster split the
-reduction where the tiles alone leave SMs idle; and whether an f32 input
-that would be taken element by element in the order ``(c, kd, kh, kw)``
-(conv1's) is quantized by the operators first, its codes then read by the
-int8-in variant (``codes_first``: faster at conv1, and the same bits).
+channels; and how many blocks of a thread-block cluster split the
+reduction where the tiles alone leave SMs idle.
 
 The kernel writes a channels-last output, so for a channels-first layout
 the result is a view, logically in that layout, of a channels-last tensor.
@@ -120,16 +117,13 @@ class Plan(NamedTuple):
     ``"elem"``, ``"runs"``), the reduction order ``cf`` ((c, kd, kh, kw) over a
     channels-first input, else (kd, kh, kw, c)), the tile's output channels
     ``bn``, the cluster's ``split`` of the reduction, its 128-wide
-    ``steps`` and the output ``tiles``; ``codes_first``: an f32 input is
-    quantized by the operators and the int8-in variant launched on its
-    codes (the plan is that launch's)."""
+    ``steps`` and the output ``tiles``."""
     route: str
     cf: bool
     bn: int
     split: int
     steps: int
     tiles: int
-    codes_first: bool = False
 
 
 def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
@@ -143,25 +137,16 @@ def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
     The split: with one block an SM, a tile's time is its steps, so a
     launch takes (waves of blocks) x (steps a block, plus about one for the
     cluster's combine where the reduction is split); the smallest such
-    split of 1, 2, 4, 8 (at most the steps), the smaller on a tie.
-
-    An f32 input that the kernel would read element by element in the
-    order (c, kd, kh, kw) (conv1's 3-channel NCHW image) is quantized by
-    the operators first (``codes_first``) and the int8-in variant reads its
-    codes: at conv1 that is faster than the f32 variant's 4-byte copies
-    and the consumers' quantizing of 64 KB of f32 a step (PERF.md §6)."""
+    split of 1, 2, 4, 8 (at most the steps), the smaller on a tie."""
     Cg = C // G
-
-    def route_of(esize):
-        if one and (C * esize) % 16 == 0:
-            return "tma"
-        if esize == 4 and Cg % 32 == 0:
-            return "runs"
-        return "chunk" if Cg % (16 // esize) == 0 else "elem"
-    route = route_of(esize)
-    codes_first = esize == 4 and route == "elem" and channels_first
-    if codes_first:
-        route = route_of(1)
+    if one and (C * esize) % 16 == 0:
+        route = "tma"
+    elif esize == 4 and Cg % 32 == 0:
+        route = "runs"
+    elif Cg % (16 // esize) == 0:
+        route = "chunk"
+    else:
+        route = "elem"
     bn = 64 if Og <= 64 else 128
     tiles = -(-M // BM) * -(-Og // bn) * G
     steps = -(-K // BK)
@@ -173,7 +158,7 @@ def int8_plan(M: int, C: int, Og: int, G: int, K: int, one: bool,
         if best is None or cost < best[0]:
             best = (cost, s)
     return Plan(route, route == "elem" and channels_first, bn, best[1], steps,
-                tiles, codes_first)
+                tiles)
 
 
 def _sms(device) -> int:
@@ -238,10 +223,11 @@ def _codes(x, scale):
     return quantization.int8_codes(x.float(), scale)
 
 
-def _dequantized(y, step, relu: bool):
-    """``dequantize``'s product of an int32 accumulator by its step (a 0-d
-    f32 tensor), then the relu."""
-    out = y * step
+def _dequantize(y, step, relu: bool):
+    """``dequantize`` of an int32 accumulator by its step (a 0-d f32
+    tensor: ``ops/quantization.dequantize_by``), then the relu."""
+    from .. import quantization
+    out = quantization.dequantize_by(y, step)
     return torch.relu(out) if relu else out
 
 
@@ -252,14 +238,14 @@ def conv_f32_reference(x, w, bias32, scale, step, stride=(1,), pad=(0,),
     int8 codes, :func:`conv_reference`, ``dequantize``, the relu."""
     y = conv_reference(_codes(x, scale), w, bias32, stride, pad, dilate,
                        groups, layout)
-    return _dequantized(y, step, relu)
+    return _dequantize(y, step, relu)
 
 
 def fully_connected_f32_reference(x, w, bias32, scale, step,
                                   relu: bool = False):
     """The plain version of a quantized fully connected layer."""
     y = fully_connected_reference(_codes(x, scale), w, bias32)
-    return _dequantized(y, step, relu)
+    return _dequantize(y, step, relu)
 
 
 # ------------------------------------------------------------------- packing
@@ -425,8 +411,6 @@ def _conv(x, w, bias32, stride, pad, dilate, groups, layout, packed,
     y = torch.empty((s.N,) + s.osp + (s.O,), dtype=out, device=x.device)
     if y.numel():
         plan = _plan(s, stride, pad, groups, 4 if in_f32 else 1, x.device)
-        if plan.codes_first:
-            x, scale = _codes(x, scale), None
         if packed is None or packed.cf != plan.cf:
             packed, copied = pack_weight(w, layout, plan.cf)
             if copied:

@@ -115,6 +115,12 @@ def dequantize_step(mn, mx, qmax: float):
     return _over(_amax(mn, mx), qmax)
 
 
+def dequantize_by(data, step, dtype=torch.float32):
+    """Codes or an accumulator times their f32 ``step`` (converted to f32
+    inside the product, one pass over them), in ``dtype``."""
+    return (data * step).to(dtype)
+
+
 def _quantize(x, mn, mx, out_type: str):
     """``x`` (f32) into ``out_type`` over the range [mn, mx]."""
     q_max = _range_for(out_type)
@@ -151,12 +157,10 @@ def dequantize(data, min_range, max_range, out_type: str = "float32"):
     types symmetric over their own maximum."""
     mn, mx = _f32(min_range, data), _f32(max_range, data)
     dt = to_torch_dtype(out_type)
-    # the codes times an f32 tensor: converted to f32 inside the product,
-    # one pass over them
     if data.dtype == torch.uint8:
         return (data * _over(mx - mn, _UINT8_MAX) + mn).to(dt)
     qmax = float(torch.iinfo(data.dtype).max)
-    return (data * dequantize_step(mn, mx, qmax)).to(dt)
+    return dequantize_by(data, dequantize_step(mn, mx, qmax), dt)
 
 
 def requantize(data, min_range, max_range,

@@ -3387,11 +3387,9 @@ def test_quantized_resnet_graph_capture(dev):
         before = dict(i8.launches)
         eager = Block.__call__(net, x)
         torch.cuda.synchronize()
-        # conv1's 3-channel image quantized by the operators, then the
-        # int8-in variant; the other 19 convolutions and the Dense layer
-        # the f32-in variant
+        # 20 convolutions and the Dense layer, each on the f32-in variant
         assert {k: i8.launches[k] - before[k] for k in before} == {
-            "int8_conv": 1, "int8_conv_f32": 20}
+            "int8_conv": 0, "int8_conv_f32": 21}
         net.hybridize()
         outs = [net(x) for _ in range(3)]
     assert all(torch.equal(o, eager) for o in outs)

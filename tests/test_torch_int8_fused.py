@@ -356,29 +356,6 @@ PLANS = [
 ]
 
 
-# f32 in read element by element in the order (c, kd, kh, kw): quantized by
-# the operators first, the plan the int8-in launch's; not where the f32
-# variant takes the input otherwise, nor for int8 in
-CODES_FIRST = [
-    ((802816, 3, 64, 1, 147, False, 4, True), True),      # conv1
-    ((81, 6, 24, 1, 6, True, 4, True), True),
-    ((81, 6, 24, 1, 6, True, 4, False), False),            # channels last
-    ((802816, 3, 64, 1, 147, False, 1, True), False),      # int8 in
-    ((81, 20, 24, 1, 180, False, 4, True), False),         # f32 pieces
-    ((200704, 64, 256, 1, 64, True, 4, True), False),      # by TMA
-]
-
-
-@pytest.mark.parametrize("args,want", CODES_FIRST,
-                         ids=[str(a) for a, _ in CODES_FIRST])
-def test_int8_plan_codes_first(args, want):
-    p = i8.int8_plan(*args)
-    assert p.codes_first == want
-    if want:
-        as_int8 = i8.int8_plan(*args[:6], 1, *args[7:])
-        assert p == as_int8._replace(codes_first=True)
-
-
 @pytest.mark.parametrize("args,want", PLANS, ids=[str(a) for a, _ in PLANS])
 def test_int8_plan(args, want):
     p = i8.int8_plan(*args)
