@@ -533,10 +533,7 @@ OLD_CONV_MS = {
 INT8_CUTS = {"A copies cut": "MXT_I8_CUT=3", "products cut": "MXT_I8_CUT=1",
              "stores cut": "MXT_I8_CUT=2", "TMA stores cut": "MXT_I8_CUT=5",
              "TMA stores and fence cut": "MXT_I8_CUT=6",
-             "TMA stores and staging writes cut": "MXT_I8_CUT=7",
-             "16-byte direct stores": "MXT_I8_CUT=8"}
-# the probe builds whose results are right (held to the whole kernel's)
-INT8_RIGHT = ("16-byte direct stores",)
+             "TMA stores and staging writes cut": "MXT_I8_CUT=7"}
 # --probe-int8's rounds: every build timed once a round, in turns
 INT8_PROBE_ROUNDS = 3
 # --probe-conv: fwd and dgrad rebuilt with one part cut out
@@ -8128,11 +8125,6 @@ def int8_probe(torch, dev):
                                         sc, sp, False, fn)
             runs = dict(full=run(None),
                         **{lab: run(fns[lab]) for lab in INT8_CUTS})
-            for lab in INT8_RIGHT:
-                same = torch.equal(runs[lab](), runs["full"]())
-                print(f"phase 12: probe int8 kernel, {variant} in, {label}: "
-                      f"{lab} {'equal to' if same else 'DIFFER from'} the "
-                      f"whole kernel's", flush=True)
             times = {k: [] for k in runs}
             for _ in range(INT8_PROBE_ROUNDS):
                 for k, fn in runs.items():

@@ -83,9 +83,7 @@
 // checked): 1 cuts the products out, 2 the epilogue's stores, 3 A's
 // copies; 5 the TMA stores (the staging, its fence and barrier kept), 6
 // those and the proxy fence, 7 those and the staging writes (the fence
-// and barrier kept); 8 (right results) writes the output straight from
-// registers in 16-byte stores, two lanes exchanging a row's halves, with
-// no staging
+// and barrier kept)
 #ifndef MXT_I8_CUT
 #define MXT_I8_CUT 0
 #endif
@@ -130,7 +128,6 @@ struct Params {
   int n_tiles;
   int stages, slot;     // ring slots and their bytes
   int store;            // the output by TMA from a staging tile, else stores
-  int wide;             // else 16-byte stores of 4 channels (MXT_I8_CUT 8)
   int stage_at, bar_at; // byte offsets of the staging tiles and barriers
 };
 
@@ -761,12 +758,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (p.bias && n + e < p.Og)
             bias[e] =
                 static_cast<uint32_t>(__ldg(p.bias + w.g * p.Og + n + e));
-        uint32_t vv[2][2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = 4 * j + 2 * h;
           const long long m = w.m0 + ra + 8 * h;
-          uint32_t* v = vv[h];
+          uint32_t v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             v[e] = static_cast<uint32_t>(acc[i + e]) + bias[e];
@@ -784,7 +780,6 @@ __global__ void __launch_bounds__(THREADS, 1)
             *reinterpret_cast<uint2*>(stage + (c >> 5) * 8192 +
                                       swz(r, (c & 31) >> 2) + (c & 3) * 4) =
                 make_uint2(v[0], v[1]);
-          } else if (p.wide) {
           } else if (m < p.M) {
             uint32_t* yr =
                 static_cast<uint32_t*>(p.y) + m * p.O + w.g * p.Og;
@@ -796,22 +791,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                 if (n + e < p.Og) yr[n + e] = v[e];
             }
           }
-        }
-        if (p.wide) {
-          // lanes t4, t4 ^ 1 hold channels 2 t4 .. of rows ra and ra + 8:
-          // the even lane gathers row ra's 4 channels, the odd row ra + 8's
-          const bool odd = t4 & 1;
-          const uint32_t r0 =
-              __shfl_xor_sync(0xffffffffu, odd ? vv[0][0] : vv[1][0], 1);
-          const uint32_t r1 =
-              __shfl_xor_sync(0xffffffffu, odd ? vv[0][1] : vv[1][1], 1);
-          const long long m = w.m0 + ra + (odd ? 8 : 0);
-          const int n4 = w.n0 + 8 * j + 2 * (t4 & ~1);
-          if (m < p.M && n4 < p.Og)
-            *reinterpret_cast<uint4*>(static_cast<uint32_t*>(p.y) +
-                                      m * p.O + w.g * p.Og + n4) =
-                odd ? make_uint4(r0, r1, vv[1][0], vv[1][1])
-                    : make_uint4(vv[0][0], vv[0][1], r0, r1);
         }
       }
       if (p.store && MXT_I8_CUT != 2) {
@@ -937,10 +916,7 @@ extern "C" int mxt_int8_conv(const void* x, const void* w, const void* bias,
   const int staged = std::min(i8::MAX_STAGES, (room - tiles) / p.slot);
   p.store = split == 1 && G == 1 && O % 4 == 0 &&
             reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
-            (route == i8::ROUTE_TMA || staged >= std::min(3, direct)) &&
-            MXT_I8_CUT != 8;
-  p.wide = MXT_I8_CUT == 8 && O % 4 == 0 && (O / G) % 4 == 0 &&
-           reinterpret_cast<uintptr_t>(y) % 16 == 0;
+            (route == i8::ROUTE_TMA || staged >= std::min(3, direct));
   const int staging = p.store ? tiles : 0;
   p.stages = p.store ? staged : direct;
   // split's partial sums (256 threads x bn / 2) in the drained ring
